@@ -1,0 +1,45 @@
+"""Where an element takes its random numbers.
+
+The JAX package folds and splits keys; here an engine run owns one
+``torch.Generator`` and every element draws from it in a fixed order. The
+parity tests instead hand the elements explicit uniform rows, the numbers
+the JAX package drew, through the same interface.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Draws:
+    """Uniform rows and Poisson counts from a ``torch.Generator``."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def uniform(self, n: int, dtype, device) -> torch.Tensor:
+        """``n`` uniforms in [0, 1)."""
+        return torch.rand(n, generator=self.generator, dtype=dtype, device=device)
+
+    def poisson(self, rate: float) -> int:
+        """One Poisson count of mean ``rate``."""
+        lam = torch.tensor(float(rate), dtype=torch.float64,
+                           device=self.generator.device)
+        return int(torch.poisson(lam, generator=self.generator).item())
+
+
+class ExplicitDraws:
+    """Given uniform rows handed out in order (and given Poisson counts)."""
+
+    def __init__(self, rows, counts=()):
+        self.rows = list(rows)
+        self.counts = list(counts)
+
+    def uniform(self, n: int, dtype, device) -> torch.Tensor:
+        row = torch.tensor(self.rows.pop(0), dtype=dtype, device=device)
+        if row.shape != (n,):
+            raise ValueError(f"uniform row of shape {tuple(row.shape)}, need ({n},)")
+        return row
+
+    def poisson(self, rate: float) -> int:
+        return int(self.counts.pop(0))
