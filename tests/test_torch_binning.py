@@ -108,8 +108,14 @@ def test_cpu_tensors_take_the_twin():
     ref = tbin.bin_images_fused(items, "nearest", impl="xla")[0]
     assert bin_image_cuda.launches == before
     assert torch.equal(out, ref)
-    with pytest.raises(NotImplementedError):
-        tbin.bin_images_fused(items, "bilinear")
+    # Bilinear images are plain PyTorch on every device; the pallas choice
+    # names the nearest-mode kernel only.
+    bilinear = tbin.bin_images_fused(items, "bilinear", impl="pallas")[0]
+    assert bin_image_cuda.launches == before
+    assert torch.equal(bilinear, tbin.bin_images_fused(items, "bilinear")[0])
+    assert 0 < float(bilinear.sum()) <= float(mask.sum())
+    with pytest.raises(ValueError):
+        tbin.bin_images_fused(items, "cubic")
 
 
 def test_float64_inputs_bin_in_float32():

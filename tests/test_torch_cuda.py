@@ -65,3 +65,56 @@ def test_fused_kernel_matches_twin(cuda_device, angular):
     assert int(kernel[0][0]) == n - 7
     assert (kernel[0] - twin[0]).abs().max().item() <= TOL_RAYS
     assert (kernel[1] - twin[1]).abs().sum().item() <= 2 * TOL_RAYS * len(optics)
+
+
+def _grad_setup(cuda_device, n):
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    cfg = _spectrometer_config(intensity=n, interact_mode="weight",
+                               image_mode="bilinear")
+    pipe = Pipeline(cfg, device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    return fg, spec, pack(pipe.params).detach()
+
+
+def test_fused_grad_kernels_match_twins(cuda_device):
+    """K5f against its twin (totals rtol 1e-4, pixels 1e-3 of the maximum:
+    atomics add in another order); K5b against the float32 twin (the same
+    float32 arithmetic, slot sums in another order: rtol 1e-3, atol 1e-5 of
+    the largest slot)."""
+    n = 1 << 18
+    fg, spec, pvec = _grad_setup(cuda_device, n)
+    static, lam = spec["static"], spec["lam"]
+    before = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, seed=(3, 4))
+    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, seed=(3, 4))
+    assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
+    assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
+    g = torch.randn(static.img_total, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(1))
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(3, 4))
+    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(3, 4))
+    scale = grad_twin.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+    after = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+
+
+def test_remat_on_cuda_draws_the_same_rays(cuda_device):
+    """The checkpointed recompute forks the run's CUDA generator."""
+    from xicsrt_tpu_torch.gradients import make_differentiable
+
+    cfg = _spectrometer_config(intensity=1 << 14, num_iter=2)
+    grads = []
+    for remat in (False, True):
+        image_fn, pipe = make_differentiable(cfg, remat=remat, device=cuda_device)
+        d = pipe.params["optics"]["crystal"]["crystal_spacing"].clone().requires_grad_(True)
+        params = dict(pipe.params)
+        params["optics"] = dict(params["optics"])
+        params["optics"]["crystal"] = dict(params["optics"]["crystal"], crystal_spacing=d)
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        image_fn(params, gen)["detector"].pow(2).sum().backward()
+        grads.append(d.grad)
+    assert grads[0].abs().item() > 0
+    assert torch.equal(grads[0], grads[1])

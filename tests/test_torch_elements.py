@@ -167,7 +167,8 @@ def test_not_ported_elements_raise():
     cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticToroidalCrystal"
     with pytest.raises(KeyError):
         TorchPipeline(cfg, device="cpu")
-    cfg = _config(interact_mode="weight")
+    cfg = _config()
+    cfg["optics"]["crystal"]["rocking_type"] = "file"
     with pytest.raises(NotImplementedError):
         TorchPipeline(cfg, device="cpu")
 

@@ -16,8 +16,11 @@ wrapper runs its plain PyTorch twin. The kernels build from
 Ported so far: point and box sources (Generic, Directed) with isotropic and
 isotropic_xy cones and one wavelength; plane and sphere optics with
 apertures; no interaction, mirror, and the Bragg crystal with gaussian or
-step rocking in mc mode; nearest images; history. The rest of the JAX
-package raises ``NotImplementedError``.
+step rocking in mc and weight mode; nearest and bilinear images; history;
+gradients (``gradients.py``): ``make_differentiable`` (eager autograd),
+``make_fused_differentiable`` (hand-written CUDA forward and adjoint
+kernels, ``ops/fused_grad.py``), ``align`` and ``l2_image_loss``. The rest
+of the JAX package raises ``NotImplementedError``.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401
@@ -30,5 +33,11 @@ from xicsrt_tpu_torch.engine import (  # noqa: E402,F401
     combine_raytrace,
     raytrace,
     raytrace_single,
+)
+from xicsrt_tpu_torch.gradients import (  # noqa: E402,F401
+    align,
+    l2_image_loss,
+    make_differentiable,
+    make_fused_differentiable,
 )
 from xicsrt_tpu_torch.public import get_element  # noqa: E402,F401

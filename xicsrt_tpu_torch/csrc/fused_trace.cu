@@ -16,7 +16,9 @@
 // Geometry and structure arrive at run time in two small buffers (float32
 // and int32) packed by xicsrt_tpu_torch/ops/fused_trace.py, so one build
 // serves every configuration of the subset; their layout is defined there
-// (pack_params) and mirrored by the offsets below.
+// (pack_params) and mirrored by the offsets of trace_common.cuh, which also
+// holds the sampler, intersections and aperture logic shared with the
+// gradient kernels (fused_grad.cu).
 //
 // Random numbers: either an explicit (n_draws, n_total) float32 tensor, or
 // counter-based Philox4x32-10 keyed by (seed, ray index, draw index), so a
@@ -39,75 +41,15 @@
 #include <stdint.h>
 
 #include "binning.cuh"
-
-#define XRT_MAX_OPTICS 16
-#define XRT_MAX_APERTURES 64
-#define XRT_SRC_F 24
-#define XRT_OPT_F 32
-#define XRT_AP_F 4
-#define XRT_HDR_I 8
-#define XRT_OPT_I 16
-#define XRT_AP_I 2
-#define XRT_MAX_FP \
-    (XRT_SRC_F + XRT_MAX_OPTICS * XRT_OPT_F + XRT_MAX_APERTURES * XRT_AP_F)
-#define XRT_MAX_IP \
-    (XRT_HDR_I + XRT_MAX_OPTICS * XRT_OPT_I + XRT_MAX_APERTURES * XRT_AP_I)
+#include "trace_common.cuh"
 
 namespace {
-
-// Philox4x32-10 (Salmon et al., SC'11).
-__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
-                                              uint32_t c2, uint32_t c3,
-                                              uint32_t k0, uint32_t k1,
-                                              uint32_t out[4]) {
-    for (int i = 0; i < 10; ++i) {
-        if (i > 0) {
-            k0 += 0x9E3779B9u;
-            k1 += 0xBB67AE85u;
-        }
-        const uint32_t lo0 = 0xD2511F53u * c0;
-        const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-        const uint32_t lo1 = 0xCD9E8D57u * c2;
-        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-        c0 = hi1 ^ c1 ^ k0;
-        c1 = lo1;
-        c2 = hi0 ^ c3 ^ k1;
-        c3 = lo0;
-    }
-    out[0] = c0;
-    out[1] = c1;
-    out[2] = c2;
-    out[3] = c3;
-}
-
-struct Draws {
-    const float* uniforms;  // (n_draws, n_total), or null for Philox
-    long long n_total;
-    long long ray;
-    uint32_t k0, k1;
-    int next, group;
-    uint32_t words[4];
-
-    // Uniform in [0, 1): 24 random bits, as the TPU hardware PRNG gives.
-    __device__ __forceinline__ float operator()() {
-        const int k = next++;
-        if (uniforms) return uniforms[(long long)k * n_total + ray];
-        if ((k >> 2) != group) {
-            group = k >> 2;
-            philox4x32_10((uint32_t)ray, (uint32_t)(ray >> 32),
-                          (uint32_t)group, 0u, k0, k1, words);
-        }
-        return (float)(words[k & 3] >> 8) * (1.0f / 16777216.0f);
-    }
-};
 
 __device__ __forceinline__ void count_warp(unsigned int* s_counts, int elem,
                                            bool alive, int lane) {
     const unsigned int b = __ballot_sync(0xffffffffu, alive);
     if (lane == 0 && b) atomicAdd(s_counts + elem, (unsigned int)__popc(b));
 }
-
-__device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
 
 __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
@@ -148,33 +90,8 @@ __global__ void fused_trace_kernel(
         count_warp(s_counts, 0, alive, lane);
 
         // ---- source: point origin, cone about the emission axis -------
-        float px = fp[0], py = fp[1], pz = fp[2];
-        const float u = draw();
-        const float v = draw();
-        float lx, ly, lz;
-        if (dist == 0) {  // isotropic: z uniform in [cos t, 1]
-            lz = fp[12] + u * fp[13];
-            const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
-            const float phi = v * 6.283185307179586f;
-            lx = rho * cosf(phi);
-            ly = rho * sinf(phi);
-        } else {  // isotropic_xy, symmetric y: closed-form inverse CDF
-            const float sx = sinf((fp[12] + u * fp[13]) * 0.5f) / fp[14];
-            const float tx = sx * inv_sqrt(fmaxf(1.0f - sx * sx, 1e-12f));
-            const float k2 = 1.0f + tx * tx;
-            const float h0 = fp[15] * inv_sqrt(k2 + fp[16]);
-            const float h1 = fp[17] * inv_sqrt(k2 + fp[18]);
-            const float h = h0 + v * (h1 - h0);
-            const float ty =
-                sqrtf(k2) * h * inv_sqrt(fmaxf(1.0f - h * h, 1e-12f));
-            const float w = inv_sqrt(1.0f + tx * tx + ty * ty);
-            lx = tx * w;
-            ly = ty * w;
-            lz = w;
-        }
-        float dx = lx * fp[3] + ly * fp[6] + lz * fp[9];
-        float dy = lx * fp[4] + ly * fp[7] + lz * fp[10];
-        float dz = lx * fp[5] + ly * fp[8] + lz * fp[11];
+        float px, py, pz, dx, dy, dz;
+        xrt_sample_source(fp, dist, draw, px, py, pz, dx, dy, dz);
 
         // ---- optic chain ----------------------------------------------
         for (int e = 0; e < n_opt; ++e) {
@@ -183,22 +100,20 @@ __global__ void fused_trace_kernel(
             float t, nxv, nyv, nzv;
             bool m_int;
             if (oi[0] == 0) {  // plane through o[0:3], normal bz
-                const float denom = dx * o[9] + dy * o[10] + dz * o[11];
-                const float numer = (o[0] - px) * o[9] + (o[1] - py) * o[10] +
-                                    (o[2] - pz) * o[11];
-                const bool nz = fabsf(denom) > 1e-30f;
-                t = numer / (nz ? denom : 1e-30f);
+                float denom;
+                bool nz;
+                t = xrt_plane_hit(o[0], o[1], o[2], o[9], o[10], o[11], px, py,
+                                  pz, dx, dy, dz, &denom, &nz);
                 m_int = alive && t >= 0.0f && nz;
                 nxv = o[9];
                 nyv = o[10];
                 nzv = o[11];
             } else {  // sphere of center o[12:15], radius^2 o[15]
-                const float Lx = o[12] - px, Ly = o[13] - py, Lz = o[14] - pz;
-                const float t_ca = Lx * dx + Ly * dy + Lz * dz;
-                const float d2 = Lx * Lx + Ly * Ly + Lz * Lz - t_ca * t_ca;
-                m_int = alive && d2 <= o[15];
-                const float t_hc = sqrtf(fmaxf(o[15] - d2, 0.0f));
-                t = oi[1] ? t_ca - t_hc : t_ca + t_hc;
+                const SphereHit h = xrt_sphere_hit(o[12], o[13], o[14], o[15],
+                                                   0.0f, oi[1] != 0, px, py,
+                                                   pz, dx, dy, dz);
+                m_int = alive && h.d2 <= o[15];
+                t = h.t;
                 nxv = nyv = nzv = 0.0f;
             }
             const float qx = m_int ? px + t * dx : px;
@@ -218,48 +133,9 @@ __global__ void fused_trace_kernel(
             const float lxv = rx * o[3] + ry * o[4] + rz * o[5];
             const float lyv = rx * o[6] + ry * o[7] + rz * o[8];
 
-            bool mask = m_int;
-            const int checks = oi[4];
-            if (checks & 1) mask = mask && fabsf(lxv) < o[16];
-            if (checks & 2) mask = mask && fabsf(lyv) < o[17];
-            if (checks & 4) {
-                const float lzv = rx * o[9] + ry * o[10] + rz * o[11];
-                mask = mask && fabsf(lzv) < o[18];
-            }
-            // Aperture logic (ops/aperture.py): m_in is the bounds mask,
-            // m_out the running value; updates apply only inside m_in.
-            const bool m_in = mask;
-            bool m_out = m_in;
-            for (int a = oi[6]; a < oi[6] + oi[5]; ++a) {
-                const float ax = lxv - apf[a * XRT_AP_F];
-                const float ay = lyv - apf[a * XRT_AP_F + 1];
-                const float p0 = apf[a * XRT_AP_F + 2];
-                const float p1 = apf[a * XRT_AP_F + 3];
-                bool test;
-                switch (api[a * XRT_AP_I]) {
-                    case 0: test = true; break;
-                    case 1: test = ax * ax + ay * ay < p0; break;
-                    case 2: test = fabsf(ax) < p0 && fabsf(ay) < p0; break;
-                    case 3: test = fabsf(ax) < p0 && fabsf(ay) < p1; break;
-                    default: {
-                        const float ex = ax / p0, ey = ay / p1;
-                        test = ex * ex + ey * ey < 1.0f;
-                    }
-                }
-                test = test && m_in;
-                bool nv;
-                switch (api[a * XRT_AP_I + 1]) {
-                    case 0: nv = m_out && test; break;
-                    case 1: nv = m_out && !test; break;
-                    case 2: nv = m_out || test; break;
-                    case 3: nv = !(m_out && test); break;
-                    case 4: nv = !(m_out || test); break;
-                    case 5: nv = m_out != test; break;
-                    default: nv = m_out == test;
-                }
-                m_out = m_in ? nv : m_out;
-            }
-            mask = m_out && m_in;
+            const bool m_in = xrt_bounds(m_int, oi[4], o + 16, lxv, lyv, rx,
+                                         ry, rz, o[9], o[10], o[11]);
+            bool mask = xrt_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);
 
             if (oi[2] == 1) {  // Bragg crystal, mc acceptance
                 const float dot = dx * nxv + dy * nyv + dz * nzv;

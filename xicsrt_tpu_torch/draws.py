@@ -4,6 +4,10 @@ The JAX package folds and splits keys; here an engine run owns one
 ``torch.Generator`` and every element draws from it in a fixed order. The
 parity tests instead hand the elements explicit uniform rows, the numbers
 the JAX package drew, through the same interface.
+
+``fork`` and ``join`` let a recomputed pass (``Pipeline.make_run(...,
+remat=True)``) draw the same numbers again: a fork starts where its parent
+stands, and ``join`` moves the parent to where a fork ended.
 """
 
 from __future__ import annotations
@@ -27,6 +31,14 @@ class Draws:
                            device=self.generator.device)
         return int(torch.poisson(lam, generator=self.generator).item())
 
+    def fork(self) -> "Draws":
+        gen = torch.Generator(device=self.generator.device)
+        gen.set_state(self.generator.get_state())
+        return Draws(gen)
+
+    def join(self, fork: "Draws") -> None:
+        self.generator.set_state(fork.generator.get_state())
+
 
 class ExplicitDraws:
     """Given uniform rows handed out in order (and given Poisson counts)."""
@@ -43,3 +55,9 @@ class ExplicitDraws:
 
     def poisson(self, rate: float) -> int:
         return int(self.counts.pop(0))
+
+    def fork(self) -> "ExplicitDraws":
+        return ExplicitDraws(self.rows, self.counts)
+
+    def join(self, fork: "ExplicitDraws") -> None:
+        self.rows, self.counts = list(fork.rows), list(fork.counts)

@@ -26,6 +26,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from xicsrt_tpu_torch import dispatch
 from xicsrt_tpu_torch.config import get_config
@@ -123,17 +124,45 @@ class Pipeline:
         return iteration
 
     def make_run(self, num_iter: int, keep_history: bool | None = None,
-                 keep_images: bool | None = None):
-        """Build ``run(params, generator) -> dict`` over ``num_iter``
-        iterations: meta and images sum, histories concatenate."""
+                 keep_images: bool | None = None, remat: bool = False):
+        """Build ``run(params, rng) -> dict`` over ``num_iter`` iterations:
+        meta and images sum, histories concatenate. ``rng``: a
+        ``torch.Generator``, or a draws object (``draws.ExplicitDraws``).
+
+        ``params`` may hold tensors that require grad; autograd then
+        differentiates the run. ``remat=True`` checkpoints each iteration
+        (``torch.utils.checkpoint``, as ``jax.checkpoint`` in
+        ``xicsrt_tpu/engine.py:178-179``): the backward pass recomputes the
+        trace instead of keeping its per-ray intermediates. The recompute
+        draws from a fork of the iteration's starting draws, so it traces
+        the same rays; checkpoint's own RNG handling restores only the
+        global generators, not the run's.
+        """
         iteration = self.make_iteration(keep_history, keep_images)
 
-        def run(params, generator: torch.Generator):
-            draws = Draws(generator)
-            acc = iteration(params, draws)
+        def checkpointed(params, draws):
+            start = draws.fork()
+            ended = []
+
+            def body():
+                fork = start.fork()
+                out = iteration(params, fork)
+                ended.append(fork)
+                return out
+
+            out = torch.utils.checkpoint.checkpoint(
+                body, use_reentrant=False, preserve_rng_state=False)
+            draws.join(ended[0])
+            return out
+
+        step = checkpointed if remat else iteration
+
+        def run(params, rng):
+            draws = Draws(rng) if isinstance(rng, torch.Generator) else rng
+            acc = step(params, draws)
             hist = {n: [r] for n, r in acc["history"].items()}
             for _ in range(num_iter - 1):
-                out = iteration(params, draws)
+                out = step(params, draws)
                 for n in acc["meta"]:
                     acc["meta"][n] = acc["meta"][n] + out["meta"][n]
                 for n in acc["image"]:

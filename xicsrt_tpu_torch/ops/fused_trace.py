@@ -100,8 +100,11 @@ def _source_spec(source) -> dict:
     }
 
 
-def _optic_spec(optic) -> dict:
-    """Structure of one optic: shape, bounds, apertures, interaction, image."""
+def _optic_spec(optic, mirror: bool = False) -> dict:
+    """Structure of one optic: shape, bounds, apertures, interaction, image.
+
+    ``mirror``: accept a mirror interaction (interact code 2), which the
+    gradient kernels trace and K1a does not."""
     from xicsrt_tpu_torch.optics.interactions import (
         InteractCrystal, InteractMirror, InteractNone,
     )
@@ -151,7 +154,9 @@ def _optic_spec(optic) -> dict:
         spec["rocking"] = {"gaussian": 0, "step": 1}[p["rocking_type"]]
         spec["n_draws"] = 1
     elif isinstance(optic, InteractMirror):
-        raise FusedUnsupported("mirror interaction")
+        if not mirror:
+            raise FusedUnsupported("mirror interaction")
+        spec["interact"] = 2
     elif isinstance(optic, InteractNone):
         spec["interact"] = 0
     else:
@@ -233,6 +238,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             i[1] = int(o["convex"])
         f[16:19] = o["half"]
         i[4] = o["checks"]
+        i[2] = o["interact"]
         if o["interact"] == 1:
             spacing = float(_vec(op["crystal_spacing"]))
             fwhm = float(_vec(op["rocking_fwhm"]))
@@ -243,7 +249,6 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             f[20] = fwhm * _SIGMA_PER_FWHM if o["rocking"] == 0 else fwhm / 2.0
             f[21] = sin_b
             f[22] = math.sqrt(1.0 - sin_b * sin_b)
-            i[2] = 1
             i[3] = o["rocking"]
         i[5] = len(o["apertures"])
         i[6] = ap_index
@@ -326,21 +331,15 @@ def _div(x, scalar: float):
     return x / torch.tensor(scalar, dtype=x.dtype, device=x.device)
 
 
-def _trace_slice(F, I, rays, count, draw, counts, image):
-    """Trace one slice of rays exactly as the kernel does; adds into
-    ``counts`` (int64) and the flat ``image``."""
-    f32 = torch.float32
-    n_opt = I[0]
-    alive = rays < count
-    counts[0] += alive.sum()
-    shape = rays.shape
-
-    def full(value):
-        return torch.full(shape, value, dtype=f32, device=rays.device)
-
+def sample_source_plain(F, dist: int, draw, full):
+    """The kernels' point-source sampler (``xrt_sample_source`` in
+    ``csrc/trace_common.cuh``): origin and unit direction of each ray from
+    two draws, in the kernels' float32 operations. ``dist``: 0 isotropic,
+    1 isotropic_xy; ``full(value)`` makes a tensor of the slice's shape.
+    Returns (px, py, pz, dx, dy, dz)."""
     px, py, pz = full(F[0]), full(F[1]), full(F[2])
     u, v = draw(), draw()
-    if I[2] == 0:
+    if dist == 0:
         lz = F[12] + u * F[13]
         rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
         phi = v * _TWO_PI
@@ -358,9 +357,66 @@ def _trace_slice(F, I, rays, count, draw, counts, image):
     dx = lx * F[3] + ly * F[6] + lz * F[9]
     dy = lx * F[4] + ly * F[7] + lz * F[10]
     dz = lx * F[5] + ly * F[8] + lz * F[11]
+    return px, py, pz, dx, dy, dz
 
-    apf = SRC_F + n_opt * OPT_F
-    api = HDR_I + n_opt * OPT_I
+
+def bounds_plain(mask, o, oi, lxv, lyv, r, bz):
+    """The kernels' x/y/z bounds (``xrt_bounds``) of the optic whose blocks
+    are ``o``, ``oi``: local coordinates (lxv, lyv), offset ``r`` of the hit
+    from the optic origin, the optic's z axis ``bz``."""
+    if oi[4] & 1:
+        mask = mask & (torch.abs(lxv) < o[16])
+    if oi[4] & 2:
+        mask = mask & (torch.abs(lyv) < o[17])
+    if oi[4] & 4:
+        lzv = r[0] * bz[0] + r[1] * bz[1] + r[2] * bz[2]
+        mask = mask & (torch.abs(lzv) < o[18])
+    return mask
+
+
+def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
+    """The kernels' aperture logic (``xrt_apertures``, ``ops/aperture.py``)
+    for the optic whose int block is ``oi``: ``m_in`` is the bounds mask,
+    the running value changes only inside it. Returns the optic's mask."""
+    apf = SRC_F + I[0] * OPT_F
+    api = HDR_I + I[0] * OPT_I
+    m_out = m_in
+    for a in range(oi[6], oi[6] + oi[5]):
+        ox, oy, p0, p1 = F[apf + a * AP_F: apf + (a + 1) * AP_F]
+        ap_shape, logic = I[api + a * AP_I: api + (a + 1) * AP_I]
+        ax, ay = lxv - ox, lyv - oy
+        if ap_shape == 0:
+            test = torch.ones_like(m_in)
+        elif ap_shape == 1:
+            test = ax * ax + ay * ay < p0
+        elif ap_shape == 2:
+            test = (torch.abs(ax) < p0) & (torch.abs(ay) < p0)
+        elif ap_shape == 3:
+            test = (torch.abs(ax) < p0) & (torch.abs(ay) < p1)
+        else:
+            ex, ey = _div(ax, p0), _div(ay, p1)
+            test = ex * ex + ey * ey < 1.0
+        test = test & m_in
+        new = (m_out & test, m_out & ~test, m_out | test, ~(m_out & test),
+               ~(m_out | test), m_out ^ test, ~(m_out ^ test))[logic]
+        m_out = torch.where(m_in, new, m_out)
+    return m_out & m_in
+
+
+def _trace_slice(F, I, rays, count, draw, counts, image):
+    """Trace one slice of rays exactly as the kernel does; adds into
+    ``counts`` (int64) and the flat ``image``."""
+    f32 = torch.float32
+    n_opt = I[0]
+    alive = rays < count
+    counts[0] += alive.sum()
+    shape = rays.shape
+
+    def full(value):
+        return torch.full(shape, value, dtype=f32, device=rays.device)
+
+    px, py, pz, dx, dy, dz = sample_source_plain(F, I[2], draw, full)
+
     for e in range(n_opt):
         o = F[SRC_F + e * OPT_F: SRC_F + (e + 1) * OPT_F]
         oi = I[HDR_I + e * OPT_I: HDR_I + (e + 1) * OPT_I]
@@ -388,37 +444,8 @@ def _trace_slice(F, I, rays, count, draw, counts, image):
         rx, ry, rz = qx - o[0], qy - o[1], qz - o[2]
         lxv = rx * o[3] + ry * o[4] + rz * o[5]
         lyv = rx * o[6] + ry * o[7] + rz * o[8]
-
-        mask = m_int
-        if oi[4] & 1:
-            mask = mask & (torch.abs(lxv) < o[16])
-        if oi[4] & 2:
-            mask = mask & (torch.abs(lyv) < o[17])
-        if oi[4] & 4:
-            lzv = rx * o[9] + ry * o[10] + rz * o[11]
-            mask = mask & (torch.abs(lzv) < o[18])
-        m_in = mask
-        m_out = m_in
-        for a in range(oi[6], oi[6] + oi[5]):
-            ox, oy, p0, p1 = F[apf + a * AP_F: apf + (a + 1) * AP_F]
-            ap_shape, logic = I[api + a * AP_I: api + (a + 1) * AP_I]
-            ax, ay = lxv - ox, lyv - oy
-            if ap_shape == 0:
-                test = torch.ones_like(m_in)
-            elif ap_shape == 1:
-                test = ax * ax + ay * ay < p0
-            elif ap_shape == 2:
-                test = (torch.abs(ax) < p0) & (torch.abs(ay) < p0)
-            elif ap_shape == 3:
-                test = (torch.abs(ax) < p0) & (torch.abs(ay) < p1)
-            else:
-                ex, ey = _div(ax, p0), _div(ay, p1)
-                test = ex * ex + ey * ey < 1.0
-            test = test & m_in
-            new = (m_out & test, m_out & ~test, m_out | test, ~(m_out & test),
-                   ~(m_out | test), m_out ^ test, ~(m_out ^ test))[logic]
-            m_out = torch.where(m_in, new, m_out)
-        mask = m_out & m_in
+        mask = bounds_plain(m_int, o, oi, lxv, lyv, (rx, ry, rz), o[9:12])
+        mask = aperture_logic_plain(F, I, oi, lxv, lyv, mask)
 
         if oi[2] == 1:
             dot = dx * nxv + dy * nyv + dz * nzv

@@ -8,6 +8,10 @@ source rebuilds and an unchanged one loads at once.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
 multiply-adds, so the kernels round like their plain PyTorch twins.
+
+Each ``.cu`` compiles in its own ``nvcc`` process, all started together,
+then one link makes the library; ptxas's register and spill report of every
+kernel is kept beside it in ``ptxas.log``.
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "xicsrt_tpu_torch")
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,6 +44,17 @@ _SIGNATURES = {
         _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, _P,
+    ],
+    "xrt_fused_grad_fwd": [
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
+        _P, ctypes.c_int, _P,
+    ],
+    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int],
+    "xrt_fused_grad_bwd": [
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
+        _P, ctypes.c_int, _P, ctypes.c_int, _P,
     ],
 }
 
@@ -74,19 +89,47 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _nvcc()
+    # Each build compiles and links in a directory of its own, then moves
+    # the log and the library into place, so builds started at once by
+    # several processes never read one another's half-written objects.
+    work = tempfile.mkdtemp(dir=out_dir)
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                       check=True, capture_output=True, text=True)
+        cu = [p for p in _sources() if p.endswith(".cu")]
+        objs = [os.path.join(work, os.path.basename(p)[:-3] + ".o") for p in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(cu, objs)]
+        logs, failed = [], []
+        for src, proc in zip(cu, procs):
+            out, err = proc.communicate()
+            logs.append(f"== {os.path.basename(src)}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        with open(os.path.join(work, "ptxas.log"), "w") as f:
+            f.write("\n".join(logs))
+        tmp = os.path.join(work, "libxicsrt_kernels.so")
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        os.replace(os.path.join(work, "ptxas.log"), os.path.join(out_dir, "ptxas.log"))
         os.replace(tmp, lib_path)
-    except subprocess.CalledProcessError as err:
-        raise RuntimeError(f"nvcc failed:\n{err.stdout}\n{err.stderr}") from err
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
+
+
+def ptxas_report() -> str:
+    """ptxas's register, stack and spill lines of the built kernels."""
+    path = os.path.join(os.path.dirname(build()), "ptxas.log")
+    with open(path) as f:
+        return "\n".join(line for line in f.read().splitlines()
+                         if "registers" in line or "spill" in line
+                         or "Compiling entry" in line or line.startswith("=="))
 
 
 def library() -> ctypes.CDLL:

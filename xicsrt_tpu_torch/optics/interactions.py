@@ -2,9 +2,10 @@
 
 Ported: pass-through, specular mirror (``_InteractMirror.py:29-42``) and the
 Bragg crystal with gaussian or step rocking curves and Bernoulli (``mc``)
-acceptance (``_InteractCrystal.py:90-196``). The Bragg angle is the true
-``arcsin``, as the JAX XLA engine computes it. File rocking curves, the
-``weight`` interaction mode and mosaic crystals are not ported yet.
+acceptance (``mc``) or ray weighting (``weight``, the differentiable mode of
+``xicsrt_tpu/optics/interactions.py:178-189``) (``_InteractCrystal.py:90-196``).
+The Bragg angle is the true ``arcsin``, as the JAX XLA engine computes it.
+File rocking curves and mosaic crystals are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,9 +68,8 @@ class InteractCrystal(InteractMirror):
             raise NotImplementedError(
                 f'Optic "{self.name}": rocking_type '
                 f'{self.param["rocking_type"]!r} is not ported yet.')
-        if self.interact_mode != "mc":
-            raise NotImplementedError(
-                f"interact_mode {self.interact_mode!r} is not ported yet (mc only).")
+        if self.interact_mode not in ("mc", "weight"):
+            raise ValueError(f"Unknown interact_mode: {self.interact_mode}")
 
     def build_params(self) -> dict:
         params = super().build_params()
@@ -110,8 +110,12 @@ class InteractCrystal(InteractMirror):
             return super().interact(params, rays, xloc, norm, mask, draws)
         bragg, incident = self.angle_calc(params, rays, norm)
         p = self.reflection_probability(params, incident - bragg)
-        u = draws.uniform(rays.n, rays.dtype, rays.device)
-        mask = mask & (p >= u)
+        if self.interact_mode == "mc":
+            u = draws.uniform(rays.n, rays.dtype, rays.device)
+            mask = mask & (p >= u)
+            weight = rays.weight
+        else:  # weight: no draw; the ray carries the probability
+            weight = torch.where(mask, rays.weight * p, rays.weight)
         reflected = vec.reflect(rays.direction, norm)
         direction = torch.where(mask[:, None], reflected, rays.direction)
-        return rays.replace(direction=direction, mask=mask)
+        return rays.replace(direction=direction, mask=mask, weight=weight)
