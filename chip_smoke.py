@@ -18,7 +18,22 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 11. eager autograd on CUDA: ``make_differentiable`` + ``align`` on example
     04's task, and d(detector)/d(spacing) from autograd against K5b;
 12. gradient timings: K5f and K5b against their twins, the rays/s of one
-    forward+vjp step, the eager autograd step.
+    forward+vjp step, the eager autograd step;
+13. K4 (bundle-gather kernel) against its plain twin: B = 4000 and 1e5,
+    2^24 rays plus 1000 past the last bundle, zero-count bundles;
+14. K1 with a plasma source and a toroidal crystal (K1f, K1c-torus)
+    against its twin: ``plasma_torus`` at 2^20 rays x 2 iterations, the
+    same bundle tables, both RNG modes;
+15. the plasma path: the bundle counts' Poisson statistics on the card,
+    then example 03 exactly as written through
+    ``raytrace(config, device='cuda')`` on the eager engine (K4), and on the
+    fused engine with ``keep_history=False`` (K1);
+16. plasma at full width with timings: ``plasma_torus`` and ``plasma_100k``
+    at 2^24 expected photons per iteration x 4 on the fused engine, the
+    eager engine at 2^22, K4 and K1-plasma against their twins;
+17. the torus golden (``tests/golden/torus_reference_image.npz``) on both
+    engines with the statistical test of
+    ``tests/test_reference_parity_families.py``.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -457,6 +472,316 @@ def gradient_phases(smi, fg, engine) -> dict:
             "k5b_plain_ms": k5b_plain_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-17: the plasma spectrometer (example 03), K4 and K1-plasma.
+# ---------------------------------------------------------------------------
+
+def example03_config():
+    """``config`` of examples/example_03_plasma_spectrometer.py, read from
+    the file as written (the script itself runs the JAX package)."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "example_03_plasma_spectrometer.py")
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "config"
+                                                for t in node.targets):
+            return eval(compile(ast.Expression(node.value), path, "eval"), {"np": np})
+    raise AssertionError(f"no config in {path}")
+
+
+def plasma_config(intensity, num_iter, bundle_count=1000, **general):
+    """``tools/bench_scenarios.py``'s ``plasma_torus`` (``plasma_100k`` with
+    1e5 bundles): the expected photon count per iteration is
+    ``intensity``. Only the two config builders are read from that file,
+    with ``ast``: the script itself runs the JAX package."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "bench_scenarios.py")
+    defs = [node for node in ast.parse(open(path).read()).body
+            if isinstance(node, ast.FunctionDef)
+            and node.name in ("_crystal", "_plasma_config")]
+    namespace = {"np": np}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), namespace)
+    cfg = namespace["_plasma_config"](intensity, num_iter, bundle_count=bundle_count)
+    cfg["general"].update(general)
+    return cfg
+
+
+def expected_photons(cfg) -> float:
+    """The real-units expectation of a cubic plasma with a fixed spread:
+    iterations x emissivity x time x volume x sin^2(spread / 2)."""
+    p = cfg["sources"]["plasma"]
+    return (cfg["general"]["number_of_iter"] * p["emissivity"] * p["time_resolution"]
+            * p["xsize"] * p["ysize"] * p["zsize"] * math.sin(p["spread"] / 2.0) ** 2)
+
+
+def gather_inputs(B, n_rays, gen):
+    """cum with every 10th bundle empty and cum[-1] = n_rays, a random
+    (B, 8) table."""
+    cut = torch.sort(torch.randint(0, n_rays, (B - 1,), generator=gen,
+                                   device="cuda")).values
+    cum = torch.cat([cut, torch.tensor([n_rays], device="cuda")])
+    idx = torch.arange(10, B, 10, device="cuda")
+    cum[idx] = cum[idx - 1]
+    table = torch.randn((B, 8), generator=gen, device="cuda")
+    return cum.to(torch.int32).contiguous(), table
+
+
+def phase_k4(bg):
+    """K4 against its twin: bit-identical; returns the largest |difference|
+    measured (0.0 when they agree)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n = (1 << 24) + 1000
+    worst = 0.0
+    for B in (4000, 100000):
+        cum, table = gather_inputs(B, 1 << 24, gen)
+        a = bg.interval_gather_cuda(cum, table, n)
+        b = bg.interval_gather_plain(cum, table, n)
+        torch.cuda.synchronize()
+        empty = int((cum[1:] == cum[:-1]).sum())
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K4 differs from its twin at B={B}: {err}")
+        if a[1 << 24:].abs().max().item() != 0.0:
+            raise AssertionError("K4: rays past cum[-1] are not zero rows")
+        ms = cuda_ms(lambda: bg.interval_gather_cuda(cum, table, n), 20)
+        plain_ms = cuda_ms(lambda: bg.interval_gather_plain(cum, table, n), 5)
+        log(f"phase 13 K4 B={B}: equal to its twin on {n} rays ({empty} empty "
+            f"bundles, 1000 tail rays zero); {ms:.4f} ms vs twin {plain_ms:.4f} ms "
+            f"({n * 32 / ms / 1e6:.1f} GB/s of output)")
+    return worst
+
+
+def plasma_k1_setup(ft, engine, intensity, num_iter, bundle_count=1000, seed=14):
+    """Specs, packed buffers and per-iteration bundle tables of
+    ``plasma_torus`` on the card."""
+    pipe = engine.Pipeline(plasma_config(intensity, num_iter, bundle_count,
+                                         engine="fused"), device="cuda")
+    src = ft._source_spec(pipe.source)
+    optics = [ft._optic_spec(o) for o in pipe.optics]
+    fparams = ft.pack_params(src, optics, pipe.params, "cuda")
+    from xicsrt_tpu_torch.draws import Draws
+
+    bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"]["plasma"],
+                                Draws(torch.Generator(device="cuda").manual_seed(seed)),
+                                num_iter)
+    return pipe, fparams, bundles, pipe.num_rays * num_iter
+
+
+def phase_k1_plasma(ft, engine):
+    """K1 (plasma source, toroidal crystal) against its twin: 0 rays apart."""
+    pipe, fparams, bundles, n = plasma_k1_setup(ft, engine, 1 << 20, 2)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+    worst = 0.0
+    for label, kwargs in (("input", {"uniforms": uniforms}),
+                          ("hw", {"seed": (4321, 99)})):
+        ck, ik = ft.fused_run_cuda(fparams, n, n, bundles=bundles, **kwargs)
+        cp, iq = ft.fused_run_plain(fparams, n, n, bundles=bundles, **kwargs)
+        torch.cuda.synchronize()
+        log(f"phase 14 K1 plasma+torus rng={label}: {n} ray slots, kernel counts "
+            f"{ck.tolist()}, twin {cp.tolist()}; image L1 diff "
+            f"{(ik - iq).abs().sum().item():.0f} (tolerance 0: same float32 "
+            f"operations, FMA-free build)")
+        if not (torch.equal(ck, cp) and torch.equal(ik, iq)):
+            raise AssertionError(f"K1 plasma+torus differs from its twin (rng={label})")
+        if ck[-1].item() <= 0:
+            raise AssertionError("phase 14: no detector hits")
+        worst = max(worst, (ik - iq).abs().max().item())
+    return worst
+
+
+def phase_poisson_counts():
+    """Bundle counts on the card: over 2^22 draws of one rate, the mean of
+    ``Draws.poisson_counts`` within 5 standard errors of the rate, its
+    variance within 5 sqrt(2/R), relative, and its third central moment
+    within 5 standard errors, sqrt((6 rate^3 + 18 rate^2 + rate) / R), of
+    the rate; ``torch.poisson``'s own mean and third moment are printed
+    beside them (cuRAND is biased in [64, 4000] and has no skew above)."""
+    from xicsrt_tpu_torch.draws import Draws
+
+    R = 1 << 22
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def third(x):
+        return ((x - x.mean()) ** 3).mean().item()
+
+    for rate in (152.0, 1000.0, 4000.0, 16777.0):
+        lam = torch.full((R,), rate, device="cuda")
+        ours = Draws(gen).poisson_counts(lam).double()
+        raw = torch.poisson(lam, generator=gen).double()
+        se = math.sqrt(rate / R)
+        se3 = math.sqrt((6 * rate**3 + 18 * rate**2 + rate) / R)
+        dev = (ours.mean().item() - rate) / se
+        dev_raw = (raw.mean().item() - rate) / se
+        var = ours.var().item() / rate - 1.0
+        dev3, dev3_raw = (third(ours) - rate) / se3, (third(raw) - rate) / se3
+        log(f"phase 15 Poisson counts at rate {rate:g}: mean {ours.mean().item():.4f} "
+            f"({dev:+.2f} standard errors), variance / rate - 1 {var:+.2e} (bound "
+            f"{5 * math.sqrt(2 / R):.2e}), third moment {dev3:+.2f} standard errors; "
+            f"torch.poisson mean {raw.mean().item():.4f} ({dev_raw:+.2f} standard "
+            f"errors), third moment {dev3_raw:+.2f} standard errors")
+        if abs(dev) > 5 or abs(var) > 5 * math.sqrt(2 / R) or abs(dev3) > 5:
+            raise AssertionError(f"Poisson counts at rate {rate} are off")
+
+
+def check_plasma_result(result, cfg, label):
+    meta = {k: v["num_out"] for k, v in result["total"]["meta"].items()}
+    expected = expected_photons(cfg)
+    n = meta["plasma"]
+    if abs(n - expected) > 5 * math.sqrt(expected):
+        raise AssertionError(f"{label}: {n} photons, expected {expected:.6g}")
+    for name, img in result["total"]["image"].items():
+        if not (np.isfinite(img).all() and int(img.sum()) == meta[name]):
+            raise AssertionError(f"{label}: image {name} does not sum to its count")
+    if meta["detector"] <= 0:
+        raise AssertionError(f"{label}: no detector hits")
+    log(f"{label}: meta {meta}; {n} photons vs expectation {expected:.6g} "
+        f"({(n - expected) / math.sqrt(expected):+.2f} sigma)")
+    return meta
+
+
+def binomial_sigmas(m1, m2):
+    """|p1 - p2| in pooled binomial sigmas of detector / plasma."""
+    p1 = m1["detector"] / m1["plasma"]
+    p2 = m2["detector"] / m2["plasma"]
+    pooled = (m1["detector"] + m2["detector"]) / (m1["plasma"] + m2["plasma"])
+    sigma = math.sqrt(pooled * (1 - pooled) * (1 / m1["plasma"] + 1 / m2["plasma"]))
+    return p1, p2, abs(p1 - p2) / sigma
+
+
+def torus_golden_check(result, golden, label):
+    """``tests/test_reference_parity_families.py``'s four checks."""
+    meta = {k: v["num_out"] for k, v in result["total"]["meta"].items()}
+    n_gen, n_ref = meta["source"], float(golden["n_generated"])
+    for elem in ("crystal", "detector"):
+        k, k_ref = meta[elem], float(golden[f"meta_{elem}"])
+        p = (k + k_ref) / (n_gen + n_ref)
+        sigma = math.sqrt(p / n_gen + p / n_ref)
+        if abs(k / n_gen - k_ref / n_ref) >= 5 * sigma:
+            raise AssertionError(f"{label}: {elem} {k / n_gen} vs ref {k_ref / n_ref}")
+    ref = golden["image"].astype(np.float64)
+    img = result["total"]["image"]["detector"].astype(np.float64)
+    R = ref.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    O = img.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    scale = R.sum() / O.sum()
+    O = O * scale
+    keep = (R + O) > 50
+    chi2 = ((O[keep] - R[keep]) ** 2 / (R[keep] + scale * O[keep])).sum() / keep.sum()
+    ys = np.arange(ref.shape[1])
+
+    def moments(prof):
+        prof = prof / prof.sum()
+        mu = (prof * ys).sum()
+        return mu, math.sqrt((prof * (ys - mu) ** 2).sum())
+
+    (mu_r, sd_r), (mu_o, sd_o) = moments(ref.sum(axis=0)), moments(img.sum(axis=0))
+    width_ok = sd_o < 1.0 if sd_r < 1.0 else abs(sd_o - sd_r) < 0.05 * sd_r
+    log(f"{label}: meta {meta}; chi2/ndof {chi2:.3f} over {int(keep.sum())} superpixels "
+        f"(< 3), centroid {mu_o:.3f} vs {mu_r:.3f} px (< 0.75), width {sd_o:.3f} vs "
+        f"{sd_r:.3f} px")
+    if not (keep.sum() > 0 and chi2 < 3.0 and abs(mu_o - mu_r) < 0.75 and width_ok):
+        raise AssertionError(f"{label}: torus golden image disagrees")
+
+
+def torus_golden_config(engine_kind):
+    """``tests/test_reference_parity_families.py::_config`` for the torus."""
+    cfg = flagship(100000, 5, engine=engine_kind, random_seed=11)
+    del cfg["optics"]["aperture"]
+    cfg["sources"]["source"]["angular_dist"] = "isotropic"
+    crystal = cfg["optics"]["crystal"]
+    del crystal["radius"]
+    crystal.update(class_name="XicsrtOpticToroidalCrystal", radius_major=1.0,
+                   radius_minor=0.2, rocking_fwhm=1e-3)
+    cfg["optics"]["detector"]["pixel_size"] = 0.004
+    return cfg
+
+
+def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
+    """Phases 13-17; returns the K4 and K1-plasma results for the kernels
+    line."""
+    import os
+
+    k4_err = phase_k4(bg)
+    k1p_err = phase_k1_plasma(ft, engine)
+    phase_poisson_counts()
+
+    # Phase 15: example 03 as written (eager, full history), counters read
+    # around the run; then the same config on the fused engine.
+    cfg = example03_config()
+    bg.interval_gather_cuda.launches = 0
+    ft.fused_run_cuda.launches = 0
+    eager = raytrace(copy.deepcopy(cfg), device="cuda")
+    k4_launches = bg.interval_gather_cuda.launches
+    if k4_launches <= 0:
+        raise AssertionError("example 03 on the eager engine did not launch K4")
+    m_eager = check_plasma_result(eager, cfg, "phase 15 example 03 eager")
+    w = eager["found"]["history"]["plasma"]["wavelength"]
+    doppler = 3.9492 * math.sqrt(1000 * 1.602e-19 / (40 * 1.661e-27 * 9e16))
+    log(f"phase 15 example 03: detected line width (std) {w.std():.3e} A over "
+        f"{len(w)} rays (Doppler expectation ~{doppler:.3e} A)")
+    fused_cfg = copy.deepcopy(cfg)
+    fused_cfg["general"].update(engine="fused", keep_history=False)
+    bg.interval_gather_cuda.launches = 0
+    ft.fused_run_cuda.launches = 0
+    fused = raytrace(fused_cfg, device="cuda")
+    k1p_launches = ft.fused_run_cuda.launches
+    if k1p_launches <= 0:
+        raise AssertionError("example 03 on the fused engine did not launch K1")
+    m_fused = check_plasma_result(fused, cfg, "phase 15 example 03 fused")
+    p1, p2, nsig = binomial_sigmas(m_eager, m_fused)
+    log(f"phase 15 engines agree: efficiency eager {p1:.6g}, fused {p2:.6g}, "
+        f"{nsig:.2f} binomial sigma (< 5); K4 launches {k4_launches}, K1 {k1p_launches}")
+    if nsig >= 5:
+        raise AssertionError("example 03: the engines disagree")
+
+    # Phase 16: full width, with timings.
+    rates = {}
+    for label, kwargs in (("plasma_torus", {}), ("plasma_100k", {"bundle_count": 100000})):
+        pcfg = plasma_config(1 << 24, 4, engine="fused", **kwargs)
+        res = raytrace(pcfg, device="cuda")
+        meta = check_plasma_result(res, pcfg, f"phase 16 {label} fused")
+        ms = cuda_ms(lambda: raytrace(pcfg, device="cuda"), 3)
+        rates[label] = meta["plasma"] / ms * 1e3
+        log(f"phase 16 {label} fused: {ms:.2f} ms per raytrace, "
+            f"{rates[label]:.4g} photons/s")
+    ecfg = plasma_config(1 << 22, 4, engine="xla")
+    res = raytrace(ecfg, device="cuda")
+    check_plasma_result(res, ecfg, "phase 16 plasma_torus eager+K4")
+    ms = cuda_ms(lambda: raytrace(ecfg, device="cuda"), 3)
+    rates["eager"] = res["total"]["meta"]["plasma"]["num_out"] / ms * 1e3
+    log(f"phase 16 plasma_torus eager+K4: {ms:.2f} ms per raytrace, "
+        f"{rates['eager']:.4g} photons/s")
+    _, fparams, bundles, n = plasma_k1_setup(ft, engine, 1 << 22, 1)
+    k1p_ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2),
+                                               bundles=bundles), 20)
+    k1p_plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2),
+                                                      bundles=bundles), 3)
+    cum, table = bundles[0][0], bundles[1][0]
+    k4_ms = cuda_ms(lambda: bg.interval_gather_cuda(cum, table, n), 20)
+    k4_plain_ms = cuda_ms(lambda: bg.interval_gather_plain(cum, table, n), 5)
+    log(f"phase 16 timings on {smi}: K1 plasma+torus {k1p_ms:.4f} ms vs twin "
+        f"{k1p_plain_ms:.4f} ms ({n} ray slots, 1000 bundles, Philox); K4 "
+        f"{k4_ms:.4f} ms vs twin {k4_plain_ms:.4f} ms (the same rays and tables)")
+
+    # Phase 17: the torus golden on both engines.
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "golden", "torus_reference_image.npz")
+    golden = dict(np.load(golden_path))
+    for kind in ("xla", "fused"):
+        torus_golden_check(raytrace(torus_golden_config(kind), device="cuda"),
+                           golden, f"phase 17 torus golden, engine {kind}")
+    return {"k4_launches": k4_launches, "k4_err": k4_err, "k4_ms": k4_ms,
+            "k4_plain_ms": k4_plain_ms,
+            "k1p_launches": k1p_launches, "k1p_err": k1p_err, "k1p_ms": k1p_ms,
+            "k1p_plain_ms": k1p_plain_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -475,6 +800,7 @@ def main() -> int:
 
     import xicsrt_tpu_torch
     from xicsrt_tpu_torch import engine
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
     from xicsrt_tpu_torch.ops import fused_grad as fg
     from xicsrt_tpu_torch.ops import fused_trace as ft
     from xicsrt_tpu_torch.ops import native
@@ -538,6 +864,7 @@ def main() -> int:
         f"{2**24 / eager_ms * 1e3:.4g} rays/s ({eager_ms:.2f} ms for {2**24} rays)")
 
     grad = gradient_phases(smi, fg, engine)
+    plasma = plasma_phases(smi, ft, bg, engine, xicsrt_tpu_torch.raytrace)
 
     kernels = [
         {"name": "fused_run_cuda (K1a)", "route": "cuda",
@@ -560,6 +887,16 @@ def main() -> int:
          "replaces": "xicsrt_tpu/ops/fused_grad.py:1921",
          "launches": grad["k5b_launches"], "max_abs_err": grad["k5b_err"],
          "ms": grad["k5b_ms"], "plain_ms": grad["k5b_plain_ms"]},
+        {"name": "interval_gather_cuda (K4)", "route": "cuda",
+         "source": "xicsrt_tpu_torch/csrc/bundle_gather.cu",
+         "replaces": "xicsrt_tpu/ops/bundle_gather.py:80",
+         "launches": plasma["k4_launches"], "max_abs_err": plasma["k4_err"],
+         "ms": plasma["k4_ms"], "plain_ms": plasma["k4_plain_ms"]},
+        {"name": "fused_run_cuda plasma+torus (K1f, K1c-torus)", "route": "cuda",
+         "source": "xicsrt_tpu_torch/csrc/fused_trace.cu",
+         "replaces": "xicsrt_tpu/ops/fused_trace.py:1428 and :616",
+         "launches": plasma["k1p_launches"], "max_abs_err": plasma["k1p_err"],
+         "ms": plasma["k1p_ms"], "plain_ms": plasma["k1p_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

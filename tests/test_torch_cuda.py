@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain twins, on the card.
+"""The CUDA kernels against their plain twins, on the card, and the plasma
+path through both engines.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs where JAX is absent:
@@ -118,3 +119,130 @@ def test_remat_on_cuda_draws_the_same_rays(cuda_device):
         grads.append(d.grad)
     assert grads[0].abs().item() > 0
     assert torch.equal(grads[0], grads[1])
+
+
+def _plasma_torus(emissivity, num_iter, **general):
+    """A cubic argon plasma and example 03's toroidal crystal."""
+    g = {"number_of_iter": num_iter, "random_seed": 0, "keep_history": False,
+         "print_results": False}
+    g.update(general)
+    return {
+        "general": g,
+        "sources": {"plasma": {
+            "class_name": "XicsrtPlasmaCubic", "origin": [0.0, 0.0, 0.0],
+            "xsize": 0.02, "ysize": 0.02, "zsize": 0.02,
+            "target": [0.0, 0.0, 0.80374151], "spread": np.radians(10.0),
+            "emissivity": emissivity, "temperature": 1000.0, "mass_number": 40.0,
+            "wavelength": 3.9492, "time_resolution": 1e-3, "bundle_volume": 1e-6,
+            "bundle_count": 1000, "use_poisson": True, "linewidth": 1e14}},
+        "optics": {
+            "crystal": {
+                "class_name": "XicsrtOpticToroidalCrystal",
+                "origin": [0.0, 0.0, 0.80374151],
+                "zaxis": [0.0, 0.59497864, -0.80374151], "xsize": 0.2, "ysize": 0.2,
+                "radius_major": 1.0, "radius_minor": 0.64, "crystal_spacing": 2.45676,
+                "rocking_type": "gaussian", "rocking_fwhm": 1e-3},
+            "detector": {
+                "class_name": "XicsrtOpticDetector",
+                "origin": [0.0, 0.76871290, 0.56904832],
+                "zaxis": [0.0, -0.95641806, 0.29200084], "xsize": 0.4, "ysize": 0.2},
+        },
+    }
+
+
+def test_bundle_gather_kernel_matches_twin(cuda_device):
+    """K4 equals its twin bit for bit, empty bundles and tail rays included."""
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 40, 5000)
+    counts[rng.random(5000) < 0.3] = 0
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(cuda_device)
+    table = torch.from_numpy(rng.standard_normal((5000, 8)).astype(np.float32)).to(cuda_device)
+    n = int(cum[-1]) + 777
+    before = bg.interval_gather_cuda.launches
+    out = bg.interval_gather_cuda(cum, table, n)
+    assert bg.interval_gather_cuda.launches == before + 1
+    assert torch.equal(out, bg.interval_gather_plain(cum, table, n))
+    assert torch.equal(bg.interval_gather_cuda(cum, table[:, :3], n), out[:, :3])
+
+
+def test_bundle_gather_kernel_gradient_matches_twin(cuda_device):
+    """Autograd through K4 (the kernel forward, a scatter-add backward)
+    gives the table the twin's gradient: each bundle row sums the row
+    gradients of its rays; rays past cum[-1] add nothing."""
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    rng = np.random.default_rng(8)
+    counts = rng.integers(0, 9, 300)
+    counts[rng.random(300) < 0.2] = 0
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(cuda_device)
+    table = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32)).to(cuda_device)
+    n = int(cum[-1]) + 40
+    weights = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(cuda_device)
+    grads = []
+    for gather in (bg.interval_gather_cuda, bg.interval_gather_plain):
+        t = table.clone().requires_grad_(True)
+        (gather(cum, t, n) * weights).sum().backward()
+        grads.append(t.grad)
+    # Row sums of a few float32 products, added in another order.
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+def test_fused_plasma_torus_kernel_matches_twin(cuda_device, rng):
+    """K1 with a plasma source and a toroidal crystal: the same counts and
+    images as its twin, ray for ray."""
+    from xicsrt_tpu_torch.draws import Draws
+
+    pipe = Pipeline(_plasma_torus(2e15, 2, engine="fused"), device=cuda_device)
+    src = ft._source_spec(pipe.source)
+    optics = [ft._optic_spec(o) for o in pipe.optics]
+    fparams = ft.pack_params(src, optics, pipe.params, cuda_device)
+    bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"]["plasma"],
+                                Draws(torch.Generator(device=cuda_device).manual_seed(4)), 2)
+    n = 2 * pipe.num_rays
+    kwargs = {"seed": (5, 6)}
+    if rng == "input":
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        kwargs = {"uniforms": torch.rand((fparams.n_draws, n), generator=gen,
+                                         device=cuda_device)}
+    kernel = ft.fused_run_cuda(fparams, n, n, bundles=bundles, **kwargs)
+    twin = ft.fused_run_plain(fparams, n, n, bundles=bundles, **kwargs)
+    assert int(kernel[0][-1]) > 0
+    assert torch.equal(kernel[0], twin[0]) and torch.equal(kernel[1], twin[1])
+
+
+@pytest.mark.parametrize("rate", [152.0, 4000.0, 16777.0])
+def test_poisson_counts_are_unbiased_on_cuda(cuda_device, rate):
+    """Bundle counts on the card, at rates where cuRAND alone is biased or
+    has no skew: mean within 5 standard errors of the rate over 2^22 draws,
+    variance within 5 sqrt(2/R) of it, relative, third central moment within
+    5 standard errors, sqrt((6 rate^3 + 18 rate^2 + rate) / R), of the
+    rate."""
+    from xicsrt_tpu_torch.draws import Draws
+
+    R = 1 << 22
+    lam = torch.full((R,), rate, device=cuda_device)
+    counts = Draws(torch.Generator(device=cuda_device).manual_seed(9)).poisson_counts(lam)
+    counts = counts.double()
+    assert abs(counts.mean().item() - rate) < 5 * np.sqrt(rate / R)
+    assert abs(counts.var().item() / rate - 1.0) < 5 * np.sqrt(2.0 / R)
+    m3 = ((counts - counts.mean()) ** 3).mean().item()
+    assert abs(m3 - rate) < 5 * np.sqrt((6 * rate**3 + 18 * rate**2 + rate) / R)
+
+
+def test_plasma_engines_launch_their_kernels(cuda_device):
+    """The eager engine gathers bundle rows with K4; the fused engine traces
+    the plasma with K1; both count the real-units photons."""
+    from xicsrt_tpu_torch.engine import raytrace
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    expected = 2 * 2e15 * 1e-3 * 0.02**3 * np.sin(np.radians(5.0)) ** 2
+    for engine, counter in (("xla", bg.interval_gather_cuda), ("fused", ft.fused_run_cuda)):
+        before = counter.launches
+        res = raytrace(_plasma_torus(2e15, 2, engine=engine), device=cuda_device)
+        assert counter.launches > before
+        n = res["total"]["meta"]["plasma"]["num_out"]
+        assert abs(n - expected) < 5 * np.sqrt(expected)
+        assert res["total"]["image"]["detector"].sum() == res["total"]["meta"]["detector"]["num_out"]

@@ -1,17 +1,29 @@
 // Fused generate -> trace -> count -> image kernel for NVIDIA Hopper
-// (sm_90a): the main spectrometer chain.
+// (sm_90a): K1a (the main spectrometer chain), K1f (the plasma source) and
+// the torus stage of K1c.
 //
-// Replaces the main-chain cut of the TPU megakernel
-// xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, and the shared
-// optic chain _trace_chain). One thread carries one ray in registers from
-// the source through every optic; no per-ray state touches device memory.
+// Replaces those cuts of the TPU megakernel
+// xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the plasma
+// sampler at :1428-1537, and the shared optic chain _trace_chain with
+// torus_local_quadratic_t at :616). One thread carries one ray in registers
+// from the source through every optic; no per-ray state touches device
+// memory.
 //
 // The subset: a point source with an isotropic or symmetric isotropic_xy
-// cone and one wavelength; plane or sphere optics with x/y/z bounds and
-// aperture logic (none/circle/square/rectangle/ellipse; and, not, or, nand,
-// nor, xor, xnor); no interaction or a Bragg crystal with a gaussian or
-// step rocking curve and Bernoulli (mc) acceptance; per-element counts;
-// nearest-pixel images.
+// cone and one wavelength, or a plasma whose per-iteration bundle tables
+// (cum, table) were drawn before the launch; plane, sphere or torus optics
+// with x/y/z bounds and aperture logic (none/circle/square/rectangle/
+// ellipse; and, not, or, nand, nor, xor, xnor); no interaction or a Bragg
+// crystal with a gaussian or step rocking curve and Bernoulli (mc)
+// acceptance, at each ray's own wavelength for a plasma; per-element
+// counts; nearest-pixel images.
+//
+// Plasma: iteration j holds rays [j n, (j + 1) n) of the budget n; ray
+// j n + l is alive iff l < cum_j[B-1], finds its bundle by binary search
+// over cum_j (bundle_lookup.cuh) and loads its row. The TPU kernel's
+// interval one-hot on the MXU, its 256-bundle windows, its page windows
+// beyond 4096 bundles, the compaction sort that bounds them and its 4096-ray
+// chunk cap all served VMEM; they have no counterpart here.
 //
 // Geometry and structure arrive at run time in two small buffers (float32
 // and int32) packed by xicsrt_tpu_torch/ops/fused_trace.py, so one build
@@ -23,7 +35,8 @@
 // Random numbers: either an explicit (n_draws, n_total) float32 tensor, or
 // counter-based Philox4x32-10 keyed by (seed, ray index, draw index), so a
 // ray's draws do not depend on the launch configuration. Draw order per
-// ray: source u, v, then one uniform per crystal.
+// ray: the source's (point: u, v; plasma: 3 voxel offsets, u, v, the
+// normal's uniform, the Cauchy uniform), then one uniform per crystal.
 //
 // Numerics follow the TPU kernel and the plain PyTorch twin operation by
 // operation: the Bragg deviation is the sine-difference identity with a
@@ -33,14 +46,17 @@
 // other a*b+c is contracted into an FMA the twin does not make; 1/sqrtf
 // replaces rsqrtf for the same reason.
 //
-// What bounds it: arithmetic and the per-ray sin/exp/sqrt, plus the image
-// atomics. Counts are reduced per warp with __ballot_sync/__popc into
+// What bounds it: arithmetic and the per-ray sin/exp/sqrt (plasma: also
+// cos, tan, erfinv and the torus's 4 Newton steps with a sqrt and two
+// divisions each), plus the image atomics; a plasma ray adds about
+// log2(B) dependent loads of cum and one 32-byte row, served by L2. Counts are reduced per warp with __ballot_sync/__popc into
 // shared counters, images are block-private shared-memory histograms
 // (binning.cuh), both flushed once per block with global atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "binning.cuh"
+#include "bundle_lookup.cuh"
 #include "trace_common.cuh"
 
 namespace {
@@ -55,8 +71,9 @@ __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, long long n_total, long long count,
     const float* __restrict__ uniforms, uint32_t seed0, uint32_t seed1,
-    unsigned long long* __restrict__ counts, float* __restrict__ images,
-    int img_total, int use_smem) {
+    const int* __restrict__ cum, const float* __restrict__ table,
+    int n_bundles, int n_per_iter, unsigned long long* __restrict__ counts,
+    float* __restrict__ images, int img_total, int use_smem) {
     extern __shared__ float s_img[];
     __shared__ float fp[XRT_MAX_FP];
     __shared__ int ip[XRT_MAX_IP];
@@ -73,6 +90,8 @@ __global__ void fused_trace_kernel(
     float* img = use_smem ? s_img : images;
     const int n_opt = ip[0];
     const int dist = ip[2];
+    const bool plasma = ip[5] == XRT_SRC_PLASMA;
+    const bool voxel = ip[6] != 0, cauchy = ip[7] != 0;
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
     const int lane = threadIdx.x & 31;
@@ -84,14 +103,29 @@ __global__ void fused_trace_kernel(
          r0 < n_total; r0 += stride) {
         const long long r = r0 + lane;
         const bool in_range = r < n_total;
-        Draws draw{uniforms, n_total, in_range ? r : n_total - 1,
-                   seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
-        bool alive = in_range && r < count;
+        const long long ray = in_range ? r : n_total - 1;
+        Draws draw{uniforms, n_total, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
+        bool alive;
+        float px, py, pz, dx, dy, dz, wl = 0.0f;
+        if (plasma) {
+            // ---- source: the ray's bundle, then the plasma sampler -----
+            const long long j = ray / n_per_iter;
+            const int local = (int)(ray - j * n_per_iter);
+            const int* cum_j = cum + j * n_bundles;
+            alive = in_range && local < __ldg(cum_j + n_bundles - 1);
+            float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+            if (alive) {
+                const int b = min(xrt_upper_bound(cum_j, n_bundles, local), n_bundles - 1);
+                xrt_bundle_row(table + j * n_bundles * 8, b, &lo, &hi);
+            }
+            xrt_sample_plasma(fp, voxel, cauchy, draw, lo, hi, px, py, pz, dx,
+                              dy, dz, wl);
+        } else {
+            // ---- source: point origin, cone about the emission axis ----
+            alive = in_range && r < count;
+            xrt_sample_source(fp, dist, draw, px, py, pz, dx, dy, dz);
+        }
         count_warp(s_counts, 0, alive, lane);
-
-        // ---- source: point origin, cone about the emission axis -------
-        float px, py, pz, dx, dy, dz;
-        xrt_sample_source(fp, dist, draw, px, py, pz, dx, dy, dz);
 
         // ---- optic chain ----------------------------------------------
         for (int e = 0; e < n_opt; ++e) {
@@ -108,21 +142,28 @@ __global__ void fused_trace_kernel(
                 nxv = o[9];
                 nyv = o[10];
                 nzv = o[11];
-            } else {  // sphere of center o[12:15], radius^2 o[15]
+            } else if (oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
                 const SphereHit h = xrt_sphere_hit(o[12], o[13], o[14], o[15],
                                                    0.0f, oi[1] != 0, px, py,
                                                    pz, dx, dy, dz);
                 m_int = alive && h.d2 <= o[15];
                 t = h.t;
                 nxv = nyv = nzv = 0.0f;
+            } else {  // torus
+                t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
+                nxv = nyv = nzv = 0.0f;
             }
             const float qx = m_int ? px + t * dx : px;
             const float qy = m_int ? py + t * dy : py;
             const float qz = m_int ? pz + t * dz : pz;
-            if (oi[0] != 0) {  // sphere normal points to the center
-                nxv = o[12] - qx;
-                nyv = o[13] - qy;
-                nzv = o[14] - qz;
+            if (oi[0] != 0) {  // sphere: towards the center; torus: outward
+                if (oi[0] == 1) {
+                    nxv = o[12] - qx;
+                    nyv = o[13] - qy;
+                    nzv = o[14] - qz;
+                } else {
+                    xrt_torus_normal(o, qx, qy, qz, nxv, nyv, nzv);
+                }
                 const float inv =
                     inv_sqrt(fmaxf(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30f));
                 nxv = nxv * inv;
@@ -141,7 +182,12 @@ __global__ void fused_trace_kernel(
                 const float dot = dx * nxv + dy * nyv + dz * nzv;
                 const float adot = fabsf(dot);
                 const float cosi = sqrtf(fmaxf(1.0f - adot * adot, 0.0f));
-                const float sd = adot * o[22] - cosi * o[21];
+                float sin_b = o[21], cos_b = o[22];
+                if (plasma) {  // per-ray Bragg angle (fused_trace.py:997-1001)
+                    sin_b = fminf(fmaxf(wl * o[XRT_O_INV2D], 0.0f), 1.0f);
+                    cos_b = sqrtf(fmaxf(1.0f - sin_b * sin_b, 0.0f));
+                }
+                const float sd = adot * cos_b - cosi * sin_b;
                 const float delta = sd + sd * sd * sd * (1.0f / 6.0f);
                 float prob;
                 if (oi[3] == 0) {  // gaussian, o[20] = sigma
@@ -188,17 +234,26 @@ __global__ void fused_trace_kernel(
 }  // namespace
 
 // fp/ip: packed parameters (n_fp floats, n_ip ints) on the device. Rays
-// [0, n_total) are traced; rays at index >= count are dead at the source
-// (a Poisson budget's realised count). uniforms: (n_draws, n_total) float32
-// or null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
+// [0, n_total) are traced. A point source's rays at index >= count are dead
+// at the source (a Poisson budget's realised count). A plasma's
+// per-iteration tables: cum (n_total / n_per_iter, n_bundles) int32 and
+// table (n_total / n_per_iter, n_bundles, 8) float32, 16-byte aligned
+// (null and 0 for a point source). uniforms: (n_draws, n_total) float32 or
+// null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
 // and images: (img_total,) float32, both zeroed by the caller. Returns
 // cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, long long n_total, long long count,
                                const float* uniforms, unsigned int seed0,
-                               unsigned int seed1, unsigned long long* counts,
+                               unsigned int seed1, const int* cum,
+                               const float* table, int n_bundles,
+                               long long n_per_iter, unsigned long long* counts,
                                float* images, int img_total, void* stream) {
     if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (cum != nullptr && (n_bundles <= 0 || n_per_iter <= 0 ||
+                           n_per_iter >= (1LL << 31) || n_total % n_per_iter)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n_total <= 0) return (int)cudaSuccess;
@@ -209,7 +264,8 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(fused_trace_kernel, threads, smem, n_total);
     fused_trace_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, n_total, count, uniforms, seed0, seed1, counts,
-        images, img_total, use_smem);
+        fp, n_fp, ip, n_ip, n_total, count, uniforms, seed0, seed1, cum,
+        table, n_bundles, (int)n_per_iter, counts, images, img_total,
+        use_smem);
     return (int)cudaGetLastError();
 }

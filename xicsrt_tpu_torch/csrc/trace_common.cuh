@@ -1,7 +1,8 @@
-// Device code shared by the fused trace kernel (fused_trace.cu, K1a) and
+// Device code shared by the fused trace kernel (fused_trace.cu, K1) and
 // the fused gradient kernels (fused_grad.cu, K5f/K5b): the packed buffer
-// layout, the counter-based random numbers, the point-source sampler, the
-// plane and sphere intersections, and the bounds and aperture logic.
+// layout, the counter-based random numbers, the point-source and plasma
+// samplers, the plane, sphere and torus intersections, and the bounds and
+// aperture logic.
 //
 // Every helper is the float32 operation sequence its plain PyTorch twin
 // performs (xicsrt_tpu_torch/ops/fused_trace.py); the library is built with
@@ -24,6 +25,14 @@
     (XRT_SRC_F + XRT_MAX_OPTICS * XRT_OPT_F + XRT_MAX_APERTURES * XRT_AP_F)
 #define XRT_MAX_IP \
     (XRT_HDR_I + XRT_MAX_OPTICS * XRT_OPT_I + XRT_MAX_APERTURES * XRT_AP_I)
+// Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
+// source kind, voxel draws, Cauchy draw.
+#define XRT_SRC_PLASMA 1
+// Optic floats beyond the sphere's: torus r_minor^2 and convergence
+// tolerance, and 1 / (2 d) for per-ray Bragg angles.
+#define XRT_O_RMIN2 26
+#define XRT_O_TOL 27
+#define XRT_O_INV2D 28
 
 // Philox4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
@@ -205,4 +214,123 @@ __device__ __forceinline__ bool xrt_apertures(const float* apf,
         m_out = m_in ? nv : m_out;
     }
     return m_out && m_in;
+}
+
+// Plasma source (fp[0:24]: source basis rows, target, basis hint x + z,
+// line centre, Doppler conversion, natural width, voxel edge, 1/c) for a
+// ray whose bundle row is (a, b): origin xyz, cone half-angle, then
+// temperature and velocity xyz. Draws 3 voxel uniforms (voxel), u and v
+// for the cone, one uniform for the normal, one Cauchy uniform (cauchy),
+// as fused_trace.py:1489-1537 does.
+__device__ __forceinline__ void xrt_sample_plasma(
+    const float* fp, bool voxel, bool cauchy, Draws& draw, float4 a, float4 b,
+    float& px, float& py, float& pz, float& dx, float& dy, float& dz,
+    float& wl) {
+    px = a.x;
+    py = a.y;
+    pz = a.z;
+    if (voxel) {
+        const float h = fp[18];
+        const float vx = (draw() - 0.5f) * h;
+        const float vy = (draw() - 0.5f) * h;
+        const float vz = (draw() - 0.5f) * h;
+        px = px + vx * fp[0] + vy * fp[3] + vz * fp[6];
+        py = py + vx * fp[1] + vy * fp[4] + vz * fp[7];
+        pz = pz + vx * fp[2] + vy * fp[5] + vz * fp[8];
+    }
+    float nx = fp[9] - px, ny = fp[10] - py, nz = fp[11] - pz;
+    float inv = inv_sqrt(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+    nx = nx * inv;
+    ny = ny * inv;
+    nz = nz * inv;
+    float o1x = ny * fp[14] - nz * fp[13];
+    float o1y = nz * fp[12] - nx * fp[14];
+    float o1z = nx * fp[13] - ny * fp[12];
+    inv = inv_sqrt(fmaxf(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30f));
+    o1x = o1x * inv;
+    o1y = o1y * inv;
+    o1z = o1z * inv;
+    const float o2x = ny * o1z - nz * o1y;
+    const float o2y = nz * o1x - nx * o1z;
+    const float o2z = nx * o1y - ny * o1x;
+    const float u = draw();
+    const float v = draw();
+    const float lz = 1.0f - u * (1.0f - cosf(a.w));
+    const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
+    const float phi = v * 6.283185307179586f;
+    const float lx = rho * cosf(phi);
+    const float ly = rho * sinf(phi);
+    dx = lx * o2x + ly * o1x + lz * nx;
+    dy = lx * o2y + ly * o1y + lz * ny;
+    dz = lx * o2z + ly * o1z + lz * nz;
+    // Exact Voigt: Gaussian of the bundle's Doppler width (a normal from
+    // erfinv of a clipped uniform) plus a Cauchy; then the bulk Doppler.
+    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
+    const float un = fminf(fmaxf(draw(), lo), hi);
+    const float gauss = 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
+    wl = fp[15] + fp[16] * sqrtf(fmaxf(b.x, 0.0f)) * gauss;
+    if (cauchy) {
+        const float uc = fminf(fmaxf(draw(), lo), hi);
+        wl = wl + fp[17] * tanf(3.141592653589793f * (uc - 0.5f));
+    }
+    wl = wl * (1.0f - (b.y * dx + b.z * dy + b.w * dz) * fp[19]);
+}
+
+// Torus of the optic block o (origin o[0:3], basis rows o[3:12], centre
+// o[12:15], major radius o[15], o[XRT_O_RMIN2] = r_minor^2): the root of
+// G(t) = (|xz|(t) - R)^2 + y(t)^2 - r^2 by four steps of the local
+// quadratic model from the hit on the tangent plane at the origin
+// (torus_local_quadratic_t, fused_trace.py:616-702). *hit is alive, a last
+// step below o[XRT_O_TOL] and t > 1e-6; returns t, or 0 on a miss.
+__device__ __forceinline__ float xrt_torus_hit(const float* o, float px,
+                                               float py, float pz, float dx,
+                                               float dy, float dz, bool alive,
+                                               bool* hit) {
+    const float rx = px - o[12], ry = py - o[13], rz = pz - o[14];
+    const float olx = rx * o[3] + ry * o[4] + rz * o[5];
+    const float oly = rx * o[6] + ry * o[7] + rz * o[8];
+    const float olz = rx * o[9] + ry * o[10] + rz * o[11];
+    const float dlx = dx * o[3] + dy * o[4] + dz * o[5];
+    const float dly = dx * o[6] + dy * o[7] + dz * o[8];
+    const float dlz = dx * o[9] + dy * o[10] + dz * o[11];
+    const float z0 = (px - o[0]) * o[9] + (py - o[1]) * o[10] + (pz - o[2]) * o[11];
+    float t = -z0 / (fabsf(dlz) > 1e-9f ? dlz : 1e-9f);
+    float step = 0.0f;
+    for (int it = 0; it < 4; ++it) {
+        const float X = olx + t * dlx, Y = oly + t * dly, Z = olz + t * dlz;
+        const float s2 = fmaxf(X * X + Z * Z, 1e-30f);
+        const float inv_rho = inv_sqrt(s2);
+        const float rr = s2 * inv_rho - o[15];
+        const float G = rr * rr + Y * Y - o[XRT_O_RMIN2];
+        const float rhop = (X * dlx + Z * dlz) * inv_rho;
+        const float Gp = 2.0f * rr * rhop + 2.0f * Y * dly;
+        const float rhopp = ((dlx * dlx + dlz * dlz) - rhop * rhop) * inv_rho;
+        const float Gpp = 2.0f * (rhop * rhop + rr * rhopp) + 2.0f * dly * dly;
+        const float disc = Gp * Gp - 2.0f * Gpp * G;
+        const float sgn = Gp >= 0.0f ? 1.0f : -1.0f;
+        float dq = Gp + sgn * sqrtf(fmaxf(disc, 0.0f));
+        dq = fabsf(dq) > 1e-12f ? dq : sgn * 1e-12f;
+        const float gp_safe = fabsf(Gp) > 1e-12f ? Gp : sgn * 1e-12f;
+        step = G / (disc >= 0.0f ? 0.5f * dq : gp_safe);
+        t = t - step;
+    }
+    *hit = alive && fabsf(step) < o[XRT_O_TOL] && t > 1e-6f;
+    return *hit ? t : 0.0f;
+}
+
+// The torus normal at q, not yet normalised: from the tube centre (q
+// projected onto the axis circle) to q (fused_trace.py:913-926).
+__device__ __forceinline__ void xrt_torus_normal(const float* o, float qx,
+                                                 float qy, float qz,
+                                                 float& nx, float& ny,
+                                                 float& nz) {
+    const float ptx = qx - o[12], pty = qy - o[13], ptz = qz - o[14];
+    const float d_y = ptx * o[6] + pty * o[7] + ptz * o[8];
+    const float plx = ptx - d_y * o[6];
+    const float ply = pty - d_y * o[7];
+    const float plz = ptz - d_y * o[8];
+    const float inv = inv_sqrt(fmaxf(plx * plx + ply * ply + plz * plz, 1e-30f));
+    nx = ptx - o[15] * plx * inv;
+    ny = pty - o[15] * ply * inv;
+    nz = ptz - o[15] * plz * inv;
 }

@@ -38,13 +38,11 @@ def bin_image(x_local: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
     px = torch.round(pixel_coordinate(x_local[:, 0], pixel_size, nx))
     py = torch.round(pixel_coordinate(x_local[:, 1], pixel_size, ny))
     ok = mask & (px >= 0) & (px < nx) & (py >= 0) & (py < ny)
-    # Masked-out rays scatter weight 0 into pixel (0, 0).
-    zero = torch.zeros_like(px)
-    idx = (torch.where(ok, px, zero).long() * ny
-           + torch.where(ok, py, zero).long())
-    w = torch.where(ok, weight, torch.zeros_like(weight)).to(x_local.dtype)
+    # Only rays on the grid scatter: sending the rest to one pixel with
+    # weight 0 serialises index_put's accumulation on CUDA.
+    idx = px[ok].long() * ny + py[ok].long()
     flat = torch.zeros((nx * ny,), dtype=x_local.dtype, device=x_local.device)
-    flat.index_put_((idx,), w, accumulate=True)
+    flat.index_put_((idx,), weight[ok].to(x_local.dtype), accumulate=True)
     return flat.reshape(nx, ny)
 
 

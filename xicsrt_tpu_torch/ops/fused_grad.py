@@ -63,8 +63,11 @@ def _round_up(n: int, m: int) -> int:
 def check_config(config: dict) -> None:
     """Raise ``FusedGradUnsupported`` for element classes and rocking curves
     outside the subset before a pipeline is built (cylinder, torus and
-    mosaic optics, plasma sources and file rocking curves are not ported)."""
+    mosaic optics, plasma sources and file rocking curves are not in the
+    kernels)."""
     from xicsrt_tpu_torch.dispatch import lookup
+    from xicsrt_tpu_torch.optics.shapes import ShapeTorus
+    from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
 
     for section in ("sources", "optics"):
         for name, element in config.get(section, {}).items():
@@ -77,6 +80,9 @@ def check_config(config: dict) -> None:
                 raise FusedGradUnsupported(
                     f'"{name}": {class_name} is outside the fused-gradient '
                     "subset of this port") from None
+            if issubclass(lookup(class_name), (PlasmaGeneric, ShapeTorus)):
+                raise FusedGradUnsupported(
+                    f'"{name}": {class_name} is not in the fused-gradient kernels yet')
             rocking = str(element.get("rocking_type", "gaussian")).lower()
             if rocking not in ("gaussian", "step"):
                 raise FusedGradUnsupported(f"rocking_type {rocking}")
@@ -89,6 +95,8 @@ def _grad_source_spec(source) -> dict:
         spec = ft._source_spec(source)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
+    if spec["kind"] != 0:
+        raise FusedGradUnsupported("plasma source")
     if spec["poisson"]:
         raise FusedGradUnsupported("Poisson budget (use counted intensity)")
     return spec
@@ -102,6 +110,8 @@ def _grad_optic_spec(optic) -> dict:
         spec = ft._optic_spec(optic, mirror=True)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
+    if spec["shape"] not in (0, 1):
+        raise FusedGradUnsupported(f"shape of {type(optic).__name__}")
     spec["n_draws"] = 0  # weight mode: a crystal draws no uniform
     return spec
 

@@ -1,19 +1,27 @@
-"""Fused trace engine K1a (counterpart of ``xicsrt_tpu/ops/fused_trace.py``).
+"""Fused trace engine K1 (counterpart of ``xicsrt_tpu/ops/fused_trace.py``).
 
 One CUDA kernel (``csrc/fused_trace.cu``) generates every ray, traces it
 through the optic chain, counts the survivors of each element and bins the
 nearest-pixel images, with all per-ray state in registers. It replaces the
-main-chain cut of the TPU megakernel ``build_fused_run`` (kernel).
+ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
+chain (K1a), the in-kernel plasma source (K1f) and the torus stage of K1c.
 
 Supported subset (``general.engine='fused'``; outside it the build raises
 ``FusedUnsupported``, and ``'auto'`` falls back to the eager engine):
 
 - Generic or Directed point sources with an ``isotropic`` or symmetric
   ``isotropic_xy`` cone, one wavelength, counted or Poisson budgets;
-- plane and sphere optics with x/y/z bounds and aperture logic (every
-  logic op; shapes none/circle/square/rectangle/ellipse);
+- plasma sources of up to 2^22 bundles (K1f): the O(bundle_count) stage
+  runs in PyTorch on the device per iteration (the source's
+  ``bundle_tables``) and the kernel gives each ray its bundle by binary
+  search over the iteration's cumulative counts (``csrc/bundle_lookup.cuh``),
+  then samples the voxel offset, the cone to the target, the exact Voigt
+  wavelength and the Doppler shift;
+- plane, sphere and torus optics (the torus by the local-quadratic Newton
+  root of ``torus_local_quadratic_t``) with x/y/z bounds and aperture logic
+  (every logic op; shapes none/circle/square/rectangle/ellipse);
 - no interaction, or a Bragg crystal with gaussian or step rocking in
-  ``mc`` mode;
+  ``mc`` mode, with per-ray wavelengths for plasma sources;
 - nearest-pixel images, float32, no history reservoir.
 
 Unlike the TPU kernel, geometry is not compiled in: :func:`pack_params`
@@ -39,15 +47,19 @@ import math
 import numpy as np
 import torch
 
+from xicsrt_tpu_torch.draws import Draws
 from xicsrt_tpu_torch.ops import native
 from xicsrt_tpu_torch.ops.binning import fused_multiply_add
+from xicsrt_tpu_torch.ops.bundle_gather import bundle_rows
 
 
 class FusedUnsupported(NotImplementedError):
     """Raised when a config is outside the fused-kernel subset."""
 
 
-# Buffer layout, mirrored by the XRT_* offsets of csrc/fused_trace.cu.
+# Buffer layout, mirrored by the XRT_* offsets of csrc/trace_common.cuh.
+# Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
+# source kind (0 point, 1 plasma), voxel draws (plasma), Cauchy draw.
 MAX_OPTICS = 16
 MAX_APERTURES = 64
 SRC_F, OPT_F, AP_F = 24, 32, 4
@@ -55,8 +67,12 @@ HDR_I, OPT_I, AP_I = 8, 16, 2
 _APERTURE_SHAPES = {"none": 0, "circle": 1, "square": 2, "rectangle": 3,
                     "ellipse": 4}
 _LOGIC = {"and": 0, "not": 1, "or": 2, "nand": 3, "nor": 4, "xor": 5, "xnor": 6}
+_SHAPES = {"plane": 0, "sphere": 1, "torus": 2}
 _TWO_PI = 2.0 * math.pi
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
+_C_LIGHT = 299792458.0
+# The largest plasma of the fused path (``fused_trace.py:308-317``).
+MAX_BUNDLES = 1 << 22
 # Rays per slice of the plain twin, which bounds its temporaries.
 _TWIN_SLICE = 1 << 20
 
@@ -69,7 +85,10 @@ def _source_spec(source) -> dict:
     """Structure of the source: sampling program and budget."""
     from xicsrt_tpu_torch.ops.spread import parse_spread_single, parse_spread_xy
     from xicsrt_tpu_torch.sources.generic import SourceDirected, SourceGeneric
+    from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
 
+    if isinstance(source, PlasmaGeneric):
+        return _plasma_spec(source)
     if type(source) not in (SourceGeneric, SourceDirected):
         raise FusedUnsupported(f"source {type(source).__name__}")
     p = source.param
@@ -92,11 +111,40 @@ def _source_spec(source) -> dict:
         raise FusedUnsupported(f"angular_dist {angular}")
     return {
         "name": source.name,
+        "kind": 0,
         "directed": isinstance(source, SourceDirected),
         "dist": dist,
         "poisson": bool(p.get("use_poisson")),
         "rate": float(source._scaled_intensity),
         "n_draws": 2,
+    }
+
+
+def _plasma_spec(source) -> dict:
+    """Structure of a plasma source (``_plasma_spec``, JAX
+    ``fused_trace.py:294-343``). Draws per ray: 3 voxel uniforms (voxel
+    bundles), the cone's u and v, one uniform for the normal, one Cauchy
+    uniform (natural linewidth)."""
+    p = source.param
+    if source.bundle_count > MAX_BUNDLES:
+        raise FusedUnsupported(
+            f"bundle_count {source.bundle_count} > 2^22 (the per-iteration "
+            "bundle stage would dominate)")
+    from xicsrt_tpu_torch.ops.voigt import doppler_sigma
+
+    voxel = float(source.voxel_size)
+    gamma = float(source.gamma)
+    w0 = float(p["wavelength"])
+    return {
+        "name": source.name,
+        "kind": 1,
+        "voxel": voxel,
+        "gamma": gamma,
+        "wavelength": w0,
+        # Doppler sigma per sqrt(eV): the kernel scales it by sqrt(T).
+        "sigma_conv": doppler_sigma(1.0, float(p["mass_number"]), w0),
+        "poisson": False,
+        "n_draws": (3 if voxel > 0.0 else 0) + 3 + (1 if gamma > 0.0 else 0),
     }
 
 
@@ -108,15 +156,19 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
     from xicsrt_tpu_torch.optics.interactions import (
         InteractCrystal, InteractMirror, InteractNone,
     )
-    from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere
+    from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere, ShapeTorus
 
     p = optic.param
     spec = {"name": optic.name, "n_draws": 0, "apertures": [], "image": None}
     if isinstance(optic, ShapePlane):
-        spec["shape"] = 0
+        spec["shape"] = _SHAPES["plane"]
     elif isinstance(optic, ShapeSphere):
-        spec["shape"] = 1
+        spec["shape"] = _SHAPES["sphere"]
         spec["convex"] = bool(p.get("convex", False))
+    elif isinstance(optic, ShapeTorus):
+        spec["shape"] = _SHAPES["torus"]
+        spec["major_adjust"] = float(p["major_adjust"])
+        spec["center_sign"] = float(p["center_sign"])
     else:
         raise FusedUnsupported(f"shape of {type(optic).__name__}")
 
@@ -176,13 +228,16 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
 @dataclasses.dataclass(frozen=True)
 class FusedParams:
     """Packed kernel parameters: ``fp`` float32 and ``ip`` int32 buffers on
-    one device, plus the sizes the host needs to allocate the outputs."""
+    one device, plus the sizes the host needs to allocate the outputs.
+    ``plasma``: the source is a plasma, whose rays take their bundles from
+    per-iteration tables."""
 
     fp: torch.Tensor
     ip: torch.Tensor
     n_optics: int
     img_total: int
     n_draws: int
+    plasma: bool = False
 
 
 def _vec(t) -> np.ndarray:
@@ -191,6 +246,34 @@ def _vec(t) -> np.ndarray:
 
 def _unit(v: np.ndarray) -> np.ndarray:
     return v / max(np.linalg.norm(v), 1e-300)
+
+
+def _pack_point_source(src: dict, sp: dict, fp: np.ndarray) -> None:
+    """fp[0:24] of a point source: origin, the emission basis (rows o2, o1,
+    axis), the cone's constants."""
+    basis = _vec(sp["frame"].basis)
+    axis = _unit(_vec(sp["direction"])) if src["directed"] else basis[2]
+    o1 = _unit(np.cross(axis, basis[0]) + np.cross(axis, basis[2]))
+    o2 = _unit(np.cross(axis, o1))
+    fp[0:3] = _vec(sp["frame"].origin)
+    fp[3:12] = np.stack([o2, o1, axis]).reshape(-1)
+    _, dist_consts = src["dist"]
+    fp[12:12 + len(dist_consts)] = dist_consts
+
+
+def _pack_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
+    """fp[0:24] of a plasma: the source basis rows (voxel offsets), the
+    target, the basis hint x + z of the per-ray cone basis, the line centre,
+    the Doppler and natural widths, the voxel edge and 1/c."""
+    basis = _vec(sp["frame"].basis)
+    fp[0:9] = basis.reshape(-1)
+    fp[9:12] = _vec(sp["target"])
+    fp[12:15] = basis[0] + basis[2]
+    fp[15] = src["wavelength"]
+    fp[16] = src["sigma_conv"]
+    fp[17] = src["gamma"]
+    fp[18] = src["voxel"]
+    fp[19] = 1.0 / _C_LIGHT
 
 
 def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
@@ -207,15 +290,13 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
     ip = np.zeros(HDR_I + n_opt * OPT_I + n_ap * AP_I, np.int32)
 
     sp = params["sources"][src["name"]]
-    basis = _vec(sp["frame"].basis)
-    axis = _unit(_vec(sp["direction"])) if src["directed"] else basis[2]
-    o1 = _unit(np.cross(axis, basis[0]) + np.cross(axis, basis[2]))
-    o2 = _unit(np.cross(axis, o1))
-    fp[0:3] = _vec(sp["frame"].origin)
-    fp[3:12] = np.stack([o2, o1, axis]).reshape(-1)
-    dist_kind, dist_consts = src["dist"]
-    fp[12:12 + len(dist_consts)] = dist_consts
-    wavelength = float(_vec(sp["wavelength"]))
+    plasma = src["kind"] == 1
+    if plasma:
+        _pack_plasma_source(src, sp, fp)
+        wavelength = None  # per ray
+    else:
+        _pack_point_source(src, sp, fp)
+        wavelength = float(_vec(sp["wavelength"]))
 
     img_total = 0
     ap_index = 0
@@ -230,25 +311,36 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
         f[0:3] = origin
         f[3:12] = ob.reshape(-1)
         i[0] = o["shape"]
-        if o["shape"] == 1:
+        if o["shape"] == _SHAPES["sphere"]:
             radius = float(_vec(op["radius"]))
             sign = -1.0 if o["convex"] else 1.0
             f[12:15] = origin + sign * radius * ob[2]
             f[15] = radius * radius
             i[1] = int(o["convex"])
+        elif o["shape"] == _SHAPES["torus"]:
+            # torus_local_quadratic_t (fused_trace.py:634-639, 699).
+            radius_major = float(_vec(op["radius_major"]))
+            r_min = float(_vec(op["radius_minor"]))
+            r_maj = radius_major + o["major_adjust"] * r_min
+            f[12:15] = origin + o["center_sign"] * radius_major * ob[2]
+            f[15] = r_maj
+            f[26] = r_min * r_min
+            f[27] = 1e-5 * max(1.0, r_maj)
         f[16:19] = o["half"]
         i[4] = o["checks"]
         i[2] = o["interact"]
         if o["interact"] == 1:
             spacing = float(_vec(op["crystal_spacing"]))
             fwhm = float(_vec(op["rocking_fwhm"]))
-            sin_b = wavelength / (2.0 * spacing)
-            if not (0.0 < sin_b < 1.0):
-                raise FusedUnsupported("wavelength outside Bragg range")
             f[19] = float(_vec(op["reflectivity"]))
             f[20] = fwhm * _SIGMA_PER_FWHM if o["rocking"] == 0 else fwhm / 2.0
-            f[21] = sin_b
-            f[22] = math.sqrt(1.0 - sin_b * sin_b)
+            f[28] = 1.0 / (2.0 * spacing)
+            if wavelength is not None:
+                sin_b = wavelength / (2.0 * spacing)
+                if not (0.0 < sin_b < 1.0):
+                    raise FusedUnsupported("wavelength outside Bragg range")
+                f[21] = sin_b
+                f[22] = math.sqrt(1.0 - sin_b * sin_b)
             i[3] = o["rocking"]
         i[5] = len(o["apertures"])
         i[6] = ap_index
@@ -269,11 +361,13 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             img_total += im["nx"] * im["ny"]
 
     n_draws = src["n_draws"] + sum(o["n_draws"] for o in optics)
-    ip[0:5] = (n_opt, n_ap, dist_kind, n_draws, img_total)
+    ip[0:8] = (n_opt, n_ap, src["dist"][0] if not plasma else 0, n_draws, img_total,
+               src["kind"], int(plasma and src["voxel"] > 0.0),
+               int(plasma and src["gamma"] > 0.0))
     return FusedParams(
         fp=torch.as_tensor(fp.astype(np.float32), device=device),
         ip=torch.as_tensor(ip, device=device),
-        n_optics=n_opt, img_total=img_total, n_draws=n_draws,
+        n_optics=n_opt, img_total=img_total, n_draws=n_draws, plasma=plasma,
     )
 
 
@@ -360,6 +454,88 @@ def sample_source_plain(F, dist: int, draw, full):
     return px, py, pz, dx, dy, dz
 
 
+def sample_plasma_plain(F, I, attrs, draw):
+    """The kernel's plasma sampler (``xrt_sample_plasma``, JAX
+    ``fused_trace.py:1484-1537``): from each ray's bundle row ``attrs``
+    [n, 8] and its draws, the origin, unit direction and wavelength.
+    Returns (px, py, pz, dx, dy, dz, wl)."""
+    px, py, pz = attrs[:, 0], attrs[:, 1], attrs[:, 2]
+    theta, temp = attrs[:, 3], attrs[:, 4]
+    vxb, vyb, vzb = attrs[:, 5], attrs[:, 6], attrs[:, 7]
+    if I[6]:  # voxel offset in the source frame
+        h = F[18]
+        vx = (draw() - 0.5) * h
+        vy = (draw() - 0.5) * h
+        vz = (draw() - 0.5) * h
+        px = px + vx * F[0] + vy * F[3] + vz * F[6]
+        py = py + vx * F[1] + vy * F[4] + vz * F[7]
+        pz = pz + vx * F[2] + vy * F[5] + vz * F[8]
+    # Isotropic cone about the direction to the target, per-ray basis as
+    # vec.orthogonal_basis with the hint x + z.
+    nx, ny, nz = F[9] - px, F[10] - py, F[11] - pz
+    inv = _inv_sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-30))
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    hx, hy, hz = F[12], F[13], F[14]
+    o1x, o1y, o1z = ny * hz - nz * hy, nz * hx - nx * hz, nx * hy - ny * hx
+    inv = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
+    o1x, o1y, o1z = o1x * inv, o1y * inv, o1z * inv
+    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
+    u, v = draw(), draw()
+    lz = 1.0 - u * (1.0 - torch.cos(theta))
+    rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
+    phi = v * _TWO_PI
+    lx, ly = rho * torch.cos(phi), rho * torch.sin(phi)
+    dx = lx * o2x + ly * o1x + lz * nx
+    dy = lx * o2y + ly * o1y + lz * ny
+    dz = lx * o2z + ly * o1z + lz * nz
+    # Exact Voigt: a normal by erfinv of a clipped uniform, scaled by the
+    # bundle's Doppler width, plus a Cauchy; then the bulk Doppler shift.
+    un = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
+    gauss = math.sqrt(2.0) * torch.special.erfinv(2.0 * un - 1.0)
+    wl = F[15] + F[16] * torch.sqrt(torch.clamp_min(temp, 0.0)) * gauss
+    if I[7]:
+        uc = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
+        wl = wl + F[17] * torch.tan(math.pi * (uc - 0.5))
+    wl = wl * (1.0 - (vxb * dx + vyb * dy + vzb * dz) * F[19])
+    return px, py, pz, dx, dy, dz, wl
+
+
+def torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full):
+    """The kernels' torus root (``xrt_torus_hit``; JAX
+    ``torus_local_quadratic_t``, ``fused_trace.py:616-702``): four
+    local-quadratic Newton steps from the tangent-plane hit. Returns
+    (t, hit), t zero where the ray misses."""
+    rx, ry, rz = px - o[12], py - o[13], pz - o[14]
+    olx = rx * o[3] + ry * o[4] + rz * o[5]
+    oly = rx * o[6] + ry * o[7] + rz * o[8]
+    olz = rx * o[9] + ry * o[10] + rz * o[11]
+    dlx = dx * o[3] + dy * o[4] + dz * o[5]
+    dly = dx * o[6] + dy * o[7] + dz * o[8]
+    dlz = dx * o[9] + dy * o[10] + dz * o[11]
+    z0 = (px - o[0]) * o[9] + (py - o[1]) * o[10] + (pz - o[2]) * o[11]
+    t = -z0 / torch.where(torch.abs(dlz) > 1e-9, dlz, full(1e-9))
+    step = full(0.0)
+    for _ in range(4):
+        X, Y, Z = olx + t * dlx, oly + t * dly, olz + t * dlz
+        s2 = torch.clamp_min(X * X + Z * Z, 1e-30)
+        inv_rho = _inv_sqrt(s2)
+        rr = s2 * inv_rho - o[15]
+        G = rr * rr + Y * Y - o[26]
+        rhop = (X * dlx + Z * dlz) * inv_rho
+        Gp = 2.0 * rr * rhop + 2.0 * Y * dly
+        rhopp = ((dlx * dlx + dlz * dlz) - rhop * rhop) * inv_rho
+        Gpp = 2.0 * (rhop * rhop + rr * rhopp) + 2.0 * dly * dly
+        disc = Gp * Gp - 2.0 * Gpp * G
+        sgn = torch.where(Gp >= 0.0, full(1.0), full(-1.0))
+        dq = Gp + sgn * torch.sqrt(torch.clamp_min(disc, 0.0))
+        dq = torch.where(torch.abs(dq) > 1e-12, dq, sgn * 1e-12)
+        gp_safe = torch.where(torch.abs(Gp) > 1e-12, Gp, sgn * 1e-12)
+        step = G / torch.where(disc >= 0.0, 0.5 * dq, gp_safe)
+        t = t - step
+    hit = alive & (torch.abs(step) < o[27]) & (t > 1e-6)
+    return torch.where(hit, t, full(0.0)), hit
+
+
 def bounds_plain(mask, o, oi, lxv, lyv, r, bz):
     """The kernels' x/y/z bounds (``xrt_bounds``) of the optic whose blocks
     are ``o``, ``oi``: local coordinates (lxv, lyv), offset ``r`` of the hit
@@ -403,42 +579,58 @@ def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
     return m_out & m_in
 
 
-def _trace_slice(F, I, rays, count, draw, counts, image):
+def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
     """Trace one slice of rays exactly as the kernel does; adds into
-    ``counts`` (int64) and the flat ``image``."""
+    ``counts`` (int64) and the flat ``image``. ``alive``: the rays alive at
+    the source; ``attrs``: their bundle rows for a plasma source."""
     f32 = torch.float32
     n_opt = I[0]
-    alive = rays < count
     counts[0] += alive.sum()
-    shape = rays.shape
+    shape = alive.shape
 
     def full(value):
-        return torch.full(shape, value, dtype=f32, device=rays.device)
+        return torch.full(shape, value, dtype=f32, device=alive.device)
 
-    px, py, pz, dx, dy, dz = sample_source_plain(F, I[2], draw, full)
+    if attrs is None:
+        px, py, pz, dx, dy, dz = sample_source_plain(F, I[2], draw, full)
+        wl = None
+    else:
+        px, py, pz, dx, dy, dz, wl = sample_plasma_plain(F, I, attrs, draw)
 
     for e in range(n_opt):
         o = F[SRC_F + e * OPT_F: SRC_F + (e + 1) * OPT_F]
         oi = I[HDR_I + e * OPT_I: HDR_I + (e + 1) * OPT_I]
-        if oi[0] == 0:
+        if oi[0] == _SHAPES["plane"]:
             denom = dx * o[9] + dy * o[10] + dz * o[11]
             numer = (o[0] - px) * o[9] + (o[1] - py) * o[10] + (o[2] - pz) * o[11]
             nz = torch.abs(denom) > 1e-30
             t = numer / torch.where(nz, denom, full(1e-30))
             m_int = alive & (t >= 0.0) & nz
             nxv, nyv, nzv = full(o[9]), full(o[10]), full(o[11])
-        else:
+        elif oi[0] == _SHAPES["sphere"]:
             Lx, Ly, Lz = o[12] - px, o[13] - py, o[14] - pz
             t_ca = Lx * dx + Ly * dy + Lz * dz
             d2 = Lx * Lx + Ly * Ly + Lz * Lz - t_ca * t_ca
             m_int = alive & (d2 <= o[15])
             t_hc = torch.sqrt(torch.clamp_min(o[15] - d2, 0.0))
             t = t_ca - t_hc if oi[1] else t_ca + t_hc
+        else:
+            t, m_int = torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full)
         qx = torch.where(m_int, px + t * dx, px)
         qy = torch.where(m_int, py + t * dy, py)
         qz = torch.where(m_int, pz + t * dz, pz)
-        if oi[0] != 0:
+        if oi[0] == _SHAPES["sphere"]:
             nxv, nyv, nzv = o[12] - qx, o[13] - qy, o[14] - qz
+        elif oi[0] == _SHAPES["torus"]:
+            # From the tube centre (the hit projected onto the axis circle).
+            ptx, pty, ptz = qx - o[12], qy - o[13], qz - o[14]
+            d_y = ptx * o[6] + pty * o[7] + ptz * o[8]
+            plx, ply, plz = ptx - d_y * o[6], pty - d_y * o[7], ptz - d_y * o[8]
+            inv = _inv_sqrt(torch.clamp_min(plx * plx + ply * ply + plz * plz, 1e-30))
+            nxv = ptx - o[15] * plx * inv
+            nyv = pty - o[15] * ply * inv
+            nzv = ptz - o[15] * plz * inv
+        if oi[0] != _SHAPES["plane"]:
             inv = _inv_sqrt(torch.clamp_min(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30))
             nxv, nyv, nzv = nxv * inv, nyv * inv, nzv * inv
         rx, ry, rz = qx - o[0], qy - o[1], qz - o[2]
@@ -451,7 +643,12 @@ def _trace_slice(F, I, rays, count, draw, counts, image):
             dot = dx * nxv + dy * nyv + dz * nzv
             adot = torch.abs(dot)
             cosi = torch.sqrt(torch.clamp_min(1.0 - adot * adot, 0.0))
-            sd = adot * o[22] - cosi * o[21]
+            if wl is None:
+                sin_b, cos_b = o[21], o[22]
+            else:  # per-ray Bragg angle (fused_trace.py:997-1001)
+                sin_b = torch.clamp(wl * o[28], 0.0, 1.0)
+                cos_b = torch.sqrt(torch.clamp_min(1.0 - sin_b * sin_b, 0.0))
+            sd = adot * cos_b - cosi * sin_b
             delta = sd + sd * sd * sd * (1.0 / 6.0)
             if oi[3] == 0:
                 z = _div(delta, o[20])
@@ -477,42 +674,85 @@ def _trace_slice(F, I, rays, count, draw, counts, image):
                              accumulate=True)
 
 
+def _slices(fparams: FusedParams, n_total: int, count: int, bundles):
+    """(global ray indices, alive, bundle rows or None) per twin slice: for a
+    plasma, iteration ``j`` holds rays ``[j n, (j + 1) n)`` with ``n =
+    n_total / num_iter``, and ray ``j n + l`` is alive iff ``l`` is below
+    the iteration's realised count."""
+    device = fparams.fp.device
+    if not fparams.plasma:
+        for start in range(0, n_total, _TWIN_SLICE):
+            rays = torch.arange(start, min(start + _TWIN_SLICE, n_total),
+                                dtype=torch.int64, device=device)
+            yield rays, rays < count, None
+        return
+    cum, table = bundles
+    n_per_iter = n_total // cum.shape[0]
+    for j in range(cum.shape[0]):
+        for start in range(0, n_per_iter, _TWIN_SLICE):
+            local = torch.arange(start, min(start + _TWIN_SLICE, n_per_iter),
+                                 dtype=torch.int64, device=device)
+            attrs = bundle_rows(cum[j], table[j], local)
+            yield j * n_per_iter + local, local < cum[j, -1], attrs
+
+
 def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
-                    uniforms: torch.Tensor | None = None, seed=(0, 0)):
+                    uniforms: torch.Tensor | None = None, seed=(0, 0),
+                    bundles=None):
     """The kernel's plain twin: same arguments, same outputs.
 
     Returns (counts int64 [1 + n_optics], flat images float32 [img_total]).
     ``uniforms``: (n_draws, n_total) float32, or None for the kernel's
-    Philox stream keyed by ``seed``.
+    Philox stream keyed by ``seed``. ``bundles``: for a plasma, the
+    per-iteration tables (cum (num_iter, B) int32, table (num_iter, B, 8)
+    float32); ``count`` is then unused.
     """
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
     device = fparams.fp.device
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
-    for start in range(0, n_total, _TWIN_SLICE):
-        stop = min(start + _TWIN_SLICE, n_total)
-        rays = torch.arange(start, stop, dtype=torch.int64, device=device)
+    for rays, alive, attrs in _slices(fparams, n_total, count, bundles):
         if uniforms is None:
             rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
         else:
-            rows = [uniforms[k, start:stop] for k in range(fparams.n_draws)]
-        _trace_slice(F, I, rays, count, iter(rows).__next__, counts, image)
+            rows = [uniforms[k, rays] for k in range(fparams.n_draws)]
+        _trace_slice(F, I, alive, iter(rows).__next__, counts, image, attrs)
     return counts, image
 
 
-def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
-                   uniforms: torch.Tensor | None = None, seed=(0, 0)):
-    """Trace ``n_total`` rays through the packed chain (kernel K1a).
+def _check_bundles(fparams: FusedParams, n_total: int, bundles, device):
+    if not fparams.plasma:
+        return None, None, 0, 0
+    if bundles is None:
+        raise ValueError("fused_run_cuda: a plasma source needs its bundle tables")
+    cum, table = bundles
+    if cum.dim() != 2 or cum.dtype != torch.int32 or cum.device != device:
+        raise ValueError(f"cum must be (num_iter, B) int32 on {device}")
+    if (table.dtype != torch.float32 or table.device != device
+            or tuple(table.shape) != (*cum.shape, 8)):
+        raise ValueError(f"table must be (num_iter, B, 8) float32 on {device}")
+    if cum.shape[1] > MAX_BUNDLES or n_total % cum.shape[0]:
+        raise ValueError("fused_run_cuda: at most 2^22 bundles, and num_iter "
+                         "must divide n_total")
+    return cum.contiguous(), table.contiguous(), cum.shape[1], n_total // cum.shape[0]
 
-    Rays at index >= ``count`` are dead at the source. Returns (counts
-    int64 [1 + n_optics], flat images float32 [img_total]). Buffers on a
-    CUDA device launch the kernel (or raise); buffers on the CPU take
+
+def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
+                   uniforms: torch.Tensor | None = None, seed=(0, 0),
+                   bundles=None):
+    """Trace ``n_total`` rays through the packed chain (kernel K1).
+
+    Point sources: rays at index >= ``count`` are dead at the source.
+    Plasma sources: ``bundles`` = (cum, table) per iteration, as
+    :func:`fused_run_plain` takes them. Returns (counts int64
+    [1 + n_optics], flat images float32 [img_total]). Buffers on a CUDA
+    device launch the kernel (or raise); buffers on the CPU take
     :func:`fused_run_plain`.
     """
     device = fparams.fp.device
     if device.type == "cpu":
-        return fused_run_plain(fparams, n_total, count, uniforms, seed)
+        return fused_run_plain(fparams, n_total, count, uniforms, seed, bundles)
     if device.type != "cuda":
         raise ValueError(f"fused_run_cuda: unsupported device {device}")
     if fparams.fp.dtype != torch.float32 or fparams.ip.dtype != torch.int32:
@@ -521,6 +761,7 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
         raise ValueError("fused_run_cuda: fp and ip must share one device")
     if not 0 <= n_total < 2**31:
         raise ValueError("fused_run_cuda: n_total must be in [0, 2^31)")
+    cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
     u_ptr = None
     if uniforms is not None:
         if (uniforms.device != device or uniforms.dtype != torch.float32
@@ -537,6 +778,8 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
     err = native.library().xrt_fused_trace(
         fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), n_total,
         int(count), u_ptr, int(seed[0]) & _M32, int(seed[1]) & _M32,
+        None if cum is None else cum.data_ptr(),
+        None if table is None else table.data_ptr(), n_bundles, n_per_iter,
         counts.data_ptr(), image.data_ptr(), fparams.img_total,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -552,21 +795,36 @@ fused_run_cuda.launches = 0
 # Engine entry points.
 # ---------------------------------------------------------------------------
 
+def plasma_bundles(source, source_params: dict, draws, num_iter: int):
+    """A plasma's bundle tables for ``num_iter`` iterations, drawn in turn
+    and stacked as the kernel takes them: (cum (num_iter, B) int32, table
+    (num_iter, B, 8) float32)."""
+    tables = [source.bundle_tables(source_params, draws) for _ in range(num_iter)]
+    return (torch.stack([c for c, _, _ in tables]),
+            torch.stack([t for _, t, _ in tables]).detach())
+
+
 def build_fused_run(pipeline, num_iter: int | None = None,
                     rng: str = "hw", history_slots: int | None = None,
                     history_mode: str = "found"):
-    """Build ``run(params, generator, uniforms=None) -> {"meta", "image",
-    "history"}`` tracing ``pipeline.num_rays * num_iter`` rays in one launch.
+    """Build ``run(params, generator, uniforms=None, bundles=None) ->
+    {"meta", "image", "history"}`` tracing ``pipeline.num_rays * num_iter``
+    rays in one launch.
 
     ``rng``: 'hw' draws the kernel's Philox stream from two seed words taken
     from the generator; 'input' streams explicit (n_draws, n_total) float32
     uniforms: ``uniforms`` when given, else drawn from the generator. Ray
     ``r`` takes draw ``k`` from row ``k``, column ``r``; the draws of a ray
-    are the source's u, v, then one per crystal.
+    are the source's (point: u, v; plasma: 3 voxel offsets, u, v, the
+    normal's uniform, the Cauchy uniform), then one per crystal.
 
     Poisson budgets draw the realised count on the host from the generator
     (the sum of per-iteration Poisson draws is one Poisson draw of the
-    summed rate), as ``fused_trace.py:1902-1907`` does.
+    summed rate), as ``fused_trace.py:1902-1907`` does. A plasma draws its
+    bundle tables per iteration from the generator, on the device, before
+    the launch (``fused_trace.py:1911-1969``); iteration ``j`` traces rays
+    ``[j N, (j + 1) N)`` of the budget ``N``. ``bundles`` may give them
+    instead, as ``fused_run_cuda`` takes them.
     """
     g = pipeline.general
     mode = str(g.get("interact_mode", "mc")).lower()
@@ -597,13 +855,16 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     names = pipeline.element_names
     device = pipeline.device
 
-    def run(params, generator: torch.Generator, uniforms=None):
+    source = pipeline.source
+
+    def run(params, generator: torch.Generator, uniforms=None, bundles=None):
         fparams = pack_params(src, optics, params, device)
+        if fparams.plasma and bundles is None:
+            bundles = plasma_bundles(source, params["sources"][source.name],
+                                     Draws(generator), num_iter)
         count = n_total
         if src["poisson"]:
-            lam = torch.tensor(src["rate"] * num_iter, dtype=torch.float64,
-                               device=generator.device)
-            count = min(int(torch.poisson(lam, generator=generator).item()), n_total)
+            count = min(Draws(generator).poisson(src["rate"] * num_iter), n_total)
         seed = (0, 0)
         if rng == "input" and uniforms is None:
             uniforms = torch.rand((fparams.n_draws, n_total), generator=generator,
@@ -613,7 +874,7 @@ def build_fused_run(pipeline, num_iter: int | None = None,
                                  device=generator.device).tolist()
         if uniforms is not None:
             uniforms = uniforms.to(device)
-        counts, flat = fused_run_cuda(fparams, n_total, count, uniforms, seed)
+        counts, flat = fused_run_cuda(fparams, n_total, count, uniforms, seed, bundles)
         meta = {name: counts[i] for i, name in enumerate(names)} if keep_meta else {}
         image = {}
         if keep_images:

@@ -1,7 +1,7 @@
 """Ready-made optics: Shape x Interact compositions
 (``xicsrt_tpu/optics/composites.py``), registered under the reference
-``class_name``. Ported: every composite of a plane or a sphere with no
-interaction, a mirror or a crystal."""
+``class_name``. Ported: every composite of a plane, a sphere or a torus
+with no interaction, a mirror or a crystal."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from xicsrt_tpu_torch.optics.interactions import (
     InteractMirror,
     InteractNone,
 )
-from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere
+from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere, ShapeTorus
 
 
 @register("XicsrtOpticDetector", "detector")
@@ -45,4 +45,14 @@ class OpticSphericalMirror(InteractMirror, ShapeSphere):
     "XicsrtOpticCrystalSpherical",
 )
 class OpticSphericalCrystal(InteractCrystal, ShapeSphere):
+    pass
+
+
+@register("XicsrtOpticToroidalCrystal", "toroidal_crystal")
+class OpticToroidalCrystal(InteractCrystal, ShapeTorus):
+    pass
+
+
+@register("XicsrtOpticToroidalMirror", "toroidal_mirror")
+class OpticToroidalMirror(InteractMirror, ShapeTorus):
     pass

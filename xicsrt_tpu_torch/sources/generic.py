@@ -6,9 +6,11 @@ realised by masking the fixed-size bundle.
 
 Ported: Generic and Directed sources; point and uniform-box origins;
 isotropic and isotropic_xy cones; monochrome wavelengths (including a
-'voigt' line of zero width, the default); counted and Poisson budgets.
-Gaussian boxes, the other angular and wavelength distributions, bulk
-velocity, Focused sources and source filters raise ``NotImplementedError``.
+'voigt' line of zero width, the default); counted and Poisson budgets. The
+plasma sources, which build on :class:`SourceGeneric`, are in
+``sources/plasma.py``. Gaussian boxes, the other angular and wavelength
+distributions, bulk velocity of a generic source, Focused sources and
+source filters raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
