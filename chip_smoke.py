@@ -33,11 +33,31 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     eager engine at 2^22, K4 and K1-plasma against their twins;
 17. the torus golden (``tests/golden/torus_reference_image.npz``) on both
     engines with the statistical test of
-    ``tests/test_reference_parity_families.py``.
+    ``tests/test_reference_parity_families.py``;
+18. K1's cylinder stage against its twin (2^20 rays, both RNG modes), then
+    a cylindrical crystal through ``raytrace`` on both engines;
+19. K5f and K5b with the torus, cylinder and plasma stages against their
+    float32 and float64 twins on ``tests/test_fused_grad.py``'s variants
+    (toroidal crystal, convex toroidal mirror, cylindrical crystal, convex
+    cylindrical mirror, cubic plasma) at 2^20 rays, both RNG modes;
+20. example 07 as written (``examples/example_07_fused_gradients.py``):
+    sign descent on its toroidal crystal, and on its cylindrical twin;
+21. example 08 as written (``examples/example_08_plasma_fitting.py``):
+    200 Adam steps on (log E, log T); d/dE against a finite difference of
+    K5f, d/dT against the eager engine's autograd;
+22. gradient timings at full width: example 07's chain, its cylindrical
+    twin and a cubic plasma, 2^22 rays x 4 iterations each.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
 the summary. It needs one CUDA device and no network.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+same work at the timed call's inputs: the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its float32
+operations over 67 TFLOP/s. Operations are counted per ray and stage in
+``OPS_PER_RAY`` from ``xicsrt_tpu_torch/csrc``; K5b's work is one forward
+and one adjoint per ray, not the kernel's recomputation.
 """
 
 from __future__ import annotations
@@ -56,6 +76,78 @@ import torch
 # aperture -> crystal -> detector); a physics figure, not a speed.
 REFERENCE_EFFICIENCY = 0.01334
 FLAGSHIP_IMAGES = ((100, 100, 0.002), (100, 50, 0.004))
+
+
+# Float32 operations per ray of each stage, counted from the device code
+# of xicsrt_tpu_torch/csrc: each add, multiply, division, square root,
+# comparison, select and math-library call is one operation; the Philox
+# draws' integer operations and the images' atomics are not counted.
+OPS_PER_RAY = {
+    "source": {0: 26, 1: 55},          # point source by cone kind
+    "plasma_k1": 105, "plasma_k5": 125,
+    "shape_k1": {0: 22, 1: 39, 2: 327, 3: 93},   # hit, position, normal
+    "shape_k5": {0: 22, 1: 45, 2: 366, 3: 98},
+    "bounds": 17, "aperture": 8,
+    "crystal_mc": 32, "crystal_weight": 38, "mirror": 14,
+    "image_nearest": 10, "image_bilinear": 24,
+    # K5b, per optic: seeds, reflection, local coordinates and slot sums;
+    # the crystal; the shape's normal and hit.
+    "adjoint": 141, "adjoint_crystal": 41,
+    "adjoint_shape": {0: 53, 1: 98, 2: 175, 3: 150},
+    "adjoint_plasma": 12,
+}
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def optic_structs(ip) -> list:
+    """(shape, interact, apertures, imaged) of each optic of a packed ip."""
+    ip = [int(x) for x in ip.tolist()]
+    return [(ip[8 + 16 * e], ip[8 + 16 * e + 2], ip[8 + 16 * e + 5],
+             ip[8 + 16 * e + 7] >= 0) for e in range(ip[0])]
+
+
+def k1_ops(fparams) -> int:
+    """K1's float32 operations per ray (Bernoulli crystals, nearest images)."""
+    ip = fparams.ip
+    ops = (OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1
+           else OPS_PER_RAY["source"][int(ip[2])])
+    for shape, interact, n_ap, imaged in optic_structs(ip):
+        ops += (OPS_PER_RAY["shape_k1"][shape] + OPS_PER_RAY["bounds"]
+                + n_ap * OPS_PER_RAY["aperture"]
+                + (OPS_PER_RAY["crystal_mc"] if interact == 1 else 0)
+                + (OPS_PER_RAY["image_nearest"] if imaged else 0))
+    return ops
+
+
+def k5_ops(static, backward: bool) -> int:
+    """K5f's (or K5b's: forward plus adjoint) float32 operations per ray."""
+    ip = static.ip
+    plasma = int(ip[5]) == 2
+    ops = OPS_PER_RAY["plasma_k5"] if plasma else OPS_PER_RAY["source"][int(ip[2])]
+    if backward and plasma:
+        ops += OPS_PER_RAY["adjoint_plasma"]
+    for shape, interact, n_ap, imaged in optic_structs(ip):
+        ops += (OPS_PER_RAY["shape_k5"][shape] + OPS_PER_RAY["bounds"]
+                + n_ap * OPS_PER_RAY["aperture"]
+                + {0: 0, 1: OPS_PER_RAY["crystal_weight"], 2: OPS_PER_RAY["mirror"]}[interact]
+                + (OPS_PER_RAY["image_bilinear"] if imaged else 0))
+        if backward:
+            ops += (OPS_PER_RAY["adjoint"] + OPS_PER_RAY["adjoint_shape"][shape]
+                    + (OPS_PER_RAY["adjoint_crystal"] if interact == 1 else 0))
+    return ops
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the card's peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packed_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(msg: str) -> None:
@@ -437,11 +529,11 @@ def gradient_phases(smi, fg, engine) -> dict:
     g_fused, g_eager = spacing_gradients(fg, make_differentiable, engine)
     mf, sf = g_fused.mean(), g_fused.std(ddof=1) / 2.0
     mx, sx = g_eager.mean(), g_eager.std(ddof=1) / 2.0
-    bound = 6 * math.sqrt(sf**2 + sx**2) + 0.02 * abs(mx)
+    limit = 6 * math.sqrt(sf**2 + sx**2) + 0.02 * abs(mx)
     log(f"phase 11 d(detector)/d(spacing): K5b {mf:.6g} +- {sf:.3g}, eager "
         f"autograd {mx:.6g} +- {sx:.3g} (4 seeds each; |diff| "
-        f"{abs(mf - mx):.3g} < {bound:.3g} required, and |K5b| > 5 sigma)")
-    if not (abs(mf) > 5 * sf and abs(mf - mx) < bound):
+        f"{abs(mf - mx):.3g} < {limit:.3g} required, and |K5b| > 5 sigma)")
+    if not (abs(mf) > 5 * sf and abs(mf - mx) < limit):
         raise AssertionError("eager and fused spacing gradients disagree")
 
     # Phase 12: gradient timings.
@@ -460,6 +552,9 @@ def gradient_phases(smi, fg, engine) -> dict:
     step_ms = cuda_ms(lambda: vjp(pvec0, 3, forward(pvec0, 3)["image"]), 5)
     eager_fn, eager_pipe = make_differentiable(grad_flagship(n, 1), device="cuda")
     eager_step_ms = cuda_ms(lambda: eager_step(eager_fn, eager_pipe), 3)
+    k5_bytes = packed_bytes(st22.fp, st22.ip, pv22) + st22.img_total * 4
+    k5f_bound = bound(k5_bytes, k5_ops(st22, False) * n)
+    k5b_bound = bound(k5_bytes + pv22.numel() * 4, k5_ops(st22, True) * n)
     log(f"phase 12 timings on {smi}: K5f {k5f_ms:.4f} ms vs twin {k5f_plain_ms:.4f} ms; "
         f"K5b {k5b_ms:.4f} ms vs twin {k5b_plain_ms:.4f} ms (2^22 flagship rays, "
         f"Philox); fused forward+vjp step {2**24 / step_ms * 1e3:.4g} rays/s "
@@ -469,21 +564,22 @@ def gradient_phases(smi, fg, engine) -> dict:
     return {"k5f_launches": k5f_launches, "k5b_launches": k5b_launches,
             "k5f_err": k5f_err, "k5b_err": k5b_err, "k5f_ms": k5f_ms,
             "k5f_plain_ms": k5f_plain_ms, "k5b_ms": k5b_ms,
-            "k5b_plain_ms": k5b_plain_ms}
+            "k5b_plain_ms": k5b_plain_ms, "k5f_bound": k5f_bound,
+            "k5b_bound": k5b_bound}
 
 
 # ---------------------------------------------------------------------------
 # Phases 13-17: the plasma spectrometer (example 03), K4 and K1-plasma.
 # ---------------------------------------------------------------------------
 
-def example03_config():
-    """``config`` of examples/example_03_plasma_spectrometer.py, read from
-    the file as written (the script itself runs the JAX package)."""
+def example_config(filename: str):
+    """``config`` of examples/<filename>, read from the file as written
+    (the example itself runs the JAX package)."""
     import ast
     import os
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
-                        "example_03_plasma_spectrometer.py")
+                        filename)
     for node in ast.parse(open(path).read()).body:
         if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "config"
                                                 for t in node.targets):
@@ -491,22 +587,28 @@ def example03_config():
     raise AssertionError(f"no config in {path}")
 
 
-def plasma_config(intensity, num_iter, bundle_count=1000, **general):
-    """``tools/bench_scenarios.py``'s ``plasma_torus`` (``plasma_100k`` with
-    1e5 bundles): the expected photon count per iteration is
-    ``intensity``. Only the two config builders are read from that file,
-    with ``ast``: the script itself runs the JAX package."""
+def repo_function(relpath: str, name: str, *helpers: str):
+    """Function ``name`` of another file of the repository (with the
+    functions it calls, ``helpers``), read with ``ast`` so that nothing that
+    file imports (JAX) is imported."""
     import ast
     import os
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "bench_scenarios.py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
     defs = [node for node in ast.parse(open(path).read()).body
-            if isinstance(node, ast.FunctionDef)
-            and node.name in ("_crystal", "_plasma_config")]
+            if isinstance(node, ast.FunctionDef) and node.name in (name, *helpers)]
     namespace = {"np": np}
     exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), namespace)
-    cfg = namespace["_plasma_config"](intensity, num_iter, bundle_count=bundle_count)
+    return namespace[name]
+
+
+def plasma_config(intensity, num_iter, bundle_count=1000, **general):
+    """``tools/bench_scenarios.py``'s ``plasma_torus`` (``plasma_100k`` with
+    1e5 bundles): the expected photon count per iteration is
+    ``intensity``. Only the two config functions are read from that file:
+    the script itself runs the JAX package."""
+    make_config = repo_function("tools/bench_scenarios.py", "_plasma_config", "_crystal")
+    cfg = make_config(intensity, num_iter, bundle_count=bundle_count)
     cfg["general"].update(general)
     return cfg
 
@@ -713,7 +815,7 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
 
     # Phase 15: example 03 as written (eager, full history), counters read
     # around the run; then the same config on the fused engine.
-    cfg = example03_config()
+    cfg = example_config("example_03_plasma_spectrometer.py")
     bg.interval_gather_cuda.launches = 0
     ft.fused_run_cuda.launches = 0
     eager = raytrace(copy.deepcopy(cfg), device="cuda")
@@ -765,6 +867,10 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
     cum, table = bundles[0][0], bundles[1][0]
     k4_ms = cuda_ms(lambda: bg.interval_gather_cuda(cum, table, n), 20)
     k4_plain_ms = cuda_ms(lambda: bg.interval_gather_plain(cum, table, n), 5)
+    k1p_bound = bound(packed_bytes(fparams.fp, fparams.ip, bundles[0], bundles[1])
+                      + fparams.img_total * 4 + 8 * (1 + fparams.n_optics),
+                      k1_ops(fparams) * n)
+    k4_bound = bound(packed_bytes(cum, table) + n * 32, 0)
     log(f"phase 16 timings on {smi}: K1 plasma+torus {k1p_ms:.4f} ms vs twin "
         f"{k1p_plain_ms:.4f} ms ({n} ray slots, 1000 bundles, Philox); K4 "
         f"{k4_ms:.4f} ms vs twin {k4_plain_ms:.4f} ms (the same rays and tables)")
@@ -779,7 +885,355 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
     return {"k4_launches": k4_launches, "k4_err": k4_err, "k4_ms": k4_ms,
             "k4_plain_ms": k4_plain_ms,
             "k1p_launches": k1p_launches, "k1p_err": k1p_err, "k1p_ms": k1p_ms,
-            "k1p_plain_ms": k1p_plain_ms}
+            "k1p_plain_ms": k1p_plain_ms, "k1p_bound": k1p_bound,
+            "k4_bound": k4_bound}
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-22: the cylinder in K1, and K5f/K5b with curved optics and a
+# plasma (examples 07 and 08).
+# ---------------------------------------------------------------------------
+
+GRAD_VARIANTS = ("torus_crystal", "convex_torus_mirror", "cylinder_crystal",
+                 "convex_cylinder_mirror", "plasma_cubic")
+
+
+def variant_config(kind):
+    """``tests/test_fused_grad.py::_variant_config``."""
+    return repo_function("tests/test_fused_grad.py", "_variant_config")(kind)
+
+
+def grad_variant(kind, n, num_iter=1):
+    """A variant in the gradient path's modes with ``n`` rays per iteration
+    (a plasma's emissivity scaled to n expected photons; the variant holds
+    1534.6)."""
+    cfg = variant_config(kind)
+    cfg["general"].update(interact_mode="weight", image_mode="bilinear",
+                          number_of_iter=num_iter)
+    if "plasma" in cfg["sources"]:
+        # max_rays bounds the eager engine's Poisson budget, which this
+        # path does not trace.
+        cfg["sources"]["plasma"].update(
+            emissivity=cfg["sources"]["plasma"]["emissivity"] * n / 1534.6,
+            max_rays=8 * n)
+    else:
+        cfg["sources"]["source"]["intensity"] = n
+    return cfg
+
+
+def cylinder_config(intensity, num_iter, engine_kind):
+    """``tests/test_fused_grad.py``'s cylindrical crystal in mc mode."""
+    cfg = variant_config("cylinder_crystal")
+    cfg["general"].update(engine=engine_kind, number_of_iter=num_iter,
+                          interact_mode="mc", image_mode="nearest")
+    cfg["sources"]["source"]["intensity"] = intensity
+    return cfg
+
+
+def phase_k1_cylinder(smi, ft, engine, raytrace) -> dict:
+    """K1's cylinder stage: kernel against twin, then a cylindrical crystal
+    through raytrace on both engines (counters read around the fused run),
+    then the kernel's time."""
+    n = 1 << 20
+    pipe = engine.Pipeline(cylinder_config(n, 1, "fused"), device="cuda")
+    src = ft._source_spec(pipe.source)
+    optics = [ft._optic_spec(o) for o in pipe.optics]
+    fparams = ft.pack_params(src, optics, pipe.params, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+    tol = max(2, int(1e-6 * n))
+    worst = 0.0
+    for label, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (181, 18)})):
+        ck, ik = ft.fused_run_cuda(fparams, n, n, **kwargs)
+        cp, iq = ft.fused_run_plain(fparams, n, n, **kwargs)
+        torch.cuda.synchronize()
+        dc, di = (ck - cp).abs(), (ik - iq).abs()
+        log(f"phase 18 K1 cylinder rng={label}: kernel counts {ck.tolist()}, twin "
+            f"{cp.tolist()}; image L1 diff {di.sum().item():.0f} (tolerance {tol} "
+            f"rays per element)")
+        if dc.max().item() > tol or di.sum().item() > 2 * tol * len(optics):
+            raise AssertionError(f"K1 cylinder differs from its twin (rng={label})")
+        if cp[-1].item() <= 0:
+            raise AssertionError("phase 18: no detector hits")
+        worst = max(worst, float(dc.max().item()), float(di.max().item()))
+
+    ft.fused_run_cuda.launches = 0
+    fused = raytrace(cylinder_config(1 << 22, 4, "fused"), device="cuda")
+    launches = ft.fused_run_cuda.launches
+    if launches <= 0:
+        raise AssertionError("the cylinder on the fused engine did not launch K1")
+    eager = raytrace(cylinder_config(1 << 20, 4, "xla"), device="cuda")
+    metas = [{k: v["num_out"] for k, v in r["total"]["meta"].items()} for r in (fused, eager)]
+    for meta, res in zip(metas, (fused, eager)):
+        for name, img in res["total"]["image"].items():
+            if not (np.isfinite(img).all() and int(img.sum()) == meta[name]):
+                raise AssertionError(f"phase 18: image {name} does not sum to its count")
+    p = [m["detector"] / m["source"] for m in metas]
+    pooled = sum(m["detector"] for m in metas) / sum(m["source"] for m in metas)
+    sigma = math.sqrt(pooled * (1 - pooled) * sum(1 / m["source"] for m in metas))
+    log(f"phase 18 cylindrical crystal through raytrace: fused {metas[0]}, eager "
+        f"{metas[1]}; efficiency {p[0]:.6g} vs {p[1]:.6g}, {abs(p[0] - p[1]) / sigma:.2f} "
+        f"binomial sigma (< 5); K1 launches {launches}")
+    if abs(p[0] - p[1]) > 5 * sigma or metas[0]["detector"] <= 0:
+        raise AssertionError("phase 18: the engines disagree on the cylinder")
+
+    n = 1 << 22
+    pipe = engine.Pipeline(cylinder_config(n, 1, "fused"), device="cuda")
+    fparams = ft.pack_params(src, optics, pipe.params, "cuda")
+    ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
+    plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 3)
+    k1c_bound = bound(packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
+                      + 8 * (1 + fparams.n_optics), k1_ops(fparams) * n)
+    log(f"phase 18 timings on {smi}: K1 cylinder {ms:.4f} ms vs twin {plain_ms:.4f} ms "
+        f"(2^22 rays, Philox); bound {k1c_bound[0]:.4f} ms ({k1c_bound[1]})")
+    return {"launches": launches, "err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound": k1c_bound}
+
+
+def phase_k5_variants(fg, engine) -> tuple:
+    """K5f and K5b against their float32 twins (the bounds of phases 8-9)
+    and K5b against the float64 twin, on each variant, both RNG modes.
+    Returns the largest |K5f - twin| pixel and |K5b - f32 twin| slot."""
+    worst_f = worst_b = 0.0
+    n = 1 << 20
+    for kind in GRAD_VARIANTS:
+        pipe = engine.Pipeline(grad_variant(kind, n), device="cuda")
+        _, _, pack, spec = fg.build_fused_diff(pipe)
+        static, lam, n_total = spec["static"], spec["lam"], spec["n_total"]
+        pvec = pack(pipe.params).detach()
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        uniforms = torch.rand((static.n_draws, n_total), generator=gen, device="cuda")
+        g = torch.randn(static.img_total, generator=gen, device="cuda")
+        for label, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (1919, 7)})):
+            k = fg.fused_grad_forward_cuda(static, pvec, n_total, lam, **kwargs)
+            t = fg.fused_grad_forward_plain(static, pvec, n_total, lam, chunk=1 << 18,
+                                            **kwargs)
+            torch.cuda.synchronize()
+            rel_total = abs(k.sum().item() - t.sum().item()) / t.sum().item()
+            pix = (k - t).abs().max().item() / t.abs().max().item()
+            worst_f = max(worst_f, (k - t).abs().max().item())
+            kb = fg.fused_grad_vjp_cuda(static, pvec, n_total, lam, g, **kwargs).double().cpu()
+            wb = fg.fused_grad_vjp_plain(static, pvec, n_total, lam, g, chunk=1 << 18,
+                                         **kwargs).double().cpu()
+            tb = fg.fused_grad_vjp_plain(static, pvec.double(), n_total, lam, g.double(),
+                                         chunk=1 << 18, **kwargs).cpu()
+            scale32, scale = wb.abs().max().item(), tb.abs().max().item()
+            used32 = ((kb - wb).abs() / (1e-3 * wb.abs() + 1e-5 * scale32)).max().item()
+            used = ((kb - tb).abs() / (2e-2 * tb.abs() + 5e-3 * scale))
+            # On a convex mirror a ray on a pixel boundary within float32
+            # rounding flips its tent slope, in the mirror's origin-x slot
+            # (tests/test_torch_fused_grad.py); that slot is reported.
+            slot0 = f"{kb[0].item():.6g} vs f64 {tb[0].item():.6g}"
+            if "mirror" in kind:
+                used[0] = 0.0
+            used = used.max().item()
+            worst_b = max(worst_b, (kb - wb).abs().max().item())
+            log(f"phase 19 {kind} rng={label} ({n_total} rays): K5f total rel "
+                f"{rel_total:.3g} (< 1e-4), pixel {pix:.3g} of the maximum (< 1e-3); "
+                f"K5b uses {used32:.3g} of the f32-twin bound (rtol 1e-3, atol 1e-5 "
+                f"scale) and {used:.3g} of the f64 bound (rtol 2e-2, atol 5e-3 scale); "
+                f"slot 0 {slot0}")
+            if not (rel_total < 1e-4 and pix < 1e-3):
+                raise AssertionError(f"K5f differs from its twin on {kind} ({label})")
+            if used32 > 1.0 or used > 1.0:
+                raise AssertionError(f"K5b differs from its twins on {kind} ({label}): "
+                                     f"{(kb - wb).tolist()} / {(kb - tb).tolist()}")
+            if kind == "plasma_cubic":
+                b = len(pipe.optics) * fg.SLOTS_PER_OPTIC
+                if not (tb[b] != 0 and tb[b + 1] != 0):
+                    raise AssertionError("phase 19: no emissivity or temperature gradient")
+    return worst_f, worst_b
+
+
+def sign_descent_example07(forward, vjp, pack, pipeline, fg):
+    """Example 07's main() on the port: the target at the true parameters,
+    a perturbed d-spacing, 14 sign steps of a shrinking size. Returns the
+    errors and the unpacked gradient at the perturbed start."""
+    pvec_true = pack(pipeline.params).detach()
+    target = forward(pvec_true, 7)["image"]
+    slot = fg.SLOTS_PER_OPTIC * 0 + 13
+    d_true = float(pvec_true[slot])
+    pvec = pvec_true.clone()
+    pvec[slot] = d_true * (1 + 2e-4)
+    errs = [abs(float(pvec[slot]) - d_true)]
+    step, gvec0 = 2.5e-4, None
+    for _ in range(14):
+        out = forward(pvec, 7)["image"]
+        gvec = vjp(pvec, 7, {k: out[k] - target[k] for k in out})
+        gvec0 = gvec if gvec0 is None else gvec0
+        pvec[slot] -= step * float(torch.sign(gvec[slot]))
+        step *= 0.6
+        errs.append(abs(float(pvec[slot]) - d_true))
+    return errs, fg.unpack_grads(pipeline, gvec0)
+
+
+def phase_example07(fg, make_fused_differentiable):
+    cfg = example_config("example_07_fused_gradients.py")
+    for label, config in (("torus", cfg), ("cylinder twin", cylindrical(cfg))):
+        t0 = time.perf_counter()
+        errs, grads = sign_descent_example07(
+            *make_fused_differentiable(config, device="cuda"), fg)
+        crystal = grads["crystal"]
+        log(f"phase 20 example 07 ({label}, {time.perf_counter() - t0:.2f} s): "
+            f"d-spacing error {errs[0]:.3g} -> {errs[-1]:.3g} (< {0.2 * errs[0]:.3g}); "
+            f"d(loss)/d(radius) {crystal['radius']:.6g}, d(loss)/d(radius_minor) "
+            f"{crystal['radius_minor']:.6g}, d(loss)/d(origin) {crystal['origin']}")
+        if not errs[-1] < 0.2 * errs[0]:
+            raise AssertionError(f"example 07 ({label}) did not recover the spacing: {errs}")
+        if crystal["radius"] == 0.0 or (label == "torus" and crystal["radius_minor"] == 0.0):
+            raise AssertionError(f"example 07 ({label}): zero radius gradients")
+
+
+def cylindrical(cfg):
+    """Example 07's chain with a cylindrical crystal of the torus's major
+    radius."""
+    cfg = copy.deepcopy(cfg)
+    crystal = cfg["optics"]["crystal"]
+    crystal["class_name"] = "XicsrtOpticCylindricalCrystal"
+    crystal["radius"] = crystal.pop("radius_major")
+    del crystal["radius_minor"]
+    return cfg
+
+
+def phase_example08(fg, engine, make_fused_differentiable, make_differentiable):
+    """Example 08's main() on the port, then its gradients: d/dE against a
+    central finite difference of K5f, d/dT against one of K5f and against
+    the eager engine's autograd (tests/test_fused_grad.py:720-817)."""
+    example = repo_function("examples/example_08_plasma_fitting.py", "_config")
+    E_true, T_true = 8.3e20, 2.0e4
+    t0 = time.perf_counter()
+    forward, vjp, pack, pipeline = make_fused_differentiable(
+        example(E_true, T_true), chunk=8192, device="cuda")
+    pvec_true = pack(pipeline.params).detach()
+    b = len(pipeline.optics) * fg.SLOTS_PER_OPTIC
+    target = forward(pvec_true, 3)["image"]["detector"]
+    pvec = pvec_true.clone()
+    pvec[b] *= 0.6
+    pvec[b + 1] *= 0.5
+    m, v = np.zeros(2), np.zeros(2)
+    lr, b1, b2 = 0.08, 0.9, 0.999
+    for step in range(200):
+        out = forward(pvec, 3)["image"]
+        g_img = {k: out[k] - target if k == "detector" else torch.zeros_like(out[k])
+                 for k in out}
+        gvec = vjp(pvec, 3, g_img).double().cpu().numpy()
+        theta = np.log(pvec[b:b + 2].double().cpu().numpy())
+        grad = gvec[b:b + 2] * np.exp(theta)
+        m = b1 * m + (1 - b1) * grad
+        v = b2 * v + (1 - b2) * grad * grad
+        mh, vh = m / (1 - b1 ** (step + 1)), v / (1 - b2 ** (step + 1))
+        theta = theta - lr * mh / (np.sqrt(vh) + 1e-12)
+        pvec[b:b + 2] = torch.from_numpy(np.exp(theta)).float().to("cuda")
+    E_fit, T_fit = float(pvec[b]), float(pvec[b + 1])
+    log(f"phase 21 example 08 ({int(fg.build_fused_diff(pipeline)[3]['n_total'])} "
+        f"rays, 200 Adam steps, "
+        f"{time.perf_counter() - t0:.2f} s): E {E_fit:.4e} ({abs(E_fit / E_true - 1) * 100:.2f} "
+        f"% off, < 5 %), T {T_fit:.1f} ({abs(T_fit / T_true - 1) * 100:.2f} % off, < 15 %)")
+    if not (abs(E_fit / E_true - 1) < 0.05 and abs(T_fit / T_true - 1) < 0.15):
+        raise AssertionError("example 08 did not recover E and T")
+
+    # The gradients on a second-moment loss of the detector image.
+    img0 = forward(pvec_true, 4)["image"]
+    prof = img0["detector"].sum(dim=1).double().cpu().numpy()
+    cx = (np.arange(len(prof)) * prof).sum() / max(prof.sum(), 1e-9)
+    nx, ny = img0["detector"].shape
+    g_det = torch.from_numpy(np.broadcast_to(((np.arange(nx) - cx) ** 2)[:, None],
+                                             (nx, ny)).astype(np.float32).copy()).cuda()
+    gs = {"crystal": torch.zeros_like(img0["crystal"]), "detector": g_det}
+    gv = vjp(pvec_true, 4, gs).double().cpu().numpy()
+
+    def loss_at(k, scale):
+        pv = pvec_true.clone()
+        pv[k] *= scale
+        return float((forward(pv, 4)["image"]["detector"].double() * g_det.double()).sum())
+
+    E0, T0 = float(pvec_true[b]), float(pvec_true[b + 1])
+    fd_E = (loss_at(b, 1.05) - loss_at(b, 0.95)) / (0.1 * E0)
+    fd_T = (loss_at(b + 1, 1.02) - loss_at(b + 1, 0.98)) / (0.04 * T0)
+    xconfig = example(E_true, T_true)
+    xconfig["general"]["dtype"] = "float64"
+    image_fn, pipe64 = make_differentiable(xconfig, device="cuda")
+    g_x = []
+    for k in range(6):
+        T = pipe64.params["sources"]["plasma"]["temperature"].clone().requires_grad_(True)
+        params = dict(pipe64.params)
+        params["sources"] = {"plasma": dict(params["sources"]["plasma"], temperature=T)}
+        img = image_fn(params, torch.Generator(device="cuda").manual_seed(100 + k))
+        (img["detector"] * g_det.double()).sum().backward()
+        g_x.append(float(T.grad))
+    g_f = np.array([float(vjp(pvec_true, 200 + k, gs)[b + 1]) for k in range(6)])
+    mf, sf = g_f.mean(), g_f.std(ddof=1) / math.sqrt(6)
+    mx, sx = float(np.mean(g_x)), float(np.std(g_x, ddof=1)) / math.sqrt(6)
+    log(f"phase 21 example 08 gradients: d/dE K5b {gv[b]:.6g} vs finite difference "
+        f"{fd_E:.6g} ({abs(gv[b] / fd_E - 1) * 100:.3f} % off, < 2 %); d/dT K5b "
+        f"{gv[b + 1]:.6g} vs finite difference {fd_T:.6g} ({abs(gv[b + 1] / fd_T - 1) * 100:.2f} "
+        f"% off, < 15 %); d/dT over 6 seeds: K5b {mf:.6g} +- {sf:.3g}, eager autograd "
+        f"(float64) {mx:.6g} +- {sx:.3g}")
+    if abs(gv[b] - fd_E) > 2e-2 * abs(fd_E):
+        raise AssertionError("example 08: d/dE disagrees with the finite difference")
+    if abs(gv[b + 1] - fd_T) > 0.15 * abs(fd_T):
+        raise AssertionError("example 08: d/dT disagrees with the finite difference")
+    if not (abs(mf) > 3 * sf and abs(mf - mx) < 6 * math.sqrt(sf**2 + sx**2) + 0.05 * abs(mx)):
+        raise AssertionError("example 08: K5b and eager d/dT disagree")
+
+
+def grad_timing_configs():
+    """Example 07's chain at 2^22 rays (tools/bench_fused_grad.py
+    ``torus``), its cylindrical twin, and ``plasma_cubic`` at 2^22 expected
+    photons, each of 4 iterations."""
+    torus = repo_function("tools/bench_fused_grad.py", "_config")("torus")
+    torus["general"]["number_of_iter"] = 4
+    return {"torus": torus, "cylinder": cylindrical(torus),
+            "plasma_cubic": grad_variant("plasma_cubic", 1 << 22, num_iter=4)}
+
+
+def phase_grad_timings(smi, fg, engine, make_fused_differentiable) -> dict:
+    out = {}
+    for label, cfg in grad_timing_configs().items():
+        forward, vjp, pack, pipe = make_fused_differentiable(cfg, device="cuda")
+        pvec = pack(pipe.params).detach()
+        n_total = fg.build_fused_diff(pipe)[3]["n_total"]
+        step_ms = cuda_ms(lambda: vjp(pvec, 3, forward(pvec, 3)["image"]), 5)
+        _, _, _, spec = fg.build_fused_diff(pipe, num_iter=1)
+        st, lam, n = spec["static"], spec["lam"], spec["n_total"]
+        g = torch.randn(st.img_total, device="cuda")
+        f_ms = cuda_ms(lambda: fg.fused_grad_forward_cuda(st, pvec, n, lam, seed=(1, 2)), 20)
+        f_plain = cuda_ms(lambda: fg.fused_grad_forward_plain(st, pvec, n, lam, seed=(1, 2),
+                                                              chunk=n), 3)
+        b_ms = cuda_ms(lambda: fg.fused_grad_vjp_cuda(st, pvec, n, lam, g, seed=(1, 2)), 20)
+        b_plain = cuda_ms(lambda: fg.fused_grad_vjp_plain(st, pvec, n, lam, g, seed=(1, 2),
+                                                          chunk=n), 3)
+        k5_bytes = packed_bytes(st.fp, st.ip, pvec) + st.img_total * 4
+        f_bound = bound(k5_bytes, k5_ops(st, False) * n)
+        b_bound = bound(k5_bytes + pvec.numel() * 4, k5_ops(st, True) * n)
+        log(f"phase 22 {label} on {smi}: forward+vjp step {n_total / step_ms * 1e3:.4g} "
+            f"rays/s ({step_ms:.3f} ms for {n_total} rays); per {n} rays K5f {f_ms:.4f} ms "
+            f"(twin {f_plain:.3f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]}), K5b "
+            f"{b_ms:.4f} ms (twin {b_plain:.3f} ms, bound {b_bound[0]:.4f} ms by "
+            f"{b_bound[1]})")
+        out[label] = {"step_ms": step_ms, "f_ms": f_ms, "f_plain": f_plain, "b_ms": b_ms,
+                      "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
+    return out
+
+
+def curved_phases(smi, ft, fg, engine, raytrace) -> dict:
+    """Phases 18-22; returns the K1-cylinder and new K5 rows' results."""
+    from xicsrt_tpu_torch.gradients import make_differentiable, make_fused_differentiable
+
+    k1c = phase_k1_cylinder(smi, ft, engine, raytrace)
+    k5f_err, k5b_err = phase_k5_variants(fg, engine)
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    phase_example07(fg, make_fused_differentiable)
+    phase_example08(fg, engine, make_fused_differentiable, make_differentiable)
+    launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    log(f"phases 20-21: K5f launches {launches[0]}, K5b {launches[1]}")
+    if min(launches) <= 0:
+        raise AssertionError("examples 07 and 08 did not launch K5f and K5b")
+    timings = phase_grad_timings(smi, fg, engine, make_fused_differentiable)
+    return {"k1c": k1c, "k5f_err": k5f_err, "k5b_err": k5b_err,
+            "k5f_launches": launches[0], "k5b_launches": launches[1],
+            "timings": timings}
 
 
 def main() -> int:
@@ -853,11 +1307,20 @@ def main() -> int:
     ones = torch.ones(n, device="cuda")
     k2_ms = cuda_ms(lambda: bin_image_cuda(xl, mask, ones, nx, ny, ps), 20)
     k2_plain_ms = cuda_ms(lambda: bin_image_plain(xl, mask, ones, nx, ny, ps), 20)
+    fx = torch.round(xl[:, 0] / ps + (nx - 1) / 2.0).long()
+    fy = torch.round(xl[:, 1] / ps + (ny - 1) / 2.0).long()
+    ok = mask & (fx >= 0) & (fx < nx) & (fy >= 0) & (fy < ny)
+    index, weights = fx[ok] * ny + fy[ok], ones[ok]
+    k2_library_ms = cuda_ms(lambda: torch.bincount(index, weights, minlength=nx * ny), 20)
+    k2_bound = bound(n * (12 + 1 + 4) + nx * ny * 4, 10 * n)
+    k1_bound = bound(packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
+                     + 8 * (1 + fparams.n_optics), k1_ops(fparams) * n)
     k1_ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
     k1_plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 5)
     fused_ms = cuda_ms(lambda: xicsrt_tpu_torch.raytrace(fused_cfg, device="cuda"), 3)
     eager_ms = cuda_ms(lambda: xicsrt_tpu_torch.raytrace(eager_cfg, device="cuda"), 3)
     log(f"phase 7 timings on {smi}: K2 {k2_ms:.4f} ms vs twin {k2_plain_ms:.4f} ms "
+        f"and torch.bincount on precomputed indices {k2_library_ms:.4f} ms "
         f"(2^22 rays, 100x100); K1a {k1_ms:.4f} ms vs twin {k1_plain_ms:.4f} ms "
         f"(2^22 flagship rays, Philox); raytrace fused {budget / fused_ms * 1e3:.4g} "
         f"rays/s ({fused_ms:.2f} ms for {budget} rays); raytrace eager+K2 "
@@ -865,38 +1328,47 @@ def main() -> int:
 
     grad = gradient_phases(smi, fg, engine)
     plasma = plasma_phases(smi, ft, bg, engine, xicsrt_tpu_torch.raytrace)
+    curved = curved_phases(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace)
+    torus = curved["timings"]["torus"]
 
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound_, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": library_ms}
+
+    trace_cu = "xicsrt_tpu_torch/csrc/fused_trace.cu"
+    grad_cu = "xicsrt_tpu_torch/csrc/fused_grad.cu"
     kernels = [
-        {"name": "fused_run_cuda (K1a)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/fused_trace.cu",
-         "replaces": "xicsrt_tpu/ops/fused_trace.py:1343",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "bin_image_cuda (K2)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/bin_image.cu",
-         "replaces": "xicsrt_tpu/ops/pallas_binning.py:31",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "fused_grad_forward_cuda (K5f)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/fused_grad.cu",
-         "replaces": "xicsrt_tpu/ops/fused_grad.py:1906",
-         "launches": grad["k5f_launches"], "max_abs_err": grad["k5f_err"],
-         "ms": grad["k5f_ms"], "plain_ms": grad["k5f_plain_ms"]},
-        {"name": "fused_grad_vjp_cuda (K5b)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/fused_grad.cu",
-         "replaces": "xicsrt_tpu/ops/fused_grad.py:1921",
-         "launches": grad["k5b_launches"], "max_abs_err": grad["k5b_err"],
-         "ms": grad["k5b_ms"], "plain_ms": grad["k5b_plain_ms"]},
-        {"name": "interval_gather_cuda (K4)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/bundle_gather.cu",
-         "replaces": "xicsrt_tpu/ops/bundle_gather.py:80",
-         "launches": plasma["k4_launches"], "max_abs_err": plasma["k4_err"],
-         "ms": plasma["k4_ms"], "plain_ms": plasma["k4_plain_ms"]},
-        {"name": "fused_run_cuda plasma+torus (K1f, K1c-torus)", "route": "cuda",
-         "source": "xicsrt_tpu_torch/csrc/fused_trace.cu",
-         "replaces": "xicsrt_tpu/ops/fused_trace.py:1428 and :616",
-         "launches": plasma["k1p_launches"], "max_abs_err": plasma["k1p_err"],
-         "ms": plasma["k1p_ms"], "plain_ms": plasma["k1p_plain_ms"]},
+        row("fused_run_cuda (K1a)", trace_cu, "xicsrt_tpu/ops/fused_trace.py:1343",
+            k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+        row("bin_image_cuda (K2)", "xicsrt_tpu_torch/csrc/bin_image.cu",
+            "xicsrt_tpu/ops/pallas_binning.py:31", k2_launches, k2_err, k2_ms,
+            k2_plain_ms, k2_bound, k2_library_ms),
+        row("fused_grad_forward_cuda (K5f)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1906",
+            grad["k5f_launches"], grad["k5f_err"], grad["k5f_ms"], grad["k5f_plain_ms"],
+            grad["k5f_bound"]),
+        row("fused_grad_vjp_cuda (K5b)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1921",
+            grad["k5b_launches"], grad["k5b_err"], grad["k5b_ms"], grad["k5b_plain_ms"],
+            grad["k5b_bound"]),
+        row("interval_gather_cuda (K4)", "xicsrt_tpu_torch/csrc/bundle_gather.cu",
+            "xicsrt_tpu/ops/bundle_gather.py:80", plasma["k4_launches"], plasma["k4_err"],
+            plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"]),
+        row("fused_run_cuda plasma+torus (K1f, K1c-torus)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1428 and :616", plasma["k1p_launches"],
+            plasma["k1p_err"], plasma["k1p_ms"], plasma["k1p_plain_ms"],
+            plasma["k1p_bound"]),
+        row("fused_run_cuda cylinder (K1c-cylinder)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:784 and :903", curved["k1c"]["launches"],
+            curved["k1c"]["err"], curved["k1c"]["ms"], curved["k1c"]["plain_ms"],
+            curved["k1c"]["bound"]),
+        row("fused_grad_forward_cuda torus+cylinder+plasma (K5f: K5c, K5e)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:1727 (pallas_call :1906)",
+            curved["k5f_launches"], curved["k5f_err"], torus["f_ms"], torus["f_plain"],
+            torus["f_bound"]),
+        row("fused_grad_vjp_cuda torus+cylinder+plasma (K5b: K5c, K5e)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:1727 (pallas_call :1921)",
+            curved["k5b_launches"], curved["k5b_err"], torus["b_ms"], torus["b_plain"],
+            torus["b_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

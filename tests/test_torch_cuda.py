@@ -102,6 +102,75 @@ def test_fused_grad_kernels_match_twins(cuda_device):
     assert after == (before[0] + 1, before[1] + 1)
 
 
+def _variant_config(kind):
+    """``tests/test_fused_grad.py::_variant_config``, read from that file
+    with ``ast`` (the file imports JAX; the card's machine has none)."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_fused_grad.py")
+    defs = [node for node in ast.parse(open(path).read()).body
+            if isinstance(node, ast.FunctionDef) and node.name == "_variant_config"]
+    namespace = {"np": np}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), namespace)
+    return namespace["_variant_config"](kind)
+
+
+def _grad_variant(kind, n):
+    """A variant in the gradient path's modes with about ``n`` rays (a
+    plasma's emissivity scaled to n expected photons)."""
+    cfg = _variant_config(kind)
+    cfg["general"].update(interact_mode="weight", image_mode="bilinear")
+    if "plasma" in cfg["sources"]:
+        cfg["sources"]["plasma"]["emissivity"] *= n / 1534.6
+    else:
+        cfg["sources"]["source"]["intensity"] = n
+    return cfg
+
+
+@pytest.mark.parametrize("kind", ["torus_crystal", "convex_torus_mirror",
+                                  "cylinder_crystal", "convex_cylinder_mirror",
+                                  "plasma_cubic"])
+def test_fused_grad_variants_match_twins(cuda_device, kind):
+    """K5f and K5b on curved optics and a plasma, against the float32 twins
+    with test_fused_grad_kernels_match_twins's bounds, under Philox."""
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    pipe = Pipeline(_grad_variant(kind, 1 << 17), device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam, n = spec["static"], spec["lam"], spec["n_total"]
+    pvec = pack(pipe.params).detach()
+    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, seed=(8, 9))
+    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, seed=(8, 9))
+    assert twin.sum().item() > 0
+    assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
+    assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
+    g = torch.randn(static.img_total, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(2))
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(8, 9))
+    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(8, 9))
+    scale = grad_twin.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+
+
+def test_fused_cylinder_kernel_matches_twin(cuda_device):
+    """K1's cylinder stage against its twin, at most TOL_RAYS apart."""
+    cfg = _variant_config("cylinder_crystal")
+    cfg["general"]["engine"] = "fused"
+    cfg["sources"]["source"]["intensity"] = 1 << 18
+    pipe = Pipeline(cfg, device=cuda_device)
+    src = ft._source_spec(pipe.source)
+    optics = [ft._optic_spec(o) for o in pipe.optics]
+    fparams = ft.pack_params(src, optics, pipe.params, cuda_device)
+    n = pipe.num_rays
+    kernel = ft.fused_run_cuda(fparams, n, n, seed=(3, 4))
+    twin = ft.fused_run_plain(fparams, n, n, seed=(3, 4))
+    assert int(twin[0][-1]) > 1000
+    assert (kernel[0] - twin[0]).abs().max().item() <= TOL_RAYS
+    assert (kernel[1] - twin[1]).abs().sum().item() <= 2 * TOL_RAYS * len(optics)
+
+
 def test_remat_on_cuda_draws_the_same_rays(cuda_device):
     """The checkpointed recompute forks the run's CUDA generator."""
     from xicsrt_tpu_torch.gradients import make_differentiable

@@ -164,7 +164,7 @@ def test_not_ported_elements_raise():
     with pytest.raises(NotImplementedError):
         TorchPipeline(cfg, device="cpu")
     cfg = _config()
-    cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticCylindricalCrystal"
+    cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticSphericalMosaicCrystal"
     with pytest.raises(KeyError):
         TorchPipeline(cfg, device="cpu")
     cfg = _config()

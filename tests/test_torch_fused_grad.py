@@ -1,5 +1,8 @@
 """The fused gradient kernels' plain twins (K5f, K5b) against the JAX
-package on the CPU.
+package on the CPU: the flagship chain, a folded variant, and
+``tests/test_fused_grad.py``'s variants with a toroidal crystal, a convex
+toroidal mirror, a cylindrical crystal, a convex cylindrical mirror and a
+cubic plasma.
 
 ``build_fused_diff(pipe, chunk=1024, interpret=True, rng='input')`` runs the
 Pallas kernels through the interpreter on uniforms drawn as
@@ -21,10 +24,16 @@ Tolerances:
   2e-5 of the largest slot. Both do the same float32 arithmetic, but round
   sin, rsqrt and exp apart and sum the slots in other orders; the observed
   worst slot (the crystal's bz_y on the flagship chain: 909.46 against
-  910.27) uses 0.45 of this bound, 0.13 on the folded variant;
-- on the JAX test's chain the float32 adjoint against the float64 truth:
-  rtol 2e-2, atol 5e-3 of the largest slot (per-ray terms cancel heavily in
-  some slots, ``test_fused_grad.py:250-259``);
+  910.27) uses 0.45 of this bound, 0.13 on the folded variant. On a torus
+  the twin finds the root by K1's Newton form (``xrt_torus_root``), not
+  JAX's, and the crystal's cancelling slots move by up to 2.4 % (by_y:
+  -49.01 against JAX's -49.55, float64 -50.21): there the two are held to
+  each other at the JAX bound below;
+- the float32 adjoint against the float64 truth: rtol 2e-2, atol 5e-3 of
+  the largest slot (per-ray terms cancel heavily in some slots,
+  ``test_fused_grad.py:250-259``), on every chain but the folded one, and
+  on the convex mirror variants on every slot but the mirror's origin x
+  (one ray on a pixel boundary, see the test);
 - vjp linear in its cotangent: rtol 1e-5.
 """
 
@@ -34,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_fused_grad import _variant_config
 from xicsrt_tpu.engine import Pipeline as JaxPipeline
 from xicsrt_tpu.ops import fused_grad as FG
 from xicsrt_tpu_torch import params_from_jax
@@ -125,11 +135,24 @@ def _flat(gs, spec, dtype=torch.float32):
                       for n, _, _ in spec["images"]])
 
 
-@pytest.fixture(scope="module", params=["flagship_chain", "variant"])
+# ``tests/test_fused_grad.py``'s variants with curved optics and a plasma.
+VARIANTS = ["torus_crystal", "convex_torus_mirror", "cylinder_crystal",
+            "convex_cylinder_mirror", "plasma_cubic"]
+
+
+def _pair_config(name):
+    if name == "flagship_chain":
+        return _config()
+    if name == "variant":
+        return _variant()
+    return _variant_config(name)
+
+
+@pytest.fixture(scope="module", params=["flagship_chain", "variant", *VARIANTS])
 def pair(request):
     """The JAX interpreted kernels and the port's twins on one config, with
     the uniforms JAX drew, permuted to the port's ray order."""
-    cfg = _config() if request.param == "flagship_chain" else _variant()
+    cfg = _pair_config(request.param)
     jp = JaxPipeline(cfg)
     jforward, jvjp, jpack, jspec = FG.build_fused_diff(
         jp, chunk=1024, interpret=True, rng="input")
@@ -153,8 +176,13 @@ def test_pack_matches_jax(pair):
     # The port's own params pack to the same vector.
     np.testing.assert_array_equal(pair["pack"](pair["tp"].params).numpy(), pvec.numpy())
     grads = fg.unpack_grads(pair["tp"], pvec)
-    np.testing.assert_array_equal(grads["crystal"]["basis"],
-                                  pair["tp"].params["optics"]["crystal"]["frame"].basis)
+    first = pair["tp"].optics[0].name
+    np.testing.assert_array_equal(grads[first]["basis"],
+                                  pair["tp"].params["optics"][first]["frame"].basis)
+    if pair["name"] == "plasma_cubic":
+        p = pair["tp"].params["sources"]["plasma"]
+        assert grads["plasma"] == {"emissivity": float(p["emissivity"]),
+                                   "temperature": float(p["temperature"])}
 
 
 def test_forward_twin_matches_jax_kernel(pair):
@@ -181,13 +209,27 @@ def test_vjp_twin_matches_jax_kernel_and_truth(pair):
                                     uniforms=pair["U"]).numpy()
     scale = np.abs(truth).max()
     assert scale > 0
-    np.testing.assert_allclose(ours, ref, rtol=2e-3, atol=2e-5 * scale)
-    if pair["name"] == "flagship_chain":
+    if "torus" in pair["name"]:
+        # The twin finds the root by K1's Newton form, not JAX's: the two
+        # float32 adjoints are held to each other at the JAX bound below.
+        np.testing.assert_allclose(ours, ref, rtol=2e-2, atol=5e-3 * scale)
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=2e-3, atol=2e-5 * scale)
+    if pair["name"] != "variant":
         # The JAX test's own bound. On the folded variant the float32
         # adjoint of the fold mirror's origin cancels beyond it, in the JAX
         # kernel as in the twin (both -8484 against -10053 in float64),
-        # while the float64 twin equals JAX's float64 autodiff.
-        np.testing.assert_allclose(ours, truth, rtol=2e-2, atol=5e-3 * scale)
+        # while the float64 twin equals JAX's float64 autodiff. On the
+        # convex mirror variants one ray of 1536 sits on a pixel boundary
+        # within float32 rounding, where the tent slope jumps: its term in
+        # the mirror's origin-x slot flips (737.85 against -724.56 on the
+        # cylinder), in the JAX kernel as in the twin, and that slot alone
+        # leaves the bound.
+        keep = np.ones(truth.size, bool)
+        if "mirror" in pair["name"]:
+            keep[0] = False
+        np.testing.assert_allclose(ours[keep], truth[keep], rtol=2e-2,
+                                   atol=5e-3 * scale)
 
 
 def test_hand_adjoint_matches_autograd_float64(pair):
@@ -206,11 +248,18 @@ def test_hand_adjoint_matches_autograd_float64(pair):
     scale = np.abs(auto).max()
     assert scale > 0
     np.testing.assert_allclose(hand, auto, rtol=1e-9, atol=1e-10 * scale)
-    b = fg.SLOTS_PER_OPTIC * [o["name"] for o in spec["optics"]].index("crystal")
+    names = [o["name"] for o in spec["optics"]]
+    b = fg.SLOTS_PER_OPTIC * names.index("crystal" if "crystal" in names else "mirror")
     assert np.abs(auto[b:b + 3]).max() > 0        # origin
     assert np.abs(auto[b + 3:b + 12]).max() > 0   # basis
-    assert abs(auto[b + 12]) > 0                  # radius
-    assert abs(auto[b + 15]) > 0                  # reflectivity
+    assert abs(auto[b + 12]) > 0                  # radius (radius_major)
+    if "crystal" in names:
+        assert abs(auto[b + 15]) > 0              # reflectivity
+    if "torus" in pair["name"]:
+        assert abs(auto[b + 16]) > 0              # radius_minor
+    if pair["name"] == "plasma_cubic":
+        src = fg.SLOTS_PER_OPTIC * len(names)
+        assert abs(auto[src]) > 0 and abs(auto[src + 1]) > 0  # emissivity, temperature
 
 
 def test_vjp_linear_in_cotangent(pair):
@@ -239,14 +288,21 @@ def test_philox_stream_and_slicing():
     assert fg.seed_words((1, 2)) == (1, 2)
 
 
+_PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
+           "xsize": 0.01, "ysize": 0.01, "zsize": 0.01, "spread": np.radians(4.0),
+           "target": [0.0, -3e-4, 0.80374151], "emissivity": 1.26e15,
+           "temperature": 1000.0, "mass_number": 40.0, "bundle_volume": 1e-7,
+           "use_poisson": False}
+
+
 @pytest.mark.parametrize("change", [
-    ("optics", "crystal", {"class_name": "XicsrtOpticToroidalCrystal",
-                           "radius_major": 1.0, "radius_minor": 0.4}),
+    ("sources", "source", dict(_PLASMA, class_name="XicsrtPlasmaToroidal",
+                               major_radius=0.5, minor_radius=0.2)),
     ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMosaicCrystal"}),
     ("optics", "crystal", {"rocking_type": "file"}),
-    ("optics", "crystal", {"class_name": "XicsrtOpticCylindricalCrystal"}),
+    ("sources", "source", dict(_PLASMA, spread=None, spread_radius=0.05)),
     ("sources", "source", {"use_poisson": True}),
-    ("sources", "source", {"class_name": "XicsrtPlasmaGeneric"}),
+    ("sources", "source", dict(_PLASMA, use_poisson=True)),
     ("sources", "source", {"xsize": 0.01}),
     ("general", None, {"dtype": "float64"}),
 ])
@@ -311,3 +367,31 @@ def test_spacing_gradient_matches_eager_statistically():
     mx, sx = np.mean(g_x), np.std(g_x, ddof=1) / 2.0
     assert abs(mf) > 5 * sf, (mf, sf)
     assert abs(mf - mx) < 6 * np.sqrt(sf**2 + sx**2) + 0.02 * abs(mx), (mf, sf, mx, sx)
+
+
+def test_plasma_rays_match_jax_sampler():
+    """The plasma of one bundle per ray against JAX's ``_sample_plasma`` on
+    the same uniforms (float32): origins and initial weights exactly,
+    directions to 2e-6 (rsqrt against 1/sqrt), wavelengths to 5e-7 A, two
+    float32 steps at 3.95 A (erf_inv and torch.erfinv round apart: 16 of
+    131072 rays one step apart on this config)."""
+    cfg = _variant_config("plasma_cubic")
+    jp = JaxPipeline(cfg)
+    _, _, jpack, jspec = FG.build_fused_diff(jp, chunk=1024, interpret=True, rng="input")
+    tp = TorchPipeline(cfg, device="cpu")
+    _, _, pack, spec = fg.build_fused_diff(tp, rng="input", chunk=1024)
+    n_draws = jspec["n_draws"]
+    U = np.asarray(jax.random.uniform(jax.random.key(9), (n_draws, 8, 128), jnp.float32))
+    src_base = len(jspec["optics"]) * FG.SLOTS_PER_OPTIC
+    rows = iter([jnp.asarray(U[k]) for k in range(n_draws)])
+    ref = FG._sample_plasma(jspec["src"], lambda: next(rows), 128, jpack(jp.params), src_base)
+    F, I = fg._static_lists(spec["static"])
+    cols = iter([torch.tensor(U[k].reshape(-1)) for k in range(n_draws)])
+    state, lam, _ = fg._sample_plasma(
+        F, I, pack(tp.params), lambda: next(cols),
+        lambda v: torch.full((1024,), v, dtype=torch.float32))
+    ours = list(state[:6]) + [lam, state[6]]
+    for k, (a, b) in enumerate(zip(ours, ref[:8])):
+        b = np.asarray(b, np.float64).reshape(-1)
+        atol = {0: 0.0, 1: 0.0, 2: 0.0, 6: 5e-7, 7: 0.0}.get(k, 2e-6)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=atol, err_msg=str(k))

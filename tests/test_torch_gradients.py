@@ -308,6 +308,18 @@ def test_align_frame_path_and_loss():
     assert float(l2_image_loss(target, target + 0.1)) == pytest.approx(0.01)
 
 
+def test_get_element_needs_an_explicit_device(monkeypatch):
+    """``get_element`` defaults to CUDA like the other entry points."""
+    from xicsrt_tpu_torch import get_element
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_element(_config(), "crystal")
+    element = get_element(_config(), "crystal", device="cpu")
+    assert element.device == torch.device("cpu")
+    assert element.build_params()["frame"].origin.device == torch.device("cpu")
+
+
 def test_entry_points_need_an_explicit_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -17,16 +17,18 @@ Ported so far: point and box sources (Generic, Directed) with isotropic and
 isotropic_xy cones and one wavelength; plasma sources (Generic, Cubic,
 Cylindrical, Toroidal, ToroidalDatafile; ``sources/plasma.py``) with voxel
 or point bundles, exact Voigt lines and Doppler shifts, whose eager bundle
-gather is the CUDA kernel of ``ops/bundle_gather.py``; plane, sphere and
-torus optics with apertures; no interaction, mirror, and the Bragg crystal
-with gaussian or step rocking in mc and weight mode; nearest and bilinear
-images; history; gradients (``gradients.py``): ``make_differentiable``
-(eager autograd, reaching a plasma's temperature), ``make_fused_differentiable``
-(hand-written CUDA forward and adjoint kernels, ``ops/fused_grad.py``, point
-sources and plane/sphere optics), ``align`` and ``l2_image_loss``. The rest
-of the JAX package raises ``NotImplementedError``: among it the cylinder,
-mosaic crystals, file rocking curves, meshes, source filters and the other
-angular and wavelength distributions.
+gather is the CUDA kernel of ``ops/bundle_gather.py``; plane, sphere,
+cylinder and torus optics with apertures; no interaction, mirror, and the
+Bragg crystal with gaussian or step rocking in mc and weight mode; nearest
+and bilinear images; history; gradients (``gradients.py``):
+``make_differentiable`` (eager autograd, reaching a plasma's temperature),
+``make_fused_differentiable`` (hand-written CUDA forward and adjoint
+kernels, ``ops/fused_grad.py``: point sources and constant-profile plasmas,
+whose emissivity and temperature it differentiates; plane, sphere, cylinder
+and torus optics), ``align`` and ``l2_image_loss``. The rest of the JAX
+package raises ``NotImplementedError``: among it mosaic crystals, file
+rocking curves, meshes, source filters and the other angular and
+wavelength distributions.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401

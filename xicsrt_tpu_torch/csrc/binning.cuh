@@ -56,10 +56,14 @@ inline int xrt_grid_size(Kernel kernel, int threads, size_t dyn_smem,
     return blocks > 0 ? (int)blocks : 1;
 }
 
-// Allow more than 48 KB of dynamic shared memory where a launch needs it.
+// Allow the dynamic shared memory a launch needs where, with the kernel's
+// static shared memory, it passes the default 48 KB a block may use.
 template <typename Kernel>
 inline cudaError_t xrt_set_smem(Kernel kernel, size_t dyn_smem) {
-    if (dyn_smem <= 48 * 1024) return cudaSuccess;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.sharedSizeBytes + dyn_smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)dyn_smem);

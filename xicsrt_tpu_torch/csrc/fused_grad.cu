@@ -2,17 +2,29 @@
 // forward with bilinear images, and K5b, its hand-derived adjoint.
 //
 // Replaces xicsrt_tpu/ops/fused_grad.py::build_fused_diff, make_kernel(False)
-// (K5f) and make_kernel(True) (K5b), for point sources, plane and sphere
-// optics, and no interaction, a mirror or a Bragg crystal with a gaussian or
-// step rocking curve. One thread carries one ray; a ray's draws are keyed by
-// (seed, ray, draw) as in K1a (trace_common.cuh), so K5b regenerates exactly
-// the rays K5f traced.
+// (K5f) and make_kernel(True) (K5b), for point sources and plasmas of
+// constant profiles, plane, sphere, cylinder and torus optics, and no
+// interaction, a mirror or a Bragg crystal with a gaussian or step rocking
+// curve. One thread carries one ray; a ray's draws are keyed by (seed, ray,
+// draw) as in K1 (trace_common.cuh), so K5b regenerates exactly the rays
+// K5f traced.
 //
 // The differentiated parameters arrive at run time in pvec (24 slots per
-// optic: origin, basis rows, radius, crystal_spacing, rocking_fwhm,
-// reflectivity), read once per block into shared memory, so a descent loop
-// rebuilds nothing. The structure (sampler, shapes, bounds, apertures,
-// images) is K1a's packed fp/ip layout; its geometry entries are unused.
+// optic: origin, basis rows, radius or radius_major, crystal_spacing,
+// rocking_fwhm, reflectivity, radius_minor; then, for a plasma, 8 source
+// slots: emissivity, temperature), read once per block into shared memory,
+// so a descent loop rebuilds nothing. The structure (sampler, shapes,
+// bounds, apertures, images) is K1's packed fp/ip layout; its geometry
+// entries are unused.
+//
+// A plasma (source kind 2) is sampled one fresh bundle per ray
+// (fused_grad.py:122-276): emissivity scales the ray's initial weight,
+// temperature its Doppler width, so each ray has its own wavelength, and
+// K5b carries the weight's and the wavelength's adjoints back to the source
+// slots. A torus's root is K1's Newton root (xrt_torus_root) found on the
+// current parameters; the adjoint differentiates one Newton correction at
+// it, the implicit-function derivative (fused_grad.py:819-876, 1562-1629).
+// A cylinder's t is differentiated implicitly through its quadratic.
 //
 // Numerics follow the plain PyTorch twins of ops/fused_grad.py operation by
 // operation (_optic_fwd/_optic_bwd, the JAX _trace_fwd/_trace_bwd); the
@@ -24,14 +36,15 @@
 // shared atomics.
 //
 // K5b: for optic i = n-1 .. 0 the ray's forward is recomputed from the
-// source up to optic i (n(n+1)/2 optic evaluations a ray, none stored), so
-// every primal lives in registers and nothing spills to local arrays. The
-// cotangent images are staged in shared memory and gathered at the hit's
-// four corners. Each optic's 16 slot contributions are summed over the warp
-// with shuffles and added by lane 0 to float64 slot sums in shared memory;
-// each block writes its row of slot sums, which the host adds in float64.
-// Per-ray terms cancel heavily, so no float32 sum spans more than a warp.
-// Bounded by arithmetic (the recomputed forward) and the shuffles.
+// source up to optic i (n(n+1)/2 optic evaluations a ray, none stored; a
+// torus upstream repeats its four Newton steps per downstream optic), so
+// every primal lives in registers. The cotangent images are staged in
+// shared memory and gathered at the hit's four corners. Each optic's 17
+// slot contributions, and a plasma's 2 source slots, are summed over the
+// warp with shuffles and added by lane 0 to float64 slot sums in shared
+// memory; each block writes its row of slot sums, which the host adds in
+// float64. Per-ray terms cancel heavily, so no float32 sum spans more than
+// a warp. Bounded by arithmetic (the recomputed forward) and the shuffles.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,16 +52,23 @@
 #include "trace_common.cuh"
 
 #define XRT_GRAD_SLOTS 24
-#define XRT_GRAD_USED 16
-#define XRT_GRAD_MAX_SLOTS (XRT_MAX_OPTICS * XRT_GRAD_SLOTS)
+#define XRT_GRAD_USED 17
+#define XRT_SRC_SLOTS 8
+#define XRT_GRAD_MAX_SLOTS (XRT_MAX_OPTICS * XRT_GRAD_SLOTS + XRT_SRC_SLOTS)
 #define XRT_EPS 1e-12f
 #define XRT_SIGMA_PER_FWHM 0.42466090014400953f
 
 namespace {
 
 struct RayState {
-    float px, py, pz, dx, dy, dz, w;
+    float px, py, pz, dx, dy, dz, w, lam;
     bool alive;
+};
+
+// What the temperature slot's adjoint needs of a plasma ray: its standard
+// normal, sqrt(T) and Doppler factor.
+struct SourceAux {
+    float n_g, sqrt_t, dop;
 };
 
 // What the adjoint of one optic needs, computed by grad_optic_fwd.
@@ -56,7 +76,14 @@ struct OpticLocals {
     float dpx, dpy, dpz;  // direction entering the optic
     float t, qx, qy, qz, nx, ny, nz, lxv, lyv;
     float D;                                   // plane
-    float Lx, Ly, Lz, t_ca, t_hc, r, inv_r;    // sphere
+    float Lx, Ly, Lz, t_ca, t_hc, r, inv_r;    // sphere (r: cylinder too)
+    // torus
+    float t0s, X, Y, Z, rho, rr, G, Gp, rhop, Dlx, Dly, Dlz, rx, ry, rz;
+    float r_maj, Rmj, rmn, ptx, pty, ptz, dy_ax, inv_pl, tux, tuy, tuz, inv_m;
+    bool m_int;
+    // cylinder
+    float dcx, dcy, dcz, d_ax, p_ax, A1x, A1y, A1z, B1x, B1y, B1z, qa, qb;
+    float tcx, tcy, tcz, along, inv_u;
     float dot, adot, cosi, sd, prob, w_pre;    // mirror / crystal
     float sin_b, cos_b, d_s, refl, sigma, z;
     bool mask, step_in;
@@ -66,13 +93,64 @@ __device__ __forceinline__ float sign_of(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
+// The ray leaving the source (ops/fused_grad.py:_source_state): a point
+// source of wavelength lam, or (source kind 2) a plasma of one bundle per
+// ray whose emissivity and temperature are P[src_base], P[src_base + 1]
+// (_sample_plasma, JAX fused_grad.py:202-276).
+template <bool kPlasma>
+__device__ __forceinline__ void grad_sample_source(const float* fp,
+                                                   const int* ip,
+                                                   const float* P,
+                                                   int src_base, float lam,
+                                                   Draws& draw, RayState& st,
+                                                   SourceAux& aux) {
+    if (!kPlasma) {
+        xrt_sample_source(fp, ip[2], draw, st.px, st.py, st.pz, st.dx, st.dy,
+                          st.dz);
+        st.w = 1.0f;
+        st.lam = lam;
+        return;
+    }
+    float px = fp[20], py = fp[21], pz = fp[22];
+    for (int k = 0; k < 3; ++k) {  // box offsets in the source frame
+        if (fp[23 + k] != 0.0f) {
+            const float o_l = (draw() - 0.5f) * fp[23 + k];
+            px = px + o_l * fp[3 * k];
+            py = py + o_l * fp[3 * k + 1];
+            pz = pz + o_l * fp[3 * k + 2];
+        }
+    }
+    if (ip[6]) {  // voxel offsets
+        for (int k = 0; k < 3; ++k) {
+            const float o_l = (draw() - 0.5f) * fp[18];
+            px = px + o_l * fp[3 * k];
+            py = py + o_l * fp[3 * k + 1];
+            pz = pz + o_l * fp[3 * k + 2];
+        }
+    }
+    st.px = px;
+    st.py = py;
+    st.pz = pz;
+    xrt_plasma_cone(fp, fp[26], draw, px, py, pz, st.dx, st.dy, st.dz);
+    aux.n_g = xrt_normal(draw);
+    aux.sqrt_t = sqrtf(fmaxf(P[src_base + 1], 1e-30f));
+    float l = fp[15] + fp[16] * aux.sqrt_t * aux.n_g;
+    if (ip[7]) l = l + xrt_cauchy(draw, fp[17]);
+    aux.dop = 1.0f - (fp[27] * st.dx + fp[28] * st.dy + fp[29] * st.dz) * fp[19];
+    st.lam = l * aux.dop;
+    st.w = fp[30] * P[src_base];
+}
+
 // Weight-mode forward of one optic (ops/fused_grad.py:_optic_fwd).
-// o, oi: the optic's packed structure; P: its 24 parameter slots.
+// o, oi: the optic's packed structure; P: its 24 parameter slots. kTorus,
+// kCylinder: whether the chain holds such shapes (a chain of planes and
+// spheres compiles without their code and registers).
+template <bool kTorus, bool kCylinder>
 __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
                                                const float* P,
                                                const float* apf,
-                                               const int* api, float lam,
-                                               RayState& st, OpticLocals& L) {
+                                               const int* api, RayState& st,
+                                               OpticLocals& L) {
     const float ox = P[0], oy = P[1], oz = P[2];
     const float bxx = P[3], bxy = P[4], bxz = P[5];
     const float byx = P[6], byy = P[7], byz = P[8];
@@ -82,12 +160,13 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
     L.dpz = st.dz;
     bool mask;
     float Cx = 0.0f, Cy = 0.0f, Cz = 0.0f;
-    if (oi[0] == 0) {  // plane
+    const int shape = oi[0];
+    if (shape == 0) {  // plane
         bool nonzero;
         L.t = xrt_plane_hit(ox, oy, oz, bzx, bzy, bzz, st.px, st.py, st.pz,
                             st.dx, st.dy, st.dz, &L.D, &nonzero);
         mask = st.alive && L.t >= 0.0f;
-    } else {  // sphere, center o + sign r bz
+    } else if (shape == 1) {  // sphere, center o + sign r bz
         L.r = P[12];
         const float sign = oi[1] ? -1.0f : 1.0f;
         Cx = ox + sign * L.r * bzx;
@@ -104,19 +183,117 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
         L.t_ca = h.t_ca;
         L.t_hc = h.t_hc;
         L.t = h.t;
+    } else if (kTorus && shape == 2) {  // torus of axis by, center o + cs R bz
+        L.Rmj = P[12];
+        L.rmn = P[16];
+        L.r_maj = L.Rmj + o[XRT_O_MADJ] * L.rmn;
+        const float cs = o[XRT_O_CSIGN];
+        Cx = ox + cs * L.Rmj * bzx;
+        Cy = oy + cs * L.Rmj * bzy;
+        Cz = oz + cs * L.Rmj * bzz;
+        L.rx = st.px - Cx;
+        L.ry = st.py - Cy;
+        L.rz = st.pz - Cz;
+        const float Olx = L.rx * bxx + L.ry * bxy + L.rz * bxz;
+        const float Oly = L.rx * byx + L.ry * byy + L.rz * byz;
+        const float Olz = L.rx * bzx + L.ry * bzy + L.rz * bzz;
+        L.Dlx = st.dx * bxx + st.dy * bxy + st.dz * bxz;
+        L.Dly = st.dx * byx + st.dy * byy + st.dz * byz;
+        L.Dlz = st.dx * bzx + st.dy * bzy + st.dz * bzz;
+        // K1's Newton root; the adjoint differentiates one Newton
+        // correction at it (fused_grad.py:819-876).
+        const float z0 = (st.px - ox) * bzx + (st.py - oy) * bzy + (st.pz - oz) * bzz;
+        float step;
+        const float t0 = xrt_torus_root(Olx, Oly, Olz, L.Dlx, L.Dly, L.Dlz, z0,
+                                        L.r_maj, L.rmn * L.rmn, &step);
+        L.m_int = fabsf(step) < 1e-5f * fmaxf(L.r_maj, 1.0f) && t0 > 1e-6f &&
+                  t0 < 1e6f;
+        mask = st.alive && L.m_int;
+        L.t0s = L.m_int ? t0 : 0.0f;
+        L.X = Olx + L.t0s * L.Dlx;
+        L.Y = Oly + L.t0s * L.Dly;
+        L.Z = Olz + L.t0s * L.Dlz;
+        L.rho = sqrtf(fmaxf(L.X * L.X + L.Z * L.Z, 1e-30f));
+        L.rr = L.rho - L.r_maj;
+        L.G = L.rr * L.rr + L.Y * L.Y - L.rmn * L.rmn;
+        L.rhop = (L.X * L.Dlx + L.Z * L.Dlz) / L.rho;
+        const float Gp = 2.0f * L.rr * L.rhop + 2.0f * L.Y * L.Dly;
+        L.Gp = fabsf(Gp) > 1e-9f ? Gp : (Gp >= 0.0f ? 1e-9f : -1e-9f);
+        L.t = L.m_int ? L.t0s - L.G / L.Gp : 0.0f;
+    } else if (kCylinder && shape == 3) {  // cylinder of axis bx, center o + sign r bz
+        L.r = P[12];
+        const float sign = oi[1] ? -1.0f : 1.0f;
+        Cx = ox + sign * L.r * bzx;
+        Cy = oy + sign * L.r * bzy;
+        Cz = oz + sign * L.r * bzz;
+        const CylinderHit h = xrt_cylinder_hit(Cx, Cy, Cz, bxx, bxy, bxz,
+                                               L.r * L.r, oi[1] != 0, st.px,
+                                               st.py, st.pz, st.dx, st.dy,
+                                               st.dz);
+        mask = st.alive && h.disc >= 0.0f;
+        L.t = h.t;
+        L.dcx = h.dpx;
+        L.dcy = h.dpy;
+        L.dcz = h.dpz;
+        L.d_ax = h.d_ax;
+        L.p_ax = h.p_ax;
+        L.A1x = h.A1x;
+        L.A1y = h.A1y;
+        L.A1z = h.A1z;
+        L.B1x = h.B1x;
+        L.B1y = h.B1y;
+        L.B1z = h.B1z;
+        L.qa = h.qa;
+        L.qb = h.qb;
+    } else {  // a shape the variant was not built for: no hit
+        L.t = 0.0f;
+        mask = false;
     }
     L.qx = st.px + L.t * st.dx;
     L.qy = st.py + L.t * st.dy;
     L.qz = st.pz + L.t * st.dz;
-    if (oi[0] == 0) {
+    if (shape == 0) {
         L.nx = bzx;
         L.ny = bzy;
         L.nz = bzz;
-    } else {  // toward the center for both convexities; |C - q| = r
+    } else if (shape == 1) {  // toward the center for both convexities
         L.inv_r = 1.0f / fmaxf(L.r, XRT_EPS);
         L.nx = (Cx - L.qx) * L.inv_r;
         L.ny = (Cy - L.qy) * L.inv_r;
         L.nz = (Cz - L.qz) * L.inv_r;
+    } else if (kTorus && shape == 2) {  // from the tube centre
+        L.ptx = L.qx - Cx;
+        L.pty = L.qy - Cy;
+        L.ptz = L.qz - Cz;
+        L.dy_ax = L.ptx * byx + L.pty * byy + L.ptz * byz;
+        const float plx = L.ptx - L.dy_ax * byx;
+        const float ply = L.pty - L.dy_ax * byy;
+        const float plz = L.ptz - L.dy_ax * byz;
+        L.inv_pl = inv_sqrt(fmaxf(plx * plx + ply * ply + plz * plz, 1e-30f));
+        L.tux = plx * L.inv_pl;
+        L.tuy = ply * L.inv_pl;
+        L.tuz = plz * L.inv_pl;
+        const float tmx = L.ptx - L.r_maj * L.tux;
+        const float tmy = L.pty - L.r_maj * L.tuy;
+        const float tmz = L.ptz - L.r_maj * L.tuz;
+        L.inv_m = inv_sqrt(fmaxf(tmx * tmx + tmy * tmy + tmz * tmz, 1e-30f));
+        L.nx = tmx * L.inv_m;
+        L.ny = tmy * L.inv_m;
+        L.nz = tmz * L.inv_m;
+    } else if (kCylinder && shape == 3) {  // toward the axis
+        L.tcx = Cx - L.qx;
+        L.tcy = Cy - L.qy;
+        L.tcz = Cz - L.qz;
+        L.along = L.tcx * bxx + L.tcy * bxy + L.tcz * bxz;
+        const float ux = L.tcx - L.along * bxx;
+        const float uy = L.tcy - L.along * bxy;
+        const float uz = L.tcz - L.along * bxz;
+        L.inv_u = inv_sqrt(fmaxf(ux * ux + uy * uy + uz * uz, 1e-30f));
+        L.nx = ux * L.inv_u;
+        L.ny = uy * L.inv_u;
+        L.nz = uz * L.inv_u;
+    } else {
+        L.nx = L.ny = L.nz = 0.0f;
     }
     const float rx = L.qx - ox, ry = L.qy - oy, rz = L.qz - oz;
     L.lxv = rx * bxx + ry * bxy + rz * bxz;
@@ -128,11 +305,11 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
     if (oi[2] == 1 || oi[2] == 2) {
         L.dot = st.dx * L.nx + st.dy * L.ny + st.dz * L.nz;
     }
-    if (oi[2] == 1) {  // crystal
+    if (oi[2] == 1) {  // crystal, at the ray's wavelength
         L.d_s = P[13];
         const float fwhm = P[14];
         L.refl = P[15];
-        L.sin_b = fminf(fmaxf(lam / (2.0f * fmaxf(L.d_s, XRT_EPS)), 0.0f),
+        L.sin_b = fminf(fmaxf(st.lam / (2.0f * fmaxf(L.d_s, XRT_EPS)), 0.0f),
                         1.0f);
         L.cos_b = sqrtf(fmaxf(1.0f - L.sin_b * L.sin_b, XRT_EPS));
         L.adot = fabsf(L.dot);
@@ -179,6 +356,7 @@ __device__ __forceinline__ Corners corners(float f, int n) {
     return Corners{(int)p0, 1.0f - a, a, -moving, moving};
 }
 
+template <bool kTorus, bool kCylinder, bool kPlasma>
 __global__ void fused_grad_fwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ g_pvec, int n_slots,
@@ -198,6 +376,7 @@ __global__ void fused_grad_fwd_kernel(
 
     float* img = use_smem ? s_img : images;
     const int n_opt = ip[0];
+    const int src_base = n_opt * XRT_GRAD_SLOTS;
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
     const long long stride = (long long)gridDim.x * blockDim.x;
@@ -206,15 +385,15 @@ __global__ void fused_grad_fwd_kernel(
          r < n_total; r += stride) {
         Draws draw{uniforms, n_total, r, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState st;
-        xrt_sample_source(fp, ip[2], draw, st.px, st.py, st.pz, st.dx, st.dy,
-                          st.dz);
-        st.w = 1.0f;
+        SourceAux aux;
+        grad_sample_source<kPlasma>(fp, ip, P, src_base, lam, draw, st, aux);
         st.alive = true;
         for (int e = 0; e < n_opt; ++e) {
             const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
             const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
             OpticLocals L;
-            grad_optic_fwd(o, oi, P + e * XRT_GRAD_SLOTS, apf, api, lam, st, L);
+            grad_optic_fwd<kTorus, kCylinder>(o, oi, P + e * XRT_GRAD_SLOTS, apf,
+                                              api, st, L);
             if (oi[7] >= 0 && L.mask) {
                 const int nx = oi[8], ny = oi[9];
                 const Corners cx = corners(L.lxv * o[23] + o[24], nx);
@@ -248,6 +427,14 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// Adds one ray's contribution v to the float64 slot sum *acc: the warp's
+// sum by shuffles, added by lane 0.
+__device__ __forceinline__ void warp_add(double* acc, float v, int lane) {
+    const float sum = warp_sum(v);
+    if (lane == 0 && sum != 0.0f) atomicAdd(acc, (double)sum);
+}
+
+template <bool kTorus, bool kCylinder, bool kPlasma>
 __global__ void fused_grad_bwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ g_pvec, int n_slots,
@@ -275,6 +462,7 @@ __global__ void fused_grad_bwd_kernel(
 
     const float* gimg = use_smem ? s_g : g_images;
     const int n_opt = ip[0];
+    const int src_base = n_opt * XRT_GRAD_SLOTS;
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
     const int lane = threadIdx.x & 31;
@@ -289,31 +477,34 @@ __global__ void fused_grad_bwd_kernel(
         Draws draw{uniforms, n_total, in_range ? r : n_total - 1,
                    seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState src;
-        xrt_sample_source(fp, ip[2], draw, src.px, src.py, src.pz, src.dx,
-                          src.dy, src.dz);
-        src.w = 1.0f;
+        SourceAux aux;
+        grad_sample_source<kPlasma>(fp, ip, P, src_base, lam, draw, src, aux);
         src.alive = in_range;
 
         float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // adjoint of position
         float dbx = 0.0f, dby = 0.0f, dbz = 0.0f;  // adjoint of direction
         float wb = 0.0f;                           // adjoint of weight
+        float lamb = 0.0f;                         // adjoint of wavelength
         for (int i = n_opt - 1; i >= 0; --i) {
             const float* o = fp + XRT_SRC_F + i * XRT_OPT_F;
             const int* oi = ip + XRT_HDR_I + i * XRT_OPT_I;
             const float* Pi = P + i * XRT_GRAD_SLOTS;
-            // Recompute the forward up to and through optic i.
+            // Recompute the forward up to optic i, then through it.
             RayState st = src;
-            OpticLocals L;
-            for (int e = 0; e <= i; ++e) {
-                grad_optic_fwd(fp + XRT_SRC_F + e * XRT_OPT_F,
-                               ip + XRT_HDR_I + e * XRT_OPT_I,
-                               P + e * XRT_GRAD_SLOTS, apf, api, lam, st, L);
+            for (int e = 0; e < i; ++e) {
+                OpticLocals skip;
+                grad_optic_fwd<kTorus, kCylinder>(
+                    fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
+                    P + e * XRT_GRAD_SLOTS, apf, api, st, skip);
             }
+            OpticLocals L;
+            grad_optic_fwd<kTorus, kCylinder>(o, oi, Pi, apf, api, st, L);
             const float bxx = Pi[3], bxy = Pi[4], bxz = Pi[5];
             const float byx = Pi[6], byy = Pi[7], byz = Pi[8];
             const float bzx = Pi[9], bzy = Pi[10], bzz = Pi[11];
             const float mf = L.mask ? 1.0f : 0.0f;
             const bool mask = L.mask;
+            const int shape = oi[0];
             float a[XRT_GRAD_USED];
 #pragma unroll
             for (int k = 0; k < XRT_GRAD_USED; ++k) a[k] = 0.0f;
@@ -385,9 +576,15 @@ __global__ void fused_grad_bwd_kernel(
                     const float sinb_b =
                         sd_b * (-L.adot * L.sin_b / L.cos_b - L.cosi);
                     const float ds_b =
-                        sinb_b * (-lam / (2.0f * fmaxf(L.d_s * L.d_s, XRT_EPS)));
+                        sinb_b * (-st.lam / (2.0f * fmaxf(L.d_s * L.d_s, XRT_EPS)));
                     const bool inr = L.sin_b > 0.0f && L.sin_b < 1.0f;
                     a[13] += (inr ? ds_b : 0.0f) * mf;
+                    // sin_b = lam / (2 d): the wavelength's adjoint, which a
+                    // plasma carries to its temperature slot.
+                    if (kPlasma) {
+                        lamb = lamb + (inr ? sinb_b / (2.0f * fmaxf(L.d_s, XRT_EPS))
+                                           : 0.0f) * mf;
+                    }
                     dot_b = sign_of(dot) * adot_b * mf;
                 }
                 dbx = dbx + dot_b * L.nx;
@@ -419,11 +616,12 @@ __global__ void fused_grad_bwd_kernel(
 
             // ---- normal ------------------------------------------------
             float Cbx = 0.0f, Cby = 0.0f, Cbz = 0.0f, r_b_n = 0.0f;
-            if (oi[0] == 0) {  // n = bz
+            float axbx = 0.0f, axby = 0.0f, axbz = 0.0f;  // cylinder axis bx
+            if (shape == 0) {  // n = bz
                 a[9] += nbx;
                 a[10] += nby;
                 a[11] += nbz;
-            } else {  // n = (C - q) / r
+            } else if (shape == 1) {  // n = (C - q) / r
                 Cbx = L.inv_r * nbx;
                 Cby = L.inv_r * nby;
                 Cbz = L.inv_r * nbz;
@@ -432,6 +630,52 @@ __global__ void fused_grad_bwd_kernel(
                 qbz = qbz - Cbz;
                 const float ndot = L.nx * nbx + L.ny * nby + L.nz * nbz;
                 r_b_n = -ndot * L.inv_r * L.r * L.inv_r;
+            } else if (kTorus && shape == 2) {  // n = normalize(pt - r_maj u)
+                const float ndot = L.nx * nbx + L.ny * nby + L.nz * nbz;
+                const float mbx = L.inv_m * (nbx - L.nx * ndot);
+                const float mby = L.inv_m * (nby - L.ny * ndot);
+                const float mbz = L.inv_m * (nbz - L.nz * ndot);
+                float ptbx = mbx, ptby = mby, ptbz = mbz;
+                const float ubx = -L.r_maj * mbx;
+                const float uby = -L.r_maj * mby;
+                const float ubz = -L.r_maj * mbz;
+                r_b_n = -(mbx * L.tux + mby * L.tuy + mbz * L.tuz);
+                const float udot = L.tux * ubx + L.tuy * uby + L.tuz * ubz;
+                const float plbx = L.inv_pl * (ubx - L.tux * udot);
+                const float plby = L.inv_pl * (uby - L.tuy * udot);
+                const float plbz = L.inv_pl * (ubz - L.tuz * udot);
+                ptbx = ptbx + plbx;
+                ptby = ptby + plby;
+                ptbz = ptbz + plbz;
+                const float dyax_b = -(plbx * byx + plby * byy + plbz * byz);
+                a[6] += -L.dy_ax * plbx + dyax_b * L.ptx;
+                a[7] += -L.dy_ax * plby + dyax_b * L.pty;
+                a[8] += -L.dy_ax * plbz + dyax_b * L.ptz;
+                ptbx = ptbx + dyax_b * byx;
+                ptby = ptby + dyax_b * byy;
+                ptbz = ptbz + dyax_b * byz;
+                qbx = qbx + ptbx;
+                qby = qby + ptby;
+                qbz = qbz + ptbz;
+                Cbx = -ptbx;
+                Cby = -ptby;
+                Cbz = -ptbz;
+            } else if (kCylinder && shape == 3) {
+                // n = normalize(u), u = tc - (tc . bx) bx, tc = C - q
+                const float ndot = L.nx * nbx + L.ny * nby + L.nz * nbz;
+                const float ubx = L.inv_u * (nbx - L.nx * ndot);
+                const float uby = L.inv_u * (nby - L.ny * ndot);
+                const float ubz = L.inv_u * (nbz - L.nz * ndot);
+                const float au = ubx * bxx + uby * bxy + ubz * bxz;
+                Cbx = ubx - au * bxx;
+                Cby = uby - au * bxy;
+                Cbz = ubz - au * bxz;
+                axbx = axbx - au * L.tcx - L.along * ubx;
+                axby = axby - au * L.tcy - L.along * uby;
+                axbz = axbz - au * L.tcz - L.along * ubz;
+                qbx = qbx - Cbx;
+                qby = qby - Cby;
+                qbz = qbz - Cbz;
             }
 
             // ---- hit: q = p + t d ----------------------------------------
@@ -443,7 +687,9 @@ __global__ void fused_grad_bwd_kernel(
             dbx = dbx + t * qbx;
             dby = dby + t * qby;
             dbz = dbz + t * qbz;
-            if (oi[0] == 0) {  // t = ((o - p) . bz) / (d . bz)
+            const float sign_c = oi[1] ? -1.0f : 1.0f;
+            float r_b = 0.0f;
+            if (shape == 0) {  // t = ((o - p) . bz) / (d . bz)
                 const float invD = 1.0f / L.D;
                 pbx = pbx - t_b * bzx * invD;
                 pby = pby - t_b * bzy * invD;
@@ -457,25 +703,110 @@ __global__ void fused_grad_bwd_kernel(
                 a[9] += t_b * (Pi[0] - L.qx) * invD;
                 a[10] += t_b * (Pi[1] - L.qy) * invD;
                 a[11] += t_b * (Pi[2] - L.qz) * invD;
-            } else {  // t = t_ca -+ t_hc, L = C - p
+            } else if (shape == 1) {  // t = t_ca -+ t_hc, L = C - p
                 const float t_hc = fmaxf(L.t_hc, 1e-6f);
-                const float sign_hc = oi[1] ? -1.0f : 1.0f;
                 const float t_ca = L.t_ca;
-                const float cx = d0x + sign_hc * (t_ca * d0x - L.Lx) / t_hc;
-                const float cy = d0y + sign_hc * (t_ca * d0y - L.Ly) / t_hc;
-                const float cz = d0z + sign_hc * (t_ca * d0z - L.Lz) / t_hc;
+                const float cx = d0x + sign_c * (t_ca * d0x - L.Lx) / t_hc;
+                const float cy = d0y + sign_c * (t_ca * d0y - L.Ly) / t_hc;
+                const float cz = d0z + sign_c * (t_ca * d0z - L.Lz) / t_hc;
                 Cbx = Cbx + t_b * cx;
                 Cby = Cby + t_b * cy;
                 Cbz = Cbz + t_b * cz;
                 pbx = pbx - t_b * cx;
                 pby = pby - t_b * cy;
                 pbz = pbz - t_b * cz;
-                const float stretch = 1.0f + sign_hc * t_ca / t_hc;
-                dbx = dbx + t_b * L.Lx * stretch;
-                dby = dby + t_b * L.Ly * stretch;
-                dbz = dbz + t_b * L.Lz * stretch;
-                const float r_b = r_b_n + t_b * sign_hc * L.r / t_hc;
-                const float sign_c = oi[1] ? -1.0f : 1.0f;
+                dbx = dbx + t_b * L.Lx * (1.0f + sign_c * t_ca / t_hc);
+                dby = dby + t_b * L.Ly * (1.0f + sign_c * t_ca / t_hc);
+                dbz = dbz + t_b * L.Lz * (1.0f + sign_c * t_ca / t_hc);
+                r_b = r_b_n + t_b * sign_c * L.r / t_hc;
+            } else if (kCylinder && shape == 3) {
+                // Implicit differentiation of qa t^2 + qb t + qc = 0 at the
+                // chosen root: F'(t) = 2 qa t + qb, grazing rays guarded.
+                float Fp = 2.0f * L.qa * t + L.qb;
+                Fp = fabsf(Fp) > 1e-9f ? Fp : (Fp >= 0.0f ? 1e-9f : -1e-9f);
+                const float ab = -t_b * t * t / Fp;
+                const float bb = -t_b * t / Fp;
+                const float cb = -t_b / Fp;
+                const float A1bx = 2.0f * ab * L.A1x + 2.0f * bb * L.B1x;
+                const float A1by = 2.0f * ab * L.A1y + 2.0f * bb * L.B1y;
+                const float A1bz = 2.0f * ab * L.A1z + 2.0f * bb * L.B1z;
+                const float B1bx = 2.0f * bb * L.A1x + 2.0f * cb * L.B1x;
+                const float B1by = 2.0f * bb * L.A1y + 2.0f * cb * L.B1y;
+                const float B1bz = 2.0f * bb * L.A1z + 2.0f * cb * L.B1z;
+                r_b = r_b_n - 2.0f * cb * L.r;
+                const float aA = A1bx * bxx + A1by * bxy + A1bz * bxz;
+                dbx = dbx + A1bx - aA * bxx;
+                dby = dby + A1by - aA * bxy;
+                dbz = dbz + A1bz - aA * bxz;
+                axbx = axbx - aA * d0x - L.d_ax * A1bx;
+                axby = axby - aA * d0y - L.d_ax * A1by;
+                axbz = axbz - aA * d0z - L.d_ax * A1bz;
+                const float aB = B1bx * bxx + B1by * bxy + B1bz * bxz;
+                const float dpbx = B1bx - aB * bxx;
+                const float dpby = B1by - aB * bxy;
+                const float dpbz = B1bz - aB * bxz;
+                axbx = axbx - aB * L.dcx - L.p_ax * B1bx;
+                axby = axby - aB * L.dcy - L.p_ax * B1by;
+                axbz = axbz - aB * L.dcz - L.p_ax * B1bz;
+                pbx = pbx + dpbx;
+                pby = pby + dpby;
+                pbz = pbz + dpbz;
+                Cbx = Cbx - dpbx;
+                Cby = Cby - dpby;
+                Cbz = Cbz - dpbz;
+                a[3] += axbx;
+                a[4] += axby;
+                a[5] += axbz;
+            } else if (kTorus && shape == 2) {
+                // Torus: t = where(m_int, t0 - G / G', 0) at the frozen root
+                // t0, the implicit-function derivative plus the quotient
+                // term through G'.
+                const float tb = t_b * (L.m_int ? 1.0f : 0.0f);
+                const float G_b = -tb / L.Gp;
+                const float Gp_b = (fabsf(L.Gp) > 1e-9f ? 1.0f : 0.0f) * tb * L.G /
+                                   (L.Gp * L.Gp);
+                const float rr_b = 2.0f * L.rhop * Gp_b + 2.0f * L.rr * G_b;
+                const float rhop_b = 2.0f * L.rr * Gp_b;
+                const float Y_b = 2.0f * L.Dly * Gp_b + 2.0f * L.Y * G_b;
+                float Dly_b = 2.0f * L.Y * Gp_b;
+                const float rmn_b = -2.0f * L.rmn * G_b;
+                float X_b = rhop_b * L.Dlx / L.rho;
+                float Dlx_b = rhop_b * L.X / L.rho;
+                float Z_b = rhop_b * L.Dlz / L.rho;
+                float Dlz_b = rhop_b * L.Z / L.rho;
+                const float rho_b = -rhop_b * L.rhop / L.rho + rr_b;
+                const float rmaj_b = r_b_n - rr_b;
+                X_b = X_b + rho_b * L.X / L.rho;
+                Z_b = Z_b + rho_b * L.Z / L.rho;
+                Dlx_b = Dlx_b + L.t0s * X_b;
+                Dly_b = Dly_b + L.t0s * Y_b;
+                Dlz_b = Dlz_b + L.t0s * Z_b;
+                pbx = pbx + X_b * bxx + Y_b * byx + Z_b * bzx;
+                pby = pby + X_b * bxy + Y_b * byy + Z_b * bzy;
+                pbz = pbz + X_b * bxz + Y_b * byz + Z_b * bzz;
+                Cbx = Cbx - (X_b * bxx + Y_b * byx + Z_b * bzx);
+                Cby = Cby - (X_b * bxy + Y_b * byy + Z_b * bzy);
+                Cbz = Cbz - (X_b * bxz + Y_b * byz + Z_b * bzz);
+                dbx = dbx + Dlx_b * bxx + Dly_b * byx + Dlz_b * bzx;
+                dby = dby + Dlx_b * bxy + Dly_b * byy + Dlz_b * bzy;
+                dbz = dbz + Dlx_b * bxz + Dly_b * byz + Dlz_b * bzz;
+                a[3] += X_b * L.rx + Dlx_b * d0x;
+                a[4] += X_b * L.ry + Dlx_b * d0y;
+                a[5] += X_b * L.rz + Dlx_b * d0z;
+                a[6] += Y_b * L.rx + Dly_b * d0x;
+                a[7] += Y_b * L.ry + Dly_b * d0y;
+                a[8] += Y_b * L.rz + Dly_b * d0z;
+                const float cs = o[XRT_O_CSIGN];  // C = o + cs R bz
+                a[0] += Cbx;
+                a[1] += Cby;
+                a[2] += Cbz;
+                a[9] += Z_b * L.rx + Dlz_b * d0x + cs * L.Rmj * Cbx;
+                a[10] += Z_b * L.ry + Dlz_b * d0y + cs * L.Rmj * Cby;
+                a[11] += Z_b * L.rz + Dlz_b * d0z + cs * L.Rmj * Cbz;
+                a[12] += cs * (Cbx * bzx + Cby * bzy + Cbz * bzz) + rmaj_b;
+                a[16] += rmn_b + o[XRT_O_MADJ] * rmaj_b;
+            }
+            if (shape == 1 || (kCylinder && shape == 3)) {  // C = o + sign_c r bz
                 a[0] += Cbx;
                 a[1] += Cby;
                 a[2] += Cbz;
@@ -488,11 +819,16 @@ __global__ void fused_grad_bwd_kernel(
             // ---- slot sums: warp shuffles, then float64 per block --------
 #pragma unroll
             for (int k = 0; k < XRT_GRAD_USED; ++k) {
-                const float v = warp_sum(in_range ? a[k] : 0.0f);
-                if (lane == 0 && v != 0.0f) {
-                    atomicAdd(s_acc + i * XRT_GRAD_SLOTS + k, (double)v);
-                }
+                warp_add(s_acc + i * XRT_GRAD_SLOTS + k, in_range ? a[k] : 0.0f,
+                         lane);
             }
+        }
+        if (kPlasma) {  // the source slots (fused_grad.py:279-291)
+            const float aE = wb * fp[30];
+            const float aT =
+                lamb * (fp[16] * aux.n_g * aux.dop / (2.0f * aux.sqrt_t));
+            warp_add(s_acc + src_base, in_range ? aE : 0.0f, lane);
+            warp_add(s_acc + src_base + 1, in_range ? aT : 0.0f, lane);
         }
     }
 
@@ -504,9 +840,31 @@ __global__ void fused_grad_bwd_kernel(
 
 constexpr int kThreads = 256;
 
-bool grad_args_ok(int n_fp, int n_ip, int n_slots) {
+using FwdKernel = void (*)(const float*, int, const int*, int, const float*, int,
+                           long long, float, const float*, uint32_t, uint32_t,
+                           float*, int, int);
+using BwdKernel = void (*)(const float*, int, const int*, int, const float*, int,
+                           long long, float, const float*, uint32_t, uint32_t,
+                           const float*, int, int, double*);
+
+// The kernels built for each variant: bit 0 a torus in the chain, bit 1 a
+// cylinder, bit 2 a plasma source.
+const FwdKernel kFwd[8] = {
+    fused_grad_fwd_kernel<false, false, false>, fused_grad_fwd_kernel<true, false, false>,
+    fused_grad_fwd_kernel<false, true, false>, fused_grad_fwd_kernel<true, true, false>,
+    fused_grad_fwd_kernel<false, false, true>, fused_grad_fwd_kernel<true, false, true>,
+    fused_grad_fwd_kernel<false, true, true>, fused_grad_fwd_kernel<true, true, true>,
+};
+const BwdKernel kBwd[8] = {
+    fused_grad_bwd_kernel<false, false, false>, fused_grad_bwd_kernel<true, false, false>,
+    fused_grad_bwd_kernel<false, true, false>, fused_grad_bwd_kernel<true, true, false>,
+    fused_grad_bwd_kernel<false, false, true>, fused_grad_bwd_kernel<true, false, true>,
+    fused_grad_bwd_kernel<false, true, true>, fused_grad_bwd_kernel<true, true, true>,
+};
+
+bool grad_args_ok(int n_fp, int n_ip, int n_slots, int variant) {
     return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && n_slots > 0 &&
-           n_slots <= XRT_GRAD_MAX_SLOTS;
+           n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 && variant < 8;
 }
 
 size_t bwd_smem(int img_total) {
@@ -517,36 +875,41 @@ size_t bwd_smem(int img_total) {
 
 }  // namespace
 
-// K5f. fp/ip: K1a's packed structure; pvec: n_slots float32 parameters;
+// K5f. fp/ip: K1's packed structure; pvec: n_slots float32 parameters;
 // rays [0, n_total) with draws from uniforms (n_draws, n_total) float32 or
-// Philox keyed by (seed0, seed1); lam: the source wavelength. images:
-// (img_total,) float32, zeroed by the caller. Returns cudaGetLastError().
+// Philox keyed by (seed0, seed1); lam: a point source's wavelength. images:
+// (img_total,) float32, zeroed by the caller. variant: bit 0 a torus in the
+// chain, bit 1 a cylinder, bit 2 a plasma source (kind 2). Returns
+// cudaGetLastError().
 extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
                                   int n_ip, const float* pvec, int n_slots,
                                   long long n_total, float lam,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, float* images,
-                                  int img_total, void* stream) {
-    if (!grad_args_ok(n_fp, n_ip, n_slots)) return (int)cudaErrorInvalidValue;
+                                  int img_total, int variant, void* stream) {
+    if (!grad_args_ok(n_fp, n_ip, n_slots, variant)) return (int)cudaErrorInvalidValue;
     if (n_total <= 0) return (int)cudaSuccess;
+    const FwdKernel kernel = kFwd[variant];
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    cudaError_t err = xrt_set_smem(fused_grad_fwd_kernel, smem);
+    cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(fused_grad_fwd_kernel, kThreads, smem, n_total);
-    fused_grad_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    const int blocks = xrt_grid_size(kernel, kThreads, smem, n_total);
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, pvec, n_slots, n_total, lam, uniforms, seed0, seed1,
         images, img_total, use_smem);
     return (int)cudaGetLastError();
 }
 
-// Blocks xrt_fused_grad_bwd launches for these sizes (the rows of its
-// partial output), or minus a cudaError_t.
-extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total) {
+// Blocks xrt_fused_grad_bwd launches for these sizes and variant (the rows
+// of its partial output), or minus a cudaError_t.
+extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total,
+                                         int variant) {
+    if (variant < 0 || variant >= 8) return -(int)cudaErrorInvalidValue;
     const size_t smem = bwd_smem(img_total);
-    cudaError_t err = xrt_set_smem(fused_grad_bwd_kernel, smem);
+    cudaError_t err = xrt_set_smem(kBwd[variant], smem);
     if (err != cudaSuccess) return -(int)err;
-    return xrt_grid_size(fused_grad_bwd_kernel, kThreads, smem, n_total);
+    return xrt_grid_size(kBwd[variant], kThreads, smem, n_total);
 }
 
 // K5b. As K5f, plus g_images: (img_total,) float32 cotangent images, and
@@ -558,14 +921,15 @@ extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, const float* g_images,
                                   int img_total, double* partial, int n_blocks,
-                                  void* stream) {
-    if (!grad_args_ok(n_fp, n_ip, n_slots) || n_blocks <= 0) {
+                                  int variant, void* stream) {
+    if (!grad_args_ok(n_fp, n_ip, n_slots, variant) || n_blocks <= 0) {
         return (int)cudaErrorInvalidValue;
     }
+    const BwdKernel kernel = kBwd[variant];
     const size_t smem = bwd_smem(img_total);
-    cudaError_t err = xrt_set_smem(fused_grad_bwd_kernel, smem);
+    cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    fused_grad_bwd_kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, pvec, n_slots, n_total, lam, uniforms, seed0, seed1,
         g_images, img_total, smem > 0, partial);
     return (int)cudaGetLastError();

@@ -1,20 +1,20 @@
 // Fused generate -> trace -> count -> image kernel for NVIDIA Hopper
 // (sm_90a): K1a (the main spectrometer chain), K1f (the plasma source) and
-// the torus stage of K1c.
+// the torus and cylinder stages of K1c.
 //
 // Replaces those cuts of the TPU megakernel
 // xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the plasma
 // sampler at :1428-1537, and the shared optic chain _trace_chain with
-// torus_local_quadratic_t at :616). One thread carries one ray in registers
-// from the source through every optic; no per-ray state touches device
-// memory.
+// torus_local_quadratic_t at :616 and the cylinder at :784 and :903). One
+// thread carries one ray in registers from the source through every optic;
+// no per-ray state touches device memory.
 //
 // The subset: a point source with an isotropic or symmetric isotropic_xy
 // cone and one wavelength, or a plasma whose per-iteration bundle tables
-// (cum, table) were drawn before the launch; plane, sphere or torus optics
-// with x/y/z bounds and aperture logic (none/circle/square/rectangle/
-// ellipse; and, not, or, nand, nor, xor, xnor); no interaction or a Bragg
-// crystal with a gaussian or step rocking curve and Bernoulli (mc)
+// (cum, table) were drawn before the launch; plane, sphere, torus or
+// cylinder optics with x/y/z bounds and aperture logic (none/circle/square/
+// rectangle/ellipse; and, not, or, nand, nor, xor, xnor); no interaction or
+// a Bragg crystal with a gaussian or step rocking curve and Bernoulli (mc)
 // acceptance, at each ray's own wavelength for a plasma; per-element
 // counts; nearest-pixel images.
 //
@@ -149,20 +149,34 @@ __global__ void fused_trace_kernel(
                 m_int = alive && h.d2 <= o[15];
                 t = h.t;
                 nxv = nyv = nzv = 0.0f;
-            } else {  // torus
+            } else if (oi[0] == 2) {  // torus
                 t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
+                nxv = nyv = nzv = 0.0f;
+            } else {  // cylinder of axis bx through o[12:15], radius^2 o[15]
+                const CylinderHit h = xrt_cylinder_hit(
+                    o[12], o[13], o[14], o[3], o[4], o[5], o[15],
+                    oi[1] != 0, px, py, pz, dx, dy, dz);
+                m_int = alive && h.disc >= 0.0f;
+                t = m_int ? h.t : 0.0f;
                 nxv = nyv = nzv = 0.0f;
             }
             const float qx = m_int ? px + t * dx : px;
             const float qy = m_int ? py + t * dy : py;
             const float qz = m_int ? pz + t * dz : pz;
-            if (oi[0] != 0) {  // sphere: towards the center; torus: outward
+            if (oi[0] != 0) {  // sphere, cylinder: towards the center or
+                               // the axis; torus: outward
                 if (oi[0] == 1) {
                     nxv = o[12] - qx;
                     nyv = o[13] - qy;
                     nzv = o[14] - qz;
-                } else {
+                } else if (oi[0] == 2) {
                     xrt_torus_normal(o, qx, qy, qz, nxv, nyv, nzv);
+                } else {
+                    const float tcx = o[12] - qx, tcy = o[13] - qy, tcz = o[14] - qz;
+                    const float along = tcx * o[3] + tcy * o[4] + tcz * o[5];
+                    nxv = tcx - along * o[3];
+                    nyv = tcy - along * o[4];
+                    nzv = tcz - along * o[5];
                 }
                 const float inv =
                     inv_sqrt(fmaxf(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30f));

@@ -1,8 +1,8 @@
 // Device code shared by the fused trace kernel (fused_trace.cu, K1) and
 // the fused gradient kernels (fused_grad.cu, K5f/K5b): the packed buffer
-// layout, the counter-based random numbers, the point-source and plasma
-// samplers, the plane, sphere and torus intersections, and the bounds and
-// aperture logic.
+// layout, the counter-based random numbers, the point-source sampler and
+// the plasma cone and line, the plane, sphere, cylinder and torus
+// intersections, and the bounds and aperture logic.
 //
 // Every helper is the float32 operation sequence its plain PyTorch twin
 // performs (xicsrt_tpu_torch/ops/fused_trace.py); the library is built with
@@ -15,7 +15,7 @@
 // Buffer layout, mirrored by ops/fused_trace.py (pack_params).
 #define XRT_MAX_OPTICS 16
 #define XRT_MAX_APERTURES 64
-#define XRT_SRC_F 24
+#define XRT_SRC_F 32
 #define XRT_OPT_F 32
 #define XRT_AP_F 4
 #define XRT_HDR_I 8
@@ -26,13 +26,19 @@
 #define XRT_MAX_IP \
     (XRT_HDR_I + XRT_MAX_OPTICS * XRT_OPT_I + XRT_MAX_APERTURES * XRT_AP_I)
 // Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
-// source kind, voxel draws, Cauchy draw.
+// source kind, voxel draws, Cauchy draw. Source kinds: 0 a point source,
+// 1 a plasma of bundle tables (K1), 2 a plasma of one bundle per ray (K5).
 #define XRT_SRC_PLASMA 1
+#define XRT_SRC_PLASMA_RAY 2
 // Optic floats beyond the sphere's: torus r_minor^2 and convergence
 // tolerance, and 1 / (2 d) for per-ray Bragg angles.
 #define XRT_O_RMIN2 26
 #define XRT_O_TOL 27
 #define XRT_O_INV2D 28
+// Torus floats read by the gradient kernels: major_adjust and center_sign,
+// the convex pair folded (optics/shapes.py ShapeTorus).
+#define XRT_O_MADJ 29
+#define XRT_O_CSIGN 30
 
 // Philox4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
@@ -216,28 +222,15 @@ __device__ __forceinline__ bool xrt_apertures(const float* apf,
     return m_out && m_in;
 }
 
-// Plasma source (fp[0:24]: source basis rows, target, basis hint x + z,
-// line centre, Doppler conversion, natural width, voxel edge, 1/c) for a
-// ray whose bundle row is (a, b): origin xyz, cone half-angle, then
-// temperature and velocity xyz. Draws 3 voxel uniforms (voxel), u and v
-// for the cone, one uniform for the normal, one Cauchy uniform (cauchy),
-// as fused_trace.py:1489-1537 does.
-__device__ __forceinline__ void xrt_sample_plasma(
-    const float* fp, bool voxel, bool cauchy, Draws& draw, float4 a, float4 b,
-    float& px, float& py, float& pz, float& dx, float& dy, float& dz,
-    float& wl) {
-    px = a.x;
-    py = a.y;
-    pz = a.z;
-    if (voxel) {
-        const float h = fp[18];
-        const float vx = (draw() - 0.5f) * h;
-        const float vy = (draw() - 0.5f) * h;
-        const float vz = (draw() - 0.5f) * h;
-        px = px + vx * fp[0] + vy * fp[3] + vz * fp[6];
-        py = py + vx * fp[1] + vy * fp[4] + vz * fp[7];
-        pz = pz + vx * fp[2] + vy * fp[5] + vz * fp[8];
-    }
+// The isotropic cone of a plasma ray at (px, py, pz): about the unit
+// direction to the target fp[9:12], in the per-ray basis of
+// vec.orthogonal_basis with the hint fp[12:15]; omc = 1 - cos(half-angle).
+// Draws u, v; writes the unit direction.
+__device__ __forceinline__ void xrt_plasma_cone(const float* fp, float omc,
+                                                Draws& draw, float px,
+                                                float py, float pz,
+                                                float& dx, float& dy,
+                                                float& dz) {
     float nx = fp[9] - px, ny = fp[10] - py, nz = fp[11] - pz;
     float inv = inv_sqrt(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
     nx = nx * inv;
@@ -255,7 +248,7 @@ __device__ __forceinline__ void xrt_sample_plasma(
     const float o2z = nx * o1y - ny * o1x;
     const float u = draw();
     const float v = draw();
-    const float lz = 1.0f - u * (1.0f - cosf(a.w));
+    const float lz = 1.0f - u * omc;
     const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
     const float phi = v * 6.283185307179586f;
     const float lx = rho * cosf(phi);
@@ -263,25 +256,95 @@ __device__ __forceinline__ void xrt_sample_plasma(
     dx = lx * o2x + ly * o1x + lz * nx;
     dy = lx * o2y + ly * o1y + lz * ny;
     dz = lx * o2z + ly * o1z + lz * nz;
-    // Exact Voigt: Gaussian of the bundle's Doppler width (a normal from
-    // erfinv of a clipped uniform) plus a Cauchy; then the bulk Doppler.
+}
+
+// A standard normal from one uniform clipped to [1e-7, 1 - 1e-7]:
+// sqrt(2) erfinv(2u - 1).
+__device__ __forceinline__ float xrt_normal(Draws& draw) {
     const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
     const float un = fminf(fmaxf(draw(), lo), hi);
-    const float gauss = 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
-    wl = fp[15] + fp[16] * sqrtf(fmaxf(b.x, 0.0f)) * gauss;
-    if (cauchy) {
-        const float uc = fminf(fmaxf(draw(), lo), hi);
-        wl = wl + fp[17] * tanf(3.141592653589793f * (uc - 0.5f));
+    return 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
+}
+
+// The natural (Cauchy) part of an exact Voigt line of width gamma.
+__device__ __forceinline__ float xrt_cauchy(Draws& draw, float gamma) {
+    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
+    const float uc = fminf(fmaxf(draw(), lo), hi);
+    return gamma * tanf(3.141592653589793f * (uc - 0.5f));
+}
+
+// Plasma source of bundle tables (fp[0:20]: source basis rows, target,
+// basis hint x + z, line centre, Doppler conversion, natural width, voxel
+// edge, 1/c) for a ray whose bundle row is (a, b): origin xyz, cone
+// half-angle, then temperature and velocity xyz. Draws 3 voxel uniforms
+// (voxel), u and v for the cone, one uniform for the normal, one Cauchy
+// uniform (cauchy), as fused_trace.py:1489-1537 does.
+__device__ __forceinline__ void xrt_sample_plasma(
+    const float* fp, bool voxel, bool cauchy, Draws& draw, float4 a, float4 b,
+    float& px, float& py, float& pz, float& dx, float& dy, float& dz,
+    float& wl) {
+    px = a.x;
+    py = a.y;
+    pz = a.z;
+    if (voxel) {
+        const float h = fp[18];
+        const float vx = (draw() - 0.5f) * h;
+        const float vy = (draw() - 0.5f) * h;
+        const float vz = (draw() - 0.5f) * h;
+        px = px + vx * fp[0] + vy * fp[3] + vz * fp[6];
+        py = py + vx * fp[1] + vy * fp[4] + vz * fp[7];
+        pz = pz + vx * fp[2] + vy * fp[5] + vz * fp[8];
     }
+    xrt_plasma_cone(fp, 1.0f - cosf(a.w), draw, px, py, pz, dx, dy, dz);
+    // Exact Voigt: Gaussian of the bundle's Doppler width plus a Cauchy;
+    // then the bulk Doppler.
+    const float gauss = xrt_normal(draw);
+    wl = fp[15] + fp[16] * sqrtf(fmaxf(b.x, 0.0f)) * gauss;
+    if (cauchy) wl = wl + xrt_cauchy(draw, fp[17]);
     wl = wl * (1.0f - (b.y * dx + b.z * dy + b.w * dz) * fp[19]);
 }
 
+// Torus root in torus-centred local coordinates (axis = local y): ray
+// origin (olx, oly, olz) and direction (dlx, dly, dlz), tube-centre circle
+// of radius r_maj, squared tube radius rmin2. The root of
+// G(t) = (|xz|(t) - r_maj)^2 + y(t)^2 - rmin2 by four steps of the local
+// quadratic model from t = -z0 / dlz, the hit on the tangent plane at the
+// optic origin (z0: the ray origin's height over that plane;
+// torus_local_quadratic_t, fused_trace.py:616-702). Returns t; *step gets
+// the last step, whose size tells convergence.
+__device__ __forceinline__ float xrt_torus_root(float olx, float oly,
+                                                float olz, float dlx,
+                                                float dly, float dlz,
+                                                float z0, float r_maj,
+                                                float rmin2, float* step) {
+    float t = -z0 / (fabsf(dlz) > 1e-9f ? dlz : 1e-9f);
+    float s = 0.0f;
+    for (int it = 0; it < 4; ++it) {
+        const float X = olx + t * dlx, Y = oly + t * dly, Z = olz + t * dlz;
+        const float s2 = fmaxf(X * X + Z * Z, 1e-30f);
+        const float inv_rho = inv_sqrt(s2);
+        const float rr = s2 * inv_rho - r_maj;
+        const float G = rr * rr + Y * Y - rmin2;
+        const float rhop = (X * dlx + Z * dlz) * inv_rho;
+        const float Gp = 2.0f * rr * rhop + 2.0f * Y * dly;
+        const float rhopp = ((dlx * dlx + dlz * dlz) - rhop * rhop) * inv_rho;
+        const float Gpp = 2.0f * (rhop * rhop + rr * rhopp) + 2.0f * dly * dly;
+        const float disc = Gp * Gp - 2.0f * Gpp * G;
+        const float sgn = Gp >= 0.0f ? 1.0f : -1.0f;
+        float dq = Gp + sgn * sqrtf(fmaxf(disc, 0.0f));
+        dq = fabsf(dq) > 1e-12f ? dq : sgn * 1e-12f;
+        const float gp_safe = fabsf(Gp) > 1e-12f ? Gp : sgn * 1e-12f;
+        s = G / (disc >= 0.0f ? 0.5f * dq : gp_safe);
+        t = t - s;
+    }
+    *step = s;
+    return t;
+}
+
 // Torus of the optic block o (origin o[0:3], basis rows o[3:12], centre
-// o[12:15], major radius o[15], o[XRT_O_RMIN2] = r_minor^2): the root of
-// G(t) = (|xz|(t) - R)^2 + y(t)^2 - r^2 by four steps of the local
-// quadratic model from the hit on the tangent plane at the origin
-// (torus_local_quadratic_t, fused_trace.py:616-702). *hit is alive, a last
-// step below o[XRT_O_TOL] and t > 1e-6; returns t, or 0 on a miss.
+// o[12:15], major radius o[15], o[XRT_O_RMIN2] = r_minor^2): *hit is
+// alive, a last step below o[XRT_O_TOL] and t > 1e-6; returns t, or 0 on a
+// miss.
 __device__ __forceinline__ float xrt_torus_hit(const float* o, float px,
                                                float py, float pz, float dx,
                                                float dy, float dz, bool alive,
@@ -294,28 +357,47 @@ __device__ __forceinline__ float xrt_torus_hit(const float* o, float px,
     const float dly = dx * o[6] + dy * o[7] + dz * o[8];
     const float dlz = dx * o[9] + dy * o[10] + dz * o[11];
     const float z0 = (px - o[0]) * o[9] + (py - o[1]) * o[10] + (pz - o[2]) * o[11];
-    float t = -z0 / (fabsf(dlz) > 1e-9f ? dlz : 1e-9f);
-    float step = 0.0f;
-    for (int it = 0; it < 4; ++it) {
-        const float X = olx + t * dlx, Y = oly + t * dly, Z = olz + t * dlz;
-        const float s2 = fmaxf(X * X + Z * Z, 1e-30f);
-        const float inv_rho = inv_sqrt(s2);
-        const float rr = s2 * inv_rho - o[15];
-        const float G = rr * rr + Y * Y - o[XRT_O_RMIN2];
-        const float rhop = (X * dlx + Z * dlz) * inv_rho;
-        const float Gp = 2.0f * rr * rhop + 2.0f * Y * dly;
-        const float rhopp = ((dlx * dlx + dlz * dlz) - rhop * rhop) * inv_rho;
-        const float Gpp = 2.0f * (rhop * rhop + rr * rhopp) + 2.0f * dly * dly;
-        const float disc = Gp * Gp - 2.0f * Gpp * G;
-        const float sgn = Gp >= 0.0f ? 1.0f : -1.0f;
-        float dq = Gp + sgn * sqrtf(fmaxf(disc, 0.0f));
-        dq = fabsf(dq) > 1e-12f ? dq : sgn * 1e-12f;
-        const float gp_safe = fabsf(Gp) > 1e-12f ? Gp : sgn * 1e-12f;
-        step = G / (disc >= 0.0f ? 0.5f * dq : gp_safe);
-        t = t - step;
-    }
+    float step;
+    const float t = xrt_torus_root(olx, oly, olz, dlx, dly, dlz, z0, o[15],
+                                   o[XRT_O_RMIN2], &step);
     *hit = alive && fabsf(step) < o[XRT_O_TOL] && t > 1e-6f;
     return *hit ? t : 0.0f;
+}
+
+// Cylinder of axis (ax, ay, az) through C and squared radius r2: the
+// stable quadratic of the ray's components across the axis; the near root
+// (convex) or the far root (concave). The ray hits where disc >= 0.
+struct CylinderHit {
+    float dpx, dpy, dpz, d_ax, p_ax, A1x, A1y, A1z, B1x, B1y, B1z, qa, qb,
+        disc, t;
+};
+
+__device__ __forceinline__ CylinderHit xrt_cylinder_hit(
+    float Cx, float Cy, float Cz, float ax, float ay, float az, float r2,
+    bool convex, float px, float py, float pz, float dx, float dy, float dz) {
+    CylinderHit h;
+    h.dpx = px - Cx;
+    h.dpy = py - Cy;
+    h.dpz = pz - Cz;
+    h.d_ax = dx * ax + dy * ay + dz * az;
+    h.p_ax = h.dpx * ax + h.dpy * ay + h.dpz * az;
+    h.A1x = dx - h.d_ax * ax;
+    h.A1y = dy - h.d_ax * ay;
+    h.A1z = dz - h.d_ax * az;
+    h.B1x = h.dpx - h.p_ax * ax;
+    h.B1y = h.dpy - h.p_ax * ay;
+    h.B1z = h.dpz - h.p_ax * az;
+    h.qa = h.A1x * h.A1x + h.A1y * h.A1y + h.A1z * h.A1z;
+    h.qb = 2.0f * (h.A1x * h.B1x + h.A1y * h.B1y + h.A1z * h.B1z);
+    const float qc = h.B1x * h.B1x + h.B1y * h.B1y + h.B1z * h.B1z - r2;
+    h.disc = h.qb * h.qb - 4.0f * h.qa * qc;
+    const float sq = sqrtf(fmaxf(h.disc, 0.0f));
+    const float sgn = h.qb >= 0.0f ? 1.0f : -1.0f;
+    const float qq = -0.5f * (h.qb + sgn * sq);
+    const float t0 = qq / (fabsf(h.qa) > 1e-30f ? h.qa : 1e-30f);
+    const float t1 = fabsf(qq) > 1e-30f ? qc / qq : t0;
+    h.t = convex ? fminf(t0, t1) : fmaxf(t0, t1);
+    return h;
 }
 
 // The torus normal at q, not yet normalised: from the tube centre (q

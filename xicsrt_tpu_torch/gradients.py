@@ -81,7 +81,8 @@ def make_fused_differentiable(config: dict, num_iter: int | None = None,
     ``(forward, vjp, pack, pipeline)``:
 
     - ``pvec = pack(pipeline.params)``: the differentiated parameters as a
-      flat float32 vector (24 slots per optic), read by the kernels at run
+      flat float32 vector (24 slots per optic, then for a plasma source 8
+      source slots: emissivity, temperature), read by the kernels at run
       time, so a descent loop rebuilds nothing;
     - ``forward(pvec, seed) -> {"image": {name: [nx, ny]}}``: weight-mode
       bilinear images from kernel K5f;
@@ -90,9 +91,13 @@ def make_fused_differentiable(config: dict, num_iter: int | None = None,
       regenerates the rays of ``forward(pvec, seed)``.
 
     ``seed``: an int or a pair of 32-bit words, keying the kernels' Philox
-    stream; ``chunk`` bounds the rays per slice of the CPU twins. Raises
-    ``FusedGradUnsupported`` outside the subset of ``ops/fused_grad.py``.
-    On CPU tensors both functions run the kernels' plain twins.
+    stream; ``chunk`` bounds the rays per slice of the CPU twins. A plasma
+    traces ``max(round(expected photons), 1)`` rays per iteration, one
+    bundle each. Raises ``FusedGradUnsupported`` outside the subset of
+    ``ops/fused_grad.py`` (point sources and constant-profile plasmas;
+    plane, sphere, cylinder and torus optics). On CPU tensors both functions
+    run the kernels' plain twins; ``ops.fused_grad.unpack_grads(pipeline,
+    gvec)`` maps ``gvec`` to the elements' leaves.
     """
     from xicsrt_tpu_torch.ops.fused_grad import (
         FusedGradUnsupported, build_fused_diff, check_config)

@@ -12,16 +12,25 @@ hand-derived adjoint sweep, accumulating the gradient of
 
 The differentiated parameters arrive at run time in ``pvec``: per optic 24
 slots (``fused_grad.py:74-80``): 0:3 origin, 3:6 bx, 6:9 by, 9:12 bz,
-12 radius, 13 crystal_spacing, 14 rocking_fwhm, 15 reflectivity,
-16 radius_minor (0 here), 17:24 reserved. The structure (source sampler,
-shapes, bounds, apertures, images) is the K1a buffer layout of
+12 radius (radius_major of a torus), 13 crystal_spacing, 14 rocking_fwhm,
+15 reflectivity, 16 radius_minor, 17:24 reserved; after the optics, for a
+plasma, ``SRC_SLOTS`` = 8 source slots (``fused_grad.py:116-119``): 0
+emissivity, 1 temperature, 2:8 reserved. The structure (source sampler,
+shapes, bounds, apertures, images) is the K1 buffer layout of
 ``ops/fused_trace.py``, packed once at build time.
 
 Subset (``FusedGradUnsupported`` otherwise): Generic/Directed point sources
 with an ``isotropic`` or symmetric ``isotropic_xy`` cone, one wavelength,
-counted budget; plane and sphere optics (concave and convex) with x/y/z
-bounds and apertures as hard edges; no interaction, mirror, or crystal with
-gaussian or step rocking; bilinear images on any optic; float32.
+counted budget; constant-profile plasmas (``XicsrtPlasmaGeneric``,
+``XicsrtPlasmaCubic``) with a counted budget and a constant ``spread``,
+sampled one bundle per ray (``fused_grad.py:122-199``): emissivity enters
+each ray's weight, temperature its Doppler width, so the wavelength is per
+ray and its adjoint reaches the temperature slot; plane, sphere, cylinder
+and torus optics (concave and convex; the torus root found on detached
+copies and differentiated through one Newton correction, the
+implicit-function adjoint) with x/y/z bounds and apertures as hard edges;
+no interaction, mirror, or crystal with gaussian or step rocking; bilinear
+images on any optic; float32.
 
 On CPU tensors the wrappers run the plain PyTorch twins
 (:func:`fused_grad_forward_plain`, :func:`fused_grad_vjp_plain`), which
@@ -47,6 +56,7 @@ class FusedGradUnsupported(ft.FusedUnsupported):
 
 
 SLOTS_PER_OPTIC = 24
+SRC_SLOTS = 8
 _EPS = 1e-12
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
 _M32 = 0xFFFFFFFF
@@ -62,12 +72,10 @@ def _round_up(n: int, m: int) -> int:
 
 def check_config(config: dict) -> None:
     """Raise ``FusedGradUnsupported`` for element classes and rocking curves
-    outside the subset before a pipeline is built (cylinder, torus and
-    mosaic optics, plasma sources and file rocking curves are not in the
-    kernels)."""
+    outside the subset before a pipeline is built (mosaic optics, meshes,
+    profiled plasmas and file rocking curves are not in the kernels)."""
     from xicsrt_tpu_torch.dispatch import lookup
-    from xicsrt_tpu_torch.optics.shapes import ShapeTorus
-    from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
+    from xicsrt_tpu_torch.sources.plasma import PlasmaCubic, PlasmaGeneric
 
     for section in ("sources", "optics"):
         for name, element in config.get(section, {}).items():
@@ -75,45 +83,100 @@ def check_config(config: dict) -> None:
                 continue
             class_name = element.get("class_name")
             try:
-                lookup(class_name)
+                cls = lookup(class_name)
             except KeyError:
                 raise FusedGradUnsupported(
                     f'"{name}": {class_name} is outside the fused-gradient '
                     "subset of this port") from None
-            if issubclass(lookup(class_name), (PlasmaGeneric, ShapeTorus)):
+            if issubclass(cls, PlasmaGeneric) and cls not in (PlasmaGeneric, PlasmaCubic):
                 raise FusedGradUnsupported(
-                    f'"{name}": {class_name} is not in the fused-gradient kernels yet')
+                    f'"{name}": {class_name} has profiles that are not constant')
             rocking = str(element.get("rocking_type", "gaussian")).lower()
             if rocking not in ("gaussian", "step"):
                 raise FusedGradUnsupported(f"rocking_type {rocking}")
 
 
 def _grad_source_spec(source) -> dict:
-    """The K1a source spec, restricted to counted budgets
-    (``fused_grad.py:89-113``)."""
+    """The K1a source spec restricted to counted budgets
+    (``fused_grad.py:89-113``), or a constant-profile plasma's."""
+    from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
+
+    if isinstance(source, PlasmaGeneric):
+        return _grad_plasma_spec(source)
     try:
         spec = ft._source_spec(source)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
-    if spec["kind"] != 0:
-        raise FusedGradUnsupported("plasma source")
     if spec["poisson"]:
         raise FusedGradUnsupported("Poisson budget (use counted intensity)")
+    spec["n_rays"] = int(source.num_rays)
     return spec
 
 
+def _grad_plasma_spec(source) -> dict:
+    """A plasma of constant profiles with a counted budget and a constant
+    spread (``_grad_plasma_spec``, ``fused_grad.py:122-199``), sampled one
+    fresh bundle per ray: ``n_rays = max(round(expected), 1)`` rays, each of
+    initial weight ``(expected / n_rays) (E / E0)``. Draws per ray: one per
+    nonzero box size, 3 voxel offsets (voxel bundles), the cone's u and v,
+    one normal and, with a natural linewidth, one Cauchy uniform."""
+    from xicsrt_tpu_torch.ops.voigt import doppler_sigma
+    from xicsrt_tpu_torch.sources.plasma import PlasmaCubic, PlasmaGeneric
+
+    if type(source) not in (PlasmaGeneric, PlasmaCubic):
+        raise FusedGradUnsupported("plasma with profiles that are not constant")
+    p = source.param
+    if bool(p["use_poisson"]):
+        raise FusedGradUnsupported("Poisson budget (set use_poisson=False)")
+    if p.get("spread") is None:
+        raise FusedGradUnsupported("spread_radius plasma (use a constant spread)")
+    spread = float(p["spread"])
+    omega = 4.0 * math.pi * math.sin(spread / 2.0) ** 2
+    E0 = float(p["emissivity"])
+    if E0 <= 0.0:
+        raise FusedGradUnsupported("emissivity must be positive")
+    expected = (E0 * float(p["time_resolution"]) * float(p["volume"])
+                * omega / (4.0 * math.pi) * float(p["intensity_scale"]))
+    n_rays = max(int(round(expected)), 1)
+    w0 = float(p["wavelength"])
+    voxel = float(source.voxel_size)
+    sizes = [float(p[k] or 0.0) for k in ("xsize", "ysize", "zsize")]
+    gamma = float(source.gamma)
+    return {
+        "name": source.name,
+        "kind": 2,
+        "poisson": False,
+        "voxel": voxel,
+        "gamma": gamma,
+        "wavelength": w0,
+        # sigma(T) = sigma_conv sqrt(T), the Doppler width.
+        "sigma_conv": doppler_sigma(1.0, float(p["mass_number"]), w0),
+        "sizes": sizes,
+        "omc": 1.0 - math.cos(spread),
+        "velocity": [float(v) for v in np.asarray(p["velocity"], np.float64).reshape(3)],
+        "w0_per_E": expected / n_rays / E0,
+        "n_rays": n_rays,
+        "n_draws": (sum(1 for x in sizes if x != 0.0) + (3 if voxel > 0.0 else 0)
+                    + 2 + 1 + (1 if gamma > 0.0 else 0)),
+    }
+
+
 def _grad_optic_spec(optic) -> dict:
-    """The K1a optic spec with mirrors allowed (``fused_grad.py:294-406``)."""
+    """The K1 optic spec with mirrors allowed (``fused_grad.py:294-406``)."""
     if not optic.param.get("check_bragg", True):
         raise FusedGradUnsupported("check_bragg=False crystal")
     try:
         spec = ft._optic_spec(optic, mirror=True)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
-    if spec["shape"] not in (0, 1):
-        raise FusedGradUnsupported(f"shape of {type(optic).__name__}")
     spec["n_draws"] = 0  # weight mode: a crystal draws no uniform
     return spec
+
+
+def _is_plasma(pipeline) -> bool:
+    from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
+
+    return isinstance(pipeline.source, PlasmaGeneric)
 
 
 def pack_params(pipeline):
@@ -121,6 +184,7 @@ def pack_params(pipeline):
     one float32 vector (``fused_grad.py:409-447``), padded to a multiple
     of 8. Autograd flows from ``pvec`` back into ``params``."""
     names = [o.name for o in pipeline.optics]
+    src_name = pipeline.source.name if _is_plasma(pipeline) else None
 
     def pack(params):
         vals = []
@@ -133,10 +197,16 @@ def pack_params(pipeline):
                 return torch.as_tensor(v, device=device).reshape(1)
 
             vals += [po["frame"].origin.reshape(3), po["frame"].basis.reshape(9),
-                     scalar("radius", 0.0), scalar("crystal_spacing", 0.0),
+                     scalar("radius", po.get("radius_major", 0.0)),
+                     scalar("crystal_spacing", 0.0),
                      scalar("rocking_fwhm", 0.0), scalar("reflectivity", 1.0),
                      scalar("radius_minor", 0.0),
                      torch.zeros(SLOTS_PER_OPTIC - 17, device=device)]
+        if src_name is not None:
+            ps = params["sources"][src_name]
+            device = ps["emissivity"].device
+            vals += [ps["emissivity"].reshape(1), ps["temperature"].reshape(1),
+                     torch.zeros(SRC_SLOTS - 2, device=device)]
         vec = torch.cat([v.to(torch.float32) for v in vals])
         pad = _round_up(vec.numel(), 8) - vec.numel()
         return torch.nn.functional.pad(vec, (0, pad))
@@ -145,8 +215,8 @@ def pack_params(pipeline):
 
 
 def unpack_grads(pipeline, gvec) -> dict:
-    """Map the flat gradient vector to ``{optic: {leaf: numpy}}``
-    (``fused_grad.py:450-475``)."""
+    """Map the flat gradient vector to ``{element: {leaf: numpy}}``
+    (``fused_grad.py:450-475``); slot 12 is radius_major on a torus."""
     g = np.asarray(torch.as_tensor(gvec).detach().cpu(), dtype=np.float64)
     out = {}
     for i, o in enumerate(pipeline.optics):
@@ -160,6 +230,10 @@ def unpack_grads(pipeline, gvec) -> dict:
             "reflectivity": float(g[b + 15]),
             "radius_minor": float(g[b + 16]),
         }
+    if _is_plasma(pipeline):
+        b = len(pipeline.optics) * SLOTS_PER_OPTIC
+        out[pipeline.source.name] = {"emissivity": float(g[b]),
+                                     "temperature": float(g[b + 1])}
     return out
 
 
@@ -167,14 +241,18 @@ def unpack_grads(pipeline, gvec) -> dict:
 # The kernels' plain twins.
 # ---------------------------------------------------------------------------
 
+def _dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
 def _optic_fwd(F, I, e, P, lam, state):
     """Weight-mode forward of optic ``e`` (``_trace_fwd``,
-    ``fused_grad.py:747-1158``, for planes and spheres with no interaction,
-    a mirror or a crystal). ``lam``: the wavelength as a 0-d tensor (a true
-    division, as the kernel's; PyTorch multiplies a Python scalar by the
-    reciprocal). ``state``: (px, py, pz, dx, dy, dz, w, alive)
-    entering the optic. Returns (state leaving it, the locals the adjoint
-    needs, (w_img, fx, fy) or None)."""
+    ``fused_grad.py:747-1158``, for planes, spheres, cylinders and tori with
+    no interaction, a mirror or a crystal). ``lam``: the wavelength, a 0-d
+    tensor or one per ray (a true division, as the kernel's; PyTorch
+    multiplies a Python scalar by the reciprocal). ``state``: (px, py, pz,
+    dx, dy, dz, w, alive) entering the optic. Returns (state leaving it, the
+    locals the adjoint needs, (w_img, fx, fy) or None)."""
     px, py, pz, dx, dy, dz, w, alive = state
     o = F[ft.SRC_F + e * ft.OPT_F: ft.SRC_F + (e + 1) * ft.OPT_F]
     oi = I[ft.HDR_I + e * ft.OPT_I: ft.HDR_I + (e + 1) * ft.OPT_I]
@@ -183,15 +261,20 @@ def _optic_fwd(F, I, e, P, lam, state):
     bxx, bxy, bxz = P[b + 3], P[b + 4], P[b + 5]
     byx, byy, byz = P[b + 6], P[b + 7], P[b + 8]
     bzx, bzy, bzz = P[b + 9], P[b + 10], P[b + 11]
+
+    def full(value):
+        return torch.full(px.shape, value, dtype=px.dtype, device=px.device)
+
     s = {"dpre": (dx, dy, dz)}
-    if oi[0] == 0:  # plane
+    shape = oi[0]
+    if shape == 0:  # plane
         D = dx * bzx + dy * bzy + dz * bzz
         D = torch.where(torch.abs(D) > 1e-30, D, 1e-30)
         N = (oxp - px) * bzx + (oyp - py) * bzy + (ozp - pz) * bzz
         t = N / D
         mask = alive & (t >= 0.0)
         s["D"] = D
-    else:  # sphere, center o + sign r bz
+    elif shape == 1:  # sphere, center o + sign r bz
         r = P[b + 12]
         sign = -1.0 if oi[1] else 1.0
         Cx, Cy, Cz = oxp + sign * r * bzx, oyp + sign * r * bzy, ozp + sign * r * bzz
@@ -203,13 +286,73 @@ def _optic_fwd(F, I, e, P, lam, state):
         t_hc = torch.sqrt(torch.clamp_min(r2 - d2, _EPS))
         t = t_ca - t_hc if oi[1] else t_ca + t_hc
         s.update(Lx=Lx, Ly=Ly, Lz=Lz, t_ca=t_ca, t_hc=t_hc, r=r)
+    elif shape == 2:  # torus of axis by, center o + center_sign R bz
+        Rmj, rmn = P[b + 12], P[b + 16]
+        r_maj = Rmj + o[ft.O_MAJOR_ADJUST] * rmn
+        cs = o[ft.O_CENTER_SIGN]
+        Cx, Cy, Cz = oxp + cs * Rmj * bzx, oyp + cs * Rmj * bzy, ozp + cs * Rmj * bzz
+        rx, ry, rz = px - Cx, py - Cy, pz - Cz
+        Olx, Oly, Olz = _dot3(rx, ry, rz, bxx, bxy, bxz), _dot3(rx, ry, rz, byx, byy, byz), \
+            _dot3(rx, ry, rz, bzx, bzy, bzz)
+        Dlx, Dly, Dlz = _dot3(dx, dy, dz, bxx, bxy, bxz), _dot3(dx, dy, dz, byx, byy, byz), \
+            _dot3(dx, dy, dz, bzx, bzy, bzz)
+        # The root on detached copies (the kernels' shared Newton root); the
+        # gradient flows through one Newton correction at the frozen root,
+        # the implicit-function derivative (fused_grad.py:819-876).
+        z0 = (px - oxp) * bzx + (py - oyp) * bzy + (pz - ozp) * bzz
+        rmaj0 = r_maj.detach()
+        t0, step = ft.torus_root_plain(
+            Olx.detach(), Oly.detach(), Olz.detach(), Dlx.detach(), Dly.detach(),
+            Dlz.detach(), z0.detach(), rmaj0, (rmn * rmn).detach(), full)
+        m_int = ((torch.abs(step) < 1e-5 * torch.clamp_min(rmaj0, 1.0))
+                 & (t0 > 1e-6) & (t0 < 1e6))
+        mask = alive & m_int
+        t0s = torch.where(m_int, t0, 0.0)
+        X, Y, Z = Olx + t0s * Dlx, Oly + t0s * Dly, Olz + t0s * Dlz
+        rho = torch.sqrt(torch.clamp_min(X * X + Z * Z, 1e-30))
+        rr = rho - r_maj
+        G = rr * rr + Y * Y - rmn * rmn
+        rhop = (X * Dlx + Z * Dlz) / rho
+        Gp = 2.0 * rr * rhop + 2.0 * Y * Dly
+        Gp = torch.where(torch.abs(Gp) > 1e-9, Gp, torch.where(Gp >= 0.0, 1e-9, -1e-9))
+        t = torch.where(m_int, t0s - G / Gp, 0.0)
+        s.update(t0s=t0s, X=X, Y=Y, Z=Z, rho=rho, rr=rr, G=G, rhop=rhop, Gp=Gp,
+                 m_int=m_int, Dlx=Dlx, Dly=Dly, Dlz=Dlz, rx=rx, ry=ry, rz=rz,
+                 Cx=Cx, Cy=Cy, Cz=Cz, r_maj=r_maj, Rmj=Rmj, rmn=rmn)
+    else:  # cylinder of axis bx, center o + sign r bz
+        r = P[b + 12]
+        sign = -1.0 if oi[1] else 1.0
+        Cx, Cy, Cz = oxp + sign * r * bzx, oyp + sign * r * bzy, ozp + sign * r * bzz
+        h = ft.cylinder_hit_plain((Cx, Cy, Cz), (bxx, bxy, bxz), r * r, bool(oi[1]),
+                                  (px, py, pz), (dx, dy, dz), full)
+        mask = alive & (h["disc"] >= 0.0)
+        t = h["t"]
+        s.update(h, Cx=Cx, Cy=Cy, Cz=Cz, r=r)
     qx, qy, qz = px + t * dx, py + t * dy, pz + t * dz
-    if oi[0] == 0:
+    if shape == 0:
         nxv, nyv, nzv = bzx, bzy, bzz
-    else:  # toward the center for both convexities; |C - q| = r at the hit
+    elif shape == 1:  # toward the center for both convexities; |C - q| = r
         inv_r = 1.0 / torch.clamp_min(r, _EPS)
         nxv, nyv, nzv = (Cx - qx) * inv_r, (Cy - qy) * inv_r, (Cz - qz) * inv_r
         s["inv_r"] = inv_r
+    elif shape == 2:  # from the tube centre (q projected on the axis circle)
+        ptx, pty, ptz = qx - Cx, qy - Cy, qz - Cz
+        dy_ax = _dot3(ptx, pty, ptz, byx, byy, byz)
+        plx, ply, plz = ptx - dy_ax * byx, pty - dy_ax * byy, ptz - dy_ax * byz
+        inv_pl = ft._inv_sqrt(torch.clamp_min(plx * plx + ply * ply + plz * plz, 1e-30))
+        tux, tuy, tuz = plx * inv_pl, ply * inv_pl, plz * inv_pl
+        tmx, tmy, tmz = ptx - r_maj * tux, pty - r_maj * tuy, ptz - r_maj * tuz
+        inv_m = ft._inv_sqrt(torch.clamp_min(tmx * tmx + tmy * tmy + tmz * tmz, 1e-30))
+        nxv, nyv, nzv = tmx * inv_m, tmy * inv_m, tmz * inv_m
+        s.update(ptx=ptx, pty=pty, ptz=ptz, dy_ax=dy_ax, inv_pl=inv_pl, tux=tux,
+                 tuy=tuy, tuz=tuz, inv_m=inv_m)
+    else:  # toward the axis
+        tcx, tcy, tcz = Cx - qx, Cy - qy, Cz - qz
+        along = _dot3(tcx, tcy, tcz, bxx, bxy, bxz)
+        ux, uy, uz = tcx - along * bxx, tcy - along * bxy, tcz - along * bxz
+        inv_u = ft._inv_sqrt(torch.clamp_min(ux * ux + uy * uy + uz * uz, 1e-30))
+        nxv, nyv, nzv = ux * inv_u, uy * inv_u, uz * inv_u
+        s.update(tcx=tcx, tcy=tcy, tcz=tcz, along=along, inv_u=inv_u)
     rxq, ryq, rzq = qx - oxp, qy - oyp, qz - ozp
     lxv = rxq * bxx + ryq * bxy + rzq * bxz
     lyv = rxq * byx + ryq * byy + rzq * byz
@@ -276,10 +419,11 @@ def _seeds(g_flat, off: int, nx: int, ny: int, w_img, fx, fy):
 
 def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
     """Hand adjoint of optic ``e`` (``_trace_bwd``, ``fused_grad.py:
-    1161-1670``, for this subset). ``carry``: (pb, db, wb) adjoints of the
-    position, direction and weight leaving the optic; returns them for the
-    state entering it. ``add_slot(k, values)`` accumulates slot ``e*24+k``."""
-    (pbx, pby, pbz), (dbx, dby, dbz), wb = carry
+    1161-1670``, for this subset). ``carry``: (pb, db, wb, lamb) adjoints of
+    the position, direction and weight leaving the optic and of the ray's
+    wavelength; returns them for the state entering it. ``add_slot(k,
+    values)`` accumulates slot ``e*24+k``."""
+    (pbx, pby, pbz), (dbx, dby, dbz), wb, lamb = carry
     o = F[ft.SRC_F + e * ft.OPT_F: ft.SRC_F + (e + 1) * ft.OPT_F]
     oi = I[ft.HDR_I + e * ft.OPT_I: ft.HDR_I + (e + 1) * ft.OPT_I]
     b = e * SLOTS_PER_OPTIC
@@ -292,6 +436,7 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
     zeros = torch.zeros_like(wb)
     nxv, nyv, nzv = s["nxv"], s["nyv"], s["nzv"]
     d0x, d0y, d0z = s["dpre"]
+    shape = oi[0]
 
     qbx, qby, qbz = pbx, pby, pbz
     lxb = lyb = zeros
@@ -336,6 +481,10 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
             ds_b = sinb_b * (-s["lam"] / (2.0 * torch.clamp_min(d_s * d_s, _EPS)))
             inr = (s["sin_b"] > 0.0) & (s["sin_b"] < 1.0)
             add_slot(13, torch.where(inr, ds_b, 0.0) * mf)
+            # sin_b = lam / (2 d_s): the wavelength's adjoint, which a
+            # plasma carries to its temperature slot (fused_grad.py:1268).
+            lamb = lamb + torch.where(
+                inr, sinb_b / (2.0 * torch.clamp_min(d_s, _EPS)), 0.0) * mf
             dot_b = torch.sign(dot) * adot_b * mf
         dbx = dbx + dot_b * nxv
         dby = dby + dot_b * nyv
@@ -363,24 +512,56 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
     add_slot(8, lyb * rzq)
 
     # ---- normal ----------------------------------------------------------
-    if oi[0] == 0:  # n = bz
+    axbx = axby = axbz = zeros  # adjoint of the bx row (the cylinder's axis)
+    Cbx = Cby = Cbz = r_b_n = zeros
+    if shape == 0:  # n = bz
         add_slot(9, nbx)
         add_slot(10, nby)
         add_slot(11, nbz)
-        Cbx = Cby = Cbz = r_b_n = zeros
-    else:  # n = (C - q) / r
+    elif shape == 1:  # n = (C - q) / r
         inv_r = s["inv_r"]
         Cbx, Cby, Cbz = inv_r * nbx, inv_r * nby, inv_r * nbz
         qbx, qby, qbz = qbx - Cbx, qby - Cby, qbz - Cbz
         ndot = nxv * nbx + nyv * nby + nzv * nbz
         r_b_n = -ndot * inv_r * s["r"] * inv_r
+    elif shape == 2:  # n = normalize(pt - r_maj u), u = normalize(pl)
+        inv_m = s["inv_m"]
+        ndot = nxv * nbx + nyv * nby + nzv * nbz
+        mbx, mby, mbz = (inv_m * (nbx - nxv * ndot), inv_m * (nby - nyv * ndot),
+                         inv_m * (nbz - nzv * ndot))
+        ptbx, ptby, ptbz = mbx, mby, mbz
+        ubx, uby, ubz = -s["r_maj"] * mbx, -s["r_maj"] * mby, -s["r_maj"] * mbz
+        r_b_n = -(mbx * s["tux"] + mby * s["tuy"] + mbz * s["tuz"])
+        udot = s["tux"] * ubx + s["tuy"] * uby + s["tuz"] * ubz
+        plbx = s["inv_pl"] * (ubx - s["tux"] * udot)
+        plby = s["inv_pl"] * (uby - s["tuy"] * udot)
+        plbz = s["inv_pl"] * (ubz - s["tuz"] * udot)
+        ptbx, ptby, ptbz = ptbx + plbx, ptby + plby, ptbz + plbz
+        dyax_b = -(plbx * byx + plby * byy + plbz * byz)
+        add_slot(6, -s["dy_ax"] * plbx + dyax_b * s["ptx"])
+        add_slot(7, -s["dy_ax"] * plby + dyax_b * s["pty"])
+        add_slot(8, -s["dy_ax"] * plbz + dyax_b * s["ptz"])
+        ptbx, ptby, ptbz = ptbx + dyax_b * byx, ptby + dyax_b * byy, ptbz + dyax_b * byz
+        qbx, qby, qbz = qbx + ptbx, qby + ptby, qbz + ptbz
+        Cbx, Cby, Cbz = -ptbx, -ptby, -ptbz
+    else:  # n = normalize(u), u = tc - (tc . bx) bx, tc = C - q
+        inv_u = s["inv_u"]
+        ndot = nxv * nbx + nyv * nby + nzv * nbz
+        ubx, uby, ubz = (inv_u * (nbx - nxv * ndot), inv_u * (nby - nyv * ndot),
+                         inv_u * (nbz - nzv * ndot))
+        au = ubx * bxx + uby * bxy + ubz * bxz
+        Cbx, Cby, Cbz = ubx - au * bxx, uby - au * bxy, ubz - au * bxz
+        axbx = axbx - au * s["tcx"] - s["along"] * ubx
+        axby = axby - au * s["tcy"] - s["along"] * uby
+        axbz = axbz - au * s["tcz"] - s["along"] * ubz
+        qbx, qby, qbz = qbx - Cbx, qby - Cby, qbz - Cbz
 
     # ---- hit: q = p + t d --------------------------------------------------
     t = s["t"]
     t_b = qbx * d0x + qby * d0y + qbz * d0z
     pbx, pby, pbz = qbx, qby, qbz
     dbx, dby, dbz = dbx + t * qbx, dby + t * qby, dbz + t * qbz
-    if oi[0] == 0:  # t = ((o - p) . bz) / (d . bz)
+    if shape == 0:  # t = ((o - p) . bz) / (d . bz)
         invD = 1.0 / s["D"]
         pbx = pbx - t_b * bzx * invD
         pby = pby - t_b * bzy * invD
@@ -394,20 +575,49 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
         add_slot(9, t_b * (oxp - s["qx"]) * invD)
         add_slot(10, t_b * (oyp - s["qy"]) * invD)
         add_slot(11, t_b * (ozp - s["qz"]) * invD)
-    else:  # t = t_ca -+ t_hc, L = C - p
+        return (pbx, pby, pbz), (dbx, dby, dbz), wb, lamb
+    sign_c = -1.0 if oi[1] else 1.0
+    if shape == 1:  # t = t_ca -+ t_hc, L = C - p
         t_hc = torch.clamp_min(s["t_hc"], 1e-6)
-        sign_hc = -1.0 if oi[1] else 1.0
         t_ca = s["t_ca"]
-        cx = d0x + sign_hc * (t_ca * d0x - s["Lx"]) / t_hc
-        cy = d0y + sign_hc * (t_ca * d0y - s["Ly"]) / t_hc
-        cz = d0z + sign_hc * (t_ca * d0z - s["Lz"]) / t_hc
+        cx = d0x + sign_c * (t_ca * d0x - s["Lx"]) / t_hc
+        cy = d0y + sign_c * (t_ca * d0y - s["Ly"]) / t_hc
+        cz = d0z + sign_c * (t_ca * d0z - s["Lz"]) / t_hc
         Cbx, Cby, Cbz = Cbx + t_b * cx, Cby + t_b * cy, Cbz + t_b * cz
         pbx, pby, pbz = pbx - t_b * cx, pby - t_b * cy, pbz - t_b * cz
-        dbx = dbx + t_b * s["Lx"] * (1.0 + sign_hc * t_ca / t_hc)
-        dby = dby + t_b * s["Ly"] * (1.0 + sign_hc * t_ca / t_hc)
-        dbz = dbz + t_b * s["Lz"] * (1.0 + sign_hc * t_ca / t_hc)
-        r_b = r_b_n + t_b * sign_hc * s["r"] / t_hc
-        sign_c = -1.0 if oi[1] else 1.0
+        dbx = dbx + t_b * s["Lx"] * (1.0 + sign_c * t_ca / t_hc)
+        dby = dby + t_b * s["Ly"] * (1.0 + sign_c * t_ca / t_hc)
+        dbz = dbz + t_b * s["Lz"] * (1.0 + sign_c * t_ca / t_hc)
+        r_b = r_b_n + t_b * sign_c * s["r"] / t_hc
+    elif shape == 3:
+        # Implicit differentiation of qa t^2 + qb t + qc = 0 at the chosen
+        # root: F'(t) = 2 qa t + qb, grazing rays guarded.
+        Fp = 2.0 * s["qa"] * t + s["qb"]
+        Fp = torch.where(torch.abs(Fp) > 1e-9, Fp, torch.where(Fp >= 0.0, 1e-9, -1e-9))
+        ab, bb, cb = -t_b * t * t / Fp, -t_b * t / Fp, -t_b / Fp
+        A1bx = 2.0 * ab * s["A1x"] + 2.0 * bb * s["B1x"]
+        A1by = 2.0 * ab * s["A1y"] + 2.0 * bb * s["B1y"]
+        A1bz = 2.0 * ab * s["A1z"] + 2.0 * bb * s["B1z"]
+        B1bx = 2.0 * bb * s["A1x"] + 2.0 * cb * s["B1x"]
+        B1by = 2.0 * bb * s["A1y"] + 2.0 * cb * s["B1y"]
+        B1bz = 2.0 * bb * s["A1z"] + 2.0 * cb * s["B1z"]
+        r_b = r_b_n - 2.0 * cb * s["r"]
+        aA = A1bx * bxx + A1by * bxy + A1bz * bxz  # A1 = d - (d . ax) ax
+        dbx, dby, dbz = dbx + A1bx - aA * bxx, dby + A1by - aA * bxy, dbz + A1bz - aA * bxz
+        axbx = axbx - aA * d0x - s["d_ax"] * A1bx
+        axby = axby - aA * d0y - s["d_ax"] * A1by
+        axbz = axbz - aA * d0z - s["d_ax"] * A1bz
+        aB = B1bx * bxx + B1by * bxy + B1bz * bxz  # B1 = dp - (dp . ax) ax
+        dpbx, dpby, dpbz = B1bx - aB * bxx, B1by - aB * bxy, B1bz - aB * bxz
+        axbx = axbx - aB * s["dpx"] - s["p_ax"] * B1bx
+        axby = axby - aB * s["dpy"] - s["p_ax"] * B1by
+        axbz = axbz - aB * s["dpz"] - s["p_ax"] * B1bz
+        pbx, pby, pbz = pbx + dpbx, pby + dpby, pbz + dpbz
+        Cbx, Cby, Cbz = Cbx - dpbx, Cby - dpby, Cbz - dpbz
+        add_slot(3, axbx)
+        add_slot(4, axby)
+        add_slot(5, axbz)
+    if shape in (1, 3):  # C = o + sign_c r bz
         add_slot(0, Cbx)
         add_slot(1, Cby)
         add_slot(2, Cbz)
@@ -415,7 +625,59 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
         add_slot(10, sign_c * s["r"] * Cby)
         add_slot(11, sign_c * s["r"] * Cbz)
         add_slot(12, r_b + sign_c * (bzx * Cbx + bzy * Cby + bzz * Cbz))
-    return (pbx, pby, pbz), (dbx, dby, dbz), wb
+        return (pbx, pby, pbz), (dbx, dby, dbz), wb, lamb
+
+    # Torus: t = where(m_int, t0 - G / G', 0) at the frozen root t0, the
+    # implicit-function derivative plus the quotient term through G'.
+    tb = t_b * s["m_int"].to(wb.dtype)
+    Gp = s["Gp"]
+    G_b = -tb / Gp
+    Gp_b = (torch.abs(Gp) > 1e-9).to(wb.dtype) * tb * s["G"] / (Gp * Gp)
+    rr, rhop, rho = s["rr"], s["rhop"], s["rho"]
+    X, Y, Z = s["X"], s["Y"], s["Z"]
+    Dlx, Dly, Dlz = s["Dlx"], s["Dly"], s["Dlz"]
+    rr_b = 2.0 * rhop * Gp_b + 2.0 * rr * G_b  # Gp = 2 rr rhop + 2 Y Dly
+    rhop_b = 2.0 * rr * Gp_b
+    Y_b = 2.0 * Dly * Gp_b + 2.0 * Y * G_b
+    Dly_b = 2.0 * Y * Gp_b
+    rmn_b = -2.0 * s["rmn"] * G_b
+    X_b = rhop_b * Dlx / rho  # rhop = (X Dlx + Z Dlz) / rho
+    Dlx_b = rhop_b * X / rho
+    Z_b = rhop_b * Dlz / rho
+    Dlz_b = rhop_b * Z / rho
+    rho_b = -rhop_b * rhop / rho + rr_b
+    rmaj_b = r_b_n - rr_b
+    X_b = X_b + rho_b * X / rho  # rho = sqrt(X^2 + Z^2)
+    Z_b = Z_b + rho_b * Z / rho
+    t0s = s["t0s"]  # X = Olx + t0 Dlx, t0 constant
+    Olx_b, Oly_b, Olz_b = X_b, Y_b, Z_b
+    Dlx_b, Dly_b, Dlz_b = Dlx_b + t0s * X_b, Dly_b + t0s * Y_b, Dlz_b + t0s * Z_b
+    # Ol = (p - C) . rows, Dl = d . rows
+    pbx = pbx + Olx_b * bxx + Oly_b * byx + Olz_b * bzx
+    pby = pby + Olx_b * bxy + Oly_b * byy + Olz_b * bzy
+    pbz = pbz + Olx_b * bxz + Oly_b * byz + Olz_b * bzz
+    Cbx = Cbx - (Olx_b * bxx + Oly_b * byx + Olz_b * bzx)
+    Cby = Cby - (Olx_b * bxy + Oly_b * byy + Olz_b * bzy)
+    Cbz = Cbz - (Olx_b * bxz + Oly_b * byz + Olz_b * bzz)
+    dbx = dbx + Dlx_b * bxx + Dly_b * byx + Dlz_b * bzx
+    dby = dby + Dlx_b * bxy + Dly_b * byy + Dlz_b * bzy
+    dbz = dbz + Dlx_b * bxz + Dly_b * byz + Dlz_b * bzz
+    add_slot(3, Olx_b * s["rx"] + Dlx_b * d0x)
+    add_slot(4, Olx_b * s["ry"] + Dlx_b * d0y)
+    add_slot(5, Olx_b * s["rz"] + Dlx_b * d0z)
+    add_slot(6, Oly_b * s["rx"] + Dly_b * d0x)
+    add_slot(7, Oly_b * s["ry"] + Dly_b * d0y)
+    add_slot(8, Oly_b * s["rz"] + Dly_b * d0z)
+    cs = o[ft.O_CENTER_SIGN]  # C = o + cs R bz, r_maj = R + major_adjust r
+    add_slot(0, Cbx)
+    add_slot(1, Cby)
+    add_slot(2, Cbz)
+    add_slot(9, Olz_b * s["rx"] + Dlz_b * d0x + cs * s["Rmj"] * Cbx)
+    add_slot(10, Olz_b * s["ry"] + Dlz_b * d0y + cs * s["Rmj"] * Cby)
+    add_slot(11, Olz_b * s["rz"] + Dlz_b * d0z + cs * s["Rmj"] * Cbz)
+    add_slot(12, cs * (Cbx * bzx + Cby * bzy + Cbz * bzz) + rmaj_b)
+    add_slot(16, rmn_b + o[ft.O_MAJOR_ADJUST] * rmaj_b)
+    return (pbx, pby, pbz), (dbx, dby, dbz), wb, lamb
 
 
 def _image_slots(I):
@@ -441,12 +703,48 @@ def _slices(n_total: int, chunk: int, n_draws: int, uniforms, seed, dtype, devic
         yield rays, iter([r.to(dtype) for r in rows]).__next__
 
 
-def _source_state(F, I, rays, draw, dtype):
-    def full(value):
-        return torch.full(rays.shape, value, dtype=dtype, device=rays.device)
+def _sample_plasma(F, I, P, draw, full):
+    """The kernels' plasma of one bundle per ray (``_sample_plasma``,
+    ``fused_grad.py:202-276``): box and voxel offsets, the cone to the
+    target, the wavelength lambda = (lambda0 + sigma_conv sqrt(T) n
+    [+ Cauchy]) dop with T from the temperature slot, and the initial weight
+    (w0 / E0) E from the emissivity slot. Returns (state, lam, aux) with aux
+    = (n, sqrt(T), dop), what the temperature's adjoint needs."""
+    src_base = I[0] * SLOTS_PER_OPTIC
+    px, py, pz = full(F[20]), full(F[21]), full(F[22])
+    for k in range(3):  # box offsets, then voxel offsets, in the source frame
+        if F[23 + k] != 0.0:
+            o_l = (draw() - 0.5) * F[23 + k]
+            px, py, pz = px + o_l * F[3 * k], py + o_l * F[3 * k + 1], pz + o_l * F[3 * k + 2]
+    if I[6]:
+        for k in range(3):
+            o_l = (draw() - 0.5) * F[18]
+            px, py, pz = px + o_l * F[3 * k], py + o_l * F[3 * k + 1], pz + o_l * F[3 * k + 2]
+    dx, dy, dz = ft.plasma_cone_plain(F, F[26], draw, px, py, pz)
+    E, T = P[src_base], P[src_base + 1]
+    n_g = ft.normal_plain(draw)
+    sqrt_t = torch.sqrt(torch.clamp_min(T, 1e-30))
+    lam = F[15] + F[16] * sqrt_t * n_g
+    if I[7]:
+        lam = lam + ft.cauchy_plain(draw, F[17])
+    dop = 1.0 - (F[27] * dx + F[28] * dy + F[29] * dz) * F[19]
+    lam = lam * dop
+    w = F[30] * E + torch.zeros_like(px)
+    alive = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+    return (px, py, pz, dx, dy, dz, w, alive), lam, (n_g, sqrt_t, dop)
 
+
+def _source_state(F, I, P, rays, draw, lam: float):
+    """The state of each ray leaving the source, its wavelength and, for a
+    plasma, what the source slots' adjoint needs."""
+    def full(value):
+        return torch.full(rays.shape, value, dtype=P.dtype, device=rays.device)
+
+    if I[5] == 2:
+        return _sample_plasma(F, I, P, draw, full)
     px, py, pz, dx, dy, dz = ft.sample_source_plain(F, I[2], draw, full)
-    return (px, py, pz, dx, dy, dz, full(1.0), torch.ones_like(rays, dtype=torch.bool))
+    state = (px, py, pz, dx, dy, dz, full(1.0), torch.ones_like(rays, dtype=torch.bool))
+    return state, torch.tensor(lam, dtype=P.dtype, device=P.device), None
 
 
 def _static_lists(static: ft.FusedParams):
@@ -459,19 +757,19 @@ def fused_grad_forward_plain(static: ft.FusedParams, pvec: torch.Tensor,
                              seed=(0, 0), chunk: int = 32768) -> torch.Tensor:
     """K5f's plain twin: the flat bilinear images ``[img_total]`` of
     ``n_total`` rays in the dtype of ``pvec``, differentiable in ``pvec``.
+    ``lam``: a point source's wavelength (a plasma's is per ray);
     ``uniforms``: (n_draws, n_total), or None for the Philox stream keyed
     by ``seed``."""
     F, I = _static_lists(static)
     P = pvec
-    lam = torch.tensor(lam, dtype=P.dtype, device=P.device)
     shapes = {e: (nx, ny) for e, _, nx, ny in _image_slots(I)}
     parts = {e: torch.zeros(nx * ny, dtype=P.dtype, device=P.device)
              for e, (nx, ny) in shapes.items()}
     for rays, draw in _slices(n_total, chunk, static.n_draws, uniforms, seed,
                               P.dtype, P.device):
-        state = _source_state(F, I, rays, draw, P.dtype)
+        state, lam_r, _ = _source_state(F, I, P, rays, draw, lam)
         for e in range(I[0]):
-            state, _, img = _optic_fwd(F, I, e, P, lam, state)
+            state, _, img = _optic_fwd(F, I, e, P, lam_r, state)
             if img is not None:
                 parts[e] = parts[e] + _splat(*shapes[e], *img)
     # The images lie in optic order in the flat buffer.
@@ -487,21 +785,21 @@ def fused_grad_vjp_plain(static: ft.FusedParams, pvec: torch.Tensor,
     in the dtype of ``pvec``."""
     F, I = _static_lists(static)
     P = pvec.detach()
-    lam = torch.tensor(lam, dtype=P.dtype, device=P.device)
     g_flat = g_flat.to(P.dtype)
     images = {e: (off, nx, ny) for e, off, nx, ny in _image_slots(I)}
     total = torch.zeros(P.numel(), dtype=torch.float64, device=P.device)
+    src_base = I[0] * SLOTS_PER_OPTIC
     for rays, draw in _slices(n_total, chunk, static.n_draws, uniforms, seed,
                               P.dtype, P.device):
-        state = _source_state(F, I, rays, draw, P.dtype)
+        state, lam_r, aux = _source_state(F, I, P, rays, draw, lam)
         saved, seeds = [], {}
         for e in range(I[0]):
-            state, s, img = _optic_fwd(F, I, e, P, lam, state)
+            state, s, img = _optic_fwd(F, I, e, P, lam_r, state)
             saved.append(s)
             if img is not None:
                 seeds[e] = _seeds(g_flat, *images[e], *img)
         zeros = torch.zeros_like(state[0])
-        carry = ((zeros, zeros, zeros), (zeros, zeros, zeros), zeros)
+        carry = ((zeros, zeros, zeros), (zeros, zeros, zeros), zeros, zeros)
         for e in range(I[0] - 1, -1, -1):
             base = e * SLOTS_PER_OPTIC
 
@@ -510,7 +808,27 @@ def fused_grad_vjp_plain(static: ft.FusedParams, pvec: torch.Tensor,
 
             carry = _optic_bwd(F, I, e, P, saved[e], seeds.get(e), carry,
                                add_slot)
+        if aux is not None:  # the source slots (fused_grad.py:279-291)
+            wb, lamb = carry[2], carry[3]
+            n_g, sqrt_t, dop = aux
+            total[src_base] += (wb * F[30]).double().sum()
+            total[src_base + 1] += (lamb * (F[16] * n_g * dop / (2.0 * sqrt_t))).double().sum()
     return total.to(P.dtype)
+
+
+def n_slots_of(static: ft.FusedParams) -> int:
+    """The length of ``pvec``: 24 slots per optic, ``SRC_SLOTS`` for a
+    plasma, padded to a multiple of 8."""
+    plasma = static.source_kind == 2
+    return _round_up(static.n_optics * SLOTS_PER_OPTIC + (SRC_SLOTS if plasma else 0), 8)
+
+
+def _variant(static: ft.FusedParams) -> int:
+    """The kernels' build variant: bit 0 a torus in the chain, bit 1 a
+    cylinder, bit 2 a plasma source."""
+    return (int(bool(static.shape_mask & (1 << 2)))
+            | int(bool(static.shape_mask & (1 << 3))) << 1
+            | int(static.source_kind == 2) << 2)
 
 
 def _check_buffers(static: ft.FusedParams, pvec: torch.Tensor, n_total: int,
@@ -518,9 +836,9 @@ def _check_buffers(static: ft.FusedParams, pvec: torch.Tensor, n_total: int,
     device = static.fp.device
     if pvec.device != device or pvec.dtype != torch.float32 or pvec.dim() != 1:
         raise ValueError(f"{name}: pvec must be a float32 vector on {device}")
-    if pvec.numel() < static.n_optics * SLOTS_PER_OPTIC:
+    if pvec.numel() < n_slots_of(static):
         raise ValueError(f"{name}: pvec holds {pvec.numel()} slots, need "
-                         f"{static.n_optics * SLOTS_PER_OPTIC}")
+                         f"{n_slots_of(static)}")
     if not 0 <= n_total < 2**31:
         raise ValueError(f"{name}: n_total must be in [0, 2^31)")
     if uniforms is None:
@@ -555,7 +873,8 @@ def fused_grad_forward_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         static.ip.numel(), pvec.data_ptr(), pvec.numel(), n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, image.data_ptr(),
-        static.img_total, torch.cuda.current_stream(device).cuda_stream)
+        static.img_total, _variant(static),
+        torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_fused_grad_fwd")
     fused_grad_forward_cuda.launches += 1
     return image
@@ -588,7 +907,7 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
     if n_total == 0:
         return torch.zeros(n_slots, dtype=torch.float32, device=device)
     lib = native.library()
-    n_blocks = lib.xrt_fused_grad_bwd_blocks(n_total, static.img_total)
+    n_blocks = lib.xrt_fused_grad_bwd_blocks(n_total, static.img_total, _variant(static))
     if n_blocks <= 0:
         native.check(-n_blocks, "xrt_fused_grad_bwd_blocks")
     partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
@@ -598,7 +917,7 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         static.ip.numel(), pvec.data_ptr(), n_slots, n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, g_flat.data_ptr(),
-        static.img_total, partial.data_ptr(), n_blocks,
+        static.img_total, partial.data_ptr(), n_blocks, _variant(static),
         torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_fused_grad_bwd")
     fused_grad_vjp_cuda.launches += 1
@@ -654,11 +973,12 @@ def build_fused_diff(pipeline, num_iter: int | None = None,
     static = ft.pack_params(src, optics, pipeline.params, device)
     if num_iter is None:
         num_iter = int(g["number_of_iter"])
-    n_total = pipeline.num_rays * num_iter
+    n_total = src["n_rays"] * num_iter
     if n_total >= 2**31:
         raise FusedGradUnsupported(
             f"num_rays*num_iter = {n_total:.3e} overflows int32 ray indexing")
-    n_slots = _round_up(len(optics) * SLOTS_PER_OPTIC, 8)
+    n_slots = n_slots_of(static)
+    # A point source's wavelength; a plasma's is drawn per ray.
     lam = float(pipeline.params["sources"][src["name"]]["wavelength"])
     images = [(o["name"], o["image"]["nx"], o["image"]["ny"])
               for o in optics if o["image"] is not None]

@@ -4,7 +4,8 @@ One CUDA kernel (``csrc/fused_trace.cu``) generates every ray, traces it
 through the optic chain, counts the survivors of each element and bins the
 nearest-pixel images, with all per-ray state in registers. It replaces the
 ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
-chain (K1a), the in-kernel plasma source (K1f) and the torus stage of K1c.
+chain (K1a), the in-kernel plasma source (K1f) and the torus and cylinder
+stages of K1c.
 
 Supported subset (``general.engine='fused'``; outside it the build raises
 ``FusedUnsupported``, and ``'auto'`` falls back to the eager engine):
@@ -17,8 +18,10 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   search over the iteration's cumulative counts (``csrc/bundle_lookup.cuh``),
   then samples the voxel offset, the cone to the target, the exact Voigt
   wavelength and the Doppler shift;
-- plane, sphere and torus optics (the torus by the local-quadratic Newton
-  root of ``torus_local_quadratic_t``) with x/y/z bounds and aperture logic
+- plane, sphere, torus and cylinder optics (the torus by the
+  local-quadratic Newton root of ``torus_local_quadratic_t``, the cylinder
+  by the stable quadratic about its x axis) with x/y/z bounds and aperture
+  logic
   (every logic op; shapes none/circle/square/rectangle/ellipse);
 - no interaction, or a Bragg crystal with gaussian or step rocking in
   ``mc`` mode, with per-ray wavelengths for plasma sources;
@@ -59,15 +62,19 @@ class FusedUnsupported(NotImplementedError):
 
 # Buffer layout, mirrored by the XRT_* offsets of csrc/trace_common.cuh.
 # Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
-# source kind (0 point, 1 plasma), voxel draws (plasma), Cauchy draw.
+# source kind (0 point, 1 plasma of bundle tables, 2 plasma of one bundle
+# per ray, the gradient kernels' own), voxel draws (plasma), Cauchy draw.
 MAX_OPTICS = 16
 MAX_APERTURES = 64
-SRC_F, OPT_F, AP_F = 24, 32, 4
+SRC_F, OPT_F, AP_F = 32, 32, 4
 HDR_I, OPT_I, AP_I = 8, 16, 2
 _APERTURE_SHAPES = {"none": 0, "circle": 1, "square": 2, "rectangle": 3,
                     "ellipse": 4}
 _LOGIC = {"and": 0, "not": 1, "or": 2, "nand": 3, "nor": 4, "xor": 5, "xnor": 6}
-_SHAPES = {"plane": 0, "sphere": 1, "torus": 2}
+_SHAPES = {"plane": 0, "sphere": 1, "torus": 2, "cylinder": 3}
+# Optic floats of a torus read by the gradient kernels (XRT_O_MADJ,
+# XRT_O_CSIGN): the convex pair folded into (major_adjust, center_sign).
+O_MAJOR_ADJUST, O_CENTER_SIGN = 29, 30
 _TWO_PI = 2.0 * math.pi
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
 _C_LIGHT = 299792458.0
@@ -156,7 +163,9 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
     from xicsrt_tpu_torch.optics.interactions import (
         InteractCrystal, InteractMirror, InteractNone,
     )
-    from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere, ShapeTorus
+    from xicsrt_tpu_torch.optics.shapes import (
+        ShapeCylinder, ShapePlane, ShapeSphere, ShapeTorus,
+    )
 
     p = optic.param
     spec = {"name": optic.name, "n_draws": 0, "apertures": [], "image": None}
@@ -164,6 +173,9 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
         spec["shape"] = _SHAPES["plane"]
     elif isinstance(optic, ShapeSphere):
         spec["shape"] = _SHAPES["sphere"]
+        spec["convex"] = bool(p.get("convex", False))
+    elif isinstance(optic, ShapeCylinder):
+        spec["shape"] = _SHAPES["cylinder"]
         spec["convex"] = bool(p.get("convex", False))
     elif isinstance(optic, ShapeTorus):
         spec["shape"] = _SHAPES["torus"]
@@ -229,15 +241,22 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
 class FusedParams:
     """Packed kernel parameters: ``fp`` float32 and ``ip`` int32 buffers on
     one device, plus the sizes the host needs to allocate the outputs.
-    ``plasma``: the source is a plasma, whose rays take their bundles from
-    per-iteration tables."""
+    ``source_kind``: 0 point, 1 plasma of bundle tables, 2 plasma of one
+    bundle per ray; ``shape_mask``: bit s set where the chain holds an optic
+    of shape code s."""
 
     fp: torch.Tensor
     ip: torch.Tensor
     n_optics: int
     img_total: int
     n_draws: int
-    plasma: bool = False
+    source_kind: int = 0
+    shape_mask: int = 0
+
+    @property
+    def plasma(self) -> bool:
+        """The rays take their bundles from per-iteration tables (K1f)."""
+        return self.source_kind == 1
 
 
 def _vec(t) -> np.ndarray:
@@ -276,6 +295,20 @@ def _pack_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
     fp[19] = 1.0 / _C_LIGHT
 
 
+def _pack_ray_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
+    """fp[0:31] of a plasma sampled one bundle per ray (source kind 2, the
+    gradient kernels' ``ops/fused_grad._grad_plasma_spec``): the K1
+    plasma's first 20 floats, then the origin, the box sizes,
+    1 - cos(spread), the bulk velocity and the initial weight per unit
+    emissivity."""
+    _pack_plasma_source(src, sp, fp)
+    fp[20:23] = _vec(sp["frame"].origin)
+    fp[23:26] = src["sizes"]
+    fp[26] = src["omc"]
+    fp[27:30] = src["velocity"]
+    fp[30] = src["w0_per_E"]
+
+
 def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
     """Pack the structure specs and the run's ``params`` into the kernel's
     buffers. Derived constants are computed in float64 from the parameter
@@ -290,13 +323,15 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
     ip = np.zeros(HDR_I + n_opt * OPT_I + n_ap * AP_I, np.int32)
 
     sp = params["sources"][src["name"]]
-    plasma = src["kind"] == 1
-    if plasma:
-        _pack_plasma_source(src, sp, fp)
-        wavelength = None  # per ray
-    else:
+    plasma = src["kind"] != 0
+    wavelength = None  # per ray for a plasma
+    if src["kind"] == 0:
         _pack_point_source(src, sp, fp)
         wavelength = float(_vec(sp["wavelength"]))
+    elif src["kind"] == 1:
+        _pack_plasma_source(src, sp, fp)
+    else:
+        _pack_ray_plasma_source(src, sp, fp)
 
     img_total = 0
     ap_index = 0
@@ -311,7 +346,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
         f[0:3] = origin
         f[3:12] = ob.reshape(-1)
         i[0] = o["shape"]
-        if o["shape"] == _SHAPES["sphere"]:
+        if o["shape"] in (_SHAPES["sphere"], _SHAPES["cylinder"]):
             radius = float(_vec(op["radius"]))
             sign = -1.0 if o["convex"] else 1.0
             f[12:15] = origin + sign * radius * ob[2]
@@ -326,6 +361,8 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             f[15] = r_maj
             f[26] = r_min * r_min
             f[27] = 1e-5 * max(1.0, r_maj)
+            f[O_MAJOR_ADJUST] = o["major_adjust"]
+            f[O_CENTER_SIGN] = o["center_sign"]
         f[16:19] = o["half"]
         i[4] = o["checks"]
         i[2] = o["interact"]
@@ -367,7 +404,9 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
     return FusedParams(
         fp=torch.as_tensor(fp.astype(np.float32), device=device),
         ip=torch.as_tensor(ip, device=device),
-        n_optics=n_opt, img_total=img_total, n_draws=n_draws, plasma=plasma,
+        n_optics=n_opt, img_total=img_total, n_draws=n_draws,
+        source_kind=src["kind"],
+        shape_mask=sum({1 << o["shape"] for o in optics}),
     )
 
 
@@ -454,6 +493,42 @@ def sample_source_plain(F, dist: int, draw, full):
     return px, py, pz, dx, dy, dz
 
 
+def plasma_cone_plain(F, omc, draw, px, py, pz):
+    """The kernels' plasma cone (``xrt_plasma_cone``): an isotropic cone of
+    ``omc = 1 - cos(half-angle)`` about the unit direction from each ray's
+    origin to the target F[9:12], in the per-ray basis of
+    ``vec.orthogonal_basis`` with the hint F[12:15]. Draws u, v; returns
+    the unit direction (dx, dy, dz)."""
+    nx, ny, nz = F[9] - px, F[10] - py, F[11] - pz
+    inv = _inv_sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-30))
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    hx, hy, hz = F[12], F[13], F[14]
+    o1x, o1y, o1z = ny * hz - nz * hy, nz * hx - nx * hz, nx * hy - ny * hx
+    inv = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
+    o1x, o1y, o1z = o1x * inv, o1y * inv, o1z * inv
+    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
+    u, v = draw(), draw()
+    lz = 1.0 - u * omc
+    rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
+    phi = v * _TWO_PI
+    lx, ly = rho * torch.cos(phi), rho * torch.sin(phi)
+    return (lx * o2x + ly * o1x + lz * nx, lx * o2y + ly * o1y + lz * ny,
+            lx * o2z + ly * o1z + lz * nz)
+
+
+def normal_plain(draw):
+    """The kernels' standard normal (``xrt_normal``): sqrt(2) erfinv(2u - 1)
+    of a uniform clipped to [1e-7, 1 - 1e-7]."""
+    un = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
+    return math.sqrt(2.0) * torch.special.erfinv(2.0 * un - 1.0)
+
+
+def cauchy_plain(draw, gamma: float):
+    """The natural (Cauchy) part of an exact Voigt line (``xrt_cauchy``)."""
+    uc = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
+    return gamma * torch.tan(math.pi * (uc - 0.5))
+
+
 def sample_plasma_plain(F, I, attrs, draw):
     """The kernel's plasma sampler (``xrt_sample_plasma``, JAX
     ``fused_trace.py:1484-1537``): from each ray's bundle row ``attrs``
@@ -470,57 +545,31 @@ def sample_plasma_plain(F, I, attrs, draw):
         px = px + vx * F[0] + vy * F[3] + vz * F[6]
         py = py + vx * F[1] + vy * F[4] + vz * F[7]
         pz = pz + vx * F[2] + vy * F[5] + vz * F[8]
-    # Isotropic cone about the direction to the target, per-ray basis as
-    # vec.orthogonal_basis with the hint x + z.
-    nx, ny, nz = F[9] - px, F[10] - py, F[11] - pz
-    inv = _inv_sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-30))
-    nx, ny, nz = nx * inv, ny * inv, nz * inv
-    hx, hy, hz = F[12], F[13], F[14]
-    o1x, o1y, o1z = ny * hz - nz * hy, nz * hx - nx * hz, nx * hy - ny * hx
-    inv = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
-    o1x, o1y, o1z = o1x * inv, o1y * inv, o1z * inv
-    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
-    u, v = draw(), draw()
-    lz = 1.0 - u * (1.0 - torch.cos(theta))
-    rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
-    phi = v * _TWO_PI
-    lx, ly = rho * torch.cos(phi), rho * torch.sin(phi)
-    dx = lx * o2x + ly * o1x + lz * nx
-    dy = lx * o2y + ly * o1y + lz * ny
-    dz = lx * o2z + ly * o1z + lz * nz
-    # Exact Voigt: a normal by erfinv of a clipped uniform, scaled by the
-    # bundle's Doppler width, plus a Cauchy; then the bulk Doppler shift.
-    un = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
-    gauss = math.sqrt(2.0) * torch.special.erfinv(2.0 * un - 1.0)
+    dx, dy, dz = plasma_cone_plain(F, 1.0 - torch.cos(theta), draw, px, py, pz)
+    # Exact Voigt: a normal scaled by the bundle's Doppler width, plus a
+    # Cauchy; then the bulk Doppler shift.
+    gauss = normal_plain(draw)
     wl = F[15] + F[16] * torch.sqrt(torch.clamp_min(temp, 0.0)) * gauss
     if I[7]:
-        uc = torch.clamp(draw(), 1e-7, 1.0 - 1e-7)
-        wl = wl + F[17] * torch.tan(math.pi * (uc - 0.5))
+        wl = wl + cauchy_plain(draw, F[17])
     wl = wl * (1.0 - (vxb * dx + vyb * dy + vzb * dz) * F[19])
     return px, py, pz, dx, dy, dz, wl
 
 
-def torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full):
-    """The kernels' torus root (``xrt_torus_hit``; JAX
-    ``torus_local_quadratic_t``, ``fused_trace.py:616-702``): four
-    local-quadratic Newton steps from the tangent-plane hit. Returns
-    (t, hit), t zero where the ray misses."""
-    rx, ry, rz = px - o[12], py - o[13], pz - o[14]
-    olx = rx * o[3] + ry * o[4] + rz * o[5]
-    oly = rx * o[6] + ry * o[7] + rz * o[8]
-    olz = rx * o[9] + ry * o[10] + rz * o[11]
-    dlx = dx * o[3] + dy * o[4] + dz * o[5]
-    dly = dx * o[6] + dy * o[7] + dz * o[8]
-    dlz = dx * o[9] + dy * o[10] + dz * o[11]
-    z0 = (px - o[0]) * o[9] + (py - o[1]) * o[10] + (pz - o[2]) * o[11]
+def torus_root_plain(olx, oly, olz, dlx, dly, dlz, z0, r_maj, rmin2, full):
+    """The kernels' torus root (``xrt_torus_root``; JAX
+    ``torus_local_quadratic_t``, ``fused_trace.py:616-702``) in
+    torus-centred local coordinates: four local-quadratic Newton steps on
+    G(t) = (|xz|(t) - r_maj)^2 + y(t)^2 - rmin2 from the tangent-plane hit
+    -z0 / dlz. Returns (t, the last step)."""
     t = -z0 / torch.where(torch.abs(dlz) > 1e-9, dlz, full(1e-9))
     step = full(0.0)
     for _ in range(4):
         X, Y, Z = olx + t * dlx, oly + t * dly, olz + t * dlz
         s2 = torch.clamp_min(X * X + Z * Z, 1e-30)
         inv_rho = _inv_sqrt(s2)
-        rr = s2 * inv_rho - o[15]
-        G = rr * rr + Y * Y - o[26]
+        rr = s2 * inv_rho - r_maj
+        G = rr * rr + Y * Y - rmin2
         rhop = (X * dlx + Z * dlz) * inv_rho
         Gp = 2.0 * rr * rhop + 2.0 * Y * dly
         rhopp = ((dlx * dlx + dlz * dlz) - rhop * rhop) * inv_rho
@@ -532,8 +581,52 @@ def torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full):
         gp_safe = torch.where(torch.abs(Gp) > 1e-12, Gp, sgn * 1e-12)
         step = G / torch.where(disc >= 0.0, 0.5 * dq, gp_safe)
         t = t - step
+    return t, step
+
+
+def torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full):
+    """The kernel's torus stage (``xrt_torus_hit``) of the optic block
+    ``o``. Returns (t, hit), t zero where the ray misses."""
+    rx, ry, rz = px - o[12], py - o[13], pz - o[14]
+    olx = rx * o[3] + ry * o[4] + rz * o[5]
+    oly = rx * o[6] + ry * o[7] + rz * o[8]
+    olz = rx * o[9] + ry * o[10] + rz * o[11]
+    dlx = dx * o[3] + dy * o[4] + dz * o[5]
+    dly = dx * o[6] + dy * o[7] + dz * o[8]
+    dlz = dx * o[9] + dy * o[10] + dz * o[11]
+    z0 = (px - o[0]) * o[9] + (py - o[1]) * o[10] + (pz - o[2]) * o[11]
+    t, step = torus_root_plain(olx, oly, olz, dlx, dly, dlz, z0, o[15], o[26], full)
     hit = alive & (torch.abs(step) < o[27]) & (t > 1e-6)
     return torch.where(hit, t, full(0.0)), hit
+
+
+def cylinder_hit_plain(C, ax, r2, convex: bool, p, d, full):
+    """The kernels' cylinder (``xrt_cylinder_hit``; JAX
+    ``fused_trace.py:784-812``): axis ``ax`` through ``C``, squared radius
+    ``r2``, the stable quadratic of the ray's components across the axis,
+    the near root (convex) or the far one. Returns a dict of the
+    intermediates, ``disc`` (the ray hits where it is >= 0) and ``t``."""
+    (px, py, pz), (dx, dy, dz) = p, d
+    h = {"dpx": px - C[0], "dpy": py - C[1], "dpz": pz - C[2]}
+    h["d_ax"] = dx * ax[0] + dy * ax[1] + dz * ax[2]
+    h["p_ax"] = h["dpx"] * ax[0] + h["dpy"] * ax[1] + h["dpz"] * ax[2]
+    h["A1x"], h["A1y"], h["A1z"] = (dx - h["d_ax"] * ax[0], dy - h["d_ax"] * ax[1],
+                                    dz - h["d_ax"] * ax[2])
+    h["B1x"], h["B1y"], h["B1z"] = (h["dpx"] - h["p_ax"] * ax[0],
+                                    h["dpy"] - h["p_ax"] * ax[1],
+                                    h["dpz"] - h["p_ax"] * ax[2])
+    h["qa"] = h["A1x"] * h["A1x"] + h["A1y"] * h["A1y"] + h["A1z"] * h["A1z"]
+    h["qb"] = 2.0 * (h["A1x"] * h["B1x"] + h["A1y"] * h["B1y"] + h["A1z"] * h["B1z"])
+    qc = h["B1x"] * h["B1x"] + h["B1y"] * h["B1y"] + h["B1z"] * h["B1z"] - r2
+    h["disc"] = h["qb"] * h["qb"] - 4.0 * h["qa"] * qc
+    sq = torch.sqrt(torch.clamp_min(h["disc"], 0.0))
+    sgn = torch.where(h["qb"] >= 0.0, full(1.0), full(-1.0))
+    qq = -0.5 * (h["qb"] + sgn * sq)
+    t0 = qq / torch.where(torch.abs(h["qa"]) > 1e-30, h["qa"], full(1e-30))
+    big = torch.abs(qq) > 1e-30
+    t1 = torch.where(big, qc / torch.where(big, qq, full(1e-30)), t0)
+    h["t"] = torch.minimum(t0, t1) if convex else torch.maximum(t0, t1)
+    return h
 
 
 def bounds_plain(mask, o, oi, lxv, lyv, r, bz):
@@ -614,8 +707,13 @@ def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
             m_int = alive & (d2 <= o[15])
             t_hc = torch.sqrt(torch.clamp_min(o[15] - d2, 0.0))
             t = t_ca - t_hc if oi[1] else t_ca + t_hc
-        else:
+        elif oi[0] == _SHAPES["torus"]:
             t, m_int = torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full)
+        else:  # cylinder of axis bx through o[12:15]
+            h = cylinder_hit_plain(o[12:15], o[3:6], o[15], bool(oi[1]),
+                                   (px, py, pz), (dx, dy, dz), full)
+            m_int = alive & (h["disc"] >= 0.0)
+            t = torch.where(m_int, h["t"], full(0.0))
         qx = torch.where(m_int, px + t * dx, px)
         qy = torch.where(m_int, py + t * dy, py)
         qz = torch.where(m_int, pz + t * dz, pz)
@@ -630,6 +728,10 @@ def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
             nxv = ptx - o[15] * plx * inv
             nyv = pty - o[15] * ply * inv
             nzv = ptz - o[15] * plz * inv
+        elif oi[0] == _SHAPES["cylinder"]:  # towards the axis
+            tcx, tcy, tcz = o[12] - qx, o[13] - qy, o[14] - qz
+            along = tcx * o[3] + tcy * o[4] + tcz * o[5]
+            nxv, nyv, nzv = tcx - along * o[3], tcy - along * o[4], tcz - along * o[5]
         if oi[0] != _SHAPES["plane"]:
             inv = _inv_sqrt(torch.clamp_min(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30))
             nxv, nyv, nzv = nxv * inv, nyv * inv, nzv * inv

@@ -49,13 +49,13 @@ _SIGNATURES = {
     "xrt_fused_grad_fwd": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
-        _P, ctypes.c_int, _P,
+        _P, ctypes.c_int, ctypes.c_int, _P,
     ],
-    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int],
+    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
     "xrt_fused_grad_bwd": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
-        _P, ctypes.c_int, _P, ctypes.c_int, _P,
+        _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
     ],
 }
 

@@ -1,7 +1,7 @@
 """Ready-made optics: Shape x Interact compositions
 (``xicsrt_tpu/optics/composites.py``), registered under the reference
-``class_name``. Ported: every composite of a plane, a sphere or a torus
-with no interaction, a mirror or a crystal."""
+``class_name``. Ported: every composite of a plane, a sphere, a cylinder or
+a torus with no interaction, a mirror or a crystal."""
 
 from __future__ import annotations
 
@@ -11,7 +11,12 @@ from xicsrt_tpu_torch.optics.interactions import (
     InteractMirror,
     InteractNone,
 )
-from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere, ShapeTorus
+from xicsrt_tpu_torch.optics.shapes import (
+    ShapeCylinder,
+    ShapePlane,
+    ShapeSphere,
+    ShapeTorus,
+)
 
 
 @register("XicsrtOpticDetector", "detector")
@@ -45,6 +50,16 @@ class OpticSphericalMirror(InteractMirror, ShapeSphere):
     "XicsrtOpticCrystalSpherical",
 )
 class OpticSphericalCrystal(InteractCrystal, ShapeSphere):
+    pass
+
+
+@register("XicsrtOpticCylindricalMirror", "cylindrical_mirror")
+class OpticCylindricalMirror(InteractMirror, ShapeCylinder):
+    pass
+
+
+@register("XicsrtOpticCylindricalCrystal", "cylindrical_crystal")
+class OpticCylindricalCrystal(InteractCrystal, ShapeCylinder):
     pass
 
 

@@ -1,11 +1,12 @@
 """Analytic shape mixins (``xicsrt_tpu/optics/shapes.py``).
 
 Ported: plane (``_ShapePlane.py:32-62``), sphere (``_ShapeSphere.py:52-106``;
-concave picks the far root, convex the near root) and torus
-(``_ShapeTorus.py:54-216``: the quartic in torus-centred coordinates, axis
-along the local y axis; the ``convex`` pair sets the tube and the centre).
-Each provides ``intersect(params, rays) -> (dist, normal, mask)`` in global
-coordinates. The cylinder is not ported yet.
+concave picks the far root, convex the near root), cylinder
+(``_ShapeCylinder.py:52-133``: axis along the local x axis, the same root
+choice) and torus (``_ShapeTorus.py:54-216``: the quartic in torus-centred
+coordinates, axis along the local y axis; the ``convex`` pair sets the tube
+and the centre). Each provides ``intersect(params, rays) -> (dist, normal,
+mask)`` in global coordinates.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ class ShapePlane(TraceElement):
         return dist, normal.expand(rays.origin.shape), m
 
 
-class ShapeSphere(TraceElement):
-    """Spherical cap; center at origin + sign * radius * zaxis."""
+class _ShapeCurved(TraceElement):
+    """The config of a curved shape of one radius (sphere, cylinder)."""
 
     def default_config(self) -> dict:
         config = super().default_config()
@@ -55,6 +56,10 @@ class ShapeSphere(TraceElement):
         params = super().build_params()
         params["radius"] = self.as_tensor(self.param["radius"])
         return params
+
+
+class ShapeSphere(_ShapeCurved):
+    """Spherical cap; center at origin + sign * radius * zaxis."""
 
     def intersect(self, params, rays):
         convex = bool(self.param["convex"])
@@ -72,6 +77,36 @@ class ShapeSphere(TraceElement):
         xloc = rays.origin + rays.direction * dist[:, None]
         norm = vec.safe_normalize(center[None, :] - xloc)
         return dist, norm, m
+
+
+class ShapeCylinder(_ShapeCurved):
+    """Cylindrical surface; axis along the local xaxis, the axis displaced
+    from the origin along +-zaxis by the radius (JAX ``optics/shapes.py:91``)."""
+
+    def intersect(self, params, rays):
+        convex = bool(self.param["convex"])
+        sign = -1.0 if convex else 1.0
+        frame = params["frame"]
+        radius = params["radius"]
+        center = frame.origin + sign * radius * frame.zaxis
+        axis = frame.xaxis
+        dp = rays.origin - center[None, :]
+        d_ax = vec.dot(rays.direction, axis)
+        p_ax = vec.dot(dp, axis)
+        A1 = rays.direction - d_ax[:, None] * axis[None, :]
+        B1 = dp - p_ax[:, None] * axis[None, :]
+        a = vec.dot(A1, A1)
+        b = 2.0 * vec.dot(A1, B1)
+        c = vec.dot(B1, B1) - radius * radius
+        t0, t1, valid = poly.solve_quadratic(a, b, c)
+        dist = torch.minimum(t0, t1) if convex else torch.maximum(t0, t1)
+        m = rays.mask & valid
+        dist = torch.where(m, dist, torch.zeros_like(dist))
+        xloc = rays.origin + rays.direction * dist[:, None]
+        # The normal points from the surface towards the axis.
+        to_center = center[None, :] - xloc
+        along = vec.dot(to_center, axis)
+        return dist, vec.safe_normalize(to_center - along[:, None] * axis[None, :]), m
 
 
 class ShapeTorus(TraceElement):
