@@ -46,7 +46,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     200 Adam steps on (log E, log T); d/dE against a finite difference of
     K5f, d/dT against the eager engine's autograd;
 22. gradient timings at full width: example 07's chain, its cylindrical
-    twin and a cubic plasma, 2^22 rays x 4 iterations each.
+    twin and a cubic plasma, 2^22 rays x 4 iterations each;
+23. K1b (the generic source matrix in K1) against its twin on eight source
+    variants (boxes, Voigt and uniform lines, Doppler, Focused, flat,
+    flat_xy, gaussian and asymmetric isotropic_xy cones, a sightline) at
+    2^20 rays, both RNG modes, and its time;
+24. the source matrix through ``raytrace(config, device='cuda')`` on both
+    engines at 2^22 rays x 4: a focused gaussian source of the Ar XVII line
+    (1 keV, natural width, 1e5 m/s flow) on the flagship crystal, and a
+    sightline-filtered uniform box; the detected line against the
+    source's;
+25. K3 (the trace-only kernel) against its twin, then ``plasma_torus`` with
+    8e6 bundles at 2^24 expected photons x 2 on ``engine='fused'`` (K4
+    generates, K3 traces), and K3's time;
+26. K5f and K5b with the generic sampler against their twins on
+    ``tests/test_fused_grad.py``'s six source-matrix variants at 2^20
+    rays, then ``make_fused_differentiable`` on ``focused_gaussian_voigt``
+    at 2^22 rays x 4 with timings.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -83,7 +99,14 @@ FLAGSHIP_IMAGES = ((100, 100, 0.002), (100, 50, 0.004))
 # comparison, select and math-library call is one operation; the Philox
 # draws' integer operations and the images' atomics are not counted.
 OPS_PER_RAY = {
-    "source": {0: 26, 1: 55},          # point source by cone kind
+    # The generic source (xrt_sample_source): the cone by kind (isotropic,
+    # isotropic_xy, its asymmetric Newton of 12 steps, flat, flat_xy,
+    # gaussian), then a constant rotation or the Focused per-ray basis; per
+    # nonzero box size, a uniform or gaussian offset; a uniform band; a
+    # Voigt line's Gauss and Cauchy parts; the Doppler shift; per sightline.
+    "cone": {0: 11, 1: 40, 2: 993, 3: 13, 4: 14, 5: 24},
+    "rotation": 15, "aim": 58, "box": {1: 8, 2: 13},
+    "band": 2, "gauss": 8, "cauchy": 7, "doppler": 8, "sightline": 21,
     "plasma_k1": 105, "plasma_k5": 125,
     "shape_k1": {0: 22, 1: 39, 2: 327, 3: 93},   # hit, position, normal
     "shape_k5": {0: 22, 1: 45, 2: 366, 3: 98},
@@ -100,18 +123,36 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
+HDR_I, OPT_I = 16, 16  # ops/fused_trace.py's packed int layout
+
+
 def optic_structs(ip) -> list:
     """(shape, interact, apertures, imaged) of each optic of a packed ip."""
     ip = [int(x) for x in ip.tolist()]
-    return [(ip[8 + 16 * e], ip[8 + 16 * e + 2], ip[8 + 16 * e + 5],
-             ip[8 + 16 * e + 7] >= 0) for e in range(ip[0])]
+    return [(ip[HDR_I + OPT_I * e], ip[HDR_I + OPT_I * e + 2], ip[HDR_I + OPT_I * e + 5],
+             ip[HDR_I + OPT_I * e + 7] >= 0) for e in range(ip[0])]
 
 
-def k1_ops(fparams) -> int:
-    """K1's float32 operations per ray (Bernoulli crystals, nearest images)."""
-    ip = fparams.ip
-    ops = (OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1
-           else OPS_PER_RAY["source"][int(ip[2])])
+def generic_source_ops(fparams) -> int:
+    """The generic source's float32 operations per ray, from its packed
+    structure (header ints 2 and 8-15, the box sizes at fp[33:36])."""
+    ip = [int(x) for x in fparams.ip.tolist()]
+    sizes = [float(x) for x in fparams.fp[33:36].tolist()]
+    ops = OPS_PER_RAY["cone"][ip[2]]
+    ops += OPS_PER_RAY["aim"] if ip[10] else OPS_PER_RAY["rotation"]
+    if ip[9]:
+        ops += OPS_PER_RAY["box"][ip[9]] * sum(1 for x in sizes if x != 0.0)
+    if ip[11] == 1:
+        ops += OPS_PER_RAY["band"]
+    ops += OPS_PER_RAY["gauss"] * ip[12] + OPS_PER_RAY["cauchy"] * ip[13]
+    ops += OPS_PER_RAY["doppler"] * ip[14] + OPS_PER_RAY["sightline"] * ip[8]
+    return ops
+
+
+def chain_k1_ops(ip) -> int:
+    """K1's and K3's chain: float32 operations per ray (Bernoulli crystals,
+    nearest images)."""
+    ops = 0
     for shape, interact, n_ap, imaged in optic_structs(ip):
         ops += (OPS_PER_RAY["shape_k1"][shape] + OPS_PER_RAY["bounds"]
                 + n_ap * OPS_PER_RAY["aperture"]
@@ -120,11 +161,18 @@ def k1_ops(fparams) -> int:
     return ops
 
 
+def k1_ops(fparams) -> int:
+    """K1's float32 operations per ray: the source, then the chain."""
+    ip = fparams.ip
+    ops = OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1 else generic_source_ops(fparams)
+    return ops + chain_k1_ops(ip)
+
+
 def k5_ops(static, backward: bool) -> int:
     """K5f's (or K5b's: forward plus adjoint) float32 operations per ray."""
     ip = static.ip
     plasma = int(ip[5]) == 2
-    ops = OPS_PER_RAY["plasma_k5"] if plasma else OPS_PER_RAY["source"][int(ip[2])]
+    ops = OPS_PER_RAY["plasma_k5"] if plasma else generic_source_ops(static)
     if backward and plasma:
         ops += OPS_PER_RAY["adjoint_plasma"]
     for shape, interact, n_ap, imaged in optic_structs(ip):
@@ -990,13 +1038,13 @@ def phase_k1_cylinder(smi, ft, engine, raytrace) -> dict:
             "bound": k1c_bound}
 
 
-def phase_k5_variants(fg, engine) -> tuple:
+def phase_k5_variants(fg, engine, kinds=GRAD_VARIANTS, phase="19") -> tuple:
     """K5f and K5b against their float32 twins (the bounds of phases 8-9)
     and K5b against the float64 twin, on each variant, both RNG modes.
     Returns the largest |K5f - twin| pixel and |K5b - f32 twin| slot."""
     worst_f = worst_b = 0.0
     n = 1 << 20
-    for kind in GRAD_VARIANTS:
+    for kind in kinds:
         pipe = engine.Pipeline(grad_variant(kind, n), device="cuda")
         _, _, pack, spec = fg.build_fused_diff(pipe)
         static, lam, n_total = spec["static"], spec["lam"], spec["n_total"]
@@ -1024,11 +1072,11 @@ def phase_k5_variants(fg, engine) -> tuple:
             # rounding flips its tent slope, in the mirror's origin-x slot
             # (tests/test_torch_fused_grad.py); that slot is reported.
             slot0 = f"{kb[0].item():.6g} vs f64 {tb[0].item():.6g}"
-            if "mirror" in kind:
+            if kind.startswith("convex") and "mirror" in kind:
                 used[0] = 0.0
             used = used.max().item()
             worst_b = max(worst_b, (kb - wb).abs().max().item())
-            log(f"phase 19 {kind} rng={label} ({n_total} rays): K5f total rel "
+            log(f"phase {phase} {kind} rng={label} ({n_total} rays): K5f total rel "
                 f"{rel_total:.3g} (< 1e-4), pixel {pix:.3g} of the maximum (< 1e-3); "
                 f"K5b uses {used32:.3g} of the f32-twin bound (rtol 1e-3, atol 1e-5 "
                 f"scale) and {used:.3g} of the f64 bound (rtol 2e-2, atol 5e-3 scale); "
@@ -1042,6 +1090,8 @@ def phase_k5_variants(fg, engine) -> tuple:
                 b = len(pipe.optics) * fg.SLOTS_PER_OPTIC
                 if not (tb[b] != 0 and tb[b + 1] != 0):
                     raise AssertionError("phase 19: no emissivity or temperature gradient")
+            elif kind in GRAD_SOURCE_VARIANTS and not static.full_source:
+                raise AssertionError(f"phase {phase}: {kind} did not take the full sampler")
     return worst_f, worst_b
 
 
@@ -1236,6 +1286,319 @@ def curved_phases(smi, ft, fg, engine, raytrace) -> dict:
             "timings": timings}
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-26: the generic source matrix (K1b, K5e-generic) and the
+# trace-only kernel K3.
+# ---------------------------------------------------------------------------
+
+SOURCE_VARIANTS = ("box_voigt", "gaussian_uniform_velocity", "focused", "flat",
+                   "flat_xy", "gaussian", "isotropic_xy_asym", "sightline")
+
+
+def source_variant_config(kind, intensity, num_iter=1, **general):
+    """The flagship chain with ``tests/test_fused_engine.py``'s widened
+    sources (:403-470, :944, :977)."""
+    cfg = flagship(intensity, num_iter, **general)
+    src = cfg["sources"]["source"]
+    if kind == "box_voigt":
+        src.update(xsize=0.01, ysize=0.01, zsize=0.005, wavelength_dist="voigt",
+                   linewidth=1e12, temperature=500.0, mass_number=40.0)
+        cfg["optics"]["crystal"]["rocking_fwhm"] = 200e-6
+    elif kind == "gaussian_uniform_velocity":
+        src.update(spatial_dist="gaussian", xsize=0.01, ysize=0.01, zsize=0.0,
+                   wavelength_dist="uniform", wavelength_range=[3.94, 3.96],
+                   velocity=[0.0, 0.0, 1e5])
+        cfg["optics"]["crystal"]["rocking_fwhm"] = 200e-6
+    elif kind == "focused":
+        src.pop("angular_dist")
+        src.update(class_name="XicsrtSourceFocused", target=[0.0, 0.0, 0.80374151],
+                   xsize=0.02, ysize=0.02, zsize=0.0, spread=math.radians(8.0))
+    elif kind == "flat":
+        src.update(angular_dist="flat", spread=math.radians(8.0))
+    elif kind == "flat_xy":
+        src.update(angular_dist="flat_xy", spread=[math.radians(6.0), math.radians(9.0)])
+    elif kind == "gaussian":
+        src.update(angular_dist="gaussian", spread=math.radians(4.0))
+    elif kind == "isotropic_xy_asym":
+        src.update(spread=[-math.radians(4.0), math.radians(9.0),
+                           -math.radians(5.0), math.radians(8.0)])
+    elif kind == "sightline":
+        src.update(xsize=0.06, ysize=0.06, zsize=0.0, filters=["sight"])
+        cfg["filters"] = {"sight": {"class_name": "XicsrtBundleFilterSightline",
+                                    "origin": [0.01, 0.0, 0.0], "zaxis": [0.0, 0.0, 1.0],
+                                    "radius": 0.02}}
+    else:
+        raise ValueError(kind)
+    return cfg
+
+
+def source_matrix_config(intensity, num_iter, engine_kind, **general):
+    """Phase 24's source on the flagship crystal and detector: the Ar XVII
+    line at 3.9492 A from a 1 keV focused gaussian source with its natural
+    width and a 1e5 m/s flow (``tests/test_fused_grad.py``'s
+    ``focused_gaussian_voigt``, aimed at the flagship crystal)."""
+    cfg = flagship(intensity, num_iter, engine=engine_kind, **general)
+    cfg["sources"]["source"] = {
+        "class_name": "XicsrtSourceFocused", "intensity": intensity,
+        "wavelength": 3.9492, "spatial_dist": "gaussian",
+        "xsize": 0.004, "ysize": 0.004, "zsize": 0.002,
+        "angular_dist": "isotropic", "spread": math.radians(9.0),
+        "target": [0.0, 0.0, 0.80374151], "wavelength_dist": "voigt",
+        "linewidth": 1e12, "temperature": 1000.0, "mass_number": 40.0,
+        "velocity": [0.0, 1e5, 0.0]}
+    return cfg
+
+
+def k1_pack(ft, pipe):
+    """K1's packed buffers of a pipeline on the card."""
+    src = ft._source_spec(pipe.source, {f.name: f for f in pipe.filters})
+    return ft.pack_params(src, [ft._optic_spec(o) for o in pipe.optics], pipe.params,
+                          "cuda")
+
+
+def phase_k1b(smi, ft, engine) -> dict:
+    """Phase 23: K1b against its twin on every source variant, 2^20 rays,
+    both RNG modes; then its time on phase 24's source at 2^22 rays."""
+    n = 1 << 20
+    tol = max(2, int(1e-6 * n))
+    worst = 0.0
+    for kind in SOURCE_VARIANTS:
+        fparams = k1_pack(ft, engine.Pipeline(source_variant_config(kind, n, 1),
+                                              device="cuda"))
+        if not fparams.full_source:
+            raise AssertionError(f"phase 23: {kind} did not take the full sampler")
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+        for label, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (2323, 5)})):
+            ck, ik = ft.fused_run_cuda(fparams, n, n, **kwargs)
+            cp, iq = ft.fused_run_plain(fparams, n, n, **kwargs)
+            torch.cuda.synchronize()
+            dc, di = (ck - cp).abs(), (ik - iq).abs()
+            log(f"phase 23 K1b {kind} rng={label}: kernel counts {ck.tolist()}, twin "
+                f"{cp.tolist()}; image L1 diff {di.sum().item():.0f} (tolerance {tol} "
+                f"rays per element)")
+            if dc.max().item() > tol or di.sum().item() > 2 * tol * fparams.n_optics:
+                raise AssertionError(f"K1b differs from its twin ({kind}, rng={label})")
+            if cp[-1].item() <= 0:
+                raise AssertionError(f"phase 23: no detector hits ({kind})")
+            worst = max(worst, float(dc.max().item()), float(di.max().item()))
+    n = 1 << 22
+    fparams = k1_pack(ft, engine.Pipeline(source_matrix_config(n, 1, "fused"),
+                                          device="cuda"))
+    ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
+    plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 3)
+    k1b_bound = bound(packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
+                      + 8 * (1 + fparams.n_optics), k1_ops(fparams) * n)
+    log(f"phase 23 timings on {smi}: K1b (focused gaussian box, Voigt line, Doppler) "
+        f"{ms:.4f} ms vs twin {plain_ms:.4f} ms (2^22 rays, Philox); bound "
+        f"{k1b_bound[0]:.4f} ms ({k1b_bound[1]}, {k1_ops(fparams)} operations per ray)")
+    return {"err": worst, "ms": ms, "plain_ms": plain_ms, "bound": k1b_bound}
+
+
+def engines_agree(fused, eager, label, budget):
+    """Images sum to counts on both engines; the detector efficiencies
+    agree within 5 binomial sigma. Returns the fused meta."""
+    metas = [{k: v["num_out"] for k, v in r["total"]["meta"].items()} for r in (fused, eager)]
+    for meta, res in zip(metas, (fused, eager)):
+        for name, img in res["total"]["image"].items():
+            if not (np.isfinite(img).all() and int(img.sum()) == meta[name]):
+                raise AssertionError(f"{label}: image {name} does not sum to its count")
+        if meta["detector"] <= 0:
+            raise AssertionError(f"{label}: no detector hits")
+    p = [m["detector"] / m["source"] for m in metas]
+    pooled = sum(m["detector"] for m in metas) / sum(m["source"] for m in metas)
+    sigma = math.sqrt(pooled * (1 - pooled) * sum(1 / m["source"] for m in metas))
+    log(f"{label}: fused {metas[0]}, eager {metas[1]} (budgets {budget}); efficiency "
+        f"{p[0]:.6g} vs {p[1]:.6g}, {abs(p[0] - p[1]) / sigma:.2f} binomial sigma (< 5)")
+    if abs(p[0] - p[1]) > 5 * sigma:
+        raise AssertionError(f"{label}: the engines disagree")
+    return metas
+
+
+def voigt_quartiles(cfg) -> tuple:
+    """The source line's quartiles about its centre, from the port's
+    float64 Voigt CDF table."""
+    from xicsrt_tpu_torch.ops import voigt
+
+    p = cfg["sources"]["source"]
+    w0 = p["wavelength"]
+    x, cdf = voigt.voigt_cdf_table(voigt.natural_gamma(p["linewidth"], w0),
+                                   voigt.doppler_sigma(p["temperature"], p["mass_number"], w0))
+    return tuple(float(np.interp(q * cdf[-1], cdf, x)) for q in (0.25, 0.5, 0.75))
+
+
+def phase_source_matrix(ft, engine, raytrace) -> int:
+    """Phase 24: the source matrix through ``raytrace`` on both engines at
+    2^22 rays x 4 iterations (K1b counted around the fused runs); the
+    detected line against the source's; a sightline-filtered uniform box.
+    Returns K1b's launches."""
+    n, iters = 1 << 22, 4
+    ft.fused_run_cuda.launches = 0
+    fused = raytrace(source_matrix_config(n, iters, "fused"), device="cuda")
+    filt_cfg = source_variant_config("sightline", n, iters, engine="fused")
+    fused_filt = raytrace(copy.deepcopy(filt_cfg), device="cuda")
+    launches = ft.fused_run_cuda.launches
+    if launches <= 0:
+        raise AssertionError("phase 24: the source matrix did not launch K1b")
+    eager = raytrace(source_matrix_config(n, iters, "xla"), device="cuda")
+    engines_agree(fused, eager, "phase 24 focused Voigt source", n * iters)
+    filt_cfg["general"]["engine"] = "xla"
+    eager_filt = raytrace(filt_cfg, device="cuda")
+    metas = engines_agree(fused_filt, eager_filt, "phase 24 sightline box", n * iters)
+    expect = math.pi * 0.02**2 / 0.06**2
+    for meta, label in zip(metas, ("fused", "eager")):
+        frac = meta["source"] / (n * iters)
+        dev = (frac - expect) / math.sqrt(expect * (1 - expect) / (n * iters))
+        log(f"phase 24 sightline ({label}): {meta['source']} of {n * iters} rays kept, "
+            f"{frac:.6f} against the geometry's {expect:.6f} ({dev:+.2f} sigma, < 5)")
+        if abs(dev) > 5:
+            raise AssertionError(f"phase 24: the sightline keeps {frac} on {label}")
+
+    # The detected line: the eager engine's found rays, the Doppler shift of
+    # each taken out with its source direction, against the source line's
+    # quartiles (their standard errors from the line's density there).
+    cfg = source_matrix_config(1 << 20, 1, "xla", keep_history=True)
+    res = raytrace(cfg, device="cuda")
+    found = res["found"]["history"]
+    w = found["detector"]["wavelength"].astype(np.float64)
+    d = found["source"]["direction"].astype(np.float64)
+    base = w / (1.0 - d[:, 1] * 1e5 / 299792458.0) - 3.9492
+    q = np.quantile(base, [0.25, 0.5, 0.75])
+    ref = voigt_quartiles(cfg)
+    sigma_line = ref[2] - ref[0]
+    tol = 5 * 1.5 * sigma_line / math.sqrt(len(base))
+    shift = float(np.mean(w - (base + 3.9492)))
+    log(f"phase 24 detected line ({len(base)} rays): quartiles about 3.9492 A "
+        f"{q.tolist()} against the source's {list(ref)} (tolerance {tol:.3g} A); mean "
+        f"Doppler shift {shift:.4g} A")
+    if not (len(base) > 100 and np.all(np.abs(q - np.array(ref)) < tol)):
+        raise AssertionError("phase 24: the detected line is not the source's")
+    return launches
+
+
+def k3_pack(ft, pipe):
+    """K3's packed chain (rays from memory) of a pipeline on the card."""
+    return ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0},
+                          [ft._optic_spec(o) for o in pipe.optics], pipe.params, "cuda")
+
+
+def eager_rays(pipe, seed):
+    """One iteration of the pipeline's source, generated on the card."""
+    from xicsrt_tpu_torch.draws import Draws
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return pipe.source.generate(pipe.params["sources"][pipe.source.name], Draws(gen),
+                                pipe.params["filters"])
+
+
+def phase_k3(smi, ft, engine, raytrace) -> dict:
+    """Phase 25: K3 against its twin on the flagship's rays and a plasma's
+    (per-ray Bragg angles through a torus), both RNG modes; then a
+    ``plasma_torus`` of 8e6 bundles, past K1's 2^22, at 2^24 expected
+    photons x 2 on ``engine='fused'``: K4 generates, K3 traces (counted
+    around the run); then K3's time on one iteration's rays."""
+    worst = 0.0
+    cases = (("flagship", engine.Pipeline(flagship(1 << 20, 1), device="cuda")),
+             ("plasma_torus", engine.Pipeline(plasma_config(1 << 20, 1), device="cuda")))
+    for label, pipe in cases:
+        fparams = k3_pack(ft, pipe)
+        rays = eager_rays(pipe, 25)
+        n = rays.mask.shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+        for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (2525, 9)})):
+            args = (fparams, rays.origin, rays.direction, rays.wavelength, rays.mask)
+            ck, ik = ft.fused_trace_run_cuda(*args, **kwargs)
+            cp, iq = ft.fused_trace_run_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            log(f"phase 25 K3 {label} rng={rng}: {n} rays, kernel counts {ck.tolist()}, "
+                f"twin {cp.tolist()}; image L1 diff {(ik - iq).abs().sum().item():.0f} "
+                f"(tolerance 0: the same float32 operations, FMA-free build)")
+            if not (torch.equal(ck, cp) and torch.equal(ik, iq)):
+                raise AssertionError(f"K3 differs from its twin ({label}, rng={rng})")
+            if ck[-1].item() <= 0:
+                raise AssertionError(f"phase 25: no detector hits ({label})")
+            worst = max(worst, (ik - iq).abs().max().item())
+
+    cfg = plasma_config(1 << 24, 2, bundle_count=8_000_000, engine="fused")
+    cfg["sources"]["plasma"]["max_bundles"] = int(1e7)
+    ft.fused_trace_run_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = raytrace(copy.deepcopy(cfg), device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = ft.fused_trace_run_cuda.launches
+    if launches <= 0:
+        raise AssertionError("phase 25: the 8e6-bundle plasma did not launch K3")
+    meta = check_plasma_result(res, cfg, "phase 25 plasma_torus, 8e6 bundles, fused (K3)")
+    log(f"phase 25: {meta['plasma'] / seconds:.4g} photons/s ({seconds:.2f} s for the "
+        f"first raytrace, its setup included); K3 launches {launches}")
+
+    pipe = engine.Pipeline(cfg, device="cuda")
+    fparams = k3_pack(ft, pipe)
+    rays = eager_rays(pipe, 27)
+    n = rays.mask.shape[0]
+    args = (fparams, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    ms = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, seed=(1, 2)), 20)
+    plain_ms = cuda_ms(lambda: ft.fused_trace_run_plain(*args, seed=(1, 2)), 3)
+    k3_bound = bound(29 * n + packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
+                     + 8 * (1 + fparams.n_optics), chain_k1_ops(fparams.ip) * n)
+    log(f"phase 25 timings on {smi}: K3 {ms:.4f} ms vs twin {plain_ms:.4f} ms ({n} rays "
+        f"of one iteration, {int(rays.mask.sum())} alive, Philox); bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    return {"launches": launches, "err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound": k3_bound}
+
+
+GRAD_SOURCE_VARIANTS = ("plane_crystal_flat", "sphere_mirror_isotropic",
+                        "uniform_wavelength", "convex_sphere_flat_xy", "asym_xy_crystal",
+                        "focused_gaussian_voigt")
+
+
+def phase_k5_source_matrix(smi, fg, engine, make_fused_differentiable) -> dict:
+    """Phase 26: K5f and K5b with the generic sampler against their float32
+    and float64 twins on the six source-matrix variants at 2^20 rays (the
+    bounds of phase 19); then ``make_fused_differentiable`` on
+    ``focused_gaussian_voigt`` at 2^22 rays x 4 (counted around it), and
+    the kernels' times there."""
+    worst_f, worst_b = phase_k5_variants(fg, engine, GRAD_SOURCE_VARIANTS, "26")
+    cfg = grad_variant("focused_gaussian_voigt", 1 << 22, num_iter=4)
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    forward, vjp, pack, pipe = make_fused_differentiable(cfg, device="cuda")
+    pvec = pack(pipe.params).detach()
+    out = forward(pvec, 26)["image"]
+    gvec = vjp(pvec, 26, out)
+    torch.cuda.synchronize()
+    launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    if min(launches) <= 0:
+        raise AssertionError("phase 26: the gradient path did not launch K5f and K5b")
+    if not (all(torch.isfinite(v).all() and v.sum() > 0 for v in out.values())
+            and torch.isfinite(gvec).all() and gvec.abs().max() > 0):
+        raise AssertionError("phase 26: bad images or gradient")
+    step_ms = cuda_ms(lambda: vjp(pvec, 3, forward(pvec, 3)["image"]), 5)
+    _, _, _, spec = fg.build_fused_diff(pipe, num_iter=1)
+    st, lam, n = spec["static"], spec["lam"], spec["n_total"]
+    g = torch.randn(st.img_total, device="cuda")
+    f_ms = cuda_ms(lambda: fg.fused_grad_forward_cuda(st, pvec, n, lam, seed=(1, 2)), 20)
+    f_plain = cuda_ms(lambda: fg.fused_grad_forward_plain(st, pvec, n, lam, seed=(1, 2),
+                                                          chunk=n), 3)
+    b_ms = cuda_ms(lambda: fg.fused_grad_vjp_cuda(st, pvec, n, lam, g, seed=(1, 2)), 20)
+    b_plain = cuda_ms(lambda: fg.fused_grad_vjp_plain(st, pvec, n, lam, g, seed=(1, 2),
+                                                      chunk=n), 3)
+    k5_bytes = packed_bytes(st.fp, st.ip, pvec) + st.img_total * 4
+    f_bound = bound(k5_bytes, k5_ops(st, False) * n)
+    b_bound = bound(k5_bytes + pvec.numel() * 4, k5_ops(st, True) * n)
+    log(f"phase 26 focused_gaussian_voigt on {smi}: forward+vjp step "
+        f"{4 * n / step_ms * 1e3:.4g} rays/s ({step_ms:.3f} ms for {4 * n} rays); per "
+        f"{n} rays K5f {f_ms:.4f} ms (twin {f_plain:.3f} ms, bound {f_bound[0]:.4f} ms by "
+        f"{f_bound[1]}), K5b {b_ms:.4f} ms (twin {b_plain:.3f} ms, bound "
+        f"{b_bound[0]:.4f} ms by {b_bound[1]}); launches K5f {launches[0]}, K5b "
+        f"{launches[1]}")
+    return {"f_launches": launches[0], "b_launches": launches[1], "f_err": worst_f,
+            "b_err": worst_b, "f_ms": f_ms, "f_plain": f_plain, "b_ms": b_ms,
+            "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1330,6 +1693,12 @@ def main() -> int:
     plasma = plasma_phases(smi, ft, bg, engine, xicsrt_tpu_torch.raytrace)
     curved = curved_phases(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace)
     torus = curved["timings"]["torus"]
+    k1b = phase_k1b(smi, ft, engine)
+    k1b_launches = phase_source_matrix(ft, engine, xicsrt_tpu_torch.raytrace)
+    k3 = phase_k3(smi, ft, engine, xicsrt_tpu_torch.raytrace)
+    from xicsrt_tpu_torch.gradients import make_fused_differentiable
+
+    k5s = phase_k5_source_matrix(smi, fg, engine, make_fused_differentiable)
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1369,6 +1738,18 @@ def main() -> int:
             "xicsrt_tpu/ops/fused_grad.py:1727 (pallas_call :1921)",
             curved["k5b_launches"], curved["k5b_err"], torus["b_ms"], torus["b_plain"],
             torus["b_bound"]),
+        row("fused_run_cuda source matrix (K1b)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1538 (kernel :1343, pallas_call :1883)",
+            k1b_launches, k1b["err"], k1b["ms"], k1b["plain_ms"], k1b["bound"]),
+        row("fused_trace_run_cuda (K3)", "xicsrt_tpu_torch/csrc/trace_only.cu",
+            "xicsrt_tpu/ops/fused_trace.py:2081 (pallas_call :2156)", k3["launches"],
+            k3["err"], k3["ms"], k3["plain_ms"], k3["bound"]),
+        row("fused_grad_forward_cuda source matrix (K5f: K5e-generic)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:488 (pallas_call :1906)", k5s["f_launches"],
+            k5s["f_err"], k5s["f_ms"], k5s["f_plain"], k5s["f_bound"]),
+        row("fused_grad_vjp_cuda source matrix (K5b: K5e-generic)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:488 (pallas_call :1921)", k5s["b_launches"],
+            k5s["b_err"], k5s["b_ms"], k5s["b_plain"], k5s["b_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

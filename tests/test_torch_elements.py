@@ -160,7 +160,7 @@ def test_poisson_source_budget_and_mask():
 
 def test_not_ported_elements_raise():
     cfg = _config()
-    cfg["sources"]["source"]["wavelength_dist"] = "uniform"
+    cfg["general"]["pathlist"] = ["plugins"]
     with pytest.raises(NotImplementedError):
         TorchPipeline(cfg, device="cpu")
     cfg = _config()

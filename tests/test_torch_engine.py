@@ -21,6 +21,7 @@ import torch
 
 import xicsrt_tpu_torch
 from __graft_entry__ import _spectrometer_config
+from xicsrt_tpu_torch.engine import build_runner
 from xicsrt_tpu_torch.ops.fused_trace import FusedUnsupported
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -148,7 +149,10 @@ def test_eager_and_fused_twin_agree():
 
 def test_engine_selection():
     cfg = _spectrometer_config(intensity=4096, engine="fused")
-    cfg["sources"]["source"]["xsize"] = 0.01  # extended: outside the subset
+    cfg["sources"]["source"]["xsize"] = 0.01  # extended: inside since K1b
+    runner, _ = build_runner(cfg, device="cpu")
+    assert runner.__qualname__.startswith("build_fused_run")
+    cfg["optics"]["crystal"]["check_bragg"] = False  # outside the subset
     with pytest.raises(FusedUnsupported):
         xicsrt_tpu_torch.raytrace(cfg, device="cpu")
     cfg["general"]["engine"] = "auto"
@@ -181,6 +185,8 @@ def test_device_is_explicit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         xicsrt_tpu_torch.raytrace(_spectrometer_config(intensity=100))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xicsrt_tpu_torch.Pipeline(_spectrometer_config(intensity=100))
 
 
 def test_io_not_ported_raises():

@@ -141,9 +141,11 @@ def test_twin_slices_do_not_change_results(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    ("sources", "source", {"xsize": 0.01, "ysize": 0.01}),
-    ("sources", "source", {"spread": [-0.1, 0.1, -0.05, 0.15],
-                           "angular_dist": "isotropic_xy"}),
+    ("optics", "crystal", {"check_bragg": False}),
+    ("optics", "crystal", {"class_name": "XicsrtOpticToroidalMirror",
+                           "radius_major": 1.0, "radius_minor": 0.2, "radius": None,
+                           "crystal_spacing": None, "rocking_type": None,
+                           "rocking_fwhm": None}),
     ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMirror",
                            "crystal_spacing": None, "rocking_type": None,
                            "rocking_fwhm": None}),
@@ -151,6 +153,9 @@ def test_twin_slices_do_not_change_results(monkeypatch):
                                           "vertices": [[0, 0], [1, 0], [0, 1]]}]}),
 ])
 def test_outside_subset_raises(change):
+    """Outside K1's chain: a crystal without its Bragg check, mirrors, a
+    triangle aperture. (Boxes and asymmetric isotropic_xy cones are inside
+    since K1b: tests/test_torch_source_matrix.py.)"""
     section, name, update = change
     cfg = _flagship()
     cfg[section][name].update(update)

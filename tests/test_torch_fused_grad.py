@@ -303,13 +303,19 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
     ("sources", "source", dict(_PLASMA, spread=None, spread_radius=0.05)),
     ("sources", "source", {"use_poisson": True}),
     ("sources", "source", dict(_PLASMA, use_poisson=True)),
-    ("sources", "source", {"xsize": 0.01}),
+    ("sources", "source", {"xsize": 0.01, "filters": ["sight"]}),
     ("general", None, {"dtype": "float64"}),
 ])
 def test_outside_subset_raises(change):
+    """Profiled plasmas, mosaic and file rocking curves, spread radii,
+    Poisson budgets, filtered sources and float64 stay outside K5 (a box
+    source is inside since K5e-generic: tests/test_torch_source_matrix.py)."""
     section, name, update = change
     cfg = _config()
     (cfg[section] if name is None else cfg[section][name]).update(update)
+    if "filters" in update:
+        cfg["filters"] = {"sight": {"class_name": "XicsrtBundleFilterSightline",
+                                    "zaxis": [0.0, 0.0, 1.0], "radius": 0.003}}
     with pytest.raises(fg.FusedGradUnsupported):
         make_fused_differentiable(cfg, device="cpu")
 

@@ -179,8 +179,8 @@ def test_torus_root_matches_jax_per_ray():
 def test_engine_routes_plasma_to_the_fused_twin():
     """``engine='auto'`` with ``keep_history=False`` takes the fused engine
     for a plasma (JAX ``engine.py:374-435``); full history stays eager;
-    ``'fused'`` with full history raises; over 2^22 bundles is outside the
-    fused subset."""
+    ``'fused'`` with full history raises; over 2^22 bundles is outside
+    K1's subset and runs on the trace-only kernel K3's twin."""
     cfg = _config()
     cfg["general"]["engine"] = "auto"
     runner, pipe = build_runner(cfg, device="cpu")
@@ -199,4 +199,6 @@ def test_engine_routes_plasma_to_the_fused_twin():
     big = _config(bundle_count=(1 << 22) + 1, max_bundles=int(1e7), emissivity=2e10)
     big["general"]["engine"] = "fused"
     with pytest.raises(ft.FusedUnsupported):
-        build_runner(big, device="cpu")
+        ft.build_fused_run(TorchPipeline(big, device="cpu"))
+    runner, _ = build_runner(big, device="cpu")
+    assert runner.__qualname__.startswith("build_fused_trace_run")

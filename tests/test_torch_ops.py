@@ -180,9 +180,14 @@ def test_isotropic_xy(spread):
 
 
 def test_samplers_not_ported_raise():
+    """Every JAX distribution name dispatches (the gaussian cone takes two
+    normals); an unknown name raises."""
     u = torch.rand(4)
-    with pytest.raises(NotImplementedError):
-        tspread.sample_direction(u, u, 0.1, "flat")
+    for name, sampler in (("flat", tspread.sample_flat),
+                          ("flat_xy", tspread.sample_flat_xy),
+                          ("gaussian", tspread.sample_flat_gaussian),
+                          ("flat_gaussian", tspread.sample_flat_gaussian)):
+        assert torch.equal(tspread.sample_direction(u, u, 0.1, name), sampler(u, u, 0.1))
     with pytest.raises(ValueError):
         tspread.sample_direction(u, u, 0.1, "nonsense")
     assert tspread.solid_angle(0.2, "isotropic") == jspread.solid_angle(0.2, "isotropic")

@@ -351,8 +351,10 @@ def test_poisson_counts_are_poisson():
 
 
 def test_filters_and_other_angular_dists_raise():
+    """A filter name the filters section does not define raises KeyError,
+    as in JAX (engine.py:70-72); plasmas emit only isotropic cones."""
     cfg = _plasma_config(filters=["sight"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="sight"):
         TorchPipeline(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TorchPipeline(_plasma_config(angular_dist="flat"), device="cpu")

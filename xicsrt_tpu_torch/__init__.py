@@ -6,34 +6,38 @@ runs on CUDA and raises when CUDA is absent; pass ``device='cpu'`` for the
 CPU. It imports PyTorch and never JAX.
 
 ``general.engine``: 'xla' is the eager PyTorch engine, 'fused' one
-hand-written CUDA kernel for the whole chain (``ops/fused_trace.py``), 'auto'
-the fused kernel where the config is inside its subset. ``general.binning``:
-'xla' scatters with ``index_put_``, 'pallas' names the hand-written CUDA
-binning kernel (``ops/pallas_binning.py``). On CPU tensors each kernel
-wrapper runs its plain PyTorch twin. The kernels build from
+hand-written CUDA kernel for the whole chain (``ops/fused_trace.py``: K1,
+or the trace-only K3 behind the eager source where K1 cannot generate the
+source), 'auto' the fused kernels where the config is inside their subset.
+``general.binning``: 'xla' scatters with ``index_put_``, 'pallas' names the
+hand-written CUDA binning kernel (``ops/pallas_binning.py``). On CPU tensors
+each kernel wrapper runs its plain PyTorch twin. The kernels build from
 ``xicsrt_tpu_torch/csrc`` with ``nvcc`` at first use.
 
-Ported so far: point and box sources (Generic, Directed) with isotropic and
-isotropic_xy cones and one wavelength; plasma sources (Generic, Cubic,
-Cylindrical, Toroidal, ToroidalDatafile; ``sources/plasma.py``) with voxel
-or point bundles, exact Voigt lines and Doppler shifts, whose eager bundle
-gather is the CUDA kernel of ``ops/bundle_gather.py``; plane, sphere,
-cylinder and torus optics with apertures; no interaction, mirror, and the
-Bragg crystal with gaussian or step rocking in mc and weight mode; nearest
-and bilinear images; history; gradients (``gradients.py``):
-``make_differentiable`` (eager autograd, reaching a plasma's temperature),
-``make_fused_differentiable`` (hand-written CUDA forward and adjoint
-kernels, ``ops/fused_grad.py``: point sources and constant-profile plasmas,
-whose emissivity and temperature it differentiates; plane, sphere, cylinder
-and torus optics), ``align`` and ``l2_image_loss``. The rest of the JAX
-package raises ``NotImplementedError``: among it mosaic crystals, file
-rocking curves, meshes, source filters and the other angular and
-wavelength distributions.
+Ported so far: Generic, Directed and Focused sources with point, uniform or
+gaussian boxes, every angular distribution (isotropic, isotropic_xy, flat,
+flat_xy, gaussian), monochrome, uniform and Voigt wavelengths and a bulk
+velocity; sightline filters (``filters/``) on generic sources and plasma
+bundles; plasma sources (Generic, Cubic, Cylindrical, Toroidal,
+ToroidalDatafile; ``sources/plasma.py``) with voxel or point bundles, exact
+Voigt lines and Doppler shifts, whose eager bundle gather is the CUDA kernel
+of ``ops/bundle_gather.py``; plane, sphere, cylinder and torus optics with
+apertures; no interaction, mirror, and the Bragg crystal with gaussian or
+step rocking in mc and weight mode; nearest and bilinear images; history;
+gradients (``gradients.py``): ``make_differentiable`` (eager autograd,
+reaching a plasma's temperature), ``make_fused_differentiable``
+(hand-written CUDA forward and adjoint kernels, ``ops/fused_grad.py``: the
+generic source matrix and constant-profile plasmas, whose emissivity and
+temperature it differentiates; plane, sphere, cylinder and torus optics),
+``align`` and ``l2_image_loss``. The rest of the JAX package raises
+``NotImplementedError``: among it mosaic crystals, file rocking curves and
+meshes.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401
 
-import xicsrt_tpu_torch.optics  # noqa: E402,F401  (registers classes)
+import xicsrt_tpu_torch.filters  # noqa: E402,F401  (registers classes)
+import xicsrt_tpu_torch.optics  # noqa: E402,F401
 import xicsrt_tpu_torch.sources  # noqa: E402,F401
 from xicsrt_tpu_torch.convert import params_from_jax  # noqa: E402,F401
 from xicsrt_tpu_torch.engine import (  # noqa: E402,F401

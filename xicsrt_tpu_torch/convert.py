@@ -4,7 +4,9 @@
 package's params dict, so one JAX pipeline and this port compute from
 identical geometry. It takes the tree after
 ``jax.tree_util.tree_map(np.asarray, params)`` (numpy leaves, JAX ``Frame``
-objects whose fields are numpy arrays) and needs no JAX itself.
+objects whose fields are numpy arrays) and needs no JAX itself. Every leaf
+carries over: the optics', the sources' (a Focused target, a velocity, a
+Voigt table) and the filters' frames and radii.
 """
 
 from __future__ import annotations

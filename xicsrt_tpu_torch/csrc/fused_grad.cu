@@ -2,8 +2,10 @@
 // forward with bilinear images, and K5b, its hand-derived adjoint.
 //
 // Replaces xicsrt_tpu/ops/fused_grad.py::build_fused_diff, make_kernel(False)
-// (K5f) and make_kernel(True) (K5b), for point sources and plasmas of
-// constant profiles, plane, sphere, cylinder and torus optics, and no
+// (K5f) and make_kernel(True) (K5b), for the generic source matrix (K5e:
+// boxes, every cone, Focused axes, uniform and Voigt wavelengths, Doppler;
+// xrt_sample_source of trace_common.cuh, the sampler K1 runs) and plasmas
+// of constant profiles, plane, sphere, cylinder and torus optics, and no
 // interaction, a mirror or a Bragg crystal with a gaussian or step rocking
 // curve. One thread carries one ray; a ray's draws are keyed by (seed, ray,
 // draw) as in K1 (trace_common.cuh), so K5b regenerates exactly the rays
@@ -93,22 +95,31 @@ __device__ __forceinline__ float sign_of(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
+// Source variants of the kernels: the point-source cut of the generic
+// sampler, a plasma of one bundle per ray, the whole generic sampler.
+#define XRT_GRAD_POINT 0
+#define XRT_GRAD_PLASMA 1
+#define XRT_GRAD_GENERIC 2
+
 // The ray leaving the source (ops/fused_grad.py:_source_state): a point
-// source of wavelength lam, or (source kind 2) a plasma of one bundle per
-// ray whose emissivity and temperature are P[src_base], P[src_base + 1]
-// (_sample_plasma, JAX fused_grad.py:202-276).
-template <bool kPlasma>
+// source of wavelength lam; the generic matrix (JAX fused_grad.py:488-643),
+// whose sampling depends on no parameter, with its per-ray wavelength; or a
+// plasma of one bundle per ray whose emissivity and temperature are
+// P[src_base], P[src_base + 1] (_sample_plasma, JAX fused_grad.py:202-276).
+template <int kSource>
 __device__ __forceinline__ void grad_sample_source(const float* fp,
                                                    const int* ip,
                                                    const float* P,
                                                    int src_base, float lam,
                                                    Draws& draw, RayState& st,
                                                    SourceAux& aux) {
-    if (!kPlasma) {
-        xrt_sample_source(fp, ip[2], draw, st.px, st.py, st.pz, st.dx, st.dy,
-                          st.dz);
+    if (kSource != XRT_GRAD_PLASMA) {
+        float wl;
+        bool keep;  // a filtered source is outside the gradient subset
+        xrt_sample_source<kSource == XRT_GRAD_GENERIC>(
+            fp, ip, draw, st.px, st.py, st.pz, st.dx, st.dy, st.dz, wl, keep);
         st.w = 1.0f;
-        st.lam = lam;
+        st.lam = kSource == XRT_GRAD_GENERIC ? wl : lam;
         return;
     }
     float px = fp[20], py = fp[21], pz = fp[22];
@@ -356,7 +367,7 @@ __device__ __forceinline__ Corners corners(float f, int n) {
     return Corners{(int)p0, 1.0f - a, a, -moving, moving};
 }
 
-template <bool kTorus, bool kCylinder, bool kPlasma>
+template <bool kTorus, bool kCylinder, int kSource>
 __global__ void fused_grad_fwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ g_pvec, int n_slots,
@@ -386,7 +397,7 @@ __global__ void fused_grad_fwd_kernel(
         Draws draw{uniforms, n_total, r, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState st;
         SourceAux aux;
-        grad_sample_source<kPlasma>(fp, ip, P, src_base, lam, draw, st, aux);
+        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, st, aux);
         st.alive = true;
         for (int e = 0; e < n_opt; ++e) {
             const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
@@ -434,7 +445,7 @@ __device__ __forceinline__ void warp_add(double* acc, float v, int lane) {
     if (lane == 0 && sum != 0.0f) atomicAdd(acc, (double)sum);
 }
 
-template <bool kTorus, bool kCylinder, bool kPlasma>
+template <bool kTorus, bool kCylinder, int kSource>
 __global__ void fused_grad_bwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ g_pvec, int n_slots,
@@ -478,7 +489,7 @@ __global__ void fused_grad_bwd_kernel(
                    seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState src;
         SourceAux aux;
-        grad_sample_source<kPlasma>(fp, ip, P, src_base, lam, draw, src, aux);
+        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, src, aux);
         src.alive = in_range;
 
         float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // adjoint of position
@@ -581,7 +592,7 @@ __global__ void fused_grad_bwd_kernel(
                     a[13] += (inr ? ds_b : 0.0f) * mf;
                     // sin_b = lam / (2 d): the wavelength's adjoint, which a
                     // plasma carries to its temperature slot.
-                    if (kPlasma) {
+                    if (kSource == XRT_GRAD_PLASMA) {
                         lamb = lamb + (inr ? sinb_b / (2.0f * fmaxf(L.d_s, XRT_EPS))
                                            : 0.0f) * mf;
                     }
@@ -823,7 +834,7 @@ __global__ void fused_grad_bwd_kernel(
                          lane);
             }
         }
-        if (kPlasma) {  // the source slots (fused_grad.py:279-291)
+        if (kSource == XRT_GRAD_PLASMA) {  // the source slots (fused_grad.py:279-291)
             const float aE = wb * fp[30];
             const float aT =
                 lamb * (fp[16] * aux.n_g * aux.dop / (2.0f * aux.sqrt_t));
@@ -848,23 +859,19 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*, int
                            const float*, int, int, double*);
 
 // The kernels built for each variant: bit 0 a torus in the chain, bit 1 a
-// cylinder, bit 2 a plasma source.
-const FwdKernel kFwd[8] = {
-    fused_grad_fwd_kernel<false, false, false>, fused_grad_fwd_kernel<true, false, false>,
-    fused_grad_fwd_kernel<false, true, false>, fused_grad_fwd_kernel<true, true, false>,
-    fused_grad_fwd_kernel<false, false, true>, fused_grad_fwd_kernel<true, false, true>,
-    fused_grad_fwd_kernel<false, true, true>, fused_grad_fwd_kernel<true, true, true>,
-};
-const BwdKernel kBwd[8] = {
-    fused_grad_bwd_kernel<false, false, false>, fused_grad_bwd_kernel<true, false, false>,
-    fused_grad_bwd_kernel<false, true, false>, fused_grad_bwd_kernel<true, true, false>,
-    fused_grad_bwd_kernel<false, false, true>, fused_grad_bwd_kernel<true, false, true>,
-    fused_grad_bwd_kernel<false, true, true>, fused_grad_bwd_kernel<true, true, true>,
-};
+// cylinder; bits 2-3 the source (XRT_GRAD_POINT, _PLASMA, _GENERIC).
+#define XRT_GRAD_VARIANTS 12
+#define XRT_GRAD_KERNELS(K)                                                  \
+    {K<false, false, 0>, K<true, false, 0>, K<false, true, 0>, K<true, true, 0>, \
+     K<false, false, 1>, K<true, false, 1>, K<false, true, 1>, K<true, true, 1>, \
+     K<false, false, 2>, K<true, false, 2>, K<false, true, 2>, K<true, true, 2>}
+const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_fwd_kernel);
+const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
 
 bool grad_args_ok(int n_fp, int n_ip, int n_slots, int variant) {
     return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && n_slots > 0 &&
-           n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 && variant < 8;
+           n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 &&
+           variant < XRT_GRAD_VARIANTS;
 }
 
 size_t bwd_smem(int img_total) {
@@ -879,8 +886,8 @@ size_t bwd_smem(int img_total) {
 // rays [0, n_total) with draws from uniforms (n_draws, n_total) float32 or
 // Philox keyed by (seed0, seed1); lam: a point source's wavelength. images:
 // (img_total,) float32, zeroed by the caller. variant: bit 0 a torus in the
-// chain, bit 1 a cylinder, bit 2 a plasma source (kind 2). Returns
-// cudaGetLastError().
+// chain, bit 1 a cylinder, bits 2-3 the source: 0 the point-source cut, 1 a
+// plasma (kind 2), 2 the whole generic sampler. Returns cudaGetLastError().
 extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
                                   int n_ip, const float* pvec, int n_slots,
                                   long long n_total, float lam,
@@ -905,7 +912,7 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
 // of its partial output), or minus a cudaError_t.
 extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total,
                                          int variant) {
-    if (variant < 0 || variant >= 8) return -(int)cudaErrorInvalidValue;
+    if (variant < 0 || variant >= XRT_GRAD_VARIANTS) return -(int)cudaErrorInvalidValue;
     const size_t smem = bwd_smem(img_total);
     cudaError_t err = xrt_set_smem(kBwd[variant], smem);
     if (err != cudaSuccess) return -(int)err;

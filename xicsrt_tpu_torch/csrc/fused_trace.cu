@@ -1,22 +1,26 @@
 // Fused generate -> trace -> count -> image kernel for NVIDIA Hopper
-// (sm_90a): K1a (the main spectrometer chain), K1f (the plasma source) and
-// the torus and cylinder stages of K1c.
+// (sm_90a): K1a (the main spectrometer chain), K1b (the generic source
+// matrix), K1f (the plasma source) and the torus and cylinder stages of K1c.
 //
 // Replaces those cuts of the TPU megakernel
-// xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the plasma
-// sampler at :1428-1537, and the shared optic chain _trace_chain with
-// torus_local_quadratic_t at :616 and the cylinder at :784 and :903). One
-// thread carries one ray in registers from the source through every optic;
-// no per-ray state touches device memory.
+// xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the generic
+// sampler at :1538-1713, the plasma sampler at :1428-1537, and the shared
+// optic chain _trace_chain with torus_local_quadratic_t at :616 and the
+// cylinder at :784 and :903). One thread carries one ray in registers from
+// the source through every optic; no per-ray state touches device memory.
 //
-// The subset: a point source with an isotropic or symmetric isotropic_xy
-// cone and one wavelength, or a plasma whose per-iteration bundle tables
+// The subset: a generic source (point, uniform or gaussian box; isotropic,
+// isotropic_xy, flat, flat_xy or gaussian cone; a constant axis or a
+// Focused one; one wavelength, a uniform band or an exact Voigt line; bulk
+// Doppler; sightline filters tested on the origin, xrt_sample_source), or a
+// plasma whose per-iteration bundle tables
 // (cum, table) were drawn before the launch; plane, sphere, torus or
 // cylinder optics with x/y/z bounds and aperture logic (none/circle/square/
 // rectangle/ellipse; and, not, or, nand, nor, xor, xnor); no interaction or
 // a Bragg crystal with a gaussian or step rocking curve and Bernoulli (mc)
-// acceptance, at each ray's own wavelength for a plasma; per-element
-// counts; nearest-pixel images.
+// acceptance, at each ray's own wavelength where the source varies it;
+// per-element counts; nearest-pixel images. The chain is trace_chain.cuh,
+// shared with the trace-only kernel K3 (trace_only.cu).
 //
 // Plasma: iteration j holds rays [j n, (j + 1) n) of the budget n; ray
 // j n + l is alive iff l < cum_j[B-1], finds its bundle by binary search
@@ -35,8 +39,9 @@
 // Random numbers: either an explicit (n_draws, n_total) float32 tensor, or
 // counter-based Philox4x32-10 keyed by (seed, ray index, draw index), so a
 // ray's draws do not depend on the launch configuration. Draw order per
-// ray: the source's (point: u, v; plasma: 3 voxel offsets, u, v, the
-// normal's uniform, the Cauchy uniform), then one uniform per crystal.
+// ray: the source's (generic: one per nonzero box size, the cone's two, 0-2
+// for the wavelength; plasma: 3 voxel offsets, u, v, the normal's uniform,
+// the Cauchy uniform), then one uniform per crystal.
 //
 // Numerics follow the TPU kernel and the plain PyTorch twin operation by
 // operation: the Bragg deviation is the sine-difference identity with a
@@ -57,16 +62,14 @@
 
 #include "binning.cuh"
 #include "bundle_lookup.cuh"
+#include "trace_chain.cuh"
 #include "trace_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void count_warp(unsigned int* s_counts, int elem,
-                                           bool alive, int lane) {
-    const unsigned int b = __ballot_sync(0xffffffffu, alive);
-    if (lane == 0 && b) atomicAdd(s_counts + elem, (unsigned int)__popc(b));
-}
-
+// kFull: the generic source's whole sampler (xrt_sample_source), else its
+// point-source cut; a plasma takes neither.
+template <bool kFull>
 __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, long long n_total, long long count,
@@ -89,11 +92,9 @@ __global__ void fused_trace_kernel(
 
     float* img = use_smem ? s_img : images;
     const int n_opt = ip[0];
-    const int dist = ip[2];
     const bool plasma = ip[5] == XRT_SRC_PLASMA;
     const bool voxel = ip[6] != 0, cauchy = ip[7] != 0;
-    const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
-    const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
+    const bool per_ray_wl = ip[XRT_H_PER_RAY_WL] != 0;
     const int lane = threadIdx.x & 31;
     const long long stride = (long long)gridDim.x * blockDim.x;
 
@@ -121,119 +122,15 @@ __global__ void fused_trace_kernel(
             xrt_sample_plasma(fp, voxel, cauchy, draw, lo, hi, px, py, pz, dx,
                               dy, dz, wl);
         } else {
-            // ---- source: point origin, cone about the emission axis ----
-            alive = in_range && r < count;
-            xrt_sample_source(fp, dist, draw, px, py, pz, dx, dy, dz);
+            // ---- source: origin, cone, wavelength, sightline filters ---
+            bool keep;
+            xrt_sample_source<kFull>(fp, ip, draw, px, py, pz, dx, dy, dz, wl,
+                                     keep);
+            alive = in_range && r < count && keep;
         }
-        count_warp(s_counts, 0, alive, lane);
-
-        // ---- optic chain ----------------------------------------------
-        for (int e = 0; e < n_opt; ++e) {
-            const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
-            const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
-            float t, nxv, nyv, nzv;
-            bool m_int;
-            if (oi[0] == 0) {  // plane through o[0:3], normal bz
-                float denom;
-                bool nz;
-                t = xrt_plane_hit(o[0], o[1], o[2], o[9], o[10], o[11], px, py,
-                                  pz, dx, dy, dz, &denom, &nz);
-                m_int = alive && t >= 0.0f && nz;
-                nxv = o[9];
-                nyv = o[10];
-                nzv = o[11];
-            } else if (oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
-                const SphereHit h = xrt_sphere_hit(o[12], o[13], o[14], o[15],
-                                                   0.0f, oi[1] != 0, px, py,
-                                                   pz, dx, dy, dz);
-                m_int = alive && h.d2 <= o[15];
-                t = h.t;
-                nxv = nyv = nzv = 0.0f;
-            } else if (oi[0] == 2) {  // torus
-                t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
-                nxv = nyv = nzv = 0.0f;
-            } else {  // cylinder of axis bx through o[12:15], radius^2 o[15]
-                const CylinderHit h = xrt_cylinder_hit(
-                    o[12], o[13], o[14], o[3], o[4], o[5], o[15],
-                    oi[1] != 0, px, py, pz, dx, dy, dz);
-                m_int = alive && h.disc >= 0.0f;
-                t = m_int ? h.t : 0.0f;
-                nxv = nyv = nzv = 0.0f;
-            }
-            const float qx = m_int ? px + t * dx : px;
-            const float qy = m_int ? py + t * dy : py;
-            const float qz = m_int ? pz + t * dz : pz;
-            if (oi[0] != 0) {  // sphere, cylinder: towards the center or
-                               // the axis; torus: outward
-                if (oi[0] == 1) {
-                    nxv = o[12] - qx;
-                    nyv = o[13] - qy;
-                    nzv = o[14] - qz;
-                } else if (oi[0] == 2) {
-                    xrt_torus_normal(o, qx, qy, qz, nxv, nyv, nzv);
-                } else {
-                    const float tcx = o[12] - qx, tcy = o[13] - qy, tcz = o[14] - qz;
-                    const float along = tcx * o[3] + tcy * o[4] + tcz * o[5];
-                    nxv = tcx - along * o[3];
-                    nyv = tcy - along * o[4];
-                    nzv = tcz - along * o[5];
-                }
-                const float inv =
-                    inv_sqrt(fmaxf(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30f));
-                nxv = nxv * inv;
-                nyv = nyv * inv;
-                nzv = nzv * inv;
-            }
-            const float rx = qx - o[0], ry = qy - o[1], rz = qz - o[2];
-            const float lxv = rx * o[3] + ry * o[4] + rz * o[5];
-            const float lyv = rx * o[6] + ry * o[7] + rz * o[8];
-
-            const bool m_in = xrt_bounds(m_int, oi[4], o + 16, lxv, lyv, rx,
-                                         ry, rz, o[9], o[10], o[11]);
-            bool mask = xrt_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);
-
-            if (oi[2] == 1) {  // Bragg crystal, mc acceptance
-                const float dot = dx * nxv + dy * nyv + dz * nzv;
-                const float adot = fabsf(dot);
-                const float cosi = sqrtf(fmaxf(1.0f - adot * adot, 0.0f));
-                float sin_b = o[21], cos_b = o[22];
-                if (plasma) {  // per-ray Bragg angle (fused_trace.py:997-1001)
-                    sin_b = fminf(fmaxf(wl * o[XRT_O_INV2D], 0.0f), 1.0f);
-                    cos_b = sqrtf(fmaxf(1.0f - sin_b * sin_b, 0.0f));
-                }
-                const float sd = adot * cos_b - cosi * sin_b;
-                const float delta = sd + sd * sd * sd * (1.0f / 6.0f);
-                float prob;
-                if (oi[3] == 0) {  // gaussian, o[20] = sigma
-                    const float z = delta / o[20];
-                    prob = o[19] * expf(-0.5f * (z * z));
-                } else {  // step, o[20] = fwhm / 2
-                    prob = fabsf(delta) <= o[20] ? o[19] : 0.0f;
-                }
-                const float uacc = draw();
-                mask = mask && prob >= uacc;
-                if (mask) {
-                    const float kk = 2.0f * dot;
-                    dx = dx - kk * nxv;
-                    dy = dy - kk * nyv;
-                    dz = dz - kk * nzv;
-                }
-            }
-            px = qx;
-            py = qy;
-            pz = qz;
-            alive = mask;
-            count_warp(s_counts, 1 + e, alive, lane);
-
-            if (oi[7] >= 0 && alive) {
-                const float fx = fmaf(lxv, o[23], o[24]);
-                const float fy = fmaf(lyv, o[23], o[25]);
-                int flat;
-                if (xrt_nearest_pixel(fx, fy, oi[8], oi[9], &flat)) {
-                    atomicAdd(img + oi[7] + flat, 1.0f);
-                }
-            }
-        }
+        xrt_count_warp(s_counts, 0, alive, lane);
+        xrt_trace_chain(fp, ip, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl,
+                        alive, s_counts, img, lane);
     }
 
     __syncthreads();
@@ -254,7 +151,9 @@ __global__ void fused_trace_kernel(
 // table (n_total / n_per_iter, n_bundles, 8) float32, 16-byte aligned
 // (null and 0 for a point source). uniforms: (n_draws, n_total) float32 or
 // null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
-// and images: (img_total,) float32, both zeroed by the caller. Returns
+// and images: (img_total,) float32, both zeroed by the caller. full_source:
+// the generic source's whole sampler (a box, a Focused axis, the other cones,
+// per-ray wavelengths or filters), else its point-source cut. Returns
 // cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, long long n_total, long long count,
@@ -262,7 +161,8 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                unsigned int seed1, const int* cum,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
-                               float* images, int img_total, void* stream) {
+                               float* images, int img_total, int full_source,
+                               void* stream) {
     if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP) {
         return (int)cudaErrorInvalidValue;
     }
@@ -274,10 +174,11 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    cudaError_t err = xrt_set_smem(fused_trace_kernel, smem);
+    auto kernel = full_source ? fused_trace_kernel<true> : fused_trace_kernel<false>;
+    cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(fused_trace_kernel, threads, smem, n_total);
-    fused_trace_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, n_total, count, uniforms, seed0, seed1, cum,
         table, n_bundles, (int)n_per_iter, counts, images, img_total,
         use_smem);

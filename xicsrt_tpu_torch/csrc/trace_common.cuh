@@ -1,8 +1,9 @@
-// Device code shared by the fused trace kernel (fused_trace.cu, K1) and
-// the fused gradient kernels (fused_grad.cu, K5f/K5b): the packed buffer
-// layout, the counter-based random numbers, the point-source sampler and
-// the plasma cone and line, the plane, sphere, cylinder and torus
-// intersections, and the bounds and aperture logic.
+// Device code shared by the fused trace kernels (fused_trace.cu, K1;
+// trace_only.cu, K3) and the fused gradient kernels (fused_grad.cu,
+// K5f/K5b): the packed buffer layout, the counter-based random numbers, the
+// generic source sampler with its sightline filters, the plasma cone and
+// line, the plane, sphere, cylinder and torus intersections, and the bounds
+// and aperture logic.
 //
 // Every helper is the float32 operation sequence its plain PyTorch twin
 // performs (xicsrt_tpu_torch/ops/fused_trace.py); the library is built with
@@ -12,24 +13,60 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Buffer layout, mirrored by ops/fused_trace.py (pack_params).
+// Buffer layout, mirrored by ops/fused_trace.py (pack_params): the source
+// block, one block per optic, one per aperture, one per source filter.
 #define XRT_MAX_OPTICS 16
 #define XRT_MAX_APERTURES 64
-#define XRT_SRC_F 32
+#define XRT_MAX_FILTERS 8
+#define XRT_SRC_F 64
 #define XRT_OPT_F 32
 #define XRT_AP_F 4
-#define XRT_HDR_I 8
+#define XRT_FILT_F 8
+#define XRT_HDR_I 16
 #define XRT_OPT_I 16
 #define XRT_AP_I 2
-#define XRT_MAX_FP \
-    (XRT_SRC_F + XRT_MAX_OPTICS * XRT_OPT_F + XRT_MAX_APERTURES * XRT_AP_F)
+#define XRT_MAX_FP                                                    \
+    (XRT_SRC_F + XRT_MAX_OPTICS * XRT_OPT_F + XRT_MAX_APERTURES * XRT_AP_F + \
+     XRT_MAX_FILTERS * XRT_FILT_F)
 #define XRT_MAX_IP \
     (XRT_HDR_I + XRT_MAX_OPTICS * XRT_OPT_I + XRT_MAX_APERTURES * XRT_AP_I)
-// Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
-// source kind, voxel draws, Cauchy draw. Source kinds: 0 a point source,
-// 1 a plasma of bundle tables (K1), 2 a plasma of one bundle per ray (K5).
+// Header ints 0-7: n_optics, n_apertures, cone kind, n_draws, image floats,
+// source kind, voxel draws, Cauchy draw. Source kinds: 0 a generic source,
+// 1 a plasma of bundle tables (K1), 2 a plasma of one bundle per ray (K5),
+// 3 rays read from device memory (K3).
 #define XRT_SRC_PLASMA 1
 #define XRT_SRC_PLASMA_RAY 2
+#define XRT_SRC_RAYS 3
+// Header ints 8-15: source filters; the box (0 point, 1 uniform, 2
+// gaussian); a per-ray axis to a target (Focused); the wavelength (0 one
+// line, 1 uniform band, 2 exact Voigt) with its Gauss and Cauchy parts; a
+// bulk velocity; wavelengths per ray (the crystals take per-ray Bragg
+// angles).
+#define XRT_H_FILTERS 8
+#define XRT_H_SPATIAL 9
+#define XRT_H_FOCUSED 10
+#define XRT_H_WAVE 11
+#define XRT_H_GAUSS 12
+#define XRT_H_CAUCHY 13
+#define XRT_H_VELOCITY 14
+#define XRT_H_PER_RAY_WL 15
+// Cone kinds (header int 2).
+#define XRT_CONE_ISOTROPIC 0
+#define XRT_CONE_XY 1
+#define XRT_CONE_XY_ASYM 2
+#define XRT_CONE_FLAT 3
+#define XRT_CONE_FLAT_XY 4
+#define XRT_CONE_GAUSSIAN 5
+// Generic source floats: origin 0:3, rotation rows (o2, o1, axis) 3:12, the
+// cone's constants 12:24, then these.
+#define XRT_S_CONE 12
+#define XRT_S_BASIS 24
+#define XRT_S_SIZES 33
+#define XRT_S_TARGET 36
+#define XRT_S_HINT 39
+#define XRT_S_WAVE 42
+#define XRT_S_VELOCITY 45
+#define XRT_S_CINV 48
 // Optic floats beyond the sphere's: torus r_minor^2 and convergence
 // tolerance, and 1 / (2 d) for per-ray Bragg angles.
 #define XRT_O_RMIN2 26
@@ -91,42 +128,202 @@ struct Draws {
 
 __device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
 
-// Point source with a cone about the emission axis (fp[0:24]): dist 0 is
-// isotropic (z uniform in [cos t, 1]), 1 the symmetric isotropic_xy closed
-// form. Draws u, v; writes the origin and the unit direction.
-__device__ __forceinline__ void xrt_sample_source(const float* fp, int dist,
+// A standard normal from one uniform clipped to [1e-7, 1 - 1e-7]:
+// sqrt(2) erfinv(2u - 1).
+__device__ __forceinline__ float xrt_normal(Draws& draw) {
+    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
+    const float un = fminf(fmaxf(draw(), lo), hi);
+    return 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
+}
+
+// The natural (Cauchy) part of an exact Voigt line of width gamma.
+__device__ __forceinline__ float xrt_cauchy(Draws& draw, float gamma) {
+    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
+    const float uc = fminf(fmaxf(draw(), lo), hi);
+    return gamma * tanf(3.141592653589793f * (uc - 0.5f));
+}
+
+// arcsin as the TPU megakernel takes it: pi/2 - acos_kernel(x), the
+// Abramowitz-Stegun 4.4.45 polynomial for acos with one Newton step on
+// cos(theta) = |x| (xicsrt_tpu/ops/polynomials.py:53-68), error ~1e-7.
+__device__ __forceinline__ float xrt_asin_poly(float x) {
+    x = fminf(fmaxf(x, -1.0f), 1.0f);
+    const float ax = fminf(fmaxf(fabsf(x), 0.0f), 1.0f);
+    float p = -0.0012624911f;
+    p = p * ax + 0.0066700901f;
+    p = p * ax + -0.0170881256f;
+    p = p * ax + 0.0308918810f;
+    p = p * ax + -0.0501743046f;
+    p = p * ax + 0.0889789874f;
+    p = p * ax + -0.2145988016f;
+    p = p * ax + 1.5707963050f;
+    float theta = p * sqrtf(fmaxf(1.0f - ax, 0.0f));
+    const float s = sinf(theta);
+    theta = theta + (cosf(theta) - ax) / fmaxf(s, 1e-6f);
+    const float acos_x = x >= 0.0f ? theta : 3.141592653589793f - theta;
+    return 1.5707963267948966f - acos_x;
+}
+
+// The conditional in ty of isotropic_xy and the unit vector (tx, ty, 1) / |.|
+// from sx = sin(alpha) and the uniform v; c: tan(ty0), its square,
+// tan(ty1), its square.
+__device__ __forceinline__ void xrt_xy_tail(float sx, float v, const float* c,
+                                            float& lx, float& ly, float& lz) {
+    const float tx = sx * inv_sqrt(fmaxf(1.0f - sx * sx, 1e-12f));
+    const float k2 = 1.0f + tx * tx;
+    const float h0 = c[0] * inv_sqrt(k2 + c[1]);
+    const float h1 = c[2] * inv_sqrt(k2 + c[3]);
+    const float h = h0 + v * (h1 - h0);
+    const float ty = sqrtf(k2) * h * inv_sqrt(fmaxf(1.0f - h * h, 1e-12f));
+    const float w = inv_sqrt(1.0f + tx * tx + ty * ty);
+    lx = tx * w;
+    ly = ty * w;
+    lz = w;
+}
+
+// (dx, dy, dz): the local direction (lx, ly, lz) in the per-ray basis of
+// vec.orthogonal_basis about the unit vector from p to the target t, with
+// the basis hint h (rows o2, o1, n; JAX fused_trace.py:1649-1673).
+__device__ __forceinline__ void xrt_aim(const float* t, const float* h,
+                                        float px, float py, float pz,
+                                        float lx, float ly, float lz,
+                                        float& dx, float& dy, float& dz) {
+    float nx = t[0] - px, ny = t[1] - py, nz = t[2] - pz;
+    float inv = inv_sqrt(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+    nx = nx * inv;
+    ny = ny * inv;
+    nz = nz * inv;
+    float o1x = ny * h[2] - nz * h[1];
+    float o1y = nz * h[0] - nx * h[2];
+    float o1z = nx * h[1] - ny * h[0];
+    inv = inv_sqrt(fmaxf(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30f));
+    o1x = o1x * inv;
+    o1y = o1y * inv;
+    o1z = o1z * inv;
+    const float o2x = ny * o1z - nz * o1y;
+    const float o2y = nz * o1x - nx * o1z;
+    const float o2z = nx * o1y - ny * o1x;
+    dx = lx * o2x + ly * o1x + lz * nx;
+    dy = lx * o2y + ly * o1y + lz * ny;
+    dz = lx * o2z + ly * o1z + lz * nz;
+}
+
+// The generic source (JAX fused_trace.py:1538-1713): the origin, the unit
+// direction, the wavelength and whether the source's filters keep the ray.
+// kFull = false compiles the point source with an isotropic or symmetric
+// isotropic_xy cone, a constant rotation and one wavelength, and nothing
+// else; kFull = true the whole matrix: uniform or gaussian boxes (one draw
+// per nonzero size), every cone kind, the Focused per-ray basis, uniform
+// and exact Voigt wavelengths, the bulk Doppler shift and the sightline
+// filters on the origin. Draw order: box, cone (2), wavelength (0-2).
+template <bool kFull>
+__device__ __forceinline__ void xrt_sample_source(const float* fp, const int* ip,
                                                   Draws& draw, float& px,
                                                   float& py, float& pz,
                                                   float& dx, float& dy,
-                                                  float& dz) {
+                                                  float& dz, float& wl,
+                                                  bool& keep) {
     px = fp[0];
     py = fp[1];
     pz = fp[2];
-    const float u = draw();
-    const float v = draw();
+    wl = fp[XRT_S_WAVE];
+    keep = true;
+    if (kFull && ip[XRT_H_SPATIAL] != 0) {
+        const bool gaussian = ip[XRT_H_SPATIAL] == 2;
+        for (int k = 0; k < 3; ++k) {
+            const float s = fp[XRT_S_SIZES + k];
+            if (s == 0.0f) continue;
+            const float o_l = gaussian ? xrt_normal(draw) * s : (draw() - 0.5f) * s;
+            px = px + o_l * fp[XRT_S_BASIS + 3 * k];
+            py = py + o_l * fp[XRT_S_BASIS + 3 * k + 1];
+            pz = pz + o_l * fp[XRT_S_BASIS + 3 * k + 2];
+        }
+    }
+    const float* c = fp + XRT_S_CONE;
+    const int dist = ip[2];
     float lx, ly, lz;
-    if (dist == 0) {
-        lz = fp[12] + u * fp[13];
+    if (dist == XRT_CONE_ISOTROPIC) {
+        const float u = draw();
+        const float v = draw();
+        lz = c[0] + u * c[1];
         const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
         const float phi = v * 6.283185307179586f;
         lx = rho * cosf(phi);
         ly = rho * sinf(phi);
-    } else {
-        const float sx = sinf((fp[12] + u * fp[13]) * 0.5f) / fp[14];
-        const float tx = sx * inv_sqrt(fmaxf(1.0f - sx * sx, 1e-12f));
-        const float k2 = 1.0f + tx * tx;
-        const float h0 = fp[15] * inv_sqrt(k2 + fp[16]);
-        const float h1 = fp[17] * inv_sqrt(k2 + fp[18]);
-        const float h = h0 + v * (h1 - h0);
-        const float ty = sqrtf(k2) * h * inv_sqrt(fmaxf(1.0f - h * h, 1e-12f));
-        const float w = inv_sqrt(1.0f + tx * tx + ty * ty);
-        lx = tx * w;
-        ly = ty * w;
+    } else if (!kFull || dist == XRT_CONE_XY) {
+        // c: g0, g1 - g0, sin(ty1), then the tail's four.
+        const float u = draw();
+        const float v = draw();
+        const float sx = sinf((c[0] + u * c[1]) * 0.5f) / c[2];
+        xrt_xy_tail(sx, v, c + 3, lx, ly, lz);
+    } else if (dist == XRT_CONE_XY_ASYM) {
+        // c: sx0, sx1 - sx0, sin(ty0), sin(ty1), g0, g1 - g0, the tail's
+        // four, sx1. Bracket-clamped Newton on the marginal CDF.
+        const float u = draw();
+        const float v = draw();
+        const float target = c[4] + u * c[5];
+        float sx = c[0] + u * c[1];
+        for (int it = 0; it < 12; ++it) {
+            const float a1 = sx * c[3], a0 = sx * c[2];
+            const float gm = xrt_asin_poly(a1) - xrt_asin_poly(a0);
+            const float dg = c[3] * inv_sqrt(fmaxf(1.0f - a1 * a1, 1e-12f)) -
+                             c[2] * inv_sqrt(fmaxf(1.0f - a0 * a0, 1e-12f));
+            sx = fminf(fmaxf(sx - (gm - target) / fmaxf(dg, 1e-12f), c[0]), c[10]);
+        }
+        xrt_xy_tail(sx, v, c + 6, lx, ly, lz);
+    } else if (dist == XRT_CONE_FLAT) {  // c: tan(spread)
+        const float r = c[0] * sqrtf(draw());
+        const float phi = draw() * 6.283185307179586f;
+        const float w = inv_sqrt(1.0f + r * r);
+        lx = cosf(phi) * r * w;
+        ly = sinf(phi) * r * w;
+        lz = w;
+    } else if (dist == XRT_CONE_FLAT_XY) {  // c: t0, t1 - t0, t2, t3 - t2
+        const float x = c[0] + draw() * c[1];
+        const float y = c[2] + draw() * c[3];
+        const float w = inv_sqrt(1.0f + x * x + y * y);
+        lx = x * w;
+        ly = y * w;
+        lz = w;
+    } else {  // flat gaussian, c: sigma
+        const float x = c[0] * xrt_normal(draw);
+        const float y = c[0] * xrt_normal(draw);
+        const float w = inv_sqrt(1.0f + x * x + y * y);
+        lx = x * w;
+        ly = y * w;
         lz = w;
     }
-    dx = lx * fp[3] + ly * fp[6] + lz * fp[9];
-    dy = lx * fp[4] + ly * fp[7] + lz * fp[10];
-    dz = lx * fp[5] + ly * fp[8] + lz * fp[11];
+    if (kFull && ip[XRT_H_FOCUSED]) {
+        xrt_aim(fp + XRT_S_TARGET, fp + XRT_S_HINT, px, py, pz, lx, ly, lz, dx,
+                dy, dz);
+    } else {
+        dx = lx * fp[3] + ly * fp[6] + lz * fp[9];
+        dy = lx * fp[4] + ly * fp[7] + lz * fp[10];
+        dz = lx * fp[5] + ly * fp[8] + lz * fp[11];
+    }
+    if (!kFull) return;
+    const int wave = ip[XRT_H_WAVE];
+    if (wave == 1) {  // lower edge, width
+        wl = fp[XRT_S_WAVE] + draw() * fp[XRT_S_WAVE + 1];
+    } else if (wave == 2) {  // centre, Doppler sigma, natural gamma
+        if (ip[XRT_H_GAUSS]) wl = wl + fp[XRT_S_WAVE + 1] * xrt_normal(draw);
+        if (ip[XRT_H_CAUCHY]) wl = wl + xrt_cauchy(draw, fp[XRT_S_WAVE + 2]);
+    }
+    if (ip[XRT_H_VELOCITY]) {
+        const float* vel = fp + XRT_S_VELOCITY;
+        wl = wl * (1.0f - (vel[0] * dx + vel[1] * dy + vel[2] * dz) * fp[XRT_S_CINV]);
+    }
+    // Sightlines (filters/sightline.py): keep origins within the radius of
+    // the line through the filter's origin along its z axis.
+    const float* flt = fp + XRT_SRC_F + ip[0] * XRT_OPT_F + ip[1] * XRT_AP_F;
+    for (int f = 0; f < ip[XRT_H_FILTERS]; ++f, flt += XRT_FILT_F) {
+        const float lx_ = flt[0] - px, ly_ = flt[1] - py, lz_ = flt[2] - pz;
+        const float proj = lx_ * flt[3] + ly_ * flt[4] + lz_ * flt[5];
+        const float ex = lx_ - proj * flt[3];
+        const float ey = ly_ - proj * flt[4];
+        const float ez = lz_ - proj * flt[5];
+        keep = keep && ex * ex + ey * ey + ez * ez <= flt[6];
+    }
 }
 
 // Plane through (ox, oy, oz) with normal (nx, ny, nz): the distance along
@@ -231,46 +428,13 @@ __device__ __forceinline__ void xrt_plasma_cone(const float* fp, float omc,
                                                 float py, float pz,
                                                 float& dx, float& dy,
                                                 float& dz) {
-    float nx = fp[9] - px, ny = fp[10] - py, nz = fp[11] - pz;
-    float inv = inv_sqrt(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-    nx = nx * inv;
-    ny = ny * inv;
-    nz = nz * inv;
-    float o1x = ny * fp[14] - nz * fp[13];
-    float o1y = nz * fp[12] - nx * fp[14];
-    float o1z = nx * fp[13] - ny * fp[12];
-    inv = inv_sqrt(fmaxf(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30f));
-    o1x = o1x * inv;
-    o1y = o1y * inv;
-    o1z = o1z * inv;
-    const float o2x = ny * o1z - nz * o1y;
-    const float o2y = nz * o1x - nx * o1z;
-    const float o2z = nx * o1y - ny * o1x;
     const float u = draw();
     const float v = draw();
     const float lz = 1.0f - u * omc;
     const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
     const float phi = v * 6.283185307179586f;
-    const float lx = rho * cosf(phi);
-    const float ly = rho * sinf(phi);
-    dx = lx * o2x + ly * o1x + lz * nx;
-    dy = lx * o2y + ly * o1y + lz * ny;
-    dz = lx * o2z + ly * o1z + lz * nz;
-}
-
-// A standard normal from one uniform clipped to [1e-7, 1 - 1e-7]:
-// sqrt(2) erfinv(2u - 1).
-__device__ __forceinline__ float xrt_normal(Draws& draw) {
-    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
-    const float un = fminf(fmaxf(draw(), lo), hi);
-    return 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
-}
-
-// The natural (Cauchy) part of an exact Voigt line of width gamma.
-__device__ __forceinline__ float xrt_cauchy(Draws& draw, float gamma) {
-    const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
-    const float uc = fminf(fmaxf(draw(), lo), hi);
-    return gamma * tanf(3.141592653589793f * (uc - 0.5f));
+    xrt_aim(fp + 9, fp + 12, px, py, pz, rho * cosf(phi), rho * sinf(phi), lz,
+            dx, dy, dz);
 }
 
 // Plasma source of bundle tables (fp[0:20]: source basis rows, target,

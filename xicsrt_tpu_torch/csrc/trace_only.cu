@@ -1,0 +1,108 @@
+// Trace-only kernel K3 for NVIDIA Hopper (sm_90a): rays generated by the
+// eager engine, read from device memory, traced through the optic chain
+// with per-element counts and nearest-pixel images.
+//
+// Replaces xicsrt_tpu/ops/fused_trace.py::build_fused_trace_run (kernel at
+// :2081, pallas_call :2156), the TPU's route for sources the megakernel
+// cannot generate; on this card that is a plasma of more than 2^22 bundles
+// (ops/fused_trace.py: build_fast_run). The chain is K1's own device
+// function (trace_chain.cuh), so the two kernels trace alike; every ray
+// takes its Bragg angle from its own wavelength, as the TPU kernel does.
+//
+// One thread carries one ray: 29 bytes read (origin and direction as
+// (n, 3) float32 rows, wavelength, a one-byte mask), then registers only.
+// Draws: one uniform per crystal, from an explicit (n_draws, n) float32
+// tensor or Philox keyed by (seed, ray, draw), as in K1. What bounds it:
+// the chain's arithmetic (the bytes take about a tenth of the time of the
+// flagship chain's operations at the card's rates), plus the image atomics.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "binning.cuh"
+#include "trace_chain.cuh"
+#include "trace_common.cuh"
+
+namespace {
+
+__global__ void trace_only_kernel(
+    const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
+    int n_ip, long long n, const float* __restrict__ origin,
+    const float* __restrict__ direction, const float* __restrict__ wavelength,
+    const unsigned char* __restrict__ mask, const float* __restrict__ uniforms,
+    uint32_t seed0, uint32_t seed1, unsigned long long* __restrict__ counts,
+    float* __restrict__ images, int img_total, int use_smem) {
+    extern __shared__ float s_img[];
+    __shared__ float fp[XRT_MAX_FP];
+    __shared__ int ip[XRT_MAX_IP];
+    __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
+
+    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
+    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
+        s_counts[i] = 0u;
+    }
+    if (use_smem) xrt_smem_zero(s_img, img_total);
+    __syncthreads();
+
+    float* img = use_smem ? s_img : images;
+    const int n_opt = ip[0];
+    const int lane = threadIdx.x & 31;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+
+    // Whole warps step together, so every lane reaches every __ballot_sync;
+    // lanes past the end carry dead rays.
+    for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+         r0 < n; r0 += stride) {
+        const long long r = r0 + lane;
+        const bool in_range = r < n;
+        const long long ray = in_range ? r : n - 1;
+        Draws draw{uniforms, n, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
+        const float px = origin[3 * ray], py = origin[3 * ray + 1],
+                    pz = origin[3 * ray + 2];
+        const float dx = direction[3 * ray], dy = direction[3 * ray + 1],
+                    dz = direction[3 * ray + 2];
+        const bool alive = in_range && mask[ray] != 0;
+        xrt_count_warp(s_counts, 0, alive, lane);
+        xrt_trace_chain(fp, ip, draw, px, py, pz, dx, dy, dz, wavelength[ray],
+                        true, alive, s_counts, img, lane);
+    }
+
+    __syncthreads();
+    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {
+        if (s_counts[i]) {
+            atomicAdd(counts + i, (unsigned long long)s_counts[i]);
+        }
+    }
+    if (use_smem) xrt_smem_flush(s_img, images, img_total);
+}
+
+}  // namespace
+
+// fp/ip: the chain packed by ops/fused_trace.py (source kind 3, rays from
+// memory). n rays: origin and direction (n, 3) float32, wavelength (n,)
+// float32, mask (n,) bytes (0 dead). uniforms: (n_draws, n) float32 or null
+// for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64 and
+// images: (img_total,) float32, both zeroed by the caller. Returns
+// cudaGetLastError() of the launch.
+extern "C" int xrt_trace_only(const float* fp, int n_fp, const int* ip,
+                              int n_ip, long long n, const float* origin,
+                              const float* direction, const float* wavelength,
+                              const unsigned char* mask, const float* uniforms,
+                              unsigned int seed0, unsigned int seed1,
+                              unsigned long long* counts, float* images,
+                              int img_total, void* stream) {
+    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (n <= 0) return (int)cudaSuccess;
+    const int threads = 256;
+    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
+    const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
+    cudaError_t err = xrt_set_smem(trace_only_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = xrt_grid_size(trace_only_kernel, threads, smem, n);
+    trace_only_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        fp, n_fp, ip, n_ip, n, origin, direction, wavelength, mask, uniforms,
+        seed0, seed1, counts, images, img_total, use_smem);
+    return (int)cudaGetLastError();
+}

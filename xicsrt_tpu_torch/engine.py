@@ -52,17 +52,16 @@ def default_device(device=None) -> torch.device:
 class Pipeline:
     """A config built into elements on one device plus their params dict."""
 
-    def __init__(self, config: dict, device="cpu"):
+    def __init__(self, config: dict, device=None):
         self.config = get_config(config)
         general = self.config["general"]
         self.general = general
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
         profiler.start("pipeline_build")
         if general.get("pathlist"):
             raise NotImplementedError("plugin pathlists are not ported yet.")
-        if self.config.get("filters"):
-            raise NotImplementedError("filters are not ported yet.")
+        self.filters = dispatch.build_section(self.config, "filters", self.device)
         self.sources = dispatch.build_section(self.config, "sources", self.device)
         self.optics = dispatch.build_section(self.config, "optics", self.device)
         if len(self.sources) != 1:
@@ -70,10 +69,17 @@ class Pipeline:
                 f"Exactly one source is required ({len(self.sources)} given)."
             )
         self.source = self.sources[0]
+        # The source's named filters (JAX engine.py:66-73).
+        filter_map = {f.name: f for f in self.filters}
+        source_filters = self.source.param.get("filters")
+        for fname in [] if source_filters is None else list(source_filters):
+            if fname not in filter_map:
+                raise KeyError(f'Source filter "{fname}" is not defined.')
+            self.source.filter_fns.append((fname, filter_map[fname].make_filter()))
         self.params = {
             "sources": {self.source.name: self.source.build_params()},
             "optics": {o.name: o.build_params() for o in self.optics},
-            "filters": {},
+            "filters": {f.name: f.build_params() for f in self.filters},
         }
         self.element_names = [self.source.name] + [o.name for o in self.optics]
         profiler.stop("pipeline_build")
@@ -101,7 +107,8 @@ class Pipeline:
         source = self.source
 
         def iteration(params, draws):
-            rays = source.generate(params["sources"][source.name], draws)
+            rays = source.generate(params["sources"][source.name], draws,
+                                   params["filters"])
             meta = {source.name: rays.num_alive()} if keep_meta else {}
             history = {source.name: rays} if keep_history else {}
             image_inputs, image_names = [], []

@@ -19,9 +19,10 @@ emissivity, 1 temperature, 2:8 reserved. The structure (source sampler,
 shapes, bounds, apertures, images) is the K1 buffer layout of
 ``ops/fused_trace.py``, packed once at build time.
 
-Subset (``FusedGradUnsupported`` otherwise): Generic/Directed point sources
-with an ``isotropic`` or symmetric ``isotropic_xy`` cone, one wavelength,
-counted budget; constant-profile plasmas (``XicsrtPlasmaGeneric``,
+Subset (``FusedGradUnsupported`` otherwise): Generic, Directed and Focused
+sources with every box, cone and wavelength distribution and bulk Doppler
+that K1 samples (``ops/fused_trace.sample_source_plain``; K5e-generic), a
+counted budget and no filters; constant-profile plasmas (``XicsrtPlasmaGeneric``,
 ``XicsrtPlasmaCubic``) with a counted budget and a constant ``spread``,
 sampled one bundle per ray (``fused_grad.py:122-199``): emissivity enters
 each ray's weight, temperature its Doppler width, so the wavelength is per
@@ -97,14 +98,19 @@ def check_config(config: dict) -> None:
 
 
 def _grad_source_spec(source) -> dict:
-    """The K1a source spec restricted to counted budgets
-    (``fused_grad.py:89-113``), or a constant-profile plasma's."""
+    """K1's generic source spec restricted to counted budgets and no
+    filters (``fused_grad.py:89-113``), or a constant-profile plasma's. The
+    generic sampling depends on no parameter, so the adjoint is unchanged
+    by it; a per-ray wavelength's adjoint ends at the source."""
     from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
 
     if isinstance(source, PlasmaGeneric):
         return _grad_plasma_spec(source)
+    filters = source.param.get("filters")
+    if filters is not None and len(filters) > 0:
+        raise FusedGradUnsupported("ray-filtered source")
     try:
-        spec = ft._source_spec(source)
+        spec = ft._source_spec(source, {})
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
     if spec["poisson"]:
@@ -735,16 +741,19 @@ def _sample_plasma(F, I, P, draw, full):
 
 
 def _source_state(F, I, P, rays, draw, lam: float):
-    """The state of each ray leaving the source, its wavelength and, for a
-    plasma, what the source slots' adjoint needs."""
+    """The state of each ray leaving the source, its wavelength (``lam``,
+    unless the source varies it per ray) and, for a plasma, what the source
+    slots' adjoint needs."""
     def full(value):
         return torch.full(rays.shape, value, dtype=P.dtype, device=rays.device)
 
     if I[5] == 2:
         return _sample_plasma(F, I, P, draw, full)
-    px, py, pz, dx, dy, dz = ft.sample_source_plain(F, I[2], draw, full)
+    px, py, pz, dx, dy, dz, wl, _ = ft.sample_source_plain(F, I, draw, full)
     state = (px, py, pz, dx, dy, dz, full(1.0), torch.ones_like(rays, dtype=torch.bool))
-    return state, torch.tensor(lam, dtype=P.dtype, device=P.device), None
+    if not I[ft.H_PER_RAY_WL]:
+        wl = torch.tensor(lam, dtype=P.dtype, device=P.device)
+    return state, wl, None
 
 
 def _static_lists(static: ft.FusedParams):
@@ -825,10 +834,12 @@ def n_slots_of(static: ft.FusedParams) -> int:
 
 def _variant(static: ft.FusedParams) -> int:
     """The kernels' build variant: bit 0 a torus in the chain, bit 1 a
-    cylinder, bit 2 a plasma source."""
+    cylinder; bits 2-3 the source: 0 the point-source cut of the generic
+    sampler, 1 a plasma, 2 the whole generic sampler."""
+    source = 1 if static.source_kind == 2 else (2 if static.full_source else 0)
     return (int(bool(static.shape_mask & (1 << 2)))
             | int(bool(static.shape_mask & (1 << 3))) << 1
-            | int(static.source_kind == 2) << 2)
+            | source << 2)
 
 
 def _check_buffers(static: ft.FusedParams, pvec: torch.Tensor, n_total: int,

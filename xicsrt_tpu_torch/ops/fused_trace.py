@@ -4,14 +4,22 @@ One CUDA kernel (``csrc/fused_trace.cu``) generates every ray, traces it
 through the optic chain, counts the survivors of each element and bins the
 nearest-pixel images, with all per-ray state in registers. It replaces the
 ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
-chain (K1a), the in-kernel plasma source (K1f) and the torus and cylinder
-stages of K1c.
+chain (K1a), the generic source matrix (K1b), the in-kernel plasma source
+(K1f) and the torus and cylinder stages of K1c. A second kernel, K3
+(``csrc/trace_only.cu``, :func:`fused_trace_run_cuda`), traces rays the
+eager engine generated through the same chain (``csrc/trace_chain.cuh``);
+it replaces the TPU's ``build_fused_trace_run``.
 
 Supported subset (``general.engine='fused'``; outside it the build raises
 ``FusedUnsupported``, and ``'auto'`` falls back to the eager engine):
 
-- Generic or Directed point sources with an ``isotropic`` or symmetric
-  ``isotropic_xy`` cone, one wavelength, counted or Poisson budgets;
+- Generic, Directed and Focused sources: point, uniform or gaussian boxes;
+  ``isotropic``, ``isotropic_xy`` (symmetric in closed form, asymmetric by
+  12 bracketed Newton steps on the TPU kernel's polynomial arcsin),
+  ``flat``, ``flat_xy`` and ``gaussian`` cones; one wavelength, a uniform
+  band or an exact Voigt line (a Gaussian plus a Cauchy, not the eager
+  engine's table); the bulk Doppler shift; counted or Poisson budgets; up to
+  8 sightline filters, tested on each ray's origin in the kernel;
 - plasma sources of up to 2^22 bundles (K1f): the O(bundle_count) stage
   runs in PyTorch on the device per iteration (the source's
   ``bundle_tables``) and the kernel gives each ray its bundle by binary
@@ -24,8 +32,14 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   logic
   (every logic op; shapes none/circle/square/rectangle/ellipse);
 - no interaction, or a Bragg crystal with gaussian or step rocking in
-  ``mc`` mode, with per-ray wavelengths for plasma sources;
+  ``mc`` mode, with per-ray Bragg angles where the source varies the
+  wavelength;
 - nearest-pixel images, float32, no history reservoir.
+
+A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
+filters) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
+as ``fused_trace.py:2229-2262``): the eager engine generates each
+iteration's rays and K3 traces them.
 
 Unlike the TPU kernel, geometry is not compiled in: :func:`pack_params`
 packs the run's ``params`` into two small buffers at every call, so one
@@ -39,7 +53,8 @@ error is below 1e-11 rad inside the rocking support.
 
 ``fused_run_cuda`` launches the kernel for buffers on a CUDA device and
 takes the plain PyTorch twin :func:`fused_run_plain` for buffers on the
-CPU. The twin does the kernel's float32 operations in the kernel's order.
+CPU; ``fused_trace_run_cuda`` and :func:`fused_trace_run_plain` likewise.
+The twins do the kernels' float32 operations in the kernels' order.
 """
 
 from __future__ import annotations
@@ -61,13 +76,23 @@ class FusedUnsupported(NotImplementedError):
 
 
 # Buffer layout, mirrored by the XRT_* offsets of csrc/trace_common.cuh.
-# Header ints: n_optics, n_apertures, cone kind, n_draws, image floats,
-# source kind (0 point, 1 plasma of bundle tables, 2 plasma of one bundle
-# per ray, the gradient kernels' own), voxel draws (plasma), Cauchy draw.
+# Header ints 0-7: n_optics, n_apertures, cone kind, n_draws, image floats,
+# source kind (0 generic, 1 plasma of bundle tables, 2 plasma of one bundle
+# per ray, the gradient kernels' own, 3 rays from memory, K3's), voxel
+# draws (plasma), Cauchy draw; 8-15 the generic source's structure (H_*).
 MAX_OPTICS = 16
 MAX_APERTURES = 64
-SRC_F, OPT_F, AP_F = 32, 32, 4
-HDR_I, OPT_I, AP_I = 8, 16, 2
+MAX_FILTERS = 8
+SRC_F, OPT_F, AP_F, FILT_F = 64, 32, 4, 8
+HDR_I, OPT_I, AP_I = 16, 16, 2
+(H_FILTERS, H_SPATIAL, H_FOCUSED, H_WAVE, H_GAUSS, H_CAUCHY, H_VELOCITY,
+ H_PER_RAY_WL) = range(8, 16)
+SRC_RAYS = 3
+# Generic source floats: origin, rotation rows (o2, o1, axis), then these.
+S_CONE, S_BASIS, S_SIZES, S_TARGET, S_HINT, S_WAVE, S_VELOCITY, S_CINV = (
+    12, 24, 33, 36, 39, 42, 45, 48)
+_CONES = {"isotropic": 0, "isotropic_xy": 1, "isotropic_xy_asym": 2, "flat": 3,
+          "flat_xy": 4, "flat_gaussian": 5}
 _APERTURE_SHAPES = {"none": 0, "circle": 1, "square": 2, "rectangle": 3,
                     "ellipse": 4}
 _LOGIC = {"and": 0, "not": 1, "or": 2, "nand": 3, "nor": 4, "xor": 5, "xnor": 6}
@@ -88,42 +113,131 @@ _TWIN_SLICE = 1 << 20
 # Build-time extraction of the pipeline structure.
 # ---------------------------------------------------------------------------
 
-def _source_spec(source) -> dict:
-    """Structure of the source: sampling program and budget."""
+def _cone_spec(p) -> tuple:
+    """(cone kind, float32 constants) of a generic source's angular
+    distribution (JAX ``_source_spec``, ``fused_trace.py:162-205``)."""
     from xicsrt_tpu_torch.ops.spread import parse_spread_single, parse_spread_xy
-    from xicsrt_tpu_torch.sources.generic import SourceDirected, SourceGeneric
+
+    angular = str(p["angular_dist"]).lower()
+    if angular == "isotropic":
+        cos_t = math.cos(parse_spread_single(p["spread"]))
+        return _CONES["isotropic"], [cos_t, 1.0 - cos_t]
+    if angular == "isotropic_xy":
+        tx0, tx1, ty0, ty1 = parse_spread_xy(p["spread"])
+        tyl, tyh = math.tan(ty0), math.tan(ty1)
+        tail = [tyl, tyl * tyl, tyh, tyh * tyh]
+        if ty0 == -ty1 and ty1 > 0:
+            sb1 = math.sin(ty1)
+            g0 = 2.0 * math.asin(math.sin(tx0) * sb1)
+            g1 = 2.0 * math.asin(math.sin(tx1) * sb1)
+            return _CONES["isotropic_xy"], [g0, g1 - g0, sb1] + tail
+        sx0, sx1 = math.sin(tx0), math.sin(tx1)
+        sb0, sb1 = math.sin(ty0), math.sin(ty1)
+
+        def marginal(sx):
+            return (math.asin(max(-1.0, min(1.0, sx * sb1)))
+                    - math.asin(max(-1.0, min(1.0, sx * sb0))))
+
+        g0, g1 = marginal(sx0), marginal(sx1)
+        return (_CONES["isotropic_xy_asym"],
+                [sx0, sx1 - sx0, sb0, sb1, g0, g1 - g0] + tail + [sx1])
+    if angular == "flat":
+        return _CONES["flat"], [math.tan(parse_spread_single(p["spread"]))]
+    if angular == "flat_xy":
+        t = [math.tan(a) for a in parse_spread_xy(p["spread"])]
+        return _CONES["flat_xy"], [t[0], t[1] - t[0], t[2], t[3] - t[2]]
+    if angular in ("gaussian", "flat_gaussian"):
+        hwhm = parse_spread_single(p["spread"])
+        return _CONES["flat_gaussian"], [math.sin(hwhm / math.sqrt(2.0 * math.log(2.0)))]
+    raise FusedUnsupported(f"angular_dist {angular}")
+
+
+def _filter_specs(p, filter_map) -> list:
+    """Names of a source's sightline filters, tested in the kernel; a
+    pass-through filter drops out (JAX ``_filter_specs``,
+    ``fused_trace.py:267-291``)."""
+    from xicsrt_tpu_torch.filters import FilterBase, FilterSightline
+
+    names = []
+    filters = p.get("filters")
+    for fname in [] if filters is None else list(filters):
+        flt = (filter_map or {}).get(fname)
+        if isinstance(flt, FilterSightline):
+            names.append(fname)
+        elif type(flt) is not FilterBase:
+            raise FusedUnsupported(f"source filter {fname!r}")
+    if len(names) > MAX_FILTERS:
+        raise FusedUnsupported(f"more than {MAX_FILTERS} source filters")
+    return names
+
+
+def _source_spec(source, filter_map=None) -> dict:
+    """Structure of the source: sampling program and budget (JAX
+    ``_source_spec``, ``fused_trace.py:125-264``). Draws per ray of a
+    generic source: one per nonzero box size, the cone's two, one for a
+    uniform band, one each for a Voigt line's Gauss and Cauchy parts.
+    ``filter_map``: the pipeline's filters by name."""
+    from xicsrt_tpu_torch.ops.voigt import doppler_sigma, natural_gamma
+    from xicsrt_tpu_torch.sources.generic import (
+        SourceDirected, SourceFocused, SourceGeneric,
+    )
     from xicsrt_tpu_torch.sources.plasma import PlasmaGeneric
 
     if isinstance(source, PlasmaGeneric):
         return _plasma_spec(source)
-    if type(source) not in (SourceGeneric, SourceDirected):
+    if not isinstance(source, SourceGeneric):
         raise FusedUnsupported(f"source {type(source).__name__}")
     p = source.param
-    if any(float(p.get(k) or 0.0) != 0.0 for k in ("xsize", "ysize", "zsize")):
-        raise FusedUnsupported("extended source")
-    angular = str(p["angular_dist"]).lower()
-    if angular == "isotropic":
-        cos_t = math.cos(parse_spread_single(p["spread"]))
-        dist = (0, [cos_t, 1.0 - cos_t])
-    elif angular == "isotropic_xy":
-        tx0, tx1, ty0, ty1 = parse_spread_xy(p["spread"])
-        if not (ty0 == -ty1 and ty1 > 0):
-            raise FusedUnsupported("isotropic_xy with asymmetric y-bounds")
-        sb1 = math.sin(ty1)
-        g0 = 2.0 * math.asin(math.sin(tx0) * sb1)
-        g1 = 2.0 * math.asin(math.sin(tx1) * sb1)
-        tyl, tyh = math.tan(ty0), math.tan(ty1)
-        dist = (1, [g0, g1 - g0, sb1, tyl, tyl * tyl, tyh, tyh * tyh])
+    filters = _filter_specs(p, filter_map)
+    sizes = [float(p.get(k) or 0.0) for k in ("xsize", "ysize", "zsize")]
+    spatial = str(p.get("spatial_dist", "uniform")).lower()
+    if not any(sizes):
+        spatial_kind = 0
+    elif spatial == "uniform":
+        spatial_kind = 1
+    elif spatial == "gaussian":  # FWHM -> sigma
+        spatial_kind = 2
+        sizes = [x / (2.0 * math.sqrt(2.0 * math.log(2.0))) for x in sizes]
     else:
-        raise FusedUnsupported(f"angular_dist {angular}")
+        raise FusedUnsupported(f"spatial_dist {spatial}")
+    n_draws = sum(1 for x in sizes if x != 0.0) if spatial_kind else 0
+    cone = _cone_spec(p)
+    n_draws += 2
+
+    w0 = float(p["wavelength"])
+    wtype = str(p["wavelength_dist"]).lower()
+    if wtype == "uniform":
+        lo, hi = (float(x) for x in np.asarray(p["wavelength_range"], np.float64)[:2])
+        wave = (1, [lo, hi - lo, 0.0])
+        n_draws += 1
+    elif wtype == "voigt" and source.voigt_table is not None:
+        # The exact Gauss + Cauchy decomposition, as the plasmas sample.
+        sigma = doppler_sigma(float(p["temperature"]), float(p["mass_number"]), w0)
+        gamma = natural_gamma(float(p["linewidth"]), w0)
+        wave = (2, [w0, sigma, gamma])
+        n_draws += int(sigma > 0.0) + int(gamma > 0.0)
+    else:
+        wave = (0, [w0, 0.0, 0.0])
+    velocity = bool(np.any(np.asarray(p["velocity"], np.float64) != 0.0))
+    focused = isinstance(source, SourceFocused)
     return {
         "name": source.name,
         "kind": 0,
         "directed": isinstance(source, SourceDirected),
-        "dist": dist,
+        "focused": focused,
+        "dist": cone,
+        "spatial": spatial_kind,
+        "sizes": sizes,
+        "wave": wave,
+        "velocity": velocity,
+        "filters": filters,
+        "per_ray_wl": wave[0] != 0 or velocity,
+        # The whole sampler; else the kernels' point-source cut.
+        "full": bool(spatial_kind or cone[0] >= 2 or focused or wave[0] or velocity
+                     or filters),
         "poisson": bool(p.get("use_poisson")),
         "rate": float(source._scaled_intensity),
-        "n_draws": 2,
+        "n_draws": n_draws,
     }
 
 
@@ -241,9 +355,10 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
 class FusedParams:
     """Packed kernel parameters: ``fp`` float32 and ``ip`` int32 buffers on
     one device, plus the sizes the host needs to allocate the outputs.
-    ``source_kind``: 0 point, 1 plasma of bundle tables, 2 plasma of one
-    bundle per ray; ``shape_mask``: bit s set where the chain holds an optic
-    of shape code s."""
+    ``source_kind``: 0 generic, 1 plasma of bundle tables, 2 plasma of one
+    bundle per ray, 3 rays from memory (K3); ``shape_mask``: bit s set where
+    the chain holds an optic of shape code s; ``full_source``: the generic
+    source needs the kernels' whole sampler, not their point-source cut."""
 
     fp: torch.Tensor
     ip: torch.Tensor
@@ -252,6 +367,7 @@ class FusedParams:
     n_draws: int
     source_kind: int = 0
     shape_mask: int = 0
+    full_source: bool = False
 
     @property
     def plasma(self) -> bool:
@@ -267,9 +383,13 @@ def _unit(v: np.ndarray) -> np.ndarray:
     return v / max(np.linalg.norm(v), 1e-300)
 
 
-def _pack_point_source(src: dict, sp: dict, fp: np.ndarray) -> None:
-    """fp[0:24] of a point source: origin, the emission basis (rows o2, o1,
-    axis), the cone's constants."""
+def _pack_generic_source(src: dict, sp: dict, fp: np.ndarray) -> None:
+    """fp[0:49] of a generic source: origin, the constant emission basis
+    (rows o2, o1, axis; JAX ``fused_trace.py:250-262``), the cone's
+    constants, the source basis rows, the box sizes (sigmas of a gaussian
+    box), the Focused target and basis hint x + z, the wavelength's three
+    constants (centre or lower edge; band width or Doppler sigma; natural
+    gamma), the bulk velocity and 1/c."""
     basis = _vec(sp["frame"].basis)
     axis = _unit(_vec(sp["direction"])) if src["directed"] else basis[2]
     o1 = _unit(np.cross(axis, basis[0]) + np.cross(axis, basis[2]))
@@ -277,7 +397,28 @@ def _pack_point_source(src: dict, sp: dict, fp: np.ndarray) -> None:
     fp[0:3] = _vec(sp["frame"].origin)
     fp[3:12] = np.stack([o2, o1, axis]).reshape(-1)
     _, dist_consts = src["dist"]
-    fp[12:12 + len(dist_consts)] = dist_consts
+    fp[S_CONE:S_CONE + len(dist_consts)] = dist_consts
+    fp[S_BASIS:S_BASIS + 9] = basis.reshape(-1)
+    fp[S_SIZES:S_SIZES + 3] = src["sizes"]
+    if src["focused"]:
+        fp[S_TARGET:S_TARGET + 3] = _vec(sp["target"])
+    fp[S_HINT:S_HINT + 3] = basis[0] + basis[2]
+    kind, consts = src["wave"]
+    fp[S_WAVE:S_WAVE + 3] = consts
+    if kind != 1:  # the line centre of the run's params
+        fp[S_WAVE] = float(_vec(sp["wavelength"]))
+    fp[S_VELOCITY:S_VELOCITY + 3] = _vec(sp["velocity"])
+    fp[S_CINV] = 1.0 / _C_LIGHT
+
+
+def _pack_filters(names: list, params: dict, fp: np.ndarray, base: int) -> None:
+    """The sightline filters from ``base``: origin, unit z axis, radius^2."""
+    for k, name in enumerate(names):
+        fl = params["filters"][name]
+        f = fp[base + k * FILT_F: base + (k + 1) * FILT_F]
+        f[0:3] = _vec(fl["frame"].origin)
+        f[3:6] = _vec(fl["frame"].basis)[2]
+        f[6] = float(_vec(fl["radius"])) ** 2
 
 
 def _pack_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
@@ -315,23 +456,27 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
     values and rounded once to float32."""
     n_opt = len(optics)
     n_ap = sum(len(o["apertures"]) for o in optics)
+    filters = src.get("filters", [])
     if n_opt > MAX_OPTICS:
         raise FusedUnsupported(f"more than {MAX_OPTICS} optics")
     if n_ap > MAX_APERTURES:
         raise FusedUnsupported(f"more than {MAX_APERTURES} apertures")
-    fp = np.zeros(SRC_F + n_opt * OPT_F + n_ap * AP_F, np.float64)
+    flt_base = SRC_F + n_opt * OPT_F + n_ap * AP_F
+    fp = np.zeros(flt_base + len(filters) * FILT_F, np.float64)
     ip = np.zeros(HDR_I + n_opt * OPT_I + n_ap * AP_I, np.int32)
 
-    sp = params["sources"][src["name"]]
-    plasma = src["kind"] != 0
-    wavelength = None  # per ray for a plasma
-    if src["kind"] == 0:
-        _pack_point_source(src, sp, fp)
-        wavelength = float(_vec(sp["wavelength"]))
-    elif src["kind"] == 1:
-        _pack_plasma_source(src, sp, fp)
-    else:
-        _pack_ray_plasma_source(src, sp, fp)
+    kind = src["kind"]
+    wavelength = None  # per ray unless a generic source holds it constant
+    if kind == 0:
+        sp = params["sources"][src["name"]]
+        _pack_generic_source(src, sp, fp)
+        _pack_filters(filters, params, fp, flt_base)
+        if not src["per_ray_wl"]:
+            wavelength = float(_vec(sp["wavelength"]))
+    elif kind == 1:
+        _pack_plasma_source(src, params["sources"][src["name"]], fp)
+    elif kind == 2:
+        _pack_ray_plasma_source(src, params["sources"][src["name"]], fp)
 
     img_total = 0
     ap_index = 0
@@ -398,15 +543,25 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             img_total += im["nx"] * im["ny"]
 
     n_draws = src["n_draws"] + sum(o["n_draws"] for o in optics)
-    ip[0:8] = (n_opt, n_ap, src["dist"][0] if not plasma else 0, n_draws, img_total,
-               src["kind"], int(plasma and src["voxel"] > 0.0),
+    plasma = kind in (1, 2)
+    ip[0:8] = (n_opt, n_ap, src["dist"][0] if kind == 0 else 0, n_draws, img_total,
+               kind, int(plasma and src["voxel"] > 0.0),
                int(plasma and src["gamma"] > 0.0))
+    if kind == 0:
+        wave = src["wave"][0]
+        ip[8:16] = (len(filters), src["spatial"], int(src["focused"]), wave,
+                    int(wave == 2 and src["wave"][1][1] > 0.0),
+                    int(wave == 2 and src["wave"][1][2] > 0.0),
+                    int(src["velocity"]), int(src["per_ray_wl"]))
+    else:
+        ip[H_PER_RAY_WL] = 1
     return FusedParams(
         fp=torch.as_tensor(fp.astype(np.float32), device=device),
         ip=torch.as_tensor(ip, device=device),
         n_optics=n_opt, img_total=img_total, n_draws=n_draws,
-        source_kind=src["kind"],
+        source_kind=kind,
         shape_mask=sum({1 << o["shape"] for o in optics}),
+        full_source=bool(src.get("full")),
     )
 
 
@@ -464,33 +619,138 @@ def _div(x, scalar: float):
     return x / torch.tensor(scalar, dtype=x.dtype, device=x.device)
 
 
-def sample_source_plain(F, dist: int, draw, full):
-    """The kernels' point-source sampler (``xrt_sample_source`` in
-    ``csrc/trace_common.cuh``): origin and unit direction of each ray from
-    two draws, in the kernels' float32 operations. ``dist``: 0 isotropic,
-    1 isotropic_xy; ``full(value)`` makes a tensor of the slice's shape.
-    Returns (px, py, pz, dx, dy, dz)."""
+_ASIN_COEFFS = (0.0066700901, -0.0170881256, 0.0308918810, -0.0501743046,
+                0.0889789874, -0.2145988016, 1.5707963050)
+
+
+def asin_poly_plain(x):
+    """The kernels' arcsin (``xrt_asin_poly``): pi/2 - acos_kernel(x), the
+    TPU megakernel's polynomial acos with one Newton step
+    (``xicsrt_tpu/ops/polynomials.py:53-68``)."""
+    x = torch.clamp(x, -1.0, 1.0)
+    ax = torch.clamp(torch.abs(x), 0.0, 1.0)
+    p = torch.full_like(ax, -0.0012624911)
+    for coef in _ASIN_COEFFS:
+        p = p * ax + coef
+    theta = p * torch.sqrt(torch.clamp_min(1.0 - ax, 0.0))
+    theta = theta + (torch.cos(theta) - ax) / torch.clamp_min(torch.sin(theta), 1e-6)
+    return math.pi / 2.0 - torch.where(x >= 0.0, theta, math.pi - theta)
+
+
+def _xy_tail(sx, v, c):
+    """The kernels' ``xrt_xy_tail``: isotropic_xy's conditional in ty and the
+    unit vector, from sx and v; c = (tan ty0, its square, tan ty1, its
+    square)."""
+    tx = sx * _inv_sqrt(torch.clamp_min(1.0 - sx * sx, 1e-12))
+    k2 = 1.0 + tx * tx
+    h0 = c[0] * _inv_sqrt(k2 + c[1])
+    h1 = c[2] * _inv_sqrt(k2 + c[3])
+    h = h0 + v * (h1 - h0)
+    ty = torch.sqrt(k2) * h * _inv_sqrt(torch.clamp_min(1.0 - h * h, 1e-12))
+    w = _inv_sqrt(1.0 + tx * tx + ty * ty)
+    return tx * w, ty * w, w
+
+
+def aim_plain(T, H, px, py, pz, lx, ly, lz):
+    """The kernels' ``xrt_aim``: the local direction in the per-ray basis of
+    ``vec.orthogonal_basis`` about the unit vector from p to the target
+    ``T``, with the basis hint ``H``. Returns (dx, dy, dz)."""
+    nx, ny, nz = T[0] - px, T[1] - py, T[2] - pz
+    inv = _inv_sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-30))
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    hx, hy, hz = H
+    o1x, o1y, o1z = ny * hz - nz * hy, nz * hx - nx * hz, nx * hy - ny * hx
+    inv = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
+    o1x, o1y, o1z = o1x * inv, o1y * inv, o1z * inv
+    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
+    return (lx * o2x + ly * o1x + lz * nx, lx * o2y + ly * o1y + lz * ny,
+            lx * o2z + ly * o1z + lz * nz)
+
+
+def sample_source_plain(F, I, draw, full):
+    """The kernels' generic sampler (``xrt_sample_source`` in
+    ``csrc/trace_common.cuh``; JAX ``fused_trace.py:1538-1713``), in their
+    float32 operations: box, cone, axis, wavelength, Doppler, sightlines.
+    ``full(value)`` makes a tensor of the slice's shape. Returns (px, py,
+    pz, dx, dy, dz, wavelength, keep), ``keep`` None without filters."""
     px, py, pz = full(F[0]), full(F[1]), full(F[2])
-    u, v = draw(), draw()
-    if dist == 0:
-        lz = F[12] + u * F[13]
+    wl = full(F[S_WAVE])
+    if I[H_SPATIAL]:
+        for k in range(3):
+            size = F[S_SIZES + k]
+            if size == 0.0:
+                continue
+            o_l = (normal_plain(draw) * size if I[H_SPATIAL] == 2
+                   else (draw() - 0.5) * size)
+            px = px + o_l * F[S_BASIS + 3 * k]
+            py = py + o_l * F[S_BASIS + 3 * k + 1]
+            pz = pz + o_l * F[S_BASIS + 3 * k + 2]
+    c = F[S_CONE:S_CONE + 12]
+    dist = I[2]
+    if dist == _CONES["isotropic"]:
+        u, v = draw(), draw()
+        lz = c[0] + u * c[1]
         rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
         phi = v * _TWO_PI
         lx, ly = rho * torch.cos(phi), rho * torch.sin(phi)
+    elif dist == _CONES["isotropic_xy"]:
+        u, v = draw(), draw()
+        sx = _div(torch.sin((c[0] + u * c[1]) * 0.5), c[2])
+        lx, ly, lz = _xy_tail(sx, v, c[3:7])
+    elif dist == _CONES["isotropic_xy_asym"]:
+        u, v = draw(), draw()
+        target = c[4] + u * c[5]
+        sx = c[0] + u * c[1]
+        for _ in range(12):
+            a1, a0 = sx * c[3], sx * c[2]
+            gm = asin_poly_plain(a1) - asin_poly_plain(a0)
+            dg = (c[3] * _inv_sqrt(torch.clamp_min(1.0 - a1 * a1, 1e-12))
+                  - c[2] * _inv_sqrt(torch.clamp_min(1.0 - a0 * a0, 1e-12)))
+            sx = torch.clamp(torch.clamp_min(sx - (gm - target) / torch.clamp_min(dg, 1e-12),
+                                             c[0]), max=c[10])
+        lx, ly, lz = _xy_tail(sx, v, c[6:10])
+    elif dist == _CONES["flat"]:
+        r = c[0] * torch.sqrt(draw())
+        phi = draw() * _TWO_PI
+        w = _inv_sqrt(1.0 + r * r)
+        lx, ly, lz = torch.cos(phi) * r * w, torch.sin(phi) * r * w, w
+    elif dist == _CONES["flat_xy"]:
+        x = c[0] + draw() * c[1]
+        y = c[2] + draw() * c[3]
+        w = _inv_sqrt(1.0 + x * x + y * y)
+        lx, ly, lz = x * w, y * w, w
+    else:  # flat gaussian
+        x = c[0] * normal_plain(draw)
+        y = c[0] * normal_plain(draw)
+        w = _inv_sqrt(1.0 + x * x + y * y)
+        lx, ly, lz = x * w, y * w, w
+    if I[H_FOCUSED]:
+        dx, dy, dz = aim_plain(F[S_TARGET:S_TARGET + 3], F[S_HINT:S_HINT + 3],
+                               px, py, pz, lx, ly, lz)
     else:
-        sx = _div(torch.sin((F[12] + u * F[13]) * 0.5), F[14])
-        tx = sx * _inv_sqrt(torch.clamp_min(1.0 - sx * sx, 1e-12))
-        k2 = 1.0 + tx * tx
-        h0 = F[15] * _inv_sqrt(k2 + F[16])
-        h1 = F[17] * _inv_sqrt(k2 + F[18])
-        h = h0 + v * (h1 - h0)
-        ty = torch.sqrt(k2) * h * _inv_sqrt(torch.clamp_min(1.0 - h * h, 1e-12))
-        w = _inv_sqrt(1.0 + tx * tx + ty * ty)
-        lx, ly, lz = tx * w, ty * w, w
-    dx = lx * F[3] + ly * F[6] + lz * F[9]
-    dy = lx * F[4] + ly * F[7] + lz * F[10]
-    dz = lx * F[5] + ly * F[8] + lz * F[11]
-    return px, py, pz, dx, dy, dz
+        dx = lx * F[3] + ly * F[6] + lz * F[9]
+        dy = lx * F[4] + ly * F[7] + lz * F[10]
+        dz = lx * F[5] + ly * F[8] + lz * F[11]
+    if I[H_WAVE] == 1:
+        wl = F[S_WAVE] + draw() * F[S_WAVE + 1]
+    elif I[H_WAVE] == 2:
+        if I[H_GAUSS]:
+            wl = wl + F[S_WAVE + 1] * normal_plain(draw)
+        if I[H_CAUCHY]:
+            wl = wl + cauchy_plain(draw, F[S_WAVE + 2])
+    if I[H_VELOCITY]:
+        vx, vy, vz = F[S_VELOCITY:S_VELOCITY + 3]
+        wl = wl * (1.0 - (vx * dx + vy * dy + vz * dz) * F[S_CINV])
+    keep = None
+    base = SRC_F + I[0] * OPT_F + I[1] * AP_F
+    for k in range(I[H_FILTERS]):
+        f = F[base + k * FILT_F: base + (k + 1) * FILT_F]
+        lx_, ly_, lz_ = f[0] - px, f[1] - py, f[2] - pz
+        proj = lx_ * f[3] + ly_ * f[4] + lz_ * f[5]
+        ex, ey, ez = lx_ - proj * f[3], ly_ - proj * f[4], lz_ - proj * f[5]
+        inside = ex * ex + ey * ey + ez * ez <= f[6]
+        keep = inside if keep is None else keep & inside
+    return px, py, pz, dx, dy, dz, wl, keep
 
 
 def plasma_cone_plain(F, omc, draw, px, py, pz):
@@ -499,21 +759,12 @@ def plasma_cone_plain(F, omc, draw, px, py, pz):
     origin to the target F[9:12], in the per-ray basis of
     ``vec.orthogonal_basis`` with the hint F[12:15]. Draws u, v; returns
     the unit direction (dx, dy, dz)."""
-    nx, ny, nz = F[9] - px, F[10] - py, F[11] - pz
-    inv = _inv_sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-30))
-    nx, ny, nz = nx * inv, ny * inv, nz * inv
-    hx, hy, hz = F[12], F[13], F[14]
-    o1x, o1y, o1z = ny * hz - nz * hy, nz * hx - nx * hz, nx * hy - ny * hx
-    inv = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
-    o1x, o1y, o1z = o1x * inv, o1y * inv, o1z * inv
-    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
     u, v = draw(), draw()
     lz = 1.0 - u * omc
     rho = torch.sqrt(torch.clamp_min(1.0 - lz * lz, 0.0))
     phi = v * _TWO_PI
-    lx, ly = rho * torch.cos(phi), rho * torch.sin(phi)
-    return (lx * o2x + ly * o1x + lz * nx, lx * o2y + ly * o1y + lz * ny,
-            lx * o2z + ly * o1z + lz * nz)
+    return aim_plain(F[9:12], F[12:15], px, py, pz, rho * torch.cos(phi),
+                     rho * torch.sin(phi), lz)
 
 
 def normal_plain(draw):
@@ -673,22 +924,36 @@ def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
 
 
 def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
-    """Trace one slice of rays exactly as the kernel does; adds into
-    ``counts`` (int64) and the flat ``image``. ``alive``: the rays alive at
-    the source; ``attrs``: their bundle rows for a plasma source."""
-    f32 = torch.float32
-    n_opt = I[0]
-    counts[0] += alive.sum()
+    """Trace one slice of rays exactly as K1 does; adds into ``counts``
+    (int64) and the flat ``image``. ``alive``: the rays alive at the source
+    before its filters; ``attrs``: their bundle rows for a plasma source."""
     shape = alive.shape
 
     def full(value):
-        return torch.full(shape, value, dtype=f32, device=alive.device)
+        return torch.full(shape, value, dtype=torch.float32, device=alive.device)
 
     if attrs is None:
-        px, py, pz, dx, dy, dz = sample_source_plain(F, I[2], draw, full)
-        wl = None
+        px, py, pz, dx, dy, dz, wl, keep = sample_source_plain(F, I, draw, full)
+        if keep is not None:
+            alive = alive & keep
     else:
         px, py, pz, dx, dy, dz, wl = sample_plasma_plain(F, I, attrs, draw)
+    counts[0] += alive.sum()
+    _trace_chain_plain(F, I, (px, py, pz, dx, dy, dz),
+                       wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image)
+
+
+def _trace_chain_plain(F, I, ray, wl, alive, draw, counts, image):
+    """The kernels' optic chain (``xrt_trace_chain``, ``csrc/
+    trace_chain.cuh``) on a slice: ``ray`` = (px, py, pz, dx, dy, dz),
+    ``wl`` the per-ray wavelengths or None for the optics' constant Bragg
+    angles. Adds into ``counts[1:]`` and ``image``."""
+    f32 = torch.float32
+    n_opt = I[0]
+    px, py, pz, dx, dy, dz = ray
+
+    def full(value):
+        return torch.full(alive.shape, value, dtype=f32, device=alive.device)
 
     for e in range(n_opt):
         o = F[SRC_F + e * OPT_F: SRC_F + (e + 1) * OPT_F]
@@ -883,7 +1148,7 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
         None if cum is None else cum.data_ptr(),
         None if table is None else table.data_ptr(), n_bundles, n_per_iter,
         counts.data_ptr(), image.data_ptr(), fparams.img_total,
-        torch.cuda.current_stream(device).cuda_stream,
+        int(fparams.full_source), torch.cuda.current_stream(device).cuda_stream,
     )
     native.check(err, "xrt_fused_trace")
     fused_run_cuda.launches += 1
@@ -891,6 +1156,95 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
 
 
 fused_run_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The trace-only kernel K3: rays from memory through K1's chain.
+# ---------------------------------------------------------------------------
+
+def fused_trace_run_plain(fparams: FusedParams, origin, direction, wavelength, mask,
+                          uniforms: torch.Tensor | None = None, seed=(0, 0)):
+    """K3's plain twin: the rays (origin and direction (n, 3), wavelength
+    (n,), mask (n,)) through the packed chain, each at its own wavelength.
+    Ray ``r`` takes draw ``k`` from ``uniforms[k, r]`` ((n_draws, n)
+    float32), or from the Philox stream keyed by ``seed``. Returns (counts
+    int64 [1 + n_optics], flat images float32 [img_total])."""
+    F = [float(x) for x in fparams.fp.tolist()]
+    I = [int(x) for x in fparams.ip.tolist()]
+    device = fparams.fp.device
+    n = mask.shape[0]
+    counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
+    image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    for start in range(0, n, _TWIN_SLICE):
+        stop = min(start + _TWIN_SLICE, n)
+        rays = torch.arange(start, stop, dtype=torch.int64, device=device)
+        if uniforms is None:
+            rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
+        else:
+            rows = [uniforms[k, start:stop] for k in range(fparams.n_draws)]
+        alive = mask[start:stop].to(torch.bool)
+        counts[0] += alive.sum()
+        o, d = origin[start:stop], direction[start:stop]
+        _trace_chain_plain(F, I, (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]),
+                           wavelength[start:stop], alive, iter(rows).__next__, counts,
+                           image)
+    return counts, image
+
+
+def fused_trace_run_cuda(fparams: FusedParams, origin, direction, wavelength, mask,
+                         uniforms: torch.Tensor | None = None, seed=(0, 0)):
+    """Trace the given rays through the packed chain (kernel K3), as
+    :func:`fused_trace_run_plain` takes them: float32 rays, a bool or uint8
+    mask, packed for source kind 3 (rays from memory). Buffers on a CUDA
+    device launch the kernel (or raise); buffers on the CPU take the twin."""
+    device = fparams.fp.device
+    if device.type == "cpu":
+        return fused_trace_run_plain(fparams, origin, direction, wavelength, mask,
+                                     uniforms, seed)
+    if device.type != "cuda":
+        raise ValueError(f"fused_trace_run_cuda: unsupported device {device}")
+    if fparams.source_kind != SRC_RAYS:
+        raise ValueError("fused_trace_run_cuda: the chain must be packed for rays "
+                         "from memory (source kind 3)")
+    n = mask.shape[0]
+    if not 0 <= n < 2**31:
+        raise ValueError("fused_trace_run_cuda: n must be in [0, 2^31)")
+    for name, t, shape in (("origin", origin, (n, 3)), ("direction", direction, (n, 3)),
+                           ("wavelength", wavelength, (n,))):
+        if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"fused_trace_run_cuda: {name} must be float32 {shape} "
+                             f"on {device}")
+    if (mask.device != device or mask.dtype not in (torch.bool, torch.uint8)
+            or tuple(mask.shape) != (n,)):
+        raise ValueError(f"fused_trace_run_cuda: mask must be bool ({n},) on {device}")
+    u_ptr = None
+    if uniforms is not None:
+        if (uniforms.device != device or uniforms.dtype != torch.float32
+                or tuple(uniforms.shape) != (fparams.n_draws, n)):
+            raise ValueError(
+                f"uniforms must be float32 ({fparams.n_draws}, {n}) on {device}")
+        uniforms = uniforms.contiguous()
+        u_ptr = uniforms.data_ptr()
+    counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
+    image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    if n == 0:
+        return counts, image
+    origin, direction = origin.contiguous(), direction.contiguous()
+    wavelength = wavelength.contiguous()
+    mask = mask.contiguous().view(torch.uint8)
+    fp, ip = fparams.fp.contiguous(), fparams.ip.contiguous()
+    err = native.library().xrt_trace_only(
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), n, origin.data_ptr(),
+        direction.data_ptr(), wavelength.data_ptr(), mask.data_ptr(), u_ptr,
+        int(seed[0]) & _M32, int(seed[1]) & _M32, counts.data_ptr(),
+        image.data_ptr(), fparams.img_total,
+        torch.cuda.current_stream(device).cuda_stream)
+    native.check(err, "xrt_trace_only")
+    fused_trace_run_cuda.launches += 1
+    return counts, image
+
+
+fused_trace_run_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -929,19 +1283,13 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     instead, as ``fused_run_cuda`` takes them.
     """
     g = pipeline.general
-    mode = str(g.get("interact_mode", "mc")).lower()
-    if mode != "mc":
-        raise FusedUnsupported(f"interact_mode {mode!r}")
-    if str(g.get("image_mode", "nearest")).lower() != "nearest":
-        raise FusedUnsupported("image_mode != nearest")
-    if str(g.get("dtype", "float32")).lower() not in ("float32", "f32"):
-        raise FusedUnsupported("dtype != float32")
+    _check_chain_general(g)
     if history_slots or history_mode != "found":
         raise FusedUnsupported("history reservoirs are not ported yet")
     if rng not in ("hw", "input"):
         raise ValueError(f"rng must be 'hw' or 'input', got {rng!r}")
 
-    src = _source_spec(pipeline.source)
+    src = _source_spec(pipeline.source, {f.name: f for f in pipeline.filters})
     optics = [_optic_spec(o) for o in pipeline.optics]
     # Packing the build-time params raises FusedUnsupported for what only
     # the values show: buffer limits, a wavelength outside the Bragg range.
@@ -977,17 +1325,80 @@ def build_fused_run(pipeline, num_iter: int | None = None,
         if uniforms is not None:
             uniforms = uniforms.to(device)
         counts, flat = fused_run_cuda(fparams, n_total, count, uniforms, seed, bundles)
-        meta = {name: counts[i] for i, name in enumerate(names)} if keep_meta else {}
-        image = {}
-        if keep_images:
-            off = 0
-            for o in optics:
-                im = o["image"]
-                if im is not None:
-                    size = im["nx"] * im["ny"]
-                    image[o["name"]] = flat[off:off + size].reshape(im["nx"], im["ny"])
-                    off += size
-        return {"meta": meta, "image": image, "history": {}}
+        return _results(counts, flat, optics, names, keep_meta, keep_images)
+
+    return run
+
+
+def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool) -> dict:
+    """The run's ``{"meta", "image", "history"}`` from the kernels' counts
+    and flat images."""
+    meta = {name: counts[i] for i, name in enumerate(names)} if keep_meta else {}
+    image = {}
+    if keep_images:
+        off = 0
+        for o in optics:
+            im = o["image"]
+            if im is not None:
+                size = im["nx"] * im["ny"]
+                image[o["name"]] = flat[off:off + size].reshape(im["nx"], im["ny"])
+                off += size
+    return {"meta": meta, "image": image, "history": {}}
+
+
+def _check_chain_general(g: dict) -> None:
+    """The run modes K1's and K3's chain takes: mc, nearest, float32."""
+    mode = str(g.get("interact_mode", "mc")).lower()
+    if mode != "mc":
+        raise FusedUnsupported(f"interact_mode {mode!r}")
+    if str(g.get("image_mode", "nearest")).lower() != "nearest":
+        raise FusedUnsupported("image_mode != nearest")
+    if str(g.get("dtype", "float32")).lower() not in ("float32", "f32"):
+        raise FusedUnsupported("dtype != float32")
+
+
+def build_fused_trace_run(pipeline, num_iter: int | None = None):
+    """Build ``run(params, generator) -> {"meta", "image", "history"}``: per
+    iteration the eager engine generates the source's rays
+    (``pipeline.source.generate``; a plasma's bundles through K4) and K3
+    traces them through the chain (JAX ``build_fused_trace_run``,
+    ``fused_trace.py:2029-2226``), its draws (one per crystal) from a
+    Philox stream keyed by two seed words from the generator. Weight mode,
+    bilinear images and history wait for K1d and K1e, in K1 and K3
+    together.
+    """
+    g = pipeline.general
+    _check_chain_general(g)
+    optics = [_optic_spec(o) for o in pipeline.optics]
+    src = {"name": None, "kind": SRC_RAYS, "n_draws": 0}
+    pack_params(src, optics, pipeline.params, "cpu")
+    if num_iter is None:
+        num_iter = int(g["number_of_iter"])
+    n = pipeline.num_rays
+    if n * num_iter >= 2**31:
+        raise FusedUnsupported(f"num_rays*num_iter = {n * num_iter:.3e} overflows "
+                               "int32 ray indexing")
+    keep_meta = bool(g.get("keep_meta", True))
+    keep_images = bool(g.get("keep_images", True))
+    names = pipeline.element_names
+    device = pipeline.device
+    source = pipeline.source
+
+    def run(params, generator: torch.Generator):
+        fparams = pack_params(src, optics, params, device)
+        draws = Draws(generator)
+        counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
+        flat = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+        for _ in range(num_iter):
+            rays = source.generate(params["sources"][source.name], draws,
+                                   params["filters"])
+            seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                                 device=generator.device).tolist()
+            c, im = fused_trace_run_cuda(fparams, rays.origin, rays.direction,
+                                         rays.wavelength, rays.mask, seed=seed)
+            counts += c
+            flat += im
+        return _results(counts, flat, optics, names, keep_meta, keep_images)
 
     return run
 
@@ -995,13 +1406,21 @@ def build_fused_run(pipeline, num_iter: int | None = None,
 def build_fast_run(pipeline, num_iter: int | None = None,
                    history_slots: int | None = None,
                    history_mode: str = "found"):
-    """Fastest applicable fused path: ``(run, "fused")``.
+    """Fastest applicable fused path: ``(run, kind)``, kind "fused" (K1)
+    or "fused_trace" (K3).
 
-    The JAX package falls back to its trace-only kernel when only the
-    source is outside the megakernel subset; that kernel is not ported yet,
-    so this raises ``FusedUnsupported`` instead.
+    K1 first; where it refuses and no history is asked, the trace-only
+    path, which raises ``FusedUnsupported`` itself where the chain is
+    outside the subset (JAX ``fused_trace.py:2229-2262``). On this card K3
+    serves the sources K1 refuses: plasmas of more than 2^22 bundles and
+    sources of more than 8 filters.
     """
-    return (build_fused_run(pipeline, num_iter=num_iter,
-                            history_slots=history_slots,
-                            history_mode=history_mode),
-            "fused")
+    try:
+        return (build_fused_run(pipeline, num_iter=num_iter,
+                                history_slots=history_slots,
+                                history_mode=history_mode),
+                "fused")
+    except FusedUnsupported:
+        if history_slots or history_mode != "found":
+            raise FusedUnsupported("history reservoir requires the megakernel path")
+    return build_fused_trace_run(pipeline, num_iter=num_iter), "fused_trace"

@@ -5,9 +5,10 @@ whose mean emission axis is +z. The JAX samplers draw the same uniforms from
 a key (``spread.py:58-62, 103-105``); taking them as arguments lets the
 tests hand both packages the same numbers.
 
-Ported: ``isotropic`` and ``isotropic_xy`` (closed form for symmetric
-y-bounds, bracket-clamped Newton otherwise). ``flat``, ``flat_xy`` and
-``gaussian`` raise ``NotImplementedError``.
+Every JAX sampler is here: ``isotropic``, ``isotropic_xy`` (closed form for
+symmetric y-bounds, bracket-clamped Newton otherwise), ``flat``,
+``flat_xy`` and ``gaussian`` (``flat_gaussian``), whose ``u, v`` are two
+standard normals instead of uniforms.
 
 Spread parsing follows the reference: 1 value -> symmetric in x/y, 2 values
 -> [x, y] half-angles, 4 values -> [xmin, xmax, ymin, ymax].
@@ -112,6 +113,46 @@ def sample_isotropic_xy(u: torch.Tensor, v: torch.Tensor, spread,
     return torch.stack([tx * w, ty * w, w], dim=-1)
 
 
+def uniform_range(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jax.random.uniform(minval=lo, maxval=hi)`` of uniforms ``u`` in
+    [0, 1): the bounds rounded to the uniforms' dtype, ``u * (hi - lo) +
+    lo``, clipped below at ``lo``."""
+    lo_t = torch.tensor(lo, dtype=u.dtype, device=u.device)
+    span = torch.tensor(hi, dtype=u.dtype, device=u.device) - lo_t
+    return torch.maximum(u * span + lo_t, lo_t)
+
+
+def sample_flat(u: torch.Tensor, v: torch.Tensor, spread) -> torch.Tensor:
+    """Uniform density on the z = 1 plane inside radius tan(theta): r =
+    tan(theta) sqrt(u), azimuth from ``v`` (JAX ``spread.py:157-182``, the
+    documented half-angle, not the reference's sqrt(tan) radius)."""
+    r = math.tan(parse_spread_single(spread)) * torch.sqrt(u)
+    phi = uniform_range(v, 0.0, 2.0 * math.pi)
+    angle0 = torch.arctan(r)
+    return torch.stack([torch.cos(phi) * torch.sin(angle0),
+                        torch.sin(phi) * torch.sin(angle0), torch.cos(angle0)], dim=-1)
+
+
+def sample_flat_xy(u: torch.Tensor, v: torch.Tensor, spread) -> torch.Tensor:
+    """Uniform density over an xy rectangle of the z = 1 plane: x in
+    [tan tx0, tan tx1] from ``u``, y in [tan ty0, tan ty1] from ``v``."""
+    t = parse_spread_xy(spread)
+    x = uniform_range(u, math.tan(t[0]), math.tan(t[1]))
+    y = uniform_range(v, math.tan(t[2]), math.tan(t[3]))
+    angle0 = torch.arctan(torch.sqrt(x * x + y * y))
+    angle1 = torch.arctan2(y, x)
+    return torch.stack([torch.cos(angle1) * torch.sin(angle0),
+                        torch.sin(angle1) * torch.sin(angle0), torch.cos(angle0)], dim=-1)
+
+
+def sample_flat_gaussian(gx: torch.Tensor, gy: torch.Tensor, spread) -> torch.Tensor:
+    """Gaussian density on the z = 1 plane from two standard normals;
+    ``spread`` is the angular HWHM, sigma = sin(hwhm / sqrt(2 ln 2))."""
+    sigma = math.sin(parse_spread_single(spread) / math.sqrt(2.0 * math.log(2.0)))
+    v = torch.stack([sigma * gx, sigma * gy, torch.ones_like(gx)], dim=-1)
+    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+
+
 def solid_angle_isotropic_xy(spread) -> float:
     """Solid angle of the xy-rectangular window (corner arcsin formula)."""
     t = parse_spread_xy(spread)
@@ -126,17 +167,20 @@ def solid_angle_isotropic_xy(spread) -> float:
 _SAMPLERS = {
     "isotropic": sample_isotropic,
     "isotropic_xy": sample_isotropic_xy,
+    "flat": sample_flat,
+    "flat_xy": sample_flat_xy,
+    # The reference's 'gaussian' names the flat-gaussian sampler
+    # (JAX spread.py:226-231).
+    "gaussian": sample_flat_gaussian,
+    "flat_gaussian": sample_flat_gaussian,
 }
-_NOT_PORTED = ("flat", "flat_xy", "gaussian", "flat_gaussian")
+# Distributions whose two inputs are standard normals, not uniforms.
+NORMAL_INPUTS = ("gaussian", "flat_gaussian")
 
 
 def sample_direction(u, v, spread, name: str = "isotropic") -> torch.Tensor:
     """Dispatch by distribution name (mirrors ``vector_distribution``)."""
     name = (name or "isotropic").lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'Angular distribution "{name}" is not ported to xicsrt_tpu_torch yet.'
-        )
     if name not in _SAMPLERS:
         raise ValueError(f'Angular distribution "{name}" is not known.')
     return _SAMPLERS[name](u, v, spread)

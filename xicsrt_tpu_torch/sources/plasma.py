@@ -18,9 +18,12 @@ Draws, in order: 3 B uniforms of bundle offsets, B Poisson counts, then per
 ray 3 N voxel uniforms (voxel bundles), N + N cone uniforms, N normals and,
 with a natural linewidth, N Cauchy uniforms.
 
+The source's ``filters`` cut bundles by their origins before the photon
+rates are taken (JAX ``plasma.py:264-267``), so a filtered bundle emits
+nothing on either engine.
+
 ``bundle_gather``: 'auto' and 'matmul' take kernel K4 on a CUDA device (its
 plain twin on the CPU); 'gather' is the plain indexed gather everywhere.
-Source ``filters`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import torch
 from xicsrt_tpu_torch.dispatch import register
 from xicsrt_tpu_torch.ops import vector as vec
 from xicsrt_tpu_torch.ops import voigt as voigt_ops
+from xicsrt_tpu_torch.ops.spread import uniform_range
+from xicsrt_tpu_torch.ops.voigt import interp
 from xicsrt_tpu_torch.ops.bundle_gather import interval_gather_cuda, interval_gather_plain
 from xicsrt_tpu_torch.rays import Rays
 from xicsrt_tpu_torch.sources.generic import SourceGeneric, poisson_budget
@@ -40,19 +45,6 @@ from xicsrt_tpu_torch.sources.generic import SourceGeneric, poisson_budget
 _C_LIGHT = 299792458.0
 _EV_J = 1.602176634e-19
 _AMU_KG = 1.66053906892e-27
-
-
-def interp(x, xp_tab, fp_tab, left=0.0, right=0.0):
-    """Piecewise-linear interpolation on tensors, as ``jnp.interp`` does it."""
-    xt = torch.as_tensor(xp_tab, dtype=x.dtype, device=x.device)
-    ft = torch.as_tensor(fp_tab, dtype=x.dtype, device=x.device)
-    i = torch.clamp(torch.searchsorted(xt, x.contiguous(), right=True), 1, len(xt) - 1)
-    dx = xt[i] - xt[i - 1]
-    flat = torch.abs(dx) <= np.spacing(torch.finfo(x.dtype).eps)
-    f = torch.where(flat, ft[i - 1],
-                    ft[i - 1] + (x - xt[i - 1]) / torch.where(flat, 1.0, dx) * (ft[i] - ft[i - 1]))
-    f = torch.where(x < xt[0], left, f)
-    return torch.where(x > xt[-1], right, f)
 
 
 @register("XicsrtPlasmaGeneric", "plasma_generic")
@@ -92,10 +84,8 @@ class PlasmaGeneric(SourceGeneric):
         # SourceGeneric.initialize does not apply: the plasma sets its own
         # budget from the bundle rates.
         p = self.param
-        filters = p.get("filters")
-        if filters is not None and len(filters):
-            raise NotImplementedError(
-                f'Plasma "{self.name}": source filters are not ported yet.')
+        self.voigt_table = None
+        self.filter_fns = []
         p["volume"] = float(p["xsize"]) * float(p["ysize"]) * float(p["zsize"])
         bundle_count = p["bundle_count"]
         if bundle_count is None:
@@ -187,8 +177,9 @@ class PlasmaGeneric(SourceGeneric):
 
     # ------------------------------------------------------------------
     def make_bundle_tables(self):
-        """``fn(params, draws) -> (cum, table, total)``: bundle origins,
-        profiles, rates and counts (JAX ``plasma.py:231-300``). ``cum``
+        """``fn(params, draws, filter_params=None) -> (cum, table, total)``:
+        bundle origins, profiles, filters, rates and counts (JAX
+        ``plasma.py:231-300``). ``cum``
         (B,) int32 inclusive cumulative counts, ``table`` (B, 8) float32
         [origin xyz, spread, temperature, velocity xyz], ``total`` the
         realised count (a 0-d int32 tensor)."""
@@ -204,11 +195,12 @@ class PlasmaGeneric(SourceGeneric):
         volume = float(p["volume"])
         intensity_scale = float(p["intensity_scale"])
 
-        def bundle_tables(params, draws):
+        def bundle_tables(params, draws, filter_params=None):
             frame = params["frame"]
             offsets = (draws.uniform(3 * B, dtype, device).reshape(B, 3) - 0.5) * sizes
             b_origin = frame.point_to_external(offsets)
             prof = self.profiles(params, b_origin, offsets)
+            b_mask = self.apply_filters(filter_params or {}, b_origin, prof["mask"])
             if spread_radius is not None:
                 dist = vec.magnitude(b_origin - params["target"][None, :])
                 b_spread = torch.arctan(float(spread_radius) / dist)
@@ -217,7 +209,7 @@ class PlasmaGeneric(SourceGeneric):
             omega = 4.0 * math.pi * torch.sin(b_spread / 2.0) ** 2
             lam = (prof["emissivity"] * time_res * bundle_volume * omega
                    / (4.0 * math.pi)) * (volume / (B * bundle_volume)) * intensity_scale
-            lam = torch.where(prof["mask"], lam, torch.zeros_like(lam))
+            lam = torch.where(b_mask, lam, torch.zeros_like(lam))
             if use_poisson:
                 counts = draws.poisson_counts(lam)
             else:
@@ -246,13 +238,6 @@ class PlasmaGeneric(SourceGeneric):
         mc2 = float(self.param["mass_number"]) * _AMU_KG * _C_LIGHT**2
         gather = interval_gather_plain if self.gather_mode == "gather" else interval_gather_cuda
 
-        def uniform_range(draws, lo: float, hi: float):
-            """``jax.random.uniform(minval=lo, maxval=hi)`` on a row."""
-            u = draws.uniform(N, dtype, device)
-            lo_t = torch.tensor(lo, dtype=dtype, device=device)
-            span = torch.tensor(hi, dtype=dtype, device=device) - lo_t
-            return torch.maximum(u * span + lo_t, lo_t)
-
         def rays(params, cum, table, draws):
             frame = params["frame"]
             mask = torch.arange(N, device=device) < torch.clamp_max(cum[-1], N)
@@ -260,14 +245,13 @@ class PlasmaGeneric(SourceGeneric):
             r_origin, theta = attrs[:, 0:3], attrs[:, 3]
             r_temp, r_vel = attrs[:, 4], attrs[:, 5:8]
             if voxel > 0.0:
-                lo = torch.tensor(-voxel / 2, dtype=dtype, device=device)
-                span = torch.tensor(voxel / 2, dtype=dtype, device=device) - lo
                 u = draws.uniform(3 * N, dtype, device).reshape(N, 3)
-                r_origin = r_origin + frame.vector_to_external(torch.maximum(u * span + lo, lo))
+                r_origin = r_origin + frame.vector_to_external(
+                    uniform_range(u, -voxel / 2, voxel / 2))
 
             normal = vec.safe_normalize(params["target"][None, :] - r_origin)
             u = draws.uniform(N, dtype, device)
-            phi = uniform_range(draws, 0.0, 2.0 * math.pi)
+            phi = uniform_range(draws.uniform(N, dtype, device), 0.0, 2.0 * math.pi)
             z = 1.0 - u * (1.0 - torch.cos(theta))
             rho = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
             local = torch.stack([rho * torch.cos(phi), rho * torch.sin(phi), z], dim=-1)
@@ -277,7 +261,7 @@ class PlasmaGeneric(SourceGeneric):
             sigma = torch.sqrt(torch.clamp_min(r_temp, 0.0) * _EV_J / mc2) * w0
             w = w0 + sigma * draws.normal(N, dtype, device)
             if gamma > 0.0:
-                uc = uniform_range(draws, 1e-7, 1.0 - 1e-7)
+                uc = uniform_range(draws.uniform(N, dtype, device), 1e-7, 1.0 - 1e-7)
                 w = w + gamma * torch.tan(math.pi * (uc - 0.5))
             w = w * (1.0 - vec.dot(r_vel, direction) / _C_LIGHT)
             return Rays(origin=r_origin, direction=direction, wavelength=w,
@@ -285,9 +269,9 @@ class PlasmaGeneric(SourceGeneric):
 
         return rays
 
-    def generate(self, params, draws) -> Rays:
+    def generate(self, params, draws, filter_params=None) -> Rays:
         """One iteration: fresh bundle tables, then the rays."""
-        cum, table, _ = self.bundle_tables(params, draws)
+        cum, table, _ = self.bundle_tables(params, draws, filter_params)
         return self.rays_from_tables(params, cum, table, draws)
 
 
