@@ -50,15 +50,18 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 23. K1b (the generic source matrix in K1) against its twin on eight source
     variants (boxes, Voigt and uniform lines, Doppler, Focused, flat,
     flat_xy, gaussian and asymmetric isotropic_xy cones, a sightline) at
-    2^20 rays, both RNG modes, and its time;
+    2^20 rays, both RNG modes, and on phase 24's source at its 2^24 rays;
+    its time;
 24. the source matrix through ``raytrace(config, device='cuda')`` on both
     engines at 2^22 rays x 4: a focused gaussian source of the Ar XVII line
-    (1 keV, natural width, 1e5 m/s flow) on the flagship crystal, and a
-    sightline-filtered uniform box; the detected line against the
-    source's;
+    (1 keV, natural width, 1e5 m/s flow along the sightline) on the
+    flagship crystal, and a sightline-filtered uniform box; each engine's
+    images against the other's (two-sample chi-square), the eager engine's
+    detected line against scipy's Voigt profile shifted by the flow;
 25. K3 (the trace-only kernel) against its twin, then ``plasma_torus`` with
     8e6 bundles at 2^24 expected photons x 2 on ``engine='fused'`` (K4
-    generates, K3 traces), and K3's time;
+    generates, K3 traces), and K3's time and its twin's output on those
+    1.97e7 rays;
 26. K5f and K5b with the generic sampler against their twins on
     ``tests/test_fused_grad.py``'s six source-matrix variants at 2^20
     rays, then ``make_fused_differentiable`` on ``focused_gaussian_voigt``
@@ -718,6 +721,7 @@ def plasma_k1_setup(ft, engine, intensity, num_iter, bundle_count=1000, seed=14)
     from xicsrt_tpu_torch.draws import Draws
 
     bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"]["plasma"],
+                                pipe.params["filters"],
                                 Draws(torch.Generator(device="cuda").manual_seed(seed)),
                                 num_iter)
     return pipe, fparams, bundles, pipe.num_rays * num_iter
@@ -1336,7 +1340,8 @@ def source_matrix_config(intensity, num_iter, engine_kind, **general):
     """Phase 24's source on the flagship crystal and detector: the Ar XVII
     line at 3.9492 A from a 1 keV focused gaussian source with its natural
     width and a 1e5 m/s flow (``tests/test_fused_grad.py``'s
-    ``focused_gaussian_voigt``, aimed at the flagship crystal)."""
+    ``focused_gaussian_voigt``, aimed at the flagship crystal, its flow
+    turned onto the sightline so that it shifts the line by lambda v / c)."""
     cfg = flagship(intensity, num_iter, engine=engine_kind, **general)
     cfg["sources"]["source"] = {
         "class_name": "XicsrtSourceFocused", "intensity": intensity,
@@ -1345,7 +1350,7 @@ def source_matrix_config(intensity, num_iter, engine_kind, **general):
         "angular_dist": "isotropic", "spread": math.radians(9.0),
         "target": [0.0, 0.0, 0.80374151], "wavelength_dist": "voigt",
         "linewidth": 1e12, "temperature": 1000.0, "mass_number": 40.0,
-        "velocity": [0.0, 1e5, 0.0]}
+        "velocity": [0.0, 0.0, 1e5]}
     return cfg
 
 
@@ -1358,7 +1363,8 @@ def k1_pack(ft, pipe):
 
 def phase_k1b(smi, ft, engine) -> dict:
     """Phase 23: K1b against its twin on every source variant, 2^20 rays,
-    both RNG modes; then its time on phase 24's source at 2^22 rays."""
+    both RNG modes, and on phase 24's source at the 2^22 x 4 rays of its
+    launch; then its time there per 2^22 rays."""
     n = 1 << 20
     tol = max(2, int(1e-6 * n))
     worst = 0.0
@@ -1385,6 +1391,18 @@ def phase_k1b(smi, ft, engine) -> dict:
     n = 1 << 22
     fparams = k1_pack(ft, engine.Pipeline(source_matrix_config(n, 1, "fused"),
                                           device="cuda"))
+    n_main = 4 * n
+    tol = max(2, int(1e-6 * n_main))
+    ck, ik = ft.fused_run_cuda(fparams, n_main, n_main, seed=(1, 2))
+    cp, iq = ft.fused_run_plain(fparams, n_main, n_main, seed=(1, 2))
+    torch.cuda.synchronize()
+    dc, di = (ck - cp).abs(), (ik - iq).abs()
+    log(f"phase 23 K1b on phase 24's source, {n_main} rays: kernel counts {ck.tolist()}, "
+        f"twin {cp.tolist()}; image L1 diff {di.sum().item():.0f} (tolerance {tol} rays "
+        f"per element)")
+    if dc.max().item() > tol or di.sum().item() > 2 * tol * fparams.n_optics:
+        raise AssertionError("K1b differs from its twin on phase 24's source")
+    worst = max(worst, float(dc.max().item()), float(di.max().item()))
     ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
     plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 3)
     k1b_bound = bound(packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
@@ -1395,9 +1413,26 @@ def phase_k1b(smi, ft, engine) -> dict:
     return {"err": worst, "ms": ms, "plain_ms": plain_ms, "bound": k1b_bound}
 
 
+def image_chi2(a, b) -> tuple:
+    """Two-sample chi-square of two count images: pixels with 10 or more
+    counts between them, the rest pooled into one bin. Returns (chi2,
+    degrees of freedom)."""
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    big = a + b >= 10
+    a = np.append(a[big], a[~big].sum())
+    b = np.append(b[big], b[~big].sum())
+    keep = a + b > 0
+    a, b = a[keep], b[keep]
+    ka, kb = math.sqrt(b.sum() / a.sum()), math.sqrt(a.sum() / b.sum())
+    return float(np.sum((ka * a - kb * b) ** 2 / (a + b))), int(keep.sum()) - 1
+
+
 def engines_agree(fused, eager, label, budget):
     """Images sum to counts on both engines; the detector efficiencies
-    agree within 5 binomial sigma. Returns the fused meta."""
+    agree within 5 binomial sigma, and each image of one engine is drawn
+    from the same distribution as the other's (two-sample chi-square below
+    dof + 5 sqrt(2 dof)). Returns both metas."""
     metas = [{k: v["num_out"] for k, v in r["total"]["meta"].items()} for r in (fused, eager)]
     for meta, res in zip(metas, (fused, eager)):
         for name, img in res["total"]["image"].items():
@@ -1412,26 +1447,40 @@ def engines_agree(fused, eager, label, budget):
         f"{p[0]:.6g} vs {p[1]:.6g}, {abs(p[0] - p[1]) / sigma:.2f} binomial sigma (< 5)")
     if abs(p[0] - p[1]) > 5 * sigma:
         raise AssertionError(f"{label}: the engines disagree")
+    for name, img in fused["total"]["image"].items():
+        chi2, dof = image_chi2(img, eager["total"]["image"][name])
+        if dof < 1:
+            continue
+        limit = dof + 5 * math.sqrt(2 * dof)
+        log(f"{label}: {name} images, chi2 {chi2:.1f} on {dof} dof (< {limit:.1f})")
+        if chi2 > limit:
+            raise AssertionError(f"{label}: the engines' {name} images differ")
     return metas
 
 
-def voigt_quartiles(cfg) -> tuple:
-    """The source line's quartiles about its centre, from the port's
-    float64 Voigt CDF table."""
-    from xicsrt_tpu_torch.ops import voigt
+def line_quartiles(cfg) -> tuple:
+    """The source line's quartiles about its centre: scipy's Voigt profile of
+    the Doppler sigma and natural half width, summed on a grid of 1.2e6
+    points over +-60 sigma (independent of the port's CDF table)."""
+    from scipy.special import voigt_profile
 
     p = cfg["sources"]["source"]
-    w0 = p["wavelength"]
-    x, cdf = voigt.voigt_cdf_table(voigt.natural_gamma(p["linewidth"], w0),
-                                   voigt.doppler_sigma(p["temperature"], p["mass_number"], w0))
-    return tuple(float(np.interp(q * cdf[-1], cdf, x)) for q in (0.25, 0.5, 0.75))
+    w0, c = p["wavelength"], 299792458.0
+    sigma = w0 * math.sqrt(p["temperature"] * 1.602176634e-19
+                           / (p["mass_number"] * 1.66053906660e-27 * c**2))
+    gamma = p["linewidth"] * w0**2 / (4.0 * math.pi * c * 1e10)
+    x = np.linspace(-60.0 * sigma, 60.0 * sigma, 1_200_001)
+    pdf = voigt_profile(x, sigma, gamma)
+    cdf = np.cumsum(pdf) - 0.5 * pdf
+    cdf /= cdf[-1] + 0.5 * pdf[-1]
+    return tuple(float(np.interp(q, cdf, x)) for q in (0.25, 0.5, 0.75))
 
 
 def phase_source_matrix(ft, engine, raytrace) -> int:
     """Phase 24: the source matrix through ``raytrace`` on both engines at
-    2^22 rays x 4 iterations (K1b counted around the fused runs); the
-    detected line against the source's; a sightline-filtered uniform box.
-    Returns K1b's launches."""
+    2^22 rays x 4 (K1b counted around the fused runs), their images against
+    each other; a sightline-filtered uniform box; the eager engine's
+    detected line against the source's. Returns K1b's launches."""
     n, iters = 1 << 22, 4
     ft.fused_run_cuda.launches = 0
     fused = raytrace(source_matrix_config(n, iters, "fused"), device="cuda")
@@ -1441,6 +1490,8 @@ def phase_source_matrix(ft, engine, raytrace) -> int:
     if launches <= 0:
         raise AssertionError("phase 24: the source matrix did not launch K1b")
     eager = raytrace(source_matrix_config(n, iters, "xla"), device="cuda")
+    # The detector image's dispersion axis holds the line: K1b's exact
+    # Gauss + Cauchy and Doppler against the eager engine's tabulated line.
     engines_agree(fused, eager, "phase 24 focused Voigt source", n * iters)
     filt_cfg["general"]["engine"] = "xla"
     eager_filt = raytrace(filt_cfg, device="cuda")
@@ -1454,24 +1505,27 @@ def phase_source_matrix(ft, engine, raytrace) -> int:
         if abs(dev) > 5:
             raise AssertionError(f"phase 24: the sightline keeps {frac} on {label}")
 
-    # The detected line: the eager engine's found rays, the Doppler shift of
-    # each taken out with its source direction, against the source line's
-    # quartiles (their standard errors from the line's density there).
+    # The detected line: the eager engine's found rays against the source
+    # line shifted by the flow, -lambda0 (v . d) / c averaged over their
+    # source directions (the quartiles' standard errors from the line's
+    # density there).
     cfg = source_matrix_config(1 << 20, 1, "xla", keep_history=True)
     res = raytrace(cfg, device="cuda")
     found = res["found"]["history"]
-    w = found["detector"]["wavelength"].astype(np.float64)
+    src = cfg["sources"]["source"]
+    w0 = src["wavelength"]
+    w = found["detector"]["wavelength"].astype(np.float64) - w0
     d = found["source"]["direction"].astype(np.float64)
-    base = w / (1.0 - d[:, 1] * 1e5 / 299792458.0) - 3.9492
-    q = np.quantile(base, [0.25, 0.5, 0.75])
-    ref = voigt_quartiles(cfg)
-    sigma_line = ref[2] - ref[0]
-    tol = 5 * 1.5 * sigma_line / math.sqrt(len(base))
-    shift = float(np.mean(w - (base + 3.9492)))
-    log(f"phase 24 detected line ({len(base)} rays): quartiles about 3.9492 A "
-        f"{q.tolist()} against the source's {list(ref)} (tolerance {tol:.3g} A); mean "
-        f"Doppler shift {shift:.4g} A")
-    if not (len(base) > 100 and np.all(np.abs(q - np.array(ref)) < tol)):
+    flow = np.asarray(src["velocity"], np.float64)
+    shift = -w0 * float(np.mean(d @ flow)) / 299792458.0
+    q = np.quantile(w, [0.25, 0.5, 0.75])
+    ref = np.array(line_quartiles(cfg)) + shift
+    tol = 5 * 1.5 * (ref[2] - ref[0]) / math.sqrt(len(w))
+    log(f"phase 24 detected line ({len(w)} rays): quartiles about {w0} A {q.tolist()} "
+        f"against the source's {ref.tolist()} (tolerance {tol:.3g} A): median shift "
+        f"{q[1]:.4g} A against the flow's {shift:.4g} A, interquartile range "
+        f"{q[2] - q[0]:.4g} A against {ref[2] - ref[0]:.4g} A")
+    if not (len(w) > 100 and abs(shift) > 5 * tol and np.all(np.abs(q - ref) < tol)):
         raise AssertionError("phase 24: the detected line is not the source's")
     return launches
 
@@ -1496,7 +1550,8 @@ def phase_k3(smi, ft, engine, raytrace) -> dict:
     (per-ray Bragg angles through a torus), both RNG modes; then a
     ``plasma_torus`` of 8e6 bundles, past K1's 2^22, at 2^24 expected
     photons x 2 on ``engine='fused'``: K4 generates, K3 traces (counted
-    around the run); then K3's time on one iteration's rays."""
+    around the run); then K3 against its twin on one iteration's rays of
+    that run's size, and its time there."""
     worst = 0.0
     cases = (("flagship", engine.Pipeline(flagship(1 << 20, 1), device="cuda")),
              ("plasma_torus", engine.Pipeline(plasma_config(1 << 20, 1), device="cuda")))
@@ -1538,6 +1593,16 @@ def phase_k3(smi, ft, engine, raytrace) -> dict:
     rays = eager_rays(pipe, 27)
     n = rays.mask.shape[0]
     args = (fparams, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    ck, ik = ft.fused_trace_run_cuda(*args, seed=(1, 2))
+    cp, iq = ft.fused_trace_run_plain(*args, seed=(1, 2))
+    torch.cuda.synchronize()
+    log(f"phase 25 K3 on the 8e6-bundle plasma's {n} rays: kernel counts {ck.tolist()}, "
+        f"twin {cp.tolist()}; image L1 diff {(ik - iq).abs().sum().item():.0f} (tolerance 0)")
+    if not (torch.equal(ck, cp) and torch.equal(ik, iq)):
+        raise AssertionError("K3 differs from its twin on the 8e6-bundle plasma's rays")
+    if ck[-1].item() <= 0:
+        raise AssertionError("phase 25: no detector hits (8e6-bundle plasma)")
+    worst = max(worst, (ik - iq).abs().max().item())
     ms = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, seed=(1, 2)), 20)
     plain_ms = cuda_ms(lambda: ft.fused_trace_run_plain(*args, seed=(1, 2)), 3)
     k3_bound = bound(29 * n + packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4

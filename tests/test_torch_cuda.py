@@ -269,6 +269,7 @@ def test_fused_plasma_torus_kernel_matches_twin(cuda_device, rng):
     optics = [ft._optic_spec(o) for o in pipe.optics]
     fparams = ft.pack_params(src, optics, pipe.params, cuda_device)
     bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"]["plasma"],
+                                pipe.params["filters"],
                                 Draws(torch.Generator(device=cuda_device).manual_seed(4)), 2)
     n = 2 * pipe.num_rays
     kwargs = {"seed": (5, 6)}

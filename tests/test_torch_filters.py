@@ -169,3 +169,28 @@ def test_sightline_survivors_on_both_engines(engine):
     assert abs(kept / n - expect) < 5 * math.sqrt(expect * (1 - expect) / n), kept
     det = res["total"]["meta"]["detector"]["num_out"]
     assert res["total"]["image"]["detector"].sum() == det
+
+
+@pytest.fixture(scope="module")
+def eager_filtered_plasma():
+    cfg = _filtered_plasma()
+    cfg["general"].update(engine="xla", keep_history=False)
+    return raytrace(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["fused", "auto"])
+def test_filtered_plasma_on_the_fused_engine(engine, eager_filtered_plasma):
+    """The sightline cuts a plasma's bundles in the per-iteration tables of
+    the fused engine (K1f's twin here) as on the eager engine: both draw the
+    tables first from the same seed, so one iteration's counts agree
+    exactly, and the cut keeps under half of the 5 photons per bundle."""
+    cfg = _filtered_plasma()
+    cfg["general"].update(engine=engine, keep_history=False)
+    res = raytrace(cfg, device="cpu")
+    ref = eager_filtered_plasma["total"]["meta"]
+    meta = res["total"]["meta"]
+    n_bundles = TorchPipeline(cfg, device="cpu").source.bundle_count
+    assert 0 < int(meta["plasma"]["num_out"]) < 0.5 * 5 * n_bundles
+    for name in ("plasma", "detector"):
+        assert int(meta[name]["num_out"]) == int(ref[name]["num_out"]), name
+    assert res["total"]["image"]["detector"].sum() == int(meta["detector"]["num_out"])

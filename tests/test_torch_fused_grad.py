@@ -304,11 +304,12 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
     ("sources", "source", {"use_poisson": True}),
     ("sources", "source", dict(_PLASMA, use_poisson=True)),
     ("sources", "source", {"xsize": 0.01, "filters": ["sight"]}),
+    ("sources", "source", dict(_PLASMA, filters=["sight"])),
     ("general", None, {"dtype": "float64"}),
 ])
 def test_outside_subset_raises(change):
     """Profiled plasmas, mosaic and file rocking curves, spread radii,
-    Poisson budgets, filtered sources and float64 stay outside K5 (a box
+    Poisson budgets, filtered sources and plasmas and float64 stay outside K5 (a box
     source is inside since K5e-generic: tests/test_torch_source_matrix.py)."""
     section, name, update = change
     cfg = _config()

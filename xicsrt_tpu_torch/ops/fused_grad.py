@@ -132,6 +132,9 @@ def _grad_plasma_spec(source) -> dict:
     if type(source) not in (PlasmaGeneric, PlasmaCubic):
         raise FusedGradUnsupported("plasma with profiles that are not constant")
     p = source.param
+    filters = p.get("filters")
+    if filters is not None and len(filters) > 0:
+        raise FusedGradUnsupported("ray-filtered plasma")
     if bool(p["use_poisson"]):
         raise FusedGradUnsupported("Poisson budget (set use_poisson=False)")
     if p.get("spread") is None:

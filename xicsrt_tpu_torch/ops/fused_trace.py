@@ -1251,11 +1251,13 @@ fused_trace_run_cuda.launches = 0
 # Engine entry points.
 # ---------------------------------------------------------------------------
 
-def plasma_bundles(source, source_params: dict, draws, num_iter: int):
+def plasma_bundles(source, source_params: dict, filter_params: dict, draws,
+                   num_iter: int):
     """A plasma's bundle tables for ``num_iter`` iterations, drawn in turn
     and stacked as the kernel takes them: (cum (num_iter, B) int32, table
-    (num_iter, B, 8) float32)."""
-    tables = [source.bundle_tables(source_params, draws) for _ in range(num_iter)]
+    (num_iter, B, 8) float32). The source's filters cut the bundles here."""
+    tables = [source.bundle_tables(source_params, draws, filter_params)
+              for _ in range(num_iter)]
     return (torch.stack([c for c, _, _ in tables]),
             torch.stack([t for _, t, _ in tables]).detach())
 
@@ -1311,7 +1313,7 @@ def build_fused_run(pipeline, num_iter: int | None = None,
         fparams = pack_params(src, optics, params, device)
         if fparams.plasma and bundles is None:
             bundles = plasma_bundles(source, params["sources"][source.name],
-                                     Draws(generator), num_iter)
+                                     params["filters"], Draws(generator), num_iter)
         count = n_total
         if src["poisson"]:
             count = min(Draws(generator).poisson(src["rate"] * num_iter), n_total)
