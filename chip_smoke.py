@@ -65,7 +65,26 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 26. K5f and K5b with the generic sampler against their twins on
     ``tests/test_fused_grad.py``'s six source-matrix variants at 2^20
     rays, then ``make_fused_differentiable`` on ``focused_gaussian_voigt``
-    at 2^22 rays x 4 with timings.
+    at 2^22 rays x 4 with timings;
+27. mirrors (K1c-mirror): K1 and K3 against their twins, 0 rays apart in
+    both RNG modes, on four mirror chains (a plane fold, convex toroidal
+    crystals without their Bragg check, a convex cylindrical mirror, the
+    flagship with its crystal unchecked) at 2^20 rays; the fold and the
+    unchecked flagship through ``raytrace`` on both engines at 2^22 x 4;
+28. file rocking curves (K1c-file): the script writes its own XOP table;
+    K1 and K3 against their twins on the flagship's file crystal (sigma and
+    pi mixed 0.7 : 0.3); the two engines at 2^22 x 4; the pure-sigma table
+    against the gaussian crystal it tabulates within 6 sqrt(N);
+29. K5f and K5b with a file curve (K5c-file) on ``file_rocking`` at 2^22
+    rays against their float32 and float64 twins, then
+    ``make_fused_differentiable`` on it;
+30. meshes (K1c-cheb): example 06 as written on both of its engines; its
+    mesh crystal and the mesh cylinder and torus at 2^24 x 4 fused, each
+    against its analytic shape, and 2^22 x 2 eager; the
+    ``mesh_sphere`` golden on both engines; K1 and K3 with the Chebyshev
+    stage against their twins at 2^20 rays, and K3 behind a plasma;
+31. timings per 2^22 rays of K1c-mirror, K1c-file, K1c-cheb and K5f/K5b
+    with a file curve beside K1a, and K1a's ptxas registers.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -84,6 +103,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -113,12 +133,22 @@ OPS_PER_RAY = {
     "plasma_k1": 105, "plasma_k5": 125,
     "shape_k1": {0: 22, 1: 39, 2: 327, 3: 93},   # hit, position, normal
     "shape_k5": {0: 22, 1: 45, 2: 366, 3: 98},
+    # A Chebyshev surface of degree d with nnz nonzero coefficients in C, Cx
+    # and Cy (xrt_cheb_hit), what the function needs: local frame, seed,
+    # position, hit test and normal, then per Newton step (4) its own (u, v,
+    # their clips, 2 u and 2 v, F, F', the step), per degree above 1 the
+    # two recurrences' multiply and subtract each, and per nonzero
+    # coefficient a multiply-multiply-add.
+    "cheb": {"setup": 81, "step": 26, "per_degree": 4, "per_coef": 3},
     "bounds": 17, "aperture": 8,
     "crystal_mc": 32, "crystal_weight": 38, "mirror": 14,
+    # A file rocking curve in place of the gaussian's exp (xrt_file_value:
+    # index, range, clip, two cached loads, the lerp), and in K5 its slope.
+    "crystal_mc_file": 46, "crystal_weight_file": 55,
     "image_nearest": 10, "image_bilinear": 24,
     # K5b, per optic: seeds, reflection, local coordinates and slot sums;
     # the crystal; the shape's normal and hit.
-    "adjoint": 141, "adjoint_crystal": 41,
+    "adjoint": 141, "adjoint_crystal": 41, "adjoint_crystal_file": 37,
     "adjoint_shape": {0: 53, 1: 98, 2: 175, 3: 150},
     "adjoint_plasma": 12,
 }
@@ -129,11 +159,20 @@ FP32_OPS_PER_S = 67e12
 HDR_I, OPT_I = 16, 16  # ops/fused_trace.py's packed int layout
 
 
-def optic_structs(ip) -> list:
-    """(shape, interact, apertures, imaged) of each optic of a packed ip."""
-    ip = [int(x) for x in ip.tolist()]
-    return [(ip[HDR_I + OPT_I * e], ip[HDR_I + OPT_I * e + 2], ip[HDR_I + OPT_I * e + 5],
-             ip[HDR_I + OPT_I * e + 7] >= 0) for e in range(ip[0])]
+def optic_structs(fparams) -> list:
+    """(shape, interact, apertures, imaged, file rocking, Chebyshev operations)
+    of each optic of packed buffers."""
+    ip = [int(x) for x in fparams.ip.tolist()]
+    out = []
+    for e in range(ip[0]):
+        oi = ip[HDR_I + OPT_I * e: HDR_I + OPT_I * (e + 1)]
+        cheb = 0
+        if oi[0] == 4:  # the degree, and the terms: one per nonzero coefficient
+            c = OPS_PER_RAY["cheb"]
+            cheb = c["setup"] + 4 * (c["step"] + c["per_degree"] * (oi[13] - 1)
+                                     + c["per_coef"] * oi[14])
+        out.append((oi[0], oi[2], oi[5], oi[7] >= 0, oi[2] == 1 and oi[3] == 2, cheb))
+    return out
 
 
 def generic_source_ops(fparams) -> int:
@@ -152,15 +191,16 @@ def generic_source_ops(fparams) -> int:
     return ops
 
 
-def chain_k1_ops(ip) -> int:
+def chain_k1_ops(fparams) -> int:
     """K1's and K3's chain: float32 operations per ray (Bernoulli crystals,
     nearest images)."""
     ops = 0
-    for shape, interact, n_ap, imaged in optic_structs(ip):
-        ops += (OPS_PER_RAY["shape_k1"][shape] + OPS_PER_RAY["bounds"]
-                + n_ap * OPS_PER_RAY["aperture"]
-                + (OPS_PER_RAY["crystal_mc"] if interact == 1 else 0)
-                + (OPS_PER_RAY["image_nearest"] if imaged else 0))
+    for shape, interact, n_ap, imaged, file, cheb in optic_structs(fparams):
+        crystal = OPS_PER_RAY["crystal_mc_file" if file else "crystal_mc"]
+        ops += (cheb or OPS_PER_RAY["shape_k1"][shape]) + OPS_PER_RAY["bounds"]
+        ops += n_ap * OPS_PER_RAY["aperture"]
+        ops += {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"]}[interact]
+        ops += OPS_PER_RAY["image_nearest"] if imaged else 0
     return ops
 
 
@@ -168,7 +208,7 @@ def k1_ops(fparams) -> int:
     """K1's float32 operations per ray: the source, then the chain."""
     ip = fparams.ip
     ops = OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1 else generic_source_ops(fparams)
-    return ops + chain_k1_ops(ip)
+    return ops + chain_k1_ops(fparams)
 
 
 def k5_ops(static, backward: bool) -> int:
@@ -178,14 +218,16 @@ def k5_ops(static, backward: bool) -> int:
     ops = OPS_PER_RAY["plasma_k5"] if plasma else generic_source_ops(static)
     if backward and plasma:
         ops += OPS_PER_RAY["adjoint_plasma"]
-    for shape, interact, n_ap, imaged in optic_structs(ip):
+    for shape, interact, n_ap, imaged, file, _ in optic_structs(static):
+        crystal = OPS_PER_RAY["crystal_weight_file" if file else "crystal_weight"]
         ops += (OPS_PER_RAY["shape_k5"][shape] + OPS_PER_RAY["bounds"]
                 + n_ap * OPS_PER_RAY["aperture"]
-                + {0: 0, 1: OPS_PER_RAY["crystal_weight"], 2: OPS_PER_RAY["mirror"]}[interact]
+                + {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"]}[interact]
                 + (OPS_PER_RAY["image_bilinear"] if imaged else 0))
         if backward:
             ops += (OPS_PER_RAY["adjoint"] + OPS_PER_RAY["adjoint_shape"][shape]
-                    + (OPS_PER_RAY["adjoint_crystal"] if interact == 1 else 0))
+                    + (OPS_PER_RAY["adjoint_crystal_file" if file else "adjoint_crystal"]
+                       if interact == 1 else 0))
     return ops
 
 
@@ -959,7 +1001,7 @@ def grad_variant(kind, n, num_iter=1):
     """A variant in the gradient path's modes with ``n`` rays per iteration
     (a plasma's emissivity scaled to n expected photons; the variant holds
     1534.6)."""
-    cfg = variant_config(kind)
+    cfg = file_rocking_config() if kind == "file_rocking" else variant_config(kind)
     cfg["general"].update(interact_mode="weight", image_mode="bilinear",
                           number_of_iter=num_iter)
     if "plasma" in cfg["sources"]:
@@ -1042,12 +1084,12 @@ def phase_k1_cylinder(smi, ft, engine, raytrace) -> dict:
             "bound": k1c_bound}
 
 
-def phase_k5_variants(fg, engine, kinds=GRAD_VARIANTS, phase="19") -> tuple:
+def phase_k5_variants(fg, engine, kinds=GRAD_VARIANTS, phase="19", n=1 << 20) -> tuple:
     """K5f and K5b against their float32 twins (the bounds of phases 8-9)
-    and K5b against the float64 twin, on each variant, both RNG modes.
-    Returns the largest |K5f - twin| pixel and |K5b - f32 twin| slot."""
+    and K5b against the float64 twin, on each variant of ``n`` rays, both
+    RNG modes. Returns the largest |K5f - twin| pixel and |K5b - f32 twin|
+    slot."""
     worst_f = worst_b = 0.0
-    n = 1 << 20
     for kind in kinds:
         pipe = engine.Pipeline(grad_variant(kind, n), device="cuda")
         _, _, pack, spec = fg.build_fused_diff(pipe)
@@ -1606,7 +1648,7 @@ def phase_k3(smi, ft, engine, raytrace) -> dict:
     ms = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, seed=(1, 2)), 20)
     plain_ms = cuda_ms(lambda: ft.fused_trace_run_plain(*args, seed=(1, 2)), 3)
     k3_bound = bound(29 * n + packed_bytes(fparams.fp, fparams.ip) + fparams.img_total * 4
-                     + 8 * (1 + fparams.n_optics), chain_k1_ops(fparams.ip) * n)
+                     + 8 * (1 + fparams.n_optics), chain_k1_ops(fparams) * n)
     log(f"phase 25 timings on {smi}: K3 {ms:.4f} ms vs twin {plain_ms:.4f} ms ({n} rays "
         f"of one iteration, {int(rays.mask.sum())} alive, Philox); bound "
         f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
@@ -1662,6 +1704,472 @@ def phase_k5_source_matrix(smi, fg, engine, make_fused_differentiable) -> dict:
     return {"f_launches": launches[0], "b_launches": launches[1], "f_err": worst_f,
             "b_err": worst_b, "f_ms": f_ms, "f_plain": f_plain, "b_ms": b_ms,
             "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
+
+
+# ---------------------------------------------------------------------------
+# Phases 27-31: mirrors (K1c-mirror), file rocking curves (K1c-file,
+# K5c-file) and mesh surrogates (K1c-cheb) in K1, K3 and K5.
+# ---------------------------------------------------------------------------
+
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+
+
+def write_xop_file(path, fwhm=48.070e-6, span_urad=300.0):
+    """A synthetic XOP diff_pat.dat whose sigma curve is the gaussian
+    rocking model of ``fwhm`` and whose pi curve is half of it (a copy of
+    ``tests/test_coverage_extra.py``'s writer)."""
+    dtheta_urad = np.linspace(-span_urad, span_urad, 1201)
+    sigma_fwhm_urad = fwhm * 1e6
+    s = np.exp(-0.5 * (dtheta_urad / (sigma_fwhm_urad / 2.3548200450309493)) ** 2)
+    p = 0.5 * s
+    cols = np.stack([dtheta_urad, dtheta_urad, np.zeros_like(s), np.zeros_like(s),
+                     np.zeros_like(s), p, s], axis=-1)
+    with open(path, "w") as fh:
+        fh.write("#F diff_pat.dat\n#S 1 synthetic rocking curve\n#N 7\n")
+        np.savetxt(fh, cols)
+
+
+def xop_table(fwhm, span_urad=300.0) -> str:
+    """The path of a synthetic XOP table, written under build/ (git-ignored)."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, f"diff_pat_{fwhm:.6g}_{span_urad:g}.dat")
+    write_xop_file(path, fwhm, span_urad)
+    return path
+
+
+def to_file_crystal(crystal, xop, mix):
+    crystal.update(rocking_type="file", rocking_fwhm=None, rocking_file=xop,
+                   rocking_filetype="xop", rocking_mix=mix)
+
+
+def file_crystal_config(intensity, num_iter, engine_kind, mix=0.7):
+    """The flagship with its crystal's gaussian curve (48.07 urad) as an XOP
+    table, sigma and pi mixed by ``mix`` (``tests/test_fused_engine.py:528-550``)."""
+    cfg = flagship(intensity, num_iter, engine=engine_kind)
+    to_file_crystal(cfg["optics"]["crystal"], xop_table(48.070e-6), mix)
+    return cfg
+
+
+def file_rocking_config():
+    """``tests/test_fused_grad.py``'s ``file_rocking`` variant: its
+    ``step_rocking`` chain with the crystal's curve a table of 1.5 mrad over
+    +-4 mrad (the variant's own table)."""
+    cfg = variant_config("step_rocking")
+    to_file_crystal(cfg["optics"]["crystal"], xop_table(1.5e-3, 4000.0), 0.5)
+    return cfg
+
+
+def mirror_configs(intensity, num_iter, engine_kind) -> dict:
+    """Mirror chains of ``tests/test_fused_engine.py``: the plane fold onto
+    a step-rocking flat crystal (:129-165), convex toroidal crystals without
+    their Bragg check (:589-608), the convex cylindrical mirror of
+    ``tests/test_fused_grad.py``, and the flagship whose crystal skips its
+    Bragg check."""
+    general = {"number_of_iter": num_iter, "random_seed": 0, "keep_history": False,
+               "print_results": False, "engine": engine_kind}
+    fold = {
+        "general": dict(general),
+        "sources": {"source": {"class_name": "XicsrtSourceDirected", "intensity": intensity,
+                               "wavelength": 3.9492, "angular_dist": "isotropic",
+                               "spread": math.radians(5.0)}},
+        "optics": {
+            "mirror": {"class_name": "XicsrtOpticPlanarMirror", "origin": [0.0, 0.0, 0.5],
+                       "zaxis": [0.0, 0.3826834, -0.9238795], "xsize": 0.5, "ysize": 0.5},
+            "crystal": {"class_name": "XicsrtOpticPlanarCrystal",
+                        "origin": [0.0, 0.21213203, 0.28786797], "zaxis": [0.0, -1.0, 0.0],
+                        "xsize": 0.5, "ysize": 0.5,
+                        "crystal_spacing": 3.9492 / (2.0 * math.sin(math.pi / 4)),
+                        "rocking_type": "step", "rocking_fwhm": 5e-3}}}
+    torus = {
+        "general": dict(general),
+        "sources": {"source": {"class_name": "XicsrtSourceDirected", "intensity": intensity,
+                               "wavelength": 3.9492, "angular_dist": "isotropic",
+                               "spread": math.radians(3.0)}},
+        "optics": {"crystal": {"class_name": "XicsrtOpticToroidalCrystal",
+                               "origin": [0.0, 0.0, 0.5], "zaxis": [0.0, 0.0, -1.0],
+                               "xsize": 0.15, "ysize": 0.15, "radius_major": 1.0,
+                               "radius_minor": 0.5, "convex": [True, True],
+                               "check_bragg": False, "crystal_spacing": 2.45676}}}
+    cylinder = variant_config("convex_cylinder_mirror")
+    cylinder["general"].update(general)
+    cylinder["sources"]["source"]["intensity"] = intensity
+    no_check = flagship(intensity, num_iter, engine=engine_kind)
+    no_check["optics"]["crystal"]["check_bragg"] = False
+    return {"plane_fold": fold, "torus_no_check": torus, "convex_cylinder_mirror": cylinder,
+            "flagship_no_check": no_check}
+
+
+MESH_CRYSTALS = {
+    "mesh_sphere": ("XicsrtOpticMeshSphericalCrystal",
+                    {"radius": 1.0, "mesh_size": (41, 41), "mesh_coarse_size": (11, 11)}),
+    "mesh_cylinder": ("XicsrtOpticMeshCylindricalCrystal",
+                      {"radius": 1.0, "mesh_size": (41, 41), "mesh_coarse_size": (11, 11)}),
+    "mesh_torus": ("XicsrtOpticMeshToroidalCrystal",
+                   {"radius_major": 1.0, "radius_minor": 0.64, "mesh_size": (41, 41),
+                    "mesh_coarse_size": (11, 11), "rocking_fwhm": 2e-3}),
+}
+# The analytic shape each mesh crystal samples, on the same pose and curve.
+ANALYTIC_CRYSTALS = {
+    "mesh_sphere": ("XicsrtOpticSphericalCrystal", {"radius": 1.0}),
+    "mesh_cylinder": ("XicsrtOpticCylindricalCrystal", {"radius": 1.0}),
+    "mesh_torus": ("XicsrtOpticToroidalCrystal",
+                   {"radius_major": 1.0, "radius_minor": 0.64, "rocking_fwhm": 2e-3}),
+}
+
+
+def mesh_config(intensity, num_iter, engine_kind, cls, **kw):
+    """``tests/test_fused_engine.py``'s mesh spectrometer (:772-795): an
+    isotropic_xy point source, a crystal of class ``cls`` on the flagship's
+    pose (150 urad gaussian curve) and the flagship's detector."""
+    crystal = {"class_name": cls, "origin": [0.0, 0.0, 0.80374151],
+               "zaxis": [0.0, 0.59497864, -0.80374151], "xsize": 0.2, "ysize": 0.2,
+               "crystal_spacing": 2.45676, "rocking_type": "gaussian",
+               "rocking_fwhm": 150e-6}
+    crystal.update(kw)
+    return {
+        "general": {"number_of_iter": num_iter, "random_seed": 0, "keep_history": False,
+                    "print_results": False, "engine": engine_kind},
+        "sources": {"source": {"class_name": "XicsrtSourceDirected", "intensity": intensity,
+                               "wavelength": 3.9492, "angular_dist": "isotropic_xy",
+                               "spread": math.radians(10.0)}},
+        "optics": {"crystal": crystal,
+                   "detector": {"class_name": "XicsrtOpticDetector",
+                                "origin": [0.0, 0.76871290, 0.56904832],
+                                "zaxis": [0.0, -0.95641806, 0.29200084],
+                                "xsize": 0.4, "ysize": 0.2}}}
+
+
+def mesh_plasma_config():
+    """The mesh crystal behind a cubic plasma (``tests/test_fused_engine.py:
+    854-880``, ``test_mesh_with_plasma_hybrid``)."""
+    cls, kw = MESH_CRYSTALS["mesh_sphere"]
+    cfg = mesh_config(0, 1, "fused", cls, **dict(kw, rocking_fwhm=2e-3))
+    cfg["sources"] = {"plasma": {
+        "class_name": "XicsrtPlasmaCubic", "origin": [0.0, 0.0, 0.0],
+        "xsize": 0.02, "ysize": 0.02, "zsize": 0.02, "target": [0.0, 0.0, 0.80374151],
+        "spread": math.radians(10.0), "emissivity": 2e14, "temperature": 500.0,
+        "mass_number": 40.0, "wavelength": 3.9492, "time_resolution": 1e-3,
+        "bundle_volume": 1e-6, "bundle_count": 100, "use_poisson": True}}
+    return cfg
+
+
+def mesh_golden_config(engine_kind, intensity, num_iter):
+    """``tests/test_reference_parity_families.py``'s ``mesh_sphere``
+    scenario (its ``_config``), ``intensity`` rays per iteration."""
+    crystal = {"class_name": "XicsrtOpticMeshSphericalCrystal", "radius": 1.0,
+               "mesh_size": (21, 21), "mesh_coarse_size": (7, 7)}
+    cfg = repo_function("tests/test_reference_parity_families.py", "_config")(
+        crystal, intensity=intensity, num_iter=num_iter)
+    cfg["general"]["engine"] = engine_kind
+    return cfg
+
+
+def mesh_golden_check(result, label, fractions=True):
+    """``tests/test_reference_parity_families.py:123-187`` on the
+    ``mesh_sphere`` golden: acceptance and efficiency within 5 sigma (unless
+    ``fractions`` is False: then they are only printed), superpixel
+    chi2/ndof < 3, centroid within 0.75 px, the width within 8 % (or
+    unresolved where the golden's is)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                        "mesh_sphere_reference_image.npz")
+    golden = dict(np.load(path))
+    meta = {k: v["num_out"] for k, v in result["total"]["meta"].items()}
+    n_gen, n_ref = meta["source"], float(golden["n_generated"])
+    for elem in ("crystal", "detector"):
+        k, k_ref = meta[elem], float(golden[f"meta_{elem}"])
+        p = (k + k_ref) / (n_gen + n_ref)
+        dev = abs(k / n_gen - k_ref / n_ref) / math.sqrt(p / n_gen + p / n_ref)
+        log(f"{label}: {elem} {k / n_gen:.6g} against the golden's {k_ref / n_ref:.6g} "
+            f"({dev:.2f} sigma{', < 5' if fractions else ''})")
+        if fractions and dev > 5:
+            raise AssertionError(f"{label}: {elem} fraction off the golden")
+    ref = golden["image"].astype(np.float64)
+    img = result["total"]["image"]["detector"].astype(np.float64)
+    R = ref.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    O = img.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    scale = R.sum() / O.sum()
+    O = O * scale
+    keep = (R + O) > 50
+    chi2 = float(((O[keep] - R[keep]) ** 2 / (R[keep] + scale * O[keep])).sum() / keep.sum())
+    ys = np.arange(ref.shape[1])
+
+    def moments(prof):
+        prof = prof / prof.sum()
+        mu = (prof * ys).sum()
+        return mu, math.sqrt((prof * (ys - mu) ** 2).sum())
+
+    (mu_r, sd_r), (mu_o, sd_o) = moments(ref.sum(0)), moments(img.sum(0))
+    log(f"{label}: superpixel chi2/ndof {chi2:.3f} on {int(keep.sum())} (< 3), centroid "
+        f"{mu_o:.3f} against {mu_r:.3f} px (< 0.75), width {sd_o:.3f} against {sd_r:.3f} px")
+    width_ok = sd_o < 1.0 if sd_r < 1.0 else abs(sd_o - sd_r) < 0.08 * sd_r
+    if not (keep.sum() > 0 and chi2 < 3.0 and abs(mu_o - mu_r) < 0.75 and width_ok):
+        raise AssertionError(f"{label}: the image is off the golden")
+
+
+def twin_equal(kernel, plain, label) -> float:
+    """Counts and images of a kernel and its twin, equal to the ray. Returns
+    the largest count or pixel difference measured."""
+    (ck, ik), (cp, iq) = kernel, plain
+    torch.cuda.synchronize()
+    err = max((ck.double() - cp.double()).abs().max().item(),
+              (ik.double() - iq.double()).abs().max().item())
+    log(f"{label}: kernel counts {ck.tolist()}, twin {cp.tolist()}; image L1 diff "
+        f"{(ik - iq).abs().sum().item():.0f}, largest difference {err} (tolerance 0)")
+    if not (err == 0.0 and torch.equal(ck, cp) and torch.equal(ik, iq)):
+        raise AssertionError(f"{label}: the kernel differs from its twin")
+    if cp[-1].item() <= 0:
+        raise AssertionError(f"{label}: no rays reach the last element")
+    return err
+
+
+def k1_k3_against_twins(ft, engine, cfg, label, seed) -> float:
+    """K1 on ``cfg``'s own rays and K3 on one eager iteration's, each
+    against its twin in both RNG modes. Returns the largest difference."""
+    pipe = engine.Pipeline(cfg, device="cuda")
+    fparams = k1_pack(ft, pipe)
+    n = pipe.num_rays
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+    err = 0.0
+    for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 3)})):
+        err = max(err, twin_equal(ft.fused_run_cuda(fparams, n, n, **kwargs),
+                                  ft.fused_run_plain(fparams, n, n, **kwargs),
+                                  f"{label} K1 rng={rng} ({n} rays)"))
+    k3p = k3_pack(ft, pipe)
+    rays = eager_rays(pipe, seed)
+    m = rays.mask.shape[0]
+    uniforms = torch.rand((k3p.n_draws, m), generator=gen, device="cuda")
+    args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 5)})):
+        err = max(err, twin_equal(ft.fused_trace_run_cuda(*args, **kwargs),
+                                  ft.fused_trace_run_plain(*args, **kwargs),
+                                  f"{label} K3 rng={rng} ({m} rays)"))
+    return err
+
+
+def elements_agree(fused, eager, label, names=("fused", "eager")):
+    """Every element's fraction of the source within 5 binomial sigma
+    between two runs (by default the engines; ``names`` label them), images
+    summing to counts. Returns both metas."""
+    metas = [{k: v["num_out"] for k, v in r["total"]["meta"].items()} for r in (fused, eager)]
+    for meta, res in zip(metas, (fused, eager)):
+        for name, img in res["total"]["image"].items():
+            if not (np.isfinite(img).all() and int(img.sum()) == meta[name]):
+                raise AssertionError(f"{label}: image {name} does not sum to its count")
+    source, *elements = list(metas[0])
+    for name in elements:
+        p = [m[name] / m[source] for m in metas]
+        pooled = sum(m[name] for m in metas) / sum(m[source] for m in metas)
+        sigma = math.sqrt(max(pooled * (1 - pooled), 1e-30)
+                          * sum(1 / m[source] for m in metas))
+        log(f"{label}: {name} {names[0]} {metas[0][name]}, {names[1]} {metas[1][name]} of "
+            f"{metas[0][source]} and {metas[1][source]}; {abs(p[0] - p[1]) / sigma:.2f} "
+            f"binomial sigma (< 5)")
+        if abs(p[0] - p[1]) > 5 * sigma or metas[0][name] <= 0:
+            raise AssertionError(f"{label}: {names[0]} and {names[1]} disagree on {name}")
+    return metas
+
+
+def k1_timing(ft, fparams, n, smi, label) -> dict:
+    """K1's ms per ``n`` rays (Philox) on the packed chain, its twin's and
+    its bound."""
+    ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
+    plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 2)
+    b = bound(packed_bytes(fparams.fp, fparams.ip, fparams.aux) + fparams.img_total * 4
+              + 8 * (1 + fparams.n_optics), k1_ops(fparams) * n)
+    log(f"phase 31 timings on {smi}: {label} {ms:.4f} ms vs twin {plain_ms:.4f} ms "
+        f"({n} rays, Philox); bound {b[0]:.4f} ms ({b[1]}, {k1_ops(fparams)} operations "
+        f"per ray)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b}
+
+
+def phase_mirrors(ft, engine, raytrace) -> tuple:
+    """Phase 27: K1 and K3 with mirrors against their twins on four mirror
+    chains at 2^20 rays; then the fold and the flagship without its Bragg
+    check through ``raytrace`` on both engines at 2^22 x 4 (K1 counted
+    around the fused runs). Returns K1's launches and the largest
+    difference from the twins."""
+    err = 0.0
+    for k, (name, cfg) in enumerate(mirror_configs(1 << 20, 1, "fused").items()):
+        err = max(err, k1_k3_against_twins(ft, engine, cfg, f"phase 27 {name}", 270 + k))
+    n, iters = 1 << 22, 4
+    launches = 0
+    for name in ("plane_fold", "flagship_no_check"):
+        ft.fused_run_cuda.launches = 0
+        fused = raytrace(mirror_configs(n, iters, "fused")[name], device="cuda")
+        launches += ft.fused_run_cuda.launches
+        eager = raytrace(mirror_configs(n, iters, "xla")[name], device="cuda")
+        elements_agree(fused, eager, f"phase 27 {name} through raytrace")
+    if launches <= 0:
+        raise AssertionError("phase 27: the mirror chains did not launch K1")
+    return launches, err
+
+
+def phase_file(ft, engine, raytrace) -> tuple:
+    """Phase 28: K1 and K3 with the flagship's file crystal (mix 0.7)
+    against their twins at 2^20 rays; the two engines at 2^22 x 4 (K1
+    counted around the fused run); the pure-sigma table against the
+    gaussian crystal whose curve it tabulates. Returns K1's launches and the
+    largest difference from the twins."""
+    err = k1_k3_against_twins(ft, engine, file_crystal_config(1 << 20, 1, "fused"),
+                              "phase 28 file crystal", 28)
+    n, iters = 1 << 22, 4
+    ft.fused_run_cuda.launches = 0
+    fused = raytrace(file_crystal_config(n, iters, "fused"), device="cuda")
+    launches = ft.fused_run_cuda.launches
+    if launches <= 0:
+        raise AssertionError("phase 28: the file crystal did not launch K1")
+    eager = raytrace(file_crystal_config(n, iters, "xla"), device="cuda")
+    engines_agree(fused, eager, "phase 28 file crystal (mix 0.7)", n * iters)
+    counts = {}
+    for label, cfg in (("gaussian", flagship(n, iters, engine="fused")),
+                       ("sigma table", file_crystal_config(n, iters, "fused", mix=1.0))):
+        counts[label] = raytrace(cfg, device="cuda")["total"]["meta"]["detector"]["num_out"]
+    dev = abs(counts["gaussian"] - counts["sigma table"]) / math.sqrt(counts["gaussian"])
+    log(f"phase 28 pure-sigma table against the gaussian crystal, {n * iters} rays each: "
+        f"detected {counts}, {dev:.2f} sqrt(N) apart (< 6)")
+    if dev > 6:
+        raise AssertionError("phase 28: the sigma table detects unlike the gaussian")
+    return launches, err
+
+
+def phase_k5_file(smi, fg, engine, make_fused_differentiable) -> dict:
+    """Phase 29: K5f and K5b on ``file_rocking`` at 2^22 rays against their
+    float32 and float64 twins (phase 19's bounds); then
+    ``make_fused_differentiable`` on it at 2^22 rays (counted around it)
+    and the kernels' times there."""
+    n = 1 << 22
+    worst_f, worst_b = phase_k5_variants(fg, engine, ("file_rocking",), "29", n=n)
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    forward, vjp, pack, pipe = make_fused_differentiable(grad_variant("file_rocking", n),
+                                                         device="cuda")
+    pvec = pack(pipe.params).detach()
+    out = forward(pvec, 29)["image"]
+    gvec = vjp(pvec, 29, out)
+    torch.cuda.synchronize()
+    launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    if min(launches) <= 0:
+        raise AssertionError("phase 29: the gradient path did not launch K5f and K5b")
+    if not (all(torch.isfinite(v).all() and v.sum() > 0 for v in out.values())
+            and torch.isfinite(gvec).all() and gvec.abs().max() > 0):
+        raise AssertionError("phase 29: bad images or gradient")
+    _, _, _, spec = fg.build_fused_diff(pipe, num_iter=1)
+    st, lam = spec["static"], spec["lam"]
+    g = torch.randn(st.img_total, device="cuda")
+    f_ms = cuda_ms(lambda: fg.fused_grad_forward_cuda(st, pvec, n, lam, seed=(1, 2)), 20)
+    f_plain = cuda_ms(lambda: fg.fused_grad_forward_plain(st, pvec, n, lam, seed=(1, 2),
+                                                          chunk=n), 2)
+    b_ms = cuda_ms(lambda: fg.fused_grad_vjp_cuda(st, pvec, n, lam, g, seed=(1, 2)), 20)
+    b_plain = cuda_ms(lambda: fg.fused_grad_vjp_plain(st, pvec, n, lam, g, seed=(1, 2),
+                                                      chunk=n), 2)
+    k5_bytes = packed_bytes(st.fp, st.ip, st.aux, pvec) + st.img_total * 4
+    f_bound = bound(k5_bytes, k5_ops(st, False) * n)
+    b_bound = bound(k5_bytes + pvec.numel() * 4, k5_ops(st, True) * n)
+    log(f"phase 31 timings on {smi}: file_rocking per {n} rays K5f {f_ms:.4f} ms (twin "
+        f"{f_plain:.3f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]}), K5b {b_ms:.4f} ms "
+        f"(twin {b_plain:.3f} ms, bound {b_bound[0]:.4f} ms by {b_bound[1]}); launches "
+        f"K5f {launches[0]}, K5b {launches[1]}")
+    return {"f_launches": launches[0], "b_launches": launches[1], "f_err": worst_f,
+            "b_err": worst_b, "f_ms": f_ms, "f_plain": f_plain, "b_ms": b_ms,
+            "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
+
+
+def phase_meshes(ft, engine, raytrace) -> tuple:
+    """Phase 30: example 06 as written on both of its engines; the three
+    mesh crystals at 2^24 x 4 fused, each against the analytic shape it
+    samples, and 2^22 x 2 eager (the sphere's engines held to each other on
+    the analytic sphere); the ``mesh_sphere`` golden on both engines;
+    K1 and K3 with the Chebyshev stage against their twins at 2^20 rays,
+    and K3 behind a plasma. Returns K1's launches on the mesh chains and
+    the largest difference from the twins."""
+    launches = 0
+    cfg = example_config("example_06_fused_engine.py")
+    res = {}
+    for kind in ("xla", "auto"):
+        c = copy.deepcopy(cfg)
+        c["general"].update(engine=kind, print_results=False)
+        ft.fused_run_cuda.launches = 0
+        res[kind] = raytrace(c, device="cuda")
+        launches += ft.fused_run_cuda.launches if kind == "auto" else 0
+        meta = {k: v["num_out"] for k, v in res[kind]["total"]["meta"].items()}
+        log(f"phase 30 example 06 engine={kind}: generated {meta['source']}, detected "
+            f"{meta['detector']}")
+    if launches <= 0:
+        raise AssertionError("phase 30: example 06 on engine='auto' did not launch K1")
+    engines_agree(res["auto"], res["xla"], "phase 30 example 06", 2 * int(1e5))
+
+    for name, (cls, kw) in MESH_CRYSTALS.items():
+        a_cls, a_kw = ANALYTIC_CRYSTALS[name]
+        ft.fused_run_cuda.launches = 0
+        fused = raytrace(mesh_config(1 << 24, 4, "fused", cls, **kw), device="cuda")
+        launches += ft.fused_run_cuda.launches
+        analytic = raytrace(mesh_config(1 << 24, 4, "fused", a_cls, **a_kw), device="cuda")
+        elements_agree(fused, analytic, f"phase 30 {name}, fused: the surrogate against "
+                       f"{a_cls}", ("mesh", "analytic"))
+        eager = raytrace(mesh_config(1 << 22, 2, "xla", cls, **kw), device="cuda")
+        if name != "mesh_sphere":
+            elements_agree(fused, eager, f"phase 30 {name}")
+            continue
+        # The sphere's exact triangles interpolate the vertex normals
+        # linearly, about 3 urad off the sphere's, and this focusing
+        # geometry turns that into a few per cent more crystal hits than
+        # the smooth sphere, on JAX's XLA engine as on the port's
+        # (tests/test_torch_mesh.py). So the engines are held to each other
+        # on the analytic sphere, and the eager mesh to the golden below.
+        eager_analytic = raytrace(mesh_config(1 << 22, 2, "xla", a_cls, **a_kw), device="cuda")
+        elements_agree(fused, eager_analytic, f"phase 30 {name}: fused mesh against the eager "
+                       f"{a_cls}", ("fused mesh", "eager analytic"))
+        em, ea = (r["total"]["meta"]["crystal"]["num_out"] for r in (eager, eager_analytic))
+        log(f"phase 30 {name}, eager: exact triangles {em} against the analytic sphere's {ea} "
+            f"on the same rays, {em / ea - 1:+.4f} (the mesh's faceting)")
+    # The golden is the reference's 21 x 21 triangles under a 48 urad curve,
+    # whose faceting adds about 15 % to the smooth sphere's crystal hits:
+    # the eager engine's triangles are held to all of it, the fused
+    # surrogate to its image and, for the fractions, to the analytic
+    # sphere on the same rays.
+    for kind, n, iters in (("fused", 1 << 22, 4), ("xla", 1 << 20, 4)):
+        ft.fused_run_cuda.launches = 0
+        result = raytrace(mesh_golden_config(kind, n, iters), device="cuda")
+        launches += ft.fused_run_cuda.launches
+        mesh_golden_check(result, f"phase 30 mesh_sphere golden, engine {kind}, {n * iters} rays",
+                          fractions=kind == "xla")
+        if kind == "fused":
+            cfg = mesh_golden_config(kind, n, iters)
+            crystal = cfg["optics"]["crystal"]
+            for key in [k for k in crystal if k.startswith("mesh")]:
+                del crystal[key]
+            crystal["class_name"] = "XicsrtOpticSphericalCrystal"
+            elements_agree(result, raytrace(cfg, device="cuda"),
+                           "phase 30 mesh_sphere golden's config, fused", ("mesh", "analytic"))
+    err = 0.0
+    for k, (name, (cls, kw)) in enumerate(MESH_CRYSTALS.items()):
+        err = max(err, k1_k3_against_twins(ft, engine,
+                                           mesh_config(1 << 20, 1, "fused", cls, **kw),
+                                           f"phase 30 {name}", 300 + k))
+    pipe = engine.Pipeline(mesh_plasma_config(), device="cuda")
+    k3p = k3_pack(ft, pipe)
+    for seed in (30, 31):
+        rays = eager_rays(pipe, seed)
+        args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+        err = max(err, twin_equal(
+            ft.fused_trace_run_cuda(*args, seed=(seed, 1)),
+            ft.fused_trace_run_plain(*args, seed=(seed, 1)),
+            f"phase 30 K3 mesh behind a plasma ({rays.mask.shape[0]} rays)"))
+    return launches, err
+
+
+def k1a_registers() -> str:
+    """ptxas's line for K1a's build (the point source, no Chebyshev stage)."""
+    from xicsrt_tpu_torch.ops import native
+
+    lines = native.ptxas_report().splitlines()
+    for i, line in enumerate(lines):
+        if "fused_trace_kernelILb0ELb0E" in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt:
+                    return nxt.strip()
+    raise AssertionError("phase 31: no ptxas line for K1a")
 
 
 def main() -> int:
@@ -1764,6 +2272,26 @@ def main() -> int:
     from xicsrt_tpu_torch.gradients import make_fused_differentiable
 
     k5s = phase_k5_source_matrix(smi, fg, engine, make_fused_differentiable)
+    mirror_launches, mirror_err = phase_mirrors(ft, engine, xicsrt_tpu_torch.raytrace)
+    file_launches, file_err = phase_file(ft, engine, xicsrt_tpu_torch.raytrace)
+    k5file = phase_k5_file(smi, fg, engine, make_fused_differentiable)
+    mesh_launches, mesh_err = phase_meshes(ft, engine, xicsrt_tpu_torch.raytrace)
+
+    # Phase 31: the new stages' times per 2^22 rays, and K1a's beside them.
+    n = 1 << 22
+
+    def packed(cfg):
+        return k1_pack(ft, engine.Pipeline(cfg, device="cuda"))
+
+    t_mirror = k1_timing(ft, packed(mirror_configs(n, 1, "fused")["flagship_no_check"]), n,
+                         smi, "K1c-mirror (the flagship, its crystal unchecked)")
+    t_file = k1_timing(ft, packed(file_crystal_config(n, 1, "fused")), n, smi,
+                       "K1c-file (the flagship's file crystal)")
+    cls, kw = MESH_CRYSTALS["mesh_sphere"]
+    t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
+                       "K1c-cheb (example 06's mesh crystal)")
+    t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
+    log(f"phase 31 K1a build: {k1a_registers()}")
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1815,7 +2343,24 @@ def main() -> int:
         row("fused_grad_vjp_cuda source matrix (K5b: K5e-generic)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:488 (pallas_call :1921)", k5s["b_launches"],
             k5s["b_err"], k5s["b_ms"], k5s["b_plain"], k5s["b_bound"]),
+        row("fused_run_cuda mirrors (K1c-mirror)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1099 (kernel :1343, pallas_call :1883)",
+            mirror_launches, mirror_err, t_mirror["ms"], t_mirror["plain_ms"],
+            t_mirror["bound"]),
+        row("fused_run_cuda file rocking (K1c-file)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:733 (kernel :1343, pallas_call :1883)",
+            file_launches, file_err, t_file["ms"], t_file["plain_ms"], t_file["bound"]),
+        row("fused_run_cuda mesh surrogate (K1c-cheb)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:813 (kernel :1343, pallas_call :1883)",
+            mesh_launches, mesh_err, t_cheb["ms"], t_cheb["plain_ms"], t_cheb["bound"]),
+        row("fused_grad_forward_cuda file rocking (K5f: K5c-file)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:650 (pallas_call :1906)", k5file["f_launches"],
+            k5file["f_err"], k5file["f_ms"], k5file["f_plain"], k5file["f_bound"]),
+        row("fused_grad_vjp_cuda file rocking (K5b: K5c-file)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:739 (pallas_call :1921)", k5file["b_launches"],
+            k5file["b_err"], k5file["b_ms"], k5file["b_plain"], k5file["b_bound"]),
     ]
+    log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

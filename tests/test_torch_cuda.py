@@ -316,3 +316,56 @@ def test_plasma_engines_launch_their_kernels(cuda_device):
         n = res["total"]["meta"]["plasma"]["num_out"]
         assert abs(n - expected) < 5 * np.sqrt(expected)
         assert res["total"]["image"]["detector"].sum() == res["total"]["meta"]["detector"]["num_out"]
+
+
+def _new_stage_config(stage):
+    """``chip_smoke.py``'s chains of the mirror, file and mesh stages at
+    2^16 rays (the script imports no JAX)."""
+    import chip_smoke
+
+    n = 1 << 16
+    if stage in ("plane_fold", "torus_no_check", "flagship_no_check"):
+        return chip_smoke.mirror_configs(n, 1, "fused")[stage]
+    if stage == "file":
+        return chip_smoke.file_crystal_config(n, 1, "fused")
+    cls, kw = chip_smoke.MESH_CRYSTALS[stage]
+    return chip_smoke.mesh_config(n, 1, "fused", cls, **kw)
+
+
+@pytest.mark.parametrize("stage", ["plane_fold", "torus_no_check", "flagship_no_check",
+                                   "file", "mesh_sphere", "mesh_cylinder", "mesh_torus"])
+def test_mirror_file_and_mesh_stages_match_twins(cuda_device, stage):
+    """K1c-mirror, K1c-file and K1c-cheb: K1 on the chain's own rays and K3
+    on one eager iteration's, each equal to its twin in both RNG modes."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    before = (ft.fused_run_cuda.launches, ft.fused_trace_run_cuda.launches)
+    chip_smoke.k1_k3_against_twins(ft, engine, _new_stage_config(stage), stage, 61)
+    assert ft.fused_run_cuda.launches == before[0] + 2
+    assert ft.fused_trace_run_cuda.launches == before[1] + 2
+
+
+def test_fused_grad_file_rocking_matches_twins(cuda_device):
+    """K5c-file: K5f and K5b on ``file_rocking`` against the float32 twins
+    with test_fused_grad_kernels_match_twins's bounds, under Philox."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    pipe = Pipeline(chip_smoke.grad_variant("file_rocking", 1 << 17), device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam, n = spec["static"], spec["lam"], spec["n_total"]
+    assert static.aux.numel() > 1
+    pvec = pack(pipe.params).detach()
+    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, seed=(8, 9))
+    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, seed=(8, 9))
+    assert twin.sum().item() > 0
+    assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
+    assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
+    g = torch.randn(static.img_total, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(2))
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(8, 9))
+    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(8, 9))
+    scale = grad_twin.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)

@@ -158,7 +158,7 @@ def test_poisson_source_budget_and_mask():
     assert bool(rays.mask[:4980].all()) and not bool(rays.mask[4980:].any())
 
 
-def test_not_ported_elements_raise():
+def test_not_ported_elements_raise(tmp_path):
     cfg = _config()
     cfg["general"]["pathlist"] = ["plugins"]
     with pytest.raises(NotImplementedError):
@@ -167,10 +167,15 @@ def test_not_ported_elements_raise():
     cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticSphericalMosaicCrystal"
     with pytest.raises(KeyError):
         TorchPipeline(cfg, device="cpu")
+    # A file rocking curve builds (tests/test_torch_rocking_file.py).
+    from tests.test_coverage_extra import _write_xop_file
+
+    _write_xop_file(str(tmp_path / "diff_pat.dat"))
     cfg = _config()
-    cfg["optics"]["crystal"]["rocking_type"] = "file"
-    with pytest.raises(NotImplementedError):
-        TorchPipeline(cfg, device="cpu")
+    cfg["optics"]["crystal"].update(rocking_type="file", rocking_fwhm=None,
+                                    rocking_file=str(tmp_path / "diff_pat.dat"))
+    tp = TorchPipeline(cfg, device="cpu")
+    assert tp.params["optics"]["crystal"]["rocking_dtheta"].shape == (1201,)
 
 
 def test_strict_config_rejects_typos():

@@ -140,7 +140,18 @@ def test_twin_slices_do_not_change_results(monkeypatch):
     assert torch.equal(whole[0], sliced[0]) and torch.equal(whole[1], sliced[1])
 
 
-@pytest.mark.parametrize("change", [
+def _changed(change):
+    section, name, update = change
+    cfg = _flagship()
+    (cfg[section] if name is None else cfg[section][name]).update(update)
+    for k in [k for k, v in update.items() if v is None]:
+        del cfg[section][name][k]
+    return cfg
+
+
+# Inside K1's chain since K1c-mirror: a crystal without its Bragg check is
+# traced as a mirror (JAX fused_trace.py:523-526), and so are mirrors.
+MIRROR_CHANGES = [
     ("optics", "crystal", {"check_bragg": False}),
     ("optics", "crystal", {"class_name": "XicsrtOpticToroidalMirror",
                            "radius_major": 1.0, "radius_minor": 0.2, "radius": None,
@@ -149,19 +160,32 @@ def test_twin_slices_do_not_change_results(monkeypatch):
     ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMirror",
                            "crystal_spacing": None, "rocking_type": None,
                            "rocking_fwhm": None}),
+]
+
+
+@pytest.mark.parametrize("change", MIRROR_CHANGES,
+                         ids=["no_bragg_check", "toroidal_mirror", "spherical_mirror"])
+def test_mirror_chains_match_jax_megakernel(change):
+    """K1 builds each of these chains, and its twin holds to the JAX
+    megakernel under the same uniforms (the module's bound)."""
+    from tests.test_torch_mirror import k1_twin_against_jax
+
+    cfg = _changed(change)
+    cfg["sources"]["source"]["intensity"] = 4096
+    counts, ref, fparams = k1_twin_against_jax(cfg, seed=31)
+    assert not fparams.cheb and int(counts[2]) > 100
+
+
+@pytest.mark.parametrize("change", [
     ("optics", "aperture", {"aperture": [{"shape": "triangle",
                                           "vertices": [[0, 0], [1, 0], [0, 1]]}]}),
+    ("general", None, {"image_mode": "bilinear"}),
+    ("general", None, {"interact_mode": "weight"}),
 ])
 def test_outside_subset_raises(change):
-    """Outside K1's chain: a crystal without its Bragg check, mirrors, a
-    triangle aperture. (Boxes and asymmetric isotropic_xy cones are inside
-    since K1b: tests/test_torch_source_matrix.py.)"""
-    section, name, update = change
-    cfg = _flagship()
-    cfg[section][name].update(update)
-    for k in [k for k, v in update.items() if v is None]:
-        del cfg[section][name][k]
-    tp = TorchPipeline(cfg, device="cpu")
+    """Outside K1's chain: a triangle aperture, bilinear images and weight
+    mode (K1d). (Boxes and asymmetric isotropic_xy cones are inside since
+    K1b: tests/test_torch_source_matrix.py; mirrors since K1c-mirror.)"""
+    tp = TorchPipeline(_changed(change), device="cpu")
     with pytest.raises(ft.FusedUnsupported):
         ft.build_fused_run(tp)
-

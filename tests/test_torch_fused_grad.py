@@ -299,7 +299,7 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
     ("sources", "source", dict(_PLASMA, class_name="XicsrtPlasmaToroidal",
                                major_radius=0.5, minor_radius=0.2)),
     ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMosaicCrystal"}),
-    ("optics", "crystal", {"rocking_type": "file"}),
+    ("optics", "crystal", {"check_bragg": False}),
     ("sources", "source", dict(_PLASMA, spread=None, spread_radius=0.05)),
     ("sources", "source", {"use_poisson": True}),
     ("sources", "source", dict(_PLASMA, use_poisson=True)),
@@ -308,9 +308,11 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
     ("general", None, {"dtype": "float64"}),
 ])
 def test_outside_subset_raises(change):
-    """Profiled plasmas, mosaic and file rocking curves, spread radii,
-    Poisson budgets, filtered sources and plasmas and float64 stay outside K5 (a box
-    source is inside since K5e-generic: tests/test_torch_source_matrix.py)."""
+    """Profiled plasmas, mosaic crystals, crystals without their Bragg
+    check, spread radii, Poisson budgets, filtered sources and plasmas and
+    float64 stay outside K5 (a box source is inside since K5e-generic:
+    tests/test_torch_source_matrix.py; file rocking curves since K5c-file:
+    tests/test_torch_rocking_file.py)."""
     section, name, update = change
     cfg = _config()
     (cfg[section] if name is None else cfg[section][name]).update(update)

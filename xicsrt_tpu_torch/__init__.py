@@ -22,16 +22,20 @@ bundles; plasma sources (Generic, Cubic, Cylindrical, Toroidal,
 ToroidalDatafile; ``sources/plasma.py``) with voxel or point bundles, exact
 Voigt lines and Doppler shifts, whose eager bundle gather is the CUDA kernel
 of ``ops/bundle_gather.py``; plane, sphere, cylinder and torus optics with
-apertures; no interaction, mirror, and the Bragg crystal with gaussian or
-step rocking in mc and weight mode; nearest and bilinear images; history;
+apertures, and triangle meshes (``optics/mesh_shapes.py``: the Mesh,
+MeshSpherical, MeshCylindrical and MeshToroidal crystals and the Mesh
+mirror; the fused kernels trace a smooth mesh by its Chebyshev surrogate);
+no interaction, mirror, and the Bragg crystal with gaussian, step or file
+(``utils/bragg_files.py``) rocking in mc and weight mode; nearest and
+bilinear images; history;
 gradients (``gradients.py``): ``make_differentiable`` (eager autograd,
 reaching a plasma's temperature), ``make_fused_differentiable``
 (hand-written CUDA forward and adjoint kernels, ``ops/fused_grad.py``: the
 generic source matrix and constant-profile plasmas, whose emissivity and
-temperature it differentiates; plane, sphere, cylinder and torus optics),
-``align`` and ``l2_image_loss``. The rest of the JAX package raises
-``NotImplementedError``: among it mosaic crystals, file rocking curves and
-meshes.
+temperature it differentiates; plane, sphere, cylinder and torus optics;
+file rocking curves), ``align`` and ``l2_image_loss``. The rest of the JAX
+package raises ``NotImplementedError`` or ``KeyError``: among it mosaic
+crystals.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401

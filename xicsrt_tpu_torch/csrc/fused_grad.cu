@@ -6,8 +6,10 @@
 // boxes, every cone, Focused axes, uniform and Voigt wavelengths, Doppler;
 // xrt_sample_source of trace_common.cuh, the sampler K1 runs) and plasmas
 // of constant profiles, plane, sphere, cylinder and torus optics, and no
-// interaction, a mirror or a Bragg crystal with a gaussian or step rocking
-// curve. One thread carries one ray; a ray's draws are keyed by (seed, ray,
+// interaction, a mirror or a Bragg crystal with a gaussian, step or file
+// rocking curve (K5c-file: the resampled table read from aux memory, a
+// run-time branch on the rocking code in every variant; its adjoint takes
+// the table segment's slope). One thread carries one ray; a ray's draws are keyed by (seed, ray,
 // draw) as in K1 (trace_common.cuh), so K5b regenerates exactly the rays
 // K5f traced.
 //
@@ -88,7 +90,8 @@ struct OpticLocals {
     float tcx, tcy, tcz, along, inv_u;
     float dot, adot, cosi, sd, prob, w_pre;    // mirror / crystal
     float sin_b, cos_b, d_s, refl, sigma, z;
-    bool mask, step_in;
+    float file_val, file_slope;                // file rocking curve
+    bool mask, step_in, file_in;
 };
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -160,8 +163,9 @@ template <bool kTorus, bool kCylinder>
 __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
                                                const float* P,
                                                const float* apf,
-                                               const int* api, RayState& st,
-                                               OpticLocals& L) {
+                                               const int* api,
+                                               const float* __restrict__ aux,
+                                               RayState& st, OpticLocals& L) {
     const float ox = P[0], oy = P[1], oz = P[2];
     const float bxx = P[3], bxy = P[4], bxz = P[5];
     const float byx = P[6], byy = P[7], byz = P[8];
@@ -331,9 +335,17 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
             L.sigma = fmaxf(fwhm * XRT_SIGMA_PER_FWHM, XRT_EPS);
             L.z = delta / L.sigma;
             L.prob = L.refl * expf(-0.5f * L.z * L.z);
-        } else {  // step: hard edges
+        } else if (oi[3] != XRT_ROCK_FILE) {  // step: hard edges
             L.step_in = fabsf(delta) <= fwhm / 2.0f;
             L.prob = L.step_in ? L.refl : 0.0f;
+        } else {  // file: the table's value, and its segment's slope in delta
+                  // (0 on a node: the tent derivative, sign(0) = 0)
+            float f, kf, t0, t1;
+            L.file_val = xrt_file_value(aux + oi[XRT_OI_TABLE], oi[XRT_OI_K],
+                                        o[XRT_O_LO], o[XRT_O_INV_STEP], delta,
+                                        &L.file_in, &f, &kf, &t0, &t1);
+            L.file_slope = f == kf ? 0.0f : (t1 - t0) * o[XRT_O_INV_STEP];
+            L.prob = L.file_in ? L.refl * L.file_val : 0.0f;
         }
         L.w_pre = st.w;
         if (mask) st.w = st.w * L.prob;
@@ -367,11 +379,13 @@ __device__ __forceinline__ Corners corners(float f, int n) {
     return Corners{(int)p0, 1.0f - a, a, -moving, moving};
 }
 
+constexpr int kThreads = 256;
+
 template <bool kTorus, bool kCylinder, int kSource>
 __global__ void fused_grad_fwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, const float* __restrict__ g_pvec, int n_slots,
-    long long n_total, float lam, const float* __restrict__ uniforms,
+    int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
+    int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, float* __restrict__ images,
     int img_total, int use_smem) {
     extern __shared__ float s_img[];
@@ -396,15 +410,15 @@ __global__ void fused_grad_fwd_kernel(
          r < n_total; r += stride) {
         Draws draw{uniforms, n_total, r, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState st;
-        SourceAux aux;
-        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, st, aux);
+        SourceAux src_aux;
+        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, st, src_aux);
         st.alive = true;
         for (int e = 0; e < n_opt; ++e) {
             const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
             const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
             OpticLocals L;
             grad_optic_fwd<kTorus, kCylinder>(o, oi, P + e * XRT_GRAD_SLOTS, apf,
-                                              api, st, L);
+                                              api, aux, st, L);
             if (oi[7] >= 0 && L.mask) {
                 const int nx = oi[8], ny = oi[9];
                 const Corners cx = corners(L.lxv * o[23] + o[24], nx);
@@ -445,11 +459,17 @@ __device__ __forceinline__ void warp_add(double* acc, float v, int lane) {
     if (lane == 0 && sum != 0.0f) atomicAdd(acc, (double)sum);
 }
 
+// Two blocks of kThreads on a multiprocessor leave 128 registers a thread.
+// The point-source chains with at most one kind of curved optic fit there;
+// left to itself, ptxas took the torus chain's adjoint to 134 registers and
+// one block, at 1.7x the time, so these variants ask for two blocks.
 template <bool kTorus, bool kCylinder, int kSource>
-__global__ void fused_grad_bwd_kernel(
+__global__ void __launch_bounds__(
+    kThreads, kSource == XRT_GRAD_POINT && !(kTorus && kCylinder) ? 2 : 1)
+fused_grad_bwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, const float* __restrict__ g_pvec, int n_slots,
-    long long n_total, float lam, const float* __restrict__ uniforms,
+    int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
+    int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, const float* __restrict__ g_images,
     int img_total, int use_smem, double* __restrict__ partial) {
     extern __shared__ float s_g[];
@@ -488,8 +508,8 @@ __global__ void fused_grad_bwd_kernel(
         Draws draw{uniforms, n_total, in_range ? r : n_total - 1,
                    seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         RayState src;
-        SourceAux aux;
-        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, src, aux);
+        SourceAux src_aux;
+        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, src, src_aux);
         src.alive = in_range;
 
         float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // adjoint of position
@@ -506,10 +526,10 @@ __global__ void fused_grad_bwd_kernel(
                 OpticLocals skip;
                 grad_optic_fwd<kTorus, kCylinder>(
                     fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
-                    P + e * XRT_GRAD_SLOTS, apf, api, st, skip);
+                    P + e * XRT_GRAD_SLOTS, apf, api, aux, st, skip);
             }
             OpticLocals L;
-            grad_optic_fwd<kTorus, kCylinder>(o, oi, Pi, apf, api, st, L);
+            grad_optic_fwd<kTorus, kCylinder>(o, oi, Pi, apf, api, aux, st, L);
             const float bxx = Pi[3], bxy = Pi[4], bxz = Pi[5];
             const float byx = Pi[6], byy = Pi[7], byz = Pi[8];
             const float bzx = Pi[9], bzy = Pi[10], bzz = Pi[11];
@@ -575,9 +595,13 @@ __global__ void fused_grad_bwd_kernel(
                         const float sigma_b = prob_b * prob * (L.z * L.z / L.sigma);
                         refl_b = prob_b * (prob / fmaxf(L.refl, XRT_EPS));
                         a[14] += sigma_b * mf * XRT_SIGMA_PER_FWHM;
-                    } else {
+                    } else if (oi[3] != XRT_ROCK_FILE) {
                         refl_b = prob_b * (L.step_in ? 1.0f : 0.0f);
                         delta_b = 0.0f;
+                    } else {  // fused_grad.py:739-742
+                        const float inf_ = L.file_in ? 1.0f : 0.0f;
+                        refl_b = prob_b * L.file_val * inf_;
+                        delta_b = prob_b * L.refl * L.file_slope * inf_;
                     }
                     a[15] += refl_b * mf;
                     const float sd = L.sd;
@@ -837,7 +861,7 @@ __global__ void fused_grad_bwd_kernel(
         if (kSource == XRT_GRAD_PLASMA) {  // the source slots (fused_grad.py:279-291)
             const float aE = wb * fp[30];
             const float aT =
-                lamb * (fp[16] * aux.n_g * aux.dop / (2.0f * aux.sqrt_t));
+                lamb * (fp[16] * src_aux.n_g * src_aux.dop / (2.0f * src_aux.sqrt_t));
             warp_add(s_acc + src_base, in_range ? aE : 0.0f, lane);
             warp_add(s_acc + src_base + 1, in_range ? aT : 0.0f, lane);
         }
@@ -849,14 +873,12 @@ __global__ void fused_grad_bwd_kernel(
     }
 }
 
-constexpr int kThreads = 256;
-
-using FwdKernel = void (*)(const float*, int, const int*, int, const float*, int,
-                           long long, float, const float*, uint32_t, uint32_t,
-                           float*, int, int);
-using BwdKernel = void (*)(const float*, int, const int*, int, const float*, int,
-                           long long, float, const float*, uint32_t, uint32_t,
-                           const float*, int, int, double*);
+using FwdKernel = void (*)(const float*, int, const int*, int, const float*,
+                           const float*, int, long long, float, const float*,
+                           uint32_t, uint32_t, float*, int, int);
+using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
+                           const float*, int, long long, float, const float*,
+                           uint32_t, uint32_t, const float*, int, int, double*);
 
 // The kernels built for each variant: bit 0 a torus in the chain, bit 1 a
 // cylinder; bits 2-3 the source (XRT_GRAD_POINT, _PLASMA, _GENERIC).
@@ -868,9 +890,10 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*, int
 const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_fwd_kernel);
 const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
 
-bool grad_args_ok(int n_fp, int n_ip, int n_slots, int variant) {
-    return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && n_slots > 0 &&
-           n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 &&
+bool grad_args_ok(int n_fp, int n_ip, const float* aux, int n_aux, int n_slots,
+                  int variant) {
+    return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && aux != nullptr && n_aux > 0 &&
+           n_slots > 0 && n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 &&
            variant < XRT_GRAD_VARIANTS;
 }
 
@@ -882,19 +905,23 @@ size_t bwd_smem(int img_total) {
 
 }  // namespace
 
-// K5f. fp/ip: K1's packed structure; pvec: n_slots float32 parameters;
+// K5f. fp/ip: K1's packed structure; aux: its n_aux float32 of file rocking
+// tables (never null); pvec: n_slots float32 parameters;
 // rays [0, n_total) with draws from uniforms (n_draws, n_total) float32 or
 // Philox keyed by (seed0, seed1); lam: a point source's wavelength. images:
 // (img_total,) float32, zeroed by the caller. variant: bit 0 a torus in the
 // chain, bit 1 a cylinder, bits 2-3 the source: 0 the point-source cut, 1 a
 // plasma (kind 2), 2 the whole generic sampler. Returns cudaGetLastError().
 extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
-                                  int n_ip, const float* pvec, int n_slots,
+                                  int n_ip, const float* aux, int n_aux,
+                                  const float* pvec, int n_slots,
                                   long long n_total, float lam,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, float* images,
                                   int img_total, int variant, void* stream) {
-    if (!grad_args_ok(n_fp, n_ip, n_slots, variant)) return (int)cudaErrorInvalidValue;
+    if (!grad_args_ok(n_fp, n_ip, aux, n_aux, n_slots, variant)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (n_total <= 0) return (int)cudaSuccess;
     const FwdKernel kernel = kFwd[variant];
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
@@ -903,8 +930,8 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, kThreads, smem, n_total);
     kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, pvec, n_slots, n_total, lam, uniforms, seed0, seed1,
-        images, img_total, use_smem);
+        fp, n_fp, ip, n_ip, aux, pvec, n_slots, n_total, lam, uniforms, seed0,
+        seed1, images, img_total, use_smem);
     return (int)cudaGetLastError();
 }
 
@@ -923,13 +950,14 @@ extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total,
 // partial: (n_blocks, n_slots) float64, one row of slot sums per block,
 // with n_blocks from xrt_fused_grad_bwd_blocks. Returns cudaGetLastError().
 extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
-                                  int n_ip, const float* pvec, int n_slots,
+                                  int n_ip, const float* aux, int n_aux,
+                                  const float* pvec, int n_slots,
                                   long long n_total, float lam,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, const float* g_images,
                                   int img_total, double* partial, int n_blocks,
                                   int variant, void* stream) {
-    if (!grad_args_ok(n_fp, n_ip, n_slots, variant) || n_blocks <= 0) {
+    if (!grad_args_ok(n_fp, n_ip, aux, n_aux, n_slots, variant) || n_blocks <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     const BwdKernel kernel = kBwd[variant];
@@ -937,7 +965,7 @@ extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, pvec, n_slots, n_total, lam, uniforms, seed0, seed1,
-        g_images, img_total, smem > 0, partial);
+        fp, n_fp, ip, n_ip, aux, pvec, n_slots, n_total, lam, uniforms, seed0,
+        seed1, g_images, img_total, smem > 0, partial);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Fused generate -> trace -> count -> image kernel for NVIDIA Hopper
 // (sm_90a): K1a (the main spectrometer chain), K1b (the generic source
-// matrix), K1f (the plasma source) and the torus and cylinder stages of K1c.
+// matrix), K1f (the plasma source) and the torus, cylinder, Chebyshev-mesh
+// (K1c-cheb), file rocking (K1c-file) and mirror (K1c-mirror) stages of K1c.
 //
 // Replaces those cuts of the TPU megakernel
 // xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the generic
@@ -15,10 +16,12 @@
 // Doppler; sightline filters tested on the origin, xrt_sample_source), or a
 // plasma whose per-iteration bundle tables
 // (cum, table) were drawn before the launch; plane, sphere, torus or
-// cylinder optics with x/y/z bounds and aperture logic (none/circle/square/
-// rectangle/ellipse; and, not, or, nand, nor, xor, xnor); no interaction or
-// a Bragg crystal with a gaussian or step rocking curve and Bernoulli (mc)
-// acceptance, at each ray's own wavelength where the source varies it;
+// cylinder optics, and Chebyshev surrogates of smooth meshes, with x/y/z
+// bounds and aperture logic (none/circle/square/rectangle/ellipse; and,
+// not, or, nand, nor, xor, xnor); no interaction, a mirror, or a Bragg
+// crystal with a gaussian, step or tabulated (file) rocking curve and
+// Bernoulli (mc) acceptance, at each ray's own wavelength where the source
+// varies it;
 // per-element counts; nearest-pixel images. The chain is trace_chain.cuh,
 // shared with the trace-only kernel K3 (trace_only.cu).
 //
@@ -53,7 +56,10 @@
 //
 // What bounds it: arithmetic and the per-ray sin/exp/sqrt (plasma: also
 // cos, tan, erfinv and the torus's 4 Newton steps with a sqrt and two
-// divisions each), plus the image atomics; a plasma ray adds about
+// divisions each; a mesh: 4 Newton steps over its nonzero Chebyshev terms,
+// each an 8-byte load through the read-only cache where the TPU kernel
+// unrolled them as constants), plus the image atomics; a file curve
+// is two cached loads where the TPU kernel ran a tent matvec on its MXU; a plasma ray adds about
 // log2(B) dependent loads of cum and one 32-byte row, served by L2. Counts are reduced per warp with __ballot_sync/__popc into
 // shared counters, images are block-private shared-memory histograms
 // (binning.cuh), both flushed once per block with global atomics.
@@ -68,11 +74,12 @@
 namespace {
 
 // kFull: the generic source's whole sampler (xrt_sample_source), else its
-// point-source cut; a plasma takes neither.
-template <bool kFull>
+// point-source cut; a plasma takes neither. kCheb: the chain's mesh stage
+// (trace_chain.cuh).
+template <bool kFull, bool kCheb>
 __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, long long n_total, long long count,
+    int n_ip, const float* __restrict__ aux, long long n_total, long long count,
     const float* __restrict__ uniforms, uint32_t seed0, uint32_t seed1,
     const int* __restrict__ cum, const float* __restrict__ table,
     int n_bundles, int n_per_iter, unsigned long long* __restrict__ counts,
@@ -129,8 +136,8 @@ __global__ void fused_trace_kernel(
             alive = in_range && r < count && keep;
         }
         xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain(fp, ip, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl,
-                        alive, s_counts, img, lane);
+        xrt_trace_chain<kCheb>(fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl,
+                              per_ray_wl, alive, s_counts, img, lane);
     }
 
     __syncthreads();
@@ -153,17 +160,19 @@ __global__ void fused_trace_kernel(
 // null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
 // and images: (img_total,) float32, both zeroed by the caller. full_source:
 // the generic source's whole sampler (a box, a Focused axis, the other cones,
-// per-ray wavelengths or filters), else its point-source cut. Returns
-// cudaGetLastError() of the launch.
+// per-ray wavelengths or filters), else its point-source cut. aux: n_aux
+// float32 of file tables and Chebyshev terms (never null); cheb: the
+// chain's mesh stage. Returns cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
-                               int n_ip, long long n_total, long long count,
+                               int n_ip, const float* aux, int n_aux,
+                               long long n_total, long long count,
                                const float* uniforms, unsigned int seed0,
                                unsigned int seed1, const int* cum,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
                                float* images, int img_total, int full_source,
-                               void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP) {
+                               int cheb, void* stream) {
+    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     if (cum != nullptr && (n_bundles <= 0 || n_per_iter <= 0 ||
@@ -174,12 +183,15 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    auto kernel = full_source ? fused_trace_kernel<true> : fused_trace_kernel<false>;
+    auto kernel = full_source ? (cheb ? fused_trace_kernel<true, true>
+                                      : fused_trace_kernel<true, false>)
+                              : (cheb ? fused_trace_kernel<false, true>
+                                      : fused_trace_kernel<false, false>);
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
     kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, n_total, count, uniforms, seed0, seed1, cum,
+        fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum,
         table, n_bundles, (int)n_per_iter, counts, images, img_total,
         use_smem);
     return (int)cudaGetLastError();

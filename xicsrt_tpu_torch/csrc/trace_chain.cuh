@@ -3,7 +3,9 @@
 // chain (ops/fused_trace.py: pack_params), with the per-element counts and
 // the nearest-pixel images. The counterpart of the TPU kernels' shared
 // _trace_chain (xicsrt_tpu/ops/fused_trace.py:705) for mc mode and nearest
-// images; its plain twin is ops/fused_trace.py:_trace_chain_plain.
+// images, with plane, sphere, torus, cylinder and Chebyshev-surface shapes,
+// mirrors and gaussian, step and file crystals; its plain twin is
+// ops/fused_trace.py:_trace_chain_plain.
 //
 // Counts are reduced per warp with __ballot_sync/__popc into the block's
 // shared counters, so every lane of the warp must call it; images go to the
@@ -26,10 +28,18 @@ __device__ __forceinline__ void xrt_count_warp(unsigned int* s_counts, int elem,
 // the crystals take their Bragg angle from wl (the plasma of
 // fused_trace.py:997-1001, and generic sources whose wavelength varies),
 // else the constant sin/cos packed in the optic.
+//
+// kCheb compiles the stage of mesh surrogates (Chebyshev surfaces, shape 4);
+// the host takes this build only for chains that hold one
+// (FusedParams.cheb): with it, K1a's build took 72 registers, not 71, and
+// 3-5 % more time (chip_ab.py, PERF.md). File rocking curves (rocking code
+// 2, the table read from aux) and mirrors (interact code 2:
+// d' = d - 2 (d.n) n, no draw) are in every build.
+template <bool kCheb>
 __device__ __forceinline__ void xrt_trace_chain(
-    const float* fp, const int* ip, Draws& draw, float px, float py, float pz,
-    float dx, float dy, float dz, float wl, bool per_ray_wl, bool alive,
-    unsigned int* s_counts, float* img, int lane) {
+    const float* fp, const int* ip, const float* __restrict__ aux, Draws& draw,
+    float px, float py, float pz, float dx, float dy, float dz, float wl,
+    bool per_ray_wl, bool alive, unsigned int* s_counts, float* img, int lane) {
     const int n_opt = ip[0];
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
@@ -57,6 +67,10 @@ __device__ __forceinline__ void xrt_trace_chain(
         } else if (oi[0] == 2) {  // torus
             t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
             nxv = nyv = nzv = 0.0f;
+        } else if (kCheb && oi[0] == XRT_SHAPE_CHEB) {  // unit normal given
+            t = xrt_cheb_hit(o, reinterpret_cast<const float2*>(aux + oi[XRT_OI_CHEB]),
+                             oi[XRT_OI_TERMS], oi[XRT_OI_DEG], px, py, pz, dx, dy,
+                             dz, alive, &m_int, nxv, nyv, nzv);
         } else {  // cylinder of axis bx through o[12:15], radius^2 o[15]
             const CylinderHit h = xrt_cylinder_hit(
                 o[12], o[13], o[14], o[3], o[4], o[5], o[15],
@@ -68,8 +82,9 @@ __device__ __forceinline__ void xrt_trace_chain(
         const float qx = m_int ? px + t * dx : px;
         const float qy = m_int ? py + t * dy : py;
         const float qz = m_int ? pz + t * dz : pz;
-        if (oi[0] != 0) {  // sphere, cylinder: towards the center or
-                           // the axis; torus: outward
+        if (oi[0] != 0 && !(kCheb && oi[0] == XRT_SHAPE_CHEB)) {
+            // sphere, cylinder: towards the center or the axis; torus:
+            // outward
             if (oi[0] == 1) {
                 nxv = o[12] - qx;
                 nyv = o[13] - qy;
@@ -112,8 +127,15 @@ __device__ __forceinline__ void xrt_trace_chain(
             if (oi[3] == 0) {  // gaussian, o[20] = sigma
                 const float z = delta / o[20];
                 prob = o[19] * expf(-0.5f * (z * z));
-            } else {  // step, o[20] = fwhm / 2
+            } else if (oi[3] != XRT_ROCK_FILE) {  // step, o[20] = fwhm / 2
                 prob = fabsf(delta) <= o[20] ? o[19] : 0.0f;
+            } else {  // file: the resampled table in aux
+                bool inr;
+                float f, kf, t0, t1;
+                const float val = xrt_file_value(
+                    aux + oi[XRT_OI_TABLE], oi[XRT_OI_K], o[XRT_O_LO],
+                    o[XRT_O_INV_STEP], delta, &inr, &f, &kf, &t0, &t1);
+                prob = inr ? val * o[19] : 0.0f;
             }
             const float uacc = draw();
             mask = mask && prob >= uacc;
@@ -123,6 +145,11 @@ __device__ __forceinline__ void xrt_trace_chain(
                 dy = dy - kk * nyv;
                 dz = dz - kk * nzv;
             }
+        } else if (oi[2] == 2 && mask) {  // mirror
+            const float kk = 2.0f * (dx * nxv + dy * nyv + dz * nzv);
+            dx = dx - kk * nxv;
+            dy = dy - kk * nyv;
+            dz = dz - kk * nzv;
         }
         px = qx;
         py = qy;

@@ -76,6 +76,22 @@
 // the convex pair folded (optics/shapes.py ShapeTorus).
 #define XRT_O_MADJ 29
 #define XRT_O_CSIGN 30
+// A file rocking curve: the table's first deviation (in the rocking width's
+// float) and 1 / grid step; the table's offset in the aux buffer and its
+// length K in the optic's ints. A Chebyshev surface (shape 4): centre and
+// scales in floats 12-15, mid-plane and tolerance in XRT_O_RMIN2 and
+// XRT_O_TOL, its terms' aux offset (even), degree (at most
+// XRT_CHEB_MAX_DEG) and term count in the optic's ints.
+#define XRT_O_LO 20
+#define XRT_O_INV_STEP 31
+#define XRT_OI_TABLE 10
+#define XRT_OI_K 11
+#define XRT_OI_CHEB 12
+#define XRT_OI_DEG 13
+#define XRT_OI_TERMS 14
+#define XRT_CHEB_MAX_DEG 12
+#define XRT_SHAPE_CHEB 4
+#define XRT_ROCK_FILE 2
 
 // Philox4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
@@ -579,4 +595,102 @@ __device__ __forceinline__ void xrt_torus_normal(const float* o, float qx,
     nx = ptx - o[15] * plx * inv;
     ny = pty - o[15] * ply * inv;
     nz = ptz - o[15] * plz * inv;
+}
+
+// A file rocking curve (the TPU kernels' rock_prob file branch,
+// fused_trace.py:733-754): the table T of K float32 values resampled on a
+// uniform grid from lo with 1 / step inv_step (aux memory, read through the
+// read-only cache), at the deviation delta. f = (delta - lo) inv_step, in
+// range before its clip to [0, K - 1]; the value is the two nonzero tent
+// weights of the TPU's matvec in its order, at k = floor(f) and
+// min(k + 1, K - 1). *f and *kf get the clipped index and its floor, *t0
+// and *t1 the two table values (the gradient kernels' slope).
+__device__ __forceinline__ float xrt_file_value(const float* __restrict__ T,
+                                                int K, float lo,
+                                                float inv_step, float delta,
+                                                bool* inr, float* f,
+                                                float* kf, float* t0,
+                                                float* t1) {
+    const float fidx = (delta - lo) * inv_step;
+    *inr = fidx >= 0.0f && fidx <= (float)(K - 1);
+    *f = fminf(fmaxf(fidx, 0.0f), (float)(K - 1));
+    *kf = floorf(*f);
+    const int k = (int)*kf;
+    *t0 = __ldg(T + k);
+    *t1 = __ldg(T + min(k + 1, K - 1));
+    return *t0 * (1.0f - (*f - *kf)) + *t1 * (1.0f - ((*kf + 1.0f) - *f));
+}
+
+// The Chebyshev height field z = sum_ij C_ij T_i(u) T_j(v) of a smooth
+// mesh (JAX _fit_cheb_surface and fused_trace.py:813-887), in the local
+// frame of the optic block o (origin o[0:3], basis rows o[3:12]; centre
+// o[12:14] and scales o[14:16] map x, y to u, v; mid-plane o[XRT_O_RMIN2],
+// tolerance o[XRT_O_TOL]). terms: the n_terms nonzero coefficients in aux
+// memory, each a float2 (value, 256 s + 16 i + j) of matrix s (0 C, 1 Cx,
+// 2 Cy), i outer, j inner, so each sum adds the TPU kernel's terms in its
+// order and skips its zeros (ops/fused_trace.py: cheb_terms). Four Newton
+// steps on F(t) = Olz + t Dlz - z(x(t), y(t)) from the mid-plane; T_i(u)
+// and T_j(v) once per step on u, v clipped to 1.25 (in local memory: the
+// terms index them at run time). *hit: alive, the last step below the tolerance,
+// t > 1e-6 and |u|, |v| <= 1 before the clip. The normal is the last
+// gradient's, in the global frame (unit). Returns t, 0 on a miss.
+__device__ __forceinline__ float xrt_cheb_hit(const float* o,
+                                              const float2* __restrict__ terms,
+                                              int n_terms, int deg, float px,
+                                              float py, float pz, float dx,
+                                              float dy, float dz, bool alive,
+                                              bool* hit, float& nx, float& ny,
+                                              float& nz) {
+    const float rx = px - o[0], ry = py - o[1], rz = pz - o[2];
+    const float Olx = rx * o[3] + ry * o[4] + rz * o[5];
+    const float Oly = rx * o[6] + ry * o[7] + rz * o[8];
+    const float Olz = rx * o[9] + ry * o[10] + rz * o[11];
+    const float Dlx = dx * o[3] + dy * o[4] + dz * o[5];
+    const float Dly = dx * o[6] + dy * o[7] + dz * o[8];
+    const float Dlz = dx * o[9] + dy * o[10] + dz * o[11];
+    float t = (o[XRT_O_RMIN2] - Olz) / (fabsf(Dlz) > 1e-9f ? Dlz : 1e-9f);
+    float step = 0.0f, u = 0.0f, v = 0.0f, zx = 0.0f, zy = 0.0f;
+    float tu[XRT_CHEB_MAX_DEG + 1], tv[XRT_CHEB_MAX_DEG + 1];
+    for (int it = 0; it < 4; ++it) {
+        u = (Olx + t * Dlx - o[12]) * o[14];
+        v = (Oly + t * Dly - o[13]) * o[15];
+        const float uc = fminf(fmaxf(u, -1.25f), 1.25f);
+        const float vc = fminf(fmaxf(v, -1.25f), 1.25f);
+        tu[0] = 1.0f;
+        tv[0] = 1.0f;
+        tu[1] = uc;
+        tv[1] = vc;
+        for (int k = 2; k <= deg; ++k) {
+            tu[k] = 2.0f * uc * tu[k - 1] - tu[k - 2];
+            tv[k] = 2.0f * vc * tv[k - 1] - tv[k - 2];
+        }
+        float z = 0.0f;
+        zx = 0.0f;
+        zy = 0.0f;
+        for (int k = 0; k < n_terms; ++k) {  // the same term in every lane
+            const float2 c = __ldg(terms + k);
+            const int code = (int)c.y;
+            const float p = c.x * tu[(code >> 4) & 15] * tv[code & 15];
+            if (code < 256) {
+                z = z + p;
+            } else if (code < 512) {
+                zx = zx + p;
+            } else {
+                zy = zy + p;
+            }
+        }
+        const float F = Olz + t * Dlz - z;
+        float Fp = Dlz - zx * Dlx - zy * Dly;
+        Fp = fabsf(Fp) > 1e-9f ? Fp : 1e-9f;
+        step = F / Fp;
+        t = t - step;
+    }
+    *hit = alive && fabsf(step) < o[XRT_O_TOL] && t > 1e-6f && fabsf(u) <= 1.0f &&
+           fabsf(v) <= 1.0f;
+    const float inv = inv_sqrt(zx * zx + zy * zy + 1.0f);
+    const float nlx = -zx * inv, nly = -zy * inv, nlz = inv;
+    nx = nlx * o[3] + nly * o[6] + nlz * o[9];
+    ny = nlx * o[4] + nly * o[7] + nlz * o[10];
+    nz = nlx * o[5] + nly * o[8] + nlz * o[11];
+    return *hit ? t : 0.0f;
 }

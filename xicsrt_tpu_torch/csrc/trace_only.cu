@@ -24,9 +24,11 @@
 
 namespace {
 
+template <bool kCheb>
 __global__ void trace_only_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, long long n, const float* __restrict__ origin,
+    int n_ip, const float* __restrict__ aux, long long n,
+    const float* __restrict__ origin,
     const float* __restrict__ direction, const float* __restrict__ wavelength,
     const unsigned char* __restrict__ mask, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, unsigned long long* __restrict__ counts,
@@ -63,8 +65,8 @@ __global__ void trace_only_kernel(
                     dz = direction[3 * ray + 2];
         const bool alive = in_range && mask[ray] != 0;
         xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain(fp, ip, draw, px, py, pz, dx, dy, dz, wavelength[ray],
-                        true, alive, s_counts, img, lane);
+        xrt_trace_chain<kCheb>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
+                              wavelength[ray], true, alive, s_counts, img, lane);
     }
 
     __syncthreads();
@@ -80,29 +82,32 @@ __global__ void trace_only_kernel(
 
 // fp/ip: the chain packed by ops/fused_trace.py (source kind 3, rays from
 // memory). n rays: origin and direction (n, 3) float32, wavelength (n,)
-// float32, mask (n,) bytes (0 dead). uniforms: (n_draws, n) float32 or null
-// for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64 and
+// float32, mask (n,) bytes (0 dead). aux: n_aux float32 of file tables and
+// Chebyshev terms (never null); cheb: the chain's mesh stage. uniforms: (n_draws, n) float32 or null for Philox keyed by
+// (seed0, seed1). counts: (1 + n_optics) uint64 and
 // images: (img_total,) float32, both zeroed by the caller. Returns
 // cudaGetLastError() of the launch.
 extern "C" int xrt_trace_only(const float* fp, int n_fp, const int* ip,
-                              int n_ip, long long n, const float* origin,
-                              const float* direction, const float* wavelength,
-                              const unsigned char* mask, const float* uniforms,
-                              unsigned int seed0, unsigned int seed1,
-                              unsigned long long* counts, float* images,
-                              int img_total, void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP) {
+                              int n_ip, const float* aux, int n_aux, long long n,
+                              const float* origin, const float* direction,
+                              const float* wavelength, const unsigned char* mask,
+                              const float* uniforms, unsigned int seed0,
+                              unsigned int seed1, unsigned long long* counts,
+                              float* images, int img_total, int cheb,
+                              void* stream) {
+    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     if (n <= 0) return (int)cudaSuccess;
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    cudaError_t err = xrt_set_smem(trace_only_kernel, smem);
+    auto kernel = cheb ? trace_only_kernel<true> : trace_only_kernel<false>;
+    cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(trace_only_kernel, threads, smem, n);
-    trace_only_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, n, origin, direction, wavelength, mask, uniforms,
+    const int blocks = xrt_grid_size(kernel, threads, smem, n);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        fp, n_fp, ip, n_ip, aux, n, origin, direction, wavelength, mask, uniforms,
         seed0, seed1, counts, images, img_total, use_smem);
     return (int)cudaGetLastError();
 }

@@ -30,8 +30,9 @@ ray and its adjoint reaches the temperature slot; plane, sphere, cylinder
 and torus optics (concave and convex; the torus root found on detached
 copies and differentiated through one Newton correction, the
 implicit-function adjoint) with x/y/z bounds and apertures as hard edges;
-no interaction, mirror, or crystal with gaussian or step rocking; bilinear
-images on any optic; float32.
+no interaction, mirror, or crystal with gaussian, step or file rocking (the
+resampled table of K1, differentiated through its argument: the slope of
+its linear segment; K5c-file); bilinear images on any optic; float32.
 
 On CPU tensors the wrappers run the plain PyTorch twins
 (:func:`fused_grad_forward_plain`, :func:`fused_grad_vjp_plain`), which
@@ -73,8 +74,8 @@ def _round_up(n: int, m: int) -> int:
 
 def check_config(config: dict) -> None:
     """Raise ``FusedGradUnsupported`` for element classes and rocking curves
-    outside the subset before a pipeline is built (mosaic optics, meshes,
-    profiled plasmas and file rocking curves are not in the kernels)."""
+    outside the subset before a pipeline is built (mosaic optics and
+    profiled plasmas are not in the kernels; meshes raise at the build)."""
     from xicsrt_tpu_torch.dispatch import lookup
     from xicsrt_tpu_torch.sources.plasma import PlasmaCubic, PlasmaGeneric
 
@@ -93,7 +94,7 @@ def check_config(config: dict) -> None:
                 raise FusedGradUnsupported(
                     f'"{name}": {class_name} has profiles that are not constant')
             rocking = str(element.get("rocking_type", "gaussian")).lower()
-            if rocking not in ("gaussian", "step"):
+            if rocking not in ("gaussian", "step", "file"):
                 raise FusedGradUnsupported(f"rocking_type {rocking}")
 
 
@@ -171,11 +172,17 @@ def _grad_plasma_spec(source) -> dict:
 
 
 def _grad_optic_spec(optic) -> dict:
-    """The K1 optic spec with mirrors allowed (``fused_grad.py:294-406``)."""
+    """The K1 optic spec of an analytic shape (``fused_grad.py:294-406``):
+    meshes and crystals without their Bragg check stay outside K5, as in
+    JAX."""
+    from xicsrt_tpu_torch.optics.mesh_shapes import ShapeMesh
+
+    if isinstance(optic, ShapeMesh):
+        raise FusedGradUnsupported(type(optic).__name__)
     if not optic.param.get("check_bragg", True):
         raise FusedGradUnsupported("check_bragg=False crystal")
     try:
-        spec = ft._optic_spec(optic, mirror=True)
+        spec = ft._optic_spec(optic)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
     spec["n_draws"] = 0  # weight mode: a crystal draws no uniform
@@ -254,10 +261,22 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def _optic_fwd(F, I, e, P, lam, state):
+def file_slope_plain(T, inv_step: float, f, k):
+    """The slope in delta of a file curve's segment at the clipped index
+    ``f`` (floor ``k``), the adjoint's (JAX ``_file_interp``'s tent
+    derivative, ``fused_grad.py:679-686``): (T[k+1] - T[k]) inv_step
+    strictly inside a segment, exactly 0 where f lands on a node (sign(0)
+    = 0)."""
+    ki = k.long()
+    t0, t1 = (T[i].to(f.dtype) for i in (ki, torch.clamp(ki + 1, max=T.shape[0] - 1)))
+    return torch.where(f == k, 0.0, (t1 - t0) * inv_step)
+
+
+def _optic_fwd(F, I, aux, e, P, lam, state):
     """Weight-mode forward of optic ``e`` (``_trace_fwd``,
     ``fused_grad.py:747-1158``, for planes, spheres, cylinders and tori with
-    no interaction, a mirror or a crystal). ``lam``: the wavelength, a 0-d
+    no interaction, a mirror or a crystal; ``aux``: the packed aux buffer,
+    a file curve's table). ``lam``: the wavelength, a 0-d
     tensor or one per ray (a true division, as the kernel's; PyTorch
     multiplies a Python scalar by the reciprocal). ``state``: (px, py, pz,
     dx, dy, dz, w, alive) entering the optic. Returns (state leaving it, the
@@ -384,10 +403,16 @@ def _optic_fwd(F, I, e, P, lam, state):
             z = delta / sigma
             prob = refl * torch.exp(-0.5 * z * z)
             s.update(sigma=sigma, z=z)
-        else:  # step: hard edges, zero gradient in delta and fwhm
+        elif oi[3] == 1:  # step: hard edges, zero gradient in delta and fwhm
             inside = torch.abs(delta) <= fwhm / 2.0
             prob = torch.where(inside, refl, 0.0)
             s["step_in"] = inside
+        else:  # file: the static table, its gradient through delta only
+            T = aux[oi[ft.OI_TABLE]:oi[ft.OI_TABLE] + oi[ft.OI_K]]
+            val, inr, f, k = ft.file_value_plain(T, o[ft.O_LO], o[ft.O_INV_STEP], delta)
+            prob = torch.where(inr, refl * val, 0.0)
+            s.update(file_val=val, file_in=inr,
+                     file_slope=file_slope_plain(T, o[ft.O_INV_STEP], f, k))
         s.update(adot=adot, cosi=cosi, sd=sd, prob=prob, w_pre=w, sin_b=sin_b,
                  cos_b=cos_b, d_s=d_s, refl=refl, lam=lam)
         w = torch.where(mask, w * prob, w)
@@ -478,9 +503,13 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
                 sigma_b = prob_b * prob * (z * z / sigma)
                 refl_b = prob_b * (prob / torch.clamp_min(s["refl"], _EPS))
                 add_slot(14, sigma_b * mf * _SIGMA_PER_FWHM)
-            else:
+            elif oi[3] == 1:
                 refl_b = prob_b * s["step_in"].to(wb.dtype)
                 delta_b = zeros
+            else:  # fused_grad.py:739-742
+                inf_ = s["file_in"].to(wb.dtype)
+                refl_b = prob_b * s["file_val"] * inf_
+                delta_b = prob_b * s["refl"] * s["file_slope"] * inf_
             add_slot(15, refl_b * mf)
             sd = s["sd"]
             sd_b = delta_b * (1.0 + 0.5 * sd * sd)
@@ -781,7 +810,7 @@ def fused_grad_forward_plain(static: ft.FusedParams, pvec: torch.Tensor,
                               P.dtype, P.device):
         state, lam_r, _ = _source_state(F, I, P, rays, draw, lam)
         for e in range(I[0]):
-            state, _, img = _optic_fwd(F, I, e, P, lam_r, state)
+            state, _, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state)
             if img is not None:
                 parts[e] = parts[e] + _splat(*shapes[e], *img)
     # The images lie in optic order in the flat buffer.
@@ -806,7 +835,7 @@ def fused_grad_vjp_plain(static: ft.FusedParams, pvec: torch.Tensor,
         state, lam_r, aux = _source_state(F, I, P, rays, draw, lam)
         saved, seeds = [], {}
         for e in range(I[0]):
-            state, s, img = _optic_fwd(F, I, e, P, lam_r, state)
+            state, s, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state)
             saved.append(s)
             if img is not None:
                 seeds[e] = _seeds(g_flat, *images[e], *img)
@@ -882,9 +911,10 @@ def fused_grad_forward_cuda(static: ft.FusedParams, pvec: torch.Tensor,
     if n_total == 0:
         return image
     pvec = pvec.contiguous()
+    fp, ip, aux = ft._buffers(static, "fused_grad_forward_cuda")
     err = native.library().xrt_fused_grad_fwd(
-        static.fp.data_ptr(), static.fp.numel(), static.ip.data_ptr(),
-        static.ip.numel(), pvec.data_ptr(), pvec.numel(), n_total, float(lam),
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+        aux.numel(), pvec.data_ptr(), pvec.numel(), n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, image.data_ptr(),
         static.img_total, _variant(static),
@@ -926,9 +956,10 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         native.check(-n_blocks, "xrt_fused_grad_bwd_blocks")
     partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
     pvec, g_flat = pvec.contiguous(), g_flat.contiguous()
+    fp, ip, aux = ft._buffers(static, "fused_grad_vjp_cuda")
     err = lib.xrt_fused_grad_bwd(
-        static.fp.data_ptr(), static.fp.numel(), static.ip.data_ptr(),
-        static.ip.numel(), pvec.data_ptr(), n_slots, n_total, float(lam),
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+        aux.numel(), pvec.data_ptr(), n_slots, n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, g_flat.data_ptr(),
         static.img_total, partial.data_ptr(), n_blocks, _variant(static),

@@ -5,7 +5,8 @@ through the optic chain, counts the survivors of each element and bins the
 nearest-pixel images, with all per-ray state in registers. It replaces the
 ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
 chain (K1a), the generic source matrix (K1b), the in-kernel plasma source
-(K1f) and the torus and cylinder stages of K1c. A second kernel, K3
+(K1f) and the torus, cylinder, mesh (K1c-cheb), file rocking (K1c-file) and
+mirror (K1c-mirror) stages of K1c. A second kernel, K3
 (``csrc/trace_only.cu``, :func:`fused_trace_run_cuda`), traces rays the
 eager engine generated through the same chain (``csrc/trace_chain.cuh``);
 it replaces the TPU's ``build_fused_trace_run``.
@@ -28,12 +29,16 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   wavelength and the Doppler shift;
 - plane, sphere, torus and cylinder optics (the torus by the
   local-quadratic Newton root of ``torus_local_quadratic_t``, the cylinder
-  by the stable quadratic about its x axis) with x/y/z bounds and aperture
-  logic
-  (every logic op; shapes none/circle/square/rectangle/ellipse);
-- no interaction, or a Bragg crystal with gaussian or step rocking in
-  ``mc`` mode, with per-ray Bragg angles where the source varies the
-  wavelength;
+  by the stable quadratic about its x axis) and smooth meshes, traced by the
+  Chebyshev height field :func:`_fit_cheb_surface` fits at build time (4
+  Newton steps in the kernel; faceted or rough meshes raise), with x/y/z
+  bounds and aperture logic (every logic op; shapes
+  none/circle/square/rectangle/ellipse);
+- no interaction, a mirror (or a crystal without its Bragg check), or a
+  Bragg crystal with gaussian, step or file rocking in ``mc`` mode, with
+  per-ray Bragg angles where the source varies the wavelength; a file
+  curve is resampled on the host onto at most 2048 uniform points
+  (``fused_trace.py:540-559``) and read by the kernels as two loads;
 - nearest-pixel images, float32, no history reservoir.
 
 A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
@@ -44,7 +49,9 @@ iteration's rays and K3 traces them.
 Unlike the TPU kernel, geometry is not compiled in: :func:`pack_params`
 packs the run's ``params`` into two small buffers at every call, so one
 build serves every configuration and a changed ``params`` takes effect at
-once.
+once. Per-optic data too large for them (file tables, Chebyshev
+coefficients) goes into a third, ``aux``, which the kernels read from
+global memory.
 
 The Bragg deviation is the sine-difference identity with a cubic asin
 correction, ``sd + sd^3/6`` with ``sd = |d.n| cos_b - sqrt(1-(d.n)^2) sin_b``
@@ -96,10 +103,22 @@ _CONES = {"isotropic": 0, "isotropic_xy": 1, "isotropic_xy_asym": 2, "flat": 3,
 _APERTURE_SHAPES = {"none": 0, "circle": 1, "square": 2, "rectangle": 3,
                     "ellipse": 4}
 _LOGIC = {"and": 0, "not": 1, "or": 2, "nand": 3, "nor": 4, "xor": 5, "xnor": 6}
-_SHAPES = {"plane": 0, "sphere": 1, "torus": 2, "cylinder": 3}
+_SHAPES = {"plane": 0, "sphere": 1, "torus": 2, "cylinder": 3, "cheb": 4}
+_ROCKING = {"gaussian": 0, "step": 1, "file": 2}
 # Optic floats of a torus read by the gradient kernels (XRT_O_MADJ,
 # XRT_O_CSIGN): the convex pair folded into (major_adjust, center_sign).
 O_MAJOR_ADJUST, O_CENTER_SIGN = 29, 30
+# A file rocking curve's table start (XRT_O_LO, in the rocking width's
+# float) and 1 / grid step (XRT_O_INV_STEP); its aux offset and length in
+# the optic's ints 10-11 (XRT_OI_TABLE, XRT_OI_K). A Chebyshev surface's
+# centre and scales in the sphere's floats 12-15, its mid-plane and
+# convergence tolerance in the torus's 26-27, its terms' aux offset (even),
+# degree and term count in ints 12-14 (XRT_OI_CHEB, XRT_OI_DEG,
+# XRT_OI_TERMS): the terms are the nonzero coefficients of C, Cx and Cy
+# (:func:`cheb_terms`).
+O_LO, O_INV_STEP = 20, 31
+OI_TABLE, OI_K, OI_CHEB, OI_DEG, OI_TERMS = 10, 11, 12, 13, 14
+CHEB_MAX_DEG = 12
 _TWO_PI = 2.0 * math.pi
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
 _C_LIGHT = 299792458.0
@@ -269,14 +288,137 @@ def _plasma_spec(source) -> dict:
     }
 
 
-def _optic_spec(optic, mirror: bool = False) -> dict:
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _file_table(optic) -> dict:
+    """A file rocking curve resampled as the TPU kernels take it
+    (``fused_trace.py:540-559``): the sigma/pi mix by ``rocking_mix`` on
+    ``K = min(2048, round_up(max(4 len, 128), 128))`` uniform points over
+    the table's support, 0 outside it, float32; ``lo`` and ``inv_step =
+    (K - 1) / (hi - lo)`` map a deviation to its fractional index."""
+    tab = optic.rocking_table
+    mix = float(optic.param.get("rocking_mix", 0.5))
+    dtheta = np.asarray(tab["dtheta"], dtype=np.float64)
+    curve = (mix * np.asarray(tab["reflect_s"], np.float64)
+             + (1.0 - mix) * np.asarray(tab["reflect_p"], np.float64))
+    K = int(min(2048, _round_up(max(4 * len(dtheta), 128), 128)))
+    lo, hi = float(dtheta.min()), float(dtheta.max())
+    grid = np.linspace(lo, hi, K)
+    return {"table": np.interp(grid, dtheta, curve, left=0.0, right=0.0).astype(np.float32),
+            "lo": lo, "inv_step": (K - 1) / (hi - lo), "K": K}
+
+
+def _fit_cheb_surface(optic) -> dict:
+    """Fit the mesh with a tensor-Chebyshev height field z(x, y) in the
+    optic's local frame (build time; a copy of JAX ``_fit_cheb_surface``,
+    ``fused_trace.py:346-448``).
+
+    z = sum_ij C_ij T_i(u) T_j(v) by least squares at the lowest degree of
+    4, 6, ..., 12 that reproduces the vertices to 1e-6 of the span, checked
+    against the vertex normals to 5e-4 rad; the kernels intersect it by
+    Newton steps. Raises ``FusedUnsupported`` for meshes that are not
+    smooth height fields: faceted meshes and rough ones stay on the eager
+    engine's exact triangles.
+    """
+    import numpy.polynomial.chebyshev as ncheb
+
+    p = optic.param
+    if not bool(p.get("mesh_interpolate", False)):
+        raise FusedUnsupported(
+            "faceted mesh (mesh_interpolate=False): the fused surrogate "
+            "is smooth; the eager engine traces exact triangles")
+    pts = np.asarray(p["mesh_points"], dtype=np.float64)
+    normals = p.get("mesh_normals")
+    if not bool(p.get("trace_local", False)):
+        basis = _vec(optic.frame.basis)
+        origin = _vec(optic.frame.origin)
+        pts = (pts - origin) @ basis.T
+        if normals is not None:
+            normals = np.asarray(normals, dtype=np.float64) @ basis.T
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    lox, hix = float(x.min()), float(x.max())
+    loy, hiy = float(y.min()), float(y.max())
+    spanx = max(hix - lox, 1e-12)
+    spany = max(hiy - loy, 1e-12)
+    u = (x - lox) / spanx * 2.0 - 1.0
+    v = (y - loy) / spany * 2.0 - 1.0
+    tol = 1e-6 * max(spanx, spany)
+    C = resid = None
+    for deg in (4, 6, 8, 10, 12):
+        if deg > 4 and (deg + 1) ** 2 * 1.2 > len(pts):
+            break  # under-determined: higher degrees would interpolate noise
+        V = ncheb.chebvander2d(u, v, [deg, deg])
+        coef, *_ = np.linalg.lstsq(V, z, rcond=None)
+        resid = float(np.abs(V @ coef - z).max())
+        if resid <= tol:
+            C = coef.reshape(deg + 1, deg + 1)
+            break
+    if C is None:
+        raise FusedUnsupported(
+            f"mesh is not a smooth height field (Chebyshev fit residual "
+            f"{resid:.2e} > {tol:.2e})")
+    # Derivative coefficient matrices in the same basis (du/dx = 2/spanx).
+    Cx = np.zeros_like(C)
+    Cx[:-1, :] = ncheb.chebder(C, axis=0) * (2.0 / spanx)
+    Cy = np.zeros_like(C)
+    Cy[:, :-1] = ncheb.chebder(C, axis=1) * (2.0 / spany)
+    if normals is not None:
+        # The surrogate's normals must reproduce the vertex normals.
+        zx = ncheb.chebval2d(u, v, Cx)
+        zy = ncheb.chebval2d(u, v, Cy)
+        m = np.stack([-zx, -zy, np.ones_like(zx)], axis=-1)
+        m /= np.linalg.norm(m, axis=-1, keepdims=True)
+        n = np.asarray(normals, dtype=np.float64)
+        n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+        dot = np.clip(np.abs(np.sum(m * n, axis=-1)), -1.0, 1.0)
+        worst = float(np.arccos(dot).max())
+        if worst > 5e-4:
+            raise FusedUnsupported(
+                f"mesh normals deviate {worst:.2e} rad from the fitted "
+                "surface gradient")
+    zmid = float(z.min() + z.max()) / 2.0
+    # Negligible coefficients (odd terms of symmetric surfaces) are zeroed:
+    # the kernels trace only the nonzero terms (:func:`cheb_terms`).
+    cut = 1e-13 * max(np.abs(C).max(), 1.0)
+    C[np.abs(C) < cut] = 0.0
+    Cx[np.abs(Cx) < cut * (2.0 / spanx)] = 0.0
+    Cy[np.abs(Cy) < cut * (2.0 / spany)] = 0.0
+    return {
+        "deg": int(C.shape[0] - 1), "C": C, "Cx": Cx, "Cy": Cy,
+        "cx": (lox + hix) / 2.0, "cy": (loy + hiy) / 2.0,
+        "sx": 2.0 / spanx, "sy": 2.0 / spany,
+        # Quadratic convergence from the mid-plane seed: 4 Newton steps
+        # land at float32 rounding with one to spare.
+        "zmid": zmid, "tol_c": 1e-5 * max(spanx, spany, 1e-3),
+    }
+
+
+def cheb_terms(ch: dict) -> np.ndarray:
+    """The kernels' terms of a fitted surface: an (n, 2) float32 row
+    (value, 256 s + 16 i + j) for each nonzero float32 coefficient of
+    matrix s (0 C, 1 Cx, 2 Cy) at (i, j), i outer, j inner, s innermost, so
+    that each matrix's terms keep the order of the TPU kernel's unrolled
+    sums (``fused_trace.py:830-840``)."""
+    if ch["deg"] > CHEB_MAX_DEG:
+        raise FusedUnsupported(f"Chebyshev degree {ch['deg']} > {CHEB_MAX_DEG}")
+    coef = np.stack([np.asarray(ch[k], np.float32) for k in ("C", "Cx", "Cy")], axis=-1)
+    i, j, s = np.nonzero(coef)
+    return np.stack([coef[i, j, s], (256 * s + 16 * i + j).astype(np.float32)], axis=1)
+
+
+def _optic_spec(optic) -> dict:
     """Structure of one optic: shape, bounds, apertures, interaction, image.
 
-    ``mirror``: accept a mirror interaction (interact code 2), which the
-    gradient kernels trace and K1a does not."""
+    Interact codes: 0 none, 1 a Bragg crystal (rocking codes 0 gaussian, 1
+    step, 2 file, its resampled table in ``spec["file"]``), 2 a mirror or a
+    crystal without its Bragg check (JAX ``fused_trace.py:523-526``). A
+    mesh is fitted by its Chebyshev surrogate (``spec["cheb"]``)."""
     from xicsrt_tpu_torch.optics.interactions import (
         InteractCrystal, InteractMirror, InteractNone,
     )
+    from xicsrt_tpu_torch.optics.mesh_shapes import ShapeMesh
     from xicsrt_tpu_torch.optics.shapes import (
         ShapeCylinder, ShapePlane, ShapeSphere, ShapeTorus,
     )
@@ -295,6 +437,9 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
         spec["shape"] = _SHAPES["torus"]
         spec["major_adjust"] = float(p["major_adjust"])
         spec["center_sign"] = float(p["center_sign"])
+    elif isinstance(optic, ShapeMesh):
+        spec["shape"] = _SHAPES["cheb"]
+        spec["cheb"] = _fit_cheb_surface(optic)
     else:
         raise FusedUnsupported(f"shape of {type(optic).__name__}")
 
@@ -325,15 +470,15 @@ def _optic_spec(optic, mirror: bool = False) -> dict:
                 "floats": (float(ap["origin"][0]), float(ap["origin"][1])) + params,
             })
 
-    if isinstance(optic, InteractCrystal):
-        if not p.get("check_bragg", True):
-            raise FusedUnsupported("crystal without Bragg check (mirror)")
+    if isinstance(optic, InteractCrystal) and p.get("check_bragg", True):
         spec["interact"] = 1
-        spec["rocking"] = {"gaussian": 0, "step": 1}[p["rocking_type"]]
+        if p["rocking_type"] not in _ROCKING:
+            raise FusedUnsupported(f"rocking_type {p['rocking_type']}")
+        spec["rocking"] = _ROCKING[p["rocking_type"]]
+        if p["rocking_type"] == "file":
+            spec["file"] = _file_table(optic)
         spec["n_draws"] = 1
-    elif isinstance(optic, InteractMirror):
-        if not mirror:
-            raise FusedUnsupported("mirror interaction")
+    elif isinstance(optic, InteractMirror):  # a crystal without its check too
         spec["interact"] = 2
     elif isinstance(optic, InteractNone):
         spec["interact"] = 0
@@ -358,16 +503,26 @@ class FusedParams:
     ``source_kind``: 0 generic, 1 plasma of bundle tables, 2 plasma of one
     bundle per ray, 3 rays from memory (K3); ``shape_mask``: bit s set where
     the chain holds an optic of shape code s; ``full_source``: the generic
-    source needs the kernels' whole sampler, not their point-source cut."""
+    source needs the kernels' whole sampler, not their point-source cut;
+    ``aux``: float32 per-optic data too large for ``fp`` (file rocking
+    tables, Chebyshev terms), read by the kernels from global memory, never
+    empty."""
 
     fp: torch.Tensor
     ip: torch.Tensor
     n_optics: int
     img_total: int
     n_draws: int
+    aux: torch.Tensor
     source_kind: int = 0
     shape_mask: int = 0
     full_source: bool = False
+
+    @property
+    def cheb(self) -> bool:
+        """The chain holds a mesh surrogate, so K1 and K3 take their build
+        with the Chebyshev stage."""
+        return bool(self.shape_mask >> _SHAPES["cheb"] & 1)
 
     @property
     def plasma(self) -> bool:
@@ -480,6 +635,8 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
 
     img_total = 0
     ap_index = 0
+    aux = [np.zeros(1, np.float32)]  # never empty, so its pointer is valid
+    n_aux = 1
     ap_f = SRC_F + n_opt * OPT_F
     ap_i = HDR_I + n_opt * OPT_I
     for e, o in enumerate(optics):
@@ -508,14 +665,33 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             f[27] = 1e-5 * max(1.0, r_maj)
             f[O_MAJOR_ADJUST] = o["major_adjust"]
             f[O_CENTER_SIGN] = o["center_sign"]
+        elif o["shape"] == _SHAPES["cheb"]:
+            ch = o["cheb"]
+            f[12:16] = (ch["cx"], ch["cy"], ch["sx"], ch["sy"])
+            f[26] = ch["zmid"]
+            f[27] = ch["tol_c"]
+            terms = cheb_terms(ch)
+            pad = n_aux % 2  # the kernels read the terms as float2
+            aux.append(np.zeros(pad, np.float32))
+            n_aux += pad
+            i[OI_CHEB], i[OI_DEG], i[OI_TERMS] = n_aux, ch["deg"], len(terms)
+            aux.append(terms.reshape(-1))
+            n_aux += terms.size
         f[16:19] = o["half"]
         i[4] = o["checks"]
         i[2] = o["interact"]
         if o["interact"] == 1:
             spacing = float(_vec(op["crystal_spacing"]))
-            fwhm = float(_vec(op["rocking_fwhm"]))
             f[19] = float(_vec(op["reflectivity"]))
-            f[20] = fwhm * _SIGMA_PER_FWHM if o["rocking"] == 0 else fwhm / 2.0
+            if o["rocking"] == _ROCKING["file"]:
+                tab = o["file"]
+                f[O_LO], f[O_INV_STEP] = tab["lo"], tab["inv_step"]
+                i[OI_TABLE], i[OI_K] = n_aux, tab["K"]
+                aux.append(tab["table"])
+                n_aux += tab["K"]
+            else:
+                fwhm = float(_vec(op["rocking_fwhm"]))
+                f[20] = fwhm * _SIGMA_PER_FWHM if o["rocking"] == 0 else fwhm / 2.0
             f[28] = 1.0 / (2.0 * spacing)
             if wavelength is not None:
                 sin_b = wavelength / (2.0 * spacing)
@@ -562,6 +738,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
         source_kind=kind,
         shape_mask=sum({1 << o["shape"] for o in optics}),
         full_source=bool(src.get("full")),
+        aux=torch.as_tensor(np.concatenate(aux), device=device),
     )
 
 
@@ -880,6 +1057,76 @@ def cylinder_hit_plain(C, ax, r2, convex: bool, p, d, full):
     return h
 
 
+def _fclip(x, bound: float, full):
+    """Clip to [-bound, bound] as fminf(fmaxf(x, -bound), bound) does: a
+    NaN goes to -bound."""
+    return torch.fmin(torch.fmax(x, full(-bound)), full(bound))
+
+
+def cheb_hit_plain(o, oi, A, px, py, pz, dx, dy, dz, alive, full):
+    """The kernels' Chebyshev surface (``xrt_cheb_hit``; JAX
+    ``fused_trace.py:813-887``) of the optic block ``o`` in its local frame:
+    4 Newton steps on F(t) = Olz + t Dlz - z(x(t), y(t)) from the mid-plane
+    o[26], the recurrence on u, v clipped to 1.25, the sums over the packed
+    nonzero terms (:func:`cheb_terms`; ``A``: the aux buffer as floats).
+    Returns (t, hit, normal); t is zero where the ray misses, the hit needs
+    the last step below o[27] and |u|, |v| <= 1 unclipped, the normal is
+    the last gradient's, in the global frame."""
+    rx, ry, rz = px - o[0], py - o[1], pz - o[2]
+    Olx = rx * o[3] + ry * o[4] + rz * o[5]
+    Oly = rx * o[6] + ry * o[7] + rz * o[8]
+    Olz = rx * o[9] + ry * o[10] + rz * o[11]
+    Dlx = dx * o[3] + dy * o[4] + dz * o[5]
+    Dly = dx * o[6] + dy * o[7] + dz * o[8]
+    Dlz = dx * o[9] + dy * o[10] + dz * o[11]
+    deg, base = oi[OI_DEG], oi[OI_CHEB]
+    terms = [A[base + 2 * k: base + 2 * k + 2] for k in range(oi[OI_TERMS])]
+    safe_dz = torch.where(torch.abs(Dlz) > 1e-9, Dlz, full(1e-9))
+    t = (o[26] - Olz) / safe_dz
+    for _ in range(4):
+        u = (Olx + t * Dlx - o[12]) * o[14]
+        v = (Oly + t * Dly - o[13]) * o[15]
+        uc, vc = _fclip(u, 1.25, full), _fclip(v, 1.25, full)
+        Ti, Tj = [torch.ones_like(uc), uc], [torch.ones_like(vc), vc]
+        for _k in range(deg - 1):
+            Ti.append(2.0 * uc * Ti[-1] - Ti[-2])
+            Tj.append(2.0 * vc * Tj[-1] - Tj[-2])
+        sums = [full(0.0), full(0.0), full(0.0)]
+        for c, code in terms:
+            code = int(code)
+            sums[code >> 8] = sums[code >> 8] + c * Ti[(code >> 4) & 15] * Tj[code & 15]
+        zs, zxs, zys = sums
+        F = Olz + t * Dlz - zs
+        Fp = Dlz - zxs * Dlx - zys * Dly
+        Fp = torch.where(torch.abs(Fp) > 1e-9, Fp, full(1e-9))
+        step = F / Fp
+        t = t - step
+    hit = (alive & (torch.abs(step) < o[27]) & (t > 1e-6)
+           & (torch.abs(u) <= 1.0) & (torch.abs(v) <= 1.0))
+    inv = _inv_sqrt(zxs * zxs + zys * zys + 1.0)
+    nlx, nly, nlz = -zxs * inv, -zys * inv, inv
+    normal = (nlx * o[3] + nly * o[6] + nlz * o[9], nlx * o[4] + nly * o[7] + nlz * o[10],
+              nlx * o[5] + nly * o[8] + nlz * o[11])
+    return torch.where(hit, t, full(0.0)), hit, normal
+
+
+def file_value_plain(T, lo: float, inv_step: float, delta):
+    """The kernels' file rocking curve (``xrt_file_value``): the resampled
+    table ``T`` (K float32 values) at ``delta``, the two nonzero tent
+    weights of the TPU kernels' matvec (``fused_trace.py:738-754``) in their
+    order, as a load at k = floor(f) and min(k + 1, K - 1). Returns (value,
+    in range, f, k); f is the fractional index clipped to [0, K - 1] (a NaN
+    to 0, as fmaxf does), in range is taken before the clip."""
+    K = T.shape[0]
+    fidx = (delta - lo) * inv_step
+    inr = (fidx >= 0.0) & (fidx <= K - 1)
+    f = torch.fmin(torch.fmax(fidx, torch.zeros_like(fidx)), torch.full_like(fidx, K - 1.0))
+    k = torch.floor(f).detach()
+    ki = k.long()
+    val = T[ki] * (1.0 - (f - k)) + T[torch.clamp(ki + 1, max=K - 1)] * (1.0 - ((k + 1.0) - f))
+    return val, inr, f, k
+
+
 def bounds_plain(mask, o, oi, lxv, lyv, r, bz):
     """The kernels' x/y/z bounds (``xrt_bounds``) of the optic whose blocks
     are ``o``, ``oi``: local coordinates (lxv, lyv), offset ``r`` of the hit
@@ -923,10 +1170,11 @@ def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
     return m_out & m_in
 
 
-def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
+def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None):
     """Trace one slice of rays exactly as K1 does; adds into ``counts``
-    (int64) and the flat ``image``. ``alive``: the rays alive at the source
-    before its filters; ``attrs``: their bundle rows for a plasma source."""
+    (int64) and the flat ``image``. ``aux``: the packed aux buffer;
+    ``alive``: the rays alive at the source before its filters; ``attrs``:
+    their bundle rows for a plasma source."""
     shape = alive.shape
 
     def full(value):
@@ -939,18 +1187,20 @@ def _trace_slice(F, I, alive, draw, counts, image, attrs=None):
     else:
         px, py, pz, dx, dy, dz, wl = sample_plasma_plain(F, I, attrs, draw)
     counts[0] += alive.sum()
-    _trace_chain_plain(F, I, (px, py, pz, dx, dy, dz),
+    _trace_chain_plain(F, I, aux, (px, py, pz, dx, dy, dz),
                        wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image)
 
 
-def _trace_chain_plain(F, I, ray, wl, alive, draw, counts, image):
+def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image):
     """The kernels' optic chain (``xrt_trace_chain``, ``csrc/
-    trace_chain.cuh``) on a slice: ``ray`` = (px, py, pz, dx, dy, dz),
-    ``wl`` the per-ray wavelengths or None for the optics' constant Bragg
-    angles. Adds into ``counts[1:]`` and ``image``."""
+    trace_chain.cuh``) on a slice: ``aux`` the packed aux buffer, ``ray`` =
+    (px, py, pz, dx, dy, dz), ``wl`` the per-ray wavelengths or None for the
+    optics' constant Bragg angles. Adds into ``counts[1:]`` and ``image``."""
     f32 = torch.float32
     n_opt = I[0]
     px, py, pz, dx, dy, dz = ray
+    A = [float(x) for x in aux.tolist()] if any(
+        I[HDR_I + e * OPT_I] == _SHAPES["cheb"] for e in range(n_opt)) else None
 
     def full(value):
         return torch.full(alive.shape, value, dtype=f32, device=alive.device)
@@ -974,6 +1224,9 @@ def _trace_chain_plain(F, I, ray, wl, alive, draw, counts, image):
             t = t_ca - t_hc if oi[1] else t_ca + t_hc
         elif oi[0] == _SHAPES["torus"]:
             t, m_int = torus_hit_plain(o, px, py, pz, dx, dy, dz, alive, full)
+        elif oi[0] == _SHAPES["cheb"]:
+            t, m_int, (nxv, nyv, nzv) = cheb_hit_plain(o, oi, A, px, py, pz, dx, dy, dz,
+                                                       alive, full)
         else:  # cylinder of axis bx through o[12:15]
             h = cylinder_hit_plain(o[12:15], o[3:6], o[15], bool(oi[1]),
                                    (px, py, pz), (dx, dy, dz), full)
@@ -997,7 +1250,7 @@ def _trace_chain_plain(F, I, ray, wl, alive, draw, counts, image):
             tcx, tcy, tcz = o[12] - qx, o[13] - qy, o[14] - qz
             along = tcx * o[3] + tcy * o[4] + tcz * o[5]
             nxv, nyv, nzv = tcx - along * o[3], tcy - along * o[4], tcz - along * o[5]
-        if oi[0] != _SHAPES["plane"]:
+        if oi[0] not in (_SHAPES["plane"], _SHAPES["cheb"]):
             inv = _inv_sqrt(torch.clamp_min(nxv * nxv + nyv * nyv + nzv * nzv, 1e-30))
             nxv, nyv, nzv = nxv * inv, nyv * inv, nzv * inv
         rx, ry, rz = qx - o[0], qy - o[1], qz - o[2]
@@ -1020,10 +1273,15 @@ def _trace_chain_plain(F, I, ray, wl, alive, draw, counts, image):
             if oi[3] == 0:
                 z = _div(delta, o[20])
                 prob = o[19] * torch.exp(-0.5 * (z * z))
-            else:
+            elif oi[3] == 1:
                 prob = torch.where(torch.abs(delta) <= o[20], full(o[19]), full(0.0))
+            else:  # file: the resampled table in aux
+                val, inr, _, _ = file_value_plain(aux[oi[OI_TABLE]:oi[OI_TABLE] + oi[OI_K]],
+                                                  o[O_LO], o[O_INV_STEP], delta)
+                prob = torch.where(inr, val * o[19], full(0.0))
             mask = mask & (prob >= draw())
-            kk = 2.0 * dot
+        if oi[2] in (1, 2):  # a crystal's accepted rays, or a mirror's
+            kk = 2.0 * (dx * nxv + dy * nyv + dz * nzv)
             dx = torch.where(mask, dx - kk * nxv, dx)
             dy = torch.where(mask, dy - kk * nyv, dy)
             dz = torch.where(mask, dz - kk * nzv, dz)
@@ -1084,7 +1342,7 @@ def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
             rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
         else:
             rows = [uniforms[k, rays] for k in range(fparams.n_draws)]
-        _trace_slice(F, I, alive, iter(rows).__next__, counts, image, attrs)
+        _trace_slice(F, I, fparams.aux, alive, iter(rows).__next__, counts, image, attrs)
     return counts, image
 
 
@@ -1122,10 +1380,6 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
         return fused_run_plain(fparams, n_total, count, uniforms, seed, bundles)
     if device.type != "cuda":
         raise ValueError(f"fused_run_cuda: unsupported device {device}")
-    if fparams.fp.dtype != torch.float32 or fparams.ip.dtype != torch.int32:
-        raise ValueError("fused_run_cuda: fp must be float32 and ip int32")
-    if fparams.ip.device != device:
-        raise ValueError("fused_run_cuda: fp and ip must share one device")
     if not 0 <= n_total < 2**31:
         raise ValueError("fused_run_cuda: n_total must be in [0, 2^31)")
     cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
@@ -1141,14 +1395,15 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
     if n_total == 0:
         return counts, image
-    fp, ip = fparams.fp.contiguous(), fparams.ip.contiguous()
+    fp, ip, aux = _buffers(fparams, "fused_run_cuda")
     err = native.library().xrt_fused_trace(
-        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), n_total,
-        int(count), u_ptr, int(seed[0]) & _M32, int(seed[1]) & _M32,
-        None if cum is None else cum.data_ptr(),
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+        aux.numel(), n_total, int(count), u_ptr, int(seed[0]) & _M32,
+        int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
         None if table is None else table.data_ptr(), n_bundles, n_per_iter,
         counts.data_ptr(), image.data_ptr(), fparams.img_total,
-        int(fparams.full_source), torch.cuda.current_stream(device).cuda_stream,
+        int(fparams.full_source), int(fparams.cheb),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     native.check(err, "xrt_fused_trace")
     fused_run_cuda.launches += 1
@@ -1156,6 +1411,17 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
 
 
 fused_run_cuda.launches = 0
+
+
+def _buffers(fparams: FusedParams, name: str) -> tuple:
+    """The packed fp, ip and aux buffers, checked for the kernels: float32,
+    int32 and float32 on one device, contiguous."""
+    fp, ip, aux = fparams.fp, fparams.ip, fparams.aux
+    if fp.dtype != torch.float32 or ip.dtype != torch.int32 or aux.dtype != torch.float32:
+        raise ValueError(f"{name}: fp and aux must be float32, ip int32")
+    if not fp.device == ip.device == aux.device:
+        raise ValueError(f"{name}: fp, ip and aux must share one device")
+    return fp.contiguous(), ip.contiguous(), aux.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1185,7 +1451,8 @@ def fused_trace_run_plain(fparams: FusedParams, origin, direction, wavelength, m
         alive = mask[start:stop].to(torch.bool)
         counts[0] += alive.sum()
         o, d = origin[start:stop], direction[start:stop]
-        _trace_chain_plain(F, I, (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]),
+        _trace_chain_plain(F, I, fparams.aux,
+                           (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]),
                            wavelength[start:stop], alive, iter(rows).__next__, counts,
                            image)
     return counts, image
@@ -1232,13 +1499,13 @@ def fused_trace_run_cuda(fparams: FusedParams, origin, direction, wavelength, ma
     origin, direction = origin.contiguous(), direction.contiguous()
     wavelength = wavelength.contiguous()
     mask = mask.contiguous().view(torch.uint8)
-    fp, ip = fparams.fp.contiguous(), fparams.ip.contiguous()
+    fp, ip, aux = _buffers(fparams, "fused_trace_run_cuda")
     err = native.library().xrt_trace_only(
-        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), n, origin.data_ptr(),
-        direction.data_ptr(), wavelength.data_ptr(), mask.data_ptr(), u_ptr,
-        int(seed[0]) & _M32, int(seed[1]) & _M32, counts.data_ptr(),
-        image.data_ptr(), fparams.img_total,
-        torch.cuda.current_stream(device).cuda_stream)
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+        aux.numel(), n, origin.data_ptr(), direction.data_ptr(),
+        wavelength.data_ptr(), mask.data_ptr(), u_ptr, int(seed[0]) & _M32,
+        int(seed[1]) & _M32, counts.data_ptr(), image.data_ptr(), fparams.img_total,
+        int(fparams.cheb), torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_trace_only")
     fused_trace_run_cuda.launches += 1
     return counts, image

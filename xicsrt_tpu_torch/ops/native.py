@@ -41,23 +41,25 @@ _SIGNATURES = {
         ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
     ],
     "xrt_fused_trace": [
-        _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
-        ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P,
     ],
     "xrt_trace_only": [
-        _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
-        _P, ctypes.c_uint, ctypes.c_uint, _P, _P, ctypes.c_int, _P,
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+        _P, _P, _P, _P, _P, ctypes.c_uint, ctypes.c_uint, _P, _P, ctypes.c_int,
+        ctypes.c_int, _P,
     ],
     "xrt_bundle_gather": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P],
     "xrt_fused_grad_fwd": [
-        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, ctypes.c_int, _P,
     ],
     "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
     "xrt_fused_grad_bwd": [
-        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
     ],

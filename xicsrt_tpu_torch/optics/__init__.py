@@ -7,4 +7,5 @@ from xicsrt_tpu_torch.optics.interactions import (  # noqa: F401
     InteractMirror,
     InteractNone,
 )
+from xicsrt_tpu_torch.optics.mesh_shapes import ShapeMesh  # noqa: F401
 from xicsrt_tpu_torch.optics.shapes import ShapePlane, ShapeSphere, ShapeTorus  # noqa: F401

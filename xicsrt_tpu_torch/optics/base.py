@@ -59,10 +59,8 @@ class TraceElement(GeometryElement):
         else:
             self.param["enable_image"] = False
         self.aperture_spec = normalize_aperture_spec(self.param.get("aperture"))
-        filters = self.param.get("filters")
-        if filters is not None and len(filters):
-            raise NotImplementedError(
-                f'Optic "{self.name}": optic filters are not ported yet.')
+        # An optic's ``filters`` list is accepted and unused, as in the JAX
+        # package, which wires only the source's filters.
 
     @property
     def enable_image(self) -> bool:

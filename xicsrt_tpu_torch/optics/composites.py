@@ -1,7 +1,8 @@
 """Ready-made optics: Shape x Interact compositions
 (``xicsrt_tpu/optics/composites.py``), registered under the reference
-``class_name``. Ported: every composite of a plane, a sphere, a cylinder or
-a torus with no interaction, a mirror or a crystal."""
+``class_name``. Ported: every composite of a plane, a sphere, a cylinder, a
+torus or a mesh with no interaction, a mirror or a crystal (the mosaic
+composites wait for the mosaic crystal)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,12 @@ from xicsrt_tpu_torch.optics.interactions import (
     InteractCrystal,
     InteractMirror,
     InteractNone,
+)
+from xicsrt_tpu_torch.optics.mesh_shapes import (
+    ShapeMesh,
+    ShapeMeshCylinder,
+    ShapeMeshSphere,
+    ShapeMeshTorus,
 )
 from xicsrt_tpu_torch.optics.shapes import (
     ShapeCylinder,
@@ -70,4 +77,29 @@ class OpticToroidalCrystal(InteractCrystal, ShapeTorus):
 
 @register("XicsrtOpticToroidalMirror", "toroidal_mirror")
 class OpticToroidalMirror(InteractMirror, ShapeTorus):
+    pass
+
+
+@register("XicsrtOpticMeshMirror", "mesh_mirror")
+class OpticMeshMirror(InteractMirror, ShapeMesh):
+    pass
+
+
+@register("XicsrtOpticMeshCrystal", "mesh_crystal")
+class OpticMeshCrystal(InteractCrystal, ShapeMesh):
+    pass
+
+
+@register("XicsrtOpticMeshSphericalCrystal", "mesh_spherical_crystal")
+class OpticMeshSphericalCrystal(InteractCrystal, ShapeMeshSphere):
+    pass
+
+
+@register("XicsrtOpticMeshCylindricalCrystal", "mesh_cylindrical_crystal")
+class OpticMeshCylindricalCrystal(InteractCrystal, ShapeMeshCylinder):
+    pass
+
+
+@register("XicsrtOpticMeshToroidalCrystal", "mesh_toroidal_crystal")
+class OpticMeshToroidalCrystal(InteractCrystal, ShapeMeshTorus):
     pass

@@ -1,11 +1,11 @@
 """Interaction mixins (``xicsrt_tpu/optics/interactions.py``).
 
 Ported: pass-through, specular mirror (``_InteractMirror.py:29-42``) and the
-Bragg crystal with gaussian or step rocking curves and Bernoulli (``mc``)
-acceptance (``mc``) or ray weighting (``weight``, the differentiable mode of
-``xicsrt_tpu/optics/interactions.py:178-189``) (``_InteractCrystal.py:90-196``).
-The Bragg angle is the true ``arcsin``, as the JAX XLA engine computes it.
-File rocking curves and mosaic crystals are not ported yet.
+Bragg crystal with gaussian, step or tabulated (``file``) rocking curves and
+Bernoulli (``mc``) acceptance or ray weighting (``weight``, the
+differentiable mode of ``xicsrt_tpu/optics/interactions.py:178-189``)
+(``_InteractCrystal.py:90-196``). The Bragg angle is the true ``arcsin``, as
+the JAX XLA engine computes it. Mosaic crystals are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import math
 import torch
 
 from xicsrt_tpu_torch.ops import vector as vec
+from xicsrt_tpu_torch.ops.voigt import interp
 from xicsrt_tpu_torch.optics.base import TraceElement
 from xicsrt_tpu_torch.rays import Rays
+from xicsrt_tpu_torch.utils import bragg_files
 
 _FWHM_TO_SIGMA = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
 
@@ -38,15 +40,17 @@ class InteractMirror(TraceElement):
 
 
 class InteractCrystal(InteractMirror):
-    """Bragg-reflecting crystal with step or gaussian rocking curves."""
+    """Bragg-reflecting crystal with step, gaussian or file rocking curves."""
 
     def default_config(self) -> dict:
         """
         crystal_spacing: nominal 'd' plane spacing [Angstrom] (not '2d').
         reflectivity: scalar probability multiplier.
         check_bragg: if False, acts as a perfect mirror.
-        rocking_type: 'step' | 'gaussian' ('file' is not ported yet).
-        rocking_fwhm: curve width [rad].
+        rocking_type: 'step' | 'gaussian' | 'file'.
+        rocking_fwhm: curve width [rad] for step/gaussian.
+        rocking_file / rocking_filetype: tabulated curve ('xop' or 'simple').
+        rocking_mix: sigma/pi mixing factor: p = mix*sigma + (1-mix)*pi.
         """
         config = super().default_config()
         config["crystal_spacing"] = 0.0
@@ -62,12 +66,15 @@ class InteractCrystal(InteractMirror):
     def initialize(self):
         super().initialize()
         self.param["rocking_type"] = str(self.param["rocking_type"]).lower()
+        self.rocking_table = None
+        if self.param["rocking_type"] == "file":
+            self.rocking_table = bragg_files.read(
+                self.param["rocking_file"], self.param["rocking_filetype"])
         if not self.param["check_bragg"]:
             return
-        if self.param["rocking_type"] not in ("step", "gaussian"):
-            raise NotImplementedError(
-                f'Optic "{self.name}": rocking_type '
-                f'{self.param["rocking_type"]!r} is not ported yet.')
+        if self.param["rocking_type"] not in ("step", "gaussian", "file"):
+            raise ValueError(
+                f"Rocking curve type not understood: {self.param['rocking_type']}")
         if self.interact_mode not in ("mc", "weight"):
             raise ValueError(f"Unknown interact_mode: {self.interact_mode}")
 
@@ -77,13 +84,19 @@ class InteractCrystal(InteractMirror):
         params["reflectivity"] = self.as_tensor(self.param["reflectivity"])
         if not self.param["check_bragg"]:
             return params
-        fwhm = self.param["rocking_fwhm"]
-        if fwhm is None:
-            raise ValueError(
-                f'Optic "{self.name}": rocking_fwhm required for '
-                f'rocking_type={self.param["rocking_type"]}.'
-            )
-        params["rocking_fwhm"] = self.as_tensor(fwhm)
+        if self.param["rocking_type"] in ("step", "gaussian"):
+            fwhm = self.param["rocking_fwhm"]
+            if fwhm is None:
+                raise ValueError(
+                    f'Optic "{self.name}": rocking_fwhm required for '
+                    f'rocking_type={self.param["rocking_type"]}.'
+                )
+            params["rocking_fwhm"] = self.as_tensor(fwhm)
+        if self.rocking_table is not None:
+            params["rocking_dtheta"] = self.as_tensor(self.rocking_table["dtheta"])
+            params["rocking_sigma"] = self.as_tensor(self.rocking_table["reflect_s"])
+            params["rocking_pi"] = self.as_tensor(self.rocking_table["reflect_p"])
+            params["rocking_mix"] = self.as_tensor(self.param["rocking_mix"])
         return params
 
     def reflection_probability(self, params, delta):
@@ -91,6 +104,11 @@ class InteractCrystal(InteractMirror):
         if self.param["rocking_type"] == "step":
             p = torch.where(torch.abs(delta) <= params["rocking_fwhm"] / 2.0,
                             1.0, 0.0).to(delta.dtype)
+        elif self.param["rocking_type"] == "file":  # _InteractCrystal.py:151-181
+            s = interp(delta, params["rocking_dtheta"], params["rocking_sigma"])
+            pi = interp(delta, params["rocking_dtheta"], params["rocking_pi"])
+            mix = params["rocking_mix"]
+            p = mix * s + (1.0 - mix) * pi
         else:
             sigma = params["rocking_fwhm"] * _FWHM_TO_SIGMA
             p = torch.exp(-0.5 * (delta / sigma) ** 2)
