@@ -3,17 +3,16 @@
 Run from the repository root: ``python3 chip_ab.py [--parent DIR]``.
 
 It copies this checkout (without ``.git`` and what ``.gitignore`` lists)
-under ``build/chip_ab/`` (git-ignored), once for each layout of the fused
-trace chain's template (``xicsrt_tpu_torch/csrc/trace_chain.cuh``):
+under ``build/chip_ab/`` (git-ignored), once for each layout of the kernels'
+templates:
 
-- ``cheb_only``: the checkout as it is: the mirror and file-curve stages
-  in every K1 and K3 build, only the Chebyshev stage behind ``kCheb``;
-- ``no_ext``: every stage in every build (both values of ``kCheb`` then
-  compile the same code);
-- ``ext``: the mirror and file-curve stages behind the template too. The
-  host still picks the template's build from the chain's mesh alone, so
-  this layout traces file and mirror chains without their stages: only
-  its K1a and K1c-cheb are timed.
+- ``checkout``: the checkout as it is: K1's and K3's weight and bilinear
+  stages only in their ``kStages`` 1 and 2 builds, the mosaic's only in
+  ``kStages`` 2, the host taking the least a run needs, and K5's mosaic
+  stage only in its ``kMosaic`` variants;
+- ``all_in``: every K1 and K3 run takes its ``kStages`` 2 build and every
+  K5 run its ``kMosaic`` variant, so the flagship runs with those stages
+  compiled in.
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
@@ -23,10 +22,10 @@ own, in the order A B C ... C B A. Each prints ptxas's lines for K1
 number of 256-thread blocks a multiprocessor holds at that register count
 (65536 registers, allocated per warp in units of 256), and the ms per call
 (CUDA events, the least and the median of 5 means of 20 calls) of K1a on
-the flagship at 2^22 rays, of K1c-file, K1c-mirror and K1c-cheb on
-``chip_smoke.py``'s phase 31 chains where the tree has them, and of K5f and
-K5b on phase 22's chains. A tree's process ends with one JSON line of its
-times.
+the flagship at 2^22 rays, of K1c-file, K1c-mirror, K1c-cheb, K1d and
+K1c-mosaic on ``chip_smoke.py``'s chains where the tree has them, and of
+K5f and K5b on the flagship, phase 22's chains and ``mosaic_sphere``. A tree's process
+ends with one JSON line of its times.
 """
 
 from __future__ import annotations
@@ -42,49 +41,47 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 AB_DIR = os.path.join(ROOT, "build", "chip_ab")
-CHAIN = os.path.join("xicsrt_tpu_torch", "csrc", "trace_chain.cuh")
 
-# Lines of the checkout's chain, and what a layout puts in their place.
-CHEB_GUARDS = {
-    "} else if (kCheb && oi[0] == XRT_SHAPE_CHEB) {":
-        "} else if (oi[0] == XRT_SHAPE_CHEB) {",
-    "if (oi[0] != 0 && !(kCheb && oi[0] == XRT_SHAPE_CHEB)) {":
-        "if (oi[0] != 0 && oi[0] != XRT_SHAPE_CHEB) {",
+# Files of the checkout, and what a layout puts in place of their lines.
+ALL_IN = {
+    os.path.join("xicsrt_tpu_torch", "csrc", "fused_trace.cu"):
+        {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
+    os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu"):
+        {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
+    os.path.join("xicsrt_tpu_torch", "ops", "fused_grad.py"):
+        {"| source << 2) + 12 * int(mosaic)": "| source << 2) + 12"},
 }
-MORE_GUARDS = {
-    "} else if (oi[3] != XRT_ROCK_FILE) {": "} else if (!kCheb || oi[3] != XRT_ROCK_FILE) {",
-    "} else if (oi[2] == 2 && mask) {": "} else if (kCheb && oi[2] == 2 && mask) {",
-}
-LAYOUTS = {"cheb_only": {}, "no_ext": CHEB_GUARDS, "ext": MORE_GUARDS}
-# The chains a layout cannot trace as the checkout's host drives it.
-UNTIMED = {"ext": ("K1c-mirror", "K1c-file")}
+LAYOUTS = {"checkout": {}, "all_in": ALL_IN}
 
 
 def make_tree(name: str, edits: dict) -> str:
-    """A copy of the checkout with the chain's lines ``edits`` replaced."""
+    """A copy of the checkout with the lines ``edits`` ({file: {line:
+    replacement}}) replaced."""
     tree = os.path.join(AB_DIR, name)
     shutil.rmtree(tree, ignore_errors=True)
     with open(os.path.join(ROOT, ".gitignore")) as f:
         ignored = [line.strip().rstrip("/") for line in f
                    if line.strip() and not line.startswith("#")]
     shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(".git", *ignored))
-    path = os.path.join(tree, CHAIN)
-    with open(path) as f:
-        src = f.read()
-    for line, new in edits.items():
-        if src.count(line) != 1:
-            raise AssertionError(f"{name}: line not found once: {line}")
-        src = src.replace(line, new)
-    with open(path, "w") as f:
-        f.write(src)
+    for relpath, lines in edits.items():
+        path = os.path.join(tree, relpath)
+        with open(path) as f:
+            src = f.read()
+        for line, new in lines.items():
+            if src.count(line) != 1:
+                raise AssertionError(f"{name}: line not found once in {relpath}: {line}")
+            src = src.replace(line, new)
+        with open(path, "w") as f:
+            f.write(src)
     return tree
 
 
 def child_command(tree: str, mode: str) -> list:
-    """A process that runs :func:`child` on ``tree``, importing that tree's
-    package and ``chip_smoke.py``."""
-    code = (f"import sys; sys.path[:0] = [{tree!r}, {ROOT!r}]; import chip_ab; "
-            f"chip_ab.child({tree!r}, {mode!r})")
+    """A process that runs this file's :func:`child` on ``tree``, importing
+    that tree's package and ``chip_smoke.py``."""
+    here = os.path.abspath(__file__)
+    code = (f"import sys, runpy; sys.path[:0] = [{tree!r}]; "
+            f"runpy.run_path({here!r})['child']({tree!r}, {mode!r})")
     return [sys.executable, "-c", code]
 
 
@@ -145,12 +142,18 @@ def child(tree: str, mode: str) -> None:
             "K1c-mirror": cs.mirror_configs(n, 1, "fused")["flagship_no_check"],
             "K1c-file": cs.file_crystal_config(n, 1, "fused"),
             "K1c-cheb": cs.mesh_config(n, 1, "fused", cls, **kw)})
+    grad_chains = {"flagship": cs.grad_flagship(n, 1), **cs.grad_timing_configs()}
+    if hasattr(cs, "mosaic15_config"):
+        chains.update({
+            "K1d-weight": cs.flagship(n, 1, engine="fused", interact_mode="weight"),
+            "K1d-bilinear": cs.flagship(n, 1, engine="fused", image_mode="bilinear"),
+            "K1c-mosaic mc": cs.mosaic15_config(n, 1, "fused"),
+            "K1c-mosaic weight": cs.mosaic15_config(n, 1, "fused", interact_mode="weight")})
+        grad_chains["mosaic_sphere"] = cs.grad_variant("mosaic_sphere", n)
     for name, cfg in chains.items():
-        if name in UNTIMED.get(label, ()):
-            continue
         fparams = cs.k1_pack(ft, engine.Pipeline(cfg, device="cuda"))
         times[name] = ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)))
-    for name, cfg in cs.grad_timing_configs().items():
+    for name, cfg in grad_chains.items():
         _, _, pack, pipe = make_fused_differentiable(cfg, device="cuda")
         pvec = pack(pipe.params).detach()
         spec = fg.build_fused_diff(pipe, num_iter=1)[3]
@@ -169,6 +172,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another tree to time as it is")
     args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip() or 'unknown'}", flush=True)
     trees = [make_tree(name, edits) for name, edits in LAYOUTS.items()]
     if args.parent:
         trees.insert(0, os.path.abspath(args.parent))

@@ -84,7 +84,28 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``mesh_sphere`` golden on both engines; K1 and K3 with the Chebyshev
     stage against their twins at 2^20 rays, and K3 behind a plasma;
 31. timings per 2^22 rays of K1c-mirror, K1c-file, K1c-cheb and K5f/K5b
-    with a file curve beside K1a, and K1a's ptxas registers.
+    with a file curve beside K1a, and K1a's ptxas registers;
+32. ``mosaic15`` (``tools/bench_scenarios.py``: a spherical mosaic crystal,
+    depth 15, 0.05 deg, 150 urad) in mc mode through ``raytrace`` on
+    ``engine='fused'`` at 2^26 x 4 (K1c-mosaic) and on the eager engine at
+    2^22 x 4: budgets, images summing to counts, the engines within 5
+    binomial sigma, rays/s;
+33. ``mosaic15`` in weight mode on both engines: the crystals' counts
+    within 5 binomial sigma, the weighted detector sums within 5 sigma of
+    each other and of phase 32's mc count;
+34. the flagship in weight mode, with bilinear images and with both
+    (K1d), fused at 2^26 x 4 and eager at 2^22 x 4, with
+    ``tests/test_fused_engine.py:897-942``'s checks;
+35. the reference's ``mosaic`` golden on both engines;
+36. K1 and K3 against their twins in both RNG modes at 2^20 rays on
+    mosaic chains (mc, weight, a cutoff, a file curve, a mesh) and on the
+    weight and bilinear flagship: counts equal, images within the bound of
+    float32 summation order;
+37. K5d: K5f and K5b with the mosaic stage on ``mosaic_sphere`` at 2^22
+    rays against their twins, then ``make_fused_differentiable`` on it;
+38. K3 in weight mode on its own route (an 8e6-bundle plasma, mc against
+    weight), and the timings per 2^22 rays of K1d, K1c-mosaic, K3-weight
+    and K5d beside K1a, with the ptxas registers of their builds.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -101,6 +122,7 @@ and one adjoint per ray, not the kernel's recomputation.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -151,17 +173,32 @@ OPS_PER_RAY = {
     "adjoint": 141, "adjoint_crystal": 41, "adjoint_crystal_file": 37,
     "adjoint_shape": {0: 53, 1: 98, 2: 175, 3: 150},
     "adjoint_plasma": 12,
+    # K1's bilinear splat (xrt_splat): the clip and floor of both
+    # coordinates, two x tents and four corners.
+    "image_bilinear_k1": 50,
+    # A mosaic crystal (xrt_mosaic), counted as a run needs it
+    # (mosaic_work): the cutoff per ray the bounds keep, the crystallite
+    # basis per ray past it; per layer two normals, the crystallite normal,
+    # d.n, the Bragg deviation, the rocking curve and the acceptance test
+    # (mc) or the survival estimator's update (weight); a reflection per
+    # reflected ray.
+    "mosaic": {"cutoff": 19, "setup": 33, "layer_mc": 64, "layer_weight": 69,
+               "reflect": 7},
+    # The same in K5 (grad_mosaic_fwd), and its adjoint: per layer the six
+    # forward-carried sums and their per-unit terms, per ray the scaling,
+    # the pick's routing and the basis's reverse.
+    "mosaic_k5": {"cutoff": 19, "setup": 33, "layer": 67, "reflect": 7,
+                  "adjoint_layer": 44, "adjoint": 158},
 }
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
-HDR_I, OPT_I = 16, 16  # ops/fused_trace.py's packed int layout
-
-
 def optic_structs(fparams) -> list:
     """(shape, interact, apertures, imaged, file rocking, Chebyshev operations)
     of each optic of packed buffers."""
+    from xicsrt_tpu_torch.ops.fused_trace import HDR_I, OPT_I
+
     ip = [int(x) for x in fparams.ip.tolist()]
     out = []
     for e in range(ip[0]):
@@ -192,15 +229,17 @@ def generic_source_ops(fparams) -> int:
 
 
 def chain_k1_ops(fparams) -> int:
-    """K1's and K3's chain: float32 operations per ray (Bernoulli crystals,
-    nearest images)."""
+    """K1's and K3's chain: float32 operations per ray (a crystal's test or
+    weighting, nearest or bilinear images; a mosaic crystal's layers are
+    counted apart, ``mosaic_work``)."""
+    image = OPS_PER_RAY["image_bilinear_k1" if fparams.bilinear else "image_nearest"]
     ops = 0
     for shape, interact, n_ap, imaged, file, cheb in optic_structs(fparams):
         crystal = OPS_PER_RAY["crystal_mc_file" if file else "crystal_mc"]
         ops += (cheb or OPS_PER_RAY["shape_k1"][shape]) + OPS_PER_RAY["bounds"]
         ops += n_ap * OPS_PER_RAY["aperture"]
-        ops += {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"]}[interact]
-        ops += OPS_PER_RAY["image_nearest"] if imaged else 0
+        ops += {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"], 3: 0}[interact]
+        ops += image if imaged else 0
     return ops
 
 
@@ -222,7 +261,7 @@ def k5_ops(static, backward: bool) -> int:
         crystal = OPS_PER_RAY["crystal_weight_file" if file else "crystal_weight"]
         ops += (OPS_PER_RAY["shape_k5"][shape] + OPS_PER_RAY["bounds"]
                 + n_ap * OPS_PER_RAY["aperture"]
-                + {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"]}[interact]
+                + {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"], 3: 0}[interact]
                 + (OPS_PER_RAY["image_bilinear"] if imaged else 0))
         if backward:
             ops += (OPS_PER_RAY["adjoint"] + OPS_PER_RAY["adjoint_shape"][shape]
@@ -1397,10 +1436,10 @@ def source_matrix_config(intensity, num_iter, engine_kind, **general):
 
 
 def k1_pack(ft, pipe):
-    """K1's packed buffers of a pipeline on the card."""
+    """K1's packed buffers of a pipeline on the card, in its run modes."""
     src = ft._source_spec(pipe.source, {f.name: f for f in pipe.filters})
     return ft.pack_params(src, [ft._optic_spec(o) for o in pipe.optics], pipe.params,
-                          "cuda")
+                          "cuda", **ft._chain_modes(pipe.general))
 
 
 def phase_k1b(smi, ft, engine) -> dict:
@@ -1573,9 +1612,11 @@ def phase_source_matrix(ft, engine, raytrace) -> int:
 
 
 def k3_pack(ft, pipe):
-    """K3's packed chain (rays from memory) of a pipeline on the card."""
+    """K3's packed chain (rays from memory) of a pipeline on the card, in its
+    run modes."""
     return ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0},
-                          [ft._optic_spec(o) for o in pipe.optics], pipe.params, "cuda")
+                          [ft._optic_spec(o) for o in pipe.optics], pipe.params, "cuda",
+                          **ft._chain_modes(pipe.general))
 
 
 def eager_rays(pipe, seed):
@@ -1791,7 +1832,7 @@ def mirror_configs(intensity, num_iter, engine_kind) -> dict:
                                "radius_minor": 0.5, "convex": [True, True],
                                "check_bragg": False, "crystal_spacing": 2.45676}}}
     cylinder = variant_config("convex_cylinder_mirror")
-    cylinder["general"].update(general)
+    cylinder["general"].update(general, interact_mode="mc", image_mode="nearest")
     cylinder["sources"]["source"]["intensity"] = intensity
     no_check = flagship(intensity, num_iter, engine=engine_kind)
     no_check["optics"]["crystal"]["check_bragg"] = False
@@ -1864,58 +1905,55 @@ def mesh_golden_config(engine_kind, intensity, num_iter):
     return cfg
 
 
-def mesh_golden_check(result, label, fractions=True):
-    """``tests/test_reference_parity_families.py:123-187`` on the
-    ``mesh_sphere`` golden: acceptance and efficiency within 5 sigma (unless
-    ``fractions`` is False: then they are only printed), superpixel
-    chi2/ndof < 3, centroid within 0.75 px, the width within 8 % (or
-    unresolved where the golden's is)."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                        "mesh_sphere_reference_image.npz")
-    golden = dict(np.load(path))
-    meta = {k: v["num_out"] for k, v in result["total"]["meta"].items()}
-    n_gen, n_ref = meta["source"], float(golden["n_generated"])
-    for elem in ("crystal", "detector"):
-        k, k_ref = meta[elem], float(golden[f"meta_{elem}"])
-        p = (k + k_ref) / (n_gen + n_ref)
-        dev = abs(k / n_gen - k_ref / n_ref) / math.sqrt(p / n_gen + p / n_ref)
-        log(f"{label}: {elem} {k / n_gen:.6g} against the golden's {k_ref / n_ref:.6g} "
-            f"({dev:.2f} sigma{', < 5' if fractions else ''})")
-        if fractions and dev > 5:
-            raise AssertionError(f"{label}: {elem} fraction off the golden")
-    ref = golden["image"].astype(np.float64)
-    img = result["total"]["image"]["detector"].astype(np.float64)
-    R = ref.reshape(10, 10, 5, 10).sum(axis=(1, 3))
-    O = img.reshape(10, 10, 5, 10).sum(axis=(1, 3))
-    scale = R.sum() / O.sum()
-    O = O * scale
-    keep = (R + O) > 50
-    chi2 = float(((O[keep] - R[keep]) ** 2 / (R[keep] + scale * O[keep])).sum() / keep.sum())
-    ys = np.arange(ref.shape[1])
-
-    def moments(prof):
-        prof = prof / prof.sum()
-        mu = (prof * ys).sum()
-        return mu, math.sqrt((prof * (ys - mu) ** 2).sum())
-
-    (mu_r, sd_r), (mu_o, sd_o) = moments(ref.sum(0)), moments(img.sum(0))
-    log(f"{label}: superpixel chi2/ndof {chi2:.3f} on {int(keep.sum())} (< 3), centroid "
-        f"{mu_o:.3f} against {mu_r:.3f} px (< 0.75), width {sd_o:.3f} against {sd_r:.3f} px")
-    width_ok = sd_o < 1.0 if sd_r < 1.0 else abs(sd_o - sd_r) < 0.08 * sd_r
-    if not (keep.sum() > 0 and chi2 < 3.0 and abs(mu_o - mu_r) < 0.75 and width_ok):
-        raise AssertionError(f"{label}: the image is off the golden")
-
-
-def twin_equal(kernel, plain, label) -> float:
+def twin_equal(kernel, plain, label, fparams=None) -> float:
     """Counts and images of a kernel and its twin, equal to the ray. Returns
-    the largest count or pixel difference measured."""
-    (ck, ik), (cp, iq) = kernel, plain
+    the largest count or pixel difference measured.
+
+    In weight mode or with bilinear images (``fparams`` says) a pixel sums
+    float32 terms, equal in kernel and twin, in an order the kernel's
+    atomics choose, so each pixel is held to the bound of that order alone.
+    The twin (``terms=True``, its third output) gives each pixel's number
+    of terms k and the sum S of their magnitudes. A float32 sum of k terms
+    in any order lies within g(k - 1) S of the exact sum, g(j) = j u / (1 -
+    j u), u = 2^-24, so two orders differ by at most 2 g(k - 1) S. The
+    kernels' float ``atomicAdd`` also flushes subnormal inputs and results
+    to zero (PTX ``atom.add.f32``), the twin does not: at most k terms and
+    k - 1 sums, each moving the pixel by less than 2^-126, so the bound
+    adds k 2^-124, twice that, for the rounding of the flushed sums. A
+    pixel of one normal term or none is exact. Counts stay exact."""
+    (ck, ik), (cp, iq, *tally) = kernel, plain
     torch.cuda.synchronize()
-    err = max((ck.double() - cp.double()).abs().max().item(),
-              (ik.double() - iq.double()).abs().max().item())
-    log(f"{label}: kernel counts {ck.tolist()}, twin {cp.tolist()}; image L1 diff "
-        f"{(ik - iq).abs().sum().item():.0f}, largest difference {err} (tolerance 0)")
-    if not (err == 0.0 and torch.equal(ck, cp) and torch.equal(ik, iq)):
+    count_err = (ck.double() - cp.double()).abs().max().item()
+    diff = (ik.double() - iq.double()).abs()
+    err = max(count_err, diff.max().item())
+    summed = fparams is not None and (fparams.weight or fparams.bilinear)
+    if summed:
+        if not tally:
+            raise ValueError(f"{label}: the twin must count its terms (terms=True)")
+        k, mag = tally[0]
+        j = (k - 1.0).clamp_min(0.0) * 2.0**-24
+        bound_pix = 2.0 * j / (1.0 - j) * mag + k * 2.0**-124
+        over = int((diff > bound_pix).sum().item())
+        ratio = diff / bound_pix.clamp_min(1e-300)
+        worst = int(ratio.argmax().item())
+        used = ratio[worst].item() if over == 0 else float("inf")
+        # The earlier whole-run bound, 2 m 2^-24 |pixel| with m four times
+        # the largest element count, printed for comparison only.
+        m = 4 * int(cp[1:].max().item())
+        used_run = (diff / (2.0 * m * 2.0**-24 * iq.double().abs()).clamp_min(1e-30)).max()
+        log(f"{label}: kernel counts {ck.tolist()}, twin {cp.tolist()}; image L1 diff "
+            f"{diff.sum().item():.4g}, largest pixel difference {diff.max().item():.4g}, "
+            f"{used:.3g} of the per-pixel summation-order bound 2 g(k - 1) S + k 2^-124 "
+            f"({over} pixels over it; worst pixel: k = {int(k[worst].item())}, S = "
+            f"{mag[worst].item():.6g}, twin {iq[worst].item():.6g}, difference "
+            f"{diff[worst].item():.4g}); "
+            f"{used_run.item():.3g} of the whole-run bound 2 m 2^-24 |pixel| (m = {m})")
+        ok = count_err == 0.0 and torch.equal(ck, cp) and used <= 1.0
+    else:
+        log(f"{label}: kernel counts {ck.tolist()}, twin {cp.tolist()}; image L1 diff "
+            f"{diff.sum().item():.0f}, largest difference {err} (tolerance 0)")
+        ok = err == 0.0 and torch.equal(ck, cp) and torch.equal(ik, iq)
+    if not ok:
         raise AssertionError(f"{label}: the kernel differs from its twin")
     if cp[-1].item() <= 0:
         raise AssertionError(f"{label}: no rays reach the last element")
@@ -1933,17 +1971,19 @@ def k1_k3_against_twins(ft, engine, cfg, label, seed) -> float:
     err = 0.0
     for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 3)})):
         err = max(err, twin_equal(ft.fused_run_cuda(fparams, n, n, **kwargs),
-                                  ft.fused_run_plain(fparams, n, n, **kwargs),
-                                  f"{label} K1 rng={rng} ({n} rays)"))
+                                  ft.fused_run_plain(fparams, n, n, **kwargs, terms=True),
+                                  f"{label} K1 rng={rng} ({n} rays)", fparams))
     k3p = k3_pack(ft, pipe)
     rays = eager_rays(pipe, seed)
     m = rays.mask.shape[0]
     uniforms = torch.rand((k3p.n_draws, m), generator=gen, device="cuda")
     args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    weight = {"weight": rays.weight} if k3p.weight else {}
     for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 5)})):
-        err = max(err, twin_equal(ft.fused_trace_run_cuda(*args, **kwargs),
-                                  ft.fused_trace_run_plain(*args, **kwargs),
-                                  f"{label} K3 rng={rng} ({m} rays)"))
+        err = max(err, twin_equal(ft.fused_trace_run_cuda(*args, **kwargs, **weight),
+                                  ft.fused_trace_run_plain(*args, **kwargs, **weight,
+                                                           terms=True),
+                                  f"{label} K3 rng={rng} ({m} rays)", k3p))
     return err
 
 
@@ -1970,15 +2010,17 @@ def elements_agree(fused, eager, label, names=("fused", "eager")):
     return metas
 
 
-def k1_timing(ft, fparams, n, smi, label) -> dict:
+def k1_timing(ft, fparams, n, smi, label, phase="31", ops=None) -> dict:
     """K1's ms per ``n`` rays (Philox) on the packed chain, its twin's and
-    its bound."""
+    its bound; ``ops``: the run's float32 operations where they depend on
+    its data (a mosaic's layers), else ``k1_ops`` per ray."""
     ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
     plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 2)
+    ops = k1_ops(fparams) * n if ops is None else ops
     b = bound(packed_bytes(fparams.fp, fparams.ip, fparams.aux) + fparams.img_total * 4
-              + 8 * (1 + fparams.n_optics), k1_ops(fparams) * n)
-    log(f"phase 31 timings on {smi}: {label} {ms:.4f} ms vs twin {plain_ms:.4f} ms "
-        f"({n} rays, Philox); bound {b[0]:.4f} ms ({b[1]}, {k1_ops(fparams)} operations "
+              + 8 * (1 + fparams.n_optics), ops)
+    log(f"phase {phase} timings on {smi}: {label} {ms:.4f} ms vs twin {plain_ms:.4f} ms "
+        f"({n} rays, Philox); bound {b[0]:.4f} ms ({b[1]}, {ops / n:.1f} operations "
         f"per ray)")
     return {"ms": ms, "plain_ms": plain_ms, "bound": b}
 
@@ -2132,8 +2174,9 @@ def phase_meshes(ft, engine, raytrace) -> tuple:
         ft.fused_run_cuda.launches = 0
         result = raytrace(mesh_golden_config(kind, n, iters), device="cuda")
         launches += ft.fused_run_cuda.launches
-        mesh_golden_check(result, f"phase 30 mesh_sphere golden, engine {kind}, {n * iters} rays",
-                          fractions=kind == "xla")
+        golden_check(result, "mesh_sphere",
+                     f"phase 30 mesh_sphere golden, engine {kind}, {n * iters} rays",
+                     fractions=kind == "xla")
         if kind == "fused":
             cfg = mesh_golden_config(kind, n, iters)
             crystal = cfg["optics"]["crystal"]
@@ -2159,17 +2202,472 @@ def phase_meshes(ft, engine, raytrace) -> tuple:
     return launches, err
 
 
-def k1a_registers() -> str:
-    """ptxas's line for K1a's build (the point source, no Chebyshev stage)."""
+# ---------------------------------------------------------------------------
+# Phases 32-38: mosaic crystals (K1c-mosaic, K5d), weight mode and bilinear
+# images (K1d) in K1, K3 and K5.
+# ---------------------------------------------------------------------------
+
+def mosaic15_config(intensity, num_iter, engine_kind, **general):
+    """``tools/bench_scenarios.py``'s ``mosaic15`` (:114-117): the Directed
+    point source (isotropic_xy, 10 deg), a spherical mosaic crystal (R = 1
+    m, 0.05 deg crystallite spread, depth 15, 150 urad gaussian curve) and
+    the flagship's detector. Only its two config functions are read from
+    that file (the script runs the JAX package)."""
+    path = "tools/bench_scenarios.py"
+    crystal = repo_function(path, "_crystal")(
+        class_name="XicsrtOpticSphericalMosaicCrystal", radius=1.0,
+        mosaic_spread=np.radians(0.05), mosaic_depth=15, rocking_fwhm=150e-6)
+    return repo_function(path, "_config")(crystal, intensity, num_iter, engine=engine_kind,
+                                          **general)
+
+
+def mesh_mosaic_config(intensity, num_iter, engine_kind, **general):
+    """A mesh mosaic crystal: the 41 x 41 sphere mesh of phase 30 as explicit
+    local points, faces and normals, under ``mosaic15``'s mosaic."""
+    from xicsrt_tpu_torch import engine
+
+    cls, kw = MESH_CRYSTALS["mesh_sphere"]
+    sphere = engine.Pipeline(mesh_config(16, 1, engine_kind, cls, **kw),
+                             device="cpu").optics[0].param
+    cfg = mosaic15_config(intensity, num_iter, engine_kind, **general)
+    crystal = cfg["optics"]["crystal"]
+    del crystal["radius"]
+    crystal.update(class_name="XicsrtOpticMeshMosaicCrystal",
+                   mesh_points=np.asarray(sphere["mesh_points"]),
+                   mesh_faces=np.asarray(sphere["mesh_faces"]),
+                   mesh_normals=np.asarray(sphere["mesh_normals"]),
+                   mesh_interpolate=True, trace_local=sphere["trace_local"])
+    return cfg
+
+
+def mosaic_golden_config(engine_kind, intensity, num_iter):
+    """``tests/test_reference_parity_families.py``'s ``mosaic`` scenario (its
+    ``_config``), ``intensity`` rays per iteration."""
+    crystal = {"class_name": "XicsrtOpticSphericalMosaicCrystal", "radius": 1.0,
+               "mosaic_spread": np.radians(0.05), "mosaic_depth": 15,
+               "rocking_fwhm": 150e-6}
+    cfg = repo_function("tests/test_reference_parity_families.py", "_config")(
+        crystal, intensity=intensity, num_iter=num_iter)
+    cfg["general"]["engine"] = engine_kind
+    return cfg
+
+
+def timed_raytrace(raytrace, cfg, counter):
+    """One ``raytrace`` on the card with ``counter``'s launches set to 0
+    just before it: (result, seconds, launches)."""
+    counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = raytrace(copy.deepcopy(cfg), device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, counter.launches
+
+
+def metas_of(res):
+    return {k: v["num_out"] for k, v in res["total"]["meta"].items()}
+
+
+def weighted_agree(a, b, label, name="detector"):
+    """Two weighted image sums per generated ray within 5 sigma, each sum's
+    variance taken as the sum itself (the weights are at most 1): the
+    criterion 5 sqrt(sf + sx) of ``tests/test_fused_engine.py:1005-1017``
+    for two budgets. ``a``, ``b``: (weighted sum, rays generated). Returns
+    the distance in sigma."""
+    (sa, na), (sb, nb) = a, b
+    dev = abs(sa / na - sb / nb) / math.sqrt(sa / na**2 + sb / nb**2)
+    log(f"{label}: {name} {sa / na:.6g} against {sb / nb:.6g} per ray ({sa:.6g} of {na}, "
+        f"{sb:.6g} of {nb}); {dev:.2f} sigma (< 5)")
+    if not (dev < 5.0 and sa > 0 and sb > 0):
+        raise AssertionError(f"{label}: the {name} sums disagree")
+    return dev
+
+
+def phase_mosaic15(ft, raytrace) -> dict:
+    """Phases 32-33: ``mosaic15`` through ``raytrace(config,
+    device='cuda')`` on ``engine='fused'`` at 2^26 x 4 rays and on the eager
+    engine at 2^22 x 4, in mc and in weight mode. Each run is made twice:
+    the first builds and warms, the second is checked, timed for its rays/s
+    and counted (K1 once on the fused engine, all four iterations in one
+    launch, and never on the eager one)."""
+    out = {}
+    budgets = {"fused": (1 << 26) * 4, "xla": (1 << 22) * 4}
+    for mode in ("mc", "weight"):
+        phase = 32 if mode == "mc" else 33
+        res = {}
+        for kind, (n, iters) in (("fused", (1 << 26, 4)), ("xla", (1 << 22, 4))):
+            cfg = mosaic15_config(n, iters, kind, interact_mode=mode)
+            timed_raytrace(raytrace, cfg, ft.fused_run_cuda)
+            r, seconds, launches = timed_raytrace(raytrace, cfg, ft.fused_run_cuda)
+            if launches != int(kind == "fused"):
+                raise AssertionError(f"phase {phase}: mosaic15 {mode} on {kind} launched K1 "
+                                     f"{launches} times, not {int(kind == 'fused')}")
+            meta = metas_of(r)
+            if meta["source"] != budgets[kind]:
+                raise AssertionError(f"phase {phase}: {meta['source']} rays, budget "
+                                     f"{budgets[kind]}")
+            for name, img in r["total"]["image"].items():
+                # The source overfills the crystal, so a few of its hits lie
+                # within one float32 rounding of the image's edge, and the
+                # pixel coordinate fma(x, 1/ps, (n - 1) / 2) rounds them
+                # onto the next pixel, off the grid (as in the JAX package):
+                # an image of nearest hits sums to its count but for at most
+                # 1e-6 of it.
+                missing = meta[name] - float(img.astype(np.float64).sum())
+                if not np.isfinite(img).all():
+                    raise AssertionError(f"phase {phase}: image {name} is not finite")
+                if mode == "mc" and not 0 <= missing <= 1e-6 * meta[name]:
+                    raise AssertionError(f"phase {phase}: image {name} sums to "
+                                         f"{meta[name] - missing} for {meta[name]} rays")
+                if mode == "mc" and missing:
+                    log(f"phase {phase} mosaic15 mc engine={kind}: {missing:.0f} of the "
+                        f"{name}'s {meta[name]} rays rounded off the image's edge")
+            log(f"phase {phase} mosaic15 {mode} engine={kind}: {meta}; "
+                f"{budgets[kind] / seconds:.4g} rays/s ({seconds * 1e3:.1f} ms for "
+                f"{budgets[kind]} rays); K1 launches {launches}")
+            res[kind] = (r, meta, launches, budgets[kind] / seconds)
+        metas = [res[k][1] for k in ("fused", "xla")]
+        # In weight mode the crystal keeps every ray its bounds keep, and
+        # the detector's count depends on which rays' picks underflow.
+        for name in ("crystal", "detector") if mode == "mc" else ("crystal",):
+            p = [m[name] / m["source"] for m in metas]
+            pooled = sum(m[name] for m in metas) / sum(m["source"] for m in metas)
+            sigma = math.sqrt(pooled * (1 - pooled) * sum(1 / m["source"] for m in metas))
+            log(f"phase {phase} mosaic15 {mode}: {name} keeps {p[0]:.6g} fused against "
+                f"{p[1]:.6g} eager, {abs(p[0] - p[1]) / sigma:.2f} binomial sigma (< 5)")
+            if abs(p[0] - p[1]) > 5 * sigma or metas[0][name] <= 0:
+                raise AssertionError(f"phase {phase}: the engines disagree on {name}")
+        if mode == "weight":
+            sums = {k: (float(res[k][0]["total"]["image"]["detector"].astype(np.float64).sum()),
+                        budgets[k]) for k in ("fused", "xla")}
+            weighted_agree(sums["fused"], sums["xla"], "phase 33 mosaic15 weight, fused "
+                           "against eager")
+            mc = out["mc"]["fused"]
+            weighted_agree(sums["fused"], (float(mc[1]["detector"]), budgets["fused"]),
+                           "phase 33 mosaic15, weight mode's flux against mc mode's count")
+        out[mode] = res
+    return out
+
+
+def modes_agree(fused, eager, label, weight, bilinear, budgets):
+    """``tests/test_fused_engine.py:897-942`` between the engines: the rays
+    each element keeps within 5 binomial sigma (in weight mode the crystal
+    keeps every ray its bounds keep), the weighted detector sums within 5
+    sigma (``weighted_agree``), each image a two-sample chi-square apart
+    (weights and tents are at most 1, so a pixel's variance is at most its
+    sum, which the chi-square takes: it errs towards agreement), and the
+    mc-mode bilinear detector image, whose spot lies inside the grid,
+    summing to its count but for float32 rounding (1e-5)."""
+    metas = [metas_of(r) for r in (fused, eager)]
+    for name in ("aperture", "crystal", "detector"):
+        p = [m[name] / m["source"] for m in metas]
+        pooled = sum(m[name] for m in metas) / sum(m["source"] for m in metas)
+        sigma = math.sqrt(max(pooled * (1 - pooled), 1e-30) * sum(1 / b for b in budgets))
+        if abs(p[0] - p[1]) > 5 * sigma or metas[0][name] <= 0:
+            raise AssertionError(f"{label}: the engines disagree on {name}")
+    sums = [float(r["total"]["image"]["detector"].astype(np.float64).sum())
+            for r in (fused, eager)]
+    weighted_agree((sums[0], budgets[0]), (sums[1], budgets[1]), label)
+    for name, img in fused["total"]["image"].items():
+        chi2, dof = image_chi2(img, eager["total"]["image"][name])
+        limit = dof + 5 * math.sqrt(2 * dof)
+        log(f"{label}: {name} images, chi2 {chi2:.1f} on {dof} dof (< {limit:.1f})")
+        if dof >= 1 and chi2 > limit:
+            raise AssertionError(f"{label}: the engines' {name} images differ")
+        if bilinear and not weight and name == "detector":
+            total = float(img.astype(np.float64).sum())
+            if abs(total - metas[0][name]) > 1e-5 * metas[0][name]:
+                raise AssertionError(f"{label}: the bilinear {name} image sums "
+                                     f"{total} for {metas[0][name]} rays")
+    return metas, sums
+
+
+WEIGHT_MODES = {"weight": {"interact_mode": "weight"},
+                "bilinear": {"image_mode": "bilinear"},
+                "both": {"interact_mode": "weight", "image_mode": "bilinear"}}
+
+
+def phase_weight_images(ft, raytrace, mc_meta) -> dict:
+    """Phase 34: the flagship in weight mode, with bilinear images, and with
+    both, through ``raytrace`` on ``engine='fused'`` at 2^26 x 4 and on the
+    eager engine at 2^22 x 4; weight mode's flux against phase 5's mc count.
+    The fused run is made twice: the first warms, the second is checked,
+    timed and counted (K1 once). Returns K1's launches per mode."""
+    out = {}
+    budgets = ((1 << 26) * 4, (1 << 22) * 4)
+    for mode, general in WEIGHT_MODES.items():
+        cfg = flagship(1 << 26, 4, engine="fused", **general)
+        timed_raytrace(raytrace, cfg, ft.fused_run_cuda)
+        fused, seconds, launches = timed_raytrace(raytrace, cfg, ft.fused_run_cuda)
+        if launches != 1:
+            raise AssertionError(f"phase 34: the flagship ({mode}) launched K1 {launches} "
+                                 "times, not once")
+        eager = raytrace(flagship(1 << 22, 4, engine="xla", **general), device="cuda")
+        metas, sums = modes_agree(fused, eager, f"phase 34 flagship {mode}",
+                                  "interact_mode" in general, "image_mode" in general,
+                                  budgets)
+        log(f"phase 34 flagship {mode}: fused {metas[0]}, {budgets[0] / seconds:.4g} rays/s "
+            f"({seconds * 1e3:.1f} ms for {budgets[0]} rays); K1 launches {launches}")
+        if "interact_mode" in general:
+            weighted_agree((sums[0], budgets[0]), (float(mc_meta["detector"]), budgets[0]),
+                           f"phase 34 flagship {mode}: weight mode's flux against mc mode's "
+                           "count")
+        out[mode] = launches
+    return out
+
+
+def golden_check(result, name, label, fractions=True):
+    """``tests/test_reference_parity_families.py:123-187`` on the golden
+    ``name`` (``mesh_sphere`` or ``mosaic``): acceptance and efficiency
+    within 5 sigma (unless ``fractions`` is False: then they are only
+    printed), superpixel chi2/ndof < 3, centroid within 0.75 px, the width
+    within its WIDTH_RTOL (8 %, 15 %), or unresolved where the golden's
+    is."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                        f"{name}_reference_image.npz")
+    golden = dict(np.load(path))
+    meta = metas_of(result)
+    n_gen, n_ref = meta["source"], float(golden["n_generated"])
+    for elem in ("crystal", "detector"):
+        k, k_ref = meta[elem], float(golden[f"meta_{elem}"])
+        p = (k + k_ref) / (n_gen + n_ref)
+        dev = abs(k / n_gen - k_ref / n_ref) / math.sqrt(p / n_gen + p / n_ref)
+        log(f"{label}: {elem} {k / n_gen:.6g} against the golden's {k_ref / n_ref:.6g} "
+            f"({dev:.2f} sigma{', < 5' if fractions else ''})")
+        if fractions and dev > 5:
+            raise AssertionError(f"{label}: {elem} fraction off the golden")
+    ref = golden["image"].astype(np.float64)
+    img = result["total"]["image"]["detector"].astype(np.float64)
+    R = ref.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    O = img.reshape(10, 10, 5, 10).sum(axis=(1, 3))
+    scale = R.sum() / O.sum()
+    O = O * scale
+    keep = (R + O) > 50
+    chi2 = float(((O[keep] - R[keep]) ** 2 / (R[keep] + scale * O[keep])).sum() / keep.sum())
+    ys = np.arange(ref.shape[1])
+
+    def moments(prof):
+        prof = prof / prof.sum()
+        mu = (prof * ys).sum()
+        return mu, math.sqrt((prof * (ys - mu) ** 2).sum())
+
+    (mu_r, sd_r), (mu_o, sd_o) = moments(ref.sum(0)), moments(img.sum(0))
+    rtol = {"mesh_sphere": 0.08, "mosaic": 0.15}[name]
+    log(f"{label}: superpixel chi2/ndof {chi2:.3f} on {int(keep.sum())} (< 3), centroid "
+        f"{mu_o:.3f} against {mu_r:.3f} px (< 0.75), width {sd_o:.3f} against {sd_r:.3f} px "
+        f"(within {rtol:.0%})")
+    width_ok = sd_o < 1.0 if sd_r < 1.0 else abs(sd_o - sd_r) < rtol * sd_r
+    if not (keep.sum() > 0 and chi2 < 3.0 and abs(mu_o - mu_r) < 0.75 and width_ok):
+        raise AssertionError(f"{label}: the image is off the golden")
+
+
+def k1d_mosaic_chains(n) -> dict:
+    """Phase 36's chains of ``n`` rays: ``mosaic15`` in mc and weight mode,
+    with a cutoff, with a file rocking curve (mixed 0.6, the 150 urad curve
+    tabulated), on a mesh; the flagship in weight mode, with bilinear
+    images, with both."""
+    chains = {"mosaic15 mc": mosaic15_config(n, 1, "fused"),
+              "mosaic15 weight": mosaic15_config(n, 1, "fused", interact_mode="weight"),
+              "mosaic15 weight bilinear": mosaic15_config(n, 1, "fused", interact_mode="weight",
+                                                          image_mode="bilinear")}
+    for mode in ("mc", "weight"):
+        cut = mosaic15_config(n, 1, "fused", interact_mode=mode)
+        cut["optics"]["crystal"]["mosaic_cutoff"] = 1e-4
+        chains[f"mosaic15 cutoff {mode}"] = cut
+        fc = mosaic15_config(n, 1, "fused", interact_mode=mode)
+        to_file_crystal(fc["optics"]["crystal"], xop_table(150e-6), 0.6)
+        chains[f"mosaic15 file {mode}"] = fc
+    chains["mesh mosaic mc"] = mesh_mosaic_config(n, 1, "fused")
+    chains["mesh mosaic weight"] = mesh_mosaic_config(n, 1, "fused", interact_mode="weight")
+    for mode, general in WEIGHT_MODES.items():
+        chains[f"flagship {mode}"] = flagship(n, 1, engine="fused", **general)
+    return chains
+
+
+def phase_k1d_mosaic_twins(ft, engine) -> dict:
+    """Phase 36: K1 on each chain's own rays and K3 on one eager iteration's,
+    against their twins in both RNG modes at 2^20 rays: counts equal, images
+    within the summation-order bound (``twin_equal``). Returns the largest
+    difference per stage."""
+    err = {"weight": 0.0, "bilinear": 0.0, "mosaic mc": 0.0, "mosaic weight": 0.0,
+           "k3 weight": 0.0}
+    for k, (name, cfg) in enumerate(k1d_mosaic_chains(1 << 20).items()):
+        e = k1_k3_against_twins(ft, engine, cfg, f"phase 36 {name}", 360 + k)
+        weight = "weight" in name or "both" in name
+        if "mosaic" in name:
+            err["mosaic weight" if weight else "mosaic mc"] = max(
+                err["mosaic weight" if weight else "mosaic mc"], e)
+        if weight:
+            err["weight"] = max(err["weight"], e)
+            err["k3 weight"] = max(err["k3 weight"], e)
+        if "bilinear" in name or "both" in name:
+            err["bilinear"] = max(err["bilinear"], e)
+    return err
+
+
+def mosaic_work(ft, fparams, n, weight) -> dict:
+    """What a mosaic chain's run of ``n`` rays (Philox, seed (1, 2)) needs
+    of its mosaic stage, counted by K1 itself: the rays its bounds keep
+    (with the cutoff off), the rays M past its cutoff, the layers it must
+    evaluate and the reflections. In weight mode every ray past the cutoff
+    evaluates all D layers and reflects once; in mc mode a ray evaluates
+    layers until one accepts, so with A(d) the rays accepted within d layers
+    (K1 run at depth d: the draws are keyed by index, so the first d layers
+    are the same) the layers are sum_{l=1..D} (M - A(l - 1)), and A(D)
+    reflect."""
+    e = next(i for i in range(fparams.n_optics)
+             if int(fparams.ip[ft.HDR_I + i * ft.OPT_I + 2]) == ft._INTERACT["mosaic"])
+    io = ft.HDR_I + e * ft.OPT_I
+    depth = int(fparams.ip[io + ft.OI_DEPTH])
+
+    def count(depth_, weighted, cut=True):
+        ip, fp = fparams.ip_host.copy(), fparams.fp.clone()
+        ip[io + ft.OI_DEPTH] = depth_
+        ip[ft.H_WEIGHT] = int(weighted)
+        if not cut:
+            fp[ft.SRC_F + e * ft.OPT_F + ft.O_MOSAIC_CUT] = -1.0
+        fp_ = dataclasses.replace(fparams, fp=fp, ip=torch.as_tensor(ip, device="cuda"),
+                                  ip_host=ip)
+        return int(ft.fused_run_cuda(fp_, n, n, seed=(1, 2))[0][1 + e])
+
+    kept, entering = count(depth, True, cut=False), count(depth, True)
+    if weight:
+        layers, reflected = entering * depth, entering
+    else:
+        accepted = [0] + [count(d, False) for d in range(1, depth + 1)]
+        layers, reflected = sum(entering - a for a in accepted[:-1]), accepted[-1]
+    cut = float(fparams.fp[ft.SRC_F + e * ft.OPT_F + ft.O_MOSAIC_CUT]) >= 0.0
+    return {"kept": kept, "entering": entering, "layers": layers, "reflected": reflected,
+            "depth": depth, "cut": cut}
+
+
+def mosaic_k1_ops(ft, fparams, n, weight) -> tuple:
+    """K1's float32 operations for ``n`` rays of a mosaic chain: every
+    other stage per ray (``k1_ops``), the mosaic's cutoff per ray its
+    bounds keep, its basis per ray past the cutoff, its layers and
+    reflections as the run needs them (``mosaic_work``) and, in weight mode,
+    one weighting per ray past the cutoff. Returns (operations, the
+    work)."""
+    w = mosaic_work(ft, fparams, n, weight)
+    m = OPS_PER_RAY["mosaic"]
+    ops = k1_ops(fparams) * n + w["kept"] * (m["cutoff"] if w["cut"] else 0)
+    ops += w["entering"] * (m["setup"] + (1 if weight else 0))
+    ops += w["layers"] * m["layer_weight" if weight else "layer_mc"]
+    ops += w["reflected"] * m["reflect"]
+    return ops, w
+
+
+def phase_k5d(smi, fg, ft, engine, make_fused_differentiable) -> dict:
+    """Phase 37: K5f and K5b with the mosaic stage (K5d) on
+    ``tests/test_fused_grad.py``'s ``mosaic_sphere`` at 2^22 rays against
+    their float32 (rtol 1e-3, atol 1e-5) and float64 (rtol 2e-2, atol
+    5e-3) twins, both RNG modes; then ``make_fused_differentiable`` on it at
+    2^22 rays (counted around it) and the kernels' times there."""
+    n = 1 << 22
+    worst_f, worst_b = phase_k5_variants(fg, engine, ("mosaic_sphere",), "37", n=n)
+    cfg = grad_variant("mosaic_sphere", n)
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    forward, vjp, pack, pipe = make_fused_differentiable(cfg, device="cuda")
+    pvec = pack(pipe.params).detach()
+    out = forward(pvec, 37)["image"]
+    gvec = vjp(pvec, 37, out)
+    torch.cuda.synchronize()
+    launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    if min(launches) <= 0:
+        raise AssertionError("phase 37: the gradient path did not launch K5f and K5b")
+    if not (all(torch.isfinite(v).all() and v.sum() > 0 for v in out.values())
+            and torch.isfinite(gvec).all() and gvec.abs().max() > 0):
+        raise AssertionError("phase 37: bad images or gradient")
+    crystal = [o.name for o in pipe.optics].index("crystal") * fg.SLOTS_PER_OPTIC
+    log(f"phase 37 mosaic_sphere gradient: d/d(crystal_spacing) {gvec[crystal + 13]:.6g}, "
+        f"d/d(rocking_fwhm) {gvec[crystal + 14]:.6g}, d/d(origin) "
+        f"{gvec[crystal:crystal + 3].tolist()}")
+    _, _, _, spec = fg.build_fused_diff(pipe, num_iter=1)
+    st, lam = spec["static"], spec["lam"]
+    g = torch.randn(st.img_total, device="cuda")
+    f_ms = cuda_ms(lambda: fg.fused_grad_forward_cuda(st, pvec, n, lam, seed=(1, 2)), 20)
+    f_plain = cuda_ms(lambda: fg.fused_grad_forward_plain(st, pvec, n, lam, seed=(1, 2),
+                                                          chunk=n), 2)
+    b_ms = cuda_ms(lambda: fg.fused_grad_vjp_cuda(st, pvec, n, lam, g, seed=(1, 2)), 20)
+    b_plain = cuda_ms(lambda: fg.fused_grad_vjp_plain(st, pvec, n, lam, g, seed=(1, 2),
+                                                      chunk=n), 2)
+    # The rays the mosaic's layers run for: K1 in weight mode on the same
+    # rays (the same sampler and Philox stream), past the cutoff.
+    work = mosaic_work(ft, k1_pack(ft, pipe), n, True)
+    m = OPS_PER_RAY["mosaic_k5"]
+    k5_bytes = packed_bytes(st.fp, st.ip, st.aux, pvec) + st.img_total * 4
+    forward = (work["kept"] * (m["setup"] + (m["cutoff"] if work["cut"] else 0))
+               + work["layers"] * m["layer"] + work["reflected"] * m["reflect"])
+    f_ops = k5_ops(st, False) * n + forward
+    b_ops = (k5_ops(st, True) * n + forward + work["layers"] * m["adjoint_layer"]
+             + work["entering"] * m["adjoint"])
+    f_bound = bound(k5_bytes, f_ops)
+    b_bound = bound(k5_bytes + pvec.numel() * 4, b_ops)
+    log(f"phase 38 timings on {smi}: mosaic_sphere per {n} rays K5f {f_ms:.4f} ms (twin "
+        f"{f_plain:.3f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]}), K5b {b_ms:.4f} ms "
+        f"(twin {b_plain:.3f} ms, bound {b_bound[0]:.4f} ms by {b_bound[1]}); "
+        f"{work['entering']} rays through {work['depth']} layers; launches K5f "
+        f"{launches[0]}, K5b {launches[1]}")
+    return {"f_launches": launches[0], "b_launches": launches[1], "f_err": worst_f,
+            "b_err": worst_b, "f_ms": f_ms, "f_plain": f_plain, "b_ms": b_ms,
+            "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
+
+
+def phase_k3_weight(smi, ft, engine, raytrace) -> dict:
+    """K3 in weight mode on its own route: ``plasma_torus`` with 8e6
+    bundles (past K1's 2^22) at 2^22 expected photons, in mc and in weight
+    mode on ``engine='fused'`` (K3 counted around the weight run): the
+    photons within 5 sigma of the expectation, weight mode's detected flux
+    against mc mode's count (5 sigma); then K3 with the rays' weights on
+    the flagship's 2^22 eager rays in weight mode, its time."""
+    res = {}
+    for mode in ("mc", "weight"):
+        cfg = plasma_config(1 << 22, 1, bundle_count=8_000_000, engine="fused",
+                            interact_mode=mode)
+        cfg["sources"]["plasma"]["max_bundles"] = int(1e7)
+        r, seconds, launches = timed_raytrace(raytrace, cfg, ft.fused_trace_run_cuda)
+        meta = metas_of(r)
+        expected = expected_photons(cfg)
+        if abs(meta["plasma"] - expected) > 5 * math.sqrt(expected) or launches <= 0:
+            raise AssertionError(f"phase 38 K3 {mode}: {meta['plasma']} photons, expected "
+                                 f"{expected:.6g}; K3 launches {launches}")
+        res[mode] = (r, meta, launches)
+        log(f"phase 38 plasma_torus, 8e6 bundles, {mode} on K3: {meta}; K3 launches "
+            f"{launches}")
+    weighted_agree((float(res["weight"][0]["total"]["image"]["detector"].astype(np.float64).sum()),
+                    res["weight"][1]["plasma"]),
+                   (float(res["mc"][1]["detector"]), res["mc"][1]["plasma"]),
+                   "phase 38 plasma_torus on K3, weight mode's flux against mc mode's count")
+    n = 1 << 22
+    pipe = engine.Pipeline(flagship(n, 1, engine="fused", interact_mode="weight"),
+                           device="cuda")
+    k3p = k3_pack(ft, pipe)
+    rays = eager_rays(pipe, 38)
+    args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    kw = {"seed": (1, 2), "weight": rays.weight}
+    ms = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: ft.fused_trace_run_plain(*args, **kw), 3)
+    b = bound(33 * n + packed_bytes(k3p.fp, k3p.ip) + k3p.img_total * 4
+              + 8 * (1 + k3p.n_optics), chain_k1_ops(k3p) * n)
+    log(f"phase 38 timings on {smi}: K3 weight mode {ms:.4f} ms vs twin {plain_ms:.4f} ms "
+        f"(the flagship's {n} eager rays and their weights, Philox); bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    return {"launches": res["weight"][2], "ms": ms, "plain_ms": plain_ms, "bound": b}
+
+
+def ptxas_registers(pattern: str) -> str:
+    """ptxas's register line of the kernel whose mangled name holds
+    ``pattern`` (K1a's build: ``fused_trace_kernelILb0ELb0ELi0E``, the point
+    source with no Chebyshev, weight, bilinear or mosaic stage)."""
     from xicsrt_tpu_torch.ops import native
 
     lines = native.ptxas_report().splitlines()
     for i, line in enumerate(lines):
-        if "fused_trace_kernelILb0ELb0E" in line:
+        if pattern in line:
             for nxt in lines[i + 1:i + 4]:
                 if "registers" in nxt:
-                    return nxt.strip()
-    raise AssertionError("phase 31: no ptxas line for K1a")
+                    return f"{pattern}: {nxt.strip()}"
+    raise AssertionError(f"no ptxas line for {pattern}")
 
 
 def main() -> int:
@@ -2276,6 +2774,20 @@ def main() -> int:
     file_launches, file_err = phase_file(ft, engine, xicsrt_tpu_torch.raytrace)
     k5file = phase_k5_file(smi, fg, engine, make_fused_differentiable)
     mesh_launches, mesh_err = phase_meshes(ft, engine, xicsrt_tpu_torch.raytrace)
+    mosaic15 = phase_mosaic15(ft, xicsrt_tpu_torch.raytrace)
+    k1d_launches = phase_weight_images(ft, xicsrt_tpu_torch.raytrace, fused_meta)
+    for kind, n_g, iters in (("fused", 1 << 22, 4), ("xla", 1 << 20, 4)):
+        result, _, launches = timed_raytrace(xicsrt_tpu_torch.raytrace,
+                                             mosaic_golden_config(kind, n_g, iters),
+                                             ft.fused_run_cuda)
+        if launches != int(kind == "fused"):
+            raise AssertionError(f"phase 35: the mosaic golden's config on {kind} launched "
+                                 f"K1 {launches} times")
+        golden_check(result, "mosaic", f"phase 35 mosaic golden, engine {kind}, "
+                     f"{n_g * iters} rays; K1 launches {launches}")
+    k1d_err = phase_k1d_mosaic_twins(ft, engine)
+    k5d = phase_k5d(smi, fg, ft, engine, make_fused_differentiable)
+    k3w = phase_k3_weight(smi, ft, engine, xicsrt_tpu_torch.raytrace)
 
     # Phase 31: the new stages' times per 2^22 rays, and K1a's beside them.
     n = 1 << 22
@@ -2291,7 +2803,27 @@ def main() -> int:
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
     t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
-    log(f"phase 31 K1a build: {k1a_registers()}")
+    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_kernelILb0ELb0ELi0E')}")
+
+    # Phase 38: this slice's stages per 2^22 rays beside K1a, and the
+    # registers of their builds.
+    t_weight = k1_timing(ft, packed(flagship(n, 1, engine="fused", interact_mode="weight")),
+                         n, smi, "K1d weight mode (the flagship)", "38")
+    t_bilinear = k1_timing(ft, packed(flagship(n, 1, engine="fused", image_mode="bilinear")),
+                           n, smi, "K1d bilinear images (the flagship)", "38")
+    t_mosaic = {}
+    for mode in ("mc", "weight"):
+        fp_m = packed(mosaic15_config(n, 1, "fused", interact_mode=mode))
+        ops, work = mosaic_k1_ops(ft, fp_m, n, mode == "weight")
+        log(f"phase 38 mosaic15 {mode}, {n} rays: {work}")
+        t_mosaic[mode] = k1_timing(ft, fp_m, n, smi, f"K1c-mosaic {mode} (mosaic15)", "38",
+                                   ops)
+    t_k1a_again = k1_timing(ft, fparams, n, smi, "K1a (the flagship), again", "38")
+    for pattern in ("fused_trace_kernelILb0ELb0ELi1E", "fused_trace_kernelILb0ELb0ELi2E",
+                    "trace_only_kernelILb0ELi1E", "trace_only_kernelILb0ELi2E",
+                    "fused_grad_bwd_kernelILb0ELb0ELi0ELb1E",
+                    "fused_grad_bwd_kernelILb0ELb0ELi0ELb0E"):
+        log(f"phase 38 ptxas {ptxas_registers(pattern)}")
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2359,8 +2891,36 @@ def main() -> int:
         row("fused_grad_vjp_cuda file rocking (K5b: K5c-file)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:739 (pallas_call :1921)", k5file["b_launches"],
             k5file["b_err"], k5file["b_ms"], k5file["b_plain"], k5file["b_bound"]),
+        row("fused_run_cuda weight mode (K1d-weight)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1719 and :1007 (kernel :1343, pallas_call :1883)",
+            k1d_launches["weight"], k1d_err["weight"],
+            t_weight["ms"], t_weight["plain_ms"], t_weight["bound"]),
+        row("fused_run_cuda bilinear images (K1d-bilinear)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1163 (kernel :1343, pallas_call :1883)",
+            k1d_launches["bilinear"], k1d_err["bilinear"],
+            t_bilinear["ms"], t_bilinear["plain_ms"], t_bilinear["bound"]),
+        row("fused_run_cuda mosaic mc (K1c-mosaic)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1042 (kernel :1343, pallas_call :1883)",
+            mosaic15["mc"]["fused"][2], k1d_err["mosaic mc"],
+            t_mosaic["mc"]["ms"], t_mosaic["mc"]["plain_ms"], t_mosaic["mc"]["bound"]),
+        row("fused_run_cuda mosaic weight (K1c-mosaic)", trace_cu,
+            "xicsrt_tpu/ops/fused_trace.py:1065 (kernel :1343, pallas_call :1883)",
+            mosaic15["weight"]["fused"][2], k1d_err["mosaic weight"],
+            t_mosaic["weight"]["ms"], t_mosaic["weight"]["plain_ms"],
+            t_mosaic["weight"]["bound"]),
+        row("fused_trace_run_cuda weight mode (K3-weight)",
+            "xicsrt_tpu_torch/csrc/trace_only.cu",
+            "xicsrt_tpu/ops/fused_trace.py:2081 (weights :2054, pallas_call :2156)",
+            k3w["launches"], k1d_err["k3 weight"], k3w["ms"], k3w["plain_ms"], k3w["bound"]),
+        row("fused_grad_forward_cuda mosaic (K5f: K5d)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:1049 (pallas_call :1906)", k5d["f_launches"],
+            k5d["f_err"], k5d["f_ms"], k5d["f_plain"], k5d["f_bound"]),
+        row("fused_grad_vjp_cuda mosaic (K5b: K5d)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:1281 (pallas_call :1921)", k5d["b_launches"],
+            k5d["b_err"], k5d["b_ms"], k5d["b_plain"], k5d["b_bound"]),
     ]
-    log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms")
+    log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms; "
+        f"phase 38 again {t_k1a_again['ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -157,7 +157,7 @@ def test_fused_grad_variants_match_twins(cuda_device, kind):
 def test_fused_cylinder_kernel_matches_twin(cuda_device):
     """K1's cylinder stage against its twin, at most TOL_RAYS apart."""
     cfg = _variant_config("cylinder_crystal")
-    cfg["general"]["engine"] = "fused"
+    cfg["general"].update(engine="fused", interact_mode="mc", image_mode="nearest")
     cfg["sources"]["source"]["intensity"] = 1 << 18
     pipe = Pipeline(cfg, device=cuda_device)
     src = ft._source_spec(pipe.source)
@@ -369,3 +369,54 @@ def test_fused_grad_file_rocking_matches_twins(cuda_device):
     scale = grad_twin.abs().max().item()
     assert scale > 0
     torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("stage", ["flagship weight", "flagship bilinear", "flagship both",
+                                   "mosaic15 mc", "mosaic15 weight"])
+def test_k1d_and_mosaic_stages_match_twins(cuda_device, stage):
+    """K1d (weight mode, bilinear images) and K1c-mosaic (mc, weight): K1 on
+    the chain's own rays and K3 on one eager iteration's (in weight mode
+    with the rays' weights: K3-weight), each against its twin in both RNG
+    modes at 2^16 rays: counts equal, images within the bound of float32
+    summation order (``chip_smoke.twin_equal``)."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    cfg = chip_smoke.k1d_mosaic_chains(1 << 16)[stage]
+    before = (ft.fused_run_cuda.launches, ft.fused_trace_run_cuda.launches)
+    chip_smoke.k1_k3_against_twins(ft, engine, cfg, stage, 71)
+    assert ft.fused_run_cuda.launches == before[0] + 2
+    assert ft.fused_trace_run_cuda.launches == before[1] + 2
+
+
+def test_fused_grad_mosaic_matches_twins(cuda_device):
+    """K5d: K5f and K5b on ``mosaic_sphere`` against the float32 twins with
+    test_fused_grad_kernels_match_twins's bounds, and K5b against the
+    float64 twin at rtol 2e-2 / atol 5e-3 of the largest slot, under
+    Philox."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    pipe = Pipeline(chip_smoke.grad_variant("mosaic_sphere", 1 << 17), device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam, n = spec["static"], spec["lam"], spec["n_total"]
+    assert static.n_draws == 2 + 3 * 6
+    pvec = pack(pipe.params).detach()
+    before = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, seed=(8, 9))
+    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, seed=(8, 9))
+    assert twin.sum().item() > 0
+    assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
+    assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
+    g = torch.randn(static.img_total, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(2))
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(8, 9))
+    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(8, 9))
+    scale = grad_twin.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+    truth = fg.fused_grad_vjp_plain(static, pvec.double(), n, lam, g.double(), seed=(8, 9))
+    torch.testing.assert_close(grad.double(), truth, rtol=2e-2,
+                               atol=5e-3 * truth.abs().max().item())
+    after = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1)

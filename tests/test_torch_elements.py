@@ -164,9 +164,14 @@ def test_not_ported_elements_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         TorchPipeline(cfg, device="cpu")
     cfg = _config()
-    cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticSphericalMosaicCrystal"
+    cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticUnknownCrystal"
     with pytest.raises(KeyError):
         TorchPipeline(cfg, device="cpu")
+    # A mosaic crystal builds (tests/test_torch_mosaic.py).
+    cfg = _config()
+    cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticSphericalMosaicCrystal"
+    crystal = TorchPipeline(cfg, device="cpu").optics[1]
+    assert (crystal.param["mosaic_depth"], crystal.param["mosaic_spread"]) == (15, 0.0)
     # A file rocking curve builds (tests/test_torch_rocking_file.py).
     from tests.test_coverage_extra import _write_xop_file
 

@@ -152,7 +152,7 @@ def test_engine_selection():
     cfg["sources"]["source"]["xsize"] = 0.01  # extended: inside since K1b
     runner, _ = build_runner(cfg, device="cpu")
     assert runner.__qualname__.startswith("build_fused_run")
-    cfg["general"]["image_mode"] = "bilinear"  # outside the subset until K1d
+    cfg["general"]["dtype"] = "float64"  # outside the fused subset
     with pytest.raises(FusedUnsupported):
         xicsrt_tpu_torch.raytrace(cfg, device="cpu")
     cfg["general"]["engine"] = "auto"

@@ -179,13 +179,15 @@ def test_mirror_chains_match_jax_megakernel(change):
 @pytest.mark.parametrize("change", [
     ("optics", "aperture", {"aperture": [{"shape": "triangle",
                                           "vertices": [[0, 0], [1, 0], [0, 1]]}]}),
-    ("general", None, {"image_mode": "bilinear"}),
-    ("general", None, {"interact_mode": "weight"}),
+    ("optics", "crystal", {"crystal_spacing": 1.0}),
+    ("general", None, {"dtype": "float64"}),
 ])
 def test_outside_subset_raises(change):
-    """Outside K1's chain: a triangle aperture, bilinear images and weight
-    mode (K1d). (Boxes and asymmetric isotropic_xy cones are inside since
-    K1b: tests/test_torch_source_matrix.py; mirrors since K1c-mirror.)"""
+    """Outside K1's chain: a triangle aperture, a wavelength outside the
+    crystal's Bragg range and float64. (Boxes and asymmetric isotropic_xy
+    cones are inside since K1b: tests/test_torch_source_matrix.py; mirrors
+    since K1c-mirror; weight mode and bilinear images since K1d:
+    tests/test_torch_weight_images.py.)"""
     tp = TorchPipeline(_changed(change), device="cpu")
     with pytest.raises(ft.FusedUnsupported):
         ft.build_fused_run(tp)

@@ -137,7 +137,7 @@ def _flat(gs, spec, dtype=torch.float32):
 
 # ``tests/test_fused_grad.py``'s variants with curved optics and a plasma.
 VARIANTS = ["torus_crystal", "convex_torus_mirror", "cylinder_crystal",
-            "convex_cylinder_mirror", "plasma_cubic"]
+            "convex_cylinder_mirror", "plasma_cubic", "mosaic_sphere"]
 
 
 def _pair_config(name):
@@ -209,9 +209,11 @@ def test_vjp_twin_matches_jax_kernel_and_truth(pair):
                                     uniforms=pair["U"]).numpy()
     scale = np.abs(truth).max()
     assert scale > 0
-    if "torus" in pair["name"]:
-        # The twin finds the root by K1's Newton form, not JAX's: the two
-        # float32 adjoints are held to each other at the JAX bound below.
+    if "torus" in pair["name"] or "mosaic" in pair["name"]:
+        # The twin finds the root by K1's Newton form, not JAX's, and sums a
+        # mosaic's layers forward, not backward as JAX's adjoint does: the
+        # two float32 adjoints are held to each other at the JAX bound
+        # below.
         np.testing.assert_allclose(ours, ref, rtol=2e-2, atol=5e-3 * scale)
     else:
         np.testing.assert_allclose(ours, ref, rtol=2e-3, atol=2e-5 * scale)
@@ -298,7 +300,8 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
 @pytest.mark.parametrize("change", [
     ("sources", "source", dict(_PLASMA, class_name="XicsrtPlasmaToroidal",
                                major_radius=0.5, minor_radius=0.2)),
-    ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMosaicCrystal"}),
+    ("optics", "crystal", {"class_name": "XicsrtOpticSphericalMosaicCrystal",
+                           "check_bragg": False}),
     ("optics", "crystal", {"check_bragg": False}),
     ("sources", "source", dict(_PLASMA, spread=None, spread_radius=0.05)),
     ("sources", "source", {"use_poisson": True}),
@@ -308,11 +311,12 @@ _PLASMA = {"class_name": "XicsrtPlasmaCubic", "angular_dist": "isotropic",
     ("general", None, {"dtype": "float64"}),
 ])
 def test_outside_subset_raises(change):
-    """Profiled plasmas, mosaic crystals, crystals without their Bragg
+    """Profiled plasmas, mosaic crystals and crystals without their Bragg
     check, spread radii, Poisson budgets, filtered sources and plasmas and
     float64 stay outside K5 (a box source is inside since K5e-generic:
     tests/test_torch_source_matrix.py; file rocking curves since K5c-file:
-    tests/test_torch_rocking_file.py)."""
+    tests/test_torch_rocking_file.py; mosaic crystals since K5d:
+    ``test_k5d_mosaic_sphere``)."""
     section, name, update = change
     cfg = _config()
     (cfg[section] if name is None else cfg[section][name]).update(update)

@@ -139,15 +139,19 @@ def test_plasma_beyond_k1_routes_to_k3():
         assert img.sum() == res["total"]["meta"][name]["num_out"]
 
 
-@pytest.mark.parametrize("general", [{"interact_mode": "weight"},
-                                     {"image_mode": "bilinear"},
-                                     {"dtype": "float64"}])
-def test_k3_takes_k1s_chain_subset(general):
-    """Weight mode, bilinear images and float64 wait for K1d, in K1 and K3
-    together; history needs the megakernel."""
+@pytest.mark.parametrize("general,inside", [({"interact_mode": "weight"}, True),
+                                            ({"image_mode": "bilinear"}, True),
+                                            ({"dtype": "float64"}, False)])
+def test_k3_takes_k1s_chain_subset(general, inside):
+    """K3 takes K1's chain modes: weight mode and bilinear images since K1d
+    (tests/test_torch_weight_images.py), not float64; history needs the
+    megakernel."""
     cfg = _big_plasma()
     cfg["general"].update(general)
-    with pytest.raises(ft.FusedUnsupported):
-        ft.build_fused_trace_run(TorchPipeline(cfg, device="cpu"))
+    if inside:
+        assert callable(ft.build_fused_trace_run(TorchPipeline(cfg, device="cpu")))
+    else:
+        with pytest.raises(ft.FusedUnsupported):
+            ft.build_fused_trace_run(TorchPipeline(cfg, device="cpu"))
     with pytest.raises(ft.FusedUnsupported, match="history"):
         ft.build_fast_run(TorchPipeline(_big_plasma(), device="cpu"), history_slots=8)

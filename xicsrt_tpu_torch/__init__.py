@@ -25,17 +25,19 @@ of ``ops/bundle_gather.py``; plane, sphere, cylinder and torus optics with
 apertures, and triangle meshes (``optics/mesh_shapes.py``: the Mesh,
 MeshSpherical, MeshCylindrical and MeshToroidal crystals and the Mesh
 mirror; the fused kernels trace a smooth mesh by its Chebyshev surrogate);
-no interaction, mirror, and the Bragg crystal with gaussian, step or file
-(``utils/bragg_files.py``) rocking in mc and weight mode; nearest and
-bilinear images; history;
+no interaction, mirror, the Bragg crystal with gaussian, step or file
+(``utils/bragg_files.py``) rocking, and the planar, spherical and mesh
+mosaic crystals, in mc and weight mode on every engine; nearest and
+bilinear images on every engine; history;
 gradients (``gradients.py``): ``make_differentiable`` (eager autograd,
 reaching a plasma's temperature), ``make_fused_differentiable``
 (hand-written CUDA forward and adjoint kernels, ``ops/fused_grad.py``: the
 generic source matrix and constant-profile plasmas, whose emissivity and
 temperature it differentiates; plane, sphere, cylinder and torus optics;
-file rocking curves), ``align`` and ``l2_image_loss``. The rest of the JAX
-package raises ``NotImplementedError`` or ``KeyError``: among it mosaic
-crystals.
+file rocking curves; planar and spherical mosaic crystals), ``align`` and
+``l2_image_loss``. The rest of the JAX package raises
+``NotImplementedError``: IO, the CLI, plugins, sharded runs and the fused
+history reservoirs among it.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401

@@ -6,10 +6,13 @@
 // boxes, every cone, Focused axes, uniform and Voigt wavelengths, Doppler;
 // xrt_sample_source of trace_common.cuh, the sampler K1 runs) and plasmas
 // of constant profiles, plane, sphere, cylinder and torus optics, and no
-// interaction, a mirror or a Bragg crystal with a gaussian, step or file
+// interaction, a mirror, a Bragg crystal with a gaussian, step or file
 // rocking curve (K5c-file: the resampled table read from aux memory, a
 // run-time branch on the rocking code in every variant; its adjoint takes
-// the table segment's slope). One thread carries one ray; a ray's draws are keyed by (seed, ray,
+// the table segment's slope), or a mosaic crystal (K5d, in the variants of
+// kMosaic: the survival estimator with reservoir picks of
+// fused_grad.py:347-363, 1049-1130, and its adjoint, :1281-1400). One
+// thread carries one ray; a ray's draws are keyed by (seed, ray,
 // draw) as in K1 (trace_common.cuh), so K5b regenerates exactly the rays
 // K5f traced.
 //
@@ -42,7 +45,13 @@
 // K5b: for optic i = n-1 .. 0 the ray's forward is recomputed from the
 // source up to optic i (n(n+1)/2 optic evaluations a ray, none stored; a
 // torus upstream repeats its four Newton steps per downstream optic), so
-// every primal lives in registers. The cotangent images are staged in
+// every primal lives in registers. A mosaic crystal's adjoint keeps no
+// per-layer state: the cotangent of layer l's probability is cum_b times
+// prod_{j != l} (1 - p_j), so the forward carries six sums V <- V (1 - p_l)
+// + prod_{j<l} (1 - p_j) X_l (the Bragg chain's per-unit terms X_l: d(d.n_l)
+// times gx_l w_l, gy_l w_l and w_l, d sin_b, d sigma, d reflectivity),
+// which the adjoint scales by cum_b; the last pick's normal and
+// coefficients, kept by the forward, route the direction's adjoint. The cotangent images are staged in
 // shared memory and gathered at the hit's four corners. Each optic's 17
 // slot contributions, and a plasma's 2 source slots, are summed over the
 // warp with shuffles and added by lane 0 to float64 slot sums in shared
@@ -92,6 +101,11 @@ struct OpticLocals {
     float sin_b, cos_b, d_s, refl, sigma, z;
     float file_val, file_slope;                // file rocking curve
     bool mask, step_in, file_in;
+    // mosaic: cum, the six adjoint sums, the last pick's normal, d.n and
+    // (gx w, gy w, w), the crystallite basis and its normalisers
+    float cum, V[6], pnx, pny, pnz, pdot, pgx, pgy, pwn;
+    float o1x, o1y, o1z, o2x, o2y, o2z, inv1, inv2;
+    bool picked;
 };
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -155,17 +169,158 @@ __device__ __forceinline__ void grad_sample_source(const float* fp,
     st.w = fp[30] * P[src_base];
 }
 
+// The rocking curve of the mosaic crystal whose structure is o, oi and
+// whose parameter slots are P at the deviation delta (_rock_fwd,
+// fused_grad.py:690-716): the probability and the locals its adjoint needs.
+// (The crystal's own branch in grad_optic_fwd keeps these lines inline:
+// calling this from there moved ptxas's allocation and cost the torus
+// chain's K5f 8 %, chip_ab.py.)
+__device__ __forceinline__ float grad_rock(const float* o, const int* oi,
+                                          const float* P,
+                                          const float* __restrict__ aux,
+                                          float delta, float& sigma, float& z,
+                                          bool& step_in, float& file_val,
+                                          float& file_slope, bool& file_in) {
+    const float fwhm = P[14], refl = P[15];
+    if (oi[3] == 0) {  // gaussian
+        sigma = fmaxf(fwhm * XRT_SIGMA_PER_FWHM, XRT_EPS);
+        z = delta / sigma;
+        return refl * expf(-0.5f * z * z);
+    }
+    if (oi[3] != XRT_ROCK_FILE) {  // step: hard edges
+        step_in = fabsf(delta) <= fwhm / 2.0f;
+        return step_in ? refl : 0.0f;
+    }
+    // file: the table's value, and its segment's slope in delta (0 on a
+    // node: the tent derivative, sign(0) = 0)
+    float f, kf, t0, t1;
+    file_val = xrt_file_value(aux + oi[XRT_OI_TABLE], oi[XRT_OI_K], o[XRT_O_LO],
+                              o[XRT_O_INV_STEP], delta, &file_in, &f, &kf, &t0, &t1);
+    file_slope = f == kf ? 0.0f : (t1 - t0) * o[XRT_O_INV_STEP];
+    return file_in ? refl * file_val : 0.0f;
+}
+
+// The mosaic crystal's weight-mode forward (ops/fused_grad.py:_mosaic_fwd;
+// JAX fused_grad.py:1049-1130) and the sums its adjoint needs: the cutoff
+// prefilter, the crystallite basis, then oi[XRT_OI_DEPTH] layers of three
+// draws each. A dead ray skips its layers and moves its draw index past
+// them. Returns the survival estimator's total cum; st's direction becomes
+// the last pick's reflection.
+__device__ __forceinline__ float grad_mosaic_fwd(const float* o, const int* oi,
+                                                const float* P,
+                                                const float* __restrict__ aux,
+                                                Draws& draw, RayState& st,
+                                                bool& mask, OpticLocals& L) {
+    const int depth = oi[XRT_OI_DEPTH];
+    const int first = draw.next;
+    const float d0x = st.dx, d0y = st.dy, d0z = st.dz;
+    const float sin_b = L.sin_b, cos_b = L.cos_b;
+    if (o[XRT_O_MCUT] >= 0.0f) {  // a hard mask, zero gradient
+        const float adot0 = fabsf(d0x * L.nx + d0y * L.ny + d0z * L.nz);
+        const float cosi0 = sqrtf(fmaxf(1.0f - adot0 * adot0, XRT_EPS));
+        const float sd0 = adot0 * cos_b - cosi0 * sin_b;
+        mask = mask && fabsf(sd0 + sd0 * sd0 * sd0 * (1.0f / 6.0f)) < o[XRT_O_MCUT];
+    }
+    const float o1rx = L.ny, o1ry = L.nz - L.nx, o1rz = -L.ny;
+    L.inv1 = inv_sqrt(fmaxf(o1rx * o1rx + o1ry * o1ry + o1rz * o1rz, 1e-30f));
+    L.o1x = o1rx * L.inv1;
+    L.o1y = o1ry * L.inv1;
+    L.o1z = o1rz * L.inv1;
+    const float o2rx = L.ny * L.o1z - L.nz * L.o1y;
+    const float o2ry = L.nz * L.o1x - L.nx * L.o1z;
+    const float o2rz = L.nx * L.o1y - L.ny * L.o1x;
+    L.inv2 = inv_sqrt(fmaxf(o2rx * o2rx + o2ry * o2ry + o2rz * o2rz, 1e-30f));
+    L.o2x = o2rx * L.inv2;
+    L.o2y = o2ry * L.inv2;
+    L.o2z = o2rz * L.inv2;
+    float surv = 1.0f, cum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) L.V[k] = 0.0f;
+    L.pnx = L.pny = L.pnz = L.pdot = L.pgx = L.pgy = L.pwn = 0.0f;
+    L.picked = false;
+    const float sigma_n = o[XRT_O_MSIGMA];
+    for (int l = 0; mask && l < depth; ++l) {
+        const float gx = sigma_n * xrt_normal(draw);
+        const float gy = sigma_n * xrt_normal(draw);
+        const float wn = inv_sqrt(1.0f + gx * gx + gy * gy);
+        const float gxw = gx * wn, gyw = gy * wn;
+        const float nmx = gxw * L.o2x + gyw * L.o1x + wn * L.nx;
+        const float nmy = gxw * L.o2y + gyw * L.o1y + wn * L.ny;
+        const float nmz = gxw * L.o2z + gyw * L.o1z + wn * L.nz;
+        const float dotm = d0x * nmx + d0y * nmy + d0z * nmz;
+        const float adot = fabsf(dotm);
+        const float cosi = sqrtf(fmaxf(1.0f - adot * adot, XRT_EPS));
+        const float sd = adot * cos_b - cosi * sin_b;
+        const float delta = sd + sd * sd * sd * (1.0f / 6.0f);
+        float sigma = 0.0f, z = 0.0f, file_val = 0.0f, file_slope = 0.0f;
+        bool step_in = false, file_in = false;
+        const float prob =
+            grad_rock(o, oi, P, aux, delta, sigma, z, step_in, file_val, file_slope, file_in);
+        const float q = prob * surv;
+        const float cum_new = cum + q;
+        const bool pick = draw() * cum_new < q;
+        if (pick) {
+            const float kk = 2.0f * dotm;
+            st.dx = d0x - kk * nmx;
+            st.dy = d0y - kk * nmy;
+            st.dz = d0z - kk * nmz;
+            L.pnx = nmx;
+            L.pny = nmy;
+            L.pnz = nmz;
+            L.pdot = dotm;
+            L.pgx = gxw;
+            L.pgy = gyw;
+            L.pwn = wn;
+            L.picked = true;
+        }
+        // The adjoint's per-unit terms of this layer's probability.
+        float delta_u, sig_u, refl_u;
+        if (oi[3] == 0) {
+            delta_u = prob * (-z / sigma);
+            sig_u = prob * (z * z / sigma);
+            refl_u = prob / fmaxf(P[15], XRT_EPS);
+        } else if (oi[3] != XRT_ROCK_FILE) {
+            delta_u = 0.0f;
+            sig_u = 0.0f;
+            refl_u = step_in ? 1.0f : 0.0f;
+        } else {
+            const float inf_ = file_in ? 1.0f : 0.0f;
+            delta_u = P[15] * file_slope * inf_;
+            sig_u = 0.0f;
+            refl_u = file_val * inf_;
+        }
+        const float sd_u = delta_u * (1.0f + 0.5f * sd * sd);
+        const float adot_u = sd_u * (cos_b + adot / cosi * sin_b);
+        const float sinb_u = sd_u * (-adot * sin_b / cos_b - cosi);
+        const float dot_u = sign_of(dotm) * adot_u;
+        const float keep = 1.0f - prob;
+        L.V[0] = L.V[0] * keep + surv * (gxw * dot_u);
+        L.V[1] = L.V[1] * keep + surv * (gyw * dot_u);
+        L.V[2] = L.V[2] * keep + surv * (wn * dot_u);
+        L.V[3] = L.V[3] * keep + surv * sinb_u;
+        L.V[4] = L.V[4] * keep + surv * sig_u;
+        L.V[5] = L.V[5] * keep + surv * refl_u;
+        surv = surv * keep;
+        cum = cum_new;
+    }
+    draw.next = first + 3 * depth;
+    return cum;
+}
+
 // Weight-mode forward of one optic (ops/fused_grad.py:_optic_fwd).
 // o, oi: the optic's packed structure; P: its 24 parameter slots. kTorus,
-// kCylinder: whether the chain holds such shapes (a chain of planes and
-// spheres compiles without their code and registers).
-template <bool kTorus, bool kCylinder>
+// kCylinder, kMosaic: whether the chain holds such shapes or a mosaic
+// crystal (a chain of planes and spheres with crystals compiles without
+// their code and registers). draw: the ray's draws, a mosaic's three per
+// layer.
+template <bool kTorus, bool kCylinder, bool kMosaic>
 __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
                                                const float* P,
                                                const float* apf,
                                                const int* api,
                                                const float* __restrict__ aux,
-                                               RayState& st, OpticLocals& L) {
+                                               Draws& draw, RayState& st,
+                                               OpticLocals& L) {
     const float ox = P[0], oy = P[1], oz = P[2];
     const float bxx = P[3], bxy = P[4], bxz = P[5];
     const float byx = P[6], byy = P[7], byz = P[8];
@@ -349,6 +504,14 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
         }
         L.w_pre = st.w;
         if (mask) st.w = st.w * L.prob;
+    } else if (kMosaic && oi[2] == XRT_INTERACT_MOSAIC) {  // at the ray's wavelength
+        L.d_s = P[13];
+        L.sin_b = fminf(fmaxf(st.lam / (2.0f * fmaxf(L.d_s, XRT_EPS)), 0.0f),
+                        1.0f);
+        L.cos_b = sqrtf(fmaxf(1.0f - L.sin_b * L.sin_b, XRT_EPS));
+        L.w_pre = st.w;
+        L.cum = grad_mosaic_fwd(o, oi, P, aux, draw, st, mask, L);
+        if (mask) st.w = st.w * L.cum;
     }
     if ((oi[2] == 1 || oi[2] == 2) && mask) {  // reflect
         const float kk = 2.0f * L.dot;
@@ -381,7 +544,7 @@ __device__ __forceinline__ Corners corners(float f, int n) {
 
 constexpr int kThreads = 256;
 
-template <bool kTorus, bool kCylinder, int kSource>
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 __global__ void fused_grad_fwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
@@ -417,8 +580,8 @@ __global__ void fused_grad_fwd_kernel(
             const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
             const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
             OpticLocals L;
-            grad_optic_fwd<kTorus, kCylinder>(o, oi, P + e * XRT_GRAD_SLOTS, apf,
-                                              api, aux, st, L);
+            grad_optic_fwd<kTorus, kCylinder, kMosaic>(o, oi, P + e * XRT_GRAD_SLOTS,
+                                                       apf, api, aux, draw, st, L);
             if (oi[7] >= 0 && L.mask) {
                 const int nx = oi[8], ny = oi[9];
                 const Corners cx = corners(L.lxv * o[23] + o[24], nx);
@@ -463,7 +626,7 @@ __device__ __forceinline__ void warp_add(double* acc, float v, int lane) {
 // The point-source chains with at most one kind of curved optic fit there;
 // left to itself, ptxas took the torus chain's adjoint to 134 registers and
 // one block, at 1.7x the time, so these variants ask for two blocks.
-template <bool kTorus, bool kCylinder, int kSource>
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 __global__ void __launch_bounds__(
     kThreads, kSource == XRT_GRAD_POINT && !(kTorus && kCylinder) ? 2 : 1)
 fused_grad_bwd_kernel(
@@ -522,14 +685,16 @@ fused_grad_bwd_kernel(
             const float* Pi = P + i * XRT_GRAD_SLOTS;
             // Recompute the forward up to optic i, then through it.
             RayState st = src;
+            Draws chain_draw = draw;  // the optics' draws follow the source's
             for (int e = 0; e < i; ++e) {
                 OpticLocals skip;
-                grad_optic_fwd<kTorus, kCylinder>(
+                grad_optic_fwd<kTorus, kCylinder, kMosaic>(
                     fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
-                    P + e * XRT_GRAD_SLOTS, apf, api, aux, st, skip);
+                    P + e * XRT_GRAD_SLOTS, apf, api, aux, chain_draw, st, skip);
             }
             OpticLocals L;
-            grad_optic_fwd<kTorus, kCylinder>(o, oi, Pi, apf, api, aux, st, L);
+            grad_optic_fwd<kTorus, kCylinder, kMosaic>(o, oi, Pi, apf, api, aux,
+                                                       chain_draw, st, L);
             const float bxx = Pi[3], bxy = Pi[4], bxz = Pi[5];
             const float byx = Pi[6], byy = Pi[7], byz = Pi[8];
             const float bzx = Pi[9], bzy = Pi[10], bzz = Pi[11];
@@ -572,6 +737,65 @@ fused_grad_bwd_kernel(
             // ---- interaction: d_post = d_pre - 2 (d_pre . n) n ----------
             float nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
             const float d0x = L.dpx, d0y = L.dpy, d0z = L.dpz;
+            if (kMosaic && oi[2] == XRT_INTERACT_MOSAIC) {
+                // w_post = where(mask, w_pre cum, w_pre); the forward's sums
+                // scaled by cum's cotangent (ops/fused_grad.py:_mosaic_bwd).
+                const float cum_b = mask ? wb * L.w_pre : 0.0f;
+                wb = mask ? wb * L.cum : wb;
+                const float A2 = cum_b * L.V[0], A1 = cum_b * L.V[1];
+                const float An = cum_b * L.V[2], sinb_b = cum_b * L.V[3];
+                a[14] += cum_b * L.V[4] * XRT_SIGMA_PER_FWHM;
+                a[15] += cum_b * L.V[5];
+                // The direction's adjoint goes to the last pick's reflection.
+                const float pf = L.picked ? 1.0f : 0.0f;
+                const float av = dbx * L.pnx + dby * L.pny + dbz * L.pnz;
+                const float pnbx = -2.0f * pf * (av * d0x + L.pdot * dbx);
+                const float pnby = -2.0f * pf * (av * d0y + L.pdot * dby);
+                const float pnbz = -2.0f * pf * (av * d0z + L.pdot * dbz);
+                const float d0bx =
+                    dbx - 2.0f * pf * av * L.pnx + A2 * L.o2x + A1 * L.o1x + An * L.nx;
+                const float d0by =
+                    dby - 2.0f * pf * av * L.pny + A2 * L.o2y + A1 * L.o1y + An * L.ny;
+                const float d0bz =
+                    dbz - 2.0f * pf * av * L.pnz + A2 * L.o2z + A1 * L.o1z + An * L.nz;
+                // nm_l = gx_l w_l o2 + gy_l w_l o1 + w_l n.
+                float o2bx = A2 * d0x + L.pgx * pnbx, o2by = A2 * d0y + L.pgx * pnby,
+                      o2bz = A2 * d0z + L.pgx * pnbz;
+                float o1bx = A1 * d0x + L.pgy * pnbx, o1by = A1 * d0y + L.pgy * pnby,
+                      o1bz = A1 * d0z + L.pgy * pnbz;
+                nbx = An * d0x + L.pwn * pnbx;
+                nby = An * d0y + L.pwn * pnby;
+                nbz = An * d0z + L.pwn * pnbz;
+                // o2 = normalize(n x o1).
+                const float o2d = L.o2x * o2bx + L.o2y * o2by + L.o2z * o2bz;
+                const float o2rbx = L.inv2 * (o2bx - L.o2x * o2d);
+                const float o2rby = L.inv2 * (o2by - L.o2y * o2d);
+                const float o2rbz = L.inv2 * (o2bz - L.o2z * o2d);
+                nbx = nbx + (L.o1y * o2rbz - L.o1z * o2rby);
+                nby = nby + (L.o1z * o2rbx - L.o1x * o2rbz);
+                nbz = nbz + (L.o1x * o2rby - L.o1y * o2rbx);
+                o1bx = o1bx + (o2rby * L.nz - o2rbz * L.ny);
+                o1by = o1by + (o2rbz * L.nx - o2rbx * L.nz);
+                o1bz = o1bz + (o2rbx * L.ny - o2rby * L.nx);
+                // o1 = normalize(ny, nz - nx, -ny).
+                const float o1d = L.o1x * o1bx + L.o1y * o1by + L.o1z * o1bz;
+                const float o1rbx = L.inv1 * (o1bx - L.o1x * o1d);
+                const float o1rby = L.inv1 * (o1by - L.o1y * o1d);
+                const float o1rbz = L.inv1 * (o1bz - L.o1z * o1d);
+                nbx = nbx - o1rby;
+                nby = nby + o1rbx - o1rbz;
+                nbz = nbz + o1rby;
+                const float ds_b =
+                    sinb_b * (-st.lam / (2.0f * fmaxf(L.d_s * L.d_s, XRT_EPS)));
+                const bool inr = L.sin_b > 0.0f && L.sin_b < 1.0f;
+                a[13] += (inr ? ds_b : 0.0f) * mf;
+                if (kSource == XRT_GRAD_PLASMA) {
+                    lamb = lamb + (inr ? sinb_b / (2.0f * fmaxf(L.d_s, XRT_EPS)) : 0.0f) * mf;
+                }
+                dbx = d0bx;
+                dby = d0by;
+                dbz = d0bz;
+            }
             if (oi[2] == 1 || oi[2] == 2) {
                 const float dot = L.dot;
                 const float av = dbx * L.nx + dby * L.ny + dbz * L.nz;
@@ -881,12 +1105,15 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
                            uint32_t, uint32_t, const float*, int, int, double*);
 
 // The kernels built for each variant: bit 0 a torus in the chain, bit 1 a
-// cylinder; bits 2-3 the source (XRT_GRAD_POINT, _PLASMA, _GENERIC).
-#define XRT_GRAD_VARIANTS 12
-#define XRT_GRAD_KERNELS(K)                                                  \
-    {K<false, false, 0>, K<true, false, 0>, K<false, true, 0>, K<true, true, 0>, \
-     K<false, false, 1>, K<true, false, 1>, K<false, true, 1>, K<true, true, 1>, \
-     K<false, false, 2>, K<true, false, 2>, K<false, true, 2>, K<true, true, 2>}
+// cylinder; bits 2-3 the source (XRT_GRAD_POINT, _PLASMA, _GENERIC); plus
+// 12 for a chain with a mosaic crystal.
+#define XRT_GRAD_VARIANTS 24
+#define XRT_GRAD_SOURCES(K, M)                                                  \
+    K<false, false, 0, M>, K<true, false, 0, M>, K<false, true, 0, M>,          \
+        K<true, true, 0, M>, K<false, false, 1, M>, K<true, false, 1, M>,        \
+        K<false, true, 1, M>, K<true, true, 1, M>, K<false, false, 2, M>,        \
+        K<true, false, 2, M>, K<false, true, 2, M>, K<true, true, 2, M>
+#define XRT_GRAD_KERNELS(K) {XRT_GRAD_SOURCES(K, false), XRT_GRAD_SOURCES(K, true)}
 const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_fwd_kernel);
 const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
 
@@ -911,7 +1138,8 @@ size_t bwd_smem(int img_total) {
 // Philox keyed by (seed0, seed1); lam: a point source's wavelength. images:
 // (img_total,) float32, zeroed by the caller. variant: bit 0 a torus in the
 // chain, bit 1 a cylinder, bits 2-3 the source: 0 the point-source cut, 1 a
-// plasma (kind 2), 2 the whole generic sampler. Returns cudaGetLastError().
+// plasma (kind 2), 2 the whole generic sampler; plus 12 for a chain with a
+// mosaic crystal. Returns cudaGetLastError().
 extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
                                   int n_ip, const float* aux, int n_aux,
                                   const float* pvec, int n_slots,

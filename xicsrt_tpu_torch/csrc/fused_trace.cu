@@ -1,7 +1,8 @@
 // Fused generate -> trace -> count -> image kernel for NVIDIA Hopper
 // (sm_90a): K1a (the main spectrometer chain), K1b (the generic source
-// matrix), K1f (the plasma source) and the torus, cylinder, Chebyshev-mesh
-// (K1c-cheb), file rocking (K1c-file) and mirror (K1c-mirror) stages of K1c.
+// matrix), K1f (the plasma source), the torus, cylinder, Chebyshev-mesh
+// (K1c-cheb), file rocking (K1c-file), mirror (K1c-mirror) and mosaic
+// (K1c-mosaic) stages of K1c, and weight mode with bilinear images (K1d).
 //
 // Replaces those cuts of the TPU megakernel
 // xicsrt_tpu/ops/fused_trace.py::build_fused_run (kernel, with the generic
@@ -18,12 +19,14 @@
 // (cum, table) were drawn before the launch; plane, sphere, torus or
 // cylinder optics, and Chebyshev surrogates of smooth meshes, with x/y/z
 // bounds and aperture logic (none/circle/square/rectangle/ellipse; and,
-// not, or, nand, nor, xor, xnor); no interaction, a mirror, or a Bragg
-// crystal with a gaussian, step or tabulated (file) rocking curve and
-// Bernoulli (mc) acceptance, at each ray's own wavelength where the source
-// varies it;
-// per-element counts; nearest-pixel images. The chain is trace_chain.cuh,
-// shared with the trace-only kernel K3 (trace_only.cu).
+// not, or, nand, nor, xor, xnor); no interaction, a mirror, a Bragg
+// crystal with a gaussian, step or tabulated (file) rocking curve, or a
+// mosaic crystal of run-time depth, at each ray's own wavelength where the
+// source varies it; Bernoulli (mc) acceptance, or weight mode, where each
+// ray carries a weight in a register from 1 (fused_trace.py:1719);
+// per-element counts of the rays alive; nearest-pixel or bilinear images of
+// the weights. The chain is trace_chain.cuh, shared with the trace-only
+// kernel K3 (trace_only.cu).
 //
 // Plasma: iteration j holds rays [j n, (j + 1) n) of the budget n; ray
 // j n + l is alive iff l < cum_j[B-1], finds its bundle by binary search
@@ -44,7 +47,8 @@
 // ray's draws do not depend on the launch configuration. Draw order per
 // ray: the source's (generic: one per nonzero box size, the cone's two, 0-2
 // for the wavelength; plasma: 3 voxel offsets, u, v, the normal's uniform,
-// the Cauchy uniform), then one uniform per crystal.
+// the Cauchy uniform), then one uniform per crystal in mc mode and three
+// per layer of a mosaic crystal.
 //
 // Numerics follow the TPU kernel and the plain PyTorch twin operation by
 // operation: the Bragg deviation is the sine-difference identity with a
@@ -60,9 +64,13 @@
 // each an 8-byte load through the read-only cache where the TPU kernel
 // unrolled them as constants), plus the image atomics; a file curve
 // is two cached loads where the TPU kernel ran a tent matvec on its MXU; a plasma ray adds about
-// log2(B) dependent loads of cum and one 32-byte row, served by L2. Counts are reduced per warp with __ballot_sync/__popc into
+// log2(B) dependent loads of cum and one 32-byte row, served by L2; a
+// mosaic crystal two erfinvf, a sqrt and a rocking curve per layer. Counts
+// are reduced per warp with __ballot_sync/__popc into
 // shared counters, images are block-private shared-memory histograms
-// (binning.cuh), both flushed once per block with global atomics.
+// (binning.cuh), a bilinear hit four shared atomics where the TPU kernel
+// contracted tent matrices on its MXU, both flushed once per block with
+// global atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,9 +82,10 @@
 namespace {
 
 // kFull: the generic source's whole sampler (xrt_sample_source), else its
-// point-source cut; a plasma takes neither. kCheb: the chain's mesh stage
+// point-source cut; a plasma takes neither. kCheb: the chain's mesh stage;
+// kStages: its weight and bilinear stages (1), and the mosaic's (2)
 // (trace_chain.cuh).
-template <bool kFull, bool kCheb>
+template <bool kFull, bool kCheb, int kStages>
 __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, long long n_total, long long count,
@@ -136,8 +145,9 @@ __global__ void fused_trace_kernel(
             alive = in_range && r < count && keep;
         }
         xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain<kCheb>(fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl,
-                              per_ray_wl, alive, s_counts, img, lane);
+        xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
+                                     wl, per_ray_wl, alive, 1.0f, s_counts, img,
+                                     lane);
     }
 
     __syncthreads();
@@ -162,7 +172,8 @@ __global__ void fused_trace_kernel(
 // the generic source's whole sampler (a box, a Focused axis, the other cones,
 // per-ray wavelengths or filters), else its point-source cut. aux: n_aux
 // float32 of file tables and Chebyshev terms (never null); cheb: the
-// chain's mesh stage. Returns cudaGetLastError() of the launch.
+// chain's mesh stage; stages: 0, or 1 for its weight and bilinear stages,
+// 2 with the mosaic's too. Returns cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, const float* aux, int n_aux,
                                long long n_total, long long count,
@@ -171,8 +182,9 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
                                float* images, int img_total, int full_source,
-                               int cheb, void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0) {
+                               int cheb, int stages, void* stream) {
+    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+        stages < 0 || stages > 2) {
         return (int)cudaErrorInvalidValue;
     }
     if (cum != nullptr && (n_bundles <= 0 || n_per_iter <= 0 ||
@@ -183,10 +195,15 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    auto kernel = full_source ? (cheb ? fused_trace_kernel<true, true>
-                                      : fused_trace_kernel<true, false>)
-                              : (cheb ? fused_trace_kernel<false, true>
-                                      : fused_trace_kernel<false, false>);
+    using Kernel = decltype(&fused_trace_kernel<false, false, 0>);
+    const Kernel kernels[12] = {
+        fused_trace_kernel<false, false, 0>, fused_trace_kernel<false, false, 1>,
+        fused_trace_kernel<false, false, 2>, fused_trace_kernel<false, true, 0>,
+        fused_trace_kernel<false, true, 1>,  fused_trace_kernel<false, true, 2>,
+        fused_trace_kernel<true, false, 0>,  fused_trace_kernel<true, false, 1>,
+        fused_trace_kernel<true, false, 2>,  fused_trace_kernel<true, true, 0>,
+        fused_trace_kernel<true, true, 1>,   fused_trace_kernel<true, true, 2>};
+    const Kernel kernel = kernels[(full_source ? 6 : 0) + (cheb ? 3 : 0) + stages];
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, threads, smem, n_total);

@@ -22,7 +22,7 @@
 #define XRT_OPT_F 32
 #define XRT_AP_F 4
 #define XRT_FILT_F 8
-#define XRT_HDR_I 16
+#define XRT_HDR_I 18
 #define XRT_OPT_I 16
 #define XRT_AP_I 2
 #define XRT_MAX_FP                                                    \
@@ -50,6 +50,11 @@
 #define XRT_H_CAUCHY 13
 #define XRT_H_VELOCITY 14
 #define XRT_H_PER_RAY_WL 15
+// Header ints 16-17: the run's modes. Weight mode: each ray carries a
+// weight, a crystal multiplies it by its probability and draws nothing, the
+// images add it; bilinear images: each hit splats onto four pixels.
+#define XRT_H_WEIGHT 16
+#define XRT_H_BILINEAR 17
 // Cone kinds (header int 2).
 #define XRT_CONE_ISOTROPIC 0
 #define XRT_CONE_XY 1
@@ -92,6 +97,13 @@
 #define XRT_CHEB_MAX_DEG 12
 #define XRT_SHAPE_CHEB 4
 #define XRT_ROCK_FILE 2
+// A mosaic crystal (interact code 3): its crystallite sigma and cutoff
+// angle (negative without a cutoff) in the torus's floats, which no mosaic
+// composite uses, and its depth in the optic's int 15.
+#define XRT_INTERACT_MOSAIC 3
+#define XRT_O_MSIGMA 29
+#define XRT_O_MCUT 30
+#define XRT_OI_DEPTH 15
 
 // Philox4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,

@@ -1,6 +1,7 @@
 // Trace-only kernel K3 for NVIDIA Hopper (sm_90a): rays generated by the
 // eager engine, read from device memory, traced through the optic chain
-// with per-element counts and nearest-pixel images.
+// with per-element counts and nearest-pixel or bilinear images, in mc or
+// weight mode.
 //
 // Replaces xicsrt_tpu/ops/fused_trace.py::build_fused_trace_run (kernel at
 // :2081, pallas_call :2156), the TPU's route for sources the megakernel
@@ -10,9 +11,12 @@
 // takes its Bragg angle from its own wavelength, as the TPU kernel does.
 //
 // One thread carries one ray: 29 bytes read (origin and direction as
-// (n, 3) float32 rows, wavelength, a one-byte mask), then registers only.
-// Draws: one uniform per crystal, from an explicit (n_draws, n) float32
-// tensor or Philox keyed by (seed, ray, draw), as in K1. What bounds it:
+// (n, 3) float32 rows, wavelength, a one-byte mask), 33 in weight mode,
+// which streams the rays' weights as a ninth array as the TPU kernel does
+// (fused_trace.py:2054-2056), then registers only. Draws: the chain's (one
+// uniform per crystal in mc mode, three per mosaic layer), from an
+// explicit (n_draws, n) float32 tensor or Philox keyed by (seed, ray,
+// draw), as in K1. What bounds it:
 // the chain's arithmetic (the bytes take about a tenth of the time of the
 // flagship chain's operations at the card's rates), plus the image atomics.
 #include <cuda_runtime.h>
@@ -24,13 +28,14 @@
 
 namespace {
 
-template <bool kCheb>
+template <bool kCheb, int kStages>
 __global__ void trace_only_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, long long n,
     const float* __restrict__ origin,
     const float* __restrict__ direction, const float* __restrict__ wavelength,
-    const unsigned char* __restrict__ mask, const float* __restrict__ uniforms,
+    const unsigned char* __restrict__ mask, const float* __restrict__ weight,
+    const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, unsigned long long* __restrict__ counts,
     float* __restrict__ images, int img_total, int use_smem) {
     extern __shared__ float s_img[];
@@ -64,9 +69,11 @@ __global__ void trace_only_kernel(
         const float dx = direction[3 * ray], dy = direction[3 * ray + 1],
                     dz = direction[3 * ray + 2];
         const bool alive = in_range && mask[ray] != 0;
+        const float wt = kStages >= 1 && weight != nullptr ? weight[ray] : 1.0f;
         xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain<kCheb>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
-                              wavelength[ray], true, alive, s_counts, img, lane);
+        xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
+                                     wavelength[ray], true, alive, wt, s_counts,
+                                     img, lane);
     }
 
     __syncthreads();
@@ -82,32 +89,40 @@ __global__ void trace_only_kernel(
 
 // fp/ip: the chain packed by ops/fused_trace.py (source kind 3, rays from
 // memory). n rays: origin and direction (n, 3) float32, wavelength (n,)
-// float32, mask (n,) bytes (0 dead). aux: n_aux float32 of file tables and
-// Chebyshev terms (never null); cheb: the chain's mesh stage. uniforms: (n_draws, n) float32 or null for Philox keyed by
-// (seed0, seed1). counts: (1 + n_optics) uint64 and
-// images: (img_total,) float32, both zeroed by the caller. Returns
-// cudaGetLastError() of the launch.
+// float32, mask (n,) bytes (0 dead), and in weight mode (header int
+// XRT_H_WEIGHT) weight (n,) float32, else null. aux: n_aux float32 of file
+// tables and Chebyshev terms (never null); cheb: the chain's mesh stage;
+// stages: 0, or 1 for its weight and bilinear stages, 2 with the mosaic's
+// too. uniforms: (n_draws, n)
+// float32 or null for Philox keyed by (seed0, seed1). counts: (1 +
+// n_optics) uint64 and images: (img_total,) float32, both zeroed by the
+// caller. Returns cudaGetLastError() of the launch.
 extern "C" int xrt_trace_only(const float* fp, int n_fp, const int* ip,
                               int n_ip, const float* aux, int n_aux, long long n,
                               const float* origin, const float* direction,
                               const float* wavelength, const unsigned char* mask,
-                              const float* uniforms, unsigned int seed0,
-                              unsigned int seed1, unsigned long long* counts,
-                              float* images, int img_total, int cheb,
-                              void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0) {
+                              const float* weight, const float* uniforms,
+                              unsigned int seed0, unsigned int seed1,
+                              unsigned long long* counts, float* images,
+                              int img_total, int cheb, int stages, void* stream) {
+    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+        stages < 0 || stages > 2 || (weight != nullptr && stages == 0)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n <= 0) return (int)cudaSuccess;
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    auto kernel = cheb ? trace_only_kernel<true> : trace_only_kernel<false>;
+    using Kernel = decltype(&trace_only_kernel<false, 0>);
+    const Kernel kernels[6] = {trace_only_kernel<false, 0>, trace_only_kernel<false, 1>,
+                               trace_only_kernel<false, 2>, trace_only_kernel<true, 0>,
+                               trace_only_kernel<true, 1>,  trace_only_kernel<true, 2>};
+    const Kernel kernel = kernels[(cheb ? 3 : 0) + stages];
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, threads, smem, n);
     kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, aux, n, origin, direction, wavelength, mask, uniforms,
-        seed0, seed1, counts, images, img_total, use_smem);
+        fp, n_fp, ip, n_ip, aux, n, origin, direction, wavelength, mask, weight,
+        uniforms, seed0, seed1, counts, images, img_total, use_smem);
     return (int)cudaGetLastError();
 }

@@ -32,7 +32,11 @@ copies and differentiated through one Newton correction, the
 implicit-function adjoint) with x/y/z bounds and apertures as hard edges;
 no interaction, mirror, or crystal with gaussian, step or file rocking (the
 resampled table of K1, differentiated through its argument: the slope of
-its linear segment; K5c-file); bilinear images on any optic; float32.
+its linear segment; K5c-file); planar and spherical mosaic crystals by the
+survival estimator with reservoir picks (K5d; the picks are hard edges, as
+in ``jax.grad`` of the XLA estimator, and the adjoint's per-layer sums run
+forward with the layers, so nothing is stored per layer); bilinear images
+on any optic; float32.
 
 On CPU tensors the wrappers run the plain PyTorch twins
 (:func:`fused_grad_forward_plain`, :func:`fused_grad_vjp_plain`), which
@@ -74,8 +78,9 @@ def _round_up(n: int, m: int) -> int:
 
 def check_config(config: dict) -> None:
     """Raise ``FusedGradUnsupported`` for element classes and rocking curves
-    outside the subset before a pipeline is built (mosaic optics and
-    profiled plasmas are not in the kernels; meshes raise at the build)."""
+    outside the subset before a pipeline is built (profiled plasmas are not
+    in the kernels; meshes, the mesh mosaic crystal too, raise at the
+    build)."""
     from xicsrt_tpu_torch.dispatch import lookup
     from xicsrt_tpu_torch.sources.plasma import PlasmaCubic, PlasmaGeneric
 
@@ -172,9 +177,10 @@ def _grad_plasma_spec(source) -> dict:
 
 
 def _grad_optic_spec(optic) -> dict:
-    """The K1 optic spec of an analytic shape (``fused_grad.py:294-406``):
-    meshes and crystals without their Bragg check stay outside K5, as in
-    JAX."""
+    """The K1 optic spec of an analytic shape (``fused_grad.py:294-406``),
+    packed in weight mode: a crystal draws nothing, a mosaic crystal (plane
+    or sphere, ``fused_grad.py:322-324``) three uniforms per layer. Meshes and
+    crystals without their Bragg check stay outside K5, as in JAX."""
     from xicsrt_tpu_torch.optics.mesh_shapes import ShapeMesh
 
     if isinstance(optic, ShapeMesh):
@@ -182,11 +188,9 @@ def _grad_optic_spec(optic) -> dict:
     if not optic.param.get("check_bragg", True):
         raise FusedGradUnsupported("check_bragg=False crystal")
     try:
-        spec = ft._optic_spec(optic)
+        return ft._optic_spec(optic)
     except ft.FusedUnsupported as err:
         raise FusedGradUnsupported(str(err)) from None
-    spec["n_draws"] = 0  # weight mode: a crystal draws no uniform
-    return spec
 
 
 def _is_plasma(pipeline) -> bool:
@@ -272,11 +276,150 @@ def file_slope_plain(T, inv_step: float, f, k):
     return torch.where(f == k, 0.0, (t1 - t0) * inv_step)
 
 
-def _optic_fwd(F, I, aux, e, P, lam, state):
+def _rock_fwd(o, oi, aux, P, b, delta):
+    """The rocking curve at ``delta`` (``_rock_fwd``, ``fused_grad.py:
+    690-716``): (prob, the locals its adjoint needs)."""
+    fwhm, refl = P[b + 14], P[b + 15]
+    if oi[3] == 0:  # gaussian
+        sigma = torch.clamp_min(fwhm * _SIGMA_PER_FWHM, _EPS)
+        z = delta / sigma
+        return refl * torch.exp(-0.5 * z * z), {"sigma": sigma, "z": z, "refl": refl}
+    if oi[3] == 1:  # step: hard edges, zero gradient in delta and fwhm
+        inside = torch.abs(delta) <= fwhm / 2.0
+        return torch.where(inside, refl, 0.0), {"step_in": inside, "refl": refl}
+    # file: the static table, its gradient through delta only
+    T = aux[oi[ft.OI_TABLE]:oi[ft.OI_TABLE] + oi[ft.OI_K]]
+    val, inr, f, k = ft.file_value_plain(T, o[ft.O_LO], o[ft.O_INV_STEP], delta)
+    return torch.where(inr, refl * val, 0.0), {
+        "file_val": val, "file_in": inr, "refl": refl,
+        "file_slope": file_slope_plain(T, o[ft.O_INV_STEP], f, k)}
+
+
+def _rock_unit(oi, prob, r, zeros):
+    """The rocking curve's adjoint per unit cotangent of ``prob``
+    (``_rock_bwd``, ``fused_grad.py:719-744``): (d delta, d rocking_fwhm's
+    sigma, d reflectivity)."""
+    if oi[3] == 0:
+        z, sigma = r["z"], r["sigma"]
+        return (prob * (-z / sigma), prob * (z * z / sigma),
+                prob / torch.clamp_min(r["refl"], _EPS))
+    if oi[3] == 1:
+        return zeros, zeros, r["step_in"].to(zeros.dtype)
+    inf_ = r["file_in"].to(zeros.dtype)
+    return r["refl"] * r["file_slope"] * inf_, zeros, r["file_val"] * inf_
+
+
+def _mosaic_fwd(o, oi, aux, P, b, d, n, sin_b, cos_b, mask, draw, s):
+    """The mosaic crystal's weight-mode forward (``fused_grad.py:1049-1130``,
+    the survival estimator with reservoir picks, three draws per layer) and
+    what its adjoint needs, without a per-layer store: with cum = sum_l q_l,
+    q_l = p_l prod_{j<l} (1 - p_j), the cotangent of p_l is cum_b prod_{j !=
+    l} (1 - p_j), so each of the adjoint's six per-layer sums (the Bragg
+    chain's d(d.n_l) times gx_l w_l, gy_l w_l and w_l, and its d sin_b,
+    d sigma and d reflectivity) runs forward as V <- V (1 - p_l) + prod_{j<l}
+    (1 - p_j) X_l, with no division by 1 - p_l. The last pick's normal and
+    coefficients route the direction's adjoint. Returns (direction, mask,
+    cum); the locals go into ``s``."""
+    d0x, d0y, d0z = d
+    nxv, nyv, nzv = n
+    if o[ft.O_MOSAIC_CUT] >= 0.0:  # a hard mask, zero gradient
+        adot0 = torch.abs(d0x * nxv + d0y * nyv + d0z * nzv)
+        cosi0 = torch.sqrt(torch.clamp_min(1.0 - adot0 * adot0, _EPS))
+        sd0 = adot0 * cos_b - cosi0 * sin_b
+        mask = mask & (torch.abs(sd0 + sd0 * sd0 * sd0 * (1.0 / 6.0)) < o[ft.O_MOSAIC_CUT])
+    o1, o2, inv1, inv2 = ft.mosaic_basis_plain(nxv, nyv, nzv)
+    zeros = torch.zeros_like(d0x)
+    surv, cum = zeros + 1.0, zeros
+    cdx, cdy, cdz = d0x, d0y, d0z
+    V = [zeros] * 6
+    pick_nm, pick_dot, pick_c = (zeros, zeros, zeros), zeros, (zeros, zeros, zeros)
+    picked = torch.zeros_like(mask)
+    sigma_n = o[ft.O_MOSAIC_SIGMA]
+    for _ in range(oi[ft.OI_DEPTH]):
+        (nmx, nmy, nmz), gxw, gyw, wn = ft.mosaic_normal_plain(draw, sigma_n, o1, o2, n)
+        dotm = d0x * nmx + d0y * nmy + d0z * nmz
+        adot = torch.abs(dotm)
+        cosi = torch.sqrt(torch.clamp_min(1.0 - adot * adot, _EPS))
+        sd = adot * cos_b - cosi * sin_b
+        delta = sd + sd * sd * sd * (1.0 / 6.0)
+        prob, r = _rock_fwd(o, oi, aux, P, b, delta)
+        q = prob * surv
+        cum_new = cum + q
+        pick = mask & (draw() * cum_new < q)
+        kk = 2.0 * dotm
+        cdx = torch.where(pick, d0x - kk * nmx, cdx)
+        cdy = torch.where(pick, d0y - kk * nmy, cdy)
+        cdz = torch.where(pick, d0z - kk * nmz, cdz)
+        delta_u, sig_u, refl_u = _rock_unit(oi, prob, r, zeros)
+        sd_u = delta_u * (1.0 + 0.5 * sd * sd)
+        adot_u = sd_u * (cos_b + adot / cosi * sin_b)
+        sinb_u = sd_u * (-adot * sin_b / cos_b - cosi)
+        dot_u = torch.sign(dotm) * adot_u
+        keep = 1.0 - prob
+        V = [v * keep + surv * x for v, x in
+             zip(V, (gxw * dot_u, gyw * dot_u, wn * dot_u, sinb_u, sig_u, refl_u))]
+        pick_nm = tuple(torch.where(pick, a, old) for a, old in zip((nmx, nmy, nmz), pick_nm))
+        pick_dot = torch.where(pick, dotm, pick_dot)
+        pick_c = tuple(torch.where(pick, a, old) for a, old in zip((gxw, gyw, wn), pick_c))
+        picked = picked | pick
+        surv = surv * keep
+        cum = cum_new
+    s.update(cum=cum, V=V, pick_nm=pick_nm, pick_dot=pick_dot, pick_c=pick_c,
+             picked=picked, o1=o1, o2=o2, inv1=inv1, inv2=inv2)
+    return (cdx, cdy, cdz), mask, cum
+
+
+def _mosaic_bwd(s, n, d0, db, cum_b):
+    """The mosaic crystal's adjoint from its forward's sums (the reverse of
+    ``fused_grad.py:1281-1400``): returns (d d_pre, d n, d sin_b, d sigma,
+    d reflectivity)."""
+    (nxv, nyv, nzv), (d0x, d0y, d0z), (dbx, dby, dbz) = n, d0, db
+    A2, A1, An, sinb, sig, refl = (cum_b * v for v in s["V"])
+    # The direction's adjoint goes to the last pick's reflection.
+    pnx, pny, pnz = s["pick_nm"]
+    pf = s["picked"].to(cum_b.dtype)
+    a = dbx * pnx + dby * pny + dbz * pnz
+    pnbx = -2.0 * pf * (a * d0x + s["pick_dot"] * dbx)
+    pnby = -2.0 * pf * (a * d0y + s["pick_dot"] * dby)
+    pnbz = -2.0 * pf * (a * d0z + s["pick_dot"] * dbz)
+    gxw, gyw, wn = s["pick_c"]
+    (o1x, o1y, o1z), (o2x, o2y, o2z) = s["o1"], s["o2"]
+    d0bx = dbx - 2.0 * pf * a * pnx + A2 * o2x + A1 * o1x + An * nxv
+    d0by = dby - 2.0 * pf * a * pny + A2 * o2y + A1 * o1y + An * nyv
+    d0bz = dbz - 2.0 * pf * a * pnz + A2 * o2z + A1 * o1z + An * nzv
+    # nm_l = gx_l w_l o2 + gy_l w_l o1 + w_l n, and every layer's dot chain
+    # adds its d(d.n_l) d_pre.
+    o2bx, o2by, o2bz = A2 * d0x + gxw * pnbx, A2 * d0y + gxw * pnby, A2 * d0z + gxw * pnbz
+    o1bx, o1by, o1bz = A1 * d0x + gyw * pnbx, A1 * d0y + gyw * pnby, A1 * d0z + gyw * pnbz
+    nbx, nby, nbz = An * d0x + wn * pnbx, An * d0y + wn * pnby, An * d0z + wn * pnbz
+    # o2 = normalize(n x o1): d o2_raw, then the cross product's two sides.
+    o2d = o2x * o2bx + o2y * o2by + o2z * o2bz
+    o2rbx = s["inv2"] * (o2bx - o2x * o2d)
+    o2rby = s["inv2"] * (o2by - o2y * o2d)
+    o2rbz = s["inv2"] * (o2bz - o2z * o2d)
+    nbx = nbx + (o1y * o2rbz - o1z * o2rby)
+    nby = nby + (o1z * o2rbx - o1x * o2rbz)
+    nbz = nbz + (o1x * o2rby - o1y * o2rbx)
+    o1bx = o1bx + (o2rby * nzv - o2rbz * nyv)
+    o1by = o1by + (o2rbz * nxv - o2rbx * nzv)
+    o1bz = o1bz + (o2rbx * nyv - o2rby * nxv)
+    # o1 = normalize(ny, nz - nx, -ny).
+    o1d = o1x * o1bx + o1y * o1by + o1z * o1bz
+    o1rbx = s["inv1"] * (o1bx - o1x * o1d)
+    o1rby = s["inv1"] * (o1by - o1y * o1d)
+    o1rbz = s["inv1"] * (o1bz - o1z * o1d)
+    nbx = nbx - o1rby
+    nby = nby + o1rbx - o1rbz
+    nbz = nbz + o1rby
+    return (d0bx, d0by, d0bz), (nbx, nby, nbz), sinb, sig, refl
+
+
+def _optic_fwd(F, I, aux, e, P, lam, state, draw=None):
     """Weight-mode forward of optic ``e`` (``_trace_fwd``,
     ``fused_grad.py:747-1158``, for planes, spheres, cylinders and tori with
-    no interaction, a mirror or a crystal; ``aux``: the packed aux buffer,
-    a file curve's table). ``lam``: the wavelength, a 0-d
+    no interaction, a mirror, a crystal or a mosaic crystal; ``aux``: the
+    packed aux buffer, a file curve's table; ``draw``: the ray's draws, a
+    mosaic crystal's three per layer). ``lam``: the wavelength, a 0-d
     tensor or one per ray (a true division, as the kernel's; PyTorch
     multiplies a Python scalar by the reciprocal). ``state``: (px, py, pz,
     dx, dy, dz, w, alive) entering the optic. Returns (state leaving it, the
@@ -390,32 +533,23 @@ def _optic_fwd(F, I, aux, e, P, lam, state):
     if oi[2] in (1, 2):
         dot = dx * nxv + dy * nyv + dz * nzv
         s["dot"] = dot
-    if oi[2] == 1:  # crystal
-        d_s, fwhm, refl = P[b + 13], P[b + 14], P[b + 15]
+    if oi[2] in (1, 3):  # the Bragg angle at the ray's wavelength
+        d_s = P[b + 13]
         sin_b = torch.clamp(lam / (2.0 * torch.clamp_min(d_s, _EPS)), 0.0, 1.0)
         cos_b = torch.sqrt(torch.clamp_min(1.0 - sin_b * sin_b, _EPS))
+        s.update(w_pre=w, sin_b=sin_b, cos_b=cos_b, d_s=d_s, lam=lam)
+    if oi[2] == 1:  # crystal
         adot = torch.abs(dot)
         cosi = torch.sqrt(torch.clamp_min(1.0 - adot * adot, _EPS))
         sd = adot * cos_b - cosi * sin_b
         delta = sd + sd * sd * sd * (1.0 / 6.0)
-        if oi[3] == 0:  # gaussian
-            sigma = torch.clamp_min(fwhm * _SIGMA_PER_FWHM, _EPS)
-            z = delta / sigma
-            prob = refl * torch.exp(-0.5 * z * z)
-            s.update(sigma=sigma, z=z)
-        elif oi[3] == 1:  # step: hard edges, zero gradient in delta and fwhm
-            inside = torch.abs(delta) <= fwhm / 2.0
-            prob = torch.where(inside, refl, 0.0)
-            s["step_in"] = inside
-        else:  # file: the static table, its gradient through delta only
-            T = aux[oi[ft.OI_TABLE]:oi[ft.OI_TABLE] + oi[ft.OI_K]]
-            val, inr, f, k = ft.file_value_plain(T, o[ft.O_LO], o[ft.O_INV_STEP], delta)
-            prob = torch.where(inr, refl * val, 0.0)
-            s.update(file_val=val, file_in=inr,
-                     file_slope=file_slope_plain(T, o[ft.O_INV_STEP], f, k))
-        s.update(adot=adot, cosi=cosi, sd=sd, prob=prob, w_pre=w, sin_b=sin_b,
-                 cos_b=cos_b, d_s=d_s, refl=refl, lam=lam)
+        prob, r = _rock_fwd(o, oi, aux, P, b, delta)
+        s.update(r, adot=adot, cosi=cosi, sd=sd, prob=prob)
         w = torch.where(mask, w * prob, w)
+    elif oi[2] == 3:  # mosaic crystal
+        (dx, dy, dz), mask, cum = _mosaic_fwd(o, oi, aux, P, b, (dx, dy, dz),
+                                              (nxv, nyv, nzv), sin_b, cos_b, mask, draw, s)
+        w = torch.where(mask, w * cum, w)
     if oi[2] in (1, 2):  # crystal or mirror: reflect
         kk = 2.0 * dot
         dx = torch.where(mask, dx - kk * nxv, dx)
@@ -482,6 +616,14 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
 
     # ---- interaction: d_post = d_pre - 2 (d_pre . n) n where mask -------
     nbx = nby = nbz = zeros
+    sinb_b = None
+    if oi[2] == 3:  # mosaic: w_post = where(mask, w_pre cum, w_pre)
+        cum_b = torch.where(mask, wb * s["w_pre"], 0.0)
+        wb = torch.where(mask, wb * s["cum"], wb)
+        (dbx, dby, dbz), (nbx, nby, nbz), sinb_b, sig_b, refl_b = _mosaic_bwd(
+            s, (nxv, nyv, nzv), (d0x, d0y, d0z), (dbx, dby, dbz), cum_b)
+        add_slot(14, sig_b * _SIGMA_PER_FWHM)
+        add_slot(15, refl_b)
     if oi[2] in (1, 2):
         dot = s["dot"]
         a = dbx * nxv + dby * nyv + dbz * nzv
@@ -515,14 +657,6 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
             sd_b = delta_b * (1.0 + 0.5 * sd * sd)
             adot_b = sd_b * (s["cos_b"] + s["adot"] / s["cosi"] * s["sin_b"])
             sinb_b = sd_b * (-s["adot"] * s["sin_b"] / s["cos_b"] - s["cosi"])
-            d_s = s["d_s"]
-            ds_b = sinb_b * (-s["lam"] / (2.0 * torch.clamp_min(d_s * d_s, _EPS)))
-            inr = (s["sin_b"] > 0.0) & (s["sin_b"] < 1.0)
-            add_slot(13, torch.where(inr, ds_b, 0.0) * mf)
-            # sin_b = lam / (2 d_s): the wavelength's adjoint, which a
-            # plasma carries to its temperature slot (fused_grad.py:1268).
-            lamb = lamb + torch.where(
-                inr, sinb_b / (2.0 * torch.clamp_min(d_s, _EPS)), 0.0) * mf
             dot_b = torch.sign(dot) * adot_b * mf
         dbx = dbx + dot_b * nxv
         dby = dby + dot_b * nyv
@@ -530,6 +664,15 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
         nbx = nbx + dot_b * d0x
         nby = nby + dot_b * d0y
         nbz = nbz + dot_b * d0z
+    if sinb_b is not None:  # sin_b = lam / (2 d_s), a crystal's or a mosaic's
+        d_s = s["d_s"]
+        ds_b = sinb_b * (-s["lam"] / (2.0 * torch.clamp_min(d_s * d_s, _EPS)))
+        inr = (s["sin_b"] > 0.0) & (s["sin_b"] < 1.0)
+        add_slot(13, torch.where(inr, ds_b, 0.0) * mf)
+        # The wavelength's adjoint, which a plasma carries to its
+        # temperature slot (fused_grad.py:1268).
+        lamb = lamb + torch.where(
+            inr, sinb_b / (2.0 * torch.clamp_min(d_s, _EPS)), 0.0) * mf
 
     # ---- local coordinates: lx = bx . (q - o), ly = by . (q - o) ---------
     if oi[7] >= 0:
@@ -810,7 +953,7 @@ def fused_grad_forward_plain(static: ft.FusedParams, pvec: torch.Tensor,
                               P.dtype, P.device):
         state, lam_r, _ = _source_state(F, I, P, rays, draw, lam)
         for e in range(I[0]):
-            state, _, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state)
+            state, _, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state, draw)
             if img is not None:
                 parts[e] = parts[e] + _splat(*shapes[e], *img)
     # The images lie in optic order in the flat buffer.
@@ -835,7 +978,7 @@ def fused_grad_vjp_plain(static: ft.FusedParams, pvec: torch.Tensor,
         state, lam_r, aux = _source_state(F, I, P, rays, draw, lam)
         saved, seeds = [], {}
         for e in range(I[0]):
-            state, s, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state)
+            state, s, img = _optic_fwd(F, I, static.aux, e, P, lam_r, state, draw)
             saved.append(s)
             if img is not None:
                 seeds[e] = _seeds(g_flat, *images[e], *img)
@@ -867,11 +1010,13 @@ def n_slots_of(static: ft.FusedParams) -> int:
 def _variant(static: ft.FusedParams) -> int:
     """The kernels' build variant: bit 0 a torus in the chain, bit 1 a
     cylinder; bits 2-3 the source: 0 the point-source cut of the generic
-    sampler, 1 a plasma, 2 the whole generic sampler."""
+    sampler, 1 a plasma, 2 the whole generic sampler; plus 12 for a chain
+    with a mosaic crystal."""
     source = 1 if static.source_kind == 2 else (2 if static.full_source else 0)
+    mosaic = bool(static.interact_mask >> ft._INTERACT["mosaic"] & 1)
     return (int(bool(static.shape_mask & (1 << 2)))
             | int(bool(static.shape_mask & (1 << 3))) << 1
-            | source << 2)
+            | source << 2) + 12 * int(mosaic)
 
 
 def _check_buffers(static: ft.FusedParams, pvec: torch.Tensor, n_total: int,
@@ -1015,7 +1160,8 @@ def build_fused_diff(pipeline, num_iter: int | None = None,
     if not any(o["image"] is not None for o in optics):
         raise FusedGradUnsupported("no imaged optic")
     device = pipeline.device
-    static = ft.pack_params(src, optics, pipeline.params, device)
+    static = ft.pack_params(src, optics, pipeline.params, device, weight=True,
+                            bilinear=True)
     if num_iter is None:
         num_iter = int(g["number_of_iter"])
     n_total = src["n_rays"] * num_iter

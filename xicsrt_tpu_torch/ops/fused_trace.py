@@ -5,8 +5,9 @@ through the optic chain, counts the survivors of each element and bins the
 nearest-pixel images, with all per-ray state in registers. It replaces the
 ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
 chain (K1a), the generic source matrix (K1b), the in-kernel plasma source
-(K1f) and the torus, cylinder, mesh (K1c-cheb), file rocking (K1c-file) and
-mirror (K1c-mirror) stages of K1c. A second kernel, K3
+(K1f), the torus, cylinder, mesh (K1c-cheb), file rocking (K1c-file),
+mirror (K1c-mirror) and mosaic (K1c-mosaic) stages of K1c, and weight mode
+with bilinear images (K1d). A second kernel, K3
 (``csrc/trace_only.cu``, :func:`fused_trace_run_cuda`), traces rays the
 eager engine generated through the same chain (``csrc/trace_chain.cuh``);
 it replaces the TPU's ``build_fused_trace_run``.
@@ -34,12 +35,16 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   Newton steps in the kernel; faceted or rough meshes raise), with x/y/z
   bounds and aperture logic (every logic op; shapes
   none/circle/square/rectangle/ellipse);
-- no interaction, a mirror (or a crystal without its Bragg check), or a
-  Bragg crystal with gaussian, step or file rocking in ``mc`` mode, with
+- no interaction, a mirror (or a crystal without its Bragg check), a
+  Bragg crystal with gaussian, step or file rocking, or a mosaic crystal
+  of any depth (its layers a run-time loop) with an optional cutoff, with
   per-ray Bragg angles where the source varies the wavelength; a file
   curve is resampled on the host onto at most 2048 uniform points
   (``fused_trace.py:540-559``) and read by the kernels as two loads;
-- nearest-pixel images, float32, no history reservoir.
+- ``interact_mode`` mc (Bernoulli acceptance) or weight (each ray carries
+  a weight: a crystal multiplies it by its probability and draws nothing,
+  a mosaic crystal by its survival estimator), nearest-pixel or bilinear
+  images of the weights, float32, no history reservoir.
 
 A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
 filters) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
@@ -86,14 +91,16 @@ class FusedUnsupported(NotImplementedError):
 # Header ints 0-7: n_optics, n_apertures, cone kind, n_draws, image floats,
 # source kind (0 generic, 1 plasma of bundle tables, 2 plasma of one bundle
 # per ray, the gradient kernels' own, 3 rays from memory, K3's), voxel
-# draws (plasma), Cauchy draw; 8-15 the generic source's structure (H_*).
+# draws (plasma), Cauchy draw; 8-15 the generic source's structure (H_*);
+# 16-17 the run's modes: weight mode (the rays carry weights; crystals
+# weigh instead of drawing) and bilinear images.
 MAX_OPTICS = 16
 MAX_APERTURES = 64
 MAX_FILTERS = 8
 SRC_F, OPT_F, AP_F, FILT_F = 64, 32, 4, 8
-HDR_I, OPT_I, AP_I = 16, 16, 2
+HDR_I, OPT_I, AP_I = 18, 16, 2
 (H_FILTERS, H_SPATIAL, H_FOCUSED, H_WAVE, H_GAUSS, H_CAUCHY, H_VELOCITY,
- H_PER_RAY_WL) = range(8, 16)
+ H_PER_RAY_WL, H_WEIGHT, H_BILINEAR) = range(8, 18)
 SRC_RAYS = 3
 # Generic source floats: origin, rotation rows (o2, o1, axis), then these.
 S_CONE, S_BASIS, S_SIZES, S_TARGET, S_HINT, S_WAVE, S_VELOCITY, S_CINV = (
@@ -104,6 +111,7 @@ _APERTURE_SHAPES = {"none": 0, "circle": 1, "square": 2, "rectangle": 3,
                     "ellipse": 4}
 _LOGIC = {"and": 0, "not": 1, "or": 2, "nand": 3, "nor": 4, "xor": 5, "xnor": 6}
 _SHAPES = {"plane": 0, "sphere": 1, "torus": 2, "cylinder": 3, "cheb": 4}
+_INTERACT = {"none": 0, "crystal": 1, "mirror": 2, "mosaic": 3}
 _ROCKING = {"gaussian": 0, "step": 1, "file": 2}
 # Optic floats of a torus read by the gradient kernels (XRT_O_MADJ,
 # XRT_O_CSIGN): the convex pair folded into (major_adjust, center_sign).
@@ -118,6 +126,12 @@ O_MAJOR_ADJUST, O_CENTER_SIGN = 29, 30
 # (:func:`cheb_terms`).
 O_LO, O_INV_STEP = 20, 31
 OI_TABLE, OI_K, OI_CHEB, OI_DEG, OI_TERMS = 10, 11, 12, 13, 14
+# A mosaic crystal: its crystallite sigma sin(hwhm / sqrt(2 ln 2)) and its
+# cutoff angle (-1 without a cutoff) in the torus's floats 29-30
+# (XRT_O_MSIGMA, XRT_O_MCUT; no mosaic composite is a torus), its depth in
+# the optic's int 15 (XRT_OI_DEPTH).
+O_MOSAIC_SIGMA, O_MOSAIC_CUT = 29, 30
+OI_DEPTH = 15
 CHEB_MAX_DEG = 12
 _TWO_PI = 2.0 * math.pi
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
@@ -413,10 +427,14 @@ def _optic_spec(optic) -> dict:
 
     Interact codes: 0 none, 1 a Bragg crystal (rocking codes 0 gaussian, 1
     step, 2 file, its resampled table in ``spec["file"]``), 2 a mirror or a
-    crystal without its Bragg check (JAX ``fused_trace.py:523-526``). A
-    mesh is fitted by its Chebyshev surrogate (``spec["cheb"]``)."""
+    crystal without its Bragg check (JAX ``fused_trace.py:523-526``), 3 a
+    mosaic crystal (``spec["mosaic"]``; JAX ``fused_trace.py:572-586``). A
+    mesh is fitted by its Chebyshev surrogate (``spec["cheb"]``). Draws per
+    ray: a mosaic crystal three per layer; a crystal's, one in mc mode and
+    none in weight mode (JAX ``fused_trace.py:532-533``), are the run's
+    mode's, counted by :func:`pack_params`."""
     from xicsrt_tpu_torch.optics.interactions import (
-        InteractCrystal, InteractMirror, InteractNone,
+        InteractCrystal, InteractMirror, InteractMosaicCrystal, InteractNone,
     )
     from xicsrt_tpu_torch.optics.mesh_shapes import ShapeMesh
     from xicsrt_tpu_torch.optics.shapes import (
@@ -471,17 +489,28 @@ def _optic_spec(optic) -> dict:
             })
 
     if isinstance(optic, InteractCrystal) and p.get("check_bragg", True):
-        spec["interact"] = 1
+        spec["interact"] = _INTERACT["crystal"]
         if p["rocking_type"] not in _ROCKING:
             raise FusedUnsupported(f"rocking_type {p['rocking_type']}")
         spec["rocking"] = _ROCKING[p["rocking_type"]]
         if p["rocking_type"] == "file":
             spec["file"] = _file_table(optic)
-        spec["n_draws"] = 1
+        if isinstance(optic, InteractMosaicCrystal):
+            spec["interact"] = _INTERACT["mosaic"]
+            depth = int(p["mosaic_depth"])
+            spread = float(p["mosaic_spread"])
+            cutoff = p.get("mosaic_cutoff")
+            spec["mosaic"] = {
+                "depth": depth,
+                "sigma_n": math.sin(spread / 2.0 / math.sqrt(2.0 * math.log(2.0))),
+                "cut": (-1.0 if cutoff is None else
+                        math.sqrt(-math.log(float(cutoff)) * 2.0) * spread * _SIGMA_PER_FWHM),
+            }
+            spec["n_draws"] = 3 * depth
     elif isinstance(optic, InteractMirror):  # a crystal without its check too
-        spec["interact"] = 2
+        spec["interact"] = _INTERACT["mirror"]
     elif isinstance(optic, InteractNone):
-        spec["interact"] = 0
+        spec["interact"] = _INTERACT["none"]
     else:
         raise FusedUnsupported(f"interaction of {type(optic).__name__}")
 
@@ -506,7 +535,8 @@ class FusedParams:
     source needs the kernels' whole sampler, not their point-source cut;
     ``aux``: float32 per-optic data too large for ``fp`` (file rocking
     tables, Chebyshev terms), read by the kernels from global memory, never
-    empty."""
+    empty; ``ip_host``: ``ip`` as packed, on the host, where the build of
+    K1 and K3 (:attr:`stages`) is read from the header the kernels read."""
 
     fp: torch.Tensor
     ip: torch.Tensor
@@ -514,15 +544,46 @@ class FusedParams:
     img_total: int
     n_draws: int
     aux: torch.Tensor
+    ip_host: np.ndarray
     source_kind: int = 0
     shape_mask: int = 0
     full_source: bool = False
+
+    def __post_init__(self):
+        if tuple(self.ip.shape) != self.ip_host.shape:
+            raise ValueError("FusedParams: ip and ip_host differ in shape")
+
+    @property
+    def weight(self) -> bool:
+        """Weight mode (header int 16)."""
+        return bool(self.ip_host[H_WEIGHT])
+
+    @property
+    def bilinear(self) -> bool:
+        """Bilinear images (header int 17)."""
+        return bool(self.ip_host[H_BILINEAR])
+
+    @property
+    def interact_mask(self) -> int:
+        """Bit c set where the chain holds an optic of interact code c."""
+        codes = self.ip_host[HDR_I + 2: HDR_I + self.n_optics * OPT_I: OPT_I]
+        return sum({1 << int(c) for c in codes})
 
     @property
     def cheb(self) -> bool:
         """The chain holds a mesh surrogate, so K1 and K3 take their build
         with the Chebyshev stage."""
         return bool(self.shape_mask >> _SHAPES["cheb"] & 1)
+
+    @property
+    def stages(self) -> int:
+        """The build of K1 and K3 the run takes: 2 with the mosaic stage
+        (and weight mode and bilinear images) for a chain with a mosaic
+        crystal, 1 with weight mode and bilinear images for a run that
+        weighs its rays or splats its images, else 0."""
+        if self.interact_mask >> _INTERACT["mosaic"] & 1:
+            return 2
+        return int(self.weight or self.bilinear)
 
     @property
     def plasma(self) -> bool:
@@ -605,10 +666,12 @@ def _pack_ray_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
     fp[30] = src["w0_per_E"]
 
 
-def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
+def pack_params(src: dict, optics: list, params: dict, device, weight: bool = False,
+                bilinear: bool = False) -> FusedParams:
     """Pack the structure specs and the run's ``params`` into the kernel's
     buffers. Derived constants are computed in float64 from the parameter
-    values and rounded once to float32."""
+    values and rounded once to float32. ``weight``, ``bilinear``: the run's
+    interact and image modes."""
     n_opt = len(optics)
     n_ap = sum(len(o["apertures"]) for o in optics)
     filters = src.get("filters", [])
@@ -680,7 +743,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
         f[16:19] = o["half"]
         i[4] = o["checks"]
         i[2] = o["interact"]
-        if o["interact"] == 1:
+        if o["interact"] in (_INTERACT["crystal"], _INTERACT["mosaic"]):
             spacing = float(_vec(op["crystal_spacing"]))
             f[19] = float(_vec(op["reflectivity"]))
             if o["rocking"] == _ROCKING["file"]:
@@ -700,6 +763,10 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
                 f[21] = sin_b
                 f[22] = math.sqrt(1.0 - sin_b * sin_b)
             i[3] = o["rocking"]
+        if o["interact"] == _INTERACT["mosaic"]:
+            mz = o["mosaic"]
+            f[O_MOSAIC_SIGMA], f[O_MOSAIC_CUT] = mz["sigma_n"], mz["cut"]
+            i[OI_DEPTH] = mz["depth"]
         i[5] = len(o["apertures"])
         i[6] = ap_index
         for ap in o["apertures"]:
@@ -718,7 +785,9 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
             i[9] = im["ny"]
             img_total += im["nx"] * im["ny"]
 
-    n_draws = src["n_draws"] + sum(o["n_draws"] for o in optics)
+    # A crystal draws its acceptance in mc mode and weighs in weight mode.
+    n_draws = src["n_draws"] + sum(int(not weight) if o["interact"] == _INTERACT["crystal"]
+                                   else o["n_draws"] for o in optics)
     plasma = kind in (1, 2)
     ip[0:8] = (n_opt, n_ap, src["dist"][0] if kind == 0 else 0, n_draws, img_total,
                kind, int(plasma and src["voxel"] > 0.0),
@@ -731,6 +800,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
                     int(src["velocity"]), int(src["per_ray_wl"]))
     else:
         ip[H_PER_RAY_WL] = 1
+    ip[H_WEIGHT], ip[H_BILINEAR] = int(weight), int(bilinear)
     return FusedParams(
         fp=torch.as_tensor(fp.astype(np.float32), device=device),
         ip=torch.as_tensor(ip, device=device),
@@ -738,7 +808,7 @@ def pack_params(src: dict, optics: list, params: dict, device) -> FusedParams:
         source_kind=kind,
         shape_mask=sum({1 << o["shape"] for o in optics}),
         full_source=bool(src.get("full")),
-        aux=torch.as_tensor(np.concatenate(aux), device=device),
+        aux=torch.as_tensor(np.concatenate(aux), device=device), ip_host=ip,
     )
 
 
@@ -1170,11 +1240,13 @@ def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
     return m_out & m_in
 
 
-def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None):
+def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None, tally=None):
     """Trace one slice of rays exactly as K1 does; adds into ``counts``
     (int64) and the flat ``image``. ``aux``: the packed aux buffer;
     ``alive``: the rays alive at the source before its filters; ``attrs``:
-    their bundle rows for a plasma source."""
+    their bundle rows for a plasma source; ``tally``: see
+    :func:`_trace_chain_plain`. In weight mode every ray leaves the source
+    with weight 1 (JAX ``fused_trace.py:1719``)."""
     shape = alive.shape
 
     def full(value):
@@ -1188,14 +1260,140 @@ def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None):
         px, py, pz, dx, dy, dz, wl = sample_plasma_plain(F, I, attrs, draw)
     counts[0] += alive.sum()
     _trace_chain_plain(F, I, aux, (px, py, pz, dx, dy, dz),
-                       wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image)
+                       wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image,
+                       full(1.0) if I[H_WEIGHT] else None, tally)
 
 
-def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image):
+def rock_prob_plain(o, oi, aux, delta, full):
+    """The kernels' rocking curve (``xrt_rock_prob``) of the crystal whose
+    blocks are ``o``, ``oi`` at the deviation ``delta``, times its
+    reflectivity: gaussian (o[20] sigma), step (o[20] half width) or the
+    resampled file table in ``aux``."""
+    if oi[3] == 0:
+        z = _div(delta, o[20])
+        return o[19] * torch.exp(-0.5 * (z * z))
+    if oi[3] == 1:
+        return torch.where(torch.abs(delta) <= o[20], full(o[19]), full(0.0))
+    val, inr, _, _ = file_value_plain(aux[oi[OI_TABLE]:oi[OI_TABLE] + oi[OI_K]],
+                                      o[O_LO], o[O_INV_STEP], delta)
+    return torch.where(inr, val * o[19], full(0.0))
+
+
+def bragg_delta_plain(dx, dy, dz, nx, ny, nz, sin_b, cos_b):
+    """(d.n, the Bragg deviation ``sd + sd^3 / 6``) of directions d on
+    normals n (``fused_trace.py:995-1002``)."""
+    dot = dx * nx + dy * ny + dz * nz
+    adot = torch.abs(dot)
+    cosi = torch.sqrt(torch.clamp_min(1.0 - adot * adot, 0.0))
+    sd = adot * cos_b - cosi * sin_b
+    return dot, sd + sd * sd * sd * (1.0 / 6.0)
+
+
+def mosaic_basis_plain(nx, ny, nz):
+    """The crystallite basis about the normal n (the kernels' mosaic stage;
+    JAX ``fused_trace.py:1030-1041``): o1 = normalize(n x (e1 + e3)) =
+    normalize(ny, nz - nx, -ny), o2 = normalize(n x o1). Returns (o1, o2,
+    and the two normalisers 1 / |.|, which the gradient's adjoint takes)."""
+    o1x, o1y, o1z = ny, nz - nx, -ny
+    inv1 = _inv_sqrt(torch.clamp_min(o1x * o1x + o1y * o1y + o1z * o1z, 1e-30))
+    o1x, o1y, o1z = o1x * inv1, o1y * inv1, o1z * inv1
+    o2x, o2y, o2z = ny * o1z - nz * o1y, nz * o1x - nx * o1z, nx * o1y - ny * o1x
+    inv2 = _inv_sqrt(torch.clamp_min(o2x * o2x + o2y * o2y + o2z * o2z, 1e-30))
+    return (o1x, o1y, o1z), (o2x * inv2, o2y * inv2, o2z * inv2), inv1, inv2
+
+
+def mosaic_normal_plain(draw, sigma_n: float, o1, o2, n):
+    """One layer's crystallite normal (the kernels' ``xrt_mosaic_normal``):
+    gx, gy = sigma_n times two normals, wn = 1 / sqrt(1 + gx^2 + gy^2),
+    nm = gx wn o2 + gy wn o1 + wn n. Returns (nm, gx wn, gy wn, wn), the
+    coefficients for the gradient's adjoint."""
+    gx = sigma_n * normal_plain(draw)
+    gy = sigma_n * normal_plain(draw)
+    wn = _inv_sqrt(1.0 + gx * gx + gy * gy)
+    gxw, gyw = gx * wn, gy * wn
+    nm = tuple(gxw * o2[k] + gyw * o1[k] + wn * n[k] for k in range(3))
+    return nm, gxw, gyw, wn
+
+
+def mosaic_plain(o, oi, aux, d, n, sin_b, cos_b, mask, wt, draw, full):
+    """The kernels' mosaic stage (``xrt_mosaic``; JAX ``fused_trace.py:
+    1014-1098``): the cutoff prefilter, then ``oi[OI_DEPTH]`` layers of
+    three draws each. mc (``wt`` None): the first layer whose crystallite
+    accepts reflects the ray; weight: every layer tests the incoming
+    direction, the weight takes the survival estimator's total ``cum`` and
+    the direction the last reservoir pick's reflection. Returns (direction,
+    mask, weight)."""
+    dx, dy, dz = d
+    if o[O_MOSAIC_CUT] >= 0.0:
+        _, d0 = bragg_delta_plain(dx, dy, dz, *n, sin_b, cos_b)
+        mask = mask & (torch.abs(d0) < o[O_MOSAIC_CUT])
+    o1, o2, _, _ = mosaic_basis_plain(*n)
+    if wt is None:
+        refl = torch.zeros_like(mask)
+        for _ in range(oi[OI_DEPTH]):
+            (nmx, nmy, nmz), _, _, _ = mosaic_normal_plain(draw, o[O_MOSAIC_SIGMA], o1, o2, n)
+            dotm, delta = bragg_delta_plain(dx, dy, dz, nmx, nmy, nmz, sin_b, cos_b)
+            prob = rock_prob_plain(o, oi, aux, delta, full)
+            accept = mask & ~refl & (prob >= draw())
+            kk = 2.0 * dotm
+            dx = torch.where(accept, dx - kk * nmx, dx)
+            dy = torch.where(accept, dy - kk * nmy, dy)
+            dz = torch.where(accept, dz - kk * nmz, dz)
+            refl = refl | accept
+        return (dx, dy, dz), mask & refl, wt
+    d0x, d0y, d0z = d
+    surv, cum = full(1.0), full(0.0)
+    for _ in range(oi[OI_DEPTH]):
+        (nmx, nmy, nmz), _, _, _ = mosaic_normal_plain(draw, o[O_MOSAIC_SIGMA], o1, o2, n)
+        dotm, delta = bragg_delta_plain(d0x, d0y, d0z, nmx, nmy, nmz, sin_b, cos_b)
+        prob = rock_prob_plain(o, oi, aux, delta, full)
+        q = prob * surv
+        cum_new = cum + q
+        pick = mask & (draw() * cum_new < q)
+        kk = 2.0 * dotm
+        dx = torch.where(pick, d0x - kk * nmx, dx)
+        dy = torch.where(pick, d0y - kk * nmy, dy)
+        dz = torch.where(pick, d0z - kk * nmz, dz)
+        surv = surv * (1.0 - prob)
+        cum = cum_new
+    return (dx, dy, dz), mask, torch.where(mask, wt * cum, wt)
+
+
+def _add_terms(image, idx, terms, tally):
+    """Add float32 ``terms`` into ``image`` at ``idx``; with a ``tally``
+    (count, magnitude), also each term's 1 and its |value| in float64."""
+    image.index_put_((idx,), terms, accumulate=True)
+    if tally is not None:
+        tally[0].index_put_((idx,), torch.ones_like(terms, dtype=torch.float64),
+                            accumulate=True)
+        tally[1].index_put_((idx,), terms.double().abs(), accumulate=True)
+
+
+def splat_plain(image, base: int, fx, fy, nx: int, ny: int, w, tally=None):
+    """The kernels' bilinear splat (``xrt_splat``; JAX
+    ``fused_trace.py:1165-1194``): the pixel coordinates clipped to [-2,
+    n + 1], the tents 1 - |f - i| at the two grid neighbours, the corner
+    weight (tx w) ty, each corner dropped off the grid."""
+    fxc = torch.clamp(fx, -2.0, nx + 1.0)
+    fyc = torch.clamp(fy, -2.0, ny + 1.0)
+    x0, y0 = torch.floor(fxc), torch.floor(fyc)
+    for xi in (x0, x0 + 1.0):
+        wx = (1.0 - torch.abs(fxc - xi)) * w
+        for yi in (y0, y0 + 1.0):
+            ok = (xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
+            idx = base + xi[ok].long() * ny + yi[ok].long()
+            _add_terms(image, idx, (wx * (1.0 - torch.abs(fyc - yi)))[ok], tally)
+
+
+def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image, wt=None,
+                       tally=None):
     """The kernels' optic chain (``xrt_trace_chain``, ``csrc/
     trace_chain.cuh``) on a slice: ``aux`` the packed aux buffer, ``ray`` =
     (px, py, pz, dx, dy, dz), ``wl`` the per-ray wavelengths or None for the
-    optics' constant Bragg angles. Adds into ``counts[1:]`` and ``image``."""
+    optics' constant Bragg angles, ``wt`` the rays' weights in weight mode,
+    else None. Adds into ``counts[1:]`` and ``image``, and with a ``tally``
+    (two float64 images) the number of terms each pixel sums and the sum of
+    their magnitudes."""
     f32 = torch.float32
     n_opt = I[0]
     px, py, pz, dx, dy, dz = ray
@@ -1259,44 +1457,43 @@ def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image):
         mask = bounds_plain(m_int, o, oi, lxv, lyv, (rx, ry, rz), o[9:12])
         mask = aperture_logic_plain(F, I, oi, lxv, lyv, mask)
 
-        if oi[2] == 1:
-            dot = dx * nxv + dy * nyv + dz * nzv
-            adot = torch.abs(dot)
-            cosi = torch.sqrt(torch.clamp_min(1.0 - adot * adot, 0.0))
+        if oi[2] in (_INTERACT["crystal"], _INTERACT["mosaic"]):
             if wl is None:
                 sin_b, cos_b = o[21], o[22]
             else:  # per-ray Bragg angle (fused_trace.py:997-1001)
                 sin_b = torch.clamp(wl * o[28], 0.0, 1.0)
                 cos_b = torch.sqrt(torch.clamp_min(1.0 - sin_b * sin_b, 0.0))
-            sd = adot * cos_b - cosi * sin_b
-            delta = sd + sd * sd * sd * (1.0 / 6.0)
-            if oi[3] == 0:
-                z = _div(delta, o[20])
-                prob = o[19] * torch.exp(-0.5 * (z * z))
-            elif oi[3] == 1:
-                prob = torch.where(torch.abs(delta) <= o[20], full(o[19]), full(0.0))
-            else:  # file: the resampled table in aux
-                val, inr, _, _ = file_value_plain(aux[oi[OI_TABLE]:oi[OI_TABLE] + oi[OI_K]],
-                                                  o[O_LO], o[O_INV_STEP], delta)
-                prob = torch.where(inr, val * o[19], full(0.0))
-            mask = mask & (prob >= draw())
-        if oi[2] in (1, 2):  # a crystal's accepted rays, or a mirror's
+        if oi[2] == _INTERACT["crystal"]:
+            _, delta = bragg_delta_plain(dx, dy, dz, nxv, nyv, nzv, sin_b, cos_b)
+            prob = rock_prob_plain(o, oi, aux, delta, full)
+            if wt is None:
+                mask = mask & (prob >= draw())
+            else:  # weight mode: no draw (fused_trace.py:1007-1008)
+                wt = torch.where(mask, wt * prob, wt)
+        if oi[2] in (_INTERACT["crystal"], _INTERACT["mirror"]):  # reflect
             kk = 2.0 * (dx * nxv + dy * nyv + dz * nzv)
             dx = torch.where(mask, dx - kk * nxv, dx)
             dy = torch.where(mask, dy - kk * nyv, dy)
             dz = torch.where(mask, dz - kk * nzv, dz)
+        elif oi[2] == _INTERACT["mosaic"]:
+            (dx, dy, dz), mask, wt = mosaic_plain(o, oi, aux, (dx, dy, dz), (nxv, nyv, nzv),
+                                                  sin_b, cos_b, mask, wt, draw, full)
         px, py, pz = qx, qy, qz
         alive = mask
         counts[1 + e] += alive.sum()
 
         if oi[7] >= 0:
             nx, ny = oi[8], oi[9]
-            fx = torch.round(fused_multiply_add(lxv, o[23], o[24]))
-            fy = torch.round(fused_multiply_add(lyv, o[23], o[25]))
+            fx = fused_multiply_add(lxv, o[23], o[24])
+            fy = fused_multiply_add(lyv, o[23], o[25])
+            w = full(1.0) if wt is None else wt
+            if I[H_BILINEAR]:
+                splat_plain(image, oi[7], fx[alive], fy[alive], nx, ny, w[alive], tally)
+                continue
+            fx, fy = torch.round(fx), torch.round(fy)
             ok = alive & (fx >= 0) & (fx < nx) & (fy >= 0) & (fy < ny)
             idx = oi[7] + fx[ok].long() * ny + fy[ok].long()
-            image.index_put_((idx,), torch.ones_like(idx, dtype=f32),
-                             accumulate=True)
+            _add_terms(image, idx, w[ok], tally)
 
 
 def _slices(fparams: FusedParams, n_total: int, count: int, bundles):
@@ -1321,29 +1518,42 @@ def _slices(fparams: FusedParams, n_total: int, count: int, bundles):
             yield j * n_per_iter + local, local < cum[j, -1], attrs
 
 
+def _tally(fparams: FusedParams, terms: bool):
+    """Two float64 images for a twin's ``terms=True``, else None."""
+    if not terms:
+        return None
+    return tuple(torch.zeros(fparams.img_total, dtype=torch.float64,
+                             device=fparams.fp.device) for _ in range(2))
+
+
 def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
                     uniforms: torch.Tensor | None = None, seed=(0, 0),
-                    bundles=None):
+                    bundles=None, terms: bool = False):
     """The kernel's plain twin: same arguments, same outputs.
 
     Returns (counts int64 [1 + n_optics], flat images float32 [img_total]).
     ``uniforms``: (n_draws, n_total) float32, or None for the kernel's
     Philox stream keyed by ``seed``. ``bundles``: for a plasma, the
     per-iteration tables (cum (num_iter, B) int32, table (num_iter, B, 8)
-    float32); ``count`` is then unused.
+    float32); ``count`` is then unused. ``terms``: also return, third, the
+    number of float32 terms each pixel sums and the sum of their
+    magnitudes (two float64 images), which bound how far another order of
+    the same sums may round from this one.
     """
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
     device = fparams.fp.device
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    tally = _tally(fparams, terms)
     for rays, alive, attrs in _slices(fparams, n_total, count, bundles):
         if uniforms is None:
             rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
         else:
             rows = [uniforms[k, rays] for k in range(fparams.n_draws)]
-        _trace_slice(F, I, fparams.aux, alive, iter(rows).__next__, counts, image, attrs)
-    return counts, image
+        _trace_slice(F, I, fparams.aux, alive, iter(rows).__next__, counts, image, attrs,
+                     tally)
+    return (counts, image) if tally is None else (counts, image, tally)
 
 
 def _check_bundles(fparams: FusedParams, n_total: int, bundles, device):
@@ -1402,7 +1612,7 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
         int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
         None if table is None else table.data_ptr(), n_bundles, n_per_iter,
         counts.data_ptr(), image.data_ptr(), fparams.img_total,
-        int(fparams.full_source), int(fparams.cheb),
+        int(fparams.full_source), int(fparams.cheb), fparams.stages,
         torch.cuda.current_stream(device).cuda_stream,
     )
     native.check(err, "xrt_fused_trace")
@@ -1429,18 +1639,22 @@ def _buffers(fparams: FusedParams, name: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 def fused_trace_run_plain(fparams: FusedParams, origin, direction, wavelength, mask,
-                          uniforms: torch.Tensor | None = None, seed=(0, 0)):
+                          uniforms: torch.Tensor | None = None, seed=(0, 0), weight=None,
+                          terms: bool = False):
     """K3's plain twin: the rays (origin and direction (n, 3), wavelength
-    (n,), mask (n,)) through the packed chain, each at its own wavelength.
-    Ray ``r`` takes draw ``k`` from ``uniforms[k, r]`` ((n_draws, n)
-    float32), or from the Philox stream keyed by ``seed``. Returns (counts
-    int64 [1 + n_optics], flat images float32 [img_total])."""
+    (n,), mask (n,), and in weight mode their weights (n,)) through the
+    packed chain, each at its own wavelength. Ray ``r`` takes draw ``k``
+    from ``uniforms[k, r]`` ((n_draws, n) float32), or from the Philox
+    stream keyed by ``seed``. Returns (counts int64 [1 + n_optics], flat
+    images float32 [img_total]) and, with ``terms``, the third output of
+    :func:`fused_run_plain`."""
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
     device = fparams.fp.device
     n = mask.shape[0]
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    tally = _tally(fparams, terms)
     for start in range(0, n, _TWIN_SLICE):
         stop = min(start + _TWIN_SLICE, n)
         rays = torch.arange(start, stop, dtype=torch.int64, device=device)
@@ -1454,20 +1668,25 @@ def fused_trace_run_plain(fparams: FusedParams, origin, direction, wavelength, m
         _trace_chain_plain(F, I, fparams.aux,
                            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]),
                            wavelength[start:stop], alive, iter(rows).__next__, counts,
-                           image)
-    return counts, image
+                           image, None if weight is None else weight[start:stop], tally)
+    return (counts, image) if tally is None else (counts, image, tally)
 
 
 def fused_trace_run_cuda(fparams: FusedParams, origin, direction, wavelength, mask,
-                         uniforms: torch.Tensor | None = None, seed=(0, 0)):
+                         uniforms: torch.Tensor | None = None, seed=(0, 0), weight=None):
     """Trace the given rays through the packed chain (kernel K3), as
     :func:`fused_trace_run_plain` takes them: float32 rays, a bool or uint8
-    mask, packed for source kind 3 (rays from memory). Buffers on a CUDA
-    device launch the kernel (or raise); buffers on the CPU take the twin."""
+    mask, packed for source kind 3 (rays from memory); ``weight`` float32
+    (n,) in weight mode (JAX streams it only then, ``fused_trace.py:
+    2054-2056``), else None. Buffers on a CUDA device launch the kernel (or
+    raise); buffers on the CPU take the twin."""
     device = fparams.fp.device
+    if (weight is None) == fparams.weight:
+        raise ValueError("fused_trace_run_cuda: weight mode takes the rays' weights, "
+                         "mc mode none")
     if device.type == "cpu":
         return fused_trace_run_plain(fparams, origin, direction, wavelength, mask,
-                                     uniforms, seed)
+                                     uniforms, seed, weight)
     if device.type != "cuda":
         raise ValueError(f"fused_trace_run_cuda: unsupported device {device}")
     if fparams.source_kind != SRC_RAYS:
@@ -1477,7 +1696,8 @@ def fused_trace_run_cuda(fparams: FusedParams, origin, direction, wavelength, ma
     if not 0 <= n < 2**31:
         raise ValueError("fused_trace_run_cuda: n must be in [0, 2^31)")
     for name, t, shape in (("origin", origin, (n, 3)), ("direction", direction, (n, 3)),
-                           ("wavelength", wavelength, (n,))):
+                           ("wavelength", wavelength, (n,)),
+                           ("weight", wavelength if weight is None else weight, (n,))):
         if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"fused_trace_run_cuda: {name} must be float32 {shape} "
                              f"on {device}")
@@ -1499,13 +1719,16 @@ def fused_trace_run_cuda(fparams: FusedParams, origin, direction, wavelength, ma
     origin, direction = origin.contiguous(), direction.contiguous()
     wavelength = wavelength.contiguous()
     mask = mask.contiguous().view(torch.uint8)
+    if weight is not None:
+        weight = weight.contiguous()
     fp, ip, aux = _buffers(fparams, "fused_trace_run_cuda")
     err = native.library().xrt_trace_only(
         fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
         aux.numel(), n, origin.data_ptr(), direction.data_ptr(),
-        wavelength.data_ptr(), mask.data_ptr(), u_ptr, int(seed[0]) & _M32,
+        wavelength.data_ptr(), mask.data_ptr(),
+        None if weight is None else weight.data_ptr(), u_ptr, int(seed[0]) & _M32,
         int(seed[1]) & _M32, counts.data_ptr(), image.data_ptr(), fparams.img_total,
-        int(fparams.cheb), torch.cuda.current_stream(device).cuda_stream)
+        int(fparams.cheb), fparams.stages, torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_trace_only")
     fused_trace_run_cuda.launches += 1
     return counts, image
@@ -1541,7 +1764,10 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     uniforms: ``uniforms`` when given, else drawn from the generator. Ray
     ``r`` takes draw ``k`` from row ``k``, column ``r``; the draws of a ray
     are the source's (point: u, v; plasma: 3 voxel offsets, u, v, the
-    normal's uniform, the Cauchy uniform), then one per crystal.
+    normal's uniform, the Cauchy uniform), then the optics' in chain order:
+    one per crystal in mc mode, three per layer of a mosaic crystal.
+    ``interact_mode='weight'`` carries each ray's weight through the chain
+    and into the images; ``image_mode='bilinear'`` splats them.
 
     Poisson budgets draw the realised count on the host from the generator
     (the sum of per-iteration Poisson draws is one Poisson draw of the
@@ -1552,7 +1778,7 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     instead, as ``fused_run_cuda`` takes them.
     """
     g = pipeline.general
-    _check_chain_general(g)
+    modes = _chain_modes(g)
     if history_slots or history_mode != "found":
         raise FusedUnsupported("history reservoirs are not ported yet")
     if rng not in ("hw", "input"):
@@ -1562,7 +1788,7 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     optics = [_optic_spec(o) for o in pipeline.optics]
     # Packing the build-time params raises FusedUnsupported for what only
     # the values show: buffer limits, a wavelength outside the Bragg range.
-    pack_params(src, optics, pipeline.params, "cpu")
+    pack_params(src, optics, pipeline.params, "cpu", **modes)
     if num_iter is None:
         num_iter = int(g["number_of_iter"])
     n_total = pipeline.num_rays * num_iter
@@ -1577,7 +1803,7 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     source = pipeline.source
 
     def run(params, generator: torch.Generator, uniforms=None, bundles=None):
-        fparams = pack_params(src, optics, params, device)
+        fparams = pack_params(src, optics, params, device, **modes)
         if fparams.plasma and bundles is None:
             bundles = plasma_bundles(source, params["sources"][source.name],
                                      params["filters"], Draws(generator), num_iter)
@@ -1615,15 +1841,18 @@ def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool) ->
     return {"meta": meta, "image": image, "history": {}}
 
 
-def _check_chain_general(g: dict) -> None:
-    """The run modes K1's and K3's chain takes: mc, nearest, float32."""
+def _chain_modes(g: dict) -> dict:
+    """The run modes of K1's and K3's chain, as ``pack_params`` takes them:
+    mc or weight, nearest or bilinear images; float32 only."""
     mode = str(g.get("interact_mode", "mc")).lower()
-    if mode != "mc":
+    if mode not in ("mc", "weight"):
         raise FusedUnsupported(f"interact_mode {mode!r}")
-    if str(g.get("image_mode", "nearest")).lower() != "nearest":
-        raise FusedUnsupported("image_mode != nearest")
+    image_mode = str(g.get("image_mode", "nearest")).lower()
+    if image_mode not in ("nearest", "bilinear"):
+        raise FusedUnsupported(f"image_mode {image_mode!r}")
     if str(g.get("dtype", "float32")).lower() not in ("float32", "f32"):
         raise FusedUnsupported("dtype != float32")
+    return {"weight": mode == "weight", "bilinear": image_mode == "bilinear"}
 
 
 def build_fused_trace_run(pipeline, num_iter: int | None = None):
@@ -1631,16 +1860,15 @@ def build_fused_trace_run(pipeline, num_iter: int | None = None):
     iteration the eager engine generates the source's rays
     (``pipeline.source.generate``; a plasma's bundles through K4) and K3
     traces them through the chain (JAX ``build_fused_trace_run``,
-    ``fused_trace.py:2029-2226``), its draws (one per crystal) from a
-    Philox stream keyed by two seed words from the generator. Weight mode,
-    bilinear images and history wait for K1d and K1e, in K1 and K3
-    together.
+    ``fused_trace.py:2029-2226``), its draws (the optics', as in K1) from a
+    Philox stream keyed by two seed words from the generator; in weight
+    mode it streams the rays' weights too. History waits for K1e.
     """
     g = pipeline.general
-    _check_chain_general(g)
+    modes = _chain_modes(g)
     optics = [_optic_spec(o) for o in pipeline.optics]
     src = {"name": None, "kind": SRC_RAYS, "n_draws": 0}
-    pack_params(src, optics, pipeline.params, "cpu")
+    pack_params(src, optics, pipeline.params, "cpu", **modes)
     if num_iter is None:
         num_iter = int(g["number_of_iter"])
     n = pipeline.num_rays
@@ -1654,7 +1882,7 @@ def build_fused_trace_run(pipeline, num_iter: int | None = None):
     source = pipeline.source
 
     def run(params, generator: torch.Generator):
-        fparams = pack_params(src, optics, params, device)
+        fparams = pack_params(src, optics, params, device, **modes)
         draws = Draws(generator)
         counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
         flat = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
@@ -1663,8 +1891,9 @@ def build_fused_trace_run(pipeline, num_iter: int | None = None):
                                    params["filters"])
             seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
                                  device=generator.device).tolist()
-            c, im = fused_trace_run_cuda(fparams, rays.origin, rays.direction,
-                                         rays.wavelength, rays.mask, seed=seed)
+            c, im = fused_trace_run_cuda(
+                fparams, rays.origin, rays.direction, rays.wavelength, rays.mask,
+                seed=seed, weight=rays.weight if fparams.weight else None)
             counts += c
             flat += im
         return _results(counts, flat, optics, names, keep_meta, keep_images)

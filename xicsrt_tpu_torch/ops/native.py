@@ -44,12 +44,12 @@ _SIGNATURES = {
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, _P,
     ],
     "xrt_trace_only": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
-        _P, _P, _P, _P, _P, ctypes.c_uint, ctypes.c_uint, _P, _P, ctypes.c_int,
-        ctypes.c_int, _P,
+        _P, _P, _P, _P, _P, _P, ctypes.c_uint, ctypes.c_uint, _P, _P, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P,
     ],
     "xrt_bundle_gather": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P],
     "xrt_fused_grad_fwd": [

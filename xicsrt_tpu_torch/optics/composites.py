@@ -1,8 +1,8 @@
 """Ready-made optics: Shape x Interact compositions
 (``xicsrt_tpu/optics/composites.py``), registered under the reference
-``class_name``. Ported: every composite of a plane, a sphere, a cylinder, a
-torus or a mesh with no interaction, a mirror or a crystal (the mosaic
-composites wait for the mosaic crystal)."""
+``class_name``: every composite of a plane, a sphere, a cylinder, a torus or
+a mesh with no interaction, a mirror or a crystal, and the planar,
+spherical and mesh mosaic crystals."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from xicsrt_tpu_torch.dispatch import register
 from xicsrt_tpu_torch.optics.interactions import (
     InteractCrystal,
     InteractMirror,
+    InteractMosaicCrystal,
     InteractNone,
 )
 from xicsrt_tpu_torch.optics.mesh_shapes import (
@@ -46,6 +47,11 @@ class OpticPlanarCrystal(InteractCrystal, ShapePlane):
     pass
 
 
+@register("XicsrtOpticPlanarMosaicCrystal", "planar_mosaic_crystal")
+class OpticPlanarMosaicCrystal(InteractMosaicCrystal, ShapePlane):
+    pass
+
+
 @register("XicsrtOpticSphericalMirror", "spherical_mirror")
 class OpticSphericalMirror(InteractMirror, ShapeSphere):
     pass
@@ -57,6 +63,11 @@ class OpticSphericalMirror(InteractMirror, ShapeSphere):
     "XicsrtOpticCrystalSpherical",
 )
 class OpticSphericalCrystal(InteractCrystal, ShapeSphere):
+    pass
+
+
+@register("XicsrtOpticSphericalMosaicCrystal", "spherical_mosaic_crystal")
+class OpticSphericalMosaicCrystal(InteractMosaicCrystal, ShapeSphere):
     pass
 
 
@@ -87,6 +98,11 @@ class OpticMeshMirror(InteractMirror, ShapeMesh):
 
 @register("XicsrtOpticMeshCrystal", "mesh_crystal")
 class OpticMeshCrystal(InteractCrystal, ShapeMesh):
+    pass
+
+
+@register("XicsrtOpticMeshMosaicCrystal", "mesh_mosaic_crystal")
+class OpticMeshMosaicCrystal(InteractMosaicCrystal, ShapeMesh):
     pass
 
 
