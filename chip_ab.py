@@ -44,7 +44,7 @@ AB_DIR = os.path.join(ROOT, "build", "chip_ab")
 
 # Files of the checkout, and what a layout puts in place of their lines.
 ALL_IN = {
-    os.path.join("xicsrt_tpu_torch", "csrc", "fused_trace.cu"):
+    os.path.join("xicsrt_tpu_torch", "csrc", "fused_run.cuh"):
         {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
     os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu"):
         {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},

@@ -105,7 +105,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     rays against their twins, then ``make_fused_differentiable`` on it;
 38. K3 in weight mode on its own route (an 8e6-bundle plasma, mc against
     weight), and the timings per 2^22 rays of K1d, K1c-mosaic, K3-weight
-    and K5d beside K1a, with the ptxas registers of their builds.
+    and K5d beside K1a, with the ptxas registers of their builds;
+39. the history reservoir K1e (K1's marked build, the chunk selection and
+    the record launch) against its twin on the flagship at 2^20 rays,
+    chunk 8192: 'found' and 'sampled', mc and weight mode, both RNG modes,
+    and 'found' on a narrowed detector where about a third of the chunks
+    keep a ray: counts, images, kept chunks and every recorded value equal;
+40. the flagship at 2^26 x 4 through ``raytrace(config, device='cuda')``
+    with ``keep_history`` False, 'found' and 'sampled': rays/s of each, the
+    found history's bounds and invariants, the sampled found share within
+    5 binomial sigma of the run's efficiency and its lost sample truncated,
+    K1e's time against K1's and its twin's, and the registers of its builds;
+41. ``plasma_torus`` with ``keep_history='found'`` at 2^22 photons x 4: the
+    same invariants;
+42. ``python -m xicsrt_tpu_torch`` as a subprocess on a written config
+    (``--save --numiter 2 --seed 3``): exit 0, its results file's meta equal
+    to an in-process run's, the found history in it; the script imports
+    neither h5py nor matplotlib.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -2655,6 +2671,305 @@ def phase_k3_weight(smi, ft, engine, raytrace) -> dict:
     return {"launches": res["weight"][2], "ms": ms, "plain_ms": plain_ms, "bound": b}
 
 
+# ---------------------------------------------------------------------------
+# Phases 39-42: the history reservoir K1e, and the file entry point.
+# ---------------------------------------------------------------------------
+
+# The flagship's detector narrowed until about one chunk of 8192 rays in
+# three keeps a ray (the spot's edge lies 14 mm off the detector's centre).
+SPARSE_DETECTOR_XSIZE = 0.0288
+
+
+def history_equal(kernel, plain, n_fields: int, label) -> float:
+    """K1e's reservoir against its twin's: the same kept chunks and used
+    count, and every recorded field equal to the bit (NaN where the other
+    is NaN: a ray that misses a sphere may carry one), so the masks (field
+    7 of ``n_fields``) are equal and no ray is apart. Returns the largest
+    finite difference."""
+    torch.cuda.synchronize()
+    used = int(kernel.used)
+    if not (torch.equal(kernel.chunks, plain.chunks) and used == int(plain.used)):
+        raise AssertionError(f"{label}: kept chunks {kernel.chunks[:used].tolist()} "
+                             f"against the twin's {plain.chunks[:int(plain.used)].tolist()}")
+    a, b = kernel.slots, plain.slots
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    finite = torch.isfinite(a) & torch.isfinite(b)
+    err = (a - b)[finite].abs().max().item() if bool(finite.any()) else 0.0
+    masks = a[:, 7::n_fields] != b[:, 7::n_fields]
+    log(f"{label}: kept chunks {kernel.chunks[:used].tolist()} ({used} of "
+        f"{a.shape[0]} slots), {int((~same).sum())} of {a.numel()} recorded values "
+        f"apart, {int(masks.any(dim=1).sum())} rays with a mask apart, largest "
+        f"finite difference {err} (tolerance 0)")
+    if not bool(same.all()):
+        raise AssertionError(f"{label}: K1e differs from its twin")
+    return err
+
+
+def k1e_against_twin(ft, fparams, n, spec, label, bundles=None, **kwargs):
+    """K1 with the reservoir ``spec`` (the marked build, then K1e) and its
+    twin on the same rays: counts and images as ``twin_equal`` holds them,
+    the reservoirs as ``history_equal`` does. Returns (the reservoirs'
+    largest difference, the kernel's reservoir)."""
+    ck, ik, hk = ft.fused_run_cuda(fparams, n, n, bundles=bundles, history=spec, **kwargs)
+    cp, iq, tally, hp = ft.fused_run_plain(fparams, n, n, bundles=bundles, terms=True,
+                                           history=spec, **kwargs)
+    twin_equal((ck, ik), (cp, iq, tally), f"{label} counts and images", fparams)
+    n_fields = 9 if fparams.weight else 8
+    return history_equal(hk, hp, n_fields, f"{label} reservoir"), hk
+
+
+def phase_k1e_twins(ft, engine) -> float:
+    """Phase 39: K1e against its twin on the flagship at 2^20 rays, chunk
+    8192: 'found' (8 slots) and 'sampled' (history_max_lost 10000: 2 slots)
+    in mc and weight mode, both RNG modes; then 'found' on the flagship
+    with its detector narrowed until about a third of the chunks keep a
+    ray, so the selection skips chunks."""
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    err = 0.0
+    for interact in ("mc", "weight"):
+        pipe = engine.Pipeline(flagship(n, 1, engine="fused", interact_mode=interact),
+                               device="cuda")
+        fparams = k1_pack(ft, pipe)
+        uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+        for mode, slots in (("found", 8), ("sampled", None)):
+            spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, slots, mode)
+            for rng, kw in (("input", {"uniforms": uniforms}), ("hw", {"seed": (39, 7)})):
+                e, hist = k1e_against_twin(ft, fparams, n, spec,
+                                           f"phase 39 K1e {mode} {interact} rng={rng}", **kw)
+                err = max(err, e)
+                if hist.chunks.tolist() != list(range(spec.slots)):
+                    raise AssertionError("phase 39: every chunk of the flagship keeps a "
+                                         "ray, so the first chunks are kept")
+    cfg = flagship(n, 1, engine="fused")
+    cfg["optics"]["detector"]["xsize"] = SPARSE_DETECTOR_XSIZE
+    pipe = engine.Pipeline(cfg, device="cuda")
+    fparams = k1_pack(ft, pipe)
+    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+    for rng, kw in (("input", {"uniforms": uniforms}), ("hw", {"seed": (39, 8)})):
+        e, hist = k1e_against_twin(ft, fparams, n, ft.HistorySpec("found", 8, 8192),
+                                   f"phase 39 K1e found, sparse detector, rng={rng}", **kw)
+        err = max(err, e)
+        every = ft.fused_run_cuda(fparams, n, n, history=ft.HistorySpec("found", 128, 8192),
+                                  **kw)[2]
+        marked = every.chunks[:int(every.used)]
+        kept = hist.chunks[:int(hist.used)]
+        log(f"phase 39 sparse detector rng={rng}: {marked.numel()} of 128 chunks keep a "
+            f"ray; 'found' kept {kept.tolist()}")
+        if not (0 < marked.numel() < 64 and torch.equal(kept, marked[:8])
+                and int(kept[-1]) > kept.numel() - 1):
+            raise AssertionError("phase 39: the selection did not skip chunks as it should")
+    return err
+
+
+def detector_local(pipe, name, origin):
+    """Global points (numpy (n, 3)) in the optic ``name``'s local frame."""
+    frame = pipe.params["optics"][name]["frame"]
+    pts = torch.as_tensor(origin, dtype=torch.float64)
+    return ((pts - frame.origin.double().cpu()) @ frame.basis.double().cpu().T).numpy()
+
+
+def check_found(res, pipe, spec, label):
+    """A found history's invariants: at most ``spec.slots * spec.chunk`` rays,
+    alive at every element, the last element's points inside its bounds.
+    Returns the number of found rays."""
+    found = res["found"]["history"]
+    names = list(found)
+    n_found = found[names[-1]]["origin"].shape[0]
+    if not 0 < n_found <= spec.slots * spec.chunk:
+        raise AssertionError(f"{label}: {n_found} found rays, bound "
+                             f"{spec.slots * spec.chunk}")
+    for name in names:
+        if not (found[name]["mask"].all() and found[name]["origin"].shape == (n_found, 3)):
+            raise AssertionError(f"{label}: a found ray is dead at {name}")
+    local = detector_local(pipe, names[-1], found[names[-1]]["origin"])
+    p = pipe.config["optics"][names[-1]]
+    inside = (np.abs(local[:, 0]) <= p["xsize"] / 2 + 1e-6) & (
+        np.abs(local[:, 1]) <= p["ysize"] / 2 + 1e-6) & (np.abs(local[:, 2]) < 1e-5)
+    if not inside.all():
+        raise AssertionError(f"{label}: {int((~inside).sum())} found rays off the "
+                             f"{names[-1]}")
+    return n_found
+
+
+def kept_chunks_twin(ft, fparams, n, spec, label, bundles=None, **kwargs):
+    """K1 with 'found' at full width, then the twin's record pass over the
+    kernel's kept chunks (marks set at them alone): the two reservoirs equal
+    (``history_equal``), so the found count is the twin's count of
+    final-alive rays in those chunks. Returns (kernel reservoir, its found
+    count)."""
+    hist = ft.fused_run_cuda(fparams, n, n, bundles=bundles, history=spec, **kwargs)[2]
+    marks = torch.zeros(spec.n_chunks(n), dtype=torch.int32, device="cuda")
+    marks[hist.chunks[:int(hist.used)].long()] = 1
+    plain = ft.history_record_plain(fparams, n, n, spec, marks, bundles=bundles, **kwargs)
+    n_fields = 9 if fparams.weight else 8
+    history_equal(hist, plain, n_fields, label)
+    return hist, found_in(plain, fparams)
+
+
+def found_in(hist, fparams) -> int:
+    """The rays of a reservoir alive at the last element."""
+    n_fields = 9 if fparams.weight else 8
+    return int((hist.slots[:, fparams.n_optics * n_fields + 7] != 0).sum())
+
+
+def phase_k1e_flagship(smi, ft, engine, raytrace) -> dict:
+    """Phase 40: the flagship at 2^26 x 4 through ``raytrace(config,
+    device='cuda')`` with ``keep_history`` False, 'found' and 'sampled'
+    (history_max_lost 10000): rays/s of each, the found history's
+    invariants, the sampled found share against the run's efficiency,
+    K1e's own time and the twin's; K1 and K1e counted around the 'found'
+    run, the main path of this slice."""
+    N, iters = 1 << 26, 4
+    pipe = engine.Pipeline(flagship(N, iters, engine="fused"), device="cuda")
+    budget = pipe.num_rays * iters
+    out = {}
+    for kh in (False, "found", "sampled"):
+        cfg = flagship(N, iters, engine="fused", keep_history=kh, history_max_lost=10000)
+        ft.fused_run_cuda.launches = 0
+        ft.history_record_cuda.launches = 0
+        res = raytrace(copy.deepcopy(cfg), device="cuda")
+        torch.cuda.synchronize()
+        launches = (ft.fused_run_cuda.launches, ft.history_record_cuda.launches)
+        if launches != (1, int(bool(kh))):
+            raise AssertionError(f"phase 40 keep_history={kh!r}: K1, K1e launches {launches}")
+        ms = cuda_ms(lambda: raytrace(copy.deepcopy(cfg), device="cuda"), 3)
+        out[kh] = {"res": res, "ms": ms, "launches": launches}
+        meta = metas_of(res)
+        log(f"phase 40 flagship keep_history={kh!r}: {budget / ms * 1e3:.4g} rays/s "
+            f"({ms:.2f} ms for {budget} rays on {smi}); meta {meta}; K1, K1e launches "
+            f"{launches}")
+    src = ft._source_spec(pipe.source)
+    spec = ft._history_spec(pipe, src, 8192, 8, "found")
+    res = out["found"]["res"]
+    n_found = check_found(res, pipe, spec, "phase 40 found")
+    log(f"phase 40 found: {n_found} found rays of at most {spec.slots * spec.chunk}, alive "
+        f"at every element, on the detector; lost sample "
+        f"{res['lost']['history']['detector']['origin'].shape[0]}")
+
+    sampled = out["sampled"]["res"]
+    s_spec = ft._history_spec(pipe, src, 8192, None, "sampled")
+    n_sample = min(s_spec.slots * s_spec.chunk, budget)
+    meta = metas_of(sampled)
+    eff = meta["detector"] / meta["source"]
+    n_found_s = check_found(sampled, pipe, s_spec, "phase 40 sampled")
+    n_lost = sampled["lost"]["history"]["detector"]["origin"].shape[0]
+    dev = abs(n_found_s - eff * n_sample) / math.sqrt(n_sample * eff * (1 - eff))
+    log(f"phase 40 sampled: {n_found_s} found of a {n_sample}-ray sample against the "
+        f"run's {eff:.6f}: {dev:.2f} binomial sigma (< 5); lost {n_lost} (history_max_lost "
+        f"10000)")
+    if dev >= 5 or n_lost != 10000 or not sampled["lost"]["history"]["source"]["mask"].all():
+        raise AssertionError("phase 40: the sampled history is biased or not truncated")
+
+    n = budget
+    fparams = k1_pack(ft, pipe)
+    hist, n_twin = kept_chunks_twin(ft, fparams, n, spec, "phase 40 full width, kept chunks",
+                                    seed=(40, 9))
+    n_kernel = found_in(hist, fparams)
+    if n_kernel != n_twin or n_kernel > spec.slots * spec.chunk:
+        raise AssertionError(f"phase 40: {n_kernel} found rays against the twin's {n_twin}")
+    marks = torch.zeros(spec.n_chunks(n), dtype=torch.int32, device="cuda")
+    marks[:spec.slots] = 1
+
+    def k1():
+        ft.fused_run_cuda(fparams, n, n, seed=(40, 9))
+
+    def k1e():
+        ft.fused_run_cuda(fparams, n, n, seed=(40, 9), history=spec)
+
+    times = {"k1": [], "k1e": []}
+    for which in ("k1", "k1e", "k1e", "k1"):
+        times[which].append(cuda_ms(k1 if which == "k1" else k1e, 5))
+    t_k1, t_found = min(times["k1"]), min(times["k1e"])
+    record_ms = cuda_ms(lambda: ft.history_record_cuda(fparams, n, n, spec, marks,
+                                                       seed=(40, 9)), 20)
+    plain_ms = cuda_ms(lambda: ft.history_record_plain(fparams, n, n, spec, marks,
+                                                       seed=(40, 9)), 2)
+    n_rows = hist.slots.shape[1]
+    b = bound(spec.slots * n_rows * spec.chunk * 4 + 8 * spec.n_chunks(n)
+              + packed_bytes(fparams.fp, fparams.ip, fparams.aux),
+              k1_ops(fparams) * spec.slots * spec.chunk)
+    k1e_ms = t_found - t_k1
+    log(f"phase 40 timings on {smi}: K1 {t_k1:.4f} ms, K1 with 'found' {t_found:.4f} ms "
+        f"per {n} rays (least of 2 means of 5, interleaved), so K1e (the marks plus the "
+        f"record launch) {k1e_ms:.4f} ms; the record launch alone {record_ms:.4f} ms, its "
+        f"twin {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}: {spec.slots} x "
+        f"{spec.chunk} rays traced again, {n_rows} rows written); found {n_kernel} rays, "
+        f"the twin's count in the kept chunks {n_twin}")
+    return {"launches": out["found"]["launches"][1], "ms": k1e_ms, "record_ms": record_ms,
+            "plain_ms": plain_ms, "bound": b,
+            "rays_per_s": {str(k): budget / v["ms"] * 1e3 for k, v in out.items()}}
+
+
+def phase_k1e_plasma(ft, engine, raytrace) -> None:
+    """Phase 41: ``plasma_torus`` with ``keep_history='found'`` at 2^22
+    photons x 4 on ``engine='fused'``: the found history's invariants (chunk
+    capped at 4096 for a plasma), and K1e at that width against the twin's
+    record pass over its kept chunks."""
+    cfg = plasma_config(1 << 22, 4, engine="fused", keep_history="found")
+    ft.history_record_cuda.launches = 0
+    res = raytrace(copy.deepcopy(cfg), device="cuda")
+    launches = ft.history_record_cuda.launches
+    pipe, fparams, bundles, n = plasma_k1_setup(ft, engine, 1 << 22, 4)
+    spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+    n_found = check_found(res, pipe, spec, "phase 41 plasma_torus found")
+    hist, n_twin = kept_chunks_twin(ft, fparams, n, spec, "phase 41 plasma_torus, kept chunks",
+                                    bundles=bundles, seed=(41, 3))
+    n_kernel = found_in(hist, fparams)
+    log(f"phase 41 plasma_torus found: {n_found} found rays of at most "
+        f"{spec.slots} x {spec.chunk}; K1e launches {launches}; "
+        f"direct call {n_kernel} found, the twin's {n_twin}; meta {metas_of(res)}")
+    if spec.chunk != 4096 or n_kernel != n_twin or launches != 1:
+        raise AssertionError("phase 41: the plasma's reservoir is wrong")
+
+
+def phase_cli(raytrace, n=1 << 22) -> None:
+    """Phase 42: ``python -m xicsrt_tpu_torch`` on the card. The flagship's
+    config (fused, keep_history 'found', pickle results) is written to a
+    directory under ``build/chip_smoke``; the CLI runs it with ``--save
+    --numiter 2 --seed 3`` in a process of its own; its results file holds
+    the meta of an in-process run of the same config and seed, and the
+    found history."""
+    import shutil
+    import tempfile
+
+    from xicsrt_tpu_torch import io as xio
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=SMOKE_DIR)
+    try:
+        out = os.path.join(work, "out")
+        cfg = flagship(n, 1, engine="fused", keep_history="found",
+                       results_ext=".pickle", save_results=True, save_config=True,
+                       make_directories=True, output_path=out)
+        path = os.path.join(work, "config.json")
+        xio.save_config(cfg, path)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "xicsrt_tpu_torch", path, "--save",
+                               "--numiter", "2", "--seed", "3"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"phase 42: the CLI exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        saved = xio.load_results(os.path.join(out, "xicsrt_results.pickle"))
+        ref_cfg = copy.deepcopy(cfg)
+        ref_cfg["general"].update(number_of_iter=2, random_seed=3, save_results=False,
+                                  save_config=False)
+        ref = raytrace(ref_cfg, device="cuda")
+        found = saved["found"]["history"]["detector"]["origin"].shape[0]
+        log(f"phase 42 CLI: exit 0 in {seconds:.1f} s; files {sorted(os.listdir(out))}; "
+            f"meta {metas_of(saved)} against the in-process run's {metas_of(ref)}; "
+            f"{found} found rays saved")
+        if metas_of(saved) != metas_of(ref) or not 0 < found <= 8 * 8192:
+            raise AssertionError("phase 42: the CLI's results differ from the in-process run")
+        if found != ref["found"]["history"]["detector"]["origin"].shape[0]:
+            raise AssertionError("phase 42: the CLI's found history differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def ptxas_registers(pattern: str) -> str:
     """ptxas's register line of the kernel whose mangled name holds
     ``pattern`` (K1a's build: ``fused_trace_kernelILb0ELb0ELi0E``, the point
@@ -2803,7 +3118,7 @@ def main() -> int:
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
     t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
-    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_kernelILb0ELb0ELi0E')}")
+    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_kernelILb0ELb0ELi0ELb0E')}")
 
     # Phase 38: this slice's stages per 2^22 rays beside K1a, and the
     # registers of their builds.
@@ -2819,11 +3134,22 @@ def main() -> int:
         t_mosaic[mode] = k1_timing(ft, fp_m, n, smi, f"K1c-mosaic {mode} (mosaic15)", "38",
                                    ops)
     t_k1a_again = k1_timing(ft, fparams, n, smi, "K1a (the flagship), again", "38")
-    for pattern in ("fused_trace_kernelILb0ELb0ELi1E", "fused_trace_kernelILb0ELb0ELi2E",
+    for pattern in ("fused_trace_kernelILb0ELb0ELi1ELb0E", "fused_trace_kernelILb0ELb0ELi2ELb0E",
                     "trace_only_kernelILb0ELi1E", "trace_only_kernelILb0ELi2E",
                     "fused_grad_bwd_kernelILb0ELb0ELi0ELb1E",
                     "fused_grad_bwd_kernelILb0ELb0ELi0ELb0E"):
         log(f"phase 38 ptxas {ptxas_registers(pattern)}")
+
+    # Phases 39-42: the history reservoir K1e, and the file entry point.
+    k1e_err = phase_k1e_twins(ft, engine)
+    k1e = phase_k1e_flagship(smi, ft, engine, xicsrt_tpu_torch.raytrace)
+    phase_k1e_plasma(ft, engine, xicsrt_tpu_torch.raytrace)
+    phase_cli(xicsrt_tpu_torch.raytrace)
+    for pattern in ("fused_trace_kernelILb0ELb0ELi0ELb1E", "history_record_kernel"):
+        log(f"phase 40 ptxas {ptxas_registers(pattern)}")
+    unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
+    if unwanted:
+        raise AssertionError(f"chip_smoke imported {unwanted}")
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2918,9 +3244,15 @@ def main() -> int:
         row("fused_grad_vjp_cuda mosaic (K5b: K5d)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:1281 (pallas_call :1921)", k5d["b_launches"],
             k5d["b_err"], k5d["b_ms"], k5d["b_plain"], k5d["b_bound"]),
+        row("history_record_cuda and the marked K1 (K1e)",
+            "xicsrt_tpu_torch/csrc/fused_history.cu",
+            "xicsrt_tpu/ops/fused_trace.py:1720 (slot write :1750, kernel :1343, "
+            "pallas_call :1864)", k1e["launches"], k1e_err, k1e["ms"], k1e["plain_ms"],
+            k1e["bound"]),
     ]
     log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms; "
         f"phase 38 again {t_k1a_again['ms']:.4f} ms")
+    log(f"the script took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

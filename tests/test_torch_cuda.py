@@ -420,3 +420,38 @@ def test_fused_grad_mosaic_matches_twins(cuda_device):
                                atol=5e-3 * truth.abs().max().item())
     after = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
     assert after == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("case", ["found", "sampled", "found weight", "found sparse"])
+def test_k1e_matches_twin(cuda_device, case):
+    """K1e: K1's marked build, the chunk selection and the record launch
+    against the twin at 2^16 rays, chunk 4096 (16 chunks, 4 slots), in
+    both RNG modes: counts and images as ``chip_smoke.twin_equal`` holds
+    them, the same kept chunks and every recorded value equal."""
+    import chip_smoke
+
+    mode = case.split()[0]
+    n = 1 << 16
+    cfg = _spectrometer_config(intensity=n, engine="fused",
+                               interact_mode="weight" if "weight" in case else "mc")
+    if "sparse" in case:
+        cfg["optics"]["detector"]["xsize"] = chip_smoke.SPARSE_DETECTOR_XSIZE
+    fparams = chip_smoke.k1_pack(ft, Pipeline(cfg, device=cuda_device))
+    spec = ft.HistorySpec(mode, 4, 4096)
+    uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(3))
+    before = (ft.fused_run_cuda.launches, ft.history_record_cuda.launches)
+    for kw in ({"seed": (5, 6)}, {"uniforms": uniforms}):
+        chip_smoke.k1e_against_twin(ft, fparams, n, spec, case, **kw)
+    assert (ft.fused_run_cuda.launches, ft.history_record_cuda.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_cli_runs_on_the_card(cuda_device):
+    """``python -m xicsrt_tpu_torch`` in a process of its own at 2^16 rays:
+    exit 0, its saved meta equal to an in-process run's, the found history
+    saved (``chip_smoke.phase_cli``)."""
+    import chip_smoke
+    import xicsrt_tpu_torch
+
+    chip_smoke.phase_cli(xicsrt_tpu_torch.raytrace, 1 << 16)

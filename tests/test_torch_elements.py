@@ -159,10 +159,11 @@ def test_poisson_source_budget_and_mask():
 
 
 def test_not_ported_elements_raise(tmp_path):
+    # A plugin pathlist loads element files (tests/test_torch_io_cli.py); a
+    # directory without any imports nothing, as in JAX.
     cfg = _config()
-    cfg["general"]["pathlist"] = ["plugins"]
-    with pytest.raises(NotImplementedError):
-        TorchPipeline(cfg, device="cpu")
+    cfg["general"]["pathlist"] = [str(tmp_path / "plugins")]
+    assert TorchPipeline(cfg, device="cpu").element_names[-1] == "detector"
     cfg = _config()
     cfg["optics"]["crystal"]["class_name"] = "XicsrtOpticUnknownCrystal"
     with pytest.raises(KeyError):

@@ -161,7 +161,10 @@ def test_engine_selection():
     cfg = _spectrometer_config(intensity=4096, engine="fused", keep_history=True)
     with pytest.raises(NotImplementedError):
         xicsrt_tpu_torch.raytrace(cfg, device="cpu")
-    cfg["general"]["keep_history"] = "found"
+    cfg["general"]["keep_history"] = "found"  # the reservoir K1e (its twin here)
+    res = xicsrt_tpu_torch.raytrace(cfg, device="cpu")
+    assert 0 < len(res["found"]["history"]["detector"]["origin"]) <= 8 * 8192
+    cfg["general"]["dtype"] = "float64"
     with pytest.raises(FusedUnsupported):
         xicsrt_tpu_torch.raytrace(cfg, device="cpu")
 
@@ -189,10 +192,17 @@ def test_device_is_explicit(monkeypatch):
         xicsrt_tpu_torch.Pipeline(_spectrometer_config(intensity=100))
 
 
-def test_io_not_ported_raises():
-    cfg = _spectrometer_config(intensity=100, save_images=True)
-    with pytest.raises(NotImplementedError):
+def test_io_not_ported_raises(tmp_path):
+    """IO is ported (``tests/test_torch_io_cli.py``); what raises is an
+    output path that does not exist without ``make_directories``, as in
+    JAX. With it, the per-run and combined images appear."""
+    out = str(tmp_path / "missing")
+    cfg = _spectrometer_config(intensity=100, save_images=True, output_path=out)
+    with pytest.raises(FileNotFoundError):
         xicsrt_tpu_torch.raytrace(cfg, device="cpu")
+    cfg["general"]["make_directories"] = True
+    xicsrt_tpu_torch.raytrace(cfg, device="cpu")
+    assert {"xicsrt_detector_0000.tif", "xicsrt_detector.tif"} <= set(os.listdir(out))
 
 
 def _jax_imports(path):

@@ -28,16 +28,23 @@ mirror; the fused kernels trace a smooth mesh by its Chebyshev surrogate);
 no interaction, mirror, the Bragg crystal with gaussian, step or file
 (``utils/bragg_files.py``) rocking, and the planar, spherical and mesh
 mosaic crystals, in mc and weight mode on every engine; nearest and
-bilinear images on every engine; history;
+bilinear images on every engine; full history on the eager engine, and on
+the fused engine the bounded reservoirs ``keep_history='found'`` and
+``'sampled'`` (K1e, ``csrc/fused_history.cu``);
 gradients (``gradients.py``): ``make_differentiable`` (eager autograd,
 reaching a plasma's temperature), ``make_fused_differentiable``
 (hand-written CUDA forward and adjoint kernels, ``ops/fused_grad.py``: the
 generic source matrix and constant-profile plasmas, whose emissivity and
 temperature it differentiates; plane, sphere, cylinder and torus optics;
 file rocking curves; planar and spherical mosaic crystals), ``align`` and
-``l2_image_loss``. The rest of the JAX package raises
-``NotImplementedError``: IO, the CLI, plugins, sharded runs and the fused
-history reservoirs among it.
+``l2_image_loss``; files and the command line: ``io.py`` (configs, results
+in hdf5, zip, pickle or json, TIF images), ``python -m xicsrt_tpu_torch``
+(``__main__.py``), plugin element paths (``general.pathlist``,
+``dispatch.load_plugin_paths``), ``utils/`` (hdf5 dicts, colours, plot
+lists, config docs, ``warn_version``) and ``visual/`` (``plot2d``,
+``detview``, ``plot3d``), whose optional packages (h5py, PIL, matplotlib,
+plotly, ipyvolume) are imported at first use. Sharded runs over several
+devices (``parallel/``, ``raytrace_mp``) raise ``NotImplementedError``.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401
@@ -59,3 +66,4 @@ from xicsrt_tpu_torch.gradients import (  # noqa: E402,F401
     make_fused_differentiable,
 )
 from xicsrt_tpu_torch.public import get_element  # noqa: E402,F401
+from xicsrt_tpu_torch.utils.version import warn_version  # noqa: E402,F401

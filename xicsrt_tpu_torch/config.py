@@ -20,6 +20,8 @@ dict runs on both packages. In this package:
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from xicsrt_tpu_torch._version import __version__
@@ -49,8 +51,10 @@ def default_config() -> dict:
 
     g["keep_meta"] = True
     g["keep_images"] = True
-    # True (full history) or False; the fused engine's bounded reservoirs
-    # ('found', 'sampled') are not ported yet.
+    # True (full history), False, 'found' or 'sampled': on the fused
+    # engine, 'found' keeps a bounded reservoir of the chunks that produced
+    # detector hits, 'sampled' an unbiased bounded sample of all rays
+    # (ops/fused_trace.py build_fused_run docstring).
     g["keep_history"] = True
     g["history_max_lost"] = 10000
     g["history_found_slots"] = 8
@@ -87,6 +91,16 @@ def default_config() -> dict:
 def get_config(config_user: dict | None = None) -> dict:
     config = default_config()
     update_config(config, config_user, strict=False, update=True)
+    return config
+
+
+def refresh_config(config_new: dict) -> dict:
+    """Re-default machine-specific entries of a config loaded from another
+    system (JAX ``config.refresh_config``)."""
+    config_new = copy.deepcopy(config_new)
+    config_new.get("general", {}).pop("pathlist_default", None)
+    config = default_config()
+    update_config(config, config_new, strict=False, update=True, ignore_none=True)
     return config
 
 
@@ -137,6 +151,26 @@ def config_to_numpy(obj):
                 config_to_numpy(v)
             elif isinstance(v, (list, tuple)) and _is_numeric_seq(v):
                 obj[k] = np.asarray(v)
+    return obj
+
+
+def config_from_numpy(obj):
+    """Recursively convert numpy types to plain python, in place (for json)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if isinstance(v, dict):
+                config_from_numpy(v)
+            elif isinstance(v, np.ndarray):
+                obj[k] = v.tolist()
+            elif isinstance(v, np.generic):
+                obj[k] = v.item()
+            elif isinstance(v, (list, tuple)):
+                obj[k] = [
+                    config_from_numpy(i)
+                    if isinstance(i, dict)
+                    else (i.tolist() if isinstance(i, np.ndarray) else i)
+                    for i in v
+                ]
     return obj
 
 

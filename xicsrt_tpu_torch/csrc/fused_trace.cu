@@ -26,7 +26,8 @@
 // ray carries a weight in a register from 1 (fused_trace.py:1719);
 // per-element counts of the rays alive; nearest-pixel or bilinear images of
 // the weights. The chain is trace_chain.cuh, shared with the trace-only
-// kernel K3 (trace_only.cu).
+// kernel K3 (trace_only.cu); the kernel and its launcher are fused_run.cuh,
+// shared with the history builds of fused_history.cu (K1e).
 //
 // Plasma: iteration j holds rays [j n, (j + 1) n) of the budget n; ray
 // j n + l is alive iff l < cum_j[B-1], finds its bundle by binary search
@@ -71,95 +72,7 @@
 // (binning.cuh), a bilinear hit four shared atomics where the TPU kernel
 // contracted tent matrices on its MXU, both flushed once per block with
 // global atomics.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "binning.cuh"
-#include "bundle_lookup.cuh"
-#include "trace_chain.cuh"
-#include "trace_common.cuh"
-
-namespace {
-
-// kFull: the generic source's whole sampler (xrt_sample_source), else its
-// point-source cut; a plasma takes neither. kCheb: the chain's mesh stage;
-// kStages: its weight and bilinear stages (1), and the mosaic's (2)
-// (trace_chain.cuh).
-template <bool kFull, bool kCheb, int kStages>
-__global__ void fused_trace_kernel(
-    const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, const float* __restrict__ aux, long long n_total, long long count,
-    const float* __restrict__ uniforms, uint32_t seed0, uint32_t seed1,
-    const int* __restrict__ cum, const float* __restrict__ table,
-    int n_bundles, int n_per_iter, unsigned long long* __restrict__ counts,
-    float* __restrict__ images, int img_total, int use_smem) {
-    extern __shared__ float s_img[];
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
-
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
-    for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
-        s_counts[i] = 0u;
-    }
-    if (use_smem) xrt_smem_zero(s_img, img_total);
-    __syncthreads();
-
-    float* img = use_smem ? s_img : images;
-    const int n_opt = ip[0];
-    const bool plasma = ip[5] == XRT_SRC_PLASMA;
-    const bool voxel = ip[6] != 0, cauchy = ip[7] != 0;
-    const bool per_ray_wl = ip[XRT_H_PER_RAY_WL] != 0;
-    const int lane = threadIdx.x & 31;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-
-    // Whole warps step together (blockDim is a multiple of 32), so every
-    // lane reaches every __ballot_sync; lanes past the end carry dead rays.
-    for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-         r0 < n_total; r0 += stride) {
-        const long long r = r0 + lane;
-        const bool in_range = r < n_total;
-        const long long ray = in_range ? r : n_total - 1;
-        Draws draw{uniforms, n_total, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
-        bool alive;
-        float px, py, pz, dx, dy, dz, wl = 0.0f;
-        if (plasma) {
-            // ---- source: the ray's bundle, then the plasma sampler -----
-            const long long j = ray / n_per_iter;
-            const int local = (int)(ray - j * n_per_iter);
-            const int* cum_j = cum + j * n_bundles;
-            alive = in_range && local < __ldg(cum_j + n_bundles - 1);
-            float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
-            if (alive) {
-                const int b = min(xrt_upper_bound(cum_j, n_bundles, local), n_bundles - 1);
-                xrt_bundle_row(table + j * n_bundles * 8, b, &lo, &hi);
-            }
-            xrt_sample_plasma(fp, voxel, cauchy, draw, lo, hi, px, py, pz, dx,
-                              dy, dz, wl);
-        } else {
-            // ---- source: origin, cone, wavelength, sightline filters ---
-            bool keep;
-            xrt_sample_source<kFull>(fp, ip, draw, px, py, pz, dx, dy, dz, wl,
-                                     keep);
-            alive = in_range && r < count && keep;
-        }
-        xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
-                                     wl, per_ray_wl, alive, 1.0f, s_counts, img,
-                                     lane);
-    }
-
-    __syncthreads();
-    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {
-        if (s_counts[i]) {
-            atomicAdd(counts + i, (unsigned long long)s_counts[i]);
-        }
-    }
-    if (use_smem) xrt_smem_flush(s_img, images, img_total);
-}
-
-}  // namespace
+#include "fused_run.cuh"
 
 // fp/ip: packed parameters (n_fp floats, n_ip ints) on the device. Rays
 // [0, n_total) are traced. A point source's rays at index >= count are dead
@@ -183,33 +96,8 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                long long n_per_iter, unsigned long long* counts,
                                float* images, int img_total, int full_source,
                                int cheb, int stages, void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
-        stages < 0 || stages > 2) {
-        return (int)cudaErrorInvalidValue;
-    }
-    if (cum != nullptr && (n_bundles <= 0 || n_per_iter <= 0 ||
-                           n_per_iter >= (1LL << 31) || n_total % n_per_iter)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    if (n_total <= 0) return (int)cudaSuccess;
-    const int threads = 256;
-    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
-    const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    using Kernel = decltype(&fused_trace_kernel<false, false, 0>);
-    const Kernel kernels[12] = {
-        fused_trace_kernel<false, false, 0>, fused_trace_kernel<false, false, 1>,
-        fused_trace_kernel<false, false, 2>, fused_trace_kernel<false, true, 0>,
-        fused_trace_kernel<false, true, 1>,  fused_trace_kernel<false, true, 2>,
-        fused_trace_kernel<true, false, 0>,  fused_trace_kernel<true, false, 1>,
-        fused_trace_kernel<true, false, 2>,  fused_trace_kernel<true, true, 0>,
-        fused_trace_kernel<true, true, 1>,   fused_trace_kernel<true, true, 2>};
-    const Kernel kernel = kernels[(full_source ? 6 : 0) + (cheb ? 3 : 0) + stages];
-    cudaError_t err = xrt_set_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
-    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum,
-        table, n_bundles, (int)n_per_iter, counts, images, img_total,
-        use_smem);
-    return (int)cudaGetLastError();
+    return xrt_fused_launch<false>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
+                                   uniforms, seed0, seed1, cum, table, n_bundles,
+                                   n_per_iter, counts, images, img_total, full_source,
+                                   cheb, stages, nullptr, 0, stream);
 }

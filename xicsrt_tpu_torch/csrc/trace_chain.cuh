@@ -23,6 +23,16 @@ __device__ __forceinline__ void xrt_count_warp(unsigned int* s_counts, int elem,
     if (lane == 0 && b) atomicAdd(s_counts + elem, (unsigned int)__popc(b));
 }
 
+// The chain's record hook (K1e, fused_history.cu): called after each
+// element with its post-element state; a hook whose kOn is set takes the
+// place of the counts and the images. XrtNoRecord, the default, compiles
+// to nothing, so the builds without history keep their code.
+struct XrtNoRecord {
+    static constexpr bool kOn = false;
+    __device__ __forceinline__ void operator()(int, float, float, float, float, float,
+                                               float, bool, float) const {}
+};
+
 // The Bragg deviation sd + sd^3 / 6, sd = |d.n| cos_b - sqrt(1 - (d.n)^2)
 // sin_b (fused_trace.py:995-1002), of a direction on the normal whose dot
 // product with it is dot.
@@ -186,12 +196,16 @@ __device__ __forceinline__ void xrt_splat(float* img, float fx, float fy,
 // mosaic's registers (chip_ab.py, PERF.md). File rocking curves (rocking
 // code 2, the table read from aux) and mirrors (interact code 2: d' = d -
 // 2 (d.n) n, no draw) are in every build.
-template <bool kCheb, int kStages>
-__device__ __forceinline__ void xrt_trace_chain(
+//
+// Returns whether the ray is alive after the last element. rec, where its
+// kOn is set, takes each element's state (1 + e, position, direction,
+// alive, weight) in place of the counts and the images.
+template <bool kCheb, int kStages, class Rec = XrtNoRecord>
+__device__ __forceinline__ bool xrt_trace_chain(
     const float* fp, const int* ip, const float* __restrict__ aux, Draws& draw,
     float px, float py, float pz, float dx, float dy, float dz, float wl,
     bool per_ray_wl, bool alive, float wt, unsigned int* s_counts, float* img,
-    int lane) {
+    int lane, Rec rec = Rec()) {
     const int n_opt = ip[0];
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
@@ -303,6 +317,10 @@ __device__ __forceinline__ void xrt_trace_chain(
         py = qy;
         pz = qz;
         alive = mask;
+        if constexpr (Rec::kOn) {
+            rec(1 + e, px, py, pz, dx, dy, dz, alive, wt);
+            continue;
+        }
         xrt_count_warp(s_counts, 1 + e, alive, lane);
 
         if (oi[7] >= 0 && alive) {
@@ -318,4 +336,5 @@ __device__ __forceinline__ void xrt_trace_chain(
             }
         }
     }
+    return alive;
 }

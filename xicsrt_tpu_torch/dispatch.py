@@ -42,9 +42,63 @@ def register(*names):
                 raise ValueError(f"Duplicate element registration: {n}")
             _REGISTRY[key] = cls
         cls._registered_names = names
-        return cls
+        # The "Configuration Options" docs from the MRO's default_config
+        # docstrings (the reference's @dochelper pattern).
+        from xicsrt_tpu_torch.utils.docs import attach_config_doc
+
+        return attach_config_doc(cls)
 
     return deco
+
+
+def contrib_pathlist() -> list:
+    """Element directories of the optional ``xicsrt_contrib`` package
+    (JAX ``dispatch.contrib_pathlist``; ``xicsrt_config._add_pathlist_contrib``
+    :270-281): when the companion package is installed, its filters,
+    sources and optics directories are searched for plugin element files."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.find_spec("xicsrt_contrib")
+    if spec is None or not spec.origin:
+        return []
+    base = os.path.dirname(os.path.abspath(spec.origin))
+    return [os.path.join(base, d) for d in ("filters", "sources", "optics")]
+
+
+def load_plugin_paths(pathlist) -> list:
+    """Import user element modules from a list of directories (JAX
+    ``dispatch.load_plugin_paths``; the reference's file-glob discovery,
+    ``_Dispatcher.py:63-95``): every ``_Xicsrt*.py`` / ``xicsrt_*.py`` file
+    is imported once. Classes using ``@register`` register themselves; any
+    other ``Element`` subclass the module defines is registered under its
+    class name. Returns the files imported by this call."""
+    import glob
+    import importlib.util
+    import os
+
+    loaded = []
+    for path in list(pathlist or []) + contrib_pathlist():
+        patterns = [os.path.join(path, "_Xicsrt*.py"), os.path.join(path, "xicsrt_*.py")]
+        for filename in sorted({f for pat in patterns for f in glob.glob(pat)}):
+            modname = "xicsrt_tpu_torch_plugin_" + os.path.splitext(
+                os.path.basename(filename))[0].lstrip("_")
+            if modname in _LOADED_PLUGINS:
+                continue
+            spec = importlib.util.spec_from_file_location(modname, filename)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            _LOADED_PLUGINS[modname] = module
+            for obj in vars(module).values():
+                if (isinstance(obj, type) and issubclass(obj, Element)
+                        and obj.__module__ == modname
+                        and obj.__name__.lower() not in _REGISTRY):
+                    _REGISTRY[obj.__name__.lower()] = obj
+            loaded.append(filename)
+    return loaded
+
+
+_LOADED_PLUGINS: dict = {}
 
 
 def lookup(class_name: str):

@@ -59,8 +59,7 @@ class Pipeline:
         self.device = default_device(device)
 
         profiler.start("pipeline_build")
-        if general.get("pathlist"):
-            raise NotImplementedError("plugin pathlists are not ported yet.")
+        dispatch.load_plugin_paths(general.get("pathlist"))
         self.filters = dispatch.build_section(self.config, "filters", self.device)
         self.sources = dispatch.build_section(self.config, "sources", self.device)
         self.optics = dispatch.build_section(self.config, "optics", self.device)
@@ -227,6 +226,10 @@ def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
     num_iter = int(pipeline.general["number_of_iter"])
     engine_kind = str(g.get("engine", "xla")).lower()
     kh = g["keep_history"]
+    # keep_history='found': the bounded reservoir K1e of the chunks with
+    # detector hits; 'sampled': a bounded unbiased sample of all rays,
+    # honouring history_max_lost. Both on K1; FULL history is the eager
+    # engine's.
     kh_mode = kh.lower() if isinstance(kh, str) else None
     fused_history = kh_mode in ("found", "sampled")
     if engine_kind in ("fused", "auto") and (not kh or fused_history):
@@ -246,7 +249,8 @@ def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
             if fused_history:
                 log.warning(
                     "fused engine unavailable (%s); keep_history=%r "
-                    "degrades to FULL per-ray history on the eager engine",
+                    "degrades to FULL per-ray history on the eager engine "
+                    "(unbounded memory in num_rays*num_iter)",
                     err, kh,
                 )
             else:
@@ -254,7 +258,8 @@ def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
     elif engine_kind == "fused":
         raise NotImplementedError(
             "engine='fused' does not keep FULL ray history; set "
-            "keep_history=False, or engine='auto' to fall back."
+            "keep_history=False, keep_history='found' (bounded in-kernel "
+            "reservoir), or engine='auto' to fall back."
         )
     return pipeline.make_run(num_iter), pipeline
 
@@ -304,17 +309,16 @@ def raytrace_single(config: dict, _pipeline: Pipeline | None = None,
 
 
 def raytrace(config: dict, device=None) -> dict:
-    """Top-level entry: all runs, combined results, optional printing.
+    """Top-level entry: all runs, combined results, optional saving and
+    printing (JAX ``engine.py:545-597``).
 
     ``device`` defaults to CUDA and raises when CUDA is absent; pass
     ``device='cpu'`` to run on the CPU.
     """
+    from xicsrt_tpu_torch import io as xio
+
     t_start = time.time()
     device = default_device(device)
-    g_user = get_config(config)["general"]
-    for key in ("save_config", "save_images", "save_results"):
-        if g_user[key]:
-            raise NotImplementedError(f"{key}: io.py is not ported yet.")
     with profiler.span("build_runner"):
         runner, pipeline = build_runner(config, device=device)
     config = pipeline.config
@@ -324,12 +328,23 @@ def raytrace(config: dict, device=None) -> dict:
     with profiler.device_trace(g.get("profile_dir")):
         for run in range(int(g["number_of_runs"])):
             g["output_run_suffix"] = f"{run:04d}"
-            outputs.append(raytrace_single(
-                config, _pipeline=pipeline, _run_index=run, _runner=runner))
+            result = raytrace_single(
+                config, _pipeline=pipeline, _run_index=run, _runner=runner)
+            if g["save_images"]:
+                with profiler.span("save_images"):
+                    xio.save_images(result)
+            outputs.append(result)
 
     with profiler.span("combine_raytrace"):
         result = combine_raytrace(outputs)
     g["output_run_suffix"] = None
+    if g["save_config"]:
+        xio.save_config(config)
+    if g["save_images"]:
+        xio.save_images(result)
+    if g["save_results"]:
+        with profiler.span("save_results"):
+            xio.save_results(result)
     if g["print_results"]:
         print_raytrace(result)
     log.info("raytrace completed in %0.2f s", time.time() - t_start)

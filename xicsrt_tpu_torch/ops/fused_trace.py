@@ -6,8 +6,9 @@ nearest-pixel images, with all per-ray state in registers. It replaces the
 ported cuts of the TPU megakernel ``build_fused_run`` (kernel): the main
 chain (K1a), the generic source matrix (K1b), the in-kernel plasma source
 (K1f), the torus, cylinder, mesh (K1c-cheb), file rocking (K1c-file),
-mirror (K1c-mirror) and mosaic (K1c-mosaic) stages of K1c, and weight mode
-with bilinear images (K1d). A second kernel, K3
+mirror (K1c-mirror) and mosaic (K1c-mosaic) stages of K1c, weight mode
+with bilinear images (K1d), and the history reservoir (K1e, two more
+launches, ``csrc/fused_history.cu``). A second kernel, K3
 (``csrc/trace_only.cu``, :func:`fused_trace_run_cuda`), traces rays the
 eager engine generated through the same chain (``csrc/trace_chain.cuh``);
 it replaces the TPU's ``build_fused_trace_run``.
@@ -44,7 +45,10 @@ Supported subset (``general.engine='fused'``; outside it the build raises
 - ``interact_mode`` mc (Bernoulli acceptance) or weight (each ray carries
   a weight: a crystal multiplies it by its probability and draws nothing,
   a mosaic crystal by its survival estimator), nearest-pixel or bilinear
-  images of the weights, float32, no history reservoir.
+  images of the weights, float32;
+- the history reservoirs ``keep_history='found'`` and ``'sampled'`` (K1e,
+  :func:`history_record_cuda`, ``csrc/fused_history.cu``): the kept chunks'
+  rays traced again, each element's state recorded, K1 only.
 
 A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
 filters) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
@@ -72,6 +76,7 @@ The twins do the kernels' float32 operations in the kernels' order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -1240,13 +1245,17 @@ def aperture_logic_plain(F, I, oi, lxv, lyv, m_in):
     return m_out & m_in
 
 
-def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None, tally=None):
+def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None, tally=None,
+                 record=None):
     """Trace one slice of rays exactly as K1 does; adds into ``counts``
     (int64) and the flat ``image``. ``aux``: the packed aux buffer;
     ``alive``: the rays alive at the source before its filters; ``attrs``:
     their bundle rows for a plasma source; ``tally``: see
     :func:`_trace_chain_plain`. In weight mode every ray leaves the source
-    with weight 1 (JAX ``fused_trace.py:1719``)."""
+    with weight 1 (JAX ``fused_trace.py:1719``). ``record(e, px, py, pz,
+    dx, dy, dz, alive, wt, wl=...)`` takes each element's state, the
+    source's as element 0, with the rays' wavelengths. Returns the rays
+    alive after the last element."""
     shape = alive.shape
 
     def full(value):
@@ -1259,9 +1268,13 @@ def _trace_slice(F, I, aux, alive, draw, counts, image, attrs=None, tally=None):
     else:
         px, py, pz, dx, dy, dz, wl = sample_plasma_plain(F, I, attrs, draw)
     counts[0] += alive.sum()
-    _trace_chain_plain(F, I, aux, (px, py, pz, dx, dy, dz),
-                       wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image,
-                       full(1.0) if I[H_WEIGHT] else None, tally)
+    wt = full(1.0) if I[H_WEIGHT] else None
+    if record is not None:
+        record = functools.partial(record, wl=wl)
+        record(0, px, py, pz, dx, dy, dz, alive, wt)
+    return _trace_chain_plain(F, I, aux, (px, py, pz, dx, dy, dz),
+                              wl if I[H_PER_RAY_WL] else None, alive, draw, counts, image,
+                              wt, tally, record)
 
 
 def rock_prob_plain(o, oi, aux, delta, full):
@@ -1386,14 +1399,16 @@ def splat_plain(image, base: int, fx, fy, nx: int, ny: int, w, tally=None):
 
 
 def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image, wt=None,
-                       tally=None):
+                       tally=None, record=None):
     """The kernels' optic chain (``xrt_trace_chain``, ``csrc/
     trace_chain.cuh``) on a slice: ``aux`` the packed aux buffer, ``ray`` =
     (px, py, pz, dx, dy, dz), ``wl`` the per-ray wavelengths or None for the
     optics' constant Bragg angles, ``wt`` the rays' weights in weight mode,
     else None. Adds into ``counts[1:]`` and ``image``, and with a ``tally``
     (two float64 images) the number of terms each pixel sums and the sum of
-    their magnitudes."""
+    their magnitudes. ``record(1 + e, px, py, pz, dx, dy, dz, alive, wt)``
+    takes each element's post-element state (the kernels' record hook).
+    Returns the rays alive after the last element."""
     f32 = torch.float32
     n_opt = I[0]
     px, py, pz, dx, dy, dz = ray
@@ -1481,6 +1496,8 @@ def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image, wt=None,
         px, py, pz = qx, qy, qz
         alive = mask
         counts[1 + e] += alive.sum()
+        if record is not None:
+            record(1 + e, px, py, pz, dx, dy, dz, alive, wt)
 
         if oi[7] >= 0:
             nx, ny = oi[8], oi[9]
@@ -1494,6 +1511,7 @@ def _trace_chain_plain(F, I, aux, ray, wl, alive, draw, counts, image, wt=None,
             ok = alive & (fx >= 0) & (fx < nx) & (fy >= 0) & (fy < ny)
             idx = oi[7] + fx[ok].long() * ny + fy[ok].long()
             _add_terms(image, idx, w[ok], tally)
+    return alive
 
 
 def _slices(fparams: FusedParams, n_total: int, count: int, bundles):
@@ -1514,8 +1532,34 @@ def _slices(fparams: FusedParams, n_total: int, count: int, bundles):
         for start in range(0, n_per_iter, _TWIN_SLICE):
             local = torch.arange(start, min(start + _TWIN_SLICE, n_per_iter),
                                  dtype=torch.int64, device=device)
-            attrs = bundle_rows(cum[j], table[j], local)
-            yield j * n_per_iter + local, local < cum[j, -1], attrs
+            yield (j * n_per_iter + local, *_plasma_rays(cum[j], table[j], local))
+
+
+def _plasma_rays(cum, table, local):
+    """(alive, bundle rows) of one iteration's rays at iteration-local
+    indices ``local``: alive below the realised count ``cum[-1]``, zero rows
+    past it."""
+    return local < cum[-1], bundle_rows(cum, table, local)
+
+
+def _chunk_rays(fparams: FusedParams, n_total: int, count: int, bundles, rays):
+    """(alive, bundle rows or None) of the ascending global ray indices
+    ``rays`` of one history chunk, as K1 sees them: rays past ``n_total`` are
+    dead (their draws and bundle rows are ray ``n_total - 1``'s, their rows
+    zero), a generic source's past ``count`` too; a plasma's chunk may span
+    two iterations."""
+    if not fparams.plasma:
+        return (rays < count) & (rays < n_total), None
+    cum, table = bundles
+    n_per_iter = n_total // cum.shape[0]
+    clamped = torch.clamp_max(rays, n_total - 1)
+    alive = torch.zeros_like(rays, dtype=torch.bool)
+    attrs = torch.zeros((rays.shape[0], 8), dtype=table.dtype, device=table.device)
+    for j in range(int(clamped[0]) // n_per_iter, int(clamped[-1]) // n_per_iter + 1):
+        here = clamped // n_per_iter == j
+        alive[here], attrs[here] = _plasma_rays(cum[j], table[j], clamped[here] - j * n_per_iter)
+    alive &= rays < n_total
+    return alive, torch.where(alive[:, None], attrs, torch.zeros_like(attrs))
 
 
 def _tally(fparams: FusedParams, terms: bool):
@@ -1526,9 +1570,55 @@ def _tally(fparams: FusedParams, terms: bool):
                              device=fparams.fp.device) for _ in range(2))
 
 
+@dataclasses.dataclass(frozen=True)
+class HistorySpec:
+    """K1e's reservoir (JAX ``build_fused_run``, ``fused_trace.py:
+    1306-1321``): ``mode`` 'found' keeps the first ``slots`` chunks, in
+    chunk order, whose final element keeps a ray; 'sampled' keeps chunks 0
+    .. ``slots`` - 1. Chunk ``c`` holds rays ``[c chunk, (c + 1) chunk)``;
+    ``chunk`` is a multiple of 1024."""
+
+    mode: str
+    slots: int
+    chunk: int
+
+    def __post_init__(self):
+        if self.mode not in ("found", "sampled"):
+            raise ValueError(f"history_mode {self.mode!r}")
+        if self.slots <= 0 or self.chunk <= 0 or self.chunk % 1024:
+            raise ValueError("history: slots > 0, chunk a multiple of 1024")
+
+    def n_chunks(self, n_total: int) -> int:
+        return -(-n_total // self.chunk)
+
+
+@dataclasses.dataclass(frozen=True)
+class History:
+    """A filled reservoir: ``slots`` (S, n_fields (1 + n_optics), chunk)
+    float32, element e's fields at rows ``e n_fields ..``: origin (3),
+    direction (3), wavelength, alive (1.0 or 0.0) and in weight mode the
+    weight; ``chunks`` (S,) int32, the kept chunk of each used slot;
+    ``used`` a 0-d int32 tensor, the slots used. Slots past ``used`` stay
+    zero."""
+
+    slots: torch.Tensor
+    chunks: torch.Tensor
+    used: torch.Tensor
+
+
+def _history_buffers(fparams: FusedParams, spec: HistorySpec, device) -> tuple:
+    """Zeroed (slots, chunks, used) of a reservoir on ``device``."""
+    n_fields = 9 if fparams.weight else 8
+    return (torch.zeros((spec.slots, n_fields * (1 + fparams.n_optics), spec.chunk),
+                        dtype=torch.float32, device=device),
+            torch.zeros(spec.slots, dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
 def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
                     uniforms: torch.Tensor | None = None, seed=(0, 0),
-                    bundles=None, terms: bool = False):
+                    bundles=None, terms: bool = False,
+                    history: HistorySpec | None = None):
     """The kernel's plain twin: same arguments, same outputs.
 
     Returns (counts int64 [1 + n_optics], flat images float32 [img_total]).
@@ -1538,7 +1628,8 @@ def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
     float32); ``count`` is then unused. ``terms``: also return, third, the
     number of float32 terms each pixel sums and the sum of their
     magnitudes (two float64 images), which bound how far another order of
-    the same sums may round from this one.
+    the same sums may round from this one. ``history``: also return, last,
+    the filled reservoir (:func:`history_record_plain`).
     """
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
@@ -1546,14 +1637,73 @@ def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
     tally = _tally(fparams, terms)
+    marks = None
+    if history is not None and history.mode == "found":
+        marks = torch.zeros(history.n_chunks(n_total), dtype=torch.int32, device=device)
     for rays, alive, attrs in _slices(fparams, n_total, count, bundles):
-        if uniforms is None:
-            rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
-        else:
-            rows = [uniforms[k, rays] for k in range(fparams.n_draws)]
-        _trace_slice(F, I, fparams.aux, alive, iter(rows).__next__, counts, image, attrs,
-                     tally)
-    return (counts, image) if tally is None else (counts, image, tally)
+        final = _trace_slice(F, I, fparams.aux, alive, _draws(fparams, rays, uniforms, seed),
+                             counts, image, attrs, tally)
+        if marks is not None:
+            marks[rays[final] // history.chunk] = 1
+    out = (counts, image) if tally is None else (counts, image, tally)
+    if history is None:
+        return out
+    return (*out, history_record_plain(fparams, n_total, count, history, marks, uniforms,
+                                       seed, bundles))
+
+
+def _draws(fparams: FusedParams, rays, uniforms, seed):
+    """The draw function of the rays ``rays``: their columns of
+    ``uniforms``, or their Philox stream keyed by ``seed``."""
+    if uniforms is None:
+        rows = philox_uniforms(rays, fparams.n_draws, int(seed[0]), int(seed[1]))
+    else:
+        rows = [uniforms[k, rays] for k in range(fparams.n_draws)]
+    return iter(rows).__next__
+
+
+def _record_into(out, n_fields: int):
+    """A twin record hook writing element ``e``'s fields into rows ``e
+    n_fields ..`` of ``out`` (one slot's (rows, chunk))."""
+
+    def record(e, px, py, pz, dx, dy, dz, alive, wt, wl):
+        fields = (px, py, pz, dx, dy, dz, wl, alive.to(torch.float32))
+        for k, value in enumerate(fields + ((wt,) if n_fields == 9 else ())):
+            out[e * n_fields + k] = value
+
+    return record
+
+
+def history_record_plain(fparams: FusedParams, n_total: int, count: int,
+                         spec: HistorySpec, marks=None, uniforms=None, seed=(0, 0),
+                         bundles=None) -> History:
+    """K1e's plain twin: the selection of the kept chunks (the first
+    ``spec.slots`` marked ones in chunk order, or with no ``marks`` chunks
+    0 .. slots - 1) and the record pass over their rays, traced again with
+    the run's draws and bundle tables (the arguments of
+    :func:`fused_run_plain`). ``marks``: (n_chunks,) int32, 1 where the
+    final element kept a ray."""
+    F = [float(x) for x in fparams.fp.tolist()]
+    I = [int(x) for x in fparams.ip.tolist()]
+    device = fparams.fp.device
+    slots, chunks, used = _history_buffers(fparams, spec, device)
+    if marks is None:
+        kept = torch.arange(min(spec.slots, spec.n_chunks(n_total)), device=device)
+    else:
+        kept = torch.nonzero(marks).flatten()[:spec.slots]
+    chunks[:kept.numel()] = kept.to(torch.int32)
+    used.fill_(kept.numel())
+    n_fields = slots.shape[1] // (1 + fparams.n_optics)
+    scratch = (torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device),
+               torch.zeros(fparams.img_total, dtype=torch.float32, device=device))
+    for s, c in enumerate(kept.tolist()):
+        rays = torch.arange(c * spec.chunk, (c + 1) * spec.chunk, dtype=torch.int64,
+                            device=device)
+        alive, attrs = _chunk_rays(fparams, n_total, count, bundles, rays)
+        draw = _draws(fparams, torch.clamp_max(rays, n_total - 1), uniforms, seed)
+        _trace_slice(F, I, fparams.aux, alive, draw, *scratch, attrs,
+                     record=_record_into(slots[s], n_fields))
+    return History(slots, chunks, used)
 
 
 def _check_bundles(fparams: FusedParams, n_total: int, bundles, device):
@@ -1573,54 +1723,118 @@ def _check_bundles(fparams: FusedParams, n_total: int, bundles, device):
     return cum.contiguous(), table.contiguous(), cum.shape[1], n_total // cum.shape[0]
 
 
+def _check_uniforms(fparams: FusedParams, uniforms, n_total: int, device):
+    """``uniforms`` contiguous, checked: float32 (n_draws, n_total) on
+    ``device``, or None."""
+    if uniforms is None:
+        return None
+    if (uniforms.device != device or uniforms.dtype != torch.float32
+            or tuple(uniforms.shape) != (fparams.n_draws, n_total)):
+        raise ValueError(
+            f"uniforms must be float32 ({fparams.n_draws}, {n_total}) on {device}")
+    return uniforms.contiguous()
+
+
 def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
                    uniforms: torch.Tensor | None = None, seed=(0, 0),
-                   bundles=None):
+                   bundles=None, history: HistorySpec | None = None):
     """Trace ``n_total`` rays through the packed chain (kernel K1).
 
     Point sources: rays at index >= ``count`` are dead at the source.
     Plasma sources: ``bundles`` = (cum, table) per iteration, as
     :func:`fused_run_plain` takes them. Returns (counts int64
-    [1 + n_optics], flat images float32 [img_total]). Buffers on a CUDA
-    device launch the kernel (or raise); buffers on the CPU take
-    :func:`fused_run_plain`.
+    [1 + n_optics], flat images float32 [img_total]), and with a
+    ``history`` the filled reservoir third: 'found' launches K1's build
+    that marks the chunks with a found ray, then K1e
+    (:func:`history_record_cuda`). Buffers on a CUDA device launch the
+    kernels (or raise); buffers on the CPU take :func:`fused_run_plain`.
     """
     device = fparams.fp.device
     if device.type == "cpu":
-        return fused_run_plain(fparams, n_total, count, uniforms, seed, bundles)
+        return fused_run_plain(fparams, n_total, count, uniforms, seed, bundles,
+                               history=history)
     if device.type != "cuda":
         raise ValueError(f"fused_run_cuda: unsupported device {device}")
     if not 0 <= n_total < 2**31:
         raise ValueError("fused_run_cuda: n_total must be in [0, 2^31)")
+    if history is not None and n_total == 0:
+        raise ValueError("fused_run_cuda: a history needs rays")
     cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
-    u_ptr = None
-    if uniforms is not None:
-        if (uniforms.device != device or uniforms.dtype != torch.float32
-                or tuple(uniforms.shape) != (fparams.n_draws, n_total)):
-            raise ValueError(
-                f"uniforms must be float32 ({fparams.n_draws}, {n_total}) on {device}")
-        uniforms = uniforms.contiguous()
-        u_ptr = uniforms.data_ptr()
+    uniforms = _check_uniforms(fparams, uniforms, n_total, device)
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
     if n_total == 0:
         return counts, image
     fp, ip, aux = _buffers(fparams, "fused_run_cuda")
-    err = native.library().xrt_fused_trace(
-        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
-        aux.numel(), n_total, int(count), u_ptr, int(seed[0]) & _M32,
-        int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
-        None if table is None else table.data_ptr(), n_bundles, n_per_iter,
-        counts.data_ptr(), image.data_ptr(), fparams.img_total,
-        int(fparams.full_source), int(fparams.cheb), fparams.stages,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    args = (fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+            aux.numel(), n_total, int(count),
+            None if uniforms is None else uniforms.data_ptr(), int(seed[0]) & _M32,
+            int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
+            None if table is None else table.data_ptr(), n_bundles, n_per_iter,
+            counts.data_ptr(), image.data_ptr(), fparams.img_total,
+            int(fparams.full_source), int(fparams.cheb), fparams.stages)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    marks = None
+    if history is not None and history.mode == "found":
+        marks = torch.zeros(history.n_chunks(n_total), dtype=torch.int32, device=device)
+        err = native.library().xrt_fused_trace_marked(*args, marks.data_ptr(),
+                                                      history.chunk, stream)
+    else:
+        err = native.library().xrt_fused_trace(*args, stream)
     native.check(err, "xrt_fused_trace")
     fused_run_cuda.launches += 1
-    return counts, image
+    if history is None:
+        return counts, image
+    return counts, image, history_record_cuda(fparams, n_total, count, history, marks,
+                                              uniforms, seed, bundles)
 
 
 fused_run_cuda.launches = 0
+
+
+def history_record_cuda(fparams: FusedParams, n_total: int, count: int,
+                        spec: HistorySpec, marks=None, uniforms=None, seed=(0, 0),
+                        bundles=None) -> History:
+    """K1e: select the kept chunks and trace their rays again into the
+    reservoir (``csrc/fused_history.cu``), for the run K1 traced with the
+    same ``n_total``, ``count``, ``uniforms`` or ``seed`` and ``bundles``.
+    ``marks``: 'found' mode's chunk marks from K1's marked build, None in
+    'sampled' mode. Buffers on a CUDA device launch the kernels (or raise);
+    buffers on the CPU take :func:`history_record_plain`."""
+    device = fparams.fp.device
+    if device.type == "cpu":
+        return history_record_plain(fparams, n_total, count, spec, marks, uniforms, seed,
+                                    bundles)
+    if device.type != "cuda":
+        raise ValueError(f"history_record_cuda: unsupported device {device}")
+    if not 0 < n_total < 2**31:
+        raise ValueError("history_record_cuda: n_total must be in (0, 2^31)")
+    if (marks is None) != (spec.mode == "sampled"):
+        raise ValueError("history_record_cuda: 'found' takes the chunk marks, "
+                         "'sampled' none")
+    n_chunks = spec.n_chunks(n_total)
+    if marks is not None and (marks.device != device or marks.dtype != torch.int32
+                              or tuple(marks.shape) != (n_chunks,)):
+        raise ValueError(f"marks must be int32 ({n_chunks},) on {device}")
+    cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
+    uniforms = _check_uniforms(fparams, uniforms, n_total, device)
+    slots, chunks, used = _history_buffers(fparams, spec, device)
+    fp, ip, aux = _buffers(fparams, "history_record_cuda")
+    err = native.library().xrt_history_record(
+        fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+        aux.numel(), n_total, int(count),
+        None if uniforms is None else uniforms.data_ptr(), int(seed[0]) & _M32,
+        int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
+        None if table is None else table.data_ptr(), n_bundles, n_per_iter,
+        None if marks is None else marks.contiguous().data_ptr(), n_chunks, spec.slots,
+        spec.chunk, slots.shape[1] // (1 + fparams.n_optics), chunks.data_ptr(),
+        used.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    native.check(err, "xrt_history_record")
+    history_record_cuda.launches += 1
+    return History(slots, chunks, used)
+
+
+history_record_cuda.launches = 0
 
 
 def _buffers(fparams: FusedParams, name: str) -> tuple:
@@ -1752,9 +1966,31 @@ def plasma_bundles(source, source_params: dict, filter_params: dict, draws,
             torch.stack([t for _, t, _ in tables]).detach())
 
 
+def _history_spec(pipeline, src: dict, chunk: int, history_slots, history_mode: str):
+    """The run's reservoir, or None (JAX ``fused_trace.py:1250-1323``): a
+    plasma caps ``chunk`` at 4096, and at 2048 beyond 4096 bundles; 'found'
+    keeps ``history_slots`` chunks (none without), 'sampled' ``history_slots``
+    or enough for ``general.history_max_lost`` rays."""
+    if history_mode not in ("found", "sampled"):
+        raise ValueError(f"history_mode {history_mode!r}")
+    if chunk % 1024:
+        raise ValueError("chunk must be a multiple of 1024")
+    if src["kind"] == 1:
+        chunk = min(chunk, 4096)
+        if _round_up(max(pipeline.source.bundle_count, 128), 128) > 4096:
+            chunk = min(chunk, 2048)
+    if history_slots:
+        slots = int(history_slots)
+    elif history_mode == "sampled":
+        slots = max(1, -(-int(pipeline.general.get("history_max_lost") or 10000) // chunk))
+    else:
+        return None
+    return HistorySpec(history_mode, slots, chunk)
+
+
 def build_fused_run(pipeline, num_iter: int | None = None,
                     rng: str = "hw", history_slots: int | None = None,
-                    history_mode: str = "found"):
+                    history_mode: str = "found", chunk: int = 8192):
     """Build ``run(params, generator, uniforms=None, bundles=None) ->
     {"meta", "image", "history"}`` tracing ``pipeline.num_rays * num_iter``
     rays in one launch.
@@ -1776,16 +2012,22 @@ def build_fused_run(pipeline, num_iter: int | None = None,
     the launch (``fused_trace.py:1911-1969``); iteration ``j`` traces rays
     ``[j N, (j + 1) N)`` of the budget ``N``. ``bundles`` may give them
     instead, as ``fused_run_cuda`` takes them.
+
+    ``history_slots``, ``history_mode``: the history reservoir K1e
+    (``keep_history='found'`` or ``'sampled'``, :class:`HistorySpec`, JAX
+    ``fused_trace.py:1212-1223``): at most ``slots * chunk`` rays of
+    history per element, rebuilt as per-element ``Rays`` of ``slots *
+    chunk`` rays whose mask is false past the used slots. ``chunk`` (8192;
+    a plasma's capped as JAX caps it) sets only the history's granularity.
     """
     g = pipeline.general
     modes = _chain_modes(g)
-    if history_slots or history_mode != "found":
-        raise FusedUnsupported("history reservoirs are not ported yet")
     if rng not in ("hw", "input"):
         raise ValueError(f"rng must be 'hw' or 'input', got {rng!r}")
 
     src = _source_spec(pipeline.source, {f.name: f for f in pipeline.filters})
     optics = [_optic_spec(o) for o in pipeline.optics]
+    history = _history_spec(pipeline, src, chunk, history_slots, history_mode)
     # Packing the build-time params raises FusedUnsupported for what only
     # the values show: buffer limits, a wavelength outside the Bragg range.
     pack_params(src, optics, pipeline.params, "cpu", **modes)
@@ -1819,15 +2061,21 @@ def build_fused_run(pipeline, num_iter: int | None = None,
                                  device=generator.device).tolist()
         if uniforms is not None:
             uniforms = uniforms.to(device)
-        counts, flat = fused_run_cuda(fparams, n_total, count, uniforms, seed, bundles)
-        return _results(counts, flat, optics, names, keep_meta, keep_images)
+        counts, flat, *hist = fused_run_cuda(fparams, n_total, count, uniforms, seed,
+                                             bundles, history)
+        return _results(counts, flat, optics, names, keep_meta, keep_images, *hist)
 
     return run
 
 
-def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool) -> dict:
+def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool,
+             hist: History | None = None) -> dict:
     """The run's ``{"meta", "image", "history"}`` from the kernels' counts
-    and flat images."""
+    and flat images, and per-element ``Rays`` rebuilt from a reservoir
+    (JAX ``fused_trace.py:1992-2021``): ``mask = alive & valid`` (the slot
+    is used), the weight field 8 in weight mode, else ones."""
+    from xicsrt_tpu_torch.rays import Rays
+
     meta = {name: counts[i] for i, name in enumerate(names)} if keep_meta else {}
     image = {}
     if keep_images:
@@ -1838,7 +2086,20 @@ def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool) ->
                 size = im["nx"] * im["ny"]
                 image[o["name"]] = flat[off:off + size].reshape(im["nx"], im["ny"])
                 off += size
-    return {"meta": meta, "image": image, "history": {}}
+    history = {}
+    if hist is not None:
+        n_slots, n_rows, chunk = hist.slots.shape
+        n_fields = n_rows // len(names)
+        valid = torch.repeat_interleave(
+            torch.arange(n_slots, device=hist.slots.device) < hist.used, chunk)
+        for i, name in enumerate(names):
+            f = hist.slots[:, i * n_fields:(i + 1) * n_fields].transpose(0, 1).reshape(
+                n_fields, -1)
+            history[name] = Rays(
+                origin=f[0:3].T, direction=f[3:6].T, wavelength=f[6],
+                weight=f[8] if n_fields == 9 else torch.ones_like(f[6]),
+                mask=(f[7] != 0.0) & valid)
+    return {"meta": meta, "image": image, "history": history}
 
 
 def _chain_modes(g: dict) -> dict:
@@ -1862,7 +2123,7 @@ def build_fused_trace_run(pipeline, num_iter: int | None = None):
     traces them through the chain (JAX ``build_fused_trace_run``,
     ``fused_trace.py:2029-2226``), its draws (the optics', as in K1) from a
     Philox stream keyed by two seed words from the generator; in weight
-    mode it streams the rays' weights too. History waits for K1e.
+    mode it streams the rays' weights too. It keeps no history.
     """
     g = pipeline.general
     modes = _chain_modes(g)
@@ -1909,9 +2170,10 @@ def build_fast_run(pipeline, num_iter: int | None = None,
 
     K1 first; where it refuses and no history is asked, the trace-only
     path, which raises ``FusedUnsupported`` itself where the chain is
-    outside the subset (JAX ``fused_trace.py:2229-2262``). On this card K3
-    serves the sources K1 refuses: plasmas of more than 2^22 bundles and
-    sources of more than 8 filters.
+    outside the subset (JAX ``fused_trace.py:2229-2262``). The reservoir
+    exists only in K1: with a history, K1's refusal raises. On this card
+    K3 serves the sources K1 refuses: plasmas of more than 2^22 bundles
+    and sources of more than 8 filters.
     """
     try:
         return (build_fused_run(pipeline, num_iter=num_iter,

@@ -46,6 +46,18 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _P,
     ],
+    "xrt_fused_trace_marked": [
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
+        ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+    ],
+    "xrt_history_record": [
+        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
+        ctypes.c_int, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+    ],
     "xrt_trace_only": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         _P, _P, _P, _P, _P, _P, ctypes.c_uint, ctypes.c_uint, _P, _P, ctypes.c_int,
