@@ -123,6 +123,24 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     to an in-process run's, the found history in it; the script imports
     neither h5py nor matplotlib.
 
+43. the roofline's elementwise probe R1 (``elem_rate_cuda``) for the exp,
+    sqrt-division and simple bodies against its plain chains summed in
+    float64, held to a float32 summation-order bound (``r1_bound``): at
+    K = 1 .. 4 steps, each K at least 10 bounds from the last, and at the
+    TPU tool's sizes; the time its steps add (less its time at K = 0) at
+    K = 128 within 5 % of twice that at K = 64, so the loop runs the steps
+    the rates count;
+44. the tensor-core probe R2 (``mma_rate_cuda``) against its plain version
+    at 264 and 8192 grid steps, held to ``r2_bound``, and ``torch.matmul``
+    of the same MACs on bf16 operands as the yardstick;
+45. ``python -m xicsrt_tpu_torch.tools.roofline``'s ``main`` on
+    ``toroidal``, ``mosaic15``, ``plasma_torus``, the flagship and
+    ``mesh41`` (a 41 x 41 mesh crystal, K1c-cheb): the class rates (R1's
+    and R2's times, which the kernel rows report), each beside the card's
+    peak for its class, each scenario's census by class, the predicted
+    serial and overlap rays/s beside K1's and ``raytrace``'s measured ones;
+    every row finite and positive, R1, R2 and K1 launched in its run.
+
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
 the summary. It needs one CUDA device and no network.
@@ -131,14 +149,15 @@ Each kernel's ``bound_ms`` is the least time the card could take for the
 same work at the timed call's inputs: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s. Operations are counted per ray and stage in
-``OPS_PER_RAY`` from ``xicsrt_tpu_torch/csrc``; K5b's work is one forward
-and one adjoint per ray, not the kernel's recomputation.
+``OPS_PER_RAY`` (``xicsrt_tpu_torch/tools/roofline.py``) from
+``xicsrt_tpu_torch/csrc``; K5b's work is one forward and one adjoint per
+ray, not the kernel's recomputation. R1's operations are its bodies'
+census; R2's bound is 2 x its MACs over 989 TFLOP/s (dense bf16).
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 import json
 import math
 import os
@@ -149,149 +168,14 @@ import time
 import numpy as np
 import torch
 
+from xicsrt_tpu_torch.tools import bench_scenarios as BS
+from xicsrt_tpu_torch.tools.roofline import (OPS_PER_RAY, bound, chain_k1_ops, k1_ops,
+                                             k1_pack, k5_ops, mosaic_k1_ops, mosaic_work)
+
 # Efficiency of the flagship chain on the JAX fused engine (source ->
 # aperture -> crystal -> detector); a physics figure, not a speed.
 REFERENCE_EFFICIENCY = 0.01334
 FLAGSHIP_IMAGES = ((100, 100, 0.002), (100, 50, 0.004))
-
-
-# Float32 operations per ray of each stage, counted from the device code
-# of xicsrt_tpu_torch/csrc: each add, multiply, division, square root,
-# comparison, select and math-library call is one operation; the Philox
-# draws' integer operations and the images' atomics are not counted.
-OPS_PER_RAY = {
-    # The generic source (xrt_sample_source): the cone by kind (isotropic,
-    # isotropic_xy, its asymmetric Newton of 12 steps, flat, flat_xy,
-    # gaussian), then a constant rotation or the Focused per-ray basis; per
-    # nonzero box size, a uniform or gaussian offset; a uniform band; a
-    # Voigt line's Gauss and Cauchy parts; the Doppler shift; per sightline.
-    "cone": {0: 11, 1: 40, 2: 993, 3: 13, 4: 14, 5: 24},
-    "rotation": 15, "aim": 58, "box": {1: 8, 2: 13},
-    "band": 2, "gauss": 8, "cauchy": 7, "doppler": 8, "sightline": 21,
-    "plasma_k1": 105, "plasma_k5": 125,
-    "shape_k1": {0: 22, 1: 39, 2: 327, 3: 93},   # hit, position, normal
-    "shape_k5": {0: 22, 1: 45, 2: 366, 3: 98},
-    # A Chebyshev surface of degree d with nnz nonzero coefficients in C, Cx
-    # and Cy (xrt_cheb_hit), what the function needs: local frame, seed,
-    # position, hit test and normal, then per Newton step (4) its own (u, v,
-    # their clips, 2 u and 2 v, F, F', the step), per degree above 1 the
-    # two recurrences' multiply and subtract each, and per nonzero
-    # coefficient a multiply-multiply-add.
-    "cheb": {"setup": 81, "step": 26, "per_degree": 4, "per_coef": 3},
-    "bounds": 17, "aperture": 8,
-    "crystal_mc": 32, "crystal_weight": 38, "mirror": 14,
-    # A file rocking curve in place of the gaussian's exp (xrt_file_value:
-    # index, range, clip, two cached loads, the lerp), and in K5 its slope.
-    "crystal_mc_file": 46, "crystal_weight_file": 55,
-    "image_nearest": 10, "image_bilinear": 24,
-    # K5b, per optic: seeds, reflection, local coordinates and slot sums;
-    # the crystal; the shape's normal and hit.
-    "adjoint": 141, "adjoint_crystal": 41, "adjoint_crystal_file": 37,
-    "adjoint_shape": {0: 53, 1: 98, 2: 175, 3: 150},
-    "adjoint_plasma": 12,
-    # K1's bilinear splat (xrt_splat): the clip and floor of both
-    # coordinates, two x tents and four corners.
-    "image_bilinear_k1": 50,
-    # A mosaic crystal (xrt_mosaic), counted as a run needs it
-    # (mosaic_work): the cutoff per ray the bounds keep, the crystallite
-    # basis per ray past it; per layer two normals, the crystallite normal,
-    # d.n, the Bragg deviation, the rocking curve and the acceptance test
-    # (mc) or the survival estimator's update (weight); a reflection per
-    # reflected ray.
-    "mosaic": {"cutoff": 19, "setup": 33, "layer_mc": 64, "layer_weight": 69,
-               "reflect": 7},
-    # The same in K5 (grad_mosaic_fwd), and its adjoint: per layer the six
-    # forward-carried sums and their per-unit terms, per ray the scaling,
-    # the pick's routing and the basis's reverse.
-    "mosaic_k5": {"cutoff": 19, "setup": 33, "layer": 67, "reflect": 7,
-                  "adjoint_layer": 44, "adjoint": 158},
-}
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-
-
-def optic_structs(fparams) -> list:
-    """(shape, interact, apertures, imaged, file rocking, Chebyshev operations)
-    of each optic of packed buffers."""
-    from xicsrt_tpu_torch.ops.fused_trace import HDR_I, OPT_I
-
-    ip = [int(x) for x in fparams.ip.tolist()]
-    out = []
-    for e in range(ip[0]):
-        oi = ip[HDR_I + OPT_I * e: HDR_I + OPT_I * (e + 1)]
-        cheb = 0
-        if oi[0] == 4:  # the degree, and the terms: one per nonzero coefficient
-            c = OPS_PER_RAY["cheb"]
-            cheb = c["setup"] + 4 * (c["step"] + c["per_degree"] * (oi[13] - 1)
-                                     + c["per_coef"] * oi[14])
-        out.append((oi[0], oi[2], oi[5], oi[7] >= 0, oi[2] == 1 and oi[3] == 2, cheb))
-    return out
-
-
-def generic_source_ops(fparams) -> int:
-    """The generic source's float32 operations per ray, from its packed
-    structure (header ints 2 and 8-15, the box sizes at fp[33:36])."""
-    ip = [int(x) for x in fparams.ip.tolist()]
-    sizes = [float(x) for x in fparams.fp[33:36].tolist()]
-    ops = OPS_PER_RAY["cone"][ip[2]]
-    ops += OPS_PER_RAY["aim"] if ip[10] else OPS_PER_RAY["rotation"]
-    if ip[9]:
-        ops += OPS_PER_RAY["box"][ip[9]] * sum(1 for x in sizes if x != 0.0)
-    if ip[11] == 1:
-        ops += OPS_PER_RAY["band"]
-    ops += OPS_PER_RAY["gauss"] * ip[12] + OPS_PER_RAY["cauchy"] * ip[13]
-    ops += OPS_PER_RAY["doppler"] * ip[14] + OPS_PER_RAY["sightline"] * ip[8]
-    return ops
-
-
-def chain_k1_ops(fparams) -> int:
-    """K1's and K3's chain: float32 operations per ray (a crystal's test or
-    weighting, nearest or bilinear images; a mosaic crystal's layers are
-    counted apart, ``mosaic_work``)."""
-    image = OPS_PER_RAY["image_bilinear_k1" if fparams.bilinear else "image_nearest"]
-    ops = 0
-    for shape, interact, n_ap, imaged, file, cheb in optic_structs(fparams):
-        crystal = OPS_PER_RAY["crystal_mc_file" if file else "crystal_mc"]
-        ops += (cheb or OPS_PER_RAY["shape_k1"][shape]) + OPS_PER_RAY["bounds"]
-        ops += n_ap * OPS_PER_RAY["aperture"]
-        ops += {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"], 3: 0}[interact]
-        ops += image if imaged else 0
-    return ops
-
-
-def k1_ops(fparams) -> int:
-    """K1's float32 operations per ray: the source, then the chain."""
-    ip = fparams.ip
-    ops = OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1 else generic_source_ops(fparams)
-    return ops + chain_k1_ops(fparams)
-
-
-def k5_ops(static, backward: bool) -> int:
-    """K5f's (or K5b's: forward plus adjoint) float32 operations per ray."""
-    ip = static.ip
-    plasma = int(ip[5]) == 2
-    ops = OPS_PER_RAY["plasma_k5"] if plasma else generic_source_ops(static)
-    if backward and plasma:
-        ops += OPS_PER_RAY["adjoint_plasma"]
-    for shape, interact, n_ap, imaged, file, _ in optic_structs(static):
-        crystal = OPS_PER_RAY["crystal_weight_file" if file else "crystal_weight"]
-        ops += (OPS_PER_RAY["shape_k5"][shape] + OPS_PER_RAY["bounds"]
-                + n_ap * OPS_PER_RAY["aperture"]
-                + {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"], 3: 0}[interact]
-                + (OPS_PER_RAY["image_bilinear"] if imaged else 0))
-        if backward:
-            ops += (OPS_PER_RAY["adjoint"] + OPS_PER_RAY["adjoint_shape"][shape]
-                    + (OPS_PER_RAY["adjoint_crystal_file" if file else "adjoint_crystal"]
-                       if interact == 1 else 0))
-    return ops
-
-
-def bound(n_bytes: float, ops: float) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the card's peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def packed_bytes(*tensors) -> int:
@@ -380,9 +264,7 @@ def phase_k2(native_bin, plain_bin):
 
 
 def flagship(intensity, num_iter, **general):
-    from __graft_entry__ import _spectrometer_config
-
-    return _spectrometer_config(intensity=intensity, num_iter=num_iter, **general)
+    return BS._spectrometer_config(intensity=intensity, num_iter=num_iter, **general)
 
 
 def phase_k1a(ft, engine):
@@ -751,12 +633,9 @@ def repo_function(relpath: str, name: str, *helpers: str):
 
 
 def plasma_config(intensity, num_iter, bundle_count=1000, **general):
-    """``tools/bench_scenarios.py``'s ``plasma_torus`` (``plasma_100k`` with
-    1e5 bundles): the expected photon count per iteration is
-    ``intensity``. Only the two config functions are read from that file:
-    the script itself runs the JAX package."""
-    make_config = repo_function("tools/bench_scenarios.py", "_plasma_config", "_crystal")
-    cfg = make_config(intensity, num_iter, bundle_count=bundle_count)
+    """``plasma_torus`` (``plasma_100k`` with 1e5 bundles) of the scenario
+    configs: the expected photon count per iteration is ``intensity``."""
+    cfg = BS._plasma_config(intensity, num_iter, bundle_count=bundle_count)
     cfg["general"].update(general)
     return cfg
 
@@ -1451,13 +1330,6 @@ def source_matrix_config(intensity, num_iter, engine_kind, **general):
     return cfg
 
 
-def k1_pack(ft, pipe):
-    """K1's packed buffers of a pipeline on the card, in its run modes."""
-    src = ft._source_spec(pipe.source, {f.name: f for f in pipe.filters})
-    return ft.pack_params(src, [ft._optic_spec(o) for o in pipe.optics], pipe.params,
-                          "cuda", **ft._chain_modes(pipe.general))
-
-
 def phase_k1b(smi, ft, engine) -> dict:
     """Phase 23: K1b against its twin on every source variant, 2^20 rays,
     both RNG modes, and on phase 24's source at the 2^22 x 4 rays of its
@@ -1466,7 +1338,7 @@ def phase_k1b(smi, ft, engine) -> dict:
     tol = max(2, int(1e-6 * n))
     worst = 0.0
     for kind in SOURCE_VARIANTS:
-        fparams = k1_pack(ft, engine.Pipeline(source_variant_config(kind, n, 1),
+        fparams = k1_pack(engine.Pipeline(source_variant_config(kind, n, 1),
                                               device="cuda"))
         if not fparams.full_source:
             raise AssertionError(f"phase 23: {kind} did not take the full sampler")
@@ -1486,7 +1358,7 @@ def phase_k1b(smi, ft, engine) -> dict:
                 raise AssertionError(f"phase 23: no detector hits ({kind})")
             worst = max(worst, float(dc.max().item()), float(di.max().item()))
     n = 1 << 22
-    fparams = k1_pack(ft, engine.Pipeline(source_matrix_config(n, 1, "fused"),
+    fparams = k1_pack(engine.Pipeline(source_matrix_config(n, 1, "fused"),
                                           device="cuda"))
     n_main = 4 * n
     tol = max(2, int(1e-6 * n_main))
@@ -1980,7 +1852,7 @@ def k1_k3_against_twins(ft, engine, cfg, label, seed) -> float:
     """K1 on ``cfg``'s own rays and K3 on one eager iteration's, each
     against its twin in both RNG modes. Returns the largest difference."""
     pipe = engine.Pipeline(cfg, device="cuda")
-    fparams = k1_pack(ft, pipe)
+    fparams = k1_pack(pipe)
     n = pipe.num_rays
     gen = torch.Generator(device="cuda").manual_seed(seed)
     uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
@@ -2224,17 +2096,14 @@ def phase_meshes(ft, engine, raytrace) -> tuple:
 # ---------------------------------------------------------------------------
 
 def mosaic15_config(intensity, num_iter, engine_kind, **general):
-    """``tools/bench_scenarios.py``'s ``mosaic15`` (:114-117): the Directed
-    point source (isotropic_xy, 10 deg), a spherical mosaic crystal (R = 1
-    m, 0.05 deg crystallite spread, depth 15, 150 urad gaussian curve) and
-    the flagship's detector. Only its two config functions are read from
-    that file (the script runs the JAX package)."""
-    path = "tools/bench_scenarios.py"
-    crystal = repo_function(path, "_crystal")(
+    """``mosaic15`` of the scenario configs: the Directed point source
+    (isotropic_xy, 10 deg), a spherical mosaic crystal (R = 1 m, 0.05 deg
+    crystallite spread, depth 15, 150 urad gaussian curve) and the
+    flagship's detector."""
+    crystal = BS._crystal(
         class_name="XicsrtOpticSphericalMosaicCrystal", radius=1.0,
         mosaic_spread=np.radians(0.05), mosaic_depth=15, rocking_fwhm=150e-6)
-    return repo_function(path, "_config")(crystal, intensity, num_iter, engine=engine_kind,
-                                          **general)
+    return BS._config(crystal, intensity, num_iter, engine=engine_kind, **general)
 
 
 def mesh_mosaic_config(intensity, num_iter, engine_kind, **general):
@@ -2520,58 +2389,6 @@ def phase_k1d_mosaic_twins(ft, engine) -> dict:
     return err
 
 
-def mosaic_work(ft, fparams, n, weight) -> dict:
-    """What a mosaic chain's run of ``n`` rays (Philox, seed (1, 2)) needs
-    of its mosaic stage, counted by K1 itself: the rays its bounds keep
-    (with the cutoff off), the rays M past its cutoff, the layers it must
-    evaluate and the reflections. In weight mode every ray past the cutoff
-    evaluates all D layers and reflects once; in mc mode a ray evaluates
-    layers until one accepts, so with A(d) the rays accepted within d layers
-    (K1 run at depth d: the draws are keyed by index, so the first d layers
-    are the same) the layers are sum_{l=1..D} (M - A(l - 1)), and A(D)
-    reflect."""
-    e = next(i for i in range(fparams.n_optics)
-             if int(fparams.ip[ft.HDR_I + i * ft.OPT_I + 2]) == ft._INTERACT["mosaic"])
-    io = ft.HDR_I + e * ft.OPT_I
-    depth = int(fparams.ip[io + ft.OI_DEPTH])
-
-    def count(depth_, weighted, cut=True):
-        ip, fp = fparams.ip_host.copy(), fparams.fp.clone()
-        ip[io + ft.OI_DEPTH] = depth_
-        ip[ft.H_WEIGHT] = int(weighted)
-        if not cut:
-            fp[ft.SRC_F + e * ft.OPT_F + ft.O_MOSAIC_CUT] = -1.0
-        fp_ = dataclasses.replace(fparams, fp=fp, ip=torch.as_tensor(ip, device="cuda"),
-                                  ip_host=ip)
-        return int(ft.fused_run_cuda(fp_, n, n, seed=(1, 2))[0][1 + e])
-
-    kept, entering = count(depth, True, cut=False), count(depth, True)
-    if weight:
-        layers, reflected = entering * depth, entering
-    else:
-        accepted = [0] + [count(d, False) for d in range(1, depth + 1)]
-        layers, reflected = sum(entering - a for a in accepted[:-1]), accepted[-1]
-    cut = float(fparams.fp[ft.SRC_F + e * ft.OPT_F + ft.O_MOSAIC_CUT]) >= 0.0
-    return {"kept": kept, "entering": entering, "layers": layers, "reflected": reflected,
-            "depth": depth, "cut": cut}
-
-
-def mosaic_k1_ops(ft, fparams, n, weight) -> tuple:
-    """K1's float32 operations for ``n`` rays of a mosaic chain: every
-    other stage per ray (``k1_ops``), the mosaic's cutoff per ray its
-    bounds keep, its basis per ray past the cutoff, its layers and
-    reflections as the run needs them (``mosaic_work``) and, in weight mode,
-    one weighting per ray past the cutoff. Returns (operations, the
-    work)."""
-    w = mosaic_work(ft, fparams, n, weight)
-    m = OPS_PER_RAY["mosaic"]
-    ops = k1_ops(fparams) * n + w["kept"] * (m["cutoff"] if w["cut"] else 0)
-    ops += w["entering"] * (m["setup"] + (1 if weight else 0))
-    ops += w["layers"] * m["layer_weight" if weight else "layer_mc"]
-    ops += w["reflected"] * m["reflect"]
-    return ops, w
-
-
 def phase_k5d(smi, fg, ft, engine, make_fused_differentiable) -> dict:
     """Phase 37: K5f and K5b with the mosaic stage (K5d) on
     ``tests/test_fused_grad.py``'s ``mosaic_sphere`` at 2^22 rays against
@@ -2609,7 +2426,7 @@ def phase_k5d(smi, fg, ft, engine, make_fused_differentiable) -> dict:
                                                       chunk=n), 2)
     # The rays the mosaic's layers run for: K1 in weight mode on the same
     # rays (the same sampler and Philox stream), past the cutoff.
-    work = mosaic_work(ft, k1_pack(ft, pipe), n, True)
+    work = mosaic_work(k1_pack(pipe), n, True)
     m = OPS_PER_RAY["mosaic_k5"]
     k5_bytes = packed_bytes(st.fp, st.ip, st.aux, pvec) + st.img_total * 4
     forward = (work["kept"] * (m["setup"] + (m["cutoff"] if work["cut"] else 0))
@@ -2730,7 +2547,7 @@ def phase_k1e_twins(ft, engine) -> float:
     for interact in ("mc", "weight"):
         pipe = engine.Pipeline(flagship(n, 1, engine="fused", interact_mode=interact),
                                device="cuda")
-        fparams = k1_pack(ft, pipe)
+        fparams = k1_pack(pipe)
         uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
         for mode, slots in (("found", 8), ("sampled", None)):
             spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, slots, mode)
@@ -2744,7 +2561,7 @@ def phase_k1e_twins(ft, engine) -> float:
     cfg = flagship(n, 1, engine="fused")
     cfg["optics"]["detector"]["xsize"] = SPARSE_DETECTOR_XSIZE
     pipe = engine.Pipeline(cfg, device="cuda")
-    fparams = k1_pack(ft, pipe)
+    fparams = k1_pack(pipe)
     uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
     for rng, kw in (("input", {"uniforms": uniforms}), ("hw", {"seed": (39, 8)})):
         e, hist = k1e_against_twin(ft, fparams, n, ft.HistorySpec("found", 8, 8192),
@@ -2862,7 +2679,7 @@ def phase_k1e_flagship(smi, ft, engine, raytrace) -> dict:
         raise AssertionError("phase 40: the sampled history is biased or not truncated")
 
     n = budget
-    fparams = k1_pack(ft, pipe)
+    fparams = k1_pack(pipe)
     hist, n_twin = kept_chunks_twin(ft, fparams, n, spec, "phase 40 full width, kept chunks",
                                     seed=(40, 9))
     n_kernel = found_in(hist, fparams)
@@ -2968,6 +2785,208 @@ def phase_cli(raytrace, n=1 << 22) -> None:
             raise AssertionError("phase 42: the CLI's found history differs")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+U32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def gamma(d: int, u: float = U32) -> float:
+    """The float32 bound of a sum whose terms each pass through at most
+    ``d`` additions: |computed - exact| <= gamma(d) * sum |terms|."""
+    return d * u / (1.0 - d * u)
+
+
+def r1_bound(n_chunks: int, sub: int) -> float:
+    """R1's bound on |kernel - reference| relative to each output element,
+    the reference being R1's plain float32 chains (``elem_chains_plain``)
+    summed in float64. Both add a chain's streams in the same order; the
+    kernel then sums 256 lanes by a 10-level tree, the finish launch its
+    row's n_chunks sub / 256 partials in 256 strided sums and a 10-level
+    tree, in float32; the reference makes at most n_chunks sub float64 adds
+    a term. Every term is positive (each body keeps positive values
+    positive, and every start is), so the sum of the terms' magnitudes is
+    the output. Each chain's final value may differ by 4 ulp (2^-21), where
+    the kernel's expf, sqrtf or division and torch's round apart: those maps
+    contract (|f'| < 0.6), so a step's ulp does not grow; the simple body's
+    multiplies and adds round alike in both."""
+    items = n_chunks * (sub // 256)
+    return (gamma(10 + -(-items // 256) + 10) + gamma(n_chunks * sub, 2.0 ** -53)
+            + 2.0 ** -21)
+
+
+def r1_reference(rp, seed, body: str, n_chunks: int, K: int) -> torch.Tensor:
+    """R1's (8, 128) output in float64: the plain float32 chains at ``K``
+    steps, summed in float64."""
+    rows = rp.elem_chains_plain(seed, body, n_chunks=n_chunks, K=K).double().sum(dim=(0, 2))
+    return rows[:, None].expand(8, 128)
+
+
+def r1_check(rp, seed, body: str, n_chunks: int, K: int, label: str) -> tuple:
+    """R1's kernel at ``K`` steps held to its reference within ``r1_bound``:
+    (max |kernel - reference|, the reference)."""
+    kernel = rp.elem_rate_cuda(seed, body, n_chunks=n_chunks, K=K)
+    if not bool((kernel == kernel[:, :1]).all()):
+        raise AssertionError(f"{label}: a row's columns differ")
+    ref = r1_reference(rp, seed, body, n_chunks, K)
+    return held_to(kernel.double(), ref, r1_bound(n_chunks, rp.SUB), label), ref
+
+
+def r1_step_check(rp, seed, body: str, n_chunks: int = 16, steps: int = 4) -> float:
+    """R1 at K = 1 .. ``steps`` against its reference, each held to
+    ``r1_bound``, and each K's reference at least 10 bounds from K - 1's,
+    so a kernel that runs a step fewer or more than it is asked fails. At
+    the tool's K = 128 this cannot show: the trans and sqrtdiv bodies
+    contract to their fixed points within about 25 and 11 steps. Returns
+    the largest |kernel - reference|."""
+    rel = r1_bound(n_chunks, rp.SUB)
+    prev = r1_reference(rp, seed, body, n_chunks, 0)
+    worst = 0.0
+    for K in range(1, steps + 1):
+        err, ref = r1_check(rp, seed, body, n_chunks, K, f"R1-{body} at K = {K}")
+        gap = float(((ref - prev).abs() / ref.abs()).min())
+        if not gap >= 10 * rel:
+            raise AssertionError(f"R1-{body}: K = {K} moves the output {gap:.3g} of its "
+                                 f"value, not 10 x the bound {rel:.3g}: the check cannot "
+                                 "tell the steps apart")
+        prev, worst = ref, max(worst, err)
+    return worst
+
+
+def r2_bound(n_mm: int, K_mm: int, sub: int, blocks: int) -> float:
+    """R2's bound on |kernel - plain| relative to each output element. The
+    products of bf16 values are exact in float32 and non-negative, so the
+    sum of the terms' magnitudes is the output. The kernel's terms pass the
+    mma's 16 products of a k slice, its accumulator over sub / 16 slices
+    and K_mm products, the block's steps and the finish launch's sum over
+    the blocks, each add allowed 2^-23 (the tensor cores may truncate); the
+    plain version's the matmul's sub - 1 adds in cuBLAS's or the CPU's
+    order, the K_mm products and the n_mm steps."""
+    d_kernel = 16 + (sub // 16) * K_mm + -(-n_mm // blocks) + blocks
+    return gamma(d_kernel, 2.0 ** -23) + gamma(sub - 1 + K_mm + n_mm)
+
+
+def held_to(kernel, plain, rel: float, label: str) -> float:
+    """max |kernel - plain|, raising where an element passes rel |plain|."""
+    err = (kernel - plain).abs()
+    if not bool(torch.isfinite(kernel).all()) or bool((err > rel * plain.abs()).any()):
+        raise AssertionError(f"{label}: the kernel is {float(err.max()):.6g} from its plain "
+                             f"version, beyond the bound {rel:.3g} of its value")
+    return float(err.max())
+
+
+def phase_r1(smi) -> dict:
+    """Phase 43: R1 against its reference for each body at K = 1 .. 4
+    (``r1_step_check``, 16 grid steps) and at the TPU tool's sizes, each
+    held to ``r1_bound``; the time its K steps add, t(K) - t(0), at K = 128
+    over K = 64 within 5 % of 2 (best of three interleaved rounds of
+    ``time_launches``), so the loop runs every step it counts; t(0), the
+    blocks' start values and sums, is the part of R1's time that is not
+    its steps. Then the plain version's time. R1's own time and rate are
+    phase 45's."""
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+    from xicsrt_tpu_torch.tools import roofline
+
+    seed = torch.tensor([0.5625], dtype=torch.float32, device="cuda")
+    seeds = torch.tensor([0.5 + 0.125 * (k % 5) for k in range(BS.LAUNCHES)],
+                         dtype=torch.float32, device="cuda")
+    out = {}
+    for body in rp.BODIES:
+        n_chunks = rp.ELEM_SIZES[body][0]
+        step_err = r1_step_check(rp, seed, body)
+        err, ref = r1_check(rp, seed, body, n_chunks, rp.K_STEPS,
+                            f"phase 43 R1-{body} at the tool's size")
+        log(f"phase 43 R1-{body}: K = 1 .. 4 at 16 grid steps within {step_err:.4g} of the "
+            f"float64 sums, each K at least 10 bounds from the last; the tool's size "
+            f"{float(ref[0, 0]):.9g}, |diff| {err:.4g} within "
+            f"{r1_bound(n_chunks, rp.SUB):.3g} of the value")
+        ms = {0: float("inf"), 64: float("inf"), 128: float("inf")}
+        for _ in range(3):
+            for K in ms:
+                ms[K] = min(ms[K], BS.time_launches(
+                    lambda k, K=K: rp.elem_rate_cuda(seeds[k:k + 1], body, K=K)))
+        scaling = (ms[128] - ms[0]) / (ms[64] - ms[0])
+        if not abs(scaling / 2.0 - 1.0) <= 0.05:
+            raise AssertionError(f"phase 43: R1-{body}'s steps take {ms[128] - ms[0]:.4f} ms "
+                                 f"at K = 128 and {ms[64] - ms[0]:.4f} ms at K = 64, not "
+                                 "twice: the loop is not what it counts")
+        plain_ms = cuda_ms(lambda: rp.elem_rate_plain(seed, body), 2)
+        per_step = roofline.body_ops(body)
+        b = bound(0, rp.elem_steps(body) * sum(per_step.values()))
+        log(f"phase 43 timings on {smi}: R1-{body} {ms[128]:.4f} ms at K = 128, "
+            f"{ms[64]:.4f} at K = 64, {ms[0]:.4f} at K = 0 (the steps' time at 128 over 64: "
+            f"{scaling:.4f}); plain {plain_ms:.4f} ms; bound "
+            f"{b[0]:.4f} ms ({b[1]}, {sum(per_step.values()):g} operations a step)")
+        out[body] = {"err": max(err, step_err), "plain_ms": plain_ms, "bound": b}
+    return out
+
+
+def phase_r2(smi) -> dict:
+    """Phase 44: R2 against its plain version at a checking size (264 grid
+    steps) and at the TPU tool's size, held to ``r2_bound``; the plain
+    version's time, and ``torch.matmul`` on bf16 operands of the same MACs
+    as the yardstick. R2's own time and MAC rate are phase 45's."""
+    from xicsrt_tpu_torch.ops import native
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 44 needs float32 matmuls in the plain version")
+    seed = torch.tensor([0.011], dtype=torch.float32, device="cuda")
+    blocks = native.library().xrt_mma_rate_blocks(rp.N_MM)
+    for n_mm in (264, rp.N_MM):
+        kernel = rp.mma_rate_cuda(seed, n_mm=n_mm)
+        plain = rp.mma_rate_plain(seed, n_mm=n_mm)
+        rel = r2_bound(n_mm, rp.K_MM, rp.SUB, min(blocks, n_mm))
+        err = held_to(kernel, plain, rel, f"phase 44 R2, {n_mm} steps")
+        log(f"phase 44 R2, {n_mm} grid steps: largest {float(kernel.max()):.9g} against the "
+            f"plain {float(plain.max()):.9g}, max |diff| {err:.4g} within {rel:.3g} of each "
+            "value")
+    plain_ms = cuda_ms(lambda: rp.mma_rate_plain(seed), 1)
+    macs = rp.mma_macs()
+    side = 16384
+    a = torch.rand((side, macs // side // side), device="cuda").to(torch.bfloat16)
+    bt = torch.rand((macs // side // side, side), device="cuda").to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(a, bt), 5)
+    del a, bt
+    b = (2 * macs / 989e12 * 1e3, "operations")
+    log(f"phase 44 timings on {smi}: R2's plain version {plain_ms:.4f} ms ({macs} MACs, the "
+        f"kernel in {blocks} blocks); torch.matmul of {side} x {macs // side // side} by "
+        f"{macs // side // side} x {side} bf16 {library_ms:.4f} ms; bound {b[0]:.4f} ms")
+    return {"err": err, "plain_ms": plain_ms, "bound": b, "library_ms": library_ms}
+
+
+def phase_roofline(smi) -> dict:
+    """Phase 45: ``tools.roofline.main`` on its four scenarios and
+    ``mesh41`` (K1c-cheb), the probes' and K1's launches counted around it;
+    its class rates (R1's and R2's times) beside the card's peaks; every
+    row finite and positive, R1, R2 and K1 launched."""
+    from xicsrt_tpu_torch.ops import fused_trace as ft
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+    from xicsrt_tpu_torch.tools import roofline
+
+    log("phase 45 before the roofline, SM clock and clock limits: "
+        + roofline.nvidia_smi("clocks.sm,clocks_event_reasons.active"))
+    rp.elem_rate_cuda.launches = 0
+    rp.elem_rate_cuda.body_launches = dict.fromkeys(rp.BODIES, 0)
+    rp.mma_rate_cuda.launches = 0
+    ft.fused_run_cuda.launches = 0
+    out = roofline.main([*roofline.SCENARIO_NAMES, "mesh41", "--out",
+                         os.path.join("build", "chip_smoke", "roofline.json")])
+    launches = {**{f"R1-{b}": n for b, n in rp.elem_rate_cuda.body_launches.items()},
+                "R2": rp.mma_rate_cuda.launches, "K1": ft.fused_run_cuda.launches}
+    for name, row in out["scenarios"].items():
+        numbers = [row[k] for k in ("predicted_serial_rays_per_s", "predicted_overlap_rays_per_s",
+                                    "measured_rays_per_s", "measured_vs_serial_bound",
+                                    "measured_vs_overlap_bound", "raytrace_rays_per_s")]
+        if not all(math.isfinite(x) and x > 0 for x in numbers) or row["k1"]["launches"] <= 0:
+            raise AssertionError(f"phase 45: the {name} row is not finite and positive, or "
+                                 f"K1 did not launch: {row}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 45: a probe did not launch: {launches}")
+    log(f"phase 45 rates on {smi}: " + ", ".join(
+        f"{cls} {out['rates'][f'{cls}_per_s']:.4g}/s ({out['rates'][f'{cls}_per_s'] / peak:.3f} "
+        f"of {peak:.4g})" for cls, peak in roofline.PEAK_PER_S.items())
+        + f"; probe ms {out['rate_ms']}; launches {launches}")
+    return {"launches": launches, "roofline": out}
 
 
 def ptxas_registers(pattern: str) -> str:
@@ -3108,7 +3127,7 @@ def main() -> int:
     n = 1 << 22
 
     def packed(cfg):
-        return k1_pack(ft, engine.Pipeline(cfg, device="cuda"))
+        return k1_pack(engine.Pipeline(cfg, device="cuda"))
 
     t_mirror = k1_timing(ft, packed(mirror_configs(n, 1, "fused")["flagship_no_check"]), n,
                          smi, "K1c-mirror (the flagship, its crystal unchecked)")
@@ -3129,7 +3148,7 @@ def main() -> int:
     t_mosaic = {}
     for mode in ("mc", "weight"):
         fp_m = packed(mosaic15_config(n, 1, "fused", interact_mode=mode))
-        ops, work = mosaic_k1_ops(ft, fp_m, n, mode == "weight")
+        ops, work = mosaic_k1_ops(fp_m, n, mode == "weight")
         log(f"phase 38 mosaic15 {mode}, {n} rays: {work}")
         t_mosaic[mode] = k1_timing(ft, fp_m, n, smi, f"K1c-mosaic {mode} (mosaic15)", "38",
                                    ops)
@@ -3147,6 +3166,11 @@ def main() -> int:
     phase_cli(xicsrt_tpu_torch.raytrace)
     for pattern in ("fused_trace_kernelILb0ELb0ELi0ELb1E", "history_record_kernel"):
         log(f"phase 40 ptxas {ptxas_registers(pattern)}")
+    # Phases 43-45: the roofline's probes R1 and R2, then the roofline tool,
+    # counters read around its run.
+    r1 = phase_r1(smi)
+    r2 = phase_r2(smi)
+    roof = phase_roofline(smi)
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -3250,6 +3274,16 @@ def main() -> int:
             "pallas_call :1864)", k1e["launches"], k1e_err, k1e["ms"], k1e["plain_ms"],
             k1e["bound"]),
     ]
+    probes_cu = "xicsrt_tpu_torch/csrc/roofline_probes.cu"
+    rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates
+    for body in ("trans", "sqrtdiv", "simple"):
+        kernels.append(row(f"elem_rate_cuda (R1-{body})", probes_cu,
+                           "tools/roofline.py:294 (pallas_call :315)",
+                           roof["launches"][f"R1-{body}"], r1[body]["err"], rate_ms[body],
+                           r1[body]["plain_ms"], r1[body]["bound"]))
+    kernels.append(row("mma_rate_cuda (R2)", probes_cu, "tools/roofline.py:344 (pallas_call :366)",
+                       roof["launches"]["R2"], r2["err"], rate_ms["mma"], r2["plain_ms"],
+                       r2["bound"], r2["library_ms"]))
     log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms; "
         f"phase 38 again {t_k1a_again['ms']:.4f} ms")
     log(f"the script took {time.perf_counter() - t0:.1f} s")

@@ -436,7 +436,7 @@ def test_k1e_matches_twin(cuda_device, case):
                                interact_mode="weight" if "weight" in case else "mc")
     if "sparse" in case:
         cfg["optics"]["detector"]["xsize"] = chip_smoke.SPARSE_DETECTOR_XSIZE
-    fparams = chip_smoke.k1_pack(ft, Pipeline(cfg, device=cuda_device))
+    fparams = chip_smoke.k1_pack(Pipeline(cfg, device=cuda_device))
     spec = ft.HistorySpec(mode, 4, 4096)
     uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
                           generator=torch.Generator(device=cuda_device).manual_seed(3))
@@ -455,3 +455,36 @@ def test_cli_runs_on_the_card(cuda_device):
     import xicsrt_tpu_torch
 
     chip_smoke.phase_cli(xicsrt_tpu_torch.raytrace, 1 << 16)
+
+
+@pytest.mark.parametrize("body", ["trans", "sqrtdiv", "simple"])
+def test_elem_rate_kernel_matches_plain(cuda_device, body):
+    """R1 against its plain chains summed in float64 at 4 grid steps of
+    K = 1 .. 4, held to ``chip_smoke.r1_bound`` element by element, each K
+    at least 10 bounds from the last (``chip_smoke.r1_step_check``): a
+    kernel short of a step fails."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+
+    seed = torch.tensor([0.6], dtype=torch.float32, device=cuda_device)
+    before = (rp.elem_rate_cuda.launches, rp.elem_rate_cuda.body_launches[body])
+    chip_smoke.r1_step_check(rp, seed, body, n_chunks=4, steps=4)
+    assert (rp.elem_rate_cuda.launches, rp.elem_rate_cuda.body_launches[body]) == (
+        before[0] + 4, before[1] + 4)
+
+
+def test_mma_rate_kernel_matches_plain(cuda_device):
+    """R2 against its plain version at 8 grid steps of 4 products over
+    sub 256, held to ``chip_smoke.r2_bound``; column 0 (B's zero row) is 0."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import native
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+
+    seed = torch.tensor([0.011], dtype=torch.float32, device=cuda_device)
+    before = rp.mma_rate_cuda.launches
+    kernel = rp.mma_rate_cuda(seed, n_mm=8, K_mm=4, sub=256)
+    plain = rp.mma_rate_plain(seed, n_mm=8, K_mm=4, sub=256)
+    blocks = native.library().xrt_mma_rate_blocks(8)
+    chip_smoke.held_to(kernel, plain, chip_smoke.r2_bound(8, 4, 256, blocks), "R2")
+    assert bool((kernel[:, 0] == 0).all()) and float(kernel.max()) > 0
+    assert rp.mma_rate_cuda.launches == before + 1

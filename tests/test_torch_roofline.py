@@ -1,0 +1,373 @@
+"""The roofline tool of the port (``xicsrt_tpu_torch/tools/roofline.py``)
+and its probes R1 and R2 (``xicsrt_tpu_torch/ops/roofline_probes.py``) on
+the CPU.
+
+- R1's and R2's plain versions against the JAX tool's probe kernels
+  (``tools/roofline.py``'s nested ``elem_rate`` and ``mm_kernel``, read with
+  ``ast`` and run in Pallas's TPU interpret mode), at tiny sizes.
+- ``count_ops``'s classes on toy functions, exactly.
+- The census of K1's twin per ray, stable across chunk sizes, and each
+  probe rate's numerator equal to the census of its plain body.
+- The measuring entry points raise without CUDA; the scenario configs are
+  the JAX side's.
+"""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+import xicsrt_tpu_torch
+from xicsrt_tpu_torch.ops import roofline_probes as rp
+from xicsrt_tpu_torch.tools import bench_scenarios as BS
+from xicsrt_tpu_torch.tools import roofline
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_TOOL = os.path.join(REPO, "tools", "roofline.py")
+
+
+def _jax_probe(name: str, namespace: dict):
+    """The function ``name`` nested in the JAX tool's ``microbench_rates``,
+    compiled in ``namespace`` (the tool's module itself runs on a TPU)."""
+    tree = ast.parse(open(JAX_TOOL).read(), filename=JAX_TOOL)
+    outer = next(n for n in tree.body
+                 if isinstance(n, ast.FunctionDef) and n.name == "microbench_rates")
+    node = next(n for n in outer.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    exec(compile(ast.Module(body=[node], type_ignores=[]), JAX_TOOL, "exec"), namespace)
+    return namespace[name]
+
+
+def _jax_elem_rate(body: str, n_chunks: int, K: int, dep: float) -> tuple:
+    """(sin(sum * 1e-9), the (8, 128) output) of the JAX tool's R1 on
+    ``body``, one call of its jitted function: ``timed`` is replaced by one
+    that calls it once at ``dep``."""
+    calls = {}
+
+    def timed(jitted, work):
+        calls["jitted"] = jitted
+        return jitted(jnp.float32(dep))
+
+    namespace = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, np=np, f32=jnp.float32,
+                     sub=rp.SUB, timed=timed)
+    elem_rate = _jax_probe("elem_rate", namespace)
+    bodies = {"trans": (lambda y: jnp.exp(y * -0.9), 1),
+              "sqrtdiv": (lambda y: jax.lax.rsqrt(jnp.abs(y) + 1.0), 1),
+              "simple": (lambda y: jnp.where(y > 0.1, y * 0.9999 + 1e-6, y + 1e-3), 4)}
+    fn, ops = bodies[body]
+    streams = rp.ELEM_SIZES[body][1]
+    with pltpu.force_tpu_interpret_mode():
+        value = float(elem_rate(fn, ops, n_chunks=n_chunks, K=K, streams=streams))
+        closure = calls["jitted"].__wrapped__
+        call = dict(zip(closure.__code__.co_freevars,
+                        (c.cell_contents for c in closure.__closure__)))["call"]
+        out = np.asarray(call(jnp.stack([jnp.float32(0.5 + 0.125 * dep)])))
+    return value, out
+
+
+@pytest.mark.parametrize("body", ["trans", "sqrtdiv", "simple"])
+def test_elem_rate_plain_matches_jax_kernel(body):
+    """R1's plain version against the interpreted JAX kernel at 2 grid steps
+    of K = 4. Both take the same float32 steps (``1/sqrt`` is the correctly
+    rounded ``rsqrt``); only the sum's order differs, so rtol 1e-5."""
+    dep = 0.5
+    value, out = _jax_elem_rate(body, n_chunks=2, K=4, dep=dep)
+    seed = torch.tensor([0.5 + 0.125 * dep], dtype=torch.float32)
+    plain = rp.elem_rate_plain(seed, body, n_chunks=2, K=4)
+    np.testing.assert_allclose(plain.numpy(), out, rtol=1e-5)
+    ours = float(torch.sin(plain.sum() * 1e-9))
+    np.testing.assert_allclose(ours, value, rtol=1e-5)
+
+
+def test_mma_rate_plain_matches_jax_kernel():
+    """R2's plain version against the interpreted JAX ``mm_kernel`` at grid
+    2, K_mm 3, sub 256: float32 sums of exact bf16 products, in another
+    order, so rtol 1e-5 of the largest element."""
+    n_mm, K_mm, sub, seed = 2, 3, 256, 0.011
+    namespace = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, np=np, f32=jnp.float32,
+                     sub=sub, R=rp.MM_ROWS, K_mm=K_mm)
+    mm_kernel = _jax_probe("mm_kernel", namespace)
+    with pltpu.force_tpu_interpret_mode():
+        call = pl.pallas_call(
+            mm_kernel, grid=(n_mm,),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
+            out_specs=pl.BlockSpec((rp.MM_ROWS, 128), lambda i: (0, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((rp.MM_ROWS, 128), jnp.float32))
+        ref = np.asarray(call(jnp.asarray([seed], jnp.float32)))
+    plain = rp.mma_rate_plain(torch.tensor([seed], dtype=torch.float32), n_mm=n_mm,
+                              K_mm=K_mm, sub=sub).numpy()
+    assert ref.max() > 0
+    np.testing.assert_allclose(plain, ref, rtol=0, atol=1e-5 * float(ref.max()))
+
+
+def test_probe_wrappers_take_the_plain_version_on_the_cpu():
+    seed = torch.tensor([0.75], dtype=torch.float32)
+    for body in rp.BODIES:
+        assert torch.equal(rp.elem_rate_cuda(seed, body, n_chunks=1, K=3),
+                           rp.elem_rate_plain(seed, body, n_chunks=1, K=3))
+    assert torch.equal(rp.mma_rate_cuda(seed, n_mm=1, K_mm=2, sub=64),
+                       rp.mma_rate_plain(seed, n_mm=1, K_mm=2, sub=64))
+    with pytest.raises(ValueError):
+        rp.elem_rate_cuda(seed.to("meta"), "trans")
+    with pytest.raises(ValueError):
+        rp.mma_rate_cuda(torch.tensor([0.5]).double())
+    with pytest.raises(ValueError):
+        rp.elem_rate_cuda(seed, "log")
+
+
+def test_count_ops_classes():
+    x = torch.rand(10) + 0.5
+    y = torch.rand(10)
+    c = roofline.count_ops
+
+    def counts(**kw):
+        return dict(dict.fromkeys(roofline.CLASSES, 0.0), **kw)
+
+    assert c(torch.exp, x) == counts(trans=10)
+    assert c(lambda: torch.where(x > 1.0, x, y)) == counts(simple=20)
+    # 1.0 / t dispatches reciprocal, then a multiply by 1.0.
+    assert c(lambda: 1.0 / torch.sqrt(x)) == counts(sqrtdiv=20, simple=10)
+    assert c(lambda: torch.reciprocal(torch.sqrt(x))) == counts(sqrtdiv=20)
+    assert c(lambda: x / y) == counts(sqrtdiv=10)
+    assert c(torch.matmul, torch.rand(3, 4), torch.rand(4, 5)) == counts(mxu_macs=60)
+    assert c(torch.matmul, torch.rand(2, 3, 4), torch.rand(4, 5)) == counts(mxu_macs=120)
+    mask = x > 1.0
+    assert c(lambda: (x.reshape(2, 5).T, x[mask], x.expand(3, 10), x[2:7],
+                      torch.zeros(7), torch.stack([x, y]), x.clone())) == counts()
+    assert c(torch.searchsorted, torch.arange(8.0), x) == counts(simple=30)
+    assert c(lambda: x ** 2) == counts(simple=20)
+    assert c(lambda: x ** 2.5) == counts(trans=10)
+    assert c(lambda: x.sum()) == counts(simple=10)
+    assert c(lambda: x.double()) == counts(simple=10)
+    z = torch.zeros(4)
+    idx = torch.tensor([0, 1, 1])
+    assert c(lambda: z.add_(1.0)) == counts(simple=4)
+    assert c(lambda: z.index_put_((idx,), torch.ones(3), accumulate=True)) == counts(simple=3)
+    assert c(lambda: z.index_put_((idx,), torch.ones(3))) == counts()
+    assert c(lambda: z.index_add_(0, idx, torch.ones(3))) == counts(simple=3)
+
+
+def test_chain_census_is_per_ray():
+    """The flagship's census per ray at chunks 1024 and 4096 within 1 %
+    class by class: the counts scale with the rays, not the chunk."""
+    config, _ = roofline.scenario_config("flagship")
+    small, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    large, _ = roofline.chain_ops_per_ray(config, chunk=4096)
+    for cls in roofline.CLASSES:
+        assert small[cls] == pytest.approx(large[cls], rel=1e-2, abs=1e-9)
+    assert small["mxu_macs"] == 0.0  # the port bins by atomics, not one-hot matmuls
+    assert small["simple"] > 100
+
+
+def test_mosaic_census_counts_every_layer():
+    """The twin evaluates all 15 layers of ``mosaic15`` for every ray: two
+    erfinv and one exp a layer, beside the source's one sin. One layer's
+    census, the census at depth 15 less that at depth 14: 3 trans, 4
+    sqrtdiv (two square roots, a reciprocal and a division) and 66 simple
+    operations."""
+    config, _ = roofline.scenario_config("mosaic15")
+    counts, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    assert counts["trans"] == pytest.approx(1 + 3 * 15)
+    crystal = next(o for o in config["optics"].values() if "mosaic_depth" in o)
+    assert crystal["mosaic_depth"] == 15
+    crystal["mosaic_depth"] = 14
+    fewer, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    layer = {c: counts[c] - fewer[c] for c in roofline.CLASSES}
+    assert layer["mxu_macs"] == 0.0
+    assert layer["trans"] == pytest.approx(3.0)
+    assert layer["sqrtdiv"] == pytest.approx(4.0)
+    assert layer["simple"] == pytest.approx(66.0, abs=0.5)
+
+
+@pytest.mark.parametrize("body", ["trans", "sqrtdiv", "simple"])
+def test_rate_numerator_is_the_census_of_its_body(body):
+    """The K-dependent census of R1's plain version, in the body's class,
+    is the numerator the tool divides by the time: the steps times
+    ``body_ops``. R2's is its plain version's MACs."""
+    seed = torch.tensor([0.6], dtype=torch.float32)
+    cls = body  # each body is named for the class it measures
+    with_k = roofline.count_ops(rp.elem_rate_plain, seed, body, n_chunks=2, K=5)
+    without = roofline.count_ops(rp.elem_rate_plain, seed, body, n_chunks=2, K=0)
+    numerator = rp.elem_steps(body, n_chunks=2, K=5) * roofline.body_ops(body)[cls]
+    assert with_k[cls] - without[cls] == numerator
+    census = roofline.count_ops(rp.mma_rate_plain, seed, n_mm=3, K_mm=2, sub=64)
+    assert census["mxu_macs"] == rp.mma_macs(3, 2, 64)
+
+
+@pytest.mark.parametrize("body", ["trans", "sqrtdiv", "simple"])
+def test_r1_step_check_tells_the_steps_apart(body):
+    """``chip_smoke.r1_step_check`` on the CPU, where R1's wrapper takes the
+    plain version: it passes, and a probe that runs one step fewer than it
+    is asked fails it, though at the tool's K = 128 the trans and sqrtdiv
+    outputs of K and K - 1 steps agree within ``r1_bound``."""
+    import types
+
+    import chip_smoke
+
+    seed = torch.tensor([0.5625], dtype=torch.float32)
+    assert chip_smoke.r1_step_check(rp, seed, body, n_chunks=2) <= 1e-6 * float(
+        chip_smoke.r1_reference(rp, seed, body, 2, 4)[0, 0])
+
+    def short(seed, body, n_chunks=None, K=rp.K_STEPS):
+        return rp.elem_rate_plain(seed, body, n_chunks=n_chunks, K=K - 1)
+
+    with pytest.raises(AssertionError, match="beyond the bound"):
+        chip_smoke.r1_step_check(types.SimpleNamespace(**{**vars(rp), "elem_rate_cuda": short}),
+                                 seed, body, n_chunks=2)
+    if body != "simple":
+        at_128 = chip_smoke.r1_reference(rp, seed, body, 2, 128)[0, 0]
+        at_127 = chip_smoke.r1_reference(rp, seed, body, 2, 127)[0, 0]
+        assert abs(float(at_128 - at_127)) <= chip_smoke.r1_bound(2, rp.SUB) * float(at_128)
+
+
+def test_sfu_classes_are_capped_at_the_sfu_rate():
+    """trans and sqrtdiv rates are held below the special function units'
+    16 results per SM and clock (132 SMs, 1980 MHz), which every exp, square
+    root and division of R1's bodies passes through once. Held to the FP32
+    peak instead, a probe that ran a sixteenth of its steps would pass."""
+    sfu = 16 * 132 * 1.98e9
+    assert roofline.PEAK_PER_S["trans"] == roofline.PEAK_PER_S["sqrtdiv"] == sfu
+    assert roofline.PEAK_PER_S["simple"] == roofline.FP32_OPS_PER_S > 16 * sfu
+    assert roofline.PEAK_PER_S["mxu_macs"] == roofline.BF16_MACS_PER_S
+
+
+def test_body_ops_as_the_kernels_compute_them():
+    """exp(-0.9 y): a multiply and an exp; 1/sqrt(|y| + 1): two sqrtdiv
+    (the port's rsqrt) and two simple; the where body five simple."""
+    assert roofline.body_ops("trans") == {"mxu_macs": 0.0, "trans": 1.0, "sqrtdiv": 0.0,
+                                          "simple": 1.0}
+    assert roofline.body_ops("sqrtdiv")["sqrtdiv"] == 2.0
+    assert roofline.body_ops("sqrtdiv")["simple"] == 2.0
+    assert roofline.body_ops("simple")["simple"] == 5.0
+
+
+def test_measuring_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.microbench_rates()
+    out = tmp_path / "roofline.json"
+    for argv in (["flagship", "--out", str(out)], ["--out", str(out)]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            roofline.main(argv)
+    assert not out.exists()
+    with pytest.raises(SystemExit):
+        roofline.main(["toroid"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BS.time_launches(lambda k: None)
+
+
+def test_hand_counts_live_in_the_tool():
+    """chip_smoke.py's flat bound uses the tool's hand counts; the
+    flagship's K1a is 257 float32 operations a ray."""
+    import chip_smoke
+    from xicsrt_tpu_torch.engine import Pipeline
+
+    for name in ("OPS_PER_RAY", "bound", "k1_ops", "k5_ops", "chain_k1_ops",
+                 "mosaic_work", "mosaic_k1_ops"):
+        assert getattr(chip_smoke, name) is getattr(roofline, name)
+    config, _ = roofline.scenario_config("flagship")
+    assert roofline.k1_ops(roofline.k1_pack(Pipeline(config, device="cpu"))) == 257
+    assert roofline.bound(3.35e9, 0) == (1.0, "bytes")
+    assert roofline.bound(0, 67e9) == (1.0, "operations")
+
+
+def test_scenarios_are_the_jax_sides():
+    """The port's copies of the scenario configs equal ``tools/
+    bench_scenarios.py``'s and ``__graft_entry__``'s (plain dicts; those
+    files import JAX only inside functions)."""
+    from __graft_entry__ import _spectrometer_config
+    from tools import bench_scenarios as jax_side
+
+    assert set(BS.SCENARIOS) == set(jax_side.SCENARIOS)
+    for name in BS.SCENARIOS:
+        np.testing.assert_equal(BS.SCENARIOS[name](1 << 20, 3),
+                                jax_side.SCENARIOS[name](1 << 20, 3))
+    np.testing.assert_equal(BS._spectrometer_config(1 << 20, 2, keep_images=True),
+                            _spectrometer_config(1 << 20, 2, keep_images=True))
+
+
+def test_port_tools_import_nothing_of_the_jax_side():
+    """Parsed, not imported: no module of the port imports JAX, the JAX
+    package, the repository's ``tools`` or ``__graft_entry__``."""
+    package = os.path.dirname(xicsrt_tpu_torch.__file__)
+    banned = ("jax", "xicsrt_tpu", "tools", "__graft_entry__")
+    files = [os.path.join(root, f) for root, _, names in os.walk(package)
+             for f in names if f.endswith(".py")]
+    assert any(f.endswith(os.path.join("tools", "roofline.py")) for f in files)
+    found = {}
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            bad = [n for n in names if n.split(".")[0] in banned]
+            if bad:
+                found[path] = bad
+    assert not found
+
+
+
+def _primitive_size(jaxpr, names) -> int:
+    """Output elements of the primitives ``names`` in a jaxpr, sub-jaxprs
+    included, as JAX's ``count_ops`` walks it."""
+    total = 0
+    for eqn in jaxpr.eqns:
+        for p in eqn.params.values():
+            if hasattr(p, "jaxpr"):
+                total += _primitive_size(p.jaxpr, names)
+            elif hasattr(p, "eqns"):
+                total += _primitive_size(p, names)
+        if eqn.primitive.name in names:
+            total += int(np.prod(eqn.outvars[0].aval.shape))
+    return total
+
+
+@pytest.mark.parametrize("name", roofline.SCENARIO_NAMES)
+def test_census_is_jax_census_less_the_tpu_workarounds(name, monkeypatch):
+    """Class by class, the port's census of K1 is JAX's census of its TPU
+    kernel less what the port dropped by design: the MXU's one-hot binning
+    (all of JAX's MACs, and its ``eq`` and ``convert_element_type`` one-hot
+    construction, which also holds the few ordinary conversions), for a
+    plasma the interval one-hot bundle gather (8 x min(B_pad, 4096) MACs
+    and 3 x min(B_pad, 4096) simple operations a ray, JAX
+    ``tools/roofline.py:196-199``); and ``rsqrt``, one sqrtdiv in JAX, is
+    two in the port (``1/sqrt``). Held within 1 operation for trans and
+    sqrtdiv and 10 % for simple."""
+    from tools import roofline as jax_roofline
+    from xicsrt_tpu.ops.fused_trace import image_macs_per_ray
+
+    chunk = 8192
+    one_hot = [0]
+    rsqrt = [0]
+    count_ops = jax_roofline.count_ops
+
+    def tallied(fn, *args):
+        jaxpr = jax.make_jaxpr(fn)(*args).jaxpr
+        one_hot[0] += _primitive_size(jaxpr, ("eq", "convert_element_type"))
+        rsqrt[0] += _primitive_size(jaxpr, ("rsqrt",))
+        return count_ops(fn, *args)
+
+    monkeypatch.setattr(jax_roofline, "count_ops", tallied)
+    config, _ = roofline.scenario_config(name)
+    config["general"].pop("engine")
+    ref, pipeline = jax_roofline.chain_ops_per_ray(config, chunk=chunk)
+    ours, _ = roofline.chain_ops_per_ray(config, chunk=chunk)
+    gather = 0
+    if name.startswith("plasma"):
+        gather = min(-(-max(int(pipeline.source.bundle_count), 128) // 128) * 128, 4096)
+    image_macs = sum(image_macs_per_ray(nx, ny)
+                     for (nx, ny), _ in pipeline.image_specs().values())
+    assert ref["mxu_macs"] == image_macs + 8 * gather > 0
+    assert ours["mxu_macs"] == 0
+    assert abs(ref["trans"] - ours["trans"]) <= 1
+    assert abs(ref["sqrtdiv"] + rsqrt[0] / chunk - ours["sqrtdiv"]) <= 1
+    simple = ref["simple"] - one_hot[0] / chunk - 3 * gather
+    assert ours["simple"] == pytest.approx(simple, rel=0.1)

@@ -75,6 +75,14 @@ _SIGNATURES = {
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
     ],
+    "xrt_elem_rate": [
+        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P, _P, _P,
+    ],
+    "xrt_mma_rate_blocks": [ctypes.c_int],
+    "xrt_mma_rate": [
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P,
+    ],
 }
 
 _lock = threading.Lock()
