@@ -18,19 +18,23 @@ templates:
 unpacked there with ``git archive``. All trees are built at once (one
 ``nvcc`` per source), then each tree's timings run in a process of their
 own, in the order A B C ... C B A. Each prints ptxas's lines for K1
-(``fused_trace_kernel``) and K5f (``fused_grad_fwd_kernel``) with the
-number of 256-thread blocks a multiprocessor holds at that register count
-(65536 registers, allocated per warp in units of 256), and the ms per call
-(CUDA events, the least and the median of 5 means of 20 calls) of K1a on
-the flagship at 2^22 rays, of K1c-file, K1c-mirror, K1c-cheb, K1d and
-K1c-mosaic on ``chip_smoke.py``'s chains where the tree has them, and of
-K5f and K5b on the flagship, phase 22's chains and ``mosaic_sphere``. A tree's process
-ends with one JSON line of its times.
+(``fused_trace_kernel``), K5f (``fused_grad_fwd_kernel``), K5b
+(``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``) with the number
+of 256-thread blocks a multiprocessor holds at that register count (65536
+registers, allocated per warp in units of 256), and the ms per call (CUDA
+events, the least and the median of 5 means of 20 calls) of K1a on the
+flagship at 2^22 rays, of K1c-file, K1c-mirror, K1c-cheb, K1d and
+K1c-mosaic on ``chip_smoke.py``'s chains where the tree has them, of K5f
+and K5b on the flagship, phase 22's chains, ``mosaic_sphere``,
+``file_rocking`` and the generic source ``focused_gaussian_voigt``, and of
+R2 at the roofline tool's size. A tree's process ends with one JSON line
+of its times.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -92,12 +96,14 @@ def blocks_per_sm(registers: int) -> int:
 
 
 def ptxas_lines(report: str) -> list:
-    """(kernel, registers, spill stores) of K1 and K5f from ptxas's report."""
+    """(kernel, registers, spill stores) of K1, K5f, K5b and R2 from
+    ptxas's report."""
     out, name, stores = [], None, 0
     for line in report.splitlines():
-        m = re.search(r"(fused_trace_kernel|fused_grad_fwd_kernel)(I\w+?E)E", line)
+        m = re.search(r"(fused_trace_kernel|fused_grad_fwd_kernel|fused_grad_bwd_kernel"
+                      r"|mma_rate_kernel)(I\w+?E)?E", line)
         if m:
-            name, stores = m.group(1) + m.group(2), 0
+            name, stores = m.group(1) + (m.group(2) or ""), 0
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
         if name and spill:
@@ -150,8 +156,11 @@ def child(tree: str, mode: str) -> None:
             "K1c-mosaic mc": cs.mosaic15_config(n, 1, "fused"),
             "K1c-mosaic weight": cs.mosaic15_config(n, 1, "fused", interact_mode="weight")})
         grad_chains["mosaic_sphere"] = cs.grad_variant("mosaic_sphere", n)
+    if hasattr(cs, "file_rocking_config"):
+        grad_chains["file_rocking"] = cs.grad_variant("file_rocking", n)
+        grad_chains["focused_gaussian_voigt"] = cs.grad_variant("focused_gaussian_voigt", n)
     for name, cfg in chains.items():
-        fparams = cs.k1_pack(ft, engine.Pipeline(cfg, device="cuda"))
+        fparams = cs.k1_pack(engine.Pipeline(cfg, device="cuda"))
         times[name] = ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)))
     for name, cfg in grad_chains.items():
         _, _, pack, pipe = make_fused_differentiable(cfg, device="cuda")
@@ -163,6 +172,11 @@ def child(tree: str, mode: str) -> None:
             lambda: fg.fused_grad_forward_cuda(st, pvec, m, lam, seed=(1, 2)))
         times[f"K5b {name}"] = ms(
             lambda: fg.fused_grad_vjp_cuda(st, pvec, m, lam, g, seed=(1, 2)))
+    if importlib.util.find_spec("xicsrt_tpu_torch.ops.roofline_probes"):
+        from xicsrt_tpu_torch.ops import roofline_probes as rp
+
+        seed = torch.tensor([0.011], dtype=torch.float32, device="cuda")
+        times["R2"] = ms(lambda: rp.mma_rate_cuda(seed))
     for name, (low, mid) in times.items():
         print(f"{label} {name}: {low:.4f} ms least, {mid:.4f} ms median", flush=True)
     print(json.dumps({"tree": label, "ms": times}), flush=True)

@@ -3,7 +3,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name and power limit, toolchain versions;
-2. build: compile the CUDA kernels of ``xicsrt_tpu_torch/csrc``;
+2. build: compile the CUDA kernels of ``xicsrt_tpu_torch/csrc``; the
+   registers, spills and resident warps of every K5b variant and of R2
+   (a K5b variant that spills fails);
 3. K2 (binning kernel) against its plain twin on the card;
 4. K1a (fused trace kernel) against its plain twin on the card;
 5. the main path on the fused engine, ``raytrace(config, device='cuda')``;
@@ -130,16 +132,20 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     TPU tool's sizes; the time its steps add (less its time at K = 0) at
     K = 128 within 5 % of twice that at K = 64, so the loop runs the steps
     the rates count;
-44. the tensor-core probe R2 (``mma_rate_cuda``) against its plain version
-    at 264 and 8192 grid steps, held to ``r2_bound``, and ``torch.matmul``
-    of the same MACs on bf16 operands as the yardstick;
+44. the tensor-core probe R2 (``mma_rate_cuda``, ``wgmma``) against its
+    plain version at 264 and 8192 grid steps, held to ``r2_bound``; its
+    time beside ``torch.matmul`` of the same MACs on bf16 operands, the
+    yardstick, in turns;
 45. ``python -m xicsrt_tpu_torch.tools.roofline``'s ``main`` on
     ``toroidal``, ``mosaic15``, ``plasma_torus``, the flagship and
     ``mesh41`` (a 41 x 41 mesh crystal, K1c-cheb): the class rates (R1's
-    and R2's times, which the kernel rows report), each beside the card's
+    and R2's times; the kernel rows report R1's, and R2's of phase 44,
+    taken beside its yardstick), each beside the card's
     peak for its class, each scenario's census by class, the predicted
     serial and overlap rays/s beside K1's and ``raytrace``'s measured ones;
-    every row finite and positive, R1, R2 and K1 launched in its run.
+    every row finite and positive, R1, R2 and K1 launched in its run; then
+    each K5 chain's census per ray (its twins on the CPU), its class-rate
+    serial bound at 2^22 rays, and K5f's and K5b's times over it.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -161,6 +167,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -170,7 +177,8 @@ import torch
 
 from xicsrt_tpu_torch.tools import bench_scenarios as BS
 from xicsrt_tpu_torch.tools.roofline import (OPS_PER_RAY, bound, chain_k1_ops, k1_ops,
-                                             k1_pack, k5_ops, mosaic_k1_ops, mosaic_work)
+                                             k1_pack, k5_ops, k5_ops_per_ray, mosaic_k1_ops,
+                                             mosaic_work, serial_ms)
 
 # Efficiency of the flagship chain on the JAX fused engine (source ->
 # aperture -> crystal -> detector); a physics figure, not a speed.
@@ -400,6 +408,31 @@ def phase_k5b(fg, spec, pvec, uniforms):
     if lin > 1e-5:
         raise AssertionError(f"K5b is not linear in g: {lin}")
     return err32.max().item()
+
+
+def fold_chain_config(n, num_iter=1):
+    """Three optics for K5b's slot sums: ``tests/test_fused_grad.py``'s
+    spherical crystal and detector behind a planar mirror at z = 0.4 whose
+    normal (0, 1, -1) / sqrt(2) folds the source's +z beam onto +y; the
+    crystal and detector are the variant's mirrored through that plane.
+    Weight mode, bilinear images, ``n`` rays an iteration."""
+    cfg = variant_config("uniform_wavelength")
+    cfg["general"].update(interact_mode="weight", image_mode="bilinear",
+                          number_of_iter=num_iter)
+    src = cfg["sources"]["source"]
+    src.update(intensity=n, wavelength_dist="monochrome")
+    src.pop("wavelength_range")
+    crystal = cfg["optics"]["crystal"]
+    crystal.update(origin=[0.0, 0.40374151, 0.3997], zaxis=[0.0, -0.80374151, 0.59497864],
+                   pixel_size=0.01)
+    detector = cfg["optics"]["detector"]
+    detector.update(origin=[0.0, 0.16904832, 1.1687129], zaxis=[0.0, 0.29200084, -0.95641806],
+                    xsize=0.4, ysize=0.4)
+    mirror = {"class_name": "XicsrtOpticPlanarMirror", "origin": [0.0, 0.0, 0.4],
+              "zaxis": [0.0, 0.70710678, -0.70710678], "xsize": 0.3, "ysize": 0.3,
+              "pixel_size": 0.01}
+    cfg["optics"] = {"mirror": mirror, "crystal": crystal, "detector": detector}
+    return cfg
 
 
 def sign_descent(forward, vjp, pvec0, slot, seed, steps=14):
@@ -2922,9 +2955,10 @@ def phase_r1(smi) -> dict:
 
 def phase_r2(smi) -> dict:
     """Phase 44: R2 against its plain version at a checking size (264 grid
-    steps) and at the TPU tool's size, held to ``r2_bound``; the plain
-    version's time, and ``torch.matmul`` on bf16 operands of the same MACs
-    as the yardstick. R2's own time and MAC rate are phase 45's."""
+    steps) and at the TPU tool's size, held to ``r2_bound`` with the blocks
+    the kernel launches; then R2's time at the tool's size beside
+    ``torch.matmul`` on bf16 operands of the same MACs (the yardstick), in
+    turns (matmul, R2, R2, matmul), and the plain version's time."""
     from xicsrt_tpu_torch.ops import native
     from xicsrt_tpu_torch.ops import roofline_probes as rp
 
@@ -2945,13 +2979,20 @@ def phase_r2(smi) -> dict:
     side = 16384
     a = torch.rand((side, macs // side // side), device="cuda").to(torch.bfloat16)
     bt = torch.rand((macs // side // side, side), device="cuda").to(torch.bfloat16)
-    library_ms = cuda_ms(lambda: torch.matmul(a, bt), 5)
+    library_ms = ms = float("inf")
+    for which in ("matmul", "r2", "r2", "matmul"):
+        if which == "matmul":
+            library_ms = min(library_ms, cuda_ms(lambda: torch.matmul(a, bt), 5))
+        else:
+            ms = min(ms, cuda_ms(lambda: rp.mma_rate_cuda(seed), 5))
     del a, bt
     b = (2 * macs / 989e12 * 1e3, "operations")
-    log(f"phase 44 timings on {smi}: R2's plain version {plain_ms:.4f} ms ({macs} MACs, the "
-        f"kernel in {blocks} blocks); torch.matmul of {side} x {macs // side // side} by "
-        f"{macs // side // side} x {side} bf16 {library_ms:.4f} ms; bound {b[0]:.4f} ms")
-    return {"err": err, "plain_ms": plain_ms, "bound": b, "library_ms": library_ms}
+    log(f"phase 44 timings on {smi}: R2 {ms:.4f} ms ({macs} MACs in {blocks} blocks, "
+        f"{macs / (ms * 1e-3):.4g} MAC/s, {macs / (ms * 1e-3) / 494.5e12:.3f} of 494.5e12); "
+        f"torch.matmul of {side} x {macs // side // side} by {macs // side // side} x {side} "
+        f"bf16 {library_ms:.4f} ms (R2 / matmul {ms / library_ms:.3f}); R2's plain version "
+        f"{plain_ms:.4f} ms; bound {b[0]:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": b, "library_ms": library_ms}
 
 
 def phase_roofline(smi) -> dict:
@@ -3004,6 +3045,86 @@ def ptxas_registers(pattern: str) -> str:
     raise AssertionError(f"no ptxas line for {pattern}")
 
 
+def phase_k5_census(smi, rates: dict, timed: dict) -> None:
+    """Phase 45's K5 lines: each K5 chain's census per ray by class
+    (``k5_ops_per_ray``, the twins on 8192 rays on the CPU), its class-rate
+    serial bound at 2^22 rays from phase 45's rates, and K5f's and K5b's
+    times of their phases (``timed``: chain -> (K5f ms, K5b ms)) over it."""
+    chains = {"flagship": grad_flagship(1 << 22, 1), **grad_timing_configs(),
+              "focused_gaussian_voigt": grad_variant("focused_gaussian_voigt", 1 << 22),
+              "file_rocking": grad_variant("file_rocking", 1 << 22),
+              "mosaic_sphere": grad_variant("mosaic_sphere", 1 << 22)}
+    for name, cfg in chains.items():
+        parts = []
+        for backward, ms in zip((False, True), timed[name]):
+            counts, _ = k5_ops_per_ray(copy.deepcopy(cfg), backward)
+            serial = serial_ms(counts, rates, 1 << 22)
+            parts.append(f"{'K5b' if backward else 'K5f'} census "
+                         + "/".join(f"{counts[c]:.1f}" for c in ("trans", "sqrtdiv", "simple"))
+                         + f" (trans/sqrtdiv/simple a ray), serial bound {serial:.4f} ms, "
+                         f"measured {ms:.4f} ms ({serial / ms:.3f} of it)")
+        log(f"phase 45 K5 {name} on {smi}, 2^22 rays: " + "; ".join(parts))
+
+
+def ptxas_entries(report: str, pattern: str) -> list:
+    """(name, registers, spill store bytes, spill load bytes) of each kernel
+    in ptxas's report whose mangled name matches the regular expression
+    ``pattern``; its first group is the name."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(pattern, line)
+            name, spills = (m.group(1) if m else None), (0, 0)
+            continue
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if name and s:
+            spills = (int(s.group(1)), int(s.group(2)))
+        r = re.search(r"Used (\d+) registers", line)
+        if name and r:
+            out.append((name, int(r.group(1)), *spills))
+            name = None
+    return out
+
+
+def resident_warps(registers: int, threads: int) -> int:
+    """Warps of ``threads``-thread blocks a multiprocessor holds at this
+    register count (65536 registers, allocated per warp in units of 256, at
+    most 64 warps), by registers alone."""
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * (threads // 32)), 64 // (threads // 32))
+    return blocks * (threads // 32)
+
+
+K5B_SOURCES = ("point", "plasma", "generic")
+
+
+def phase_registers(native) -> None:
+    """Phase 2's summary: registers, spills and resident warps of every K5b
+    variant and of R2, from ptxas's report; a K5b variant that spills
+    fails."""
+    report = native.ptxas_report()
+    lib = native.library()
+    spilled = []
+    for args, regs, stores, loads in ptxas_entries(report, r"fused_grad_bwd_kernel(I\w+?E)E"):
+        torus, cylinder, source, mosaic = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        variant = (torus | (cylinder << 1) | (source << 2)) + 12 * mosaic
+        threads = lib.xrt_fused_grad_bwd_threads(variant)
+        name = (K5B_SOURCES[source] + " +torus" * torus + " +cylinder" * cylinder
+                + " +mosaic" * mosaic)
+        log(f"phase 2 K5b variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
+            f"bytes spilled (stores / loads), {threads} threads a block, "
+            f"{resident_warps(regs, threads)} warps a multiprocessor by registers")
+        if stores or loads:
+            spilled.append(name)
+    for name, regs, stores, loads in ptxas_entries(report, r"(mma_rate_kernel)"):
+        log(f"phase 2 R2 {name}: {regs} registers, {stores} / {loads} bytes spilled, "
+            f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
+    serial = [line.strip() for line in report.splitlines() if "wgmma" in line]
+    log("phase 2 ptxas on wgmma: " + ("; ".join(serial) if serial else "no serialisation noted"))
+    if spilled:
+        raise AssertionError(f"phase 2: K5b spills registers in {spilled}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3033,6 +3154,7 @@ def main() -> int:
     native.library()
     log(f"phase 2 build: {lib_path} in {time.perf_counter() - t0:.1f} s\n"
         f"{native.ptxas_report()}")
+    phase_registers(native)
 
     k2_err = phase_k2(bin_image_cuda, bin_image_plain)
     k1_err, fparams = phase_k1a(ft, engine)
@@ -3171,6 +3293,13 @@ def main() -> int:
     r1 = phase_r1(smi)
     r2 = phase_r2(smi)
     roof = phase_roofline(smi)
+    timings = curved["timings"]
+    phase_k5_census(smi, roof["roofline"]["rates"], {
+        "flagship": (grad["k5f_ms"], grad["k5b_ms"]),
+        **{name: (t["f_ms"], t["b_ms"]) for name, t in timings.items()},
+        "focused_gaussian_voigt": (k5s["f_ms"], k5s["b_ms"]),
+        "file_rocking": (k5file["f_ms"], k5file["b_ms"]),
+        "mosaic_sphere": (k5d["f_ms"], k5d["b_ms"])})
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -3275,14 +3404,14 @@ def main() -> int:
             k1e["bound"]),
     ]
     probes_cu = "xicsrt_tpu_torch/csrc/roofline_probes.cu"
-    rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates
+    rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates (R2's: phase 44's)
     for body in ("trans", "sqrtdiv", "simple"):
         kernels.append(row(f"elem_rate_cuda (R1-{body})", probes_cu,
                            "tools/roofline.py:294 (pallas_call :315)",
                            roof["launches"][f"R1-{body}"], r1[body]["err"], rate_ms[body],
                            r1[body]["plain_ms"], r1[body]["bound"]))
     kernels.append(row("mma_rate_cuda (R2)", probes_cu, "tools/roofline.py:344 (pallas_call :366)",
-                       roof["launches"]["R2"], r2["err"], rate_ms["mma"], r2["plain_ms"],
+                       roof["launches"]["R2"], r2["err"], r2["ms"], r2["plain_ms"],
                        r2["bound"], r2["library_ms"]))
     log(f"phase 31 K1a per 2^22 flagship rays beside the new stages: {t_k1a['ms']:.4f} ms; "
         f"phase 38 again {t_k1a_again['ms']:.4f} ms")

@@ -422,6 +422,40 @@ def test_fused_grad_mosaic_matches_twins(cuda_device):
     assert after == (before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("rng", ["input", "hw"])
+def test_fused_grad_three_optics_matches_twin(cuda_device, rng):
+    """K5b's per-thread slot sums on three optics (``chip_smoke.
+    fold_chain_config``: a planar mirror, the spherical crystal, the
+    detector) at 2^20 rays, so each thread carries a dozen or more rays
+    through the grid-stride loop: against the float32 twin at rtol 1e-3 /
+    atol 1e-5 of the largest slot, every optic's slots non-zero, in both
+    RNG modes."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    n = 1 << 20
+    pipe = Pipeline(chip_smoke.fold_chain_config(n), device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam = spec["static"], spec["lam"]
+    assert static.n_optics == 3
+    pvec = pack(pipe.params).detach()
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    g = torch.randn(static.img_total, device=cuda_device, generator=gen)
+    if rng == "input":
+        kwargs = {"uniforms": torch.rand((static.n_draws, n), device=cuda_device,
+                                         generator=gen)}
+    else:
+        kwargs = {"seed": (10, 11)}
+    before = fg.fused_grad_vjp_cuda.launches
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, **kwargs)
+    assert fg.fused_grad_vjp_cuda.launches == before + 1
+    twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, chunk=1 << 18, **kwargs)
+    scale = twin.abs().max().item()
+    per_optic = twin[:3 * fg.SLOTS_PER_OPTIC].reshape(3, fg.SLOTS_PER_OPTIC)
+    assert bool((per_optic.abs().amax(dim=1) > 0).all())
+    torch.testing.assert_close(grad, twin, rtol=1e-3, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("case", ["found", "sampled", "found weight", "found sparse"])
 def test_k1e_matches_twin(cuda_device, case):
     """K1e: K1's marked build, the chunk selection and the record launch
@@ -486,5 +520,27 @@ def test_mma_rate_kernel_matches_plain(cuda_device):
     plain = rp.mma_rate_plain(seed, n_mm=8, K_mm=4, sub=256)
     blocks = native.library().xrt_mma_rate_blocks(8)
     chip_smoke.held_to(kernel, plain, chip_smoke.r2_bound(8, 4, 256, blocks), "R2")
+    assert bool((kernel[:, 0] == 0).all()) and float(kernel.max()) > 0
+    assert rp.mma_rate_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("K_mm", [1, 2])
+def test_mma_rate_kernel_on_uneven_steps(cuda_device, K_mm):
+    """R2 at the tool's sub with 7 grid steps more than the blocks it
+    launches, so some blocks take two steps and the rest one, against its
+    plain version within ``chip_smoke.r2_bound`` of the blocks launched."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import native
+    from xicsrt_tpu_torch.ops import roofline_probes as rp
+
+    lib = native.library()
+    n_mm = lib.xrt_mma_rate_blocks(1 << 20) + 7
+    blocks = lib.xrt_mma_rate_blocks(n_mm)
+    assert n_mm % blocks != 0
+    seed = torch.tensor([0.013], dtype=torch.float32, device=cuda_device)
+    before = rp.mma_rate_cuda.launches
+    kernel = rp.mma_rate_cuda(seed, n_mm=n_mm, K_mm=K_mm)
+    plain = rp.mma_rate_plain(seed, n_mm=n_mm, K_mm=K_mm)
+    chip_smoke.held_to(kernel, plain, chip_smoke.r2_bound(n_mm, K_mm, rp.SUB, blocks), "R2")
     assert bool((kernel[:, 0] == 0).all()) and float(kernel.max()) > 0
     assert rp.mma_rate_cuda.launches == before + 1

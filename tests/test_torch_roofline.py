@@ -165,6 +165,66 @@ def test_chain_census_is_per_ray():
     assert small["simple"] > 100
 
 
+def _k5_chain(name):
+    """A K5 chain of ``chip_smoke.py``'s gradient phases (2^22 rays; the
+    census takes its own chunk)."""
+    import chip_smoke
+
+    if name == "flagship":
+        return chip_smoke.grad_flagship(1 << 22, 1)
+    if name in ("torus", "cylinder"):
+        return chip_smoke.grad_timing_configs()[name]
+    return chip_smoke.grad_variant(name, 1 << 22)
+
+
+@pytest.mark.parametrize("name", ["flagship", "plasma_cubic"])
+def test_k5_census_is_per_ray(name):
+    """K5's census (``k5_ops_per_ray``) grows with the rays and not the
+    chunk: from chunks 1024 to 2048 and 2048 to 4096 the totals grow by the
+    same operations a ray within 1 % class by class (a few counts follow the
+    rays' hits), and the census per ray at 4096 passes that by at most the
+    work of one call (the images' sums: the image floats and a few scalars)
+    over the chunk; K5b's census holds K5f's, class by class, with more
+    square roots and divisions."""
+    from xicsrt_tpu_torch.engine import Pipeline
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    config = _k5_chain(name)
+    img_total = fg.build_fused_diff(Pipeline(config, device="cpu"), num_iter=1)[3][
+        "static"].img_total
+    for backward in (False, True):
+        totals = [{k: v * chunk for k, v in roofline.k5_ops_per_ray(
+            config, backward, chunk=chunk)[0].items()} for chunk in (1024, 2048, 4096)]
+        for cls in roofline.CLASSES:
+            a, b, c = (t[cls] for t in totals)
+            per_ray = (c - b) / 2048
+            assert (b - a) / 1024 == pytest.approx(per_ray, rel=1e-2, abs=1e-9)
+            assert -1e-2 * per_ray <= c / 4096 - per_ray <= 1e-2 * per_ray + (
+                img_total + 64) / 4096
+    forward, _ = roofline.k5_ops_per_ray(config, False, chunk=2048)
+    backward, _ = roofline.k5_ops_per_ray(config, True, chunk=2048)
+    for cls in roofline.CLASSES:
+        assert backward[cls] >= forward[cls]
+    assert backward["sqrtdiv"] > forward["sqrtdiv"] and forward["mxu_macs"] == 0.0
+
+
+@pytest.mark.parametrize("name", ["flagship", "torus", "plasma_cubic", "file_rocking"])
+def test_k5_hand_count_against_the_census(name):
+    """``k5_ops``, the hand count of K5's flat bound, against the census of
+    its twins (trans, sqrt-division and simple together): the census is
+    1-1.75 times the hand count for K5f, whose twin spends index arithmetic
+    and clamps on the bilinear splat that the hand count prices at 24, and
+    1-1.3 times for K5b (forward and adjoint)."""
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    for backward, high in ((False, 1.75), (True, 1.3)):
+        counts, pipe = roofline.k5_ops_per_ray(_k5_chain(name), backward, chunk=2048)
+        static = fg.build_fused_diff(pipe, num_iter=1)[3]["static"]
+        census = sum(counts[c] for c in ("trans", "sqrtdiv", "simple"))
+        ratio = census / roofline.k5_ops(static, backward)
+        assert 1.0 <= ratio <= high, (backward, ratio)
+
+
 def test_mosaic_census_counts_every_layer():
     """The twin evaluates all 15 layers of ``mosaic15`` for every ray: two
     erfinv and one exp a layer, beside the source's one sin. One layer's

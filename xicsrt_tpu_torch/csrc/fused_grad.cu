@@ -43,21 +43,29 @@
 // shared atomics.
 //
 // K5b: for optic i = n-1 .. 0 the ray's forward is recomputed from the
-// source up to optic i (n(n+1)/2 optic evaluations a ray, none stored; a
-// torus upstream repeats its four Newton steps per downstream optic), so
-// every primal lives in registers. A mosaic crystal's adjoint keeps no
-// per-layer state: the cotangent of layer l's probability is cum_b times
-// prod_{j != l} (1 - p_j), so the forward carries six sums V <- V (1 - p_l)
-// + prod_{j<l} (1 - p_j) X_l (the Bragg chain's per-unit terms X_l: d(d.n_l)
-// times gx_l w_l, gy_l w_l and w_l, d sin_b, d sigma, d reflectivity),
-// which the adjoint scales by cum_b; the last pick's normal and
-// coefficients, kept by the forward, route the direction's adjoint. The cotangent images are staged in
-// shared memory and gathered at the hit's four corners. Each optic's 17
-// slot contributions, and a plasma's 2 source slots, are summed over the
-// warp with shuffles and added by lane 0 to float64 slot sums in shared
-// memory; each block writes its row of slot sums, which the host adds in
-// float64. Per-ray terms cancel heavily, so no float32 sum spans more than
-// a warp. Bounded by arithmetic (the recomputed forward) and the shuffles.
+// source up to optic i (n(n+1)/2 optic evaluations a ray), so every primal
+// lives in registers; what the passes share waits in per-thread rows of
+// shared memory: the ray leaving the source, and each torus's Newton root,
+// found in the first pass only. The draws restart from a cursor. A mosaic
+// crystal's adjoint keeps no per-layer state: the cotangent of layer l's
+// probability is cum_b times prod_{j != l} (1 - p_j), so the forward
+// carries six sums V <- V (1 - p_l) + prod_{j<l} (1 - p_j) X_l (the Bragg
+// chain's per-unit terms X_l: d(d.n_l) times gx_l w_l, gy_l w_l and w_l, d
+// sin_b, d sigma, d reflectivity), which the adjoint scales by cum_b; the
+// last pick's normal and coefficients, kept by the forward, route the
+// direction's adjoint. The cotangent images are staged in shared memory
+// where they fit beside the per-thread rows (else read through L1) and
+// gathered at the hit's four corners. Each term of a ray's 17 slot
+// contributions per optic, and of a plasma's 2 source slots, is added to
+// the thread's own column of slot sums in shared memory, in float32, over
+// the whole grid-stride loop (in the ray's order: no shuffles, no
+// atomics); at the end the block sums its columns per slot in float64, in
+// a fixed order, into its row of slot sums, which the host adds in
+// float64. A column sums a few terms a ray for the rays its thread carries
+// (about 62 at 2^22 rays in 264 blocks of 256), so a slot's float32
+// rounding stays far inside its checks (rtol 1e-3 of the float32 twin). The launcher (bwd_layout) keeps the blocks that ptxas's
+// registers allow. Bounded by arithmetic: the recomputed forward and the
+// adjoint.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -312,15 +320,21 @@ __device__ __forceinline__ float grad_mosaic_fwd(const float* o, const int* oi,
 // kCylinder, kMosaic: whether the chain holds such shapes or a mosaic
 // crystal (a chain of planes and spheres with crystals compiles without
 // their code and registers). draw: the ray's draws, a mosaic's three per
-// layer.
-template <bool kTorus, bool kCylinder, bool kMosaic>
+// layer. kRootCache (K5b only): a torus's Newton root and last step live at
+// root[0] and root[root_stride]; root_read takes them from there, else they
+// are found and stored. The ray enters the optic in the same state in every
+// pass of K5b, so the cached root is the one it would find again.
+template <bool kTorus, bool kCylinder, bool kMosaic, bool kRootCache = false>
 __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
                                                const float* P,
                                                const float* apf,
                                                const int* api,
                                                const float* __restrict__ aux,
                                                Draws& draw, RayState& st,
-                                               OpticLocals& L) {
+                                               OpticLocals& L,
+                                               float* root = nullptr,
+                                               int root_stride = 0,
+                                               bool root_read = false) {
     const float ox = P[0], oy = P[1], oz = P[2];
     const float bxx = P[3], bxy = P[4], bxz = P[5];
     const float byx = P[6], byy = P[7], byz = P[8];
@@ -373,9 +387,18 @@ __device__ __forceinline__ void grad_optic_fwd(const float* o, const int* oi,
         // K1's Newton root; the adjoint differentiates one Newton
         // correction at it (fused_grad.py:819-876).
         const float z0 = (st.px - ox) * bzx + (st.py - oy) * bzy + (st.pz - oz) * bzz;
-        float step;
-        const float t0 = xrt_torus_root(Olx, Oly, Olz, L.Dlx, L.Dly, L.Dlz, z0,
-                                        L.r_maj, L.rmn * L.rmn, &step);
+        float step, t0;
+        if (kRootCache && root_read) {
+            t0 = root[0];
+            step = root[root_stride];
+        } else {
+            t0 = xrt_torus_root(Olx, Oly, Olz, L.Dlx, L.Dly, L.Dlz, z0, L.r_maj,
+                                L.rmn * L.rmn, &step);
+            if (kRootCache) {
+                root[0] = t0;
+                root[root_stride] = step;
+            }
+        }
         L.m_int = fabsf(step) < 1e-5f * fmaxf(L.r_maj, 1.0f) && t0 > 1e-6f &&
                   t0 < 1e6f;
         mask = st.alive && L.m_int;
@@ -608,72 +631,114 @@ __global__ void fused_grad_fwd_kernel(
     }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
+// K5b's rows of one float a thread in shared memory: the slot sums (17 an
+// optic, then a plasma's 2), the ray leaving the source (position,
+// direction, weight, wavelength, then a plasma's n_g, sqrt(T) and Doppler
+// factor), and a torus chain's cached roots (root and last step an optic).
+__host__ __device__ inline int bwd_slot_rows(int n_opt, bool plasma) {
+    return n_opt * XRT_GRAD_USED + (plasma ? 2 : 0);
+}
+
+__host__ __device__ inline int bwd_ray_rows(bool plasma) { return plasma ? 11 : 8; }
+
+__host__ __device__ inline int bwd_rows(int n_opt, bool plasma, bool torus) {
+    return bwd_slot_rows(n_opt, plasma) + bwd_ray_rows(plasma) + (torus ? 2 * n_opt : 0);
+}
+
+// The row of the per-thread slot sums that slot s of pvec sums into, or -1
+// for a slot K5b leaves at zero: optic e's first 17 slots, then a plasma's
+// emissivity and temperature.
+template <int kSource>
+__device__ __forceinline__ int slot_row(int s, int n_opt) {
+    const int src_base = n_opt * XRT_GRAD_SLOTS;
+    if (s < src_base) return s % XRT_GRAD_SLOTS < XRT_GRAD_USED
+                                 ? (s / XRT_GRAD_SLOTS) * XRT_GRAD_USED + s % XRT_GRAD_SLOTS
+                                 : -1;
+    if (kSource == XRT_GRAD_PLASMA && s < src_base + 2) {
+        return n_opt * XRT_GRAD_USED + (s - src_base);
     }
-    return v;
+    return -1;
 }
 
-// Adds one ray's contribution v to the float64 slot sum *acc: the warp's
-// sum by shuffles, added by lane 0.
-__device__ __forceinline__ void warp_add(double* acc, float v, int lane) {
-    const float sum = warp_sum(v);
-    if (lane == 0 && sum != 0.0f) atomicAdd(acc, (double)sum);
-}
+// K5b's block size and launch bounds by variant, from ptxas's report (phase 2
+// of chip_smoke.py prints it). The variants that fit 128 registers without
+// spilling (100-127 on sm_90a) run two blocks of 256 threads, 16 warps, a
+// multiprocessor: the point source with at most one kind of curved optic,
+// a plasma without a torus, the generic source with neither. The others
+// (129-199 registers) run blocks of 128 threads with no register cap, 8-12
+// warps, where a 256-thread block would leave 8. The torus chain's adjoint
+// fits 128 registers only with its ray and roots in shared memory; left
+// to itself, ptxas gives it more and the time grows 1.7x.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+struct BwdLaunch {
+    static constexpr bool kPinned =
+        !kMosaic && !(kTorus && kCylinder) &&
+        (kSource == XRT_GRAD_POINT || (kSource == XRT_GRAD_PLASMA && !kTorus) ||
+         (kSource == XRT_GRAD_GENERIC && !kTorus && !kCylinder));
+    static constexpr int kThreads = kPinned ? 256 : 128;
+    static constexpr int kMinBlocks = kPinned ? 2 : 1;
+};
 
-// Two blocks of kThreads on a multiprocessor leave 128 registers a thread.
-// The point-source chains with at most one kind of curved optic fit there;
-// left to itself, ptxas took the torus chain's adjoint to 134 registers and
-// one block, at 1.7x the time, so these variants ask for two blocks.
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 __global__ void __launch_bounds__(
-    kThreads, kSource == XRT_GRAD_POINT && !(kTorus && kCylinder) ? 2 : 1)
+    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kThreads),
+    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kMinBlocks))
 fused_grad_bwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
     int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, const float* __restrict__ g_images,
     int img_total, int use_smem, double* __restrict__ partial) {
-    extern __shared__ float s_g[];
+    extern __shared__ float s_dyn[];
     __shared__ float fp[XRT_MAX_FP];
     __shared__ int ip[XRT_MAX_IP];
     __shared__ float P[XRT_GRAD_MAX_SLOTS];
-    __shared__ double s_acc[XRT_GRAD_MAX_SLOTS];
 
     for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
     for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
-    for (int i = threadIdx.x; i < n_slots; i += blockDim.x) {
-        P[i] = g_pvec[i];
-        s_acc[i] = 0.0;
-    }
+    for (int i = threadIdx.x; i < n_slots; i += blockDim.x) P[i] = g_pvec[i];
     if (use_smem) {
         for (int i = threadIdx.x; i < img_total; i += blockDim.x) {
-            s_g[i] = g_images[i];
+            s_dyn[i] = g_images[i];
         }
     }
+    const int n_opt = g_ip[0];
+    // The per-thread rows (bwd_rows) after the staged images. Each optic's
+    // recomputed forward starts from the ray's rows, so the ray stays out of
+    // registers through the adjoint.
+    constexpr bool kPlasma = kSource == XRT_GRAD_PLASMA;
+    const int per_row = blockDim.x;
+    const int n_rows = bwd_slot_rows(n_opt, kPlasma);
+    float* s_col = s_dyn + (use_smem ? img_total : 0);
+    for (int i = threadIdx.x; i < n_rows * per_row; i += blockDim.x) s_col[i] = 0.0f;
+    float* s_ray = s_col + n_rows * per_row + threadIdx.x;
+    float* s_root = s_ray + bwd_ray_rows(kPlasma) * per_row;
     __syncthreads();
 
-    const float* gimg = use_smem ? s_g : g_images;
-    const int n_opt = ip[0];
+    const float* gimg = use_smem ? s_dyn : g_images;
     const int src_base = n_opt * XRT_GRAD_SLOTS;
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
-    const int lane = threadIdx.x & 31;
+    float* col = s_col + threadIdx.x;
     const long long stride = (long long)gridDim.x * blockDim.x;
 
-    // Whole warps step together (blockDim is a multiple of 32), so every
-    // lane reaches every shuffle; lanes past the end carry zero adjoints.
-    for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-         r0 < n_total; r0 += stride) {
-        const long long r = r0 + lane;
-        const bool in_range = r < n_total;
-        Draws draw{uniforms, n_total, in_range ? r : n_total - 1,
-                   seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
-        RayState src;
-        SourceAux src_aux;
-        grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, src, src_aux);
-        src.alive = in_range;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n_total;
+         r += stride) {
+        int src_next;  // the first draw after the source's
+        {
+            Draws draw{uniforms, n_total, r, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
+            RayState src;
+            SourceAux src_aux{0.0f, 0.0f, 0.0f};
+            grad_sample_source<kSource>(fp, ip, P, src_base, lam, draw, src, src_aux);
+            src_next = draw.next;
+            const float vals[11] = {src.px, src.py, src.pz, src.dx, src.dy, src.dz,
+                                    src.w, src.lam, src_aux.n_g, src_aux.sqrt_t,
+                                    src_aux.dop};
+#pragma unroll
+            for (int k = 0; k < bwd_ray_rows(kPlasma); ++k) {
+                s_ray[k * per_row] = vals[k];
+            }
+        }
 
         float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // adjoint of position
         float dbx = 0.0f, dby = 0.0f, dbz = 0.0f;  // adjoint of direction
@@ -683,27 +748,38 @@ fused_grad_bwd_kernel(
             const float* o = fp + XRT_SRC_F + i * XRT_OPT_F;
             const int* oi = ip + XRT_HDR_I + i * XRT_OPT_I;
             const float* Pi = P + i * XRT_GRAD_SLOTS;
-            // Recompute the forward up to optic i, then through it.
-            RayState st = src;
-            Draws chain_draw = draw;  // the optics' draws follow the source's
+            // Recompute the forward up to optic i, then through it; the
+            // optics' draws follow the source's (a fresh cursor at src_next
+            // regenerates the same Philox blocks).
+            RayState st{s_ray[0], s_ray[per_row], s_ray[2 * per_row],
+                        s_ray[3 * per_row], s_ray[4 * per_row], s_ray[5 * per_row],
+                        s_ray[6 * per_row], s_ray[7 * per_row], true};
+            Draws chain_draw{uniforms, n_total, r, seed0, seed1, src_next, -1,
+                             {0u, 0u, 0u, 0u}};
+            // The first pass (the last optic) finds every torus root on the
+            // way; the later passes read them.
+            const bool root_read = i < n_opt - 1;
             for (int e = 0; e < i; ++e) {
                 OpticLocals skip;
-                grad_optic_fwd<kTorus, kCylinder, kMosaic>(
+                grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
                     fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
-                    P + e * XRT_GRAD_SLOTS, apf, api, aux, chain_draw, st, skip);
+                    P + e * XRT_GRAD_SLOTS, apf, api, aux, chain_draw, st, skip,
+                    s_root + 2 * e * per_row, per_row, root_read);
             }
             OpticLocals L;
-            grad_optic_fwd<kTorus, kCylinder, kMosaic>(o, oi, Pi, apf, api, aux,
-                                                       chain_draw, st, L);
+            grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
+                o, oi, Pi, apf, api, aux, chain_draw, st, L, s_root + 2 * i * per_row,
+                per_row, root_read);
             const float bxx = Pi[3], bxy = Pi[4], bxz = Pi[5];
             const float byx = Pi[6], byy = Pi[7], byz = Pi[8];
             const float bzx = Pi[9], bzy = Pi[10], bzz = Pi[11];
             const float mf = L.mask ? 1.0f : 0.0f;
             const bool mask = L.mask;
             const int shape = oi[0];
-            float a[XRT_GRAD_USED];
-#pragma unroll
-            for (int k = 0; k < XRT_GRAD_USED; ++k) a[k] = 0.0f;
+            // Slot k's term of this ray goes straight into the thread's
+            // column, so no slot sum stays live in a register.
+            float* col_i = col + i * XRT_GRAD_USED * per_row;
+            auto slot = [&](int k, float v) { col_i[k * per_row] += v; };
 
             float qbx = pbx, qby = pby, qbz = pbz;
             float lxb = 0.0f, lyb = 0.0f;
@@ -744,8 +820,8 @@ fused_grad_bwd_kernel(
                 wb = mask ? wb * L.cum : wb;
                 const float A2 = cum_b * L.V[0], A1 = cum_b * L.V[1];
                 const float An = cum_b * L.V[2], sinb_b = cum_b * L.V[3];
-                a[14] += cum_b * L.V[4] * XRT_SIGMA_PER_FWHM;
-                a[15] += cum_b * L.V[5];
+                slot(14, cum_b * L.V[4] * XRT_SIGMA_PER_FWHM);
+                slot(15, cum_b * L.V[5]);
                 // The direction's adjoint goes to the last pick's reflection.
                 const float pf = L.picked ? 1.0f : 0.0f;
                 const float av = dbx * L.pnx + dby * L.pny + dbz * L.pnz;
@@ -788,7 +864,7 @@ fused_grad_bwd_kernel(
                 const float ds_b =
                     sinb_b * (-st.lam / (2.0f * fmaxf(L.d_s * L.d_s, XRT_EPS)));
                 const bool inr = L.sin_b > 0.0f && L.sin_b < 1.0f;
-                a[13] += (inr ? ds_b : 0.0f) * mf;
+                slot(13, (inr ? ds_b : 0.0f) * mf);
                 if (kSource == XRT_GRAD_PLASMA) {
                     lamb = lamb + (inr ? sinb_b / (2.0f * fmaxf(L.d_s, XRT_EPS)) : 0.0f) * mf;
                 }
@@ -818,7 +894,7 @@ fused_grad_bwd_kernel(
                         delta_b = prob_b * prob * (-L.z / L.sigma);
                         const float sigma_b = prob_b * prob * (L.z * L.z / L.sigma);
                         refl_b = prob_b * (prob / fmaxf(L.refl, XRT_EPS));
-                        a[14] += sigma_b * mf * XRT_SIGMA_PER_FWHM;
+                        slot(14, sigma_b * mf * XRT_SIGMA_PER_FWHM);
                     } else if (oi[3] != XRT_ROCK_FILE) {
                         refl_b = prob_b * (L.step_in ? 1.0f : 0.0f);
                         delta_b = 0.0f;
@@ -827,7 +903,7 @@ fused_grad_bwd_kernel(
                         refl_b = prob_b * L.file_val * inf_;
                         delta_b = prob_b * L.refl * L.file_slope * inf_;
                     }
-                    a[15] += refl_b * mf;
+                    slot(15, refl_b * mf);
                     const float sd = L.sd;
                     const float sd_b = delta_b * (1.0f + 0.5f * sd * sd);
                     const float adot_b =
@@ -837,7 +913,7 @@ fused_grad_bwd_kernel(
                     const float ds_b =
                         sinb_b * (-st.lam / (2.0f * fmaxf(L.d_s * L.d_s, XRT_EPS)));
                     const bool inr = L.sin_b > 0.0f && L.sin_b < 1.0f;
-                    a[13] += (inr ? ds_b : 0.0f) * mf;
+                    slot(13, (inr ? ds_b : 0.0f) * mf);
                     // sin_b = lam / (2 d): the wavelength's adjoint, which a
                     // plasma carries to its temperature slot.
                     if (kSource == XRT_GRAD_PLASMA) {
@@ -863,23 +939,23 @@ fused_grad_bwd_kernel(
             qbx = qbx + lxb * bxx + lyb * byx;
             qby = qby + lxb * bxy + lyb * byy;
             qbz = qbz + lxb * bxz + lyb * byz;
-            a[0] += -(lxb * bxx + lyb * byx);
-            a[1] += -(lxb * bxy + lyb * byy);
-            a[2] += -(lxb * bxz + lyb * byz);
-            a[3] += lxb * rxq;
-            a[4] += lxb * ryq;
-            a[5] += lxb * rzq;
-            a[6] += lyb * rxq;
-            a[7] += lyb * ryq;
-            a[8] += lyb * rzq;
+            slot(0, -(lxb * bxx + lyb * byx));
+            slot(1, -(lxb * bxy + lyb * byy));
+            slot(2, -(lxb * bxz + lyb * byz));
+            slot(3, lxb * rxq);
+            slot(4, lxb * ryq);
+            slot(5, lxb * rzq);
+            slot(6, lyb * rxq);
+            slot(7, lyb * ryq);
+            slot(8, lyb * rzq);
 
             // ---- normal ------------------------------------------------
             float Cbx = 0.0f, Cby = 0.0f, Cbz = 0.0f, r_b_n = 0.0f;
             float axbx = 0.0f, axby = 0.0f, axbz = 0.0f;  // cylinder axis bx
             if (shape == 0) {  // n = bz
-                a[9] += nbx;
-                a[10] += nby;
-                a[11] += nbz;
+                slot(9, nbx);
+                slot(10, nby);
+                slot(11, nbz);
             } else if (shape == 1) {  // n = (C - q) / r
                 Cbx = L.inv_r * nbx;
                 Cby = L.inv_r * nby;
@@ -907,9 +983,9 @@ fused_grad_bwd_kernel(
                 ptby = ptby + plby;
                 ptbz = ptbz + plbz;
                 const float dyax_b = -(plbx * byx + plby * byy + plbz * byz);
-                a[6] += -L.dy_ax * plbx + dyax_b * L.ptx;
-                a[7] += -L.dy_ax * plby + dyax_b * L.pty;
-                a[8] += -L.dy_ax * plbz + dyax_b * L.ptz;
+                slot(6, -L.dy_ax * plbx + dyax_b * L.ptx);
+                slot(7, -L.dy_ax * plby + dyax_b * L.pty);
+                slot(8, -L.dy_ax * plbz + dyax_b * L.ptz);
                 ptbx = ptbx + dyax_b * byx;
                 ptby = ptby + dyax_b * byy;
                 ptbz = ptbz + dyax_b * byz;
@@ -956,12 +1032,12 @@ fused_grad_bwd_kernel(
                 dbx = dbx - t_b * t * bzx * invD;
                 dby = dby - t_b * t * bzy * invD;
                 dbz = dbz - t_b * t * bzz * invD;
-                a[0] += t_b * bzx * invD;
-                a[1] += t_b * bzy * invD;
-                a[2] += t_b * bzz * invD;
-                a[9] += t_b * (Pi[0] - L.qx) * invD;
-                a[10] += t_b * (Pi[1] - L.qy) * invD;
-                a[11] += t_b * (Pi[2] - L.qz) * invD;
+                slot(0, t_b * bzx * invD);
+                slot(1, t_b * bzy * invD);
+                slot(2, t_b * bzz * invD);
+                slot(9, t_b * (Pi[0] - L.qx) * invD);
+                slot(10, t_b * (Pi[1] - L.qy) * invD);
+                slot(11, t_b * (Pi[2] - L.qz) * invD);
             } else if (shape == 1) {  // t = t_ca -+ t_hc, L = C - p
                 const float t_hc = fmaxf(L.t_hc, 1e-6f);
                 const float t_ca = L.t_ca;
@@ -1013,9 +1089,9 @@ fused_grad_bwd_kernel(
                 Cbx = Cbx - dpbx;
                 Cby = Cby - dpby;
                 Cbz = Cbz - dpbz;
-                a[3] += axbx;
-                a[4] += axby;
-                a[5] += axbz;
+                slot(3, axbx);
+                slot(4, axby);
+                slot(5, axbz);
             } else if (kTorus && shape == 2) {
                 // Torus: t = where(m_int, t0 - G / G', 0) at the frozen root
                 // t0, the implicit-function derivative plus the quotient
@@ -1049,51 +1125,56 @@ fused_grad_bwd_kernel(
                 dbx = dbx + Dlx_b * bxx + Dly_b * byx + Dlz_b * bzx;
                 dby = dby + Dlx_b * bxy + Dly_b * byy + Dlz_b * bzy;
                 dbz = dbz + Dlx_b * bxz + Dly_b * byz + Dlz_b * bzz;
-                a[3] += X_b * L.rx + Dlx_b * d0x;
-                a[4] += X_b * L.ry + Dlx_b * d0y;
-                a[5] += X_b * L.rz + Dlx_b * d0z;
-                a[6] += Y_b * L.rx + Dly_b * d0x;
-                a[7] += Y_b * L.ry + Dly_b * d0y;
-                a[8] += Y_b * L.rz + Dly_b * d0z;
+                slot(3, X_b * L.rx + Dlx_b * d0x);
+                slot(4, X_b * L.ry + Dlx_b * d0y);
+                slot(5, X_b * L.rz + Dlx_b * d0z);
+                slot(6, Y_b * L.rx + Dly_b * d0x);
+                slot(7, Y_b * L.ry + Dly_b * d0y);
+                slot(8, Y_b * L.rz + Dly_b * d0z);
                 const float cs = o[XRT_O_CSIGN];  // C = o + cs R bz
-                a[0] += Cbx;
-                a[1] += Cby;
-                a[2] += Cbz;
-                a[9] += Z_b * L.rx + Dlz_b * d0x + cs * L.Rmj * Cbx;
-                a[10] += Z_b * L.ry + Dlz_b * d0y + cs * L.Rmj * Cby;
-                a[11] += Z_b * L.rz + Dlz_b * d0z + cs * L.Rmj * Cbz;
-                a[12] += cs * (Cbx * bzx + Cby * bzy + Cbz * bzz) + rmaj_b;
-                a[16] += rmn_b + o[XRT_O_MADJ] * rmaj_b;
+                slot(0, Cbx);
+                slot(1, Cby);
+                slot(2, Cbz);
+                slot(9, Z_b * L.rx + Dlz_b * d0x + cs * L.Rmj * Cbx);
+                slot(10, Z_b * L.ry + Dlz_b * d0y + cs * L.Rmj * Cby);
+                slot(11, Z_b * L.rz + Dlz_b * d0z + cs * L.Rmj * Cbz);
+                slot(12, cs * (Cbx * bzx + Cby * bzy + Cbz * bzz) + rmaj_b);
+                slot(16, rmn_b + o[XRT_O_MADJ] * rmaj_b);
             }
             if (shape == 1 || (kCylinder && shape == 3)) {  // C = o + sign_c r bz
-                a[0] += Cbx;
-                a[1] += Cby;
-                a[2] += Cbz;
-                a[9] += sign_c * L.r * Cbx;
-                a[10] += sign_c * L.r * Cby;
-                a[11] += sign_c * L.r * Cbz;
-                a[12] += r_b + sign_c * (bzx * Cbx + bzy * Cby + bzz * Cbz);
-            }
-
-            // ---- slot sums: warp shuffles, then float64 per block --------
-#pragma unroll
-            for (int k = 0; k < XRT_GRAD_USED; ++k) {
-                warp_add(s_acc + i * XRT_GRAD_SLOTS + k, in_range ? a[k] : 0.0f,
-                         lane);
+                slot(0, Cbx);
+                slot(1, Cby);
+                slot(2, Cbz);
+                slot(9, sign_c * L.r * Cbx);
+                slot(10, sign_c * L.r * Cby);
+                slot(11, sign_c * L.r * Cbz);
+                slot(12, r_b + sign_c * (bzx * Cbx + bzy * Cby + bzz * Cbz));
             }
         }
-        if (kSource == XRT_GRAD_PLASMA) {  // the source slots (fused_grad.py:279-291)
+        if (kPlasma) {  // the source slots (fused_grad.py:279-291)
+            const float n_g = s_ray[8 * per_row], sqrt_t = s_ray[9 * per_row];
+            const float dop = s_ray[10 * per_row];
             const float aE = wb * fp[30];
-            const float aT =
-                lamb * (fp[16] * src_aux.n_g * src_aux.dop / (2.0f * src_aux.sqrt_t));
-            warp_add(s_acc + src_base, in_range ? aE : 0.0f, lane);
-            warp_add(s_acc + src_base + 1, in_range ? aT : 0.0f, lane);
+            const float aT = lamb * (fp[16] * n_g * dop / (2.0f * sqrt_t));
+            float* col_s = col + n_opt * XRT_GRAD_USED * per_row;
+            col_s[0] += aE;
+            col_s[per_row] += aT;
         }
     }
 
+    // The block's row of slot sums: warp w sums rows w, w + warps, ... of
+    // the columns in float64, each lane a strided part, then the lanes by
+    // xor shuffles; the same order every run.
     __syncthreads();
-    for (int i = threadIdx.x; i < n_slots; i += blockDim.x) {
-        partial[(long long)blockIdx.x * n_slots + i] = s_acc[i];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int s = warp; s < n_slots; s += blockDim.x >> 5) {
+        const int row = slot_row<kSource>(s, n_opt);
+        double v = 0.0;
+        if (row >= 0) {
+            for (int j = lane; j < per_row; j += 32) v += (double)s_col[row * per_row + j];
+        }
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) partial[(long long)blockIdx.x * n_slots + s] = v;
     }
 }
 
@@ -1116,6 +1197,9 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
 #define XRT_GRAD_KERNELS(K) {XRT_GRAD_SOURCES(K, false), XRT_GRAD_SOURCES(K, true)}
 const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_fwd_kernel);
 const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+constexpr int kBwdThreadsOf = BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kThreads;
+const int kBwdThreads[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(kBwdThreadsOf);
 
 bool grad_args_ok(int n_fp, int n_ip, const float* aux, int n_aux, int n_slots,
                   int variant) {
@@ -1124,10 +1208,52 @@ bool grad_args_ok(int n_fp, int n_ip, const float* aux, int n_aux, int n_slots,
            variant < XRT_GRAD_VARIANTS;
 }
 
-size_t bwd_smem(int img_total) {
-    return img_total <= XRT_SMEM_IMAGE_MAX_FLOATS
-               ? (size_t)img_total * sizeof(float)
-               : 0;
+// How a K5b launch lays out its dynamic shared memory: its threads a block,
+// whether the cotangent images are staged there, and the bytes. It keeps
+// the blocks that K5b's registers let a multiprocessor hold, with the images
+// staged where they fit beside the per-thread rows, else read from global
+// memory (through L1); a chain too long for that runs fewer blocks, then
+// fewer threads a block (the launch bounds are a ceiling).
+struct BwdLayout {
+    int threads, use_smem;
+    size_t smem;
+};
+
+cudaError_t bwd_layout(int img_total, int n_opt, int variant, BwdLayout* out) {
+    const BwdKernel kernel = kBwd[variant];
+    int device = 0, per_sm = 0, optin = 0, blocks = 0;
+    cudaFuncAttributes attr;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    const int threads = kBwdThreads[variant];
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) blocks = 1;
+    const long long rows =
+        bwd_rows(n_opt, (variant % 12) >> 2 == XRT_GRAD_PLASMA, variant & 1);
+    const long long limit = (long long)optin - (long long)attr.sharedSizeBytes;
+    // 1 KB of each block's shared memory is the system's.
+    long long cap = (long long)per_sm / blocks - 1024 - (long long)attr.sharedSizeBytes;
+    if (cap > limit) cap = limit;
+    const long long img = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS
+                              ? (long long)img_total * (long long)sizeof(float)
+                              : -1;
+    const long long cols = rows * threads * (long long)sizeof(float);
+    if (img >= 0 && cols + img <= cap) {
+        *out = BwdLayout{threads, 1, (size_t)(cols + img)};
+        return cudaSuccess;
+    }
+    for (int t = threads; t >= 32; t /= 2) {
+        const long long c = rows * t * (long long)sizeof(float);
+        if (c <= (t == threads ? cap : limit)) {
+            *out = BwdLayout{t, 0, (size_t)c};
+            return cudaSuccess;
+        }
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1163,37 +1289,51 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
     return (int)cudaGetLastError();
 }
 
-// Blocks xrt_fused_grad_bwd launches for these sizes and variant (the rows
-// of its partial output), or minus a cudaError_t.
-extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total,
-                                         int variant) {
+// The most threads of a K5b block in this variant (its launch bounds; a
+// chain too long for the shared memory runs fewer), or minus a cudaError_t.
+extern "C" int xrt_fused_grad_bwd_threads(int variant) {
     if (variant < 0 || variant >= XRT_GRAD_VARIANTS) return -(int)cudaErrorInvalidValue;
-    const size_t smem = bwd_smem(img_total);
-    cudaError_t err = xrt_set_smem(kBwd[variant], smem);
-    if (err != cudaSuccess) return -(int)err;
-    return xrt_grid_size(kBwd[variant], kThreads, smem, n_total);
+    return kBwdThreads[variant];
 }
 
-// K5b. As K5f, plus g_images: (img_total,) float32 cotangent images, and
-// partial: (n_blocks, n_slots) float64, one row of slot sums per block,
-// with n_blocks from xrt_fused_grad_bwd_blocks. Returns cudaGetLastError().
+// Blocks xrt_fused_grad_bwd launches for these sizes, chain length and
+// variant (the rows of its partial output), or minus a cudaError_t.
+extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total, int n_opt,
+                                         int variant) {
+    if (variant < 0 || variant >= XRT_GRAD_VARIANTS || n_opt <= 0 ||
+        n_opt > XRT_MAX_OPTICS) {
+        return -(int)cudaErrorInvalidValue;
+    }
+    BwdLayout layout;
+    cudaError_t err = bwd_layout(img_total, n_opt, variant, &layout);
+    if (err == cudaSuccess) err = xrt_set_smem(kBwd[variant], layout.smem);
+    if (err != cudaSuccess) return -(int)err;
+    return xrt_grid_size(kBwd[variant], layout.threads, layout.smem, n_total);
+}
+
+// K5b. As K5f, plus g_images: (img_total,) float32 cotangent images;
+// n_opt: the chain's optics (ip[0]); and partial: (n_blocks, n_slots)
+// float64, one row of slot sums per block, with n_blocks from
+// xrt_fused_grad_bwd_blocks. Returns cudaGetLastError().
 extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
                                   int n_ip, const float* aux, int n_aux,
                                   const float* pvec, int n_slots,
                                   long long n_total, float lam,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, const float* g_images,
-                                  int img_total, double* partial, int n_blocks,
-                                  int variant, void* stream) {
-    if (!grad_args_ok(n_fp, n_ip, aux, n_aux, n_slots, variant) || n_blocks <= 0) {
+                                  int img_total, int n_opt, double* partial,
+                                  int n_blocks, int variant, void* stream) {
+    if (!grad_args_ok(n_fp, n_ip, aux, n_aux, n_slots, variant) || n_blocks <= 0 ||
+        n_opt <= 0 || n_opt > XRT_MAX_OPTICS) {
         return (int)cudaErrorInvalidValue;
     }
     const BwdKernel kernel = kBwd[variant];
-    const size_t smem = bwd_smem(img_total);
-    cudaError_t err = xrt_set_smem(kernel, smem);
+    BwdLayout layout;
+    cudaError_t err = bwd_layout(img_total, n_opt, variant, &layout);
+    if (err == cudaSuccess) err = xrt_set_smem(kernel, layout.smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<n_blocks, layout.threads, layout.smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, pvec, n_slots, n_total, lam, uniforms, seed0,
-        seed1, g_images, img_total, smem > 0, partial);
+        seed1, g_images, img_total, layout.use_smem, partial);
     return (int)cudaGetLastError();
 }

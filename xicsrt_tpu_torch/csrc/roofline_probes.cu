@@ -32,20 +32,27 @@
 // 1e-6 + seed) and B (128, sub) = bf16(q 1e-4); K_mm times acc += A B^T in
 // float32, each followed by the feedback A <- bf16(A (1 + acc[0,0] 1e-20)),
 // and the step's acc added into the (128, 128) output. Tensor cores through
-// mma.sync m16n8k16 (bf16 in, float32 accumulators), by inline PTX.
+// Hopper's warpgroup product wgmma.mma_async m64n128k16 (bf16 in, float32
+// accumulators, A from registers, B from shared memory), by inline PTX.
 //
-// What bounds R2: the tensor cores, 989 TFLOP/s dense bf16 (494.5 TMAC/s;
-// mma.sync reaches only part of it, wgmma is later work). A and B are made
-// in the kernel from the step and the seed, so no input buffer is read. A's
-// rows are all equal and B's columns are all equal (JAX's iotas), so the
-// block keeps one row of A (sub bf16) in shared memory and B's 16 fragments
-// in registers; every fragment is loaded as the mma layout asks, and the
+// What bounds R2: the tensor cores, 989 TFLOP/s dense bf16 (494.5 TMAC/s),
+// which only wgmma reaches. A and B are made in the kernel from the step and
+// the seed, so no input buffer is read and there is nothing for TMA to load.
+// B[q][c] does not depend on c, so one 128 x 64 bf16 tile in shared memory
+// (128-byte swizzle; each row holds one value, so the swizzle's permutation
+// within a row changes nothing) serves every k slice through one descriptor.
+// A's rows are all equal, so a thread's A fragment of a k slice is two
+// words of the one row the block keeps in shared memory. Each of the two
+// warpgroups of a block computes 64 rows of the 128 x 128 tile, so the
 // tensor cores still do all 128 x 128 x sub MACs of every product. The
-// feedback reads acc[0,0] after every product and rescales A before the
-// next (an identity here, since B's row 0 is zero, but computed all the
-// same), so no product can be hoisted. One block per SM walks the grid's
-// steps; each block's partial tile is summed by a second launch in a fixed
-// order.
+// feedback stays exact: after every product the block waits for its wgmmas
+// (wait_group 0), reads acc[0,0] and rescales A's row before the next
+// product (an identity here, since B's row 0 is zero, but computed all the
+// same), so no product can be hoisted. That wait drains the block's
+// products; two blocks a multiprocessor (64 accumulators a thread in
+// registers, the step's sum in shared memory) keep the tensor cores busy
+// through each other's feedback. Each block's partial tile is summed by a
+// second launch in a fixed order, so R2 repeats bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,9 +63,11 @@ namespace {
 constexpr int kElemThreads = 256;
 constexpr int kElemRows = 8;
 constexpr int kOutCols = 128;
-constexpr int kMmaThreads = 256;  // 8 warps, 16 rows of the tile each
+constexpr int kMmaThreads = 256;  // two warpgroups, 64 rows of the tile each
 constexpr int kMmaRows = 128;
-constexpr int kMmaFrags = kOutCols / 8;  // n8 fragments across a warp's row
+constexpr int kMmaAcc = 64;        // float32 accumulators a thread: 64 x 128 / 128
+constexpr int kMmaBatch = 4;       // k slices of 16 per wgmma group
+constexpr int kBTileBytes = 128 * 128;  // B's tile: 128 rows of 64 bf16
 
 // The sum of v over the block, returned to every thread in a fixed tree
 // order (xor butterflies, then the warp sums the same way).
@@ -152,84 +161,171 @@ __device__ __forceinline__ uint32_t xrt_pack_bf16(__nv_bfloat16 lo, __nv_bfloat1
     return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// d += a b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
-// d 16 x 8 float32.
-__device__ __forceinline__ void xrt_mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// The shared-memory descriptor of a K-major bf16 tile with the 128-byte
+// swizzle, 1024-byte aligned: start address, leading byte offset (unused by
+// this layout), stride byte offset 1024 (eight rows of 128 bytes), layout 1.
+__device__ __forceinline__ uint64_t xrt_desc_sw128(uint32_t smem_addr) {
+    return (uint64_t)((smem_addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// Warp w computes rows [16 w, 16 w + 16) of the 128 x 128 tile, all 16 n8
-// fragments. In the m16n8k16 layouts (g = lane / 4, t = lane % 4) a thread's
-// A registers hold columns 2t, 2t+1 (a0, a1: rows g, g + 8) and 2t+8, 2t+9
-// (a2, a3) of the k slice, its B registers rows k = 2t, 2t+1 and 2t+8, 2t+9
-// of column g, and its accumulators rows g, g + 8 of columns 2t, 2t+1.
-__global__ void __launch_bounds__(kMmaThreads, 1)
+__device__ __forceinline__ void xrt_wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void xrt_wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void xrt_wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the wgmma fences and waits, which it does not see them take part in.
+__device__ __forceinline__ void xrt_fence_acc(float (&d)[kMmaAcc]) {
+#pragma unroll
+    for (int e = 0; e < kMmaAcc; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+// d += a b on the tensor cores for the warpgroup: a 64 x 16 bf16 from
+// registers (a thread's four words in mma.sync m16n8k16's A layout for its
+// warp's 16 rows), b 16 x 128 bf16 from the K-major tile desc_b names, d 64 x
+// 128 float32 (a thread's 64 accumulators: rows g and g + 8 of its warp's 16,
+// columns 8 j + 2 t and 8 j + 2 t + 1 in d[4 j .. 4 j + 3]).
+__device__ __forceinline__ void xrt_wgmma_bf16(float (&d)[kMmaAcc], uint32_t a0,
+                                               uint32_t a1, uint32_t a2, uint32_t a3,
+                                               uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// The dynamic shared memory R2 asks for a block: room to align the B tile
+// to 1024 bytes, the tile, the step sums, A's row.
+inline size_t mma_smem_bytes(int sub) {
+    return 1024 + kBTileBytes + sizeof(float) * kMmaAcc * kMmaThreads +
+           sizeof(__nv_bfloat16) * (size_t)sub;
+}
+
+// Warpgroup w of the block computes rows [64 w, 64 w + 64) of the 128 x 128
+// tile. A thread's A words of k slice s are words 8 s + t and 8 s + t + 4 of
+// A's row (t = lane % 4): columns 2t, 2t+1 and 2t+8, 2t+9 of the slice, the
+// same for rows g and g + 8. Slices go to the tensor cores kMmaBatch at a
+// time; the words of two batches alternate between two register sets, and
+// a set is loaded again only once its batch's group is done (wait_group 1).
+// The step's acc is added into this thread's column of o_sum, then the
+// block writes o_sum as its partial tile.
+__global__ void __launch_bounds__(kMmaThreads, 2)
 mma_rate_kernel(const float* __restrict__ seed_p, int n_mm, int K_mm, int sub,
                 float* __restrict__ partial) {
-    extern __shared__ uint32_t a_words[];  // A's row, the same for all 128 rows
-    __nv_bfloat16* a_row = reinterpret_cast<__nv_bfloat16*>(a_words);
+    extern __shared__ uint8_t smem_raw[];
     __shared__ float acc00;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
+    const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+    const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+    uint32_t* b_tile = reinterpret_cast<uint32_t*>(smem_raw + pad);
+    float* o_sum = reinterpret_cast<float*>(smem_raw + pad + kBTileBytes);
+    uint32_t* a_words = reinterpret_cast<uint32_t*>(o_sum + kMmaAcc * kMmaThreads);
+    __nv_bfloat16* a_row = reinterpret_cast<__nv_bfloat16*>(a_words);
+    const int tid = threadIdx.x;
+    const int t = tid & 3;
     const float seed = __ldg(seed_p);
-    uint32_t bfrag[kMmaFrags];  // B[q][c] = bf16(q 1e-4) for every c
-#pragma unroll
-    for (int j = 0; j < kMmaFrags; ++j) {
-        const __nv_bfloat16 v = __float2bfloat16_rn((float)(8 * j + g) * 1e-4f);
-        bfrag[j] = xrt_pack_bf16(v, v);
-    }
-    float o[kMmaFrags][4];
-#pragma unroll
-    for (int j = 0; j < kMmaFrags; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
+    // B[q][c] = bf16(q 1e-4) for every c: row q of the tile, 32 words.
+    for (int e = tid; e < kBTileBytes / 4; e += kMmaThreads) {
+        const __nv_bfloat16 v = __float2bfloat16_rn((float)(e >> 5) * 1e-4f);
+        b_tile[e] = xrt_pack_bf16(v, v);
+    }
+    for (int e = 0; e < kMmaAcc; ++e) o_sum[e * kMmaThreads + tid] = 0.0f;
+    // The tile was written through the generic proxy; wgmma reads it
+    // through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint64_t desc_b = xrt_desc_sw128(raw + pad);
+    const int batches = sub / (16 * kMmaBatch);
+
+    float acc[kMmaAcc];
     for (int i = blockIdx.x; i < n_mm; i += gridDim.x) {
-        for (int c = threadIdx.x; c < sub; c += kMmaThreads) {
+        for (int c = tid; c < sub; c += kMmaThreads) {
             a_row[c] = __float2bfloat16_rn((float)(c + i) * 1e-6f + seed);
         }
+#pragma unroll
+        for (int e = 0; e < kMmaAcc; ++e) acc[e] = 0.0f;
         __syncthreads();
-        float acc[kMmaFrags][4];
-#pragma unroll
-        for (int j = 0; j < kMmaFrags; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
         for (int m = 0; m < K_mm; ++m) {
-            for (int ks = 0; ks < sub; ks += 16) {
-                const uint32_t lo = a_words[(ks >> 1) + t];
-                const uint32_t hi = a_words[(ks >> 1) + t + 4];
+            xrt_fence_acc(acc);
+            for (int b = 0; b < batches; b += 2) {
+                uint32_t lo0[kMmaBatch], hi0[kMmaBatch];
+                xrt_wgmma_wait<1>();
 #pragma unroll
-                for (int j = 0; j < kMmaFrags; ++j) {
-                    xrt_mma_bf16(acc[j], lo, lo, hi, hi, bfrag[j], bfrag[j]);
+                for (int s = 0; s < kMmaBatch; ++s) {
+                    const int w = 8 * (b * kMmaBatch + s) + t;
+                    lo0[s] = a_words[w];
+                    hi0[s] = a_words[w + 4];
+                }
+                xrt_wgmma_fence();
+#pragma unroll
+                for (int s = 0; s < kMmaBatch; ++s) {
+                    xrt_wgmma_bf16(acc, lo0[s], lo0[s], hi0[s], hi0[s], desc_b);
+                }
+                xrt_wgmma_commit();
+                if (b + 1 < batches) {
+                    uint32_t lo1[kMmaBatch], hi1[kMmaBatch];
+                    xrt_wgmma_wait<1>();
+#pragma unroll
+                    for (int s = 0; s < kMmaBatch; ++s) {
+                        const int w = 8 * ((b + 1) * kMmaBatch + s) + t;
+                        lo1[s] = a_words[w];
+                        hi1[s] = a_words[w + 4];
+                    }
+                    xrt_wgmma_fence();
+#pragma unroll
+                    for (int s = 0; s < kMmaBatch; ++s) {
+                        xrt_wgmma_bf16(acc, lo1[s], lo1[s], hi1[s], hi1[s], desc_b);
+                    }
+                    xrt_wgmma_commit();
                 }
             }
-            if (threadIdx.x == 0) acc00 = acc[0][0];
+            xrt_wgmma_wait<0>();
+            xrt_fence_acc(acc);
+            if (tid == 0) acc00 = acc[0];  // row 0, column 0 of warpgroup 0
             __syncthreads();
             const float f = 1.0f + acc00 * 1e-20f;
-            for (int c = threadIdx.x; c < sub; c += kMmaThreads) {
+            for (int c = tid; c < sub; c += kMmaThreads) {
                 a_row[c] = __float2bfloat16_rn(__bfloat162float(a_row[c]) * f);
             }
             __syncthreads();
         }
 #pragma unroll
-        for (int j = 0; j < kMmaFrags; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[j][e] += acc[j][e];
-        }
+        for (int e = 0; e < kMmaAcc; ++e) o_sum[e * kMmaThreads + tid] += acc[e];
     }
     float* p = partial + (long long)blockIdx.x * kMmaRows * kOutCols;
-    const int r0 = 16 * warp + g;
+    const int r0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2);
 #pragma unroll
-    for (int j = 0; j < kMmaFrags; ++j) {
+    for (int j = 0; j < kOutCols / 8; ++j) {
         const int c0 = 8 * j + 2 * t;
-        p[r0 * kOutCols + c0] = o[j][0];
-        p[r0 * kOutCols + c0 + 1] = o[j][1];
-        p[(r0 + 8) * kOutCols + c0] = o[j][2];
-        p[(r0 + 8) * kOutCols + c0 + 1] = o[j][3];
+        p[r0 * kOutCols + c0] = o_sum[(4 * j) * kMmaThreads + tid];
+        p[r0 * kOutCols + c0 + 1] = o_sum[(4 * j + 1) * kMmaThreads + tid];
+        p[(r0 + 8) * kOutCols + c0] = o_sum[(4 * j + 2) * kMmaThreads + tid];
+        p[(r0 + 8) * kOutCols + c0 + 1] = o_sum[(4 * j + 3) * kMmaThreads + tid];
     }
 }
 
@@ -268,27 +364,31 @@ extern "C" int xrt_elem_rate(int body, int streams, const float* seed, int n_chu
     return (int)cudaGetLastError();
 }
 
-// R2's blocks: one per SM, no more than the grid's steps; the partial tiles
+// R2's blocks: two per SM, no more than the grid's steps; the partial tiles
 // the caller allocates for xrt_mma_rate.
 extern "C" int xrt_mma_rate_blocks(int n_mm) {
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (sms <= 0) sms = 1;
-    return n_mm < sms ? (n_mm > 0 ? n_mm : 1) : sms;
+    const int cap = 2 * (sms > 0 ? sms : 1);
+    return n_mm < cap ? (n_mm > 0 ? n_mm : 1) : cap;
 }
 
-// R2. sub a multiple of 16, at most 16384; partial: blocks (from
+// R2. sub a multiple of 64, at most 16384; partial: blocks (from
 // xrt_mma_rate_blocks) x 128 x 128 float32 scratch; out: (128, 128) float32.
 extern "C" int xrt_mma_rate(const float* seed, int n_mm, int K_mm, int sub,
                             float* partial, int blocks, float* out, void* stream) {
-    if (n_mm <= 0 || K_mm < 0 || sub <= 0 || sub % 16 || sub > 16384 || blocks <= 0) {
+    if (n_mm <= 0 || K_mm < 0 || sub <= 0 || sub % (16 * kMmaBatch) || sub > 16384 ||
+        blocks <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
-    mma_rate_kernel<<<blocks, kMmaThreads, sub * sizeof(__nv_bfloat16), s>>>(
-        seed, n_mm, K_mm, sub, partial);
-    cudaError_t err = cudaGetLastError();
+    const size_t smem = mma_smem_bytes(sub);
+    cudaError_t err = cudaFuncSetAttribute(
+        mma_rate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mma_rate_kernel<<<blocks, kMmaThreads, smem, s>>>(seed, n_mm, K_mm, sub, partial);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     mma_rate_finish_kernel<<<kMmaRows * kOutCols / 256, 256, 0, s>>>(partial, blocks, out);
     return (int)cudaGetLastError();

@@ -1096,7 +1096,8 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
     if n_total == 0:
         return torch.zeros(n_slots, dtype=torch.float32, device=device)
     lib = native.library()
-    n_blocks = lib.xrt_fused_grad_bwd_blocks(n_total, static.img_total, _variant(static))
+    n_blocks = lib.xrt_fused_grad_bwd_blocks(n_total, static.img_total, static.n_optics,
+                                             _variant(static))
     if n_blocks <= 0:
         native.check(-n_blocks, "xrt_fused_grad_bwd_blocks")
     partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
@@ -1107,7 +1108,7 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         aux.numel(), pvec.data_ptr(), n_slots, n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, g_flat.data_ptr(),
-        static.img_total, partial.data_ptr(), n_blocks, _variant(static),
+        static.img_total, static.n_optics, partial.data_ptr(), n_blocks, _variant(static),
         torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_fused_grad_bwd")
     fused_grad_vjp_cuda.launches += 1

@@ -69,11 +69,13 @@ _SIGNATURES = {
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, ctypes.c_int, _P,
     ],
-    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+    "xrt_fused_grad_bwd_threads": [ctypes.c_int],
+    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int],
     "xrt_fused_grad_bwd": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
-        _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
+        _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
     ],
     "xrt_elem_rate": [
         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -151,12 +153,14 @@ def build() -> str:
 
 
 def ptxas_report() -> str:
-    """ptxas's register, stack and spill lines of the built kernels."""
+    """ptxas's register, stack and spill lines of the built kernels, and
+    any note of wgmma instructions it had to serialise."""
     path = os.path.join(os.path.dirname(build()), "ptxas.log")
     with open(path) as f:
         return "\n".join(line for line in f.read().splitlines()
                          if "registers" in line or "spill" in line
-                         or "Compiling entry" in line or line.startswith("=="))
+                         or "Compiling entry" in line or "wgmma" in line
+                         or line.startswith("=="))
 
 
 def library() -> ctypes.CDLL:

@@ -38,6 +38,7 @@ K_MM = 64
 N_MM = 8192
 MM_ROWS = 128
 MM_STEPS_PER_BATCH = 256  # the grid steps mma_rate_plain runs at a time
+MM_SUB_STEP = 64  # R2's kernel takes its k slices of 16 four at a time
 
 _BODY_CODE = {"trans": 0, "sqrtdiv": 1, "simple": 2}
 _ELEM_THREADS = 256
@@ -181,18 +182,18 @@ def mma_rate_plain(seed: torch.Tensor, n_mm: int = N_MM, K_mm: int = K_MM,
 
 def mma_rate_cuda(seed: torch.Tensor, n_mm: int = N_MM, K_mm: int = K_MM,
                   sub: int = SUB) -> torch.Tensor:
-    """R2: the (128, 128) float32 output on the tensor cores (mma.sync bf16
-    m16n8k16). A seed on a CUDA device launches the kernel (or raises); on
-    the CPU it takes :func:`mma_rate_plain`. ``sub`` is a multiple of 16, at
+    """R2: the (128, 128) float32 output on the tensor cores (wgmma bf16
+    m64n128k16). A seed on a CUDA device launches the kernel (or raises); on
+    the CPU it takes :func:`mma_rate_plain`. ``sub`` is a multiple of 64, at
     most 16384."""
     _check_seed(seed, "mma_rate_cuda")
     if seed.device.type == "cpu":
         return mma_rate_plain(seed, n_mm, K_mm, sub)
     if seed.device.type != "cuda":
         raise ValueError(f"mma_rate_cuda: unsupported device {seed.device}")
-    if n_mm <= 0 or K_mm < 0 or sub <= 0 or sub % 16 or sub > 16384:
-        raise ValueError("mma_rate_cuda: n_mm >= 1, K_mm >= 0, sub a multiple of 16 "
-                         "up to 16384")
+    if n_mm <= 0 or K_mm < 0 or sub <= 0 or sub % MM_SUB_STEP or sub > 16384:
+        raise ValueError(f"mma_rate_cuda: n_mm >= 1, K_mm >= 0, sub a multiple of "
+                         f"{MM_SUB_STEP} up to 16384")
     lib = native.library()
     blocks = lib.xrt_mma_rate_blocks(n_mm)
     seed = seed.contiguous()

@@ -15,6 +15,10 @@ For each scenario it sets three things side by side:
    (1 / the sum of the class times a ray) and the overlap bound (1 / the
    largest class time) beside K1's measured rays/s and ``raytrace``'s.
 
+The same census of K5's twins (:func:`k5_ops_per_ray`) with
+:func:`serial_ms` gives the gradient kernels K5f and K5b their class-rate
+serial bound (``chip_smoke.py`` phase 45).
+
 It also holds the flat bound that ``chip_smoke.py`` gives every kernel:
 ``OPS_PER_RAY``, the float32 operations per ray and stage counted by hand
 from ``csrc/``, and :func:`bound`, the larger of bytes over 3.35 TB/s and
@@ -421,6 +425,45 @@ def chain_ops_per_ray(config, chunk: int = CHUNK):
     Returns (counts per ray, the pipeline)."""
     counts, _, pipe = _chain_census(config, chunk)
     return {k: v / chunk for k, v in counts.items()}, pipe
+
+
+def k5_ops_per_ray(config, backward: bool, chunk: int = CHUNK):
+    """K5's census per ray for a config, taken to the gradient path's modes
+    (weight mode, bilinear images, as ``make_fused_differentiable`` takes
+    it): :func:`count_ops` of K5f's plain twin
+    ``fused_grad_forward_plain`` (``backward`` False) or K5b's
+    ``fused_grad_vjp_plain`` (True: the forward, saved once, then the hand
+    adjoint and the slot sums) on one chunk of ``chunk`` rays on the CPU,
+    divided by the chunk. The draws are explicit uniforms and the cotangent
+    images normal deviates, both from a seeded numpy generator. The twin's
+    slot sums convert each term to float64 before its sum, one simple
+    operation a term more than K5b's float32 column adds. Returns (counts
+    per ray, the pipeline)."""
+    from xicsrt_tpu_torch.engine import Pipeline
+    from xicsrt_tpu_torch.gradients import _differentiable_config
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    pipe = Pipeline(_differentiable_config(config, None, None), device="cpu")
+    _, _, pack, spec = fg.build_fused_diff(pipe, num_iter=1)
+    static, lam = spec["static"], spec["lam"]
+    pvec = pack(pipe.params).detach()
+    rng = np.random.default_rng(0)
+    uniforms = torch.from_numpy(rng.random((static.n_draws, chunk), dtype=np.float32))
+    if backward:
+        g = torch.from_numpy(rng.standard_normal(static.img_total).astype(np.float32))
+        counts = count_ops(fg.fused_grad_vjp_plain, static, pvec, chunk, lam, g,
+                           uniforms=uniforms, chunk=chunk)
+    else:
+        counts = count_ops(fg.fused_grad_forward_plain, static, pvec, chunk, lam,
+                           uniforms=uniforms, chunk=chunk)
+    return {k: v / chunk for k, v in counts.items()}, pipe
+
+
+def serial_ms(counts: dict, rates: dict, n_rays: int) -> float:
+    """The class-rate serial bound of ``n_rays`` rays in ms: each class's
+    count per ray over the card's rate for it (``rates``, as
+    :func:`microbench_rates` gives them), summed."""
+    return n_rays * sum(counts.get(cls, 0.0) / rates[f"{cls}_per_s"] for cls in CLASSES) * 1e3
 
 
 # ---------------------------------------------------------------------------
