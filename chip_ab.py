@@ -12,23 +12,33 @@ templates:
   stage only in its ``kMosaic`` variants;
 - ``all_in``: every K1 and K3 run takes its ``kStages`` 2 build and every
   K5 run its ``kMosaic`` variant, so the flagship runs with those stages
-  compiled in.
+  compiled in;
+- ``early_exit``, ``bounds_none``, ``bounds_torus``, ``blocks_256``,
+  ``corners_all``, ``words_indexed``, ``separate_trig``, ``image_l2``:
+  the checkout with one lead of the redesign of K5f and of the draws
+  undone, or put back where it was dropped (``LEADS_UNDONE``).
+
+``--layouts`` picks among them (default: all).
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
 ``nvcc`` per source), then each tree's timings run in a process of their
 own, in the order A B C ... C B A. Each prints ptxas's lines for K1
 (``fused_trace_kernel``), K5f (``fused_grad_fwd_kernel``), K5b
-(``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``) with the number
-of 256-thread blocks a multiprocessor holds at that register count (65536
-registers, allocated per warp in units of 256), and the ms per call (CUDA
-events, the least and the median of 5 means of 20 calls) of K1a on the
-flagship at 2^22 rays, of K1c-file, K1c-mirror, K1c-cheb, K1d and
-K1c-mosaic on ``chip_smoke.py``'s chains where the tree has them, of K5f
-and K5b on the flagship, phase 22's chains, ``mosaic_sphere``,
-``file_rocking`` and the generic source ``focused_gaussian_voigt``, and of
-R2 at the roofline tool's size. A tree's process ends with one JSON line
-of its times.
+(``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``): registers,
+spill stores, stack frame, and the 256-thread blocks a multiprocessor
+holds at that register count (65536 registers, allocated per warp in
+units of 256). Then the ms per call (CUDA events, the least and the median
+of 5 means of 20 calls) of K1a on the flagship at 2^22 rays, of
+K1c-file, K1c-mirror, K1c-cheb (example 06's mesh crystal on the mesh
+spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic on
+``chip_smoke.py``'s chains where the tree has them; of K5f and K5b on the
+flagship, phase 22's chains, ``mosaic_sphere``, ``file_rocking``, the
+generic source ``focused_gaussian_voigt`` and example 08's chain (its
+80 KB image), at the chain's rays (2^22 for example 08's), and of K5f
+with the same rays' draws read from memory and at 2^20 and 2^24 rays
+(the fixed cost against the cost a ray); and of R2 at the roofline tool's
+size. A tree's process ends with one JSON line of its times.
 """
 
 from __future__ import annotations
@@ -55,7 +65,37 @@ ALL_IN = {
     os.path.join("xicsrt_tpu_torch", "ops", "fused_grad.py"):
         {"| source << 2) + 12 * int(mosaic)": "| source << 2) + 12"},
 }
-LAYOUTS = {"checkout": {}, "all_in": ALL_IN}
+# Each lead of the redesign undone alone, or put back where it was dropped:
+# K5f's rays leaving the chain once dead or of zero weight; K5f without
+# launch bounds in every variant, or with them on the torus variants too;
+# K5f in blocks of 256
+# only, whatever its image (example 08's 80 KB); K5f adding zero corners;
+# the Philox word indexed at run time (local memory); separate sinf and
+# cosf of one angle; example 08's image in global memory instead of shared.
+_FWD = os.path.join("xicsrt_tpu_torch", "csrc", "fused_grad.cu")
+_COMMON = os.path.join("xicsrt_tpu_torch", "csrc", "trace_common.cuh")
+LEADS_UNDONE = {
+    "early_exit": {_FWD: {
+        "for (int e = 0; e < n_opt; ++e) {":
+            "for (int e = 0; e < n_opt && st.alive && st.w != 0.0f; ++e) {"}},
+    "bounds_none": {_FWD: {
+        "!kTorus && (kSource == XRT_GRAD_POINT ||": "false && (kSource == XRT_GRAD_POINT ||"}},
+    "bounds_torus": {_FWD: {
+        "!kTorus && (kSource == XRT_GRAD_POINT ||": "(kSource == XRT_GRAD_POINT ||"}},
+    "blocks_256": {_FWD: {
+        "for (int t = 256; t <= 1024; t *= 2) {": "for (int t = 256; t <= 256; t *= 2) {"}},
+    "corners_all": {_FWD: {
+        "if (ix < 0 || ix >= nx || wx == 0.0f) continue;": "if (ix < 0 || ix >= nx) continue;",
+        "if (iy < 0 || iy >= ny || v == 0.0f) continue;": "if (iy < 0 || iy >= ny) continue;"}},
+    "words_indexed": {_COMMON: {
+        "return (float)(((k & 2) ? hi : lo) >> 8) * (1.0f / 16777216.0f);":
+            "return (float)(words[k & 3] >> 8) * (1.0f / 16777216.0f);"}},
+    "separate_trig": {_COMMON: {
+        "    sincosf(x, &s, &c);": "    s = sinf(x);\n    c = cosf(x);"}},
+    "image_l2": {_FWD: {
+        "kFwdSmemImageMax = XRT_SMEM_IMAGE_MAX_FLOATS;": "kFwdSmemImageMax = 16384;"}},
+}
+LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -96,21 +136,21 @@ def blocks_per_sm(registers: int) -> int:
 
 
 def ptxas_lines(report: str) -> list:
-    """(kernel, registers, spill stores) of K1, K5f, K5b and R2 from
-    ptxas's report."""
-    out, name, stores = [], None, 0
+    """(kernel, registers, spill stores, stack frame bytes) of K1, K5f, K5b
+    and R2 from ptxas's report."""
+    out, name, stores, frame = [], None, 0, 0
     for line in report.splitlines():
-        m = re.search(r"(fused_trace_kernel|fused_grad_fwd_kernel|fused_grad_bwd_kernel"
-                      r"|mma_rate_kernel)(I\w+?E)?E", line)
+        m = re.search(r"(fused_trace_kernel|fused_grad_fwd_kernel(?:_64)?"
+                      r"|fused_grad_bwd_kernel|mma_rate_kernel)(I\w+?E)?E", line)
         if m:
-            name, stores = m.group(1) + (m.group(2) or ""), 0
+            name, stores, frame = m.group(1) + (m.group(2) or ""), 0, 0
             continue
-        spill = re.search(r"(\d+) bytes spill stores", line)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if name and spill:
-            stores = int(spill.group(1))
+            frame, stores = int(spill.group(1)), int(spill.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            out.append((name, int(m.group(1)), stores))
+            out.append((name, int(m.group(1)), stores, frame))
             name = None
     return out
 
@@ -131,9 +171,10 @@ def child(tree: str, mode: str) -> None:
     from xicsrt_tpu_torch.ops import fused_trace as ft
 
     label = os.path.basename(tree)
-    for name, regs, stores in ptxas_lines(native.ptxas_report()):
+    for name, regs, stores, frame in ptxas_lines(native.ptxas_report()):
         print(f"{label} ptxas {name}: {regs} registers, {stores} bytes spill stores, "
-              f"{blocks_per_sm(regs)} blocks of 256 per multiprocessor", flush=True)
+              f"{frame} bytes stack frame, {blocks_per_sm(regs)} blocks of 256 per "
+              f"multiprocessor", flush=True)
 
     def ms(fn) -> tuple:
         means = [cs.cuda_ms(fn, 20) for _ in range(5)]
@@ -147,7 +188,11 @@ def child(tree: str, mode: str) -> None:
         chains.update({
             "K1c-mirror": cs.mirror_configs(n, 1, "fused")["flagship_no_check"],
             "K1c-file": cs.file_crystal_config(n, 1, "fused"),
-            "K1c-cheb": cs.mesh_config(n, 1, "fused", cls, **kw)})
+            "K1c-cheb": cs.mesh_config(n, 1, "fused", cls, **kw),
+            "K1c-cheb mesh41": cs.BS.SCENARIOS["mesh41"](n, 1)})
+        example06 = cs.example_config("example_06_fused_engine.py")
+        example06["sources"]["source"]["intensity"] = n
+        chains["K1c-cheb example06"] = example06
     grad_chains = {"flagship": cs.grad_flagship(n, 1), **cs.grad_timing_configs()}
     if hasattr(cs, "mosaic15_config"):
         chains.update({
@@ -159,6 +204,9 @@ def child(tree: str, mode: str) -> None:
     if hasattr(cs, "file_rocking_config"):
         grad_chains["file_rocking"] = cs.grad_variant("file_rocking", n)
         grad_chains["focused_gaussian_voigt"] = cs.grad_variant("focused_gaussian_voigt", n)
+    # Example 08's chain: its detector image is 80 KB.
+    grad_chains["example08"] = cs.repo_function("examples/example_08_plasma_fitting.py",
+                                                "_config")(8.3e20, 2.0e4)
     for name, cfg in chains.items():
         fparams = cs.k1_pack(engine.Pipeline(cfg, device="cuda"))
         times[name] = ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)))
@@ -166,12 +214,24 @@ def child(tree: str, mode: str) -> None:
         _, _, pack, pipe = make_fused_differentiable(cfg, device="cuda")
         pvec = pack(pipe.params).detach()
         spec = fg.build_fused_diff(pipe, num_iter=1)[3]
-        st, lam, m = spec["static"], spec["lam"], spec["n_total"]
+        st, lam = spec["static"], spec["lam"]
+        m = n if name == "example08" else spec["n_total"]
         g = torch.randn(st.img_total, device="cuda")
         times[f"K5f {name}"] = ms(
             lambda: fg.fused_grad_forward_cuda(st, pvec, m, lam, seed=(1, 2)))
         times[f"K5b {name}"] = ms(
             lambda: fg.fused_grad_vjp_cuda(st, pvec, m, lam, g, seed=(1, 2)))
+        if name == "example08":
+            continue
+        # The same rays' draws read from memory (n_draws float32 a ray)
+        # instead of Philox, and the fixed cost against the cost a ray.
+        u = torch.rand((st.n_draws, n), device="cuda")
+        times[f"K5f {name} uniforms"] = ms(
+            lambda: fg.fused_grad_forward_cuda(st, pvec, n, lam, uniforms=u))
+        del u
+        for k in (20, 24):
+            times[f"K5f {name} 2^{k}"] = ms(
+                lambda: fg.fused_grad_forward_cuda(st, pvec, 1 << k, lam, seed=(1, 2)))
     if importlib.util.find_spec("xicsrt_tpu_torch.ops.roofline_probes"):
         from xicsrt_tpu_torch.ops import roofline_probes as rp
 
@@ -185,11 +245,13 @@ def child(tree: str, mode: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another tree to time as it is")
+    ap.add_argument("--layouts", nargs="+", choices=sorted(LAYOUTS), default=list(LAYOUTS),
+                    help="the layouts of the checkout to time (default: all)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip() or 'unknown'}", flush=True)
-    trees = [make_tree(name, edits) for name, edits in LAYOUTS.items()]
+    trees = [make_tree(name, LAYOUTS[name]) for name in args.layouts]
     if args.parent:
         trees.insert(0, os.path.abspath(args.parent))
     builds = [subprocess.Popen(child_command(t, "build"), cwd=t) for t in trees]

@@ -4,8 +4,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name and power limit, toolchain versions;
 2. build: compile the CUDA kernels of ``xicsrt_tpu_torch/csrc``; the
-   registers, spills and resident warps of every K5b variant and of R2
-   (a K5b variant that spills fails);
+   registers, spills, stack frame, block size and resident warps of every
+   K5f and K5b variant, of K1's Chebyshev builds and of R2 (a K5f or K5b
+   variant that spills fails);
 3. K2 (binning kernel) against its plain twin on the card;
 4. K1a (fused trace kernel) against its plain twin on the card;
 5. the main path on the fused engine, ``raytrace(config, device='cuda')``;
@@ -1801,6 +1802,36 @@ def mesh_config(intensity, num_iter, engine_kind, cls, **kw):
                                 "xsize": 0.4, "ysize": 0.2}}}
 
 
+CHEB_DEGREES = (4, 6, 8, 10, 12)
+
+
+def cheb_degree_config(deg, intensity, num_iter=1, engine_kind="fused"):
+    """``mesh_config``'s spectrometer with a 41 x 41 mesh crystal, in its
+    local frame, whose Chebyshev fit takes degree ``deg``: the unit sphere
+    plus 1e-6 T_deg(u) (u = x / 0.1), which no lower degree reproduces to
+    the fit's 1e-6 of the span; vertex normals from the height field's
+    gradient."""
+    from numpy.polynomial import chebyshev as ncheb
+
+    from xicsrt_tpu_torch.optics.mesh_shapes import grid_faces
+
+    n = 41
+    xg, yg = np.meshgrid(np.linspace(-0.1, 0.1, n), np.linspace(-0.1, 0.1, n),
+                         indexing="ij")
+    coef = np.zeros(deg + 1)
+    coef[deg] = 1e-6 if deg > 4 else 0.0
+    root = np.sqrt(1.0 - xg**2 - yg**2)
+    z = 1.0 - root + ncheb.chebval(xg / 0.1, coef)
+    zx = xg / root + ncheb.chebval(xg / 0.1, ncheb.chebder(coef)) / 0.1
+    zy = yg / root
+    normals = np.stack([-zx, -zy, np.ones_like(zx)], axis=-1)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return mesh_config(intensity, num_iter, engine_kind, "XicsrtOpticMeshCrystal",
+                       mesh_points=np.stack([xg, yg, z], axis=-1).reshape(-1, 3),
+                       mesh_normals=normals.reshape(-1, 3), mesh_faces=grid_faces(n, n),
+                       mesh_interpolate=True, trace_local=True)
+
+
 def mesh_plasma_config():
     """The mesh crystal behind a cubic plasma (``tests/test_fused_engine.py:
     854-880``, ``test_mesh_with_plasma_hybrid``)."""
@@ -3067,18 +3098,19 @@ def phase_k5_census(smi, rates: dict, timed: dict) -> None:
 
 
 def ptxas_entries(report: str, pattern: str) -> list:
-    """(name, registers, spill store bytes, spill load bytes) of each kernel
-    in ptxas's report whose mangled name matches the regular expression
-    ``pattern``; its first group is the name."""
-    out, name, spills = [], None, (0, 0)
+    """(name, registers, spill store bytes, spill load bytes, stack frame
+    bytes) of each kernel in ptxas's report whose mangled name matches the
+    regular expression ``pattern``; its first group is the name."""
+    out, name, spills = [], None, (0, 0, 0)
     for line in report.splitlines():
         if "Compiling entry" in line:
             m = re.search(pattern, line)
-            name, spills = (m.group(1) if m else None), (0, 0)
+            name, spills = (m.group(1) if m else None), (0, 0, 0)
             continue
-        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if name and s:
-            spills = (int(s.group(1)), int(s.group(2)))
+            spills = (int(s.group(2)), int(s.group(3)), int(s.group(1)))
         r = re.search(r"Used (\d+) registers", line)
         if name and r:
             out.append((name, int(r.group(1)), *spills))
@@ -3096,33 +3128,65 @@ def resident_warps(registers: int, threads: int) -> int:
 
 
 K5B_SOURCES = ("point", "plasma", "generic")
+# K5f's images: example 07's chain (1200 floats) and example 08's (20100).
+K5F_IMAGES = (1200, 20100)
+
+
+def k5_variants(report: str, kernel: str) -> list:
+    """(variant, name, registers, spill stores, spill loads, stack frame) of
+    every build of the K5 ``kernel`` (a regular expression) in ptxas's
+    report."""
+    out = []
+    for args, regs, stores, loads, frame in ptxas_entries(report, kernel + r"(I\w+?E)E"):
+        torus, cylinder, source, mosaic = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        variant = (torus | (cylinder << 1) | (source << 2)) + 12 * mosaic
+        name = (K5B_SOURCES[source] + " +torus" * torus + " +cylinder" * cylinder
+                + " +mosaic" * mosaic)
+        out.append((variant, name, regs, stores, loads, frame))
+    return sorted(out)
 
 
 def phase_registers(native) -> None:
-    """Phase 2's summary: registers, spills and resident warps of every K5b
-    variant and of R2, from ptxas's report; a K5b variant that spills
-    fails."""
+    """Phase 2's summary from ptxas's report: registers, spills, stack frame
+    and block size of every K5f and K5b variant, with the warps their
+    registers leave resident, of K1's Chebyshev builds and of R2; a K5f or
+    K5b variant that spills fails."""
     report = native.ptxas_report()
     lib = native.library()
     spilled = []
-    for args, regs, stores, loads in ptxas_entries(report, r"fused_grad_bwd_kernel(I\w+?E)E"):
-        torus, cylinder, source, mosaic = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
-        variant = (torus | (cylinder << 1) | (source << 2)) + 12 * mosaic
-        threads = lib.xrt_fused_grad_bwd_threads(variant)
-        name = (K5B_SOURCES[source] + " +torus" * torus + " +cylinder" * cylinder
-                + " +mosaic" * mosaic)
-        log(f"phase 2 K5b variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
-            f"bytes spilled (stores / loads), {threads} threads a block, "
-            f"{resident_warps(regs, threads)} warps a multiprocessor by registers")
+    for variant, name, regs, stores, loads, frame in k5_variants(
+            report, r"fused_grad_fwd_kernel(?:_64)?"):
+        threads = [lib.xrt_fused_grad_fwd_threads(variant, img) for img in K5F_IMAGES]
+        log(f"phase 2 K5f variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
+            f"bytes spilled (stores / loads), {frame} bytes stack frame, "
+            f"{threads[0]} / {threads[1]} threads a block for images of "
+            f"{K5F_IMAGES[0]} / {K5F_IMAGES[1]} floats, "
+            f"{resident_warps(regs, threads[0])} warps a multiprocessor by registers")
         if stores or loads:
-            spilled.append(name)
-    for name, regs, stores, loads in ptxas_entries(report, r"(mma_rate_kernel)"):
+            spilled.append(f"K5f {name}")
+    for variant, name, regs, stores, loads, frame in k5_variants(report,
+                                                                 "fused_grad_bwd_kernel"):
+        threads = lib.xrt_fused_grad_bwd_threads(variant)
+        log(f"phase 2 K5b variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
+            f"bytes spilled (stores / loads), {frame} bytes stack frame, {threads} threads "
+            f"a block, {resident_warps(regs, threads)} warps a multiprocessor by registers")
+        if stores or loads:
+            spilled.append(f"K5b {name}")
+    for args, regs, stores, loads, frame in ptxas_entries(report,
+                                                          r"fused_trace_kernel(I\w+?E)E"):
+        full, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        if cheb:
+            log(f"phase 2 K1 Chebyshev build ({'full' if full else 'point'} source, kStages "
+                f"{stages}{', marks' * mark}): {regs} registers, {stores} / {loads} bytes "
+                f"spilled, {frame} bytes stack frame, 256 threads a block, "
+                f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
+    for name, regs, stores, loads, frame in ptxas_entries(report, r"(mma_rate_kernel)"):
         log(f"phase 2 R2 {name}: {regs} registers, {stores} / {loads} bytes spilled, "
             f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
     serial = [line.strip() for line in report.splitlines() if "wgmma" in line]
     log("phase 2 ptxas on wgmma: " + ("; ".join(serial) if serial else "no serialisation noted"))
     if spilled:
-        raise AssertionError(f"phase 2: K5b spills registers in {spilled}")
+        raise AssertionError(f"phase 2: registers spill in {spilled}")
 
 
 def main() -> int:

@@ -128,30 +128,82 @@ def _grad_variant(kind, n):
     return cfg
 
 
-@pytest.mark.parametrize("kind", ["torus_crystal", "convex_torus_mirror",
-                                  "cylinder_crystal", "convex_cylinder_mirror",
-                                  "plasma_cubic"])
-def test_fused_grad_variants_match_twins(cuda_device, kind):
-    """K5f and K5b on curved optics and a plasma, against the float32 twins
-    with test_fused_grad_kernels_match_twins's bounds, under Philox."""
-    from xicsrt_tpu_torch.ops import fused_grad as fg
+def _k5f_base(variant):
+    """The chain of a K5 build variant (bit 0 a torus, bit 1 a cylinder,
+    bits 2-3 the source, plus 12 with a mosaic): one whose least build the
+    variant contains."""
+    source, mosaic = (variant % 12) >> 2, variant >= 12
+    if source == 1:
+        return "plasma_cubic"
+    if source == 2:
+        return "focused_gaussian_voigt"
+    if mosaic:
+        return "mosaic_sphere"
+    return ("torus_crystal" if variant & 1 else "cylinder_crystal" if variant & 2
+            else "flagship")
 
-    pipe = Pipeline(_grad_variant(kind, 1 << 17), device=cuda_device)
+
+# The chains at their own build, then every one of the 24 builds on a chain
+# it contains (a build with more stages traces the same rays), then example
+# 08's chain, whose 80 KB image takes blocks of more than 256 threads.
+K5F_CASES = ([(kind, None) for kind in ("torus_crystal", "convex_torus_mirror",
+                                         "cylinder_crystal", "convex_cylinder_mirror",
+                                         "plasma_cubic")]
+             + [("variant", v) for v in range(24)] + [("example08", None)])
+
+
+@pytest.mark.parametrize("kind,variant", K5F_CASES,
+                         ids=[k if v is None else f"variant{v}" for k, v in K5F_CASES])
+def test_fused_grad_variants_match_twins(cuda_device, monkeypatch, kind, variant):
+    """K5f and K5b on curved optics, plasmas, the generic source and mosaics
+    in every build variant, against the float32 twins with
+    test_fused_grad_kernels_match_twins's bounds, in both RNG modes, at a
+    ray count that is no multiple of the K5f block the launch takes."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+    from xicsrt_tpu_torch.ops import native
+
+    n = (1 << 17) + 17
+    name = _k5f_base(variant) if kind == "variant" else kind
+    if name == "flagship":
+        cfg = _spectrometer_config(intensity=n, interact_mode="weight", image_mode="bilinear")
+    elif name == "example08":
+        cfg = chip_smoke.repo_function("examples/example_08_plasma_fitting.py",
+                                       "_config")(8.3e20, 2.0e4)
+        cfg["general"].update(interact_mode="weight", image_mode="bilinear")
+    elif name in ("mosaic_sphere", "focused_gaussian_voigt"):
+        cfg = chip_smoke.grad_variant(name, n)
+    else:
+        cfg = _grad_variant(name, n)
+    pipe = Pipeline(cfg, device=cuda_device)
     _, _, pack, spec = fg.build_fused_diff(pipe)
-    static, lam, n = spec["static"], spec["lam"], spec["n_total"]
+    static, lam = spec["static"], spec["lam"]
+    own = fg._variant(static)
+    if variant is not None:
+        # The same source; every stage of the chain's own build.
+        assert own % 12 >> 2 == variant % 12 >> 2
+        assert own % 4 & variant % 4 == own % 4 and (own < 12 or variant >= 12)
+        monkeypatch.setattr(fg, "_variant", lambda st: variant)
+    threads = native.library().xrt_fused_grad_fwd_threads(fg._variant(static),
+                                                          static.img_total)
+    assert threads >= 256 and n % threads
+    if name == "example08":
+        assert threads > 256
     pvec = pack(pipe.params).detach()
-    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, seed=(8, 9))
-    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, seed=(8, 9))
-    assert twin.sum().item() > 0
-    assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
-    assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
-    g = torch.randn(static.img_total, device=cuda_device,
-                    generator=torch.Generator(device=cuda_device).manual_seed(2))
-    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(8, 9))
-    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(8, 9))
-    scale = grad_twin.abs().max().item()
-    assert scale > 0
-    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    uniforms = torch.rand((static.n_draws, n), generator=gen, device=cuda_device)
+    g = torch.randn(static.img_total, device=cuda_device, generator=gen)
+    for kwargs in ({"seed": (8, 9)}, {"uniforms": uniforms}):
+        image = fg.fused_grad_forward_cuda(static, pvec, n, lam, **kwargs)
+        twin = fg.fused_grad_forward_plain(static, pvec, n, lam, **kwargs)
+        assert twin.sum().item() > 0
+        assert abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()
+        assert (image - twin).abs().max().item() <= 1e-3 * twin.abs().max().item()
+        grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, **kwargs)
+        grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, **kwargs)
+        scale = grad_twin.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
 
 
 def test_fused_cylinder_kernel_matches_twin(cuda_device):
@@ -328,15 +380,19 @@ def _new_stage_config(stage):
         return chip_smoke.mirror_configs(n, 1, "fused")[stage]
     if stage == "file":
         return chip_smoke.file_crystal_config(n, 1, "fused")
+    if stage.startswith("cheb"):
+        return chip_smoke.cheb_degree_config(int(stage[4:]), n)
     cls, kw = chip_smoke.MESH_CRYSTALS[stage]
     return chip_smoke.mesh_config(n, 1, "fused", cls, **kw)
 
 
 @pytest.mark.parametrize("stage", ["plane_fold", "torus_no_check", "flagship_no_check",
-                                   "file", "mesh_sphere", "mesh_cylinder", "mesh_torus"])
+                                   "file", "mesh_sphere", "mesh_cylinder", "mesh_torus",
+                                   "cheb4", "cheb6", "cheb8", "cheb10", "cheb12"])
 def test_mirror_file_and_mesh_stages_match_twins(cuda_device, stage):
     """K1c-mirror, K1c-file and K1c-cheb: K1 on the chain's own rays and K3
-    on one eager iteration's, each equal to its twin in both RNG modes."""
+    on one eager iteration's, each equal to its twin in both RNG modes; the
+    Chebyshev surfaces at each degree of the fit (4-12)."""
     import chip_smoke
     from xicsrt_tpu_torch import engine
 

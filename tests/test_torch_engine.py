@@ -227,3 +227,94 @@ def test_package_never_imports_jax():
     assert not {f: i for f, i in offenders.items() if i}
     chip_smoke = os.path.join(os.path.dirname(PACKAGE), "chip_smoke.py")
     assert not _jax_imports(chip_smoke)
+
+
+def _example00_config(num_iter=2):
+    """``examples/example_00_point_source.py``'s config, read with ``ast``
+    (the script runs JAX), cut to ``num_iter`` iterations."""
+    path = os.path.join(os.path.dirname(PACKAGE), "examples",
+                        "example_00_point_source.py")
+    namespace = {"np": np}
+    for node in ast.parse(open(path).read(), filename=path).body:
+        if isinstance(node, ast.Assign):
+            base = node.targets[0]
+            while isinstance(base, ast.Subscript):
+                base = base.value
+            if isinstance(base, ast.Name) and base.id == "config":
+                exec(compile(ast.Module(body=[node], type_ignores=[]), path, "exec"),
+                     namespace)
+    config = namespace["config"]
+    config["general"]["number_of_iter"] = num_iter
+    return config
+
+
+def _ranks(tree):
+    if isinstance(tree, dict):
+        return {k: _ranks(v) for k, v in tree.items()}
+    return np.ndim(tree)
+
+
+def test_raytrace_mp_matches_jax_on_example00():
+    """Both packages' ``raytrace_mp`` on example 00's config (2 iterations):
+    the same result keys and array ranks, the detected counts within 5
+    binomial sigma. JAX shards over its devices; the port runs one."""
+    import xicsrt_tpu
+
+    cfg = _example00_config()
+    jr = xicsrt_tpu.raytrace_mp(cfg)
+    tr = xicsrt_tpu_torch.raytrace_mp(cfg, device="cpu")
+    assert set(tr) == set(jr)
+    assert set(tr["total"]) == set(jr["total"])
+    assert _ranks(tr["total"]["image"]) == _ranks(jr["total"]["image"])
+    assert set(tr["found"]["history"]) == set(jr["found"]["history"])
+    assert (_ranks(tr["found"]["history"]["detector"])
+            == _ranks(jr["found"]["history"]["detector"]))
+    jm, tm = _meta(jr), _meta(tr)
+    assert set(tm) == set(jm)
+    assert tm["source"] == jm["source"] == 2 * 10000
+    p = jm["detector"] / jm["source"]
+    sigma = math.sqrt(2 * jm["source"] * p * (1 - p))
+    assert abs(tm["detector"] - jm["detector"]) <= 5 * sigma
+    assert tr["total"]["image"]["detector"].sum() == tm["detector"]
+    # Every ray of the 5 degree cone lands, so compare where: the mean
+    # distance from the detector's centre within 5 standard errors.
+    radii = [np.linalg.norm(np.asarray(r["found"]["history"]["detector"]["origin"])[:, :2],
+                            axis=1) for r in (jr, tr)]
+    se = math.sqrt(radii[0].var() / len(radii[0]) + radii[1].var() / len(radii[1]))
+    assert abs(radii[0].mean() - radii[1].mean()) < 5 * se
+
+
+def test_raytrace_mp_is_raytrace_on_one_device():
+    cfg = _example00_config()
+    assert (_meta(xicsrt_tpu_torch.raytrace_mp(cfg, device="cpu"))
+            == _meta(xicsrt_tpu_torch.raytrace(cfg, device="cpu")))
+    assert (_meta(xicsrt_tpu_torch.raytrace_mp(cfg, processes=1, device="cpu"))
+            == _meta(xicsrt_tpu_torch.raytrace(cfg, device="cpu")))
+
+
+def test_raytrace_mp_over_two_devices_raises(monkeypatch):
+    """Over two devices it raises until sharded runs are ported; on one
+    device, ``processes=2`` is cut to the one device, as JAX cuts it."""
+    cfg = _example00_config()
+    assert (_meta(xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cpu"))
+            == _meta(xicsrt_tpu_torch.raytrace(cfg, device="cpu")))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="2 devices"):
+        xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cuda")
+
+
+def test_registry_names_match_jax():
+    """The sorted registry keys; the package's own elements are JAX's (a
+    test run may have registered plugin elements in either registry)."""
+    from xicsrt_tpu import dispatch as jax_dispatch
+    from xicsrt_tpu_torch import dispatch
+
+    def own(module, names, package):
+        return [n for n in names
+                if module._REGISTRY[n].__module__.split(".")[0] == package]
+
+    names = dispatch.registry_names()
+    assert names == sorted(dispatch._REGISTRY)
+    ours = own(dispatch, names, "xicsrt_tpu_torch")
+    assert len(ours) > 20
+    assert ours == own(jax_dispatch, jax_dispatch.registry_names(), "xicsrt_tpu")

@@ -217,6 +217,52 @@ def test_cheb_terms_sum_as_the_tpu_kernel_does(mesh):
         np.testing.assert_array_equal(ours, ref)
 
 
+@pytest.mark.parametrize("deg", [4, 6, 8, 10, 12])
+def test_cheb_dense_sums_equal_the_sparse_sums(deg):
+    """The kernels and their twin sum every coefficient of the packed dense
+    matrices (``cheb_dense``, zeros included, i outer, j inner); on a fit of
+    each degree (``chip_smoke.cheb_degree_config``, the same degree as
+    JAX's fit) each of the three sums equals the sparse sum of the nonzero
+    terms (``cheb_terms``, the TPU kernel's zero-skipping order) bit for
+    bit, signed zeros included (float32, 4096 seeded points and the clip
+    edges)."""
+    import chip_smoke
+
+    cfg = chip_smoke.cheb_degree_config(deg, 16)
+    pipe = TorchPipeline(cfg, device="cpu")
+    ch = ft._fit_cheb_surface(pipe.optics[0])
+    assert ch["deg"] == deg == jft._fit_cheb_surface(JaxPipeline(cfg).optics[0])["deg"]
+    terms, dense = ft.cheb_terms(ch), ft.cheb_dense(ch)
+    assert dense.shape == ((deg + 1) ** 2, 4) and (dense[:, 3] == 0).all()
+    fparams = ft.pack_params(ft._source_spec(pipe.source),
+                             [ft._optic_spec(o) for o in pipe.optics], pipe.params, "cpu")
+    oi = fparams.ip[ft.HDR_I:ft.HDR_I + ft.OPT_I].tolist()
+    assert oi[ft.OI_DENSE] % 4 == 0 and oi[ft.OI_DEG] == deg
+    np.testing.assert_array_equal(
+        fparams.aux[oi[ft.OI_DENSE]:oi[ft.OI_DENSE] + dense.size].numpy(), dense.reshape(-1))
+
+    rng = np.random.default_rng(11)
+    uv = rng.uniform(-1.25, 1.25, (2, 4096)).astype(np.float32)
+    uv[:, :3] = [[-1.25, 0.0, 1.25], [1.25, -1.25, 0.0]]
+    T = []
+    for x in uv:
+        t = [np.ones_like(x), x]
+        for _ in range(deg - 1):
+            t.append(np.float32(2.0) * x * t[-1] - t[-2])
+        T.append(t)
+    codes = terms[:, 1].astype(int)
+    for k in range(3):
+        sparse = np.zeros(4096, np.float32)
+        for c, code in zip(terms[codes >> 8 == k, 0], codes[codes >> 8 == k] & 255):
+            sparse = sparse + c * T[0][code >> 4] * T[1][code & 15]
+        total = np.zeros(4096, np.float32)
+        for i in range(deg + 1):
+            for j in range(deg + 1):
+                total = total + dense[(deg + 1) * i + j, k] * T[0][i] * T[1][j]
+        assert (sparse != 0).any()
+        np.testing.assert_array_equal(total.view(np.int32), sparse.view(np.int32))
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_k1_cheb_twin_matches_jax_megakernel(mesh):
     cls, kw = MESHES[mesh]

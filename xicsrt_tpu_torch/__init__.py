@@ -43,8 +43,10 @@ in hdf5, zip, pickle or json, TIF images), ``python -m xicsrt_tpu_torch``
 ``dispatch.load_plugin_paths``), ``utils/`` (hdf5 dicts, colours, plot
 lists, config docs, ``warn_version``) and ``visual/`` (``plot2d``,
 ``detview``, ``plot3d``), whose optional packages (h5py, PIL, matplotlib,
-plotly, ipyvolume) are imported at first use. Sharded runs over several
-devices (``parallel/``, ``raytrace_mp``) raise ``NotImplementedError``.
+plotly, ipyvolume) are imported at first use. ``raytrace_mp(config,
+processes=None, device=None)`` runs on one device as ``raytrace`` does;
+sharded runs over several devices (``parallel/``, ``raytrace_mp`` with more
+than one) raise ``NotImplementedError``.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401
@@ -57,6 +59,7 @@ from xicsrt_tpu_torch.engine import (  # noqa: E402,F401
     Pipeline,
     combine_raytrace,
     raytrace,
+    raytrace_mp,
     raytrace_single,
 )
 from xicsrt_tpu_torch.gradients import (  # noqa: E402,F401

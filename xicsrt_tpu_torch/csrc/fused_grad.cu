@@ -40,7 +40,11 @@
 // K5f: the chain runs in registers; each imaged hit adds its four bilinear
 // corners into a block-private shared-memory image (four shared atomics),
 // flushed once per block with global atomics. Bounded by arithmetic and the
-// shared atomics.
+// shared atomics. On Hopper: launch bounds by variant (FwdCap: 64 registers
+// where nothing spills), the block size that keeps the most threads
+// resident (beside a large image, fewer and larger blocks sharing it), and
+// the corners of zero weight, most of them past a crystal in weight mode,
+// are not added, which changes no image bit.
 //
 // K5b: for optic i = n-1 .. 0 the ray's forward is recomputed from the
 // source up to optic i (n(n+1)/2 optic evaluations a ray), so every primal
@@ -565,10 +569,14 @@ __device__ __forceinline__ Corners corners(float f, int n) {
     return Corners{(int)p0, 1.0f - a, a, -moving, moving};
 }
 
-constexpr int kThreads = 256;
-
+// K5f's body. One thread carries one ray through the grid-stride loop, every
+// ray through the whole chain (a ray that left the loop once it died or
+// weighed zero made K5f 1.3-1.7x slower, chip_ab.py, likely because the
+// lanes that left ran on to their next ray apart from the rest of their
+// warp). A corner whose weight is zero, as most are past a crystal in
+// weight mode, is not added: +-0 added to a pixel changes no bit.
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
-__global__ void fused_grad_fwd_kernel(
+__device__ __forceinline__ void fused_grad_fwd_body(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
     int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
@@ -613,12 +621,13 @@ __global__ void fused_grad_fwd_kernel(
                 float* base = img + oi[7];
                 for (int a = 0; a < 2; ++a) {
                     const int ix = cx.i0 + a;
-                    if (ix < 0 || ix >= nx) continue;
                     const float wx = w * (a ? cx.t1 : cx.t0);
+                    if (ix < 0 || ix >= nx || wx == 0.0f) continue;
                     for (int b = 0; b < 2; ++b) {
                         const int iy = cy.i0 + b;
-                        if (iy < 0 || iy >= ny) continue;
-                        atomicAdd(base + ix * ny + iy, wx * (b ? cy.t1 : cy.t0));
+                        const float v = wx * (b ? cy.t1 : cy.t0);
+                        if (iy < 0 || iy >= ny || v == 0.0f) continue;
+                        atomicAdd(base + ix * ny + iy, v);
                     }
                 }
             }
@@ -629,6 +638,46 @@ __global__ void fused_grad_fwd_kernel(
         __syncthreads();
         xrt_smem_flush(s_img, images, img_total);
     }
+}
+
+// K5f's launch bounds by variant, from ptxas's report (chip_smoke.py phase 2)
+// and chip_ab.py. Left to ptxas, the variants without a torus took 64-91
+// registers; held to 64 (bounds of 1024 threads, so the launcher may also
+// take larger blocks, fwd_threads) the flagship, cylinder and plasma chains
+// ran 3-6 % faster and the point-source mosaic 15 %. At 64, ptxas spills in
+// the plasma and generic mosaics, the generic source with a cylinder, and
+// several torus variants; and the torus chain ran 6 % slower held to 64
+// (62 registers) than left to ptxas (64). So the variants without a torus
+// that do not spill there are held to 64, the rest take no bounds.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+struct FwdCap {
+    static constexpr bool value =
+        !kTorus && (kSource == XRT_GRAD_POINT ||
+                    (!kMosaic && !(kSource == XRT_GRAD_GENERIC && kCylinder)));
+};
+
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+__global__ void fused_grad_fwd_kernel(
+    const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
+    int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
+    int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
+    uint32_t seed0, uint32_t seed1, float* __restrict__ images,
+    int img_total, int use_smem) {
+    fused_grad_fwd_body<kTorus, kCylinder, kSource, kMosaic>(
+        g_fp, n_fp, g_ip, n_ip, aux, g_pvec, n_slots, n_total, lam, uniforms, seed0,
+        seed1, images, img_total, use_smem);
+}
+
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+__global__ void __launch_bounds__(1024, 1) fused_grad_fwd_kernel_64(
+    const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
+    int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
+    int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
+    uint32_t seed0, uint32_t seed1, float* __restrict__ images,
+    int img_total, int use_smem) {
+    fused_grad_fwd_body<kTorus, kCylinder, kSource, kMosaic>(
+        g_fp, n_fp, g_ip, n_ip, aux, g_pvec, n_slots, n_total, lam, uniforms, seed0,
+        seed1, images, img_total, use_smem);
 }
 
 // K5b's rows of one float a thread in shared memory: the slot sums (17 an
@@ -1195,7 +1244,19 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
         K<false, true, 1, M>, K<true, true, 1, M>, K<false, false, 2, M>,        \
         K<true, false, 2, M>, K<false, true, 2, M>, K<true, true, 2, M>
 #define XRT_GRAD_KERNELS(K) {XRT_GRAD_SOURCES(K, false), XRT_GRAD_SOURCES(K, true)}
-const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_fwd_kernel);
+// K5f's kernel of each variant: held to 64 registers where FwdCap says so.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic,
+          bool kCap = FwdCap<kTorus, kCylinder, kSource, kMosaic>::value>
+struct FwdEntry {
+    static constexpr FwdKernel fn = fused_grad_fwd_kernel<kTorus, kCylinder, kSource, kMosaic>;
+};
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+struct FwdEntry<kTorus, kCylinder, kSource, kMosaic, true> {
+    static constexpr FwdKernel fn = fused_grad_fwd_kernel_64<kTorus, kCylinder, kSource, kMosaic>;
+};
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+constexpr FwdKernel kFwdOf = FwdEntry<kTorus, kCylinder, kSource, kMosaic>::fn;
+const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(kFwdOf);
 const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 constexpr int kBwdThreadsOf = BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kThreads;
@@ -1206,6 +1267,32 @@ bool grad_args_ok(int n_fp, int n_ip, const float* aux, int n_aux, int n_slots,
     return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && aux != nullptr && n_aux > 0 &&
            n_slots > 0 && n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 &&
            variant < XRT_GRAD_VARIANTS;
+}
+
+// The largest image (floats) K5f keeps in a block's shared memory; larger
+// ones take global atomics.
+constexpr int kFwdSmemImageMax = XRT_SMEM_IMAGE_MAX_FLOATS;
+
+// Threads of a K5f block: of 256, 512 and 1024, the size that keeps the
+// most threads resident by the occupancy calculator (ptxas's registers and
+// the block's shared memory: the image and the static buffers), the
+// smaller of equals. Beside a large image the larger blocks share one:
+// example 08's 80 KB detector takes two blocks of 512 where two of 256
+// fitted, the flagship's 59 KB two of 512 where three of 256 did.
+int fwd_threads(FwdKernel kernel, size_t smem) {
+    int best = 256, most = 0;
+    for (int t = 256; t <= 1024; t *= 2) {
+        int blocks = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, t, smem) !=
+            cudaSuccess) {
+            break;
+        }
+        if (blocks * t > most) {
+            most = blocks * t;
+            best = t;
+        }
+    }
+    return best;
 }
 
 // How a K5b launch lays out its dynamic shared memory: its threads a block,
@@ -1278,15 +1365,28 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
     }
     if (n_total <= 0) return (int)cudaSuccess;
     const FwdKernel kernel = kFwd[variant];
-    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
+    const int use_smem = img_total <= kFwdSmemImageMax;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(kernel, kThreads, smem, n_total);
-    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    const int threads = fwd_threads(kernel, smem);
+    const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, pvec, n_slots, n_total, lam, uniforms, seed0,
         seed1, images, img_total, use_smem);
     return (int)cudaGetLastError();
+}
+
+// The threads of a K5f block in this variant for images of img_total
+// floats, or minus a cudaError_t.
+extern "C" int xrt_fused_grad_fwd_threads(int variant, int img_total) {
+    if (variant < 0 || variant >= XRT_GRAD_VARIANTS || img_total < 0) {
+        return -(int)cudaErrorInvalidValue;
+    }
+    const size_t smem = img_total <= kFwdSmemImageMax ? (size_t)img_total * sizeof(float) : 0;
+    const cudaError_t err = xrt_set_smem(kFwd[variant], smem);
+    if (err != cudaSuccess) return -(int)err;
+    return fwd_threads(kFwd[variant], smem);
 }
 
 // The most threads of a K5b block in this variant (its launch bounds; a

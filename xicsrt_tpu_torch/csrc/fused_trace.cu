@@ -61,9 +61,11 @@
 //
 // What bounds it: arithmetic and the per-ray sin/exp/sqrt (plasma: also
 // cos, tan, erfinv and the torus's 4 Newton steps with a sqrt and two
-// divisions each; a mesh: 4 Newton steps over its nonzero Chebyshev terms,
-// each an 8-byte load through the read-only cache where the TPU kernel
-// unrolled them as constants), plus the image atomics; a file curve
+// divisions each; a mesh: 4 Newton steps over its dense Chebyshev
+// coefficients, unrolled to the degree so the T rows stay in registers,
+// one 16-byte load of (C, Cx, Cy) a term through the read-only cache where
+// the TPU kernel unrolled its nonzero terms as constants), plus the image
+// atomics; a file curve
 // is two cached loads where the TPU kernel ran a tent matvec on its MXU; a plasma ray adds about
 // log2(B) dependent loads of cum and one 32-byte row, served by L2; a
 // mosaic crystal two erfinvf, a sqrt and a rocking curve per layer. Counts

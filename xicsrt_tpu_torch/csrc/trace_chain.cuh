@@ -236,9 +236,9 @@ __device__ __forceinline__ bool xrt_trace_chain(
             t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
             nxv = nyv = nzv = 0.0f;
         } else if (kCheb && oi[0] == XRT_SHAPE_CHEB) {  // unit normal given
-            t = xrt_cheb_hit(o, reinterpret_cast<const float2*>(aux + oi[XRT_OI_CHEB]),
-                             oi[XRT_OI_TERMS], oi[XRT_OI_DEG], px, py, pz, dx, dy,
-                             dz, alive, &m_int, nxv, nyv, nzv);
+            t = xrt_cheb_hit(o, reinterpret_cast<const float4*>(aux + oi[XRT_OI_DENSE]),
+                             oi[XRT_OI_DEG], px, py, pz, dx, dy, dz, alive, &m_int,
+                             nxv, nyv, nzv);
         } else {  // cylinder of axis bx through o[12:15], radius^2 o[15]
             const CylinderHit h = xrt_cylinder_hit(
                 o[12], o[13], o[14], o[3], o[4], o[5], o[15],

@@ -85,8 +85,9 @@
 // float) and 1 / grid step; the table's offset in the aux buffer and its
 // length K in the optic's ints. A Chebyshev surface (shape 4): centre and
 // scales in floats 12-15, mid-plane and tolerance in XRT_O_RMIN2 and
-// XRT_O_TOL, its terms' aux offset (even), degree (at most
-// XRT_CHEB_MAX_DEG) and term count in the optic's ints.
+// XRT_O_TOL; in the optic's ints its nonzero terms' aux offset (even),
+// degree (at most XRT_CHEB_MAX_DEG) and term count, and the aux offset
+// (a multiple of 4) of its dense coefficients, which the kernels sum.
 #define XRT_O_LO 20
 #define XRT_O_INV_STEP 31
 #define XRT_OI_TABLE 10
@@ -94,6 +95,7 @@
 #define XRT_OI_CHEB 12
 #define XRT_OI_DEG 13
 #define XRT_OI_TERMS 14
+#define XRT_OI_DENSE 1
 #define XRT_CHEB_MAX_DEG 12
 #define XRT_SHAPE_CHEB 4
 #define XRT_ROCK_FILE 2
@@ -142,6 +144,8 @@ struct Draws {
     uint32_t words[4];
 
     // Uniform in [0, 1): 24 random bits, as the TPU hardware PRNG gives.
+    // The word is selected with constant indices: indexed by the run-time
+    // k & 3, words would live in local memory.
     __device__ __forceinline__ float operator()() {
         const int k = next++;
         if (uniforms) return uniforms[(long long)k * n_total + ray];
@@ -150,11 +154,20 @@ struct Draws {
             philox4x32_10((uint32_t)ray, (uint32_t)(ray >> 32),
                           (uint32_t)group, 0u, k0, k1, words);
         }
-        return (float)(words[k & 3] >> 8) * (1.0f / 16777216.0f);
+        const uint32_t lo = (k & 1) ? words[1] : words[0];
+        const uint32_t hi = (k & 1) ? words[3] : words[2];
+        return (float)(((k & 2) ? hi : lo) >> 8) * (1.0f / 16777216.0f);
     }
 };
 
 __device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
+
+// sinf(x) and cosf(x) of one angle, with one range reduction: sincosf
+// rounds each as sinf and cosf do (the kernels and their twins agree ray
+// for ray on the card, chip_smoke.py).
+__device__ __forceinline__ void xrt_sincos(float x, float& s, float& c) {
+    sincosf(x, &s, &c);
+}
 
 // A standard normal from one uniform clipped to [1e-7, 1 - 1e-7]:
 // sqrt(2) erfinv(2u - 1).
@@ -186,8 +199,9 @@ __device__ __forceinline__ float xrt_asin_poly(float x) {
     p = p * ax + -0.2145988016f;
     p = p * ax + 1.5707963050f;
     float theta = p * sqrtf(fmaxf(1.0f - ax, 0.0f));
-    const float s = sinf(theta);
-    theta = theta + (cosf(theta) - ax) / fmaxf(s, 1e-6f);
+    float s, c;
+    xrt_sincos(theta, s, c);
+    theta = theta + (c - ax) / fmaxf(s, 1e-6f);
     const float acos_x = x >= 0.0f ? theta : 3.141592653589793f - theta;
     return 1.5707963267948966f - acos_x;
 }
@@ -276,8 +290,10 @@ __device__ __forceinline__ void xrt_sample_source(const float* fp, const int* ip
         lz = c[0] + u * c[1];
         const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
         const float phi = v * 6.283185307179586f;
-        lx = rho * cosf(phi);
-        ly = rho * sinf(phi);
+        float sp, cp;
+        xrt_sincos(phi, sp, cp);
+        lx = rho * cp;
+        ly = rho * sp;
     } else if (!kFull || dist == XRT_CONE_XY) {
         // c: g0, g1 - g0, sin(ty1), then the tail's four.
         const float u = draw();
@@ -303,8 +319,10 @@ __device__ __forceinline__ void xrt_sample_source(const float* fp, const int* ip
         const float r = c[0] * sqrtf(draw());
         const float phi = draw() * 6.283185307179586f;
         const float w = inv_sqrt(1.0f + r * r);
-        lx = cosf(phi) * r * w;
-        ly = sinf(phi) * r * w;
+        float sp, cp;
+        xrt_sincos(phi, sp, cp);
+        lx = cp * r * w;
+        ly = sp * r * w;
         lz = w;
     } else if (dist == XRT_CONE_FLAT_XY) {  // c: t0, t1 - t0, t2, t3 - t2
         const float x = c[0] + draw() * c[1];
@@ -461,7 +479,9 @@ __device__ __forceinline__ void xrt_plasma_cone(const float* fp, float omc,
     const float lz = 1.0f - u * omc;
     const float rho = sqrtf(fmaxf(1.0f - lz * lz, 0.0f));
     const float phi = v * 6.283185307179586f;
-    xrt_aim(fp + 9, fp + 12, px, py, pz, rho * cosf(phi), rho * sinf(phi), lz,
+    float sp, cp;
+    xrt_sincos(phi, sp, cp);
+    xrt_aim(fp + 9, fp + 12, px, py, pz, rho * cp, rho * sp, lz,
             dx, dy, dz);
 }
 
@@ -633,24 +653,57 @@ __device__ __forceinline__ float xrt_file_value(const float* __restrict__ T,
     return *t0 * (1.0f - (*f - *kf)) + *t1 * (1.0f - ((*kf + 1.0f) - *f));
 }
 
+// The sums z, zx, zy of C, Cx and Cy at (uc, vc) for a surface of degree D
+// (xrt_cheb_hit): every term c T_i(uc) T_j(vc) of the dense matrices, i
+// outer, j inner, from coef[(D + 1) i + j] = (C_ij, Cx_ij, Cy_ij, 0). The T
+// values follow the recurrence T_k = 2 x T_(k-1) - T_(k-2): the row of
+// T_j(vc) in registers (the inner loop is unrolled to the degree), T_i(uc)
+// carried from one outer step to the next, which stays a loop so that the
+// coefficients are not all held in registers at once. The TPU kernel
+// skips the zero coefficients; a zero term adds +-0 to a finite sum that
+// starts at +0, which changes no bit, so the dense sums equal its sums.
+template <int D>
+__device__ __forceinline__ void xrt_cheb_sums(const float4* __restrict__ coef, float uc,
+                                              float vc, float& z, float& zx, float& zy) {
+    float tv[D + 1];
+    tv[0] = 1.0f;
+    tv[1] = vc;
+#pragma unroll
+    for (int k = 2; k <= D; ++k) tv[k] = 2.0f * vc * tv[k - 1] - tv[k - 2];
+    z = 0.0f;
+    zx = 0.0f;
+    zy = 0.0f;
+    float ti = 1.0f, tn = uc;  // T_i(uc), T_(i+1)(uc)
+#pragma unroll 1
+    for (int i = 0; i <= D; ++i, coef += D + 1) {
+#pragma unroll
+        for (int j = 0; j <= D; ++j) {
+            const float4 c = __ldg(coef + j);
+            z = z + c.x * ti * tv[j];
+            zx = zx + c.y * ti * tv[j];
+            zy = zy + c.z * ti * tv[j];
+        }
+        const float t = 2.0f * uc * tn - ti;
+        ti = tn;
+        tn = t;
+    }
+}
+
 // The Chebyshev height field z = sum_ij C_ij T_i(u) T_j(v) of a smooth
 // mesh (JAX _fit_cheb_surface and fused_trace.py:813-887), in the local
 // frame of the optic block o (origin o[0:3], basis rows o[3:12]; centre
 // o[12:14] and scales o[14:16] map x, y to u, v; mid-plane o[XRT_O_RMIN2],
-// tolerance o[XRT_O_TOL]). terms: the n_terms nonzero coefficients in aux
-// memory, each a float2 (value, 256 s + 16 i + j) of matrix s (0 C, 1 Cx,
-// 2 Cy), i outer, j inner, so each sum adds the TPU kernel's terms in its
-// order and skips its zeros (ops/fused_trace.py: cheb_terms). Four Newton
-// steps on F(t) = Olz + t Dlz - z(x(t), y(t)) from the mid-plane; T_i(u)
-// and T_j(v) once per step on u, v clipped to 1.25 (in local memory: the
-// terms index them at run time). *hit: alive, the last step below the tolerance,
-// t > 1e-6 and |u|, |v| <= 1 before the clip. The normal is the last
-// gradient's, in the global frame (unit). Returns t, 0 on a miss.
+// tolerance o[XRT_O_TOL]). coef: the dense coefficients in aux memory
+// (xrt_cheb_sums; ops/fused_trace.py: cheb_dense) of degree deg, one of 4,
+// 6, 8, 10, 12 (_fit_cheb_surface's). Four Newton steps on F(t) = Olz +
+// t Dlz - z(x(t), y(t)) from the mid-plane on u, v clipped to 1.25. *hit:
+// alive, the last step below the tolerance, t > 1e-6 and |u|, |v| <= 1
+// before the clip. The normal is the last gradient's, in the global frame
+// (unit). Returns t, 0 on a miss.
 __device__ __forceinline__ float xrt_cheb_hit(const float* o,
-                                              const float2* __restrict__ terms,
-                                              int n_terms, int deg, float px,
-                                              float py, float pz, float dx,
-                                              float dy, float dz, bool alive,
+                                              const float4* __restrict__ coef,
+                                              int deg, float px, float py, float pz,
+                                              float dx, float dy, float dz, bool alive,
                                               bool* hit, float& nx, float& ny,
                                               float& nz) {
     const float rx = px - o[0], ry = py - o[1], rz = pz - o[2];
@@ -662,34 +715,18 @@ __device__ __forceinline__ float xrt_cheb_hit(const float* o,
     const float Dlz = dx * o[9] + dy * o[10] + dz * o[11];
     float t = (o[XRT_O_RMIN2] - Olz) / (fabsf(Dlz) > 1e-9f ? Dlz : 1e-9f);
     float step = 0.0f, u = 0.0f, v = 0.0f, zx = 0.0f, zy = 0.0f;
-    float tu[XRT_CHEB_MAX_DEG + 1], tv[XRT_CHEB_MAX_DEG + 1];
     for (int it = 0; it < 4; ++it) {
         u = (Olx + t * Dlx - o[12]) * o[14];
         v = (Oly + t * Dly - o[13]) * o[15];
         const float uc = fminf(fmaxf(u, -1.25f), 1.25f);
         const float vc = fminf(fmaxf(v, -1.25f), 1.25f);
-        tu[0] = 1.0f;
-        tv[0] = 1.0f;
-        tu[1] = uc;
-        tv[1] = vc;
-        for (int k = 2; k <= deg; ++k) {
-            tu[k] = 2.0f * uc * tu[k - 1] - tu[k - 2];
-            tv[k] = 2.0f * vc * tv[k - 1] - tv[k - 2];
-        }
-        float z = 0.0f;
-        zx = 0.0f;
-        zy = 0.0f;
-        for (int k = 0; k < n_terms; ++k) {  // the same term in every lane
-            const float2 c = __ldg(terms + k);
-            const int code = (int)c.y;
-            const float p = c.x * tu[(code >> 4) & 15] * tv[code & 15];
-            if (code < 256) {
-                z = z + p;
-            } else if (code < 512) {
-                zx = zx + p;
-            } else {
-                zy = zy + p;
-            }
+        float z;
+        switch (deg) {  // the same degree in every lane
+            case 4: xrt_cheb_sums<4>(coef, uc, vc, z, zx, zy); break;
+            case 6: xrt_cheb_sums<6>(coef, uc, vc, z, zx, zy); break;
+            case 8: xrt_cheb_sums<8>(coef, uc, vc, z, zx, zy); break;
+            case 10: xrt_cheb_sums<10>(coef, uc, vc, z, zx, zy); break;
+            default: xrt_cheb_sums<12>(coef, uc, vc, z, zx, zy);
         }
         const float F = Olz + t * Dlz - z;
         float Fp = Dlz - zx * Dlx - zy * Dly;

@@ -111,6 +111,11 @@ def lookup(class_name: str):
     return cls
 
 
+def registry_names() -> list:
+    """The registered class names, lower case and sorted."""
+    return sorted(_REGISTRY.keys())
+
+
 def instantiate(name: str, element_config: dict, general: dict | None = None,
                 device="cpu"):
     """Build one element object from its config section entry."""

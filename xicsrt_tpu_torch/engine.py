@@ -351,6 +351,22 @@ def raytrace(config: dict, device=None) -> dict:
     return result
 
 
+def raytrace_mp(config: dict, processes=None, device=None) -> dict:
+    """The reference's multiprocess entry point (JAX
+    ``xicsrt_tpu/__init__.py:44-60``): runs over ``min(processes or the
+    number of devices, the number of devices)`` devices. With one device it
+    is exactly :func:`raytrace`; over more it raises until sharded runs are
+    ported.
+    """
+    device = default_device(device)
+    available = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = min(int(processes if processes is not None else available), available)
+    if n > 1:
+        raise NotImplementedError(
+            f"raytrace_mp over {n} devices: sharded runs are not ported yet.")
+    return raytrace(config, device)
+
+
 def combine_raytrace(input_list: list) -> dict:
     """Combine results dicts from multiple runs: meta counters sum, images
     sum (with shape checks), histories concatenate."""

@@ -128,9 +128,12 @@ O_MAJOR_ADJUST, O_CENTER_SIGN = 29, 30
 # convergence tolerance in the torus's 26-27, its terms' aux offset (even),
 # degree and term count in ints 12-14 (XRT_OI_CHEB, XRT_OI_DEG,
 # XRT_OI_TERMS): the terms are the nonzero coefficients of C, Cx and Cy
-# (:func:`cheb_terms`).
+# (:func:`cheb_terms`); the aux offset (a multiple of 4) of the dense
+# coefficients the kernels sum (:func:`cheb_dense`) in the sphere's int 1
+# (XRT_OI_DENSE).
 O_LO, O_INV_STEP = 20, 31
 OI_TABLE, OI_K, OI_CHEB, OI_DEG, OI_TERMS = 10, 11, 12, 13, 14
+OI_DENSE = 1
 # A mosaic crystal: its crystallite sigma sin(hwhm / sqrt(2 ln 2)) and its
 # cutoff angle (-1 without a cutoff) in the torus's floats 29-30
 # (XRT_O_MSIGMA, XRT_O_MCUT; no mosaic composite is a torus), its depth in
@@ -398,8 +401,9 @@ def _fit_cheb_surface(optic) -> dict:
                 f"mesh normals deviate {worst:.2e} rad from the fitted "
                 "surface gradient")
     zmid = float(z.min() + z.max()) / 2.0
-    # Negligible coefficients (odd terms of symmetric surfaces) are zeroed:
-    # the kernels trace only the nonzero terms (:func:`cheb_terms`).
+    # Negligible coefficients (odd terms of symmetric surfaces) are zeroed,
+    # as JAX zeroes them: its kernel unrolls only the nonzero terms
+    # (:func:`cheb_terms`).
     cut = 1e-13 * max(np.abs(C).max(), 1.0)
     C[np.abs(C) < cut] = 0.0
     Cx[np.abs(Cx) < cut * (2.0 / spanx)] = 0.0
@@ -425,6 +429,20 @@ def cheb_terms(ch: dict) -> np.ndarray:
     coef = np.stack([np.asarray(ch[k], np.float32) for k in ("C", "Cx", "Cy")], axis=-1)
     i, j, s = np.nonzero(coef)
     return np.stack([coef[i, j, s], (256 * s + 16 * i + j).astype(np.float32)], axis=1)
+
+
+def cheb_dense(ch: dict) -> np.ndarray:
+    """The coefficients the kernels sum (``xrt_cheb_sums``): a
+    ((deg + 1)^2, 4) float32 row (C_ij, Cx_ij, Cy_ij, 0) for each (i, j), i
+    outer, j inner. The zeros that :func:`cheb_terms` skips add +-0 to
+    sums that start at +0, so each dense sum equals the sum of its matrix's
+    terms bit for bit."""
+    if ch["deg"] not in (4, 6, 8, 10, 12):
+        raise FusedUnsupported(f"Chebyshev degree {ch['deg']}")
+    coef = np.zeros((ch["deg"] + 1, ch["deg"] + 1, 4), np.float32)
+    for k, key in enumerate(("C", "Cx", "Cy")):
+        coef[..., k] = np.asarray(ch[key], np.float32)
+    return coef.reshape(-1, 4)
 
 
 def _optic_spec(optic) -> dict:
@@ -738,13 +756,19 @@ def pack_params(src: dict, optics: list, params: dict, device, weight: bool = Fa
             f[12:16] = (ch["cx"], ch["cy"], ch["sx"], ch["sy"])
             f[26] = ch["zmid"]
             f[27] = ch["tol_c"]
-            terms = cheb_terms(ch)
-            pad = n_aux % 2  # the kernels read the terms as float2
+            terms, dense = cheb_terms(ch), cheb_dense(ch)
+            pad = n_aux % 2  # the terms are float2 rows
             aux.append(np.zeros(pad, np.float32))
             n_aux += pad
             i[OI_CHEB], i[OI_DEG], i[OI_TERMS] = n_aux, ch["deg"], len(terms)
             aux.append(terms.reshape(-1))
             n_aux += terms.size
+            pad = -n_aux % 4  # the kernels read the dense rows as float4
+            aux.append(np.zeros(pad, np.float32))
+            n_aux += pad
+            i[OI_DENSE] = n_aux
+            aux.append(dense.reshape(-1))
+            n_aux += dense.size
         f[16:19] = o["half"]
         i[4] = o["checks"]
         i[2] = o["interact"]
@@ -1143,7 +1167,8 @@ def cheb_hit_plain(o, oi, A, px, py, pz, dx, dy, dz, alive, full):
     ``fused_trace.py:813-887``) of the optic block ``o`` in its local frame:
     4 Newton steps on F(t) = Olz + t Dlz - z(x(t), y(t)) from the mid-plane
     o[26], the recurrence on u, v clipped to 1.25, the sums over the packed
-    nonzero terms (:func:`cheb_terms`; ``A``: the aux buffer as floats).
+    dense coefficients, i outer, j inner (:func:`cheb_dense`; ``A``: the aux
+    buffer as floats).
     Returns (t, hit, normal); t is zero where the ray misses, the hit needs
     the last step below o[27] and |u|, |v| <= 1 unclipped, the normal is
     the last gradient's, in the global frame."""
@@ -1154,8 +1179,7 @@ def cheb_hit_plain(o, oi, A, px, py, pz, dx, dy, dz, alive, full):
     Dlx = dx * o[3] + dy * o[4] + dz * o[5]
     Dly = dx * o[6] + dy * o[7] + dz * o[8]
     Dlz = dx * o[9] + dy * o[10] + dz * o[11]
-    deg, base = oi[OI_DEG], oi[OI_CHEB]
-    terms = [A[base + 2 * k: base + 2 * k + 2] for k in range(oi[OI_TERMS])]
+    deg, base = oi[OI_DEG], oi[OI_DENSE]
     safe_dz = torch.where(torch.abs(Dlz) > 1e-9, Dlz, full(1e-9))
     t = (o[26] - Olz) / safe_dz
     for _ in range(4):
@@ -1166,11 +1190,13 @@ def cheb_hit_plain(o, oi, A, px, py, pz, dx, dy, dz, alive, full):
         for _k in range(deg - 1):
             Ti.append(2.0 * uc * Ti[-1] - Ti[-2])
             Tj.append(2.0 * vc * Tj[-1] - Tj[-2])
-        sums = [full(0.0), full(0.0), full(0.0)]
-        for c, code in terms:
-            code = int(code)
-            sums[code >> 8] = sums[code >> 8] + c * Ti[(code >> 4) & 15] * Tj[code & 15]
-        zs, zxs, zys = sums
+        zs, zxs, zys = full(0.0), full(0.0), full(0.0)
+        for i in range(deg + 1):
+            for j in range(deg + 1):
+                c = base + 4 * ((deg + 1) * i + j)
+                zs = zs + A[c] * Ti[i] * Tj[j]
+                zxs = zxs + A[c + 1] * Ti[i] * Tj[j]
+                zys = zys + A[c + 2] * Ti[i] * Tj[j]
         F = Olz + t * Dlz - zs
         Fp = Dlz - zxs * Dlx - zys * Dly
         Fp = torch.where(torch.abs(Fp) > 1e-9, Fp, full(1e-9))

@@ -69,6 +69,7 @@ _SIGNATURES = {
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, ctypes.c_int, _P,
     ],
+    "xrt_fused_grad_fwd_threads": [ctypes.c_int, ctypes.c_int],
     "xrt_fused_grad_bwd_threads": [ctypes.c_int],
     "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int],
