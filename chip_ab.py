@@ -13,32 +13,48 @@ templates:
 - ``all_in``: every K1 and K3 run takes its ``kStages`` 2 build and every
   K5 run its ``kMosaic`` variant, so the flagship runs with those stages
   compiled in;
+- ``group_2``, ``group_8``, ``chunk_8``, ``layer_lanes``,
+  ``mosaic_bounds_3``, ``cheb_spread``, ``cheb_spread_bounds_2``: the
+  checkout with the spread of K1c-mosaic's layers over the warp in
+  another shape, its builds held to 3 blocks, or the spread in the
+  Chebyshev builds too, alone or held to 2 blocks (``MOSAIC_LEADS``);
+- ``k3_prefetch``, ``k3_blocks_128``, ``k3_bounds_40``, ``k3_tma``: the
+  checkout with one lead of K3's redesign (``K3_LEADS``);
 - ``early_exit``, ``bounds_none``, ``bounds_torus``, ``blocks_256``,
   ``corners_all``, ``words_indexed``, ``separate_trig``, ``image_l2``:
   the checkout with one lead of the redesign of K5f and of the draws
   undone, or put back where it was dropped (``LEADS_UNDONE``).
 
-``--layouts`` picks among them (default: all).
+``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
+K1e and K3 alone, for the leads of the trace kernels.
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
 ``nvcc`` per source), then each tree's timings run in a process of their
 own, in the order A B C ... C B A. Each prints ptxas's lines for K1
-(``fused_trace_kernel``), K5f (``fused_grad_fwd_kernel``), K5b
+(``fused_trace_kernel``), K3 (``trace_only_kernel``), K5f
+(``fused_grad_fwd_kernel``), K5b
 (``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``): registers,
 spill stores, stack frame, and the 256-thread blocks a multiprocessor
 holds at that register count (65536 registers, allocated per warp in
 units of 256). Then the ms per call (CUDA events, the least and the median
 of 5 means of 20 calls) of K1a on the flagship at 2^22 rays, of
 K1c-file, K1c-mirror, K1c-cheb (example 06's mesh crystal on the mesh
-spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic on
-``chip_smoke.py``'s chains where the tree has them; of K5f and K5b on the
+spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic
+(``mosaic15`` and the mesh mosaic, mc and weight) on ``chip_smoke.py``'s
+chains where the tree has them; of K1e's 'found'
+reservoir (the marked K1 and the record launch) on the flagship and
+``mosaic15``; of K3 on phase 25's 8e6-bundle plasma iteration (1.97e7
+rays), in weight mode on the flagship's eager rays and behind the mosaic
+on ``mosaic15``'s (mc and weight); of K5f and K5b on the
 flagship, phase 22's chains, ``mosaic_sphere``, ``file_rocking``, the
 generic source ``focused_gaussian_voigt`` and example 08's chain (its
 80 KB image), at the chain's rays (2^22 for example 08's), and of K5f
 with the same rays' draws read from memory and at 2^20 and 2^24 rays
 (the fixed cost against the cost a ray); and of R2 at the roofline tool's
-size. A tree's process ends with one JSON line of its times.
+size. Each K1 and K3 call timed is run once more beside its twin, and
+whether their counts are equal is printed. A tree's process ends with one
+JSON line of its times and those checks.
 """
 
 from __future__ import annotations
@@ -65,7 +81,151 @@ ALL_IN = {
     os.path.join("xicsrt_tpu_torch", "ops", "fused_grad.py"):
         {"| source << 2) + 12 * int(mosaic)": "| source << 2) + 12"},
 }
-# Each lead of the redesign undone alone, or put back where it was dropped:
+# The leads of the mosaic's and K3's redesign. K1c-mosaic's spread of
+# layers in other shapes: 2 or 8 lanes a searching ray in mc mode (not 4);
+# chunks of 8 layers a lane (not 4) in groups of 2; 8 lanes a ray with a
+# layer each, the first spread of the redesign, whose lanes call Philox at
+# different draws; K1's and K3's mosaic builds held to 80 registers (3
+# blocks of 256); the spread in the builds with the Chebyshev stage too
+# (which keep the serial loop), alone and held to 128 registers (2
+# blocks).
+_CHAIN = os.path.join("xicsrt_tpu_torch", "csrc", "trace_chain.cuh")
+_RUN = os.path.join("xicsrt_tpu_torch", "csrc", "fused_run.cuh")
+_K3 = os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu")
+_GROUP = "constexpr int kMosaicGroup = 4;"
+_CHUNK = "constexpr int kMosaicChunk = 4;"
+_SPREAD = "xrt_mosaic<!kCheb>("
+_K1_DECL = "__global__ void fused_trace_kernel("
+_K3_DECL = "__global__ void trace_only_kernel("
+_K3_THREADS = "    const int threads = 256;\n    const int use_smem"
+MOSAIC_LEADS = {
+    "group_2": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 2;"}},
+    "group_8": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 8;"}},
+    "chunk_8": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 2;",
+                         _CHUNK: "constexpr int kMosaicChunk = 8;"}},
+    "layer_lanes": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 8;",
+                             _CHUNK: "constexpr int kMosaicChunk = 1;"}},
+    "mosaic_bounds_3": {
+        _RUN: {_K1_DECL: "__global__ void __launch_bounds__(256, kStages >= 2 ? 3 : 1) "
+                         "fused_trace_kernel("},
+        _K3: {_K3_DECL: "__global__ void __launch_bounds__(256, kStages >= 2 ? 3 : 1) "
+                        "trace_only_kernel("}},
+    "cheb_spread": {_CHAIN: {_SPREAD: "xrt_mosaic<true>("}},
+    "cheb_spread_bounds_2": {
+        _CHAIN: {_SPREAD: "xrt_mosaic<true>("},
+        _RUN: {_K1_DECL: "__global__ void __launch_bounds__(256, kCheb && kStages >= 2 ? 2 : 1) "
+                         "fused_trace_kernel("},
+        _K3: {_K3_DECL: "__global__ void __launch_bounds__(256, kCheb && kStages >= 2 ? 2 : 1) "
+                        "trace_only_kernel("}},
+}
+# K3's leads, each alone: (c) the next grid-stride ray's 29 bytes loaded
+# into registers before the current ray is traced; (b) blocks of 128
+# threads (36 warps a multiprocessor at 55 registers, not 32), and those
+# held to 40 warps by launch bounds; (a) each block's tiles of 256 rays
+# staged in shared memory by the Tensor Memory Accelerator (1-D
+# cp.async.bulk copies completing on an mbarrier, two buffers), the next
+# tile's while this one is traced, the ragged last tile read as before.
+_K3_LOOP = """    for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+         r0 < n; r0 += stride) {
+        const long long r = r0 + lane;
+        const RayIn in = xrt_load_ray<kStages>(r, n, origin, direction, wavelength, mask,
+                                               weight);
+"""
+_K3_PREFETCH = """    long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+    RayIn ahead = xrt_load_ray<kStages>(r0 + lane, n, origin, direction, wavelength, mask,
+                                        weight);
+    for (; r0 < n; r0 += stride) {
+        const long long r = r0 + lane;
+        const RayIn in = ahead;
+        if (r0 + stride < n) {
+            ahead = xrt_load_ray<kStages>(r + stride, n, origin, direction, wavelength,
+                                          mask, weight);
+        }
+"""
+_K3_TMA = """    constexpr int T = 256;
+    __shared__ __align__(128) float s_org[2][3 * T];
+    __shared__ __align__(128) float s_dir[2][3 * T];
+    __shared__ __align__(128) float s_wl[2][T];
+    __shared__ __align__(128) float s_wt[2][T];
+    __shared__ __align__(128) unsigned char s_mk[2][T];
+    __shared__ __align__(8) unsigned long long s_bar[2];
+    const bool wt_on = kStages >= 1 && weight != nullptr;
+    const bool staged = blockDim.x == T &&
+        (((uintptr_t)origin | (uintptr_t)direction | (uintptr_t)wavelength |
+          (uintptr_t)mask | (uintptr_t)(wt_on ? weight : origin)) & 15) == 0;
+    const long long whole = staged ? n / T : 0;  // the tiles the TMA stages
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < 2; ++b) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::
+                         "r"((unsigned)__cvta_generic_to_shared(&s_bar[b])));
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    auto issue = [&](long long tile, int b) {
+        const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_bar[b]);
+        const unsigned bytes = (29u + (wt_on ? 4u : 0u)) * T;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                     "r"(bar), "r"(bytes) : "memory");
+        auto copy = [&](void* dst, const void* src, unsigned size) {
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                "[%0], [%1], %2, [%3];" ::
+                "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(size),
+                "r"(bar) : "memory");
+        };
+        copy(s_org[b], origin + 3 * tile * T, 12u * T);
+        copy(s_dir[b], direction + 3 * tile * T, 12u * T);
+        copy(s_wl[b], wavelength + tile * T, 4u * T);
+        copy(s_mk[b], mask + tile * T, 1u * T);
+        if (wt_on) copy(s_wt[b], weight + tile * T, 4u * T);
+    };
+    const long long n_tiles = (n + T - 1) / T;
+    if (threadIdx.x == 0 && blockIdx.x < whole) issue(blockIdx.x, 0);
+    int it = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+        const int b = it & 1;
+        if (threadIdx.x == 0 && tile + gridDim.x < whole) issue(tile + gridDim.x, b ^ 1);
+        const long long r = tile * T + threadIdx.x;
+        RayIn in;
+        if (tile < whole) {
+            const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_bar[b]);
+            unsigned done = 0;
+            while (!done) {
+                asm volatile(
+                    "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+                    "selp.u32 %0, 1, 0, p; }"
+                    : "=r"(done) : "r"(bar), "r"((it >> 1) & 1) : "memory");
+            }
+            const int t = threadIdx.x;
+            in.px = s_org[b][3 * t];
+            in.py = s_org[b][3 * t + 1];
+            in.pz = s_org[b][3 * t + 2];
+            in.dx = s_dir[b][3 * t];
+            in.dy = s_dir[b][3 * t + 1];
+            in.dz = s_dir[b][3 * t + 2];
+            in.wl = s_wl[b][t];
+            in.alive = s_mk[b][t] != 0;
+            in.wt = wt_on ? s_wt[b][t] : 1.0f;
+        } else {
+            in = xrt_load_ray<kStages>(r, n, origin, direction, wavelength, mask, weight);
+        }
+"""
+_K3_LOOP_END = """                                        s_counts, img, lane);
+    }
+"""
+K3_LEADS = {
+    "k3_prefetch": {_K3: {_K3_LOOP: _K3_PREFETCH}},
+    "k3_blocks_128": {_K3: {_K3_THREADS: _K3_THREADS.replace("256", "128")}},
+    "k3_bounds_40": {_K3: {
+        _K3_THREADS: _K3_THREADS.replace("256", "128"),
+        _K3_DECL: "__global__ void __launch_bounds__(128, kStages < 2 ? 10 : 1) "
+                  "trace_only_kernel("}},
+    "k3_tma": {_K3: {_K3_LOOP: _K3_TMA,
+                     _K3_LOOP_END: _K3_LOOP_END.replace("lane);\n    }",
+                                                        "lane);\n        __syncthreads();\n    }")}},
+}
+# Each lead of K5f's redesign undone alone, or put back where it was dropped:
 # K5f's rays leaving the chain once dead or of zero weight; K5f without
 # launch bounds in every variant, or with them on the torus variants too;
 # K5f in blocks of 256
@@ -95,7 +255,8 @@ LEADS_UNDONE = {
     "image_l2": {_FWD: {
         "kFwdSmemImageMax = XRT_SMEM_IMAGE_MAX_FLOATS;": "kFwdSmemImageMax = 16384;"}},
 }
-LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE}
+LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
+           **K3_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -136,11 +297,11 @@ def blocks_per_sm(registers: int) -> int:
 
 
 def ptxas_lines(report: str) -> list:
-    """(kernel, registers, spill stores, stack frame bytes) of K1, K5f, K5b
-    and R2 from ptxas's report."""
+    """(kernel, registers, spill stores, stack frame bytes) of K1, K3, K5f,
+    K5b and R2 from ptxas's report."""
     out, name, stores, frame = [], None, 0, 0
     for line in report.splitlines():
-        m = re.search(r"(fused_trace_kernel|fused_grad_fwd_kernel(?:_64)?"
+        m = re.search(r"(fused_trace_kernel|trace_only_kernel|fused_grad_fwd_kernel(?:_64)?"
                       r"|fused_grad_bwd_kernel|mma_rate_kernel)(I\w+?E)?E", line)
         if m:
             name, stores, frame = m.group(1) + (m.group(2) or ""), 0, 0
@@ -156,7 +317,8 @@ def ptxas_lines(report: str) -> list:
 
 
 def child(tree: str, mode: str) -> None:
-    """Build ``tree``'s kernels (mode 'build'), or time them (mode 'time')."""
+    """Build ``tree``'s kernels (mode 'build'), or time them (mode 'time';
+    'trace': K1, K1e and K3 only)."""
     from xicsrt_tpu_torch.ops import native
 
     if mode == "build":
@@ -199,7 +361,10 @@ def child(tree: str, mode: str) -> None:
             "K1d-weight": cs.flagship(n, 1, engine="fused", interact_mode="weight"),
             "K1d-bilinear": cs.flagship(n, 1, engine="fused", image_mode="bilinear"),
             "K1c-mosaic mc": cs.mosaic15_config(n, 1, "fused"),
-            "K1c-mosaic weight": cs.mosaic15_config(n, 1, "fused", interact_mode="weight")})
+            "K1c-mosaic weight": cs.mosaic15_config(n, 1, "fused", interact_mode="weight"),
+            "K1c-mosaic mesh mc": cs.mesh_mosaic_config(n, 1, "fused"),
+            "K1c-mosaic mesh weight": cs.mesh_mosaic_config(n, 1, "fused",
+                                                            interact_mode="weight")})
         grad_chains["mosaic_sphere"] = cs.grad_variant("mosaic_sphere", n)
     if hasattr(cs, "file_rocking_config"):
         grad_chains["file_rocking"] = cs.grad_variant("file_rocking", n)
@@ -207,9 +372,49 @@ def child(tree: str, mode: str) -> None:
     # Example 08's chain: its detector image is 80 KB.
     grad_chains["example08"] = cs.repo_function("examples/example_08_plasma_fitting.py",
                                                 "_config")(8.3e20, 2.0e4)
+    equal = {}  # each timed K1 and K3 call's counts against its twin's
+
+    def counts_equal(name, kernel, plain):
+        equal[name] = bool(torch.equal(kernel()[0], plain()[0]))
+        if not equal[name]:
+            print(f"{label} {name}: the counts differ from the twin's", flush=True)
+
     for name, cfg in chains.items():
         fparams = cs.k1_pack(engine.Pipeline(cfg, device="cuda"))
         times[name] = ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)))
+        counts_equal(name, lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)),
+                     lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)))
+    if hasattr(cs, "mosaic15_config"):
+        k1e_chains = {"flagship": cs.flagship(n, 1, engine="fused"),
+                      "mosaic15": cs.mosaic15_config(n, 1, "fused")}
+        for name, cfg in k1e_chains.items():  # the marked K1, then the record launch
+            pipe = engine.Pipeline(cfg, device="cuda")
+            fparams = cs.k1_pack(pipe)
+            spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+            times[f"K1e found {name}"] = ms(
+                lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2), history=spec))
+        # K3 on phase 25's plasma iteration, in weight mode on the flagship's
+        # eager rays, and behind the mosaic on mosaic15's.
+        plasma = cs.plasma_config(1 << 24, 2, bundle_count=8_000_000, engine="fused")
+        plasma["sources"]["plasma"]["max_bundles"] = int(1e7)
+        k3_chains = {
+            "K3 plasma": (plasma, 27),
+            "K3 weight": (cs.flagship(n, 1, engine="fused", interact_mode="weight"), 38),
+            "K3 mosaic mc": (cs.mosaic15_config(n, 1, "fused"), 381),
+            "K3 mosaic weight": (cs.mosaic15_config(n, 1, "fused", interact_mode="weight"),
+                                 381)}
+        for name, (cfg, seed) in k3_chains.items():
+            pipe = engine.Pipeline(cfg, device="cuda")
+            k3p = cs.k3_pack(ft, pipe)
+            rays = cs.eager_rays(pipe, seed)
+            args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+            kw = {"seed": (1, 2), **({"weight": rays.weight} if k3p.weight else {})}
+            times[name] = ms(lambda: ft.fused_trace_run_cuda(*args, **kw))
+            counts_equal(name, lambda: ft.fused_trace_run_cuda(*args, **kw),
+                         lambda: ft.fused_trace_run_plain(*args, **kw))
+            del rays, args, kw
+    if mode == "trace":
+        grad_chains = {}
     for name, cfg in grad_chains.items():
         _, _, pack, pipe = make_fused_differentiable(cfg, device="cuda")
         pvec = pack(pipe.params).detach()
@@ -232,14 +437,14 @@ def child(tree: str, mode: str) -> None:
         for k in (20, 24):
             times[f"K5f {name} 2^{k}"] = ms(
                 lambda: fg.fused_grad_forward_cuda(st, pvec, 1 << k, lam, seed=(1, 2)))
-    if importlib.util.find_spec("xicsrt_tpu_torch.ops.roofline_probes"):
+    if mode == "time" and importlib.util.find_spec("xicsrt_tpu_torch.ops.roofline_probes"):
         from xicsrt_tpu_torch.ops import roofline_probes as rp
 
         seed = torch.tensor([0.011], dtype=torch.float32, device="cuda")
         times["R2"] = ms(lambda: rp.mma_rate_cuda(seed))
     for name, (low, mid) in times.items():
         print(f"{label} {name}: {low:.4f} ms least, {mid:.4f} ms median", flush=True)
-    print(json.dumps({"tree": label, "ms": times}), flush=True)
+    print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
 
 
 def main() -> int:
@@ -247,6 +452,8 @@ def main() -> int:
     ap.add_argument("--parent", help="another tree to time as it is")
     ap.add_argument("--layouts", nargs="+", choices=sorted(LAYOUTS), default=list(LAYOUTS),
                     help="the layouts of the checkout to time (default: all)")
+    ap.add_argument("--trace-only", action="store_true",
+                    help="time K1, K1e and K3 only (not K5 or R2)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -258,7 +465,8 @@ def main() -> int:
     if any(p.wait(timeout=900) for p in builds):
         raise RuntimeError("a tree's kernels did not build")
     for tree in trees + trees[::-1]:
-        proc = subprocess.run(child_command(tree, "time"), cwd=tree, text=True,
+        proc = subprocess.run(child_command(tree, "trace" if args.trace_only else "time"),
+                              cwd=tree, text=True,
                               capture_output=True, timeout=900)
         print(proc.stdout, end="", flush=True)
         if proc.returncode:

@@ -5,8 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 1. device: the card's name and power limit, toolchain versions;
 2. build: compile the CUDA kernels of ``xicsrt_tpu_torch/csrc``; the
    registers, spills, stack frame, block size and resident warps of every
-   K5f and K5b variant, of K1's Chebyshev builds and of R2 (a K5f or K5b
-   variant that spills fails);
+   K5f and K5b variant, of every K1 and K3 build and of R2 (a K5f, K5b, K1
+   or K3 build that spills fails);
 3. K2 (binning kernel) against its plain twin on the card;
 4. K1a (fused trace kernel) against its plain twin on the card;
 5. the main path on the fused engine, ``raytrace(config, device='cuda')``;
@@ -23,7 +23,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 12. gradient timings: K5f and K5b against their twins, the rays/s of one
     forward+vjp step, the eager autograd step;
 13. K4 (bundle-gather kernel) against its plain twin: B = 4000 and 1e5,
-    2^24 rays plus 1000 past the last bundle, zero-count bundles;
+    2^24 rays plus 1000 past the last bundle, zero-count bundles; beside
+    its time, ``torch.repeat_interleave`` of the table by the bundles'
+    counts, zero-padded to its rows (equal to K4's), the yardstick;
 14. K1 with a plasma source and a toroidal crystal (K1f, K1c-torus)
     against its twin: ``plasma_torus`` at 2^20 rays x 2 iterations, the
     same bundle tables, both RNG modes;
@@ -64,7 +66,7 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 25. K3 (the trace-only kernel) against its twin, then ``plasma_torus`` with
     8e6 bundles at 2^24 expected photons x 2 on ``engine='fused'`` (K4
     generates, K3 traces), and K3's time and its twin's output on those
-    1.97e7 rays;
+    1.97e7 rays, and the census a ray of K3's chain (``k3_ops_per_ray``);
 26. K5f and K5b with the generic sampler against their twins on
     ``tests/test_fused_grad.py``'s six source-matrix variants at 2^20
     rays, then ``make_fused_differentiable`` on ``focused_gaussian_voigt``
@@ -101,19 +103,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``tests/test_fused_engine.py:897-942``'s checks;
 35. the reference's ``mosaic`` golden on both engines;
 36. K1 and K3 against their twins in both RNG modes at 2^20 rays on
-    mosaic chains (mc, weight, a cutoff, a file curve, a mesh) and on the
-    weight and bilinear flagship: counts equal, images within the bound of
-    float32 summation order;
+    mosaic chains (mc, weight, a cutoff, a file curve, depth 33 with half
+    the rays dead, a mesh) and on the weight and bilinear flagship: counts
+    equal, images within the bound of float32 summation order;
 37. K5d: K5f and K5b with the mosaic stage on ``mosaic_sphere`` at 2^22
     rays against their twins, then ``make_fused_differentiable`` on it;
 38. K3 in weight mode on its own route (an 8e6-bundle plasma, mc against
-    weight), and the timings per 2^22 rays of K1d, K1c-mosaic, K3-weight
-    and K5d beside K1a, with the ptxas registers of their builds;
+    weight), and the timings per 2^22 rays of K1d, K1c-mosaic, K3-weight,
+    K3 behind a mosaic and K5d beside K1a, with the ptxas registers of their
+    builds; K3-weight's census, and ``mosaic15``'s layer work (``mosaic_
+    work``), its lane-layer slots a ray a lane and spread over the warp
+    (``mosaic_schedule``) and its census as run (``mosaic_ops_as_run``);
 39. the history reservoir K1e (K1's marked build, the chunk selection and
     the record launch) against its twin on the flagship at 2^20 rays,
     chunk 8192: 'found' and 'sampled', mc and weight mode, both RNG modes,
-    and 'found' on a narrowed detector where about a third of the chunks
-    keep a ray: counts, images, kept chunks and every recorded value equal;
+    'found' on ``mosaic15`` in mc and weight mode, and 'found' on a
+    narrowed detector where about a third of the chunks keep a ray: counts,
+    images, kept chunks and every recorded value equal;
 40. the flagship at 2^26 x 4 through ``raytrace(config, device='cuda')``
     with ``keep_history`` False, 'found' and 'sampled': rays/s of each, the
     found history's bounds and invariants, the sampled found share within
@@ -146,7 +152,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     serial and overlap rays/s beside K1's and ``raytrace``'s measured ones;
     every row finite and positive, R1, R2 and K1 launched in its run; then
     each K5 chain's census per ray (its twins on the CPU), its class-rate
-    serial bound at 2^22 rays, and K5f's and K5b's times over it.
+    serial bound at 2^22 rays, and K5f's and K5b's times over it; and K3's
+    (phases 25 and 38) and K1c-mosaic's (38, as run) serial and overlap
+    bounds at these rates beside their times.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -178,8 +186,11 @@ import torch
 
 from xicsrt_tpu_torch.tools import bench_scenarios as BS
 from xicsrt_tpu_torch.tools.roofline import (OPS_PER_RAY, bound, chain_k1_ops, k1_ops,
-                                             k1_pack, k5_ops, k5_ops_per_ray, mosaic_k1_ops,
-                                             mosaic_work, serial_ms)
+                                             k1_pack, k3_ops_per_ray, k5_ops, k5_ops_per_ray,
+                                             mosaic_k1_ops, mosaic_needed, mosaic_ops_as_run,
+                                             mosaic_schedule, mosaic_work, overlap_ms,
+                                             serial_ms)
+from xicsrt_tpu_torch.tools.roofline import k3_pack as _k3_pack
 
 # Efficiency of the flagship chain on the JAX fused engine (source ->
 # aperture -> crystal -> detector); a physics figure, not a speed.
@@ -694,9 +705,43 @@ def gather_inputs(B, n_rays, gen):
     return cum.to(torch.int32).contiguous(), table
 
 
+def repeat_rows(table, counts, total: int, n: int):
+    """K4's function by the library: the bundle table's rows repeated by
+    their photon counts (``torch.repeat_interleave``, ``total`` rows), zero
+    rows after them up to ``n``."""
+    return torch.nn.functional.pad(
+        torch.repeat_interleave(table, counts, dim=0, output_size=total),
+        (0, 0, 0, n - total))
+
+
+def k4_library(bg, cum, table, n, label) -> float:
+    """The yardstick of K4 at its inputs: ``repeat_rows`` on the counts
+    (``cum``'s differences, taken before the timing), its rows equal to
+    K4's; its time and the bare ``repeat_interleave``'s beside K4's, in
+    turns (library, K4, K4, library). Returns the library's ms."""
+    counts = torch.diff(cum.long(), prepend=cum.new_zeros(1).long())
+    total = int(cum[-1])
+    lib = repeat_rows(table, counts, total, n)
+    if not torch.equal(lib, bg.interval_gather_cuda(cum, table, n)):
+        raise AssertionError(f"{label}: repeat_interleave's rows differ from K4's")
+    lib_ms = bare_ms = k4_ms = float("inf")
+    for which in ("library", "k4", "k4", "library"):
+        if which == "library":
+            lib_ms = min(lib_ms, cuda_ms(lambda: repeat_rows(table, counts, total, n), 20))
+            bare_ms = min(bare_ms, cuda_ms(lambda: torch.repeat_interleave(
+                table, counts, dim=0, output_size=total), 20))
+        else:
+            k4_ms = min(k4_ms, cuda_ms(lambda: bg.interval_gather_cuda(cum, table, n), 20))
+    log(f"{label}: K4 {k4_ms:.4f} ms; torch.repeat_interleave zero-padded to {n} rows "
+        f"{lib_ms:.4f} ms (its rows equal K4's; K4 / library {k4_ms / lib_ms:.3f}), "
+        f"repeat_interleave alone ({total} rows) {bare_ms:.4f} ms")
+    return lib_ms
+
+
 def phase_k4(bg):
     """K4 against its twin: bit-identical; returns the largest |difference|
-    measured (0.0 when they agree)."""
+    measured (0.0 when they agree). Beside each timing, its library
+    yardstick (``k4_library``)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     n = (1 << 24) + 1000
     worst = 0.0
@@ -717,6 +762,7 @@ def phase_k4(bg):
         log(f"phase 13 K4 B={B}: equal to its twin on {n} rays ({empty} empty "
             f"bundles, 1000 tail rays zero); {ms:.4f} ms vs twin {plain_ms:.4f} ms "
             f"({n * 32 / ms / 1e6:.1f} GB/s of output)")
+        k4_library(bg, cum, table, n, f"phase 13 K4 B={B}, {n} rays")
     return worst
 
 
@@ -936,6 +982,7 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
     log(f"phase 16 timings on {smi}: K1 plasma+torus {k1p_ms:.4f} ms vs twin "
         f"{k1p_plain_ms:.4f} ms ({n} ray slots, 1000 bundles, Philox); K4 "
         f"{k4_ms:.4f} ms vs twin {k4_plain_ms:.4f} ms (the same rays and tables)")
+    k4_library_ms = k4_library(bg, cum, table, n, f"phase 16 K4, {n} ray slots, 1000 bundles")
 
     # Phase 17: the torus golden on both engines.
     golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -945,7 +992,7 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
         torus_golden_check(raytrace(torus_golden_config(kind), device="cuda"),
                            golden, f"phase 17 torus golden, engine {kind}")
     return {"k4_launches": k4_launches, "k4_err": k4_err, "k4_ms": k4_ms,
-            "k4_plain_ms": k4_plain_ms,
+            "k4_plain_ms": k4_plain_ms, "k4_library_ms": k4_library_ms,
             "k1p_launches": k1p_launches, "k1p_err": k1p_err, "k1p_ms": k1p_ms,
             "k1p_plain_ms": k1p_plain_ms, "k1p_bound": k1p_bound,
             "k4_bound": k4_bound}
@@ -1535,10 +1582,9 @@ def phase_source_matrix(ft, engine, raytrace) -> int:
 
 def k3_pack(ft, pipe):
     """K3's packed chain (rays from memory) of a pipeline on the card, in its
-    run modes."""
-    return ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0},
-                          [ft._optic_spec(o) for o in pipe.optics], pipe.params, "cuda",
-                          **ft._chain_modes(pipe.general))
+    run modes (``tools/roofline.k3_pack``; ``ft`` stays in the signature
+    ``chip_ab.py`` calls on every tree, the parent's too)."""
+    return _k3_pack(pipe)
 
 
 def eager_rays(pipe, seed):
@@ -1615,8 +1661,20 @@ def phase_k3(smi, ft, engine, raytrace) -> dict:
     log(f"phase 25 timings on {smi}: K3 {ms:.4f} ms vs twin {plain_ms:.4f} ms ({n} rays "
         f"of one iteration, {int(rays.mask.sum())} alive, Philox); bound "
         f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    census = k3_census("phase 25", plasma_config(1 << 14, 1), n)
     return {"launches": launches, "err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound": k3_bound}
+            "bound": k3_bound, "census": census}
+
+
+def k3_census(label, cfg, n) -> tuple:
+    """K3's census per ray of ``cfg``'s chain (``k3_ops_per_ray``: its twin
+    on the CPU) and the bytes a ray it reads, for ``n`` timed rays; the
+    class-rate bounds follow in phase 45, which measures the rates."""
+    counts, per_ray, _ = k3_ops_per_ray(cfg)
+    log(f"{label} K3 census a ray (its twin on {min(8192, n)} CPU rays): trans "
+        f"{counts['trans']:.1f}, sqrtdiv {counts['sqrtdiv']:.1f}, simple "
+        f"{counts['simple']:.1f}; {per_ray} bytes a ray read")
+    return counts, per_ray, n
 
 
 GRAD_SOURCE_VARIANTS = ("plane_crystal_flat", "sphere_mirror_isotropic",
@@ -1912,9 +1970,10 @@ def twin_equal(kernel, plain, label, fparams=None) -> float:
     return err
 
 
-def k1_k3_against_twins(ft, engine, cfg, label, seed) -> float:
+def k1_k3_against_twins(ft, engine, cfg, label, seed, alternate=False) -> float:
     """K1 on ``cfg``'s own rays and K3 on one eager iteration's, each
-    against its twin in both RNG modes. Returns the largest difference."""
+    against its twin in both RNG modes; ``alternate``: K3's odd rays dead,
+    so every warp is half dead. Returns the largest difference."""
     pipe = engine.Pipeline(cfg, device="cuda")
     fparams = k1_pack(pipe)
     n = pipe.num_rays
@@ -1927,6 +1986,8 @@ def k1_k3_against_twins(ft, engine, cfg, label, seed) -> float:
                                   f"{label} K1 rng={rng} ({n} rays)", fparams))
     k3p = k3_pack(ft, pipe)
     rays = eager_rays(pipe, seed)
+    if alternate:
+        rays.mask[1::2] = False
     m = rays.mask.shape[0]
     uniforms = torch.rand((k3p.n_draws, m), generator=gen, device="cuda")
     args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
@@ -2168,6 +2229,22 @@ def mosaic15_config(intensity, num_iter, engine_kind, **general):
         class_name="XicsrtOpticSphericalMosaicCrystal", radius=1.0,
         mosaic_spread=np.radians(0.05), mosaic_depth=15, rocking_fwhm=150e-6)
     return BS._config(crystal, intensity, num_iter, engine=engine_kind, **general)
+
+
+def mosaic_case_config(depth, cutoff, mode, intensity, engine_kind="fused"):
+    """``mosaic15`` at another depth, with or without a cutoff (1e-4), in mc
+    or weight mode, behind an aperture that keeps the rays of x >= 0 (about
+    half of them), so a warp enters the layers with lanes dead at random."""
+    cfg = mosaic15_config(intensity, 1, engine_kind, interact_mode=mode)
+    cfg["optics"]["crystal"]["mosaic_depth"] = depth
+    if cutoff:
+        cfg["optics"]["crystal"]["mosaic_cutoff"] = 1e-4
+    half = {"class_name": "XicsrtOpticAperture", "origin": [0.0, 0.0, 0.4],
+            "zaxis": [0.0, 0.0, -1.0],
+            "aperture": [{"shape": "rectangle", "size": [0.1, 0.2], "origin": [0.05, 0.0],
+                          "logic": "and"}]}
+    cfg["optics"] = {"aperture": half, **cfg["optics"]}
+    return cfg
 
 
 def mesh_mosaic_config(intensity, num_iter, engine_kind, **general):
@@ -2412,8 +2489,9 @@ def golden_check(result, name, label, fractions=True):
 def k1d_mosaic_chains(n) -> dict:
     """Phase 36's chains of ``n`` rays: ``mosaic15`` in mc and weight mode,
     with a cutoff, with a file rocking curve (mixed 0.6, the 150 urad curve
-    tabulated), on a mesh; the flagship in weight mode, with bilinear
-    images, with both."""
+    tabulated), at depth 33 with a cutoff behind an aperture that kills
+    about half the rays (``mosaic_case_config``), on a mesh; the flagship
+    in weight mode, with bilinear images, with both."""
     chains = {"mosaic15 mc": mosaic15_config(n, 1, "fused"),
               "mosaic15 weight": mosaic15_config(n, 1, "fused", interact_mode="weight"),
               "mosaic15 weight bilinear": mosaic15_config(n, 1, "fused", interact_mode="weight",
@@ -2425,6 +2503,8 @@ def k1d_mosaic_chains(n) -> dict:
         fc = mosaic15_config(n, 1, "fused", interact_mode=mode)
         to_file_crystal(fc["optics"]["crystal"], xop_table(150e-6), 0.6)
         chains[f"mosaic15 file {mode}"] = fc
+    for mode in ("mc", "weight"):
+        chains[f"mosaic depth 33 half dead cutoff {mode}"] = mosaic_case_config(33, True, mode, n)
     chains["mesh mosaic mc"] = mesh_mosaic_config(n, 1, "fused")
     chains["mesh mosaic weight"] = mesh_mosaic_config(n, 1, "fused", interact_mode="weight")
     for mode, general in WEIGHT_MODES.items():
@@ -2440,7 +2520,8 @@ def phase_k1d_mosaic_twins(ft, engine) -> dict:
     err = {"weight": 0.0, "bilinear": 0.0, "mosaic mc": 0.0, "mosaic weight": 0.0,
            "k3 weight": 0.0}
     for k, (name, cfg) in enumerate(k1d_mosaic_chains(1 << 20).items()):
-        e = k1_k3_against_twins(ft, engine, cfg, f"phase 36 {name}", 360 + k)
+        e = k1_k3_against_twins(ft, engine, cfg, f"phase 36 {name}", 360 + k,
+                                alternate="half dead" in name)
         weight = "weight" in name or "both" in name
         if "mosaic" in name:
             err["mosaic weight" if weight else "mosaic mc"] = max(
@@ -2510,6 +2591,24 @@ def phase_k5d(smi, fg, ft, engine, make_fused_differentiable) -> dict:
             "b_plain": b_plain, "f_bound": f_bound, "b_bound": b_bound}
 
 
+def mosaic_slots(work, n, weight) -> None:
+    """Phase 38's lane-layer slots of the mosaic stage for the run ``work``
+    counted: the rays' needed layers drawn from its distribution
+    (``mosaic_needed``), scheduled a ray a lane (the parent's stage) and by
+    ``xrt_mosaic``'s warp-wide rounds at groups of 4 and 8 layers
+    (``mosaic_schedule``)."""
+    needed = mosaic_needed(work, n)
+    slots = {(g, c): mosaic_schedule(needed, work["depth"], g, weight, c)
+             for g, c in ((4, 4), (2, 4), (2, 8))}
+    first = slots[(4, 4)]
+    log(f"phase 38 mosaic15 {'weight' if weight else 'mc'} lane-layer slots of {n} rays "
+        f"(the run's distribution of needed layers): {first['layers']} layers needed; "
+        f"a ray a lane {first['serial']} ({first['layers'] / first['serial']:.3f} used); "
+        f"spread over the warp " + ", ".join(
+            f"groups of {g} lanes, chunks of {c} layers {v['cooperative']} "
+            f"({v['layers'] / v['cooperative']:.3f} used)" for (g, c), v in slots.items()))
+
+
 def phase_k3_weight(smi, ft, engine, raytrace) -> dict:
     """K3 in weight mode on its own route: ``plasma_torus`` with 8e6
     bundles (past K1's 2^22) at 2^22 expected photons, in mc and in weight
@@ -2549,7 +2648,21 @@ def phase_k3_weight(smi, ft, engine, raytrace) -> dict:
     log(f"phase 38 timings on {smi}: K3 weight mode {ms:.4f} ms vs twin {plain_ms:.4f} ms "
         f"(the flagship's {n} eager rays and their weights, Philox); bound {b[0]:.4f} ms "
         f"({b[1]})")
-    return {"launches": res["weight"][2], "ms": ms, "plain_ms": plain_ms, "bound": b}
+    census = k3_census("phase 38", flagship(1 << 14, 1, engine="fused",
+                                            interact_mode="weight"), n)
+    behind = {}
+    for mode in ("mc", "weight"):  # K3 behind a mosaic: mosaic15's eager rays
+        pipe = engine.Pipeline(mosaic15_config(n, 1, "fused", interact_mode=mode),
+                               device="cuda")
+        k3m = k3_pack(ft, pipe)
+        rays = eager_rays(pipe, 381)
+        args = (k3m, rays.origin, rays.direction, rays.wavelength, rays.mask)
+        kw = {"seed": (1, 2), **({"weight": rays.weight} if k3m.weight else {})}
+        behind[mode] = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, **kw), 20)
+    log(f"phase 38 timings on {smi}: K3 behind a mosaic (mosaic15's {n} eager rays, "
+        f"Philox) mc {behind['mc']:.4f} ms, weight {behind['weight']:.4f} ms")
+    return {"launches": res["weight"][2], "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "census": census}
 
 
 # ---------------------------------------------------------------------------
@@ -2602,7 +2715,8 @@ def k1e_against_twin(ft, fparams, n, spec, label, bundles=None, **kwargs):
 def phase_k1e_twins(ft, engine) -> float:
     """Phase 39: K1e against its twin on the flagship at 2^20 rays, chunk
     8192: 'found' (8 slots) and 'sampled' (history_max_lost 10000: 2 slots)
-    in mc and weight mode, both RNG modes; then 'found' on the flagship
+    in mc and weight mode, both RNG modes; 'found' on ``mosaic15`` in mc and
+    weight mode, both RNG modes; then 'found' on the flagship
     with its detector narrowed until about a third of the chunks keep a
     ray, so the selection skips chunks."""
     n = 1 << 20
@@ -2622,6 +2736,16 @@ def phase_k1e_twins(ft, engine) -> float:
                 if hist.chunks.tolist() != list(range(spec.slots)):
                     raise AssertionError("phase 39: every chunk of the flagship keeps a "
                                          "ray, so the first chunks are kept")
+    for interact in ("mc", "weight"):  # the mosaic's layers in K1e's record launch
+        pipe = engine.Pipeline(mosaic15_config(n, 1, "fused", interact_mode=interact),
+                               device="cuda")
+        fparams = k1_pack(pipe)
+        uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+        spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+        for rng, kw in (("input", {"uniforms": uniforms}), ("hw", {"seed": (39, 9)})):
+            e, _ = k1e_against_twin(ft, fparams, n, spec,
+                                    f"phase 39 K1e found mosaic15 {interact} rng={rng}", **kw)
+            err = max(err, e)
     cfg = flagship(n, 1, engine="fused")
     cfg["optics"]["detector"]["xsize"] = SPARSE_DETECTOR_XSIZE
     pipe = engine.Pipeline(cfg, device="cuda")
@@ -3062,14 +3186,15 @@ def phase_roofline(smi) -> dict:
 
 
 def ptxas_registers(pattern: str) -> str:
-    """ptxas's register line of the kernel whose mangled name holds
-    ``pattern`` (K1a's build: ``fused_trace_kernelILb0ELb0ELi0E``, the point
-    source with no Chebyshev, weight, bilinear or mosaic stage)."""
+    """ptxas's register line of the kernel whose mangled name matches the
+    regular expression ``pattern`` (K1a's build:
+    ``fused_trace_kernelILb0ELb0ELi0E``, the point source with no
+    Chebyshev, weight, bilinear or mosaic stage)."""
     from xicsrt_tpu_torch.ops import native
 
     lines = native.ptxas_report().splitlines()
     for i, line in enumerate(lines):
-        if pattern in line:
+        if re.search(pattern, line):
             for nxt in lines[i + 1:i + 4]:
                 if "registers" in nxt:
                     return f"{pattern}: {nxt.strip()}"
@@ -3095,6 +3220,22 @@ def phase_k5_census(smi, rates: dict, timed: dict) -> None:
                          + f" (trans/sqrtdiv/simple a ray), serial bound {serial:.4f} ms, "
                          f"measured {ms:.4f} ms ({serial / ms:.3f} of it)")
         log(f"phase 45 K5 {name} on {smi}, 2^22 rays: " + "; ".join(parts))
+
+
+def phase_k3_mosaic_bounds(smi, rates: dict, timed: dict) -> None:
+    """Phase 45's lines for K3 and K1c-mosaic: each timed call's census a
+    ray (``timed``: label -> ((census, bytes a ray, rays), measured ms)), its
+    class-rate serial bound (the classes' times and the bytes' summed) and
+    overlap bound (the largest of them) at phase 45's rates, and the
+    measured time over each."""
+    for label, ((counts, per_ray, n), ms) in timed.items():
+        serial = serial_ms(counts, rates, n, per_ray * n)
+        overlap = overlap_ms(counts, rates, n, per_ray * n)
+        log(f"phase 45 {label} on {smi}, {n} rays: census "
+            + "/".join(f"{counts[c]:.1f}" for c in ("trans", "sqrtdiv", "simple"))
+            + f" (trans/sqrtdiv/simple a ray), {per_ray} bytes a ray; serial bound "
+            f"{serial:.4f} ms, overlap bound {overlap:.4f} ms; measured {ms:.4f} ms "
+            f"({serial / ms:.3f} of serial, {overlap / ms:.3f} of overlap)")
 
 
 def ptxas_entries(report: str, pattern: str) -> list:
@@ -3149,8 +3290,8 @@ def k5_variants(report: str, kernel: str) -> list:
 def phase_registers(native) -> None:
     """Phase 2's summary from ptxas's report: registers, spills, stack frame
     and block size of every K5f and K5b variant, with the warps their
-    registers leave resident, of K1's Chebyshev builds and of R2; a K5f or
-    K5b variant that spills fails."""
+    registers leave resident, of every build of K1 and K3 and of R2; a K5f,
+    K5b, K1 or K3 build that spills fails."""
     report = native.ptxas_report()
     lib = native.library()
     spilled = []
@@ -3175,11 +3316,22 @@ def phase_registers(native) -> None:
     for args, regs, stores, loads, frame in ptxas_entries(report,
                                                           r"fused_trace_kernel(I\w+?E)E"):
         full, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
-        if cheb:
-            log(f"phase 2 K1 Chebyshev build ({'full' if full else 'point'} source, kStages "
-                f"{stages}{', marks' * mark}): {regs} registers, {stores} / {loads} bytes "
-                f"spilled, {frame} bytes stack frame, 256 threads a block, "
-                f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
+        name = (f"({'full' if full else 'point'} source, {'Chebyshev, ' * cheb}kStages "
+                f"{stages}{', marks' * mark})")
+        log(f"phase 2 K1 build {name}: {regs} registers, {stores} / {loads} bytes "
+            f"spilled, {frame} bytes stack frame, 256 threads a block, "
+            f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
+        if stores or loads:
+            spilled.append(f"K1 {name}")
+    for args, regs, stores, loads, frame in ptxas_entries(report,
+                                                          r"trace_only_kernel(I\w+?E)E"):
+        cheb, stages = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        name = f"({'Chebyshev, ' * cheb}kStages {stages})"
+        log(f"phase 2 K3 build {name}: {regs} registers, {stores} / {loads} bytes "
+            f"spilled, {frame} bytes stack frame, 256 threads a block, "
+            f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
+        if stores or loads:
+            spilled.append(f"K3 {name}")
     for name, regs, stores, loads, frame in ptxas_entries(report, r"(mma_rate_kernel)"):
         log(f"phase 2 R2 {name}: {regs} registers, {stores} / {loads} bytes spilled, "
             f"{resident_warps(regs, 256)} warps a multiprocessor by registers")
@@ -3333,14 +3485,19 @@ def main() -> int:
                            n, smi, "K1d bilinear images (the flagship)", "38")
     t_mosaic = {}
     for mode in ("mc", "weight"):
-        fp_m = packed(mosaic15_config(n, 1, "fused", interact_mode=mode))
+        cfg_m = mosaic15_config(n, 1, "fused", interact_mode=mode)
+        fp_m = packed(cfg_m)
         ops, work = mosaic_k1_ops(fp_m, n, mode == "weight")
         log(f"phase 38 mosaic15 {mode}, {n} rays: {work}")
+        mosaic_slots(work, n, mode == "weight")
         t_mosaic[mode] = k1_timing(ft, fp_m, n, smi, f"K1c-mosaic {mode} (mosaic15)", "38",
                                    ops)
+        t_mosaic[mode]["census"] = mosaic_ops_as_run(cfg_m, work, n)
     t_k1a_again = k1_timing(ft, fparams, n, smi, "K1a (the flagship), again", "38")
     for pattern in ("fused_trace_kernelILb0ELb0ELi1ELb0E", "fused_trace_kernelILb0ELb0ELi2ELb0E",
-                    "trace_only_kernelILb0ELi1E", "trace_only_kernelILb0ELi2E",
+                    "trace_only_kernelILb0ELi0E",
+                    "trace_only_kernelILb0ELi1E",
+                    "trace_only_kernelILb0ELi2E",
                     "fused_grad_bwd_kernelILb0ELb0ELi0ELb1E",
                     "fused_grad_bwd_kernelILb0ELb0ELi0ELb0E"):
         log(f"phase 38 ptxas {ptxas_registers(pattern)}")
@@ -3364,6 +3521,11 @@ def main() -> int:
         "focused_gaussian_voigt": (k5s["f_ms"], k5s["b_ms"]),
         "file_rocking": (k5file["f_ms"], k5file["b_ms"]),
         "mosaic_sphere": (k5d["f_ms"], k5d["b_ms"])})
+    phase_k3_mosaic_bounds(smi, roof["roofline"]["rates"], {
+        "K3 plasma_torus, 8e6 bundles (phase 25)": (k3["census"], k3["ms"]),
+        "K3 weight mode, the flagship (phase 38)": (k3w["census"], k3w["ms"]),
+        **{f"K1c-mosaic {mode} as run (phase 38)": ((t["census"], 0, n), t["ms"])
+           for mode, t in t_mosaic.items()}})
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -3389,7 +3551,8 @@ def main() -> int:
             grad["k5b_bound"]),
         row("interval_gather_cuda (K4)", "xicsrt_tpu_torch/csrc/bundle_gather.cu",
             "xicsrt_tpu/ops/bundle_gather.py:80", plasma["k4_launches"], plasma["k4_err"],
-            plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"]),
+            plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"],
+            plasma["k4_library_ms"]),
         row("fused_run_cuda plasma+torus (K1f, K1c-torus)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:1428 and :616", plasma["k1p_launches"],
             plasma["k1p_err"], plasma["k1p_ms"], plasma["k1p_plain_ms"],

@@ -428,13 +428,15 @@ def test_fused_grad_file_rocking_matches_twins(cuda_device):
 
 
 @pytest.mark.parametrize("stage", ["flagship weight", "flagship bilinear", "flagship both",
-                                   "mosaic15 mc", "mosaic15 weight"])
+                                   "mosaic15 mc", "mosaic15 weight", "mesh mosaic mc",
+                                   "mesh mosaic weight"])
 def test_k1d_and_mosaic_stages_match_twins(cuda_device, stage):
-    """K1d (weight mode, bilinear images) and K1c-mosaic (mc, weight): K1 on
-    the chain's own rays and K3 on one eager iteration's (in weight mode
-    with the rays' weights: K3-weight), each against its twin in both RNG
-    modes at 2^16 rays: counts equal, images within the bound of float32
-    summation order (``chip_smoke.twin_equal``)."""
+    """K1d (weight mode, bilinear images) and K1c-mosaic (mc, weight; on a
+    mesh, the Chebyshev builds' serial loop): K1 on the chain's own rays
+    and K3 on one eager iteration's (in weight mode with the rays' weights:
+    K3-weight), each against its twin in both RNG modes at 2^16 rays:
+    counts equal, images within the bound of float32 summation order
+    (``chip_smoke.twin_equal``)."""
     import chip_smoke
     from xicsrt_tpu_torch import engine
 
@@ -535,6 +537,79 @@ def test_k1e_matches_twin(cuda_device, case):
         chip_smoke.k1e_against_twin(ft, fparams, n, spec, case, **kw)
     assert (ft.fused_run_cuda.launches, ft.history_record_cuda.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("mode", ["mc", "weight"])
+@pytest.mark.parametrize("cutoff", [False, True], ids=["no_cutoff", "cutoff"])
+@pytest.mark.parametrize("depth", [1, 4, 15, 33])
+def test_mosaic_layers_spread_over_the_warp_match_twins(cuda_device, depth, cutoff, mode):
+    """K1c-mosaic's warp-wide layers (``xrt_mosaic``): K1 on the chain's own
+    rays and K3 on one eager iteration's with every odd ray dead, each
+    against its twin in both RNG modes at 2^16 rays, at depths 1, 4, 15
+    and 33 (over a warp, and not a multiple of the group), with and without
+    a cutoff, behind an aperture that kills about half the rays
+    (``chip_smoke.mosaic_case_config``): counts exact, nearest images exact,
+    weighted pixels within the summation-order bound
+    (``chip_smoke.twin_equal``)."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    cfg = chip_smoke.mosaic_case_config(depth, cutoff, mode, 1 << 16)
+    before = (ft.fused_run_cuda.launches, ft.fused_trace_run_cuda.launches)
+    chip_smoke.k1_k3_against_twins(ft, engine, cfg, f"mosaic depth {depth} {mode}", 81,
+                                   alternate=True)
+    assert ft.fused_run_cuda.launches == before[0] + 2
+    assert ft.fused_trace_run_cuda.launches == before[1] + 2
+
+
+@pytest.mark.parametrize("mode", ["mc", "weight"])
+def test_k1e_found_on_mosaic15_matches_twin(cuda_device, mode):
+    """K1e's 'found' reservoir on ``mosaic15`` (the record launch traces the
+    kept chunks' layers again, spread over the warp as K1 does) against
+    the twin at 2^16 rays, chunk 4096, 4 slots, in both RNG modes: the same
+    kept chunks and every recorded value equal."""
+    import chip_smoke
+
+    n = 1 << 16
+    fparams = chip_smoke.k1_pack(Pipeline(chip_smoke.mosaic15_config(
+        n, 1, "fused", interact_mode=mode), device=cuda_device))
+    uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(4))
+    before = ft.history_record_cuda.launches
+    for kw in ({"seed": (7, 8)}, {"uniforms": uniforms}):
+        chip_smoke.k1e_against_twin(ft, fparams, n, ft.HistorySpec("found", 4, 4096),
+                                    f"K1e found mosaic15 {mode}", **kw)
+    assert ft.history_record_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4096 + 17, 1 << 16])
+@pytest.mark.parametrize("mode", ["mc", "weight"])
+def test_k3_on_ragged_counts_matches_twin(cuda_device, n, mode):
+    """K3 on the first n rays of the flagship's eager iteration (n = 1, 31,
+    33, a count that leaves a grid-stride step and a warp ragged, 2^16),
+    in mc and in weight mode with the rays' weights, against its twin in
+    both RNG modes: counts exact, images as ``chip_smoke.twin_equal``
+    holds them (equal where no ray reaches the detector)."""
+    import chip_smoke
+
+    pipe = Pipeline(_spectrometer_config(intensity=1 << 16, engine="fused",
+                                         interact_mode=mode), device=cuda_device)
+    k3p = chip_smoke.k3_pack(ft, pipe)
+    rays = chip_smoke.eager_rays(pipe, 12)
+    args = (k3p, rays.origin[:n].contiguous(), rays.direction[:n].contiguous(),
+            rays.wavelength[:n].contiguous(), rays.mask[:n].contiguous())
+    weight = {"weight": rays.weight[:n].contiguous()} if k3p.weight else {}
+    uniforms = torch.rand((k3p.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(n))
+    for kw in ({"seed": (12, n)}, {"uniforms": uniforms}):
+        kernel = ft.fused_trace_run_cuda(*args, **kw, **weight)
+        plain = ft.fused_trace_run_plain(*args, **kw, **weight, terms=True)
+        assert int(kernel[0][0]) == int(rays.mask[:n].sum())
+        if int(plain[0][-1]) > 0:
+            chip_smoke.twin_equal(kernel, plain, f"K3 {mode} on {n} rays", k3p)
+        else:  # no ray reaches the detector: counts and images equal all the same
+            assert torch.equal(kernel[0], plain[0])
+            assert torch.equal(kernel[1], plain[1])
 
 
 def test_cli_runs_on_the_card(cuda_device):

@@ -66,7 +66,7 @@ def test_cylinder_intersect_matches_jax(convex):
                  weight=jnp.ones((n,), jnp.float32), mask=jnp.ones((n,), bool))
     t_j, n_j, m_j = jax.tree_util.tree_map(
         np.asarray, jp.optics[0].make_intersect()(jp.params["optics"]["mirror"], jr))
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     tr = Rays(origin=torch.from_numpy(origin), direction=torch.from_numpy(direction),
               wavelength=torch.full((n,), 3.9492), weight=torch.ones(n),
               mask=torch.ones(n, dtype=torch.bool))
@@ -95,7 +95,7 @@ def test_fused_twin_cylinder_matches_jax_megakernel(kind):
                       crystal_spacing=2.45676, rocking_type="step", rocking_fwhm=10.0)
     jp = JaxPipeline(cfg)
     tp = TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     src = ft._source_spec(tp.source)
     optics = [ft._optic_spec(o) for o in tp.optics]
     fparams = ft.pack_params(src, optics, params, "cpu")

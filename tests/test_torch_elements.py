@@ -52,7 +52,7 @@ def _assert_params_equal(a, b):
 
 def test_params_from_jax_round_trip(pipelines):
     jp, tp = pipelines
-    converted = params_from_jax(_np_tree(jp.params))
+    converted = params_from_jax(_np_tree(jp.params), device="cpu")
     _assert_params_equal(converted, tp.params)  # exact: same float32 values
     assert tp.params["optics"]["crystal"]["radius"].dtype == torch.float32
 

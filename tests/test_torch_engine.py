@@ -192,6 +192,40 @@ def test_device_is_explicit(monkeypatch):
         xicsrt_tpu_torch.Pipeline(_spectrometer_config(intensity=100))
 
 
+def test_elements_default_to_cuda(monkeypatch):
+    """``dispatch.instantiate``, ``dispatch.build_section`` and an element
+    built by its class take CUDA when no device is given, and raise without
+    it, as ``raytrace`` does; ``device='cpu'`` builds them on the CPU."""
+    from xicsrt_tpu_torch import dispatch
+
+    config = _spectrometer_config(intensity=100)
+    detector = config["optics"]["detector"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dispatch.instantiate("detector", detector, config["general"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dispatch.build_section(config, "optics")
+    cls = dispatch.lookup(detector["class_name"])
+    cfg = {k: v for k, v in detector.items() if k != "class_name"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(cfg, name="detector", general=config["general"])
+    on_cpu = dispatch.build_section(config, "optics", device="cpu")
+    assert [o.device.type for o in on_cpu] == ["cpu"] * len(config["optics"])
+
+
+def test_params_from_jax_defaults_to_cuda(monkeypatch):
+    """``params_from_jax`` puts the converted tree on CUDA when no device is
+    given and raises without it, as every entry point of the port does;
+    ``device='cpu'`` converts on the CPU."""
+    tree = {"crystal": {"radius": np.float32(1.0), "origin": np.zeros(3, np.float32)}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xicsrt_tpu_torch.params_from_jax(tree)
+    on_cpu = xicsrt_tpu_torch.params_from_jax(tree, device="cpu")
+    assert on_cpu["crystal"]["origin"].device.type == "cpu"
+    assert float(on_cpu["crystal"]["radius"]) == 1.0
+
+
 def test_io_not_ported_raises(tmp_path):
     """IO is ported (``tests/test_torch_io_cli.py``); what raises is an
     output path that does not exist without ``make_directories``, as in

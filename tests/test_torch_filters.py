@@ -77,7 +77,7 @@ def test_params_carry_the_filters():
     cfg = _filtered_source()
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
     assert set(tp.params["filters"]) == {"sight", "pass"}
-    converted = params_from_jax(_tree(jp.params))
+    converted = params_from_jax(_tree(jp.params), device="cpu")
     for key in ("origin", "basis"):
         assert torch.equal(getattr(converted["filters"]["sight"]["frame"], key),
                            getattr(tp.params["filters"]["sight"]["frame"], key))
@@ -97,7 +97,7 @@ def test_filtered_source_generates_as_jax():
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
     key = jax.random.key(41)
     ref = _tree(jp.generate(jp.params["sources"]["source"], jp.params["filters"], key))
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     rows, counts = jax_source_rows(jp.source, key)
     rays = tp.source.generate(params["sources"]["source"], ExplicitDraws(rows, counts),
                               params["filters"])
@@ -129,7 +129,7 @@ def test_plasma_bundle_tables_and_rays_match_jax():
     cum, table, _ = jax.jit(src.make_bundle_tables(jp.source_filter_fns))(
         sp, jp.params["filters"], k_bundle, k_prof, k_counts)
     cum, table = _np(cum), _np(table)
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     rows = [_np(jax.random.uniform(k_bundle, (B, 3), dtype=jnp.float32)).reshape(-1)]
     cum_t, table_t, total = tp.source.bundle_tables(params["sources"]["plasma"],
                                                     ExplicitDraws(rows[:1]),

@@ -57,7 +57,7 @@ def _variant():
 def _pack(cfg):
     jp = JaxPipeline(cfg)
     tp = TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     src = ft._source_spec(tp.source)
     optics = [ft._optic_spec(o) for o in tp.optics]
     return jp, tp, optics, ft.pack_params(src, optics, params, "cpu")

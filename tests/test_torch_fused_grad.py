@@ -158,7 +158,7 @@ def pair(request):
         jp, chunk=1024, interpret=True, rng="input")
     tp = TorchPipeline(cfg, device="cpu")
     forward, vjp, pack, spec = fg.build_fused_diff(tp, rng="input", chunk=1024)
-    params = params_from_jax(_np_tree(jp.params))
+    params = params_from_jax(_np_tree(jp.params), device="cpu")
     key = jax.random.key(5)
     U = jax.random.uniform(key, (jspec["n_chunks"], jspec["n_draws"], 8, 128),
                            dtype=jnp.float32)

@@ -94,7 +94,7 @@ def test_twin_matches_jax_megakernel(plasma):
     ref = jax.tree_util.tree_map(
         np.asarray, jax_build_fused_run(jp, chunk=CHUNK, interpret=True, rng="input")(key))
 
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     src = ft._source_spec(tp.source)
     optics = [ft._optic_spec(o) for o in tp.optics]
     fparams = ft.pack_params(src, optics, params, "cpu")
@@ -142,7 +142,7 @@ def test_torus_root_matches_jax_per_ray():
     }
     jp = JaxPipeline(cfg)
     tp = TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     fparams = ft.pack_params(ft._source_spec(tp.source), [ft._optic_spec(tp.optics[0])],
                              params, "cpu")
     o = [float(x) for x in fparams.fp[ft.SRC_F:ft.SRC_F + ft.OPT_F].tolist()]

@@ -104,7 +104,7 @@ def test_weight_mode_images_match_jax(jax_f32):
     image_fn, jpipe, key = jax_f32
     ref = _np_tree(image_fn(jpipe.params, key))
     fn, tpipe = make_differentiable(_config(), device="cpu")
-    params = params_from_jax(_np_tree(jpipe.params))
+    params = params_from_jax(_np_tree(jpipe.params), device="cpu")
     with torch.no_grad():
         out = fn(params, ExplicitDraws(_jax_draws(key, N_RAYS, jnp.float32)))
     assert set(out) == set(ref) == {"crystal", "detector"}
@@ -205,7 +205,7 @@ def test_autograd_matches_jax_grad_float64():
     jgrad = jax.grad(jloss)(jpipe.params)
 
     fn, _ = make_differentiable(cfg, device="cpu")
-    params, leaves = _leaf_params(params_from_jax(_np_tree(jpipe.params)))
+    params, leaves = _leaf_params(params_from_jax(_np_tree(jpipe.params), device="cpu"))
     imgs = fn(params, ExplicitDraws(_jax_draws(key, N_RAYS, jnp.float64)))
     sum((imgs[k] * torch.tensor(gs[k])).sum() for k in gs).backward()
 

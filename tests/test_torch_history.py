@@ -67,7 +67,7 @@ def _both(cfg, mode, slots, seed):
     ref = jax_build_fused_run(jp, chunk=CHUNK, interpret=True, rng="input",
                               history_slots=slots, history_mode=mode)(key)
     ref = jax.tree_util.tree_map(np.asarray, ref)
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     run = ft.build_fused_run(tp, num_iter=1, rng="input", history_slots=slots,
                              history_mode=mode, chunk=CHUNK)
     fparams = ft.pack_params(ft._source_spec(tp.source),

@@ -100,7 +100,7 @@ def test_mesh_intersect_matches_jax(mesh, refine):
                  wavelength=jnp.full((n,), 3.9492, jnp.float32),
                  weight=jnp.ones((n,), jnp.float32), mask=jnp.ones((n,), bool))
     t_j, n_j, m_j = _tree(jp.optics[0].make_intersect()(jp.params["optics"]["crystal"], jr))
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     tr = Rays(origin=torch.from_numpy(origin), direction=torch.from_numpy(direction),
               wavelength=torch.full((n,), 3.9492), weight=torch.ones(n),
               mask=torch.ones(n, dtype=torch.bool))

@@ -80,7 +80,7 @@ def k1_twin_against_jax(cfg, seed, tol=TOL_RAYS, image_tol=None):
     within ``image_tol`` (by default 2 per such ray). Returns (the twin's
     counts, JAX's result, the packed buffers)."""
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     src = ft._source_spec(tp.source, {f.name: f for f in tp.filters})
     optics = [ft._optic_spec(o) for o in tp.optics]
     fparams = ft.pack_params(src, optics, params, "cpu", **ft._chain_modes(tp.general))
@@ -106,7 +106,7 @@ def k3_twin_against_jax(cfg, seed, tol=TOL_RAYS, image_tol=None):
                              k_src))
     optics = [ft._optic_spec(o) for o in tp.optics]
     fparams = ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0}, optics,
-                             params_from_jax(_tree(jp.params)), "cpu",
+                             params_from_jax(_tree(jp.params), device="cpu"), "cpu",
                              **ft._chain_modes(tp.general))
     n = rays.mask.shape[0]
     counts, flat = ft.fused_trace_run_cuda(

@@ -163,7 +163,7 @@ def test_bundle_tables_and_rays_match_jax(name, tmp_path):
     cfg = _variants(tmp_path)[name]
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
     rows, counts, cum, table, ref = _jax_draws(jp, jax.random.key(7), jnp.float32)
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     sp = params["sources"]["plasma"]
 
     cum_t, table_t, total = tp.source.bundle_tables(sp, ExplicitDraws(rows[:1], [counts]))
@@ -198,7 +198,7 @@ def test_bundle_tables_and_rays_match_jax(name, tmp_path):
 def test_params_from_jax_carries_plasma_and_torus_params():
     cfg = _example03()
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     for section in ("sources", "optics"):
         for name, own in tp.params[section].items():
             theirs = params[section][name]
@@ -236,7 +236,7 @@ def test_temperature_gradient_matches_jax_grad():
 
     t0 = jp.params["sources"]["plasma"]["temperature"]
     ref_val, ref_grad = jax.value_and_grad(loss)(t0)
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     temp = params["sources"]["plasma"]["temperature"].clone().requires_grad_(True)
     params["sources"]["plasma"]["temperature"] = temp
     out = tp.make_iteration(False, True)(params, ExplicitDraws(rows, [counts]))

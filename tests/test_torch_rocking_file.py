@@ -152,7 +152,7 @@ def file_pair():
     U = torch.tensor(np.asarray(U)).permute(1, 0, 2, 3).reshape(jspec["n_draws"], -1)
     return {"jp": jp, "jforward": jforward, "jvjp": jvjp, "jpvec": jpack(jp.params),
             "key": key, "forward": forward, "vjp": vjp, "spec": spec,
-            "pvec": pack(params_from_jax(_np_tree(jp.params))),
+            "pvec": pack(params_from_jax(_np_tree(jp.params), device="cpu")),
             "U": U[:, :spec["n_total"]].contiguous()}
 
 

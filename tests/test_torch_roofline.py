@@ -245,6 +245,123 @@ def test_mosaic_census_counts_every_layer():
     assert layer["simple"] == pytest.approx(66.0, abs=0.5)
 
 
+def _k3_chain(name):
+    """A K3 chain of ``chip_smoke.py``'s K3 timings at a small budget (the
+    census takes its own chunk of rays)."""
+    import chip_smoke
+
+    if name == "plasma_torus":
+        return chip_smoke.plasma_config(1 << 14, 1)
+    return chip_smoke.flagship(1 << 14, 1, engine="fused",
+                               interact_mode="weight" if name == "weight" else "mc")
+
+
+@pytest.mark.parametrize("name", ["flagship", "weight", "plasma_torus"])
+def test_k3_census_is_the_chain_alone(name):
+    """K3's census (``k3_ops_per_ray``, its twin on eager rays) per ray at
+    chunks 1024 and 4096 within 1 % class by class; 29 bytes a ray read,
+    33 in weight mode; 1-1.5 times the chain's hand count; below K1's
+    census of the same chain by the source's work (the flagship: its one
+    sine and its square roots and divisions); a torus's four Newton steps
+    take at least 16 square roots and divisions."""
+    config = _k3_chain(name)
+    small, per_ray, pipe = roofline.k3_ops_per_ray(config, chunk=1024)
+    large, _, _ = roofline.k3_ops_per_ray(config, chunk=4096)
+    for cls in roofline.CLASSES:
+        assert small[cls] == pytest.approx(large[cls], rel=1e-2, abs=1e-9)
+    assert per_ray == (33 if name == "weight" else 29)
+    census = sum(large[c] for c in ("trans", "sqrtdiv", "simple"))
+    assert 1.0 <= census / roofline.chain_k1_ops(roofline.k3_pack(pipe)) <= 1.5
+    assert large["mxu_macs"] == 0.0
+    if name == "plasma_torus":
+        assert large["sqrtdiv"] >= 16
+    else:
+        k1, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+        assert k1["trans"] - large["trans"] == pytest.approx(1.0)
+        assert k1["sqrtdiv"] > large["sqrtdiv"] and k1["simple"] > large["simple"]
+
+
+def test_mosaic_ops_as_run_against_a_hand_count():
+    """``mosaic_ops_as_run`` on ``mosaic15`` cut to depth 3, for a run of
+    1000 rays that evaluates 1250 layers: the twin's census less 1.75
+    unused layers a ray, each 3 trans, 4 sqrtdiv and 66 simple operations
+    (``test_mosaic_census_counts_every_layer``): trans 1 + 3 x 1.25 by hand
+    (the source's sine and three a layer); and its class-rate serial and
+    overlap bounds, with and without bytes, by hand."""
+    config, _ = roofline.scenario_config("mosaic15")
+    crystal = next(o for o in config["optics"].values() if "mosaic_depth" in o)
+    crystal["mosaic_depth"] = 3
+    work = {"depth": 3, "layers": 1250, "entering": 500, "accepted": None}
+    as_run = roofline.mosaic_ops_as_run(config, work, 1000, chunk=1024)
+    full, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    assert as_run["trans"] == pytest.approx(1.0 + 3.0 * 1.25)
+    assert as_run["sqrtdiv"] == pytest.approx(full["sqrtdiv"] - 4.0 * 1.75)
+    assert as_run["simple"] == pytest.approx(full["simple"] - 66.0 * 1.75, abs=1.0)
+    rates = {"mxu_macs_per_s": 1e14, "trans_per_s": 1e12, "sqrtdiv_per_s": 2e12,
+             "simple_per_s": 4e13}
+    counts = {"mxu_macs": 0.0, "trans": 2.0, "sqrtdiv": 4.0, "simple": 40.0}
+    assert roofline.serial_ms(counts, rates, 1000) == pytest.approx(
+        1000 * (2 / 1e12 + 4 / 2e12 + 40 / 4e13) * 1e3)
+    assert roofline.serial_ms(counts, rates, 1000, 3.35e6) == pytest.approx(
+        roofline.serial_ms(counts, rates, 1000) + 1e-3)
+    assert roofline.overlap_ms(counts, rates, 1000) == pytest.approx(2e-6)
+    assert roofline.overlap_ms(counts, rates, 1000, 3.35e7) == pytest.approx(1e-2)
+    crystal["mosaic_depth"] = 4
+    with pytest.raises(ValueError):
+        roofline.mosaic_ops_as_run(config, work, 1000, chunk=1024)
+
+
+def test_mosaic_schedule_by_hand():
+    """``mosaic_schedule`` on one warp whose rays need 1, 15 and 9 of 15
+    layers (the rest do not enter): a ray a lane, 15 layer steps. Spread
+    over the warp, chunks of 4 layers a lane: in groups of 4 lanes (16
+    layers a ray and round) one round of 4 steps; in groups of 2 (8 layers)
+    two rounds, 8 steps; in chunks of 1 and groups of 8 (the rays take
+    layers 0-7, then the last two 8-15), 2 steps; in weight mode ceil(3 x 4
+    / 32) = 1 round, 4 steps. A warp of 32 rays that all need 15: in groups
+    of 4, 4 rounds (8 rays a round), 16 steps, one more than a ray a lane,
+    and as many in weight mode."""
+    w = np.zeros(32, dtype=np.int64)
+    w[:3] = [1, 15, 9]
+    assert roofline.mosaic_schedule(w, 15, 4, False) == {
+        "layers": 25, "serial": 32 * 15, "cooperative": 32 * 4}
+    assert roofline.mosaic_schedule(w, 15, 2, False)["cooperative"] == 32 * 8
+    assert roofline.mosaic_schedule(w, 15, 8, False, chunk=1)["cooperative"] == 32 * 2
+    assert roofline.mosaic_schedule(w, 15, 4, True)["cooperative"] == 32 * 4
+    full = np.full(32, 15)
+    assert roofline.mosaic_schedule(full, 15, 4, False)["cooperative"] == 32 * 16
+    assert roofline.mosaic_schedule(full, 15, 4, False)["serial"] == 32 * 15
+    assert roofline.mosaic_schedule(full, 15, 4, True)["cooperative"] == 32 * 16
+    none = np.zeros(64, dtype=np.int64)
+    assert roofline.mosaic_schedule(none, 15, 4, False) == {
+        "layers": 0, "serial": 0, "cooperative": 0}
+
+
+@pytest.mark.parametrize("weight", [False, True])
+def test_mosaic_needed_follows_the_run(weight):
+    """``mosaic_needed`` draws each ray's needed layers from a run's
+    ``mosaic_work``: as many zeros as rays that do not enter, the layers'
+    sum the run's layers, in mc mode A(l) - A(l - 1) rays needing l (and
+    the rays no layer accepts the depth); every schedule of them uses at
+    least the layers it needs."""
+    n, depth = 4096, 5
+    accepted = [0, 100, 180, 240, 290, 320]
+    entering = 1500
+    layers = entering * depth if weight else sum(entering - a for a in accepted[:-1])
+    work = {"depth": depth, "entering": entering, "layers": layers,
+            "accepted": None if weight else accepted}
+    needed = roofline.mosaic_needed(work, n)
+    assert needed.shape == (n,) and int((needed == 0).sum()) == n - entering
+    assert int(needed.sum()) == layers
+    if not weight:
+        for l in range(1, depth):
+            assert int((needed == l).sum()) == accepted[l] - accepted[l - 1]
+    for group in (2, 4):
+        slots = roofline.mosaic_schedule(needed, depth, group, weight)
+        assert slots["layers"] == layers
+        assert layers <= slots["cooperative"] and layers <= slots["serial"]
+
+
 @pytest.mark.parametrize("body", ["trans", "sqrtdiv", "simple"])
 def test_rate_numerator_is_the_census_of_its_body(body):
     """The K-dependent census of R1's plain version, in the body's class,

@@ -211,7 +211,7 @@ def test_generate_matches_jax(name):
     assert tp.num_rays == jp.num_rays
     key = jax.random.key(31)
     ref = _tree(jp.generate(jp.params["sources"]["source"], jp.params["filters"], key))
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     rows, counts = jax_source_rows(jp.source, key)
     rays = tp.source.generate(params["sources"]["source"], ExplicitDraws(rows, counts),
                               params["filters"])
@@ -270,7 +270,7 @@ def compare_with_megakernel(cfg, key, tol):
     the same uniforms, ``tol`` rays apart per element at most; returns
     (twin counts, JAX meta, the packed buffers)."""
     jp, tp = JaxPipeline(cfg), TorchPipeline(cfg, device="cpu")
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     src = ft._source_spec(tp.source, {f.name: f for f in tp.filters})
     optics = [ft._optic_spec(o) for o in tp.optics]
     fparams = ft.pack_params(src, optics, params, "cpu")
@@ -367,7 +367,7 @@ def grad_pair(request):
                                                        rng="input")
     tp = TorchPipeline(cfg, device="cpu")
     forward, vjp, pack, spec = fg.build_fused_diff(tp, rng="input", chunk=1024)
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     key = jax.random.key(5)
     U = jax.random.uniform(key, (jspec["n_chunks"], jspec["n_draws"], 8, 128),
                            dtype=jnp.float32)

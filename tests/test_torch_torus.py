@@ -94,7 +94,7 @@ def test_torus_intersect_matches_jax(convex):
                  weight=jnp.ones((n,), jnp.float32), mask=jnp.ones((n,), bool))
     t_j, n_j, m_j = jax.tree_util.tree_map(
         np.asarray, jp.optics[0].make_intersect()(jp.params["optics"]["crystal"], jr))
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp.params), device="cpu")
     tr = Rays(origin=torch.from_numpy(origin), direction=torch.from_numpy(direction),
               wavelength=torch.full((n,), 3.9492), weight=torch.ones(n),
               mask=torch.ones(n, dtype=torch.bool))

@@ -58,7 +58,7 @@ def test_k3_twin_matches_jax_trace_only_kernel(name):
     rays = _tree(jp.generate(jp.params["sources"][jp.source.name], jp.params["filters"],
                              k_src))
     optics = [ft._optic_spec(o) for o in tp.optics]
-    params = params_from_jax(_tree(jp.params))
+    params = params_from_jax(_tree(jp.params), device="cpu")
     fparams = ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0}, optics,
                              params, "cpu")
     n = tp.num_rays

@@ -14,16 +14,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xicsrt_tpu_torch.dispatch import default_device
 from xicsrt_tpu_torch.geometry import Frame
 
 
-def params_from_jax(params_np: dict, device="cpu", dtype=None) -> dict:
-    """Convert a JAX params tree (numpy leaves) to tensors on ``device``.
+def params_from_jax(params_np: dict, device=None, dtype=None) -> dict:
+    """Convert a JAX params tree (numpy leaves) to tensors on ``device``
+    (by default CUDA, raising without it).
 
     Frames (any object with ``origin`` and ``basis``) become
     :class:`~xicsrt_tpu_torch.geometry.Frame`; dicts recurse; arrays keep
     their values and, unless ``dtype`` is given, their float precision.
     """
+    device = default_device(device)
 
     def tensor(value):
         arr = np.array(value)  # a writable copy

@@ -141,8 +141,8 @@ __global__ void __launch_bounds__(256) history_record_kernel(
                             n_fields, wl};
     rec(0, px, py, pz, dx, dy, dz, alive, 1.0f);
     xrt_trace_chain<true, 2>(fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl,
-                             ip[XRT_H_PER_RAY_WL] != 0, alive, 1.0f, nullptr, nullptr, 0,
-                             rec);
+                             ip[XRT_H_PER_RAY_WL] != 0, alive, 1.0f, nullptr, nullptr,
+                             threadIdx.x & 31, rec);
 }
 
 }  // namespace

@@ -78,83 +78,305 @@ __device__ __forceinline__ void xrt_mosaic_normal(
     nmz = gx * wn * o2[2] + gy * wn * o1[2] + wn * nz;
 }
 
+// The consecutive layers one lane evaluates in a round of the mosaic stage
+// (xrt_mosaic): a multiple of 4, so that every lane's chunk starts on the
+// same word of a Philox block (three draws a layer) and the lanes of a warp
+// call Philox at the same draws.
+constexpr int kMosaicChunk = 4;
+// The lanes, one chunk each, a searching ray takes in a round in mc mode: a
+// power of two.
+constexpr int kMosaicGroup = 4;
+// The warps of a block the mosaic stage stages weight-mode values for: its
+// callers launch blocks of 256 threads.
+constexpr int kMosaicWarps = 8;
+
+// Bit position of the (t + 1)-th set bit of m (t < popc(m)): five steps of
+// a binary search on the set bits' count.
+__device__ __forceinline__ int xrt_nth_bit(unsigned int m, int t) {
+    int p = 0;
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) {
+        const int c = __popc((m >> p) & ((1u << w) - 1u));
+        if (t >= c) {
+            t -= c;
+            p += w;
+        }
+    }
+    return p;
+}
+
+// What a lane needs of a mosaic ray to evaluate any of its layers: the
+// ray's index (its draws' key), the incoming direction d0, the optic normal
+// n, the crystallite basis o1, o2 (xrt_mosaic_basis) and the Bragg angle's
+// sine and cosine. The first draw of the stage is the same for every ray
+// of the chain.
+struct MosaicRay {
+    long long ray;
+    float d0x, d0y, d0z, nx, ny, nz, o1[3], o2[3], sin_b, cos_b;
+
+    // The same values of lane src's ray (every lane of the warp calls it).
+    __device__ __forceinline__ MosaicRay from(int src) const {
+        const unsigned int all = 0xffffffffu;
+        MosaicRay m;
+        m.ray = __shfl_sync(all, ray, src);
+        m.d0x = __shfl_sync(all, d0x, src);
+        m.d0y = __shfl_sync(all, d0y, src);
+        m.d0z = __shfl_sync(all, d0z, src);
+        m.nx = __shfl_sync(all, nx, src);
+        m.ny = __shfl_sync(all, ny, src);
+        m.nz = __shfl_sync(all, nz, src);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            m.o1[k] = __shfl_sync(all, o1[k], src);
+            m.o2[k] = __shfl_sync(all, o2[k], src);
+        }
+        m.sin_b = __shfl_sync(all, sin_b, src);
+        m.cos_b = __shfl_sync(all, cos_b, src);
+        return m;
+    }
+};
+
+// The crystallite basis of the optic normal n (JAX fused_trace.py:
+// 1027-1036): o1 = normalize(ny, nz - nx, -ny), o2 = normalize(n x o1).
+__device__ __forceinline__ void xrt_mosaic_basis(float nx, float ny, float nz, float* o1,
+                                                 float* o2) {
+    o1[0] = ny;
+    o1[1] = nz - nx;
+    o1[2] = -ny;
+    float inv = inv_sqrt(fmaxf(o1[0] * o1[0] + o1[1] * o1[1] + o1[2] * o1[2], 1e-30f));
+    o1[0] = o1[0] * inv;
+    o1[1] = o1[1] * inv;
+    o1[2] = o1[2] * inv;
+    o2[0] = ny * o1[2] - nz * o1[1];
+    o2[1] = nz * o1[0] - nx * o1[2];
+    o2[2] = nx * o1[1] - ny * o1[0];
+    inv = inv_sqrt(fmaxf(o2[0] * o2[0] + o2[1] * o2[1] + o2[2] * o2[2], 1e-30f));
+    o2[0] = o2[0] * inv;
+    o2[1] = o2[1] * inv;
+    o2[2] = o2[2] * inv;
+}
+
+// The next layer of the mosaic ray m, whose draws come from draw (JAX
+// fused_trace.py:1043-1057): its crystallite normal nm from two normals,
+// d0.nm, and the rocking curve's probability; u gets the layer's uniform,
+// its third draw. The draws are keyed by (ray, index), so any lane may
+// evaluate any ray's layers and get the serial loop's bits.
+__device__ __forceinline__ float xrt_mosaic_layer(const float* o, const int* oi,
+                                                  const float* __restrict__ aux,
+                                                  Draws& draw, const MosaicRay& m,
+                                                  float& nmx, float& nmy, float& nmz,
+                                                  float& dotm, float& u) {
+    xrt_mosaic_normal(draw, o[XRT_O_MSIGMA], m.o1, m.o2, m.nx, m.ny, m.nz, nmx, nmy,
+                      nmz);
+    dotm = m.d0x * nmx + m.d0y * nmy + m.d0z * nmz;
+    const float prob = xrt_rock_prob(o, oi, aux, xrt_bragg_delta(dotm, m.sin_b, m.cos_b));
+    u = draw();
+    return prob;
+}
+
 // The mosaic crystal (K1c-mosaic; JAX fused_trace.py:1014-1098): the
-// cutoff prefilter, the crystallite basis o1 = normalize(ny, nz - nx, -ny),
-// o2 = normalize(n x o1), then oi[XRT_OI_DEPTH] layers of three draws each
-// (two normals, a uniform). mc: the first layer whose crystallite accepts
-// the ray (prob >= u) reflects it, and a ray without one is lost. Weight:
-// every layer tests the incoming direction; the weight takes cum =
-// 1 - prod(1 - p_i) and the direction the reflection off the last layer
-// picked (u cum_l < q_l, q_l = p_l prod_{j<l} (1 - p_j)). The depth is a
-// run-time int, so one build serves every depth; a ray that is dead, or
-// that has reflected in mc mode, skips its remaining layers by moving its
-// draw index past them, so later optics keep their draws.
+// cutoff prefilter, the crystallite basis (xrt_mosaic_basis), then
+// oi[XRT_OI_DEPTH] layers of three draws each (two normals, a uniform). mc:
+// the first layer whose crystallite accepts the ray (prob >= u) reflects
+// it, and a ray without one is lost. Weight: every layer tests the incoming
+// direction; the weight takes cum = 1 - prod(1 - p_i) and the direction the
+// reflection off the last layer picked (u cum_l < q_l, q_l = p_l prod_{j<l}
+// (1 - p_j)). The depth is a run-time int, so one build serves every depth;
+// later optics find the draw index past the layers, first + 3 depth,
+// whatever the stage evaluated.
+//
+// The layers of a warp's rays are spread over all 32 lanes in chunks of
+// kMosaicChunk consecutive layers, so a warp no longer runs until its
+// slowest ray has tried every layer, and each lane draws a chunk's layers
+// in order. It must be called by whole warps of blocks of at most
+// kMosaicWarps warps (every caller steps whole warps of blocks of 256: K1's
+// grid-stride loop, in its builds that mark chunks for K1e too, and K3's),
+// and all lanes must agree on the depth. mc:
+// each round, the first 32 / kMosaicGroup rays still searching hand their
+// next kMosaicGroup chunks to the lanes; a lane stops at its chunk's first
+// acceptance, a ray takes its group's first (a ballot, __ffs) and stops, or
+// moves to its next group. The first layer with prob >= u does not depend
+// on the order the layers are evaluated in, and the reflection is a
+// function of that layer alone, so every bit is the serial loop's. Weight:
+// the (ray, chunk) pairs of the rays past the cutoff, chunk by chunk, 32 a
+// round, each lane the probability, the pick's uniform and the reflected
+// direction of a chunk's layers into the warp's rows of shared memory; the
+// owning lane reads them and runs the recurrence (surv, cum, q, the pick)
+// in layer order as the serial loop did, so the floats, and the images,
+// stay the twin's.
+//
+// kSpread false keeps the serial loop, a ray a lane, for the builds with
+// the Chebyshev stage: there the spread's registers on top of the
+// surrogate's took 136 a thread, one block of 256 a multiprocessor, and a
+// mesh mosaic ran 1.29x (mc) and 1.54x (weight) slower than serially
+// (chip_ab.py, PERF.md).
+template <bool kSpread>
 __device__ __forceinline__ void xrt_mosaic(const float* o, const int* oi,
                                            const float* __restrict__ aux,
                                            Draws& draw, float nxv, float nyv,
                                            float nzv, float sin_b, float cos_b,
-                                           bool weight, float& dx, float& dy,
-                                           float& dz, bool& mask, float& wt) {
+                                           bool weight, int lane, float& dx,
+                                           float& dy, float& dz, bool& mask,
+                                           float& wt) {
+    constexpr int C = kMosaicChunk;
+    const unsigned int all = 0xffffffffu;
+    const unsigned int below = (1u << lane) - 1u;
     const int depth = oi[XRT_OI_DEPTH];
     const int first = draw.next;
     if (mask && o[XRT_O_MCUT] >= 0.0f) {
         const float d0 = xrt_bragg_delta(dx * nxv + dy * nyv + dz * nzv, sin_b, cos_b);
         mask = fabsf(d0) < o[XRT_O_MCUT];
     }
-    if (mask) {
-        float o1[3] = {nyv, nzv - nxv, -nyv};
-        float inv = inv_sqrt(fmaxf(o1[0] * o1[0] + o1[1] * o1[1] + o1[2] * o1[2], 1e-30f));
-        o1[0] = o1[0] * inv;
-        o1[1] = o1[1] * inv;
-        o1[2] = o1[2] * inv;
-        float o2[3] = {nyv * o1[2] - nzv * o1[1], nzv * o1[0] - nxv * o1[2],
-                       nxv * o1[1] - nyv * o1[0]};
-        inv = inv_sqrt(fmaxf(o2[0] * o2[0] + o2[1] * o2[1] + o2[2] * o2[2], 1e-30f));
-        o2[0] = o2[0] * inv;
-        o2[1] = o2[1] * inv;
-        o2[2] = o2[2] * inv;
-        const float sigma_n = o[XRT_O_MSIGMA];
-        const float d0x = dx, d0y = dy, d0z = dz;
-        if (!weight) {
-            bool refl = false;
-            for (int l = 0; l < depth && !refl; ++l) {
-                float nmx, nmy, nmz;
-                xrt_mosaic_normal(draw, sigma_n, o1, o2, nxv, nyv, nzv, nmx, nmy, nmz);
-                const float dotm = d0x * nmx + d0y * nmy + d0z * nmz;
-                const float prob =
-                    xrt_rock_prob(o, oi, aux, xrt_bragg_delta(dotm, sin_b, cos_b));
-                if (prob >= draw()) {
-                    const float kk = 2.0f * dotm;
-                    dx = d0x - kk * nmx;
-                    dy = d0y - kk * nmy;
-                    dz = d0z - kk * nmz;
-                    refl = true;
-                }
-            }
-            mask = refl;
-        } else {
+    MosaicRay own{draw.ray, dx, dy, dz, nxv, nyv, nzv, {}, {}, sin_b, cos_b};
+    if (mask) xrt_mosaic_basis(nxv, nyv, nzv, own.o1, own.o2);
+    // The layers' draws, keyed by the ray whose layers a lane evaluates.
+    Draws dm{draw.uniforms, draw.n_total, draw.ray, draw.k0, draw.k1, first, -1,
+             {0u, 0u, 0u, 0u}};
+    if constexpr (!kSpread) {
+        if (mask) {
             float surv = 1.0f, cum = 0.0f;
-            for (int l = 0; l < depth; ++l) {
-                float nmx, nmy, nmz;
-                xrt_mosaic_normal(draw, sigma_n, o1, o2, nxv, nyv, nzv, nmx, nmy, nmz);
-                const float dotm = d0x * nmx + d0y * nmy + d0z * nmz;
+            bool refl = false;
+            for (int l = 0; l < depth && !(refl && !weight); ++l) {
+                float nmx, nmy, nmz, dotm, u;
                 const float prob =
-                    xrt_rock_prob(o, oi, aux, xrt_bragg_delta(dotm, sin_b, cos_b));
-                const float q = prob * surv;
-                const float cum_new = cum + q;
-                if (draw() * cum_new < q) {
+                    xrt_mosaic_layer(o, oi, aux, draw, own, nmx, nmy, nmz, dotm, u);
+                const float qv = prob * surv;
+                const float cum_new = cum + qv;
+                if (weight ? u * cum_new < qv : prob >= u) {
                     const float kk = 2.0f * dotm;
-                    dx = d0x - kk * nmx;
-                    dy = d0y - kk * nmy;
-                    dz = d0z - kk * nmz;
+                    dx = own.d0x - kk * nmx;
+                    dy = own.d0y - kk * nmy;
+                    dz = own.d0z - kk * nmz;
+                    refl = true;
                 }
                 surv = surv * (1.0f - prob);
                 cum = cum_new;
             }
-            wt = wt * cum;
+            if (weight) {
+                wt = wt * cum;
+            } else {
+                mask = refl;
+            }
         }
+    } else if (!weight) {
+        constexpr int G = kMosaicGroup, T = 32 / G;
+        int base = 0;  // this lane's ray: the first layer of its next group
+        bool refl = false;
+        unsigned int searching = __ballot_sync(all, mask && depth > 0);
+        while (searching) {
+            // Lane j: chunk j % G of the group of the (j / G)-th searching
+            // ray.
+            const int task = lane / G;
+            const bool has = task < __popc(searching);
+            const int src = has ? xrt_nth_bit(searching, task) : lane;
+            const MosaicRay m = own.from(src);
+            const int l0 = __shfl_sync(all, base, src) + (lane % G) * C;
+            bool acc = false;
+            float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+            if (has) {
+                dm.ray = m.ray;
+                dm.next = first + 3 * l0;
+                dm.group = -1;
+                const int l1 = min(l0 + C, depth);
+                for (int l = l0; l < l1 && !acc; ++l) {
+                    float nmx, nmy, nmz, dotm, u;
+                    const float prob =
+                        xrt_mosaic_layer(o, oi, aux, dm, m, nmx, nmy, nmz, dotm, u);
+                    if (prob >= u) {
+                        const float kk = 2.0f * dotm;
+                        cx = m.d0x - kk * nmx;
+                        cy = m.d0y - kk * nmy;
+                        cz = m.d0z - kk * nmz;
+                        acc = true;
+                    }
+                }
+            }
+            const unsigned int bits = __ballot_sync(all, acc);
+            // This lane's ray, if it had lanes this round: its group's first
+            // acceptance, or its next group.
+            const int rank = __popc(searching & below);
+            const bool mine = ((searching >> lane) & 1u) && rank < T;
+            const unsigned int group =
+                mine ? (bits >> (rank * G)) & (0xffffffffu >> (32 - G)) : 0u;
+            const int from = group ? rank * G + __ffs(group) - 1 : lane;
+            const float rx = __shfl_sync(all, cx, from);
+            const float ry = __shfl_sync(all, cy, from);
+            const float rz = __shfl_sync(all, cz, from);
+            if (group) {
+                dx = rx;
+                dy = ry;
+                dz = rz;
+                refl = true;
+            } else if (mine) {
+                base += G * C;
+            }
+            searching = __ballot_sync(all, ((searching >> lane) & 1u) && !refl && base < depth);
+        }
+        mask = refl;
+    } else {
+        // The warp's rows, by lane: a chunk's probabilities, pick uniforms
+        // and reflected directions.
+        __shared__ float s_rows[kMosaicWarps][5][C][32];
+        float(*rows)[C][32] = s_rows[threadIdx.x >> 5];
+        const unsigned int entering = __ballot_sync(all, mask);
+        const int n_in = __popc(entering);
+        const int rank = __popc(entering & below);
+        const int total = n_in * ((depth + C - 1) / C);
+        float surv = 1.0f, cum = 0.0f;
+        int next = 0;  // this lane's ray: its next chunk
+        for (int s0 = 0; s0 < total; s0 += 32) {
+            // Lane j: pair s0 + j, chunk (s0 + j) / n_in of the
+            // ((s0 + j) % n_in)-th ray past the cutoff.
+            const int s = s0 + lane;
+            const bool has = s < total;
+            const int q = has ? s / n_in : 0;
+            const int src = has ? xrt_nth_bit(entering, s - q * n_in) : lane;
+            const MosaicRay m = own.from(src);
+            if (has) {
+                dm.ray = m.ray;
+                dm.next = first + 3 * q * C;
+                dm.group = -1;
+                const int l1 = min(C, depth - q * C);
+                for (int i = 0; i < l1; ++i) {
+                    float nmx, nmy, nmz, dotm;
+                    rows[0][i][lane] = xrt_mosaic_layer(o, oi, aux, dm, m, nmx, nmy, nmz,
+                                                        dotm, rows[1][i][lane]);
+                    const float kk = 2.0f * dotm;
+                    rows[2][i][lane] = m.d0x - kk * nmx;
+                    rows[3][i][lane] = m.d0y - kk * nmy;
+                    rows[4][i][lane] = m.d0z - kk * nmz;
+                }
+            }
+            __syncwarp();
+            // The owners take this round's chunks of their rays in layer
+            // order, at most ceil(pairs / n_in) each; the last layer picked
+            // gives the direction.
+            if (mask) {
+                const int end = min(s0 + 32, total);
+                for (int so = next * n_in + rank; so < end; so += n_in, ++next) {
+                    const int col = so - s0, l1 = min(C, depth - next * C);
+                    for (int i = 0; i < l1; ++i) {
+                        const float p = rows[0][i][col];
+                        const float qv = p * surv;
+                        const float cum_new = cum + qv;
+                        if (rows[1][i][col] * cum_new < qv) {
+                            dx = rows[2][i][col];
+                            dy = rows[3][i][col];
+                            dz = rows[4][i][col];
+                        }
+                        surv = surv * (1.0f - p);
+                        cum = cum_new;
+                    }
+                }
+            }
+            __syncwarp();
+        }
+        if (mask) wt = wt * cum;
     }
     draw.next = first + 3 * depth;
+    // The spread does not keep the chain's Philox words live across its
+    // rounds: its next draw computes them again.
+    if constexpr (kSpread) draw.group = -1;
 }
 
 // The bilinear splat of a hit at fractional pixel coordinates (fx, fy) on
@@ -288,8 +510,8 @@ __device__ __forceinline__ bool xrt_trace_chain(
                 cos_b = sqrtf(fmaxf(1.0f - sin_b * sin_b, 0.0f));
             }
             if (mosaic) {
-                xrt_mosaic(o, oi, aux, draw, nxv, nyv, nzv, sin_b, cos_b, weight,
-                           dx, dy, dz, mask, wt);
+                xrt_mosaic<!kCheb>(o, oi, aux, draw, nxv, nyv, nzv, sin_b, cos_b, weight,
+                                   lane, dx, dy, dz, mask, wt);
             } else {
                 const float dot = dx * nxv + dy * nyv + dz * nzv;
                 const float prob =

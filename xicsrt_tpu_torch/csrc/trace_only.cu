@@ -28,6 +28,32 @@
 
 namespace {
 
+// One ray as K3 reads it: 29 bytes, 33 with its weight.
+struct RayIn {
+    float px, py, pz, dx, dy, dz, wl, wt;
+    bool alive;
+};
+
+// Ray r (clamped to n - 1; a lane past the end carries a dead ray).
+template <int kStages>
+__device__ __forceinline__ RayIn xrt_load_ray(
+    long long r, long long n, const float* __restrict__ origin,
+    const float* __restrict__ direction, const float* __restrict__ wavelength,
+    const unsigned char* __restrict__ mask, const float* __restrict__ weight) {
+    const long long ray = r < n ? r : n - 1;
+    RayIn in;
+    in.px = origin[3 * ray];
+    in.py = origin[3 * ray + 1];
+    in.pz = origin[3 * ray + 2];
+    in.dx = direction[3 * ray];
+    in.dy = direction[3 * ray + 1];
+    in.dz = direction[3 * ray + 2];
+    in.wl = wavelength[ray];
+    in.alive = r < n && mask[ray] != 0;
+    in.wt = kStages >= 1 && weight != nullptr ? weight[ray] : 1.0f;
+    return in;
+}
+
 template <bool kCheb, int kStages>
 __global__ void trace_only_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
@@ -61,19 +87,13 @@ __global__ void trace_only_kernel(
     for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
          r0 < n; r0 += stride) {
         const long long r = r0 + lane;
-        const bool in_range = r < n;
-        const long long ray = in_range ? r : n - 1;
-        Draws draw{uniforms, n, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
-        const float px = origin[3 * ray], py = origin[3 * ray + 1],
-                    pz = origin[3 * ray + 2];
-        const float dx = direction[3 * ray], dy = direction[3 * ray + 1],
-                    dz = direction[3 * ray + 2];
-        const bool alive = in_range && mask[ray] != 0;
-        const float wt = kStages >= 1 && weight != nullptr ? weight[ray] : 1.0f;
-        xrt_count_warp(s_counts, 0, alive, lane);
-        xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, px, py, pz, dx, dy, dz,
-                                     wavelength[ray], true, alive, wt, s_counts,
-                                     img, lane);
+        const RayIn in = xrt_load_ray<kStages>(r, n, origin, direction, wavelength, mask,
+                                               weight);
+        Draws draw{uniforms, n, r < n ? r : n - 1, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
+        xrt_count_warp(s_counts, 0, in.alive, lane);
+        xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, in.px, in.py, in.pz, in.dx,
+                                        in.dy, in.dz, in.wl, true, in.alive, in.wt,
+                                        s_counts, img, lane);
     }
 
     __syncthreads();

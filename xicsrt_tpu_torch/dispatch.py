@@ -116,9 +116,21 @@ def registry_names() -> list:
     return sorted(_REGISTRY.keys())
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or CUDA when it is None; never a silent CPU fall-back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU."
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
 def instantiate(name: str, element_config: dict, general: dict | None = None,
-                device="cpu"):
-    """Build one element object from its config section entry."""
+                device=None):
+    """Build one element object from its config section entry, on
+    ``device`` (by default CUDA, raising without it)."""
     element_config = dict(element_config or {})
     class_name = element_config.pop("class_name", None)
     if class_name is None:
@@ -127,8 +139,9 @@ def instantiate(name: str, element_config: dict, general: dict | None = None,
     return cls(element_config, name=name, general=general, device=device)
 
 
-def build_section(config: dict, section: str, device="cpu") -> list:
-    """Instantiate every element of a config section, in config order."""
+def build_section(config: dict, section: str, device=None) -> list:
+    """Instantiate every element of a config section, in config order, on
+    ``device`` (by default CUDA, raising without it)."""
     general = config.get("general", {})
     out = []
     for name, element_config in config.get(section, {}).items():
@@ -144,10 +157,10 @@ class Element:
     """Base class: config lifecycle + dtype and device plumbing."""
 
     def __init__(self, config: dict | None = None, name: str | None = None,
-                 general: dict | None = None, device="cpu"):
+                 general: dict | None = None, device=None):
         self.name = name or type(self).__name__
         self.general = dict(general or {})
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.log = logging.getLogger(f"xicsrt_tpu_torch.{self.name}")
         self.dtype = _DTYPES[str(self.general.get("dtype", "float32")).lower()]
         self.interact_mode = str(self.general.get("interact_mode", "mc")).lower()

@@ -30,23 +30,13 @@ import torch.utils.checkpoint
 
 from xicsrt_tpu_torch import dispatch
 from xicsrt_tpu_torch.config import get_config
+from xicsrt_tpu_torch.dispatch import default_device
 from xicsrt_tpu_torch.draws import Draws
 from xicsrt_tpu_torch.ops.binning import bin_images_fused
 from xicsrt_tpu_torch.rays import concatenate
 from xicsrt_tpu_torch.utils.profiler import profiler
 
 log = logging.getLogger("xicsrt_tpu_torch")
-
-
-def default_device(device=None) -> torch.device:
-    """``device``, or CUDA when it is None; never a silent CPU fall-back."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run on the CPU."
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 class Pipeline:

@@ -25,7 +25,8 @@ import copy
 import numpy as np
 import torch
 
-from xicsrt_tpu_torch.engine import Pipeline, _run_generator, default_device
+from xicsrt_tpu_torch.dispatch import default_device
+from xicsrt_tpu_torch.engine import Pipeline, _run_generator
 from xicsrt_tpu_torch.geometry import Frame
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from xicsrt_tpu_torch import dispatch
 from xicsrt_tpu_torch.config import get_config
-from xicsrt_tpu_torch.engine import default_device
+from xicsrt_tpu_torch.dispatch import default_device
 
 
 def get_element(config: dict, name: str, device=None):

@@ -34,6 +34,7 @@ The JSON goes to ``--out``, by default ``build/xicsrt_tpu_torch/roofline.json``.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import functools
 import json
@@ -212,6 +213,14 @@ def k1_pack(pipe):
                           pipe.device, **ft._chain_modes(pipe.general))
 
 
+def k3_pack(pipe):
+    """K3's packed buffers of a pipeline (rays read from memory), on its
+    device and in its run modes."""
+    return ft.pack_params({"name": None, "kind": ft.SRC_RAYS, "n_draws": 0},
+                          [ft._optic_spec(o) for o in pipe.optics], pipe.params,
+                          pipe.device, **ft._chain_modes(pipe.general))
+
+
 def mosaic_work(fparams, n, weight) -> dict:
     """What a mosaic chain's run of ``n`` rays (Philox, seed (1, 2)) needs
     of its mosaic stage, counted by K1 itself on the card: the rays its
@@ -239,6 +248,7 @@ def mosaic_work(fparams, n, weight) -> dict:
         return int(ft.fused_run_cuda(fp_, n, n, seed=(1, 2))[0][1 + e])
 
     kept, entering = count(depth, True, cut=False), count(depth, True)
+    accepted = None
     if weight:
         layers, reflected = entering * depth, entering
     else:
@@ -246,7 +256,7 @@ def mosaic_work(fparams, n, weight) -> dict:
         layers, reflected = sum(entering - a for a in accepted[:-1]), accepted[-1]
     cut = float(fparams.fp[ft.SRC_F + e * ft.OPT_F + ft.O_MOSAIC_CUT]) >= 0.0
     return {"kept": kept, "entering": entering, "layers": layers, "reflected": reflected,
-            "depth": depth, "cut": cut}
+            "depth": depth, "cut": cut, "accepted": accepted}
 
 
 def mosaic_k1_ops(fparams, n, weight) -> tuple:
@@ -263,6 +273,60 @@ def mosaic_k1_ops(fparams, n, weight) -> tuple:
     ops += w["layers"] * m["layer_weight" if weight else "layer_mc"]
     ops += w["reflected"] * m["reflect"]
     return ops, w
+
+
+def mosaic_needed(work, n, seed=0) -> np.ndarray:
+    """Layers each of ``n`` rays must evaluate in a mosaic run whose work
+    ``mosaic_work`` counted, drawn in random order from that run's
+    distribution: 0 for a ray that does not enter the layers; in mc mode l
+    for a ray first accepted at layer l - 1 (A(l) - A(l - 1) of them) and
+    the depth for one no layer accepts; in weight mode the depth."""
+    depth, entering = work["depth"], work["entering"]
+    if work["accepted"] is None:
+        sizes = [n - entering] + [0] * (depth - 1) + [entering]
+    else:
+        a = work["accepted"]
+        sizes = [n - entering] + [a[l] - a[l - 1] for l in range(1, depth + 1)]
+        sizes[depth] += entering - a[depth]
+    needed = np.repeat(np.arange(depth + 1), sizes)
+    return np.random.default_rng(seed).permutation(needed)
+
+
+def mosaic_schedule(needed, depth: int, group: int, weight: bool, chunk: int = 4) -> dict:
+    """Lane-layer slots (32 a warp and layer step) the mosaic stage takes
+    for rays whose needed layers are ``needed`` ((n,), 0 for a ray that
+    does not enter; n a multiple of 32, warps of consecutive rays):
+
+    - ``serial``: each lane runs its own ray's layers, so a warp runs as
+      many layer steps as its slowest ray needs;
+    - ``cooperative`` (``xrt_mosaic``): each lane evaluates ``chunk``
+      consecutive layers a round. In mc mode each round the first 32 /
+      ``group`` rays still searching take ``group`` chunks each, and a ray
+      stops after the round whose chunks hold its last needed layer; in
+      weight mode a warp's E entering rays take ceil(E ceil(depth / chunk) /
+      32) rounds. A round counts ``chunk`` steps, the most a lane of it
+      runs.
+
+    Returns those and ``layers``, the layers the rays need."""
+    w = np.asarray(needed, dtype=np.int64).reshape(-1, 32)
+    out = {"layers": int(w.sum()), "serial": 32 * int(w.max(axis=1).sum())}
+    if weight:
+        entering = (w > 0).sum(axis=1)
+        rounds = -(-entering * -(-depth // chunk) // 32)
+        out["cooperative"] = 32 * chunk * int(rounds.sum())
+        return out
+    tasks = 32 // group
+    base = np.zeros_like(w)
+    searching = w > 0
+    rounds = 0
+    while searching.any():
+        rounds += int(searching.any(axis=1).sum())
+        taken = searching & (np.cumsum(searching, axis=1) <= tasks)
+        done = taken & (w <= base + group * chunk)
+        base = base + group * chunk * taken
+        searching = searching & ~done
+    out["cooperative"] = 32 * chunk * rounds
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -459,11 +523,65 @@ def k5_ops_per_ray(config, backward: bool, chunk: int = CHUNK):
     return {k: v / chunk for k, v in counts.items()}, pipe
 
 
-def serial_ms(counts: dict, rates: dict, n_rays: int) -> float:
+def k3_ops_per_ray(config, chunk: int = CHUNK):
+    """K3's census per ray for a config: :func:`count_ops` of its twin
+    ``fused_trace_run_plain`` on the first ``chunk`` rays of one iteration of
+    the config's eager source, generated on the CPU from seed 0 (their
+    weights in weight mode). It is the chain alone, without a source: K3
+    reads its rays, 29 bytes a ray (origin and direction, wavelength, a
+    mask byte), 33 in weight mode (the weight). The draws are explicit
+    uniforms from a seeded numpy generator. Returns (counts per ray, bytes a
+    ray, the pipeline)."""
+    from xicsrt_tpu_torch.draws import Draws
+    from xicsrt_tpu_torch.engine import Pipeline
+
+    pipe = Pipeline(config, device="cpu")
+    fparams = k3_pack(pipe)
+    rays = pipe.source.generate(pipe.params["sources"][pipe.source.name],
+                                Draws(torch.Generator().manual_seed(0)),
+                                pipe.params["filters"])
+    m = min(chunk, rays.n)
+    rng = np.random.default_rng(0)
+    uniforms = torch.from_numpy(rng.random((fparams.n_draws, m), dtype=np.float32))
+    weight = rays.weight[:m].float().contiguous() if fparams.weight else None
+    counts = count_ops(ft.fused_trace_run_plain, fparams, rays.origin[:m].float(),
+                       rays.direction[:m].float(), rays.wavelength[:m].float(),
+                       rays.mask[:m], uniforms, weight=weight)
+    return {k: v / m for k, v in counts.items()}, 29 + 4 * int(fparams.weight), pipe
+
+
+def mosaic_ops_as_run(config, work, n: int, chunk: int = CHUNK) -> dict:
+    """K1's census per ray of a mosaic chain as a run of ``n`` rays needs
+    its layers (``work``: :func:`mosaic_work` of that run): the twin's
+    census (:func:`chain_ops_per_ray`: every layer of every ray) less the
+    layers the run does not evaluate, depth - layers / n a ray, each at one
+    layer's census, the census at the chain's depth less that at one layer
+    fewer."""
+    full, _ = chain_ops_per_ray(config, chunk)
+    fewer_cfg = copy.deepcopy(config)
+    crystal = next(o for o in fewer_cfg["optics"].values() if "mosaic_depth" in o)
+    if int(crystal["mosaic_depth"]) != work["depth"] or work["depth"] < 2:
+        raise ValueError("mosaic_ops_as_run: the work is of another depth, or depth < 2")
+    crystal["mosaic_depth"] = work["depth"] - 1
+    fewer, _ = chain_ops_per_ray(fewer_cfg, chunk)
+    unused = work["depth"] - work["layers"] / n
+    return {c: full[c] - unused * (full[c] - fewer[c]) for c in full}
+
+
+def serial_ms(counts: dict, rates: dict, n_rays: int, n_bytes: float = 0.0) -> float:
     """The class-rate serial bound of ``n_rays`` rays in ms: each class's
     count per ray over the card's rate for it (``rates``, as
-    :func:`microbench_rates` gives them), summed."""
-    return n_rays * sum(counts.get(cls, 0.0) / rates[f"{cls}_per_s"] for cls in CLASSES) * 1e3
+    :func:`microbench_rates` gives them), summed, and ``n_bytes`` read or
+    written over the memory rate, added."""
+    t = n_rays * sum(counts.get(cls, 0.0) / rates[f"{cls}_per_s"] for cls in CLASSES)
+    return (t + n_bytes / HBM_BYTES_PER_S) * 1e3
+
+
+def overlap_ms(counts: dict, rates: dict, n_rays: int, n_bytes: float = 0.0) -> float:
+    """The class-rate overlap bound in ms: the largest of the classes'
+    times and of ``n_bytes`` over the memory rate."""
+    times = [n_rays * counts.get(cls, 0.0) / rates[f"{cls}_per_s"] for cls in CLASSES]
+    return max(*times, n_bytes / HBM_BYTES_PER_S) * 1e3
 
 
 # ---------------------------------------------------------------------------
