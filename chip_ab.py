@@ -23,7 +23,15 @@ templates:
 - ``early_exit``, ``bounds_none``, ``bounds_torus``, ``blocks_256``,
   ``corners_all``, ``words_indexed``, ``separate_trig``, ``image_l2``:
   the checkout with one lead of the redesign of K5f and of the draws
-  undone, or put back where it was dropped (``LEADS_UNDONE``).
+  undone, or put back where it was dropped (``LEADS_UNDONE``);
+- ``src_shared``, ``asym_noinline``, ``philox_lazy``, ``philox_generic``
+  (``K1B_LEADS``) and ``search_serial``, ``plasma_blocks_128``,
+  ``plasma_bounds_5``, ``plasma_bounds_6``, ``torus_pairs``
+  (``PLASMA_LEADS``, ``PAIR_LEAD``): the checkout with one lead of K1b's
+  or the plasma's redesign undone, or tried where it was dropped;
+- ``source_only``, ``skip_lookup`` (``SPLIT_LAYOUTS``): K1 with every ray
+  killed after its source, or every plasma ray given bundle 0, to split
+  K1's time into sampler, lookup and chain (times only).
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
 K1e and K3 alone, for the leads of the trace kernels.
@@ -41,10 +49,12 @@ units of 256). Then the ms per call (CUDA events, the least and the median
 of 5 means of 20 calls) of K1a on the flagship at 2^22 rays, of
 K1c-file, K1c-mirror, K1c-cheb (example 06's mesh crystal on the mesh
 spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic
-(``mosaic15`` and the mesh mosaic, mc and weight) on ``chip_smoke.py``'s
-chains where the tree has them; of K1e's 'found'
-reservoir (the marked K1 and the record launch) on the flagship and
-``mosaic15``; of K3 on phase 25's 8e6-bundle plasma iteration (1.97e7
+(``mosaic15`` and the mesh mosaic, mc and weight), K1b (phase 24's source
+and the ``isotropic_xy_asym`` variant) and K1c-cylinder on
+``chip_smoke.py``'s chains where the tree has them; of K1 plasma+torus on
+phase 16's slots at 1000 and 1e5 bundles, and K4 on the same tables; of
+K1e's 'found' reservoir (the marked K1 and the record launch) on the
+flagship, ``mosaic15`` and ``plasma_torus``; of K3 on phase 25's 8e6-bundle plasma iteration (1.97e7
 rays), in weight mode on the flagship's eager rays and behind the mosaic
 on ``mosaic15``'s (mc and weight); of K5f and K5b on the
 flagship, phase 22's chains, ``mosaic_sphere``, ``file_rocking``, the
@@ -52,8 +62,9 @@ generic source ``focused_gaussian_voigt`` and example 08's chain (its
 80 KB image), at the chain's rays (2^22 for example 08's), and of K5f
 with the same rays' draws read from memory and at 2^20 and 2^24 rays
 (the fixed cost against the cost a ray); and of R2 at the roofline tool's
-size. Each K1 and K3 call timed is run once more beside its twin, and
-whether their counts are equal is printed. A tree's process ends with one
+size. Each K1, K3 and K4 call timed is run once more beside its twin, and
+whether their counts (K4: rows) are equal is printed; ``source_only``
+checks the source's count alone and ``skip_lookup`` no plasma's. A tree's process ends with one
 JSON line of its times and those checks.
 """
 
@@ -255,8 +266,191 @@ LEADS_UNDONE = {
     "image_l2": {_FWD: {
         "kFwdSmemImageMax = XRT_SMEM_IMAGE_MAX_FLOATS;": "kFwdSmemImageMax = 16384;"}},
 }
+# The split of K1's time (times only, not leads): every ray killed right
+# after its source, the chain not traced (the source's count is checked);
+# every live plasma ray given bundle 0, the lookup skipped (wrong counts,
+# not checked).
+_K1_CHAIN = """        const bool found = xrt_trace_chain<kCheb, kStages>(
+            fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
+            s_counts, img, lane);
+"""
+_LOOKUP = "const int b = xrt_warp_bundle(cum_j, n_bundles, local, alive, lane);"
+SPLIT_LAYOUTS = {
+    "source_only": {_RUN: {_K1_CHAIN: """        const bool found =
+            alive && px + py + pz + dx + dy + dz + wl == 1.0e30f;
+        xrt_count_warp(s_counts, 1, found, lane);
+"""}},
+    "skip_lookup": {_RUN: {_LOOKUP: "const int b = 0;"}},
+}
+# The leads of K1b's and the plasma's redesign, each undone alone on the
+# checkout (which holds those that paid), or tried where it was dropped.
+# K1b: (1a) one build per source kind: undone, a point build holds the
+# plasma's sampler beside its own and the generic build both, chosen at
+# run time as before; (1b) isotropic_xy_asym's Newton out of line, which
+# was dropped (the call's saved registers spill): put back; (1c) both
+# Philox calls of a plasma ray's draws issued before the bundle search and
+# the sampler's math: undone, each at its first draw; and in the generic
+# sampler, where they were dropped: put back. The plasma:
+# (2a) the warp's 32-ary bundle search: undone, each lane's binary search;
+# (2b) the plasma build in blocks of 128 threads, or held by launch bounds
+# to 5 or 6 blocks of 256 (40 or 48 warps a multiprocessor).
+_COMMON_SRC = os.path.join("xicsrt_tpu_torch", "csrc", "trace_common.cuh")
+_K1_THREADS = "    const int threads = 256;\n    const int use_smem"
+_PLASMA_BOUNDS = ("__global__ void __launch_bounds__(256, kSrc == XRT_K1_PLASMA ? {} : 1) "
+                  "fused_trace_kernel(")
+# (2d) Two plasma rays a thread in the plasma build without further
+# stages: the warp's 64 rays r0 + lane and r0 + 32 + lane, each through the
+# source and the chain, and a torus first in the chain taking both rays'
+# roots at once, their four Newton steps interleaved (xrt_torus_hit2, the
+# same float32 operations as xrt_torus_root in the same order).
+_CHAIN_SIG = "    int lane, Rec rec = Rec()) {"
+_CHAIN_TORUS = "            t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);"
+_RUN_NS = "namespace {\n\n// kSrc: the source's build"
+_RUN_LOOP = """    // Whole warps step together (blockDim is a multiple of 32), so every
+    // lane reaches every __ballot_sync; lanes past the end carry dead rays.
+"""
+_TORUS2 = """namespace {
+
+__device__ __forceinline__ void xrt_torus_hit2(const float* o, const float (&p)[2][6],
+                                               const bool (&alive)[2], float (&t)[2],
+                                               int (&hit)[2]) {
+    float olx[2], oly[2], olz[2], dlx[2], dly[2], dlz[2], s[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const float rx = p[i][0] - o[12], ry = p[i][1] - o[13], rz = p[i][2] - o[14];
+        olx[i] = rx * o[3] + ry * o[4] + rz * o[5];
+        oly[i] = rx * o[6] + ry * o[7] + rz * o[8];
+        olz[i] = rx * o[9] + ry * o[10] + rz * o[11];
+        dlx[i] = p[i][3] * o[3] + p[i][4] * o[4] + p[i][5] * o[5];
+        dly[i] = p[i][3] * o[6] + p[i][4] * o[7] + p[i][5] * o[8];
+        dlz[i] = p[i][3] * o[9] + p[i][4] * o[10] + p[i][5] * o[11];
+        const float z0 = (p[i][0] - o[0]) * o[9] + (p[i][1] - o[1]) * o[10] +
+                         (p[i][2] - o[2]) * o[11];
+        t[i] = -z0 / (fabsf(dlz[i]) > 1e-9f ? dlz[i] : 1e-9f);
+        s[i] = 0.0f;
+    }
+    const float r_maj = o[15], rmin2 = o[XRT_O_RMIN2];
+    for (int it = 0; it < 4; ++it) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float X = olx[i] + t[i] * dlx[i], Y = oly[i] + t[i] * dly[i],
+                        Z = olz[i] + t[i] * dlz[i];
+            const float s2 = fmaxf(X * X + Z * Z, 1e-30f);
+            const float inv_rho = inv_sqrt(s2);
+            const float rr = s2 * inv_rho - r_maj;
+            const float G = rr * rr + Y * Y - rmin2;
+            const float rhop = (X * dlx[i] + Z * dlz[i]) * inv_rho;
+            const float Gp = 2.0f * rr * rhop + 2.0f * Y * dly[i];
+            const float rhopp = ((dlx[i] * dlx[i] + dlz[i] * dlz[i]) - rhop * rhop) * inv_rho;
+            const float Gpp = 2.0f * (rhop * rhop + rr * rhopp) + 2.0f * dly[i] * dly[i];
+            const float disc = Gp * Gp - 2.0f * Gpp * G;
+            const float sgn = Gp >= 0.0f ? 1.0f : -1.0f;
+            float dq = Gp + sgn * sqrtf(fmaxf(disc, 0.0f));
+            dq = fabsf(dq) > 1e-12f ? dq : sgn * 1e-12f;
+            const float gp_safe = fabsf(Gp) > 1e-12f ? Gp : sgn * 1e-12f;
+            s[i] = G / (disc >= 0.0f ? 0.5f * dq : gp_safe);
+            t[i] = t[i] - s[i];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const bool h = alive[i] && fabsf(s[i]) < o[XRT_O_TOL] && t[i] > 1e-6f;
+        hit[i] = h ? 1 : 0;
+        t[i] = h ? t[i] : 0.0f;
+    }
+}
+
+// kSrc: the source's build"""
+_PAIR_LOOP = _RUN_LOOP + """    if constexpr (kSrc == XRT_K1_PLASMA && !kCheb && kStages == 0 && !kMark) {
+        const bool torus0 = n_opt > 0 && ip[XRT_HDR_I] == 2;
+        for (long long r0 = 2 * ((long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31));
+             r0 < n_total; r0 += 2 * stride) {
+            Draws d[2] = {
+                {uniforms, n_total, min(r0 + lane, n_total - 1), seed0, seed1, 0, -1,
+                 {0u, 0u, 0u, 0u}},
+                {uniforms, n_total, min(r0 + 32 + lane, n_total - 1), seed0, seed1, 0, -1,
+                 {0u, 0u, 0u, 0u}}};
+            float p[2][6], wl[2];
+            bool alive[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                alive[i] = xrt_k1_source<kSrc>(fp, ip, voxel, cauchy, d[i], r0 + 32 * i + lane,
+                                               count, cum, table, n_bundles, n_per_iter, lane,
+                                               p[i][0], p[i][1], p[i][2], p[i][3], p[i][4],
+                                               p[i][5], wl[i]);
+                xrt_count_warp(s_counts, 0, alive[i], lane);
+            }
+            float t[2] = {0.0f, 0.0f};
+            int hit[2] = {-1, -1};
+            if (torus0) xrt_torus_hit2(fp + XRT_SRC_F, p, alive, t, hit);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                xrt_trace_chain<kCheb, kStages>(fp, ip, aux, d[i], p[i][0], p[i][1], p[i][2],
+                                                p[i][3], p[i][4], p[i][5], wl[i], per_ray_wl,
+                                                alive[i], 1.0f, s_counts, img, lane,
+                                                XrtNoRecord(), t[i], hit[i]);
+            }
+        }
+    } else
+"""
+PAIR_LEAD = {"torus_pairs": {
+    _CHAIN: {_CHAIN_SIG: "    int lane, Rec rec = Rec(), float pre_t = 0.0f, int pre_hit = -1) {",
+             _CHAIN_TORUS: "            if (e == 0 && pre_hit >= 0) {\n"
+                           "                t = pre_t;\n"
+                           "                m_int = pre_hit != 0;\n"
+                           "            } else {\n    " + _CHAIN_TORUS + "\n            }"},
+    _RUN: {_RUN_NS: _TORUS2, _RUN_LOOP: _PAIR_LOOP}}}
+_ASYM_NEWTON = """        const float target = c[4] + u * c[5];
+        float sx = c[0] + u * c[1];
+        for (int it = 0; it < 12; ++it) {
+            const float a1 = sx * c[3], a0 = sx * c[2];
+            const float gm = xrt_asin_poly(a1) - xrt_asin_poly(a0);
+            const float dg = c[3] * inv_sqrt(fmaxf(1.0f - a1 * a1, 1e-12f)) -
+                             c[2] * inv_sqrt(fmaxf(1.0f - a0 * a0, 1e-12f));
+            sx = fminf(fmaxf(sx - (gm - target) / fmaxf(dg, 1e-12f), c[0]), c[10]);
+        }
+        xrt_xy_tail(sx, v, c + 6, lx, ly, lz);
+"""
+_AIM_DOC = "// (dx, dy, dz): the local direction (lx, ly, lz) in the per-ray basis"
+_ASYM_FN = ("static __device__ __noinline__ float xrt_xy_asym_sx(const float* c, float u) {\n"
+            + _ASYM_NEWTON.replace("        xrt_xy_tail(sx, v, c + 6, lx, ly, lz);\n",
+                                   "        return sx;\n").replace("\n        ", "\n    ")
+            [4:] + "}\n\n")
+_SAMPLE_DECL = """template <bool kFull>
+__device__ __forceinline__ void xrt_sample_source(const float* fp, const int* ip,
+                                                  Draws& draw,"""
+_SAMPLE_DECL_D = _SAMPLE_DECL.replace("<bool kFull>", "<bool kFull, class D>").replace(
+    "Draws& draw,", "D& draw,")
+K1B_LEADS = {
+    "src_shared": {_RUN: {
+        "const bool plasma = kSrc == XRT_K1_ANY ? ip[5] == XRT_SRC_PLASMA : kSrc == "
+        "XRT_K1_PLASMA;": "const bool plasma = ip[5] == XRT_SRC_PLASMA;",
+        "    if (kSrc == XRT_K1_POINT) {": "    if (kSrc == XRT_K1_POINT && !plasma) {",
+        "const int src = cum != nullptr ? XRT_K1_PLASMA\n                                   : "
+        "full_source ? XRT_K1_GENERIC : XRT_K1_POINT;":
+            "const int src = full_source ? XRT_K1_GENERIC : XRT_K1_POINT;"}},
+    "asym_noinline": {_COMMON_SRC: {
+        _ASYM_NEWTON: "        xrt_xy_tail(xrt_xy_asym_sx(c, u), v, c + 6, lx, ly, lz);\n",
+        _AIM_DOC: _ASYM_FN + _AIM_DOC}},
+    "philox_lazy": {_COMMON_SRC: {
+        "two(two_groups && draws.uniforms == nullptr)": "two(false)"}},
+    "philox_generic": {_COMMON_SRC: {_SAMPLE_DECL: _SAMPLE_DECL_D}, _RUN: {
+        "    xrt_sample_source<true>(fp, ip, draw, px, py, pz, dx, dy, dz, wl, keep);\n":
+            "    DrawsAhead ahead(draw, ip[3] > 4);\n"
+            "    xrt_sample_source<true>(fp, ip, ahead, px, py, pz, dx, dy, dz, wl, keep);\n"
+            "    ahead.finish();\n"}},
+}
+PLASMA_LEADS = {
+    "search_serial": {_RUN: {
+        _LOOKUP: "const int b = alive ? min(xrt_upper_bound(cum_j, n_bundles, local), "
+                 "n_bundles - 1) : 0;"}},
+    "plasma_blocks_128": {_RUN: {
+        _K1_THREADS: _K1_THREADS.replace("256", "cum != nullptr ? 128 : 256")}},
+    "plasma_bounds_5": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(5)}},
+    "plasma_bounds_6": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(6)}},
+}
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
-           **K3_LEADS}
+           **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -329,6 +523,7 @@ def child(tree: str, mode: str) -> None:
     import chip_smoke as cs
     from xicsrt_tpu_torch import engine
     from xicsrt_tpu_torch.gradients import make_fused_differentiable
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
     from xicsrt_tpu_torch.ops import fused_grad as fg
     from xicsrt_tpu_torch.ops import fused_trace as ft
 
@@ -375,15 +570,40 @@ def child(tree: str, mode: str) -> None:
     equal = {}  # each timed K1 and K3 call's counts against its twin's
 
     def counts_equal(name, kernel, plain):
-        equal[name] = bool(torch.equal(kernel()[0], plain()[0]))
+        if label == "skip_lookup" and "plasma" in name:
+            return  # times only: its plasma rays all take bundle 0
+        a, b = kernel()[0], plain()[0]
+        if label == "source_only" and name.startswith("K1"):
+            a, b = a[:1], b[:1]  # the chain is not traced: the source's count
+        equal[name] = bool(torch.equal(a, b))
         if not equal[name]:
             print(f"{label} {name}: the counts differ from the twin's", flush=True)
 
+    if hasattr(cs, "source_matrix_config"):
+        chains.update({
+            "K1b": cs.source_matrix_config(n, 1, "fused"),
+            "K1b xy_asym": cs.source_variant_config("isotropic_xy_asym", n, 1,
+                                                    engine="fused")})
+    chains["K1c-cylinder"] = cs.cylinder_config(n, 1, "fused")
     for name, cfg in chains.items():
         fparams = cs.k1_pack(engine.Pipeline(cfg, device="cuda"))
         times[name] = ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)))
         counts_equal(name, lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)),
                      lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)))
+    # K1 on phase 16's plasma_torus slots at 1000 and 1e5 bundles, and K4
+    # on the same tables.
+    for name, bundle_count in (("K1 plasma", 1000), ("K1 plasma 1e5", 100000)):
+        _, fparams, bundles, m = cs.plasma_k1_setup(ft, engine, n, 1, bundle_count)
+        times[name] = ms(lambda: ft.fused_run_cuda(fparams, m, m, seed=(1, 2),
+                                                   bundles=bundles))
+        counts_equal(name, lambda: ft.fused_run_cuda(fparams, m, m, seed=(1, 2),
+                                                     bundles=bundles),
+                     lambda: ft.fused_run_plain(fparams, m, m, seed=(1, 2), bundles=bundles))
+        cum, table = bundles[0][0], bundles[1][0]
+        k4 = name.replace("K1 plasma", "K4")
+        times[k4] = ms(lambda: bg.interval_gather_cuda(cum, table, m))
+        equal[k4] = bool(torch.equal(bg.interval_gather_cuda(cum, table, m),
+                                     bg.interval_gather_plain(cum, table, m)))
     if hasattr(cs, "mosaic15_config"):
         k1e_chains = {"flagship": cs.flagship(n, 1, engine="fused"),
                       "mosaic15": cs.mosaic15_config(n, 1, "fused")}
@@ -393,6 +613,10 @@ def child(tree: str, mode: str) -> None:
             spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
             times[f"K1e found {name}"] = ms(
                 lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2), history=spec))
+        pipe, fparams, bundles, m = cs.plasma_k1_setup(ft, engine, n, 1)
+        spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+        times["K1e found plasma_torus"] = ms(lambda: ft.fused_run_cuda(
+            fparams, m, m, seed=(1, 2), bundles=bundles, history=spec))
         # K3 on phase 25's plasma iteration, in weight mode on the flagship's
         # eager rays, and behind the mosaic on mosaic15's.
         plasma = cs.plasma_config(1 << 24, 2, bundle_count=8_000_000, engine="fused")

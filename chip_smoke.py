@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 2. build: compile the CUDA kernels of ``xicsrt_tpu_torch/csrc``; the
    registers, spills, stack frame, block size and resident warps of every
    K5f and K5b variant, of every K1 and K3 build and of R2 (a K5f, K5b, K1
-   or K3 build that spills fails);
+   or K3 build that spills fails); K1 has a point, a generic and a plasma
+   source build of each chain stage (18, and 18 marked for K1e);
 3. K2 (binning kernel) against its plain twin on the card;
 4. K1a (fused trace kernel) against its plain twin on the card;
 5. the main path on the fused engine, ``raytrace(config, device='cuda')``;
@@ -28,14 +29,17 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     counts, zero-padded to its rows (equal to K4's), the yardstick;
 14. K1 with a plasma source and a toroidal crystal (K1f, K1c-torus)
     against its twin: ``plasma_torus`` at 2^20 rays x 2 iterations, the
-    same bundle tables, both RNG modes;
+    same bundle tables, both RNG modes; and at 1e5 bundles with runs of
+    zero-photon bundles and 32 m + 17 slots an iteration
+    (``ragged_bundles``: a warp's live lanes in two iterations);
 15. the plasma path: the bundle counts' Poisson statistics on the card,
     then example 03 exactly as written through
     ``raytrace(config, device='cuda')`` on the eager engine (K4), and on the
     fused engine with ``keep_history=False`` (K1);
 16. plasma at full width with timings: ``plasma_torus`` and ``plasma_100k``
     at 2^24 expected photons per iteration x 4 on the fused engine, the
-    eager engine at 2^22, K4 and K1-plasma against their twins;
+    eager engine at 2^22, K4 and K1-plasma against their twins; K1-plasma
+    on the same slots at 1000 and at 1e5 bundles, with flat bounds;
 17. the torus golden (``tests/golden/torus_reference_image.npz``) on both
     engines with the statistical test of
     ``tests/test_reference_parity_families.py``;
@@ -56,7 +60,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     variants (boxes, Voigt and uniform lines, Doppler, Focused, flat,
     flat_xy, gaussian and asymmetric isotropic_xy cones, a sightline) at
     2^20 rays, both RNG modes, and on phase 24's source at its 2^24 rays;
-    its time;
+    its time; then every K1 build of the plasma and of the generic sampler
+    past their own (weight mode, bilinear images, a mosaic and a mesh
+    crystal; K1e 'found') against its twin at 2^18 rays;
 24. the source matrix through ``raytrace(config, device='cuda')`` on both
     engines at 2^22 rays x 4: a focused gaussian source of the Ar XVII line
     (1 keV, natural width, 1e5 m/s flow along the sightline) on the
@@ -154,7 +160,10 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     each K5 chain's census per ray (its twins on the CPU), its class-rate
     serial bound at 2^22 rays, and K5f's and K5b's times over it; and K3's
     (phases 25 and 38) and K1c-mosaic's (38, as run) serial and overlap
-    bounds at these rates beside their times.
+    bounds at these rates beside their times; and K1b's (phase 23),
+    K1c-mirror's (31) and K1 plasma+torus's at 1000 and 1e5 bundles (16)
+    census a ray and serial bound (``chain_ops_per_ray``, no Philox work
+    counted) beside their times.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -185,7 +194,8 @@ import numpy as np
 import torch
 
 from xicsrt_tpu_torch.tools import bench_scenarios as BS
-from xicsrt_tpu_torch.tools.roofline import (OPS_PER_RAY, bound, chain_k1_ops, k1_ops,
+from xicsrt_tpu_torch.tools.roofline import (OPS_PER_RAY, bound, chain_k1_ops,
+                                             chain_ops_per_ray, k1_ops,
                                              k1_pack, k3_ops_per_ray, k5_ops, k5_ops_per_ray,
                                              mosaic_k1_ops, mosaic_needed, mosaic_ops_as_run,
                                              mosaic_schedule, mosaic_work, overlap_ms,
@@ -784,25 +794,33 @@ def plasma_k1_setup(ft, engine, intensity, num_iter, bundle_count=1000, seed=14)
 
 
 def phase_k1_plasma(ft, engine):
-    """K1 (plasma source, toroidal crystal) against its twin: 0 rays apart."""
+    """K1 (plasma source, toroidal crystal) against its twin, both RNG modes:
+    0 rays apart at 1000 bundles, and at 1e5 bundles with runs of
+    zero-photon bundles and 32 m + 17 slots an iteration
+    (``ragged_bundles``)."""
     pipe, fparams, bundles, n = plasma_k1_setup(ft, engine, 1 << 20, 2)
+    _, fparams_w, bundles_w, _ = plasma_k1_setup(ft, engine, 1 << 20, 2, 100000, seed=16)
+    bundles_w, n_w = ragged_bundles(bundles_w, 14)
     gen = torch.Generator(device="cuda").manual_seed(15)
-    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
     worst = 0.0
-    for label, kwargs in (("input", {"uniforms": uniforms}),
-                          ("hw", {"seed": (4321, 99)})):
-        ck, ik = ft.fused_run_cuda(fparams, n, n, bundles=bundles, **kwargs)
-        cp, iq = ft.fused_run_plain(fparams, n, n, bundles=bundles, **kwargs)
-        torch.cuda.synchronize()
-        log(f"phase 14 K1 plasma+torus rng={label}: {n} ray slots, kernel counts "
-            f"{ck.tolist()}, twin {cp.tolist()}; image L1 diff "
-            f"{(ik - iq).abs().sum().item():.0f} (tolerance 0: same float32 "
-            f"operations, FMA-free build)")
-        if not (torch.equal(ck, cp) and torch.equal(ik, iq)):
-            raise AssertionError(f"K1 plasma+torus differs from its twin (rng={label})")
-        if ck[-1].item() <= 0:
-            raise AssertionError("phase 14: no detector hits")
-        worst = max(worst, (ik - iq).abs().max().item())
+    for case, fp_, bundles_, m in (("1000 bundles", fparams, bundles, n),
+                                   ("1e5 ragged bundles", fparams_w, bundles_w, n_w)):
+        uniforms = torch.rand((fp_.n_draws, m), generator=gen, device="cuda")
+        for label, kwargs in (("input", {"uniforms": uniforms}),
+                              ("hw", {"seed": (4321, 99)})):
+            ck, ik = ft.fused_run_cuda(fp_, m, m, bundles=bundles_, **kwargs)
+            cp, iq = ft.fused_run_plain(fp_, m, m, bundles=bundles_, **kwargs)
+            torch.cuda.synchronize()
+            log(f"phase 14 K1 plasma+torus, {case}, rng={label}: {m} ray slots, kernel "
+                f"counts {ck.tolist()}, twin {cp.tolist()}; image L1 diff "
+                f"{(ik - iq).abs().sum().item():.0f} (tolerance 0: same float32 "
+                f"operations, FMA-free build)")
+            if not (torch.equal(ck, cp) and torch.equal(ik, iq)):
+                raise AssertionError(f"K1 plasma+torus differs from its twin ({case}, "
+                                     f"rng={label})")
+            if ck[-1].item() <= 0:
+                raise AssertionError("phase 14: no detector hits")
+            worst = max(worst, (ik - iq).abs().max().item())
     return worst
 
 
@@ -982,6 +1000,17 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
     log(f"phase 16 timings on {smi}: K1 plasma+torus {k1p_ms:.4f} ms vs twin "
         f"{k1p_plain_ms:.4f} ms ({n} ray slots, 1000 bundles, Philox); K4 "
         f"{k4_ms:.4f} ms vs twin {k4_plain_ms:.4f} ms (the same rays and tables)")
+    # The same slots on plasma_100k's 1e5 bundles, where the lookup's
+    # rounds grow with log2 B.
+    _, fparams_w, bundles_w, n_w = plasma_k1_setup(ft, engine, 1 << 22, 1, 100000)
+    k1p_ms_w = cuda_ms(lambda: ft.fused_run_cuda(fparams_w, n_w, n_w, seed=(1, 2),
+                                                 bundles=bundles_w), 20)
+    k1p_bound_w = bound(packed_bytes(fparams_w.fp, fparams_w.ip, bundles_w[0], bundles_w[1])
+                        + fparams_w.img_total * 4 + 8 * (1 + fparams_w.n_optics),
+                        k1_ops(fparams_w) * n_w)
+    log(f"phase 16 timings on {smi}: K1 plasma+torus {k1p_ms_w:.4f} ms ({n_w} ray slots, "
+        f"1e5 bundles, Philox); flat bound {k1p_bound_w[0]:.4f} ms ({k1p_bound_w[1]}); "
+        f"at 1000 bundles {k1p_ms:.4f} ms, flat bound {k1p_bound[0]:.4f} ms")
     k4_library_ms = k4_library(bg, cum, table, n, f"phase 16 K4, {n} ray slots, 1000 bundles")
 
     # Phase 17: the torus golden on both engines.
@@ -994,7 +1023,8 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
     return {"k4_launches": k4_launches, "k4_err": k4_err, "k4_ms": k4_ms,
             "k4_plain_ms": k4_plain_ms, "k4_library_ms": k4_library_ms,
             "k1p_launches": k1p_launches, "k1p_err": k1p_err, "k1p_ms": k1p_ms,
-            "k1p_plain_ms": k1p_plain_ms, "k1p_bound": k1p_bound,
+            "k1p_plain_ms": k1p_plain_ms, "k1p_bound": k1p_bound, "k1p_slots": n,
+            "k1p_ms_1e5": k1p_ms_w, "k1p_bound_1e5": k1p_bound_w, "k1p_slots_1e5": n_w,
             "k4_bound": k4_bound}
 
 
@@ -1461,6 +1491,97 @@ def phase_k1b(smi, ft, engine) -> dict:
         f"{ms:.4f} ms vs twin {plain_ms:.4f} ms (2^22 rays, Philox); bound "
         f"{k1b_bound[0]:.4f} ms ({k1b_bound[1]}, {k1_ops(fparams)} operations per ray)")
     return {"err": worst, "ms": ms, "plain_ms": plain_ms, "bound": k1b_bound}
+
+
+def ragged_bundles(bundles, seed):
+    """A plasma's tables ``bundles`` (cum, table per iteration) cut for K1's
+    bundle search: runs of 1-40 zero-photon bundles (about a twentieth of
+    them) in every iteration, and each iteration's slots raised to 32 m + 17
+    past its count, the first iteration's last bundle filling its slots, so
+    that a warp's live lanes span two iterations and the other iterations
+    end in dead slots. Returns ((cum, table), the slots of all iterations)."""
+    cum, table = bundles
+    rng = np.random.default_rng(seed)
+    counts = np.diff(cum.cpu().numpy().astype(np.int64), axis=1, prepend=0)
+    n_bundles = counts.shape[1]
+    for row in counts:
+        for _ in range(max(1, n_bundles // 400)):
+            a = int(rng.integers(0, n_bundles))
+            row[a:a + int(rng.integers(1, 41))] = 0
+    n_per_iter = 32 * (int(counts.sum(axis=1).max()) // 32 + 1) + 17
+    counts[0, -1] += n_per_iter - counts[0].sum()
+    cum = torch.from_numpy(np.cumsum(counts, axis=1).astype(np.int32)).to(table.device)
+    return (cum, table), n_per_iter * counts.shape[0]
+
+
+def k1_source_build_chains(n) -> dict:
+    """The K1 builds of each source kind past K1a's and K1b's own, as chains
+    of ``n`` rays (a plasma's: ``n`` expected photons): ``plasma_torus``'s
+    plasma and phase 24's generic source in weight mode, with bilinear
+    images, with both (the ``kStages`` 1 builds), behind ``mosaic15``'s
+    mosaic crystal in mc and weight mode (``kStages`` 2) and behind phase
+    30's sphere mesh (the Chebyshev builds, its curve widened to 2 mrad)."""
+    cls, kw = MESH_CRYSTALS["mesh_sphere"]
+    mesh = mesh_config(n, 1, "fused", cls, **dict(kw, rocking_fwhm=2e-3))["optics"]["crystal"]
+    mosaic = mosaic15_config(n, 1, "fused")["optics"]["crystal"]
+    makers = {"plasma": lambda **g: plasma_config(n, 1, engine="fused", **g),
+              "generic": lambda **g: source_matrix_config(n, 1, "fused", **g)}
+    chains = {}
+    for kind, make in makers.items():
+        for mode, general in WEIGHT_MODES.items():
+            chains[f"{kind} {mode}"] = make(**general)
+        for mode in ("mc", "weight"):
+            chains[f"{kind} mosaic {mode}"] = make(interact_mode=mode)
+            chains[f"{kind} mosaic {mode}"]["optics"]["crystal"] = copy.deepcopy(mosaic)
+        chains[f"{kind} mesh"] = make()
+        chains[f"{kind} mesh"]["optics"]["crystal"] = copy.deepcopy(mesh)
+    return chains
+
+
+def k1_build_against_twin(ft, engine, cfg, label, seed, history=None) -> float:
+    """K1 on ``cfg``'s rays (a plasma's one iteration of slots and its bundle
+    tables) against its twin in both RNG modes, as ``twin_equal`` holds them;
+    with a ``history`` spec, K1's marked build and K1e as
+    ``k1e_against_twin`` holds them. Returns the largest difference."""
+    from xicsrt_tpu_torch.draws import Draws
+
+    pipe = engine.Pipeline(cfg, device="cuda")
+    fparams = k1_pack(pipe)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bundles = None
+    if fparams.plasma:
+        bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"][pipe.source.name],
+                                    pipe.params["filters"], Draws(gen), 1)
+    n = pipe.num_rays
+    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+    err = 0.0
+    for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 7)})):
+        name = f"{label} rng={rng} ({n} rays)"
+        if history is not None:
+            err = max(err, k1e_against_twin(ft, fparams, n, history, name, bundles,
+                                            **kwargs)[0])
+            continue
+        err = max(err, twin_equal(
+            ft.fused_run_cuda(fparams, n, n, bundles=bundles, **kwargs),
+            ft.fused_run_plain(fparams, n, n, bundles=bundles, terms=True, **kwargs),
+            name, fparams))
+    return err
+
+
+def phase_k1_source_builds(ft, engine, n=1 << 18) -> float:
+    """Phase 23's builds: every K1 build of the plasma and of the generic
+    sampler past their own (``k1_source_build_chains``), and K1e 'found'
+    on each (4 slots of 4096 rays), against their twins in both RNG
+    modes. Returns the largest difference."""
+    err = 0.0
+    for k, (name, cfg) in enumerate(k1_source_build_chains(n).items()):
+        err = max(err, k1_build_against_twin(ft, engine, cfg, f"phase 23 K1 {name}", 230 + k))
+    for k, name in enumerate(("plasma", "generic")):
+        cfg = plasma_config(n, 1, engine="fused") if name == "plasma" else \
+            source_matrix_config(n, 1, "fused")
+        err = max(err, k1_build_against_twin(ft, engine, cfg, f"phase 23 K1e found {name}",
+                                             250 + k, ft.HistorySpec("found", 4, 4096)))
+    return err
 
 
 def image_chi2(a, b) -> tuple:
@@ -3188,7 +3309,7 @@ def phase_roofline(smi) -> dict:
 def ptxas_registers(pattern: str) -> str:
     """ptxas's register line of the kernel whose mangled name matches the
     regular expression ``pattern`` (K1a's build:
-    ``fused_trace_kernelILb0ELb0ELi0E``, the point source with no
+    ``fused_trace_kernelILi0ELb0ELi0E``, the point source with no
     Chebyshev, weight, bilinear or mosaic stage)."""
     from xicsrt_tpu_torch.ops import native
 
@@ -3238,6 +3359,26 @@ def phase_k3_mosaic_bounds(smi, rates: dict, timed: dict) -> None:
             f"({serial / ms:.3f} of serial, {overlap / ms:.3f} of overlap)")
 
 
+def phase_k1_source_bounds(smi, rates: dict, timed: dict) -> dict:
+    """Phase 45's lines for K1b, K1c-mirror and K1 plasma+torus: each timed
+    call's census a ray or ray slot (``chain_ops_per_ray`` of its config,
+    the twin on 8192 rays on the CPU; explicit uniforms, so no Philox work
+    is counted: K1b's source takes two Philox calls a ray and K1a's one, a
+    plasma's slot two),
+    its class-rate serial bound at phase 45's rates, and the measured time
+    over it (``timed``: key -> (label, config, rays, measured ms)). Returns
+    key -> serial ms."""
+    out = {}
+    for key, (label, cfg, n, ms) in timed.items():
+        counts, _ = chain_ops_per_ray(cfg)
+        out[key] = serial_ms(counts, rates, n)
+        log(f"phase 45 {label} on {smi}, {n} rays: census "
+            + "/".join(f"{counts.get(c, 0.0):.1f}" for c in ("trans", "sqrtdiv", "simple"))
+            + f" (trans/sqrtdiv/simple a ray); serial bound {out[key]:.4f} ms; "
+            f"measured {ms:.4f} ms ({out[key] / ms:.3f} of serial)")
+    return out
+
+
 def ptxas_entries(report: str, pattern: str) -> list:
     """(name, registers, spill store bytes, spill load bytes, stack frame
     bytes) of each kernel in ptxas's report whose mangled name matches the
@@ -3269,6 +3410,8 @@ def resident_warps(registers: int, threads: int) -> int:
 
 
 K5B_SOURCES = ("point", "plasma", "generic")
+# K1's source builds (kSrc, csrc/fused_run.cuh).
+K1_SOURCES = ("point", "generic", "plasma")
 # K5f's images: example 07's chain (1200 floats) and example 08's (20100).
 K5F_IMAGES = (1200, 20100)
 
@@ -3315,8 +3458,8 @@ def phase_registers(native) -> None:
             spilled.append(f"K5b {name}")
     for args, regs, stores, loads, frame in ptxas_entries(report,
                                                           r"fused_trace_kernel(I\w+?E)E"):
-        full, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
-        name = (f"({'full' if full else 'point'} source, {'Chebyshev, ' * cheb}kStages "
+        src, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        name = (f"({K1_SOURCES[src]} source, {'Chebyshev, ' * cheb}kStages "
                 f"{stages}{', marks' * mark})")
         log(f"phase 2 K1 build {name}: {regs} registers, {stores} / {loads} bytes "
             f"spilled, {frame} bytes stack frame, 256 threads a block, "
@@ -3437,6 +3580,7 @@ def main() -> int:
     curved = curved_phases(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace)
     torus = curved["timings"]["torus"]
     k1b = phase_k1b(smi, ft, engine)
+    k1b["err"] = max(k1b["err"], phase_k1_source_builds(ft, engine))
     k1b_launches = phase_source_matrix(ft, engine, xicsrt_tpu_torch.raytrace)
     k3 = phase_k3(smi, ft, engine, xicsrt_tpu_torch.raytrace)
     from xicsrt_tpu_torch.gradients import make_fused_differentiable
@@ -3475,7 +3619,7 @@ def main() -> int:
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
     t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
-    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_kernelILb0ELb0ELi0ELb0E')}")
+    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_kernelILi0ELb0ELi0ELb0E')}")
 
     # Phase 38: this slice's stages per 2^22 rays beside K1a, and the
     # registers of their builds.
@@ -3494,7 +3638,7 @@ def main() -> int:
                                    ops)
         t_mosaic[mode]["census"] = mosaic_ops_as_run(cfg_m, work, n)
     t_k1a_again = k1_timing(ft, fparams, n, smi, "K1a (the flagship), again", "38")
-    for pattern in ("fused_trace_kernelILb0ELb0ELi1ELb0E", "fused_trace_kernelILb0ELb0ELi2ELb0E",
+    for pattern in ("fused_trace_kernelILi0ELb0ELi1ELb0E", "fused_trace_kernelILi0ELb0ELi2ELb0E",
                     "trace_only_kernelILb0ELi0E",
                     "trace_only_kernelILb0ELi1E",
                     "trace_only_kernelILb0ELi2E",
@@ -3507,7 +3651,7 @@ def main() -> int:
     k1e = phase_k1e_flagship(smi, ft, engine, xicsrt_tpu_torch.raytrace)
     phase_k1e_plasma(ft, engine, xicsrt_tpu_torch.raytrace)
     phase_cli(xicsrt_tpu_torch.raytrace)
-    for pattern in ("fused_trace_kernelILb0ELb0ELi0ELb1E", "history_record_kernel"):
+    for pattern in ("fused_trace_kernelILi0ELb0ELi0ELb1E", "history_record_kernel"):
         log(f"phase 40 ptxas {ptxas_registers(pattern)}")
     # Phases 43-45: the roofline's probes R1 and R2, then the roofline tool,
     # counters read around its run.
@@ -3526,6 +3670,18 @@ def main() -> int:
         "K3 weight mode, the flagship (phase 38)": (k3w["census"], k3w["ms"]),
         **{f"K1c-mosaic {mode} as run (phase 38)": ((t["census"], 0, n), t["ms"])
            for mode, t in t_mosaic.items()}})
+    k1_serial = phase_k1_source_bounds(smi, roof["roofline"]["rates"], {
+        "k1b": ("K1b, phase 24's source (phase 23)", source_matrix_config(1 << 22, 1, "fused"),
+                1 << 22, k1b["ms"]),
+        "plasma": ("K1 plasma+torus, 1000 bundles (phase 16)",
+                   plasma_config(1 << 22, 1, engine="fused"), plasma["k1p_slots"],
+                   plasma["k1p_ms"]),
+        "plasma_1e5": ("K1 plasma+torus, 1e5 bundles (phase 16)",
+                       plasma_config(1 << 22, 1, 100000, engine="fused"),
+                       plasma["k1p_slots_1e5"], plasma["k1p_ms_1e5"]),
+        "mirror": ("K1c-mirror, the flagship's crystal unchecked (phase 31)",
+                   mirror_configs(1 << 22, 1, "fused")["flagship_no_check"], 1 << 22,
+                   t_mirror["ms"])})
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -3553,10 +3709,13 @@ def main() -> int:
             "xicsrt_tpu/ops/bundle_gather.py:80", plasma["k4_launches"], plasma["k4_err"],
             plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"],
             plasma["k4_library_ms"]),
-        row("fused_run_cuda plasma+torus (K1f, K1c-torus)", trace_cu,
-            "xicsrt_tpu/ops/fused_trace.py:1428 and :616", plasma["k1p_launches"],
-            plasma["k1p_err"], plasma["k1p_ms"], plasma["k1p_plain_ms"],
-            plasma["k1p_bound"]),
+        {**row("fused_run_cuda plasma+torus (K1f, K1c-torus)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:1428 and :616", plasma["k1p_launches"],
+               plasma["k1p_err"], plasma["k1p_ms"], plasma["k1p_plain_ms"],
+               plasma["k1p_bound"]),
+         "serial_ms": k1_serial["plasma"], "ms_1e5_bundles": plasma["k1p_ms_1e5"],
+         "bound_ms_1e5_bundles": plasma["k1p_bound_1e5"][0],
+         "serial_ms_1e5_bundles": k1_serial["plasma_1e5"]},
         row("fused_run_cuda cylinder (K1c-cylinder)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:784 and :903", curved["k1c"]["launches"],
             curved["k1c"]["err"], curved["k1c"]["ms"], curved["k1c"]["plain_ms"],
@@ -3569,9 +3728,10 @@ def main() -> int:
             "xicsrt_tpu/ops/fused_grad.py:1727 (pallas_call :1921)",
             curved["k5b_launches"], curved["k5b_err"], torus["b_ms"], torus["b_plain"],
             torus["b_bound"]),
-        row("fused_run_cuda source matrix (K1b)", trace_cu,
-            "xicsrt_tpu/ops/fused_trace.py:1538 (kernel :1343, pallas_call :1883)",
-            k1b_launches, k1b["err"], k1b["ms"], k1b["plain_ms"], k1b["bound"]),
+        {**row("fused_run_cuda source matrix (K1b)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:1538 (kernel :1343, pallas_call :1883)",
+               k1b_launches, k1b["err"], k1b["ms"], k1b["plain_ms"], k1b["bound"]),
+         "serial_ms": k1_serial["k1b"]},
         row("fused_trace_run_cuda (K3)", "xicsrt_tpu_torch/csrc/trace_only.cu",
             "xicsrt_tpu/ops/fused_trace.py:2081 (pallas_call :2156)", k3["launches"],
             k3["err"], k3["ms"], k3["plain_ms"], k3["bound"]),
@@ -3581,10 +3741,11 @@ def main() -> int:
         row("fused_grad_vjp_cuda source matrix (K5b: K5e-generic)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:488 (pallas_call :1921)", k5s["b_launches"],
             k5s["b_err"], k5s["b_ms"], k5s["b_plain"], k5s["b_bound"]),
-        row("fused_run_cuda mirrors (K1c-mirror)", trace_cu,
-            "xicsrt_tpu/ops/fused_trace.py:1099 (kernel :1343, pallas_call :1883)",
-            mirror_launches, mirror_err, t_mirror["ms"], t_mirror["plain_ms"],
-            t_mirror["bound"]),
+        {**row("fused_run_cuda mirrors (K1c-mirror)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:1099 (kernel :1343, pallas_call :1883)",
+               mirror_launches, mirror_err, t_mirror["ms"], t_mirror["plain_ms"],
+               t_mirror["bound"]),
+         "serial_ms": k1_serial["mirror"]},
         row("fused_run_cuda file rocking (K1c-file)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:733 (kernel :1343, pallas_call :1883)",
             file_launches, file_err, t_file["ms"], t_file["plain_ms"], t_file["bound"]),

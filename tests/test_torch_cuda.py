@@ -675,3 +675,72 @@ def test_mma_rate_kernel_on_uneven_steps(cuda_device, K_mm):
     chip_smoke.held_to(kernel, plain, chip_smoke.r2_bound(n_mm, K_mm, rp.SUB, blocks), "R2")
     assert bool((kernel[:, 0] == 0).all()) and float(kernel.max()) > 0
     assert rp.mma_rate_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+def test_k1_plasma_on_1e5_ragged_bundles_matches_twin(cuda_device, rng):
+    """K1 plasma+torus at 1e5 bundles, with runs of zero-photon bundles and
+    32 m + 17 slots an iteration (``chip_smoke.ragged_bundles``: a warp's
+    live lanes span two iterations, the tails are dead), as the warp's
+    bundle search finds them: counts and images equal to the twin's."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    _, fparams, bundles, _ = chip_smoke.plasma_k1_setup(ft, engine, 1 << 18, 2, 100000,
+                                                        seed=21)
+    bundles, n = chip_smoke.ragged_bundles(bundles, 22)
+    assert (n // 2) % 32 == 17
+    kwargs = {"seed": (23, 24)}
+    if rng == "input":
+        gen = torch.Generator(device=cuda_device).manual_seed(25)
+        kwargs = {"uniforms": torch.rand((fparams.n_draws, n), generator=gen,
+                                         device=cuda_device)}
+    before = ft.fused_run_cuda.launches
+    kernel = ft.fused_run_cuda(fparams, n, n, bundles=bundles, **kwargs)
+    twin = ft.fused_run_plain(fparams, n, n, bundles=bundles, **kwargs)
+    assert ft.fused_run_cuda.launches == before + 1
+    assert int(kernel[0][-1]) > 0
+    assert torch.equal(kernel[0], twin[0]) and torch.equal(kernel[1], twin[1])
+
+
+K1_BUILD_CASES = [f"{kind} {stage}" for kind in ("plasma", "generic")
+                  for stage in ("weight", "bilinear", "both", "mosaic mc", "mosaic weight",
+                                "mesh", "found")]
+
+
+@pytest.mark.parametrize("case", K1_BUILD_CASES)
+def test_k1_source_builds_match_twins(cuda_device, case):
+    """Each K1 build of the plasma and of the generic sampler past their own
+    (``chip_smoke.k1_source_build_chains``: weight mode, bilinear images,
+    both, a mosaic crystal in mc and weight mode, a mesh crystal; and
+    K1e's marked build and record kernel, 'found' in 4 slots of 4096
+    rays), against the twin in both RNG modes at 2^16 rays."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    n = 1 << 16
+    kind, stage = case.split(" ", 1)
+    history = None
+    if stage == "found":
+        history = ft.HistorySpec("found", 4, 4096)
+        cfg = (chip_smoke.plasma_config(n, 1, engine="fused") if kind == "plasma"
+               else chip_smoke.source_matrix_config(n, 1, "fused"))
+    else:
+        cfg = chip_smoke.k1_source_build_chains(n)[case]
+    before = ft.fused_run_cuda.launches
+    chip_smoke.k1_build_against_twin(ft, engine, cfg, case, 91, history)
+    assert ft.fused_run_cuda.launches == before + 2
+
+
+def test_bundle_gather_kernel_on_1e5_bundles_matches_twin(cuda_device):
+    """K4 at 1e5 bundles (every tenth empty) beside the warp search it now
+    shares a header with: equal to its twin, the tail rays zero rows."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    cum, table = chip_smoke.gather_inputs(100000, 1 << 20, gen)
+    n = (1 << 20) + 333
+    out = bg.interval_gather_cuda(cum, table, n)
+    assert torch.equal(out, bg.interval_gather_plain(cum, table, n))
+    assert float(out[1 << 20:].abs().max()) == 0.0

@@ -165,6 +165,29 @@ def test_chain_census_is_per_ray():
     assert small["simple"] > 100
 
 
+def test_k1b_census_is_per_ray_and_adds_the_sampler():
+    """Phase 24's source (K1b's timed chain: a focused gaussian box, an
+    isotropic cone, an exact Voigt line and a flow) on the flagship's
+    optics: its census per ray at chunks 1024 and 4096 within 1 % class by
+    class, and above K1a's (the flagship's point source) by the generic
+    sampler's classes: an erfinv for each of the box's three sizes and for
+    the Doppler normal, a tan for the natural width."""
+    import chip_smoke
+
+    config = chip_smoke.source_matrix_config(1 << 22, 1, "fused")
+    small, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    large, _ = roofline.chain_ops_per_ray(config, chunk=4096)
+    for cls in roofline.CLASSES:
+        assert small[cls] == pytest.approx(large[cls], rel=1e-2, abs=1e-9)
+    k1b_ops = roofline._chain_census(config, 1024)[1]
+    k1a_ops = roofline._chain_census(chip_smoke.flagship(1 << 22, 1, engine="fused"), 1024)[1]
+    for op, extra in (("erfinv", 4), ("tan", 1)):
+        assert (k1b_ops[("trans", op)] - k1a_ops.get(("trans", op), 0)) / 1024 == extra
+    k1a, _ = roofline.chain_ops_per_ray(chip_smoke.flagship(1 << 22, 1, engine="fused"),
+                                        chunk=1024)
+    assert small["trans"] >= k1a["trans"] + 5 and small["simple"] > k1a["simple"]
+
+
 def _k5_chain(name):
     """A K5 chain of ``chip_smoke.py``'s gradient phases (2^22 rays; the
     census takes its own chunk)."""

@@ -35,8 +35,9 @@
 // What bounds it: the record launch retraces S chunk rays, about 1/4096 of
 // a 2^28-ray run at the defaults (8 slots of 8192 rays), and writes S
 // n_fields (1 + n_optics) chunk floats; the marks cost the main run one
-// ballot per warp. The record kernel is one build (the generic source's
-// whole sampler, the Chebyshev, weight, bilinear and mosaic stages), which
+// ballot per warp. The record kernel is one build (the plasma's sampler and
+// the generic source's whole one, the Chebyshev, weight, bilinear and
+// mosaic stages), which
 // gives every chain the same values as its own build of K1; its speed
 // hardly matters at S chunk rays.
 #include "fused_run.cuh"
@@ -133,9 +134,9 @@ __global__ void __launch_bounds__(256) history_record_kernel(
     const long long ray = r < n_total ? r : n_total - 1;
     Draws draw{uniforms, n_total, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
     float px, py, pz, dx, dy, dz, wl;
-    const bool alive = xrt_k1_source<true>(
-        fp, ip, ip[5] == XRT_SRC_PLASMA, ip[6] != 0, ip[7] != 0, draw, r, count, cum,
-        table, n_bundles, n_per_iter, px, py, pz, dx, dy, dz, wl);
+    const bool alive = xrt_k1_source<XRT_K1_ANY>(
+        fp, ip, ip[6] != 0, ip[7] != 0, draw, r, count, cum, table, n_bundles, n_per_iter,
+        threadIdx.x & 31, px, py, pz, dx, dy, dz, wl);
     const int n_rows = n_fields * (ip[0] + 1);
     const XrtHistRecord rec{hist + (long long)slot * n_rows * chunk + local, chunk,
                             n_fields, wl};

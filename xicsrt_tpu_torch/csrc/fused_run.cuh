@@ -12,47 +12,64 @@
 #include "trace_chain.cuh"
 #include "trace_common.cuh"
 
+// The source kinds of K1's builds (kSrc): the generic sampler's
+// point-source cut (which gives a point source the same values), the whole
+// generic sampler, a plasma of bundle tables. A build holds only its own
+// sampler: the plasma's lookup and sampler cost the others no registers,
+// nor the generic sampler the plasma's. XRT_K1_ANY, for K1e's record
+// kernel, branches at run time between the plasma and the whole generic
+// sampler.
+#define XRT_K1_POINT 0
+#define XRT_K1_GENERIC 1
+#define XRT_K1_PLASMA 2
+#define XRT_K1_ANY 3
+
 // Ray r's source in K1: a plasma ray's bundle and the plasma sampler, or
-// the generic sampler (kFull: whole, else its point-source cut, which
-// gives a point source the same values). draw is keyed by the ray index
-// clamped to n_total - 1, so rays past the end take that ray's draws and
-// are dead. Returns whether the ray is alive at the source.
-template <bool kFull>
+// the generic sampler (its point-source cut in the XRT_K1_POINT builds).
+// draw is keyed by the ray index clamped to n_total - 1, so rays past the
+// end take that ray's draws and are dead. Every lane of the warp calls it
+// (the bundle search is the warp's). Returns whether the ray is alive at
+// the source.
+template <int kSrc>
 __device__ __forceinline__ bool xrt_k1_source(
-    const float* fp, const int* ip, bool plasma, bool voxel, bool cauchy,
-    Draws& draw, long long r, long long count, const int* __restrict__ cum,
-    const float* __restrict__ table, int n_bundles, int n_per_iter, float& px,
-    float& py, float& pz, float& dx, float& dy, float& dz, float& wl) {
+    const float* fp, const int* ip, bool voxel, bool cauchy, Draws& draw, long long r,
+    long long count, const int* __restrict__ cum, const float* __restrict__ table,
+    int n_bundles, int n_per_iter, int lane, float& px, float& py, float& pz, float& dx,
+    float& dy, float& dz, float& wl) {
     const bool in_range = r < draw.n_total;
     wl = 0.0f;
+    const bool plasma = kSrc == XRT_K1_ANY ? ip[5] == XRT_SRC_PLASMA : kSrc == XRT_K1_PLASMA;
+    bool keep;
+    if (kSrc == XRT_K1_POINT) {
+        xrt_sample_source<false>(fp, ip, draw, px, py, pz, dx, dy, dz, wl, keep);
+        return in_range && r < count && keep;
+    }
     if (plasma) {
+        DrawsAhead ahead(draw, ip[3] > 4);  // the Philox calls before the lookup's loads
         const long long j = draw.ray / n_per_iter;
         const int local = (int)(draw.ray - j * n_per_iter);
         const int* cum_j = cum + j * n_bundles;
         const bool alive = in_range && local < __ldg(cum_j + n_bundles - 1);
+        const int b = xrt_warp_bundle(cum_j, n_bundles, local, alive, lane);
         float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
-        if (alive) {
-            const int b = min(xrt_upper_bound(cum_j, n_bundles, local), n_bundles - 1);
-            xrt_bundle_row(table + j * n_bundles * 8, b, &lo, &hi);
-        }
-        xrt_sample_plasma(fp, voxel, cauchy, draw, lo, hi, px, py, pz, dx, dy, dz, wl);
+        if (alive) xrt_bundle_row(table + j * n_bundles * 8, b, &lo, &hi);
+        xrt_sample_plasma(fp, voxel, cauchy, ahead, lo, hi, px, py, pz, dx, dy, dz, wl);
+        ahead.finish();
         return alive;
     }
-    bool keep;
-    xrt_sample_source<kFull>(fp, ip, draw, px, py, pz, dx, dy, dz, wl, keep);
+    xrt_sample_source<true>(fp, ip, draw, px, py, pz, dx, dy, dz, wl, keep);
     return in_range && r < count && keep;
 }
 
 namespace {
 
-// kFull: the generic source's whole sampler (xrt_sample_source), else its
-// point-source cut; a plasma takes neither. kCheb: the chain's mesh stage;
+// kSrc: the source's build (xrt_k1_source). kCheb: the chain's mesh stage;
 // kStages: its weight and bilinear stages (1), and the mosaic's (2)
 // (trace_chain.cuh). kMark: set marks[c] = 1 for each chunk c of `chunk`
 // rays whose final element keeps a ray (K1e's 'found' mode); a chunk is a
 // multiple of 32 rays, so a warp's rays lie in one chunk and one ballot
 // decides it.
-template <bool kFull, bool kCheb, int kStages, bool kMark>
+template <int kSrc, bool kCheb, int kStages, bool kMark>
 __global__ void fused_trace_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, long long n_total, long long count,
@@ -76,7 +93,6 @@ __global__ void fused_trace_kernel(
 
     float* img = use_smem ? s_img : images;
     const int n_opt = ip[0];
-    const bool plasma = ip[5] == XRT_SRC_PLASMA;
     const bool voxel = ip[6] != 0, cauchy = ip[7] != 0;
     const bool per_ray_wl = ip[XRT_H_PER_RAY_WL] != 0;
     const int lane = threadIdx.x & 31;
@@ -90,9 +106,9 @@ __global__ void fused_trace_kernel(
         const long long ray = r < n_total ? r : n_total - 1;
         Draws draw{uniforms, n_total, ray, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
         float px, py, pz, dx, dy, dz, wl;
-        const bool alive = xrt_k1_source<kFull>(fp, ip, plasma, voxel, cauchy, draw, r,
-                                                count, cum, table, n_bundles,
-                                                n_per_iter, px, py, pz, dx, dy, dz, wl);
+        const bool alive = xrt_k1_source<kSrc>(fp, ip, voxel, cauchy, draw, r, count, cum,
+                                               table, n_bundles, n_per_iter, lane, px, py,
+                                               pz, dx, dy, dz, wl);
         xrt_count_warp(s_counts, 0, alive, lane);
         const bool found = xrt_trace_chain<kCheb, kStages>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
@@ -140,15 +156,17 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
     const int threads = 256;
     const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
     const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    using Kernel = decltype(&fused_trace_kernel<false, false, 0, kMark>);
-    const Kernel kernels[12] = {
-        fused_trace_kernel<false, false, 0, kMark>, fused_trace_kernel<false, false, 1, kMark>,
-        fused_trace_kernel<false, false, 2, kMark>, fused_trace_kernel<false, true, 0, kMark>,
-        fused_trace_kernel<false, true, 1, kMark>,  fused_trace_kernel<false, true, 2, kMark>,
-        fused_trace_kernel<true, false, 0, kMark>,  fused_trace_kernel<true, false, 1, kMark>,
-        fused_trace_kernel<true, false, 2, kMark>,  fused_trace_kernel<true, true, 0, kMark>,
-        fused_trace_kernel<true, true, 1, kMark>,   fused_trace_kernel<true, true, 2, kMark>};
-    const Kernel kernel = kernels[(full_source ? 6 : 0) + (cheb ? 3 : 0) + stages];
+    using Kernel = decltype(&fused_trace_kernel<XRT_K1_POINT, false, 0, kMark>);
+#define XRT_K1_BUILDS(S)                                                          \
+    fused_trace_kernel<S, false, 0, kMark>, fused_trace_kernel<S, false, 1, kMark>, \
+        fused_trace_kernel<S, false, 2, kMark>, fused_trace_kernel<S, true, 0, kMark>, \
+        fused_trace_kernel<S, true, 1, kMark>, fused_trace_kernel<S, true, 2, kMark>
+    const Kernel kernels[18] = {XRT_K1_BUILDS(XRT_K1_POINT), XRT_K1_BUILDS(XRT_K1_GENERIC),
+                                XRT_K1_BUILDS(XRT_K1_PLASMA)};
+#undef XRT_K1_BUILDS
+    const int src = cum != nullptr ? XRT_K1_PLASMA
+                                   : full_source ? XRT_K1_GENERIC : XRT_K1_POINT;
+    const Kernel kernel = kernels[6 * src + (cheb ? 3 : 0) + stages];
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, threads, smem, n_total);

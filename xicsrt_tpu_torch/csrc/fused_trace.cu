@@ -30,8 +30,10 @@
 // shared with the history builds of fused_history.cu (K1e).
 //
 // Plasma: iteration j holds rays [j n, (j + 1) n) of the budget n; ray
-// j n + l is alive iff l < cum_j[B-1], finds its bundle by binary search
-// over cum_j (bundle_lookup.cuh) and loads its row. The TPU kernel's
+// j n + l is alive iff l < cum_j[B-1], finds its bundle by its warp's
+// 32-ary search over cum_j (xrt_warp_bundle, bundle_lookup.cuh) and loads
+// its row. Each source kind has builds of its own (kSrc, fused_run.cuh):
+// the point-source cut, the whole generic sampler, the plasma. The TPU kernel's
 // interval one-hot on the MXU, its 256-bundle windows, its page windows
 // beyond 4096 bundles, the compaction sort that bounds them and its 4096-ray
 // chunk cap all served VMEM; they have no counterpart here.
@@ -66,8 +68,9 @@
 // one 16-byte load of (C, Cx, Cy) a term through the read-only cache where
 // the TPU kernel unrolled its nonzero terms as constants), plus the image
 // atomics; a file curve
-// is two cached loads where the TPU kernel ran a tent matvec on its MXU; a plasma ray adds about
-// log2(B) dependent loads of cum and one 32-byte row, served by L2; a
+// is two cached loads where the TPU kernel ran a tent matvec on its MXU; a plasma's warp adds
+// ceil(log2(B) / 5) rounds of 32 loads of cum, a window of 32 entries and
+// one 32-byte row a ray, served by L1 and L2; a
 // mosaic crystal two erfinvf, a sqrt and a rocking curve per layer. Counts
 // are reduced per warp with __ballot_sync/__popc into
 // shared counters, images are block-private shared-memory histograms
@@ -85,7 +88,8 @@
 // null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
 // and images: (img_total,) float32, both zeroed by the caller. full_source:
 // the generic source's whole sampler (a box, a Focused axis, the other cones,
-// per-ray wavelengths or filters), else its point-source cut. aux: n_aux
+// per-ray wavelengths or filters), else its point-source cut; a plasma
+// (cum not null) takes the plasma's builds. aux: n_aux
 // float32 of file tables and Chebyshev terms (never null); cheb: the
 // chain's mesh stage; stages: 0, or 1 for its weight and bilinear stages,
 // 2 with the mosaic's too. Returns cudaGetLastError() of the launch.

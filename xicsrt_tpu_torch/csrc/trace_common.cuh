@@ -160,6 +160,54 @@ struct Draws {
     }
 };
 
+// A plasma source's draws (at most seven, draws 0-6: groups 0 and 1) with
+// both of their Philox calls issued at once, before the bundle search's
+// loads and the sampler's math: the calls are independent, so their rounds
+// interleave and share the key schedule, where Draws would make the second
+// at draw 4, behind the sampler's dependent arithmetic. two: the launch's
+// draws pass four (the header's draw count, the same for every ray), so a
+// ray makes no call it would not make anyway. The words are selected with
+// constant indices (k < 8). finish() leaves in d the group the chain's
+// next draw falls in, so the chain's draws (Draws) go on from there as
+// they would have. The generic sampler takes Draws: with both calls up
+// front, K1b ran 2-3 % slower (its build 76 registers, not 71).
+struct DrawsAhead {
+    Draws& d;
+    bool two;
+    uint32_t ahead[4];
+
+    __device__ __forceinline__ DrawsAhead(Draws& draws, bool two_groups)
+        : d(draws), two(two_groups && draws.uniforms == nullptr) {
+        if (!two) return;
+        d.group = 0;
+        philox4x32_10((uint32_t)d.ray, (uint32_t)(d.ray >> 32), 0u, 0u, d.k0, d.k1,
+                      d.words);
+        philox4x32_10((uint32_t)d.ray, (uint32_t)(d.ray >> 32), 1u, 0u, d.k0, d.k1,
+                      ahead);
+    }
+
+    __device__ __forceinline__ float operator()() {
+        if (!two) return d();
+        const int k = d.next++;
+        const uint32_t w0 = (k & 4) ? ahead[0] : d.words[0];
+        const uint32_t w1 = (k & 4) ? ahead[1] : d.words[1];
+        const uint32_t w2 = (k & 4) ? ahead[2] : d.words[2];
+        const uint32_t w3 = (k & 4) ? ahead[3] : d.words[3];
+        const uint32_t lo = (k & 1) ? w1 : w0;
+        const uint32_t hi = (k & 1) ? w3 : w2;
+        return (float)(((k & 2) ? hi : lo) >> 8) * (1.0f / 16777216.0f);
+    }
+
+    __device__ __forceinline__ void finish() {
+        if (!two || (d.next >> 2) != 1) return;
+        d.group = 1;
+        d.words[0] = ahead[0];
+        d.words[1] = ahead[1];
+        d.words[2] = ahead[2];
+        d.words[3] = ahead[3];
+    }
+};
+
 __device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
 
 // sinf(x) and cosf(x) of one angle, with one range reduction: sincosf
@@ -171,14 +219,16 @@ __device__ __forceinline__ void xrt_sincos(float x, float& s, float& c) {
 
 // A standard normal from one uniform clipped to [1e-7, 1 - 1e-7]:
 // sqrt(2) erfinv(2u - 1).
-__device__ __forceinline__ float xrt_normal(Draws& draw) {
+template <class D>
+__device__ __forceinline__ float xrt_normal(D& draw) {
     const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
     const float un = fminf(fmaxf(draw(), lo), hi);
     return 1.4142135623730951f * erfinvf(2.0f * un - 1.0f);
 }
 
 // The natural (Cauchy) part of an exact Voigt line of width gamma.
-__device__ __forceinline__ float xrt_cauchy(Draws& draw, float gamma) {
+template <class D>
+__device__ __forceinline__ float xrt_cauchy(D& draw, float gamma) {
     const float lo = (float)1e-7, hi = (float)(1.0 - 1e-7);
     const float uc = fminf(fmaxf(draw(), lo), hi);
     return gamma * tanf(3.141592653589793f * (uc - 0.5f));
@@ -469,8 +519,9 @@ __device__ __forceinline__ bool xrt_apertures(const float* apf,
 // direction to the target fp[9:12], in the per-ray basis of
 // vec.orthogonal_basis with the hint fp[12:15]; omc = 1 - cos(half-angle).
 // Draws u, v; writes the unit direction.
+template <class D>
 __device__ __forceinline__ void xrt_plasma_cone(const float* fp, float omc,
-                                                Draws& draw, float px,
+                                                D& draw, float px,
                                                 float py, float pz,
                                                 float& dx, float& dy,
                                                 float& dz) {
@@ -491,8 +542,9 @@ __device__ __forceinline__ void xrt_plasma_cone(const float* fp, float omc,
 // half-angle, then temperature and velocity xyz. Draws 3 voxel uniforms
 // (voxel), u and v for the cone, one uniform for the normal, one Cauchy
 // uniform (cauchy), as fused_trace.py:1489-1537 does.
+template <class D>
 __device__ __forceinline__ void xrt_sample_plasma(
-    const float* fp, bool voxel, bool cauchy, Draws& draw, float4 a, float4 b,
+    const float* fp, bool voxel, bool cauchy, D& draw, float4 a, float4 b,
     float& px, float& py, float& pz, float& dx, float& dy, float& dz,
     float& wl) {
     px = a.x;
