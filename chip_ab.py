@@ -31,7 +31,12 @@ templates:
   or the plasma's redesign undone, or tried where it was dropped;
 - ``source_only``, ``skip_lookup`` (``SPLIT_LAYOUTS``): K1 with every ray
   killed after its source, or every plasma ray given bundle 0, to split
-  K1's time into sampler, lookup and chain (times only).
+  K1's time into sampler, lookup and chain (times only);
+- ``staged_images``, ``no_warp_skip``, ``skip_all_builds``,
+  ``curved_all``, ``flat_unbounded``, ``k1a_bounds_4`` (``K1A_LEADS``)
+  and ``k2_per_image``, ``k2_mask_bytes``, ``k2_float_atomics``
+  (``K2_LEADS``): the checkout with one lead of K1a's or K2's redesign
+  undone, or tried where it was dropped.
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
 K1e and K3 alone, for the leads of the trace kernels.
@@ -40,13 +45,22 @@ K1e and K3 alone, for the leads of the trace kernels.
 unpacked there with ``git archive``. All trees are built at once (one
 ``nvcc`` per source), then each tree's timings run in a process of their
 own, in the order A B C ... C B A. Each prints ptxas's lines for K1
-(``fused_trace_kernel``), K3 (``trace_only_kernel``), K5f
+(``fused_trace_kernel``, ``fused_trace_flat_kernel``), K2
+(``bin_images_kernel``), K3 (``trace_only_kernel``), K5f
 (``fused_grad_fwd_kernel``), K5b
 (``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``): registers,
 spill stores, stack frame, and the 256-thread blocks a multiprocessor
 holds at that register count (65536 registers, allocated per warp in
-units of 256). Then the ms per call (CUDA events, the least and the median
-of 5 means of 20 calls) of K1a on the flagship at 2^22 rays, of
+units of 256), for K1 and K2 also the blocks their launch's shared memory
+leaves (at the flagship's images; a 100 x 100 image), and the SASS
+counts (``cuobjdump -sass``) of K1a's builds and K2. Then the ms per call
+(CUDA events, the least and the median of 5 means of 20 calls) of K2 on
+dense hits and on the main path's own eager items (on the card alone,
+queued behind a spin kernel, and with the host's time to issue them)
+beside ``torch.bincount`` of the same set rays (its kernels alone by
+``torch.profiler``, and with the host), of K1a at 2^28 rays and
+the flagship's ``raytrace`` on both engines (3 means of 3 calls), of K1a
+on the flagship at 2^22 rays, of
 K1c-file, K1c-mirror, K1c-cheb (example 06's mesh crystal on the mesh
 spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic
 (``mosaic15`` and the mesh mosaic, mc and weight), K1b (phase 24's source
@@ -75,6 +89,7 @@ import importlib.util
 import json
 import os
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -86,7 +101,8 @@ AB_DIR = os.path.join(ROOT, "build", "chip_ab")
 # Files of the checkout, and what a layout puts in place of their lines.
 ALL_IN = {
     os.path.join("xicsrt_tpu_torch", "csrc", "fused_run.cuh"):
-        {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
+        {"kernels[flat ? 18 : 6 * src + (cheb ? 3 : 0) + stages]":
+         "kernels[6 * src + (cheb ? 3 : 0) + 2]"},
     os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu"):
         {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
     os.path.join("xicsrt_tpu_torch", "ops", "fused_grad.py"):
@@ -259,8 +275,8 @@ LEADS_UNDONE = {
         "if (ix < 0 || ix >= nx || wx == 0.0f) continue;": "if (ix < 0 || ix >= nx) continue;",
         "if (iy < 0 || iy >= ny || v == 0.0f) continue;": "if (iy < 0 || iy >= ny) continue;"}},
     "words_indexed": {_COMMON: {
-        "return (float)(((k & 2) ? hi : lo) >> 8) * (1.0f / 16777216.0f);":
-            "return (float)(words[k & 3] >> 8) * (1.0f / 16777216.0f);"}},
+        "words[2];\n        return (float)(((k & 2) ? hi : lo) >> 8) * (1.0f / 16777216.0f);":
+            "words[2];\n        return (float)(words[k & 3] >> 8) * (1.0f / 16777216.0f);"}},
     "separate_trig": {_COMMON: {
         "    sincosf(x, &s, &c);": "    s = sinf(x);\n    c = cosf(x);"}},
     "image_l2": {_FWD: {
@@ -270,7 +286,7 @@ LEADS_UNDONE = {
 # after its source, the chain not traced (the source's count is checked);
 # every live plasma ray given bundle 0, the lookup skipped (wrong counts,
 # not checked).
-_K1_CHAIN = """        const bool found = xrt_trace_chain<kCheb, kStages>(
+_K1_CHAIN = """        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kCurved>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
 """
@@ -295,7 +311,7 @@ SPLIT_LAYOUTS = {
 # (2b) the plasma build in blocks of 128 threads, or held by launch bounds
 # to 5 or 6 blocks of 256 (40 or 48 warps a multiprocessor).
 _COMMON_SRC = os.path.join("xicsrt_tpu_torch", "csrc", "trace_common.cuh")
-_K1_THREADS = "    const int threads = 256;\n    const int use_smem"
+_K1_THREADS = "    const int threads = 256;\n    const int src"
 _PLASMA_BOUNDS = ("__global__ void __launch_bounds__(256, kSrc == XRT_K1_PLASMA ? {} : 1) "
                   "fused_trace_kernel(")
 # (2d) Two plasma rays a thread in the plasma build without further
@@ -305,7 +321,7 @@ _PLASMA_BOUNDS = ("__global__ void __launch_bounds__(256, kSrc == XRT_K1_PLASMA 
 # same float32 operations as xrt_torus_root in the same order).
 _CHAIN_SIG = "    int lane, Rec rec = Rec()) {"
 _CHAIN_TORUS = "            t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);"
-_RUN_NS = "namespace {\n\n// kSrc: the source's build"
+_RUN_NS = "namespace {\n\n// K1's kernel parameters"
 _RUN_LOOP = """    // Whole warps step together (blockDim is a multiple of 32), so every
     // lane reaches every __ballot_sync; lanes past the end carry dead rays.
 """
@@ -360,7 +376,7 @@ __device__ __forceinline__ void xrt_torus_hit2(const float* o, const float (&p)[
     }
 }
 
-// kSrc: the source's build"""
+// K1's kernel parameters"""
 _PAIR_LOOP = _RUN_LOOP + """    if constexpr (kSrc == XRT_K1_PLASMA && !kCheb && kStages == 0 && !kMark) {
         const bool torus0 = n_opt > 0 && ip[XRT_HDR_I] == 2;
         for (long long r0 = 2 * ((long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31));
@@ -449,8 +465,42 @@ PLASMA_LEADS = {
     "plasma_bounds_5": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(5)}},
     "plasma_bounds_6": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(6)}},
 }
+# The leads of K1a's and K2's redesign, each undone alone on the checkout
+# (which holds those that paid), or tried where it was dropped. K1a: (a)
+# the images staged in shared memory whenever they fit, as before, though
+# it costs a resident block; (b) no warp leaving the chain once its lanes
+# are dead, or warps leaving it in every build, not only those without
+# further stages; (c) every point build with the torus and cylinder code, the
+# point build without it free of launch bounds (76 registers), or held to
+# 4 blocks of 256 (64 registers), not 5 (48). K2:
+# (a) a launch an image; (b) the mask read a byte at a time; (c) unit
+# weights added as floats (a compare-and-swap loop in shared memory).
+_PB = os.path.join("xicsrt_tpu_torch", "ops", "pallas_binning.py")
+_SKIP = "        if (kSkip && !__any_sync(0xffffffffu, alive)) break;\n"
+_SKIP_BUILDS = "    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages == 0;"
+_FLAT_DECL = "__global__ void __launch_bounds__(256, 5) fused_trace_flat_kernel("
+K1A_LEADS = {
+    "staged_images": {_RUN: {"            staged < unstaged;": "            false;"}},
+    "no_warp_skip": {_CHAIN: {_SKIP: ""}},
+    "skip_all_builds": {_CHAIN: {_SKIP_BUILDS: "    constexpr bool kSkip = !Rec::kOn;"}},
+    "curved_all": {_RUN: {"const bool flat = src == XRT_K1_POINT && !cheb && !curved && "
+                          "stages == 0;": "const bool flat = false;"}},
+    "flat_unbounded": {_RUN: {_FLAT_DECL: "__global__ void fused_trace_flat_kernel("}},
+    "k1a_bounds_4": {_RUN: {_FLAT_DECL: _FLAT_DECL.replace("(256, 5)", "(256, 4)")}},
+}
+K2_LEADS = {
+    "k2_per_image": {_PB: {"    if len(items) > MAX_ITEMS:": "    if len(items) > 1:",
+                           "items[:MAX_ITEMS], unit_weights)": "items[:1], unit_weights)",
+                           "items[MAX_ITEMS:], unit_weights))": "items[1:], unit_weights))"}},
+    "k2_mask_bytes": {os.path.join("xicsrt_tpu_torch", "csrc", "bin_image.cu"): {
+        "    if (aligned && r0 + 16 <= n) return": "    if (false) return"}},
+    "k2_float_atomics": {_PB: {"0 if unit_weights else w.data_ptr()": "w.data_ptr()",
+                               "            int(unit_weights), out.data_ptr()":
+                               "            0, out.data_ptr()"}},
+}
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
-           **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD}
+           **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
+           **K1A_LEADS, **K2_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -491,13 +541,15 @@ def blocks_per_sm(registers: int) -> int:
 
 
 def ptxas_lines(report: str) -> list:
-    """(kernel, registers, spill stores, stack frame bytes) of K1, K3, K5f,
-    K5b and R2 from ptxas's report."""
+    """(kernel, registers, spill stores, stack frame bytes, static shared
+    memory bytes) of K1, K2, K3, K5f, K5b and R2 from ptxas's report."""
     out, name, stores, frame = [], None, 0, 0
     for line in report.splitlines():
-        m = re.search(r"(fused_trace_kernel|trace_only_kernel|fused_grad_fwd_kernel(?:_64)?"
-                      r"|fused_grad_bwd_kernel|mma_rate_kernel)(I\w+?E)?E", line)
-        if m:
+        m = re.search(r"(fused_trace_kernel|fused_trace_flat_kernel|trace_only_kernel"
+                      r"|fused_grad_fwd_kernel(?:_64)?"
+                      r"|fused_grad_bwd_kernel|mma_rate_kernel|bin_images?_kernel)(I\w+?E)?E",
+                      line)
+        if m and "Compiling entry" in line:
             name, stores, frame = m.group(1) + (m.group(2) or ""), 0, 0
             continue
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
@@ -505,8 +557,89 @@ def ptxas_lines(report: str) -> list:
             frame, stores = int(spill.group(1)), int(spill.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            out.append((name, int(m.group(1)), stores, frame))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), stores, frame,
+                        int(smem.group(1)) if smem else 0))
             name = None
+    return out
+
+
+def blocks_by_smem(static: int, dynamic: int) -> int:
+    """Blocks a multiprocessor holds by shared memory alone: its 228 KB over
+    each block's static and dynamic bytes and the 1 KB the card reserves a
+    block (the occupancy calculator's rule, for trees without an occupancy
+    entry point)."""
+    props = torch_props()
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    return per_sm // (static + dynamic + 1024)
+
+
+def torch_props():
+    import torch
+
+    return torch.cuda.get_device_properties(0)
+
+
+def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
+                  k2_floats: int) -> tuple:
+    """(blocks a multiprocessor, dynamic shared bytes) of K1's build ``name``
+    at the flagship's launch (``k1_floats`` image floats), or of K2 at its
+    largest image (``k2_floats``): the tree's occupancy entry point
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls
+    it) where it has one, else the launcher's rule before it had one (the
+    image in dynamic shared memory up to 51200 floats) by
+    :func:`blocks_by_smem`."""
+    if name.startswith("bin_image"):
+        if hasattr(lib, "xrt_bin_images_occupancy"):
+            unit = int("Lb1E" in name)
+            return lib.xrt_bin_images_occupancy(k2_floats, unit), 4 * k2_floats
+        dyn = 4 * k2_floats
+        return min(regs_blocks, blocks_by_smem(static, dyn)), dyn
+    args = [int(x) for x in re.findall(r"L[bi](\d+)E", name)]
+    if name.startswith("fused_trace_flat_kernel"):  # the point build without curved shapes
+        args = [0, 0, 0, args[0], 0]
+    if hasattr(lib, "xrt_fused_trace_occupancy") and len(args) >= 4:
+        import ctypes
+
+        dyn = ctypes.c_int(0)
+        src, cheb, stages, mark = args[:4]
+        curved = args[4] if len(args) > 4 else 1
+        fn = lib.xrt_fused_trace_marked_occupancy if mark else lib.xrt_fused_trace_occupancy
+        blocks = fn(src, cheb, stages, curved, k1_floats, ctypes.byref(dyn))
+        return blocks, dyn.value
+    dyn = 4 * k1_floats
+    return min(regs_blocks, blocks_by_smem(static, dyn)), dyn
+
+
+def sass_counts(lib_path: str, pattern: str) -> dict:
+    """{function: {opcode: count}} of the SASS (``cuobjdump -sass`` of the
+    built library) of each function whose mangled name matches ``pattern``,
+    with ``ATOMS.CAST``, ``ATOMS.ADD``, ``ATOMS.POPC``, ``RED`` and ``ATOMG``
+    beside each base opcode, and ``all`` the instructions; empty where the
+    toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True).stdout
+    out, current = {}, None
+    for line in dump.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            current = head.group(1) if re.search(pattern, head.group(1)) else None
+            if current:
+                out[current] = {}
+            continue
+        ins = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if current and ins:
+            op = ins.group(1)
+            c = out[current]
+            c["all"] = c.get("all", 0) + 1
+            base = op.split(".")[0]
+            c[base] = c.get(base, 0) + 1
+            for full in ("ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "ATOMG", "RED"):
+                if op.startswith(full) and full != base:
+                    c[full] = c.get(full, 0) + 1
     return out
 
 
@@ -528,13 +661,39 @@ def child(tree: str, mode: str) -> None:
     from xicsrt_tpu_torch.ops import fused_trace as ft
 
     label = os.path.basename(tree)
-    for name, regs, stores, frame in ptxas_lines(native.ptxas_report()):
-        print(f"{label} ptxas {name}: {regs} registers, {stores} bytes spill stores, "
-              f"{frame} bytes stack frame, {blocks_per_sm(regs)} blocks of 256 per "
-              f"multiprocessor", flush=True)
+    # The checkout's chip_smoke.py helpers where the tree's lacks them. K2's
+    # calls are shorter than the host's time to issue them: they are timed
+    # on the card alone, queued behind a spin kernel (device_ms);
+    # torch.bincount waits on the host inside a call, so its kernels are
+    # timed by the profiler (kernel_ms).
+    helpers = (vars(cs) if hasattr(cs, "kernel_ms")
+               else runpy.run_path(os.path.join(ROOT, "chip_smoke.py")))
+    device_ms, kernel_ms = helpers["device_ms"], helpers["kernel_ms"]
+    lib = native.library()
+    for name, regs, stores, frame, smem in ptxas_lines(native.ptxas_report()):
+        line = (f"{label} ptxas {name}: {regs} registers, {stores} bytes spill stores, "
+                f"{frame} bytes stack frame, {blocks_per_sm(regs)} blocks of 256 per "
+                f"multiprocessor by registers")
+        if name.startswith(("fused_trace_kernel", "fused_trace_flat_kernel", "bin_image")):
+            blocks, dyn = launch_blocks(lib, name, blocks_per_sm(regs), smem,
+                                        helpers["FLAGSHIP_IMG_FLOATS"],
+                                        max(helpers["K2_IMAGES"]))
+            what = "the flagship's images" if name.startswith("fused") else "a 100 x 100 image"
+            line += (f"; {smem} bytes static shared memory, at {what} {dyn} dynamic: "
+                     f"{blocks} blocks ({8 * blocks} warps) by registers and shared memory")
+        print(line, flush=True)
+    lib_path = native.build()
+    for fn, ops in sass_counts(lib_path, r"fused_trace_kernelILi0ELb0ELi0ELb0E|"
+                               r"fused_trace_flat_kernelILb0E|bin_images?_kernel").items():
+        keys = ("all", "ATOMS", "ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "RED", "ATOM",
+                "ATOMG", "MUFU", "LDS", "LDG", "BRA", "BSSY")
+        print(f"{label} sass {fn}: " + ", ".join(f"{k} {ops.get(k, 0)}" for k in keys),
+              flush=True)
 
-    def ms(fn) -> tuple:
-        means = [cs.cuda_ms(fn, 20) for _ in range(5)]
+    def ms(fn, timer=cs.cuda_ms) -> tuple:
+        means = [timer(fn, 20) for _ in range(5)]
+        if None in means:  # kernel_ms: the profiler recorded no device time
+            return float("nan"), float("nan")
         return min(means), statistics.median(means)
 
     n = 1 << 22
@@ -584,6 +743,60 @@ def child(tree: str, mode: str) -> None:
             "K1b": cs.source_matrix_config(n, 1, "fused"),
             "K1b xy_asym": cs.source_variant_config("isotropic_xy_asym", n, 1,
                                                     engine="fused")})
+    # K2 on phase 7's dense input (90 % of 2^22 uniform hits, each image of
+    # the flagship) and on the main path's own (one eager iteration's
+    # crystal and detector items), as the eager engine bins them: one
+    # launch an item, or one for all where the tree packs them
+    # (bin_images_cuda); torch.bincount on the same set rays beside each.
+    from xicsrt_tpu_torch.ops import pallas_binning as pb
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dense = []
+    for nx, ny, ps in cs.FLAGSHIP_IMAGES:
+        xl, mask, _ = cs.hits(n, nx, ny, ps, gen)
+        dense.append((xl, mask, torch.ones(n, device="cuda"), nx, ny, ps))
+    k2_inputs = {"dense": dense, "main": helpers["eager_image_items"](n)}
+    packed = getattr(pb, "bin_images_cuda", None)
+    for key, items in k2_inputs.items():
+        unit = all(bool(torch.all(w == 1)) for _, _, w, *_ in items)
+        if packed is not None:
+            run = lambda: packed(items, unit_weights=unit)  # noqa: E731
+            first = lambda: packed(items[:1], unit_weights=unit)  # noqa: E731
+        else:
+            run = lambda: [pb.bin_image_cuda(*item) for item in items]  # noqa: E731
+            first = lambda: pb.bin_image_cuda(*items[0])  # noqa: E731
+        times[f"K2 {key}"] = ms(run, device_ms)
+        times[f"K2 {key} 100x100"] = ms(first, device_ms)
+        times[f"K2 {key} host"] = ms(run)
+        equal[f"K2 {key}"] = all(bool(torch.equal(a, pb.bin_image_plain(*item)))
+                                 for a, item in zip(run(), items))
+        idx = helpers["bincount_inputs"](items)
+        bincount = lambda: [torch.bincount(i, w, minlength=p) for i, w, p in idx]  # noqa: E731
+        times[f"bincount {key}"] = ms(bincount, kernel_ms)
+        times[f"bincount {key} host"] = ms(bincount)
+        n_set = sum(int(m.sum()) for _, m, *_ in items)
+        print(f"{label} K2 {key}: {len(items)} images, {n_set} of "
+              f"{sum(m.numel() for _, m, *_ in items)} rays set, unit weights {unit}",
+              flush=True)
+    del dense, k2_inputs
+    # The main path end to end: the flagship's raytrace on both engines as
+    # phase 7 times it (fused 2^26 x 4, eager + K2 2^22 x 4; ms a call, 3
+    # calls a mean), and the fused call's one K1 launch of 2^28 rays.
+    import xicsrt_tpu_torch
+
+    fused_cfg = cs.flagship(2**26, 4, engine="fused")
+    eager_cfg = cs.flagship(2**22, 4, engine="xla", binning="pallas")
+    big = cs.k1_pack(engine.Pipeline(fused_cfg, device="cuda"))
+
+    def calls(fn) -> tuple:
+        means = [cs.cuda_ms(fn, 3) for _ in range(3)]
+        return min(means), statistics.median(means)
+
+    times["K1a 2^28"] = calls(lambda: ft.fused_run_cuda(big, 2**28, 2**28, seed=(1, 2)))
+    times["raytrace fused"] = calls(lambda: xicsrt_tpu_torch.raytrace(fused_cfg,
+                                                                      device="cuda"))
+    times["raytrace eager"] = calls(lambda: xicsrt_tpu_torch.raytrace(eager_cfg,
+                                                                      device="cuda"))
     chains["K1c-cylinder"] = cs.cylinder_config(n, 1, "fused")
     for name, cfg in chains.items():
         fparams = cs.k1_pack(engine.Pipeline(cfg, device="cuda"))

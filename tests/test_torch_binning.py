@@ -22,7 +22,7 @@ import torch
 from xicsrt_tpu.ops.binning import bin_image as _jax_bin_image
 from xicsrt_tpu.ops.pallas_binning import bin_image_pallas
 from xicsrt_tpu_torch.ops import binning as tbin
-from xicsrt_tpu_torch.ops.pallas_binning import bin_image_cuda, bin_image_plain
+from xicsrt_tpu_torch.ops.pallas_binning import bin_image_plain, bin_images_cuda
 
 jax_bin_image = jax.jit(_jax_bin_image, static_argnums=(3, 4, 5))
 SHAPES = [(100, 100, 0.002), (100, 50, 0.004), (40, 20, 0.005)]
@@ -90,8 +90,8 @@ def test_round_half_to_even():
     w = np.ones(4, np.float32)
     ref = np.asarray(jax_bin_image(jnp.asarray(x), jnp.asarray(mask),
                                    jnp.asarray(w), nx, ny, ps))
-    twin = bin_image_cuda(torch.from_numpy(x), torch.from_numpy(mask),
-                          torch.from_numpy(w), nx, ny, ps).numpy()
+    twin = bin_images_cuda([(torch.from_numpy(x), torch.from_numpy(mask),
+                             torch.from_numpy(w), nx, ny, ps)])[0].numpy()
     np.testing.assert_array_equal(ref[:, 0], [1, 0, 2, 0])
     np.testing.assert_array_equal(twin, ref)
 
@@ -101,17 +101,17 @@ def test_cpu_tensors_take_the_twin():
     nx, ny, ps = SHAPES[1]
     x, mask = _hits(nx, ny, ps, n=3000, seed=3)
     w = np.ones(len(x), np.float32)
-    before = bin_image_cuda.launches
+    before = bin_images_cuda.launches
     items = [(torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(w),
               nx, ny, ps)]
     out = tbin.bin_images_fused(items, "nearest", impl="pallas")[0]
     ref = tbin.bin_images_fused(items, "nearest", impl="xla")[0]
-    assert bin_image_cuda.launches == before
+    assert bin_images_cuda.launches == before
     assert torch.equal(out, ref)
     # Bilinear images are plain PyTorch on every device; the pallas choice
     # names the nearest-mode kernel only.
     bilinear = tbin.bin_images_fused(items, "bilinear", impl="pallas")[0]
-    assert bin_image_cuda.launches == before
+    assert bin_images_cuda.launches == before
     assert torch.equal(bilinear, tbin.bin_images_fused(items, "bilinear")[0])
     assert 0 < float(bilinear.sum()) <= float(mask.sum())
     with pytest.raises(ValueError):
@@ -123,8 +123,8 @@ def test_float64_inputs_bin_in_float32():
     nx, ny, ps = SHAPES[2]
     x, mask = _hits(nx, ny, ps, n=2000, seed=4)
     w = np.ones(len(x), np.float64)
-    out = bin_image_cuda(torch.from_numpy(x.astype(np.float64)),
-                         torch.from_numpy(mask), torch.from_numpy(w), nx, ny, ps)
+    out, = bin_images_cuda([(torch.from_numpy(x.astype(np.float64)),
+                             torch.from_numpy(mask), torch.from_numpy(w), nx, ny, ps)])
     ref = bin_image_pallas(jnp.asarray(x.astype(np.float64)), jnp.asarray(mask),
                            jnp.asarray(w), nx, ny, ps, interpret=True)
     assert out.dtype == torch.float64

@@ -14,7 +14,7 @@ import torch
 from __graft_entry__ import _spectrometer_config
 from xicsrt_tpu_torch.engine import Pipeline
 from xicsrt_tpu_torch.ops import fused_trace as ft
-from xicsrt_tpu_torch.ops.pallas_binning import bin_image_cuda, bin_image_plain
+from xicsrt_tpu_torch.ops.pallas_binning import bin_image_plain, bin_images_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -44,9 +44,9 @@ def test_binning_kernel_matches_twin(cuda_device, nx, ny, ps):
     xt = torch.from_numpy(x).to(cuda_device)
     mt = torch.from_numpy(rng.uniform(size=n) < 0.9).to(cuda_device)
     ones = torch.ones(n, device=cuda_device)
-    before = bin_image_cuda.launches
-    out = bin_image_cuda(xt, mt, ones, nx, ny, ps)
-    assert bin_image_cuda.launches == before + 1
+    before = bin_images_cuda.launches
+    out, = bin_images_cuda([(xt, mt, ones, nx, ny, ps)])
+    assert bin_images_cuda.launches == before + 1
     assert torch.equal(out, bin_image_plain(xt, mt, ones, nx, ny, ps))
 
 
@@ -66,6 +66,84 @@ def test_fused_kernel_matches_twin(cuda_device, angular):
     assert int(kernel[0][0]) == n - 7
     assert (kernel[0] - twin[0]).abs().max().item() <= TOL_RAYS
     assert (kernel[1] - twin[1]).abs().sum().item() <= 2 * TOL_RAYS * len(optics)
+
+
+def _k1a_case(case, n):
+    """K1a's chains: the flagship; a sparse one (a 5 cm crystal, the last
+    5000 rays dead at the source), where more warps leave the chain early;
+    phase 27's convex toroidal crystals, which take the build with the torus
+    code."""
+    import chip_smoke
+
+    if case == "torus":
+        return chip_smoke.mirror_configs(n, 1, "fused")["torus_no_check"], n, True
+    cfg = chip_smoke.flagship(n, 1, engine="fused")
+    if case == "sparse":
+        cfg["optics"]["crystal"]["xsize"] = 0.05
+        return cfg, n - 5000, False
+    return cfg, n, False
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+@pytest.mark.parametrize("case", ["flagship", "sparse", "torus"])
+def test_k1a_matches_twin_exactly(cuda_device, case, rng):
+    """K1a's builds (images in global atomics where staging costs a block,
+    warps leaving the chain once their lanes are dead, the point build
+    without the torus and cylinder code) 0 rays and 0 pixels apart from the
+    twin, both RNG modes."""
+    from xicsrt_tpu_torch.tools.roofline import k1_pack
+
+    n = 1 << 18
+    cfg, count, curved = _k1a_case(case, n)
+    fparams = k1_pack(Pipeline(cfg, device=cuda_device))
+    assert (fparams.full_source, fparams.cheb, fparams.stages, fparams.curved) == (
+        False, False, 0, curved)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    kwargs = ({"uniforms": torch.rand((fparams.n_draws, n), generator=gen,
+                                      device=cuda_device)}
+              if rng == "input" else {"seed": (21, 22)})
+    before = ft.fused_run_cuda.launches
+    kernel = ft.fused_run_cuda(fparams, n, count, **kwargs)
+    twin = ft.fused_run_plain(fparams, n, count, **kwargs)
+    assert ft.fused_run_cuda.launches == before + 1
+    assert int(kernel[0][0]) == count
+    assert int(kernel[0][-1]) > 0
+    assert torch.equal(kernel[0], twin[0])
+    assert torch.equal(kernel[1], twin[1])
+
+
+@pytest.mark.parametrize("weights", ["unit", "float"])
+def test_k2_one_launch_matches_plain_per_image(cuda_device, weights):
+    """K2's one launch for several images (ray counts of their own, one mask
+    not 16-byte aligned, an empty item) against bin_image_plain of each:
+    unit weights exactly (the unit flag's integer counters, and the float
+    path), random weights within float32 summation order."""
+    rng = np.random.default_rng(12)
+    items = []
+    for (nx, ny, ps), n in zip([(100, 100, 0.002), (100, 50, 0.004), (40, 20, 0.005),
+                                (30, 30, 0.01)], [1 << 18, 77777, 1 << 16, 0]):
+        x = np.zeros((n + 1, 3), np.float32)
+        x[:, 0] = rng.uniform(-0.5, 0.5, n + 1) * (nx + 4) * ps
+        x[:, 1] = rng.uniform(-0.5, 0.5, n + 1) * (ny + 4) * ps
+        mask = torch.from_numpy(rng.uniform(size=n + 1) < 0.2).to(cuda_device)
+        w = (np.ones(n + 1, np.float32) if weights == "unit"
+             else rng.uniform(size=n + 1).astype(np.float32))
+        # The second item's rays start one byte into their mask.
+        cut = slice(1, None) if ny == 50 else slice(0, n)
+        items.append((torch.from_numpy(x[cut]).to(cuda_device), mask[cut],
+                      torch.from_numpy(w[cut]).to(cuda_device), nx, ny, ps))
+    assert items[1][1].data_ptr() % 16 != 0
+    flags = (True, False) if weights == "unit" else (False,)
+    for unit in flags:
+        before = bin_images_cuda.launches
+        got = bin_images_cuda(items, unit_weights=unit)
+        assert bin_images_cuda.launches == before + 1
+        for image, item in zip(got, items):
+            plain = bin_image_plain(*item)
+            if weights == "unit":
+                assert torch.equal(image, plain)
+            else:
+                assert torch.allclose(image, plain, rtol=1e-5, atol=1e-5)
 
 
 def _grad_setup(cuda_device, n):

@@ -63,21 +63,29 @@ __device__ __forceinline__ bool xrt_k1_source(
 
 namespace {
 
+// K1's kernel parameters (xrt_fused_trace, fused_trace.cu), and their
+// names as its builds pass them on.
+#define XRT_K1_PARAMS                                                              \
+    const float *__restrict__ g_fp, int n_fp, const int *__restrict__ g_ip, int n_ip, \
+        const float *__restrict__ aux, long long n_total, long long count,          \
+        const float *__restrict__ uniforms, uint32_t seed0, uint32_t seed1,         \
+        const int *__restrict__ cum, const float *__restrict__ table, int n_bundles, \
+        int n_per_iter, unsigned long long *__restrict__ counts,                    \
+        float *__restrict__ images, int img_total, int use_smem,                    \
+        int *__restrict__ marks, int chunk
+#define XRT_K1_ARGS                                                                  \
+    g_fp, n_fp, g_ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum, table, \
+        n_bundles, n_per_iter, counts, images, img_total, use_smem, marks, chunk
+
 // kSrc: the source's build (xrt_k1_source). kCheb: the chain's mesh stage;
 // kStages: its weight and bilinear stages (1), and the mosaic's (2)
 // (trace_chain.cuh). kMark: set marks[c] = 1 for each chunk c of `chunk`
 // rays whose final element keeps a ray (K1e's 'found' mode); a chunk is a
 // multiple of 32 rays, so a warp's rays lie in one chunk and one ballot
-// decides it.
-template <int kSrc, bool kCheb, int kStages, bool kMark>
-__global__ void fused_trace_kernel(
-    const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
-    int n_ip, const float* __restrict__ aux, long long n_total, long long count,
-    const float* __restrict__ uniforms, uint32_t seed0, uint32_t seed1,
-    const int* __restrict__ cum, const float* __restrict__ table,
-    int n_bundles, int n_per_iter, unsigned long long* __restrict__ counts,
-    float* __restrict__ images, int img_total, int use_smem,
-    int* __restrict__ marks, int chunk) {
+// decides it. kCurved: the chain's torus and cylinder code
+// (fused_trace_flat_kernel compiles the chain without it).
+template <int kSrc, bool kCheb, int kStages, bool kMark, bool kCurved>
+__device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     extern __shared__ float s_img[];
     __shared__ float fp[XRT_MAX_FP];
     __shared__ int ip[XRT_MAX_IP];
@@ -110,7 +118,7 @@ __global__ void fused_trace_kernel(
                                                table, n_bundles, n_per_iter, lane, px, py,
                                                pz, dx, dy, dz, wl);
         xrt_count_warp(s_counts, 0, alive, lane);
-        const bool found = xrt_trace_chain<kCheb, kStages>(
+        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kCurved>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
         if constexpr (kMark) {
@@ -127,6 +135,105 @@ __global__ void fused_trace_kernel(
     if (use_smem) xrt_smem_flush(s_img, images, img_total);
 }
 
+template <int kSrc, bool kCheb, int kStages, bool kMark>
+__global__ void fused_trace_kernel(XRT_K1_PARAMS) {
+    xrt_fused_trace_body<kSrc, kCheb, kStages, kMark, true>(XRT_K1_ARGS);
+}
+
+// The point source's build without the Chebyshev, weight or mosaic stages
+// and without the torus and cylinder code, for chains of planes and
+// spheres (the flagship's). Without that code ptxas took it from 63
+// registers to 76 (3 blocks of 256 a multiprocessor), so it is held to 5
+// blocks, 48 registers, where it spills nothing; the weight build took 78
+// registers against 56 with the code, so the later stages keep it. Its
+// own kernel, as launch bounds on fused_trace_kernel would bound every
+// build (ptxas took the Chebyshev builds from 74 to 117 registers under
+// bounds of one block).
+template <bool kMark>
+__global__ void __launch_bounds__(256, 5) fused_trace_flat_kernel(XRT_K1_PARAMS) {
+    xrt_fused_trace_body<XRT_K1_POINT, false, 0, kMark, false>(XRT_K1_ARGS);
+}
+
+// The build of K1 a run takes (the arguments of xrt_fused_trace,
+// fused_trace.cu; curved: the chain holds a torus or a cylinder), and the
+// dynamic shared memory of its launch. The nearest mc images of the builds
+// without further stages are staged in a block-private shared histogram
+// only where that costs no resident block against the build's registers,
+// else each hit is a global atomic. Weighted and bilinear images (stages 1
+// and 2) are float sums of many terms: staged, each block adds its partial
+// sums, which keeps their rounding within what the checks hold them to
+// (with global atomics alone, the flagship's bilinear detector image of
+// 2^28 rays summed 48 short of its 3575015 rays, past chip_smoke.py's 1e-5
+// of its count), so they are always staged where they fit. The
+// flagship's 15000 image floats (58.6 KB) with K1's 5.2 KB of static
+// shared memory held its point build to 3 blocks of 256 where its
+// registers allow 4 (5 for fused_trace_flat_kernel); its images take about
+// 1.3 % of its rays, so global atomics cost little (1.12x with them,
+// chip_ab.py `staged_images`). The threshold is the image that fits beside
+// the blocks the registers allow: about 13020 floats at 4 blocks, 10101 at
+// 5 (228 KB over the blocks, less the static bytes and the 1 KB the card
+// keeps a block). Nearest mc images add 1.0f, exact in any order.
+template <bool kMark>
+struct XrtFusedPick {
+    using Kernel = decltype(&fused_trace_kernel<XRT_K1_POINT, false, 0, kMark>);
+    Kernel kernel;
+    size_t smem;
+    int use_smem;
+};
+
+template <bool kMark>
+inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int curved,
+                                          int img_total, int threads) {
+    using Kernel = typename XrtFusedPick<kMark>::Kernel;
+#define XRT_K1_BUILDS(S)                                                          \
+    fused_trace_kernel<S, false, 0, kMark>, fused_trace_kernel<S, false, 1, kMark>, \
+        fused_trace_kernel<S, false, 2, kMark>, fused_trace_kernel<S, true, 0, kMark>, \
+        fused_trace_kernel<S, true, 1, kMark>, fused_trace_kernel<S, true, 2, kMark>
+    const Kernel kernels[19] = {
+        XRT_K1_BUILDS(XRT_K1_POINT), XRT_K1_BUILDS(XRT_K1_GENERIC),
+        XRT_K1_BUILDS(XRT_K1_PLASMA), fused_trace_flat_kernel<kMark>};
+#undef XRT_K1_BUILDS
+    const bool flat = src == XRT_K1_POINT && !cheb && !curved && stages == 0;
+    XrtFusedPick<kMark> pick{kernels[flat ? 18 : 6 * src + (cheb ? 3 : 0) + stages], 0, 0};
+    const size_t bytes = (size_t)img_total * sizeof(float);
+    if (img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
+        xrt_set_smem(pick.kernel, bytes) == cudaSuccess) {
+        int staged = 0, unstaged = 0;
+        const bool costs_a_block =
+            stages == 0 &&
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&staged, pick.kernel, threads,
+                                                          bytes) == cudaSuccess &&
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&unstaged, pick.kernel, threads,
+                                                          0) == cudaSuccess &&
+            staged < unstaged;
+        if (!costs_a_block) {
+            pick.smem = bytes;
+            pick.use_smem = 1;
+        }
+    }
+    return pick;
+}
+
+// Blocks of `threads` a multiprocessor holds of the build and launch
+// xrt_fused_pick makes (cudaOccupancyMaxActiveBlocksPerMultiprocessor as
+// the launcher calls it), with its dynamic shared bytes in *dyn_smem; -1
+// where the query fails.
+template <bool kMark>
+inline int xrt_fused_occupancy(int src, int cheb, int stages, int curved, int img_total,
+                               int* dyn_smem) {
+    const int threads = 256;
+    const XrtFusedPick<kMark> pick =
+        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total, threads);
+    int blocks = 0;
+    if (xrt_set_smem(pick.kernel, pick.smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick.kernel, threads,
+                                                      pick.smem) != cudaSuccess) {
+        return -1;
+    }
+    *dyn_smem = (int)pick.smem;
+    return blocks;
+}
+
 // Launches the build of K1 the run takes (the arguments of xrt_fused_trace,
 // fused_trace.cu), with kMark the builds that also mark the chunks of
 // `chunk` rays that keep a ray at the final element into marks
@@ -139,8 +246,8 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                             unsigned int seed1, const int* cum, const float* table,
                             int n_bundles, long long n_per_iter,
                             unsigned long long* counts, float* images, int img_total,
-                            int full_source, int cheb, int stages, int* marks,
-                            int chunk, void* stream) {
+                            int full_source, int cheb, int stages, int curved,
+                            int* marks, int chunk, void* stream) {
     if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
         stages < 0 || stages > 2) {
         return (int)cudaErrorInvalidValue;
@@ -154,26 +261,17 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
     }
     if (n_total <= 0) return (int)cudaSuccess;
     const int threads = 256;
-    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
-    const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    using Kernel = decltype(&fused_trace_kernel<XRT_K1_POINT, false, 0, kMark>);
-#define XRT_K1_BUILDS(S)                                                          \
-    fused_trace_kernel<S, false, 0, kMark>, fused_trace_kernel<S, false, 1, kMark>, \
-        fused_trace_kernel<S, false, 2, kMark>, fused_trace_kernel<S, true, 0, kMark>, \
-        fused_trace_kernel<S, true, 1, kMark>, fused_trace_kernel<S, true, 2, kMark>
-    const Kernel kernels[18] = {XRT_K1_BUILDS(XRT_K1_POINT), XRT_K1_BUILDS(XRT_K1_GENERIC),
-                                XRT_K1_BUILDS(XRT_K1_PLASMA)};
-#undef XRT_K1_BUILDS
     const int src = cum != nullptr ? XRT_K1_PLASMA
                                    : full_source ? XRT_K1_GENERIC : XRT_K1_POINT;
-    const Kernel kernel = kernels[6 * src + (cheb ? 3 : 0) + stages];
-    cudaError_t err = xrt_set_smem(kernel, smem);
+    const XrtFusedPick<kMark> pick =
+        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total, threads);
+    cudaError_t err = xrt_set_smem(pick.kernel, pick.smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
-    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    const int blocks = xrt_grid_size(pick.kernel, threads, pick.smem, n_total);
+    pick.kernel<<<blocks, threads, pick.smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum,
         table, n_bundles, (int)n_per_iter, counts, images, img_total,
-        use_smem, marks, chunk);
+        pick.use_smem, marks, chunk);
     return (int)cudaGetLastError();
 }
 

@@ -74,9 +74,14 @@
 // mosaic crystal two erfinvf, a sqrt and a rocking curve per layer. Counts
 // are reduced per warp with __ballot_sync/__popc into
 // shared counters, images are block-private shared-memory histograms
-// (binning.cuh), a bilinear hit four shared atomics where the TPU kernel
-// contracted tent matrices on its MXU, both flushed once per block with
-// global atomics.
+// (binning.cuh) where staging them costs no resident block, else global
+// atomics (xrt_fused_pick, fused_run.cuh), a bilinear hit four atomics
+// where the TPU kernel contracted tent matrices on its MXU, shared images
+// flushed once per block with global atomics. In the builds without
+// further stages a warp leaves the chain once its lanes are dead
+// (trace_chain.cuh); the flagship's chain of planes and spheres takes a
+// build without the torus and cylinder code, held to 5 blocks of 256
+// (fused_trace_flat_kernel).
 #include "fused_run.cuh"
 
 // fp/ip: packed parameters (n_fp floats, n_ip ints) on the device. Rays
@@ -92,7 +97,9 @@
 // (cum not null) takes the plasma's builds. aux: n_aux
 // float32 of file tables and Chebyshev terms (never null); cheb: the
 // chain's mesh stage; stages: 0, or 1 for its weight and bilinear stages,
-// 2 with the mosaic's too. Returns cudaGetLastError() of the launch.
+// 2 with the mosaic's too; curved: the chain holds a torus or a cylinder
+// (a point source without further stages takes a build without their code
+// where it holds neither). Returns cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, const float* aux, int n_aux,
                                long long n_total, long long count,
@@ -101,9 +108,19 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
                                float* images, int img_total, int full_source,
-                               int cheb, int stages, void* stream) {
+                               int cheb, int stages, int curved, void* stream) {
     return xrt_fused_launch<false>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
                                    uniforms, seed0, seed1, cum, table, n_bundles,
                                    n_per_iter, counts, images, img_total, full_source,
-                                   cheb, stages, nullptr, 0, stream);
+                                   cheb, stages, curved, nullptr, 0, stream);
+}
+
+// Blocks of 256 a multiprocessor holds of the build of K1 that
+// xrt_fused_trace launches (src: 0 point, 1 generic, 2 plasma; the other
+// arguments its own), by registers and the launch's shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls it),
+// and its dynamic shared bytes in *dyn_smem; -1 where the query fails.
+extern "C" int xrt_fused_trace_occupancy(int src, int cheb, int stages, int curved,
+                                         int img_total, int* dyn_smem) {
+    return xrt_fused_occupancy<false>(src, cheb, stages, curved, img_total, dyn_smem);
 }

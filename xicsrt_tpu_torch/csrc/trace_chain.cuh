@@ -419,21 +419,40 @@ __device__ __forceinline__ void xrt_splat(float* img, float fx, float fy,
 // code 2, the table read from aux) and mirrors (interact code 2: d' = d -
 // 2 (d.n) n, no draw) are in every build.
 //
+// kCurved false compiles the plane and the sphere alone, for chains with
+// no torus or cylinder (FusedParams.curved); a build with the Chebyshev
+// stage takes every shape.
+//
+// In the builds without further stages (kStages 0, no Chebyshev stage) a
+// warp with no live lane leaves the chain before an element (a
+// warp-uniform __any_sync): every later element would find its rays dead,
+// add nothing to the counts or the images and draw for no live ray, and a
+// ray's draws are keyed by (ray, draw index), so no live ray's draws move.
+// The flagship's detector finds 66 % of its warps dead (1.3 % of the rays
+// alive), and the plasma's torus chain most of its own. Where weight mode
+// keeps the rays alive, or the Chebyshev and mosaic loops dominate, the
+// vote cost more than it saved (chip_ab.py `skip_all_builds`, PERF.md),
+// so those builds run every element. The record hook (K1e) takes every
+// element's state, so with it the warp runs the whole chain.
+//
 // Returns whether the ray is alive after the last element. rec, where its
 // kOn is set, takes each element's state (1 + e, position, direction,
 // alive, weight) in place of the counts and the images.
-template <bool kCheb, int kStages, class Rec = XrtNoRecord>
+template <bool kCheb, int kStages, class Rec = XrtNoRecord, bool kCurved = true>
 __device__ __forceinline__ bool xrt_trace_chain(
     const float* fp, const int* ip, const float* __restrict__ aux, Draws& draw,
     float px, float py, float pz, float dx, float dy, float dz, float wl,
     bool per_ray_wl, bool alive, float wt, unsigned int* s_counts, float* img,
     int lane, Rec rec = Rec()) {
+    static_assert(kCurved || !kCheb, "the Chebyshev builds take every shape");
+    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages == 0;
     const int n_opt = ip[0];
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
     const bool weight = kStages >= 1 && ip[XRT_H_WEIGHT] != 0;
     const bool bilinear = kStages >= 1 && ip[XRT_H_BILINEAR] != 0;
     for (int e = 0; e < n_opt; ++e) {
+        if (kSkip && !__any_sync(0xffffffffu, alive)) break;
         const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
         const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
         float t, nxv, nyv, nzv;
@@ -447,7 +466,7 @@ __device__ __forceinline__ bool xrt_trace_chain(
             nxv = o[9];
             nyv = o[10];
             nzv = o[11];
-        } else if (oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
+        } else if (!kCurved || oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
             const SphereHit h = xrt_sphere_hit(o[12], o[13], o[14], o[15],
                                                0.0f, oi[1] != 0, px, py,
                                                pz, dx, dy, dz);
@@ -475,7 +494,7 @@ __device__ __forceinline__ bool xrt_trace_chain(
         if (oi[0] != 0 && !(kCheb && oi[0] == XRT_SHAPE_CHEB)) {
             // sphere, cylinder: towards the center or the axis; torus:
             // outward
-            if (oi[0] == 1) {
+            if (!kCurved || oi[0] == 1) {
                 nxv = o[12] - qx;
                 nyv = o[13] - qy;
                 nzv = o[14] - qz;

@@ -92,6 +92,8 @@ class Pipeline:
         keep_meta = bool(g.get("keep_meta", True))
         image_mode = str(g.get("image_mode", "nearest")).lower()
         binning_impl = str(g.get("binning", "xla")).lower()
+        # mc transport keeps every ray's weight at its source's 1.0
+        unit_weights = str(g.get("interact_mode", "mc")).lower() == "mc"
         image_specs = self.image_specs()
         source = self.source
 
@@ -114,7 +116,7 @@ class Pipeline:
                         (x_local, rays.mask, rays.weight, nx, ny, pixel_size))
                     image_names.append(name)
             images = dict(zip(image_names, bin_images_fused(
-                image_inputs, image_mode, impl=binning_impl)))
+                image_inputs, image_mode, impl=binning_impl, unit_weights=unit_weights)))
             return {"meta": meta, "image": images, "history": history}
 
         return iteration

@@ -150,17 +150,18 @@ class TentImages(torch.autograd.Function):
 
 
 def bin_images_fused(items: list, image_mode: str = "nearest",
-                     impl: str = "xla") -> list:
+                     impl: str = "xla", unit_weights: bool = False) -> list:
     """Bin several images over one ray axis.
 
     ``items``: list of (x_local, mask, weight, nx, ny, pixel_size).
     ``image_mode='bilinear'`` splats through :class:`TentImages` (plain
     PyTorch: the JAX package's bilinear path is XLA, not a Pallas kernel).
     For ``'nearest'``, ``impl``: 'xla' scatters with :func:`bin_image`;
-    'pallas' calls the CUDA binning kernel
-    (``ops/pallas_binning.bin_image_cuda``), which takes its plain twin for
-    tensors on the CPU, as the JAX package bins by scatter on its CPU
-    backend (``binning.py:307-308``).
+    'pallas' calls the CUDA binning kernel once for every image
+    (``ops/pallas_binning.bin_images_cuda``; ``unit_weights``: every weight
+    is one, as in mc transport), which takes its plain twin for tensors on
+    the CPU, as the JAX package bins by scatter on its CPU backend
+    (``binning.py:307-308``).
     """
     if image_mode == "bilinear":
         if not items:
@@ -176,7 +177,7 @@ def bin_images_fused(items: list, image_mode: str = "nearest",
     if image_mode != "nearest":
         raise ValueError(f"Unknown image_mode: {image_mode}")
     if impl == "pallas":
-        from xicsrt_tpu_torch.ops.pallas_binning import bin_image_cuda
+        from xicsrt_tpu_torch.ops.pallas_binning import bin_images_cuda
 
-        return [bin_image_cuda(*item) for item in items]
+        return bin_images_cuda(items, unit_weights)
     return [bin_image(*item) for item in items]

@@ -599,6 +599,14 @@ class FusedParams:
         return bool(self.shape_mask >> _SHAPES["cheb"] & 1)
 
     @property
+    def curved(self) -> bool:
+        """The chain holds a torus or a cylinder. K1's point-source build
+        without further stages comes without their code, for the chains of
+        planes and spheres that do not (the flagship's)."""
+        return bool(self.shape_mask >> _SHAPES["torus"] & 1
+                    or self.shape_mask >> _SHAPES["cylinder"] & 1)
+
+    @property
     def stages(self) -> int:
         """The build of K1 and K3 the run takes: 2 with the mosaic stage
         (and weight mode and bilinear images) for a chain with a mosaic
@@ -1798,7 +1806,8 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
             int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
             None if table is None else table.data_ptr(), n_bundles, n_per_iter,
             counts.data_ptr(), image.data_ptr(), fparams.img_total,
-            int(fparams.full_source), int(fparams.cheb), fparams.stages)
+            int(fparams.full_source), int(fparams.cheb), fparams.stages,
+            int(fparams.curved))
     stream = torch.cuda.current_stream(device).cuda_stream
     marks = None
     if history is not None and history.mode == "found":

@@ -36,22 +36,24 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "xrt_bin_image": [
-        _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P,
+    "xrt_bin_images": [
+        _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
     ],
+    "xrt_bin_images_occupancy": [ctypes.c_longlong, ctypes.c_int],
     "xrt_fused_trace": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ],
     "xrt_fused_trace_marked": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
     ],
+    "xrt_fused_trace_occupancy": [ctypes.c_int] * 5 + [_P],
+    "xrt_fused_trace_marked_occupancy": [ctypes.c_int] * 5 + [_P],
     "xrt_history_record": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,

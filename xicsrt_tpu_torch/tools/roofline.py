@@ -156,19 +156,25 @@ def generic_source_ops(fparams) -> int:
     return ops
 
 
-def chain_k1_ops(fparams) -> int:
-    """K1's and K3's chain: float32 operations per ray (a crystal's test or
-    weighting, nearest or bilinear images; a mosaic crystal's layers are
-    counted apart, ``mosaic_work``)."""
+def optic_k1_ops(fparams) -> list:
+    """K1's and K3's float32 operations per ray of each optic of the chain
+    (a crystal's test or weighting, nearest or bilinear images; a mosaic
+    crystal's layers are counted apart, ``mosaic_work``)."""
     image = OPS_PER_RAY["image_bilinear_k1" if fparams.bilinear else "image_nearest"]
-    ops = 0
+    out = []
     for shape, interact, n_ap, imaged, file, cheb in optic_structs(fparams):
         crystal = OPS_PER_RAY["crystal_mc_file" if file else "crystal_mc"]
-        ops += (cheb or OPS_PER_RAY["shape_k1"][shape]) + OPS_PER_RAY["bounds"]
+        ops = (cheb or OPS_PER_RAY["shape_k1"][shape]) + OPS_PER_RAY["bounds"]
         ops += n_ap * OPS_PER_RAY["aperture"]
         ops += {0: 0, 1: crystal, 2: OPS_PER_RAY["mirror"], 3: 0}[interact]
-        ops += image if imaged else 0
-    return ops
+        out.append(ops + (image if imaged else 0))
+    return out
+
+
+def chain_k1_ops(fparams) -> int:
+    """K1's and K3's chain: float32 operations per ray, every optic's
+    (:func:`optic_k1_ops`)."""
+    return sum(optic_k1_ops(fparams))
 
 
 def k1_ops(fparams) -> int:
@@ -176,6 +182,60 @@ def k1_ops(fparams) -> int:
     ip = fparams.ip
     ops = OPS_PER_RAY["plasma_k1"] if int(ip[5]) == 1 else generic_source_ops(fparams)
     return ops + chain_k1_ops(fparams)
+
+
+WARP = 32  # K1's lanes a warp; its rays r0 .. r0 + 31 with r0 a multiple of 32
+
+
+def live_lanes(fparams, n: int, seed=(1, 2), uniforms=None) -> dict:
+    """What K1 really traces of ``n`` rays of a point or generic source:
+    its plain twin (``fused_trace._trace_slice`` with its record hook, the
+    Philox stream of ``seed`` or the explicit ``uniforms``) gives each ray's
+    alive mask into every optic, and a warp is K1's 32 rays of consecutive
+    indices from a multiple of 32. Returns ``rays_into`` (the rays alive into
+    each optic: the source's count, then the counts after each optic but
+    the last), ``warps_into`` (the warps with a live lane into each optic),
+    ``warps`` (all of them), ``dead_warp_share`` (the share of warps with no
+    live lane at each optic) and ``counts`` (the twin's counts)."""
+    if fparams.plasma:
+        raise ValueError("live_lanes: a point or generic source only")
+    F = [float(x) for x in fparams.fp.tolist()]
+    I = [int(x) for x in fparams.ip.tolist()]
+    device = fparams.fp.device
+    counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
+    image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    into = torch.zeros((fparams.n_optics, n), dtype=torch.bool, device=device)
+    for rays, alive, _ in ft._slices(fparams, n, n, None):
+
+        def record(e, *state, wl=None):
+            if e < fparams.n_optics:
+                into[e, rays] = state[6]
+
+        ft._trace_slice(F, I, fparams.aux, alive, ft._draws(fparams, rays, uniforms, seed),
+                        counts, image, record=record)
+    warps = -(-n // WARP)
+    padded = torch.zeros((fparams.n_optics, warps * WARP), dtype=torch.bool, device=device)
+    padded[:, :n] = into
+    live = padded.reshape(fparams.n_optics, warps, WARP).any(dim=2).sum(dim=1)
+    return {"rays_into": into.sum(dim=1).tolist(), "warps_into": live.tolist(),
+            "warps": warps, "dead_warp_share": [1.0 - w / warps for w in live.tolist()],
+            "counts": counts.tolist()}
+
+
+def k1_live_ops(fparams, live: dict, n: int) -> dict:
+    """K1's float32 operations over ``n`` rays beside the flat census
+    (``k1_ops`` a ray, every ray through every optic): ``live_rays``, the
+    source's for every ray and each optic's (:func:`optic_k1_ops`) for the
+    rays alive into it; ``live_warps``, each optic's for every lane of the
+    warps with a live lane into it (what a kernel that skips dead warps
+    issues). ``live``: :func:`live_lanes` of the same rays."""
+    per_optic = optic_k1_ops(fparams)
+    source = k1_ops(fparams) - sum(per_optic)
+    return {"flat": k1_ops(fparams) * n,
+            "live_rays": source * n + sum(o * r for o, r in zip(per_optic,
+                                                                  live["rays_into"])),
+            "live_warps": source * n + sum(o * w * WARP for o, w in zip(
+                per_optic, live["warps_into"]))}
 
 
 def k5_ops(static, backward: bool) -> int:
