@@ -36,10 +36,21 @@ templates:
   ``curved_all``, ``flat_unbounded``, ``k1a_bounds_4`` (``K1A_LEADS``)
   and ``k2_per_image``, ``k2_mask_bytes``, ``k2_float_atomics``
   (``K2_LEADS``): the checkout with one lead of K1a's or K2's redesign
-  undone, or tried where it was dropped.
+  undone, or tried where it was dropped;
+- ``k1d_staged``, ``k1d_cluster``, ``k1d_curved_unstaged``,
+  ``k1d_no_zero_skip``, ``k1d_curved``, ``k1d_bounds_5``,
+  ``k1d_unbounded``, ``k1d_cheb_256``,
+  ``k1d_cheb_160``, ``k1d_no_vote``
+  (``K1D_LEADS``): the checkout with one lead of K1d's redesign (the
+  weight and bilinear stages) undone, or tried where it was dropped; the
+  checkout itself is the flat stage-1 build at 4 blocks.
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
-K1e and K3 alone, for the leads of the trace kernels.
+K1e and K3 alone, for the leads of the trace kernels; ``--stage1-only``
+times K1's weight and bilinear builds alone (:func:`stage1_chains`: the
+flagship's, the plasma's, the generic source's, the Chebyshev mesh's and
+the cylinder's) with K1a beside them, and K1a's and K1d's twins on the
+card (3 means of 3 calls).
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
@@ -59,7 +70,8 @@ dense hits and on the main path's own eager items (on the card alone,
 queued behind a spin kernel, and with the host's time to issue them)
 beside ``torch.bincount`` of the same set rays (its kernels alone by
 ``torch.profiler``, and with the host), of K1a at 2^28 rays and
-the flagship's ``raytrace`` on both engines (3 means of 3 calls), of K1a
+the flagship's ``raytrace`` on both engines, of K1d's weight and bilinear
+flagship at 2^28 rays and their fused ``raytrace`` (3 means of 3 calls), of K1a
 on the flagship at 2^22 rays, of
 K1c-file, K1c-mirror, K1c-cheb (example 06's mesh crystal on the mesh
 spectrometer, ``mesh41``, example 06 as written), K1d and K1c-mosaic
@@ -101,7 +113,7 @@ AB_DIR = os.path.join(ROOT, "build", "chip_ab")
 # Files of the checkout, and what a layout puts in place of their lines.
 ALL_IN = {
     os.path.join("xicsrt_tpu_torch", "csrc", "fused_run.cuh"):
-        {"kernels[flat ? 18 : 6 * src + (cheb ? 3 : 0) + stages]":
+        {"kernels[flat ? 18 + stages : 6 * src + (cheb ? 3 : 0) + stages]":
          "kernels[6 * src + (cheb ? 3 : 0) + 2]"},
     os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu"):
         {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
@@ -311,7 +323,7 @@ SPLIT_LAYOUTS = {
 # (2b) the plasma build in blocks of 128 threads, or held by launch bounds
 # to 5 or 6 blocks of 256 (40 or 48 warps a multiprocessor).
 _COMMON_SRC = os.path.join("xicsrt_tpu_torch", "csrc", "trace_common.cuh")
-_K1_THREADS = "    const int threads = 256;\n    const int src"
+_K1_THREADS = "    return src == XRT_K1_POINT && cheb && stages == 1 ? 128 : 256;"
 _PLASMA_BOUNDS = ("__global__ void __launch_bounds__(256, kSrc == XRT_K1_PLASMA ? {} : 1) "
                   "fused_trace_kernel(")
 # (2d) Two plasma rays a thread in the plasma build without further
@@ -461,7 +473,7 @@ PLASMA_LEADS = {
         _LOOKUP: "const int b = alive ? min(xrt_upper_bound(cum_j, n_bundles, local), "
                  "n_bundles - 1) : 0;"}},
     "plasma_blocks_128": {_RUN: {
-        _K1_THREADS: _K1_THREADS.replace("256", "cum != nullptr ? 128 : 256")}},
+        _K1_THREADS: _K1_THREADS.replace(": 256;", ": src == XRT_K1_PLASMA ? 128 : 256;")}},
     "plasma_bounds_5": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(5)}},
     "plasma_bounds_6": {_RUN: {_K1_DECL: _PLASMA_BOUNDS.format(6)}},
 }
@@ -476,17 +488,155 @@ PLASMA_LEADS = {
 # (a) a launch an image; (b) the mask read a byte at a time; (c) unit
 # weights added as floats (a compare-and-swap loop in shared memory).
 _PB = os.path.join("xicsrt_tpu_torch", "ops", "pallas_binning.py")
-_SKIP = "        if (kSkip && !__any_sync(0xffffffffu, alive)) break;\n"
-_SKIP_BUILDS = "    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages == 0;"
-_FLAT_DECL = "__global__ void __launch_bounds__(256, 5) fused_trace_flat_kernel("
+_SKIP = "        if (vote && !__any_sync(0xffffffffu, alive)) break;\n"
+_SKIP_BUILDS = "    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages <= 1;"
+_FLAT_BOUNDS = "__launch_bounds__(256, kStages == 0 ? 5 : 4)"
+_FLAT = "return src == XRT_K1_POINT && !cheb && !curved && stages <= 1;"
 K1A_LEADS = {
     "staged_images": {_RUN: {"            staged < unstaged;": "            false;"}},
     "no_warp_skip": {_CHAIN: {_SKIP: ""}},
-    "skip_all_builds": {_CHAIN: {_SKIP_BUILDS: "    constexpr bool kSkip = !Rec::kOn;"}},
-    "curved_all": {_RUN: {"const bool flat = src == XRT_K1_POINT && !cheb && !curved && "
-                          "stages == 0;": "const bool flat = false;"}},
-    "flat_unbounded": {_RUN: {_FLAT_DECL: "__global__ void fused_trace_flat_kernel("}},
-    "k1a_bounds_4": {_RUN: {_FLAT_DECL: _FLAT_DECL.replace("(256, 5)", "(256, 4)")}},
+    "skip_all_builds": {_CHAIN: {_SKIP_BUILDS: "    constexpr bool kSkip = !Rec::kOn;",
+                                 "    const bool vote = kSkip && !weight;":
+                                 "    const bool vote = kSkip;"}},
+    "curved_all": {_RUN: {_FLAT: "return false;"}},
+    "flat_unbounded": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, kStages == 0 ? 1 : 4)"}},
+    "k1a_bounds_4": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, 4)"}},
+}
+# The leads of K1d's redesign (the kStages 1 builds of K1: weight mode and
+# bilinear images), each undone alone on the checkout, or tried where it
+# was dropped: (1) weighted and bilinear images staged in each block's
+# float32 shared histogram where they fit, flushed into the float64
+# pixels, as before (costing the flagship a resident block); or split
+# over a cluster of 2 blocks (distributed shared memory: each block holds
+# half the pixels, every term an atomic in the owning block's half,
+# flushed once a cluster); (2) terms of zero issued; (3) the flagship's
+# weight and bilinear runs in the build with the torus and cylinder code;
+# (4) the flat build of kStages 1 held to 5 blocks of 256 (48 registers),
+# or unbounded, where the checkout holds it to 4 (64); (5) no warp vote in
+# mc runs of kStages 1. Where the checkout keeps staging (the point build
+# of kStages 1 with the torus and cylinder code), `k1d_curved_unstaged`
+# takes it away; `k1d_cheb_256` and `k1d_cheb_160` launch the point
+# Chebyshev build of kStages 1 in blocks of 256 or 160 threads (2 or 4 a
+# multiprocessor), not 128 (5).
+_STAGED = ("    if (stages >= 1 && !staged_float64) return pick;  "
+           "// float64 sums in global memory\n")
+_STAGED_CURVED = ("    const bool staged_float64 = src == XRT_K1_POINT && !cheb && stages == 1 "
+                  "&& !flat;")
+_K_STAGED = ("    constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 "
+             "&& kCurved;")
+_STAGE_ALL = """    if (stages >= 1) {
+        const size_t b = (size_t)img_total * sizeof(float);
+        if (img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
+            xrt_set_smem(pick.kernel, b) == cudaSuccess) {
+            pick.smem = b;
+            pick.use_smem = 1;
+        }
+        return pick;
+    }
+"""
+_STAGE_HALF = """    if (stages >= 1) {
+        const size_t b = (size_t)((img_total + 1) / 2) * sizeof(float);
+        if ((img_total + 1) / 2 <= XRT_SMEM_IMAGE_MAX_FLOATS &&
+            xrt_set_smem(pick.kernel, b) == cudaSuccess) {
+            pick.smem = b;
+            pick.use_smem = 1;
+        }
+        return pick;
+    }
+"""
+_STAGED_IMAGE = """    float* staged = nullptr;
+    __device__ __forceinline__ void add(int i, float v) const {
+        if (staged != nullptr) {
+            atomicAdd(staged + i, v);
+        } else {"""
+_CLUSTER_IMAGE = """    float* staged = nullptr;
+    int half = 0;
+    __device__ __forceinline__ void add(int i, float v) const {
+        if (staged != nullptr) {
+            const int rank = i / half;
+            atomicAdd(cooperative_groups::this_cluster().map_shared_rank(staged, rank) +
+                          (i - rank * half), v);
+        } else {"""
+_BODY_IMG = "        if (use_smem) img.staged = s_img;\n"
+_BODY_ZERO = """    if constexpr (kStages == 0 || kStaged) {
+        if (use_smem) xrt_smem_zero(s_img, img_total);
+    }
+    __syncthreads();
+"""
+_CLUSTER_ZERO = """    const int half = (img_total + 1) / 2;
+    const bool split = kStages >= 1 && use_smem;
+    if (use_smem) xrt_smem_zero(s_img, split ? half : img_total);
+    if (split) {
+        cooperative_groups::this_cluster().sync();
+    } else {
+        __syncthreads();
+    }
+"""
+_BODY_END = """    __syncthreads();
+    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {"""
+_CLUSTER_END = """    if (split) {
+        cooperative_groups::this_cluster().sync();
+    } else {
+        __syncthreads();
+    }
+    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {"""
+_BODY_FLUSH = """    if constexpr (kStages == 0 || kStaged) {
+        if (use_smem) xrt_smem_flush(s_img, out, img_total);
+    }
+"""
+_CLUSTER_FLUSH = """    if constexpr (kStages == 0) {
+        if (use_smem) xrt_smem_flush(s_img, out, img_total);
+    } else if (split) {
+        const int rank = (int)cooperative_groups::this_cluster().block_rank();
+        xrt_smem_flush(s_img, out + rank * half, min(half, img_total - rank * half));
+    }
+"""
+_LAUNCH = """    const int blocks = xrt_grid_size(pick.kernel, pick.threads, pick.smem, n_total);
+    pick.kernel<<<blocks, pick.threads, pick.smem, (cudaStream_t)stream>>>("""
+_CLUSTER_LAUNCH = """    int blocks = xrt_grid_size(pick.kernel, pick.threads, pick.smem, n_total);
+    if (stages >= 1 && pick.use_smem) {
+        blocks = blocks > 2 ? blocks & ~1 : 2;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(blocks);
+        cfg.blockDim = dim3(pick.threads);
+        cfg.dynamicSmemBytes = pick.smem;
+        cfg.stream = (cudaStream_t)stream;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = 2;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        cudaLaunchKernelEx(&cfg, pick.kernel, fp, n_fp, ip, n_ip, aux, n_total, count,
+                           uniforms, seed0, seed1, cum, table, n_bundles, (int)n_per_iter,
+                           counts, images, img_total, pick.use_smem, marks, chunk);
+        return (int)cudaGetLastError();
+    }
+    pick.kernel<<<blocks, pick.threads, pick.smem, (cudaStream_t)stream>>>("""
+_CHAIN_INCLUDE = '#include "binning.cuh"\n#include "trace_common.cuh"\n'
+_ZERO_NEAREST = "        if (oi[7] >= 0 && alive && (kStages == 0 || wt != 0.0f)) {"
+_ZERO_CORNER = "            if (v != 0.0f) img.add(base + (int)xi * ny + (int)yi, v);"
+K1D_LEADS = {
+    "k1d_staged": {_RUN: {_STAGED: _STAGE_ALL, _K_STAGED: "    constexpr bool kStaged = kStages >= 1;"}},
+    "k1d_cluster": {
+        _RUN: {_STAGED: _STAGE_HALF, _K_STAGED: "    constexpr bool kStaged = kStages >= 1;",
+               _BODY_ZERO: _CLUSTER_ZERO, _BODY_END: _CLUSTER_END, _BODY_FLUSH: _CLUSTER_FLUSH,
+               _LAUNCH: _CLUSTER_LAUNCH, _BODY_IMG: _BODY_IMG + "        img.half = half;\n"},
+        _CHAIN: {_STAGED_IMAGE: _CLUSTER_IMAGE,
+                 _CHAIN_INCLUDE: _CHAIN_INCLUDE + "\n#include <cooperative_groups.h>\n"}},
+    "k1d_curved_unstaged": {_RUN: {_K_STAGED: "    constexpr bool kStaged = false;",
+                                   _STAGED_CURVED: "    const bool staged_float64 = false;"}},
+    "k1d_no_zero_skip": {_CHAIN: {
+        _ZERO_NEAREST: "        if (oi[7] >= 0 && alive) {",
+        _ZERO_CORNER: "            img.add(base + (int)xi * ny + (int)yi, v);"}},
+    "k1d_curved": {_RUN: {_FLAT: _FLAT.replace("stages <= 1", "stages == 0")}},
+    "k1d_bounds_5": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, 5)"}},
+    "k1d_unbounded": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, kStages == 0 ? 5 : 1)"}},
+    "k1d_cheb_256": {_RUN: {_K1_THREADS: _K1_THREADS.replace("128", "256")}},
+    "k1d_cheb_160": {_RUN: {_K1_THREADS: _K1_THREADS.replace("128", "160")}},
+    "k1d_no_vote": {_CHAIN: {_SKIP_BUILDS: _SKIP_BUILDS.replace("kStages <= 1",
+                                                                "kStages == 0")}},
 }
 K2_LEADS = {
     "k2_per_image": {_PB: {"    if len(items) > MAX_ITEMS:": "    if len(items) > 1:",
@@ -500,7 +650,7 @@ K2_LEADS = {
 }
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
            **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
-           **K1A_LEADS, **K2_LEADS}
+           **K1A_LEADS, **K2_LEADS, **K1D_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -582,7 +732,8 @@ def torch_props():
 
 def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
                   k2_floats: int) -> tuple:
-    """(blocks a multiprocessor, dynamic shared bytes) of K1's build ``name``
+    """(blocks a multiprocessor, dynamic shared bytes, threads a block) of
+    K1's build ``name``
     at the flagship's launch (``k1_floats`` image floats), or of K2 at its
     largest image (``k2_floats``): the tree's occupancy entry point
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls
@@ -592,12 +743,12 @@ def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
     if name.startswith("bin_image"):
         if hasattr(lib, "xrt_bin_images_occupancy"):
             unit = int("Lb1E" in name)
-            return lib.xrt_bin_images_occupancy(k2_floats, unit), 4 * k2_floats
+            return lib.xrt_bin_images_occupancy(k2_floats, unit), 4 * k2_floats, 256
         dyn = 4 * k2_floats
-        return min(regs_blocks, blocks_by_smem(static, dyn)), dyn
+        return min(regs_blocks, blocks_by_smem(static, dyn)), dyn, 256
     args = [int(x) for x in re.findall(r"L[bi](\d+)E", name)]
     if name.startswith("fused_trace_flat_kernel"):  # the point build without curved shapes
-        args = [0, 0, 0, args[0], 0]
+        args = [0, 0, *([0] if len(args) == 1 else []), *args, 0]  # kMark (parent), kStages
     if hasattr(lib, "xrt_fused_trace_occupancy") and len(args) >= 4:
         import ctypes
 
@@ -606,17 +757,22 @@ def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
         curved = args[4] if len(args) > 4 else 1
         fn = lib.xrt_fused_trace_marked_occupancy if mark else lib.xrt_fused_trace_occupancy
         blocks = fn(src, cheb, stages, curved, k1_floats, ctypes.byref(dyn))
-        return blocks, dyn.value
+        threads = (lib.xrt_fused_trace_threads(src, cheb, stages)
+                   if hasattr(lib, "xrt_fused_trace_threads") else 256)
+        return blocks, dyn.value, threads
     dyn = 4 * k1_floats
-    return min(regs_blocks, blocks_by_smem(static, dyn)), dyn
+    return min(regs_blocks, blocks_by_smem(static, dyn)), dyn, 256
 
 
 def sass_counts(lib_path: str, pattern: str) -> dict:
     """{function: {opcode: count}} of the SASS (``cuobjdump -sass`` of the
     built library) of each function whose mangled name matches ``pattern``,
     with ``ATOMS.CAST``, ``ATOMS.ADD``, ``ATOMS.POPC``, ``RED`` and ``ATOMG``
-    beside each base opcode, and ``all`` the instructions; empty where the
-    toolkit has no ``cuobjdump``."""
+    beside each base opcode, ``all`` the instructions, and each full
+    opcode of the atomics and conversions (``ATOM``, ``RED``, ``F2F``
+    prefixes: whether an add or a conversion flushes subnormals shows as
+    ``.FTZ``) under ``full:``; empty where the toolkit has no
+    ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -640,12 +796,46 @@ def sass_counts(lib_path: str, pattern: str) -> dict:
             for full in ("ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "ATOMG", "RED"):
                 if op.startswith(full) and full != base:
                     c[full] = c.get(full, 0) + 1
+            if op.startswith(("ATOM", "RED", "F2F")):
+                c["full:" + op] = c.get("full:" + op, 0) + 1
+    return out
+
+
+def stage1_chains(cs, engine, ft, n: int, device="cuda") -> dict:
+    """The chains K1 runs in its weight and bilinear (``kStages`` 1)
+    builds, each in weight mode and with bilinear images, at ``n`` rays (a
+    plasma's as many as its 1000 bundles give): the flagship (the flat
+    build), ``plasma_torus``, phase 24's generic source, the mesh
+    spectrometer's Chebyshev sphere and the cylinder (weight mode). Returns
+    {name: (packed buffers, rays, bundles or None)}."""
+    import torch
+
+    from xicsrt_tpu_torch.draws import Draws
+
+    cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
+    modes = (("weight", {"interact_mode": "weight"}), ("bilinear", {"image_mode": "bilinear"}))
+    out = {}
+    for mode, general in modes:
+        pipe = engine.Pipeline(cs.plasma_config(n, 1, engine="fused", **general), device=device)
+        bundles = ft.plasma_bundles(pipe.source, pipe.params["sources"]["plasma"],
+                                    pipe.params["filters"],
+                                    Draws(torch.Generator(device=device).manual_seed(14)), 1)
+        out[f"K1 plasma {mode}"] = (cs.k1_pack(pipe), pipe.num_rays, bundles)
+        configs = {f"K1d-{mode}": cs.flagship(n, 1, engine="fused", **general),
+                   f"K1b {mode}": cs.source_matrix_config(n, 1, "fused", **general),
+                   f"K1c-cheb {mode}": cs.mesh_config(n, 1, "fused", cls, **kw)}
+        configs[f"K1c-cheb {mode}"]["general"].update(general)
+        if mode == "weight":
+            configs["K1c-cylinder weight"] = cs.cylinder_config(n, 1, "fused")
+            configs["K1c-cylinder weight"]["general"].update(general)
+        for name, cfg in configs.items():
+            out[name] = (cs.k1_pack(engine.Pipeline(cfg, device=device)), n, None)
     return out
 
 
 def child(tree: str, mode: str) -> None:
     """Build ``tree``'s kernels (mode 'build'), or time them (mode 'time';
-    'trace': K1, K1e and K3 only)."""
+    'trace': K1, K1e and K3 only; 'stage1': :func:`stage1_chains`)."""
     from xicsrt_tpu_torch.ops import native
 
     if mode == "build":
@@ -675,20 +865,23 @@ def child(tree: str, mode: str) -> None:
                 f"{frame} bytes stack frame, {blocks_per_sm(regs)} blocks of 256 per "
                 f"multiprocessor by registers")
         if name.startswith(("fused_trace_kernel", "fused_trace_flat_kernel", "bin_image")):
-            blocks, dyn = launch_blocks(lib, name, blocks_per_sm(regs), smem,
-                                        helpers["FLAGSHIP_IMG_FLOATS"],
-                                        max(helpers["K2_IMAGES"]))
+            blocks, dyn, threads = launch_blocks(lib, name, blocks_per_sm(regs), smem,
+                                                 helpers["FLAGSHIP_IMG_FLOATS"],
+                                                 max(helpers["K2_IMAGES"]))
             what = "the flagship's images" if name.startswith("fused") else "a 100 x 100 image"
             line += (f"; {smem} bytes static shared memory, at {what} {dyn} dynamic: "
-                     f"{blocks} blocks ({8 * blocks} warps) by registers and shared memory")
+                     f"{blocks} blocks of {threads} ({blocks * threads // 32} warps) by "
+                     f"registers and shared memory")
         print(line, flush=True)
     lib_path = native.build()
-    for fn, ops in sass_counts(lib_path, r"fused_trace_kernelILi0ELb0ELi0ELb0E|"
-                               r"fused_trace_flat_kernelILb0E|bin_images?_kernel").items():
+    for fn, ops in sass_counts(lib_path, r"fused_trace_kernelILi0ELb0ELi[01]ELb0E|"
+                               r"fused_trace_flat_kernelI(Li[01]E)?Lb0E|"
+                               r"bin_images?_kernel").items():
         keys = ("all", "ATOMS", "ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "RED", "ATOM",
                 "ATOMG", "MUFU", "LDS", "LDG", "BRA", "BSSY")
-        print(f"{label} sass {fn}: " + ", ".join(f"{k} {ops.get(k, 0)}" for k in keys),
-              flush=True)
+        full = sorted(k for k in ops if k.startswith("full:"))
+        print(f"{label} sass {fn}: "
+              + ", ".join(f"{k} {ops.get(k, 0)}" for k in keys + tuple(full)), flush=True)
 
     def ms(fn, timer=cs.cuda_ms) -> tuple:
         means = [timer(fn, 20) for _ in range(5)]
@@ -698,6 +891,9 @@ def child(tree: str, mode: str) -> None:
 
     n = 1 << 22
     times = {}
+    if mode == "stage1":
+        stage1(cs, engine, ft, n, label, ms)
+        return
     chains = {"K1a": cs.flagship(n, 1, engine="fused")}
     if hasattr(cs, "mesh_config"):
         cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
@@ -795,6 +991,18 @@ def child(tree: str, mode: str) -> None:
     times["K1a 2^28"] = calls(lambda: ft.fused_run_cuda(big, 2**28, 2**28, seed=(1, 2)))
     times["raytrace fused"] = calls(lambda: xicsrt_tpu_torch.raytrace(fused_cfg,
                                                                       device="cuda"))
+    # Phase 34's fused calls: the flagship in weight mode and with bilinear
+    # images, its K1 launch of 2^28 rays and the raytrace call.
+    if hasattr(cs, "mosaic15_config"):
+        for name, general in (("K1d-weight", {"interact_mode": "weight"}),
+                              ("K1d-bilinear", {"image_mode": "bilinear"})):
+            cfg_d = cs.flagship(2**26, 4, engine="fused", **general)
+            big_d = cs.k1_pack(engine.Pipeline(cfg_d, device="cuda"))
+            times[f"{name} 2^28"] = calls(
+                lambda: ft.fused_run_cuda(big_d, 2**28, 2**28, seed=(1, 2)))
+            times[f"raytrace fused {name}"] = calls(
+                lambda: xicsrt_tpu_torch.raytrace(cfg_d, device="cuda"))
+            del big_d
     times["raytrace eager"] = calls(lambda: xicsrt_tpu_torch.raytrace(eager_cfg,
                                                                       device="cuda"))
     chains["K1c-cylinder"] = cs.cylinder_config(n, 1, "fused")
@@ -884,6 +1092,32 @@ def child(tree: str, mode: str) -> None:
     print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
 
 
+def stage1(cs, engine, ft, n: int, label: str, ms) -> None:
+    """Times K1a and :func:`stage1_chains` (least and median of 5 means of
+    20 calls, each checked once against its twin's counts), and the twins
+    of K1a and the flagship's K1d rows on the card (3 means of 3 calls)."""
+    import torch
+
+    times, equal = {}, {}
+    k1a = cs.k1_pack(engine.Pipeline(cs.flagship(n, 1, engine="fused"), device="cuda"))
+    chains = {"K1a": (k1a, n, None), **stage1_chains(cs, engine, ft, n)}
+    for name, (fparams, m, bundles) in chains.items():
+        run = lambda: ft.fused_run_cuda(fparams, m, m, seed=(1, 2), bundles=bundles)  # noqa: E731
+        times[name] = ms(run)
+        equal[name] = bool(torch.equal(
+            run()[0], ft.fused_run_plain(fparams, m, m, seed=(1, 2), bundles=bundles)[0]))
+        if not equal[name]:
+            print(f"{label} {name}: the counts differ from the twin's", flush=True)
+    for name in ("K1a", "K1d-weight", "K1d-bilinear"):
+        fparams = chains[name][0]
+        means = [cs.cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 3)
+                 for _ in range(3)]
+        times[f"{name} twin"] = (min(means), statistics.median(means))
+    for name, (low, mid) in times.items():
+        print(f"{label} {name}: {low:.4f} ms least, {mid:.4f} ms median", flush=True)
+    print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another tree to time as it is")
@@ -891,6 +1125,8 @@ def main() -> int:
                     help="the layouts of the checkout to time (default: all)")
     ap.add_argument("--trace-only", action="store_true",
                     help="time K1, K1e and K3 only (not K5 or R2)")
+    ap.add_argument("--stage1-only", action="store_true",
+                    help="time K1's weight and bilinear builds only (stage1_chains)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -898,17 +1134,33 @@ def main() -> int:
     trees = [make_tree(name, LAYOUTS[name]) for name in args.layouts]
     if args.parent:
         trees.insert(0, os.path.abspath(args.parent))
-    builds = [subprocess.Popen(child_command(t, "build"), cwd=t) for t in trees]
-    if any(p.wait(timeout=900) for p in builds):
-        raise RuntimeError("a tree's kernels did not build")
+    # A lead's tree that does not build, or whose timings fail, is reported
+    # and left out; the checkout and the parent must build and run.
+    def lead_failed(tree, what, log):
+        label = os.path.basename(tree)
+        print(f"{label}: {what}:\n{log[-6000:]}", flush=True)
+        if tree == os.path.abspath(args.parent or "") or label == "checkout":
+            raise RuntimeError(f"{label}: {what}")
+
+    builds = [subprocess.Popen(child_command(t, "build"), cwd=t, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True) for t in trees]
+    failed = set()
+    for tree, proc in zip(trees, builds):
+        log = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            lead_failed(tree, "the kernels did not build", log)
+            failed.add(tree)
     for tree in trees + trees[::-1]:
-        proc = subprocess.run(child_command(tree, "trace" if args.trace_only else "time"),
+        if tree in failed:
+            continue
+        mode = "stage1" if args.stage1_only else "trace" if args.trace_only else "time"
+        proc = subprocess.run(child_command(tree, mode),
                               cwd=tree, text=True,
                               capture_output=True, timeout=900)
         print(proc.stdout, end="", flush=True)
         if proc.returncode:
-            print(proc.stderr, file=sys.stderr)
-            raise RuntimeError(f"{tree}: the timings failed")
+            lead_failed(tree, "the timings failed", proc.stderr)
+            failed.add(tree)
     return 0
 
 

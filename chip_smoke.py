@@ -114,18 +114,25 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     each other and of phase 32's mc count;
 34. the flagship in weight mode, with bilinear images and with both
     (K1d), fused at 2^26 x 4 and eager at 2^22 x 4, with
-    ``tests/test_fused_engine.py:897-942``'s checks;
+    ``tests/test_fused_engine.py:897-942``'s checks, and the fused
+    detector images' sums held within 1e-5 of what they must sum to: the
+    bilinear mc image its count, the weight and 'both' images (the same
+    rays, nearest and bilinear) each other's; the largest relative error
+    printed;
 35. the reference's ``mosaic`` golden on both engines;
 36. K1 and K3 against their twins in both RNG modes at 2^20 rays on
     mosaic chains (mc, weight, a cutoff, a file curve, depth 33 with half
-    the rays dead, a mesh) and on the weight and bilinear flagship: counts
-    equal, images within the bound of float32 summation order;
+    the rays dead, a mesh) and on the weight, bilinear and 'both'
+    flagship: counts equal, images within the bound of float32 summation
+    order;
 37. K5d: K5f and K5b with the mosaic stage on ``mosaic_sphere`` at 2^22
     rays against their twins, then ``make_fused_differentiable`` on it;
 38. K3 in weight mode on its own route (an 8e6-bundle plasma, mc against
     weight), and the timings per 2^22 rays of K1d, K1c-mosaic, K3-weight,
     K3 behind a mosaic and K5d beside K1a, with the ptxas registers of their
-    builds; K3-weight's census, and ``mosaic15``'s layer work (``mosaic_
+    builds; the image terms K1d adds and those of exactly zero, which it
+    does not issue (``tools/roofline.image_adds``, the twin on 2^17 rays);
+    K3-weight's census, and ``mosaic15``'s layer work (``mosaic_
     work``), its lane-layer slots a ray a lane and spread over the warp
     (``mosaic_schedule``) and its census as run (``mosaic_ops_as_run``);
 39. the history reservoir K1e (K1's marked build, the chunk selection and
@@ -2647,7 +2654,8 @@ def modes_agree(fused, eager, label, weight, bilinear, budgets):
     (weights and tents are at most 1, so a pixel's variance is at most its
     sum, which the chi-square takes: it errs towards agreement), and the
     mc-mode bilinear detector image, whose spot lies inside the grid,
-    summing to its count but for float32 rounding (1e-5)."""
+    summing to its count but for float32 rounding (1e-5). Returns the
+    metas and the detector images' sums of both engines."""
     metas = [metas_of(r) for r in (fused, eager)]
     for name in ("aperture", "crystal", "detector"):
         p = [m[name] / m["source"] for m in metas]
@@ -2682,8 +2690,13 @@ def phase_weight_images(ft, raytrace, mc_meta) -> dict:
     both, through ``raytrace`` on ``engine='fused'`` at 2^26 x 4 and on the
     eager engine at 2^22 x 4; weight mode's flux against phase 5's mc count.
     The fused run is made twice: the first warms, the second is checked,
-    timed and counted (K1 once). Returns K1's launches per mode."""
-    out = {}
+    timed and counted (K1 once). Then the fused detector images' sums
+    against what they must sum to, within 1e-5: the bilinear mc image's
+    its count (its spot lies inside the grid); the weight mode's and
+    'both''s, which weigh the same rays (no draw at the crystal) into a
+    nearest and a bilinear image, each other's. Returns K1's launches per
+    mode."""
+    out, fused_sums = {}, {}
     budgets = ((1 << 26) * 4, (1 << 22) * 4)
     for mode, general in WEIGHT_MODES.items():
         cfg = flagship(1 << 26, 4, engine="fused", **general)
@@ -2703,6 +2716,18 @@ def phase_weight_images(ft, raytrace, mc_meta) -> dict:
                            f"phase 34 flagship {mode}: weight mode's flux against mc mode's "
                            "count")
         out[mode] = launches
+        fused_sums[mode] = (sums[0], metas[0]["detector"])
+    expected = {"bilinear": fused_sums["bilinear"][1], "weight": fused_sums["both"][0],
+                "both": fused_sums["weight"][0]}
+    rel = {mode: abs(fused_sums[mode][0] - expected[mode]) / expected[mode]
+           for mode in WEIGHT_MODES}
+    log("phase 34 fused detector image sums against what they must sum to (the bilinear "
+        "mc image its count, weight and both each other's): " + ", ".join(
+            f"{mode} {fused_sums[mode][0]!r} against {expected[mode]!r}, relative error "
+            f"{rel[mode]:.3g}" for mode in WEIGHT_MODES)
+        + f"; largest {max(rel.values()):.3g} (limit 1e-5)")
+    if max(rel.values()) > 1e-5:
+        raise AssertionError("phase 34: a detector image does not sum to what it must")
     return out
 
 
@@ -2775,6 +2800,22 @@ def k1d_mosaic_chains(n) -> dict:
     for mode, general in WEIGHT_MODES.items():
         chains[f"flagship {mode}"] = flagship(n, 1, engine="fused", **general)
     return chains
+
+
+def k1d_image_adds(general, n=1 << 17) -> list:
+    """The image terms K1 adds on the flagship in the run modes ``general``
+    at ``n`` rays (Philox seed (1, 2)), by its twin on the card
+    (``tools/roofline.image_adds``), and how many are exactly zero, which K1
+    does not issue (phase 38, beside the K1d rows)."""
+    from xicsrt_tpu_torch import engine
+    from xicsrt_tpu_torch.tools.roofline import image_adds
+
+    adds = image_adds(k1_pack(engine.Pipeline(
+        flagship(n, 1, engine="fused", **general), device="cuda")), n, seed=(1, 2))
+    log(f"phase 38 image terms of the flagship {general}, {n} rays (the twin): "
+        + "; ".join(f"optic {a['optic']}: {a['adds']} adds, {a['zero']} of them exactly "
+                    f"zero (not issued), {a['subnormal']} subnormal" for a in adds))
+    return adds
 
 
 def phase_k1d_mosaic_twins(ft, engine) -> dict:
@@ -3453,9 +3494,9 @@ def phase_roofline(smi) -> dict:
 def ptxas_registers(pattern: str) -> str:
     """ptxas's register line of the kernel whose mangled name matches the
     regular expression ``pattern`` (K1a's build:
-    ``fused_trace_flat_kernelILb0E``, the point source with no Chebyshev,
-    weight, bilinear or mosaic stage, no torus or cylinder and no chunk
-    marks)."""
+    ``fused_trace_flat_kernelILi0ELb0E``, the point source with no
+    Chebyshev, weight, bilinear or mosaic stage, no torus or cylinder and no
+    chunk marks; K1d's: ``fused_trace_flat_kernelILi1ELb0E``)."""
     from xicsrt_tpu_torch.ops import native
 
     lines = native.ptxas_report().splitlines()
@@ -3612,7 +3653,7 @@ def phase_registers(native) -> None:
             spilled.append(f"K5b {name}")
     k1_builds = [(args, 1, *rest) for args, *rest in ptxas_entries(
         report, r"fused_trace_kernel(I\w+?E)E")]
-    k1_builds += [(f"ILi0ELb0ELi0E{args[1:]}", 0, *rest) for args, *rest in ptxas_entries(
+    k1_builds += [(f"ILi0ELb0E{args[1:]}", 0, *rest) for args, *rest in ptxas_entries(
         report, r"fused_trace_flat_kernel(I\w+?E)E")]
     for args, curved, regs, stores, loads, frame in k1_builds:
         src, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
@@ -3622,12 +3663,13 @@ def phase_registers(native) -> None:
                      else lib.xrt_fused_trace_occupancy)
         dyn = ctypes.c_int(0)
         blocks = occupancy(src, cheb, stages, curved, FLAGSHIP_IMG_FLOATS, ctypes.byref(dyn))
-        by_regs = resident_warps(regs, 256)
+        threads = lib.xrt_fused_trace_threads(src, cheb, stages)
+        by_regs, at_launch = resident_warps(regs, threads), blocks * threads // 32
         log(f"phase 2 K1 build {name}: {regs} registers, {stores} / {loads} bytes "
-            f"spilled, {frame} bytes stack frame, 256 threads a block, "
-            f"{by_regs} warps a multiprocessor by registers, {8 * blocks} at the "
+            f"spilled, {frame} bytes stack frame, {threads} threads a block, "
+            f"{by_regs} warps a multiprocessor by registers, {at_launch} at the "
             f"flagship's launch ({FLAGSHIP_IMG_FLOATS} image floats, {dyn.value} bytes of "
-            f"dynamic shared memory): {min(by_regs, 8 * blocks)} resident")
+            f"dynamic shared memory): {min(by_regs, at_launch)} resident")
         if stores or loads:
             spilled.append(f"K1 {name}")
         if blocks <= 0:
@@ -3826,7 +3868,7 @@ def main() -> int:
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
     t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
-    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_flat_kernelILb0E')}")
+    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_flat_kernelILi0ELb0E')}")
 
     # Phase 38: this slice's stages per 2^22 rays beside K1a, and the
     # registers of their builds.
@@ -3834,6 +3876,9 @@ def main() -> int:
                          n, smi, "K1d weight mode (the flagship)", "38")
     t_bilinear = k1_timing(ft, packed(flagship(n, 1, engine="fused", image_mode="bilinear")),
                            n, smi, "K1d bilinear images (the flagship)", "38")
+    for t, general in ((t_weight, {"interact_mode": "weight"}),
+                       (t_bilinear, {"image_mode": "bilinear"})):
+        t["image_adds"] = k1d_image_adds(general)
     t_mosaic = {}
     for mode in ("mc", "weight"):
         cfg_m = mosaic15_config(n, 1, "fused", interact_mode=mode)
@@ -3845,7 +3890,8 @@ def main() -> int:
                                    ops)
         t_mosaic[mode]["census"] = mosaic_ops_as_run(cfg_m, work, n)
     t_k1a_again = k1_timing(ft, fparams, n, smi, "K1a (the flagship), again", "38")
-    for pattern in ("fused_trace_kernelILi0ELb0ELi1ELb0E", "fused_trace_kernelILi0ELb0ELi2ELb0E",
+    for pattern in ("fused_trace_flat_kernelILi1ELb0E", "fused_trace_kernelILi0ELb0ELi1ELb0E",
+                    "fused_trace_kernelILi0ELb0ELi2ELb0E",
                     "trace_only_kernelILb0ELi0E",
                     "trace_only_kernelILb0ELi1E",
                     "trace_only_kernelILb0ELi2E",
@@ -3858,7 +3904,8 @@ def main() -> int:
     k1e = phase_k1e_flagship(smi, ft, engine, xicsrt_tpu_torch.raytrace)
     phase_k1e_plasma(ft, engine, xicsrt_tpu_torch.raytrace)
     phase_cli(xicsrt_tpu_torch.raytrace)
-    for pattern in ("fused_trace_flat_kernelILb1E", "history_record_kernel"):
+    for pattern in ("fused_trace_flat_kernelILi0ELb1E", "fused_trace_flat_kernelILi1ELb1E",
+                    "history_record_kernel"):
         log(f"phase 40 ptxas {ptxas_registers(pattern)}")
     # Phases 43-45: the roofline's probes R1 and R2, then the roofline tool,
     # counters read around its run.
@@ -3980,12 +4027,12 @@ def main() -> int:
             "xicsrt_tpu/ops/fused_trace.py:1719 and :1007 (kernel :1343, pallas_call :1883)",
             k1d_launches["weight"], k1d_err["weight"],
             t_weight["ms"], t_weight["plain_ms"], t_weight["bound"],
-            bound_flat=t_weight["bound_flat"]),
+            bound_flat=t_weight["bound_flat"]) | {"image_adds": t_weight["image_adds"]},
         row("fused_run_cuda bilinear images (K1d-bilinear)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:1163 (kernel :1343, pallas_call :1883)",
             k1d_launches["bilinear"], k1d_err["bilinear"],
             t_bilinear["ms"], t_bilinear["plain_ms"], t_bilinear["bound"],
-            bound_flat=t_bilinear["bound_flat"]),
+            bound_flat=t_bilinear["bound_flat"]) | {"image_adds": t_bilinear["image_adds"]},
         row("fused_run_cuda mosaic mc (K1c-mosaic)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:1042 (kernel :1343, pallas_call :1883)",
             mosaic15["mc"]["fused"][2], k1d_err["mosaic mc"],

@@ -660,6 +660,85 @@ def test_k1e_found_on_mosaic15_matches_twin(cuda_device, mode):
     assert ft.history_record_cuda.launches == before + 2
 
 
+def _k1d_flagship(mode, n, device, sparse=False):
+    """The flagship in K1d's run mode ``mode`` (``chip_smoke.WEIGHT_MODES``:
+    weight, bilinear or both) at ``n`` rays, packed for K1; ``sparse``: its
+    detector narrowed until about a third of the 8192-ray chunks keep a ray
+    in mc mode. The library picks K1's flat build of the weight and
+    bilinear stages for it (``xrt_fused_trace_flat``)."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import native
+
+    cfg = chip_smoke.flagship(n, 1, engine="fused", **chip_smoke.WEIGHT_MODES[mode])
+    if sparse:
+        cfg["optics"]["detector"]["xsize"] = chip_smoke.SPARSE_DETECTOR_XSIZE
+    fparams = chip_smoke.k1_pack(Pipeline(cfg, device=device))
+    assert fparams.stages == 1 and not fparams.plasma
+    assert native.library().xrt_fused_trace_flat(
+        int(fparams.full_source), int(fparams.cheb), fparams.stages, int(fparams.curved)) == 1
+    return fparams
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+@pytest.mark.parametrize("mode", ["weight", "bilinear", "both"])
+def test_k1d_flat_build_matches_twin(cuda_device, mode, rng):
+    """K1d in the flagship's flat build (float64 images in global memory,
+    terms of zero not issued, the warp vote in mc runs) against its twin at
+    2^20 rays: counts equal, every pixel within the bound of float32
+    summation order (``chip_smoke.twin_equal``)."""
+    import chip_smoke
+
+    n = 1 << 20
+    fparams = _k1d_flagship(mode, n, cuda_device)
+    kw = {"seed": (15, 1)} if rng == "hw" else {"uniforms": torch.rand(
+        (fparams.n_draws, n), device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(15))}
+    before = ft.fused_run_cuda.launches
+    chip_smoke.twin_equal(ft.fused_run_cuda(fparams, n, n, **kw),
+                          ft.fused_run_plain(fparams, n, n, **kw, terms=True),
+                          f"K1d {mode} rng={rng}", fparams)
+    assert ft.fused_run_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "both"])
+def test_k1d_bilinear_image_sums_in_float64(cuda_device, mode):
+    """At 2^24 flagship rays the kernel's bilinear images (float64 sums,
+    rounded once to float32) sum within 1e-6 of the exact sum of the
+    twin's float32 terms (its tally of their magnitudes in float64; every
+    term is at least 0), and its counts equal the twin's."""
+    n = 1 << 24
+    fparams = _k1d_flagship(mode, n, cuda_device)
+    counts, image = ft.fused_run_cuda(fparams, n, n, seed=(15, 2))
+    twin_counts, _, (_, magnitudes) = ft.fused_run_plain(fparams, n, n, seed=(15, 2),
+                                                         terms=True)
+    assert torch.equal(counts, twin_counts)
+    exact = magnitudes.sum().item()
+    assert exact > 0
+    assert abs(image.double().sum().item() - exact) <= 1e-6 * exact
+
+
+@pytest.mark.parametrize("mode", ["weight", "bilinear", "both"])
+def test_k1e_marks_of_the_k1d_flat_build_match_twin(cuda_device, mode):
+    """K1e's 'found' reservoir behind K1d's marked flat build on the
+    flagship with a narrowed detector at 2^20 rays, chunk 8192, a slot for
+    every chunk, so the kept chunks are every marked chunk: the same marks
+    as the twin's and every recorded value equal, in both RNG modes; in mc
+    mode some chunks keep no ray."""
+    import chip_smoke
+
+    n = 1 << 20
+    fparams = _k1d_flagship(mode, n, cuda_device, sparse=True)
+    spec = ft.HistorySpec("found", n // 8192, 8192)
+    uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(16))
+    for kw in ({"seed": (15, 3)}, {"uniforms": uniforms}):
+        _, hist = chip_smoke.k1e_against_twin(ft, fparams, n, spec, f"K1e found K1d {mode}",
+                                              **kw)
+        assert int(hist.used) > 0
+        if mode == "bilinear":
+            assert int(hist.used) < spec.slots
+
+
 @pytest.mark.parametrize("n", [1, 31, 33, 4096 + 17, 1 << 16])
 @pytest.mark.parametrize("mode", ["mc", "weight"])
 def test_k3_on_ragged_counts_matches_twin(cuda_device, n, mode):

@@ -226,6 +226,26 @@ def test_params_from_jax_defaults_to_cuda(monkeypatch):
     assert float(on_cpu["crystal"]["radius"]) == 1.0
 
 
+def test_frame_from_config_defaults_to_cuda(monkeypatch):
+    """``geometry.frame_from_config`` takes CUDA when no device is given and
+    raises without it, naming ``device='cpu'``, as every entry point of the
+    port does; ``device='cpu'`` builds the frame on the CPU, equal to JAX's
+    ``frame_from_config`` of the same entries."""
+    from xicsrt_tpu import geometry as jgeometry
+    from xicsrt_tpu_torch import geometry
+
+    origin, zaxis, xaxis = [0.0, 0.76871290, 0.56904832], [0.0, -0.95641806, 0.29200084], None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+        geometry.frame_from_config(origin, zaxis, xaxis)
+    frame = geometry.frame_from_config(origin, zaxis, xaxis, device="cpu")
+    ref = jgeometry.frame_from_config(origin, zaxis, xaxis)
+    assert frame.origin.device.type == frame.basis.device.type == "cpu"
+    assert frame.origin.dtype == frame.basis.dtype == torch.float32
+    np.testing.assert_array_equal(frame.origin.numpy(), np.asarray(ref.origin))
+    np.testing.assert_array_equal(frame.basis.numpy(), np.asarray(ref.basis))
+
+
 def test_io_not_ported_raises(tmp_path):
     """IO is ported (``tests/test_torch_io_cli.py``); what raises is an
     output path that does not exist without ``make_directories``, as in

@@ -5,12 +5,16 @@
   rays per item, the unit-weight flag) by its plain path, against one
   ``bin_image`` call per item and against the JAX package's Pallas kernel
   in interpret mode; the eager engine's choice of the flag.
-- K1's build: the point source without further stages takes the build
-  without the torus and cylinder code for chains of planes and spheres
-  only (``FusedParams.curved``).
+- K1's build: what its launcher picks the build from (source, Chebyshev
+  stage, stages, ``FusedParams.curved``); a point source's chain of planes
+  and spheres, in mc mode and with weights or bilinear images, passes it
+  what the build without the torus and cylinder code takes.
 - What K1 really traces (``tools/roofline.live_lanes``): the rays and
   32-ray warps alive into each optic of the flagship at 2^16 rays, held to
   the twin's counts and to the twin's history record of the same rays.
+- The image terms K1 adds (``tools/roofline.image_adds``): on the flagship
+  at 2^14 rays, the twin's term tally, and the share of terms of exactly
+  zero, which K1 does not issue.
 """
 
 import jax.numpy as jnp
@@ -126,10 +130,17 @@ def _packed(cfg):
     return roofline.k1_pack(engine.Pipeline(cfg, device="cpu"))
 
 
+def _weighted(cfg):
+    cfg["general"]["interact_mode"] = "weight"
+    return cfg
+
+
 @pytest.mark.parametrize("chain,expected", [
     ("flagship", (0, False, 0, False)),
     ("flagship weight", (0, False, 1, False)),
+    ("flagship bilinear", (0, False, 1, False)),
     ("toroidal", (0, False, 0, True)),
+    ("toroidal weight", (0, False, 1, True)),
     ("cylinder", (0, False, 0, True)),
     ("mesh", (0, True, 0, False)),
     ("mosaic15", (0, False, 2, False)),
@@ -140,13 +151,18 @@ def test_k1_build_choice(chain, expected):
     """What K1's launcher picks its build from (xrt_fused_pick): the source
     (0 the point cut, 1 the whole generic sampler, 2 a plasma), the
     Chebyshev stage, the stages and whether the chain holds a torus or a
-    cylinder (FusedParams.curved): the flagship takes the point build
-    without their code."""
+    cylinder (FusedParams.curved). The launcher takes the build without
+    that code for a point source, no Chebyshev stage, stages 0 or 1 and
+    no torus or cylinder: the flagship in mc mode, in weight mode and with
+    bilinear images (the card tests ask the library which build it
+    picks, ``xrt_fused_trace_flat``)."""
     n = 1 << 10
     cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
     configs = {
         "flagship": lambda: cs.flagship(n, 1, engine="fused"),
         "flagship weight": lambda: cs.flagship(n, 1, engine="fused", interact_mode="weight"),
+        "flagship bilinear": lambda: cs.flagship(n, 1, engine="fused", image_mode="bilinear"),
+        "toroidal weight": lambda: _weighted(cs.mirror_configs(n, 1, "fused")["torus_no_check"]),
         "toroidal": lambda: BS.SCENARIOS["toroidal"](n, 1),
         "cylinder": lambda: cs.cylinder_config(n, 1, "fused"),
         "mesh": lambda: cs.mesh_config(n, 1, "fused", cls, **kw),
@@ -157,6 +173,34 @@ def test_k1_build_choice(chain, expected):
     fparams = _packed(configs[chain]())
     source = 2 if fparams.plasma else int(fparams.full_source)
     assert (source, fparams.cheb, fparams.stages, fparams.curved) == expected
+
+
+@pytest.mark.parametrize("mode", ["mc", "weight", "bilinear"])
+def test_image_adds_match_the_twins_term_tally(mode):
+    """At 2^14 flagship rays (Philox): each image's adds (``tools/roofline.
+    image_adds``, from the twin's record hook) equal the twin's term tally
+    k (``terms=True``), which counts the terms of zero too; in weight mode
+    more than half the terms are exactly zero (the rocking curve underflows
+    far from Bragg and the rays stay alive), which K1 does not issue; in mc
+    mode with nearest images none is."""
+    n = 1 << 14
+    general = {"weight": {"interact_mode": "weight"},
+               "bilinear": {"image_mode": "bilinear"}}.get(mode, {})
+    fparams = _packed(cs.flagship(n, 1, engine="fused", **general))
+    adds = roofline.image_adds(fparams, n, seed=(1, 2))
+    _, _, (k, _) = ft.fused_run_plain(fparams, n, n, seed=(1, 2), terms=True)
+    imaged = []
+    for e in range(fparams.n_optics):
+        oi = fparams.ip_host[ft.HDR_I + e * ft.OPT_I: ft.HDR_I + (e + 1) * ft.OPT_I]
+        if oi[7] >= 0:
+            imaged.append((e, int(k[oi[7]: oi[7] + oi[8] * oi[9]].sum())))
+    assert [(a["optic"], a["adds"]) for a in adds] == imaged
+    assert all(a["adds"] > 0 for a in adds)
+    zero = sum(a["zero"] for a in adds) / sum(a["adds"] for a in adds)
+    if mode == "weight":
+        assert zero > 0.5
+    else:
+        assert zero == 0.0
 
 
 def test_live_lanes_of_the_flagship_match_the_twin():

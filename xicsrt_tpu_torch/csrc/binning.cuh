@@ -32,11 +32,13 @@ __device__ __forceinline__ void xrt_smem_zero(float* s, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = 0.0f;
 }
 
-// Add the block's private image to the global one (after __syncthreads).
-__device__ __forceinline__ void xrt_smem_flush(const float* s, float* g, int n) {
+// Add the block's private image to the global one (after __syncthreads),
+// of float32 pixels, or float64 (K1's staged weight and bilinear images).
+template <class Pixel>
+__device__ __forceinline__ void xrt_smem_flush(const float* s, Pixel* g, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const float v = s[i];
-        if (v != 0.0f) atomicAdd(g + i, v);
+        if (v != 0.0f) atomicAdd(g + i, (Pixel)v);
     }
 }
 

@@ -142,8 +142,8 @@ __global__ void __launch_bounds__(256) history_record_kernel(
                             n_fields, wl};
     rec(0, px, py, pz, dx, dy, dz, alive, 1.0f);
     xrt_trace_chain<true, 2>(fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl,
-                             ip[XRT_H_PER_RAY_WL] != 0, alive, 1.0f, nullptr, nullptr,
-                             threadIdx.x & 31, rec);
+                             ip[XRT_H_PER_RAY_WL] != 0, alive, 1.0f, nullptr,
+                             XrtImage<float>{nullptr}, threadIdx.x & 31, rec);
 }
 
 }  // namespace
@@ -151,7 +151,8 @@ __global__ void __launch_bounds__(256) history_record_kernel(
 // K1 as xrt_fused_trace launches it (fused_trace.cu, the same arguments),
 // in the build that also sets marks[c] = 1 for each chunk c of `chunk`
 // rays (a multiple of 32) whose final element keeps a ray; marks:
-// ceil(n_total / chunk) int32, zeroed by the caller.
+// ceil(n_total / chunk) int32, zeroed by the caller. images: float32 at
+// stages 0, float64 at stages 1 and 2, as xrt_fused_trace takes them.
 extern "C" int xrt_fused_trace_marked(const float* fp, int n_fp, const int* ip,
                                       int n_ip, const float* aux, int n_aux,
                                       long long n_total, long long count,
@@ -159,7 +160,7 @@ extern "C" int xrt_fused_trace_marked(const float* fp, int n_fp, const int* ip,
                                       unsigned int seed1, const int* cum,
                                       const float* table, int n_bundles,
                                       long long n_per_iter, unsigned long long* counts,
-                                      float* images, int img_total, int full_source,
+                                      void* images, int img_total, int full_source,
                                       int cheb, int stages, int curved, int* marks,
                                       int chunk, void* stream) {
     return xrt_fused_launch<true>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,

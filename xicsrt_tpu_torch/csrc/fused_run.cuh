@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "binning.cuh"
 #include "bundle_lookup.cuh"
 #include "trace_chain.cuh"
@@ -71,7 +73,7 @@ namespace {
         const float *__restrict__ uniforms, uint32_t seed0, uint32_t seed1,         \
         const int *__restrict__ cum, const float *__restrict__ table, int n_bundles, \
         int n_per_iter, unsigned long long *__restrict__ counts,                    \
-        float *__restrict__ images, int img_total, int use_smem,                    \
+        void *__restrict__ images, int img_total, int use_smem,                     \
         int *__restrict__ marks, int chunk
 #define XRT_K1_ARGS                                                                  \
     g_fp, n_fp, g_ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum, table, \
@@ -83,9 +85,13 @@ namespace {
 // rays whose final element keeps a ray (K1e's 'found' mode); a chunk is a
 // multiple of 32 rays, so a warp's rays lie in one chunk and one ballot
 // decides it. kCurved: the chain's torus and cylinder code
-// (fused_trace_flat_kernel compiles the chain without it).
+// (fused_trace_flat_kernel compiles the chain without it). images: float32
+// pixels at kStages 0, float64 from 1 (XrtImage, trace_chain.cuh), staged
+// in the block's float32 shared histogram where use_smem is set (kStages
+// 0, and kStaged: xrt_fused_pick).
 template <int kSrc, bool kCheb, int kStages, bool kMark, bool kCurved>
 __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
+    constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 && kCurved;
     extern __shared__ float s_img[];
     __shared__ float fp[XRT_MAX_FP];
     __shared__ int ip[XRT_MAX_IP];
@@ -96,10 +102,20 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
         s_counts[i] = 0u;
     }
-    if (use_smem) xrt_smem_zero(s_img, img_total);
+    if constexpr (kStages == 0 || kStaged) {
+        if (use_smem) xrt_smem_zero(s_img, img_total);
+    }
     __syncthreads();
 
-    float* img = use_smem ? s_img : images;
+    using Pixel = typename std::conditional<(kStages >= 1), double, float>::type;
+    using Image = typename std::conditional<kStaged, XrtStagedImage, XrtImage<Pixel>>::type;
+    Pixel* const out = static_cast<Pixel*>(images);
+    Image img{out};
+    if constexpr (kStaged) {
+        if (use_smem) img.staged = s_img;
+    } else if constexpr (kStages == 0) {
+        if (use_smem) img.pix = s_img;
+    }
     const int n_opt = ip[0];
     const bool voxel = ip[6] != 0, cauchy = ip[7] != 0;
     const bool per_ray_wl = ip[XRT_H_PER_RAY_WL] != 0;
@@ -132,7 +148,9 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
             atomicAdd(counts + i, (unsigned long long)s_counts[i]);
         }
     }
-    if (use_smem) xrt_smem_flush(s_img, images, img_total);
+    if constexpr (kStages == 0 || kStaged) {
+        if (use_smem) xrt_smem_flush(s_img, out, img_total);
+    }
 }
 
 template <int kSrc, bool kCheb, int kStages, bool kMark>
@@ -140,61 +158,99 @@ __global__ void fused_trace_kernel(XRT_K1_PARAMS) {
     xrt_fused_trace_body<kSrc, kCheb, kStages, kMark, true>(XRT_K1_ARGS);
 }
 
-// The point source's build without the Chebyshev, weight or mosaic stages
-// and without the torus and cylinder code, for chains of planes and
-// spheres (the flagship's). Without that code ptxas took it from 63
-// registers to 76 (3 blocks of 256 a multiprocessor), so it is held to 5
-// blocks, 48 registers, where it spills nothing; the weight build took 78
-// registers against 56 with the code, so the later stages keep it. Its
-// own kernel, as launch bounds on fused_trace_kernel would bound every
-// build (ptxas took the Chebyshev builds from 74 to 117 registers under
-// bounds of one block).
-template <bool kMark>
-__global__ void __launch_bounds__(256, 5) fused_trace_flat_kernel(XRT_K1_PARAMS) {
-    xrt_fused_trace_body<XRT_K1_POINT, false, 0, kMark, false>(XRT_K1_ARGS);
+// The point source's builds without the Chebyshev or mosaic stages and
+// without the torus and cylinder code, for chains of planes and spheres
+// (the flagship's): kStages 0, and 1 (weight mode, bilinear images; 1.04x
+// against the build with that code, chip_ab.py `k1d_curved`). Without that
+// code ptxas took the kStages 0 build from 63 registers to 76 (3 blocks of
+// 256 a multiprocessor), so it is held to 5 blocks, 48 registers, where it
+// spills nothing. The kStages 1 build takes 58 unbounded; held to 4 blocks
+// it takes 53 and runs up to 2 % faster, and at 5 (48) it spills (chip_ab.py
+// `k1d_unbounded`, `k1d_bounds_5`, PERF.md). A kernel of its own, as launch
+// bounds on fused_trace_kernel would bound every build (ptxas took the
+// Chebyshev builds from 74 to 117 registers under bounds of one block).
+template <int kStages, bool kMark>
+__global__ void __launch_bounds__(256, kStages == 0 ? 5 : 4)
+    fused_trace_flat_kernel(XRT_K1_PARAMS) {
+    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, false>(XRT_K1_ARGS);
 }
 
 // The build of K1 a run takes (the arguments of xrt_fused_trace,
 // fused_trace.cu; curved: the chain holds a torus or a cylinder), and the
-// dynamic shared memory of its launch. The nearest mc images of the builds
-// without further stages are staged in a block-private shared histogram
+// dynamic shared memory of its launch. Weighted and bilinear images
+// (stages 1 and 2) are float sums of many terms: each term goes to a
+// float64 pixel in global memory (XrtImage), unstaged, so they cost no
+// resident block, and each pixel is rounded to float32 once (the bilinear
+// flagship's detector image of 2^28 rays sums to its 3575015 rays within
+// 1e-9; float32 global atomics alone summed it 48 short). Staged in each
+// block's float32 shared histogram, the flagship's 15000 image floats
+// (58.6 KB) with K1's 5.2 KB of static shared memory held a build to 3
+// blocks of 256: the flagship 1.11-1.13x slower, the plasma's, the generic
+// source's and the mosaic's builds 1-10 % slower; split over a cluster of
+// 2 blocks, whose remote adds are compare-and-swap loops, 1.15-1.27x
+// slower. One build keeps staging: the point source's stage-1 build with
+// the torus and cylinder code (XrtStagedImage, flushed into the float64
+// pixels), whose focusing chains put most terms on a few pixels; a
+// cylinder in weight mode ran 2.6x slower on global float64 atomics
+// (chip_ab.py `k1d_staged`, `k1d_cluster`, `k1d_curved_unstaged`,
+// PERF.md).
+// The nearest mc images of the builds without further stages add 1.0f,
+// exact in any order: they are staged in a block-private float32 histogram
 // only where that costs no resident block against the build's registers,
-// else each hit is a global atomic. Weighted and bilinear images (stages 1
-// and 2) are float sums of many terms: staged, each block adds its partial
-// sums, which keeps their rounding within what the checks hold them to
-// (with global atomics alone, the flagship's bilinear detector image of
-// 2^28 rays summed 48 short of its 3575015 rays, past chip_smoke.py's 1e-5
-// of its count), so they are always staged where they fit. The
-// flagship's 15000 image floats (58.6 KB) with K1's 5.2 KB of static
-// shared memory held its point build to 3 blocks of 256 where its
-// registers allow 4 (5 for fused_trace_flat_kernel); its images take about
-// 1.3 % of its rays, so global atomics cost little (1.12x with them,
-// chip_ab.py `staged_images`). The threshold is the image that fits beside
-// the blocks the registers allow: about 13020 floats at 4 blocks, 10101 at
-// 5 (228 KB over the blocks, less the static bytes and the 1 KB the card
-// keeps a block). Nearest mc images add 1.0f, exact in any order.
+// else each hit is a float32 global atomic (1.12x, chip_ab.py
+// `staged_images`). The threshold is the image that fits beside the blocks
+// the registers allow: about 13020 floats at 4 blocks, 10101 at 5 (228 KB
+// over the blocks, less the static bytes and the 1 KB the card keeps a
+// block).
 template <bool kMark>
 struct XrtFusedPick {
     using Kernel = decltype(&fused_trace_kernel<XRT_K1_POINT, false, 0, kMark>);
     Kernel kernel;
+    int threads;
     size_t smem;
     int use_smem;
 };
 
+// Whether a run takes fused_trace_flat_kernel (the arguments of
+// xrt_fused_pick): a point source's cut, no Chebyshev stage, no mosaic, no
+// torus or cylinder.
+inline bool xrt_fused_flat(int src, int cheb, int stages, int curved) {
+    return src == XRT_K1_POINT && !cheb && !curved && stages <= 1;
+}
+
+// The threads of a block of the build a run takes. The point source's
+// Chebyshev build of the weight and bilinear stages (a mesh crystal in
+// weight mode or with bilinear images) takes 85 registers: 2 blocks of 256
+// a multiprocessor (16 warps), 5 of 128 (20). A block's warps share out
+// over the multiprocessor's 4 quarters of 16384 registers, so 3 blocks of
+// 224 do not fit (6 warps of 88 registers in a quarter); held to 3 blocks
+// of 256 (80 registers) it spilled (chip_ab.py `k1d_cheb_256`,
+// `k1d_cheb_160`, PERF.md). Every other build, 256.
+inline int xrt_fused_threads(int src, int cheb, int stages) {
+    return src == XRT_K1_POINT && cheb && stages == 1 ? 128 : 256;
+}
+
 template <bool kMark>
 inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int curved,
-                                          int img_total, int threads) {
+                                          int img_total) {
     using Kernel = typename XrtFusedPick<kMark>::Kernel;
-#define XRT_K1_BUILDS(S)                                                          \
-    fused_trace_kernel<S, false, 0, kMark>, fused_trace_kernel<S, false, 1, kMark>, \
-        fused_trace_kernel<S, false, 2, kMark>, fused_trace_kernel<S, true, 0, kMark>, \
-        fused_trace_kernel<S, true, 1, kMark>, fused_trace_kernel<S, true, 2, kMark>
-    const Kernel kernels[19] = {
-        XRT_K1_BUILDS(XRT_K1_POINT), XRT_K1_BUILDS(XRT_K1_GENERIC),
-        XRT_K1_BUILDS(XRT_K1_PLASMA), fused_trace_flat_kernel<kMark>};
-#undef XRT_K1_BUILDS
-    const bool flat = src == XRT_K1_POINT && !cheb && !curved && stages == 0;
-    XrtFusedPick<kMark> pick{kernels[flat ? 18 : 6 * src + (cheb ? 3 : 0) + stages], 0, 0};
+#define XRT_K1_STAGES(S, CHEB)                                                    \
+    fused_trace_kernel<S, CHEB, 0, kMark>, fused_trace_kernel<S, CHEB, 1, kMark>, \
+        fused_trace_kernel<S, CHEB, 2, kMark>
+    const Kernel kernels[20] = {
+        XRT_K1_STAGES(XRT_K1_POINT, false), XRT_K1_STAGES(XRT_K1_POINT, true),
+        XRT_K1_STAGES(XRT_K1_GENERIC, false), XRT_K1_STAGES(XRT_K1_GENERIC, true),
+        XRT_K1_STAGES(XRT_K1_PLASMA, false), XRT_K1_STAGES(XRT_K1_PLASMA, true),
+        fused_trace_flat_kernel<0, kMark>, fused_trace_flat_kernel<1, kMark>};
+#undef XRT_K1_STAGES
+    const bool flat = xrt_fused_flat(src, cheb, stages, curved);
+    const int threads = xrt_fused_threads(src, cheb, stages);
+    XrtFusedPick<kMark> pick{kernels[flat ? 18 + stages : 6 * src + (cheb ? 3 : 0) + stages],
+                             threads, 0, 0};
+    // kStaged of xrt_fused_trace_body: the point build of stage 1 that is
+    // neither flat nor Chebyshev.
+    const bool staged_float64 = src == XRT_K1_POINT && !cheb && stages == 1 && !flat;
+    if (stages >= 1 && !staged_float64) return pick;  // float64 sums in global memory
     const size_t bytes = (size_t)img_total * sizeof(float);
     if (img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
         xrt_set_smem(pick.kernel, bytes) == cudaSuccess) {
@@ -214,19 +270,18 @@ inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int cur
     return pick;
 }
 
-// Blocks of `threads` a multiprocessor holds of the build and launch
-// xrt_fused_pick makes (cudaOccupancyMaxActiveBlocksPerMultiprocessor as
-// the launcher calls it), with its dynamic shared bytes in *dyn_smem; -1
-// where the query fails.
+// Blocks a multiprocessor holds of the build and launch xrt_fused_pick
+// makes (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher
+// calls it, blocks of xrt_fused_threads), with its dynamic shared bytes in
+// *dyn_smem; -1 where the query fails.
 template <bool kMark>
 inline int xrt_fused_occupancy(int src, int cheb, int stages, int curved, int img_total,
                                int* dyn_smem) {
-    const int threads = 256;
     const XrtFusedPick<kMark> pick =
-        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total, threads);
+        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total);
     int blocks = 0;
     if (xrt_set_smem(pick.kernel, pick.smem) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick.kernel, threads,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick.kernel, pick.threads,
                                                       pick.smem) != cudaSuccess) {
         return -1;
     }
@@ -237,15 +292,16 @@ inline int xrt_fused_occupancy(int src, int cheb, int stages, int curved, int im
 // Launches the build of K1 the run takes (the arguments of xrt_fused_trace,
 // fused_trace.cu), with kMark the builds that also mark the chunks of
 // `chunk` rays that keep a ray at the final element into marks
-// (ceil(n_total / chunk) int32, zeroed by the caller). Returns
-// cudaGetLastError() of the launch.
+// (ceil(n_total / chunk) int32, zeroed by the caller). images: img_total
+// float32 pixels at stages 0, float64 at stages 1 and 2, zeroed by the
+// caller. Returns cudaGetLastError() of the launch.
 template <bool kMark>
 inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                             const float* aux, int n_aux, long long n_total,
                             long long count, const float* uniforms, unsigned int seed0,
                             unsigned int seed1, const int* cum, const float* table,
                             int n_bundles, long long n_per_iter,
-                            unsigned long long* counts, float* images, int img_total,
+                            unsigned long long* counts, void* images, int img_total,
                             int full_source, int cheb, int stages, int curved,
                             int* marks, int chunk, void* stream) {
     if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
@@ -260,15 +316,14 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
         return (int)cudaErrorInvalidValue;
     }
     if (n_total <= 0) return (int)cudaSuccess;
-    const int threads = 256;
     const int src = cum != nullptr ? XRT_K1_PLASMA
                                    : full_source ? XRT_K1_GENERIC : XRT_K1_POINT;
     const XrtFusedPick<kMark> pick =
-        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total, threads);
+        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total);
     cudaError_t err = xrt_set_smem(pick.kernel, pick.smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = xrt_grid_size(pick.kernel, threads, pick.smem, n_total);
-    pick.kernel<<<blocks, threads, pick.smem, (cudaStream_t)stream>>>(
+    const int blocks = xrt_grid_size(pick.kernel, pick.threads, pick.smem, n_total);
+    pick.kernel<<<blocks, pick.threads, pick.smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum,
         table, n_bundles, (int)n_per_iter, counts, images, img_total,
         pick.use_smem, marks, chunk);

@@ -73,15 +73,17 @@
 // one 32-byte row a ray, served by L1 and L2; a
 // mosaic crystal two erfinvf, a sqrt and a rocking curve per layer. Counts
 // are reduced per warp with __ballot_sync/__popc into
-// shared counters, images are block-private shared-memory histograms
-// (binning.cuh) where staging them costs no resident block, else global
-// atomics (xrt_fused_pick, fused_run.cuh), a bilinear hit four atomics
-// where the TPU kernel contracted tent matrices on its MXU, shared images
-// flushed once per block with global atomics. In the builds without
-// further stages a warp leaves the chain once its lanes are dead
-// (trace_chain.cuh); the flagship's chain of planes and spheres takes a
-// build without the torus and cylinder code, held to 5 blocks of 256
-// (fused_trace_flat_kernel).
+// shared counters. Nearest mc images are block-private shared-memory
+// histograms (binning.cuh) where staging them costs no resident block,
+// else global atomics; weighted and bilinear images are float64 sums in
+// global memory, rounded to float32 by the launcher (xrt_fused_pick,
+// fused_run.cuh); a bilinear hit takes an atomic a corner where the TPU
+// kernel contracted tent matrices on its MXU, and a term of exactly zero
+// none. In mc runs of the builds without the mosaic or Chebyshev stages a
+// warp leaves the chain once its lanes are dead (trace_chain.cuh); the
+// flagship's chain of planes and spheres takes a build without the torus
+// and cylinder code, held to 5 blocks of 256 (4 with the weight and
+// bilinear stages; fused_trace_flat_kernel).
 #include "fused_run.cuh"
 
 // fp/ip: packed parameters (n_fp floats, n_ip ints) on the device. Rays
@@ -91,15 +93,18 @@
 // table (n_total / n_per_iter, n_bundles, 8) float32, 16-byte aligned
 // (null and 0 for a point source). uniforms: (n_draws, n_total) float32 or
 // null for Philox keyed by (seed0, seed1). counts: (1 + n_optics) uint64
-// and images: (img_total,) float32, both zeroed by the caller. full_source:
+// and images: (img_total,) float32 at stages 0, float64 at stages 1 and 2
+// (the launcher rounds them to float32), both zeroed by the caller.
+// full_source:
 // the generic source's whole sampler (a box, a Focused axis, the other cones,
 // per-ray wavelengths or filters), else its point-source cut; a plasma
 // (cum not null) takes the plasma's builds. aux: n_aux
 // float32 of file tables and Chebyshev terms (never null); cheb: the
 // chain's mesh stage; stages: 0, or 1 for its weight and bilinear stages,
 // 2 with the mosaic's too; curved: the chain holds a torus or a cylinder
-// (a point source without further stages takes a build without their code
-// where it holds neither). Returns cudaGetLastError() of the launch.
+// (a point source at stages 0 or 1 without the Chebyshev stage takes a
+// build without their code where it holds neither). Returns
+// cudaGetLastError() of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, const float* aux, int n_aux,
                                long long n_total, long long count,
@@ -107,12 +112,26 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                unsigned int seed1, const int* cum,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
-                               float* images, int img_total, int full_source,
+                               void* images, int img_total, int full_source,
                                int cheb, int stages, int curved, void* stream) {
     return xrt_fused_launch<false>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
                                    uniforms, seed0, seed1, cum, table, n_bundles,
                                    n_per_iter, counts, images, img_total, full_source,
                                    cheb, stages, curved, nullptr, 0, stream);
+}
+
+// 1 where xrt_fused_trace takes fused_trace_flat_kernel, the build without
+// the torus and cylinder code (src: 0 point, 1 generic, 2 plasma; the
+// other arguments its own), else 0.
+extern "C" int xrt_fused_trace_flat(int src, int cheb, int stages, int curved) {
+    return xrt_fused_flat(src, cheb, stages, curved) ? 1 : 0;
+}
+
+// The threads of a block of the build xrt_fused_trace launches (src: 0
+// point, 1 generic, 2 plasma; cheb and stages its own): 256, or 128 for the
+// point source's Chebyshev build of the weight and bilinear stages.
+extern "C" int xrt_fused_trace_threads(int src, int cheb, int stages) {
+    return xrt_fused_threads(src, cheb, stages);
 }
 
 // Blocks of 256 a multiprocessor holds of the build of K1 that

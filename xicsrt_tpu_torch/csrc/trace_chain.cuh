@@ -9,7 +9,8 @@
 //
 // Counts are reduced per warp with __ballot_sync/__popc into the block's
 // shared counters, so every lane of the warp must call it; images go to the
-// block-private histogram img (binning.cuh) or to global memory.
+// block-private histogram (binning.cuh) or to global memory, through the
+// image the caller passes (XrtImage).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,39 @@ struct XrtNoRecord {
     static constexpr bool kOn = false;
     __device__ __forceinline__ void operator()(int, float, float, float, float, float,
                                                float, bool, float) const {}
+};
+
+// The image a chain adds its terms to. Float32 pixels: a block's shared
+// histogram or the global image (K1's nearest mc images, whose 1.0f adds
+// are exact in any order; K3's images). Float64 pixels: K1's weighted and
+// bilinear images (kStages >= 1) in global memory, where atomicAdd on a
+// double is native (RED.E.ADD.F64, its float32 term converted exactly,
+// subnormals too); the launcher rounds each pixel once to float32, so a
+// pixel's terms are summed all but exactly in any order and no block
+// holds the image in shared memory.
+template <class Pixel>
+struct XrtImage {
+    Pixel* pix;
+    __device__ __forceinline__ void add(int i, float v) const {
+        atomicAdd(pix + i, (Pixel)v);
+    }
+};
+
+// K1's float64 image staged in the block's float32 shared histogram where
+// the launch gives one (staged), else its float64 pixels in global memory:
+// the point source's build of the weight and bilinear stages with the
+// torus and cylinder code (xrt_fused_pick), whose focusing chains put
+// most terms on a few pixels.
+struct XrtStagedImage {
+    double* pix;
+    float* staged = nullptr;
+    __device__ __forceinline__ void add(int i, float v) const {
+        if (staged != nullptr) {
+            atomicAdd(staged + i, v);
+        } else {
+            atomicAdd(pix + i, (double)v);
+        }
+    }
 };
 
 // The Bragg deviation sd + sd^3 / 6, sd = |d.n| cos_b - sqrt(1 - (d.n)^2)
@@ -383,8 +417,12 @@ __device__ __forceinline__ void xrt_mosaic(const float* o, const int* oi,
 // an (nx, ny) image (JAX fused_trace.py:1165-1194, the XLA path's
 // per-corner bounds drop): the coordinates clipped to [-2, n + 1], the
 // tents 1 - |f - i| at the two grid neighbours of each, the corner weight
-// (tx w) ty, four shared-memory atomics, each corner off the grid dropped.
-__device__ __forceinline__ void xrt_splat(float* img, float fx, float fy,
+// (tx w) ty, an atomic a corner, each corner off the grid dropped and each
+// term of exactly zero skipped (a pixel starts at +0.0 and every term is
+// at least +0.0, so the sum does not move by a bit). The image's pixels
+// start at base.
+template <class Img>
+__device__ __forceinline__ void xrt_splat(const Img& img, int base, float fx, float fy,
                                           int nx, int ny, float w) {
     const float fxc = fminf(fmaxf(fx, -2.0f), (float)nx + 1.0f);
     const float fyc = fminf(fmaxf(fy, -2.0f), (float)ny + 1.0f);
@@ -396,7 +434,8 @@ __device__ __forceinline__ void xrt_splat(float* img, float fx, float fy,
         for (int b = 0; b < 2; ++b) {
             const float yi = y0 + (float)b;
             if (!(yi >= 0.0f && yi < (float)ny)) continue;
-            atomicAdd(img + (int)xi * ny + (int)yi, wx * (1.0f - fabsf(fyc - yi)));
+            const float v = wx * (1.0f - fabsf(fyc - yi));
+            if (v != 0.0f) img.add(base + (int)xi * ny + (int)yi, v);
         }
     }
 }
@@ -423,36 +462,45 @@ __device__ __forceinline__ void xrt_splat(float* img, float fx, float fy,
 // no torus or cylinder (FusedParams.curved); a build with the Chebyshev
 // stage takes every shape.
 //
-// In the builds without further stages (kStages 0, no Chebyshev stage) a
-// warp with no live lane leaves the chain before an element (a
-// warp-uniform __any_sync): every later element would find its rays dead,
-// add nothing to the counts or the images and draw for no live ray, and a
-// ray's draws are keyed by (ray, draw index), so no live ray's draws move.
-// The flagship's detector finds 66 % of its warps dead (1.3 % of the rays
-// alive), and the plasma's torus chain most of its own. Where weight mode
-// keeps the rays alive, or the Chebyshev and mosaic loops dominate, the
-// vote cost more than it saved (chip_ab.py `skip_all_builds`, PERF.md),
-// so those builds run every element. The record hook (K1e) takes every
-// element's state, so with it the warp runs the whole chain.
+// In the builds without the mosaic or the Chebyshev stage (kStages 0 and
+// 1), in mc mode, a warp with no live lane leaves the chain before an
+// element (a warp-uniform __any_sync): every later element would find its
+// rays dead, add nothing to the counts or the images and draw for no live
+// ray, and a ray's draws are keyed by (ray, draw index), so no live ray's
+// draws move. The flagship's detector finds 66 % of its warps dead (1.3 %
+// of the rays alive) with nearest or bilinear images, and the plasma's
+// torus chain most of its own. Where weight mode keeps the rays alive
+// (the header int, uniform over the launch), or the Chebyshev and mosaic
+// loops dominate, the vote cost more than it saved (chip_ab.py
+// `skip_all_builds`, PERF.md), so those run every element. The record hook
+// (K1e) takes every element's state, so with it the warp runs the whole
+// chain.
+//
+// Images: img.add(pixel, term) (XrtImage). A term of exactly
+// zero issues no atomic (weight mode's rays whose rocking curve underflows
+// to 0 stay alive, and on the flagship they are 82 % of the detector's
+// adds; the sums do not move by a bit).
 //
 // Returns whether the ray is alive after the last element. rec, where its
 // kOn is set, takes each element's state (1 + e, position, direction,
 // alive, weight) in place of the counts and the images.
-template <bool kCheb, int kStages, class Rec = XrtNoRecord, bool kCurved = true>
+template <bool kCheb, int kStages, class Rec = XrtNoRecord, bool kCurved = true,
+          class Img>
 __device__ __forceinline__ bool xrt_trace_chain(
     const float* fp, const int* ip, const float* __restrict__ aux, Draws& draw,
     float px, float py, float pz, float dx, float dy, float dz, float wl,
-    bool per_ray_wl, bool alive, float wt, unsigned int* s_counts, float* img,
+    bool per_ray_wl, bool alive, float wt, unsigned int* s_counts, const Img& img,
     int lane, Rec rec = Rec()) {
     static_assert(kCurved || !kCheb, "the Chebyshev builds take every shape");
-    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages == 0;
+    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages <= 1;
     const int n_opt = ip[0];
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
     const bool weight = kStages >= 1 && ip[XRT_H_WEIGHT] != 0;
     const bool bilinear = kStages >= 1 && ip[XRT_H_BILINEAR] != 0;
+    const bool vote = kSkip && !weight;
     for (int e = 0; e < n_opt; ++e) {
-        if (kSkip && !__any_sync(0xffffffffu, alive)) break;
+        if (vote && !__any_sync(0xffffffffu, alive)) break;
         const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
         const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;
         float t, nxv, nyv, nzv;
@@ -564,15 +612,16 @@ __device__ __forceinline__ bool xrt_trace_chain(
         }
         xrt_count_warp(s_counts, 1 + e, alive, lane);
 
-        if (oi[7] >= 0 && alive) {
+        // A ray of weight zero adds terms of zero alone.
+        if (oi[7] >= 0 && alive && (kStages == 0 || wt != 0.0f)) {
             const float fx = fmaf(lxv, o[23], o[24]);
             const float fy = fmaf(lyv, o[23], o[25]);
             if (bilinear) {
-                xrt_splat(img + oi[7], fx, fy, oi[8], oi[9], wt);
+                xrt_splat(img, oi[7], fx, fy, oi[8], oi[9], wt);
             } else {
                 int flat;
                 if (xrt_nearest_pixel(fx, fy, oi[8], oi[9], &flat)) {
-                    atomicAdd(img + oi[7] + flat, kStages >= 1 ? wt : 1.0f);
+                    img.add(oi[7] + flat, kStages >= 1 ? wt : 1.0f);
                 }
             }
         }

@@ -77,7 +77,7 @@ __global__ void trace_only_kernel(
     if (use_smem) xrt_smem_zero(s_img, img_total);
     __syncthreads();
 
-    float* img = use_smem ? s_img : images;
+    const XrtImage<float> img{use_smem ? s_img : images};
     const int n_opt = ip[0];
     const int lane = threadIdx.x & 31;
     const long long stride = (long long)gridDim.x * blockDim.x;

@@ -69,13 +69,17 @@ def default_xaxis(zaxis: np.ndarray) -> np.ndarray:
 
 
 def frame_from_config(origin, zaxis, xaxis=None, dtype=torch.float32,
-                      device="cpu") -> Frame:
+                      device=None) -> Frame:
     """Build a Frame from config entries, validating orthogonality.
 
     Computed in float64 on the host and rounded once to ``dtype``, as
     ``xicsrt_tpu.geometry.frame_from_config`` does; the y-axis is
-    ``cross(zaxis, xaxis)``.
+    ``cross(zaxis, xaxis)``. ``device``: by default CUDA, raising without
+    it (``dispatch.default_device``).
     """
+    from xicsrt_tpu_torch.dispatch import default_device  # dispatch imports this module
+
+    device = default_device(device)
     origin = np.asarray(origin, dtype=np.float64)
     zaxis = np.asarray(zaxis, dtype=np.float64)
     zn = np.linalg.norm(zaxis)

@@ -600,9 +600,10 @@ class FusedParams:
 
     @property
     def curved(self) -> bool:
-        """The chain holds a torus or a cylinder. K1's point-source build
-        without further stages comes without their code, for the chains of
-        planes and spheres that do not (the flagship's)."""
+        """The chain holds a torus or a cylinder. K1's point-source builds
+        without the Chebyshev and mosaic stages come without their code,
+        for the chains of planes and spheres that do not (the flagship's;
+        ``xrt_fused_trace_flat`` says which build the launcher picks)."""
         return bool(self.shape_mask >> _SHAPES["torus"] & 1
                     or self.shape_mask >> _SHAPES["cylinder"] & 1)
 
@@ -1780,7 +1781,9 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
     [1 + n_optics], flat images float32 [img_total]), and with a
     ``history`` the filled reservoir third: 'found' launches K1's build
     that marks the chunks with a found ray, then K1e
-    (:func:`history_record_cuda`). Buffers on a CUDA device launch the
+    (:func:`history_record_cuda`). Weighted and bilinear images
+    (``fparams.stages`` >= 1) are summed by the kernel in float64 and
+    rounded here once to float32. Buffers on a CUDA device launch the
     kernels (or raise); buffers on the CPU take :func:`fused_run_plain`.
     """
     device = fparams.fp.device
@@ -1796,16 +1799,17 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
     cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
     uniforms = _check_uniforms(fparams, uniforms, n_total, device)
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
-    image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
+    sums = torch.zeros(fparams.img_total, device=device,
+                       dtype=torch.float64 if fparams.stages >= 1 else torch.float32)
     if n_total == 0:
-        return counts, image
+        return counts, sums.to(torch.float32)
     fp, ip, aux = _buffers(fparams, "fused_run_cuda")
     args = (fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
             aux.numel(), n_total, int(count),
             None if uniforms is None else uniforms.data_ptr(), int(seed[0]) & _M32,
             int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
             None if table is None else table.data_ptr(), n_bundles, n_per_iter,
-            counts.data_ptr(), image.data_ptr(), fparams.img_total,
+            counts.data_ptr(), sums.data_ptr(), fparams.img_total,
             int(fparams.full_source), int(fparams.cheb), fparams.stages,
             int(fparams.curved))
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -1818,6 +1822,7 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
         err = native.library().xrt_fused_trace(*args, stream)
     native.check(err, "xrt_fused_trace")
     fused_run_cuda.launches += 1
+    image = sums.to(torch.float32)
     if history is None:
         return counts, image
     return counts, image, history_record_cuda(fparams, n_total, count, history, marks,

@@ -49,6 +49,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from xicsrt_tpu_torch.ops import fused_trace as ft
+from xicsrt_tpu_torch.ops.binning import fused_multiply_add
 from xicsrt_tpu_torch.ops import native
 from xicsrt_tpu_torch.ops import roofline_probes as rp
 from xicsrt_tpu_torch.tools import bench_scenarios as BS
@@ -187,39 +188,111 @@ def k1_ops(fparams) -> int:
 WARP = 32  # K1's lanes a warp; its rays r0 .. r0 + 31 with r0 a multiple of 32
 
 
-def live_lanes(fparams, n: int, seed=(1, 2), uniforms=None) -> dict:
-    """What K1 really traces of ``n`` rays of a point or generic source:
-    its plain twin (``fused_trace._trace_slice`` with its record hook, the
-    Philox stream of ``seed`` or the explicit ``uniforms``) gives each ray's
-    alive mask into every optic, and a warp is K1's 32 rays of consecutive
-    indices from a multiple of 32. Returns ``rays_into`` (the rays alive into
-    each optic: the source's count, then the counts after each optic but
-    the last), ``warps_into`` (the warps with a live lane into each optic),
-    ``warps`` (all of them), ``dead_warp_share`` (the share of warps with no
-    live lane at each optic) and ``counts`` (the twin's counts)."""
+def _trace_recorded(fparams, n: int, seed, uniforms, record, name: str) -> list:
+    """K1's plain twin over ``n`` rays of a point or generic source
+    (``fused_trace._trace_slice``, the Philox stream of ``seed`` or the
+    explicit ``uniforms``), calling ``record(rays, e, px, py, pz, dx, dy,
+    dz, alive, wt)`` with each slice's global ray indices after each element
+    e (the source's 0, then the optics' 1 ..). Returns the twin's counts."""
     if fparams.plasma:
-        raise ValueError("live_lanes: a point or generic source only")
+        raise ValueError(f"{name}: a point or generic source only")
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
     device = fparams.fp.device
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
-    into = torch.zeros((fparams.n_optics, n), dtype=torch.bool, device=device)
     for rays, alive, _ in ft._slices(fparams, n, n, None):
-
-        def record(e, *state, wl=None):
-            if e < fparams.n_optics:
-                into[e, rays] = state[6]
-
         ft._trace_slice(F, I, fparams.aux, alive, ft._draws(fparams, rays, uniforms, seed),
-                        counts, image, record=record)
+                        counts, image,
+                        record=lambda e, *state, wl=None, rays=rays: record(rays, e, *state))
+    return counts.tolist()
+
+
+def live_lanes(fparams, n: int, seed=(1, 2), uniforms=None) -> dict:
+    """What K1 really traces of ``n`` rays of a point or generic source:
+    its plain twin (:func:`_trace_recorded`) gives each ray's alive mask
+    into every optic, and a warp is K1's 32 rays of consecutive indices
+    from a multiple of 32. Returns ``rays_into`` (the rays alive into each
+    optic: the source's count, then the counts after each optic but the
+    last), ``warps_into`` (the warps with a live lane into each optic),
+    ``warps`` (all of them), ``dead_warp_share`` (the share of warps with no
+    live lane at each optic) and ``counts`` (the twin's counts)."""
+    device = fparams.fp.device
+    into = torch.zeros((fparams.n_optics, n), dtype=torch.bool, device=device)
+
+    def record(rays, e, *state):
+        if e < fparams.n_optics:
+            into[e, rays] = state[6]
+
+    counts = _trace_recorded(fparams, n, seed, uniforms, record, "live_lanes")
     warps = -(-n // WARP)
     padded = torch.zeros((fparams.n_optics, warps * WARP), dtype=torch.bool, device=device)
     padded[:, :n] = into
     live = padded.reshape(fparams.n_optics, warps, WARP).any(dim=2).sum(dim=1)
     return {"rays_into": into.sum(dim=1).tolist(), "warps_into": live.tolist(),
             "warps": warps, "dead_warp_share": [1.0 - w / warps for w in live.tolist()],
-            "counts": counts.tolist()}
+            "counts": counts}
+
+
+def _image_terms(o, oi, bilinear: bool, lxv, lyv, alive, w):
+    """The terms an optic's hits add to its image (``xrt_trace_chain``,
+    ``xrt_nearest_pixel``, ``xrt_splat``): the optic's packed floats ``o``
+    and ints ``oi``, the hits' local coordinates (lxv, lyv), the rays alive
+    after it and their weights w. Yields the terms that land on the grid,
+    one tensor for nearest images, one a corner for bilinear ones; none
+    where the optic keeps no image."""
+    if oi[7] < 0:
+        return
+    nx, ny = oi[8], oi[9]
+    fx = fused_multiply_add(lxv, o[23], o[24])[alive]
+    fy = fused_multiply_add(lyv, o[23], o[25])[alive]
+    w = w[alive]
+    if not bilinear:
+        fx, fy = torch.round(fx), torch.round(fy)
+        yield w[(fx >= 0) & (fx < nx) & (fy >= 0) & (fy < ny)]
+        return
+    fx, fy = torch.clamp(fx, -2.0, nx + 1.0), torch.clamp(fy, -2.0, ny + 1.0)
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    for xi in (x0, x0 + 1.0):
+        wx = (1.0 - torch.abs(fx - xi)) * w
+        for yi in (y0, y0 + 1.0):
+            ok = (xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
+            yield (wx * (1.0 - torch.abs(fy - yi)))[ok]
+
+
+def image_adds(fparams, n: int, seed=(1, 2), uniforms=None) -> list:
+    """The image terms K1 adds on ``n`` rays of a point or generic source,
+    from its plain twin's record hook (:func:`_trace_recorded`): each
+    optic's hits after it, their local coordinates from the recorded
+    positions and their weights, through the kernels' nearest pixel or
+    bilinear splat (:func:`_image_terms`). One dict an imaged optic:
+    ``optic`` (its index in the chain), ``adds`` (the terms, one atomic
+    each before K1 skipped zero terms), ``zero`` (those of exactly 0, which
+    K1 does not issue) and ``subnormal`` (those below the smallest normal
+    float32)."""
+    F = [float(x) for x in fparams.fp.tolist()]
+    I = [int(x) for x in fparams.ip.tolist()]
+    bilinear = bool(I[ft.H_BILINEAR])
+    out = {}
+
+    def record(rays, e, px, py, pz, dx, dy, dz, alive, wt):
+        if e == 0:
+            return
+        o = F[ft.SRC_F + (e - 1) * ft.OPT_F: ft.SRC_F + e * ft.OPT_F]
+        oi = I[ft.HDR_I + (e - 1) * ft.OPT_I: ft.HDR_I + e * ft.OPT_I]
+        rx, ry, rz = px - o[0], py - o[1], pz - o[2]
+        lxv = rx * o[3] + ry * o[4] + rz * o[5]
+        lyv = rx * o[6] + ry * o[7] + rz * o[8]
+        w = torch.ones_like(px) if wt is None else wt
+        for terms in _image_terms(o, oi, bilinear, lxv, lyv, alive, w):
+            tally = out.setdefault(e - 1, {"optic": e - 1, "adds": 0, "zero": 0,
+                                           "subnormal": 0})
+            tally["adds"] += terms.numel()
+            tally["zero"] += int((terms == 0).sum())
+            tally["subnormal"] += int(((terms != 0) & (terms.abs() < 2.0**-126)).sum())
+
+    _trace_recorded(fparams, n, seed, uniforms, record, "image_adds")
+    return [out[e] for e in sorted(out)]
 
 
 def k1_live_ops(fparams, live: dict, n: int) -> dict:
