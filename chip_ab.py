@@ -648,9 +648,62 @@ K2_LEADS = {
                                "            int(unit_weights), out.data_ptr()":
                                "            0, out.data_ptr()"}},
 }
+# K1e's leads. What a chunk mark costs the marking body of K1's kMark
+# builds (the fallback, and the parent's every 'found' run): the
+# warp's ballot kept (its bits or-ed into a register, stored never) and
+# the store dropped; the store issued only where a load of the mark finds
+# it clear (`mark_test_first`); or the chunk's index by the 64-bit division
+# of the parent. The marked build in place of the probe (`k1e_marked`: K1
+# marks every chunk, as the parent did). The host reading the probe's flag
+# before K1 (`probe_host_read`: K1's build without marks alone where the
+# probe found the kept chunks, at the cost of a wait for the probe, in
+# place of both builds, the flag picking one on the card). The probe's
+# first kept parameters (`probe_64_from_2_26`: 1/64 of the run, from 2^26
+# rays). The split's one
+# copy through pinned memory, the arrays views of it (`split_pinned_view`,
+# which keeps the pinned buffer alive as long as the arrays), or copied out
+# of it (`split_pinned_copy`), in place of one pageable copy.
+_FT = os.path.join("xicsrt_tpu_torch", "ops", "fused_trace.py")
+# The flagship's detector narrowed until about one chunk of 8192 rays in
+# 700 keeps a ray (3 of the first 2048 on the twin): K1e's fallback at its
+# worst. PROBE_MIN_RAYS above every run: the probe never runs.
+RARE_DETECTOR_XSIZE = 0.0276
+NEVER = 1 << 62
+_ENGINE = os.path.join("xicsrt_tpu_torch", "engine.py")
+_MARK = """            if (__ballot_sync(0xffffffffu, found) && lane == 0) {
+                marks[(unsigned int)r0 / (unsigned int)chunk] = 1;
+            }
+"""
+_LOOP = "    for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);\n"
+_HOST_COPY = "    raw = buf.cpu().numpy()\n"
+_PINNED = """    if buf.is_cuda:
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=True).copy_(buf)
+"""
+K1E_LEADS = {
+    "mark_ballot_only": {_RUN: {
+        _LOOP: "    unsigned int voted = 0u;\n" + _LOOP,
+        _MARK: "            voted |= __ballot_sync(0xffffffffu, found);\n",
+        _BODY_END: "    if (kMark && voted == 0x9e3779b9u && chunk < 0) marks[0] = 1;\n"
+                   + _BODY_END}},
+    "mark_test_first": {_RUN: {_MARK: """            if (__ballot_sync(0xffffffffu, found) && lane == 0) {
+                const unsigned int c = (unsigned int)r0 / (unsigned int)chunk;
+                if (__ldcg(marks + c) == 0) marks[c] = 1;
+            }
+"""}},
+    "mark_div64": {_RUN: {_MARK: _MARK.replace("(unsigned int)r0 / (unsigned int)chunk",
+                                               "r0 / chunk")}},
+    "k1e_marked": {_FT: {"PROBE_MIN_RAYS = 1 << 28\n": "PROBE_MIN_RAYS = 1 << 62\n"}},
+    "probe_64_from_2_26": {_FT: {"PROBE_MIN_RAYS = 1 << 28\n": "PROBE_MIN_RAYS = 1 << 26\n",
+                                 "PROBE_SHARE = 1024\n": "PROBE_SHARE = 64\n"}},
+    "probe_host_read": {_FT: {"    if marks is None:\n        err = lib.xrt_fused_trace(":
+                              "    if marks is None or probed and int(marks[-1]):\n"
+                              "        err = lib.xrt_fused_trace("}},
+    "split_pinned_view": {_ENGINE: {_HOST_COPY: _PINNED + "    raw = buf.numpy()\n"}},
+    "split_pinned_copy": {_ENGINE: {_HOST_COPY: _PINNED + "    raw = buf.numpy().copy()\n"}},
+}
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
            **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
-           **K1A_LEADS, **K2_LEADS, **K1D_LEADS}
+           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -875,7 +928,7 @@ def child(tree: str, mode: str) -> None:
         print(line, flush=True)
     lib_path = native.build()
     for fn, ops in sass_counts(lib_path, r"fused_trace_kernelILi0ELb0ELi[01]ELb0E|"
-                               r"fused_trace_flat_kernelI(Li[01]E)?Lb0E|"
+                               r"fused_trace_flat_kernelI(Li[01]E)?Lb[01]E|"
                                r"bin_images?_kernel").items():
         keys = ("all", "ATOMS", "ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "RED", "ATOM",
                 "ATOMG", "MUFU", "LDS", "LDG", "BRA", "BSSY")
@@ -893,6 +946,9 @@ def child(tree: str, mode: str) -> None:
     times = {}
     if mode == "stage1":
         stage1(cs, engine, ft, n, label, ms)
+        return
+    if mode == "k1e":
+        k1e_rows(cs, engine, ft, label, ms)
         return
     chains = {"K1a": cs.flagship(n, 1, engine="fused")}
     if hasattr(cs, "mesh_config"):
@@ -1118,6 +1174,184 @@ def stage1(cs, engine, ft, n: int, label: str, ms) -> None:
     print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
 
 
+def k1e_chains(cs, engine, ft, n: int) -> dict:
+    """The chains whose 'found' history K1e's rows time, one a build of K1
+    (``chip_smoke.py``'s configs at ``n`` rays, a plasma's at its 1000
+    bundles): {name: (pipeline, packed buffers, rays, bundles or None)}.
+    ``sparse``: the flagship's detector narrowed until about a chunk in
+    three keeps a ray (``SPARSE_DETECTOR_XSIZE``)."""
+    cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
+    configs = {
+        "flagship": cs.flagship(n, 1, engine="fused"),
+        "flagship weight": cs.flagship(n, 1, engine="fused", interact_mode="weight"),
+        "flagship bilinear": cs.flagship(n, 1, engine="fused", image_mode="bilinear"),
+        "mosaic15": cs.mosaic15_config(n, 1, "fused"),
+        "K1b": cs.source_matrix_config(n, 1, "fused"),
+        "K1c-cheb": cs.mesh_config(n, 1, "fused", cls, **kw),
+        "cylinder": cs.cylinder_config(n, 1, "fused"),
+        "sparse": cs.flagship(n, 1, engine="fused")}
+    configs["sparse"]["optics"]["detector"]["xsize"] = cs.SPARSE_DETECTOR_XSIZE
+    out = {}
+    for name, cfg in configs.items():
+        pipe = engine.Pipeline(cfg, device="cuda")
+        out[name] = (pipe, cs.k1_pack(pipe), n, None)
+    pipe, fparams, bundles, m = cs.plasma_k1_setup(ft, engine, n, 1)
+    out["plasma_torus"] = (pipe, fparams, m, bundles)
+    return out
+
+
+def k1e_rows(cs, engine, ft, label: str, ms) -> None:
+    """K1e's A/B rows (``--k1e-only``): on each of :func:`k1e_chains` at
+    2^22 rays, K1's launch without marks, with them, and (in a tree with
+    the probe) with the probe's flag set, where the marked build leaves at
+    once and the build without marks runs (``k1_direct``, ``pair``: the
+    main step of a probed call); the whole 'found' call (``fused_run_cuda``
+    with the reservoir; in a tree with the probe, also with the probe
+    taken below its least run size, ``PROBE_MIN_RAYS`` 0); and the
+    reservoir's launches on the card alone (``device_ms``: the selection
+    and record launch; in a tree with the probe, the probe's launches); on
+    the flagship at 2^28 rays the same (a tree with the probe takes it
+    there, and times the marked build's call beside it); the 'found' call
+    at 2^24 and 2^26 rays (in a tree with the probe, probed and marked
+    too); K1 and the 'found' call on the flagship with its detector
+    narrowed to ``RARE_DETECTOR_XSIZE`` at 2^26 and 2^28 rays, where the
+    probe falls back after its last window; then ``raytrace`` with and
+    without 'found' history (3 means of 3 calls) and the found/lost split
+    of one 'found' call alone (``engine._sort_history``) on the flagship
+    (2^26 x 4), ``mosaic15`` (2^24 x 4) and ``plasma_torus`` (2^22 x 4)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import xicsrt_tpu_torch
+    from xicsrt_tpu_torch import engine as eng
+
+    times, equal = {}, {}
+    device_ms = cs.device_ms
+    k1_direct = getattr(cs, "k1_direct", None) or runpy.run_path(
+        os.path.join(ROOT, "chip_smoke.py"))["k1_direct"]
+    probe = getattr(ft, "history_probe_cuda", None)
+
+    def calls(fn) -> tuple:
+        means = [cs.cuda_ms(fn, 3) for _ in range(3)]
+        return min(means), statistics.median(means)
+
+    def probing(rays, fn):  # fn with ft.PROBE_MIN_RAYS set to rays
+        def run():
+            old, ft.PROBE_MIN_RAYS = ft.PROBE_MIN_RAYS, rays
+            try:
+                return fn()
+            finally:
+                ft.PROBE_MIN_RAYS = old
+        return run
+
+    def marks_of(spec, m, flag):
+        marks = torch.zeros(spec.n_chunks(m) + 1, dtype=torch.int32, device="cuda")
+        marks[-1] = flag
+        return marks
+
+    for name, (pipe, fparams, m, bundles) in k1e_chains(cs, engine, ft, 1 << 22).items():
+        spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+        marks, flagged = marks_of(spec, m, 0), marks_of(spec, m, 1)
+        times[f"K1 {name}"] = ms(lambda: k1_direct(ft, fparams, m, (1, 2), bundles))
+        times[f"K1 marked {name}"] = ms(
+            lambda: k1_direct(ft, fparams, m, (1, 2), bundles, marks, spec.chunk))
+        if probe is not None:
+            times[f"K1 flagged {name}"] = ms(lambda: k1_direct(
+                ft, fparams, m, (1, 2), bundles, flagged, spec.chunk, pair=True))
+        times[f"K1e found {name}"] = ms(lambda: ft.fused_run_cuda(
+            fparams, m, m, seed=(1, 2), bundles=bundles, history=spec))
+        if probe is not None:  # the probe below its least run size
+            times[f"K1e found probe {name}"] = ms(probing(0, lambda: ft.fused_run_cuda(
+                fparams, m, m, seed=(1, 2), bundles=bundles, history=spec)))
+        times[f"record {name}"] = ms(lambda: ft.history_record_cuda(
+            fparams, m, m, spec, marks[:-1], seed=(1, 2), bundles=bundles), device_ms)
+        if probe is not None:
+            times[f"probe {name}"] = ms(lambda: probe(fparams, m, m, spec, seed=(1, 2),
+                                                      bundles=bundles), device_ms)
+            found = probe(fparams, m, m, spec, seed=(1, 2), bundles=bundles)
+            print(f"{label} {name}: the probe's windows cover {found.chunks} chunks, used "
+                  f"{int(found.used)}, flag {int(found.marks[-1])}", flush=True)
+        equal[f"K1 marked {name}"] = bool(torch.equal(
+            k1_direct(ft, fparams, m, (1, 2), bundles),
+            k1_direct(ft, fparams, m, (1, 2), bundles, marks, spec.chunk)))
+        used = int(ft.fused_run_cuda(fparams, m, m, seed=(1, 2), bundles=bundles,
+                                     history=spec)[2].used)
+        print(f"{label} {name}: {int((marks[:-1] != 0).sum())} of {marks.numel() - 1} "
+              f"chunks marked, {used} slots used", flush=True)
+        del marks, flagged
+    big_cfg = cs.flagship(2**26, 4, engine="fused")
+    pipe = engine.Pipeline(big_cfg, device="cuda")
+    big = cs.k1_pack(pipe)
+    spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+    marks, flagged = marks_of(spec, 2**28, 0), marks_of(spec, 2**28, 1)
+    times["K1 2^28"] = calls(lambda: k1_direct(ft, big, 2**28, (1, 2)))
+    times["K1 marked 2^28"] = calls(
+        lambda: k1_direct(ft, big, 2**28, (1, 2), marks=marks, chunk=spec.chunk))
+    if probe is not None:
+        times["K1 flagged 2^28"] = calls(lambda: k1_direct(
+            ft, big, 2**28, (1, 2), marks=flagged, chunk=spec.chunk, pair=True))
+        times["probe 2^28"] = ms(lambda: probe(big, 2**28, 2**28, spec, seed=(1, 2)),
+                                 device_ms)
+    times["K1e found 2^28"] = calls(
+        lambda: ft.fused_run_cuda(big, 2**28, 2**28, seed=(1, 2), history=spec))
+    if probe is not None:
+        times["K1e found marked 2^28"] = calls(probing(NEVER, lambda: ft.fused_run_cuda(
+            big, 2**28, 2**28, seed=(1, 2), history=spec)))
+    # Where the probe starts to pay: 'found' on the flagship at 2^24 and
+    # 2^26 rays, probed and marked.
+    for k in (24, 26):
+        times[f"K1e found 2^{k}"] = calls(
+            lambda: ft.fused_run_cuda(big, 2**k, 2**k, seed=(1, 2), history=spec))
+        if probe is not None:
+            for tag, rays in (("probe", 0), ("marked", NEVER)):
+                times[f"K1e found {tag} 2^{k}"] = calls(probing(rays, lambda: ft.fused_run_cuda(
+                    big, 2**k, 2**k, seed=(1, 2), history=spec)))
+    del big, marks, flagged
+    # The fallback at its worst: a detector so narrow that the probe's
+    # windows (1/PROBE_SHARE of the run) find fewer than 8 chunks that keep a ray,
+    # so the probe traces all of them and K1 still marks.
+    rare_cfg = cs.flagship(2**26, 4, engine="fused")
+    rare_cfg["optics"]["detector"]["xsize"] = RARE_DETECTOR_XSIZE
+    pipe = engine.Pipeline(rare_cfg, device="cuda")
+    rare = cs.k1_pack(pipe)
+    for k in (26, 28):
+        times[f"K1 rare 2^{k}"] = calls(lambda: k1_direct(ft, rare, 2**k, (1, 2)))
+        times[f"K1e found rare 2^{k}"] = calls(
+            lambda: ft.fused_run_cuda(rare, 2**k, 2**k, seed=(1, 2), history=spec))
+        if probe is not None:
+            times[f"K1e found marked rare 2^{k}"] = calls(probing(
+                NEVER, lambda: ft.fused_run_cuda(rare, 2**k, 2**k, seed=(1, 2),
+                                                 history=spec)))
+            found = probe(rare, 2**k, 2**k, spec, seed=(1, 2))
+            print(f"{label} rare 2^{k}: the probe's windows cover {found.chunks} chunks, "
+                  f"used {int(found.used)}, flag {int(found.marks[-1])}", flush=True)
+    del rare
+    found_configs = {
+        "flagship": (big_cfg, cs.flagship(2**26, 4, engine="fused", keep_history="found",
+                                          history_max_lost=10000)),
+        "mosaic15": (cs.mosaic15_config(2**24, 4, "fused"),
+                     cs.mosaic15_config(2**24, 4, "fused", keep_history="found",
+                                        history_max_lost=10000)),
+        "plasma_torus": (cs.plasma_config(1 << 22, 4, engine="fused"),
+                         cs.plasma_config(1 << 22, 4, engine="fused", keep_history="found",
+                                          history_max_lost=10000))}
+    for name, (none_cfg, found_cfg) in found_configs.items():
+        times[f"raytrace none {name}"] = calls(lambda: xicsrt_tpu_torch.raytrace(
+            copy.deepcopy(none_cfg), device="cuda"))
+        times[f"raytrace found {name}"] = calls(lambda: xicsrt_tpu_torch.raytrace(
+            copy.deepcopy(found_cfg), device="cuda"))
+        runner, pipe = eng.build_runner(copy.deepcopy(found_cfg), device="cuda")
+        out = runner(pipe.params, eng._run_generator(pipe.general, 0, pipe.device))
+        times[f"sort_history {name}"] = calls(lambda: eng._sort_history(
+            out["history"], pipe.element_names, 10000, np.random.default_rng(0)))
+        del out
+    for name, (low, mid) in times.items():
+        print(f"{label} {name}: {low:.4f} ms least, {mid:.4f} ms median", flush=True)
+    print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another tree to time as it is")
@@ -1127,6 +1361,8 @@ def main() -> int:
                     help="time K1, K1e and K3 only (not K5 or R2)")
     ap.add_argument("--stage1-only", action="store_true",
                     help="time K1's weight and bilinear builds only (stage1_chains)")
+    ap.add_argument("--k1e-only", action="store_true",
+                    help="time K1e's rows only (k1e_rows)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -1153,7 +1389,8 @@ def main() -> int:
     for tree in trees + trees[::-1]:
         if tree in failed:
             continue
-        mode = "stage1" if args.stage1_only else "trace" if args.trace_only else "time"
+        mode = ("stage1" if args.stage1_only else "k1e" if args.k1e_only
+                else "trace" if args.trace_only else "time")
         proc = subprocess.run(child_command(tree, mode),
                               cwd=tree, text=True,
                               capture_output=True, timeout=900)

@@ -135,19 +135,31 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     K3-weight's census, and ``mosaic15``'s layer work (``mosaic_
     work``), its lane-layer slots a ray a lane and spread over the warp
     (``mosaic_schedule``) and its census as run (``mosaic_ops_as_run``);
-39. the history reservoir K1e (K1's marked build, the chunk selection and
-    the record launch) against its twin on the flagship at 2^20 rays,
-    chunk 8192: 'found' and 'sampled', mc and weight mode, both RNG modes,
-    'found' on ``mosaic15`` in mc and weight mode, and 'found' on a
-    narrowed detector where about a third of the chunks keep a ray: counts,
-    images, kept chunks and every recorded value equal;
+39. the history reservoir K1e (the probe, K1's marked build, the chunk
+    selection and the record launch) against its twin on the flagship at
+    2^20 rays, chunk 8192: 'found' and 'sampled', mc and weight mode, both
+    RNG modes, 'found' on ``mosaic15`` in mc and weight mode, and 'found'
+    on a narrowed detector where about a third of the chunks keep a ray:
+    counts, images, kept chunks and every recorded value equal; for each
+    'found' run the probe's marks, count and flag equal to its twin's, and
+    the call that probes (two K1 launches) against the one whose K1 marks
+    every chunk (``probe_from``): counts, images and reservoir equal to
+    each other's and the twin's; the flagship and ``mosaic15`` found by
+    the probe, the narrowed detector by the marks (the fallback);
 40. the flagship at 2^26 x 4 through ``raytrace(config, device='cuda')``
     with ``keep_history`` False, 'found' and 'sampled': rays/s of each, the
-    found history's bounds and invariants, the sampled found share within
-    5 binomial sigma of the run's efficiency and its lost sample truncated,
-    K1e's time against K1's and its twin's, and the registers of its builds;
+    K1, probe and record launches of each, the ``raytrace_run`` and
+    ``sort_history`` spans of the 'found' call, its meta and images and
+    the 'sampled' call's equal to the call's without history, the found
+    history's bounds and invariants, the sampled found share within 5
+    binomial sigma of the run's efficiency and its lost sample truncated,
+    the probe path against the marked build at full width (and the probe
+    against its twin), K1e's time against K1's
+    (the main launch, the probe, the selection and record, and
+    ``torch.nonzero`` of the marks beside the selection), and the
+    registers of its builds;
 41. ``plasma_torus`` with ``keep_history='found'`` at 2^22 photons x 4: the
-    same invariants;
+    same invariants, and the probe path against the marked build;
 42. ``python -m xicsrt_tpu_torch`` as a subprocess on a written config
     (``--save --numiter 2 --seed 3``): exit 0, its results file's meta equal
     to an in-process run's, the found history in it; the script imports
@@ -3005,6 +3017,123 @@ def history_equal(kernel, plain, n_fields: int, label) -> float:
     return err
 
 
+def k1_direct(ft, fparams, n: int, seed, bundles=None, marks=None, chunk: int = 8192,
+              pair: bool = False):
+    """K1 on ``n`` rays (Philox ``seed``) into zeroed counts and images, as
+    ``fused_run_cuda`` launches it, with no probe or record: the build that
+    marks the chunks of ``chunk`` rays into ``marks`` (ceil(n / chunk) + 1
+    int32, the last K1e's flag) where they are given
+    (``xrt_fused_trace_marked``), with ``pair`` also the build without
+    marks that runs where the flag is set (``xrt_fused_trace_flagged``: a
+    probed 'found' run's main step); else ``xrt_fused_trace``. Returns the
+    counts."""
+    from xicsrt_tpu_torch.ops import native
+
+    dev = fparams.fp.device
+    cum, table, n_bundles, n_per_iter = ft._check_bundles(fparams, n, bundles, dev)
+    counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=dev)
+    sums = torch.zeros(fparams.img_total, device=dev,
+                       dtype=torch.float64 if fparams.stages >= 1 else torch.float32)
+    fp, ip, aux = ft._buffers(fparams, "k1_direct")
+    args = (fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+            aux.numel(), n, n, None, int(seed[0]), int(seed[1]),
+            None if cum is None else cum.data_ptr(),
+            None if table is None else table.data_ptr(), n_bundles, n_per_iter,
+            counts.data_ptr(), sums.data_ptr(), fparams.img_total,
+            int(fparams.full_source), int(fparams.cheb), fparams.stages, int(fparams.curved))
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = native.library()
+    if marks is None:
+        err = lib.xrt_fused_trace(*args, stream)
+    else:
+        err = lib.xrt_fused_trace_marked(*args, marks.data_ptr(), chunk, stream)
+        if err == 0 and pair:
+            err = lib.xrt_fused_trace_flagged(*args, marks.data_ptr(), chunk, stream)
+    native.check(err, "k1_direct")
+    return counts
+
+
+class probe_from:
+    """``ft.PROBE_MIN_RAYS``, the least 'found' run that probes, set to
+    ``rays`` inside a ``with`` block: 0 probes every run, ``1 << 62`` none
+    (K1 marks every chunk)."""
+
+    def __init__(self, ft, rays: int):
+        self.ft, self.rays = ft, rays
+
+    def __enter__(self):
+        self.old, self.ft.PROBE_MIN_RAYS = self.ft.PROBE_MIN_RAYS, self.rays
+
+    def __exit__(self, *exc):
+        self.ft.PROBE_MIN_RAYS = self.old
+
+
+def probe_against_marked(ft, fparams, n, spec, label, bundles=None, twin=True, **kwargs):
+    """K1e's probe (``history_probe_cuda``) against its twin's: the same
+    marks, flag, used count and windows. Then the 'found' call of
+    ``fused_run_cuda`` that probes (``probe_from(ft, 0)``: the probe, then
+    K1's two builds, of which the flag runs one) against the one whose K1
+    marks every chunk (``probe_from(ft, 1 << 62)``): two K1 launches in the
+    first, one in the second; counts equal; the same kept chunks and every
+    recorded value equal (``history_equal``). With ``twin``, both calls'
+    counts and images are held to the twin's (``twin_equal``) and the
+    probe path's reservoir to the twin's; without it (a full-width run of
+    nearest mc images, whose pixels sum whole numbers exactly), the
+    images of the two calls are held equal, and the twin probes only where
+    the kernel's flag is set (one window of S chunks). Returns (the probe,
+    whether K1 marked: the fallback, the largest count or pixel difference
+    of the probe path from the twin, or from the marked path without
+    ``twin``)."""
+    probe = ft.history_probe_cuda(fparams, n, n, spec, bundles=bundles, **kwargs)
+    n_chunks = spec.n_chunks(n)
+    flag = int(probe.marks[-1])
+    fallback = probe.chunks < n_chunks and not flag
+    if twin or flag:
+        plain = ft.history_probe_plain(fparams, n, n, spec, bundles=bundles, **kwargs)
+        if not (torch.equal(probe.marks, plain.marks) and int(probe.used) == int(plain.used)
+                and probe.chunks == plain.chunks):
+            raise AssertionError(f"{label}: the probe's marks differ from its twin's")
+    before = ft.fused_run_cuda.launches
+    with probe_from(ft, 0):
+        ck, ik, hk = ft.fused_run_cuda(fparams, n, n, bundles=bundles, history=spec, **kwargs)
+    launches = ft.fused_run_cuda.launches - before
+    with probe_from(ft, 1 << 62):
+        cm, im, hm = ft.fused_run_cuda(fparams, n, n, bundles=bundles, history=spec, **kwargs)
+    launches = (launches, ft.fused_run_cuda.launches - before - launches)
+    if launches != (2, 1):
+        raise AssertionError(f"{label}: K1 launches of the probe path and the marked "
+                             f"path {launches}, not (2, 1)")
+    n_fields = 9 if fparams.weight else 8
+    history_equal(hk, hm, n_fields, f"{label}, the probe path against the marked build")
+    if not torch.equal(ck, cm):
+        raise AssertionError(f"{label}: the probe path's counts {ck.tolist()} against the "
+                             f"marked build's {cm.tolist()}")
+    if twin:
+        cp, iq, tally, hp = ft.fused_run_plain(fparams, n, n, bundles=bundles, terms=True,
+                                               history=spec, **kwargs)
+        err = twin_equal((ck, ik), (cp, iq, tally),
+                         f"{label}, the probe path's counts and images", fparams)
+        twin_equal((cm, im), (cp, iq, tally), f"{label}, the marked path's counts and images",
+                   fparams)
+        history_equal(hk, hp, n_fields, f"{label}, the probe path against the twin")
+    else:
+        if fparams.weight or fparams.bilinear:
+            raise ValueError(f"{label}: summed images need the twin's bound")
+        err = (ik.double() - im.double()).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"{label}: the probe path's image differs from the marked "
+                                 f"build's by {err}")
+    log(f"{label}: the probe's {len(ft.probe_windows(spec, n))} windows cover "
+        f"{probe.chunks} of {n_chunks} chunks, {int((probe.marks[:-1] != 0).sum())} marked, "
+        f"used {int(probe.used)} of {spec.slots}, flag {flag}: "
+        f"{'K1 marks (the fallback)' if fallback else 'K1 makes no mark'}"
+        f"{'' if twin or flag else '; twin not run at this width'}; K1 launches (probe "
+        f"path, marked path) {launches}; the probe path's counts and images "
+        f"{'against the twin' if twin else 'against the marked path'}: largest difference "
+        f"{err}")
+    return probe, fallback, err
+
+
 def k1e_against_twin(ft, fparams, n, spec, label, bundles=None, **kwargs):
     """K1 with the reservoir ``spec`` (the marked build, then K1e) and its
     twin on the same rays: counts and images as ``twin_equal`` holds them,
@@ -3018,16 +3147,22 @@ def k1e_against_twin(ft, fparams, n, spec, label, bundles=None, **kwargs):
     return history_equal(hk, hp, n_fields, f"{label} reservoir"), hk
 
 
-def phase_k1e_twins(ft, engine) -> float:
+def phase_k1e_twins(ft, engine) -> tuple:
     """Phase 39: K1e against its twin on the flagship at 2^20 rays, chunk
     8192: 'found' (8 slots) and 'sampled' (history_max_lost 10000: 2 slots)
     in mc and weight mode, both RNG modes; 'found' on ``mosaic15`` in mc and
     weight mode, both RNG modes; then 'found' on the flagship
     with its detector narrowed until about a third of the chunks keep a
-    ray, so the selection skips chunks."""
+    ray, so the selection skips chunks. Each 'found' run also holds the
+    probe path to the marked build (``probe_against_marked``): the
+    flagship's and ``mosaic15``'s first 8 chunks all keep a ray, so the
+    probe finds them and K1 makes no mark; the narrowed detector's first 8
+    do not, and K1 marks them (the fallback). Returns (the reservoirs'
+    largest difference from the twin's, the probe path's counts' and
+    images' largest difference from the twin's)."""
     n = 1 << 20
     gen = torch.Generator(device="cuda").manual_seed(39)
-    err = 0.0
+    err = probe_err = 0.0
     for interact in ("mc", "weight"):
         pipe = engine.Pipeline(flagship(n, 1, engine="fused", interact_mode=interact),
                                device="cuda")
@@ -3042,6 +3177,12 @@ def phase_k1e_twins(ft, engine) -> float:
                 if hist.chunks.tolist() != list(range(spec.slots)):
                     raise AssertionError("phase 39: every chunk of the flagship keeps a "
                                          "ray, so the first chunks are kept")
+                if mode == "found":
+                    _, fallback, e = probe_against_marked(
+                        ft, fparams, n, spec, f"phase 39 K1e probe {interact} rng={rng}", **kw)
+                    probe_err = max(probe_err, e)
+                    if fallback:
+                        raise AssertionError("phase 39: the flagship's probe fell back")
     for interact in ("mc", "weight"):  # the mosaic's layers in K1e's record launch
         pipe = engine.Pipeline(mosaic15_config(n, 1, "fused", interact_mode=interact),
                                device="cuda")
@@ -3052,6 +3193,11 @@ def phase_k1e_twins(ft, engine) -> float:
             e, _ = k1e_against_twin(ft, fparams, n, spec,
                                     f"phase 39 K1e found mosaic15 {interact} rng={rng}", **kw)
             err = max(err, e)
+            _, fallback, e = probe_against_marked(
+                ft, fparams, n, spec, f"phase 39 K1e probe mosaic15 {interact} rng={rng}", **kw)
+            probe_err = max(probe_err, e)
+            if fallback:
+                raise AssertionError("phase 39: mosaic15's probe fell back")
     cfg = flagship(n, 1, engine="fused")
     cfg["optics"]["detector"]["xsize"] = SPARSE_DETECTOR_XSIZE
     pipe = engine.Pipeline(cfg, device="cuda")
@@ -3061,6 +3207,12 @@ def phase_k1e_twins(ft, engine) -> float:
         e, hist = k1e_against_twin(ft, fparams, n, ft.HistorySpec("found", 8, 8192),
                                    f"phase 39 K1e found, sparse detector, rng={rng}", **kw)
         err = max(err, e)
+        _, fallback, e = probe_against_marked(
+            ft, fparams, n, ft.HistorySpec("found", 8, 8192),
+            f"phase 39 K1e probe, sparse detector, rng={rng}", **kw)
+        probe_err = max(probe_err, e)
+        if not fallback:
+            raise AssertionError("phase 39: the sparse detector's probe did not fall back")
         every = ft.fused_run_cuda(fparams, n, n, history=ft.HistorySpec("found", 128, 8192),
                                   **kw)[2]
         marked = every.chunks[:int(every.used)]
@@ -3070,7 +3222,7 @@ def phase_k1e_twins(ft, engine) -> float:
         if not (0 < marked.numel() < 64 and torch.equal(kept, marked[:8])
                 and int(kept[-1]) > kept.numel() - 1):
             raise AssertionError("phase 39: the selection did not skip chunks as it should")
-    return err
+    return err, probe_err
 
 
 def detector_local(pipe, name, origin):
@@ -3124,34 +3276,119 @@ def found_in(hist, fparams) -> int:
     return int((hist.slots[:, fparams.n_optics * n_fields + 7] != 0).sum())
 
 
+def sort_history_numpy(history_dev, names, max_lost, rng):
+    """The found/lost split in plain numpy, as JAX's ``_sort_history`` does
+    it and the port's once did: the masks and every field copied to
+    the host, found where the last element keeps a ray, lost candidates
+    alive at the first element and dead at the last, truncated by
+    ``rng.choice(w_lost, size=max_lost, replace=False)``."""
+    final_mask = history_dev[names[-1]].mask.cpu().numpy()
+    born_mask = history_dev[names[0]].mask.cpu().numpy()
+    w_found = np.flatnonzero(final_mask)
+    w_lost = np.flatnonzero(born_mask & ~final_mask)
+    if len(w_lost) > max_lost:
+        w_lost = rng.choice(w_lost, size=max_lost, replace=False)
+    found, lost = {}, {}
+    for name in names:
+        arrays = {k: v.cpu().numpy() for k, v in history_dev[name].to_dict().items()}
+        found[name] = {k: v[w_found] for k, v in arrays.items()}
+        lost[name] = {k: v[w_lost] for k, v in arrays.items()}
+    return found, lost
+
+
+def splits_equal(got, want, label) -> None:
+    """Two (found, lost) splits alike: the same elements and keys in order,
+    dtypes, shapes and every value (NaN where the other is NaN)."""
+    for section_got, section_want in zip(got, want):
+        if list(section_got) != list(section_want):
+            raise AssertionError(f"{label}: elements {list(section_got)}")
+        for name, arrays in section_want.items():
+            if list(section_got[name]) != list(arrays):
+                raise AssertionError(f"{label}: {name}'s keys {list(section_got[name])}")
+            for key, a in arrays.items():
+                b = section_got[name][key]
+                if not (b.dtype == a.dtype and b.shape == a.shape
+                        and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")):
+                    raise AssertionError(f"{label}: {name}.{key} differs")
+
+
+def totals_equal(got, want, label) -> float:
+    """Two ``raytrace`` results' totals alike: every element's meta and
+    every image equal to the bit. Returns the largest difference (0)."""
+    err = 0.0
+    for section in ("meta", "image"):
+        a, b = got["total"][section], want["total"][section]
+        if list(a) != list(b):
+            raise AssertionError(f"{label}: {section} names {list(a)} against {list(b)}")
+        for name in b:
+            for key, x, y in (((k, a[name][k], b[name][k]) for k in b[name])
+                              if section == "meta" else ((None, a[name], b[name]),)):
+                x, y = np.asarray(x), np.asarray(y)
+                if x.shape != y.shape or not np.array_equal(x, y):
+                    raise AssertionError(f"{label}: {section} {name} {key or ''} differs")
+                if x.dtype.kind in "fiu" and x.size:
+                    err = max(err, float(np.abs(x.astype(np.float64)
+                                                - y.astype(np.float64)).max()))
+    log(f"{label}: meta and images equal (largest difference {err})")
+    return err
+
+
 def phase_k1e_flagship(smi, ft, engine, raytrace) -> dict:
     """Phase 40: the flagship at 2^26 x 4 through ``raytrace(config,
     device='cuda')`` with ``keep_history`` False, 'found' and 'sampled'
-    (history_max_lost 10000): rays/s of each, the found history's
-    invariants, the sampled found share against the run's efficiency,
-    K1e's own time and the twin's; K1 and K1e counted around the 'found'
-    run, the main path of this slice."""
+    (history_max_lost 10000): rays/s of each, its K1, record and probe
+    launches (counted around the call: the 'found' run is the main path of
+    this slice: the probe's windows and both builds of K1) and the
+    ``raytrace_run`` and ``sort_history`` spans (``utils/profiler``); the
+    'found' and 'sampled' calls' meta and images equal to the call's
+    without history on the same seed, the found history's invariants, the
+    sampled found share against the run's efficiency; the probe path
+    against the marked build at full width; then K1e's times: the 'found' call of
+    ``fused_run_cuda`` against K1's (interleaved), the split held to the
+    numpy split (``sort_history_numpy``) on a 'found' run's history, its
+    main step (both
+    builds with the probe's flag set, ``k1_direct`` with ``pair``) beside
+    K1's at 2^28 and 2^22 rays, the probe and the selection with the record launch
+    on the card alone, their twins, ``torch.nonzero`` of the marks (the
+    selection's yardstick) and the found/lost split alone."""
+    from xicsrt_tpu_torch.utils.profiler import profiler
+
     N, iters = 1 << 26, 4
     pipe = engine.Pipeline(flagship(N, iters, engine="fused"), device="cuda")
     budget = pipe.num_rays * iters
+    src = ft._source_spec(pipe.source)
+    spec = ft._history_spec(pipe, src, 8192, 8, "found")
+    n_windows = len(ft.probe_windows(spec, budget))
     out = {}
     for kh in (False, "found", "sampled"):
         cfg = flagship(N, iters, engine="fused", keep_history=kh, history_max_lost=10000)
         ft.fused_run_cuda.launches = 0
         ft.history_record_cuda.launches = 0
-        res = raytrace(copy.deepcopy(cfg), device="cuda")
-        torch.cuda.synchronize()
-        launches = (ft.fused_run_cuda.launches, ft.history_record_cuda.launches)
-        if launches != (1, int(bool(kh))):
-            raise AssertionError(f"phase 40 keep_history={kh!r}: K1, K1e launches {launches}")
+        ft.history_probe_cuda.launches = 0
+        profiler.reset()
+        profiler.enable()
+        try:
+            res = raytrace(copy.deepcopy(cfg), device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            profiler.disable()
+        spans = {k: v[0] * 1e3 for k, v in profiler.totals().items()}
+        launches = (ft.fused_run_cuda.launches, ft.history_record_cuda.launches,
+                    ft.history_probe_cuda.launches)
+        if launches != ((2, 1, n_windows) if kh == "found" else (1, int(bool(kh)), 0)):
+            raise AssertionError(f"phase 40 keep_history={kh!r}: K1, record, probe "
+                                 f"launches {launches}")
         ms = cuda_ms(lambda: raytrace(copy.deepcopy(cfg), device="cuda"), 3)
-        out[kh] = {"res": res, "ms": ms, "launches": launches}
+        out[kh] = {"res": res, "ms": ms, "launches": launches, "spans": spans}
         meta = metas_of(res)
         log(f"phase 40 flagship keep_history={kh!r}: {budget / ms * 1e3:.4g} rays/s "
-            f"({ms:.2f} ms for {budget} rays on {smi}); meta {meta}; K1, K1e launches "
-            f"{launches}")
-    src = ft._source_spec(pipe.source)
-    spec = ft._history_spec(pipe, src, 8192, 8, "found")
+            f"({ms:.2f} ms for {budget} rays on {smi}); meta {meta}; K1, record, probe "
+            f"launches {launches}; spans of the counted call: raytrace_run "
+            f"{spans.get('raytrace_run', float('nan')):.3f} ms, sort_history "
+            f"{spans.get('sort_history', float('nan')):.3f} ms")
+    main_err = max(totals_equal(out[kh]["res"], out[False]["res"],
+                                f"phase 40 keep_history={kh!r} against False")
+                   for kh in ("found", "sampled"))
     res = out["found"]["res"]
     n_found = check_found(res, pipe, spec, "phase 40 found")
     log(f"phase 40 found: {n_found} found rays of at most {spec.slots * spec.chunk}, alive "
@@ -3174,6 +3411,11 @@ def phase_k1e_flagship(smi, ft, engine, raytrace) -> dict:
 
     n = budget
     fparams = k1_pack(pipe)
+    _, fallback, e = probe_against_marked(ft, fparams, n, spec, "phase 40 full width",
+                                          twin=False, seed=(40, 9))
+    main_err = max(main_err, e)
+    if fallback:
+        raise AssertionError("phase 40: the flagship's probe fell back")
     hist, n_twin = kept_chunks_twin(ft, fparams, n, spec, "phase 40 full width, kept chunks",
                                     seed=(40, 9))
     n_kernel = found_in(hist, fparams)
@@ -3182,33 +3424,81 @@ def phase_k1e_flagship(smi, ft, engine, raytrace) -> dict:
     marks = torch.zeros(spec.n_chunks(n), dtype=torch.int32, device="cuda")
     marks[:spec.slots] = 1
 
-    def k1():
-        ft.fused_run_cuda(fparams, n, n, seed=(40, 9))
+    def flagged(m):  # marks of m rays with the probe's flag set: the main launch
+        f = torch.zeros(spec.n_chunks(m) + 1, dtype=torch.int32, device="cuda")
+        f[-1] = 1
+        return f
 
-    def k1e():
-        ft.fused_run_cuda(fparams, n, n, seed=(40, 9), history=spec)
-
-    times = {"k1": [], "k1e": []}
-    for which in ("k1", "k1e", "k1e", "k1"):
-        times[which].append(cuda_ms(k1 if which == "k1" else k1e, 5))
-    t_k1, t_found = min(times["k1"]), min(times["k1e"])
-    record_ms = cuda_ms(lambda: ft.history_record_cuda(fparams, n, n, spec, marks,
-                                                       seed=(40, 9)), 20)
-    plain_ms = cuda_ms(lambda: ft.history_record_plain(fparams, n, n, spec, marks,
-                                                       seed=(40, 9)), 2)
+    m = 1 << 22
+    flag_n, flag_m = flagged(n), flagged(m)
+    runs = {"k1": lambda: k1_direct(ft, fparams, n, (40, 9)),
+            "main": lambda: k1_direct(ft, fparams, n, (40, 9), marks=flag_n,
+                                      chunk=spec.chunk, pair=True),
+            "found": lambda: ft.fused_run_cuda(fparams, n, n, seed=(40, 9), history=spec)}
+    times = {k: [] for k in runs}
+    for which in ("k1", "main", "found", "found", "main", "k1"):
+        times[which].append(cuda_ms(runs[which], 5))
+    t_k1, t_main, t_found = (min(times[k]) for k in ("k1", "main", "found"))
+    runs22 = {"k1": lambda: k1_direct(ft, fparams, m, (1, 2)),
+              "main": lambda: k1_direct(ft, fparams, m, (1, 2), marks=flag_m,
+                                        chunk=spec.chunk, pair=True)}
+    times22 = {k: [] for k in runs22}
+    for which in ("k1", "main", "main", "k1"):
+        times22[which].append(cuda_ms(runs22[which], 20))
+    t_k1_22, t_main_22 = min(times22["k1"]), min(times22["main"])
+    probe_ms = device_ms(lambda: ft.history_probe_cuda(fparams, n, n, spec, seed=(40, 9)), 20)
+    record_ms = device_ms(lambda: ft.history_record_cuda(fparams, n, n, spec, marks,
+                                                         seed=(40, 9)), 20)
+    probe_plain_ms = cuda_ms(lambda: ft.history_probe_plain(fparams, n, n, spec,
+                                                            seed=(40, 9)), 2)
+    record_plain_ms = cuda_ms(lambda: ft.history_record_plain(fparams, n, n, spec, marks,
+                                                              seed=(40, 9)), 2)
+    select_library = kernel_ms(lambda: torch.nonzero(marks)[:spec.slots], 20)
+    select_library_host = cuda_ms(lambda: torch.nonzero(marks)[:spec.slots], 20)
+    runner, run_pipe = engine.build_runner(
+        flagship(N, iters, engine="fused", keep_history="found", history_max_lost=10000),
+        device="cuda")
+    found_out = runner(run_pipe.params,
+                       engine._run_generator(run_pipe.general, 0, run_pipe.device))
+    split_ms = cuda_ms(lambda: engine._sort_history(found_out["history"],
+                                                    run_pipe.element_names, 10000,
+                                                    np.random.default_rng(0)), 5)
+    splits_equal(engine._sort_history(found_out["history"], run_pipe.element_names, 10000,
+                                      np.random.default_rng(40)),
+                 sort_history_numpy(found_out["history"], run_pipe.element_names, 10000,
+                                    np.random.default_rng(40)),
+                 "phase 40 the split on the card against the numpy split")
     n_rows = hist.slots.shape[1]
-    b = bound(spec.slots * n_rows * spec.chunk * 4 + 8 * spec.n_chunks(n)
-              + packed_bytes(fparams.fp, fparams.ip, fparams.aux),
-              k1_ops(fparams) * spec.slots * spec.chunk)
+    packed = packed_bytes(fparams.fp, fparams.ip, fparams.aux)
+    b_record = bound(spec.slots * n_rows * spec.chunk * 4 + 8 * spec.n_chunks(n) + packed,
+                     k1_ops(fparams) * spec.slots * spec.chunk)
+    # The probe's work on this run: its first window (S chunks), which
+    # finds the kept chunks; the later windows leave at once.
+    b_probe = bound(packed + 4 * (spec.slots + 1), k1_ops(fparams) * spec.slots * spec.chunk)
     k1e_ms = t_found - t_k1
-    log(f"phase 40 timings on {smi}: K1 {t_k1:.4f} ms, K1 with 'found' {t_found:.4f} ms "
-        f"per {n} rays (least of 2 means of 5, interleaved), so K1e (the marks plus the "
-        f"record launch) {k1e_ms:.4f} ms; the record launch alone {record_ms:.4f} ms, its "
-        f"twin {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}: {spec.slots} x "
-        f"{spec.chunk} rays traced again, {n_rows} rows written); found {n_kernel} rays, "
-        f"the twin's count in the kept chunks {n_twin}")
-    return {"launches": out["found"]["launches"][1], "ms": k1e_ms, "record_ms": record_ms,
-            "plain_ms": plain_ms, "bound": b,
+    library_txt = ("not measured (the profiler recorded no device time)"
+                   if select_library is None else f"{select_library:.4f} ms")
+    log(f"phase 40 timings on {smi}: K1 {t_k1:.4f} ms, its 'found' main step (the probe's "
+        f"flag set: the marked build leaves at once, the build without marks runs) "
+        f"{t_main:.4f} ms, K1 with 'found' (probe, main step, "
+        f"selection and record) {t_found:.4f} ms per {n} rays (least of 2 means of 5, "
+        f"interleaved), so K1e {k1e_ms:.4f} ms; per 2^22 rays K1 {t_k1_22:.4f} ms, the main "
+        f"step {t_main_22:.4f} ms (least of 2 means of 20); on the card alone the probe's "
+        f"{n_windows} launches {probe_ms:.4f} ms (twin {probe_plain_ms:.4f} ms, bound "
+        f"{b_probe[0]:.4f} ms, {b_probe[1]}), the selection and record {record_ms:.4f} ms "
+        f"(twin {record_plain_ms:.4f} ms, bound {b_record[0]:.4f} ms, {b_record[1]}: "
+        f"{spec.slots} x {spec.chunk} rays traced again, {n_rows} rows written); "
+        f"torch.nonzero(marks)[:{spec.slots}] {library_txt} on the card (profiler), "
+        f"{select_library_host:.4f} ms with the host; the found/lost split alone "
+        f"{split_ms:.4f} ms, equal to the numpy split's on its history; found {n_kernel} rays, the twin's count in the kept chunks "
+        f"{n_twin}")
+    return {"launches": out["found"]["launches"], "main_err": main_err, "ms": k1e_ms,
+            "main_ms": t_main_22,
+            "k1_ms": t_k1_22, "main_ms_2_28": t_main, "k1_ms_2_28": t_k1,
+            "found_ms_2_28": t_found, "probe_ms": probe_ms, "probe_plain_ms": probe_plain_ms,
+            "probe_bound": b_probe, "record_ms": record_ms, "record_plain_ms": record_plain_ms,
+            "record_bound": b_record, "select_library_ms": select_library,
+            "split_ms": split_ms, "spans": out["found"]["spans"],
             "rays_per_s": {str(k): budget / v["ms"] * 1e3 for k, v in out.items()}}
 
 
@@ -3219,18 +3509,23 @@ def phase_k1e_plasma(ft, engine, raytrace) -> None:
     record pass over its kept chunks."""
     cfg = plasma_config(1 << 22, 4, engine="fused", keep_history="found")
     ft.history_record_cuda.launches = 0
+    ft.history_probe_cuda.launches = 0
     res = raytrace(copy.deepcopy(cfg), device="cuda")
-    launches = ft.history_record_cuda.launches
+    launches = (ft.history_record_cuda.launches, ft.history_probe_cuda.launches)
     pipe, fparams, bundles, n = plasma_k1_setup(ft, engine, 1 << 22, 4)
     spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
     n_found = check_found(res, pipe, spec, "phase 41 plasma_torus found")
+    probe_against_marked(ft, fparams, n, spec, "phase 41 plasma_torus", bundles=bundles,
+                         twin=False, seed=(41, 3))
     hist, n_twin = kept_chunks_twin(ft, fparams, n, spec, "phase 41 plasma_torus, kept chunks",
                                     bundles=bundles, seed=(41, 3))
     n_kernel = found_in(hist, fparams)
     log(f"phase 41 plasma_torus found: {n_found} found rays of at most "
-        f"{spec.slots} x {spec.chunk}; K1e launches {launches}; "
+        f"{spec.slots} x {spec.chunk}; record, probe launches {launches}; "
         f"direct call {n_kernel} found, the twin's {n_twin}; meta {metas_of(res)}")
-    if spec.chunk != 4096 or n_kernel != n_twin or launches != 1:
+    if (spec.chunk != 4096 or n_kernel != n_twin or launches[0] != 1
+            or launches[1] != (len(ft.probe_windows(spec, n))
+                               if n >= ft.PROBE_MIN_RAYS else 0)):
         raise AssertionError("phase 41: the plasma's reservoir is wrong")
 
 
@@ -3900,12 +4195,12 @@ def main() -> int:
         log(f"phase 38 ptxas {ptxas_registers(pattern)}")
 
     # Phases 39-42: the history reservoir K1e, and the file entry point.
-    k1e_err = phase_k1e_twins(ft, engine)
+    k1e_err, probe_err = phase_k1e_twins(ft, engine)
     k1e = phase_k1e_flagship(smi, ft, engine, xicsrt_tpu_torch.raytrace)
     phase_k1e_plasma(ft, engine, xicsrt_tpu_torch.raytrace)
     phase_cli(xicsrt_tpu_torch.raytrace)
     for pattern in ("fused_trace_flat_kernelILi0ELb1E", "fused_trace_flat_kernelILi1ELb1E",
-                    "history_record_kernel"):
+                    "history_record_kernel", "history_probe_kernel"):
         log(f"phase 40 ptxas {ptxas_registers(pattern)}")
     # Phases 43-45: the roofline's probes R1 and R2, then the roofline tool,
     # counters read around its run.
@@ -4052,11 +4347,29 @@ def main() -> int:
         row("fused_grad_vjp_cuda mosaic (K5b: K5d)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:1281 (pallas_call :1921)", k5d["b_launches"],
             k5d["b_err"], k5d["b_ms"], k5d["b_plain"], k5d["b_bound"]),
-        row("history_record_cuda and the marked K1 (K1e)",
+        {**row("fused_run_cuda 'found' main step (K1e: both K1 builds launched, the probe's "
+               "flag set: the marked build leaves, the build without marks runs)",
+               "xicsrt_tpu_torch/csrc/fused_history.cu",
+               "xicsrt_tpu/ops/fused_trace.py:1343 (pallas_call :1864)",
+               k1e["launches"][0], max(probe_err, k1e["main_err"]), k1e["main_ms"],
+               k1_plain_ms, k1_bound,
+               bound_flat=k1_bound_flat),
+         "k1_ms": k1e["k1_ms"], "ms_2_28": k1e["main_ms_2_28"],
+         "k1_ms_2_28": k1e["k1_ms_2_28"], "found_ms_2_28": k1e["found_ms_2_28"],
+         "k1e_ms_2_28": k1e["ms"]},
+        row("history_probe_cuda (K1e probe and its selection)",
             "xicsrt_tpu_torch/csrc/fused_history.cu",
-            "xicsrt_tpu/ops/fused_trace.py:1720 (slot write :1750, kernel :1343, "
-            "pallas_call :1864)", k1e["launches"], k1e_err, k1e["ms"], k1e["plain_ms"],
-            k1e["bound"]),
+            "xicsrt_tpu/ops/fused_trace.py:1750 (the slot write's test of a chunk, kernel "
+            ":1343, pallas_call :1864)", k1e["launches"][2], k1e_err, k1e["probe_ms"],
+            k1e["probe_plain_ms"], k1e["probe_bound"]),
+        {**row("history_record_cuda (K1e selection and record)",
+               "xicsrt_tpu_torch/csrc/fused_history.cu",
+               "xicsrt_tpu/ops/fused_trace.py:1720 (slot write :1750, HBM reservoir :1784, "
+               "kernel :1343, pallas_call :1864)", k1e["launches"][1], k1e_err,
+               k1e["record_ms"], k1e["record_plain_ms"], k1e["record_bound"]),
+         "library_ms_select": k1e["select_library_ms"], "split_ms": k1e["split_ms"],
+         "sort_history_span_ms": k1e["spans"].get("sort_history"),
+         "raytrace_run_span_ms": k1e["spans"].get("raytrace_run")},
     ]
     probes_cu = "xicsrt_tpu_torch/csrc/roofline_probes.cu"
     rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates (R2's: phase 44's)

@@ -617,6 +617,71 @@ def test_k1e_matches_twin(cuda_device, case):
         before[0] + 2, before[1] + 2)
 
 
+@pytest.mark.parametrize("case", ["flagship mc", "flagship weight", "mosaic15",
+                                  "plasma_torus", "sparse"])
+def test_k1e_probe_matches_marked_build_and_twin(cuda_device, case):
+    """K1e's probe (``chip_smoke.probe_against_marked``) at 2^20 rays (the
+    plasma's 2^18 photons, chunks of 4096), 8 slots of 8192 rays, in both
+    RNG modes: its marks, count and flag equal its twin's, and the 'found'
+    call that probes (two K1 launches) equal to the one whose K1 marks
+    every chunk and to the twin: counts, images and reservoir. The
+    flagship's and ``mosaic15``'s first 8 chunks all keep a ray, so the
+    probe finds them and K1 makes no mark; the narrowed detector's do not,
+    and K1 marks the run (the fallback)."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    n, bundles = 1 << 20, None
+    if case == "plasma_torus":
+        pipe, fparams, bundles, n = chip_smoke.plasma_k1_setup(ft, engine, 1 << 18, 1)
+    else:
+        if case == "mosaic15":
+            cfg = chip_smoke.mosaic15_config(n, 1, "fused")
+        else:
+            cfg = _spectrometer_config(intensity=n, engine="fused",
+                                       interact_mode="weight" if "weight" in case else "mc")
+        if case == "sparse":
+            cfg["optics"]["detector"]["xsize"] = chip_smoke.SPARSE_DETECTOR_XSIZE
+        pipe = Pipeline(cfg, device=cuda_device)
+        fparams = chip_smoke.k1_pack(pipe)
+    spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+    uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(17))
+    before = ft.history_probe_cuda.launches
+    for kw in ({"seed": (17, 4)}, {"uniforms": uniforms}):
+        _, fallback, _ = chip_smoke.probe_against_marked(ft, fparams, n, spec, case,
+                                                         bundles=bundles, **kw)
+        if case != "plasma_torus":
+            assert fallback == (case == "sparse")
+    windows = len(ft.probe_windows(spec, n))
+    assert ft.history_probe_cuda.launches == before + 2 * 2 * windows
+
+
+@pytest.mark.parametrize("probe_from", [0, 1 << 62], ids=["probed", "marked"])
+def test_found_raytrace_equals_the_run_without_history(cuda_device, probe_from, monkeypatch):
+    """A 'found' ``raytrace`` of 2^20 rays x 2 on the card: meta and images
+    equal to the run's without history on the same seed, whether it
+    probes (two K1 launches, the probe's flag picking one) or K1 marks
+    every chunk (one); the split's arrays in pageable memory, not in a
+    pinned buffer."""
+    import chip_smoke
+    from xicsrt_tpu_torch import raytrace
+
+    monkeypatch.setattr(ft, "PROBE_MIN_RAYS", probe_from)
+    res = {}
+    for kh in (False, "found"):
+        before = ft.fused_run_cuda.launches
+        res[kh] = raytrace(_spectrometer_config(intensity=1 << 20, num_iter=2, engine="fused",
+                                                keep_history=kh), device=cuda_device)
+        assert ft.fused_run_cuda.launches - before == (2 if kh and probe_from == 0 else 1)
+    chip_smoke.totals_equal(res["found"], res[False], f"PROBE_MIN_RAYS {probe_from}")
+    for section in ("found", "lost"):
+        for arrays in res["found"][section]["history"].values():
+            for a in arrays.values():
+                assert not torch.from_numpy(a).is_pinned()
+    assert res["found"]["found"]["history"]["detector"]["mask"].shape[0] > 0
+
+
 @pytest.mark.parametrize("mode", ["mc", "weight"])
 @pytest.mark.parametrize("cutoff", [False, True], ids=["no_cutoff", "cutoff"])
 @pytest.mark.parametrize("depth", [1, 4, 15, 33])

@@ -84,7 +84,14 @@ namespace {
 // (trace_chain.cuh). kMark: set marks[c] = 1 for each chunk c of `chunk`
 // rays whose final element keeps a ray (K1e's 'found' mode); a chunk is a
 // multiple of 32 rays, so a warp's rays lie in one chunk and one ballot
-// decides it. kCurved: the chain's torus and cylinder code
+// decides it; its index takes a 32-bit division (n_total < 2^31). Where
+// marks are given, the int past the last chunk's, marks[ceil(n_total /
+// chunk)], is K1e's flag (fused_history.cu): a kMark build runs while it is
+// clear, a build without marks (then given marks too) where it is set, and
+// the other leaves at once; so a 'found' run issues both, and K1e's probe,
+// which sets the flag on finding the kept chunks, picks one on the card.
+// The flag is read before the loop: a flag kept across it spilled the flat
+// build at its 48 registers. kCurved: the chain's torus and cylinder code
 // (fused_trace_flat_kernel compiles the chain without it). images: float32
 // pixels at kStages 0, float64 from 1 (XrtImage, trace_chain.cuh), staged
 // in the block's float32 shared histogram where use_smem is set (kStages
@@ -97,6 +104,11 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     __shared__ int ip[XRT_MAX_IP];
     __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
 
+    if (marks != nullptr) {  // uniform over the launch
+        const unsigned int n_chunks =
+            ((unsigned int)n_total + (unsigned int)chunk - 1u) / (unsigned int)chunk;
+        if ((__ldg(marks + n_chunks) != 0) == kMark) return;
+    }
     for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
     for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
     for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
@@ -138,7 +150,9 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
         if constexpr (kMark) {
-            if (__ballot_sync(0xffffffffu, found) && lane == 0) marks[r0 / chunk] = 1;
+            if (__ballot_sync(0xffffffffu, found) && lane == 0) {
+                marks[(unsigned int)r0 / (unsigned int)chunk] = 1;
+            }
         }
     }
 
@@ -292,9 +306,11 @@ inline int xrt_fused_occupancy(int src, int cheb, int stages, int curved, int im
 // Launches the build of K1 the run takes (the arguments of xrt_fused_trace,
 // fused_trace.cu), with kMark the builds that also mark the chunks of
 // `chunk` rays that keep a ray at the final element into marks
-// (ceil(n_total / chunk) int32, zeroed by the caller). images: img_total
-// float32 pixels at stages 0, float64 at stages 1 and 2, zeroed by the
-// caller. Returns cudaGetLastError() of the launch.
+// (ceil(n_total / chunk) + 1 int32, zeroed by the caller, the last K1e's
+// flag: the kMark build runs while it is clear, the build without marks,
+// given marks, where it is set; null for a run without history). images:
+// img_total float32 pixels at stages 0, float64 at stages 1 and 2, zeroed
+// by the caller. Returns cudaGetLastError() of the launch.
 template <bool kMark>
 inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                             const float* aux, int n_aux, long long n_total,
@@ -312,7 +328,7 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                            n_per_iter >= (1LL << 31) || n_total % n_per_iter)) {
         return (int)cudaErrorInvalidValue;
     }
-    if (kMark && (marks == nullptr || chunk <= 0 || chunk % 32)) {
+    if ((kMark || marks != nullptr) && (marks == nullptr || chunk <= 0 || chunk % 32)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n_total <= 0) return (int)cudaSuccess;

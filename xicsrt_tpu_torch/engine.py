@@ -188,22 +188,58 @@ def _sort_history(history_dev: dict, names: list, max_lost: int,
                   rng: np.random.Generator) -> tuple:
     """Split history into found/lost, truncating lost rays
     (``_sort_raytrace``, ``xicsrt_raytrace.py:229-278``); rays dead at the
-    source (Poisson budget padding) are dropped."""
+    source (Poisson budget padding) are dropped.
+
+    The split runs where the history lies. The found rays (alive at the
+    last element) and the lost candidates (alive at the first, dead at the
+    last) are found there; ``max_lost`` of the candidates are drawn as
+    ``rng.choice(w_lost, size=max_lost, replace=False)`` draws them, which
+    takes ``w_lost[rng.choice(len(w_lost), ...)]``. Every element's fields
+    at the found and the drawn rays are gathered into one buffer that
+    comes to the host in one copy (:func:`_gather_to_host`); the found and
+    lost arrays are numpy views of it."""
     if not history_dev:
         return {}, {}
-    final_mask = history_dev[names[-1]].mask.cpu().numpy()
-    born_mask = history_dev[names[0]].mask.cpu().numpy()
-    w_found = np.flatnonzero(final_mask)
-    w_lost = np.flatnonzero(born_mask & ~final_mask)
-    if len(w_lost) > max_lost:
-        w_lost = rng.choice(w_lost, size=max_lost, replace=False)
-
+    final = history_dev[names[-1]].mask
+    born = history_dev[names[0]].mask
+    w_found = torch.nonzero(final).flatten()
+    w_lost = torch.nonzero(born & ~final).flatten()
+    if w_lost.numel() > max_lost:
+        pick = rng.choice(w_lost.numel(), size=max_lost, replace=False)
+        w_lost = w_lost[torch.from_numpy(pick).to(w_lost.device)]
+    dicts = [history_dev[name].to_dict() for name in names]
+    arrays = iter(_gather_to_host([v for d in dicts for v in d.values()],
+                                  torch.cat([w_found, w_lost])))
+    n_found = w_found.numel()
     found, lost = {}, {}
-    for name in names:
-        arrays = {k: v.cpu().numpy() for k, v in history_dev[name].to_dict().items()}
-        found[name] = {k: v[w_found] for k, v in arrays.items()}
-        lost[name] = {k: v[w_lost] for k, v in arrays.items()}
+    for name, d in zip(names, dicts):
+        found[name], lost[name] = {}, {}
+        for key in d:
+            a = next(arrays)
+            found[name][key], lost[name][key] = a[:n_found], a[n_found:]
     return found, lost
+
+
+def _gather_to_host(columns: list, rows: torch.Tensor) -> list:
+    """The rows ``rows`` of each tensor of ``columns`` (on ``rows``'s
+    device) as numpy arrays: gathered there into one byte buffer, each at an
+    8-byte aligned offset, which comes to the host in one copy into
+    pageable memory (a pinned buffer would stay pinned for as long as the
+    caller keeps the arrays) and is viewed as each column's dtype and
+    shape."""
+    n = rows.numel()
+    spans, total = [], 0
+    for col in columns:
+        shape = (n, *col.shape[1:])
+        nbytes = int(np.prod(shape)) * col.element_size()
+        spans.append((total, nbytes, shape))
+        total += -(-nbytes // 8) * 8
+    buf = torch.empty(total, dtype=torch.uint8, device=rows.device)
+    for col, (off, nbytes, shape) in zip(columns, spans):
+        torch.index_select(col, 0, rows, out=buf[off:off + nbytes].view(col.dtype).view(shape))
+    raw = buf.cpu().numpy()
+    return [raw[off:off + nbytes].view(torch.empty(0, dtype=col.dtype).numpy().dtype)
+            .reshape(shape) for col, (off, nbytes, shape) in zip(columns, spans)]
 
 
 def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):

@@ -47,8 +47,11 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   a mosaic crystal by its survival estimator), nearest-pixel or bilinear
   images of the weights, float32;
 - the history reservoirs ``keep_history='found'`` and ``'sampled'`` (K1e,
-  :func:`history_record_cuda`, ``csrc/fused_history.cu``): the kept chunks'
-  rays traced again, each element's state recorded, K1 only.
+  :func:`history_probe_cuda`, :func:`history_record_cuda`,
+  ``csrc/fused_history.cu``): 'found' probes the run's first chunks for
+  the kept ones, and K1 marks chunks only where the probe found too few;
+  the kept chunks' rays traced again, each element's state recorded, K1
+  only.
 
 A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
 filters) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
@@ -75,6 +78,7 @@ The twins do the kernels' float32 operations in the kernels' order.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -148,6 +152,19 @@ _C_LIGHT = 299792458.0
 MAX_BUNDLES = 1 << 22
 # Rays per slice of the plain twin, which bounds its temporaries.
 _TWIN_SLICE = 1 << 20
+# K1e's probe traces at most 1/PROBE_SHARE of a 'found' run's chunks (and
+# at least its first ``slots``) before K1 marks them instead. Where it
+# finds too few, its rays cost the run about 1.6 times what K1 spends on
+# them (1/64 of the run cost a sparse flagship 2-6 % on an H100, 1/256
+# 1 %), and it need not find more: a chain whose first chunks rarely keep
+# a ray pays little for its marks, which cost a run in proportion to its
+# warps with a hit; a dense chain is found in the first window. It runs
+# for runs of PROBE_MIN_RAYS rays or more: on an H100 the flagship's
+# 'found' call ran 0.02-0.13 ms faster probed than marked at 2^28 rays,
+# 0.03 ms slower (median) at 2^26 and 0.02-0.05 ms slower at 2^24
+# (chip_ab.py --k1e-only, PERF.md).
+PROBE_SHARE = 1024
+PROBE_MIN_RAYS = 1 << 28
 
 
 # ---------------------------------------------------------------------------
@@ -1641,6 +1658,35 @@ class History:
     used: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """K1e's probe of a 'found' run (:func:`history_probe_cuda`): ``marks``
+    (n_chunks + 1,) int32, 1 at each probed chunk whose final element keeps
+    a ray, and last the flag, set once ``slots`` chunks are marked, which
+    stops K1's marks; ``used`` a 0-d int32 tensor, the marked chunks of the
+    probed prefix, at most ``slots``; ``chunks`` the prefix of chunks its
+    windows cover (with the flag set, the windows after it probed
+    nothing)."""
+
+    marks: torch.Tensor
+    used: torch.Tensor
+    chunks: int
+
+
+def probe_windows(spec: HistorySpec, n_total: int) -> list:
+    """The chunk windows ``[lo, hi)`` K1e's probe traces in turn: ``slots``,
+    ``2 slots``, ``4 slots``, ... chunks from chunk 0, up to 1/PROBE_SHARE
+    of the run's chunks and at least the first ``slots`` (all of a run of
+    fewer)."""
+    n_chunks = spec.n_chunks(n_total)
+    budget = min(n_chunks, max(spec.slots, -(-n_chunks // PROBE_SHARE)))
+    windows, lo, size = [], 0, spec.slots
+    while lo < budget:
+        windows.append((lo, min(lo + size, budget)))
+        lo, size = windows[-1][1], 2 * size
+    return windows
+
+
 def _history_buffers(fparams: FusedParams, spec: HistorySpec, device) -> tuple:
     """Zeroed (slots, chunks, used) of a reservoir on ``device``."""
     n_fields = 9 if fparams.weight else 8
@@ -1664,7 +1710,10 @@ def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
     number of float32 terms each pixel sums and the sum of their
     magnitudes (two float64 images), which bound how far another order of
     the same sums may round from this one. ``history``: also return, last,
-    the filled reservoir (:func:`history_record_plain`).
+    the filled reservoir (:func:`history_record_plain`); 'found' finds the
+    kept chunks as ``fused_run_cuda`` does: the probe first in a run of
+    PROBE_MIN_RAYS rays or more (:func:`history_probe_plain`), and marks in
+    the run where it found too few.
     """
     F = [float(x) for x in fparams.fp.tolist()]
     I = [int(x) for x in fparams.ip.tolist()]
@@ -1672,19 +1721,35 @@ def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
     counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device)
     image = torch.zeros(fparams.img_total, dtype=torch.float32, device=device)
     tally = _tally(fparams, terms)
-    marks = None
-    if history is not None and history.mode == "found":
-        marks = torch.zeros(history.n_chunks(n_total), dtype=torch.int32, device=device)
+    marks, _ = _found_marks(fparams, n_total, count, history, uniforms, seed, bundles,
+                            history_probe_plain)
+    mark = marks is not None and int(marks[-1]) == 0
     for rays, alive, attrs in _slices(fparams, n_total, count, bundles):
         final = _trace_slice(F, I, fparams.aux, alive, _draws(fparams, rays, uniforms, seed),
                              counts, image, attrs, tally)
-        if marks is not None:
+        if mark:
             marks[rays[final] // history.chunk] = 1
     out = (counts, image) if tally is None else (counts, image, tally)
     if history is None:
         return out
-    return (*out, history_record_plain(fparams, n_total, count, history, marks, uniforms,
+    return (*out, history_record_plain(fparams, n_total, count, history,
+                                       None if marks is None else marks[:-1], uniforms,
                                        seed, bundles))
+
+
+def _found_marks(fparams, n_total, count, history, uniforms, seed, bundles,
+                 prober) -> tuple:
+    """(marks, probed) of a run's 'found' reservoir: in a run of
+    PROBE_MIN_RAYS rays or more the probe's marks (``prober``:
+    :func:`history_probe_cuda` or its twin), else zeroed marks that K1
+    makes. K1 marks the chunks while the marks' flag is clear. (None,
+    False) for no 'found' reservoir."""
+    if history is None or history.mode != "found":
+        return None, False
+    if n_total < PROBE_MIN_RAYS:
+        n_chunks = history.n_chunks(n_total)
+        return torch.zeros(n_chunks + 1, dtype=torch.int32, device=fparams.fp.device), False
+    return prober(fparams, n_total, count, history, uniforms, seed, bundles).marks, True
 
 
 def _draws(fparams: FusedParams, rays, uniforms, seed):
@@ -1741,6 +1806,40 @@ def history_record_plain(fparams: FusedParams, n_total: int, count: int,
     return History(slots, chunks, used)
 
 
+def history_probe_plain(fparams: FusedParams, n_total: int, count: int,
+                        spec: HistorySpec, uniforms=None, seed=(0, 0),
+                        bundles=None) -> Probe:
+    """K1e's probe's plain twin: the windows of :func:`probe_windows` in
+    turn, each chunk's rays traced with the run's draws and bundle tables
+    (the arguments of :func:`fused_run_plain`) and marked where the final
+    element keeps a ray, the marked chunks of the prefix counted after each
+    window and the flag set once ``spec.slots`` are; a window after that
+    traces nothing, as the kernel's leaves at once."""
+    F = [float(x) for x in fparams.fp.tolist()]
+    I = [int(x) for x in fparams.ip.tolist()]
+    device = fparams.fp.device
+    n_chunks = spec.n_chunks(n_total)
+    marks = torch.zeros(n_chunks + 1, dtype=torch.int32, device=device)
+    used = torch.zeros((), dtype=torch.int32, device=device)
+    scratch = (torch.zeros(1 + fparams.n_optics, dtype=torch.int64, device=device),
+               torch.zeros(fparams.img_total, dtype=torch.float32, device=device))
+    windows = probe_windows(spec, n_total)
+    for lo, hi in windows:
+        if int(used) >= spec.slots:
+            continue
+        for start in range(lo * spec.chunk, hi * spec.chunk, _TWIN_SLICE):
+            rays = torch.arange(start, min(start + _TWIN_SLICE, hi * spec.chunk),
+                                dtype=torch.int64, device=device)
+            alive, attrs = _chunk_rays(fparams, n_total, count, bundles, rays)
+            draw = _draws(fparams, torch.clamp_max(rays, n_total - 1), uniforms, seed)
+            final = _trace_slice(F, I, fparams.aux, alive, draw, *scratch, attrs)
+            marks[rays[final] // spec.chunk] = 1
+        used.fill_(min(int(marks[:hi].sum()), spec.slots))
+        if int(used) >= spec.slots:
+            marks[n_chunks] = 1
+    return Probe(marks, used, windows[-1][1])
+
+
 def _check_bundles(fparams: FusedParams, n_total: int, bundles, device):
     if not fparams.plasma:
         return None, None, 0, 0
@@ -1779,8 +1878,12 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
     Plasma sources: ``bundles`` = (cum, table) per iteration, as
     :func:`fused_run_plain` takes them. Returns (counts int64
     [1 + n_optics], flat images float32 [img_total]), and with a
-    ``history`` the filled reservoir third: 'found' launches K1's build
-    that marks the chunks with a found ray, then K1e
+    ``history`` the filled reservoir third: 'found' probes the first
+    chunks for the kept ones (:func:`history_probe_cuda`, for runs of
+    PROBE_MIN_RAYS rays or more), then launches K1's build that marks the
+    chunks with a found ray beside its build without marks, of which the
+    probe's flag runs one on the card (two launches; without the probe,
+    the marked build alone), then K1e
     (:func:`history_record_cuda`). Weighted and bilinear images
     (``fparams.stages`` >= 1) are summed by the kernel in float64 and
     rounded here once to float32. Buffers on a CUDA device launch the
@@ -1812,20 +1915,25 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
             counts.data_ptr(), sums.data_ptr(), fparams.img_total,
             int(fparams.full_source), int(fparams.cheb), fparams.stages,
             int(fparams.curved))
+    marks, probed = _found_marks(fparams, n_total, count, history, uniforms, seed, bundles,
+                                 history_probe_cuda)
+    lib = native.library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    marks = None
-    if history is not None and history.mode == "found":
-        marks = torch.zeros(history.n_chunks(n_total), dtype=torch.int32, device=device)
-        err = native.library().xrt_fused_trace_marked(*args, marks.data_ptr(),
-                                                      history.chunk, stream)
+    # The probe's flag picks one of K1's two launches on the card: the host
+    # waits for nothing between the probe and K1.
+    if marks is None:
+        err = lib.xrt_fused_trace(*args, stream)
     else:
-        err = native.library().xrt_fused_trace(*args, stream)
+        err = lib.xrt_fused_trace_marked(*args, marks.data_ptr(), history.chunk, stream)
+        if err == 0 and probed:
+            err = lib.xrt_fused_trace_flagged(*args, marks.data_ptr(), history.chunk, stream)
     native.check(err, "xrt_fused_trace")
-    fused_run_cuda.launches += 1
+    fused_run_cuda.launches += 2 if probed else 1
     image = sums.to(torch.float32)
     if history is None:
         return counts, image
-    return counts, image, history_record_cuda(fparams, n_total, count, history, marks,
+    return counts, image, history_record_cuda(fparams, n_total, count, history,
+                                              None if marks is None else marks[:-1],
                                               uniforms, seed, bundles)
 
 
@@ -1838,9 +1946,10 @@ def history_record_cuda(fparams: FusedParams, n_total: int, count: int,
     """K1e: select the kept chunks and trace their rays again into the
     reservoir (``csrc/fused_history.cu``), for the run K1 traced with the
     same ``n_total``, ``count``, ``uniforms`` or ``seed`` and ``bundles``.
-    ``marks``: 'found' mode's chunk marks from K1's marked build, None in
-    'sampled' mode. Buffers on a CUDA device launch the kernels (or raise);
-    buffers on the CPU take :func:`history_record_plain`."""
+    ``marks``: 'found' mode's (n_chunks,) chunk marks, the probe's and K1's
+    (:class:`Probe`, less its flag), None in 'sampled' mode. Buffers on a
+    CUDA device launch the kernels (or raise); buffers on the CPU take
+    :func:`history_record_plain`."""
     device = fparams.fp.device
     if device.type == "cpu":
         return history_record_plain(fparams, n_total, count, spec, marks, uniforms, seed,
@@ -1875,6 +1984,52 @@ def history_record_cuda(fparams: FusedParams, n_total: int, count: int,
 
 
 history_record_cuda.launches = 0
+
+
+def history_probe_cuda(fparams: FusedParams, n_total: int, count: int,
+                       spec: HistorySpec, uniforms=None, seed=(0, 0),
+                       bundles=None) -> Probe:
+    """K1e's probe of a 'found' run (``csrc/fused_history.cu``,
+    ``history_probe_kernel``): every window of :func:`probe_windows`, in one
+    call, each one launch that traces its chunks with the run's
+    ``n_total``, ``count``, ``uniforms`` or ``seed`` and ``bundles`` and
+    marks those that keep a ray, then selects the marked chunks of the
+    prefix and sets the flag once ``spec.slots`` are marked; the windows
+    after it leave at once on the card. The host reads nothing back. Buffers on a CUDA
+    device launch the kernels (or raise); buffers on the CPU take
+    :func:`history_probe_plain`."""
+    device = fparams.fp.device
+    if device.type == "cpu":
+        return history_probe_plain(fparams, n_total, count, spec, uniforms, seed, bundles)
+    if device.type != "cuda":
+        raise ValueError(f"history_probe_cuda: unsupported device {device}")
+    if not 0 < n_total < 2**31:
+        raise ValueError("history_probe_cuda: n_total must be in (0, 2^31)")
+    if spec.mode != "found":
+        raise ValueError("history_probe_cuda: only 'found' probes")
+    cum, table, n_bundles, n_per_iter = _check_bundles(fparams, n_total, bundles, device)
+    uniforms = _check_uniforms(fparams, uniforms, n_total, device)
+    n_chunks = spec.n_chunks(n_total)
+    buf = torch.zeros(n_chunks + 2 + spec.slots, dtype=torch.int32, device=device)
+    marks, used, sel = buf[:n_chunks + 1], buf[n_chunks + 1], buf[n_chunks + 2:]
+    fp, ip, aux = _buffers(fparams, "history_probe_cuda")
+    args = (fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
+            aux.numel(), n_total, int(count),
+            None if uniforms is None else uniforms.data_ptr(), int(seed[0]) & _M32,
+            int(seed[1]) & _M32, None if cum is None else cum.data_ptr(),
+            None if table is None else table.data_ptr(), n_bundles, n_per_iter,
+            marks.data_ptr(), n_chunks)
+    windows = probe_windows(spec, n_total)
+    bounds = (ctypes.c_int * (len(windows) + 1))(0, *(hi for _, hi in windows))
+    err = native.library().xrt_history_probe(
+        *args, bounds, len(windows), spec.slots, spec.chunk, sel.data_ptr(),
+        used.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    native.check(err, "xrt_history_probe")
+    history_probe_cuda.launches += len(windows)
+    return Probe(marks, used, windows[-1][1])
+
+
+history_probe_cuda.launches = 0
 
 
 def _buffers(fparams: FusedParams, name: str) -> tuple:
@@ -2130,15 +2285,21 @@ def _results(counts, flat, optics, names, keep_meta: bool, keep_images: bool,
     if hist is not None:
         n_slots, n_rows, chunk = hist.slots.shape
         n_fields = n_rows // len(names)
+        rows = hist.slots.view(n_slots, len(names), n_fields, chunk)
+
+        def field(lo: int, hi: int):  # rows lo .. hi - 1 of every element: (E, N, hi - lo)
+            return rows[:, :, lo:hi].permute(1, 0, 3, 2).reshape(len(names), -1, hi - lo)
+
         valid = torch.repeat_interleave(
             torch.arange(n_slots, device=hist.slots.device) < hist.used, chunk)
+        origin, direction, rest = field(0, 3), field(3, 6), field(6, n_fields)
+        wavelength = rest[..., 0].contiguous()
+        mask = (rest[..., 1] != 0.0) & valid
+        weight = (rest[..., 2].contiguous() if n_fields == 9
+                  else torch.ones_like(wavelength))
         for i, name in enumerate(names):
-            f = hist.slots[:, i * n_fields:(i + 1) * n_fields].transpose(0, 1).reshape(
-                n_fields, -1)
-            history[name] = Rays(
-                origin=f[0:3].T, direction=f[3:6].T, wavelength=f[6],
-                weight=f[8] if n_fields == 9 else torch.ones_like(f[6]),
-                mask=(f[7] != 0.0) & valid)
+            history[name] = Rays(origin=origin[i], direction=direction[i],
+                                 wavelength=wavelength[i], weight=weight[i], mask=mask[i])
     return {"meta": meta, "image": image, "history": history}
 
 

@@ -72,6 +72,10 @@ class Profiler:
         os.makedirs(str(logdir), exist_ok=True)
         prof.export_chrome_trace(os.path.join(str(logdir), "trace.json"))
 
+    def totals(self) -> dict:
+        """{region: (total seconds, calls)} since the last ``reset``."""
+        return {name: (e["time_total"], e["num_calls"]) for name, e in self._regions.items()}
+
     def report(self) -> str:
         lines = ["{:>12s} {:>8s}  {}".format("total [s]", "calls", "region")]
         for name, e in sorted(
