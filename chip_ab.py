@@ -50,7 +50,10 @@ K1e and K3 alone, for the leads of the trace kernels; ``--stage1-only``
 times K1's weight and bilinear builds alone (:func:`stage1_chains`: the
 flagship's, the plasma's, the generic source's, the Chebyshev mesh's and
 the cylinder's) with K1a beside them, and K1a's and K1d's twins on the
-card (3 means of 3 calls).
+card (3 means of 3 calls); ``--k1e-only`` times K1e's rows
+(:func:`k1e_rows`); ``--k4-only`` times K4 alone on phase 16's and phase
+13's tables beside its bound and ``torch.repeat_interleave``
+(:func:`k4_rows`).
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
@@ -950,6 +953,9 @@ def child(tree: str, mode: str) -> None:
     if mode == "k1e":
         k1e_rows(cs, engine, ft, label, ms)
         return
+    if mode == "k4":
+        k4_rows(cs, engine, ft, bg, label, ms)
+        return
     chains = {"K1a": cs.flagship(n, 1, engine="fused")}
     if hasattr(cs, "mesh_config"):
         cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
@@ -1200,6 +1206,42 @@ def k1e_chains(cs, engine, ft, n: int) -> dict:
     return out
 
 
+def k4_rows(cs, engine, ft, bg, label: str, ms) -> None:
+    """K4's A/B rows (``--k4-only``): ``interval_gather_cuda`` on phase 16's
+    ``plasma_torus`` tables (one iteration's slots at 2^22 expected photons,
+    1000 and 1e5 bundles) and on phase 13's (B = 4000 and 1e5, 2^24 rays
+    plus 1000 past the last bundle, every tenth bundle empty), each checked
+    bit for bit against its twin, with its bound (bytes: the rows written,
+    ``cum`` and the table read once) and ``torch.repeat_interleave`` of the
+    same rows zero-padded (``chip_smoke.repeat_rows``), the library call."""
+    import torch
+
+    times, equal, bounds = {}, {}, {}
+    cases = {}
+    for name, bundle_count in (("K4 plasma_torus 1000", 1000), ("K4 plasma_torus 1e5", 100000)):
+        _, _, bundles, m = cs.plasma_k1_setup(ft, engine, 1 << 22, 1, bundle_count)
+        cases[name] = (bundles[0][0], bundles[1][0], m)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for B in (4000, 100000):
+        cum, table = cs.gather_inputs(B, 1 << 24, gen)
+        cases[f"K4 phase 13 B={B}"] = (cum, table, (1 << 24) + 1000)
+    for name, (cum, table, m) in cases.items():
+        times[name] = ms(lambda: bg.interval_gather_cuda(cum, table, m))
+        equal[name] = bool(torch.equal(bg.interval_gather_cuda(cum, table, m),
+                                       bg.interval_gather_plain(cum, table, m)))
+        bounds[name] = cs.bound(cs.packed_bytes(cum, table) + m * 32, 0)[0]
+        counts = torch.diff(cum.long(), prepend=cum.new_zeros(1).long())
+        total = int(cum[-1])
+        times[f"{name} library"] = ms(lambda: cs.repeat_rows(table, counts, total, m))
+        print(f"{label} {name}: {m} rays, {table.shape[0]} bundles; K4 "
+              f"{times[name][0]:.4f} ms least, {times[name][1]:.4f} median; bound "
+              f"{bounds[name]:.4f} ms (bytes); repeat_interleave "
+              f"{times[f'{name} library'][0]:.4f} ms; equal to the twin {equal[name]}",
+              flush=True)
+    print(json.dumps({"tree": label, "ms": times, "bound_ms": bounds,
+                      "counts_equal_twin": equal}), flush=True)
+
+
 def k1e_rows(cs, engine, ft, label: str, ms) -> None:
     """K1e's A/B rows (``--k1e-only``): on each of :func:`k1e_chains` at
     2^22 rays, K1's launch without marks, with them, and (in a tree with
@@ -1363,6 +1405,8 @@ def main() -> int:
                     help="time K1's weight and bilinear builds only (stage1_chains)")
     ap.add_argument("--k1e-only", action="store_true",
                     help="time K1e's rows only (k1e_rows)")
+    ap.add_argument("--k4-only", action="store_true",
+                    help="time K4's rows only (k4_rows)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -1390,7 +1434,7 @@ def main() -> int:
         if tree in failed:
             continue
         mode = ("stage1" if args.stage1_only else "k1e" if args.k1e_only
-                else "trace" if args.trace_only else "time")
+                else "k4" if args.k4_only else "trace" if args.trace_only else "time")
         proc = subprocess.run(child_command(tree, mode),
                               cwd=tree, text=True,
                               capture_output=True, timeout=900)

@@ -31,7 +31,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     04's task, and d(detector)/d(spacing) from autograd against K5b;
 12. gradient timings: K5f and K5b against their twins, the rays/s of one
     forward+vjp step, the eager autograd step;
-13. K4 (bundle-gather kernel) against its plain twin: B = 4000 and 1e5,
+13. K4 (bundle-gather kernel: a warp's rays search their bundles
+    together and store their rows lane-contiguous) against its plain twin:
+    B = 4000 and 1e5,
     2^24 rays plus 1000 past the last bundle, zero-count bundles; beside
     its time, ``torch.repeat_interleave`` of the table by the bundles'
     counts, zero-padded to its rows (equal to K4's), the yardstick;
@@ -103,7 +105,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``mesh_sphere`` golden on both engines; K1 and K3 with the Chebyshev
     stage against their twins at 2^20 rays, and K3 behind a plasma;
 31. timings per 2^22 rays of K1c-mirror, K1c-file, K1c-cheb and K5f/K5b
-    with a file curve beside K1a, and K1a's ptxas registers;
+    with a file curve beside K1a, and K1a's ptxas registers; the build the
+    launcher picks for K1c-file's chain (``xrt_fused_trace_flat``: the flat
+    build, ``fused_trace_flat_kernel``, or the phase fails);
 32. ``mosaic15`` (``tools/bench_scenarios.py``: a spherical mosaic crystal,
     depth 15, 0.05 deg, 150 urad) in mc mode through ``raytrace`` on
     ``engine='fused'`` at 2^26 x 4 (K1c-mosaic) and on the eager engine at
@@ -190,7 +194,26 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     bounds at these rates beside their times; and K1b's (phase 23),
     K1c-mirror's (31) and K1 plasma+torus's at 1000 and 1e5 bundles (16)
     census a ray and serial bound (``chain_ops_per_ray``, no Philox work
-    counted) beside their times.
+    counted) beside their times;
+46. ray-sharded runs in one process (``parallel.make_sharded_run``): the
+    flagship fused over a mesh of one CUDA device and ``raytrace_mp`` on
+    one card, each equal to ``raytrace`` to the bit; the flagship fused at
+    2^26 x 2 (K1) and example 03 as written on the eager engine (K4) over
+    2 shards on ``cuda:0``, counters read around each run: totals, images
+    summing to counts, the efficiency within 5 binomial sigma of the
+    unsharded run (phases 5 and 15), the shards' own runs different and
+    summing to the result;
+47. two ranks on the card through ``torch.distributed`` (gloo; this script
+    run as ``--rank RANK PORT OUT`` in two processes): the flagship fused
+    at 2^26 x 2 sharded over the ranks, meta and images equal on both and
+    to phase 46's two shards in one process; rays/s of the two ranks
+    against one process by ``scaling_efficiency``, one card shared, not a
+    scaling result;
+48. the gradient paths over 2 shards on ``cuda:0``:
+    ``make_fused_differentiable`` (K5f, K5b) at 2^24 rays, its images and
+    vjp vector against the sums of its shards' own, and
+    ``make_differentiable``'s autograd gradient at 2^20 rays against its
+    shards' sum.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -1182,7 +1205,7 @@ def plasma_phases(smi, ft, bg, engine, raytrace) -> dict:
             "k1p_launches": k1p_launches, "k1p_err": k1p_err, "k1p_ms": k1p_ms,
             "k1p_plain_ms": k1p_plain_ms, "k1p_bound": k1p_bound, "k1p_slots": n,
             "k1p_ms_1e5": k1p_ms_w, "k1p_bound_1e5": k1p_bound_w, "k1p_slots_1e5": n_w,
-            "k4_bound": k4_bound}
+            "k4_bound": k4_bound, "example03_meta": m_eager}
 
 
 # ---------------------------------------------------------------------------
@@ -3576,6 +3599,295 @@ def phase_cli(raytrace, n=1 << 22) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 46-48: ray-sharded runs (``xicsrt_tpu_torch/parallel``).
+# ---------------------------------------------------------------------------
+
+RANK_RAYS, RANK_ITERS = 1 << 26, 2  # phase 47's flagship: 2^26 rays x 2 over two ranks
+
+
+def least_call_ms(fn, reps: int = 5, barrier=None) -> float:
+    """The least wall-clock ms of ``reps`` calls of ``fn``, each between
+    ``torch.cuda.synchronize()`` (and ``barrier()``, where given), after a
+    warm-up call: the host's work in a call included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        times.append(time.perf_counter() - t0)
+    return min(times) * 1e3
+
+
+def shards_apart(engine, pipe, mesh, result, name, label) -> None:
+    """Each shard of a sharded ``raytrace_single`` result run alone with its
+    own generator (``parallel.mesh.shard_generators`` of the run's): the
+    shards' ``name`` images differ (other rays), and their sum is the
+    result's image to the bit."""
+    from xicsrt_tpu_torch.parallel import mesh as pm
+
+    gens = pm.shard_generators(engine._run_generator(pipe.general, 0, pipe.device), mesh)
+    local, kind = engine.local_runner(pipe)
+    images = [local(pipe.params, g)["image"][name] for g in gens]
+    if torch.equal(images[0], images[1]):
+        raise AssertionError(f"{label}: the shards traced the same rays")
+    if not np.array_equal((images[0] + images[1]).cpu().numpy(),
+                          result["total"]["image"][name]):
+        raise AssertionError(f"{label}: the result's {name} image is not its shards' sum")
+    log(f"{label}: the 2 shards ({kind} runner) run alone give different {name} images "
+        f"({int(images[0].sum())}, {int(images[1].sum())} counts) summing to the result's")
+
+
+def phase_sharded(ft, bg, engine, raytrace, fused_meta, example03_meta) -> dict:
+    """Phase 46: ray-sharded runs in one process. The flagship fused over a
+    mesh of one CUDA device is ``raytrace`` to the bit (JAX shards no
+    single device), and so is ``raytrace_mp`` on one card; the flagship
+    fused at 2^26 x 2 and example 03 as written (eager, K4) over 2 shards
+    on ``cuda:0``, counters read around each run: the generated total of
+    the flagship exact, every image summing to its count, the efficiency
+    within 5 binomial sigma of the unsharded run (phases 5 and 15), the
+    shards' rays different (``shards_apart``). Returns the launches."""
+    from xicsrt_tpu_torch.parallel import make_sharded_run, ray_mesh
+
+    cfg = flagship(1 << 22, 2, engine="fused")
+    runner, pipe, mesh = make_sharded_run(cfg, mesh=ray_mesh(1))
+    want = raytrace(copy.deepcopy(cfg), device="cuda")
+    totals_equal(engine.raytrace_single(cfg, _pipeline=pipe, _runner=runner), want,
+                 f"phase 46 the flagship fused over a mesh of {mesh.devices}")
+    totals_equal(engine.raytrace_mp(copy.deepcopy(cfg), device="cuda"), want,
+                 "phase 46 raytrace_mp on one card")
+
+    mesh = ray_mesh(2, "cuda:0")
+    cfg = flagship(RANK_RAYS, RANK_ITERS, engine="fused")
+    runner, pipe, _ = make_sharded_run(cfg, mesh=mesh)
+    ft.fused_run_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = engine.raytrace_single(cfg, _pipeline=pipe, _runner=runner)
+    seconds = time.perf_counter() - t0
+    k1_launches = ft.fused_run_cuda.launches
+    if k1_launches != 2:
+        raise AssertionError(f"phase 46: the 2-shard flagship launched K1 {k1_launches} "
+                             f"times, not once a shard")
+    label = "phase 46 the flagship fused, 2 shards on cuda:0"
+    meta = check_main_path(result, RANK_RAYS * RANK_ITERS, label)
+    pooled = ((meta["detector"] + fused_meta["detector"])
+              / (meta["source"] + fused_meta["source"]))
+    sigma = math.sqrt(pooled * (1 - pooled) * (1 / meta["source"] + 1 / fused_meta["source"]))
+    nsig = abs(meta["detector"] / meta["source"]
+               - fused_meta["detector"] / fused_meta["source"]) / sigma
+    log(f"{label}: {seconds * 1e3:.1f} ms with the first call's set-up; K1 launches "
+        f"{k1_launches}; efficiency {nsig:.2f} binomial sigma from phase 5's unsharded run")
+    if nsig >= 5:
+        raise AssertionError(f"{label}: the efficiency disagrees with the unsharded run")
+    shards_apart(engine, pipe, mesh, result, "detector", label)
+    flagship_result = result
+    local, local_pipe = engine.build_runner(cfg, device="cuda")
+    t_sharded = t_one = float("inf")
+    for which in ("one", "sharded", "sharded", "one"):
+        if which == "one":
+            t_one = min(t_one, least_call_ms(lambda: engine.raytrace_single(
+                cfg, _pipeline=local_pipe, _runner=local)))
+        else:
+            t_sharded = min(t_sharded, least_call_ms(lambda: engine.raytrace_single(
+                cfg, _pipeline=pipe, _runner=runner)))
+    log(f"{label}: a call (raytrace_single, runners built) {t_sharded:.2f} ms against "
+        f"{t_one:.2f} ms unsharded ({t_sharded / t_one:.3f}x; least of 5 calls, in turns)")
+
+    cfg = example_config("example_03_plasma_spectrometer.py")
+    runner, pipe, _ = make_sharded_run(cfg, mesh=mesh)
+    bg.interval_gather_cuda.launches = 0
+    ft.fused_run_cuda.launches = 0
+    result = engine.raytrace_single(cfg, _pipeline=pipe, _runner=runner)
+    k4_launches = bg.interval_gather_cuda.launches
+    label = "phase 46 example 03 eager, 2 shards on cuda:0"
+    if k4_launches <= 0 or ft.fused_run_cuda.launches:
+        raise AssertionError(f"{label}: K4 launched {k4_launches} times, K1 "
+                             f"{ft.fused_run_cuda.launches}")
+    meta = check_plasma_result(result, cfg, label)
+    p1, p2, nsig = binomial_sigmas(meta, example03_meta)
+    log(f"{label}: K4 launches {k4_launches}; efficiency {p1:.6g} against the unsharded "
+        f"run's {p2:.6g}, {nsig:.2f} binomial sigma (< 5)")
+    if nsig >= 5:
+        raise AssertionError(f"{label}: the efficiency disagrees with the unsharded run")
+    shards_apart(engine, pipe, mesh, result, "detector", label)
+    return {"k1": k1_launches, "k4": k4_launches, "flagship": flagship_result,
+            "ms_one": t_one, "ms_sharded": t_sharded}
+
+
+def rank_worker(rank: int, port: int, out: str) -> int:
+    """One of phase 47's two ranks (``python3 chip_smoke.py --rank RANK
+    PORT OUT``): joins the gloo group on localhost, runs the flagship fused
+    at ``RANK_RAYS`` x ``RANK_ITERS`` sharded over the two ranks
+    (``shard_rays``, ``devices`` 2: one shard a rank, both on the one
+    card), then times 5 calls between barriers (``least_call_ms``); writes
+    its meta, images, K1 launches and least call time to ``OUT``."""
+    import torch.distributed as dist
+
+    from xicsrt_tpu_torch import engine
+    from xicsrt_tpu_torch.ops import fused_trace as ft
+    from xicsrt_tpu_torch.parallel import init_multihost
+
+    info = init_multihost(f"localhost:{port}", 2, rank)
+    backend = dist.get_backend()
+    cfg = flagship(RANK_RAYS, RANK_ITERS, engine="fused", shard_rays=True, devices=2)
+    runner, pipe = engine.build_runner(cfg, device="cuda")
+    ft.fused_run_cuda.launches = 0
+    result = engine.raytrace_single(cfg, _pipeline=pipe, _runner=runner)
+    launches = ft.fused_run_cuda.launches
+    ms = least_call_ms(lambda: engine.raytrace_single(cfg, _pipeline=pipe, _runner=runner),
+                       barrier=dist.barrier)
+    meta = result["total"]["meta"]
+    np.savez(out, names=np.array(list(meta)), counts=np.array([meta[k]["num_out"] for k in meta]),
+             image_names=np.array(list(result["total"]["image"])),
+             **{f"image_{k}": v for k, v in result["total"]["image"].items()},
+             launches=launches, ms=ms, backend=backend,
+             process_count=info["process_count"])
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_ranks(smi, engine, two_shards) -> dict:
+    """Phase 47: two ranks on the one card through ``torch.distributed``
+    (gloo, ``rank_worker`` in two processes): meta and images equal on
+    both ranks and to the bit those of phase 46's flagship over 2 shards in
+    one process (``two_shards``: the same config, seed and mesh positions),
+    the generated total exact, images summing to counts, K1 launched once a
+    call on each rank; rays/s of the two ranks against one
+    process's unsharded call of the same rays, by ``scaling_efficiency``:
+    one card shared by two ranks, not a scaling result."""
+    import socket
+
+    from xicsrt_tpu_torch.parallel import scaling_efficiency
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    outs = [os.path.join(SMOKE_DIR, f"rank{r}.npz") for r in (0, 1)]
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--rank", str(r), str(port), out],
+                              cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r, out in zip((0, 1), outs)]
+    try:
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode:
+            raise AssertionError(f"phase 47: rank {r} exited {proc.returncode}:\n{text[-3000:]}")
+    ranks = [dict(np.load(out)) for out in outs]
+    label = "phase 47 the flagship fused over 2 gloo ranks on one card"
+    for r in ranks:
+        if str(r["backend"]) != "gloo" or int(r["process_count"]) != 2 or int(r["launches"]) != 1:
+            raise AssertionError(f"{label}: backend {r['backend']}, {r['process_count']} "
+                                 f"processes, K1 launches {r['launches']}")
+        for key in r:
+            if key.startswith(("counts", "image_")) and not np.array_equal(r[key], ranks[0][key]):
+                raise AssertionError(f"{label}: {key} differs between the ranks")
+    result = {"total": {"meta": {str(n): {"num_out": int(c)} for n, c in
+                                 zip(ranks[0]["names"], ranks[0]["counts"])},
+                        "image": {str(n): ranks[0][f"image_{n}"]
+                                  for n in ranks[0]["image_names"]}}}
+    check_main_path(result, RANK_RAYS * RANK_ITERS, label)
+    totals_equal(result, two_shards, f"{label}, against phase 46's 2 shards in one process")
+    runner, pipe = engine.build_runner(flagship(RANK_RAYS, RANK_ITERS, engine="fused"),
+                                       device="cuda")
+    one_ms = least_call_ms(lambda: engine.raytrace_single(pipe.config, _pipeline=pipe,
+                                                          _runner=runner))
+    two_ms = float(ranks[0]["ms"])
+    rays = RANK_RAYS * RANK_ITERS
+    rates = {1: rays / one_ms * 1e3, 2: rays / two_ms * 1e3}
+    eff = scaling_efficiency(rates)
+    log(f"{label} on {smi}: meta and images equal on both ranks; {rays} rays a call: one "
+        f"process unsharded {one_ms:.2f} ms ({rates[1]:.4g} rays/s), two ranks "
+        f"{two_ms:.2f} ms ({rates[2]:.4g} rays/s; each the least of 5 calls of "
+        f"raytrace_single with its runner built, the ranks' between barriers); "
+        f"scaling_efficiency {eff[2]:.3f}: one card shared by two ranks, not a scaling "
+        f"result")
+    return {"ms_1": one_ms, "ms_2": two_ms, "efficiency": eff[2]}
+
+
+def phase_sharded_gradients(fg) -> dict:
+    """Phase 48: the gradient paths over 2 shards on ``cuda:0``.
+    ``make_fused_differentiable`` on the flagship at 2^24 rays: the forward
+    images equal the sum of the shards' own forwards (``shard_seed``),
+    within float32 summation order (K5f's atomics), and the vjp vector the
+    sum of the shards' vjps; ``make_differentiable`` at 2^20 rays: the
+    autograd gradient of a weighted image sum with respect to the crystal
+    spacing equals the sum of the shards' own, within float32 summation
+    order. Returns the launches and the largest relative differences."""
+    from xicsrt_tpu_torch.engine import _run_generator
+    from xicsrt_tpu_torch.gradients import make_differentiable, make_fused_differentiable
+    from xicsrt_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.ray_mesh(2, "cuda:0")
+    cfg = grad_flagship(1 << 24, 1)
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    forward, vjp, pack, pipe = make_fused_differentiable(cfg, mesh=mesh)
+    pvec = pack(pipe.params).detach()
+    images = forward(pvec, 7)["image"]
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda") for k, v in images.items()}
+    gvec = vjp(pvec, 7, g)
+    launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    if launches != (2, 2):
+        raise AssertionError(f"phase 48: K5f, K5b launched {launches} times, not once a shard")
+    f1, v1, _, _ = make_fused_differentiable(pm._shard_intensity(cfg, 2), device="cuda:0")
+    seeds = [pm.shard_seed(7, i) for i in mesh.positions]
+    shard_images = [f1(pvec, s)["image"] for s in seeds]
+    err_image = 0.0
+    for name, image in images.items():
+        want = shard_images[0][name] + shard_images[1][name]
+        err = float((image - want).abs().max() / want.abs().max())
+        err_image = max(err_image, err)
+        if err > 1e-4 or torch.equal(shard_images[0][name], shard_images[1][name]):
+            raise AssertionError(f"phase 48: the {name} image is not its shards' sum ({err})")
+    want = v1(pvec, seeds[0], g) + v1(pvec, seeds[1], g)
+    err_vjp = float((gvec - want).abs().max() / want.abs().max())
+    if err_vjp > 1e-5:
+        raise AssertionError(f"phase 48: the vjp is not its shards' sum ({err_vjp})")
+
+    cfg = grad_flagship(1 << 20, 1)
+    image_fn, pipe = make_differentiable(cfg, mesh=mesh)
+    weights = torch.randn(pipe.image_specs()["detector"][0], generator=gen, device="cuda")
+
+    def spacing_grad(image_fn, pipeline, gens):
+        d = pipeline.params["optics"]["crystal"]["crystal_spacing"].detach().clone()
+        d.requires_grad_(True)
+        params = dict(pipeline.params)
+        params["optics"] = {**params["optics"],
+                            "crystal": {**params["optics"]["crystal"], "crystal_spacing": d}}
+        loss = sum((image_fn(params, gen)["detector"] * weights).sum() for gen in gens)
+        loss.backward()
+        return float(loss.detach()), float(d.grad)
+
+    value, grad = spacing_grad(image_fn, pipe, [_run_generator({"random_seed": 4}, 0,
+                                                               pipe.device)])
+    image_fn1, pipe1 = make_differentiable(pm._shard_intensity(cfg, 2), device="cuda:0")
+    gens = pm.shard_generators(_run_generator({"random_seed": 4}, 0, pipe.device), mesh)
+    value1, grad1 = spacing_grad(image_fn1, pipe1, gens)
+    err_eager = abs(grad - grad1) / abs(grad1)
+    if grad1 == 0.0 or err_eager > 1e-4 or abs(value - value1) > 1e-4 * abs(value1):
+        raise AssertionError(f"phase 48: the eager gradient {grad} is not its shards' "
+                             f"{grad1} (loss {value} against {value1})")
+    log(f"phase 48 sharded gradients, 2 shards on cuda:0: the fused forward's images within "
+        f"{err_image:.3g} of their shards' sum (relative to the largest pixel), the vjp "
+        f"within {err_vjp:.3g}, K5f and K5b launched {launches}; the eager gradient "
+        f"d/d(spacing) {grad:.6g} against the shards' {grad1:.6g} ({err_eager:.3g})")
+    return {"launches": launches, "err_image": err_image, "err_vjp": err_vjp}
+
+
 U32 = 2.0 ** -24  # float32's unit roundoff
 
 
@@ -3667,8 +3979,9 @@ def phase_r1(smi) -> dict:
     """Phase 43: R1 against its reference for each body at K = 1 .. 4
     (``r1_step_check``, 16 grid steps) and at the TPU tool's sizes, each
     held to ``r1_bound``; the time its K steps add, t(K) - t(0), at K = 128
-    over K = 64 within 5 % of 2 (best of three interleaved rounds of
-    ``time_launches``), so the loop runs every step it counts; t(0), the
+    over K = 64 within 5 % of 2 (the median of five rounds' ratios, each
+    round timing K = 0, 64, 128 back to back on the card alone with
+    ``device_ms``), so the loop runs every step it counts; t(0), the
     blocks' start values and sums, is the part of R1's time that is not
     its steps. Then the plain version's time. R1's own time and rate are
     phase 45's."""
@@ -3688,12 +4001,21 @@ def phase_r1(smi) -> dict:
             f"float64 sums, each K at least 10 bounds from the last; the tool's size "
             f"{float(ref[0, 0]):.9g}, |diff| {err:.4g} within "
             f"{r1_bound(n_chunks, rp.SUB):.3g} of the value")
-        ms = {0: float("inf"), 64: float("inf"), 128: float("inf")}
-        for _ in range(3):
-            for K in ms:
-                ms[K] = min(ms[K], BS.time_launches(
-                    lambda k, K=K: rp.elem_rate_cuda(seeds[k:k + 1], body, K=K)))
-        scaling = (ms[128] - ms[0]) / (ms[64] - ms[0])
+        # On the card alone (device_ms): at K = 0 a call is shorter than the
+        # host's time to issue it, which calls back to back would time in
+        # t(0). Each round times K = 0, 64 and 128 back to back and takes its
+        # own ratio, so the three share the card's clock; the median of 5.
+        calls = iter(range(1 << 30))
+
+        def launch(K):
+            k = next(calls) % len(seeds)
+            rp.elem_rate_cuda(seeds[k:k + 1], body, K=K)
+
+        rounds = []
+        for _ in range(5):
+            t = {K: device_ms(lambda K=K: launch(K), 20) for K in (0, 64, 128)}
+            rounds.append(((t[128] - t[0]) / (t[64] - t[0]), t))
+        scaling, ms = sorted(rounds, key=lambda r: r[0])[len(rounds) // 2]
         if not abs(scaling / 2.0 - 1.0) <= 0.05:
             raise AssertionError(f"phase 43: R1-{body}'s steps take {ms[128] - ms[0]:.4f} ms "
                                  f"at K = 128 and {ms[64] - ms[0]:.4f} ms at K = 64, not "
@@ -4157,8 +4479,18 @@ def main() -> int:
 
     t_mirror = k1_timing(ft, packed(mirror_configs(n, 1, "fused")["flagship_no_check"]), n,
                          smi, "K1c-mirror (the flagship, its crystal unchecked)")
-    t_file = k1_timing(ft, packed(file_crystal_config(n, 1, "fused")), n, smi,
-                       "K1c-file (the flagship's file crystal)")
+    fp_file = packed(file_crystal_config(n, 1, "fused"))
+    flat_file = native.library().xrt_fused_trace_flat(
+        2 if fp_file.plasma else int(fp_file.full_source), int(fp_file.cheb), fp_file.stages,
+        int(fp_file.curved))
+    kind = "plasma" if fp_file.plasma else "generic" if fp_file.full_source else "point"
+    log(f"phase 31 K1c-file's chain: source {kind}, Chebyshev {fp_file.cheb}, stages "
+        f"{fp_file.stages}, curved {fp_file.curved}: the launcher picks "
+        f"{'fused_trace_flat_kernel' if flat_file else 'fused_trace_kernel'}"
+        f"<{fp_file.stages}, false>")
+    if not flat_file:
+        raise AssertionError("phase 31: K1c-file's chain does not take the flat build")
+    t_file = k1_timing(ft, fp_file, n, smi, "K1c-file (the flagship's file crystal)")
     cls, kw = MESH_CRYSTALS["mesh_sphere"]
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
@@ -4231,6 +4563,11 @@ def main() -> int:
         "mirror": ("K1c-mirror, the flagship's crystal unchecked (phase 31)",
                    mirror_configs(1 << 22, 1, "fused")["flagship_no_check"], 1 << 22,
                    t_mirror["ms"])})
+    # Phases 46-48: ray-sharded runs, counters read around each.
+    sharded = phase_sharded(ft, bg, engine, xicsrt_tpu_torch.raytrace, fused_meta,
+                            plasma["example03_meta"])
+    ranks = phase_ranks(smi, engine, sharded["flagship"])
+    sharded_grad = phase_sharded_gradients(fg)
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -4247,8 +4584,11 @@ def main() -> int:
     trace_cu = "xicsrt_tpu_torch/csrc/fused_trace.cu"
     grad_cu = "xicsrt_tpu_torch/csrc/fused_grad.cu"
     kernels = [
-        row("fused_run_cuda (K1a)", trace_cu, "xicsrt_tpu/ops/fused_trace.py:1343",
-            k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound, bound_flat=k1_bound_flat),
+        {**row("fused_run_cuda (K1a)", trace_cu, "xicsrt_tpu/ops/fused_trace.py:1343",
+               k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound, bound_flat=k1_bound_flat),
+         "launches_sharded": sharded["k1"], "ms_two_shards_call": sharded["ms_sharded"],
+         "ms_unsharded_call": sharded["ms_one"], "ms_two_ranks_call": ranks["ms_2"],
+         "ms_one_process_call": ranks["ms_1"], "efficiency_two_ranks_one_card": ranks["efficiency"]},
         {**row("bin_images_cuda (K2)", "xicsrt_tpu_torch/csrc/bin_image.cu",
                "xicsrt_tpu/ops/pallas_binning.py:31", k2_launches, k2_err, k2_main_ms,
                k2_main_plain_ms, k2_main_bound, k2_main_library_ms),
@@ -4256,16 +4596,21 @@ def main() -> int:
          "ms_dense_100x100": k2_dense_ms, "plain_ms_dense_100x100": k2_dense_plain_ms,
          "bound_ms_dense_100x100": k2_dense_bound[0],
          "library_ms_dense_100x100": k2_dense_library_ms},
-        row("fused_grad_forward_cuda (K5f)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1906",
-            grad["k5f_launches"], grad["k5f_err"], grad["k5f_ms"], grad["k5f_plain_ms"],
-            grad["k5f_bound"]),
-        row("fused_grad_vjp_cuda (K5b)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1921",
-            grad["k5b_launches"], grad["k5b_err"], grad["k5b_ms"], grad["k5b_plain_ms"],
-            grad["k5b_bound"]),
-        row("interval_gather_cuda (K4)", "xicsrt_tpu_torch/csrc/bundle_gather.cu",
-            "xicsrt_tpu/ops/bundle_gather.py:80", plasma["k4_launches"], plasma["k4_err"],
-            plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"],
-            plasma["k4_library_ms"]),
+        {**row("fused_grad_forward_cuda (K5f)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1906",
+               grad["k5f_launches"], grad["k5f_err"], grad["k5f_ms"], grad["k5f_plain_ms"],
+               grad["k5f_bound"]),
+         "launches_sharded": sharded_grad["launches"][0],
+         "sharded_rel_err": sharded_grad["err_image"]},
+        {**row("fused_grad_vjp_cuda (K5b)", grad_cu, "xicsrt_tpu/ops/fused_grad.py:1921",
+               grad["k5b_launches"], grad["k5b_err"], grad["k5b_ms"], grad["k5b_plain_ms"],
+               grad["k5b_bound"]),
+         "launches_sharded": sharded_grad["launches"][1],
+         "sharded_rel_err": sharded_grad["err_vjp"]},
+        {**row("interval_gather_cuda (K4)", "xicsrt_tpu_torch/csrc/bundle_gather.cu",
+               "xicsrt_tpu/ops/bundle_gather.py:80", plasma["k4_launches"], plasma["k4_err"],
+               plasma["k4_ms"], plasma["k4_plain_ms"], plasma["k4_bound"],
+               plasma["k4_library_ms"]),
+         "launches_sharded": sharded["k4"]},
         {**row("fused_run_cuda plasma+torus (K1f, K1c-torus)", trace_cu,
                "xicsrt_tpu/ops/fused_trace.py:1428 and :616", plasma["k1p_launches"],
                plasma["k1p_err"], plasma["k1p_ms"], plasma["k1p_plain_ms"],
@@ -4304,10 +4649,11 @@ def main() -> int:
                mirror_launches, mirror_err, t_mirror["ms"], t_mirror["plain_ms"],
                t_mirror["bound"], bound_flat=t_mirror["bound_flat"]),
          "serial_ms": k1_serial["mirror"]},
-        row("fused_run_cuda file rocking (K1c-file)", trace_cu,
-            "xicsrt_tpu/ops/fused_trace.py:733 (kernel :1343, pallas_call :1883)",
-            file_launches, file_err, t_file["ms"], t_file["plain_ms"], t_file["bound"],
-            bound_flat=t_file["bound_flat"]),
+        {**row("fused_run_cuda file rocking (K1c-file)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:733 (kernel :1343, pallas_call :1883)",
+               file_launches, file_err, t_file["ms"], t_file["plain_ms"], t_file["bound"],
+               bound_flat=t_file["bound_flat"]),
+         "build": "fused_trace_flat_kernel"},
         row("fused_run_cuda mesh surrogate (K1c-cheb)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:813 (kernel :1343, pallas_call :1883)",
             mesh_launches, mesh_err, t_cheb["ms"], t_cheb["plain_ms"], t_cheb["bound"],
@@ -4392,4 +4738,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

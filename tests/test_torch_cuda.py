@@ -966,3 +966,106 @@ def test_bundle_gather_kernel_on_1e5_bundles_matches_twin(cuda_device):
     out = bg.interval_gather_cuda(cum, table, n)
     assert torch.equal(out, bg.interval_gather_plain(cum, table, n))
     assert float(out[1 << 20:].abs().max()) == 0.0
+
+
+def _k4_counts(B, rng, mean=50.0):
+    """Photon counts of ``B`` bundles: Poisson of ``mean``, a fifth of them
+    zero, and a run of 40 zero-count bundles (longer than a warp's window)
+    after the first tenth."""
+    counts = rng.poisson(mean, B)
+    counts[rng.random(B) < 0.2] = 0
+    if B > 80:
+        counts[B // 10:B // 10 + 40] = 0
+    return counts
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 1000, 100000])
+@pytest.mark.parametrize("mean", [3.0, 5000.0])
+def test_bundle_gather_warp_tiles_match_twin(cuda_device, B, mean):
+    """K4's warp tiles against its twin bit for bit: bundles fewer than, as
+    many as and more than a warp's window; bundles emptier than a warp
+    (mean 3: a warp's rays span many bundles and leave the window) and
+    fuller (5000, or 83 at 1e5 bundles); runs of empty bundles; ``n`` not a multiple of 32 with
+    rays past ``cum[-1]``, and ``n`` below ``cum[-1]``."""
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    rng = np.random.default_rng(B + int(mean))
+    counts = _k4_counts(B, rng, min(mean, (1 << 23) / B))  # at most ~2^23 rays
+    counts[-1] = max(counts[-1], 1)
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(cuda_device)
+    table = torch.from_numpy(rng.standard_normal((B, 8)).astype(np.float32)).to(cuda_device)
+    total = int(cum[-1])
+    for n in (total + 45, max(total - 13, 1), 1, 31, 33):
+        before = bg.interval_gather_cuda.launches
+        out = bg.interval_gather_cuda(cum, table, n)
+        assert bg.interval_gather_cuda.launches == before + 1
+        assert torch.equal(out, bg.interval_gather_plain(cum, table, n)), (B, mean, n)
+        if n > total:
+            assert float(out[total:].abs().max()) == 0.0
+
+
+def test_bundle_gather_all_empty_leading_bundles(cuda_device):
+    """The first 100 bundles and every other after them empty; the last
+    bundle's count ends the rays: rays of a warp in up to 32 bundles, none
+    in the window's first entries."""
+    from xicsrt_tpu_torch.ops import bundle_gather as bg
+
+    counts = np.zeros(400, np.int64)
+    counts[100::2] = 1
+    counts[-1] = 3
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(cuda_device)
+    table = torch.arange(400 * 8, dtype=torch.float32, device=cuda_device).reshape(400, 8)
+    n = int(cum[-1]) + 70
+    assert torch.equal(bg.interval_gather_cuda(cum, table, n),
+                       bg.interval_gather_plain(cum, table, n))
+
+
+@pytest.fixture
+def cuda_devices():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    return torch.cuda.device_count()
+
+
+def test_sharded_over_cuda_devices_matches_one_device(cuda_devices):
+    """One process sharding over every CUDA device (a pipeline on each, the
+    eager engine's params moved there) against the same shards on
+    ``cuda:0``: the flagship fused and eager (with history) and example 03
+    eager (K4) to the bit; the eager and fused gradient paths but for
+    float32 summation order."""
+    import chip_smoke
+    import torch_multihost_worker as worker
+    from xicsrt_tpu_torch.engine import _run_generator
+    from xicsrt_tpu_torch.parallel import make_sharded_run, ray_mesh
+
+    n = cuda_devices
+    meshes = (ray_mesh(n, "cuda"), ray_mesh(n, "cuda:0"))
+    assert meshes[0].devices == tuple(torch.device("cuda", i) for i in range(n))
+    for cfg in (chip_smoke.flagship(1 << 22, 2, engine="fused"),
+                chip_smoke.flagship(1 << 18, 2, engine="xla", keep_history=True),
+                chip_smoke.example_config("example_03_plasma_spectrometer.py")):
+        outs = []
+        for mesh in meshes:
+            runner, pipe, _ = make_sharded_run(cfg, mesh=mesh)
+            outs.append(runner(pipe.params, _run_generator(pipe.general, 0, pipe.device)))
+        for section in ("meta", "image"):
+            for name, value in outs[1][section].items():
+                assert torch.equal(outs[0][section][name].cpu(), value.cpu()), (section, name)
+        for name, rays in outs[1]["history"].items():
+            assert torch.equal(outs[0]["history"][name].origin.cpu(), rays.origin.cpu())
+    sums = [worker.spacing_gradient(mesh) for mesh in meshes]
+    np.testing.assert_allclose(sums[0], sums[1], rtol=1e-10)
+    fused = [worker.fused_gradients(mesh) for mesh in meshes]
+    np.testing.assert_allclose(fused[0][0], fused[1][0], rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(fused[0][1], fused[1][1], rtol=1e-5, atol=1e-4)
+
+
+def test_nccl_ranks_match_one_process(cuda_devices, tmp_path):
+    """One NCCL rank a GPU (``tests/torch_multihost_worker.py``) against one
+    process of as many shards on ``cuda:0`` (``check_ranks``)."""
+    from torch_multihost_worker import check_ranks, run_ranks
+
+    n = cuda_devices
+    config = _spectrometer_config(intensity=1 << 16, num_iter=2, random_seed=7,
+                                  keep_history=True, shard_rays=True, devices=n)
+    check_ranks(run_ranks(n, config, "cuda", tmp_path), config, "cuda:0")

@@ -347,14 +347,29 @@ def test_raytrace_mp_is_raytrace_on_one_device():
 
 
 def test_raytrace_mp_over_two_devices_raises(monkeypatch):
-    """Over two devices it raises until sharded runs are ported; on one
-    device, ``processes=2`` is cut to the one device, as JAX cuts it."""
+    """Over two shards it no longer raises: ``processes=2`` on the CPU is
+    the ray-sharded run over two shards there (``parallel/mesh.py``), each
+    tracing half of example 00's rays from a stream of its own: the same
+    generated total as ``raytrace``, the detector within 5 binomial sigma,
+    and other rays. On ``'cuda'`` it is cut to the CUDA devices there are,
+    as JAX cuts it, and one device is exactly ``raytrace``."""
     cfg = _example00_config()
-    assert (_meta(xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cpu"))
-            == _meta(xicsrt_tpu_torch.raytrace(cfg, device="cpu")))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 devices"):
-        xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cuda")
+    one = xicsrt_tpu_torch.raytrace(cfg, device="cpu")
+    two = xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cpu")
+    m1, m2 = _meta(one), _meta(two)
+    assert m2["source"] == m1["source"] == 2 * 10000
+    p = m1["detector"] / m1["source"]
+    assert abs(m2["detector"] - m1["detector"]) <= 5 * math.sqrt(2 * m1["source"] * p * (1 - p))
+    assert two["total"]["image"]["detector"].sum() == m2["detector"]
+    assert not np.array_equal(two["found"]["history"]["detector"]["origin"][:100],
+                              one["found"]["history"]["detector"]["origin"][:100])
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(xicsrt_tpu_torch.engine, "raytrace",
+                        lambda config, device: calls.append((config, device)))
+    xicsrt_tpu_torch.raytrace_mp(cfg, processes=2, device="cuda")
+    assert calls == [(cfg, torch.device("cuda"))]
 
 
 def test_registry_names_match_jax():

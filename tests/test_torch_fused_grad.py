@@ -328,8 +328,11 @@ def test_outside_subset_raises(change):
 
 
 def test_mesh_and_mode_raise():
+    # A sharded request outside the subset raises as an unsharded one does.
+    f64 = _config()
+    f64["general"]["dtype"] = "float64"
     with pytest.raises(fg.FusedGradUnsupported):
-        make_fused_differentiable(_config(), n_devices=4, device="cpu")
+        make_fused_differentiable(f64, n_devices=4, device="cpu")
     tp = TorchPipeline(_config(interact_mode="mc"), device="cpu")
     with pytest.raises(fg.FusedGradUnsupported):
         fg.build_fused_diff(tp)

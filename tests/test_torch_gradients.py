@@ -326,5 +326,6 @@ def test_entry_points_need_an_explicit_device(monkeypatch):
         make_differentiable(_config())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_fused_differentiable(_config())
-    with pytest.raises(NotImplementedError):
-        make_differentiable(_config(), n_devices=4, device="cpu")
+    # A sharded run's mesh defaults to the CUDA devices too.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_differentiable(_config(), n_devices=4)

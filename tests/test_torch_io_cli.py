@@ -203,8 +203,17 @@ def test_cli_save_and_images(tmp_path, cpu_cli):
     _assert_same(saved["total"]["meta"], ref["total"]["meta"])
     found = saved["found"]["history"]["detector"]
     assert 0 < found["origin"].shape[0] == ref["found"]["history"]["detector"]["origin"].shape[0]
-    with pytest.raises(NotImplementedError, match="sharded"):
-        cli.run([path, "--processes", "2"])
+    # --processes 2: the rays sharded over two shards (here both on the CPU),
+    # each with a stream and a 'found' reservoir of its own.
+    assert cli.run([path, "--save", "--numiter", "2", "--seed", "3", "--processes", "2",
+                    "--path", out, "--suffix", "mp"]) == 0
+    sharded = xio.load_results(os.path.join(out, "xicsrt_results_mp.pickle"))
+    assert sharded["config"]["general"]["shard_rays"] is True
+    meta, want = sharded["total"]["meta"], ref["total"]["meta"]
+    assert meta["source"]["num_out"] == want["source"]["num_out"] == 2 * 4096
+    n, k = want["source"]["num_out"], want["detector"]["num_out"]
+    assert abs(meta["detector"]["num_out"] - k) <= 5 * (2 * k * (1 - k / n)) ** 0.5 + 1
+    assert 0 < sharded["found"]["history"]["detector"]["origin"].shape[0]
 
 
 PLUGIN = '''

@@ -43,16 +43,20 @@ in hdf5, zip, pickle or json, TIF images), ``python -m xicsrt_tpu_torch``
 ``dispatch.load_plugin_paths``), ``utils/`` (hdf5 dicts, colours, plot
 lists, config docs, ``warn_version``) and ``visual/`` (``plot2d``,
 ``detview``, ``plot3d``), whose optional packages (h5py, PIL, matplotlib,
-plotly, ipyvolume) are imported at first use. ``raytrace_mp(config,
-processes=None, device=None)`` runs on one device as ``raytrace`` does;
-sharded runs over several devices (``parallel/``, ``raytrace_mp`` with more
-than one) raise ``NotImplementedError``.
+plotly, ipyvolume) are imported at first use; ray-sharded runs
+(``parallel/``: ``init_multihost``, ``ray_mesh``, ``make_sharded_run``,
+``scaling_efficiency``): ``general.shard_rays``, ``raytrace_mp(config,
+processes=None, device=None)`` and the gradient entry points' ``mesh`` and
+``n_devices`` split the photon load over shards on the process's devices
+and over the ranks of a ``torch.distributed`` group, summing images and
+meta with ``all_reduce``.
 """
 
 from xicsrt_tpu_torch._version import __version__  # noqa: F401
 
 import xicsrt_tpu_torch.filters  # noqa: E402,F401  (registers classes)
 import xicsrt_tpu_torch.optics  # noqa: E402,F401
+import xicsrt_tpu_torch.parallel  # noqa: E402,F401
 import xicsrt_tpu_torch.sources  # noqa: E402,F401
 from xicsrt_tpu_torch.convert import params_from_jax  # noqa: E402,F401
 from xicsrt_tpu_torch.engine import (  # noqa: E402,F401

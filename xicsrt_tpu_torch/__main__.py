@@ -1,9 +1,9 @@
 """Command-line interface (``xicsrt_tpu/__main__.py``).
 
 The JAX package's flags; the run goes to ``raytrace(config)`` on the CUDA
-device, which raises without one. ``--processes`` above one device raises
-``NotImplementedError`` (``engine.build_runner``): sharded runs are not
-ported, so ``--mp`` runs on the one device.
+device, which raises without one. ``--mp`` shards the rays
+(``general.shard_rays``) over ``--processes`` shards, by default one a CUDA
+device; more shards than CUDA devices raise (``parallel.ray_mesh``).
 
 Examples::
 

@@ -15,7 +15,8 @@ dict runs on both packages. In this package:
 - ``binning``: 'xla' scatters with ``index_put_``, 'pallas' names the
   hand-written CUDA binning kernel;
 - ``binning_dtype`` and ``block_iterations`` are accepted and have no
-  effect; ``shard_rays`` over more than one device is not ported yet.
+  effect; ``shard_rays`` shards the rays over ``devices`` shards
+  (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

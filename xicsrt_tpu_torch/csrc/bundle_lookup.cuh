@@ -6,10 +6,10 @@
 // cum[b-1] <= r < cum[b]. On this card that is a search over cum followed
 // by one 32-byte row load; the TPU kernels contracted an interval one-hot
 // against the table on the MXU instead, because the TPU has no fast gather.
-// K4 searches each ray alone (xrt_upper_bound: ceil(log2 B) dependent
-// loads); K1 searches a warp's 32 consecutive rays together
+// K1 and K4 search a warp's 32 consecutive rays together
 // (xrt_warp_bundle: a 32-ary search, ceil(log2 B / 5) rounds of 32 loads
-// issued at once, then one window of 32 entries).
+// issued at once, then one window of 32 entries), where a thread searching
+// alone (xrt_upper_bound) takes ceil(log2 B) dependent loads.
 #pragma once
 
 #include <climits>

@@ -32,6 +32,7 @@ from xicsrt_tpu_torch import dispatch
 from xicsrt_tpu_torch.config import get_config
 from xicsrt_tpu_torch.dispatch import default_device
 from xicsrt_tpu_torch.draws import Draws
+from xicsrt_tpu_torch.parallel.mesh import on_device
 from xicsrt_tpu_torch.ops.binning import bin_images_fused
 from xicsrt_tpu_torch.rays import concatenate
 from xicsrt_tpu_torch.utils.profiler import profiler
@@ -243,15 +244,39 @@ def _gather_to_host(columns: list, rows: torch.Tensor) -> list:
 
 
 def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
-    """Build the per-run executor ``runner(params, generator) -> dict``.
+    """Build the per-run executor ``runner(params, generator) -> dict``:
+    the unsharded runner of :func:`local_runner`, or, with
+    ``general.shard_rays`` over a mesh of more than one shard
+    (``general.devices`` shards, by default one a device;
+    ``parallel.ray_mesh``), the ray-sharded runner of
+    ``parallel.make_sharded_run`` (JAX ``engine.py:353-370``). On ``'cuda'``
+    the shards take the process's CUDA devices, one each; on one named
+    device (``'cpu'``, ``'cuda:0'``) that device holds them all.
 
     Returns (runner, pipeline).
     """
     g = get_config(config)["general"] if pipeline is None else pipeline.general
-    if bool(g.get("shard_rays")) and (g.get("devices") or 1) > 1:
-        raise NotImplementedError("sharded runs are not ported yet.")
+    if bool(g.get("shard_rays")):
+        from xicsrt_tpu_torch.parallel.mesh import make_sharded_run, ray_mesh
+
+        mesh = ray_mesh(g.get("devices"),
+                        pipeline.device if pipeline is not None else default_device(device))
+        if mesh.size > 1:
+            runner, pipeline, _ = make_sharded_run(
+                config if pipeline is None else pipeline.config, mesh=mesh)
+            return runner, pipeline
     pipeline = pipeline or Pipeline(config, default_device(device))
-    num_iter = int(pipeline.general["number_of_iter"])
+    return local_runner(pipeline)[0], pipeline
+
+
+def local_runner(pipeline: Pipeline):
+    """The unsharded runner of ``pipeline`` and its kind: ``"fused"`` (K1),
+    ``"fused_trace"`` (K3 behind the eager source) or ``"eager"``.
+
+    Returns (runner, kind).
+    """
+    g = pipeline.general
+    num_iter = int(g["number_of_iter"])
     engine_kind = str(g.get("engine", "xla")).lower()
     kh = g["keep_history"]
     # keep_history='found': the bounded reservoir K1e of the chunks with
@@ -264,13 +289,12 @@ def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
         from xicsrt_tpu_torch.ops.fused_trace import FusedUnsupported, build_fast_run
 
         try:
-            fused, _kind = build_fast_run(
+            return build_fast_run(
                 pipeline, num_iter=num_iter,
                 history_slots=(int(g.get("history_found_slots") or 8)
                                if kh_mode == "found" else None),
                 history_mode=kh_mode or "found",
             )
-            return fused, pipeline
         except FusedUnsupported as err:
             if engine_kind == "fused":
                 raise
@@ -289,7 +313,7 @@ def build_runner(config: dict, pipeline: Pipeline | None = None, device=None):
             "keep_history=False, keep_history='found' (bounded in-kernel "
             "reservoir), or engine='auto' to fall back."
         )
-    return pipeline.make_run(num_iter), pipeline
+    return pipeline.make_run(num_iter), "eager"
 
 
 def raytrace_single(config: dict, _pipeline: Pipeline | None = None,
@@ -303,7 +327,8 @@ def raytrace_single(config: dict, _pipeline: Pipeline | None = None,
 
     generator = _run_generator(g, _run_index, pipeline.device)
     profiler.start("raytrace_run")
-    out = _runner(pipeline.params, generator)
+    with on_device(pipeline.device):  # the kernels launch on the current device
+        out = _runner(pipeline.params, generator)
     if pipeline.device.type == "cuda":
         torch.cuda.synchronize(pipeline.device)
     profiler.stop("raytrace_run")
@@ -381,17 +406,29 @@ def raytrace(config: dict, device=None) -> dict:
 
 def raytrace_mp(config: dict, processes=None, device=None) -> dict:
     """The reference's multiprocess entry point (JAX
-    ``xicsrt_tpu/__init__.py:44-60``): runs over ``min(processes or the
-    number of devices, the number of devices)`` devices. With one device it
-    is exactly :func:`raytrace`; over more it raises until sharded runs are
-    ported.
+    ``xicsrt_tpu/__init__.py:44-60``): the ray-sharded run over
+    ``processes`` shards, by default one for each device. On ``'cuda'``
+    that is the process's CUDA devices, and ``processes`` is cut to their
+    number, as JAX cuts it; one named device (``'cpu'``, ``'cuda:0'``)
+    holds as many shards as asked, and one by default. Over one shard it is
+    exactly :func:`raytrace`.
     """
+    import copy
+
+    from xicsrt_tpu_torch.parallel.mesh import _group, available_shards
+
     device = default_device(device)
-    available = torch.cuda.device_count() if device.type == "cuda" else 1
-    n = min(int(processes if processes is not None else available), available)
+    world = _group()[1]
+    available = available_shards(device)
+    most = None if available is None else available * world
+    n = int(processes) if processes is not None else (most or world)
+    if most is not None:
+        n = min(n, most)
     if n > 1:
-        raise NotImplementedError(
-            f"raytrace_mp over {n} devices: sharded runs are not ported yet.")
+        config = copy.deepcopy(config)
+        general = config.setdefault("general", {})
+        general["shard_rays"] = True
+        general["devices"] = n
     return raytrace(config, device)
 
 

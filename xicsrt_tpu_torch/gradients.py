@@ -16,6 +16,8 @@ Two routes, as in the JAX package:
   adjoint (K5b), over a flat parameter vector (``ops/fused_grad.py``).
 
 :func:`align` fits params to target images by Adam on the eager route.
+Every route takes ``mesh`` or ``n_devices`` to shard its rays
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -30,19 +32,31 @@ from xicsrt_tpu_torch.engine import Pipeline, _run_generator
 from xicsrt_tpu_torch.geometry import Frame
 
 
-def _differentiable_config(config: dict, mesh, n_devices,
-                           error=NotImplementedError) -> dict:
+def _differentiable_config(config: dict) -> dict:
     """The config in weight/bilinear mode without history
-    (``gradients.py:64-68``); sharded runs are not ported yet and raise
-    ``error``."""
-    if mesh is not None or (n_devices or 1) > 1:
-        raise error("sharded gradient runs (mesh, n_devices) are not ported yet.")
+    (``gradients.py:64-68``)."""
     config = copy.deepcopy(config)
     general = config.setdefault("general", {})
     general["interact_mode"] = "weight"
     general["image_mode"] = "bilinear"
     general["keep_history"] = False
     return config
+
+
+def _gradient_mesh(config: dict, mesh, n_devices, device):
+    """``(config, mesh, device)``: the mesh of a sharded gradient run,
+    ``mesh`` or ``ray_mesh(n_devices, device)`` for ``n_devices`` over one,
+    and the config's photon load divided over it (JAX
+    ``gradients.py:70-77``); for one shard no mesh, and its device."""
+    from xicsrt_tpu_torch.parallel import mesh as pm
+
+    if mesh is None and n_devices is not None and n_devices > 1:
+        mesh = pm.ray_mesh(n_devices, default_device(device))
+    if mesh is None:
+        return config, None, default_device(device)
+    if mesh.size == 1:
+        return config, None, mesh.devices[0]
+    return pm._shard_intensity(config, mesh.size), mesh, None
 
 
 def make_differentiable(config: dict, num_iter: int | None = None,
@@ -58,17 +72,52 @@ def make_differentiable(config: dict, num_iter: int | None = None,
     iteration, so the backward pass recomputes the trace instead of keeping
     its per-ray intermediates; the bilinear binning keeps only O(N)
     residuals either way. ``device`` defaults to CUDA and raises without it.
+
+    Sharded: ``mesh`` (``parallel.ray_mesh``) or ``n_devices`` splits the
+    photon load over the shards, each drawing from its own generator
+    (``parallel.mesh.shard_generators``; ``rng`` must then be a
+    ``torch.Generator``). The images are summed over the process's shards
+    and over the ranks, and autograd of any loss of them that every rank
+    computes alike gives every rank the gradient of the whole mesh, as
+    ``jax.grad`` through JAX's ``shard_map`` does: the params' gradients
+    are summed over the ranks in the backward pass.
     """
-    config = _differentiable_config(config, mesh, n_devices)
-    pipeline = Pipeline(config, default_device(device))
+    from xicsrt_tpu_torch.parallel import mesh as pm
+
+    config, mesh, device = _gradient_mesh(_differentiable_config(config), mesh, n_devices,
+                                          device)
+    remat = True if remat is None else remat
+    if mesh is None:
+        pipeline = Pipeline(config, device)
+        n_iter = num_iter or int(pipeline.general["number_of_iter"])
+        run = pipeline.make_run(n_iter, keep_history=False, keep_images=True, remat=remat)
+
+        def image_fn(params, rng):
+            with pm.on_device(pipeline.device):
+                return run(params, rng)["image"]
+
+        return image_fn, pipeline
+
+    pipelines = pm.shard_pipelines(config, mesh)
+    first = mesh.devices[0]
+    pipeline = pipelines[first]
     n_iter = num_iter or int(pipeline.general["number_of_iter"])
-    run = pipeline.make_run(n_iter, keep_history=False, keep_images=True,
-                            remat=True if remat is None else remat)
+    runs = {d: p.make_run(n_iter, keep_history=False, keep_images=True, remat=remat)
+            for d, p in pipelines.items()}
 
-    def image_fn(params, rng):
-        return run(params, rng)["image"]
+    def sharded_image_fn(params, rng):
+        if not isinstance(rng, torch.Generator):
+            raise TypeError("a sharded image_fn draws from a torch.Generator")
+        params = pm.replicate_params(params, mesh)
+        images = []
+        for d, gen in zip(mesh.devices, pm.shard_generators(rng, mesh)):
+            p = params if d == first else pm.map_tensors(params, lambda t, d=d: t.to(d))
+            with pm.on_device(d):
+                images.append(runs[d](p, gen)["image"])
+        summed = {k: pm.sum_over_shards([im[k] for im in images], first) for k in images[0]}
+        return pm.sum_images_over_ranks(summed, mesh)
 
-    return image_fn, pipeline
+    return sharded_image_fn, pipeline
 
 
 def l2_image_loss(image: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -99,16 +148,56 @@ def make_fused_differentiable(config: dict, num_iter: int | None = None,
     plane, sphere, cylinder and torus optics). On CPU tensors both functions
     run the kernels' plain twins; ``ops.fused_grad.unpack_grads(pipeline,
     gvec)`` maps ``gvec`` to the elements' leaves.
-    """
-    from xicsrt_tpu_torch.ops.fused_grad import (
-        FusedGradUnsupported, build_fused_diff, check_config)
 
-    config = _differentiable_config(config, mesh, n_devices, FusedGradUnsupported)
+    Sharded: ``mesh`` (``parallel.ray_mesh``) or ``n_devices`` splits the
+    photon load over the shards; the shard at mesh position ``i`` keys its
+    kernels with ``parallel.mesh.shard_seed(seed, i)``. ``forward``'s
+    images and ``vjp``'s gradient vectors are summed over the process's
+    shards, then over the ranks (JAX ``gradients.py:161-205``).
+    """
+    from xicsrt_tpu_torch.ops.fused_grad import build_fused_diff, check_config
+    from xicsrt_tpu_torch.parallel import mesh as pm
+
+    config = _differentiable_config(config)
     check_config(config)
-    pipeline = Pipeline(config, default_device(device))
-    forward, vjp, pack, _spec = build_fused_diff(
-        pipeline, num_iter=num_iter, chunk=chunk)
-    return forward, vjp, pack, pipeline
+    config, mesh, device = _gradient_mesh(config, mesh, n_devices, device)
+    if mesh is None:
+        pipeline = Pipeline(config, device)
+        forward, vjp, pack, _spec = build_fused_diff(pipeline, num_iter=num_iter, chunk=chunk)
+
+        def on_device(fn):  # the kernels launch on the current device
+            def call(*args, **kwargs):
+                with pm.on_device(pipeline.device):
+                    return fn(*args, **kwargs)
+            return call
+
+        return on_device(forward), on_device(vjp), pack, pipeline
+
+    pipelines = pm.shard_pipelines(config, mesh)
+    built = {d: build_fused_diff(p, num_iter=num_iter, chunk=chunk)
+             for d, p in pipelines.items()}
+    first = mesh.devices[0]
+    pack = built[first][2]
+
+    def each_shard(fn, pvec, seed, *rest):  # build_fused_diff moves pvec and g there
+        out = []
+        for d, pos in zip(mesh.devices, mesh.positions):
+            with pm.on_device(d):
+                out.append(built[d][fn](pvec, pm.shard_seed(seed, pos), *rest))
+        return out
+
+    def sharded_forward(pvec, seed):
+        images = [out["image"] for out in each_shard(0, pvec, seed)]
+        summed = {k: pm.sum_over_shards([im[k] for im in images], first) for k in images[0]}
+        if mesh.world > 1:
+            summed = {k: pm.all_reduce_sum(v) for k, v in summed.items()}
+        return {"image": summed}
+
+    def sharded_vjp(pvec, seed, g_images):
+        gvec = pm.sum_over_shards(each_shard(1, pvec, seed, g_images), first)
+        return pm.all_reduce_sum(gvec) if mesh.world > 1 else gvec
+
+    return sharded_forward, sharded_vjp, pack, pipelines[first]
 
 
 def _get(tree: dict, path):

@@ -8,8 +8,8 @@ attributes (origin, cone half-angle, temperature, velocity). Rays at or past
 ``cum[-1]`` get all-zero rows.
 
 ``interval_gather_cuda`` launches the hand-written CUDA kernel
-``csrc/bundle_gather.cu`` (binary search plus a row load) for tensors on a
-CUDA device, and takes the plain twin :func:`interval_gather_plain` (the
+``csrc/bundle_gather.cu`` (a warp's 32 rays search their bundles together,
+then store their rows lane-contiguous) for tensors on a CUDA device, and takes the plain twin :func:`interval_gather_plain` (the
 indexed gather of ``interval_gather_xla``) for tensors on the CPU. The
 result is a copy of table rows, so kernel and twin agree bit for bit. On the
 card, a table that requires grad goes through the kernel forward and a plain

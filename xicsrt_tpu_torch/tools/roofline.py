@@ -640,7 +640,7 @@ def k5_ops_per_ray(config, backward: bool, chunk: int = CHUNK):
     from xicsrt_tpu_torch.gradients import _differentiable_config
     from xicsrt_tpu_torch.ops import fused_grad as fg
 
-    pipe = Pipeline(_differentiable_config(config, None, None), device="cpu")
+    pipe = Pipeline(_differentiable_config(config), device="cpu")
     _, _, pack, spec = fg.build_fused_diff(pipe, num_iter=1)
     static, lam = spec["static"], spec["lam"]
     pvec = pack(pipe.params).detach()
