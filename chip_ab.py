@@ -43,7 +43,16 @@ templates:
   ``k1d_cheb_160``, ``k1d_no_vote``
   (``K1D_LEADS``): the checkout with one lead of K1d's redesign (the
   weight and bilinear stages) undone, or tried where it was dropped; the
-  checkout itself is the flat stage-1 build at 4 blocks.
+  checkout itself is the flat stage-1 build at 4 blocks;
+- ``no_image_adds``, ``cylinder_flat`` (times only), ``cylinder_curved``,
+  ``dense_off``, ``window_off``, ``window_floats``, ``cylinder_bounds_4``,
+  ``dense_spare_off``, ``dense_match`` (``K1C_LEADS``): K1 without its
+  nearest image adds, the cylinder compiled into K1a's flat build, and the
+  checkout with one lead of K1c-mirror's and K1c-cylinder's redesign
+  undone (the cylinder's build without the torus code, the mirror chains'
+  build, the staged window, its integer counts, the cylinder's 5 blocks, a
+  dense chain's whole image at one block's cost) or tried where it was
+  dropped (a warp's peers on a pixel adding once).
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
 K1e and K3 alone, for the leads of the trace kernels; ``--stage1-only``
@@ -53,13 +62,15 @@ the cylinder's) with K1a beside them, and K1a's and K1d's twins on the
 card (3 means of 3 calls); ``--k1e-only`` times K1e's rows
 (:func:`k1e_rows`); ``--k4-only`` times K4 alone on phase 16's and phase
 13's tables beside its bound and ``torch.repeat_interleave``
-(:func:`k4_rows`).
+(:func:`k4_rows`); ``--k1c-only`` times K1c-mirror's and K1c-cylinder's
+rows and those that share their code (:func:`k1c_rows`).
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
 ``nvcc`` per source), then each tree's timings run in a process of their
 own, in the order A B C ... C B A. Each prints ptxas's lines for K1
-(``fused_trace_kernel``, ``fused_trace_flat_kernel``), K2
+(``fused_trace_kernel``, ``fused_trace_flat_kernel``,
+``fused_trace_cylinder_kernel``, ``fused_trace_dense_kernel``), K2
 (``bin_images_kernel``), K3 (``trace_only_kernel``), K5f
 (``fused_grad_fwd_kernel``), K5b
 (``fused_grad_bwd_kernel``) and R2 (``mma_rate_kernel``): registers,
@@ -67,7 +78,8 @@ spill stores, stack frame, and the 256-thread blocks a multiprocessor
 holds at that register count (65536 registers, allocated per warp in
 units of 256), for K1 and K2 also the blocks their launch's shared memory
 leaves (at the flagship's images; a 100 x 100 image), and the SASS
-counts (``cuobjdump -sass``) of K1a's builds and K2. Then the ms per call
+counts (``cuobjdump -sass``) of K1a's builds, the cylinder's and the dense build
+and K2. Then the ms per call
 (CUDA events, the least and the median of 5 means of 20 calls) of K2 on
 dense hits and on the main path's own eager items (on the card alone,
 queued behind a spin kernel, and with the host's time to issue them)
@@ -116,8 +128,8 @@ AB_DIR = os.path.join(ROOT, "build", "chip_ab")
 # Files of the checkout, and what a layout puts in place of their lines.
 ALL_IN = {
     os.path.join("xicsrt_tpu_torch", "csrc", "fused_run.cuh"):
-        {"kernels[flat ? 18 + stages : 6 * src + (cheb ? 3 : 0) + stages]":
-         "kernels[6 * src + (cheb ? 3 : 0) + 2]"},
+        {"    const int build = xrt_fused_build(src, cheb, stages, shapes, dense);":
+         "    const int build = 6 * src + (cheb ? 3 : 0) + 2;"},
     os.path.join("xicsrt_tpu_torch", "csrc", "trace_only.cu"):
         {"(cheb ? 3 : 0) + stages]": "(cheb ? 3 : 0) + 2]"},
     os.path.join("xicsrt_tpu_torch", "ops", "fused_grad.py"):
@@ -301,7 +313,7 @@ LEADS_UNDONE = {
 # after its source, the chain not traced (the source's count is checked);
 # every live plasma ray given bundle 0, the lookup skipped (wrong counts,
 # not checked).
-_K1_CHAIN = """        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kCurved>(
+_K1_CHAIN = """        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kShapes>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
 """
@@ -493,17 +505,23 @@ PLASMA_LEADS = {
 _PB = os.path.join("xicsrt_tpu_torch", "ops", "pallas_binning.py")
 _SKIP = "        if (vote && !__any_sync(0xffffffffu, alive)) break;\n"
 _SKIP_BUILDS = "    constexpr bool kSkip = !Rec::kOn && !kCheb && kStages <= 1;"
-_FLAT_BOUNDS = "__launch_bounds__(256, kStages == 0 ? 5 : 4)"
-_FLAT = "return src == XRT_K1_POINT && !cheb && !curved && stages <= 1;"
+_FLAT_BOUNDS = "__launch_bounds__(256, kStages == 0 ? 5 : 4)\n    fused_trace_flat_kernel("
+_FLAT = "        src == XRT_K1_POINT && !cheb && stages <= 1 && !(shapes & XRT_SHAPES_TORUS);"
+
+
+def _flat_bounds(blocks: str) -> str:
+    return _FLAT_BOUNDS.replace("kStages == 0 ? 5 : 4", blocks)
+
+
 K1A_LEADS = {
-    "staged_images": {_RUN: {"            staged < unstaged;": "            false;"}},
+    "staged_images": {_RUN: {"           staged < unstaged - spare;": "           false;"}},
     "no_warp_skip": {_CHAIN: {_SKIP: ""}},
     "skip_all_builds": {_CHAIN: {_SKIP_BUILDS: "    constexpr bool kSkip = !Rec::kOn;",
                                  "    const bool vote = kSkip && !weight;":
                                  "    const bool vote = kSkip;"}},
-    "curved_all": {_RUN: {_FLAT: "return false;"}},
-    "flat_unbounded": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, kStages == 0 ? 1 : 4)"}},
-    "k1a_bounds_4": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, 4)"}},
+    "curved_all": {_RUN: {_FLAT: "        false;"}},
+    "flat_unbounded": {_RUN: {_FLAT_BOUNDS: _flat_bounds("kStages == 0 ? 1 : 4")}},
+    "k1a_bounds_4": {_RUN: {_FLAT_BOUNDS: _flat_bounds("4")}},
 }
 # The leads of K1d's redesign (the kStages 1 builds of K1: weight mode and
 # bilinear images), each undone alone on the checkout, or tried where it
@@ -523,10 +541,9 @@ K1A_LEADS = {
 # multiprocessor), not 128 (5).
 _STAGED = ("    if (stages >= 1 && !staged_float64) return pick;  "
            "// float64 sums in global memory\n")
-_STAGED_CURVED = ("    const bool staged_float64 = src == XRT_K1_POINT && !cheb && stages == 1 "
-                  "&& !flat;")
+_STAGED_CURVED = "    const bool staged_float64 = build == 1 || build == kXrtK1Cylinder + 1;"
 _K_STAGED = ("    constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 "
-             "&& kCurved;")
+             "&& kShapes != 0;")
 _STAGE_ALL = """    if (stages >= 1) {
         const size_t b = (size_t)img_total * sizeof(float);
         if (img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
@@ -561,12 +578,13 @@ _CLUSTER_IMAGE = """    float* staged = nullptr;
                           (i - rank * half), v);
         } else {"""
 _BODY_IMG = "        if (use_smem) img.staged = s_img;\n"
-_BODY_ZERO = """    if constexpr (kStages == 0 || kStaged) {
+_BODY_ZERO = """    } else if constexpr (kStages == 0 || kStaged) {
         if (use_smem) xrt_smem_zero(s_img, img_total);
     }
     __syncthreads();
 """
-_CLUSTER_ZERO = """    const int half = (img_total + 1) / 2;
+_CLUSTER_ZERO = """    }
+    const int half = (img_total + 1) / 2;
     const bool split = kStages >= 1 && use_smem;
     if (use_smem) xrt_smem_zero(s_img, split ? half : img_total);
     if (split) {
@@ -583,11 +601,11 @@ _CLUSTER_END = """    if (split) {
         __syncthreads();
     }
     for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {"""
-_BODY_FLUSH = """    if constexpr (kStages == 0 || kStaged) {
+_BODY_FLUSH = """    } else if constexpr (kStages == 0 || kStaged) {
         if (use_smem) xrt_smem_flush(s_img, out, img_total);
     }
 """
-_CLUSTER_FLUSH = """    if constexpr (kStages == 0) {
+_CLUSTER_FLUSH = """    } else if constexpr (kStages == 0) {
         if (use_smem) xrt_smem_flush(s_img, out, img_total);
     } else if (split) {
         const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -634,8 +652,8 @@ K1D_LEADS = {
         _ZERO_NEAREST: "        if (oi[7] >= 0 && alive) {",
         _ZERO_CORNER: "            img.add(base + (int)xi * ny + (int)yi, v);"}},
     "k1d_curved": {_RUN: {_FLAT: _FLAT.replace("stages <= 1", "stages == 0")}},
-    "k1d_bounds_5": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, 5)"}},
-    "k1d_unbounded": {_RUN: {_FLAT_BOUNDS: "__launch_bounds__(256, kStages == 0 ? 5 : 1)"}},
+    "k1d_bounds_5": {_RUN: {_FLAT_BOUNDS: _flat_bounds("5")}},
+    "k1d_unbounded": {_RUN: {_FLAT_BOUNDS: _flat_bounds("kStages == 0 ? 5 : 1")}},
     "k1d_cheb_256": {_RUN: {_K1_THREADS: _K1_THREADS.replace("128", "256")}},
     "k1d_cheb_160": {_RUN: {_K1_THREADS: _K1_THREADS.replace("128", "160")}},
     "k1d_no_vote": {_CHAIN: {_SKIP_BUILDS: _SKIP_BUILDS.replace("kStages <= 1",
@@ -704,9 +722,79 @@ K1E_LEADS = {
     "split_pinned_view": {_ENGINE: {_HOST_COPY: _PINNED + "    raw = buf.numpy()\n"}},
     "split_pinned_copy": {_ENGINE: {_HOST_COPY: _PINNED + "    raw = buf.numpy().copy()\n"}},
 }
+# K1c-mirror's and K1c-cylinder's split layouts (times only) and leads: the
+# nearest image adds removed (`no_image_adds`: what the adds cost a chain
+# whose rays stay alive); the cylinder compiled into K1a's flat build and
+# the cylinder chains taking it (`cylinder_flat`: what the torus code cost
+# them); each lead of the redesign undone: the cylinder chains in the
+# general build with the torus code (`cylinder_curved`), the mirror chains
+# of planes and spheres in K1a's build (`dense_off`), no window staged, the
+# whole image where it costs no block alone (`window_off`), the window
+# staged as float32 adds, each a compare-and-swap loop (`window_floats`);
+# the cylinder build of kStages 0 held to 4 blocks, where its whole image
+# stages (`cylinder_bounds_4`); a dense chain's whole image staged only
+# where it costs no block, not one (`dense_spare_off`); and the window
+# builds adding each pixel once a warp, the count of its lanes on it
+# (`dense_match`: __match_any_sync on the pixel, a warp's peers adding
+# once).
+_IMG_ADD = "                    img.add(oi[7] + flat, kStages >= 1 ? wt : 1.0f);\n"
+_POINT_BUILD = "    if (shapes) return kXrtK1Cylinder + stages;"
+_WINDOW_ADD = "            atomicAdd(counts + k, 1u);\n"
+_WINDOW_FLUSH = "            if (s_win[i]) atomicAdd(g + i, (float)s_win[i]);\n"
+_WINDOW_IMAGE = "struct XrtWindowImage {\n    float* pix;\n"
+_ZERO_TERMS = "        // A ray of weight zero adds terms of zero alone.\n"
+_MATCH = """        if constexpr (std::is_same<Img, XrtWindowImage>::value) {
+            if (oi[7] >= 0) {
+                int flat = 0;
+                const bool hit = alive && xrt_nearest_pixel(fmaf(lxv, o[23], o[24]),
+                                                            fmaf(lyv, o[23], o[25]),
+                                                            oi[8], oi[9], &flat);
+                const unsigned int hits = __ballot_sync(0xffffffffu, hit);
+                if (hit) {
+                    const unsigned int peers = __match_any_sync(hits, flat);
+                    if (lane == __ffs(peers) - 1) img.add_n(oi[7] + flat, __popc(peers));
+                }
+            }
+            continue;
+        }
+"""
+_ADD_N = """    __device__ __forceinline__ void add_n(int i, unsigned int c) const {
+        const unsigned int k = (unsigned int)(i - lo);
+        if (k < (unsigned int)n) {
+            atomicAdd(counts + k, c);
+        } else {
+            atomicAdd(pix + i, (float)c);
+        }
+    }
+"""
+_WIN_ARGS = "            fparams.shapes, int(fparams.dense_images), *fparams.stage_window)"
+K1C_LEADS = {
+    "no_image_adds": {_CHAIN: {_IMG_ADD: "                    (void)flat;\n"}},
+    "cylinder_flat": {_RUN: {
+        "    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, 0, false>(":
+        "    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, "
+        "XRT_SHAPES_CYLINDER, false>(",
+        _POINT_BUILD: "    if (shapes) return kXrtK1Flat + stages;"}},
+    "cylinder_curved": {_RUN: {_FLAT: _FLAT.replace("!(shapes & XRT_SHAPES_TORUS)",
+                                                    "!shapes")}},
+    "dense_off": {_FT: {_WIN_ARGS: "            fparams.shapes, 0, *fparams.stage_window)"}},
+    "window_off": {_FT: {_WIN_ARGS: "            fparams.shapes, int(fparams.dense_images), 0, 0)"}},
+    "window_floats": {
+        _CHAIN: {_WINDOW_ADD: "            atomicAdd(reinterpret_cast<float*>(counts) + k, v);\n"},
+        _RUN: {_WINDOW_FLUSH: "            if (s_win[i]) atomicAdd(g + i, "
+                              "reinterpret_cast<const float*>(s_win)[i]);\n"}},
+    "cylinder_bounds_4": {_RUN: {
+        "__launch_bounds__(256, kStages == 0 ? 5 : 4)\n    fused_trace_cylinder_kernel(":
+        "__launch_bounds__(256, 4)\n    fused_trace_cylinder_kernel("}},
+    "dense_spare_off": {_RUN: {"        const int spare[2] = {dense ? 1 : 0, 0};":
+                               "        const int spare[2] = {0, 0};"}},
+    "dense_match": {_CHAIN: {_CHAIN_INCLUDE: _CHAIN_INCLUDE + "\n#include <type_traits>\n",
+                             _WINDOW_IMAGE: _WINDOW_IMAGE + _ADD_N,
+                             _ZERO_TERMS: _MATCH + _ZERO_TERMS}},
+}
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
            **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
-           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS}
+           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS, **K1C_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -751,7 +839,8 @@ def ptxas_lines(report: str) -> list:
     memory bytes) of K1, K2, K3, K5f, K5b and R2 from ptxas's report."""
     out, name, stores, frame = [], None, 0, 0
     for line in report.splitlines():
-        m = re.search(r"(fused_trace_kernel|fused_trace_flat_kernel|trace_only_kernel"
+        m = re.search(r"(fused_trace_kernel|fused_trace_flat_kernel|fused_trace_cylinder_kernel"
+                      r"|fused_trace_dense_kernel|trace_only_kernel"
                       r"|fused_grad_fwd_kernel(?:_64)?"
                       r"|fused_grad_bwd_kernel|mma_rate_kernel|bin_images?_kernel)(I\w+?E)?E",
                       line)
@@ -803,16 +892,27 @@ def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
         dyn = 4 * k2_floats
         return min(regs_blocks, blocks_by_smem(static, dyn)), dyn, 256
     args = [int(x) for x in re.findall(r"L[bi](\d+)E", name)]
-    if name.startswith("fused_trace_flat_kernel"):  # the point build without curved shapes
-        args = [0, 0, *([0] if len(args) == 1 else []), *args, 0]  # kMark (parent), kStages
-    if hasattr(lib, "xrt_fused_trace_occupancy") and len(args) >= 4:
+    # (src, cheb, stages, kMark, shapes, dense) of the launcher that takes
+    # the build; a tree before the cylinder and dense builds passes curved
+    # for shapes and takes no dense.
+    if name.startswith("fused_trace_flat_kernel"):  # <stages, mark>, or the parent's <mark>
+        args = [0, 0, *([0] if len(args) == 1 else []), *args, 0, 0]
+    elif name.startswith("fused_trace_cylinder_kernel"):  # <stages, mark>
+        args = [0, 0, *args, 2, 0]
+    elif name.startswith("fused_trace_dense_kernel"):  # <mark>
+        args = [0, 0, 0, args[0], 0, 1]
+    elif len(args) == 4:  # fused_trace_kernel<src, cheb, stages, mark>: every shape
+        args = [*args, 3, 0]
+    if hasattr(lib, "xrt_fused_trace_occupancy") and len(args) >= 6:
         import ctypes
 
         dyn = ctypes.c_int(0)
-        src, cheb, stages, mark = args[:4]
-        curved = args[4] if len(args) > 4 else 1
+        src, cheb, stages, mark, shapes, dense = args[:6]
         fn = lib.xrt_fused_trace_marked_occupancy if mark else lib.xrt_fused_trace_occupancy
-        blocks = fn(src, cheb, stages, curved, k1_floats, ctypes.byref(dyn))
+        occupancy = ((src, cheb, stages, shapes, dense, 0, 0)
+                     if hasattr(lib, "xrt_fused_trace_build")
+                     else (src, cheb, stages, int(shapes != 0)))
+        blocks = fn(*occupancy, k1_floats, ctypes.byref(dyn))
         threads = (lib.xrt_fused_trace_threads(src, cheb, stages)
                    if hasattr(lib, "xrt_fused_trace_threads") else 256)
         return blocks, dyn.value, threads
@@ -920,7 +1020,9 @@ def child(tree: str, mode: str) -> None:
         line = (f"{label} ptxas {name}: {regs} registers, {stores} bytes spill stores, "
                 f"{frame} bytes stack frame, {blocks_per_sm(regs)} blocks of 256 per "
                 f"multiprocessor by registers")
-        if name.startswith(("fused_trace_kernel", "fused_trace_flat_kernel", "bin_image")):
+        if name.startswith(("fused_trace_kernel", "fused_trace_flat_kernel",
+                            "fused_trace_cylinder_kernel", "fused_trace_dense_kernel",
+                            "bin_image")):
             blocks, dyn, threads = launch_blocks(lib, name, blocks_per_sm(regs), smem,
                                                  helpers["FLAGSHIP_IMG_FLOATS"],
                                                  max(helpers["K2_IMAGES"]))
@@ -932,6 +1034,8 @@ def child(tree: str, mode: str) -> None:
     lib_path = native.build()
     for fn, ops in sass_counts(lib_path, r"fused_trace_kernelILi0ELb0ELi[01]ELb0E|"
                                r"fused_trace_flat_kernelI(Li[01]E)?Lb[01]E|"
+                               r"fused_trace_cylinder_kernelILi0ELb0E|"
+                               r"fused_trace_dense_kernelILb0E|"
                                r"bin_images?_kernel").items():
         keys = ("all", "ATOMS", "ATOMS.CAST", "ATOMS.ADD", "ATOMS.POPC", "RED", "ATOM",
                 "ATOMG", "MUFU", "LDS", "LDG", "BRA", "BSSY")
@@ -955,6 +1059,9 @@ def child(tree: str, mode: str) -> None:
         return
     if mode == "k4":
         k4_rows(cs, engine, ft, bg, label, ms)
+        return
+    if mode == "k1c":
+        k1c_rows(cs, engine, ft, label, ms)
         return
     chains = {"K1a": cs.flagship(n, 1, engine="fused")}
     if hasattr(cs, "mesh_config"):
@@ -1242,6 +1349,85 @@ def k4_rows(cs, engine, ft, bg, label: str, ms) -> None:
                       "counts_equal_twin": equal}), flush=True)
 
 
+def k1c_chains(cs, engine, ft, n: int, device="cuda") -> dict:
+    """The chains of K1c-mirror's and K1c-cylinder's rows (``--k1c-only``)
+    and the rows that share their code, at ``n`` rays (a plasma's as many
+    as its 1000 bundles give): phase 27's four mirror chains, the cylinder
+    crystal (phase 18) in mc and weight mode and with bilinear images, K1a
+    as the control, K1d, K1c-file, K1c-cheb, K1b, K1c-mosaic and the
+    plasma. Returns {name: (pipeline, packed buffers, rays, bundles or
+    None)}."""
+    cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
+    configs = {"K1a": cs.flagship(n, 1, engine="fused")}
+    for name, cfg in cs.mirror_configs(n, 1, "fused").items():
+        configs[f"K1c-mirror {name}"] = cfg
+    configs["K1c-cylinder"] = cs.cylinder_config(n, 1, "fused")
+    for mode, general in (("weight", {"interact_mode": "weight"}),
+                          ("bilinear", {"image_mode": "bilinear"})):
+        configs[f"K1c-cylinder {mode}"] = cs.cylinder_config(n, 1, "fused")
+        configs[f"K1c-cylinder {mode}"]["general"].update(general)
+        configs[f"K1d-{mode}"] = cs.flagship(n, 1, engine="fused", **general)
+    configs.update({"K1c-file": cs.file_crystal_config(n, 1, "fused"),
+                    "K1c-cheb": cs.mesh_config(n, 1, "fused", cls, **kw),
+                    "K1b": cs.source_matrix_config(n, 1, "fused"),
+                    "K1c-mosaic mc": cs.mosaic15_config(n, 1, "fused")})
+    out = {}
+    for name, cfg in configs.items():
+        pipe = engine.Pipeline(cfg, device=device)
+        out[name] = (pipe, cs.k1_pack(pipe), n, None)
+    if device == "cuda":
+        pipe, fparams, bundles, m = cs.plasma_k1_setup(ft, engine, n, 1)
+        out["K1 plasma"] = (pipe, fparams, m, bundles)
+    return out
+
+
+def k1c_rows(cs, engine, ft, label: str, ms) -> None:
+    """K1c-mirror's and K1c-cylinder's A/B rows (``--k1c-only``): K1 on each
+    of :func:`k1c_chains` at 2^22 rays (least and median of 5 means of 20
+    calls, Philox), each checked once against its twin's counts; the
+    'found' call (K1's marked build and the record launch; at 2^22 rays K1
+    marks without a probe) on the flagship and the cylinder; K3 on phase
+    25's 8e6-bundle plasma iteration and in weight mode on the flagship's
+    eager rays (phase 38). With each chain, the build the tree's launcher
+    picks where the tree's ``chip_smoke.k1_build_name`` can say."""
+    import torch
+
+    times, equal, builds = {}, {}, {}
+    for name, (pipe, fparams, m, bundles) in k1c_chains(cs, engine, ft, 1 << 22).items():
+        run = lambda: ft.fused_run_cuda(fparams, m, m, seed=(1, 2), bundles=bundles)  # noqa: E731
+        times[name] = ms(run)
+        equal[name] = bool(torch.equal(
+            run()[0], ft.fused_run_plain(fparams, m, m, seed=(1, 2), bundles=bundles)[0]))
+        if not equal[name]:
+            print(f"{label} {name}: the counts differ from the twin's", flush=True)
+        if hasattr(cs, "k1_build_name"):
+            builds[name] = cs.k1_build_name(fparams)
+        if name in ("K1a", "K1c-cylinder"):
+            spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+            times[f"K1e found {name}"] = ms(
+                lambda: ft.fused_run_cuda(fparams, m, m, seed=(1, 2), history=spec))
+    plasma = cs.plasma_config(1 << 24, 2, bundle_count=8_000_000, engine="fused")
+    plasma["sources"]["plasma"]["max_bundles"] = int(1e7)
+    for name, (cfg, seed) in {
+            "K3 plasma": (plasma, 27),
+            "K3 weight": (cs.flagship(1 << 22, 1, engine="fused", interact_mode="weight"),
+                          38)}.items():
+        pipe = engine.Pipeline(cfg, device="cuda")
+        k3p = cs.k3_pack(ft, pipe)
+        rays = cs.eager_rays(pipe, seed)
+        args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+        kw = {"seed": (1, 2), **({"weight": rays.weight} if k3p.weight else {})}
+        times[name] = ms(lambda: ft.fused_trace_run_cuda(*args, **kw))
+        equal[name] = bool(torch.equal(ft.fused_trace_run_cuda(*args, **kw)[0],
+                                       ft.fused_trace_run_plain(*args, **kw)[0]))
+        del rays, args, kw
+    for name, (low, mid) in times.items():
+        build = f" ({builds[name]})" if name in builds else ""
+        print(f"{label} {name}{build}: {low:.4f} ms least, {mid:.4f} ms median", flush=True)
+    print(json.dumps({"tree": label, "ms": times, "builds": builds,
+                      "counts_equal_twin": equal}), flush=True)
+
+
 def k1e_rows(cs, engine, ft, label: str, ms) -> None:
     """K1e's A/B rows (``--k1e-only``): on each of :func:`k1e_chains` at
     2^22 rays, K1's launch without marks, with them, and (in a tree with
@@ -1407,6 +1593,8 @@ def main() -> int:
                     help="time K1e's rows only (k1e_rows)")
     ap.add_argument("--k4-only", action="store_true",
                     help="time K4's rows only (k4_rows)")
+    ap.add_argument("--k1c-only", action="store_true",
+                    help="time K1c-mirror's and K1c-cylinder's rows only (k1c_rows)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -1434,7 +1622,8 @@ def main() -> int:
         if tree in failed:
             continue
         mode = ("stage1" if args.stage1_only else "k1e" if args.k1e_only
-                else "k4" if args.k4_only else "trace" if args.trace_only else "time")
+                else "k4" if args.k4_only else "k1c" if args.k1c_only
+                else "trace" if args.trace_only else "time")
         proc = subprocess.run(child_command(tree, mode),
                               cwd=tree, text=True,
                               capture_output=True, timeout=900)

@@ -8,8 +8,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    K5f and K5b variant, of every K1, K2 and K3 build and of R2, for K1 and
    K2 also the warps their launch's shared memory leaves resident (a K5f,
    K5b, K1 or K3 build that spills fails); K1 has a point, a generic and a
-   plasma source build of each chain stage and the point source's build
-   without the torus and cylinder code (19, and 19 marked for K1e);
+   plasma source build of each chain stage, and the point source's builds
+   without the torus code: with neither it nor the cylinder's
+   (``fused_trace_flat_kernel``), with the cylinder's
+   (``fused_trace_cylinder_kernel``), each without further stages or with
+   the weight and bilinear stages, and with neither and a window of its
+   images staged (``fused_trace_dense_kernel``) (23, and 23 marked for
+   K1e);
 3. K2 (binning kernel) against its plain twin on the card: each flagship
    image alone, then one launch for both on dense hits and on the main
    path's own eager items;
@@ -53,8 +58,14 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 17. the torus golden (``tests/golden/torus_reference_image.npz``) on both
     engines with the statistical test of
     ``tests/test_reference_parity_families.py``;
-18. K1's cylinder stage against its twin (2^20 rays, both RNG modes), then
-    a cylindrical crystal through ``raytrace`` on both engines;
+18. K1's cylinder stage (K1c-cylinder): the build the launcher picks in mc
+    mode, in weight mode and with bilinear images
+    (``fused_trace_cylinder_kernel``, or the phase fails) and the blocks
+    resident at its launch; K1 against its twin at 2^20 rays in both RNG
+    modes in the three modes (``twin_equal``: 0 rays and 0 pixels apart in
+    mc) and with 'found' history (K1e, ``k1e_against_twin``); then a
+    cylindrical crystal through ``raytrace`` on both engines; K1's time
+    on it beside K1a's, and the build's registers;
 19. K5f and K5b with the torus, cylinder and plasma stages against their
     float32 and float64 twins on ``tests/test_fused_grad.py``'s variants
     (toroidal crystal, convex toroidal mirror, cylindrical crystal, convex
@@ -87,11 +98,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``tests/test_fused_grad.py``'s six source-matrix variants at 2^20
     rays, then ``make_fused_differentiable`` on ``focused_gaussian_voigt``
     at 2^22 rays x 4 with timings;
-27. mirrors (K1c-mirror): K1 and K3 against their twins, 0 rays apart in
-    both RNG modes, on four mirror chains (a plane fold, convex toroidal
-    crystals without their Bragg check, a convex cylindrical mirror, the
-    flagship with its crystal unchecked) at 2^20 rays; the fold and the
-    unchecked flagship through ``raytrace`` on both engines at 2^22 x 4;
+27. mirrors (K1c-mirror): the build of K1 each of four mirror chains takes
+    (``MIRROR_BUILDS``: a window of the images staged where no torus is in
+    the chain), then K1 and K3 against their twins, 0 rays apart in both
+    RNG modes, on them (a plane fold, convex toroidal crystals without
+    their Bragg check, a convex cylindrical mirror, the flagship with its
+    crystal unchecked) at 2^20 rays; the fold and the unchecked flagship
+    through ``raytrace`` on both engines at 2^22 x 4;
 28. file rocking curves (K1c-file): the script writes its own XOP table;
     K1 and K3 against their twins on the flagship's file crystal (sigma and
     pi mixed 0.7 : 0.3); the two engines at 2^22 x 4; the pure-sigma table
@@ -105,9 +118,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``mesh_sphere`` golden on both engines; K1 and K3 with the Chebyshev
     stage against their twins at 2^20 rays, and K3 behind a plasma;
 31. timings per 2^22 rays of K1c-mirror, K1c-file, K1c-cheb and K5f/K5b
-    with a file curve beside K1a, and K1a's ptxas registers; the build the
-    launcher picks for K1c-file's chain (``xrt_fused_trace_flat``: the flat
-    build, ``fused_trace_flat_kernel``, or the phase fails);
+    with a file curve beside K1a, and the ptxas registers of K1a's and
+    K1c-mirror's builds; the build the launcher picks
+    (``xrt_fused_trace_build``, ``k1_build_name``) for K1a's and K1c-file's
+    chains (``fused_trace_flat_kernel<0>``) and K1c-mirror's
+    (``fused_trace_dense_kernel``), or the phase fails;
 32. ``mosaic15`` (``tools/bench_scenarios.py``: a spherical mosaic crystal,
     depth 15, 0.05 deg, 150 urad) in mc mode through ``raytrace`` on
     ``engine='fused'`` at 2^26 x 4 (K1c-mosaic) and on the eager engine at
@@ -192,7 +207,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     serial bound at 2^22 rays, and K5f's and K5b's times over it; and K3's
     (phases 25 and 38) and K1c-mosaic's (38, as run) serial and overlap
     bounds at these rates beside their times; and K1b's (phase 23),
-    K1c-mirror's (31) and K1 plasma+torus's at 1000 and 1e5 bundles (16)
+    K1c-mirror's (31), K1c-cylinder's (18) and K1 plasma+torus's at 1000
+    and 1e5 bundles (16)
     census a ray and serial bound (``chain_ops_per_ray``, no Philox work
     counted) beside their times;
 46. ray-sharded runs in one process (``parallel.make_sharded_run``): the
@@ -1249,32 +1265,60 @@ def cylinder_config(intensity, num_iter, engine_kind):
     return cfg
 
 
-def phase_k1_cylinder(smi, ft, engine, raytrace) -> dict:
-    """K1's cylinder stage: kernel against twin, then a cylindrical crystal
-    through raytrace on both engines (counters read around the fused run),
-    then the kernel's time."""
+CYLINDER_MODES = {"mc": ({}, "fused_trace_cylinder_kernel<0>"),
+                  "weight": ({"interact_mode": "weight"}, "fused_trace_cylinder_kernel<1>"),
+                  "bilinear": ({"image_mode": "bilinear"}, "fused_trace_cylinder_kernel<1>")}
+
+
+def cylinder_mode_config(mode, intensity, num_iter=1, engine_kind="fused"):
+    """:func:`cylinder_config` in ``mode`` (``CYLINDER_MODES``: mc, weight,
+    bilinear)."""
+    cfg = cylinder_config(intensity, num_iter, engine_kind)
+    cfg["general"].update(CYLINDER_MODES[mode][0])
+    return cfg
+
+
+def phase_k1_cylinder(smi, ft, engine, raytrace, k1a) -> dict:
+    """K1's cylinder stage (K1c-cylinder) in its build without the torus
+    code: the launcher's pick (``fused_trace_cylinder_kernel``, or the phase
+    fails) and the warps its launch keeps resident; the kernel against its
+    twin at 2^20 rays in both RNG modes, 0 rays and 0 pixels apart in mc
+    mode, the counts equal and each pixel within the bound of float32
+    summation order in weight mode and with bilinear images
+    (``twin_equal``), and K1e 'found' on the mc chain (``k1e_against_twin``);
+    then a cylindrical crystal through raytrace on both engines (counters
+    read around the fused run); then the kernel's time beside K1a's
+    (``k1a``: the flagship's packed buffers)."""
+    from xicsrt_tpu_torch.ops import native
+
     n = 1 << 20
-    pipe = engine.Pipeline(cylinder_config(n, 1, "fused"), device="cuda")
-    src = ft._source_spec(pipe.source)
-    optics = [ft._optic_spec(o) for o in pipe.optics]
-    fparams = ft.pack_params(src, optics, pipe.params, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
-    tol = max(2, int(1e-6 * n))
     worst = 0.0
-    for label, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (181, 18)})):
-        ck, ik = ft.fused_run_cuda(fparams, n, n, **kwargs)
-        cp, iq = ft.fused_run_plain(fparams, n, n, **kwargs)
-        torch.cuda.synchronize()
-        dc, di = (ck - cp).abs(), (ik - iq).abs()
-        log(f"phase 18 K1 cylinder rng={label}: kernel counts {ck.tolist()}, twin "
-            f"{cp.tolist()}; image L1 diff {di.sum().item():.0f} (tolerance {tol} "
-            f"rays per element)")
-        if dc.max().item() > tol or di.sum().item() > 2 * tol * len(optics):
-            raise AssertionError(f"K1 cylinder differs from its twin (rng={label})")
-        if cp[-1].item() <= 0:
-            raise AssertionError("phase 18: no detector hits")
-        worst = max(worst, float(dc.max().item()), float(di.max().item()))
+    for mode, (_, want) in CYLINDER_MODES.items():
+        fparams = k1_pack(engine.Pipeline(cylinder_mode_config(mode, n), device="cuda"))
+        build = k1_build_name(fparams)
+        dyn = ctypes.c_int(0)
+        blocks = native.library().xrt_fused_trace_occupancy(
+            0, 0, fparams.stages, fparams.shapes, int(fparams.dense_images),
+            *fparams.stage_window, fparams.img_total, ctypes.byref(dyn))
+        log(f"phase 18 K1 cylinder {mode}: the launcher picks {build} ({want} wanted), "
+            f"{blocks} blocks of 256 resident at its launch ({fparams.img_total} image "
+            f"floats, window {fparams.stage_window}, {dyn.value} bytes of dynamic shared "
+            f"memory)")
+        if build != want:
+            raise AssertionError(f"phase 18: the cylinder in {mode} takes {build}")
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        uniforms = torch.rand((fparams.n_draws, n), generator=gen, device="cuda")
+        for label, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (181, 18)})):
+            worst = max(worst, twin_equal(
+                ft.fused_run_cuda(fparams, n, n, **kwargs),
+                ft.fused_run_plain(fparams, n, n, **kwargs, terms=True),
+                f"phase 18 K1 cylinder {mode} rng={label}", fparams))
+        if mode == "mc":
+            spec = ft.HistorySpec("found", 8, 8192)
+            for kwargs in ({"seed": (182, 18)}, {"uniforms": uniforms}):
+                worst = max(worst, k1e_against_twin(ft, fparams, n, spec,
+                                                    "phase 18 K1e found cylinder",
+                                                    **kwargs)[0])
 
     ft.fused_run_cuda.launches = 0
     fused = raytrace(cylinder_config(1 << 22, 4, "fused"), device="cuda")
@@ -1297,16 +1341,18 @@ def phase_k1_cylinder(smi, ft, engine, raytrace) -> dict:
         raise AssertionError("phase 18: the engines disagree on the cylinder")
 
     n = 1 << 22
-    pipe = engine.Pipeline(cylinder_config(n, 1, "fused"), device="cuda")
-    fparams = ft.pack_params(src, optics, pipe.params, "cuda")
+    fparams = k1_pack(engine.Pipeline(cylinder_config(n, 1, "fused"), device="cuda"))
     ms = cuda_ms(lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2)), 20)
+    k1a_ms = cuda_ms(lambda: ft.fused_run_cuda(k1a, n, n, seed=(1, 2)), 20)
     plain_ms = cuda_ms(lambda: ft.fused_run_plain(fparams, n, n, seed=(1, 2)), 3)
     k1c_bound, k1c_flat = k1_bounds(fparams, n)
-    log(f"phase 18 timings on {smi}: K1 cylinder {ms:.4f} ms vs twin {plain_ms:.4f} ms "
-        f"(2^22 rays, Philox); bound {k1c_bound[0]:.4f} ms ({k1c_bound[1]}, the rays "
-        f"alive into each optic; flat {k1c_flat[0]:.4f} ms)")
+    log(f"phase 18 timings on {smi}: K1 cylinder ({k1_build_name(fparams)}) {ms:.4f} ms vs "
+        f"twin {plain_ms:.4f} ms (2^22 rays, Philox), K1a beside it {k1a_ms:.4f} ms; "
+        f"bound {k1c_bound[0]:.4f} ms ({k1c_bound[1]}, the rays alive into each optic; "
+        f"flat {k1c_flat[0]:.4f} ms); {ptxas_registers('fused_trace_cylinder_kernelILi0ELb0E')}")
     return {"launches": launches, "err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound": k1c_bound, "bound_flat": k1c_flat}
+            "k1a_ms": k1a_ms, "bound": k1c_bound, "bound_flat": k1c_flat,
+            "build": k1_build_name(fparams)}
 
 
 def phase_k5_variants(fg, engine, kinds=GRAD_VARIANTS, phase="19", n=1 << 20) -> tuple:
@@ -1537,11 +1583,12 @@ def phase_grad_timings(smi, fg, engine, make_fused_differentiable) -> dict:
     return out
 
 
-def curved_phases(smi, ft, fg, engine, raytrace) -> dict:
-    """Phases 18-22; returns the K1-cylinder and new K5 rows' results."""
+def curved_phases(smi, ft, fg, engine, raytrace, k1a) -> dict:
+    """Phases 18-22 (``k1a``: the flagship's packed buffers, timed beside the
+    cylinder); returns the K1-cylinder and new K5 rows' results."""
     from xicsrt_tpu_torch.gradients import make_differentiable, make_fused_differentiable
 
-    k1c = phase_k1_cylinder(smi, ft, engine, raytrace)
+    k1c = phase_k1_cylinder(smi, ft, engine, raytrace, k1a)
     k5f_err, k5b_err = phase_k5_variants(fg, engine)
     fg.fused_grad_forward_cuda.launches = 0
     fg.fused_grad_vjp_cuda.launches = 0
@@ -2345,14 +2392,29 @@ def k1_timing(ft, fparams, n, smi, label, phase="31", ops=None) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "bound": b, "bound_flat": flat}
 
 
+# The build of K1 each of phase 27's mirror chains takes: a window of its
+# images staged (FusedParams.stage_window) where no torus is in the chain,
+# the dense build for planes and spheres (FusedParams.dense_images), the
+# cylinder's build for a cylinder; the torus chain the general build.
+MIRROR_BUILDS = {"plane_fold": "fused_trace_dense_kernel",
+                 "torus_no_check": "fused_trace_kernel<point, kStages 0>",
+                 "convex_cylinder_mirror": "fused_trace_cylinder_kernel<0>",
+                 "flagship_no_check": "fused_trace_dense_kernel"}
+
+
 def phase_mirrors(ft, engine, raytrace) -> tuple:
-    """Phase 27: K1 and K3 with mirrors against their twins on four mirror
-    chains at 2^20 rays; then the fold and the flagship without its Bragg
-    check through ``raytrace`` on both engines at 2^22 x 4 (K1 counted
-    around the fused runs). Returns K1's launches and the largest
-    difference from the twins."""
+    """Phase 27: the build of K1 each of four mirror chains takes
+    (``MIRROR_BUILDS``, or the phase fails), and K1 and K3 with mirrors
+    against their twins on them at 2^20 rays; then the fold and the
+    flagship without its Bragg check through ``raytrace`` on both engines
+    at 2^22 x 4 (K1 counted around the fused runs). Returns K1's launches
+    and the largest difference from the twins."""
     err = 0.0
     for k, (name, cfg) in enumerate(mirror_configs(1 << 20, 1, "fused").items()):
+        build = k1_build_name(k1_pack(engine.Pipeline(cfg, device="cuda")))
+        log(f"phase 27 {name}: the launcher picks {build} ({MIRROR_BUILDS[name]} wanted)")
+        if build != MIRROR_BUILDS[name]:
+            raise AssertionError(f"phase 27: {name} takes {build}")
         err = max(err, k1_k3_against_twins(ft, engine, cfg, f"phase 27 {name}", 270 + k))
     n, iters = 1 << 22, 4
     launches = 0
@@ -3063,7 +3125,8 @@ def k1_direct(ft, fparams, n: int, seed, bundles=None, marks=None, chunk: int = 
             None if cum is None else cum.data_ptr(),
             None if table is None else table.data_ptr(), n_bundles, n_per_iter,
             counts.data_ptr(), sums.data_ptr(), fparams.img_total,
-            int(fparams.full_source), int(fparams.cheb), fparams.stages, int(fparams.curved))
+            int(fparams.full_source), int(fparams.cheb), fparams.stages, fparams.shapes,
+            int(fparams.dense_images), *fparams.stage_window)
     stream = torch.cuda.current_stream().cuda_stream
     lib = native.library()
     if marks is None:
@@ -4108,6 +4171,29 @@ def phase_roofline(smi) -> dict:
     return {"launches": launches, "roofline": out}
 
 
+# K1's builds past fused_trace_kernel's 18 in the launcher's table
+# (xrt_fused_trace_build, csrc/fused_run.cuh): each kernel and its
+# template argument.
+K1_POINT_BUILDS = {18: "fused_trace_flat_kernel<0>", 19: "fused_trace_flat_kernel<1>",
+                   20: "fused_trace_cylinder_kernel<0>", 21: "fused_trace_cylinder_kernel<1>",
+                   22: "fused_trace_dense_kernel"}
+
+
+def k1_build_name(fparams) -> str:
+    """The build of K1 the launcher takes for the packed chain, as the
+    library says (``xrt_fused_trace_build``): ``fused_trace_kernel<source,
+    Chebyshev, stages>`` or one of ``K1_POINT_BUILDS``."""
+    from xicsrt_tpu_torch.ops import native
+
+    src = 2 if fparams.plasma else int(fparams.full_source)
+    build = native.library().xrt_fused_trace_build(src, int(fparams.cheb), fparams.stages,
+                                                   fparams.shapes, int(fparams.dense_images))
+    if build in K1_POINT_BUILDS:
+        return K1_POINT_BUILDS[build]
+    return (f"fused_trace_kernel<{K1_SOURCES[build // 6]}, "
+            f"{'Chebyshev, ' * (build % 6 >= 3)}kStages {build % 3}>")
+
+
 def ptxas_registers(pattern: str) -> str:
     """ptxas's register line of the kernel whose mangled name matches the
     regular expression ``pattern`` (K1a's build:
@@ -4163,7 +4249,8 @@ def phase_k3_mosaic_bounds(smi, rates: dict, timed: dict) -> None:
 
 
 def phase_k1_source_bounds(smi, rates: dict, timed: dict) -> dict:
-    """Phase 45's lines for K1b, K1c-mirror and K1 plasma+torus: each timed
+    """Phase 45's lines for K1b, K1c-mirror, K1c-cylinder and K1
+    plasma+torus: each timed
     call's census a ray or ray slot (``chain_ops_per_ray`` of its config,
     the twin on 8192 rays on the CPU; explicit uniforms, so no Philox work
     is counted: K1b's source takes two Philox calls a ray and K1a's one, a
@@ -4224,6 +4311,25 @@ FLAGSHIP_IMG_FLOATS = 15000
 K2_IMAGES = (10000, 5000)
 
 
+def k1_ptxas_builds(report: str) -> list:
+    """(kernel, (src, cheb, stages, mark, shapes, dense), registers, spill
+    stores, spill loads, stack frame) of every build of K1 in ptxas's
+    report: the launcher's arguments that take it (``xrt_fused_pick``)."""
+    out = []
+    for kernel in ("fused_trace_kernel", "fused_trace_flat_kernel",
+                   "fused_trace_cylinder_kernel", "fused_trace_dense_kernel"):
+        for args, *rest in ptxas_entries(report, kernel + r"(I\w+?E)E"):
+            t = [int(x) for x in re.findall(r"L[bi](\d+)E", args)]
+            if kernel == "fused_trace_kernel":  # <src, cheb, stages, mark>: every shape
+                build = (*t, 3, 0)
+            elif kernel == "fused_trace_dense_kernel":  # <mark>
+                build = (0, 0, 0, t[0], 0, 1)
+            else:  # <stages, mark>
+                build = (0, 0, t[0], t[1], 2 if "cylinder" in kernel else 0, 0)
+            out.append((kernel, build, *rest))
+    return out
+
+
 def k5_variants(report: str, kernel: str) -> list:
     """(variant, name, registers, spill stores, spill loads, stack frame) of
     every build of the K5 ``kernel`` (a regular expression) in ptxas's
@@ -4268,18 +4374,18 @@ def phase_registers(native) -> None:
             f"a block, {resident_warps(regs, threads)} warps a multiprocessor by registers")
         if stores or loads:
             spilled.append(f"K5b {name}")
-    k1_builds = [(args, 1, *rest) for args, *rest in ptxas_entries(
-        report, r"fused_trace_kernel(I\w+?E)E")]
-    k1_builds += [(f"ILi0ELb0E{args[1:]}", 0, *rest) for args, *rest in ptxas_entries(
-        report, r"fused_trace_flat_kernel(I\w+?E)E")]
-    for args, curved, regs, stores, loads, frame in k1_builds:
-        src, cheb, stages, mark = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+    for kernel, args, regs, stores, loads, frame in k1_ptxas_builds(report):
+        src, cheb, stages, mark, shapes, dense = args
+        what = {"fused_trace_flat_kernel": ", no torus or cylinder",
+                "fused_trace_cylinder_kernel": ", cylinder, no torus",
+                "fused_trace_dense_kernel": ", no torus or cylinder, dense images"}
         name = (f"({K1_SOURCES[src]} source, {'Chebyshev, ' * cheb}kStages "
-                f"{stages}{', no torus or cylinder' * (1 - curved)}{', marks' * mark})")
+                f"{stages}{what.get(kernel, '')}{', marks' * mark}: {kernel})")
         occupancy = (lib.xrt_fused_trace_marked_occupancy if mark
                      else lib.xrt_fused_trace_occupancy)
         dyn = ctypes.c_int(0)
-        blocks = occupancy(src, cheb, stages, curved, FLAGSHIP_IMG_FLOATS, ctypes.byref(dyn))
+        blocks = occupancy(src, cheb, stages, shapes, dense, 0, 0, FLAGSHIP_IMG_FLOATS,
+                           ctypes.byref(dyn))
         threads = lib.xrt_fused_trace_threads(src, cheb, stages)
         by_regs, at_launch = resident_warps(regs, threads), blocks * threads // 32
         log(f"phase 2 K1 build {name}: {regs} registers, {stores} / {loads} bytes "
@@ -4443,7 +4549,7 @@ def main() -> int:
 
     grad = gradient_phases(smi, fg, engine)
     plasma = plasma_phases(smi, ft, bg, engine, xicsrt_tpu_torch.raytrace)
-    curved = curved_phases(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace)
+    curved = curved_phases(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace, fparams)
     torus = curved["timings"]["torus"]
     k1b = phase_k1b(smi, ft, engine)
     k1b["err"] = max(k1b["err"], phase_k1_source_builds(ft, engine))
@@ -4477,25 +4583,26 @@ def main() -> int:
     def packed(cfg):
         return k1_pack(engine.Pipeline(cfg, device="cuda"))
 
-    t_mirror = k1_timing(ft, packed(mirror_configs(n, 1, "fused")["flagship_no_check"]), n,
-                         smi, "K1c-mirror (the flagship, its crystal unchecked)")
+    fp_mirror = packed(mirror_configs(n, 1, "fused")["flagship_no_check"])
     fp_file = packed(file_crystal_config(n, 1, "fused"))
-    flat_file = native.library().xrt_fused_trace_flat(
-        2 if fp_file.plasma else int(fp_file.full_source), int(fp_file.cheb), fp_file.stages,
-        int(fp_file.curved))
-    kind = "plasma" if fp_file.plasma else "generic" if fp_file.full_source else "point"
-    log(f"phase 31 K1c-file's chain: source {kind}, Chebyshev {fp_file.cheb}, stages "
-        f"{fp_file.stages}, curved {fp_file.curved}: the launcher picks "
-        f"{'fused_trace_flat_kernel' if flat_file else 'fused_trace_kernel'}"
-        f"<{fp_file.stages}, false>")
-    if not flat_file:
-        raise AssertionError("phase 31: K1c-file's chain does not take the flat build")
+    picks = {}
+    for label, fp_, want in (("K1a", fparams, "fused_trace_flat_kernel<0>"),
+                             ("K1c-mirror", fp_mirror, "fused_trace_dense_kernel"),
+                             ("K1c-file", fp_file, "fused_trace_flat_kernel<0>")):
+        picks[label] = k1_build_name(fp_)
+        log(f"phase 31 {label}'s chain: Chebyshev {fp_.cheb}, stages {fp_.stages}, shapes "
+            f"{fp_.shapes}, dense images {fp_.dense_images}: the launcher picks "
+            f"{picks[label]} ({want} wanted)")
+        if picks[label] != want:
+            raise AssertionError(f"phase 31: {label}'s chain takes {picks[label]}")
+    t_mirror = k1_timing(ft, fp_mirror, n, smi, "K1c-mirror (the flagship, its crystal unchecked)")
     t_file = k1_timing(ft, fp_file, n, smi, "K1c-file (the flagship's file crystal)")
     cls, kw = MESH_CRYSTALS["mesh_sphere"]
     t_cheb = k1_timing(ft, packed(mesh_config(n, 1, "fused", cls, **kw)), n, smi,
                        "K1c-cheb (example 06's mesh crystal)")
     t_k1a = k1_timing(ft, fparams, n, smi, "K1a (the flagship)")
-    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_flat_kernelILi0ELb0E')}")
+    log(f"phase 31 K1a build: {ptxas_registers('fused_trace_flat_kernelILi0ELb0E')}; "
+        f"K1c-mirror's: {ptxas_registers('fused_trace_dense_kernelILb0E')}")
 
     # Phase 38: this slice's stages per 2^22 rays beside K1a, and the
     # registers of their builds.
@@ -4562,7 +4669,9 @@ def main() -> int:
                        plasma["k1p_slots_1e5"], plasma["k1p_ms_1e5"]),
         "mirror": ("K1c-mirror, the flagship's crystal unchecked (phase 31)",
                    mirror_configs(1 << 22, 1, "fused")["flagship_no_check"], 1 << 22,
-                   t_mirror["ms"])})
+                   t_mirror["ms"]),
+        "cylinder": ("K1c-cylinder, the cylinder crystal (phase 18)",
+                     cylinder_config(1 << 22, 1, "fused"), 1 << 22, curved["k1c"]["ms"])})
     # Phases 46-48: ray-sharded runs, counters read around each.
     sharded = phase_sharded(ft, bg, engine, xicsrt_tpu_torch.raytrace, fused_meta,
                             plasma["example03_meta"])
@@ -4618,10 +4727,12 @@ def main() -> int:
          "serial_ms": k1_serial["plasma"], "ms_1e5_bundles": plasma["k1p_ms_1e5"],
          "bound_ms_1e5_bundles": plasma["k1p_bound_1e5"][0],
          "serial_ms_1e5_bundles": k1_serial["plasma_1e5"]},
-        row("fused_run_cuda cylinder (K1c-cylinder)", trace_cu,
-            "xicsrt_tpu/ops/fused_trace.py:784 and :903", curved["k1c"]["launches"],
-            curved["k1c"]["err"], curved["k1c"]["ms"], curved["k1c"]["plain_ms"],
-            curved["k1c"]["bound"], bound_flat=curved["k1c"]["bound_flat"]),
+        {**row("fused_run_cuda cylinder (K1c-cylinder)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:784 and :903", curved["k1c"]["launches"],
+               curved["k1c"]["err"], curved["k1c"]["ms"], curved["k1c"]["plain_ms"],
+               curved["k1c"]["bound"], bound_flat=curved["k1c"]["bound_flat"]),
+         "serial_ms": k1_serial["cylinder"], "build": curved["k1c"]["build"],
+         "k1a_ms": curved["k1c"]["k1a_ms"]},
         row("fused_grad_forward_cuda torus+cylinder+plasma (K5f: K5c, K5e)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:1727 (pallas_call :1906)",
             curved["k5f_launches"], curved["k5f_err"], torus["f_ms"], torus["f_plain"],
@@ -4648,12 +4759,13 @@ def main() -> int:
                "xicsrt_tpu/ops/fused_trace.py:1099 (kernel :1343, pallas_call :1883)",
                mirror_launches, mirror_err, t_mirror["ms"], t_mirror["plain_ms"],
                t_mirror["bound"], bound_flat=t_mirror["bound_flat"]),
-         "serial_ms": k1_serial["mirror"]},
+         "serial_ms": k1_serial["mirror"], "build": picks["K1c-mirror"],
+         "k1a_ms": t_k1a["ms"]},
         {**row("fused_run_cuda file rocking (K1c-file)", trace_cu,
                "xicsrt_tpu/ops/fused_trace.py:733 (kernel :1343, pallas_call :1883)",
                file_launches, file_err, t_file["ms"], t_file["plain_ms"], t_file["bound"],
                bound_flat=t_file["bound_flat"]),
-         "build": "fused_trace_flat_kernel"},
+         "build": picks["K1c-file"]},
         row("fused_run_cuda mesh surrogate (K1c-cheb)", trace_cu,
             "xicsrt_tpu/ops/fused_trace.py:813 (kernel :1343, pallas_call :1883)",
             mesh_launches, mesh_err, t_cheb["ms"], t_cheb["plain_ms"], t_cheb["bound"],

@@ -72,16 +72,17 @@ def _k1a_case(case, n):
     """K1a's chains: the flagship; a sparse one (a 5 cm crystal, the last
     5000 rays dead at the source), where more warps leave the chain early;
     phase 27's convex toroidal crystals, which take the build with the torus
-    code."""
+    code. Returns (config, count, curved shapes, build)."""
     import chip_smoke
 
     if case == "torus":
-        return chip_smoke.mirror_configs(n, 1, "fused")["torus_no_check"], n, True
+        return (chip_smoke.mirror_configs(n, 1, "fused")["torus_no_check"], n, 1,
+                "fused_trace_kernel<point, kStages 0>")
     cfg = chip_smoke.flagship(n, 1, engine="fused")
     if case == "sparse":
         cfg["optics"]["crystal"]["xsize"] = 0.05
-        return cfg, n - 5000, False
-    return cfg, n, False
+        return cfg, n - 5000, 0, "fused_trace_flat_kernel<0>"
+    return cfg, n, 0, "fused_trace_flat_kernel<0>"
 
 
 @pytest.mark.parametrize("rng", ["input", "hw"])
@@ -90,14 +91,17 @@ def test_k1a_matches_twin_exactly(cuda_device, case, rng):
     """K1a's builds (images in global atomics where staging costs a block,
     warps leaving the chain once their lanes are dead, the point build
     without the torus and cylinder code) 0 rays and 0 pixels apart from the
-    twin, both RNG modes."""
+    twin, both RNG modes; the flagship takes fused_trace_flat_kernel<0>,
+    the torus (dense images asked for) the build with every shape."""
+    import chip_smoke
     from xicsrt_tpu_torch.tools.roofline import k1_pack
 
     n = 1 << 18
-    cfg, count, curved = _k1a_case(case, n)
+    cfg, count, shapes, build = _k1a_case(case, n)
     fparams = k1_pack(Pipeline(cfg, device=cuda_device))
-    assert (fparams.full_source, fparams.cheb, fparams.stages, fparams.curved) == (
-        False, False, 0, curved)
+    assert (fparams.full_source, fparams.cheb, fparams.stages, fparams.shapes) == (
+        False, False, 0, shapes)
+    assert chip_smoke.k1_build_name(fparams) == build
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     kwargs = ({"uniforms": torch.rand((fparams.n_draws, n), generator=gen,
                                       device=cuda_device)}
@@ -730,17 +734,15 @@ def _k1d_flagship(mode, n, device, sparse=False):
     weight, bilinear or both) at ``n`` rays, packed for K1; ``sparse``: its
     detector narrowed until about a third of the 8192-ray chunks keep a ray
     in mc mode. The library picks K1's flat build of the weight and
-    bilinear stages for it (``xrt_fused_trace_flat``)."""
+    bilinear stages for it (``chip_smoke.k1_build_name``)."""
     import chip_smoke
-    from xicsrt_tpu_torch.ops import native
 
     cfg = chip_smoke.flagship(n, 1, engine="fused", **chip_smoke.WEIGHT_MODES[mode])
     if sparse:
         cfg["optics"]["detector"]["xsize"] = chip_smoke.SPARSE_DETECTOR_XSIZE
     fparams = chip_smoke.k1_pack(Pipeline(cfg, device=device))
     assert fparams.stages == 1 and not fparams.plasma
-    assert native.library().xrt_fused_trace_flat(
-        int(fparams.full_source), int(fparams.cheb), fparams.stages, int(fparams.curved)) == 1
+    assert chip_smoke.k1_build_name(fparams) == "fused_trace_flat_kernel<1>"
     return fparams
 
 
@@ -802,6 +804,131 @@ def test_k1e_marks_of_the_k1d_flat_build_match_twin(cuda_device, mode):
         assert int(hist.used) > 0
         if mode == "bilinear":
             assert int(hist.used) < spec.slots
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+@pytest.mark.parametrize("chain", ["plane_fold", "torus_no_check", "convex_cylinder_mirror",
+                                   "flagship_no_check"])
+def test_k1c_mirror_builds_match_twins(cuda_device, chain, rng):
+    """K1c-mirror: phase 27's four mirror chains take their builds
+    (``chip_smoke.MIRROR_BUILDS``: a window of the images staged as integer
+    counts where no torus is in the chain; the torus's build with every
+    shape) and are 0 rays and 0 pixels apart from the twin at 2^20 rays."""
+    import chip_smoke
+
+    n = 1 << 20
+    fparams = chip_smoke.k1_pack(Pipeline(chip_smoke.mirror_configs(n, 1, "fused")[chain],
+                                          device=cuda_device))
+    assert fparams.dense_images
+    assert chip_smoke.k1_build_name(fparams) == chip_smoke.MIRROR_BUILDS[chain]
+    kw = {"seed": (19, 1)} if rng == "hw" else {"uniforms": torch.rand(
+        (fparams.n_draws, n), device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(19))}
+    before = ft.fused_run_cuda.launches
+    chip_smoke.twin_equal(ft.fused_run_cuda(fparams, n, n, **kw),
+                          ft.fused_run_plain(fparams, n, n, **kw, terms=True),
+                          f"K1c-mirror {chain} rng={rng}", fparams)
+    assert ft.fused_run_cuda.launches == before + 1
+
+
+def _one_pixel_config(n, crystal_pixel):
+    """The flagship with its crystal unchecked, no aperture and a 2 degree
+    cone, so every ray reaches the crystal and the detector: its crystal's
+    image of pixels ``crystal_pixel`` wide (0.2: one pixel, which every lane
+    of every warp adds to; 0.001: 200 x 200, too large to stage with the
+    detector's), its detector's two (the window)."""
+    import chip_smoke
+
+    cfg = chip_smoke.mirror_configs(n, 1, "fused")["flagship_no_check"]
+    del cfg["optics"]["aperture"]
+    cfg["sources"]["source"]["spread"] = np.radians(2.0)
+    cfg["optics"]["crystal"]["pixel_size"] = crystal_pixel
+    cfg["optics"]["detector"]["pixel_size"] = 0.2
+    return cfg
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+@pytest.mark.parametrize("image", ["staged", "window"])
+def test_dense_images_of_whole_warps_on_one_pixel(cuda_device, image, rng):
+    """The dense build's staged integer counts where whole warps land on one
+    pixel (``_one_pixel_config``): every pixel staged (3) or the window
+    alone, the detector's 2 of 40002 (the crystal's in global memory):
+    every ray alive at every element, counts and images 0 rays apart from
+    the twin at 2^20 rays; staged, the crystal's one pixel holds every
+    ray."""
+    import ctypes
+
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import native
+
+    n = 1 << 20
+    cfg = _one_pixel_config(n, 0.2 if image == "staged" else 0.001)
+    fparams = chip_smoke.k1_pack(Pipeline(cfg, device=cuda_device))
+    assert chip_smoke.k1_build_name(fparams) == "fused_trace_dense_kernel"
+    assert fparams.stage_window == (fparams.img_total - 2, fparams.img_total)
+    dyn = ctypes.c_int(-1)
+    assert native.library().xrt_fused_trace_occupancy(
+        0, 0, 0, fparams.shapes, 1, *fparams.stage_window, fparams.img_total,
+        ctypes.byref(dyn)) > 0
+    assert dyn.value == 4 * (fparams.img_total if image == "staged" else 2)
+    kw = {"seed": (23, 2)} if rng == "hw" else {"uniforms": torch.rand(
+        (fparams.n_draws, n), device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(23))}
+    counts, images = ft.fused_run_cuda(fparams, n, n, **kw)
+    chip_smoke.twin_equal((counts, images), ft.fused_run_plain(fparams, n, n, **kw, terms=True),
+                          f"dense images, {image}, rng={rng}", fparams)
+    assert counts.tolist() == [n] * (1 + fparams.n_optics)
+    if image == "staged":
+        assert int(images[0]) == n
+
+
+@pytest.mark.parametrize("rng", ["input", "hw"])
+@pytest.mark.parametrize("mode", ["mc", "weight", "bilinear"])
+def test_k1c_cylinder_build_matches_twin(cuda_device, mode, rng):
+    """K1c-cylinder in its build without the torus code
+    (``fused_trace_cylinder_kernel``; its stage-1 build stages the weighted
+    and bilinear images in shared memory) against its twin at 2^20 rays:
+    0 rays and 0 pixels apart in mc mode, the counts equal and each pixel
+    within the bound of float32 summation order in weight mode and with
+    bilinear images (``chip_smoke.twin_equal``)."""
+    import chip_smoke
+
+    n = 1 << 20
+    fparams = chip_smoke.k1_pack(Pipeline(chip_smoke.cylinder_mode_config(mode, n),
+                                          device=cuda_device))
+    assert chip_smoke.k1_build_name(fparams) == chip_smoke.CYLINDER_MODES[mode][1]
+    kw = {"seed": (29, 3)} if rng == "hw" else {"uniforms": torch.rand(
+        (fparams.n_draws, n), device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(29))}
+    before = ft.fused_run_cuda.launches
+    chip_smoke.twin_equal(ft.fused_run_cuda(fparams, n, n, **kw),
+                          ft.fused_run_plain(fparams, n, n, **kw, terms=True),
+                          f"K1c-cylinder {mode} rng={rng}", fparams)
+    assert ft.fused_run_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("chain", ["cylinder", "flagship_no_check"])
+def test_k1e_found_on_the_new_builds_matches_twin(cuda_device, chain):
+    """K1e 'found' through the marked builds of the cylinder
+    (``fused_trace_cylinder_kernel<0, true>``) and of dense images
+    (``fused_trace_dense_kernel<true>``) against the twin at 2^18 rays,
+    chunk 4096, both RNG modes: counts, images, kept chunks and every
+    recorded value equal (``chip_smoke.k1e_against_twin``)."""
+    import chip_smoke
+
+    n = 1 << 18
+    cfg = (chip_smoke.cylinder_config(n, 1, "fused") if chain == "cylinder"
+           else chip_smoke.mirror_configs(n, 1, "fused")[chain])
+    fparams = chip_smoke.k1_pack(Pipeline(cfg, device=cuda_device))
+    spec = ft.HistorySpec("found", 4, 4096)
+    uniforms = torch.rand((fparams.n_draws, n), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(31))
+    before = (ft.fused_run_cuda.launches, ft.history_record_cuda.launches)
+    for kw in ({"seed": (31, 4)}, {"uniforms": uniforms}):
+        _, hist = chip_smoke.k1e_against_twin(ft, fparams, n, spec, f"K1e found {chain}", **kw)
+        assert int(hist.used) == 4
+    assert (ft.fused_run_cuda.launches, ft.history_record_cuda.launches) == (
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4096 + 17, 1 << 16])

@@ -6,9 +6,11 @@
   ``bin_image`` call per item and against the JAX package's Pallas kernel
   in interpret mode; the eager engine's choice of the flag.
 - K1's build: what its launcher picks the build from (source, Chebyshev
-  stage, stages, ``FusedParams.curved``); a point source's chain of planes
-  and spheres, in mc mode and with weights or bilinear images, passes it
-  what the build without the torus and cylinder code takes.
+  stage, stages, ``FusedParams.shapes``, ``FusedParams.dense_images``); a
+  point source's chain of planes and spheres, in mc mode and with weights
+  or bilinear images, passes it what the build without the torus and
+  cylinder code takes, a cylinder chain what the build without the torus
+  code takes, a mirror chain dense images.
 - What K1 really traces (``tools/roofline.live_lanes``): the rays and
   32-ray warps alive into each optic of the flagship at 2^16 rays, held to
   the twin's counts and to the twin's history record of the same rays.
@@ -136,43 +138,60 @@ def _weighted(cfg):
 
 
 @pytest.mark.parametrize("chain,expected", [
-    ("flagship", (0, False, 0, False)),
-    ("flagship weight", (0, False, 1, False)),
-    ("flagship bilinear", (0, False, 1, False)),
-    ("toroidal", (0, False, 0, True)),
-    ("toroidal weight", (0, False, 1, True)),
-    ("cylinder", (0, False, 0, True)),
-    ("mesh", (0, True, 0, False)),
-    ("mosaic15", (0, False, 2, False)),
-    ("generic source", (1, False, 0, False)),
-    ("plasma_torus", (2, False, 0, True)),
+    ("flagship", (0, False, 0, 0, False, (10000, 15000))),
+    ("flagship weight", (0, False, 1, 0, False, (10000, 15000))),
+    ("flagship bilinear", (0, False, 1, 0, False, (10000, 15000))),
+    ("toroidal", (0, False, 0, 1, False, (10000, 15000))),
+    ("toroidal weight", (0, False, 1, 1, False, (0, 10000))),
+    ("cylinder", (0, False, 0, 2, False, (10000, 10800))),
+    ("cylinder weight", (0, False, 1, 2, False, (10000, 10800))),
+    ("convex_cylinder_mirror", (0, False, 0, 2, True, (10000, 11600))),
+    ("torus_no_check", (0, False, 0, 1, True, (0, 10000))),
+    ("flagship_no_check", (0, False, 0, 0, True, (10000, 15000))),
+    ("plane_fold", (0, False, 0, 0, True, (0, 10000))),
+    ("mesh", (0, True, 0, 0, False, (10000, 15000))),
+    ("mosaic15", (0, False, 2, 0, False, (10000, 15000))),
+    ("generic source", (1, False, 0, 0, False, (10000, 15000))),
+    ("plasma_torus", (2, False, 0, 1, False, (10000, 15000))),
 ])
 def test_k1_build_choice(chain, expected):
-    """What K1's launcher picks its build from (xrt_fused_pick): the source
-    (0 the point cut, 1 the whole generic sampler, 2 a plasma), the
-    Chebyshev stage, the stages and whether the chain holds a torus or a
-    cylinder (FusedParams.curved). The launcher takes the build without
-    that code for a point source, no Chebyshev stage, stages 0 or 1 and
-    no torus or cylinder: the flagship in mc mode, in weight mode and with
-    bilinear images (the card tests ask the library which build it
-    picks, ``xrt_fused_trace_flat``)."""
+    """What K1's launcher picks its build from (xrt_fused_build,
+    xrt_fused_pick): the source (0 the point cut, 1 the whole generic
+    sampler, 2 a plasma), the Chebyshev stage, the stages, the chain's
+    curved shapes (FusedParams.shapes: 1 a torus, 2 a cylinder), dense
+    images (FusedParams.dense_images) and the window of pixels the window
+    builds stage (FusedParams.stage_window). A point source with no
+    Chebyshev stage, stages 0 or 1 and no torus takes a build without the
+    torus code: the flagship in every mode none of the curved code
+    (fused_trace_flat_kernel), the cylinder crystal in mc and weight mode
+    the cylinder's (fused_trace_cylinder_kernel, its stage-0 build staging
+    the window: the detector's image). The mirror chains (no Bragg or
+    mosaic crystal before an image, mc, nearest) ask for dense images, the
+    mirror's or the detector's image their window, the flagship's Bragg
+    crystal none; a chain with a torus (toroidal, torus_no_check) takes
+    the build with every shape, dense or not (the card tests ask the
+    library, ``xrt_fused_trace_build``)."""
     n = 1 << 10
     cls, kw = cs.MESH_CRYSTALS["mesh_sphere"]
+    mirrors = cs.mirror_configs(n, 1, "fused")
     configs = {
         "flagship": lambda: cs.flagship(n, 1, engine="fused"),
         "flagship weight": lambda: cs.flagship(n, 1, engine="fused", interact_mode="weight"),
         "flagship bilinear": lambda: cs.flagship(n, 1, engine="fused", image_mode="bilinear"),
-        "toroidal weight": lambda: _weighted(cs.mirror_configs(n, 1, "fused")["torus_no_check"]),
+        "toroidal weight": lambda: _weighted(mirrors["torus_no_check"]),
         "toroidal": lambda: BS.SCENARIOS["toroidal"](n, 1),
         "cylinder": lambda: cs.cylinder_config(n, 1, "fused"),
+        "cylinder weight": lambda: cs.cylinder_mode_config("weight", n),
         "mesh": lambda: cs.mesh_config(n, 1, "fused", cls, **kw),
         "mosaic15": lambda: cs.mosaic15_config(n, 1, "fused"),
         "generic source": lambda: cs.source_matrix_config(n, 1, "fused"),
         "plasma_torus": lambda: cs.plasma_config(n, 1, engine="fused"),
+        **{name: (lambda cfg=cfg: cfg) for name, cfg in mirrors.items()},
     }
     fparams = _packed(configs[chain]())
     source = 2 if fparams.plasma else int(fparams.full_source)
-    assert (source, fparams.cheb, fparams.stages, fparams.curved) == expected
+    assert (source, fparams.cheb, fparams.stages, fparams.shapes, fparams.dense_images,
+            fparams.stage_window) == expected
 
 
 @pytest.mark.parametrize("mode", ["mc", "weight", "bilinear"])

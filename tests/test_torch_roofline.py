@@ -188,6 +188,33 @@ def test_k1b_census_is_per_ray_and_adds_the_sampler():
     assert small["trans"] >= k1a["trans"] + 5 and small["simple"] > k1a["simple"]
 
 
+def test_cylinder_census_counts_its_stage():
+    """K1c-cylinder's census (phase 45's ``cylinder`` entry,
+    ``chain_ops_per_ray`` of ``chip_smoke.cylinder_config``) is finite and
+    positive, and its crystal's element, the chain's census less that of
+    the chain without it, holds the cylinder's stage: the hit's stable
+    quadratic (a square root, two divisions), the normal's reciprocal
+    square root (a square root, a reciprocal), the Bragg deviation's square
+    root and the gaussian rocking curve's division and exp."""
+    import copy
+
+    import chip_smoke
+
+    config = chip_smoke.cylinder_config(1 << 22, 1, "fused")
+    counts, _ = roofline.chain_ops_per_ray(config, chunk=1024)
+    assert all(np.isfinite(counts[c]) for c in roofline.CLASSES)
+    assert counts["trans"] > 0 and counts["sqrtdiv"] > 0 and counts["simple"] > 0
+    without = copy.deepcopy(config)
+    del without["optics"]["crystal"]
+    full = roofline._chain_census(config, 1024)[1]
+    less = roofline._chain_census(without, 1024)[1]
+    stage = {op: (full.get(op, 0) - less.get(op, 0)) / 1024
+             for op in (("sqrtdiv", "sqrt"), ("sqrtdiv", "div"), ("sqrtdiv", "reciprocal"),
+                        ("trans", "exp"))}
+    assert stage == {("sqrtdiv", "sqrt"): 3.0, ("sqrtdiv", "div"): 3.0,
+                     ("sqrtdiv", "reciprocal"): 1.0, ("trans", "exp"): 1.0}
+
+
 def _k5_chain(name):
     """A K5 chain of ``chip_smoke.py``'s gradient phases (2^22 rays; the
     census takes its own chunk)."""

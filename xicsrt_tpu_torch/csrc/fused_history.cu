@@ -246,12 +246,14 @@ extern "C" int xrt_fused_trace_marked(const float* fp, int n_fp, const int* ip,
                                       const float* table, int n_bundles,
                                       long long n_per_iter, unsigned long long* counts,
                                       void* images, int img_total, int full_source,
-                                      int cheb, int stages, int curved, int* marks,
-                                      int chunk, void* stream) {
+                                      int cheb, int stages, int shapes, int dense,
+                                      int win_lo, int win_hi, int* marks, int chunk,
+                                      void* stream) {
     return xrt_fused_launch<true>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
                                   uniforms, seed0, seed1, cum, table, n_bundles,
                                   n_per_iter, counts, images, img_total, full_source,
-                                  cheb, stages, curved, marks, chunk, stream);
+                                  cheb, stages, shapes, dense, win_lo, win_hi, marks,
+                                  chunk, stream);
 }
 
 // K1 in its build without marks, as xrt_fused_trace launches it (the same
@@ -266,21 +268,24 @@ extern "C" int xrt_fused_trace_flagged(const float* fp, int n_fp, const int* ip,
                                        const float* table, int n_bundles,
                                        long long n_per_iter, unsigned long long* counts,
                                        void* images, int img_total, int full_source,
-                                       int cheb, int stages, int curved, int* marks,
-                                       int chunk, void* stream) {
+                                       int cheb, int stages, int shapes, int dense,
+                                       int win_lo, int win_hi, int* marks, int chunk,
+                                       void* stream) {
     return xrt_fused_launch<false>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
                                    uniforms, seed0, seed1, cum, table, n_bundles,
                                    n_per_iter, counts, images, img_total, full_source,
-                                   cheb, stages, curved, marks, chunk, stream);
+                                   cheb, stages, shapes, dense, win_lo, win_hi, marks,
+                                   chunk, stream);
 }
 
 // Blocks of 256 a multiprocessor holds of the marked build of K1 that
 // xrt_fused_trace_marked launches (src: 0 point, 1 generic, 2 plasma), and
 // its dynamic shared bytes in *dyn_smem; -1 where the query fails.
 extern "C" int xrt_fused_trace_marked_occupancy(int src, int cheb, int stages,
-                                                int curved, int img_total,
-                                                int* dyn_smem) {
-    return xrt_fused_occupancy<true>(src, cheb, stages, curved, img_total, dyn_smem);
+                                                int shapes, int dense, int win_lo,
+                                                int win_hi, int img_total, int* dyn_smem) {
+    return xrt_fused_occupancy<true>(src, cheb, stages, shapes, dense, win_lo, win_hi,
+                                     img_total, dyn_smem);
 }
 
 // K1e's probe for the run K1 traces with the same fp, ip, aux, n_total,

@@ -74,10 +74,11 @@ namespace {
         const int *__restrict__ cum, const float *__restrict__ table, int n_bundles, \
         int n_per_iter, unsigned long long *__restrict__ counts,                    \
         void *__restrict__ images, int img_total, int use_smem,                     \
-        int *__restrict__ marks, int chunk
+        int *__restrict__ marks, int chunk, int win_lo, int win_n
 #define XRT_K1_ARGS                                                                  \
     g_fp, n_fp, g_ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum, table, \
-        n_bundles, n_per_iter, counts, images, img_total, use_smem, marks, chunk
+        n_bundles, n_per_iter, counts, images, img_total, use_smem, marks, chunk,    \
+        win_lo, win_n
 
 // kSrc: the source's build (xrt_k1_source). kCheb: the chain's mesh stage;
 // kStages: its weight and bilinear stages (1), and the mosaic's (2)
@@ -91,18 +92,23 @@ namespace {
 // the other leaves at once; so a 'found' run issues both, and K1e's probe,
 // which sets the flag on finding the kept chunks, picks one on the card.
 // The flag is read before the loop: a flag kept across it spilled the flat
-// build at its 48 registers. kCurved: the chain's torus and cylinder code
-// (fused_trace_flat_kernel compiles the chain without it). images: float32
-// pixels at kStages 0, float64 from 1 (XrtImage, trace_chain.cuh), staged
-// in the block's float32 shared histogram where use_smem is set (kStages
-// 0, and kStaged: xrt_fused_pick).
-template <int kSrc, bool kCheb, int kStages, bool kMark, bool kCurved>
+// build at its 48 registers. kShapes: the curved shapes the chain compiles
+// (XRT_SHAPES_*, trace_chain.cuh; fused_trace_flat_kernel compiles none,
+// fused_trace_cylinder_kernel the cylinder). images: float32 pixels at
+// kStages 0, float64 from 1 (XrtImage, trace_chain.cuh), staged in the
+// block's float32 shared histogram where use_smem is set (kStages 0, and
+// kStaged: xrt_fused_pick); kWindow (kStages 0): pixels [win_lo, win_lo +
+// win_n) staged as integer counts, the rest in global memory
+// (XrtWindowImage), win_n 0 for none.
+template <int kSrc, bool kCheb, int kStages, bool kMark, int kShapes, bool kWindow>
 __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
-    constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 && kCurved;
+    static_assert(!kWindow || kStages == 0, "a window stages unit adds");
+    constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 && kShapes != 0;
     extern __shared__ float s_img[];
     __shared__ float fp[XRT_MAX_FP];
     __shared__ int ip[XRT_MAX_IP];
     __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
+    unsigned int* const s_win = reinterpret_cast<unsigned int*>(s_img);
 
     if (marks != nullptr) {  // uniform over the launch
         const unsigned int n_chunks =
@@ -114,16 +120,24 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
         s_counts[i] = 0u;
     }
-    if constexpr (kStages == 0 || kStaged) {
+    if constexpr (kWindow) {
+        for (int i = threadIdx.x; i < win_n; i += blockDim.x) s_win[i] = 0u;
+    } else if constexpr (kStages == 0 || kStaged) {
         if (use_smem) xrt_smem_zero(s_img, img_total);
     }
     __syncthreads();
 
     using Pixel = typename std::conditional<(kStages >= 1), double, float>::type;
-    using Image = typename std::conditional<kStaged, XrtStagedImage, XrtImage<Pixel>>::type;
+    using Image = typename std::conditional<
+        kWindow, XrtWindowImage,
+        typename std::conditional<kStaged, XrtStagedImage, XrtImage<Pixel>>::type>::type;
     Pixel* const out = static_cast<Pixel*>(images);
     Image img{out};
-    if constexpr (kStaged) {
+    if constexpr (kWindow) {
+        img.counts = s_win;
+        img.lo = win_lo;
+        img.n = win_n;
+    } else if constexpr (kStaged) {
         if (use_smem) img.staged = s_img;
     } else if constexpr (kStages == 0) {
         if (use_smem) img.pix = s_img;
@@ -146,7 +160,7 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
                                                table, n_bundles, n_per_iter, lane, px, py,
                                                pz, dx, dy, dz, wl);
         xrt_count_warp(s_counts, 0, alive, lane);
-        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kCurved>(
+        const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kShapes>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
         if constexpr (kMark) {
@@ -162,14 +176,19 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
             atomicAdd(counts + i, (unsigned long long)s_counts[i]);
         }
     }
-    if constexpr (kStages == 0 || kStaged) {
+    if constexpr (kWindow) {
+        float* const g = out + win_lo;
+        for (int i = threadIdx.x; i < win_n; i += blockDim.x) {
+            if (s_win[i]) atomicAdd(g + i, (float)s_win[i]);
+        }
+    } else if constexpr (kStages == 0 || kStaged) {
         if (use_smem) xrt_smem_flush(s_img, out, img_total);
     }
 }
 
 template <int kSrc, bool kCheb, int kStages, bool kMark>
 __global__ void fused_trace_kernel(XRT_K1_PARAMS) {
-    xrt_fused_trace_body<kSrc, kCheb, kStages, kMark, true>(XRT_K1_ARGS);
+    xrt_fused_trace_body<kSrc, kCheb, kStages, kMark, XRT_SHAPES_ALL, false>(XRT_K1_ARGS);
 }
 
 // The point source's builds without the Chebyshev or mosaic stages and
@@ -186,12 +205,36 @@ __global__ void fused_trace_kernel(XRT_K1_PARAMS) {
 template <int kStages, bool kMark>
 __global__ void __launch_bounds__(256, kStages == 0 ? 5 : 4)
     fused_trace_flat_kernel(XRT_K1_PARAMS) {
-    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, false>(XRT_K1_ARGS);
+    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, 0, false>(XRT_K1_ARGS);
+}
+
+// The point source's builds for chains whose curved shapes are cylinders
+// (no torus), without the Chebyshev or mosaic stages: the torus's root and
+// normal, which took the general build to 63 registers (4 blocks of 256),
+// are not compiled. Held like fused_trace_flat_kernel, kStages 0 to 5
+// blocks, with a window of its images staged (kWindow: the cylinder
+// crystal's 10800 image floats do not fit beside 5 blocks, its detector's
+// 800 do); kStages 1 to 4, its images staged whole (kStaged).
+template <int kStages, bool kMark>
+__global__ void __launch_bounds__(256, kStages == 0 ? 5 : 4)
+    fused_trace_cylinder_kernel(XRT_K1_PARAMS) {
+    xrt_fused_trace_body<XRT_K1_POINT, false, kStages, kMark, XRT_SHAPES_CYLINDER,
+                         kStages == 0>(XRT_K1_ARGS);
+}
+
+// The point source's kStages 0 build for chains of planes and spheres
+// whose rays reach an image with no Bragg or mosaic crystal to thin them
+// (FusedParams.dense_images: the mirror chains): a window of its images
+// staged (kWindow), at 5 blocks. A build of its own, so that K1a's build
+// and its registers stay as they are.
+template <bool kMark>
+__global__ void __launch_bounds__(256, 5) fused_trace_dense_kernel(XRT_K1_PARAMS) {
+    xrt_fused_trace_body<XRT_K1_POINT, false, 0, kMark, 0, true>(XRT_K1_ARGS);
 }
 
 // The build of K1 a run takes (the arguments of xrt_fused_trace,
-// fused_trace.cu; curved: the chain holds a torus or a cylinder), and the
-// dynamic shared memory of its launch. Weighted and bilinear images
+// fused_trace.cu; xrt_fused_build), and the dynamic shared memory of its
+// launch. Weighted and bilinear images
 // (stages 1 and 2) are float sums of many terms: each term goes to a
 // float64 pixel in global memory (XrtImage), unstaged, so they cost no
 // resident block, and each pixel is rounded to float32 once (the bilinear
@@ -202,10 +245,11 @@ __global__ void __launch_bounds__(256, kStages == 0 ? 5 : 4)
 // blocks of 256: the flagship 1.11-1.13x slower, the plasma's, the generic
 // source's and the mosaic's builds 1-10 % slower; split over a cluster of
 // 2 blocks, whose remote adds are compare-and-swap loops, 1.15-1.27x
-// slower. One build keeps staging: the point source's stage-1 build with
-// the torus and cylinder code (XrtStagedImage, flushed into the float64
-// pixels), whose focusing chains put most terms on a few pixels; a
-// cylinder in weight mode ran 2.6x slower on global float64 atomics
+// slower. Two builds keep staging: the point source's stage-1 builds with a
+// curved shape's code, the torus chains' and fused_trace_cylinder_kernel<1>
+// (XrtStagedImage, flushed into the float64 pixels), whose focusing chains
+// put most terms on a few pixels; a cylinder in weight mode ran 2.6x slower
+// on global float64 atomics
 // (chip_ab.py `k1d_staged`, `k1d_cluster`, `k1d_curved_unstaged`,
 // PERF.md).
 // The nearest mc images of the builds without further stages add 1.0f,
@@ -215,7 +259,18 @@ __global__ void __launch_bounds__(256, kStages == 0 ? 5 : 4)
 // `staged_images`). The threshold is the image that fits beside the blocks
 // the registers allow: about 13020 floats at 4 blocks, 10101 at 5 (228 KB
 // over the blocks, less the static bytes and the 1 KB the card keeps a
-// block).
+// block). The window builds (kWindow: fused_trace_cylinder_kernel<0>,
+// fused_trace_dense_kernel) stage integer counts: of every pixel where
+// that costs no block, or one block for a dense chain (dense: every ray
+// reaches its images unthinned), else of the window the host asks for
+// ([win_lo, win_hi): FusedParams.stage_window, the one image whose rays
+// crowd onto a few pixels) where that costs none, else of none. Global
+// atomics from every warp onto those few pixels wait on each other: the
+// plane fold's mirror image took 0.27 of its 0.37 ms a 2^22 rays, and the
+// convex cylinder mirror ran 2x slower with its detector alone staged at
+// 5 blocks than with both images at 4; the mirror flagship ran 1.14x
+// slower with both at 3 than with its detector alone at 5 (chip_ab.py
+// `no_image_adds`, `cylinder_bounds_4`, `dense_spare_off`, PERF.md).
 template <bool kMark>
 struct XrtFusedPick {
     using Kernel = decltype(&fused_trace_kernel<XRT_K1_POINT, false, 0, kMark>);
@@ -223,13 +278,26 @@ struct XrtFusedPick {
     int threads;
     size_t smem;
     int use_smem;
+    int win_lo, win_n;
 };
 
-// Whether a run takes fused_trace_flat_kernel (the arguments of
-// xrt_fused_pick): a point source's cut, no Chebyshev stage, no mosaic, no
-// torus or cylinder.
-inline bool xrt_fused_flat(int src, int cheb, int stages, int curved) {
-    return src == XRT_K1_POINT && !cheb && !curved && stages <= 1;
+// xrt_fused_pick's table of K1's builds: fused_trace_kernel's 18 (6 src +
+// 3 cheb + stages), then fused_trace_flat_kernel<0, 1>,
+// fused_trace_cylinder_kernel<0, 1> and fused_trace_dense_kernel.
+constexpr int kXrtK1Flat = 18, kXrtK1Cylinder = 20, kXrtK1Dense = 22, kXrtK1Builds = 23;
+
+// The build a run takes (the arguments of xrt_fused_pick): a point source's
+// cut without the Chebyshev or mosaic stages and with no torus takes a
+// build without the torus code: with the cylinder's where the chain holds
+// one (shapes: XRT_SHAPES_*), else the plane's and the sphere's alone, with
+// dense images where they are asked for (dense, stages 0); every other run
+// fused_trace_kernel.
+inline int xrt_fused_build(int src, int cheb, int stages, int shapes, int dense) {
+    const bool point =
+        src == XRT_K1_POINT && !cheb && stages <= 1 && !(shapes & XRT_SHAPES_TORUS);
+    if (!point) return 6 * src + (cheb ? 3 : 0) + stages;
+    if (shapes) return kXrtK1Cylinder + stages;
+    return dense && stages == 0 ? kXrtK1Dense : kXrtK1Flat + stages;
 }
 
 // The threads of a block of the build a run takes. The point source's
@@ -244,42 +312,66 @@ inline int xrt_fused_threads(int src, int cheb, int stages) {
     return src == XRT_K1_POINT && cheb && stages == 1 ? 128 : 256;
 }
 
+// Whether `floats` staged floats or counts cost the build more than
+// `spare` resident blocks (stages 0) or do not fit (after setting the
+// kernel's dynamic shared memory to them).
+template <class Kernel>
+inline bool xrt_costs_a_block(Kernel kernel, int threads, int stages, int floats,
+                              int spare = 0) {
+    const size_t bytes = (size_t)floats * sizeof(float);
+    if (floats > XRT_SMEM_IMAGE_MAX_FLOATS || xrt_set_smem(kernel, bytes) != cudaSuccess) {
+        return true;
+    }
+    int staged = 0, unstaged = 0;
+    return stages == 0 &&
+           cudaOccupancyMaxActiveBlocksPerMultiprocessor(&staged, kernel, threads, bytes) ==
+               cudaSuccess &&
+           cudaOccupancyMaxActiveBlocksPerMultiprocessor(&unstaged, kernel, threads, 0) ==
+               cudaSuccess &&
+           staged < unstaged - spare;
+}
+
 template <bool kMark>
-inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int curved,
+inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int shapes,
+                                          int dense, int win_lo, int win_hi,
                                           int img_total) {
     using Kernel = typename XrtFusedPick<kMark>::Kernel;
 #define XRT_K1_STAGES(S, CHEB)                                                    \
     fused_trace_kernel<S, CHEB, 0, kMark>, fused_trace_kernel<S, CHEB, 1, kMark>, \
         fused_trace_kernel<S, CHEB, 2, kMark>
-    const Kernel kernels[20] = {
+    const Kernel kernels[kXrtK1Builds] = {
         XRT_K1_STAGES(XRT_K1_POINT, false), XRT_K1_STAGES(XRT_K1_POINT, true),
         XRT_K1_STAGES(XRT_K1_GENERIC, false), XRT_K1_STAGES(XRT_K1_GENERIC, true),
         XRT_K1_STAGES(XRT_K1_PLASMA, false), XRT_K1_STAGES(XRT_K1_PLASMA, true),
-        fused_trace_flat_kernel<0, kMark>, fused_trace_flat_kernel<1, kMark>};
+        fused_trace_flat_kernel<0, kMark>, fused_trace_flat_kernel<1, kMark>,
+        fused_trace_cylinder_kernel<0, kMark>, fused_trace_cylinder_kernel<1, kMark>,
+        fused_trace_dense_kernel<kMark>};
 #undef XRT_K1_STAGES
-    const bool flat = xrt_fused_flat(src, cheb, stages, curved);
+    const int build = xrt_fused_build(src, cheb, stages, shapes, dense);
     const int threads = xrt_fused_threads(src, cheb, stages);
-    XrtFusedPick<kMark> pick{kernels[flat ? 18 + stages : 6 * src + (cheb ? 3 : 0) + stages],
-                             threads, 0, 0};
-    // kStaged of xrt_fused_trace_body: the point build of stage 1 that is
-    // neither flat nor Chebyshev.
-    const bool staged_float64 = src == XRT_K1_POINT && !cheb && stages == 1 && !flat;
-    if (stages >= 1 && !staged_float64) return pick;  // float64 sums in global memory
-    const size_t bytes = (size_t)img_total * sizeof(float);
-    if (img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
-        xrt_set_smem(pick.kernel, bytes) == cudaSuccess) {
-        int staged = 0, unstaged = 0;
-        const bool costs_a_block =
-            stages == 0 &&
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&staged, pick.kernel, threads,
-                                                          bytes) == cudaSuccess &&
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&unstaged, pick.kernel, threads,
-                                                          0) == cudaSuccess &&
-            staged < unstaged;
-        if (!costs_a_block) {
-            pick.smem = bytes;
-            pick.use_smem = 1;
+    XrtFusedPick<kMark> pick{kernels[build], threads, 0, 0, 0, 0};
+    if (build == kXrtK1Cylinder || build == kXrtK1Dense) {  // kWindow
+        const int lo[2] = {0, win_lo}, n[2] = {img_total, win_hi - win_lo};
+        // A dense chain's whole image is worth one resident block.
+        const int spare[2] = {dense ? 1 : 0, 0};
+        for (int k = 0; k < 2; ++k) {
+            if (n[k] > 0 && lo[k] >= 0 && lo[k] + n[k] <= img_total &&
+                !xrt_costs_a_block(pick.kernel, threads, stages, n[k], spare[k])) {
+                pick.smem = (size_t)n[k] * sizeof(float);
+                pick.win_lo = lo[k];
+                pick.win_n = n[k];
+                break;
+            }
         }
+        return pick;
+    }
+    // kStaged of xrt_fused_trace_body: the point builds of stage 1 with a
+    // curved shape's code and without the Chebyshev stage.
+    const bool staged_float64 = build == 1 || build == kXrtK1Cylinder + 1;
+    if (stages >= 1 && !staged_float64) return pick;  // float64 sums in global memory
+    if (!xrt_costs_a_block(pick.kernel, threads, stages, img_total)) {
+        pick.smem = (size_t)img_total * sizeof(float);
+        pick.use_smem = 1;
     }
     return pick;
 }
@@ -289,10 +381,10 @@ inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int cur
 // calls it, blocks of xrt_fused_threads), with its dynamic shared bytes in
 // *dyn_smem; -1 where the query fails.
 template <bool kMark>
-inline int xrt_fused_occupancy(int src, int cheb, int stages, int curved, int img_total,
-                               int* dyn_smem) {
-    const XrtFusedPick<kMark> pick =
-        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total);
+inline int xrt_fused_occupancy(int src, int cheb, int stages, int shapes, int dense,
+                               int win_lo, int win_hi, int img_total, int* dyn_smem) {
+    const XrtFusedPick<kMark> pick = xrt_fused_pick<kMark>(src, cheb, stages, shapes, dense,
+                                                           win_lo, win_hi, img_total);
     int blocks = 0;
     if (xrt_set_smem(pick.kernel, pick.smem) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick.kernel, pick.threads,
@@ -318,8 +410,9 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                             unsigned int seed1, const int* cum, const float* table,
                             int n_bundles, long long n_per_iter,
                             unsigned long long* counts, void* images, int img_total,
-                            int full_source, int cheb, int stages, int curved,
-                            int* marks, int chunk, void* stream) {
+                            int full_source, int cheb, int stages, int shapes,
+                            int dense, int win_lo, int win_hi, int* marks, int chunk,
+                            void* stream) {
     if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
         stages < 0 || stages > 2) {
         return (int)cudaErrorInvalidValue;
@@ -334,15 +427,15 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
     if (n_total <= 0) return (int)cudaSuccess;
     const int src = cum != nullptr ? XRT_K1_PLASMA
                                    : full_source ? XRT_K1_GENERIC : XRT_K1_POINT;
-    const XrtFusedPick<kMark> pick =
-        xrt_fused_pick<kMark>(src, cheb, stages, curved, img_total);
+    const XrtFusedPick<kMark> pick = xrt_fused_pick<kMark>(src, cheb, stages, shapes, dense,
+                                                           win_lo, win_hi, img_total);
     cudaError_t err = xrt_set_smem(pick.kernel, pick.smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(pick.kernel, pick.threads, pick.smem, n_total);
     pick.kernel<<<blocks, pick.threads, pick.smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum,
         table, n_bundles, (int)n_per_iter, counts, images, img_total,
-        pick.use_smem, marks, chunk);
+        pick.use_smem, marks, chunk, pick.win_lo, pick.win_n);
     return (int)cudaGetLastError();
 }
 

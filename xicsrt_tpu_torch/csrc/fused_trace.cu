@@ -83,7 +83,14 @@
 // warp leaves the chain once its lanes are dead (trace_chain.cuh); the
 // flagship's chain of planes and spheres takes a build without the torus
 // and cylinder code, held to 5 blocks of 256 (4 with the weight and
-// bilinear stages; fused_trace_flat_kernel).
+// bilinear stages; fused_trace_flat_kernel), a chain with cylinders and no
+// torus one without the torus code (fused_trace_cylinder_kernel), and the
+// mirror chains, whose rays reach an image unthinned by a Bragg check, one
+// of planes and spheres at 5 blocks (fused_trace_dense_kernel;
+// xrt_fused_build). Where a chain focuses onto a few pixels, global
+// atomics from every warp wait on the same addresses, so those builds
+// stage one image (the window) as integer counts in shared memory where
+// the whole does not fit beside 5 blocks (XrtWindowImage).
 #include "fused_run.cuh"
 
 // fp/ip: packed parameters (n_fp floats, n_ip ints) on the device. Rays
@@ -101,10 +108,15 @@
 // (cum not null) takes the plasma's builds. aux: n_aux
 // float32 of file tables and Chebyshev terms (never null); cheb: the
 // chain's mesh stage; stages: 0, or 1 for its weight and bilinear stages,
-// 2 with the mosaic's too; curved: the chain holds a torus or a cylinder
-// (a point source at stages 0 or 1 without the Chebyshev stage takes a
-// build without their code where it holds neither). Returns
-// cudaGetLastError() of the launch.
+// 2 with the mosaic's too; shapes: the chain's curved shapes
+// (XRT_SHAPES_TORUS 1, XRT_SHAPES_CYLINDER 2: a point source at stages 0
+// or 1 without the Chebyshev stage and with no torus takes a build without
+// the torus code); dense: a chain of planes and spheres whose rays reach
+// an image unthinned takes fused_trace_dense_kernel (stages 0;
+// FusedParams.dense_images); win_lo, win_hi: the image pixels the window
+// builds stage where staging every pixel costs a resident block
+// (FusedParams.stage_window; xrt_fused_pick). Returns cudaGetLastError()
+// of the launch.
 extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                int n_ip, const float* aux, int n_aux,
                                long long n_total, long long count,
@@ -113,18 +125,22 @@ extern "C" int xrt_fused_trace(const float* fp, int n_fp, const int* ip,
                                const float* table, int n_bundles,
                                long long n_per_iter, unsigned long long* counts,
                                void* images, int img_total, int full_source,
-                               int cheb, int stages, int curved, void* stream) {
+                               int cheb, int stages, int shapes, int dense,
+                               int win_lo, int win_hi, void* stream) {
     return xrt_fused_launch<false>(fp, n_fp, ip, n_ip, aux, n_aux, n_total, count,
                                    uniforms, seed0, seed1, cum, table, n_bundles,
                                    n_per_iter, counts, images, img_total, full_source,
-                                   cheb, stages, curved, nullptr, 0, stream);
+                                   cheb, stages, shapes, dense, win_lo, win_hi, nullptr, 0,
+                                   stream);
 }
 
-// 1 where xrt_fused_trace takes fused_trace_flat_kernel, the build without
-// the torus and cylinder code (src: 0 point, 1 generic, 2 plasma; the
-// other arguments its own), else 0.
-extern "C" int xrt_fused_trace_flat(int src, int cheb, int stages, int curved) {
-    return xrt_fused_flat(src, cheb, stages, curved) ? 1 : 0;
+// The build xrt_fused_trace takes (src: 0 point, 1 generic, 2 plasma; the
+// other arguments its own), as its index in xrt_fused_pick's table: 6 src
+// + 3 cheb + stages for fused_trace_kernel, 18 + stages for
+// fused_trace_flat_kernel, 20 + stages for fused_trace_cylinder_kernel,
+// 22 for fused_trace_dense_kernel.
+extern "C" int xrt_fused_trace_build(int src, int cheb, int stages, int shapes, int dense) {
+    return xrt_fused_build(src, cheb, stages, shapes, dense);
 }
 
 // The threads of a block of the build xrt_fused_trace launches (src: 0
@@ -139,7 +155,9 @@ extern "C" int xrt_fused_trace_threads(int src, int cheb, int stages) {
 // arguments its own), by registers and the launch's shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls it),
 // and its dynamic shared bytes in *dyn_smem; -1 where the query fails.
-extern "C" int xrt_fused_trace_occupancy(int src, int cheb, int stages, int curved,
-                                         int img_total, int* dyn_smem) {
-    return xrt_fused_occupancy<false>(src, cheb, stages, curved, img_total, dyn_smem);
+extern "C" int xrt_fused_trace_occupancy(int src, int cheb, int stages, int shapes,
+                                         int dense, int win_lo, int win_hi, int img_total,
+                                         int* dyn_smem) {
+    return xrt_fused_occupancy<false>(src, cheb, stages, shapes, dense, win_lo, win_hi,
+                                      img_total, dyn_smem);
 }

@@ -24,6 +24,12 @@ __device__ __forceinline__ void xrt_count_warp(unsigned int* s_counts, int elem,
     if (lane == 0 && b) atomicAdd(s_counts + elem, (unsigned int)__popc(b));
 }
 
+// The curved shapes a build of the chain compiles (kShapes of
+// xrt_trace_chain, a set): the torus's code and the cylinder's.
+#define XRT_SHAPES_TORUS 1
+#define XRT_SHAPES_CYLINDER 2
+#define XRT_SHAPES_ALL 3
+
 // The chain's record hook (K1e, fused_history.cu): called after each
 // element with its post-element state; a hook whose kOn is set takes the
 // place of the counts and the images. XrtNoRecord, the default, compiles
@@ -47,6 +53,28 @@ struct XrtImage {
     Pixel* pix;
     __device__ __forceinline__ void add(int i, float v) const {
         atomicAdd(pix + i, (Pixel)v);
+    }
+};
+
+// K1's nearest mc image (kStages 0: every term 1.0f) with a window of its
+// pixels, [lo, lo + n), staged in the block's shared memory as integer
+// counts, and the rest in float32 pixels in global memory: the builds whose
+// chains focus their rays onto a few pixels of one image, where global
+// atomics from every warp wait on the same addresses (fused_run.cuh,
+// xrt_fused_pick). An integer add is one native shared atomic where a
+// float add is a compare-and-swap loop; the counts are flushed once a block
+// as floats, exact below 2^24 a pixel as every unit add is.
+struct XrtWindowImage {
+    float* pix;
+    unsigned int* counts = nullptr;
+    int lo = 0, n = 0;
+    __device__ __forceinline__ void add(int i, float v) const {
+        const unsigned int k = (unsigned int)(i - lo);
+        if (k < (unsigned int)n) {
+            atomicAdd(counts + k, 1u);
+        } else {
+            atomicAdd(pix + i, v);
+        }
     }
 };
 
@@ -458,9 +486,11 @@ __device__ __forceinline__ void xrt_splat(const Img& img, int base, float fx, fl
 // code 2, the table read from aux) and mirrors (interact code 2: d' = d -
 // 2 (d.n) n, no draw) are in every build.
 //
-// kCurved false compiles the plane and the sphere alone, for chains with
-// no torus or cylinder (FusedParams.curved); a build with the Chebyshev
-// stage takes every shape.
+// kShapes, a set of XRT_SHAPES_TORUS and XRT_SHAPES_CYLINDER, compiles
+// those curved shapes beside the plane and the sphere (FusedParams.shapes):
+// 0 for chains of planes and spheres, XRT_SHAPES_CYLINDER for those with
+// cylinders and no torus, so neither compiles xrt_torus_hit or
+// xrt_torus_normal; a build with the Chebyshev stage takes every shape.
 //
 // In the builds without the mosaic or the Chebyshev stage (kStages 0 and
 // 1), in mc mode, a warp with no live lane leaves the chain before an
@@ -484,14 +514,14 @@ __device__ __forceinline__ void xrt_splat(const Img& img, int base, float fx, fl
 // Returns whether the ray is alive after the last element. rec, where its
 // kOn is set, takes each element's state (1 + e, position, direction,
 // alive, weight) in place of the counts and the images.
-template <bool kCheb, int kStages, class Rec = XrtNoRecord, bool kCurved = true,
+template <bool kCheb, int kStages, class Rec = XrtNoRecord, int kShapes = XRT_SHAPES_ALL,
           class Img>
 __device__ __forceinline__ bool xrt_trace_chain(
     const float* fp, const int* ip, const float* __restrict__ aux, Draws& draw,
     float px, float py, float pz, float dx, float dy, float dz, float wl,
     bool per_ray_wl, bool alive, float wt, unsigned int* s_counts, const Img& img,
     int lane, Rec rec = Rec()) {
-    static_assert(kCurved || !kCheb, "the Chebyshev builds take every shape");
+    static_assert(kShapes == XRT_SHAPES_ALL || !kCheb, "the Chebyshev builds take every shape");
     constexpr bool kSkip = !Rec::kOn && !kCheb && kStages <= 1;
     const int n_opt = ip[0];
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
@@ -514,14 +544,14 @@ __device__ __forceinline__ bool xrt_trace_chain(
             nxv = o[9];
             nyv = o[10];
             nzv = o[11];
-        } else if (!kCurved || oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
+        } else if (kShapes == 0 || oi[0] == 1) {  // sphere of center o[12:15], radius^2 o[15]
             const SphereHit h = xrt_sphere_hit(o[12], o[13], o[14], o[15],
                                                0.0f, oi[1] != 0, px, py,
                                                pz, dx, dy, dz);
             m_int = alive && h.d2 <= o[15];
             t = h.t;
             nxv = nyv = nzv = 0.0f;
-        } else if (oi[0] == 2) {  // torus
+        } else if ((kShapes & XRT_SHAPES_TORUS) && oi[0] == 2) {  // torus
             t = xrt_torus_hit(o, px, py, pz, dx, dy, dz, alive, &m_int);
             nxv = nyv = nzv = 0.0f;
         } else if (kCheb && oi[0] == XRT_SHAPE_CHEB) {  // unit normal given
@@ -542,11 +572,11 @@ __device__ __forceinline__ bool xrt_trace_chain(
         if (oi[0] != 0 && !(kCheb && oi[0] == XRT_SHAPE_CHEB)) {
             // sphere, cylinder: towards the center or the axis; torus:
             // outward
-            if (!kCurved || oi[0] == 1) {
+            if (kShapes == 0 || oi[0] == 1) {
                 nxv = o[12] - qx;
                 nyv = o[13] - qy;
                 nzv = o[14] - qz;
-            } else if (oi[0] == 2) {
+            } else if ((kShapes & XRT_SHAPES_TORUS) && oi[0] == 2) {
                 xrt_torus_normal(o, qx, qy, qz, nxv, nyv, nzv);
             } else {
                 const float tcx = o[12] - qx, tcy = o[13] - qy, tcz = o[14] - qz;

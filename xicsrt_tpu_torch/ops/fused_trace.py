@@ -616,13 +616,48 @@ class FusedParams:
         return bool(self.shape_mask >> _SHAPES["cheb"] & 1)
 
     @property
-    def curved(self) -> bool:
-        """The chain holds a torus or a cylinder. K1's point-source builds
-        without the Chebyshev and mosaic stages come without their code,
-        for the chains of planes and spheres that do not (the flagship's;
-        ``xrt_fused_trace_flat`` says which build the launcher picks)."""
-        return bool(self.shape_mask >> _SHAPES["torus"] & 1
-                    or self.shape_mask >> _SHAPES["cylinder"] & 1)
+    def shapes(self) -> int:
+        """The chain's curved shapes, the set K1 compiles them by: 1 a
+        torus, 2 a cylinder (``XRT_SHAPES_*``, ``csrc/trace_chain.cuh``).
+        K1's point-source builds without the Chebyshev and mosaic stages
+        compile no torus: for a chain with none, the plane and the sphere
+        alone (the flagship's), or those and the cylinder
+        (``xrt_fused_trace_build`` says which build the launcher picks)."""
+        return (self.shape_mask >> _SHAPES["torus"] & 1
+                | (self.shape_mask >> _SHAPES["cylinder"] & 1) << 1)
+
+    def _images(self) -> list:
+        """(first pixel, pixels, thinned) of each imaging element in chain
+        order; thinned: a Bragg or mosaic crystal at or before it keeps a
+        few of its rays (the flagship's 1.3 %)."""
+        out, thinned = [], False
+        for e in range(self.n_optics):
+            oi = self.ip_host[HDR_I + e * OPT_I: HDR_I + (e + 1) * OPT_I]
+            thinned = thinned or oi[2] in (_INTERACT["crystal"], _INTERACT["mosaic"])
+            if oi[7] >= 0:
+                out.append((int(oi[7]), int(oi[8] * oi[9]), thinned))
+        return out
+
+    @property
+    def dense_images(self) -> bool:
+        """An mc run with nearest images and no mosaic whose rays reach an
+        image that no Bragg or mosaic crystal at or before it thins (the
+        mirror chains): K1 takes, for a point source's chain of planes and
+        spheres, its build that stages a window of the images
+        (``fused_trace_dense_kernel``), not K1a's."""
+        return self.stages == 0 and any(not t for _, _, t in self._images())
+
+    @property
+    def stage_window(self) -> tuple:
+        """The pixels [lo, hi) that K1's window builds stage in shared memory
+        as integer counts where the whole image does not fit beside their
+        blocks: the last image no Bragg or mosaic crystal thins, else the
+        last image, where a spectrometer's optics focus its rays onto a few
+        pixels; (0, 0) without an image."""
+        images = self._images()
+        dense = [(lo, n) for lo, n, thinned in images if not thinned]
+        lo, n = (dense or [(lo, n) for lo, n, _ in images] or [(0, 0)])[-1]
+        return lo, lo + n
 
     @property
     def stages(self) -> int:
@@ -1914,7 +1949,7 @@ def fused_run_cuda(fparams: FusedParams, n_total: int, count: int,
             None if table is None else table.data_ptr(), n_bundles, n_per_iter,
             counts.data_ptr(), sums.data_ptr(), fparams.img_total,
             int(fparams.full_source), int(fparams.cheb), fparams.stages,
-            int(fparams.curved))
+            fparams.shapes, int(fparams.dense_images), *fparams.stage_window)
     marks, probed = _found_marks(fparams, n_total, count, history, uniforms, seed, bundles,
                                  history_probe_cuda)
     lib = native.library()

@@ -44,24 +44,27 @@ _SIGNATURES = {
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P,
     ],
     "xrt_fused_trace_marked": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P, ctypes.c_int, _P,
     ],
     "xrt_fused_trace_flagged": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P, ctypes.c_int, _P,
     ],
-    "xrt_fused_trace_occupancy": [ctypes.c_int] * 5 + [_P],
-    "xrt_fused_trace_flat": [ctypes.c_int] * 4,
+    "xrt_fused_trace_occupancy": [ctypes.c_int] * 8 + [_P],
+    "xrt_fused_trace_build": [ctypes.c_int] * 5,
     "xrt_fused_trace_threads": [ctypes.c_int] * 3,
-    "xrt_fused_trace_marked_occupancy": [ctypes.c_int] * 5 + [_P],
+    "xrt_fused_trace_marked_occupancy": [ctypes.c_int] * 8 + [_P],
     "xrt_history_probe": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
