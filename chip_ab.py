@@ -52,7 +52,10 @@ templates:
   undone (the cylinder's build without the torus code, the mirror chains'
   build, the staged window, its integer counts, the cylinder's 5 blocks, a
   dense chain's whole image at one block's cost) or tried where it was
-  dropped (a warp's peers on a pixel adding once).
+  dropped (a warp's peers on a pixel adding once);
+- ``head_image_first``, ``head_fp_first`` (``HEAD_LEADS``): K1's dynamic
+  shared memory in another order than the checkout's (counters, ip, fp,
+  then the staged image): the image behind the counters, or fp before ip.
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
 K1e and K3 alone, for the leads of the trace kernels; ``--stage1-only``
@@ -124,6 +127,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 AB_DIR = os.path.join(ROOT, "build", "chip_ab")
+# The flagship's packed buffers (floats, ints): the head a tree whose
+# kernels keep them in dynamic shared memory counts at the flagship's launch.
+FLAGSHIP_FP_IP = (168, 70)
 
 # Files of the checkout, and what a layout puts in place of their lines.
 ALL_IN = {
@@ -792,9 +798,28 @@ K1C_LEADS = {
                              _WINDOW_IMAGE: _WINDOW_IMAGE + _ADD_N,
                              _ZERO_TERMS: _MATCH + _ZERO_TERMS}},
 }
+# The order of K1's dynamic shared memory: the staged image or window at a
+# fixed offset behind the counters, ip and fp after it (the checkout: ip
+# and fp first, the image behind them).
+HEAD_LEADS = {"head_image_first": {_RUN: {
+    "    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);\n":
+    "    float* const s_img = s_dyn + XRT_HEAD_COUNTS;\n"
+    "    int* const ip = reinterpret_cast<int*>(\n"
+    "        s_img + xrt_round4(kWindow ? win_n : (use_smem ? img_total : 0)));\n",
+    "    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);\n":
+    "    float* const fp = reinterpret_cast<float*>(ip) + xrt_round4(n_ip);\n",
+    "    float* const s_img = s_dyn + xrt_head_floats(n_fp, n_ip);\n": ""}},
+    # fp at the fixed offset behind the counters, ip after it.
+    "head_fp_first": {_RUN: {
+        "    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);\n":
+        "    float* const fp_first = s_dyn + XRT_HEAD_COUNTS;\n"
+        "    int* const ip = reinterpret_cast<int*>(fp_first + xrt_round4(n_fp));\n",
+        "    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);\n":
+        "    float* const fp = fp_first;\n"}}}
+
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
            **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
-           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS, **K1C_LEADS}
+           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS, **K1C_LEADS, **HEAD_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -912,7 +937,10 @@ def launch_blocks(lib, name: str, regs_blocks: int, static: int, k1_floats: int,
         occupancy = ((src, cheb, stages, shapes, dense, 0, 0)
                      if hasattr(lib, "xrt_fused_trace_build")
                      else (src, cheb, stages, int(shapes != 0)))
-        blocks = fn(*occupancy, k1_floats, ctypes.byref(dyn))
+        # A tree whose kernels keep the packed buffers in the head of their
+        # dynamic shared memory counts the flagship's head too.
+        head = FLAGSHIP_FP_IP if hasattr(lib, "xrt_head_floats_of") else ()
+        blocks = fn(*occupancy, k1_floats, *head, ctypes.byref(dyn))
         threads = (lib.xrt_fused_trace_threads(src, cheb, stages)
                    if hasattr(lib, "xrt_fused_trace_threads") else 256)
         return blocks, dyn.value, threads

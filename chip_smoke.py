@@ -229,7 +229,18 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     ``make_fused_differentiable`` (K5f, K5b) at 2^24 rays, its images and
     vjp vector against the sums of its shards' own, and
     ``make_differentiable``'s autograd gradient at 2^20 rays against its
-    shards' sum.
+    shards' sum;
+49. the long optic chains (``tools/bench_scenarios.baffle_config``: the
+    flagship behind aperture plates): K1 on ``baffle127`` (127 optics) in
+    mc and weight mode and with bilinear images, K1e 'found' and K3 on it
+    against their twins at 2^18 rays, both RNG modes; ``baffle127`` at 2^26
+    x 4 through ``raytrace`` on the fused engine, with and without 'found'
+    history, against the eager engine at 2^22 x 4; K1's and K3's ms per
+    2^22 rays beside their bounds over the rays alive into each optic; K5f
+    and K5b on ``baffle42`` (42 optics, K5b's rows in device memory)
+    against their twins at 2^18 rays, one ``make_fused_differentiable``
+    step at 2^22 x 4 and their times per 2^22 rays, and K5b on the
+    flagship with its rows in shared and in device memory, in turns.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -1299,7 +1310,8 @@ def phase_k1_cylinder(smi, ft, engine, raytrace, k1a) -> dict:
         dyn = ctypes.c_int(0)
         blocks = native.library().xrt_fused_trace_occupancy(
             0, 0, fparams.stages, fparams.shapes, int(fparams.dense_images),
-            *fparams.stage_window, fparams.img_total, ctypes.byref(dyn))
+            *fparams.stage_window, fparams.img_total, fparams.fp.numel(),
+            fparams.ip.numel(), ctypes.byref(dyn))
         log(f"phase 18 K1 cylinder {mode}: the launcher picks {build} ({want} wanted), "
             f"{blocks} blocks of 256 resident at its launch ({fparams.img_total} image "
             f"floats, window {fparams.stage_window}, {dyn.value} bytes of dynamic shared "
@@ -4174,6 +4186,95 @@ def phase_roofline(smi) -> dict:
 # K1's builds past fused_trace_kernel's 18 in the launcher's table
 # (xrt_fused_trace_build, csrc/fused_run.cuh): each kernel and its
 # template argument.
+# The optics of each K1 build's long chain (``long_chain_builds``): one
+# past the 16 the kernels' static buffers held.
+LONG_CHAIN_OPTICS = 17
+
+
+def long_chain_builds(n) -> dict:
+    """Each K1 build's chain behind as many baffle plates as make it
+    ``LONG_CHAIN_OPTICS`` optics long (``tools/bench_scenarios.
+    with_baffles``), ``n`` rays (a plasma's: ``n``
+    expected photons): {label: (config, the build the launcher takes)}. The
+    flagship in mc, weight and bilinear mode; the mirror flagship (a window
+    of its images staged); the cylinder crystal in mc and weight mode;
+    convex toroidal crystals without their Bragg check (the build with
+    every shape); phase 24's generic source; ``plasma_torus``; phase 30's
+    sphere mesh (its curve widened to 2 mrad); ``mosaic15``."""
+    cls, kw = MESH_CRYSTALS["mesh_sphere"]
+    mirrors = mirror_configs(n, 1, "fused")
+    chains = {
+        "flat": (flagship(n, 1, engine="fused"), "fused_trace_flat_kernel<0>"),
+        "flat weight": (flagship(n, 1, engine="fused", interact_mode="weight"),
+                        "fused_trace_flat_kernel<1>"),
+        "flat bilinear": (flagship(n, 1, engine="fused", image_mode="bilinear"),
+                          "fused_trace_flat_kernel<1>"),
+        "dense window": (mirrors["flagship_no_check"], "fused_trace_dense_kernel"),
+        "cylinder": (cylinder_config(n, 1, "fused"), "fused_trace_cylinder_kernel<0>"),
+        "cylinder weight": (cylinder_mode_config("weight", n),
+                            "fused_trace_cylinder_kernel<1>"),
+        "torus": (mirrors["torus_no_check"], "fused_trace_kernel<point, kStages 0>"),
+        "generic": (source_matrix_config(n, 1, "fused"),
+                    "fused_trace_kernel<generic, kStages 0>"),
+        "plasma": (plasma_config(n, 1, engine="fused"), "fused_trace_kernel<plasma, kStages 0>"),
+        "chebyshev": (mesh_config(n, 1, "fused", cls, **dict(kw, rocking_fwhm=2e-3)),
+                      "fused_trace_kernel<point, Chebyshev, kStages 0>"),
+        "mosaic": (mosaic15_config(n, 1, "fused"), "fused_trace_kernel<point, kStages 2>"),
+    }
+    return {label: (BS.with_baffles(cfg, LONG_CHAIN_OPTICS - len(cfg["optics"])), build)
+            for label, (cfg, build) in chains.items()}
+
+
+def long_chain_against_twins(ft, engine, cfg, label, seed) -> float:
+    """K1 (in the build its chain takes) on ``cfg``'s rays, K1e 'found' and
+    K3 on one eager iteration's rays, each against its twin in both RNG
+    modes as ``twin_equal`` and ``history_equal`` hold them: 0 rays and 0
+    pixels apart in mc mode. Returns the largest difference."""
+    pipe = engine.Pipeline(cfg, device="cuda")
+    spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+    err = k1_build_against_twin(ft, engine, cfg, f"{label} K1", seed)
+    err = max(err, k1_build_against_twin(ft, engine, cfg, f"{label} K1e 'found'", seed,
+                                         history=spec))
+    k3p = k3_pack(ft, pipe)
+    rays = eager_rays(pipe, seed)
+    m = rays.mask.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    uniforms = torch.rand((k3p.n_draws, m), generator=gen, device="cuda")
+    args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    weight = {"weight": rays.weight} if k3p.weight else {}
+    for rng, kwargs in (("input", {"uniforms": uniforms}), ("hw", {"seed": (seed, 5)})):
+        err = max(err, twin_equal(ft.fused_trace_run_cuda(*args, **kwargs, **weight),
+                                  ft.fused_trace_run_plain(*args, **kwargs, **weight,
+                                                           terms=True),
+                                  f"{label} K3 rng={rng} ({m} rays)", k3p))
+    return err
+
+
+def k5_against_twins(fg, static, pvec, n, lam, g, label, **kwargs) -> tuple:
+    """K5f's images and K5b's vjp against the float32 twins: the images
+    within 1e-4 of the twin's total and 1e-3 of its largest pixel, the vjp
+    within rtol 1e-3, atol 1e-5 of its largest slot. Returns (the images'
+    largest difference over the largest pixel, the vjp's over the largest
+    slot, the vjp)."""
+    image = fg.fused_grad_forward_cuda(static, pvec, n, lam, **kwargs)
+    twin = fg.fused_grad_forward_plain(static, pvec, n, lam, **kwargs)
+    top = twin.abs().max().item()
+    img_err = (image - twin).abs().max().item() / top
+    if not (twin.sum().item() > 0 and img_err <= 1e-3
+            and abs(image.sum().item() - twin.sum().item()) <= 1e-4 * twin.sum().item()):
+        raise AssertionError(f"{label}: K5f differs from its twin ({img_err:.3g} of the "
+                             f"largest pixel)")
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, **kwargs)
+    grad_twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, **kwargs)
+    scale = grad_twin.abs().max().item()
+    torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale,
+                               msg=lambda m: f"{label}: K5b differs from its twin: {m}")
+    grad_err = (grad - grad_twin).abs().max().item() / scale
+    log(f"{label}: K5f {img_err:.3g} of the largest pixel from its twin, K5b "
+        f"{grad_err:.3g} of the largest slot")
+    return img_err, grad_err, grad
+
+
 K1_POINT_BUILDS = {18: "fused_trace_flat_kernel<0>", 19: "fused_trace_flat_kernel<1>",
                    20: "fused_trace_cylinder_kernel<0>", 21: "fused_trace_cylinder_kernel<1>",
                    22: "fused_trace_dense_kernel"}
@@ -4269,6 +4370,194 @@ def phase_k1_source_bounds(smi, rates: dict, timed: dict) -> dict:
     return out
 
 
+def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
+    """Phase 49: the long optic chains (``tools/bench_scenarios.
+    baffle_config``). K1 on ``baffle127`` (127 optics) in mc and weight
+    mode and with bilinear images, K1e 'found' and K3 on it, against their
+    twins at 2^18 rays in both RNG modes; ``baffle127`` at 2^26 x 4 through
+    ``raytrace(config, device='cuda')`` on the fused engine (K1 counted
+    around the run) against the eager engine at 2^22 x 4, and with 'found'
+    history; K1's ms per 2^22 rays beside its bound over the rays alive
+    into each optic; K3 through ``build_fused_trace_run`` at 2^22 rays
+    (counted around the run) and its time on those rays; K5f and K5b on
+    ``baffle42`` (42 optics: K5b's rows in device memory) against their
+    twins at 2^18 rays, one forward and vjp step of
+    ``make_fused_differentiable`` at 2^22 x 4 (counted around it), and
+    their times per 2^22 rays; K5b on the flagship with its rows in shared
+    and in device memory, in turns."""
+    from xicsrt_tpu_torch.gradients import make_fused_differentiable
+    from xicsrt_tpu_torch.ops import native
+    from xicsrt_tpu_torch.tools.roofline import optic_k1_ops
+
+    n = 1 << 18
+    k1_err = k3_err = 0.0
+    for mode in ("mc", "weight", "bilinear"):
+        cfg = BS.baffle_config(124, n, 1, engine="fused", **WEIGHT_MODES.get(mode, {}))
+        if mode == "mc":  # K1, K1e 'found' and K3
+            k1_err = long_chain_against_twins(ft, engine, cfg, "phase 49 baffle127", 49)
+        else:
+            k1_err = max(k1_err, k1_build_against_twin(
+                ft, engine, cfg, f"phase 49 baffle127 K1 {mode}", 49))
+
+    # The main path at full width, counters read around each call.
+    budget = 2**26 * 4
+    big = BS.baffle_config(124, 2**26, 4, engine="fused")
+    ft.fused_run_cuda.launches = 0
+    fused = raytrace(copy.deepcopy(big), device="cuda")
+    k1_launches = ft.fused_run_cuda.launches
+    if k1_launches <= 0:
+        raise AssertionError("phase 49: baffle127's fused run did not launch K1")
+    meta = {k: v["num_out"] for k, v in fused["total"]["meta"].items()}
+    if meta["source"] != budget or len(meta) != 128:
+        raise AssertionError(f"phase 49: baffle127's source {meta['source']} of {budget}, "
+                             f"{len(meta)} elements")
+    counts = list(meta.values())
+    if any(b > a for a, b in zip(counts, counts[1:])):
+        raise AssertionError("phase 49: an element of baffle127 counts more than the last")
+    eager = raytrace(BS.baffle_config(124, 2**22, 4, engine="xla", keep_history=False),
+                     device="cuda")
+    engines_agree(fused, eager, "phase 49 baffle127 fused at 2^26 x 4 and eager at 2^22 x 4",
+                  (budget, 2**24))
+    fused_ms = cuda_ms(lambda: raytrace(copy.deepcopy(big), device="cuda"), 3)
+    found_cfg = BS.baffle_config(124, 2**26, 4, engine="fused", keep_history="found")
+    pipe = engine.Pipeline(found_cfg, device="cuda")
+    spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+    ft.fused_run_cuda.launches = 0
+    found = raytrace(copy.deepcopy(found_cfg), device="cuda")
+    found_launches = ft.fused_run_cuda.launches
+    n_found = check_found(found, pipe, spec, "phase 49 baffle127 'found'")
+    totals_equal(found, fused, "phase 49 baffle127 'found' against the call without history")
+    found_ms = cuda_ms(lambda: raytrace(copy.deepcopy(found_cfg), device="cuda"), 3)
+    log(f"phase 49 baffle127 at 2^26 x 4 on {smi}: fused {budget / fused_ms * 1e3:.4g} rays/s "
+        f"({fused_ms:.2f} ms a call), K1 launches {k1_launches}; 'found' "
+        f"{budget / found_ms * 1e3:.4g} rays/s ({found_ms:.2f} ms), K1 launches "
+        f"{found_launches}, {n_found} found rays; detector {meta['detector']} "
+        f"({meta['detector'] / budget:.6f} of the rays), the first plate kept "
+        f"{meta['baffle000']}")
+
+    n = 1 << 22
+    fparams = k1_pack(engine.Pipeline(BS.baffle_config(124, n, 1, engine="fused"),
+                                      device="cuda"))
+    k1 = k1_timing(ft, fparams, n, smi, "K1 on baffle127 (127 optics)", "49")
+    head = native.library().xrt_head_floats_of(fparams.fp.numel(), fparams.ip.numel())
+    log(f"phase 49 baffle127's build {k1_build_name(fparams)}, head {4 * head} bytes "
+        f"({fparams.fp.numel()} floats, {fparams.ip.numel()} ints)")
+
+    # K3 behind the eager source, counted around one run of its runner.
+    k3_cfg = BS.baffle_config(124, n, 1, engine="fused")
+    k3_pipe = engine.Pipeline(k3_cfg, device="cuda")
+    run = ft.build_fused_trace_run(k3_pipe)
+    ft.fused_trace_run_cuda.launches = 0
+    out = run(k3_pipe.params, torch.Generator(device="cuda").manual_seed(49))
+    k3_launches = ft.fused_trace_run_cuda.launches
+    k3_meta = [int(v) for v in out["meta"].values()]
+    if k3_launches <= 0 or k3_meta[0] != n or k3_meta[-1] <= 0:
+        raise AssertionError(f"phase 49: K3's run on baffle127: launches {k3_launches}, "
+                             f"meta {k3_meta[:2]} ... {k3_meta[-2:]}")
+    k3p = k3_pack(ft, k3_pipe)
+    rays = eager_rays(k3_pipe, 50)
+    args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+    ck, ik = ft.fused_trace_run_cuda(*args, seed=(1, 2))
+    cp, iq = ft.fused_trace_run_plain(*args, seed=(1, 2))
+    k3_err = twin_equal((ck, ik), (cp, iq), "phase 49 K3 on baffle127's 2^22 eager rays")
+    k3_ms = cuda_ms(lambda: ft.fused_trace_run_cuda(*args, seed=(1, 2)), 20)
+    k3_plain_ms = cuda_ms(lambda: ft.fused_trace_run_plain(*args, seed=(1, 2)), 2)
+    alive_into = ck[:k3p.n_optics].tolist()
+    k3_bytes = (29 * n + packed_bytes(k3p.fp, k3p.ip) + k3p.img_total * 4
+                + 8 * (1 + k3p.n_optics))
+    k3_bound = bound(k3_bytes, sum(o * r for o, r in zip(optic_k1_ops(k3p), alive_into)))
+    k3_bound_flat = bound(k3_bytes, chain_k1_ops(k3p) * n)
+    log(f"phase 49 timings on {smi}: K3 on baffle127 {k3_ms:.4f} ms vs twin "
+        f"{k3_plain_ms:.4f} ms ({n} rays, Philox); bound {k3_bound[0]:.4f} ms "
+        f"({k3_bound[1]}, the rays alive into each optic; flat {k3_bound_flat[0]:.4f} ms)")
+
+    # K5f and K5b on baffle42.
+    n = 1 << 18
+    pipe = engine.Pipeline(BS.baffle_config(39, n, 1, interact_mode="weight",
+                                            image_mode="bilinear"), device="cuda")
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam = spec["static"], spec["lam"]
+    pvec = pack(pipe.params).detach()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    uniforms = torch.rand((static.n_draws, n), generator=gen, device="cuda")
+    g = torch.randn(static.img_total, device="cuda", generator=gen)
+    k5_err = [0.0, 0.0]
+    for kwargs in ({"seed": (8, 9)}, {"uniforms": uniforms}):
+        e_f, e_b, _ = k5_against_twins(fg, static, pvec, n, lam, g,
+                                       f"phase 49 baffle42 {list(kwargs)[0]}", **kwargs)
+        k5_err = [max(k5_err[0], e_f), max(k5_err[1], e_b)]
+    layout = (ctypes.c_longlong * 4)()
+    native.check(native.library().xrt_fused_grad_bwd_layout(
+        1 << 22, static.img_total, static.fp.numel(), static.ip.numel(), pvec.numel(),
+        static.n_optics, fg._variant(static), 0, layout), "xrt_fused_grad_bwd_layout")
+    fg.fused_grad_forward_cuda.launches = 0
+    fg.fused_grad_vjp_cuda.launches = 0
+    forward, vjp, pack, gpipe = make_fused_differentiable(
+        BS.baffle_config(39, 2**22, 4, interact_mode="weight", image_mode="bilinear"),
+        device="cuda")
+    pvec0 = pack(gpipe.params).detach()
+    images = forward(pvec0, 42)["image"]
+    gvec = vjp(pvec0, 42, {k: torch.ones_like(v) for k, v in images.items()})
+    torch.cuda.synchronize()
+    k5_launches = (fg.fused_grad_forward_cuda.launches, fg.fused_grad_vjp_cuda.launches)
+    if k5_launches != (1, 1):
+        raise AssertionError(f"phase 49: baffle42's step launched K5f, K5b {k5_launches}")
+    if not (all(torch.isfinite(v).all() and v.sum() > 0 for v in images.values())
+            and torch.isfinite(gvec).all() and gvec.abs().max() > 0):
+        raise AssertionError("phase 49: baffle42's step gave bad images or gradients")
+    step_ms = cuda_ms(lambda: vjp(pvec0, 3, forward(pvec0, 3)["image"]), 3)
+    n = 1 << 22
+    _, _, pack22, spec22 = fg.build_fused_diff(engine.Pipeline(
+        BS.baffle_config(39, n, 1, interact_mode="weight", image_mode="bilinear"),
+        device="cuda"))
+    st22, lam22 = spec22["static"], spec22["lam"]
+    pv22 = pack22(gpipe.params).detach()
+    g22 = torch.randn(st22.img_total, device="cuda", generator=gen)
+    k5f_ms = cuda_ms(lambda: fg.fused_grad_forward_cuda(st22, pv22, n, lam22, seed=(1, 2)), 10)
+    k5b_ms = cuda_ms(lambda: fg.fused_grad_vjp_cuda(st22, pv22, n, lam22, g22, seed=(1, 2)), 5)
+    k5f_plain_ms = cuda_ms(lambda: fg.fused_grad_forward_plain(
+        st22, pv22, n, lam22, seed=(1, 2), chunk=1 << 20), 1)
+    k5b_plain_ms = cuda_ms(lambda: fg.fused_grad_vjp_plain(
+        st22, pv22, n, lam22, g22, seed=(1, 2), chunk=1 << 20), 1)
+    k5_bytes = packed_bytes(st22.fp, st22.ip, pv22) + st22.img_total * 4
+    k5f_bound = bound(k5_bytes, k5_ops(st22, False) * n)
+    k5b_bound = bound(k5_bytes + pv22.numel() * 4, k5_ops(st22, True) * n)
+    rows_bytes = 4 * int(layout[0]) * int(layout[2])
+    # What the rows in device memory cost where the shared rows fit: K5b
+    # on the flagship's 2^22 rays in both layouts, in turns.
+    fl_pipe = engine.Pipeline(grad_flagship(n, 1), device="cuda")
+    _, _, fl_pack, fl_spec = fg.build_fused_diff(fl_pipe)
+    fl_st, fl_lam = fl_spec["static"], fl_spec["lam"]
+    fl_pv = fl_pack(fl_pipe.params).detach()
+    fl_g = torch.randn(fl_st.img_total, device="cuda", generator=gen)
+    fl_ms = {False: [], True: []}
+    for rows_global in (False, True, True, False):
+        fl_ms[rows_global].append(cuda_ms(lambda: fg.fused_grad_vjp_cuda(
+            fl_st, fl_pv, n, fl_lam, fl_g, seed=(1, 2), global_rows=rows_global), 20))
+    log(f"phase 49 K5b on the flagship's 2^22 rays on {smi}: rows in shared memory "
+        f"{fl_ms[False][0]:.4f}, {fl_ms[False][1]:.4f} ms; in device memory "
+        f"{fl_ms[True][0]:.4f}, {fl_ms[True][1]:.4f} ms (in turns)")
+    log(f"phase 49 timings on {smi}: K5f on baffle42 {k5f_ms:.4f} ms vs twin "
+        f"{k5f_plain_ms:.4f} ms, bound {k5f_bound[0]:.4f} ms ({k5f_bound[1]}); K5b "
+        f"{k5b_ms:.4f} ms vs twin {k5b_plain_ms:.4f} ms, bound {k5b_bound[0]:.4f} ms "
+        f"({k5b_bound[1]}; one forward and one adjoint a ray, where K5b recomputes "
+        f"{42 * 43 // 2} optic forwards a ray); K5b's layout at 2^22 rays: {layout[0]} "
+        f"blocks of {layout[1]} threads, rows in device memory {rows_bytes} bytes "
+        f"({layout[2]} floats a block), {layout[3]} bytes of dynamic shared memory; "
+        f"forward+vjp step {2**24 / step_ms * 1e3:.4g} rays/s ({step_ms:.2f} ms for 2^24 "
+        f"rays); launches K5f {k5_launches[0]}, K5b {k5_launches[1]}")
+    return {"k1": dict(k1, launches=k1_launches, err=k1_err, rays_per_s=budget / fused_ms * 1e3,
+                       found_rays_per_s=budget / found_ms * 1e3, found_launches=found_launches),
+            "k3": {"launches": k3_launches, "err": k3_err, "ms": k3_ms,
+                   "plain_ms": k3_plain_ms, "bound": k3_bound, "bound_flat": k3_bound_flat},
+            "k5f": {"launches": k5_launches[0], "err": k5_err[0], "ms": k5f_ms,
+                    "plain_ms": k5f_plain_ms, "bound": k5f_bound},
+            "k5b": {"launches": k5_launches[1], "err": k5_err[1], "ms": k5b_ms,
+                    "plain_ms": k5b_plain_ms, "bound": k5b_bound, "rows_bytes": rows_bytes,
+                    "step_ms_2_24": step_ms, "flagship_ms_shared_rows": min(fl_ms[False]),
+                    "flagship_ms_device_rows": min(fl_ms[True])}}
+
+
 def ptxas_entries(report: str, pattern: str) -> list:
     """(name, registers, spill store bytes, spill load bytes, stack frame
     bytes) of each kernel in ptxas's report whose mangled name matches the
@@ -4336,10 +4625,12 @@ def k5_variants(report: str, kernel: str) -> list:
     report."""
     out = []
     for args, regs, stores, loads, frame in ptxas_entries(report, kernel + r"(I\w+?E)E"):
-        torus, cylinder, source, mosaic = (int(x) for x in re.findall(r"L[bi](\d+)E", args))
+        # K5b's fifth argument: its rows in device memory (kGlobal).
+        torus, cylinder, source, mosaic, *rows = (
+            int(x) for x in re.findall(r"L[bi](\d+)E", args))
         variant = (torus | (cylinder << 1) | (source << 2)) + 12 * mosaic
         name = (K5B_SOURCES[source] + " +torus" * torus + " +cylinder" * cylinder
-                + " +mosaic" * mosaic)
+                + " +mosaic" * mosaic + ", rows in device memory" * bool(rows and rows[0]))
         out.append((variant, name, regs, stores, loads, frame))
     return sorted(out)
 
@@ -4353,16 +4644,22 @@ def phase_registers(native) -> None:
     it: K1 at the flagship's images, K2 at a launch whose largest image is
     100 x 100 or 100 x 50) and the smaller of the two; a K5f, K5b, K1 or K3
     build that spills fails."""
+    from xicsrt_tpu_torch import engine
+
     report = native.ptxas_report()
     lib = native.library()
     spilled = []
+    # The flagship's packed buffers: the head of every launch below.
+    fl = k1_pack(engine.Pipeline(flagship(1 << 10, 1, engine="fused"), device="cuda"))
+    n_fp, n_ip = fl.fp.numel(), fl.ip.numel()
     for variant, name, regs, stores, loads, frame in k5_variants(
             report, r"fused_grad_fwd_kernel(?:_64)?"):
-        threads = [lib.xrt_fused_grad_fwd_threads(variant, img) for img in K5F_IMAGES]
+        threads = [lib.xrt_fused_grad_fwd_threads(variant, img, n_fp, n_ip)
+                   for img in K5F_IMAGES]
         log(f"phase 2 K5f variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
             f"bytes spilled (stores / loads), {frame} bytes stack frame, "
             f"{threads[0]} / {threads[1]} threads a block for images of "
-            f"{K5F_IMAGES[0]} / {K5F_IMAGES[1]} floats, "
+            f"{K5F_IMAGES[0]} / {K5F_IMAGES[1]} floats behind the flagship's head, "
             f"{resident_warps(regs, threads[0])} warps a multiprocessor by registers")
         if stores or loads:
             spilled.append(f"K5f {name}")
@@ -4385,7 +4682,7 @@ def phase_registers(native) -> None:
                      else lib.xrt_fused_trace_occupancy)
         dyn = ctypes.c_int(0)
         blocks = occupancy(src, cheb, stages, shapes, dense, 0, 0, FLAGSHIP_IMG_FLOATS,
-                           ctypes.byref(dyn))
+                           n_fp, n_ip, ctypes.byref(dyn))
         threads = lib.xrt_fused_trace_threads(src, cheb, stages)
         by_regs, at_launch = resident_warps(regs, threads), blocks * threads // 32
         log(f"phase 2 K1 build {name}: {regs} registers, {stores} / {loads} bytes "
@@ -4677,6 +4974,8 @@ def main() -> int:
                             plasma["example03_meta"])
     ranks = phase_ranks(smi, engine, sharded["flagship"])
     sharded_grad = phase_sharded_gradients(fg)
+    # Phase 49: the long optic chains, counters read around each path.
+    long_chains = phase_long_chains(smi, ft, fg, engine, xicsrt_tpu_torch.raytrace)
     unwanted = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     if unwanted:
         raise AssertionError(f"chip_smoke imported {unwanted}")
@@ -4828,6 +5127,30 @@ def main() -> int:
          "library_ms_select": k1e["select_library_ms"], "split_ms": k1e["split_ms"],
          "sort_history_span_ms": k1e["spans"].get("sort_history"),
          "raytrace_run_span_ms": k1e["spans"].get("raytrace_run")},
+    ]
+    k1l, k3l, k5fl, k5bl = (long_chains[k] for k in ("k1", "k3", "k5f", "k5b"))
+    kernels += [
+        {**row("fused_run_cuda baffle127 (K1, 127 optics)", trace_cu,
+               "xicsrt_tpu/ops/fused_trace.py:1343 (127 optics :1296)", k1l["launches"],
+               k1l["err"], k1l["ms"], k1l["plain_ms"], k1l["bound"],
+               bound_flat=k1l["bound_flat"]),
+         "rays_per_s_2_28": k1l["rays_per_s"], "found_rays_per_s_2_28": k1l["found_rays_per_s"],
+         "found_launches": k1l["found_launches"]},
+        {**row("fused_trace_run_cuda baffle127 (K3, 127 optics)",
+               "xicsrt_tpu_torch/csrc/trace_only.cu",
+               "xicsrt_tpu/ops/fused_trace.py:2081 (pallas_call :2156)", k3l["launches"],
+               k3l["err"], k3l["ms"], k3l["plain_ms"], k3l["bound"]),
+         "bound_ms_flat": k3l["bound_flat"][0]},
+        row("fused_grad_forward_cuda baffle42 (K5f, 42 optics)", grad_cu,
+            "xicsrt_tpu/ops/fused_grad.py:1727 (42 optics :1709, pallas_call :1906)",
+            k5fl["launches"], k5fl["err"], k5fl["ms"], k5fl["plain_ms"], k5fl["bound"]),
+        {**row("fused_grad_vjp_cuda baffle42 (K5b, 42 optics, rows in device memory)",
+               "xicsrt_tpu_torch/csrc/fused_grad_cols.cu",
+               "xicsrt_tpu/ops/fused_grad.py:1727 (42 optics :1709, pallas_call :1921)",
+               k5bl["launches"], k5bl["err"], k5bl["ms"], k5bl["plain_ms"], k5bl["bound"]),
+         "rows_bytes_2_22": k5bl["rows_bytes"], "step_ms_2_24": k5bl["step_ms_2_24"],
+         "flagship_ms_shared_rows": k5bl["flagship_ms_shared_rows"],
+         "flagship_ms_device_rows": k5bl["flagship_ms_device_rows"]},
     ]
     probes_cu = "xicsrt_tpu_torch/csrc/roofline_probes.cu"
     rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates (R2's: phase 44's)

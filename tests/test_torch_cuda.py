@@ -7,6 +7,8 @@ no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -266,8 +268,8 @@ def test_fused_grad_variants_match_twins(cuda_device, monkeypatch, kind, variant
         assert own % 12 >> 2 == variant % 12 >> 2
         assert own % 4 & variant % 4 == own % 4 and (own < 12 or variant >= 12)
         monkeypatch.setattr(fg, "_variant", lambda st: variant)
-    threads = native.library().xrt_fused_grad_fwd_threads(fg._variant(static),
-                                                          static.img_total)
+    threads = native.library().xrt_fused_grad_fwd_threads(
+        fg._variant(static), static.img_total, static.fp.numel(), static.ip.numel())
     assert threads >= 256 and n % threads
     if name == "example08":
         assert threads > 256
@@ -867,10 +869,12 @@ def test_dense_images_of_whole_warps_on_one_pixel(cuda_device, image, rng):
     assert chip_smoke.k1_build_name(fparams) == "fused_trace_dense_kernel"
     assert fparams.stage_window == (fparams.img_total - 2, fparams.img_total)
     dyn = ctypes.c_int(-1)
+    n_fp, n_ip = fparams.fp.numel(), fparams.ip.numel()
     assert native.library().xrt_fused_trace_occupancy(
-        0, 0, 0, fparams.shapes, 1, *fparams.stage_window, fparams.img_total,
+        0, 0, 0, fparams.shapes, 1, *fparams.stage_window, fparams.img_total, n_fp, n_ip,
         ctypes.byref(dyn)) > 0
-    assert dyn.value == 4 * (fparams.img_total if image == "staged" else 2)
+    assert dyn.value == (ft.head_bytes(n_fp, n_ip)
+                         + 4 * (fparams.img_total if image == "staged" else 2))
     kw = {"seed": (23, 2)} if rng == "hw" else {"uniforms": torch.rand(
         (fparams.n_draws, n), device=cuda_device,
         generator=torch.Generator(device=cuda_device).manual_seed(23))}
@@ -1196,3 +1200,108 @@ def test_nccl_ranks_match_one_process(cuda_devices, tmp_path):
     config = _spectrometer_config(intensity=1 << 16, num_iter=2, random_seed=7,
                                   keep_history=True, shard_rays=True, devices=n)
     check_ranks(run_ranks(n, config, "cuda", tmp_path), config, "cuda:0")
+
+
+# ---------------------------------------------------------------------------
+# Long optic chains (tools/bench_scenarios.with_baffles): every K1 build, K1e
+# and K3 past 16 optics, baffle127 (the kernels' longest chain) and baffle42
+# (the gradient kernels').
+# ---------------------------------------------------------------------------
+
+LONG_BUILDS = ["flat", "flat weight", "flat bilinear", "dense window", "cylinder",
+               "cylinder weight", "torus", "generic", "plasma", "chebyshev", "mosaic"]
+
+
+@pytest.mark.parametrize("label", LONG_BUILDS)
+def test_long_chain_builds_match_twins(cuda_device, label):
+    """Each K1 build on its chain behind baffle plates (17 optics), K1e
+    'found' and K3 on it, against their twins in both RNG modes:
+    0 rays and 0 pixels apart in mc mode, pixels within the float32
+    summation-order bound in weight mode and with bilinear images."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+
+    cfg, build = chip_smoke.long_chain_builds(1 << 18)[label]
+    fparams = chip_smoke.k1_pack(engine.Pipeline(cfg, device=cuda_device))
+    assert fparams.n_optics == chip_smoke.LONG_CHAIN_OPTICS == 17
+    assert chip_smoke.k1_build_name(fparams) == build
+    chip_smoke.long_chain_against_twins(ft, engine, cfg, f"long {label}", seed=49)
+
+
+@pytest.mark.parametrize("mode", ["mc", "weight", "bilinear", "found"])
+def test_baffle127_matches_twin(cuda_device, mode):
+    """K1 on baffle127 (127 optics, 126 apertures) in mc and weight mode,
+    with bilinear images, and with 'found' history (K1e), against its twin
+    in both RNG modes; the packed buffers' head as the library counts it."""
+    import chip_smoke
+    from xicsrt_tpu_torch import engine
+    from xicsrt_tpu_torch.ops import native
+    from xicsrt_tpu_torch.tools.bench_scenarios import baffle_config
+
+    general = {"weight": {"interact_mode": "weight"},
+               "bilinear": {"image_mode": "bilinear"}}.get(mode, {})
+    cfg = baffle_config(124, 1 << 20, 1, engine="fused", **general)
+    pipe = engine.Pipeline(cfg, device=cuda_device)
+    fparams = chip_smoke.k1_pack(pipe)
+    assert fparams.n_optics == 127
+    n_fp, n_ip = fparams.fp.numel(), fparams.ip.numel()
+    assert 4 * native.library().xrt_head_floats_of(n_fp, n_ip) == ft.head_bytes(n_fp, n_ip)
+    spec = (ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+            if mode == "found" else None)
+    chip_smoke.k1_build_against_twin(ft, engine, cfg, f"baffle127 {mode}", 127, history=spec)
+
+
+def _baffle42(n, cuda_device):
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+    from xicsrt_tpu_torch.tools.bench_scenarios import baffle_config
+
+    cfg = baffle_config(39, n, 1, interact_mode="weight", image_mode="bilinear")
+    pipe = Pipeline(cfg, device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    return pipe, pack(pipe.params).detach(), spec
+
+
+def test_baffle42_gradients_match_twins(cuda_device):
+    """K5f and K5b on baffle42 (42 optics, K5's longest chain: K5b's rows in
+    device memory) against the float32 twins in both RNG modes, at
+    test_fused_grad_variants_match_twins's bounds."""
+    import chip_smoke
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+    from xicsrt_tpu_torch.ops import native
+
+    n = (1 << 16) + 17
+    pipe, pvec, spec = _baffle42(n, cuda_device)
+    static, lam = spec["static"], spec["lam"]
+    assert static.n_optics == 42
+    layout = (ctypes.c_longlong * 4)()
+    assert native.library().xrt_fused_grad_bwd_layout(
+        n, static.img_total, static.fp.numel(), static.ip.numel(), pvec.numel(),
+        static.n_optics, fg._variant(static), 0, layout) == 0
+    assert layout[2] > 0  # the rows in device memory
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    uniforms = torch.rand((static.n_draws, n), generator=gen, device=cuda_device)
+    g = torch.randn(static.img_total, device=cuda_device, generator=gen)
+    for kwargs in ({"seed": (8, 9)}, {"uniforms": uniforms}):
+        chip_smoke.k5_against_twins(fg, static, pvec, n, lam, g, "baffle42", **kwargs)
+
+
+@pytest.mark.parametrize("kind", ["flagship", "torus_crystal", "plasma_cubic"])
+def test_k5b_rows_in_device_memory_equal_shared(cuda_device, kind):
+    """K5b with its rows in device memory (the layout of long chains) and in
+    shared memory, on a chain both can run: the same vjp, bit for bit."""
+    from xicsrt_tpu_torch.ops import fused_grad as fg
+
+    n = (1 << 17) + 17
+    cfg = (_spectrometer_config(intensity=n, interact_mode="weight", image_mode="bilinear")
+           if kind == "flagship" else _grad_variant(kind, n))
+    pipe = Pipeline(cfg, device=cuda_device)
+    _, _, pack, spec = fg.build_fused_diff(pipe)
+    static, lam = spec["static"], spec["lam"]
+    pvec = pack(pipe.params).detach()
+    g = torch.randn(static.img_total, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(3))
+    shared = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5))
+    device_rows = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5),
+                                         global_rows=True)
+    assert shared.abs().max().item() > 0
+    assert torch.equal(shared, device_rows)

@@ -269,20 +269,18 @@ def test_raytrace_auto_found_is_bounded_with_the_jax_keys(caplog):
         assert res[section]["meta"]["detector"].keys() == ref[section]["meta"]["detector"].keys()
 
 
-def _filtered_past_k1():
-    """A box source behind nine pass-all sightlines: past K1's 8 filters,
-    so only K3 can run it, and K3 keeps no history."""
-    cfg = _spectrometer_config(intensity=4096, engine="fused", keep_history="found")
-    names = [f"sight{k}" for k in range(9)]
-    cfg["sources"]["source"].update(xsize=0.01, ysize=0.01, filters=names)
-    cfg["filters"] = {n: {"class_name": "XicsrtBundleFilterSightline",
-                          "origin": [0.0, 0.0, 0.0], "zaxis": [0.0, 0.0, 1.0],
-                          "radius": 1.0} for n in names}
+def _past_k1():
+    """A plasma of more bundles than K1 takes (``tests/test_torch_trace_
+    only.py``'s, 2^22 + 1): only K3 can run it, and K3 keeps no history."""
+    from tests.test_torch_trace_only import _big_plasma
+
+    cfg = _big_plasma()
+    cfg["general"]["keep_history"] = "found"
     return cfg
 
 
 def test_k3_only_config_refuses_history_on_fused_and_degrades_on_auto(caplog):
-    cfg = _filtered_past_k1()
+    cfg = _past_k1()
     with pytest.raises(ft.FusedUnsupported, match="megakernel"):
         raytrace(cfg, device="cpu")
     cfg["general"]["engine"] = "auto"

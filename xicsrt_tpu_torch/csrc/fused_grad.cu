@@ -19,10 +19,11 @@
 // The differentiated parameters arrive at run time in pvec (24 slots per
 // optic: origin, basis rows, radius or radius_major, crystal_spacing,
 // rocking_fwhm, reflectivity, radius_minor; then, for a plasma, 8 source
-// slots: emissivity, temperature), read once per block into shared memory,
-// so a descent loop rebuilds nothing. The structure (sampler, shapes,
-// bounds, apertures, images) is K1's packed fp/ip layout; its geometry
-// entries are unused.
+// slots: emissivity, temperature), read once per block into shared memory
+// beside the packed structure (grad_head_floats), so a descent loop
+// rebuilds nothing. Chains of up to 42 optics, as JAX's. The structure
+// (sampler, shapes, bounds, apertures, images) is K1's packed fp/ip
+// layout; its geometry entries are unused.
 //
 // A plasma (source kind 2) is sampled one fresh bundle per ray
 // (fused_grad.py:122-276): emissivity scales the ray's initial weight,
@@ -61,12 +62,17 @@
 // where they fit beside the per-thread rows (else read through L1) and
 // gathered at the hit's four corners. Each term of a ray's 17 slot
 // contributions per optic, and of a plasma's 2 source slots, is added to
-// the thread's own column of slot sums in shared memory, in float32, over
-// the whole grid-stride loop (in the ray's order: no shuffles, no
-// atomics); at the end the block sums its columns per slot in float64, in
-// a fixed order, into its row of slot sums, which the host adds in
-// float64. A column sums a few terms a ray for the rays its thread carries
-// (about 62 at 2^22 rays in 264 blocks of 256), so a slot's float32
+// the thread's own column of slot sums, in float32, over the whole
+// grid-stride loop (in the ray's order: no shuffles, no atomics); at the
+// end the block sums its columns per slot in float64, in a fixed order,
+// into its row of slot sums, which the host adds in float64. The columns,
+// the ray's rows and the torus roots are in shared memory where they fit
+// beside a resident block (the flagship's 59 rows), else in device memory
+// (fused_grad_cols.cu: 42 optics take 722 rows or more, 739 KB a block of
+// 256), a row's floats one a thread, so a warp's add is one coalesced line
+// and the sums are the same, bit for bit. A column sums a few terms a ray
+// for the rays its thread carries (about 62 at 2^22 rays in 264 blocks of
+// 256), so a slot's float32
 // rounding stays far inside its checks (rtol 1e-3 of the float32 twin). The launcher (bwd_layout) keeps the blocks that ptxas's
 // registers allow. Bounded by arithmetic: the recomputed forward and the
 // adjoint.
@@ -79,7 +85,18 @@
 #define XRT_GRAD_SLOTS 24
 #define XRT_GRAD_USED 17
 #define XRT_SRC_SLOTS 8
-#define XRT_GRAD_MAX_SLOTS (XRT_MAX_OPTICS * XRT_GRAD_SLOTS + XRT_SRC_SLOTS)
+// K5 takes chains of up to 42 optics, as JAX's does: pvec holds at most
+// 1024 slots (xicsrt_tpu/ops/fused_grad.py:1709-1711).
+#define XRT_GRAD_MAX_OPTICS 42
+#define XRT_GRAD_MAX_SLOTS 1024
+// The head of K5's dynamic shared memory: fp and ip, and K5b's pvec
+// (n_words), each rounded up to 16 bytes (xrt_round4, so that the compiler
+// keeps its 16-byte loads); K5f keeps pvec in static shared memory (in its
+// head, ptxas spilled the generic source's variant at its 64 registers).
+// The staged images, and K5b's rows, follow it.
+__host__ __device__ inline int grad_head_floats(int n_fp, int n_ip, int n_words) {
+    return xrt_round4(n_fp) + xrt_round4(n_ip) + xrt_round4(n_words);
+}
 #define XRT_EPS 1e-12f
 #define XRT_SIGMA_PER_FWHM 0.42466090014400953f
 
@@ -582,13 +599,15 @@ __device__ __forceinline__ void fused_grad_fwd_body(
     int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, float* __restrict__ images,
     int img_total, int use_smem) {
-    extern __shared__ float s_img[];
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    __shared__ float P[XRT_GRAD_MAX_SLOTS];
+    // pvec, and the head of the dynamic shared memory (grad_head_floats):
+    // fp and ip, sized by the run; the staged image follows.
+    __shared__ __align__(16) float P[XRT_GRAD_MAX_SLOTS];
+    extern __shared__ __align__(16) float s_dyn[];
+    float* const fp = s_dyn;
+    int* const ip = reinterpret_cast<int*>(s_dyn + xrt_round4(n_fp));
+    float* const s_img = s_dyn + grad_head_floats(n_fp, n_ip, 0);
 
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, nullptr, 0);
     for (int i = threadIdx.x; i < n_slots; i += blockDim.x) P[i] = g_pvec[i];
     if (use_smem) xrt_smem_zero(s_img, img_total);
     __syncthreads();
@@ -680,10 +699,15 @@ __global__ void __launch_bounds__(1024, 1) fused_grad_fwd_kernel_64(
         seed1, images, img_total, use_smem);
 }
 
-// K5b's rows of one float a thread in shared memory: the slot sums (17 an
-// optic, then a plasma's 2), the ray leaving the source (position,
-// direction, weight, wavelength, then a plasma's n_g, sqrt(T) and Doppler
-// factor), and a torus chain's cached roots (root and last step an optic).
+// K5b's rows of one float a thread: the slot sums (17 an optic, then a
+// plasma's 2), the ray leaving the source (position, direction, weight,
+// wavelength, then a plasma's n_g, sqrt(T) and Doppler factor), and a torus
+// chain's cached roots (root and last step an optic). In shared memory
+// where they fit beside a resident block (kGlobal false), else in device
+// memory (kGlobal true, bwd_layout): each block's region of bwd_rows rows
+// of blockDim floats, a row's floats one a thread, so a warp's add to a
+// row is one 128-byte line, and each thread's sums run in the same order
+// as in shared memory, bit for bit.
 __host__ __device__ inline int bwd_slot_rows(int n_opt, bool plasma) {
     return n_opt * XRT_GRAD_USED + (plasma ? 2 : 0);
 }
@@ -718,53 +742,67 @@ __device__ __forceinline__ int slot_row(int s, int n_opt) {
 // warps, where a 256-thread block would leave 8. The torus chain's adjoint
 // fits 128 registers only with its ray and roots in shared memory; left
 // to itself, ptxas gives it more and the time grows 1.7x.
-template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+// The builds whose rows live in device memory take the same threads a
+// block (so both layouts sum a thread's rays alike), and the point source's
+// torus variant no register cap: its 64-bit row pointers spilled it at 128.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic, bool kGlobal = false>
 struct BwdLaunch {
     static constexpr bool kPinned =
         !kMosaic && !(kTorus && kCylinder) &&
         (kSource == XRT_GRAD_POINT || (kSource == XRT_GRAD_PLASMA && !kTorus) ||
          (kSource == XRT_GRAD_GENERIC && !kTorus && !kCylinder));
     static constexpr int kThreads = kPinned ? 256 : 128;
-    static constexpr int kMinBlocks = kPinned ? 2 : 1;
+    static constexpr int kMinBlocks = kPinned && !(kGlobal && kTorus) ? 2 : 1;
 };
 
-template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+// kGlobal: the per-thread rows in device memory (cols: a region of
+// bwd_rows(n_opt) x blockDim floats a block), else in shared memory after
+// the staged images.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic, bool kGlobal>
 __global__ void __launch_bounds__(
-    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kThreads),
-    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kMinBlocks))
+    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic, kGlobal>::kThreads),
+    (BwdLaunch<kTorus, kCylinder, kSource, kMosaic, kGlobal>::kMinBlocks))
 fused_grad_bwd_kernel(
     const float* __restrict__ g_fp, int n_fp, const int* __restrict__ g_ip,
     int n_ip, const float* __restrict__ aux, const float* __restrict__ g_pvec,
     int n_slots, long long n_total, float lam, const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, const float* __restrict__ g_images,
-    int img_total, int use_smem, double* __restrict__ partial) {
-    extern __shared__ float s_dyn[];
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    __shared__ float P[XRT_GRAD_MAX_SLOTS];
+    int img_total, int use_smem, double* __restrict__ partial, float* __restrict__ cols) {
+    // The head of the dynamic shared memory (grad_head_floats): fp, ip and
+    // pvec, sized by the run; the staged images and the rows follow.
+    extern __shared__ __align__(16) float s_dyn[];
+    float* const fp = s_dyn;
+    int* const ip = reinterpret_cast<int*>(s_dyn + xrt_round4(n_fp));
+    float* const P = s_dyn + xrt_round4(n_fp) + xrt_round4(n_ip);
+    float* const s_img = s_dyn + grad_head_floats(n_fp, n_ip, n_slots);
 
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, nullptr, 0);
     for (int i = threadIdx.x; i < n_slots; i += blockDim.x) P[i] = g_pvec[i];
     if (use_smem) {
         for (int i = threadIdx.x; i < img_total; i += blockDim.x) {
-            s_dyn[i] = g_images[i];
+            s_img[i] = g_images[i];
         }
     }
     const int n_opt = g_ip[0];
-    // The per-thread rows (bwd_rows) after the staged images. Each optic's
-    // recomputed forward starts from the ray's rows, so the ray stays out of
-    // registers through the adjoint.
+    // The per-thread rows (bwd_rows) after the staged images, or in the
+    // block's region of cols. Each optic's recomputed forward starts from
+    // the ray's rows, so the ray stays out of registers through the
+    // adjoint.
     constexpr bool kPlasma = kSource == XRT_GRAD_PLASMA;
     const int per_row = blockDim.x;
     const int n_rows = bwd_slot_rows(n_opt, kPlasma);
-    float* s_col = s_dyn + (use_smem ? img_total : 0);
+    float* s_col;
+    if constexpr (kGlobal) {
+        s_col = cols + (long long)blockIdx.x * bwd_rows(n_opt, kPlasma, kTorus) * per_row;
+    } else {
+        s_col = s_img + (use_smem ? img_total : 0);
+    }
     for (int i = threadIdx.x; i < n_rows * per_row; i += blockDim.x) s_col[i] = 0.0f;
     float* s_ray = s_col + n_rows * per_row + threadIdx.x;
     float* s_root = s_ray + bwd_ray_rows(kPlasma) * per_row;
     __syncthreads();
 
-    const float* gimg = use_smem ? s_dyn : g_images;
+    const float* gimg = use_smem ? s_img : g_images;
     const int src_base = n_opt * XRT_GRAD_SLOTS;
     const float* apf = fp + XRT_SRC_F + n_opt * XRT_OPT_F;
     const int* api = ip + XRT_HDR_I + n_opt * XRT_OPT_I;
@@ -1232,7 +1270,7 @@ using FwdKernel = void (*)(const float*, int, const int*, int, const float*,
                            uint32_t, uint32_t, float*, int, int);
 using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
                            const float*, int, long long, float, const float*,
-                           uint32_t, uint32_t, const float*, int, int, double*);
+                           uint32_t, uint32_t, const float*, int, int, double*, float*);
 
 // The kernels built for each variant: bit 0 a torus in the chain, bit 1 a
 // cylinder; bits 2-3 the source (XRT_GRAD_POINT, _PLASMA, _GENERIC); plus
@@ -1244,6 +1282,25 @@ using BwdKernel = void (*)(const float*, int, const int*, int, const float*,
         K<false, true, 1, M>, K<true, true, 1, M>, K<false, false, 2, M>,        \
         K<true, false, 2, M>, K<false, true, 2, M>, K<true, true, 2, M>
 #define XRT_GRAD_KERNELS(K) {XRT_GRAD_SOURCES(K, false), XRT_GRAD_SOURCES(K, true)}
+// K5b's kernel of each variant with its rows in shared memory, and in
+// device memory.
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+constexpr BwdKernel kBwdShared =
+    fused_grad_bwd_kernel<kTorus, kCylinder, kSource, kMosaic, false>;
+template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
+constexpr BwdKernel kBwdGlobal =
+    fused_grad_bwd_kernel<kTorus, kCylinder, kSource, kMosaic, true>;
+
+}  // namespace
+
+// K5b's builds whose rows live in device memory (kGlobal), one a variant,
+// defined in fused_grad_cols.cu, which nvcc compiles in a process of its
+// own beside this file, so the build takes no longer for them.
+extern const BwdKernel xrt_grad_bwd_global[XRT_GRAD_VARIANTS];
+
+#ifndef XRT_GRAD_COLS_TU
+namespace {
+
 // K5f's kernel of each variant: held to 64 registers where FwdCap says so.
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic,
           bool kCap = FwdCap<kTorus, kCylinder, kSource, kMosaic>::value>
@@ -1257,28 +1314,45 @@ struct FwdEntry<kTorus, kCylinder, kSource, kMosaic, true> {
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 constexpr FwdKernel kFwdOf = FwdEntry<kTorus, kCylinder, kSource, kMosaic>::fn;
 const FwdKernel kFwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(kFwdOf);
-const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(fused_grad_bwd_kernel);
+const BwdKernel kBwd[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(kBwdShared);
 template <bool kTorus, bool kCylinder, int kSource, bool kMosaic>
 constexpr int kBwdThreadsOf = BwdLaunch<kTorus, kCylinder, kSource, kMosaic>::kThreads;
 const int kBwdThreads[XRT_GRAD_VARIANTS] = XRT_GRAD_KERNELS(kBwdThreadsOf);
 
 bool grad_args_ok(int n_fp, int n_ip, const float* aux, int n_aux, int n_slots,
                   int variant) {
-    return n_fp <= XRT_MAX_FP && n_ip <= XRT_MAX_IP && aux != nullptr && n_aux > 0 &&
+    return n_fp >= XRT_SRC_F && n_ip >= XRT_HDR_I && aux != nullptr && n_aux > 0 &&
            n_slots > 0 && n_slots <= XRT_GRAD_MAX_SLOTS && variant >= 0 &&
            variant < XRT_GRAD_VARIANTS;
+}
+
+// The bytes of K5's heads (grad_head_floats): K5f's fp and ip, K5b's fp,
+// ip and pvec.
+size_t fwd_head_bytes(int n_fp, int n_ip) {
+    return (size_t)grad_head_floats(n_fp, n_ip, 0) * sizeof(float);
+}
+size_t bwd_head_bytes(int n_fp, int n_ip, int n_slots) {
+    return (size_t)grad_head_floats(n_fp, n_ip, n_slots) * sizeof(float);
 }
 
 // The largest image (floats) K5f keeps in a block's shared memory; larger
 // ones take global atomics.
 constexpr int kFwdSmemImageMax = XRT_SMEM_IMAGE_MAX_FLOATS;
 
+// K5f's dynamic shared bytes: the head, and the image staged behind it
+// where it fits (*use_smem).
+size_t fwd_smem(FwdKernel kernel, size_t head, int img_total, int* use_smem) {
+    const size_t staged = head + (size_t)img_total * sizeof(float);
+    *use_smem = img_total <= kFwdSmemImageMax && xrt_set_smem(kernel, staged) == cudaSuccess;
+    return *use_smem ? staged : head;
+}
+
 // Threads of a K5f block: of 256, 512 and 1024, the size that keeps the
 // most threads resident by the occupancy calculator (ptxas's registers and
-// the block's shared memory: the image and the static buffers), the
-// smaller of equals. Beside a large image the larger blocks share one:
-// example 08's 80 KB detector takes two blocks of 512 where two of 256
-// fitted, the flagship's 59 KB two of 512 where three of 256 did.
+// the block's shared memory: the head and the image), the smaller of
+// equals. Beside a large image the larger blocks share one: example 08's
+// 80 KB detector takes two blocks of 512 where two of 256 fitted, the
+// flagship's 59 KB two of 512 where three of 256 did.
 int fwd_threads(FwdKernel kernel, size_t smem) {
     int best = 256, most = 0;
     for (int t = 256; t <= 1024; t *= 2) {
@@ -1295,58 +1369,81 @@ int fwd_threads(FwdKernel kernel, size_t smem) {
     return best;
 }
 
-// How a K5b launch lays out its dynamic shared memory: its threads a block,
-// whether the cotangent images are staged there, and the bytes. It keeps
-// the blocks that K5b's registers let a multiprocessor hold, with the images
-// staged where they fit beside the per-thread rows, else read from global
-// memory (through L1); a chain too long for that runs fewer blocks, then
-// fewer threads a block (the launch bounds are a ceiling).
+// How a K5b launch lays out its rows and its dynamic shared memory: the
+// build (rows in shared or in device memory), its threads a block (the
+// variant's launch bounds), whether the cotangent images are staged in
+// shared memory, and the dynamic bytes, the head's included. The rows stay
+// in shared memory where, with the head, they fit beside the blocks that
+// K5b's registers let a multiprocessor hold, the images staged too where
+// they also fit (else read through L1); else, or where `global` asks, they
+// go to device memory (kGlobal), with the images staged where they fit
+// beside the head and the blocks. The flagship's 59 rows of 256 threads
+// (60 KB) fit beside 2 blocks; at 42 optics a point source's 722 rows take
+// 739 KB a block of 256.
 struct BwdLayout {
-    int threads, use_smem;
+    BwdKernel kernel;
+    int threads, use_smem, global, rows;
     size_t smem;
 };
 
-cudaError_t bwd_layout(int img_total, int n_opt, int variant, BwdLayout* out) {
-    const BwdKernel kernel = kBwd[variant];
-    int device = 0, per_sm = 0, optin = 0, blocks = 0;
-    cudaFuncAttributes attr;
+cudaError_t bwd_layout(int img_total, int n_opt, int variant, size_t head, int global,
+                       BwdLayout* out) {
+    int device = 0, per_sm = 0, optin = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
     const int threads = kBwdThreads[variant];
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
-    if (err != cudaSuccess) return err;
-    if (blocks < 1) blocks = 1;
-    const long long rows =
-        bwd_rows(n_opt, (variant % 12) >> 2 == XRT_GRAD_PLASMA, variant & 1);
-    const long long limit = (long long)optin - (long long)attr.sharedSizeBytes;
-    // 1 KB of each block's shared memory is the system's.
-    long long cap = (long long)per_sm / blocks - 1024 - (long long)attr.sharedSizeBytes;
-    if (cap > limit) cap = limit;
+    const int rows = bwd_rows(n_opt, (variant % 12) >> 2 == XRT_GRAD_PLASMA, variant & 1);
     const long long img = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS
                               ? (long long)img_total * (long long)sizeof(float)
                               : -1;
-    const long long cols = rows * threads * (long long)sizeof(float);
-    if (img >= 0 && cols + img <= cap) {
-        *out = BwdLayout{threads, 1, (size_t)(cols + img)};
-        return cudaSuccess;
-    }
-    for (int t = threads; t >= 32; t /= 2) {
-        const long long c = rows * t * (long long)sizeof(float);
-        if (c <= (t == threads ? cap : limit)) {
-            *out = BwdLayout{t, 0, (size_t)c};
+    const long long cols = (long long)rows * threads * (long long)sizeof(float);
+    // What a block may take beside the blocks its registers allow; 1 KB of
+    // each block's shared memory is the system's.
+    auto cap_of = [&](BwdKernel kernel, long long* cap) {
+        cudaFuncAttributes attr;
+        int blocks = 0;
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+        if (err == cudaSuccess) {
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+        }
+        if (blocks < 1) blocks = 1;
+        const long long limit = (long long)optin - (long long)attr.sharedSizeBytes;
+        *cap = (long long)per_sm / blocks - 1024 - (long long)attr.sharedSizeBytes;
+        if (*cap > limit) *cap = limit;
+        return err;
+    };
+    const long long h = (long long)head;
+    long long cap = 0;
+    cudaError_t err;
+    if (!global) {
+        err = cap_of(kBwd[variant], &cap);
+        if (err != cudaSuccess) return err;
+        if (img >= 0 && h + cols + img <= cap) {
+            *out = BwdLayout{kBwd[variant], threads, 1, 0, rows, (size_t)(h + cols + img)};
+            return cudaSuccess;
+        }
+        if (h + cols <= cap) {
+            *out = BwdLayout{kBwd[variant], threads, 0, 0, rows, (size_t)(h + cols)};
             return cudaSuccess;
         }
     }
-    return cudaErrorInvalidValue;
+    const BwdKernel kernel = xrt_grad_bwd_global[variant];
+    err = cap_of(kernel, &cap);
+    if (err != cudaSuccess) return err;
+    if (img >= 0 && h + img <= cap) {
+        *out = BwdLayout{kernel, threads, 1, 1, rows, (size_t)(h + img)};
+    } else {
+        *out = BwdLayout{kernel, threads, 0, 1, rows, (size_t)h};
+    }
+    return cudaSuccess;
 }
 
 }  // namespace
 
 // K5f. fp/ip: K1's packed structure; aux: its n_aux float32 of file rocking
-// tables (never null); pvec: n_slots float32 parameters;
+// tables (never null); pvec: n_slots float32 parameters (at most
+// XRT_GRAD_MAX_SLOTS);
 // rays [0, n_total) with draws from uniforms (n_draws, n_total) float32 or
 // Philox keyed by (seed0, seed1); lam: a point source's wavelength. images:
 // (img_total,) float32, zeroed by the caller. variant: bit 0 a torus in the
@@ -1365,9 +1462,9 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
     }
     if (n_total <= 0) return (int)cudaSuccess;
     const FwdKernel kernel = kFwd[variant];
-    const int use_smem = img_total <= kFwdSmemImageMax;
-    const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
-    cudaError_t err = xrt_set_smem(kernel, smem);
+    int use_smem = 0;
+    const size_t smem = fwd_smem(kernel, fwd_head_bytes(n_fp, n_ip), img_total, &use_smem);
+    cudaError_t err = xrt_set_smem(kernel, smem);  // fails for a head too large
     if (err != cudaSuccess) return (int)err;
     const int threads = fwd_threads(kernel, smem);
     const int blocks = xrt_grid_size(kernel, threads, smem, n_total);
@@ -1378,43 +1475,63 @@ extern "C" int xrt_fused_grad_fwd(const float* fp, int n_fp, const int* ip,
 }
 
 // The threads of a K5f block in this variant for images of img_total
-// floats, or minus a cudaError_t.
-extern "C" int xrt_fused_grad_fwd_threads(int variant, int img_total) {
-    if (variant < 0 || variant >= XRT_GRAD_VARIANTS || img_total < 0) {
+// floats and packed buffers of n_fp floats and n_ip ints, or minus a
+// cudaError_t.
+extern "C" int xrt_fused_grad_fwd_threads(int variant, int img_total, int n_fp, int n_ip) {
+    if (variant < 0 || variant >= XRT_GRAD_VARIANTS || img_total < 0 || n_fp < 0 ||
+        n_ip < 0) {
         return -(int)cudaErrorInvalidValue;
     }
-    const size_t smem = img_total <= kFwdSmemImageMax ? (size_t)img_total * sizeof(float) : 0;
+    int use_smem = 0;
+    const size_t smem = fwd_smem(kFwd[variant], fwd_head_bytes(n_fp, n_ip), img_total,
+                                 &use_smem);
     const cudaError_t err = xrt_set_smem(kFwd[variant], smem);
     if (err != cudaSuccess) return -(int)err;
     return fwd_threads(kFwd[variant], smem);
 }
 
-// The most threads of a K5b block in this variant (its launch bounds; a
-// chain too long for the shared memory runs fewer), or minus a cudaError_t.
+// The threads of a K5b block in this variant (its launch bounds), or minus
+// a cudaError_t.
 extern "C" int xrt_fused_grad_bwd_threads(int variant) {
     if (variant < 0 || variant >= XRT_GRAD_VARIANTS) return -(int)cudaErrorInvalidValue;
     return kBwdThreads[variant];
 }
 
-// Blocks xrt_fused_grad_bwd launches for these sizes, chain length and
-// variant (the rows of its partial output), or minus a cudaError_t.
-extern "C" int xrt_fused_grad_bwd_blocks(long long n_total, int img_total, int n_opt,
-                                         int variant) {
+// The launch xrt_fused_grad_bwd makes for these sizes, packed buffers
+// (n_fp, n_ip, n_slots), chain length and variant (bwd_layout; global: 1
+// puts the rows in device memory where they would fit in shared memory):
+// out[0] its blocks (the rows of its partial output), out[1] its threads a
+// block, out[2] the floats of device memory the rows of one block take (0
+// where they are in shared memory), out[3] its dynamic shared bytes.
+// Returns a cudaError_t.
+extern "C" int xrt_fused_grad_bwd_layout(long long n_total, int img_total, int n_fp,
+                                         int n_ip, int n_slots, int n_opt, int variant,
+                                         int global, long long* out) {
     if (variant < 0 || variant >= XRT_GRAD_VARIANTS || n_opt <= 0 ||
-        n_opt > XRT_MAX_OPTICS) {
-        return -(int)cudaErrorInvalidValue;
+        n_opt > XRT_GRAD_MAX_OPTICS || n_slots <= 0 || n_slots > XRT_GRAD_MAX_SLOTS) {
+        return (int)cudaErrorInvalidValue;
     }
     BwdLayout layout;
-    cudaError_t err = bwd_layout(img_total, n_opt, variant, &layout);
-    if (err == cudaSuccess) err = xrt_set_smem(kBwd[variant], layout.smem);
-    if (err != cudaSuccess) return -(int)err;
-    return xrt_grid_size(kBwd[variant], layout.threads, layout.smem, n_total);
+    cudaError_t err =
+        bwd_layout(img_total, n_opt, variant, bwd_head_bytes(n_fp, n_ip, n_slots), global,
+                   &layout);
+    if (err == cudaSuccess) err = xrt_set_smem(layout.kernel, layout.smem);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = xrt_grid_size(layout.kernel, layout.threads, layout.smem, n_total);
+    out[1] = layout.threads;
+    out[2] = layout.global ? (long long)layout.rows * layout.threads : 0;
+    out[3] = (long long)layout.smem;
+    return (int)cudaSuccess;
 }
 
 // K5b. As K5f, plus g_images: (img_total,) float32 cotangent images;
-// n_opt: the chain's optics (ip[0]); and partial: (n_blocks, n_slots)
-// float64, one row of slot sums per block, with n_blocks from
-// xrt_fused_grad_bwd_blocks. Returns cudaGetLastError().
+// n_opt: the chain's optics (ip[0]); partial: (n_blocks, n_slots) float64,
+// one row of slot sums per block; global as xrt_fused_grad_bwd_layout
+// takes it; n_blocks: any grid (the layout's out[0] keeps the blocks
+// resident; with global set, the grid of global 0 sums each thread's rays
+// in the same order as the shared rows do); where the rows are in device
+// memory, cols: n_cols >= n_blocks out[2] floats, else null. Returns
+// cudaGetLastError().
 extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
                                   int n_ip, const float* aux, int n_aux,
                                   const float* pvec, int n_slots,
@@ -1422,18 +1539,26 @@ extern "C" int xrt_fused_grad_bwd(const float* fp, int n_fp, const int* ip,
                                   const float* uniforms, unsigned int seed0,
                                   unsigned int seed1, const float* g_images,
                                   int img_total, int n_opt, double* partial,
-                                  int n_blocks, int variant, void* stream) {
+                                  int n_blocks, int variant, float* cols,
+                                  long long n_cols, int global, void* stream) {
     if (!grad_args_ok(n_fp, n_ip, aux, n_aux, n_slots, variant) || n_blocks <= 0 ||
-        n_opt <= 0 || n_opt > XRT_MAX_OPTICS) {
+        n_opt <= 0 || n_opt > XRT_GRAD_MAX_OPTICS) {
         return (int)cudaErrorInvalidValue;
     }
-    const BwdKernel kernel = kBwd[variant];
     BwdLayout layout;
-    cudaError_t err = bwd_layout(img_total, n_opt, variant, &layout);
-    if (err == cudaSuccess) err = xrt_set_smem(kernel, layout.smem);
+    cudaError_t err =
+        bwd_layout(img_total, n_opt, variant, bwd_head_bytes(n_fp, n_ip, n_slots), global,
+                   &layout);
+    if (err == cudaSuccess) err = xrt_set_smem(layout.kernel, layout.smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<n_blocks, layout.threads, layout.smem, (cudaStream_t)stream>>>(
+    if (layout.global &&
+        (cols == nullptr || n_cols < (long long)n_blocks * layout.rows * layout.threads)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    layout.kernel<<<n_blocks, layout.threads, layout.smem, (cudaStream_t)stream>>>(
         fp, n_fp, ip, n_ip, aux, pvec, n_slots, n_total, lam, uniforms, seed0,
-        seed1, g_images, img_total, layout.use_smem, partial);
+        seed1, g_images, img_total, layout.use_smem, partial,
+        layout.global ? cols : nullptr);
     return (int)cudaGetLastError();
 }
+#endif  // XRT_GRAD_COLS_TU

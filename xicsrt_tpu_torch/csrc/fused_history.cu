@@ -166,10 +166,10 @@ __global__ void __launch_bounds__(256) history_probe_kernel(
     int n_per_iter, long long r_lo, long long r_hi, int chunk, int slots,
     const int* __restrict__ used, int* __restrict__ marks) {
     if (*used >= slots) return;  // uniform over the launch
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    extern __shared__ __align__(16) float s_dyn[];  // the head: ip, fp
+    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);
+    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, nullptr, 0);
     __syncthreads();
 
     const int lane = threadIdx.x & 31;
@@ -203,10 +203,10 @@ __global__ void __launch_bounds__(256) history_record_kernel(
     const int* __restrict__ cum, const float* __restrict__ table, int n_bundles,
     int n_per_iter, const int* __restrict__ sel, const int* __restrict__ used,
     int chunk, int n_fields, float* __restrict__ hist) {
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    extern __shared__ __align__(16) float s_dyn[];  // the head: ip, fp
+    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);
+    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, nullptr, 0);
     __syncthreads();
 
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -283,9 +283,10 @@ extern "C" int xrt_fused_trace_flagged(const float* fp, int n_fp, const int* ip,
 // its dynamic shared bytes in *dyn_smem; -1 where the query fails.
 extern "C" int xrt_fused_trace_marked_occupancy(int src, int cheb, int stages,
                                                 int shapes, int dense, int win_lo,
-                                                int win_hi, int img_total, int* dyn_smem) {
+                                                int win_hi, int img_total, int n_fp,
+                                                int n_ip, int* dyn_smem) {
     return xrt_fused_occupancy<true>(src, cheb, stages, shapes, dense, win_lo, win_hi,
-                                     img_total, dyn_smem);
+                                     img_total, n_fp, n_ip, dyn_smem);
 }
 
 // K1e's probe for the run K1 traces with the same fp, ip, aux, n_total,
@@ -306,7 +307,7 @@ extern "C" int xrt_history_probe(const float* fp, int n_fp, const int* ip, int n
                                  int* marks, int n_chunks, const int* bounds,
                                  int n_windows, int slots, int chunk, int* sel, int* used,
                                  void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+    if (n_fp < XRT_SRC_F || n_ip < XRT_HDR_I || aux == nullptr || n_aux <= 0 ||
         slots <= 0 || chunk <= 0 || chunk % 256 || n_total <= 0 ||
         n_chunks != (n_total + chunk - 1) / chunk || n_windows <= 0 || bounds[0] != 0 ||
         bounds[n_windows] > n_chunks) {
@@ -320,17 +321,21 @@ extern "C" int xrt_history_probe(const float* fp, int n_fp, const int* ip, int n
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
-    const int most = xrt_grid_size(history_probe_kernel, 256, 0, 1LL << 40);
+    // A head too large for a block's shared memory fails xrt_set_smem.
+    const size_t head = (size_t)xrt_head_floats(n_fp, n_ip) * sizeof(float);
+    cudaError_t err = xrt_set_smem(history_probe_kernel, head);
+    if (err != cudaSuccess) return (int)err;
+    const int most = xrt_grid_size(history_probe_kernel, 256, head, 1LL << 40);
     for (int w = 0; w < n_windows; ++w) {
         const long long r_lo = (long long)bounds[w] * chunk;
         const long long r_hi = (long long)bounds[w + 1] * chunk;
         const int blocks = (int)std::min<long long>(most, (r_hi - r_lo + 255) / 256);
-        history_probe_kernel<<<blocks, 256, 0, s>>>(
+        history_probe_kernel<<<blocks, 256, head, s>>>(
             fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum, table,
             n_bundles, (int)n_per_iter, r_lo, r_hi, chunk, slots, used, marks);
         history_select_kernel<<<1, 1024, 0, s>>>(marks, bounds[w + 1], slots, sel, used,
                                                  marks + n_chunks);
-        cudaError_t err = cudaGetLastError();
+        err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaSuccess;
@@ -353,7 +358,7 @@ extern "C" int xrt_history_record(const float* fp, int n_fp, const int* ip, int 
                                   const int* marks, int n_chunks, int slots, int chunk,
                                   int n_fields, int* sel, int* used, float* hist,
                                   void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+    if (n_fp < XRT_SRC_F || n_ip < XRT_HDR_I || aux == nullptr || n_aux <= 0 ||
         slots <= 0 || chunk <= 0 || chunk % 256 || (n_fields != 8 && n_fields != 9) ||
         n_total <= 0 || n_chunks != (n_total + chunk - 1) / chunk ||
         (long long)slots * chunk / 256 >= (1LL << 31)) {
@@ -364,11 +369,14 @@ extern "C" int xrt_history_record(const float* fp, int n_fp, const int* ip, int 
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
+    const size_t head = (size_t)xrt_head_floats(n_fp, n_ip) * sizeof(float);
+    cudaError_t err = xrt_set_smem(history_record_kernel, head);
+    if (err != cudaSuccess) return (int)err;
     history_select_kernel<<<1, 1024, 0, s>>>(marks, n_chunks, slots, sel, used, nullptr);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int blocks = (int)((long long)slots * chunk / 256);
-    history_record_kernel<<<blocks, 256, 0, s>>>(
+    history_record_kernel<<<blocks, 256, head, s>>>(
         fp, n_fp, ip, n_ip, aux, n_total, count, uniforms, seed0, seed1, cum, table,
         n_bundles, (int)n_per_iter, sel, used, chunk, n_fields, hist);
     return (int)cudaGetLastError();

@@ -104,10 +104,14 @@ template <int kSrc, bool kCheb, int kStages, bool kMark, int kShapes, bool kWind
 __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     static_assert(!kWindow || kStages == 0, "a window stages unit adds");
     constexpr bool kStaged = kSrc == XRT_K1_POINT && !kCheb && kStages == 1 && kShapes != 0;
-    extern __shared__ float s_img[];
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
+    // The head of the dynamic shared memory (xrt_head_floats): the
+    // per-element counters, ip and fp, sized by the run; the staged image
+    // or window follows it.
+    extern __shared__ __align__(16) float s_dyn[];
+    unsigned int* const s_counts = reinterpret_cast<unsigned int*>(s_dyn);
+    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);
+    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);
+    float* const s_img = s_dyn + xrt_head_floats(n_fp, n_ip);
     unsigned int* const s_win = reinterpret_cast<unsigned int*>(s_img);
 
     if (marks != nullptr) {  // uniform over the launch
@@ -115,11 +119,7 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
             ((unsigned int)n_total + (unsigned int)chunk - 1u) / (unsigned int)chunk;
         if ((__ldg(marks + n_chunks) != 0) == kMark) return;
     }
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
-    for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
-        s_counts[i] = 0u;
-    }
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, s_counts, XRT_HEAD_COUNTS);
     if constexpr (kWindow) {
         for (int i = threadIdx.x; i < win_n; i += blockDim.x) s_win[i] = 0u;
     } else if constexpr (kStages == 0 || kStaged) {
@@ -241,9 +241,9 @@ __global__ void __launch_bounds__(256, 5) fused_trace_dense_kernel(XRT_K1_PARAMS
 // flagship's detector image of 2^28 rays sums to its 3575015 rays within
 // 1e-9; float32 global atomics alone summed it 48 short). Staged in each
 // block's float32 shared histogram, the flagship's 15000 image floats
-// (58.6 KB) with K1's 5.2 KB of static shared memory held a build to 3
-// blocks of 256: the flagship 1.11-1.13x slower, the plasma's, the generic
-// source's and the mosaic's builds 1-10 % slower; split over a cluster of
+// (58.6 KB) beside K1's packed buffers held a build to 3 blocks of 256:
+// the flagship 1.11-1.13x slower, the plasma's, the generic source's and
+// the mosaic's builds 1-10 % slower; split over a cluster of
 // 2 blocks, whose remote adds are compare-and-swap loops, 1.15-1.27x
 // slower. Two builds keep staging: the point source's stage-1 builds with a
 // curved shape's code, the torus chains' and fused_trace_cylinder_kernel<1>
@@ -257,9 +257,10 @@ __global__ void __launch_bounds__(256, 5) fused_trace_dense_kernel(XRT_K1_PARAMS
 // only where that costs no resident block against the build's registers,
 // else each hit is a float32 global atomic (1.12x, chip_ab.py
 // `staged_images`). The threshold is the image that fits beside the blocks
-// the registers allow: about 13020 floats at 4 blocks, 10101 at 5 (228 KB
-// over the blocks, less the static bytes and the 1 KB the card keeps a
-// block). The window builds (kWindow: fused_trace_cylinder_kernel<0>,
+// the registers allow: 228 KB over the blocks, less the head (the packed
+// buffers and counters, sized by the run: 1472 bytes for the flagship) and
+// the 1 KB the card keeps a block, about 13970 floats at 4 blocks and 11050
+// at 5 for the flagship's head. The window builds (kWindow: fused_trace_cylinder_kernel<0>,
 // fused_trace_dense_kernel) stage integer counts: of every pixel where
 // that costs no block, or one block for a dense chain (dense: every ray
 // reaches its images unthinned), else of the window the host asks for
@@ -312,13 +313,13 @@ inline int xrt_fused_threads(int src, int cheb, int stages) {
     return src == XRT_K1_POINT && cheb && stages == 1 ? 128 : 256;
 }
 
-// Whether `floats` staged floats or counts cost the build more than
-// `spare` resident blocks (stages 0) or do not fit (after setting the
-// kernel's dynamic shared memory to them).
+// Whether `floats` staged floats or counts beside the head's `head` bytes
+// cost the build more than `spare` resident blocks (stages 0) or do not fit
+// (after setting the kernel's dynamic shared memory to them).
 template <class Kernel>
-inline bool xrt_costs_a_block(Kernel kernel, int threads, int stages, int floats,
-                              int spare = 0) {
-    const size_t bytes = (size_t)floats * sizeof(float);
+inline bool xrt_costs_a_block(Kernel kernel, int threads, int stages, size_t head,
+                              int floats, int spare = 0) {
+    const size_t bytes = head + (size_t)floats * sizeof(float);
     if (floats > XRT_SMEM_IMAGE_MAX_FLOATS || xrt_set_smem(kernel, bytes) != cudaSuccess) {
         return true;
     }
@@ -326,15 +327,21 @@ inline bool xrt_costs_a_block(Kernel kernel, int threads, int stages, int floats
     return stages == 0 &&
            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&staged, kernel, threads, bytes) ==
                cudaSuccess &&
-           cudaOccupancyMaxActiveBlocksPerMultiprocessor(&unstaged, kernel, threads, 0) ==
+           cudaOccupancyMaxActiveBlocksPerMultiprocessor(&unstaged, kernel, threads, head) ==
                cudaSuccess &&
            staged < unstaged - spare;
 }
 
+// The bytes of K1's head (xrt_head_floats: the counters, ip and fp).
+inline size_t xrt_k1_head_bytes(int n_fp, int n_ip) {
+    return (size_t)xrt_head_floats(n_fp, n_ip) * sizeof(float);
+}
+
+// smem: the head's bytes (xrt_k1_head_bytes) and what the launch stages.
 template <bool kMark>
 inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int shapes,
                                           int dense, int win_lo, int win_hi,
-                                          int img_total) {
+                                          int img_total, size_t head) {
     using Kernel = typename XrtFusedPick<kMark>::Kernel;
 #define XRT_K1_STAGES(S, CHEB)                                                    \
     fused_trace_kernel<S, CHEB, 0, kMark>, fused_trace_kernel<S, CHEB, 1, kMark>, \
@@ -349,15 +356,15 @@ inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int sha
 #undef XRT_K1_STAGES
     const int build = xrt_fused_build(src, cheb, stages, shapes, dense);
     const int threads = xrt_fused_threads(src, cheb, stages);
-    XrtFusedPick<kMark> pick{kernels[build], threads, 0, 0, 0, 0};
+    XrtFusedPick<kMark> pick{kernels[build], threads, head, 0, 0, 0};
     if (build == kXrtK1Cylinder || build == kXrtK1Dense) {  // kWindow
         const int lo[2] = {0, win_lo}, n[2] = {img_total, win_hi - win_lo};
         // A dense chain's whole image is worth one resident block.
         const int spare[2] = {dense ? 1 : 0, 0};
         for (int k = 0; k < 2; ++k) {
             if (n[k] > 0 && lo[k] >= 0 && lo[k] + n[k] <= img_total &&
-                !xrt_costs_a_block(pick.kernel, threads, stages, n[k], spare[k])) {
-                pick.smem = (size_t)n[k] * sizeof(float);
+                !xrt_costs_a_block(pick.kernel, threads, stages, head, n[k], spare[k])) {
+                pick.smem = head + (size_t)n[k] * sizeof(float);
                 pick.win_lo = lo[k];
                 pick.win_n = n[k];
                 break;
@@ -369,22 +376,25 @@ inline XrtFusedPick<kMark> xrt_fused_pick(int src, int cheb, int stages, int sha
     // curved shape's code and without the Chebyshev stage.
     const bool staged_float64 = build == 1 || build == kXrtK1Cylinder + 1;
     if (stages >= 1 && !staged_float64) return pick;  // float64 sums in global memory
-    if (!xrt_costs_a_block(pick.kernel, threads, stages, img_total)) {
-        pick.smem = (size_t)img_total * sizeof(float);
+    if (!xrt_costs_a_block(pick.kernel, threads, stages, head, img_total)) {
+        pick.smem = head + (size_t)img_total * sizeof(float);
         pick.use_smem = 1;
     }
     return pick;
 }
 
 // Blocks a multiprocessor holds of the build and launch xrt_fused_pick
-// makes (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher
-// calls it, blocks of xrt_fused_threads), with its dynamic shared bytes in
-// *dyn_smem; -1 where the query fails.
+// makes for packed buffers of n_fp floats and n_ip ints
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls it,
+// blocks of xrt_fused_threads), with its dynamic shared bytes, the head's
+// included, in *dyn_smem; -1 where the query fails.
 template <bool kMark>
 inline int xrt_fused_occupancy(int src, int cheb, int stages, int shapes, int dense,
-                               int win_lo, int win_hi, int img_total, int* dyn_smem) {
-    const XrtFusedPick<kMark> pick = xrt_fused_pick<kMark>(src, cheb, stages, shapes, dense,
-                                                           win_lo, win_hi, img_total);
+                               int win_lo, int win_hi, int img_total, int n_fp, int n_ip,
+                               int* dyn_smem) {
+    const XrtFusedPick<kMark> pick = xrt_fused_pick<kMark>(
+        src, cheb, stages, shapes, dense, win_lo, win_hi, img_total,
+        xrt_k1_head_bytes(n_fp, n_ip));
     int blocks = 0;
     if (xrt_set_smem(pick.kernel, pick.smem) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick.kernel, pick.threads,
@@ -413,7 +423,7 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
                             int full_source, int cheb, int stages, int shapes,
                             int dense, int win_lo, int win_hi, int* marks, int chunk,
                             void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+    if (n_fp < XRT_SRC_F || n_ip < XRT_HDR_I || aux == nullptr || n_aux <= 0 ||
         stages < 0 || stages > 2) {
         return (int)cudaErrorInvalidValue;
     }
@@ -427,8 +437,10 @@ inline int xrt_fused_launch(const float* fp, int n_fp, const int* ip, int n_ip,
     if (n_total <= 0) return (int)cudaSuccess;
     const int src = cum != nullptr ? XRT_K1_PLASMA
                                    : full_source ? XRT_K1_GENERIC : XRT_K1_POINT;
-    const XrtFusedPick<kMark> pick = xrt_fused_pick<kMark>(src, cheb, stages, shapes, dense,
-                                                           win_lo, win_hi, img_total);
+    // A head too large for a block's shared memory fails xrt_set_smem.
+    const XrtFusedPick<kMark> pick =
+        xrt_fused_pick<kMark>(src, cheb, stages, shapes, dense, win_lo, win_hi, img_total,
+                              xrt_k1_head_bytes(n_fp, n_ip));
     cudaError_t err = xrt_set_smem(pick.kernel, pick.smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(pick.kernel, pick.threads, pick.smem, n_total);

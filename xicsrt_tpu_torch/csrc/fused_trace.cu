@@ -152,12 +152,21 @@ extern "C" int xrt_fused_trace_threads(int src, int cheb, int stages) {
 
 // Blocks of 256 a multiprocessor holds of the build of K1 that
 // xrt_fused_trace launches (src: 0 point, 1 generic, 2 plasma; the other
-// arguments its own), by registers and the launch's shared memory
+// arguments its own, n_fp and n_ip the packed buffers' lengths), by
+// registers and the launch's shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor as the launcher calls it),
-// and its dynamic shared bytes in *dyn_smem; -1 where the query fails.
+// and its dynamic shared bytes, the head's included, in *dyn_smem; -1
+// where the query fails.
 extern "C" int xrt_fused_trace_occupancy(int src, int cheb, int stages, int shapes,
                                          int dense, int win_lo, int win_hi, int img_total,
-                                         int* dyn_smem) {
+                                         int n_fp, int n_ip, int* dyn_smem) {
     return xrt_fused_occupancy<false>(src, cheb, stages, shapes, dense, win_lo, win_hi,
-                                      img_total, dyn_smem);
+                                      img_total, n_fp, n_ip, dyn_smem);
+}
+
+// The floats of the head of the trace kernels' dynamic shared memory
+// (xrt_head_floats, trace_common.cuh) for packed buffers of n_fp floats
+// and n_ip ints.
+extern "C" int xrt_head_floats_of(int n_fp, int n_ip) {
+    return xrt_head_floats(n_fp, n_ip);
 }

@@ -15,9 +15,13 @@
 
 // Buffer layout, mirrored by ops/fused_trace.py (pack_params): the source
 // block, one block per optic, one per aperture, one per source filter.
-#define XRT_MAX_OPTICS 16
-#define XRT_MAX_APERTURES 64
-#define XRT_MAX_FILTERS 8
+// K1, K1e and K3 take chains of up to XRT_MAX_OPTICS optics (JAX's K1 takes
+// 127, xicsrt_tpu/ops/fused_trace.py:1296-1298), K5 up to
+// XRT_GRAD_MAX_OPTICS (fused_grad.cu). Apertures and source filters have no
+// count limit: every kernel copies the buffers, sized by the run, into the
+// head of its dynamic shared memory (xrt_head_floats), and a launcher
+// refuses a head that does not fit the shared memory of a block.
+#define XRT_MAX_OPTICS 127
 #define XRT_SRC_F 64
 #define XRT_OPT_F 32
 #define XRT_AP_F 4
@@ -25,11 +29,6 @@
 #define XRT_HDR_I 18
 #define XRT_OPT_I 16
 #define XRT_AP_I 2
-#define XRT_MAX_FP                                                    \
-    (XRT_SRC_F + XRT_MAX_OPTICS * XRT_OPT_F + XRT_MAX_APERTURES * XRT_AP_F + \
-     XRT_MAX_FILTERS * XRT_FILT_F)
-#define XRT_MAX_IP \
-    (XRT_HDR_I + XRT_MAX_OPTICS * XRT_OPT_I + XRT_MAX_APERTURES * XRT_AP_I)
 // Header ints 0-7: n_optics, n_apertures, cone kind, n_draws, image floats,
 // source kind, voxel draws, Cauchy draw. Source kinds: 0 a generic source,
 // 1 a plasma of bundle tables (K1), 2 a plasma of one bundle per ray (K5),
@@ -106,6 +105,36 @@
 #define XRT_O_MSIGMA 29
 #define XRT_O_MCUT 30
 #define XRT_OI_DEPTH 15
+
+// The head of the trace kernels' dynamic shared memory (K1, K1e's probe
+// and record, K3): XRT_HEAD_COUNTS per-element counters (K1's and K3's, as
+// many as a chain of XRT_MAX_OPTICS may have: pack_params refuses a longer
+// one, so ip[0] <= XRT_MAX_OPTICS), ip (n_ip ints) at a fixed
+// offset, then fp (n_fp floats), each rounded up to 16 bytes; what a
+// launch stages (images, K1's window) follows it. ip's fixed offset keeps
+// the flat build within its 48 registers: with ip behind fp, or the
+// counters behind both, it spilled 12 bytes (PERF.md). fp's offset
+// is a multiple of 16 bytes the compiler can see (xrt_round4), so it loads
+// an optic's floats 16 bytes at a time as from the static arrays: at a
+// run-time offset it cannot align, K1a's build issued 95 shared loads
+// where it had 57, and ran 4 % slower. The flagship's head is 1472 bytes;
+// at 127 optics and no aperture, 25.7 KB.
+#define XRT_HEAD_COUNTS (XRT_MAX_OPTICS + 1)
+__host__ __device__ inline int xrt_round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int xrt_head_floats(int n_fp, int n_ip) {
+    return XRT_HEAD_COUNTS + xrt_round4(n_ip) + xrt_round4(n_fp);
+}
+
+// fp and ip copied from device memory into a head, and n_words counters
+// zeroed (no __syncthreads).
+__device__ __forceinline__ void xrt_head_load(float* fp, const float* __restrict__ g_fp,
+                                              int n_fp, int* ip,
+                                              const int* __restrict__ g_ip, int n_ip,
+                                              unsigned int* words, int n_words) {
+    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
+    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
+    for (int i = threadIdx.x; i < n_words; i += blockDim.x) words[i] = 0u;
+}
 
 // Philox4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,

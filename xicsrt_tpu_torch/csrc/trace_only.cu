@@ -64,16 +64,16 @@ __global__ void trace_only_kernel(
     const float* __restrict__ uniforms,
     uint32_t seed0, uint32_t seed1, unsigned long long* __restrict__ counts,
     float* __restrict__ images, int img_total, int use_smem) {
-    extern __shared__ float s_img[];
-    __shared__ float fp[XRT_MAX_FP];
-    __shared__ int ip[XRT_MAX_IP];
-    __shared__ unsigned int s_counts[XRT_MAX_OPTICS + 1];
+    // The head of the dynamic shared memory (xrt_head_floats): the
+    // per-element counters, ip and fp, sized by the run; the staged images
+    // follow.
+    extern __shared__ __align__(16) float s_dyn[];
+    unsigned int* const s_counts = reinterpret_cast<unsigned int*>(s_dyn);
+    int* const ip = reinterpret_cast<int*>(s_dyn + XRT_HEAD_COUNTS);
+    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);
+    float* const s_img = s_dyn + xrt_head_floats(n_fp, n_ip);
 
-    for (int i = threadIdx.x; i < n_fp; i += blockDim.x) fp[i] = g_fp[i];
-    for (int i = threadIdx.x; i < n_ip; i += blockDim.x) ip[i] = g_ip[i];
-    for (int i = threadIdx.x; i < XRT_MAX_OPTICS + 1; i += blockDim.x) {
-        s_counts[i] = 0u;
-    }
+    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, s_counts, XRT_HEAD_COUNTS);
     if (use_smem) xrt_smem_zero(s_img, img_total);
     __syncthreads();
 
@@ -125,19 +125,24 @@ extern "C" int xrt_trace_only(const float* fp, int n_fp, const int* ip,
                               unsigned int seed0, unsigned int seed1,
                               unsigned long long* counts, float* images,
                               int img_total, int cheb, int stages, void* stream) {
-    if (n_fp > XRT_MAX_FP || n_ip > XRT_MAX_IP || aux == nullptr || n_aux <= 0 ||
+    if (n_fp < XRT_SRC_F || n_ip < XRT_HDR_I || aux == nullptr || n_aux <= 0 ||
         stages < 0 || stages > 2 || (weight != nullptr && stages == 0)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n <= 0) return (int)cudaSuccess;
     const int threads = 256;
-    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS;
-    const size_t smem = use_smem ? (size_t)img_total * sizeof(float) : 0;
     using Kernel = decltype(&trace_only_kernel<false, 0>);
     const Kernel kernels[6] = {trace_only_kernel<false, 0>, trace_only_kernel<false, 1>,
                                trace_only_kernel<false, 2>, trace_only_kernel<true, 0>,
                                trace_only_kernel<true, 1>,  trace_only_kernel<true, 2>};
     const Kernel kernel = kernels[(cheb ? 3 : 0) + stages];
+    // The head, and the images staged behind it where they fit; a head too
+    // large for a block's shared memory fails xrt_set_smem.
+    const size_t head = (size_t)xrt_head_floats(n_fp, n_ip) * sizeof(float);
+    const size_t staged = head + (size_t)img_total * sizeof(float);
+    const int use_smem = img_total <= XRT_SMEM_IMAGE_MAX_FLOATS &&
+                         xrt_set_smem(kernel, staged) == cudaSuccess;
+    const size_t smem = use_smem ? staged : head;
     cudaError_t err = xrt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = xrt_grid_size(kernel, threads, smem, n);

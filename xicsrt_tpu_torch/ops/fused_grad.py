@@ -47,6 +47,7 @@ they are the truth the float32 kernels are held to.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -63,6 +64,10 @@ class FusedGradUnsupported(ft.FusedUnsupported):
 
 SLOTS_PER_OPTIC = 24
 SRC_SLOTS = 8
+# pvec's most slots, and so K5's longest chain (XRT_GRAD_MAX_SLOTS,
+# XRT_GRAD_MAX_OPTICS of csrc/fused_grad.cu; JAX's fused_grad.py:1709-1711).
+MAX_SLOTS = 1024
+MAX_OPTICS = 42
 _EPS = 1e-12
 _SIGMA_PER_FWHM = 1.0 / (2.0 * math.sqrt(2.0 * math.log(2.0)))
 _M32 = 0xFFFFFFFF
@@ -1075,12 +1080,15 @@ fused_grad_forward_cuda.launches = 0
 def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
                         n_total: int, lam: float, g_flat: torch.Tensor,
                         uniforms=None, seed=(0, 0),
-                        chunk: int = 32768) -> torch.Tensor:
+                        chunk: int = 32768, global_rows: bool = False) -> torch.Tensor:
     """Gradient of ``sum(g_flat * images)`` with respect to ``pvec``
     (kernel K5b), float32 ``[pvec.numel()]``. The kernel writes one float64
-    row of slot sums per block; they are summed here in float64. Buffers on
-    the CPU take :func:`fused_grad_vjp_plain`, with ``chunk`` rays per
-    slice."""
+    row of slot sums per block; they are summed here in float64. Each
+    thread's slot sums, ray and torus roots are rows of shared memory where
+    they fit beside a resident block, else of a scratch buffer in device
+    memory allocated here (``xrt_fused_grad_bwd_layout``; ``global_rows``
+    takes it for any chain, which gives the same bits). Buffers on the CPU
+    take :func:`fused_grad_vjp_plain`, with ``chunk`` rays per slice."""
     device = static.fp.device
     if device.type == "cpu":
         return fused_grad_vjp_plain(static, pvec, n_total, lam, g_flat, uniforms, seed,
@@ -1096,19 +1104,31 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
     if n_total == 0:
         return torch.zeros(n_slots, dtype=torch.float32, device=device)
     lib = native.library()
-    n_blocks = lib.xrt_fused_grad_bwd_blocks(n_total, static.img_total, static.n_optics,
-                                             _variant(static))
-    if n_blocks <= 0:
-        native.check(-n_blocks, "xrt_fused_grad_bwd_blocks")
-    partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
-    pvec, g_flat = pvec.contiguous(), g_flat.contiguous()
     fp, ip, aux = ft._buffers(static, "fused_grad_vjp_cuda")
+
+    def layout(rows_global):
+        out = (ctypes.c_longlong * 4)()
+        native.check(lib.xrt_fused_grad_bwd_layout(
+            n_total, static.img_total, fp.numel(), ip.numel(), n_slots, static.n_optics,
+            _variant(static), int(rows_global), out), "xrt_fused_grad_bwd_layout")
+        return int(out[0]), int(out[2])
+
+    # The grid of the shared rows where they fit, so that global_rows sums
+    # each thread's rays in the same order.
+    n_blocks, per_block = layout(False)
+    if global_rows:
+        per_block = layout(True)[1]
+    n_cols = n_blocks * per_block
+    partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
+    cols = (torch.empty(n_cols, dtype=torch.float32, device=device) if n_cols else None)
+    pvec, g_flat = pvec.contiguous(), g_flat.contiguous()
     err = lib.xrt_fused_grad_bwd(
         fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
         aux.numel(), pvec.data_ptr(), n_slots, n_total, float(lam),
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, g_flat.data_ptr(),
         static.img_total, static.n_optics, partial.data_ptr(), n_blocks, _variant(static),
+        None if cols is None else cols.data_ptr(), n_cols, int(global_rows),
         torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_fused_grad_bwd")
     fused_grad_vjp_cuda.launches += 1
@@ -1158,6 +1178,10 @@ def build_fused_diff(pipeline, num_iter: int | None = None,
         raise ValueError("chunk must be positive")
     src = _grad_source_spec(pipeline.source)
     optics = [_grad_optic_spec(o) for o in pipeline.optics]
+    # pvec holds at most 1024 slots, as JAX's (fused_grad.py:1709-1711).
+    plasma = src["kind"] == 2
+    if _round_up(len(optics) * SLOTS_PER_OPTIC + (SRC_SLOTS if plasma else 0), 8) > MAX_SLOTS:
+        raise FusedGradUnsupported(f"more than {MAX_OPTICS} optics")
     if not any(o["image"] is not None for o in optics):
         raise FusedGradUnsupported("no imaged optic")
     device = pipeline.device

@@ -21,8 +21,8 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   12 bracketed Newton steps on the TPU kernel's polynomial arcsin),
   ``flat``, ``flat_xy`` and ``gaussian`` cones; one wavelength, a uniform
   band or an exact Voigt line (a Gaussian plus a Cauchy, not the eager
-  engine's table); the bulk Doppler shift; counted or Poisson budgets; up to
-  8 sightline filters, tested on each ray's origin in the kernel;
+  engine's table); the bulk Doppler shift; counted or Poisson budgets;
+  sightline filters, tested on each ray's origin in the kernel;
 - plasma sources of up to 2^22 bundles (K1f): the O(bundle_count) stage
   runs in PyTorch on the device per iteration (the source's
   ``bundle_tables``) and the kernel gives each ray its bundle by binary
@@ -53,8 +53,10 @@ Supported subset (``general.engine='fused'``; outside it the build raises
   the kept chunks' rays traced again, each element's state recorded, K1
   only.
 
-A source K1 refuses (a plasma of more than 2^22 bundles, or more than 8
-filters) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
+Chains of up to 127 optics (K1, K1e, K3; 42 for the gradient kernels K5),
+with any number of apertures and filters that fits a block's shared memory
+(``HEAD_MAX_BYTES``). A source K1 refuses (a plasma of more than 2^22
+bundles) runs on K3 when the chain is in the subset (:func:`build_fast_run`,
 as ``fused_trace.py:2229-2262``): the eager engine generates each
 iteration's rays and K3 traces them.
 
@@ -103,9 +105,16 @@ class FusedUnsupported(NotImplementedError):
 # draws (plasma), Cauchy draw; 8-15 the generic source's structure (H_*);
 # 16-17 the run's modes: weight mode (the rays carry weights; crystals
 # weigh instead of drawing) and bilinear images.
-MAX_OPTICS = 16
-MAX_APERTURES = 64
-MAX_FILTERS = 8
+# K1, K1e and K3 take chains of up to MAX_OPTICS optics, as JAX's K1
+# (``fused_trace.py:1296-1298``). Apertures and source filters have no count
+# limit: the kernels copy the packed buffers into the head of their dynamic
+# shared memory (``xrt_head_floats``, ``csrc/trace_common.cuh``: the
+# per-element counters of MAX_OPTICS + 1 elements, ip, fp), sized by the
+# run, so only a head past HEAD_MAX_BYTES, which leaves a block's 227 KB
+# room for a build's static shared memory, is refused (about 8000
+# apertures).
+MAX_OPTICS = 127
+HEAD_MAX_BYTES = 192 * 1024
 SRC_F, OPT_F, AP_F, FILT_F = 64, 32, 4, 8
 HDR_I, OPT_I, AP_I = 18, 16, 2
 (H_FILTERS, H_SPATIAL, H_FOCUSED, H_WAVE, H_GAUSS, H_CAUCHY, H_VELOCITY,
@@ -224,8 +233,6 @@ def _filter_specs(p, filter_map) -> list:
             names.append(fname)
         elif type(flt) is not FilterBase:
             raise FusedUnsupported(f"source filter {fname!r}")
-    if len(names) > MAX_FILTERS:
-        raise FusedUnsupported(f"more than {MAX_FILTERS} source filters")
     return names
 
 
@@ -750,6 +757,13 @@ def _pack_ray_plasma_source(src: dict, sp: dict, fp: np.ndarray) -> None:
     fp[30] = src["w0_per_E"]
 
 
+def head_bytes(n_fp: int, n_ip: int) -> int:
+    """Bytes of the trace kernels' head (``xrt_head_floats``): MAX_OPTICS + 1
+    per-element counters, then n_ip ints and n_fp floats, each rounded up
+    to 16 bytes."""
+    return 4 * (MAX_OPTICS + 1 + -(-n_ip // 4) * 4 + -(-n_fp // 4) * 4)
+
+
 def pack_params(src: dict, optics: list, params: dict, device, weight: bool = False,
                 bilinear: bool = False) -> FusedParams:
     """Pack the structure specs and the run's ``params`` into the kernel's
@@ -761,11 +775,13 @@ def pack_params(src: dict, optics: list, params: dict, device, weight: bool = Fa
     filters = src.get("filters", [])
     if n_opt > MAX_OPTICS:
         raise FusedUnsupported(f"more than {MAX_OPTICS} optics")
-    if n_ap > MAX_APERTURES:
-        raise FusedUnsupported(f"more than {MAX_APERTURES} apertures")
     flt_base = SRC_F + n_opt * OPT_F + n_ap * AP_F
     fp = np.zeros(flt_base + len(filters) * FILT_F, np.float64)
     ip = np.zeros(HDR_I + n_opt * OPT_I + n_ap * AP_I, np.int32)
+    if head_bytes(fp.size, ip.size) > HEAD_MAX_BYTES:
+        raise FusedUnsupported(f"{n_ap} apertures and {len(filters)} filters: packed "
+                               f"buffers of {head_bytes(fp.size, ip.size)} bytes pass a "
+                               f"block's shared memory")
 
     kind = src["kind"]
     wavelength = None  # per ray unless a generic source holds it constant
@@ -2408,8 +2424,7 @@ def build_fast_run(pipeline, num_iter: int | None = None,
     path, which raises ``FusedUnsupported`` itself where the chain is
     outside the subset (JAX ``fused_trace.py:2229-2262``). The reservoir
     exists only in K1: with a history, K1's refusal raises. On this card
-    K3 serves the sources K1 refuses: plasmas of more than 2^22 bundles
-    and sources of more than 8 filters.
+    K3 serves the sources K1 refuses: plasmas of more than 2^22 bundles.
     """
     try:
         return (build_fused_run(pipeline, num_iter=num_iter,

@@ -61,10 +61,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         _P, ctypes.c_int, _P,
     ],
-    "xrt_fused_trace_occupancy": [ctypes.c_int] * 8 + [_P],
+    "xrt_fused_trace_occupancy": [ctypes.c_int] * 10 + [_P],
+    "xrt_head_floats_of": [ctypes.c_int] * 2,
     "xrt_fused_trace_build": [ctypes.c_int] * 5,
     "xrt_fused_trace_threads": [ctypes.c_int] * 3,
-    "xrt_fused_trace_marked_occupancy": [ctypes.c_int] * 8 + [_P],
+    "xrt_fused_trace_marked_occupancy": [ctypes.c_int] * 10 + [_P],
     "xrt_history_probe": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, _P, ctypes.c_uint, ctypes.c_uint, _P, _P,
@@ -88,14 +89,14 @@ _SIGNATURES = {
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, ctypes.c_int, _P,
     ],
-    "xrt_fused_grad_fwd_threads": [ctypes.c_int, ctypes.c_int],
+    "xrt_fused_grad_fwd_threads": [ctypes.c_int] * 4,
     "xrt_fused_grad_bwd_threads": [ctypes.c_int],
-    "xrt_fused_grad_bwd_blocks": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int],
+    "xrt_fused_grad_bwd_layout": [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P],
     "xrt_fused_grad_bwd": [
         _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint,
         _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_longlong, ctypes.c_int, _P,
     ],
     "xrt_elem_rate": [
         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -3,9 +3,11 @@
 The port's own copy of what ``tools/bench_scenarios.py`` (``_crystal``,
 ``_config``, ``_plasma_config`` and ``SCENARIOS``, :20-125) and
 ``__graft_entry__.py`` (``_spectrometer_config``, the flagship, :15) hold:
-plain config dicts, the same in both packages. :func:`time_launches` is the
-counterpart of ``time_chained``: CUDA events around several launches after
-a warm-up, each launch with a fresh seed, the best of a few blocks.
+plain config dicts, the same in both packages; and :func:`baffle_config`,
+the flagship behind a stack of aperture plates (the long optic chains).
+:func:`time_launches` is the counterpart of ``time_chained``: CUDA events
+around several launches after a warm-up, each launch with a fresh seed,
+the best of a few blocks.
 """
 
 from __future__ import annotations
@@ -179,6 +181,34 @@ def _spectrometer_config(intensity, num_iter=1, **general):
             },
         },
     }
+
+
+def with_baffles(cfg, n_planes):
+    """``cfg`` (a source at the origin aimed along +z) with ``n_planes``
+    circular aperture plates ahead of its optics, as a spectrometer looking
+    into a plasma through a port tube limits its view. Plate k of N (k = 0
+    ... N-1) sits at z_k = 0.05 + 0.30 k / N on the source axis, facing -z,
+    a circle of radius 0.2 z_k with logic 'and': it clips the corners of
+    the flagship's ``isotropic_xy`` 10 degree box. Returns a new dict."""
+    optics = {}
+    for k in range(n_planes):
+        z = 0.05 + 0.30 * k / n_planes
+        optics[f"baffle{k:03d}"] = {
+            "class_name": "XicsrtOpticAperture",
+            "origin": [0.0, 0.0, z],
+            "zaxis": [0.0, 0.0, -1.0],
+            "aperture": [{"shape": "circle", "size": [0.2 * z], "logic": "and"}],
+        }
+    optics.update(cfg["optics"])
+    return dict(cfg, optics=optics)
+
+
+def baffle_config(n_planes, intensity, num_iter=1, **general):
+    """The flagship behind ``n_planes`` baffle plates (:func:`with_baffles`):
+    ``baffle127`` is 124 plates (127 optics, the fused trace kernels'
+    longest chain), ``baffle42`` 39 (42, the fused gradient's), ``baffle27``
+    24."""
+    return with_baffles(_spectrometer_config(intensity, num_iter, **general), n_planes)
 
 
 # time_launches: warm-up calls, then blocks of timed calls, the best block
