@@ -55,7 +55,22 @@ templates:
   dropped (a warp's peers on a pixel adding once);
 - ``head_image_first``, ``head_fp_first`` (``HEAD_LEADS``): K1's dynamic
   shared memory in another order than the checkout's (counters, ip, fp,
-  then the staged image): the image behind the counters, or fp before ip.
+  then the staged image): the image behind the counters, or fp before ip;
+- ``chain_no_count``, ``chain_no_vote``, ``chain_no_apertures``,
+  ``chain_params_const``, ``apertures_switch`` (``CHAIN_SPLIT``): the
+  split of K1's chain on long chains (``--long-only``): no count, no warp
+  vote before an element, apertures that return their bounds mask, the
+  packed floats from ``__constant__`` memory (times only where the counts
+  move, ``TIMES_ONLY``), and the aperture test's earlier switches;
+- ``checkpoints``, ``root_found`` (``K5B_LEADS``): K5b's replay build with
+  a checkpoint every ceil(sqrt(n)) optics in shared memory in place of
+  every entry state saved, or with each torus's Newton root found again in
+  the replay in place of saved in the first pass (``--long-only`` times
+  K5b alone); ``apertures_loop``, ``apertures_shared``, ``apertures_peel``
+  (``CHAIN_SPLIT``): K1's chain without the single aperture's path
+  (``xrt_chain_apertures``), that path and xrt_apertures' loop as one
+  function on shared helpers, or the first aperture peeled for every
+  count in its place.
 
 ``--layouts`` picks among them (default: all); ``--trace-only`` times K1,
 K1e and K3 alone, for the leads of the trace kernels; ``--stage1-only``
@@ -66,7 +81,12 @@ card (3 means of 3 calls); ``--k1e-only`` times K1e's rows
 (:func:`k1e_rows`); ``--k4-only`` times K4 alone on phase 16's and phase
 13's tables beside its bound and ``torch.repeat_interleave``
 (:func:`k4_rows`); ``--k1c-only`` times K1c-mirror's and K1c-cylinder's
-rows and those that share their code (:func:`k1c_rows`).
+rows and those that share their code (:func:`k1c_rows`); ``--long-only``
+times the long chains' rows (:func:`long_rows`: K1, its marked build and
+K3 on ``baffle127`` and its ``raytrace`` of 2^28 rays, K5f, K5b and the
+2^24-ray step on ``baffle42``, K1a and K5b on the short chains beside
+them, and K5b's cut-over between its builds on short chains behind 0-5
+plates).
 
 ``--parent DIR`` adds another tree as it is, such as the parent commit
 unpacked there with ``git archive``. All trees are built at once (one
@@ -157,7 +177,7 @@ _CHUNK = "constexpr int kMosaicChunk = 4;"
 _SPREAD = "xrt_mosaic<!kCheb>("
 _K1_DECL = "__global__ void fused_trace_kernel("
 _K3_DECL = "__global__ void trace_only_kernel("
-_K3_THREADS = "    const int threads = 256;\n    const int use_smem"
+_K3_THREADS = "    const int threads = 256;\n    using Kernel"
 MOSAIC_LEADS = {
     "group_2": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 2;"}},
     "group_8": {_CHAIN: {_GROUP: "constexpr int kMosaicGroup = 8;"}},
@@ -327,7 +347,7 @@ _LOOKUP = "const int b = xrt_warp_bundle(cum_j, n_bundles, local, alive, lane);"
 SPLIT_LAYOUTS = {
     "source_only": {_RUN: {_K1_CHAIN: """        const bool found =
             alive && px + py + pz + dx + dy + dz + wl == 1.0e30f;
-        xrt_count_warp(s_counts, 1, found, lane);
+        xrt_count_reach(s_counts, found ? 1 : 0, lane);
 """}},
     "skip_lookup": {_RUN: {_LOOKUP: "const int b = 0;"}},
 }
@@ -427,7 +447,7 @@ _PAIR_LOOP = _RUN_LOOP + """    if constexpr (kSrc == XRT_K1_PLASMA && !kCheb &&
                                                count, cum, table, n_bundles, n_per_iter, lane,
                                                p[i][0], p[i][1], p[i][2], p[i][3], p[i][4],
                                                p[i][5], wl[i]);
-                xrt_count_warp(s_counts, 0, alive[i], lane);
+                xrt_count_source(s_counts, alive[i], lane);
             }
             float t[2] = {0.0f, 0.0f};
             int hit[2] = {-1, -1};
@@ -600,13 +620,13 @@ _CLUSTER_ZERO = """    }
     }
 """
 _BODY_END = """    __syncthreads();
-    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {"""
+    xrt_flush_counts(s_counts, n_opt, counts);"""
 _CLUSTER_END = """    if (split) {
         cooperative_groups::this_cluster().sync();
     } else {
         __syncthreads();
     }
-    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {"""
+    xrt_flush_counts(s_counts, n_opt, counts);"""
 _BODY_FLUSH = """    } else if constexpr (kStages == 0 || kStaged) {
         if (use_smem) xrt_smem_flush(s_img, out, img_total);
     }
@@ -817,9 +837,493 @@ HEAD_LEADS = {"head_image_first": {_RUN: {
         "    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);\n":
         "    float* const fp = fp_first;\n"}}}
 
+# The split of K1's cost a plate on long chains (``--long-only``, times
+# only), each one change to the checkout's chain (trace_chain.cuh) or head:
+# no per-element count, no warp vote before an element, apertures that
+# return their bounds mask, and the packed floats read from __constant__
+# memory (copied there before each launch) in place of the shared head.
+_FP_HEAD = "    float* const fp = s_dyn + XRT_HEAD_COUNTS + xrt_round4(n_ip);\n"
+_FP_CONST = "    const float* const fp = xrt_c_fp;\n"
+_HEAD_LOAD = "    xrt_head_load(fp, g_fp, n_fp, ip, g_ip, n_ip, s_counts, XRT_HEAD_COUNTS);\n"
+_HEAD_LOAD_IP = ("    xrt_head_load(nullptr, g_fp, 0, ip, g_ip, n_ip, s_counts, "
+                 "XRT_HEAD_COUNTS);\n")
+_COUNTS_DEF = "#define XRT_HEAD_COUNTS (XRT_MAX_OPTICS + 1)\n"
+_C_FP = ("#define XRT_HEAD_COUNTS (XRT_MAX_OPTICS + 1)\n"
+         "static __constant__ float xrt_c_fp[8192];\n")
+_COPY_FP = ("    cudaMemcpyToSymbolAsync(xrt_c_fp, fp, (size_t)n_fp * sizeof(float), 0,\n"
+            "                            cudaMemcpyDeviceToDevice, (cudaStream_t)stream);\n")
+_K3_LAUNCH = "    const int blocks = xrt_grid_size(kernel, threads, smem, n);\n"
+CHAIN_SPLIT = {
+    "chain_no_count": {_CHAIN: {
+        "    if constexpr (!Rec::kOn) xrt_count_reach(s_counts, reach, lane);\n": ""}},
+    "chain_no_vote": {_CHAIN: {_SKIP: ""}},
+    "chain_no_apertures": {_CHAIN: {
+        "        bool mask = xrt_chain_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);":
+        "        bool mask = m_in;"}},
+    "chain_params_const": {
+        _COMMON: {_COUNTS_DEF: _C_FP},
+        _RUN: {_FP_HEAD: _FP_CONST, _HEAD_LOAD: _HEAD_LOAD_IP, _LAUNCH: _COPY_FP + _LAUNCH},
+        _K3: {_FP_HEAD: _FP_CONST, _HEAD_LOAD: _HEAD_LOAD_IP,
+              _K3_LAUNCH: _COPY_FP + _K3_LAUNCH}},
+}
+# The lead of K1's redesign on long chains undone: the aperture test's
+# switch over its logic codes and over its shapes, as it was before.
+_APERTURES_NOW = """    bool m_out = m_in;
+    for (int a = first; a < first + count; ++a) {
+        const float ax = lxv - apf[a * XRT_AP_F];
+        const float ay = lyv - apf[a * XRT_AP_F + 1];
+        const float p0 = apf[a * XRT_AP_F + 2];
+        const float p1 = apf[a * XRT_AP_F + 3];
+        const int shape = api[a * XRT_AP_I];
+        bool test;
+        if (shape == 1) {
+            test = ax * ax + ay * ay < p0;
+        } else if (shape == 2) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p0;
+        } else if (shape == 3) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p1;
+        } else if (shape == 0) {
+            test = true;
+        } else {
+            const float ex = ax / p0, ey = ay / p1;
+            test = ex * ex + ey * ey < 1.0f;
+        }
+        test = test && m_in;
+        // The logic's truth table, a nibble a code indexed by 2 m_out +
+        // test (0 and 8, 1 and-not 4, 2 or 0xE, 3 nand 7, 4 nor 1, 5 xor 6,
+        // else xnor 9): one shift in place of a switch over seven codes,
+        // and the shapes by frequency, the baffles' circles first
+        // (chip_ab.py `apertures_switch`, PERF.md).
+        const unsigned int logic = min((unsigned int)api[a * XRT_AP_I + 1], 6u);
+        const bool nv = (0x9617E48u >> (4u * logic + 2u * m_out + test)) & 1u;
+        m_out = m_in ? nv : m_out;
+    }
+"""
+_APERTURES_SWITCH = """    bool m_out = m_in;
+    for (int a = first; a < first + count; ++a) {
+        const float ax = lxv - apf[a * XRT_AP_F];
+        const float ay = lyv - apf[a * XRT_AP_F + 1];
+        const float p0 = apf[a * XRT_AP_F + 2];
+        const float p1 = apf[a * XRT_AP_F + 3];
+        bool test;
+        switch (api[a * XRT_AP_I]) {
+            case 0: test = true; break;
+            case 1: test = ax * ax + ay * ay < p0; break;
+            case 2: test = fabsf(ax) < p0 && fabsf(ay) < p0; break;
+            case 3: test = fabsf(ax) < p0 && fabsf(ay) < p1; break;
+            default: {
+                const float ex = ax / p0, ey = ay / p1;
+                test = ex * ex + ey * ey < 1.0f;
+            }
+        }
+        test = test && m_in;
+        bool nv;
+        switch (api[a * XRT_AP_I + 1]) {
+            case 0: nv = m_out && test; break;
+            case 1: nv = m_out && !test; break;
+            case 2: nv = m_out || test; break;
+            case 3: nv = !(m_out && test); break;
+            case 4: nv = !(m_out || test); break;
+            case 5: nv = m_out != test; break;
+            default: nv = m_out == test;
+        }
+        m_out = m_in ? nv : m_out;
+    }
+"""
+CHAIN_SPLIT["apertures_switch"] = {_COMMON: {_APERTURES_NOW: _APERTURES_SWITCH}}
+# Leads of K1's redesign on long chains, tried as layouts: a plate (a
+# plane with no interaction and no image) in a body of its own, one
+# branch on warp-uniform ints; and the warp vote before every fourth
+# element only, and before the last three.
+_CHAIN_OI = "        const int* oi = ip + XRT_HDR_I + e * XRT_OPT_I;\n"
+_PLATE = _CHAIN_OI + """        if (oi[0] == 0 && oi[2] == 0 && oi[7] < 0) {
+            float denom;
+            bool nz;
+            const float t = xrt_plane_hit(o[0], o[1], o[2], o[9], o[10], o[11], px, py,
+                                          pz, dx, dy, dz, &denom, &nz);
+            const bool m_int = alive && t >= 0.0f && nz;
+            const float qx = m_int ? px + t * dx : px;
+            const float qy = m_int ? py + t * dy : py;
+            const float qz = m_int ? pz + t * dz : pz;
+            const float rx = qx - o[0], ry = qy - o[1], rz = qz - o[2];
+            const float lxv = rx * o[3] + ry * o[4] + rz * o[5];
+            const float lyv = rx * o[6] + ry * o[7] + rz * o[8];
+            const bool m_in = xrt_bounds(m_int, oi[4], o + 16, lxv, lyv, rx, ry, rz, o[9],
+                                         o[10], o[11]);
+            alive = xrt_chain_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);
+            px = qx;
+            py = qy;
+            pz = qz;
+            if constexpr (Rec::kOn) {
+                rec(1 + e, px, py, pz, dx, dy, dz, alive, wt);
+            } else {
+                reach += alive;
+            }
+            continue;
+        }
+"""
+CHAIN_SPLIT["plate_path"] = {_CHAIN: {_CHAIN_OI: _PLATE}}
+CHAIN_SPLIT["vote_sparse"] = {_CHAIN: {_SKIP: _SKIP.replace(
+    "if (vote && ", "if (vote && ((e & 3) == 0 || e + 3 >= n_opt) && ")}}
+# The chain's path of its own for an optic's single aperture undone: every
+# optic's apertures through xrt_apertures' loop.
+_CHAIN_APERTURES = ("        bool mask = xrt_chain_apertures(apf, api, oi[6], oi[5], lxv, lyv, "
+                    "m_in);")
+CHAIN_SPLIT["apertures_loop"] = {_CHAIN: {
+    _CHAIN_APERTURES: _CHAIN_APERTURES.replace("xrt_chain_apertures", "xrt_apertures")}}
+# The reach histogram's warp aggregation by a loop of ballots over the
+# distinct reaches in place of __match_any_sync.
+_MATCH_ANY = """    const unsigned int peers = __match_any_sync(0xffffffffu, reach);
+    if (reach > 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(s_counts + reach, (unsigned int)__popc(peers));
+    }
+"""
+_BALLOT_LOOP = """    unsigned int todo = __ballot_sync(0xffffffffu, reach > 0);
+    while (todo) {
+        const int first = __ffs(todo) - 1;
+        const int v = __shfl_sync(0xffffffffu, reach, first);
+        const unsigned int peers = __ballot_sync(0xffffffffu, reach == v);
+        if (lane == first) atomicAdd(s_counts + v, (unsigned int)__popc(peers));
+        todo &= ~peers;
+    }
+"""
+CHAIN_SPLIT["count_ballot_loop"] = {_CHAIN: {_MATCH_ANY: _BALLOT_LOOP}}
+# The single aperture's path and xrt_apertures' loop as one function on
+# shared helpers (xrt_apertures<kSingle>; rejected: K5f's generic-source variant
+# spilled at its 64 registers), or with the first aperture peeled for
+# every count in place of the single aperture's path (rejected: K1 6 %
+# slower on baffle127, the marked builds spilled).
+_APERTURE_FN = """// Aperture logic (ops/aperture.py) over apertures [first, first + count)
+// of the packed aperture block: m_in is the bounds mask, m_out the running
+// value; updates apply only inside m_in. Returns m_out && m_in.
+__device__ __forceinline__ bool xrt_apertures(const float* apf,
+                                              const int* api, int first,
+                                              int count, float lxv, float lyv,
+                                              bool m_in) {
+    bool m_out = m_in;
+    for (int a = first; a < first + count; ++a) {
+        const float ax = lxv - apf[a * XRT_AP_F];
+        const float ay = lyv - apf[a * XRT_AP_F + 1];
+        const float p0 = apf[a * XRT_AP_F + 2];
+        const float p1 = apf[a * XRT_AP_F + 3];
+        const int shape = api[a * XRT_AP_I];
+        bool test;
+        if (shape == 1) {
+            test = ax * ax + ay * ay < p0;
+        } else if (shape == 2) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p0;
+        } else if (shape == 3) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p1;
+        } else if (shape == 0) {
+            test = true;
+        } else {
+            const float ex = ax / p0, ey = ay / p1;
+            test = ex * ex + ey * ey < 1.0f;
+        }
+        test = test && m_in;
+        // The logic's truth table, a nibble a code indexed by 2 m_out +
+        // test (0 and 8, 1 and-not 4, 2 or 0xE, 3 nand 7, 4 nor 1, 5 xor 6,
+        // else xnor 9): one shift in place of a switch over seven codes,
+        // and the shapes by frequency, the baffles' circles first
+        // (chip_ab.py `apertures_switch`, PERF.md).
+        const unsigned int logic = min((unsigned int)api[a * XRT_AP_I + 1], 6u);
+        const bool nv = (0x9617E48u >> (4u * logic + 2u * m_out + test)) & 1u;
+        m_out = m_in ? nv : m_out;
+    }
+    return m_out && m_in;
+}
+
+"""
+_CHAIN_SINGLE = "        bool mask = xrt_chain_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);"
+_APERTURES_SHARED = """// Aperture a's shape test of a hit at local (lxv, lyv): the shapes by
+// frequency, the baffles' circles first.
+__device__ __forceinline__ bool xrt_aperture_test(const float* apf, const int* api, int a,
+                                                  float lxv, float lyv) {
+    const float ax = lxv - apf[a * XRT_AP_F];
+    const float ay = lyv - apf[a * XRT_AP_F + 1];
+    const float p0 = apf[a * XRT_AP_F + 2];
+    const int shape = api[a * XRT_AP_I];
+    if (shape == 1) return ax * ax + ay * ay < p0;
+    if (shape == 2) return fabsf(ax) < p0 && fabsf(ay) < p0;
+    if (shape == 3) return fabsf(ax) < p0 && fabsf(ay) < apf[a * XRT_AP_F + 3];
+    if (shape == 0) return true;
+    const float ex = ax / p0, ey = ay / apf[a * XRT_AP_F + 3];
+    return ex * ex + ey * ey < 1.0f;
+}
+
+// Aperture a's logic applied to the running value m_out and its test: the
+// logic's truth table, a nibble a code indexed by 2 m_out + test (0 and 8,
+// 1 and-not 4, 2 or 0xE, 3 nand 7, 4 nor 1, 5 xor 6, else xnor 9), one
+// shift in place of a switch over seven codes (chip_ab.py
+// `apertures_switch`, PERF.md).
+__device__ __forceinline__ bool xrt_aperture_logic(const int* api, int a, bool m_out,
+                                                   bool test) {
+    const unsigned int logic = min((unsigned int)api[a * XRT_AP_I + 1], 6u);
+    return (0x9617E48u >> (4u * logic + 2u * m_out + test)) & 1u;
+}
+
+// Aperture logic (ops/aperture.py) over apertures [first, first + count)
+// of the packed aperture block: m_in is the bounds mask, m_out the running
+// value; updates apply only inside m_in. Returns m_out && m_in. kSingle:
+// an optic of one aperture (a baffle plate's) takes a path of its own with
+// no loop: m_out starts at m_in, so wherever the logic applies it reads
+// (1, test). K1's and K3's chain takes it (K1 on baffle127 12 % faster,
+// chip_ab.py `apertures_loop`), K5 does not; peeling the first aperture
+// for every count in place of this path cost K1 6 % on baffle127 and
+// spilled the marked builds (`apertures_peel`, PERF.md).
+template <bool kSingle = false>
+__device__ __forceinline__ bool xrt_apertures(const float* apf,
+                                              const int* api, int first,
+                                              int count, float lxv, float lyv,
+                                              bool m_in) {
+    if (kSingle && count == 1) {
+        return m_in && xrt_aperture_logic(api, first, true,
+                                          xrt_aperture_test(apf, api, first, lxv, lyv));
+    }
+    bool m_out = m_in;
+    for (int a = first; a < first + count; ++a) {
+        const bool test = xrt_aperture_test(apf, api, a, lxv, lyv) && m_in;
+        const bool nv = xrt_aperture_logic(api, a, m_out, test);
+        m_out = m_in ? nv : m_out;
+    }
+    return m_out && m_in;
+}
+
+"""
+CHAIN_SPLIT["apertures_shared"] = {
+    _COMMON: {_APERTURE_FN: _APERTURES_SHARED},
+    _CHAIN: {_CHAIN_SINGLE: _CHAIN_SINGLE.replace("xrt_chain_apertures", "xrt_apertures<true>")}}
+CHAIN_SPLIT["apertures_peel"] = {
+    _COMMON: {_APERTURE_FN: """// Aperture a's shape test of a hit at local (lxv, lyv): the shapes by
+// frequency, the baffles' circles first.
+__device__ __forceinline__ bool xrt_aperture_test(const float* apf, const int* api, int a,
+                                                  float lxv, float lyv) {
+    const float ax = lxv - apf[a * XRT_AP_F];
+    const float ay = lyv - apf[a * XRT_AP_F + 1];
+    const float p0 = apf[a * XRT_AP_F + 2];
+    const int shape = api[a * XRT_AP_I];
+    if (shape == 1) return ax * ax + ay * ay < p0;
+    if (shape == 2) return fabsf(ax) < p0 && fabsf(ay) < p0;
+    if (shape == 3) return fabsf(ax) < p0 && fabsf(ay) < apf[a * XRT_AP_F + 3];
+    if (shape == 0) return true;
+    const float ex = ax / p0, ey = ay / apf[a * XRT_AP_F + 3];
+    return ex * ex + ey * ey < 1.0f;
+}
+
+// Aperture a's logic applied to the running value m_out and its test: the
+// logic's truth table, a nibble a code indexed by 2 m_out + test (0 and 8,
+// 1 and-not 4, 2 or 0xE, 3 nand 7, 4 nor 1, 5 xor 6, else xnor 9), one
+// shift in place of a switch over seven codes (chip_ab.py
+// `apertures_switch`, PERF.md).
+__device__ __forceinline__ bool xrt_aperture_logic(const int* api, int a, bool m_out,
+                                                   bool test) {
+    const unsigned int logic = min((unsigned int)api[a * XRT_AP_I + 1], 6u);
+    return (0x9617E48u >> (4u * logic + 2u * m_out + test)) & 1u;
+}
+
+// Aperture logic (ops/aperture.py) over apertures [first, first + count)
+// of the packed aperture block: m_in is the bounds mask, m_out the running
+// value; updates apply only inside m_in. Returns m_out && m_in. kSingle:
+// an optic of one aperture (a baffle plate's) takes a path of its own with
+// no loop: m_out starts at m_in, so wherever the logic applies it reads
+// (1, test). K1's and K3's chain takes it (K1 on baffle127 12 % faster,
+// chip_ab.py `apertures_loop`), K5 does not; peeling the first aperture
+// for every count in place of this path cost K1 6 % on baffle127 and
+// spilled the marked builds (`apertures_peel`, PERF.md).
+template <bool kSingle = false>
+__device__ __forceinline__ bool xrt_apertures(const float* apf,
+                                              const int* api, int first,
+                                              int count, float lxv, float lyv,
+                                              bool m_in) {
+    if (count <= 0) return m_in;
+    bool m_out = m_in && xrt_aperture_logic(api, first, true,
+                                            xrt_aperture_test(apf, api, first, lxv, lyv));
+    for (int a = first + 1; a < first + count; ++a) {
+        const bool test = xrt_aperture_test(apf, api, a, lxv, lyv) && m_in;
+        const bool nv = xrt_aperture_logic(api, a, m_out, test);
+        m_out = m_in ? nv : m_out;
+    }
+    return m_out;
+}
+
+"""},
+    _CHAIN: {_CHAIN_SINGLE: _CHAIN_SINGLE.replace("xrt_chain_apertures", "xrt_apertures")}}
+# Layouts whose counts are not the twin's (times only).
+TIMES_ONLY = {"source_only", "chain_no_count", "chain_no_apertures"}
+
+# K5b's design (b), rejected: the replay build with a checkpoint every
+# ceil(sqrt(n)) optics in shared memory, each segment's states run once more
+# from its checkpoint when its adjoints come (about 3n - k - n / k
+# forwards a ray), in place of every entry state saved (times only in
+# ``long_rows``: the launcher's replay build of this tree is (b)); and the
+# torus's Newton root found again in the replay from the entry state, in
+# place of saved in the first pass.
+_K5B_ROWS_DEF = """__host__ __device__ inline int replay_state_rows(int n_opt, bool torus) {
+    return (XRT_STATE_ROWS + (torus ? 2 : 0)) * n_opt;
+}
+"""
+_K5B_SEG_ROWS = """__host__ __device__ inline int replay_seg(int n_opt) {
+    int seg = 1;
+    while (seg * seg < n_opt) ++seg;
+    return seg;
+}
+__host__ __device__ inline int replay_state_rows(int n_opt, bool) {
+    const int seg = replay_seg(n_opt);
+    return XRT_STATE_ROWS * ((n_opt + seg - 1) / seg + seg);
+}
+"""
+_K5B_ROWS = """    constexpr int kRows = XRT_STATE_ROWS + (kTorus ? 2 : 0);
+"""
+_K5B_SHARED = """    const bool shared = h + sums + states <= cap;
+"""
+_K5B_LOOP = """        // The first pass, as far as optic n-1's entry. first_dead: the
+        // first optic that lost the ray (alive never returns: every shape's
+        // mask takes the incoming alive), so the ray enters optic i alive
+        // where first_dead >= i.
+        int first_dead = n_opt;
+        for (int e = 0; e < n_opt - 1; ++e) {
+            save_state(rows + kRows * e * per_row, per_row, st);
+            OpticLocals L;
+            grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
+                fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
+                P + e * XRT_GRAD_SLOTS, apf, api, aux, draw, st, L,
+                rows + (kRows * e + XRT_STATE_ROWS) * per_row, per_row, false);
+            if (!st.alive && first_dead == n_opt) first_dead = e;
+        }
+        save_state(rows + kRows * (n_opt - 1) * per_row, per_row, st);
+        // The draw cursor past the last optic, walked back an optic at a
+        // time.
+        int cursor = draw.next + optic_draws<kMosaic>(ip + XRT_HDR_I + (n_opt - 1) * XRT_OPT_I);
+
+        Carry carry{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int i = n_opt - 1; i >= 0; --i) {
+            const int* oi = ip + XRT_HDR_I + i * XRT_OPT_I;
+            cursor -= optic_draws<kMosaic>(oi);
+            Draws d{uniforms, n_total, ray, seed0, seed1, cursor, -1, {0u, 0u, 0u, 0u}};
+            RayState s = load_state(rows + kRows * i * per_row, per_row, lam_r,
+                                    first_dead >= i);
+            const float* o = fp + XRT_SRC_F + i * XRT_OPT_F;
+            const float* Pi = P + i * XRT_GRAD_SLOTS;
+            OpticLocals L;
+            grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
+                o, oi, Pi, apf, api, aux, d, s, L,
+                rows + (kRows * i + XRT_STATE_ROWS) * per_row, per_row, i < n_opt - 1);
+            float acc[XRT_GRAD_USED];
+#pragma unroll
+            for (int k = 0; k < XRT_GRAD_USED; ++k) acc[k] = 0.0f;
+            grad_optic_bwd<kTorus, kCylinder, kSource, kMosaic>(
+                o, oi, Pi, L, s, gimg, carry, SlotRegisters{acc});
+            if (!valid) {
+#pragma unroll
+                for (int k = 0; k < XRT_GRAD_USED; ++k) acc[k] = 0.0f;
+            }
+            warp_slot_add(acc, wrow + i * XRT_GRAD_USED, lane);
+        }
+"""
+_K5B_SEG_LOOP = """        // The first pass, as far as the last state it saves. first_dead:
+        // the first optic that lost the ray (alive never returns: every
+        // shape's mask takes the incoming alive), so the ray enters optic
+        // i alive where first_dead >= i.
+        int first_dead = n_opt;
+        const int last_saved = seg > 0 ? (n_opt - 1) / seg * seg : n_opt - 1;
+        for (int e = 0; e <= last_saved; ++e) {
+            if (seg == 0 || e % seg == 0) {
+                save_state(rows + XRT_STATE_ROWS * (seg > 0 ? e / seg : e) * per_row, per_row,
+                           st);
+            }
+            if (e == last_saved) break;
+            OpticLocals L;
+            grad_optic_fwd<kTorus, kCylinder, kMosaic>(
+                fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
+                P + e * XRT_GRAD_SLOTS, apf, api, aux, draw, st, L);
+            if (!st.alive && first_dead == n_opt) first_dead = e;
+        }
+        // The draw cursor at optic hi, walked back an optic at a time.
+        int cursor = draw.next;
+        for (int e = last_saved; e < n_opt; ++e) cursor += optic_draws<kMosaic>(
+            ip + XRT_HDR_I + e * XRT_OPT_I);
+
+        Carry carry{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int hi = n_opt; hi > 0;) {
+            const int lo = seg > 0 ? (hi - 1) / seg * seg : 0;
+            if (seg > 0) {  // the segment's states again, from its checkpoint
+                int at = cursor;
+                for (int e = lo; e < hi; ++e) at -= optic_draws<kMosaic>(
+                    ip + XRT_HDR_I + e * XRT_OPT_I);
+                Draws d{uniforms, n_total, ray, seed0, seed1, at, -1, {0u, 0u, 0u, 0u}};
+                RayState s = load_state(rows + XRT_STATE_ROWS * (lo / seg) * per_row,
+                                        per_row, lam_r, first_dead >= lo);
+                for (int e = lo; e < hi; ++e) {
+                    save_state(seg_rows + XRT_STATE_ROWS * (e - lo) * per_row, per_row, s);
+                    if (e == hi - 1) break;
+                    OpticLocals L;
+                    grad_optic_fwd<kTorus, kCylinder, kMosaic>(
+                        fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
+                        P + e * XRT_GRAD_SLOTS, apf, api, aux, d, s, L);
+                    if (!s.alive && first_dead == n_opt) first_dead = e;
+                }
+            }
+            for (int i = hi - 1; i >= lo; --i) {
+                const int* oi = ip + XRT_HDR_I + i * XRT_OPT_I;
+                cursor -= optic_draws<kMosaic>(oi);
+                Draws d{uniforms, n_total, ray, seed0, seed1, cursor, -1, {0u, 0u, 0u, 0u}};
+                RayState s = load_state(
+                    seg > 0 ? seg_rows + XRT_STATE_ROWS * (i - lo) * per_row
+                            : rows + XRT_STATE_ROWS * i * per_row,
+                    per_row, lam_r, first_dead >= i);
+                const float* o = fp + XRT_SRC_F + i * XRT_OPT_F;
+                const float* Pi = P + i * XRT_GRAD_SLOTS;
+                OpticLocals L;
+                grad_optic_fwd<kTorus, kCylinder, kMosaic>(o, oi, Pi, apf, api, aux, d, s, L);
+                float acc[XRT_GRAD_USED];
+#pragma unroll
+                for (int k = 0; k < XRT_GRAD_USED; ++k) acc[k] = 0.0f;
+                grad_optic_bwd<kTorus, kCylinder, kSource, kMosaic>(
+                    o, oi, Pi, L, s, gimg, carry, SlotRegisters{acc});
+                if (!valid) {
+#pragma unroll
+                    for (int k = 0; k < XRT_GRAD_USED; ++k) acc[k] = 0.0f;
+                }
+                warp_slot_add(acc, wrow + i * XRT_GRAD_USED, lane);
+            }
+            hi = lo;
+        }
+"""
+_K5B_FIRST_FWD = """            grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
+                fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,
+                P + e * XRT_GRAD_SLOTS, apf, api, aux, draw, st, L,
+                rows + (kRows * e + XRT_STATE_ROWS) * per_row, per_row, false);
+"""
+_K5B_REPLAY_FWD = """            grad_optic_fwd<kTorus, kCylinder, kMosaic, kTorus>(
+                o, oi, Pi, apf, api, aux, d, s, L,
+                rows + (kRows * i + XRT_STATE_ROWS) * per_row, per_row, i < n_opt - 1);
+"""
+K5B_LEADS = {
+    "checkpoints": {_FWD: {
+        _K5B_ROWS_DEF: _K5B_SEG_ROWS,
+        _K5B_ROWS: (
+            "    const int seg = replay_seg(n_opt);\n"
+            "    float* const seg_rows =\n"
+            "        rows + XRT_STATE_ROWS * ((n_opt + seg - 1) / seg) * per_row;\n"),
+        _K5B_SHARED: "    const bool shared = true;\n",
+        _K5B_LOOP: _K5B_SEG_LOOP}},
+    "root_found": {_FWD: {
+        _K5B_ROWS_DEF: _K5B_ROWS_DEF.replace("(XRT_STATE_ROWS + (torus ? 2 : 0))",
+                                             "XRT_STATE_ROWS"),
+        _K5B_ROWS: "    constexpr int kRows = XRT_STATE_ROWS;\n",
+        _K5B_FIRST_FWD: (
+            "            grad_optic_fwd<kTorus, kCylinder, kMosaic>(\n"
+            "                fp + XRT_SRC_F + e * XRT_OPT_F, ip + XRT_HDR_I + e * XRT_OPT_I,\n"
+            "                P + e * XRT_GRAD_SLOTS, apf, api, aux, draw, st, L);\n"),
+        _K5B_REPLAY_FWD: (
+            "            grad_optic_fwd<kTorus, kCylinder, kMosaic>(o, oi, Pi, apf, api, aux, d, s, L);"
+            "\n")}},
+}
+
 LAYOUTS = {"checkout": {}, "all_in": ALL_IN, **LEADS_UNDONE, **MOSAIC_LEADS,
            **K3_LEADS, **SPLIT_LAYOUTS, **K1B_LEADS, **PLASMA_LEADS, **PAIR_LEAD,
-           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS, **K1C_LEADS, **HEAD_LEADS}
+           **K1A_LEADS, **K2_LEADS, **K1D_LEADS, **K1E_LEADS, **K1C_LEADS, **HEAD_LEADS,
+           **CHAIN_SPLIT, **K5B_LEADS}
 
 
 def make_tree(name: str, edits: dict) -> str:
@@ -867,7 +1371,8 @@ def ptxas_lines(report: str) -> list:
         m = re.search(r"(fused_trace_kernel|fused_trace_flat_kernel|fused_trace_cylinder_kernel"
                       r"|fused_trace_dense_kernel|trace_only_kernel"
                       r"|fused_grad_fwd_kernel(?:_64)?"
-                      r"|fused_grad_bwd_kernel|mma_rate_kernel|bin_images?_kernel)(I\w+?E)?E",
+                      r"|fused_grad_bwd_kernel|fused_grad_replay_kernel|mma_rate_kernel"
+                      r"|bin_images?_kernel)(I\w+?E)?E",
                       line)
         if m and "Compiling entry" in line:
             name, stores, frame = m.group(1) + (m.group(2) or ""), 0, 0
@@ -1090,6 +1595,9 @@ def child(tree: str, mode: str) -> None:
         return
     if mode == "k1c":
         k1c_rows(cs, engine, ft, label, ms)
+        return
+    if mode == "long":
+        long_rows(cs, engine, ft, fg, label, ms)
         return
     chains = {"K1a": cs.flagship(n, 1, engine="fused")}
     if hasattr(cs, "mesh_config"):
@@ -1608,6 +2116,136 @@ def k1e_rows(cs, engine, ft, label: str, ms) -> None:
     print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal}), flush=True)
 
 
+def long_rows(cs, engine, ft, fg, label: str, ms) -> None:
+    """The long chains' A/B rows (``--long-only``), per 2^22 rays (least
+    and median of 5 means of 20 calls, Philox): K1 on ``baffle127`` (its
+    counts checked once against the twin's but in ``TIMES_ONLY`` layouts),
+    K1's marked build there (the K1e main step of a 'found' call below the
+    probe's size), K3 on its 2^22 eager rays, and ``raytrace`` of 2^26 x 4
+    rays fused (3 means of 3 calls); K5f and K5b on ``baffle42`` and its
+    forward+vjp step of 2^22 x 4 rays (3 means of 3 calls); beside them K1a
+    and K5b on the flagship, example 07's torus chain and ``mosaic_sphere``.
+    Then K5b's cut-over: the launcher's pick on the flagship's, example
+    07's torus and a plasma's cylinder chain behind 0-5 plates
+    (``with_baffles``), and on the flagship's behind 9, and in a tree with
+    ``K5B_BUILDS`` also each build where it runs. A ``K5B_LEADS`` tree
+    times K5b alone: ``baffle42`` and its step (``checkpoints``), or the
+    torus chains (``root_found``)."""
+    import copy
+
+    import torch
+
+    import xicsrt_tpu_torch
+    from xicsrt_tpu_torch.gradients import make_fused_differentiable
+
+    times, equal, facts = {}, {}, {}
+    n = 1 << 22
+    bs = cs.BS
+    builds = ("replay",) if label == "root_found" else getattr(fg, "K5B_BUILDS", None)
+
+    def calls(fn) -> tuple:
+        means = [cs.cuda_ms(fn, 3) for _ in range(3)]
+        return min(means), statistics.median(means)
+
+    def report():
+        for name, value in times.items():
+            if value is not None:
+                print(f"{label} {name}: {value[0]:.4f} ms least, {value[1]:.4f} ms median",
+                      flush=True)
+        print(json.dumps({"tree": label, "ms": times, "counts_equal_twin": equal,
+                          "k5b_launches": facts}), flush=True)
+
+    k1_rows = (("K1 baffle127", bs.baffle_config(124, n, 1, engine="fused")),
+               ("K1a", cs.flagship(n, 1, engine="fused")))
+    for name, cfg in (() if label in K5B_LEADS else k1_rows):
+        pipe = engine.Pipeline(cfg, device="cuda")
+        fparams = cs.k1_pack(pipe)
+        run = lambda: ft.fused_run_cuda(fparams, n, n, seed=(1, 2))  # noqa: E731
+        times[name] = ms(run)
+        if label not in TIMES_ONLY:
+            equal[name] = bool(torch.equal(
+                run()[0], ft.fused_run_plain(fparams, n, n, seed=(1, 2))[0]))
+        if name == "K1 baffle127":
+            spec = ft._history_spec(pipe, ft._source_spec(pipe.source), 8192, 8, "found")
+            marks = torch.zeros(spec.n_chunks(n) + 1, dtype=torch.int32, device="cuda")
+            times["K1 marked baffle127"] = ms(lambda: cs.k1_direct(
+                ft, fparams, n, (1, 2), None, marks, spec.chunk))
+            k3_pipe = engine.Pipeline(bs.baffle_config(124, n, 1, engine="fused"),
+                                      device="cuda")
+            k3p = cs.k3_pack(ft, k3_pipe)
+            rays = cs.eager_rays(k3_pipe, 50)
+            args = (k3p, rays.origin, rays.direction, rays.wavelength, rays.mask)
+            times["K3 baffle127"] = ms(lambda: ft.fused_trace_run_cuda(*args, seed=(1, 2)))
+            if label not in TIMES_ONLY:
+                equal["K3 baffle127"] = bool(torch.equal(
+                    ft.fused_trace_run_cuda(*args, seed=(1, 2))[0],
+                    ft.fused_trace_run_plain(*args, seed=(1, 2))[0]))
+            del rays, args, marks
+    if label not in K5B_LEADS:
+        big = bs.baffle_config(124, 2**26, 4, engine="fused")
+        times["raytrace baffle127 2^28"] = calls(
+            lambda: xicsrt_tpu_torch.raytrace(copy.deepcopy(big), device="cuda"))
+    if label in CHAIN_SPLIT:
+        report()
+        return
+
+    def k5_setup(cfg):
+        _, _, pack, pipe = make_fused_differentiable(cfg, device="cuda")
+        spec = fg.build_fused_diff(pipe, num_iter=1)[3]
+        st = spec["static"]
+        g = torch.randn(st.img_total, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+        return st, pack(pipe.params).detach(), spec["lam"], spec["n_total"], g
+
+    weight = {"interact_mode": "weight", "image_mode": "bilinear"}
+    if label != "root_found":
+        st, pv, lam, _, g = k5_setup(bs.baffle_config(39, n, 1, **weight))
+        if label not in K5B_LEADS:
+            times["K5f baffle42"] = ms(lambda: fg.fused_grad_forward_cuda(
+                st, pv, n, lam, seed=(1, 2)))
+        times["K5b baffle42"] = ms(lambda: fg.fused_grad_vjp_cuda(st, pv, n, lam, g,
+                                                                  seed=(1, 2)))
+        if builds is not None:
+            facts["K5b baffle42"] = fg.k5b_layout(st, pv.numel(), n)
+        forward, vjp, pack, gpipe = make_fused_differentiable(
+            bs.baffle_config(39, 2**22, 4, **weight), device="cuda")
+        p0 = pack(gpipe.params).detach()
+        times["step baffle42 2^24"] = calls(lambda: vjp(p0, 3, forward(p0, 3)["image"]))
+        del forward, vjp, p0
+    if label == "checkpoints":
+        report()
+        return
+    torus = cs.grad_timing_configs()["torus"]
+    plasma_cyl = cs.grad_variant("plasma_cubic", n)
+    plasma_cyl["optics"]["crystal"]["class_name"] = "XicsrtOpticCylindricalCrystal"
+    chains = {"torus": torus}
+    if label != "root_found":
+        chains.update({"flagship": cs.grad_flagship(n, 1),
+                       "mosaic_sphere": cs.grad_variant("mosaic_sphere", n)})
+    for plates in (1, 2, 3, 4, 5):
+        chains[f"torus+{plates}"] = bs.with_baffles(torus, plates)
+    if label != "root_found":
+        chains["plasma_cylinder"] = plasma_cyl
+        for plates in (1, 2, 3, 4, 5, 9):
+            if plates != 9:
+                chains[f"plasma_cylinder+{plates}"] = bs.with_baffles(plasma_cyl, plates)
+            chains[f"flagship+{plates}"] = bs.baffle_config(plates, n, 1, **weight)
+    for name, cfg in chains.items():
+        st, pv, lam, m, g = k5_setup(cfg)
+        times[f"K5b {name}"] = ms(lambda: fg.fused_grad_vjp_cuda(
+            st, pv, m, lam, g, seed=(1, 2)))
+        for build in builds or ():
+            try:
+                launch = fg.k5b_layout(st, pv.numel(), m, build)
+            except RuntimeError:  # the recomputing build's rows do not fit
+                times[f"K5b {name} {build}"] = None
+                continue
+            facts[f"K5b {name} {build}"] = launch
+            times[f"K5b {name} {build}"] = ms(lambda: fg.fused_grad_vjp_cuda(
+                st, pv, m, lam, g, seed=(1, 2), _build=build))
+    report()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another tree to time as it is")
@@ -1621,6 +2259,8 @@ def main() -> int:
                     help="time K1e's rows only (k1e_rows)")
     ap.add_argument("--k4-only", action="store_true",
                     help="time K4's rows only (k4_rows)")
+    ap.add_argument("--long-only", action="store_true",
+                    help="time the long chains' rows only (long_rows)")
     ap.add_argument("--k1c-only", action="store_true",
                     help="time K1c-mirror's and K1c-cylinder's rows only (k1c_rows)")
     args = ap.parse_args()
@@ -1650,6 +2290,7 @@ def main() -> int:
         if tree in failed:
             continue
         mode = ("stage1" if args.stage1_only else "k1e" if args.k1e_only
+                else "long" if args.long_only
                 else "k4" if args.k4_only else "k1c" if args.k1c_only
                 else "trace" if args.trace_only else "time")
         proc = subprocess.run(child_command(tree, mode),

@@ -236,11 +236,12 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
     against their twins at 2^18 rays, both RNG modes; ``baffle127`` at 2^26
     x 4 through ``raytrace`` on the fused engine, with and without 'found'
     history, against the eager engine at 2^22 x 4; K1's and K3's ms per
-    2^22 rays beside their bounds over the rays alive into each optic; K5f
-    and K5b on ``baffle42`` (42 optics, K5b's rows in device memory)
-    against their twins at 2^18 rays, one ``make_fused_differentiable``
-    step at 2^22 x 4 and their times per 2^22 rays, and K5b on the
-    flagship with its rows in shared and in device memory, in turns.
+    2^22 rays beside their bounds over the rays alive into each optic, and
+    K1's ms a plate (against the flagship's); K5f and K5b on ``baffle42``
+    (42 optics, K5b's replay build) against their twins at 2^18 rays, one
+    ``make_fused_differentiable`` step at 2^22 x 4 and their times per 2^22
+    rays, K5b's optic forwards a ray as built, and K5b on the flagship in
+    its recomputing and its replay build, in turns.
 
 It prints one JSON line of kernel results, then, as its last line, the
 device summary. Any failure raises, and the script exits non-zero without
@@ -4380,11 +4381,12 @@ def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
     history; K1's ms per 2^22 rays beside its bound over the rays alive
     into each optic; K3 through ``build_fused_trace_run`` at 2^22 rays
     (counted around the run) and its time on those rays; K5f and K5b on
-    ``baffle42`` (42 optics: K5b's rows in device memory) against their
+    ``baffle42`` (42 optics: K5b's replay build) against their
     twins at 2^18 rays, one forward and vjp step of
     ``make_fused_differentiable`` at 2^22 x 4 (counted around it), and
-    their times per 2^22 rays; K5b on the flagship with its rows in shared
-    and in device memory, in turns."""
+    their times per 2^22 rays, with K5b's layout and optic forwards a ray;
+    K5b on the flagship in its recomputing and its replay build, in
+    turns."""
     from xicsrt_tpu_torch.gradients import make_fused_differentiable
     from xicsrt_tpu_torch.ops import native
     from xicsrt_tpu_torch.tools.roofline import optic_k1_ops
@@ -4439,6 +4441,13 @@ def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
     fparams = k1_pack(engine.Pipeline(BS.baffle_config(124, n, 1, engine="fused"),
                                       device="cuda"))
     k1 = k1_timing(ft, fparams, n, smi, "K1 on baffle127 (127 optics)", "49")
+    # K1's cost a plate: baffle127 less the flagship it puts behind 124
+    # plates, both in the flat build, at the same rays.
+    fl_fparams = k1_pack(engine.Pipeline(flagship(n, 1, engine="fused"), device="cuda"))
+    k1a_ms = cuda_ms(lambda: ft.fused_run_cuda(fl_fparams, n, n, seed=(1, 2)), 20)
+    k1["ms_a_plate"] = (k1["ms"] - k1a_ms) / 124
+    log(f"phase 49 K1 a plate on {smi}: (baffle127 {k1['ms']:.4f} ms - the flagship "
+        f"{k1a_ms:.4f} ms) / 124 = {k1['ms_a_plate']:.5f} ms a plate per {n} rays")
     head = native.library().xrt_head_floats_of(fparams.fp.numel(), fparams.ip.numel())
     log(f"phase 49 baffle127's build {k1_build_name(fparams)}, head {4 * head} bytes "
         f"({fparams.fp.numel()} floats, {fparams.ip.numel()} ints)")
@@ -4486,10 +4495,7 @@ def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
         e_f, e_b, _ = k5_against_twins(fg, static, pvec, n, lam, g,
                                        f"phase 49 baffle42 {list(kwargs)[0]}", **kwargs)
         k5_err = [max(k5_err[0], e_f), max(k5_err[1], e_b)]
-    layout = (ctypes.c_longlong * 4)()
-    native.check(native.library().xrt_fused_grad_bwd_layout(
-        1 << 22, static.img_total, static.fp.numel(), static.ip.numel(), pvec.numel(),
-        static.n_optics, fg._variant(static), 0, layout), "xrt_fused_grad_bwd_layout")
+    layout = fg.k5b_layout(static, pvec.numel(), 1 << 22)
     fg.fused_grad_forward_cuda.launches = 0
     fg.fused_grad_vjp_cuda.launches = 0
     forward, vjp, pack, gpipe = make_fused_differentiable(
@@ -4522,30 +4528,34 @@ def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
     k5_bytes = packed_bytes(st22.fp, st22.ip, pv22) + st22.img_total * 4
     k5f_bound = bound(k5_bytes, k5_ops(st22, False) * n)
     k5b_bound = bound(k5_bytes + pv22.numel() * 4, k5_ops(st22, True) * n)
-    rows_bytes = 4 * int(layout[0]) * int(layout[2])
-    # What the rows in device memory cost where the shared rows fit: K5b
-    # on the flagship's 2^22 rays in both layouts, in turns.
+    states_bytes = 4 * layout["blocks"] * layout["device_floats"]
+    forwards = fg.k5b_forwards(st22.n_optics, layout["build"])
+    # K5b on the flagship's 2^22 rays in the recomputing build (the
+    # launcher's for short chains) and the replay build, in turns.
     fl_pipe = engine.Pipeline(grad_flagship(n, 1), device="cuda")
     _, _, fl_pack, fl_spec = fg.build_fused_diff(fl_pipe)
     fl_st, fl_lam = fl_spec["static"], fl_spec["lam"]
     fl_pv = fl_pack(fl_pipe.params).detach()
     fl_g = torch.randn(fl_st.img_total, device="cuda", generator=gen)
-    fl_ms = {False: [], True: []}
-    for rows_global in (False, True, True, False):
-        fl_ms[rows_global].append(cuda_ms(lambda: fg.fused_grad_vjp_cuda(
-            fl_st, fl_pv, n, fl_lam, fl_g, seed=(1, 2), global_rows=rows_global), 20))
-    log(f"phase 49 K5b on the flagship's 2^22 rays on {smi}: rows in shared memory "
-        f"{fl_ms[False][0]:.4f}, {fl_ms[False][1]:.4f} ms; in device memory "
-        f"{fl_ms[True][0]:.4f}, {fl_ms[True][1]:.4f} ms (in turns)")
+    fl_ms = {"recompute": [], "replay": []}
+    for fl_build in ("recompute", "replay", "replay", "recompute"):
+        fl_ms[fl_build].append(cuda_ms(lambda: fg.fused_grad_vjp_cuda(
+            fl_st, fl_pv, n, fl_lam, fl_g, seed=(1, 2), _build=fl_build), 20))
+    log(f"phase 49 K5b on the flagship's 2^22 rays on {smi}: the recomputing build "
+        f"{fl_ms['recompute'][0]:.4f}, {fl_ms['recompute'][1]:.4f} ms; the replay build "
+        f"{fl_ms['replay'][0]:.4f}, {fl_ms['replay'][1]:.4f} ms (in turns)")
     log(f"phase 49 timings on {smi}: K5f on baffle42 {k5f_ms:.4f} ms vs twin "
         f"{k5f_plain_ms:.4f} ms, bound {k5f_bound[0]:.4f} ms ({k5f_bound[1]}); K5b "
         f"{k5b_ms:.4f} ms vs twin {k5b_plain_ms:.4f} ms, bound {k5b_bound[0]:.4f} ms "
-        f"({k5b_bound[1]}; one forward and one adjoint a ray, where K5b recomputes "
-        f"{42 * 43 // 2} optic forwards a ray); K5b's layout at 2^22 rays: {layout[0]} "
-        f"blocks of {layout[1]} threads, rows in device memory {rows_bytes} bytes "
-        f"({layout[2]} floats a block), {layout[3]} bytes of dynamic shared memory; "
-        f"forward+vjp step {2**24 / step_ms * 1e3:.4g} rays/s ({step_ms:.2f} ms for 2^24 "
-        f"rays); launches K5f {k5_launches[0]}, K5b {k5_launches[1]}")
+        f"({k5b_bound[1]}; one forward and one adjoint a ray); K5b as built: the "
+        f"{layout['build']} build (saved states in {layout['states']} memory), {forwards} "
+        f"optic forwards and "
+        f"{st22.n_optics} adjoints a ray (the recomputing build: "
+        f"{fg.k5b_forwards(st22.n_optics, 'recompute')}), {layout['blocks']} blocks of "
+        f"{layout['threads']} threads, saved states in device memory {states_bytes} bytes, "
+        f"{layout['smem']} bytes of dynamic shared memory; forward+vjp step "
+        f"{2**24 / step_ms * 1e3:.4g} rays/s ({step_ms:.2f} ms for 2^24 rays); launches K5f "
+        f"{k5_launches[0]}, K5b {k5_launches[1]}")
     return {"k1": dict(k1, launches=k1_launches, err=k1_err, rays_per_s=budget / fused_ms * 1e3,
                        found_rays_per_s=budget / found_ms * 1e3, found_launches=found_launches),
             "k3": {"launches": k3_launches, "err": k3_err, "ms": k3_ms,
@@ -4553,9 +4563,11 @@ def phase_long_chains(smi, ft, fg, engine, raytrace) -> dict:
             "k5f": {"launches": k5_launches[0], "err": k5_err[0], "ms": k5f_ms,
                     "plain_ms": k5f_plain_ms, "bound": k5f_bound},
             "k5b": {"launches": k5_launches[1], "err": k5_err[1], "ms": k5b_ms,
-                    "plain_ms": k5b_plain_ms, "bound": k5b_bound, "rows_bytes": rows_bytes,
-                    "step_ms_2_24": step_ms, "flagship_ms_shared_rows": min(fl_ms[False]),
-                    "flagship_ms_device_rows": min(fl_ms[True])}}
+                    "plain_ms": k5b_plain_ms, "bound": k5b_bound, "build": layout["build"],
+                    "states": layout["states"],
+                    "forwards_a_ray": forwards, "states_bytes": states_bytes,
+                    "step_ms_2_24": step_ms, "flagship_ms_recompute": min(fl_ms["recompute"]),
+                    "flagship_ms_replay": min(fl_ms["replay"])}}
 
 
 def ptxas_entries(report: str, pattern: str) -> list:
@@ -4625,12 +4637,11 @@ def k5_variants(report: str, kernel: str) -> list:
     report."""
     out = []
     for args, regs, stores, loads, frame in ptxas_entries(report, kernel + r"(I\w+?E)E"):
-        # K5b's fifth argument: its rows in device memory (kGlobal).
-        torus, cylinder, source, mosaic, *rows = (
+        torus, cylinder, source, mosaic = (
             int(x) for x in re.findall(r"L[bi](\d+)E", args))
         variant = (torus | (cylinder << 1) | (source << 2)) + 12 * mosaic
         name = (K5B_SOURCES[source] + " +torus" * torus + " +cylinder" * cylinder
-                + " +mosaic" * mosaic + ", rows in device memory" * bool(rows and rows[0]))
+                + " +mosaic" * mosaic)
         out.append((variant, name, regs, stores, loads, frame))
     return sorted(out)
 
@@ -4663,14 +4674,16 @@ def phase_registers(native) -> None:
             f"{resident_warps(regs, threads[0])} warps a multiprocessor by registers")
         if stores or loads:
             spilled.append(f"K5f {name}")
-    for variant, name, regs, stores, loads, frame in k5_variants(report,
-                                                                 "fused_grad_bwd_kernel"):
-        threads = lib.xrt_fused_grad_bwd_threads(variant)
-        log(f"phase 2 K5b variant {variant:2d} ({name}): {regs} registers, {stores} / {loads} "
-            f"bytes spilled (stores / loads), {frame} bytes stack frame, {threads} threads "
-            f"a block, {resident_warps(regs, threads)} warps a multiprocessor by registers")
-        if stores or loads:
-            spilled.append(f"K5b {name}")
+    for kernel, build in (("fused_grad_bwd_kernel", "recomputing"),
+                          ("fused_grad_replay_kernel", "replay")):
+        for variant, name, regs, stores, loads, frame in k5_variants(report, kernel):
+            threads = lib.xrt_fused_grad_bwd_threads(variant)
+            log(f"phase 2 K5b variant {variant:2d} ({name}, {build} build): {regs} registers, "
+                f"{stores} / {loads} bytes spilled (stores / loads), {frame} bytes stack "
+                f"frame, {threads} threads a block, {resident_warps(regs, threads)} warps a "
+                f"multiprocessor by registers")
+            if stores or loads:
+                spilled.append(f"K5b {name} ({build})")
     for kernel, args, regs, stores, loads, frame in k1_ptxas_builds(report):
         src, cheb, stages, mark, shapes, dense = args
         what = {"fused_trace_flat_kernel": ", no torus or cylinder",
@@ -5135,6 +5148,7 @@ def main() -> int:
                k1l["err"], k1l["ms"], k1l["plain_ms"], k1l["bound"],
                bound_flat=k1l["bound_flat"]),
          "rays_per_s_2_28": k1l["rays_per_s"], "found_rays_per_s_2_28": k1l["found_rays_per_s"],
+         "ms_a_plate": k1l["ms_a_plate"],
          "found_launches": k1l["found_launches"]},
         {**row("fused_trace_run_cuda baffle127 (K3, 127 optics)",
                "xicsrt_tpu_torch/csrc/trace_only.cu",
@@ -5144,13 +5158,15 @@ def main() -> int:
         row("fused_grad_forward_cuda baffle42 (K5f, 42 optics)", grad_cu,
             "xicsrt_tpu/ops/fused_grad.py:1727 (42 optics :1709, pallas_call :1906)",
             k5fl["launches"], k5fl["err"], k5fl["ms"], k5fl["plain_ms"], k5fl["bound"]),
-        {**row("fused_grad_vjp_cuda baffle42 (K5b, 42 optics, rows in device memory)",
-               "xicsrt_tpu_torch/csrc/fused_grad_cols.cu",
+        {**row("fused_grad_vjp_cuda baffle42 (K5b, 42 optics, the replay build)",
+               "xicsrt_tpu_torch/csrc/fused_grad_replay.cu",
                "xicsrt_tpu/ops/fused_grad.py:1727 (42 optics :1709, pallas_call :1921)",
                k5bl["launches"], k5bl["err"], k5bl["ms"], k5bl["plain_ms"], k5bl["bound"]),
-         "rows_bytes_2_22": k5bl["rows_bytes"], "step_ms_2_24": k5bl["step_ms_2_24"],
-         "flagship_ms_shared_rows": k5bl["flagship_ms_shared_rows"],
-         "flagship_ms_device_rows": k5bl["flagship_ms_device_rows"]},
+         "build": k5bl["build"], "states": k5bl["states"],
+         "forwards_a_ray": k5bl["forwards_a_ray"],
+         "states_bytes_2_22": k5bl["states_bytes"], "step_ms_2_24": k5bl["step_ms_2_24"],
+         "flagship_ms_recompute": k5bl["flagship_ms_recompute"],
+         "flagship_ms_replay": k5bl["flagship_ms_replay"]},
     ]
     probes_cu = "xicsrt_tpu_torch/csrc/roofline_probes.cu"
     rate_ms = roof["roofline"]["rate_ms"]  # the times of phase 45's rates (R2's: phase 44's)

@@ -239,8 +239,8 @@ K5F_CASES = ([(kind, None) for kind in ("torus_crystal", "convex_torus_mirror",
 @pytest.mark.parametrize("kind,variant", K5F_CASES,
                          ids=[k if v is None else f"variant{v}" for k, v in K5F_CASES])
 def test_fused_grad_variants_match_twins(cuda_device, monkeypatch, kind, variant):
-    """K5f and K5b on curved optics, plasmas, the generic source and mosaics
-    in every build variant, against the float32 twins with
+    """K5f and K5b (both its builds) on curved optics, plasmas, the generic
+    source and mosaics in every build variant, against the float32 twins with
     test_fused_grad_kernels_match_twins's bounds, in both RNG modes, at a
     ray count that is no multiple of the K5f block the launch takes."""
     import chip_smoke
@@ -288,6 +288,9 @@ def test_fused_grad_variants_match_twins(cuda_device, monkeypatch, kind, variant
         scale = grad_twin.abs().max().item()
         assert scale > 0
         torch.testing.assert_close(grad, grad_twin, rtol=1e-3, atol=1e-5 * scale)
+        # K5b's replay build, the launcher's for long chains, in the same variant.
+        replay = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, _build="replay", **kwargs)
+        torch.testing.assert_close(replay, grad_twin, rtol=1e-3, atol=1e-5 * scale)
 
 
 def test_fused_cylinder_kernel_matches_twin(cuda_device):
@@ -1262,33 +1265,35 @@ def _baffle42(n, cuda_device):
 
 
 def test_baffle42_gradients_match_twins(cuda_device):
-    """K5f and K5b on baffle42 (42 optics, K5's longest chain: K5b's rows in
-    device memory) against the float32 twins in both RNG modes, at
-    test_fused_grad_variants_match_twins's bounds."""
+    """K5f and K5b on baffle42 (42 optics, K5's longest chain: the launcher
+    takes K5b's replay build, its saved states in device memory) against
+    the float32 twins in both RNG modes, at
+    test_fused_grad_variants_match_twins's bounds; the recomputing build,
+    whose rows do not fit, asked for explicitly, raises."""
     import chip_smoke
     from xicsrt_tpu_torch.ops import fused_grad as fg
-    from xicsrt_tpu_torch.ops import native
 
     n = (1 << 16) + 17
     pipe, pvec, spec = _baffle42(n, cuda_device)
     static, lam = spec["static"], spec["lam"]
     assert static.n_optics == 42
-    layout = (ctypes.c_longlong * 4)()
-    assert native.library().xrt_fused_grad_bwd_layout(
-        n, static.img_total, static.fp.numel(), static.ip.numel(), pvec.numel(),
-        static.n_optics, fg._variant(static), 0, layout) == 0
-    assert layout[2] > 0  # the rows in device memory
+    launch = fg.k5b_layout(static, pvec.numel(), n)
+    assert (launch["build"], launch["states"]) == ("replay", "device")
     gen = torch.Generator(device=cuda_device).manual_seed(42)
     uniforms = torch.rand((static.n_draws, n), generator=gen, device=cuda_device)
     g = torch.randn(static.img_total, device=cuda_device, generator=gen)
     for kwargs in ({"seed": (8, 9)}, {"uniforms": uniforms}):
         chip_smoke.k5_against_twins(fg, static, pvec, n, lam, g, "baffle42", **kwargs)
+    with pytest.raises(RuntimeError):
+        fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(8, 9), _build="recompute")
 
 
 @pytest.mark.parametrize("kind", ["flagship", "torus_crystal", "plasma_cubic"])
-def test_k5b_rows_in_device_memory_equal_shared(cuda_device, kind):
-    """K5b with its rows in device memory (the layout of long chains) and in
-    shared memory, on a chain both can run: the same vjp, bit for bit."""
+def test_k5b_replay_matches_twin(cuda_device, kind):
+    """K5b's replay build (the launcher's for long chains) on short chains
+    where the launcher takes the recomputing build, its states in shared
+    memory, against the float32 twin at its bounds (rtol 1e-3, atol 1e-5 of
+    the largest slot), and the same vjp run to run."""
     from xicsrt_tpu_torch.ops import fused_grad as fg
 
     n = (1 << 17) + 17
@@ -1300,8 +1305,11 @@ def test_k5b_rows_in_device_memory_equal_shared(cuda_device, kind):
     pvec = pack(pipe.params).detach()
     g = torch.randn(static.img_total, device=cuda_device,
                     generator=torch.Generator(device=cuda_device).manual_seed(3))
-    shared = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5))
-    device_rows = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5),
-                                         global_rows=True)
-    assert shared.abs().max().item() > 0
-    assert torch.equal(shared, device_rows)
+    twin = fg.fused_grad_vjp_plain(static, pvec, n, lam, g, seed=(4, 5))
+    scale = twin.abs().max().item()
+    assert scale > 0
+    assert fg.k5b_layout(static, pvec.numel(), n, "replay")["states"] == "shared"
+    grad = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5), _build="replay")
+    torch.testing.assert_close(grad, twin, rtol=1e-3, atol=1e-5 * scale)
+    again = fg.fused_grad_vjp_cuda(static, pvec, n, lam, g, seed=(4, 5), _build="replay")
+    assert torch.equal(grad, again)

@@ -246,6 +246,40 @@ def test_frame_from_config_defaults_to_cuda(monkeypatch):
     np.testing.assert_array_equal(frame.basis.numpy(), np.asarray(ref.basis))
 
 
+@pytest.mark.parametrize("aim", [[0.0, 0.59497864, -0.80374151], [1.0, -2.0, 0.5]])
+def test_aim_zaxis_matches_jax(aim):
+    """``geometry.aim_zaxis`` (the unit vector from an origin towards an aim
+    point, float64 on the host) equals JAX's bit for bit."""
+    from xicsrt_tpu import geometry as jgeometry
+    from xicsrt_tpu_torch import geometry
+
+    origin = [0.0, 0.0, 0.80374151]
+    z = geometry.aim_zaxis(origin, aim)
+    assert z.dtype == np.float64
+    np.testing.assert_array_equal(z, jgeometry.aim_zaxis(origin, aim))
+    assert abs(np.linalg.norm(z) - 1.0) < 1e-15
+
+
+def test_zero_rays_matches_jax_and_defaults_to_cuda(monkeypatch):
+    """``rays.zero_rays(n, dtype, device)``: an all-dead bundle equal to
+    JAX's ``zero_rays`` field by field (weights 1, masks False), on CUDA
+    unless the caller asks for the CPU, raising without CUDA as every entry
+    point of the port does."""
+    from xicsrt_tpu import rays as jrays
+    from xicsrt_tpu_torch import rays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+        rays.zero_rays(4)
+    for dtype, jdtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        out = rays.zero_rays(5, dtype, device="cpu")
+        ref = jrays.zero_rays(5, jdtype)
+        assert out.n == 5 and out.dtype == dtype and out.device.type == "cpu"
+        assert out.mask.dtype == torch.bool and int(out.num_alive()) == 0
+        for name, value in out.to_dict().items():
+            np.testing.assert_array_equal(value.numpy(), np.asarray(getattr(ref, name)))
+
+
 def test_io_not_ported_raises(tmp_path):
     """IO is ported (``tests/test_torch_io_cli.py``); what raises is an
     output path that does not exist without ``make_directories``, as in

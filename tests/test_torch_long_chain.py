@@ -137,6 +137,11 @@ def test_baffle27_k1_twin_matches_jax_megakernel():
     counts, ref, fparams = k1_twin_against_jax(cfg, seed=27)
     assert fparams.n_optics == 27
     assert int(counts[1]) < N_RAYS and int(counts[-1]) > 20  # the first plate clips
+    # The same counts by the rays' reaches, as K1 takes them.
+    from tests.test_torch_mirror import _uniforms
+
+    uniforms = _uniforms(jax.random.key(27), fparams.n_draws, N_RAYS)
+    _assert_counts_by_reach(*_reaches(fparams, N_RAYS, uniforms))
 
 
 def test_baffle27_found_reservoir_matches_jax():
@@ -304,3 +309,128 @@ def test_a_head_past_a_blocks_shared_memory_is_refused():
     plate["aperture"] = plate["aperture"][:7800]
     fparams = _packed(cfg)[1]
     assert ft.head_bytes(fparams.fp.numel(), fparams.ip.numel()) <= ft.HEAD_MAX_BYTES
+
+
+# ---------------------------------------------------------------------------
+# (f) The premises of the long-chain kernels' designs, on the twins: K1 and
+# K3 count each ray once, by its reach (the source and the elements it
+# leaves alive), and K5b replays each optic from its saved entry state.
+# ---------------------------------------------------------------------------
+
+def _reach_chain(chain, n, mode):
+    general = {"interact_mode": "weight"} if mode == "weight" else {}
+    if chain == "baffle27":
+        return baffle_config(24, n, engine="fused", **general)
+    if chain == "mosaic":
+        return chip_smoke.mosaic15_config(n, 1, "fused", **general)
+    cfg = chip_smoke.variant_config("torus_crystal")
+    cfg["general"].update(engine="fused", number_of_iter=1, **general)
+    cfg["sources"]["source"]["intensity"] = n
+    return cfg
+
+
+def _reaches(fparams, n, uniforms):
+    """The K1 twin on ``n`` rays of ``uniforms`` with its record hook: (each
+    element's alive, the source's as row 0; the twin's counts)."""
+    F, I = [float(x) for x in fparams.fp.tolist()], [int(x) for x in fparams.ip.tolist()]
+    alive = torch.zeros((1 + fparams.n_optics, n), dtype=torch.bool)
+
+    def record(e, px, py, pz, dx, dy, dz, a, wt, wl=None):
+        alive[e] = a
+
+    counts = torch.zeros(1 + fparams.n_optics, dtype=torch.int64)
+    image = torch.zeros(fparams.img_total, dtype=torch.float32)
+    (rays, at_source, attrs), = list(ft._slices(fparams, n, n, None))
+    ft._trace_slice(F, I, fparams.aux, at_source, ft._draws(fparams, rays, uniforms, (0, 0)),
+                    counts, image, attrs, record=record)
+    return alive, counts
+
+
+def _assert_counts_by_reach(alive, counts):
+    """No ray alive after an element where it was dead before it, and the
+    suffix sums of the histogram of the rays' reaches
+    (``ft.reach_counts_plain``, the kernels' ``xrt_count_reach``) are the
+    per-element counts."""
+    assert not bool((alive[1:] & ~alive[:-1]).any())
+    reach = torch.where(alive[0], alive[1:].sum(dim=0), -1)
+    assert torch.equal(ft.reach_counts_plain(reach, alive.shape[0] - 1), counts)
+
+
+@pytest.mark.parametrize("mode", ["mc", "weight"])
+@pytest.mark.parametrize("chain", ["baffle27", "mosaic", "torus"])
+def test_counts_are_the_suffix_sums_of_the_rays_reaches(chain, mode):
+    """Along the K1 twin's chain (its record hook: each element's alive),
+    in mc and weight mode, alive never returns, and the counts K1 and K3
+    now take by reach are the twin's per-element counts (against JAX's on
+    baffle27: test_baffle27_k1_twin_matches_jax_megakernel)."""
+    n = 1024
+    _, fparams = _packed(_reach_chain(chain, n, mode))
+    uniforms = torch.rand((fparams.n_draws, n), generator=torch.Generator().manual_seed(21))
+    alive, counts = _reaches(fparams, n, uniforms)
+    assert int(alive[-1].sum()) > 0 and int(alive[0].sum()) > int(alive[-1].sum())
+    _assert_counts_by_reach(alive, counts)
+    assert torch.equal(counts, ft.fused_run_plain(fparams, n, n, uniforms=uniforms)[0])
+
+
+def _same(a, b) -> bool:
+    """Equal to the bit: tensors (NaN where NaN), and tuples, lists and
+    dicts of them."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        if a.is_floating_point():
+            return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+        return torch.equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("chain", ["baffle42", "mosaic_sphere", "torus_crystal"])
+def test_k5_optic_replayed_from_its_entry_state_gives_the_forwards_locals(chain):
+    """K5b's replay build on the K5 twin: optic i run alone from the ray's
+    saved entry state (position, direction, weight; alive from the first
+    optic that lost the ray) with its draws from a cursor at the source's
+    draws plus the optics' before it (``fg.optic_draws_plain``) gives the
+    full forward's locals, exit state and image terms bit for bit, under
+    explicit uniforms; on baffle42's first 8 optics, a mosaic chain and a
+    torus chain."""
+    n = 256
+    cfg = (baffle_config(39, n, 1, interact_mode="weight", image_mode="bilinear")
+           if chain == "baffle42" else chip_smoke.grad_variant(chain, n))
+    _, _, pack, pipe = make_fused_differentiable(cfg, device="cpu")
+    spec = fg.build_fused_diff(pipe, num_iter=1)[3]
+    static, lam = spec["static"], spec["lam"]
+    P = pack(pipe.params).detach()
+    F, I = fg._static_lists(static)
+    gen = torch.Generator().manual_seed(5)
+    rows = list(torch.rand((static.n_draws, n), generator=gen))
+
+    def draws_from(k):
+        pos = [k]
+
+        def draw():
+            pos[0] += 1
+            return rows[pos[0] - 1]
+        return draw, pos
+
+    draw, pos = draws_from(0)
+    state, lam_r, _ = fg._source_state(F, I, P, torch.arange(n), draw, lam)
+    n_opt = min(I[0], 8)
+    saved = []  # (entry state, cursor, locals, exit state, image terms)
+    for e in range(n_opt):
+        cursor = pos[0]
+        out = fg._optic_fwd(F, I, static.aux, e, P, lam_r, state, draw)
+        assert pos[0] == cursor + fg.optic_draws_plain(I, e)
+        saved.append((state, cursor, *out))
+        state = out[0]
+    exits = torch.stack([s[2][7] for s in saved])
+    first_dead = torch.where(~exits.all(dim=0), (~exits).int().argmax(dim=0), n_opt)
+    for i, (entry, cursor, exit_state, locs, img) in enumerate(saved):
+        alive = first_dead >= i
+        assert torch.equal(alive, entry[7])
+        replay, _ = draws_from(cursor)
+        out = fg._optic_fwd(F, I, static.aux, i, P, lam_r, (*entry[:7], alive), replay)
+        assert _same(out, (exit_state, locs, img)), f"optic {i}"
+    if chain == "mosaic_sphere":
+        assert any(fg.optic_draws_plain(I, e) > 0 for e in range(n_opt))

@@ -159,7 +159,7 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
         const bool alive = xrt_k1_source<kSrc>(fp, ip, voxel, cauchy, draw, r, count, cum,
                                                table, n_bundles, n_per_iter, lane, px, py,
                                                pz, dx, dy, dz, wl);
-        xrt_count_warp(s_counts, 0, alive, lane);
+        xrt_count_source(s_counts, alive, lane);
         const bool found = xrt_trace_chain<kCheb, kStages, XrtNoRecord, kShapes>(
             fp, ip, aux, draw, px, py, pz, dx, dy, dz, wl, per_ray_wl, alive, 1.0f,
             s_counts, img, lane);
@@ -171,11 +171,7 @@ __device__ __forceinline__ void xrt_fused_trace_body(XRT_K1_PARAMS) {
     }
 
     __syncthreads();
-    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {
-        if (s_counts[i]) {
-            atomicAdd(counts + i, (unsigned long long)s_counts[i]);
-        }
-    }
+    xrt_flush_counts(s_counts, n_opt, counts);
     if constexpr (kWindow) {
         float* const g = out + win_lo;
         for (int i = threadIdx.x; i < win_n; i += blockDim.x) {

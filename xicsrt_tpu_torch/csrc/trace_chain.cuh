@@ -7,10 +7,10 @@
 // and mosaic crystals, in mc or weight mode, with nearest or bilinear
 // images; its plain twin is ops/fused_trace.py:_trace_chain_plain.
 //
-// Counts are reduced per warp with __ballot_sync/__popc into the block's
-// shared counters, so every lane of the warp must call it; images go to the
-// block-private histogram (binning.cuh) or to global memory, through the
-// image the caller passes (XrtImage).
+// Counts: each ray's reach (the elements it leaves alive) goes once into
+// the block's shared histogram (xrt_count_reach), so every lane of the warp
+// must call it; images go to the block-private histogram (binning.cuh) or
+// to global memory, through the image the caller passes (XrtImage).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,10 +18,43 @@
 #include "binning.cuh"
 #include "trace_common.cuh"
 
-__device__ __forceinline__ void xrt_count_warp(unsigned int* s_counts, int elem,
-                                               bool alive, int lane) {
+// The source's count: the rays of the warp alive at the source, added by
+// lane 0 into the block's s_counts[0]. Every lane of the warp calls it.
+__device__ __forceinline__ void xrt_count_source(unsigned int* s_counts, bool alive,
+                                                 int lane) {
     const unsigned int b = __ballot_sync(0xffffffffu, alive);
-    if (lane == 0 && b) atomicAdd(s_counts + elem, (unsigned int)__popc(b));
+    if (lane == 0 && b) atomicAdd(s_counts, (unsigned int)__popc(b));
+}
+
+// A ray's counts along the chain, added once after it: alive never returns
+// along a chain (every shape's hit takes the incoming alive, and bounds,
+// apertures and interactions only clear it), so the rays alive after
+// element e are those that leave e + 1 elements or more alive. reach: the
+// elements the ray leaves alive; a ray of reach 1 or more adds 1 to the
+// block's s_counts[reach], a histogram that xrt_flush_counts turns into
+// each element's count by suffix sums. The lanes of one reach add once
+// together (__match_any_sync), so a warp issues one shared atomic a
+// distinct reach where it issued a ballot and a shared atomic an element.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void xrt_count_reach(unsigned int* s_counts, int reach,
+                                                int lane) {
+    const unsigned int peers = __match_any_sync(0xffffffffu, reach);
+    if (reach > 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(s_counts + reach, (unsigned int)__popc(peers));
+    }
+}
+
+// The block's counts: the source's s_counts[0] (xrt_count_source), and
+// element e's, counts[1 + e], the rays that reach 1 + e or further, the sum
+// of s_counts[1 + e .. n_opt] (xrt_count_reach); added to counts where not
+// 0. Called by the whole block after a __syncthreads.
+__device__ __forceinline__ void xrt_flush_counts(const unsigned int* s_counts, int n_opt,
+                                                 unsigned long long* __restrict__ counts) {
+    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {
+        unsigned int c = s_counts[i];
+        for (int j = i + 1; i > 0 && j <= n_opt; ++j) c += s_counts[j];
+        if (c) atomicAdd(counts + i, (unsigned long long)c);
+    }
 }
 
 // The curved shapes a build of the chain compiles (kShapes of
@@ -468,11 +501,47 @@ __device__ __forceinline__ void xrt_splat(const Img& img, int base, float fx, fl
     }
 }
 
+// xrt_apertures of a chain's optic, with a path of its own for a single
+// aperture (a baffle plate's): no loop, and m_out, starting at m_in, is 1
+// wherever the logic is applied, so the result is m_in and the logic's
+// truth table at (1, test). With it K1 on baffle127 ran 12 % faster, and
+// K1a, whose aperture optic holds two, 4 % slower (chip_ab.py
+// `apertures_loop`, PERF.md); K5 keeps xrt_apertures. Folded into
+// xrt_apertures, by peeling its first aperture or with both on shared
+// helpers, it spilled builds held at their register caps (the marked K1
+// builds, K5f's generic-source variant; `apertures_peel`, `apertures_shared`).
+__device__ __forceinline__ bool xrt_chain_apertures(const float* apf, const int* api,
+                                                    int first, int count, float lxv,
+                                                    float lyv, bool m_in) {
+    if (count != 1) return xrt_apertures(apf, api, first, count, lxv, lyv, m_in);
+    const float ax = lxv - apf[first * XRT_AP_F];
+    const float ay = lyv - apf[first * XRT_AP_F + 1];
+    const float p0 = apf[first * XRT_AP_F + 2];
+    const int shape = api[first * XRT_AP_I];
+    bool test;
+    if (shape == 1) {
+        test = ax * ax + ay * ay < p0;
+    } else if (shape == 2) {
+        test = fabsf(ax) < p0 && fabsf(ay) < p0;
+    } else if (shape == 3) {
+        test = fabsf(ax) < p0 && fabsf(ay) < apf[first * XRT_AP_F + 3];
+    } else if (shape == 0) {
+        test = true;
+    } else {
+        const float ex = ax / p0, ey = ay / apf[first * XRT_AP_F + 3];
+        test = ex * ex + ey * ey < 1.0f;
+    }
+    const unsigned int logic = min((unsigned int)api[first * XRT_AP_I + 1], 6u);
+    return m_in && ((0x9617E48u >> (4u * logic + 2u + test)) & 1u);
+}
+
 // Traces a ray from (px, py, pz) along the unit (dx, dy, dz) of wavelength
-// wl and weight wt through the chain, adding to s_counts[1 + e] and the
-// images. per_ray_wl: the crystals take their Bragg angle from wl (the
-// plasma of fused_trace.py:997-1001, and generic sources whose wavelength
-// varies), else the constant sin/cos packed in the optic.
+// wl and weight wt through the chain, adding its reach to the histogram
+// s_counts (xrt_count_reach; the caller counts the source,
+// xrt_count_source) and its terms to the images. per_ray_wl: the crystals
+// take their Bragg angle from wl (the plasma of fused_trace.py:997-1001,
+// and generic sources whose wavelength varies), else the constant sin/cos
+// packed in the optic.
 //
 // kCheb compiles the stage of mesh surrogates (Chebyshev surfaces, shape 4);
 // the host takes this build only for chains that hold one
@@ -529,6 +598,7 @@ __device__ __forceinline__ bool xrt_trace_chain(
     const bool weight = kStages >= 1 && ip[XRT_H_WEIGHT] != 0;
     const bool bilinear = kStages >= 1 && ip[XRT_H_BILINEAR] != 0;
     const bool vote = kSkip && !weight;
+    int reach = 0;  // the elements the ray leaves alive
     for (int e = 0; e < n_opt; ++e) {
         if (vote && !__any_sync(0xffffffffu, alive)) break;
         const float* o = fp + XRT_SRC_F + e * XRT_OPT_F;
@@ -597,7 +667,7 @@ __device__ __forceinline__ bool xrt_trace_chain(
 
         const bool m_in = xrt_bounds(m_int, oi[4], o + 16, lxv, lyv, rx,
                                      ry, rz, o[9], o[10], o[11]);
-        bool mask = xrt_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);
+        bool mask = xrt_chain_apertures(apf, api, oi[6], oi[5], lxv, lyv, m_in);
 
         const bool mosaic = kStages >= 2 && oi[2] == XRT_INTERACT_MOSAIC;
         if (oi[2] == 1 || mosaic) {  // Bragg crystal or mosaic
@@ -640,7 +710,7 @@ __device__ __forceinline__ bool xrt_trace_chain(
             rec(1 + e, px, py, pz, dx, dy, dz, alive, wt);
             continue;
         }
-        xrt_count_warp(s_counts, 1 + e, alive, lane);
+        reach += alive;
 
         // A ray of weight zero adds terms of zero alone.
         if (oi[7] >= 0 && alive && (kStages == 0 || wt != 0.0f)) {
@@ -656,5 +726,6 @@ __device__ __forceinline__ bool xrt_trace_chain(
             }
         }
     }
+    if constexpr (!Rec::kOn) xrt_count_reach(s_counts, reach, lane);
     return alive;
 }

@@ -517,28 +517,28 @@ __device__ __forceinline__ bool xrt_apertures(const float* apf,
         const float ay = lyv - apf[a * XRT_AP_F + 1];
         const float p0 = apf[a * XRT_AP_F + 2];
         const float p1 = apf[a * XRT_AP_F + 3];
+        const int shape = api[a * XRT_AP_I];
         bool test;
-        switch (api[a * XRT_AP_I]) {
-            case 0: test = true; break;
-            case 1: test = ax * ax + ay * ay < p0; break;
-            case 2: test = fabsf(ax) < p0 && fabsf(ay) < p0; break;
-            case 3: test = fabsf(ax) < p0 && fabsf(ay) < p1; break;
-            default: {
-                const float ex = ax / p0, ey = ay / p1;
-                test = ex * ex + ey * ey < 1.0f;
-            }
+        if (shape == 1) {
+            test = ax * ax + ay * ay < p0;
+        } else if (shape == 2) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p0;
+        } else if (shape == 3) {
+            test = fabsf(ax) < p0 && fabsf(ay) < p1;
+        } else if (shape == 0) {
+            test = true;
+        } else {
+            const float ex = ax / p0, ey = ay / p1;
+            test = ex * ex + ey * ey < 1.0f;
         }
         test = test && m_in;
-        bool nv;
-        switch (api[a * XRT_AP_I + 1]) {
-            case 0: nv = m_out && test; break;
-            case 1: nv = m_out && !test; break;
-            case 2: nv = m_out || test; break;
-            case 3: nv = !(m_out && test); break;
-            case 4: nv = !(m_out || test); break;
-            case 5: nv = m_out != test; break;
-            default: nv = m_out == test;
-        }
+        // The logic's truth table, a nibble a code indexed by 2 m_out +
+        // test (0 and 8, 1 and-not 4, 2 or 0xE, 3 nand 7, 4 nor 1, 5 xor 6,
+        // else xnor 9): one shift in place of a switch over seven codes,
+        // and the shapes by frequency, the baffles' circles first
+        // (chip_ab.py `apertures_switch`, PERF.md).
+        const unsigned int logic = min((unsigned int)api[a * XRT_AP_I + 1], 6u);
+        const bool nv = (0x9617E48u >> (4u * logic + 2u * m_out + test)) & 1u;
         m_out = m_in ? nv : m_out;
     }
     return m_out && m_in;

@@ -90,18 +90,14 @@ __global__ void trace_only_kernel(
         const RayIn in = xrt_load_ray<kStages>(r, n, origin, direction, wavelength, mask,
                                                weight);
         Draws draw{uniforms, n, r < n ? r : n - 1, seed0, seed1, 0, -1, {0u, 0u, 0u, 0u}};
-        xrt_count_warp(s_counts, 0, in.alive, lane);
+        xrt_count_source(s_counts, in.alive, lane);
         xrt_trace_chain<kCheb, kStages>(fp, ip, aux, draw, in.px, in.py, in.pz, in.dx,
                                         in.dy, in.dz, in.wl, true, in.alive, in.wt,
                                         s_counts, img, lane);
     }
 
     __syncthreads();
-    for (int i = threadIdx.x; i <= n_opt; i += blockDim.x) {
-        if (s_counts[i]) {
-            atomicAdd(counts + i, (unsigned long long)s_counts[i]);
-        }
-    }
+    xrt_flush_counts(s_counts, n_opt, counts);
     if (use_smem) xrt_smem_flush(s_img, images, img_total);
 }
 

@@ -99,3 +99,13 @@ def frame_from_config(origin, zaxis, xaxis=None, dtype=torch.float32,
         origin=torch.as_tensor(origin, dtype=dtype, device=device),
         basis=torch.as_tensor(basis, dtype=dtype, device=device),
     )
+
+
+def aim_zaxis(origin, aim_point) -> np.ndarray:
+    """Z-axis unit vector pointing from origin towards aim_point, in float64
+    on the host (``xicsrt_tpu.geometry.aim_zaxis``, mirroring
+    ``_GeometryObject.aim_to_point``)."""
+    origin = np.asarray(origin, dtype=np.float64)
+    aim_point = np.asarray(aim_point, dtype=np.float64)
+    z = aim_point - origin
+    return z / np.linalg.norm(z)

@@ -866,6 +866,15 @@ def _optic_bwd(F, I, e, P, s, seed, carry, add_slot):
     return (pbx, pby, pbz), (dbx, dby, dbz), wb, lamb
 
 
+def optic_draws_plain(I, e: int) -> int:
+    """The draws optic ``e`` takes (K5b's ``optic_draws``): a mosaic
+    crystal's three a layer, live or dead, else none; so the draws of optic
+    ``e`` start at the source's draws plus those of the optics before it,
+    where K5b's replay build restarts them."""
+    oi = I[ft.HDR_I + e * ft.OPT_I: ft.HDR_I + (e + 1) * ft.OPT_I]
+    return 3 * oi[ft.OI_DEPTH] if oi[2] == ft._INTERACT["mosaic"] else 0
+
+
 def _image_slots(I):
     """(optic, flat offset, nx, ny) of every imaged optic."""
     out = []
@@ -1077,24 +1086,66 @@ def fused_grad_forward_cuda(static: ft.FusedParams, pvec: torch.Tensor,
 fused_grad_forward_cuda.launches = 0
 
 
+# K5b's builds (``xrt_fused_grad_bwd``'s ``build``, csrc/fused_grad.cu): the
+# build that recomputes each optic's forward from the source, and the replay
+# build, which saves each optic's entry state and runs the optic once more
+# from it before its adjoint.
+K5B_BUILDS = ("recompute", "replay")
+
+
+def k5b_layout(static: ft.FusedParams, n_slots: int, n_total: int,
+               build: str | None = None) -> dict:
+    """The launch K5b makes (``xrt_fused_grad_bwd_layout``) for ``static``,
+    ``n_slots`` parameter slots and ``n_total`` rays, in ``build`` (one of
+    :data:`K5B_BUILDS`, or None for the launcher's pick): its blocks,
+    threads a block, the floats of device memory a block's saved states
+    take, its dynamic shared bytes, the build taken, and where the replay
+    build keeps its saved states (``"shared"`` where they fit beside the
+    blocks its registers allow, else ``"device"``; None when it
+    recomputes). A build that cannot run raises."""
+    lib = native.library()
+    fp, ip, _ = ft._buffers(static, "k5b_layout")
+    out = (ctypes.c_longlong * 5)()
+    code = -1 if build is None else K5B_BUILDS.index(build)
+    native.check(lib.xrt_fused_grad_bwd_layout(
+        n_total, static.img_total, fp.numel(), ip.numel(), n_slots, static.n_optics,
+        _variant(static), code, out), "xrt_fused_grad_bwd_layout")
+    taken = K5B_BUILDS[int(out[4])]
+    states = None if taken == "recompute" else "device" if out[2] else "shared"
+    return {"blocks": int(out[0]), "threads": int(out[1]), "device_floats": int(out[2]),
+            "smem": int(out[3]), "build": taken, "states": states}
+
+
+def k5b_forwards(n_optics: int, build: str) -> int:
+    """Optic forwards K5b runs a ray in ``build`` (:func:`k5b_layout`'s
+    ``build``): n(n + 1) / 2 where it recomputes from the source; where it
+    replays, the first pass up to the last optic's entry and one replay an
+    optic, 2n - 1."""
+    n = n_optics
+    return n * (n + 1) // 2 if build == "recompute" else 2 * n - 1
+
+
 def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
                         n_total: int, lam: float, g_flat: torch.Tensor,
                         uniforms=None, seed=(0, 0),
-                        chunk: int = 32768, global_rows: bool = False) -> torch.Tensor:
+                        chunk: int = 32768, _build: str | None = None) -> torch.Tensor:
     """Gradient of ``sum(g_flat * images)`` with respect to ``pvec``
     (kernel K5b), float32 ``[pvec.numel()]``. The kernel writes one float64
-    row of slot sums per block; they are summed here in float64. Each
-    thread's slot sums, ray and torus roots are rows of shared memory where
-    they fit beside a resident block, else of a scratch buffer in device
-    memory allocated here (``xrt_fused_grad_bwd_layout``; ``global_rows``
-    takes it for any chain, which gives the same bits). Buffers on the CPU
-    take :func:`fused_grad_vjp_plain`, with ``chunk`` rays per slice."""
+    row of slot sums per block; they are summed here in float64. The
+    launcher picks the build (the recomputing build for short chains, the
+    replay build for long ones, :func:`k5b_layout`); saved states that do
+    not fit in shared memory take a scratch buffer allocated here. ``_build``
+    (:data:`K5B_BUILDS`) forces a build, to hold both to the twin and time
+    them; it raises where that build cannot run. Buffers on the CPU take
+    :func:`fused_grad_vjp_plain`, with ``chunk`` rays per slice."""
     device = static.fp.device
     if device.type == "cpu":
         return fused_grad_vjp_plain(static, pvec, n_total, lam, g_flat, uniforms, seed,
                                     chunk)
     if device.type != "cuda":
         raise ValueError(f"fused_grad_vjp_cuda: unsupported device {device}")
+    if _build is not None and _build not in K5B_BUILDS:
+        raise ValueError(f"fused_grad_vjp_cuda: _build must be one of {K5B_BUILDS}")
     uniforms = _check_buffers(static, pvec, n_total, uniforms, "fused_grad_vjp_cuda")
     if (g_flat.device != device or g_flat.dtype != torch.float32
             or tuple(g_flat.shape) != (static.img_total,)):
@@ -1105,22 +1156,11 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         return torch.zeros(n_slots, dtype=torch.float32, device=device)
     lib = native.library()
     fp, ip, aux = ft._buffers(static, "fused_grad_vjp_cuda")
-
-    def layout(rows_global):
-        out = (ctypes.c_longlong * 4)()
-        native.check(lib.xrt_fused_grad_bwd_layout(
-            n_total, static.img_total, fp.numel(), ip.numel(), n_slots, static.n_optics,
-            _variant(static), int(rows_global), out), "xrt_fused_grad_bwd_layout")
-        return int(out[0]), int(out[2])
-
-    # The grid of the shared rows where they fit, so that global_rows sums
-    # each thread's rays in the same order.
-    n_blocks, per_block = layout(False)
-    if global_rows:
-        per_block = layout(True)[1]
-    n_cols = n_blocks * per_block
+    launch = k5b_layout(static, n_slots, n_total, _build)
+    n_blocks = launch["blocks"]
+    n_states = n_blocks * launch["device_floats"]
     partial = torch.empty((n_blocks, n_slots), dtype=torch.float64, device=device)
-    cols = (torch.empty(n_cols, dtype=torch.float32, device=device) if n_cols else None)
+    states = (torch.empty(n_states, dtype=torch.float32, device=device) if n_states else None)
     pvec, g_flat = pvec.contiguous(), g_flat.contiguous()
     err = lib.xrt_fused_grad_bwd(
         fp.data_ptr(), fp.numel(), ip.data_ptr(), ip.numel(), aux.data_ptr(),
@@ -1128,7 +1168,8 @@ def fused_grad_vjp_cuda(static: ft.FusedParams, pvec: torch.Tensor,
         None if uniforms is None else uniforms.data_ptr(),
         int(seed[0]) & _M32, int(seed[1]) & _M32, g_flat.data_ptr(),
         static.img_total, static.n_optics, partial.data_ptr(), n_blocks, _variant(static),
-        None if cols is None else cols.data_ptr(), n_cols, int(global_rows),
+        None if states is None else states.data_ptr(), n_states,
+        -1 if _build is None else K5B_BUILDS.index(_build),
         torch.cuda.current_stream(device).cuda_stream)
     native.check(err, "xrt_fused_grad_bwd")
     fused_grad_vjp_cuda.launches += 1

@@ -1747,6 +1747,17 @@ def _history_buffers(fparams: FusedParams, spec: HistorySpec, device) -> tuple:
             torch.zeros((), dtype=torch.int32, device=device))
 
 
+def reach_counts_plain(reach: torch.Tensor, n_optics: int) -> torch.Tensor:
+    """The kernels' per-element counts from the rays' reaches
+    (``xrt_count_reach``, ``xrt_flush_counts`` in ``csrc/trace_chain.cuh``):
+    ``reach`` the source and the elements each ray leaves alive (-1 for a
+    ray dead at the source). Alive never returns along a chain, so element
+    k's count (k = 0 the source) is the rays that reach k or further, the
+    suffix sum of the histogram of reaches. int64 [1 + n_optics]."""
+    hist = torch.bincount(reach[reach >= 0], minlength=n_optics + 1)
+    return hist.flip(0).cumsum(0).flip(0)
+
+
 def fused_run_plain(fparams: FusedParams, n_total: int, count: int,
                     uniforms: torch.Tensor | None = None, seed=(0, 0),
                     bundles=None, terms: bool = False,

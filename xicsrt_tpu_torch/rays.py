@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from xicsrt_tpu_torch.dispatch import default_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Rays:
@@ -52,6 +54,21 @@ class Rays:
             "weight": self.weight,
             "mask": self.mask,
         }
+
+
+def zero_rays(n: int, dtype=torch.float32, device=None) -> Rays:
+    """An all-dead bundle of ``n`` rays (``xicsrt_tpu.rays.zero_rays``,
+    mirroring ``RayArray.zeros``), with the weight field present (ones).
+    ``device``: by default CUDA, raising without it
+    (``dispatch.default_device``)."""
+    device = default_device(device)
+    return Rays(
+        origin=torch.zeros((n, 3), dtype=dtype, device=device),
+        direction=torch.zeros((n, 3), dtype=dtype, device=device),
+        wavelength=torch.zeros((n,), dtype=dtype, device=device),
+        weight=torch.ones((n,), dtype=dtype, device=device),
+        mask=torch.zeros((n,), dtype=torch.bool, device=device),
+    )
 
 
 def concatenate(bundles: list) -> Rays:
